@@ -1,0 +1,139 @@
+"""The port's StagedEngine against wiser_tpu's StagedEngine (same budget,
+same cold transport, device cold path) and OracleEngine: identical
+(doc, f64 score) lists and the same hot/cold split, at budget 0 and a
+partial budget, packed and raw cold transport, and with PACK_WIDTH = 4
+so runs spill into the raw scratch segment."""
+
+import numpy as np
+import pytest
+
+import wiser_tpu.engine.staged as JS
+import wiser_tpu_torch.engine.staged as TS
+from wiser_tpu.data.synth import synth_docinfos
+from wiser_tpu.index.builder import build_index
+from wiser_tpu.types import SearchQuery
+
+
+def lists(results):
+    return [[(e.doc_id, e.doc_score) for e in r.entries] for r in results]
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    docs = synth_docinfos(n_docs=500, vocab_size=120, mean_len=35, seed=33)
+    return build_index(docs, with_blooms=True)
+
+
+@pytest.fixture
+def device_cold(monkeypatch):
+    monkeypatch.setattr(JS.StagedEngine, "COLD_COMPUTE", "device")
+    monkeypatch.setattr(TS.StagedEngine, "COLD_COMPUTE", "device")
+
+
+def queries(packed, n=60, seed=4):
+    rng = np.random.default_rng(seed)
+    qs = []
+    for _ in range(n):
+        rows = rng.integers(0, packed.n_terms, size=int(rng.integers(1, 5)))
+        qs.append(SearchQuery([packed.terms[r] for r in rows],
+                              n_results=int(rng.integers(1, 12))))
+    # head-term conjunctions and deep single terms (past the impact table)
+    by_df = np.argsort(packed.df)[::-1]
+    qs += [SearchQuery([packed.terms[by_df[i]], packed.terms[by_df[j]]],
+                       n_results=10) for i, j in ((0, 1), (2, 9), (5, 40))]
+    qs += [SearchQuery([packed.terms[by_df[0]]], n_results=100)]
+    return qs
+
+
+def _three_way(packed, oracle, te, je):
+    qs = queries(packed)
+    got = lists(te.search_batch(qs))
+    assert got == lists(je.search_batch(qs))
+    assert got == lists(oracle.search(q) for q in qs)
+    assert sum(map(len, got)) > 100
+
+
+@pytest.mark.parametrize("cold_transfer", ["packed", "raw"])
+@pytest.mark.parametrize("budget_div", [0, 4])  # budget 0 / ~25% hot
+def test_device_cold_three_way(corpus, device_cold, budget_div, cold_transfer):
+    packed, oracle = corpus
+    budget = packed.n_postings * 12 // budget_div if budget_div else 0
+    te = TS.StagedEngine(packed, budget, device="cpu",
+                         cold_transfer=cold_transfer)
+    je = JS.StagedEngine(packed, budget, cold_transfer=cold_transfer)
+    np.testing.assert_array_equal(te.hot_mask, je.hot_mask)
+    np.testing.assert_array_equal(te.phrase_hot_mask, je.phrase_hot_mask)
+    assert te.hot_bytes_used == je.hot_bytes_used
+    assert (te.hot_fraction == 0.0) == (budget == 0)
+    assert 0.0 <= te.hot_fraction < 1.0
+    _three_way(packed, oracle, te, je)
+    st = te.stats_take()
+    assert st["route_cold_device"] > 0
+    if cold_transfer == "packed":
+        assert st["cold_packed_blocks"] > 0
+
+
+def test_pack_width_4_spills_to_raw_segment(corpus, device_cold, monkeypatch):
+    packed, oracle = corpus
+    monkeypatch.setattr(JS, "PACK_WIDTH", 4)
+    monkeypatch.setattr(TS, "PACK_WIDTH", 4)
+    budget = packed.n_postings * 12 // 4
+    te = TS.StagedEngine(packed, budget, device="cpu", cold_transfer="packed")
+    je = JS.StagedEngine(packed, budget, cold_transfer="packed")
+    np.testing.assert_array_equal(te._pack16, je._pack16)
+    assert te._pack16.any() and not te._pack16.all()
+    _three_way(packed, oracle, te, je)
+    st = te.stats_take()
+    assert st["cold_raw_postings"] > 0 and st["cold_packed_blocks"] > 0
+
+
+def test_host_cold_compute_default(corpus):
+    """The default cold backend stays the memoized exact host search."""
+    packed, oracle = corpus
+    assert TS.StagedEngine.COLD_COMPUTE == JS.StagedEngine.COLD_COMPUTE == "host"
+    te = TS.StagedEngine(packed, 0, device="cpu")
+    _three_way(packed, oracle, te, JS.StagedEngine(packed, 0))
+    assert te.stats_take()["route_cold_host"] > 0
+
+
+def test_many_cold_chunks(corpus, device_cold, monkeypatch):
+    """A small chunk limit splits one batch's cold set into many staged
+    scratch chunks (each its own decode)."""
+    packed, oracle = corpus
+    monkeypatch.setattr(TS, "CHUNK_LIMIT", 8192 + 3000)
+    te = TS.StagedEngine(packed, 0, device="cpu")
+    qs = queries(packed)
+    assert lists(te.search_batch(qs)) == lists(oracle.search(q) for q in qs)
+    assert te.stats_take()["cold_chunks"] > 3
+
+
+def test_more_than_eight_terms_cold(corpus, device_cold):
+    """Cold long-tail queries run with the exact slot count (the oracle is
+    the reference: the JAX staged engine's 8-slot cold arrays cannot hold
+    them)."""
+    packed, oracle = corpus
+    te = TS.StagedEngine(packed, 0, device="cpu")
+    by_df = np.argsort(packed.df)[::-1]
+    qs = [SearchQuery([packed.terms[r] for r in by_df[:n]], n_results=10)
+          for n in (9, 11)]
+    got = lists(te.search_batch(qs))
+    assert got == lists(oracle.search(q) for q in qs)
+    assert any(got)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_per_term_device_cost_matches(corpus, split):
+    packed, _ = corpus
+    got = TS.per_term_device_cost(packed, split=split)
+    want = JS.per_term_device_cost(packed, split=split)
+    for a, b in zip(got if split else [got], want if split else [want]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_phrase_query_raises(corpus):
+    packed, _ = corpus
+    eng = TS.StagedEngine(packed, 0, device="cpu")
+    with pytest.raises(NotImplementedError):
+        eng.search_batch([SearchQuery(["t0"], n_results=3),
+                          SearchQuery(["t0", "t1"], n_results=3,
+                                      is_phrase=True)])

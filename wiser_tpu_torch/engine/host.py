@@ -1,0 +1,135 @@
+"""Host-side helpers of the engine (ported from wiser_tpu/engine/device.py,
+which imports jax.numpy and so cannot be imported by the port): shape
+buckets, the exact host search, the single-term impact table, query slot
+planning and the padded device columns."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Sequence
+
+import numpy as np
+
+from wiser_tpu_torch.engine.kernels import FLAG_TRUNC, INT32_MAX
+from wiser_tpu_torch.shared import K1, PackedIndex, SearchQuery
+
+L_BUCKETS = [128, 512, 2048, 8192, 32768, 131072, 524288, 2097152]
+B_BUCKETS = [8, 32, 128, 1024, 4096]
+B_CHUNK = 4096
+T_BUCKETS = [1, 2, 3, 4, 8]
+DEFAULT_MARGIN = 54  # M = k + margin
+
+
+def _bucket(value: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if value <= b:
+            return b
+    return buckets[-1]
+
+
+def host_exact_search(packed: PackedIndex, cache64: np.ndarray,
+                      rows: Sequence[int], k: int):
+    """Exact host conjunctive search over the packed columns: the
+    fallback for guard-flagged and saturated queries, and the reference
+    semantics for one-off queries. Returns (docs int64[<=k], scores
+    f64[<=k]) in final (score desc, doc asc) order."""
+    dfs = [int(packed.df[r]) for r in rows]
+    cand = int(np.argmin(dfs))
+    cs = int(packed.term_starts[rows[cand]])
+    docs = packed.postings_doc[cs : cs + dfs[cand]].astype(np.int64)
+    mask = np.ones(len(docs), dtype=bool)
+    tfs = np.zeros((len(rows), len(docs)), dtype=np.int64)
+    for t, r in enumerate(rows):
+        st, n = int(packed.term_starts[r]), dfs[t]
+        arr = packed.postings_doc[st : st + n]
+        idx = np.searchsorted(arr, docs)
+        idc = np.minimum(idx, n - 1)
+        mask &= (idx < n) & (arr[idc] == docs)
+        tfs[t] = packed.postings_tf[st + idc]
+    docs_m = docs[mask]
+    if docs_m.size == 0:
+        return docs_m, np.zeros(0, dtype=np.float64)
+    tfs_m = tfs[:, mask].astype(np.float64)
+    cache_val = cache64[packed.doc_len_code[docs_m] & 0xFF]
+    score = np.zeros(docs_m.size, dtype=np.float64)
+    for t, r in enumerate(rows):
+        f = tfs_m[t]
+        score = score + np.float64(packed.idf64[r]) * ((f * (K1 + 1)) / (f + cache_val))
+    order = np.lexsort((docs_m, -score))[:k]
+    return docs_m[order], score[order]
+
+
+def tie_class_cut(flags: np.ndarray, score_f: np.ndarray, n_valid: np.ndarray,
+                  ks: np.ndarray, rel_eps: float) -> np.ndarray:
+    """(B,) bool: rows whose f32 boundary class was truncated (FLAG_TRUNC)
+    and whose k-th kept f64 score ties the last kept one within rel_eps,
+    exact ties included.
+
+    Such a row's top-k reaches into the truncated class, so which of its
+    tied lanes the device kept decides the answer. The JAX engine leaves
+    exact ties to lax.top_k's lowest-index tie-break; torch.topk has no
+    tie-break, so these rows take the exact host path. Rows whose k-th
+    score clears the boundary by more than rel_eps are exact whichever
+    tied lanes were kept (truncation_suspects covers the distinct near
+    ties)."""
+    B, M = score_f.shape
+    full = n_valid >= M
+    k_idx = np.minimum(np.maximum(ks, 1) - 1, M - 1).astype(np.int64)
+    kth = score_f[np.arange(B), k_idx]
+    last = score_f[:, M - 1]
+    near = np.abs(kth - last) <= rel_eps * np.maximum(np.abs(kth), 1e-30)
+    return ((flags & FLAG_TRUNC) != 0) & full & near
+
+
+def build_single_term_table(packed: PackedIndex, scores64: np.ndarray,
+                            depth: int):
+    """Impact-ordered per-term top tables: each term's first min(df,
+    depth) postings in the exact (f64 score desc, doc asc) canon, so a
+    single-term query with k <= depth (or k >= df) is a host slice.
+
+    Returns (tt_starts int64[T+1], tt_docs int64[...], tt_scores f64)."""
+    lens = np.diff(packed.term_starts)
+    term_of = np.repeat(np.arange(packed.n_terms, dtype=np.int64), lens)
+    # sentinel pads score exactly 0.0 < any real score -> sorted last
+    order = np.lexsort((packed.postings_doc, -scores64, term_of))
+    # cap by actual run length too: a staged hot view keeps global df
+    # for cold rows but gives them zero-length runs
+    cnt = np.minimum(np.minimum(packed.df, lens), depth).astype(np.int64)
+    tt_starts = np.zeros(packed.n_terms + 1, dtype=np.int64)
+    np.cumsum(cnt, out=tt_starts[1:])
+    total = int(tt_starts[-1])
+    seg = packed.term_starts.astype(np.int64)
+    idx = order[np.repeat(seg[:-1], cnt)
+                + np.arange(total) - np.repeat(tt_starts[:-1], cnt)]
+    return tt_starts, packed.postings_doc[idx].astype(np.int64), scores64[idx]
+
+
+def padded_host_columns(packed: PackedIndex, scores64: np.ndarray,
+                        l_buckets: Sequence[int] = L_BUCKETS):
+    """The raw device columns as host arrays: (doc int32, score f32, tf
+    int32), each padded past the real data by one max-L bucket + 4096
+    (doc pad INT32_MAX, score/tf pad 0) so no candidate slice starting
+    inside the data is ever clamped."""
+    pad = _bucket(int(packed.df.max(initial=1)), l_buckets) + 4096
+    h_doc = np.pad(packed.postings_doc, (0, pad),
+                   constant_values=INT32_MAX).astype(np.int32)
+    h_score = np.pad(scores64.astype(np.float32), (0, pad))
+    h_tf = np.pad(packed.postings_tf, (0, pad)).astype(np.int32)
+    return h_doc, h_score, h_tf
+
+
+@dataclass
+class _PlannedQuery:
+    qi: int  # index into the input batch
+    rows: List[int]  # term dictionary rows, query order
+    query: SearchQuery
+    slot_rows: List[int] = field(default_factory=list)  # candidate-first
+    slot_of_term: List[int] = field(default_factory=list)  # query t -> slot
+
+    def plan_slots(self, df: np.ndarray) -> None:
+        cand = int(np.argmin([df[r] for r in self.rows]))
+        order = [cand] + [t for t in range(len(self.rows)) if t != cand]
+        self.slot_rows = [self.rows[t] for t in order]
+        self.slot_of_term = [0] * len(self.rows)
+        for slot, t in enumerate(order):
+            self.slot_of_term[t] = slot

@@ -1,0 +1,586 @@
+"""StagedEngine — host-to-device posting staging for indexes larger than
+device memory (port of wiser_tpu/engine/staged.py, non-phrase queries).
+
+The paper's "read as needed": a hot tier of posting columns stays on
+the device (a TorchEngine over a hot view of the index, chosen within a
+byte budget); queries touching cold terms have the needed posting runs
+staged per batch into a scratch column set and run the same bs kernel
+against it. With cold_transfer="packed", staged doc ids whose block
+deltas fit PACK_WIDTH bits ship bit-packed and are decoded on the device
+by the hand-written CUDA kernel (ops/unpack.py); wider runs ship raw in
+a trailing segment.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import replace
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from wiser_tpu_torch.engine import kernels as K
+from wiser_tpu_torch.engine.device import (
+    BS_LANE_BUDGET,
+    TorchEngine,
+    _not_phrase,
+    bs_chunk,
+)
+from wiser_tpu_torch.engine.host import (
+    B_BUCKETS,
+    L_BUCKETS,
+    _bucket,
+    build_single_term_table,
+    host_exact_search,
+    tie_class_cut,
+)
+from wiser_tpu_torch.ops.unpack import (
+    combine_doc_column,
+    doc_block_deltas,
+    doc_block_widths,
+)
+from wiser_tpu_torch.runtime import resolve_device
+from wiser_tpu_torch.shared import (
+    BLOCK,
+    SENTINEL_DOC,
+    Bm25Similarity,
+    PackedIndex,
+    SearchQuery,
+    SearchResult,
+    native,
+    rescore_sorted_arrays,
+    truncation_suspects,
+)
+
+# CHUNK_LIMIT bounds a cold chunk's staged postings; the top scratch
+# bucket is 2x that because the packed-transport cap must also cover
+# A_total + Grawb*BLOCK, whose raw-segment bucket rounding can add up to
+# ~2^23 on top of the chunk itself.
+CHUNK_LIMIT = 1 << 23
+SCRATCH_BUCKETS = [1 << 15, 1 << 17, 1 << 19, 1 << 21, 1 << 23, 1 << 24]
+# cold-path shape buckets (coarser than the resident engine's)
+COLD_L_BUCKETS = [8192, 65536, 524288, L_BUCKETS[-1]]
+COLD_B_BUCKETS = [128, 1024, B_BUCKETS[-1]]
+COLD_T_BUCKETS = [1, 2, 4, 8]
+# Multi-term cold queries above this candidate df take the exact host
+# path. Without it a cold bs group at the top L bucket (2^21) would need
+# B*(T-1)*2^21 lanes of intermediates (tens of GB at B = 4096); revisit
+# once the cold bs groups are lane-budgeted like the resident ones.
+COLD_L_MAX_MULTI = 524288
+BYTES_PER_POSTING = 12  # doc + tf + score columns (raw layout)
+# the resident engine stores bloom rows only for terms up to this df
+BLOOM_DF_CEILING = 32768
+# packed cold transport: blocks whose delta width fits PACK_WIDTH ship
+# bit-packed and decode on the device; wider blocks ship raw
+PACK_WIDTH = 16
+_G16_BUCKETS = [1 << 8, 1 << 10, 1 << 12, 1 << 14, 1 << 16]
+_GRAW_BUCKETS = [1 << 6, 1 << 9, 1 << 12, 1 << 16]
+
+
+def per_term_device_cost(packed: PackedIndex, columns: str = "raw",
+                         split: bool = False) -> np.ndarray:
+    """int64[n_terms] device bytes a term costs when resident, as the
+    JAX engine lays it out: CSR posting columns (+ the int32 pos_starts
+    lane), position bags and the term's share of the sparse bloom
+    columns. The port uploads only the posting columns, but charges the
+    same bytes so the hot/cold split is the reference's.
+
+    With split=True returns (core, phrase): core serves boolean/ranked
+    queries, phrase (position bags + bloom rows) only phrase queries."""
+    if columns != "raw":
+        raise NotImplementedError("only raw columns are ported")
+    lens = np.diff(packed.term_starts).astype(np.int64)
+    core = lens * (BYTES_PER_POSTING + 4)  # +4: int32 pos_starts per posting
+    s = packed.term_starts
+    pos_cnt = (packed.pos_starts[s[1:]]
+               - packed.pos_starts[s[:-1]]).astype(np.int64)
+    pos_b = 2 if (len(packed.positions) == 0
+                  or int(packed.positions.max(initial=0)) < 2**16 - 1) else 4
+    phrase = pos_cnt * pos_b
+    if packed.bloom_ends is not None:
+        gate = packed.df <= BLOOM_DF_CEILING
+        for rows in (packed.bloom_ends, packed.bloom_begins):
+            fold = rows[:, 0].copy()
+            for w in range(1, rows.shape[1]):
+                np.bitwise_or(fold, rows[:, w], out=fold)
+            stored = (fold != 0) & np.repeat(gate, lens)
+            csum = np.zeros(len(stored) + 1, dtype=np.int64)
+            np.cumsum(stored, out=csum[1:])
+            phrase += (csum[s[1:]] - csum[s[:-1]]) * 4
+        # presence bitmap + rank lane, both sides: ~0.5 B per posting
+        core += (lens + 1) // 2
+    if split:
+        return core, phrase
+    return core + phrase
+
+
+def _hot_view(packed: PackedIndex, hot: np.ndarray, phrase_hot: np.ndarray):
+    """A PackedIndex whose posting columns hold only the `hot` terms; cold
+    terms keep their real df (global stats stay global) on zero-length
+    runs. Every per-posting column (docs, tfs, position/offset bags, bloom
+    rows) is remapped through the same gather; phrase-cold terms get
+    empty position bags and zeroed bloom rows."""
+    lens = np.diff(packed.term_starts)
+    new_starts = np.zeros(packed.n_terms + 1, dtype=np.int64)
+    np.cumsum(np.where(hot, lens, 0), out=new_starts[1:])
+    P_hot = int(new_starts[-1])
+    gather = np.empty(P_hot, dtype=np.int64)
+    keep_pos = np.empty(P_hot, dtype=bool)
+    for r in np.nonzero(hot)[0]:
+        s_old, n = int(packed.term_starts[r]), int(lens[r])
+        s_new = int(new_starts[r])
+        gather[s_new : s_new + n] = np.arange(s_old, s_old + n)
+        keep_pos[s_new : s_new + n] = bool(phrase_hot[r])
+    doc = packed.postings_doc[gather].astype(np.int32, copy=False)
+    tf = packed.postings_tf[gather].astype(np.int32, copy=False)
+
+    def _regather_csr(starts: np.ndarray, *payloads, keep=None):
+        seg_lens = np.diff(starts)[gather]
+        if keep is not None:
+            seg_lens[~keep] = 0
+        new_csr = np.zeros(P_hot + 1, dtype=np.int64)
+        np.cumsum(seg_lens, out=new_csr[1:])
+        outs = tuple(np.empty(int(new_csr[-1]), dtype=p.dtype) for p in payloads)
+        # slabbed ragged gather bounds the int64 index temporary
+        CH = 1 << 25
+        for s0 in range(0, P_hot, CH):
+            s1 = min(s0 + CH, P_hot)
+            t0, t1 = int(new_csr[s0]), int(new_csr[s1])
+            if t1 == t0:
+                continue
+            lens_sl = seg_lens[s0:s1]
+            idx = (np.repeat(starts[gather[s0:s1]], lens_sl)
+                   + np.arange(t1 - t0, dtype=np.int64)
+                   - np.repeat(new_csr[s0:s1] - t0, lens_sl))
+            for p, o in zip(payloads, outs):
+                o[t0:t1] = p[idx]
+        return (new_csr,) + outs
+
+    pos_starts, positions = _regather_csr(packed.pos_starts, packed.positions,
+                                          keep=keep_pos)
+    off_starts, off_begin, off_end = _regather_csr(
+        packed.off_starts, packed.off_begin, packed.off_end)
+    bloom_ends = (packed.bloom_ends[gather]
+                  if packed.bloom_ends is not None else None)
+    bloom_begins = (packed.bloom_begins[gather]
+                    if packed.bloom_begins is not None else None)
+    if bloom_ends is not None and not keep_pos.all():
+        bloom_ends[~keep_pos] = 0
+        bloom_begins[~keep_pos] = 0
+    return replace(
+        packed, term_starts=new_starts, postings_doc=doc, postings_tf=tf,
+        pos_starts=pos_starts, positions=positions, off_starts=off_starts,
+        off_begin=off_begin, off_end=off_end, bloom_ends=bloom_ends,
+        bloom_begins=bloom_begins, term_to_row=packed.term_to_row,
+        idf64=packed.idf64, max_tf=packed.max_tf)
+
+
+class StagedEngine:
+    # Cold compute backend: "host" answers every cold query with the
+    # memoized exact host search; "device" stages the cold runs to a
+    # scratch column set and runs the bs kernel on the card. The default
+    # is the reference's; changing it is a measured decision.
+    COLD_COMPUTE = "host"
+    COLD_HOST_CACHE_CAP = 200_000
+
+    def __init__(self, packed: PackedIndex, hbm_budget_bytes: int, *,
+                 device, margin: int = 54, strict_parity: bool = False,
+                 columns: str = "raw", cold_transfer: str = "packed"):
+        """hbm_budget_bytes: the total device budget. It splits across the
+        dense rows, CSR cores and phrase components by their
+        full-residency byte shares, spilling unspendable remainders dense
+        -> core -> phrase (the reference's proportional-share planner)."""
+        if cold_transfer not in ("raw", "packed"):
+            raise ValueError(f"unknown cold_transfer {cold_transfer!r}")
+        if columns != "raw":
+            raise NotImplementedError(
+                f"columns={columns!r}: only raw columns are ported (ROADMAP A.7)")
+        self.device = resolve_device(device)
+        self.cold_transfer = cold_transfer
+        self.columns = columns
+        self.packed = packed
+        self.strict_parity = strict_parity
+        cost_core, cost_phr = per_term_device_cost(packed, columns, split=True)
+        n_pad = (packed.n_docs + 127) // 128 * 128
+        per_row = n_pad * 8 + (n_pad // 128) * 9
+        dense_min = max(TorchEngine.DENSE_MIN_DF_FLOOR,
+                        packed.n_docs // TorchEngine.DENSE_ELIGIBLE_FRACTION)
+        eligible = packed.df >= dense_min
+        h_cap = max(0, (2**31 - 1) // max(n_pad // 128, 1) - 1)
+        full_dense = min(int(eligible.sum()), h_cap) * per_row
+        full_core = int(cost_core.sum())
+        full_phr = int(cost_phr.sum())
+        total_full = max(1, full_dense + full_core + full_phr)
+        B = int(hbm_budget_bytes)
+        if B >= total_full - total_full // 1000:
+            dense_budget, core_budget, phrase_budget = (
+                full_dense, full_core, full_phr)
+        else:
+            s_dense = B * full_dense // total_full
+            s_core = B * full_core // total_full
+            s_phr = B - s_dense - s_core
+            dense_budget = min(full_dense, s_dense)
+            carry = s_dense - dense_budget
+            core_budget = min(full_core, s_core + carry)
+            carry = s_core + carry - core_budget
+            phrase_budget = s_phr + carry
+
+        # CSR admission: df desc, dense-eligible terms last (their dense
+        # rows serve every non-phrase shape)
+        order = np.lexsort((-packed.df, eligible))
+        hot = np.zeros(packed.n_terms, dtype=bool)
+        used = 0
+        for r in order:
+            run = int(cost_core[r])
+            if used + run > core_budget:
+                continue
+            used += run
+            hot[r] = True
+        phrase_hot = np.zeros(packed.n_terms, dtype=bool)
+        used_p = 0
+        for r in order:
+            if not hot[r]:
+                continue
+            run = int(cost_phr[r])
+            if used_p + run > phrase_budget:
+                continue
+            used_p += run
+            phrase_hot[r] = True
+        self.hot_mask = hot
+        self.phrase_hot_mask = phrase_hot
+        self.hot = TorchEngine(
+            _hot_view(packed, hot, phrase_hot), device=self.device,
+            margin=margin, strict_parity=strict_parity, columns=columns,
+            dense_budget_bytes=dense_budget, dense_from=packed,
+            host_packed=packed, single_term_depth=0)
+        self.dense_mask = self.hot._dense_slot >= 0
+        self.hot_bytes_used = int(used + used_p)
+        self.margin = margin
+        self.similarity = Bm25Similarity(packed.avg_len)
+        self.cache64 = self.similarity.cache
+        scores64 = packed.partial_scores(self.cache64)
+        self._scores32 = scores64.astype(np.float32)
+        # full-index single-term impact table (host RAM, any budget)
+        self._st_depth = 64
+        self._tt_starts, self._tt_docs, self._tt_scores = \
+            build_single_term_table(packed, scores64, self._st_depth)
+        del scores64
+        self._starts32 = packed.term_starts.astype(np.int32)
+        self._df32 = packed.df.astype(np.int32)
+        self._lens = np.diff(packed.term_starts).astype(np.int64)
+        self._max_df = int(packed.df.max(initial=1))
+        self._cold_host_cache: Dict[tuple, tuple] = {}
+        self.stats: Dict[str, float] = {}
+        if cold_transfer == "packed":
+            # per-term "every block packs at PACK_WIDTH" flag (runs are
+            # 128-aligned, so a term's blocks are one contiguous range)
+            bw = doc_block_widths(packed.postings_doc)
+            tb0 = (packed.term_starts[:-1] // BLOCK).astype(np.int64)
+            self._pack16 = (np.maximum.reduceat(bw, tb0) <= PACK_WIDTH
+                            if len(bw) else np.zeros(0, dtype=bool))
+
+    @property
+    def hot_fraction(self) -> float:
+        return float(self.hot_mask.mean()) if len(self.hot_mask) else 0.0
+
+    def device_bytes(self) -> dict:
+        """Resident (hot-tier) device bytes."""
+        return self.hot.device_bytes()
+
+    def search(self, query: SearchQuery) -> SearchResult:
+        return self.search_batch([query])[0]
+
+    def search_batch(self, queries: List[SearchQuery]) -> List[SearchResult]:
+        results, pending = self.submit_batch(queries)
+        self.run_pending(results, pending)
+        return results
+
+    def run_pending(self, results, pending) -> None:
+        self.hot.run_pending(results, pending)
+
+    def _bump(self, **deltas) -> None:
+        for k, v in deltas.items():
+            self.stats[k] = self.stats.get(k, 0) + v
+
+    def stats_take(self) -> Dict[str, float]:
+        """Return and reset the cold-path counters merged with the hot
+        engine's (hot keys prefixed "hot_")."""
+        out, self.stats = self.stats, {}
+        for k, v in self.hot.stats_take().items():
+            out[f"hot_{k}"] = v
+        return out
+
+    def _serve_single(self, qi: int, row: int, q: SearchQuery,
+                      results: List[SearchResult]) -> bool:
+        k = q.n_results
+        s, e = int(self._tt_starts[row]), int(self._tt_starts[row + 1])
+        cnt = e - s
+        if k > cnt and int(self.packed.df[row]) > cnt:
+            return False
+        take = min(k, cnt)
+        results[qi].set_arrays(self._tt_docs[s : s + take],
+                               self._tt_scores[s : s + take])
+        return True
+
+    def submit_batch(self, queries: List[SearchQuery]):
+        results = [SearchResult() for _ in queries]
+        lookup = self.packed.term_to_row.get
+        hot_q: List[SearchQuery] = []
+        hot_qi: List[int] = []
+        cold: List[Tuple[int, List[int], SearchQuery]] = []
+        for qi, q in enumerate(queries):
+            _not_phrase(q)
+            if q.n_results <= 0 or not q.terms:
+                continue
+            rows = [lookup(t, -1) for t in q.terms]
+            if min(rows) < 0:
+                continue
+            if len(rows) == 1 and self._serve_single(qi, rows[0], q, results):
+                self._bump(route_single_table=1)
+                continue
+            if all(self.hot_mask[r] or self.dense_mask[r] for r in rows):
+                hot_q.append(q)
+                hot_qi.append(qi)
+            else:
+                cold.append((qi, rows, q))
+
+        hot_results, hot_pending = self.hot.submit_batch(hot_q)
+        for j, qi in enumerate(hot_qi):
+            results[qi] = hot_results[j]  # shared objects, filled below
+        # inner finalizers index the inner batch: bind them to hot_results
+        pending = []
+        for f in hot_pending:
+            w = (lambda res_list, f=f: f(hot_results))
+            if getattr(f, "barrier", False):
+                w.barrier = True
+            pending.append(w)
+        pending += self._submit_cold(cold)
+        return results, pending
+
+    # -- cold path -------------------------------------------------------
+
+    def _host_exact_memo(self, rows, k: int):
+        key = (tuple(rows), int(k))
+        hit = self._cold_host_cache.get(key)
+        if hit is None:
+            if len(self._cold_host_cache) >= self.COLD_HOST_CACHE_CAP:
+                self._cold_host_cache.clear()
+            hit = host_exact_search(self.packed, self.cache64, rows, k)
+            self._cold_host_cache[key] = hit
+        return hit
+
+    def clear_result_memos(self) -> None:
+        self._cold_host_cache.clear()
+        self.hot.clear_result_memos()
+
+    def _submit_cold(self, cold):
+        """Chunk the cold set so each chunk's staged postings fit the
+        largest scratch bucket, then stage chunk by chunk."""
+        if not cold:
+            return []
+        if self.COLD_COMPUTE == "host":
+            self._bump(route_cold_host=len(cold))
+
+            def run_host_cold(res_list, cold=cold):
+                for qi, rows, q in cold:
+                    res_list[qi].set_arrays(
+                        *self._host_exact_memo(rows, q.n_results))
+
+            return [run_host_cold]
+
+        pending = []
+
+        def _is_sat(item):
+            rows = item[1]
+            mn = min(int(self._df32[r]) for r in rows)
+            return mn > (COLD_L_MAX_MULTI if len(rows) > 1 else L_BUCKETS[-1])
+
+        sat = [it for it in cold if _is_sat(it)]
+        if sat:
+            cold = [it for it in cold if not _is_sat(it)]
+            self._bump(route_cold_sat_host=len(sat))
+
+            def run_host_sat(res_list, sat=sat):
+                t0 = time.perf_counter()
+                for qi, rows, q in sat:
+                    res_list[qi].set_arrays(*host_exact_search(
+                        self.packed, self.cache64, rows, q.n_results))
+                self._bump(cold_sat_host_s=time.perf_counter() - t0)
+
+            pending.append(run_host_sat)
+        slack = _bucket(
+            max((int(self._df32[r]) for it in cold for r in it[1]),
+                default=1), COLD_L_BUCKETS)
+        limit = CHUNK_LIMIT - slack
+        chunk, seen, tot = [], set(), 0
+        for item in cold:
+            new = sorted(set(item[1]) - seen)
+            add = int(self._lens[new].sum()) if new else 0
+            if chunk and tot + add > limit:
+                pending += self._submit_cold_chunk(chunk)
+                chunk, seen, tot = [], set(), 0
+                new = sorted(set(item[1]))
+                add = int(self._lens[new].sum())
+            if add > limit and not chunk:
+                raise ValueError(
+                    f"single cold query stages {add} postings > scratch "
+                    f"capacity {limit}; raise SCRATCH_BUCKETS")
+            chunk.append(item)
+            seen.update(new)
+            tot += add
+        if chunk:
+            pending += self._submit_cold_chunk(chunk)
+        return pending
+
+    def _stage_scratch(self, staged_terms: List[int]):
+        """Host scratch columns for one chunk, laid out as the reference
+        lays them out. Returns (d_doc, d_sc, d_tf, scratch_start, cap)."""
+        packed_mode = self.cold_transfer == "packed"
+        if packed_mode:
+            # pack-eligible runs first: the packed segment must be a
+            # contiguous prefix so decoded blocks land in place
+            staged_terms.sort(key=lambda r: (not self._pack16[r], r))
+        run_lens = self._lens[staged_terms]
+        offs = np.zeros(len(staged_terms) + 1, dtype=np.int64)
+        np.cumsum(run_lens, out=offs[1:])
+        total = int(offs[-1])
+        lmax = _bucket(int(self._df32[staged_terms].max(initial=1)),
+                       COLD_L_BUCKETS)
+        cap = _bucket(total + lmax, SCRATCH_BUCKETS)
+        nA = int(np.searchsorted(
+            np.fromiter((not self._pack16[r] for r in staged_terms),
+                        dtype=bool, count=len(staged_terms)), True)) \
+            if packed_mode else 0
+        A_total = int(offs[nA])
+        if packed_mode:
+            G16b = _bucket(max(A_total // BLOCK, 1), _G16_BUCKETS)
+            graw = (total - A_total + BLOCK - 1) // BLOCK
+            Grawb = _bucket(graw, _GRAW_BUCKETS) if graw else 0
+            cap = _bucket(max(total + lmax, G16b * BLOCK,
+                              A_total + Grawb * BLOCK), SCRATCH_BUCKETS)
+        s_doc = np.full(cap, SENTINEL_DOC, dtype=np.int32)
+        s_tf = np.zeros(cap, dtype=np.int32)
+        s_sc = np.zeros(cap, dtype=np.float32)
+        scratch_start: Dict[int, int] = {}
+        pk = self.packed
+        for i, r in enumerate(staged_terms):
+            a, n = int(offs[i]), int(run_lens[i])
+            src = int(self._starts32[r])
+            s_doc[a : a + n] = pk.postings_doc[src : src + n]
+            s_tf[a : a + n] = pk.postings_tf[src : src + n]
+            s_sc[a : a + n] = self._scores32[src : src + n]
+            scratch_start[r] = a
+        if packed_mode:
+            w = PACK_WIDTH
+            deltas, first = doc_block_deltas(s_doc[:A_total])
+            G16 = len(first)
+            words = np.zeros((G16b, 4 * w), dtype=np.uint32)
+            if G16:
+                words[:G16] = native.pack_blocks(
+                    deltas.reshape(-1), np.full(G16, w, dtype=np.uint8),
+                ).reshape(G16, 4 * w)
+            f16 = np.zeros(G16b, dtype=np.int32)
+            f16[:G16] = first
+            rawf = np.zeros(max(Grawb, 1) * BLOCK, dtype=np.int32)
+            rawf[: total - A_total] = s_doc[A_total:total]
+            d_doc = combine_doc_column(
+                self._to_dev(words.view(np.int32)), self._to_dev(f16),
+                self._to_dev(rawf), A_total, cap, w, Grawb)
+            self._bump(cold_packed_blocks=G16, cold_raw_postings=total - A_total)
+        else:
+            d_doc = self._to_dev(s_doc)
+        return d_doc, self._to_dev(s_sc), self._to_dev(s_tf), scratch_start, cap
+
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _submit_cold_chunk(self, cold):
+        staged_terms = sorted({r for _, rows, _ in cold for r in rows})
+        t0 = time.perf_counter()
+        d_doc, d_sc, d_tf, scratch_start, _ = self._stage_scratch(staged_terms)
+        self._bump(route_cold_device=len(cold), cold_chunks=1,
+                   cold_stage_s=time.perf_counter() - t0)
+
+        groups: Dict[tuple, list] = {}
+        for qi, rows, q in cold:
+            dfs = [int(self._df32[r]) for r in rows]
+            cslot = int(np.argmin(dfs))
+            # past the largest T bucket the slot count is exact
+            T = (len(rows) if len(rows) > COLD_T_BUCKETS[-1]
+                 else _bucket(len(rows), COLD_T_BUCKETS))
+            L = _bucket(dfs[cslot], COLD_L_BUCKETS)
+            groups.setdefault((T, L), []).append((qi, rows, q, cslot))
+        pending = []
+        for (T, L), group in groups.items():
+            step = bs_chunk(T, L)
+            for ci in range(0, len(group), step):
+                pending.append(self._dispatch_cold(
+                    group[ci : ci + step], T, L, d_doc, d_sc, d_tf,
+                    scratch_start))
+        return pending
+
+    def _dispatch_cold(self, chunk, T, L, d_doc, d_sc, d_tf, scratch_start):
+        B = _bucket(len(chunk), COLD_B_BUCKETS)
+        if B * max(T - 1, 1) * L > BS_LANE_BUDGET:
+            # the coarse cold buckets would pad past the lane budget; the
+            # fine buckets stay within it (len(chunk) <= bs_chunk(T, L))
+            B = _bucket(len(chunk), B_BUCKETS)
+        starts = np.zeros((B, T), dtype=np.int32)
+        ends = np.zeros((B, T), dtype=np.int32)
+        use_score = np.zeros((B, T), dtype=np.float32)
+        idf64_q = np.zeros((B, T), dtype=np.float64)
+        slot_of = np.zeros((B, T), dtype=np.int64)
+        ks = np.zeros(B, dtype=np.int32)
+        qis = np.zeros(B, dtype=np.int64)
+        rows_of = []
+        for i, (qi, rows, q, cslot) in enumerate(chunk):
+            ks[i] = q.n_results
+            qis[i] = qi
+            rows_of.append(rows)
+            order = [cslot] + [t for t in range(len(rows)) if t != cslot]
+            for slot in range(T):
+                r = rows[order[slot] if slot < len(order) else order[0]]
+                starts[i, slot] = scratch_start[r]
+                ends[i, slot] = scratch_start[r] + self._df32[r]
+                if slot < len(order):
+                    use_score[i, slot] = 1.0
+            for slot, t in enumerate(order):
+                slot_of[i, t] = slot
+            for t, r in enumerate(rows):
+                idf64_q[i, t] = self.packed.idf64[r]
+        M = min(L, int(ks.max(initial=1)) + self.margin)
+        kern = K.make_search_kernel(T, L, M, K.n_iters_for(self._max_df))
+        t0 = time.perf_counter()
+        out = kern(d_doc, d_sc, d_tf, self._to_dev(starts),
+                   self._to_dev(ends), self._to_dev(use_score))
+        self._bump(cold_dispatch_s=time.perf_counter() - t0)
+        n = len(chunk)
+
+        def finalize(res_list):
+            t0 = time.perf_counter()
+            packed_out = out.cpu().numpy()
+            self._bump(cold_fetch_wait_s=time.perf_counter() - t0)
+            tfs_slot = packed_out[:, 1 : T + 1, :]
+            tf_q = np.take_along_axis(
+                tfs_slot, np.broadcast_to(slot_of[:, :, None], tfs_slot.shape),
+                axis=1)
+            docs_f, score_f, n_valid = rescore_sorted_arrays(
+                packed_out[:, 0, :], tf_q, idf64_q, self.packed.doc_len_code,
+                self.cache64)
+            flags = packed_out[:, T + 1, 0]
+            suspects = (truncation_suspects(score_f, n_valid, ks, rel_eps=1e-6)
+                        | tie_class_cut(flags, score_f, n_valid, ks, 1e-6))
+            if self.strict_parity:
+                suspects = suspects | (flags != 0)
+            self._bump(cold_host_fallback_q=int(suspects[:n].sum()))
+            for i in range(n):
+                res = res_list[int(qis[i])]
+                if suspects[i]:
+                    res.set_arrays(*host_exact_search(
+                        self.packed, self.cache64, rows_of[i], int(ks[i])))
+                else:
+                    cnt = min(int(ks[i]), int(n_valid[i]))
+                    res.set_arrays(docs_f[i, :cnt], score_f[i, :cnt])
+
+        return finalize
