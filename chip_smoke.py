@@ -2,28 +2,35 @@
 """Chip smoke for wiser_tpu_torch: drive the port's main path once on one
 CUDA card and check it.
 
-    python3 chip_smoke.py            # the full smoke (one card, ~8 min)
-    python3 chip_smoke.py --docs 200000 --phases kernel,resident
+    python3 chip_smoke.py            # the full smoke (one card, ~10 min)
+    python3 chip_smoke.py --docs 200000 --phases kernel,dense
 
 It always compiles csrc/unpack.cu for sm_90a first (nvcc, first use).
-The resident and staged phases share a wiki-shaped 1M-doc index
-(data/scale_corpus defaults: vocab 200k, mean length 120, Zipf 1.25,
-seed 42; fast builder), cached under .smoke_cache/. Phases:
+The engine phases share a wiki-shaped 1M-doc index (data/scale_corpus
+defaults: vocab 200k, mean length 120, Zipf 1.25, seed 42; fast
+builder), cached under .smoke_cache/. Two AOL-mix query sets (k=10,
+seed 7): `aol` is bench.py's (Zipf ranks over the spelling-sorted term
+dictionary), `aol_df` the same ranks over terms sorted by df, so head
+terms meet. Every run is a warm pass, then a timed pass with the result
+memos cleared, then parity of >= 200 distinct multi-term queries against
+the exact host search. Phases:
   kernel    the unpack kernel against its plain torch version and the
             repo's native codec, every width 1..32, G in {1, 256, 65536},
             bit for bit; kernel vs plain time at the staged shapes
-  resident  TorchEngine(dense_budget_bytes=0) on two AOL-mix query sets
-            (k=10, seed 7): bench.py's (Zipf ranks over the spelling-sorted
-            term dictionary) and the same ranks over terms sorted by df;
-            QPS, routes, host-fallback rate, parity of >= 200 multi-term
-            queries of each set against the exact host search
-  staged    StagedEngine(hbm_budget_bytes=0, cold_transfer="packed") with
-            the device cold path, same query sets and parity checks; the
+  resident  TorchEngine(dense_budget_bytes=0): bs routes and host merges
+  dense     TorchEngine at the default dense budget: dense, pruned
+            (block-max) and semidense routes with the batched rescue;
+            raises unless aol_df takes the pruned and semidense routes
+  staged    StagedEngine with the device cold path and packed transport,
+            at budget 0 and at a quarter of the full-residency bytes
+            (which must admit dense rows and stage cold chunks); the
             unpack kernel's launches on those runs must be > 0
 
 Any failure raises before the last line. The last line of stdout is the
 contract's {"ok": true, "device": {...}}; the line before it lists the
-kernels. The full report is the last line of stderr, one JSON object.
+kernels, the one before that the route summary of every run. The full
+report is the last line of stderr, one JSON object (also written to
+the --report path, if given).
 """
 
 from __future__ import annotations
@@ -39,7 +46,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(ROOT, ".smoke_cache")
 K = 10
 PARITY_SAMPLE = 256
-PHASES = ("kernel", "resident", "staged")
+PHASES = ("kernel", "resident", "dense", "staged")
+# H100 SXM HBM3 rate (NVIDIA's data sheet) for the bytes bound
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(*a):
@@ -78,11 +87,8 @@ def kernel_phase(report: dict) -> dict:
     import numpy as np
     import torch
 
+    from wiser_tpu_torch.native import lib as native
     from wiser_tpu_torch.ops import unpack as U
-    from wiser_tpu_torch.shared import native
-
-    if not native.available():
-        raise RuntimeError("native codec library did not build (g++ needed)")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     max_err = 0
@@ -140,23 +146,29 @@ def kernel_phase(report: dict) -> dict:
         p2 = cuda_ms(lambda: U.delta_decode_docs(
             U.unpack_blocks_torch(d_words, w), d_first), iters)
         k2 = cuda_ms(lambda: U.unpack_delta_blocks(d_words, d_first, w, out=out), iters)
+        # each word and first id read once, each decoded id written once
         bytes_moved = G * 4 * w * 4 + G * 4 + G * 128 * 4
         row = {"G": G, "width": w, "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-               "kernel_GBps": bytes_moved / (min(k1, k2) * 1e-3) / 1e9}
+               "kernel_GBps": bytes_moved / (min(k1, k2) * 1e-3) / 1e9,
+               "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3}
         timing.append(row)
         log(f"kernel timing {row}")
     report["kernel_timing"] = timing
     big = timing[-1]
+    # the decode is a few integer ops per value: bytes bound it. No single
+    # PyTorch call computes it (library_ms null).
     return {"max_abs_err": max_err, "ms": min(big["kernel_ms"]),
-            "plain_ms": min(big["plain_ms"])}
+            "plain_ms": min(big["plain_ms"]), "bound_ms": big["bound_ms"],
+            "bound_by": "bytes", "library_ms": None}
 
 
 # -- index + queries ---------------------------------------------------------
 
 
 def get_index(n_docs: int, report: dict):
-    from wiser_tpu_torch.shared import (PackedIndex, build_packed_fast,
-                                        generate_linedoc)
+    from wiser_tpu_torch.data.scale_corpus import generate_linedoc
+    from wiser_tpu_torch.index.fast_builder import build_packed_fast
+    from wiser_tpu_torch.index.format import PackedIndex
 
     idx_dir = os.path.join(CACHE, f"idx_{n_docs}")
     t0 = time.perf_counter()
@@ -190,7 +202,7 @@ def aol_mixed_queries(packed, n_queries: int, seed: int = 7,
     instead, so the ranks follow frequency and head terms meet."""
     import numpy as np
 
-    from wiser_tpu_torch.shared import SearchQuery
+    from wiser_tpu_torch.types import SearchQuery
 
     rng = np.random.default_rng(seed)
     n_terms = rng.choice([1, 2, 3, 4], size=n_queries,
@@ -217,17 +229,23 @@ def parity_sample(queries):
     return out[:PARITY_SAMPLE]
 
 
-def check_parity(packed, queries, results, sample, what: str) -> int:
+def check_parity(packed, queries, results, sample, what: str,
+                 expected: dict) -> int:
+    """Compare against the exact host search; `expected` memoizes its
+    answers across runs (the index is the same)."""
     from wiser_tpu_torch.engine.host import host_exact_search
-    from wiser_tpu_torch.shared import Bm25Similarity
+    from wiser_tpu_torch.scoring import Bm25Similarity
 
     cache64 = Bm25Similarity(packed.avg_len).cache
     bad = []
     for i in sample:
         q = queries[i]
-        rows = [packed.term_to_row[t] for t in q.terms]
-        d, s = host_exact_search(packed, cache64, rows, q.n_results)
-        want = [(int(a), float(b)) for a, b in zip(d, s)]
+        key = (tuple(q.terms), q.n_results)
+        if key not in expected:
+            rows = [packed.term_to_row[t] for t in q.terms]
+            d, s = host_exact_search(packed, cache64, rows, q.n_results)
+            expected[key] = [(int(a), float(b)) for a, b in zip(d, s)]
+        want = expected[key]
         got = [(e.doc_id, e.doc_score) for e in results[i].entries]
         if got != want:
             bad.append((q.terms, got[:3], want[:3]))
@@ -278,6 +296,7 @@ def main() -> int:
     ap.add_argument("--docs", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=4096)
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--report", help="also write the full report here (JSON)")
     args = ap.parse_args()
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
@@ -309,56 +328,112 @@ def main() -> int:
     kern = {"name": "unpack_delta_blocks", "route": "cuda",
             "source": "wiser_tpu_torch/csrc/unpack.cu",
             "replaces": "wiser_tpu/ops/unpack.py:123", "launches": 0,
-            "max_abs_err": None, "ms": None, "plain_ms": None}
+            "max_abs_err": None, "ms": None, "plain_ms": None,
+            "bound_ms": None, "bound_by": "bytes", "library_ms": None}
     if "kernel" in phases:
         kern.update(kernel_phase(report))
 
-    if "resident" in phases or "staged" in phases:
-        from wiser_tpu_torch import StagedEngine, TorchEngine
-
-        packed = get_index(args.docs, report)
-        # the df-ranked set runs a quarter as many queries: its head-term
-        # conjunctions cost ~0.1 s each on the exact host path at 1M docs
-        mixes = {"aol": aol_mixed_queries(packed, args.queries),
-                 "aol_df": aol_mixed_queries(packed, args.queries // 4,
-                                             by_df=True)}
-        engines = []
-        if "resident" in phases:
-            engines.append(("resident", lambda: TorchEngine(
-                packed, device="cuda", dense_budget_bytes=0)))
-        if "staged" in phases:
-            def staged():
-                eng = StagedEngine(packed, 0, device="cuda",
+    runs = []  # (run name, make engine, {mix: number of queries})
+    Q = args.queries
+    if "resident" in phases:
+        # df-ranked head conjunctions cost ~0.14 s each on the exact host
+        # merge at 1M docs without the dense tier: an eighth of the queries
+        runs.append(("resident", lambda: TorchEngine(
+            packed, device="cuda", dense_budget_bytes=0),
+            {"aol": Q, "aol_df": Q // 8}))
+    if "dense" in phases:
+        runs.append(("dense", lambda: TorchEngine(packed, device="cuda"),
+                     {"aol": Q, "aol_df": Q}))
+    if "staged" in phases:
+        def staged(frac):
+            def make():
+                budget = int(full_residency_bytes(packed) * frac) if frac else 0
+                eng = StagedEngine(packed, budget, device="cuda",
                                    cold_transfer="packed")
                 eng.COLD_COMPUTE = "device"
                 return eng
 
-            engines.append(("staged", staged))
-        for name, make in engines:
+            return make
+
+        runs.append(("staged", staged(0), {"aol": Q, "aol_df": Q // 8}))
+        runs.append(("staged_q", staged(0.25), {"aol": Q, "aol_df": Q // 4}))
+    if runs:
+        from wiser_tpu_torch import StagedEngine, TorchEngine
+        from wiser_tpu_torch.engine.staged import full_residency_bytes
+
+        packed = get_index(args.docs, report)
+        pools = {"aol": aol_mixed_queries(packed, Q),
+                 "aol_df": aol_mixed_queries(packed, Q, by_df=True)}
+        expected: dict = {}
+        for name, make, sizes in runs:
             t0 = time.perf_counter()
             eng = make()
             torch.cuda.synchronize()
-            report[f"{name}_init_s"] = time.perf_counter() - t0
-            report[f"{name}_device_bytes"] = eng.device_bytes()
-            for mix, queries in mixes.items():
+            hot = getattr(eng, "hot", eng)
+            info = {"init_s": time.perf_counter() - t0,
+                    "device_bytes": eng.device_bytes(),
+                    "dense_rows": int(hot._dense_H),
+                    "dense_build_s": hot.dense_build_s}
+            if name.startswith("staged"):
+                info.update(hot_fraction=eng.hot_fraction,
+                            hot_bytes_used=eng.hot_bytes_used,
+                            total_full=eng.total_full)
+            report[f"{name}_engine"] = info
+            log(f"{name} engine: {info}")
+            for mix, nq in sizes.items():
+                queries = pools[mix][:nq]
                 key = f"{name}_{mix}"
                 res = serve(eng, queries, key, report)
                 report[key]["parity_checked"] = check_parity(
-                    packed, queries, res, parity_sample(queries), key)
-            del eng, res
+                    packed, queries, res, parity_sample(queries), key,
+                    expected)
+            del eng, hot, res
             torch.cuda.empty_cache()
+        if "dense" in phases:
+            st = report["dense_aol_df"]["stats"]
+            if not (st.get("route_pruned", 0) > 0
+                    and st.get("route_semidense", 0) > 0):
+                raise AssertionError(
+                    f"dense phase: aol_df took no pruned or semidense route {st}")
         if "staged" in phases:
-            launches = sum(report[f"staged_{mix}"]["launches"]["unpack_delta_blocks"]
-                           for mix in mixes)
+            info = report["staged_q_engine"]
+            chunks = sum(report[f"staged_q_{mix}"]["stats"].get("cold_chunks", 0)
+                         for mix in pools)
+            if info["dense_rows"] <= 0 or chunks <= 0:
+                raise AssertionError(
+                    f"quarter-budget staged run: {info['dense_rows']} dense "
+                    f"rows, {chunks} cold chunks (both must be > 0)")
+            launches = sum(report[f"{name}_{mix}"]["launches"]["unpack_delta_blocks"]
+                           for name in ("staged", "staged_q") for mix in pools)
             if launches <= 0:
                 raise AssertionError(
                     "staged phase never launched the unpack kernel")
             kern["launches"] = launches
+        route_keys = ("route_", "flag_prune_miss", "prune_rescued",
+                      "forced_host", "host_exact_s", "rescue_s")
+        summary = {}
+        for name, _, sizes in runs:
+            for mix in sizes:
+                r = report[f"{name}_{mix}"]
+                summary[f"{name}_{mix}"] = dict(
+                    queries=r["queries"], qps=r["qps"],
+                    peak_device_bytes=r["peak_device_bytes"],
+                    **{k: v for k, v in r["stats"].items()
+                       if any(k.startswith(p) or k.startswith("hot_" + p)
+                              for p in route_keys)})
+        print(json.dumps({"routes": summary}), flush=True)
 
-    if "jax" in sys.modules or any(m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("the port imported jax")
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "wiser_tpu"))
+    if leaked:
+        raise AssertionError(f"the port imported {leaked[:5]}")
     report["total_s"] = time.perf_counter() - t_start
     log(json.dumps(report))
+    if args.report:
+        os.makedirs(os.path.dirname(os.path.abspath(args.report)),
+                    exist_ok=True)
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=1)
     print(json.dumps({"kernels": [kern]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

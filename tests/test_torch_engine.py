@@ -1,7 +1,10 @@
 """TorchEngine (wiser_tpu_torch, CPU tensors) against TpuEngine with the
-same configuration (raw columns, dense_budget_bytes=0) and OracleEngine:
-identical (doc, f64 score) lists, including ties, several k, missing
-terms, duplicate queries and queries of more than 8 terms."""
+same configuration (raw columns) and OracleEngine: identical (doc, f64
+score) lists, including ties, several k, missing terms, duplicate
+queries and queries of more than 8 terms. The port serves its own copy
+of each index (convert.packed_from_arrays)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -11,6 +14,12 @@ from wiser_tpu.engine.device import TpuEngine
 from wiser_tpu.index.builder import build_index
 from wiser_tpu.types import SearchQuery
 from wiser_tpu_torch import TorchEngine
+from wiser_tpu_torch.convert import packed_from_arrays
+
+
+def to_port(jp):
+    return packed_from_arrays({f.name: getattr(jp, f.name)
+                               for f in dataclasses.fields(jp)})
 
 
 def lists(results):
@@ -27,7 +36,7 @@ def corpus():
 @pytest.fixture(scope="module")
 def engines(corpus):
     packed, _ = corpus
-    return (TorchEngine(packed, device="cpu"),
+    return (TorchEngine(to_port(packed), device="cpu"),
             TpuEngine(packed, dense_budget_bytes=0))
 
 
@@ -116,7 +125,8 @@ def test_tie_classes_at_the_buffer_boundary(margin):
     tie class; torch.topk keeps arbitrary tied lanes, and the FLAG_TRUNC
     tie-class guard must still give the exact answer."""
     packed, oracle = _tie_heavy_corpus()
-    te = TorchEngine(packed, device="cpu", margin=margin, single_term_depth=0)
+    te = TorchEngine(to_port(packed), device="cpu", margin=margin,
+                     single_term_depth=0)
     je = TpuEngine(packed, margin=margin, single_term_depth=0,
                    dense_budget_bytes=0)
     qs = [SearchQuery(terms, n_results=k)
@@ -132,8 +142,8 @@ def test_tie_classes_at_the_buffer_boundary(margin):
 
 def test_strict_parity_forces_truncated_rows():
     packed, oracle = _tie_heavy_corpus()
-    te = TorchEngine(packed, device="cpu", margin=0, strict_parity=True,
-                     single_term_depth=0)
+    te = TorchEngine(to_port(packed), device="cpu", margin=0,
+                     strict_parity=True, single_term_depth=0)
     qs = [SearchQuery(["a", "b"], n_results=k) for k in (1, 5, 20)]
     assert lists(te.search_batch(qs)) == lists(oracle.search(q) for q in qs)
     st = te.stats_take()
@@ -144,7 +154,7 @@ def test_host_merge_and_windowed_routes(corpus):
     """Lower the route thresholds so this small corpus exercises the host
     merge and the windowed-eligible groups (which take bs here)."""
     packed, oracle = corpus
-    te = TorchEngine(packed, device="cpu")
+    te = TorchEngine(to_port(packed), device="cpu")
     te.HOST_MERGE_MIN_L = 128
     te.WINDOWED_MIN_L = 128
     te.WINDOWED_MAX_L = 128
@@ -162,15 +172,22 @@ def test_phrase_query_raises(engines):
 
 
 def test_dense_budget_admitting_rows_raises():
-    """A budget that would build dense rows is refused; a budget on a
-    corpus with no dense-eligible term behaves as budget 0."""
+    """A budget that admits a dense row builds the tier as TpuEngine does
+    and answers through it; a budget under one row, or a corpus with no
+    dense-eligible term, builds none."""
     docs = [make_docinfo(["h", f"x{i % 7}"]) for i in range(1100)]
-    packed, _ = build_index(docs)  # "h" has df 1100 >= DENSE_MIN_DF_FLOOR
-    with pytest.raises(NotImplementedError):
-        TorchEngine(packed, device="cpu", dense_budget_bytes=1 << 30)
-    TorchEngine(packed, device="cpu", dense_budget_bytes=8)  # < one row
+    packed, oracle = build_index(docs)  # "h": df 1100 >= DENSE_MIN_DF_FLOOR
+    te = TorchEngine(to_port(packed), device="cpu", dense_budget_bytes=1 << 30)
+    je = TpuEngine(packed, dense_budget_bytes=1 << 30)
+    assert te._dense_H == je._dense_H == 1
+    qs = [SearchQuery(["h", f"x{i}"], n_results=5) for i in range(7)]
+    assert lists(te.search_batch(qs)) == lists(oracle.search(q) for q in qs)
+    assert te.stats_take()["route_semidense"] == 7
+    assert TorchEngine(to_port(packed), device="cpu",
+                       dense_budget_bytes=8)._dense_H == 0  # < one row
     small, _ = build_index(synth_docinfos(200, 50, 20, seed=1))
-    TorchEngine(small, device="cpu", dense_budget_bytes=1 << 30)
+    assert TorchEngine(to_port(small), device="cpu",
+                       dense_budget_bytes=1 << 30)._dense_H == 0
 
 
 def test_device_bytes(engines):

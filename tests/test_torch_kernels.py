@@ -11,6 +11,7 @@ FLAG_TRUNC; with FLAG_TRUNC the choice among tied boundary lanes is
 free, since torch.topk has no index tie-break.
 """
 
+import dataclasses
 from functools import partial
 
 import jax
@@ -22,17 +23,20 @@ import torch
 from wiser_tpu.data.synth import synth_docinfos
 from wiser_tpu.engine import kernels as JK
 from wiser_tpu.index.builder import build_index
-from wiser_tpu.scoring import Bm25Similarity
+from wiser_tpu_torch.convert import packed_from_arrays
 from wiser_tpu_torch.engine import kernels as TK
 from wiser_tpu_torch.engine.host import padded_host_columns
+from wiser_tpu_torch.scoring import Bm25Similarity
 
 L, B = 4096, 48
 
 
 @pytest.fixture(scope="module")
 def columns():
-    packed, _ = build_index(synth_docinfos(n_docs=3000, vocab_size=60,
-                                           mean_len=20, seed=11))
+    jp, _ = build_index(synth_docinfos(n_docs=3000, vocab_size=60,
+                                       mean_len=20, seed=11))
+    packed = packed_from_arrays({f.name: getattr(jp, f.name)
+                                 for f in dataclasses.fields(jp)})
     scores64 = packed.partial_scores(Bm25Similarity(packed.avg_len).cache)
     return packed, padded_host_columns(packed, scores64)
 

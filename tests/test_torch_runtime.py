@@ -1,32 +1,80 @@
-"""Device selection and import hygiene of wiser_tpu_torch: CUDA requested
-where there is none raises (no silent CPU fallback); the package runs
-without importing jax; chip_smoke.py refuses to run without a card."""
+"""Device selection, independence and carry-across of wiser_tpu_torch.
 
+CUDA requested where there is none raises (no silent CPU fallback), and
+"cuda" is the engines' default device. The port imports nothing of the
+JAX package: an AST scan of its sources, and a subprocess that builds
+an index with the port's own generator and builder, searches it and
+then finds neither wiser_tpu nor jax in sys.modules. Its copies of the
+host modules agree with the JAX package's (the generated linedoc file
+byte for byte, the built index array for array, the native codec word
+for word), and an index carries across both ways: packed_from_arrays of
+the JAX object, PackedIndex.load of a directory the JAX package saved,
+and the JAX load of a directory the port saved. chip_smoke.py refuses
+to run without a card.
+"""
+
+import ast
+import dataclasses
 import os
 import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+from wiser_tpu.data.scale_corpus import generate_linedoc as j_generate
 from wiser_tpu.data.synth import synth_docinfos
 from wiser_tpu.index.builder import build_index
+from wiser_tpu.index.fast_builder import build_packed_fast as j_build
+from wiser_tpu.index.format import PackedIndex as JPackedIndex
+from wiser_tpu.native import lib as j_native
 from wiser_tpu_torch import StagedEngine, TorchEngine, resolve_device
+from wiser_tpu_torch.convert import packed_from_arrays
+from wiser_tpu_torch.data.scale_corpus import generate_linedoc
+from wiser_tpu_torch.index.fast_builder import build_packed_fast
+from wiser_tpu_torch.index.format import PackedIndex
+from wiser_tpu_torch.native import lib as native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# every field the two PackedIndex classes store, derived ones included
+FIELDS = ("terms", "term_starts", "df", "postings_doc", "postings_tf",
+          "n_docs", "avg_len", "doc_len_code", "pos_starts", "positions",
+          "off_starts", "off_begin", "off_end", "bloom_ends", "bloom_begins",
+          "term_to_row", "idf64", "max_tf")
+
+
+def to_port(jp):
+    return packed_from_arrays({f.name: getattr(jp, f.name)
+                               for f in dataclasses.fields(jp)})
+
+
+def assert_same_index(mine, ref):
+    for name in FIELDS:
+        a, b = getattr(mine, name), getattr(ref, name)
+        if isinstance(b, np.ndarray):
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        else:
+            assert a == b, name
+    assert (mine.bloom_cfg.expected_entries, mine.bloom_cfg.error_ratio) == (
+        ref.bloom_cfg.expected_entries, ref.bloom_cfg.error_ratio)
 
 
 def test_cuda_request_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-    packed, _ = build_index(synth_docinfos(50, 20, 10, seed=1))
+    jp, _ = build_index(synth_docinfos(50, 20, 10, seed=1))
+    packed = to_port(jp)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
-    with pytest.raises(RuntimeError):
-        TorchEngine(packed, device="cuda")
-    with pytest.raises(RuntimeError):
-        StagedEngine(packed, 0, device="cuda")
+    for make in (lambda: TorchEngine(packed, device="cuda"),
+                 lambda: TorchEngine(packed),  # "cuda" by default
+                 lambda: StagedEngine(packed, 0, device="cuda"),
+                 lambda: StagedEngine(packed, 0)):
+        with pytest.raises(RuntimeError):
+            make()
 
 
 def test_unknown_device_raises():
@@ -35,39 +83,121 @@ def test_unknown_device_raises():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-_NO_JAX = """
+def _port_sources():
+    pkg = os.path.join(ROOT, "wiser_tpu_torch")
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_source_imports_the_jax_package():
+    """Every import (top level or inside a function) of every .py file
+    under wiser_tpu_torch/ and of chip_smoke.py names neither wiser_tpu
+    (wiser_tpu_torch is the port) nor jax."""
+    bad, n_files = [], 0
+    for path in _port_sources():
+        n_files += 1
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in ("wiser_tpu", "jax", "jaxlib"):
+                    bad.append((os.path.relpath(path, ROOT), node.lineno, name))
+    assert n_files > 15
+    assert not bad, bad
+
+
+_STANDALONE = """
 import sys
 sys.path.insert(0, {root!r})
-from wiser_tpu.data.synth import synth_docinfos
-from wiser_tpu.index.builder import build_index
-from wiser_tpu.types import SearchQuery
 from wiser_tpu_torch import StagedEngine, TorchEngine
-import wiser_tpu_torch.build, wiser_tpu_torch.shared
+from wiser_tpu_torch.data.scale_corpus import generate_linedoc
+from wiser_tpu_torch.engine.host import host_exact_search
+from wiser_tpu_torch.index.fast_builder import build_packed_fast
+from wiser_tpu_torch.types import SearchQuery
 
-packed, oracle = build_index(synth_docinfos(200, 40, 20, seed=3))
-qs = [SearchQuery(["t0", "t1"], n_results=5), SearchQuery(["t2"], n_results=5)]
-want = [[(e.doc_id, e.doc_score) for e in oracle.search(q).entries] for q in qs]
+generate_linedoc({path!r}, 1500, vocab_size=300, mean_len=30, seed=5,
+                 verbose=False)
+packed = build_packed_fast({path!r})
+by_df = sorted(range(packed.n_terms), key=lambda r: -packed.df[r])
+qs = [SearchQuery([packed.terms[by_df[i]], packed.terms[by_df[j]]],
+                  n_results=10) for i, j in ((0, 1), (0, 40), (3, 120))]
+qs.append(SearchQuery([packed.terms[by_df[7]]], n_results=5))
 staged = StagedEngine(packed, 0, device="cpu")
 staged.COLD_COMPUTE = "device"
-for eng in (TorchEngine(packed, device="cpu"), staged):
-    got = [[(e.doc_id, e.doc_score) for e in r.entries]
-           for r in eng.search_batch(qs)]
-    assert got == want, (got, want)
+for e in (TorchEngine(packed, device="cpu"), staged):
+    for q, r in zip(qs, e.search_batch(qs)):
+        rows = [packed.term_to_row[t] for t in q.terms]
+        d, s = host_exact_search(packed, e.cache64, rows, q.n_results)
+        got = [(x.doc_id, x.doc_score) for x in r.entries]
+        assert got == list(zip(d.tolist(), s.tolist())), (q.terms, got)
+        assert got
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m in ("wiser_tpu.engine.device", "wiser_tpu.engine.kernels",
-                      "wiser_tpu.engine.staged", "wiser_tpu.ops.unpack"))
+             if m.split(".")[0] in ("wiser_tpu", "jax", "jaxlib"))
 assert not bad, bad
 print("OK")
 """
 
 
-def test_port_never_imports_jax():
+def test_port_runs_without_the_jax_package(tmp_path):
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
-    out = subprocess.run([sys.executable, "-c", _NO_JAX.format(root=ROOT)],
-                         capture_output=True, text=True, timeout=300, env=env)
+    src = _STANDALONE.format(root=ROOT, path=str(tmp_path / "c.linedoc"))
+    out = subprocess.run([sys.executable, "-c", src], capture_output=True,
+                         text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("OK")
+
+
+@pytest.fixture(scope="module")
+def linedocs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("corpus")
+    mine, ref = str(d / "port.linedoc"), str(d / "jax.linedoc")
+    kw = dict(vocab_size=2000, mean_len=40, seed=9, chunk_docs=700,
+              verbose=False)
+    generate_linedoc(mine, 2000, **kw)
+    j_generate(ref, 2000, **kw)
+    return mine, ref
+
+
+def test_generator_and_builder_match_the_jax_package(linedocs):
+    mine, ref = linedocs
+    with open(mine, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+    assert_same_index(build_packed_fast(mine, chunk_docs=700),
+                      j_build(ref, chunk_docs=700))
+
+
+@pytest.mark.parametrize("blooms", [False, True])
+def test_carry_across_both_ways(tmp_path, blooms):
+    jp, _ = build_index(synth_docinfos(300, 80, 25, seed=4),
+                        with_blooms=blooms)
+    assert (jp.bloom_ends is not None) == blooms
+    assert_same_index(to_port(jp), jp)
+    jp.save(str(tmp_path / "from_jax"))
+    loaded = PackedIndex.load(str(tmp_path / "from_jax"))
+    assert_same_index(loaded, jp)
+    loaded.save(str(tmp_path / "from_port"))
+    assert_same_index(JPackedIndex.load(str(tmp_path / "from_port")), jp)
+
+
+@pytest.mark.parametrize("width", [1, 7, 16, 31, 32])
+def test_native_codec_matches_the_jax_package(width):
+    rng = np.random.default_rng(width)
+    vals = rng.integers(0, 2**width, size=5 * 128, dtype=np.uint64).astype(np.uint32)
+    widths = np.full(5, width, dtype=np.uint8)
+    words = native.pack_blocks(vals, widths)
+    np.testing.assert_array_equal(words, j_native.pack_blocks(vals, widths))
+    np.testing.assert_array_equal(native.unpack_blocks(words, widths), vals)
+    with pytest.raises(ValueError):
+        native.pack_blocks(vals[:-1], widths)
 
 
 def _smoke(cwd):

@@ -1,13 +1,14 @@
-"""Build the package's CUDA sources into shared libraries at first use.
+"""Build the package's native sources into shared libraries at first use.
 
-Each library is one `nvcc` call over one `csrc/*.cu` file with a plain C
-interface, loaded with ctypes (no PyTorch headers, so a build takes
-seconds). Output goes to `.kernel_build/` at the repository root (listed
-in .gitignore) under a name that hashes the source and the flags, so a
-changed source is never served by a stale library.
+Each CUDA library is one `nvcc` call over one `csrc/*.cu` file with a
+plain C interface, loaded with ctypes (no PyTorch headers, so a build
+takes seconds); the host codec library (native/wiser_native.cpp) is one
+`g++` call. Output goes to `.kernel_build/` at the repository root
+(listed in .gitignore) under a name that hashes the source and the
+flags, so a changed source is never served by a stale library.
 
-The build needs `nvcc` (found through PyTorch's CUDA_HOME); there is no
-fallback, since a CUDA tensor must run its kernel or fail.
+The CUDA build needs `nvcc` (found through PyTorch's CUDA_HOME); there
+is no fallback, since a CUDA tensor must run its kernel or fail.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".kernel_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -49,13 +51,24 @@ def nvcc_command(src: str, out: str) -> list:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` if needed and return the loaded library."""
+    return _load(name, os.path.join(CSRC, f"{name}.cu"), NVCC_FLAGS,
+                 nvcc_command)
+
+
+def load_host_library(name: str, src: str) -> ctypes.CDLL:
+    """Compile the C++ source `src` with g++ if needed and return the
+    loaded library."""
+    return _load(name, src, GXX_FLAGS,
+                 lambda s, out: ["g++", *GXX_FLAGS, s, "-o", out])
+
+
+def _load(name: str, src: str, flags, command) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = os.path.join(CSRC, f"{name}.cu")
         with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+            digest = hashlib.sha256(f.read() + " ".join(flags).encode())
         out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
         if os.path.exists(out):
             build_log[name] = (0.0, "cached")
@@ -63,11 +76,11 @@ def load_library(name: str) -> ctypes.CDLL:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
             t0 = time.perf_counter()
-            proc = subprocess.run(nvcc_command(src, tmp), capture_output=True,
+            proc = subprocess.run(command(src, tmp), capture_output=True,
                                   text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+                    f"build failed on {src}:\n{proc.stdout}{proc.stderr}")
             os.replace(tmp, out)
             build_log[name] = (time.perf_counter() - t0,
                                proc.stdout + proc.stderr)

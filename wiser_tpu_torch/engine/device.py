@@ -1,13 +1,20 @@
 """TorchEngine — the device-resident conjunctive search engine in torch
-(port of wiser_tpu/engine/device.py TpuEngine, raw columns, without the
-dense head-term tier).
+(port of wiser_tpu/engine/device.py TpuEngine, raw columns).
 
-The posting columns (doc, f32 partial score, tf) live on the device. The
-host does what hosts are good at: term lookup, request coalescing, shape
-bucketing, batch assembly, the exact f64 re-rank and its guards.
+The posting columns (doc, f32 partial score, tf) and the dense head-term
+tier live on the device. The host does what hosts are good at: term
+lookup, request coalescing, shape bucketing, batch assembly, the exact
+f64 re-rank and its guards.
 
-Routing (as TpuEngine with dense_budget_bytes=0):
+Routing (as TpuEngine(columns="raw")):
   1 term            -> host impact table (deeper k: the bs kernel)
+  all terms dense   -> doc-space dense scan; past PRUNED_DENSE_MIN_NB doc
+                       blocks the block-max pruned scan, whose prune-guard
+                       misses re-run as one batched full scan per batch
+                       (the rescue); sparse all-dense combos with a small
+                       candidate list take semidense instead
+  a dense other     -> semidense (candidate run x dense rows, short bs
+                       for the non-dense others)
   2..8 terms        -> binary-search intersection (kernels.search_body),
                        grouped by (T bucket, candidate L bucket)
   > 8 terms         -> the same kernel with the exact slot count
@@ -41,15 +48,11 @@ from wiser_tpu_torch.engine.host import (
     padded_host_columns,
     tie_class_cut,
 )
+from wiser_tpu_torch.engine.topk import rescore_sorted_arrays, truncation_suspects
+from wiser_tpu_torch.index.format import PackedIndex
 from wiser_tpu_torch.runtime import resolve_device
-from wiser_tpu_torch.shared import (
-    Bm25Similarity,
-    PackedIndex,
-    SearchQuery,
-    SearchResult,
-    rescore_sorted_arrays,
-    truncation_suspects,
-)
+from wiser_tpu_torch.scoring import Bm25Similarity
+from wiser_tpu_torch.types import SearchQuery, SearchResult
 
 # Lanes one bs group may hold, B * (T-1) * L. The binary search keeps
 # about a dozen live (B, T-1, L) 4-byte tensors (lo, hi, mid, the
@@ -59,6 +62,11 @@ from wiser_tpu_torch.shared import (
 # L = 131072 groups (windowed-eligible queries now take bs) still run
 # at B = 1024 for T = 3.
 BS_LANE_BUDGET = 1 << 28
+# The dense tier's lane budgets are the reference's (sized for a 16 GB
+# TPU); rebudgeting them for an 80 GB card is measured work (ROADMAP).
+SEMIDENSE_LANE_BUDGET = 1 << 27  # B * (T-1) * L per semidense group
+PRUNED_LANE_BUDGET = 1 << 27  # B * T * C * 128 per pruned-dense group
+RESCUE_LANE_BUDGET = 1 << 28  # B * N_pad per full-scan rescue chunk
 
 
 def _not_phrase(q: SearchQuery) -> None:
@@ -67,14 +75,21 @@ def _not_phrase(q: SearchQuery) -> None:
             "phrase queries are not ported yet (ROADMAP A.8)")
 
 
-def bs_chunk(T: int, L: int) -> int:
-    """Widest B bucket whose bs group stays within BS_LANE_BUDGET."""
-    fit = BS_LANE_BUDGET // (max(T - 1, 1) * L)
-    chunk = B_BUCKETS[0]
-    for b in B_BUCKETS:
-        if b <= min(fit, B_CHUNK):
+def _chunk_within(budget: int, lanes_per_row: int, buckets) -> int:
+    """Widest bucket b with b * lanes_per_row <= budget (else the
+    smallest bucket)."""
+    fit = budget // max(lanes_per_row, 1)
+    chunk = buckets[0]
+    for b in buckets:
+        if b <= fit:
             chunk = b
     return chunk
+
+
+def bs_chunk(T: int, L: int) -> int:
+    """Widest B bucket whose bs group stays within BS_LANE_BUDGET."""
+    return _chunk_within(BS_LANE_BUDGET, max(T - 1, 1) * L,
+                         [b for b in B_BUCKETS if b <= B_CHUNK])
 
 
 class TorchEngine:
@@ -84,16 +99,29 @@ class TorchEngine:
     WINDOWED_MAX_RATIO = 4
     WINDOWED_MAX_L = 131072
     HOST_MERGE_MIN_L = 131072
-    # dense-tier eligibility, kept only to refuse budgets that would admit
-    # a row (the tier is not ported)
+    # dense-tier eligibility: df >= max(DENSE_MIN_DF_FLOOR,
+    # n_docs // DENSE_ELIGIBLE_FRACTION), admitted by df within the budget
     DENSE_ELIGIBLE_FRACTION = 384
     DENSE_MIN_DF_FLOOR = 1024
+    # all-dense conjunctions take the doc-space scan only when matches are
+    # plentiful (candidate df above this, or expected matches >= 4k);
+    # sparse ones go semidense, where the prune guard has no tail to flag
+    SEMI_FROM_DENSE_MAX_CAND_L = 16384
+    # the block-max pruned scan engages past this many 128-doc blocks and
+    # examines PRUNED_DENSE_C blocks per query
+    PRUNED_DENSE_MIN_NB = 2048
+    PRUNED_DENSE_C = 512
+    PRUNED_DENSE_B_BUCKETS = [8, 128, 512, 1024]
+    DENSE_CHUNK = 128  # (B, N_pad) f32 planes: 512 MB at B=128, 1M docs
+    # prune-guard misses re-run on the exact full scan (one batched call
+    # per (T, M) per batch) instead of the host merge
+    DENSE_RESCUE = True
     HOST_CACHE_CAP = 200_000
 
-    def __init__(self, packed: PackedIndex, *, device,
+    def __init__(self, packed: PackedIndex, *, device="cuda",
                  margin: int = DEFAULT_MARGIN,
                  single_term_depth: int = 64,
-                 dense_budget_bytes: int = 0,
+                 dense_budget_bytes: int = 7 << 29,
                  strict_parity: bool = False,
                  columns: str = "raw",
                  dense_from: Optional[PackedIndex] = None,
@@ -101,8 +129,10 @@ class TorchEngine:
         """packed: the index whose posting runs go to the device.
         host_packed: the index the exact host fallback searches (a staged
         hot view passes the full index here). dense_from: the index the
-        dense tier would be built from (staged). device: "cpu" or "cuda"
-        (raises when CUDA is asked for and absent)."""
+        dense tier is built from (a staged hot view passes the full
+        index, so head terms are served dense-only while their CSR runs
+        are cold). device: "cuda" (default; raises without a card) or
+        "cpu"."""
         if columns != "raw":
             raise NotImplementedError(
                 f"columns={columns!r}: only raw columns are ported (ROADMAP A.7)")
@@ -117,8 +147,6 @@ class TorchEngine:
         self._tb = list(T_BUCKETS)
         if packed.n_postings >= 2**31:
             raise ValueError("index too large for int32 device addressing")
-        self._refuse_dense_rows(dense_from or packed, dense_budget_bytes)
-        self._dense_slot = np.full(packed.n_terms, -1, dtype=np.int32)
 
         self.similarity = Bm25Similarity(packed.avg_len)
         self.cache64 = self.similarity.cache  # (256,) f64
@@ -143,33 +171,93 @@ class TorchEngine:
         self._host_cache: Dict[tuple, tuple] = {}
         self.stats: Dict[str, float] = {}
 
-    def _refuse_dense_rows(self, src: PackedIndex, budget_bytes: int) -> None:
-        """Raise if TpuEngine would build at least one dense row under
-        this budget; otherwise the tier is empty in both engines."""
-        if not budget_bytes:
-            return
+        self._dense_H = 0
+        self._dense_slot = np.full(packed.n_terms, -1, dtype=np.int32)
+        self.dense_build_s = 0.0
+        if dense_budget_bytes:
+            t0 = time.perf_counter()
+            self._build_dense_rows(
+                dense_from if dense_from is not None else packed,
+                dense_budget_bytes)
+            self.dense_build_s = time.perf_counter() - t0
+
+    # -- dense head-term rows ---------------------------------------------
+
+    def _build_dense_rows(self, packed: PackedIndex, budget_bytes: int) -> None:
+        """(N_pad,) f32 score and int32 tf rows for the head terms, plus
+        per-128-doc-block maxima for the pruned scan, uploaded to the
+        device. Eligible: df >= max(DENSE_MIN_DF_FLOOR, n_docs //
+        DENSE_ELIGIBLE_FRACTION) with a non-empty run in the source
+        index; admitted by df, largest first, while a row (8 B per doc +
+        9 B per block) fits the budget."""
+        n = packed.n_docs
+        self._dense_slot = np.full(packed.n_terms, -1, dtype=np.int32)
         dense_min = max(self.DENSE_MIN_DF_FLOOR,
-                        src.n_docs // self.DENSE_ELIGIBLE_FRACTION)
-        eligible = (src.df >= dense_min) & (np.diff(src.term_starts) > 0)
-        n_pad = (src.n_docs + 127) // 128 * 128
-        per_row = n_pad * 8 + (n_pad // 128) * 9
-        if eligible.any() and budget_bytes // per_row > 0:
-            raise NotImplementedError(
-                f"dense_budget_bytes={budget_bytes} admits dense head-term "
-                "rows; the dense tier is not ported yet (ROADMAP A.6)")
+                        n // self.DENSE_ELIGIBLE_FRACTION)
+        lens = np.diff(packed.term_starts)
+        rows = np.nonzero((packed.df >= dense_min) & (lens > 0))[0]
+        if len(rows) == 0:
+            return
+        self._n_pad_docs = (n + 127) // 128 * 128
+        NBLK = self._n_pad_docs // 128
+        per_row = self._n_pad_docs * 8 + NBLK * 9
+        cap = int(budget_bytes // per_row)
+        if cap == 0:
+            return
+        # H * NB < 2^31: the reference's bound on the pruned scan's
+        # block-row index, kept so both engines admit the same rows
+        cap = min(cap, (2**31 - 1) // max(NBLK, 1) - 1)
+        if len(rows) > cap:
+            rows = rows[np.argsort(packed.df[rows])[::-1][:cap]]
+        H = len(rows)
+        dense_sc = np.zeros((H, self._n_pad_docs), dtype=np.float32)
+        dense_tf = np.zeros((H, self._n_pad_docs), dtype=np.int32)
+        for slot, r in enumerate(rows.tolist()):
+            s = int(packed.term_starts[r])
+            m = min(int(packed.df[r]), int(lens[r]))
+            docs = packed.postings_doc[s : s + m]
+            # the partial score of the posting columns: f64, then f32
+            tf_m = packed.postings_tf[s : s + m]
+            tf64 = tf_m.astype(np.float64)
+            code = packed.doc_len_code[docs.astype(np.int64)] & 0xFF
+            sc64 = packed.idf64[r] * ((tf64 * 2.2) / (tf64 + self.cache64[code]))
+            dense_sc[slot, docs] = sc64.astype(np.float32)
+            dense_tf[slot, docs] = tf_m.astype(np.int32)
+            self._dense_slot[r] = slot
+        self._dense_H = H
+        # block maxima of the very f32 values the kernels sum (an exact
+        # bound), the second-largest value with multiplicity (max ties
+        # keep bm2 == bm) and the argmax lane
+        sc3 = dense_sc.reshape(H, NBLK, 128)
+        top2 = np.partition(sc3, 126, axis=2)[:, :, 126:]
+        blockmax = top2[:, :, 1].copy()
+        blockmax2 = top2[:, :, 0].copy()
+        del top2
+        argpos = np.argmax(sc3, axis=2).astype(np.uint8)
+        self.d_dense_sc = torch.from_numpy(dense_sc).to(self.device)
+        self.d_dense_tf = torch.from_numpy(dense_tf).to(self.device)
+        self.d_dense_blockmax = torch.from_numpy(blockmax).to(self.device)
+        self.d_dense_blockmax2 = torch.from_numpy(blockmax2).to(self.device)
+        self.d_dense_argpos = torch.from_numpy(argpos).to(self.device)
 
     # -- accounting -------------------------------------------------------
 
     def device_bytes(self) -> dict:
         """Device-resident index bytes per column family. Only the
         posting columns the conjunctive path reads are uploaded; position
-        bags and bloom columns come with the phrase path, and the dense
-        tier is not ported, so those families are 0."""
+        bags and bloom columns come with the phrase path, so those
+        families are 0."""
+        def nbytes(*ts):
+            return int(sum(t.numel() * t.element_size() for t in ts))
+
         out = {
-            "postings": int(sum(t.numel() * t.element_size() for t in (
-                self.d_postings_doc, self.d_postings_score, self.d_postings_tf))),
+            "postings": nbytes(self.d_postings_doc, self.d_postings_score,
+                               self.d_postings_tf),
             "positions": 0,
-            "dense_tier": 0,
+            "dense_tier": nbytes(
+                self.d_dense_sc, self.d_dense_tf, self.d_dense_blockmax,
+                self.d_dense_blockmax2, self.d_dense_argpos)
+            if self._dense_H else 0,
             "blooms": 0,
         }
         out["total"] = sum(out.values())
@@ -180,7 +268,10 @@ class TorchEngine:
             self.stats[k] = self.stats.get(k, 0) + v
 
     def stats_take(self) -> Dict[str, float]:
-        """Return and reset the counters."""
+        """Return and reset the counters. route_* count queries by route;
+        <route>_s is the host time of that route's dispatches and
+        finalizers (device waits, the re-rank and host fallbacks of its
+        rows included); rescue_s is the batched full-scan rescue."""
         out, self.stats = self.stats, {}
         return out
 
@@ -206,6 +297,14 @@ class TorchEngine:
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _fetch(self, out: torch.Tensor) -> np.ndarray:
+        """One device-to-host copy; the wait covers device compute still
+        in flight + the copy."""
+        t0 = time.perf_counter()
+        arr = out.cpu().numpy()
+        self._bump(fetch_wait_s=time.perf_counter() - t0)
+        return arr
+
     # -- batch API --------------------------------------------------------
 
     def search(self, query: SearchQuery) -> SearchResult:
@@ -219,7 +318,8 @@ class TorchEngine:
     @staticmethod
     def run_pending(results, pending) -> None:
         """Run the finalizers; those marked .barrier (they read other
-        queries' results) run last."""
+        queries' results or a queue the others fill) run last, in the
+        order they were appended."""
         for f in pending:
             if not getattr(f, "barrier", False):
                 f(results)
@@ -281,8 +381,17 @@ class TorchEngine:
                 flat_rows.append(rows)
         self._bump(q_coalesced=len(dups), route_single_table=n_single)
 
-        pending = self._submit_flat_vec(flat_qi, flat_rows, queries)
+        # prune-guard misses of every dense group collect here and re-run
+        # as one batched full scan per (T, M) in a barrier finalizer
+        rq: List[dict] = []
+        pending = self._submit_flat_vec(flat_qi, flat_rows, queries, rq)
         pending += self._submit_flat(long_tail)
+
+        def drain_rescues(res_list, rq=rq):
+            self._drain_rescues(rq)
+
+        drain_rescues.barrier = True  # after every plain finalizer
+        pending.append(drain_rescues)
         if dups:
             def copy_dups(res_list, dups=dups):
                 for dqi, pqi in dups:
@@ -291,11 +400,13 @@ class TorchEngine:
                         dst.set_arrays(src._docs, src._scores)
                     dst._entries = list(src._entries)
 
-            copy_dups.barrier = True  # reads primaries' results: run last
+            # reads primaries' results, rescued ones included: appended
+            # after drain_rescues, so it runs after it
+            copy_dups.barrier = True
             pending.append(copy_dups)
         return results, pending
 
-    def _submit_flat_vec(self, flat_qi, flat_rows, queries):
+    def _submit_flat_vec(self, flat_qi, flat_rows, queries, rq):
         """Vectorized planning + assembly for <= MAX_T-term queries."""
         N = len(flat_qi)
         if N == 0:
@@ -315,7 +426,8 @@ class TorchEngine:
         dfs_m = np.where(valid, dfs, np.int32(2**31 - 1))
         cand = np.argmin(dfs_m, axis=1).astype(np.int32)
         cand_df = np.take_along_axis(dfs_m, cand[:, None], 1)[:, 0]
-        any_missing = (~self._csr_ok[rows_pad] & valid).any(axis=1)
+        csr_bad = ~self._csr_ok[rows_pad] & valid  # (N, MT)
+        any_missing = csr_bad.any(axis=1)
 
         lb = np.asarray(self._lb, dtype=np.int64)
         L_idx = np.minimum(np.searchsorted(lb, cand_df), len(lb) - 1)
@@ -328,15 +440,71 @@ class TorchEngine:
         tb = np.asarray(self._tb, dtype=np.int64)
         T_idx = np.minimum(np.searchsorted(tb, n_terms), len(tb) - 1)
 
+        def keep_only(keep):
+            nonlocal qi_arr, n_terms, rows_pad, ks, valid, dfs, cand, \
+                cand_df, csr_bad, any_missing, Lval, windowed, T_idx, \
+                L_idx, flat_rows
+            (qi_arr, n_terms, rows_pad, ks, valid, dfs, cand, cand_df,
+             csr_bad, any_missing, Lval, windowed, T_idx, L_idx) = (
+                a[keep] for a in (
+                    qi_arr, n_terms, rows_pad, ks, valid, dfs, cand,
+                    cand_df, csr_bad, any_missing, Lval, windowed, T_idx,
+                    L_idx))
+            flat_rows = [flat_rows[i] for i in np.nonzero(keep)[0]]
+
         pending = []
+        if self._dense_H:
+            # all-head conjunctions -> the doc-space (pruned) dense scan,
+            # unless sparse (expected matches under independence
+            # N * prod(df_i / N) < 4k) with a small candidate list: those
+            # take semidense, exact with no prune-guard tail. Csr-missing
+            # all-dense queries stay dense (semidense needs the candidate
+            # term's run).
+            slot_dense = self._dense_slot[rows_pad] >= 0
+            all_dense = np.all(slot_dense | ~valid, axis=1) & (n_terms > 1)
+            with np.errstate(divide="ignore"):
+                log_df = np.where(valid, np.log(np.maximum(dfs, 1)), 0.0)
+            logN = np.log(max(self.packed.n_docs, 1))
+            exp_matches = np.exp(log_df.sum(axis=1) - (n_terms - 1) * logN)
+            all_dense &= ((cand_df.astype(np.int64)
+                           > self.SEMI_FROM_DENSE_MAX_CAND_L)
+                          | (exp_matches >= 4.0 * ks)
+                          | any_missing)
+            if all_dense.any():
+                pending += self._submit_dense(
+                    np.nonzero(all_dense)[0], qi_arr, flat_rows, n_terms,
+                    ks, rq)
+                if all_dense.all():
+                    return pending
+                keep_only(~all_dense)
+
         # candidate lists past the largest L bucket would be scanned only
         # in part: exact host path, single terms included
         saturated = cand_df.astype(np.int64) > int(lb[-1])
+        semi = np.zeros(len(qi_arr), dtype=bool)
+        if self._dense_H:
+            # tail candidate x (dense + short-bs) others: any dense other
+            # qualifies. The candidate's run seeds the lanes and non-dense
+            # others are searched in their runs, so every non-dense term
+            # needs its CSR run.
+            slot_dense = self._dense_slot[rows_pad] >= 0
+            any_dense_other = np.any(
+                slot_dense & valid & (slot_idx != cand[:, None]), axis=1)
+            cand_ok = np.take_along_axis(
+                self._csr_ok[rows_pad], cand[:, None].astype(np.int64), 1)[:, 0]
+            semi = ((n_terms > 1) & any_dense_other & ~saturated & cand_ok
+                    & np.all(slot_dense | ~csr_bad, axis=1))
+            if semi.any():
+                pending += self._submit_semidense(
+                    np.nonzero(semi)[0], qi_arr, flat_rows, rows_pad,
+                    n_terms, cand, ks, Lval)
         host_merge = (((n_terms > 1) & (Lval >= self.HOST_MERGE_MIN_L)
-                       & ~windowed) | saturated | any_missing)
+                       & ~windowed & ~semi) | saturated
+                      | (any_missing & ~semi))  # bs/single need every run
+        bs = ~host_merge & ~semi
         self._bump(route_host_merge=int(host_merge.sum()),
-                   route_bs_windowed=int((windowed & ~host_merge).sum()),
-                   route_bs=int((~host_merge).sum()))
+                   route_bs_windowed=int((windowed & bs).sum()),
+                   route_bs=int(bs.sum()))
         if host_merge.any():
             hm = np.nonzero(host_merge)[0]
 
@@ -347,13 +515,9 @@ class TorchEngine:
                     res_list[int(qi_arr[i])].set_arrays(d, s)
 
             pending.append(run_host_merge)
-            keep = ~host_merge
-            if not keep.any():
-                return pending
-            qi_arr, n_terms, rows_pad, ks, valid, cand, T_idx, L_idx = (
-                qi_arr[keep], n_terms[keep], rows_pad[keep], ks[keep],
-                valid[keep], cand[keep], T_idx[keep], L_idx[keep])
-            flat_rows = [flat_rows[i] for i in np.nonzero(keep)[0]]
+        if not bs.any():
+            return pending
+        keep_only(bs)
 
         key = T_idx.astype(np.int64) * 1000 + L_idx * 10
         uniq_keys, inverse = np.unique(key, return_inverse=True)
@@ -397,6 +561,32 @@ class TorchEngine:
                     qi_arr[m], flat_rows, m))
         return pending
 
+    def _finalizer(self, route: str, out: torch.Tensor, T: int, slot_of,
+                   idf64_q, ks, qis, flat_rows, members, on_flags=None):
+        """The finalizer of one device group: fetch the packed output,
+        derive the host-fallback mask, re-rank. on_flags(packed,
+        res_list), if given, may take rows out of this finalize (the
+        prune-miss rescue) and returns the rows to finalize here."""
+
+        def finalize(res_list):
+            t0 = time.perf_counter()
+            n = len(qis)
+            packed = self._fetch(out)[:n]
+            flags = packed[:, T + 1, 0]
+            force = self._flags_to_force(flags)
+            rows = np.arange(n)
+            if on_flags is not None:
+                rows = on_flags(packed, res_list)
+            if len(rows):
+                self._finalize_arrays(
+                    packed[rows, 0, :], packed[rows, 1 : T + 1, :],
+                    flags[rows], slot_of[rows], idf64_q[rows], ks[rows],
+                    qis[rows], flat_rows, members[rows], res_list,
+                    force_host=force[rows])
+            self._bump(**{f"{route}_s": time.perf_counter() - t0})
+
+        return finalize
+
     def _dispatch_flat(self, T, L, starts, ends, use_score, idf64_q,
                        slot_of, ks, qis, flat_rows, members):
         M = min(L, int(ks.max(initial=1)) + self.margin)
@@ -407,36 +597,265 @@ class TorchEngine:
                    self._to_dev(ends), self._to_dev(use_score))
         # host time to enqueue the group (it blocks when the card's launch
         # queue is full, so device-bound batches show up here too)
-        self._bump(dispatch_s=time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self._bump(dispatch_s=dt, bs_s=dt)
+        return self._finalizer("bs", out, T, slot_of, idf64_q, ks,
+                               np.asarray(qis), flat_rows,
+                               np.asarray(members))
 
-        def finalize(res_list):
-            t0 = time.perf_counter()
-            packed = out.cpu().numpy()  # one device-to-host copy
-            # the wait covers device compute still in flight + the copy
-            self._bump(fetch_wait_s=time.perf_counter() - t0)
-            self._finalize_arrays(
-                packed[:, 0, :], packed[:, 1 : T + 1, :], packed[:, T + 1, 0],
-                slot_of, idf64_q, ks, qis, flat_rows, members, res_list)
+    # -- the dense head-term tier -------------------------------------------
 
-        return finalize
+    def _submit_dense(self, dm, qi_arr, flat_rows, n_terms, ks, rq):
+        """All-head conjunctions: the block-max pruned scan past
+        PRUNED_DENSE_MIN_NB doc blocks (prune-guard misses deferred to
+        the batch's rescue queue), else the full doc-space scan."""
+        pending = []
+        NB = self._n_pad_docs // 128
+        C = self.PRUNED_DENSE_C
+        pruned = NB >= max(self.PRUNED_DENSE_MIN_NB, C + 1)
+        route = "pruned" if pruned else "dense"
+        self._bump(**{f"route_{route}": len(dm)})
+        groups: Dict[int, list] = {}
+        for i in dm:
+            groups.setdefault(_bucket(int(n_terms[i]), self._tb), []).append(int(i))
+        eps3 = 3.0 * self.rel_eps
+        for T, members in groups.items():
+            if pruned:
+                buckets = self.PRUNED_DENSE_B_BUCKETS
+                chunk = _chunk_within(PRUNED_LANE_BUDGET, T * C * 128, buckets)
+            else:
+                buckets = [8, self.DENSE_CHUNK]
+                chunk = self.DENSE_CHUNK
+            for ci in range(0, len(members), chunk):
+                m = np.asarray(members[ci : ci + chunk], dtype=np.int64)
+                n = len(m)
+                B = _bucket(n, buckets)
+                slots = np.zeros((B, T), dtype=np.int32)
+                use = np.zeros((B, T), dtype=np.float32)
+                idf64_q = np.zeros((B, T), dtype=np.float64)
+                for bi, i in enumerate(m):
+                    rows = flat_rows[i]
+                    # query-term order; padded slots repeat the first term
+                    slots[bi] = self._dense_slot[rows + [rows[0]] * (T - len(rows))]
+                    use[bi, : len(rows)] = 1.0
+                    idf64_q[bi, : len(rows)] = self.packed.idf64[rows]
+                slot_of = np.tile(np.arange(T, dtype=np.int64), (B, 1))
+                ks_g = np.zeros(B, dtype=np.int32)
+                ks_g[:n] = ks[m]
+                M = min(int(ks_g.max(initial=1)) + self.margin,
+                        self._n_pad_docs)
+                t0 = time.perf_counter()
+                if pruned:
+                    out = K.make_pruned_dense_kernel(T, NB, C, M, eps3)(
+                        self.d_dense_sc, self.d_dense_tf,
+                        self.d_dense_blockmax, self.d_dense_blockmax2,
+                        self.d_dense_argpos, self._to_dev(slots),
+                        self._to_dev(use), self._to_dev(ks_g))
+                else:
+                    out = K.make_dense_search_kernel(T, self._n_pad_docs, M)(
+                        self.d_dense_sc, self.d_dense_tf, self._to_dev(slots),
+                        self._to_dev(use))
+                dt = time.perf_counter() - t0
+                self._bump(**{"dispatch_s": dt, f"{route}_s": dt})
+                qis = qi_arr[m]
+                on_flags = None
+                if pruned and self.DENSE_RESCUE:
+                    on_flags = self._defer_prune_misses(
+                        rq, T, M, slots, use, slot_of, idf64_q, ks_g, qis,
+                        m, flat_rows)
+                pending.append(self._finalizer(
+                    route, out, T, slot_of, idf64_q, ks_g, qis, flat_rows,
+                    m, on_flags=on_flags))
+        return pending
 
-    def _flags_to_force(self, flags: np.ndarray) -> np.ndarray:
+    @staticmethod
+    def _defer_prune_misses(rq, T, M, slots, use, slot_of, idf64_q, ks,
+                            qis, members, flat_rows):
+        """on_flags hook of a pruned group: queue its FLAG_PRUNE_MISS rows
+        for the batch's rescue and finalize the rest now."""
+
+        def on_flags(packed, res_list):
+            miss = (packed[:, T + 1, 0] & K.FLAG_PRUNE_MISS) != 0
+            if miss.any():
+                sub = np.nonzero(miss)[0]
+                rq.append(dict(T=T, M=M, slots=slots[sub], use=use[sub],
+                               slot_of=slot_of[sub], idf64_q=idf64_q[sub],
+                               ks=ks[sub], qis=qis[sub],
+                               members=members[sub], flat_rows=flat_rows,
+                               res_list=res_list))
+            return np.nonzero(~miss)[0]
+
+        return on_flags
+
+    def _dense_full_rescue(self, T: int, M: int, slots: np.ndarray,
+                           use: np.ndarray) -> np.ndarray:
+        """The exact full-scan dense kernel over prune-guard-flagged rows,
+        chunked so B * N_pad <= RESCUE_LANE_BUDGET. Returns packed
+        (n, T+2, M) rows in the pruned kernel's layout; no prune bit can
+        recur (every block is examined)."""
+        n = len(slots)
+        t0 = time.perf_counter()
+        fit = RESCUE_LANE_BUDGET // max(self._n_pad_docs, 1)
+        buckets = [b for b in [8, self.DENSE_CHUNK] if b <= max(fit, 8)]
+        chunk = buckets[-1]
+        kern = K.make_dense_search_kernel(T, self._n_pad_docs, M)
+        outs = []
+        for ci in range(0, n, chunk):
+            cn = min(chunk, n - ci)
+            B = _bucket(cn, buckets)
+            s_p = np.zeros((B, T), dtype=np.int32)
+            s_p[:cn] = slots[ci : ci + cn]
+            u_p = np.zeros((B, T), dtype=np.float32)
+            u_p[:cn] = use[ci : ci + cn]
+            outs.append((ci, cn, kern(self.d_dense_sc, self.d_dense_tf,
+                                      self._to_dev(s_p), self._to_dev(u_p))))
+        out = np.empty((n, T + 2, M), dtype=np.int32)
+        for ci, cn, o in outs:
+            out[ci : ci + cn] = self._fetch(o)[:cn]
+        self._bump(prune_rescued=n, rescue_s=time.perf_counter() - t0)
+        return out
+
+    def _drain_rescues(self, rq: List[dict]) -> None:
+        """Barrier finalizer: the prune-guard misses deferred by every
+        dense group of the batch re-run together, one full-scan call per
+        (T, M), then finalize (rows the rescue still flags take the exact
+        host path)."""
+        ctxs, rq[:] = list(rq), []
+        groups: Dict[tuple, List[dict]] = {}
+        for c in ctxs:
+            groups.setdefault((c["T"], c["M"]), []).append(c)
+        for (T, M), cs in groups.items():
+            rescued = self._dense_full_rescue(
+                T, M, np.concatenate([c["slots"] for c in cs]),
+                np.concatenate([c["use"] for c in cs]))
+            off = 0
+            for c in cs:
+                sub = rescued[off : off + len(c["qis"])]
+                off += len(c["qis"])
+                flags = sub[:, T + 1, 0]
+                self._finalize_arrays(
+                    sub[:, 0, :], sub[:, 1 : T + 1, :], flags, c["slot_of"],
+                    c["idf64_q"], c["ks"], c["qis"], c["flat_rows"],
+                    c["members"], c["res_list"],
+                    force_host=self._flags_to_force(flags, rescue=True))
+
+    def _submit_semidense(self, sm, qi_arr, flat_rows, rows_pad, n_terms,
+                          cand, ks, Lval):
+        """Tail candidate x (dense + short-bs) others. Slot layout: 0 =
+        candidate, 1..n_bs = non-dense others (binary search over their
+        runs), then the dense others; padded slots repeat the first dense
+        slot with use 0. Layout and group split are vectorized (stable
+        argsort of a per-(query, term) class rank)."""
+        pending = []
+        self._bump(route_semidense=len(sm))
+        MT = rows_pad.shape[1]
+        rp = rows_pad[sm]  # (S, MT) term rows
+        nt = n_terms[sm]
+        cs = cand[sm]
+        col = np.arange(MT, dtype=np.int64)[None, :]
+        v = col < nt[:, None]
+        ds = self._dense_slot[rp]  # dense slot or -1
+        is_cand = col == cs[:, None]
+        is_bs = v & ~is_cand & (ds < 0)
+        nbs = is_bs.sum(axis=1).astype(np.int64)
+        # slot order: candidate, bs others (query order), dense others
+        # (query order), padding
+        rank = np.where(is_cand, np.int32(-1),
+                        np.where(is_bs, np.int32(0),
+                                 np.where(v, np.int32(1), np.int32(2))))
+        order = np.argsort(rank, axis=1, kind="stable")  # (S, MT)
+        slot_of_s = np.argsort(order, axis=1, kind="stable")
+        sr = np.take_along_axis(rp, order, 1)  # slot-order rows
+        ds_s = np.take_along_axis(ds, order, 1)
+        idf64_q_s = self.packed.idf64[rp] * v  # query order
+        tb = np.asarray(self._tb, dtype=np.int64)
+        T_of = tb[np.searchsorted(tb, nt)]
+        dfb = np.where(is_bs, self.packed.df[rp], 0).max(axis=1)
+
+        gkey = (T_of * (MT + 1) + nbs) * np.int64(1 << 40) \
+            + Lval[sm].astype(np.int64)
+        uniq_keys, inverse = np.unique(gkey, return_inverse=True)
+        for gi in range(len(uniq_keys)):
+            sel = np.nonzero(inverse == gi)[0]
+            T = int(T_of[sel[0]])
+            L = int(Lval[sm[sel[0]]])
+            NBs = int(nbs[sel[0]])
+            # bs depth quantized to an L bucket so shapes stay few
+            n_it = K.n_iters_for(_bucket(max(int(dfb[sel].max()), 1),
+                                         self._lb)) if NBs else 0
+            chunk = _chunk_within(SEMIDENSE_LANE_BUDGET, (T - 1) * L,
+                                  B_BUCKETS)
+            first_dense = 1 + NBs
+            slotcol = np.arange(T, dtype=np.int64)[None, :]
+            for ci in range(0, len(sel), chunk):
+                gsel = sel[ci : ci + chunk]
+                m = sm[gsel]
+                n = len(gsel)
+                B = _bucket(n, B_BUCKETS)
+                live = slotcol < nt[gsel][:, None]  # (n, T) slot live
+                srt = sr[gsel, :T]
+                csbs = slotcol < first_dense  # candidate + bs slots
+                starts = np.zeros((B, T), dtype=np.int32)
+                ends = np.zeros((B, T), dtype=np.int32)
+                st = np.where(csbs, self._starts32[srt], 0)
+                starts[:n] = st
+                ends[:n] = st + np.where(csbs, self._df32[srt], 0)
+                slots = np.zeros((B, T), dtype=np.int32)
+                sl = np.where(live & ~csbs, ds_s[gsel, :T], 0)
+                # padded slots repeat the first dense slot (use 0)
+                sl = np.where(live | csbs, sl,
+                              sl[:, first_dense : first_dense + 1])
+                slots[:n] = sl
+                use = np.zeros((B, T), dtype=np.float32)
+                use[:n] = live.astype(np.float32)
+                idf64_q = np.zeros((B, T), dtype=np.float64)
+                idf64_q[:n] = idf64_q_s[gsel, :T]
+                slot_of = np.zeros((B, T), dtype=np.int64)
+                slot_of[:n] = np.where(v[gsel], slot_of_s[gsel], 0)[:, :T]
+                ks_g = np.zeros(B, dtype=np.int32)
+                ks_g[:n] = ks[m]
+                M = min(L, int(ks_g.max(initial=1)) + self.margin)
+                t0 = time.perf_counter()
+                out = K.make_semidense_kernel(
+                    T, L, M, self._n_pad_docs, NBs, n_it)(
+                    self.d_postings_doc, self.d_postings_score,
+                    self.d_postings_tf, self.d_dense_sc, self.d_dense_tf,
+                    self._to_dev(starts), self._to_dev(ends),
+                    self._to_dev(use), self._to_dev(slots))
+                dt = time.perf_counter() - t0
+                self._bump(dispatch_s=dt, semidense_s=dt)
+                pending.append(self._finalizer(
+                    "semidense", out, T, slot_of, idf64_q, ks_g, qi_arr[m],
+                    flat_rows, m))
+        return pending
+
+    # -- guards and the re-rank ---------------------------------------------
+
+    def _flags_to_force(self, flags: np.ndarray,
+                        rescue: bool = False) -> np.ndarray:
         """Kernel flag word -> host-fallback mask. Window overflow, tf
-        saturation and prune misses always force the exact path (the bs
-        kernel raises none of them); FLAG_TRUNC forces only under
-        strict_parity — a truncated tie class breaks parity only when an
-        excluded member f32-collides with a distinct f64 score."""
+        saturation and prune misses always force the exact path (the
+        kernels here raise only FLAG_TRUNC and FLAG_PRUNE_MISS);
+        FLAG_TRUNC forces only under strict_parity — a truncated tie
+        class breaks parity only when an excluded member f32-collides
+        with a distinct f64 score. rescue=True: the rescue's second pass,
+        which counts only what still forces."""
         force = (flags & (K.FLAG_OVERFLOW | K.FLAG_TF_SAT
                           | K.FLAG_PRUNE_MISS)) != 0
         if self.strict_parity:
             force = force | ((flags & K.FLAG_TRUNC) != 0)
+        if rescue:
+            self._bump(forced_host_after_rescue=int(force.sum()))
+            return force
         self._bump(q_flag_seen=len(flags),
                    flag_trunc=int(((flags & K.FLAG_TRUNC) != 0).sum()),
+                   flag_prune_miss=int(((flags & K.FLAG_PRUNE_MISS) != 0).sum()),
                    forced_host=int(force.sum()))
         return force
 
     def _finalize_arrays(self, top_docs, top_tfs_slot, flags, slot_of,
-                         idf64_q, ks, qis, flat_rows, members, results):
+                         idf64_q, ks, qis, flat_rows, members, results,
+                         force_host):
         n = len(qis)
         t0 = time.perf_counter()
         B, T, M = top_tfs_slot.shape
@@ -449,7 +868,7 @@ class TorchEngine:
         cut = tie_class_cut(flags, score_f, n_valid, ks, self.rel_eps)
         suspects = (truncation_suspects(score_f, n_valid, ks,
                                         rel_eps=self.rel_eps)
-                    | cut | self._flags_to_force(flags))
+                    | cut | force_host)
         self._bump(host_fallback_q=int(suspects[:n].sum()),
                    forced_host_tie_cut=int(cut[:n].sum()),
                    rescore_s=time.perf_counter() - t0)
@@ -526,8 +945,7 @@ class TorchEngine:
 
     def _dispatch_group(self, group: List[_PlannedQuery], T: int, L: int):
         starts, ends, use_score, idf64_q, slot_of, ks = self._assemble(group, T)
-        members = np.arange(len(group))
         return self._dispatch_flat(
             T, L, starts, ends, use_score, idf64_q, slot_of, ks,
             np.asarray([pq.qi for pq in group], dtype=np.int64),
-            [pq.rows for pq in group], members)
+            [pq.rows for pq in group], np.arange(len(group)))

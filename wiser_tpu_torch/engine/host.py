@@ -11,7 +11,9 @@ from typing import List, Sequence
 import numpy as np
 
 from wiser_tpu_torch.engine.kernels import FLAG_TRUNC, INT32_MAX
-from wiser_tpu_torch.shared import K1, PackedIndex, SearchQuery
+from wiser_tpu_torch.index.format import PackedIndex
+from wiser_tpu_torch.scoring import K1
+from wiser_tpu_torch.types import SearchQuery
 
 L_BUCKETS = [128, 512, 2048, 8192, 32768, 131072, 524288, 2097152]
 B_BUCKETS = [8, 32, 128, 1024, 4096]

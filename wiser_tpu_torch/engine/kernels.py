@@ -1,18 +1,29 @@
-"""Batched conjunctive search step in plain torch (raw-column subset of
+"""Batched conjunctive search steps in plain torch (raw-column subset of
 wiser_tpu/engine/kernels.py).
 
-A batch of B queries runs over the global CSR posting columns: load each
-query's candidate run (slot 0, its least-frequent term) as a contiguous
-(B, L) slice, score it from the per-posting f32 partial-score column,
-intersect by vectorized lower-bound binary search into every other
-slot's run, take the exact top-M lanes, and gather the per-slot tfs at
-the winners for the host's f64 re-rank (engine/topk.py).
+The bs step: load each query's candidate run (slot 0, its least-frequent
+term) as a contiguous (B, L) slice, score it from the per-posting f32
+partial-score column, intersect by vectorized lower-bound binary search
+into every other slot's run, take the exact top-M lanes, and gather the
+per-slot tfs at the winners for the host's f64 re-rank (engine/topk.py).
+
+The dense head-term tier: head terms keep (N_pad,) f32 score and int32
+tf rows (lane = doc id, 0 = absent). All-head conjunctions scan the doc
+space (make_dense_search_kernel) or, past PRUNED_DENSE_MIN_NB doc
+blocks, only the C blocks with the highest joint upper bounds
+(make_pruned_dense_kernel) under a provable guard; tail x head queries
+probe the dense rows at their candidate docs (make_semidense_kernel).
 
 Slot convention (host assembly): slot 0 is the candidate term; the other
 terms fill slots 1..T-1; padded slots repeat slot 0 with use_score 0.
 
 These functions are the XLA programs of the JAX package written out as
-torch operations; they run on whatever device their tensors live on.
+torch operations; they run on whatever device their tensors live on. f32
+sums are written as sequential adds in slot order, one addend per slot,
+as the reference sums them (eager torch runs each add as its own
+operation, so nothing contracts into an FMA): the prune guard's proof
+needs the score and its bound summed in the same order, and the flag
+words then equal the reference's.
 """
 
 from __future__ import annotations
@@ -33,6 +44,17 @@ def _gather1d(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     CUDA gather out of range is a device-side assert, so the clip is what
     keeps the reference's semantics."""
     return arr[idx.clamp(0, arr.shape[0] - 1)]
+
+
+def _dense_gather(plane: torch.Tensor, slots_t: torch.Tensor,
+                  doc_idx: torch.Tensor) -> torch.Tensor:
+    """plane[slot, doc] from an (H, N_pad) dense plane, broadcasting
+    slots_t (B, 1) against doc_idx (B, L), doc ids clamped into range.
+    Indices are int64, so there is one form at every plane size (the
+    reference's flat-int32 / 2D branch exists because JAX runs with x64
+    disabled)."""
+    doc = doc_idx.to(torch.int64).clamp(0, plane.shape[1] - 1)
+    return plane[slots_t.to(torch.int64), doc]
 
 
 def _slice_rows(arr: torch.Tensor, starts: torch.Tensor, L: int) -> torch.Tensor:
@@ -169,3 +191,205 @@ def make_search_kernel(T: int, L: int, M: int, n_bs_iters: int):
 def n_iters_for(max_len: int) -> int:
     """Binary-search iteration count covering lists up to max_len."""
     return max(1, int(np.ceil(np.log2(max(2, int(max_len) + 1)))))
+
+
+# -- the dense head-term tier ------------------------------------------------
+
+
+def make_dense_search_kernel(T: int, N_pad: int, M: int):
+    """Doc-space dense scan for all-head-term conjunctions: sum the T
+    row-gathered (B, N_pad) f32 score rows in slot order from zeros,
+    match where every row is nonzero, take the exact top-M lanes (lane =
+    doc id) and gather the per-slot tfs from the dense tf rows; the
+    count-based FLAG_TRUNC runs over the full plane.
+
+    fn(dense_sc (H, N_pad) f32, dense_tf (H, N_pad) i32, slots (B, T)
+       i32 rows into H (padded slots repeat slot 0), use_score (B, T) f32)
+      -> packed (B, T+2, M) int32."""
+
+    def kernel(dense_sc, dense_tf, slots, use_score):
+        B = slots.shape[0]
+        rows = slots.to(torch.int64)
+        score = torch.zeros((B, N_pad), dtype=torch.float32,
+                            device=dense_sc.device)
+        match = torch.ones((B, N_pad), dtype=torch.bool,
+                           device=dense_sc.device)
+        for t in range(T):
+            sc_t = dense_sc[rows[:, t]]  # (B, N_pad) rows
+            match &= sc_t > 0
+            score += sc_t * use_score[:, t : t + 1]
+        score = torch.where(match, score, NEG_INF)
+        del match
+        top_score, top_docs = two_level_top_m(score, M)  # lane = doc id
+        top_docs = torch.where(top_score > NEG_INF, top_docs, -1)
+        tfs = torch.stack([
+            torch.where(top_docs >= 0,
+                        _dense_gather(dense_tf, slots[:, t : t + 1], top_docs), 0)
+            for t in range(T)], dim=1)
+        trunc = boundary_truncated(score, top_score, M)
+        return pack_with_flags(top_docs.to(torch.int32), tfs,
+                               trunc.to(torch.int32))
+
+    return kernel
+
+
+def make_semidense_kernel(T: int, L: int, M: int, N_pad: int,
+                          n_bs: int = 0, n_bs_iters: int = 0):
+    """Tail candidate x head others: the candidate run loads
+    contiguously; slots 1..n_bs are non-dense others resolved by binary
+    search over their (short) CSR runs; every later slot is a dense
+    other, whose membership and score per lane is one doc-indexed gather
+    into its (N_pad,) row.
+
+    fn(postings_doc, postings_score, postings_tf, dense_sc (H, N_pad),
+       dense_tf (H, N_pad), starts (B,T), ends (B,T), use_score (B,T),
+       slots (B,T) dense rows for slots 1+n_bs..; others ignored)
+      -> packed (B, T+2, M) int32."""
+
+    def kernel(postings_doc, postings_score, postings_tf, dense_sc,
+               dense_tf, starts, ends, use_score, slots):
+        B = starts.shape[0]
+        cdocs, cscore, cvalid, cs = _candidates(
+            postings_doc, postings_score, starts, ends, L)
+        # sentinel cdocs clamp to lane N_pad-1; cvalid masks them out of
+        # the match whatever that lane holds
+        match = cvalid
+        score = cscore * use_score[:, 0:1]
+        if n_bs:
+            targets = cdocs[:, None, :].expand(B, n_bs, L)
+            lo = _binary_search(postings_doc, targets,
+                                starts[:, 1 : 1 + n_bs, None],
+                                ends[:, 1 : 1 + n_bs, None], n_bs_iters)
+            found = ((lo < ends[:, 1 : 1 + n_bs, None])
+                     & (_gather1d(postings_doc, lo) == targets))
+            match = match & found.all(dim=1)
+            partial = (torch.where(found, _gather1d(postings_score, lo), 0.0)
+                       * use_score[:, 1 : 1 + n_bs, None])
+            acc = partial[:, 0]
+            for t in range(1, n_bs):
+                acc = acc + partial[:, t]
+            score = score + acc
+        for t in range(1 + n_bs, T):
+            p = _dense_gather(dense_sc, slots[:, t : t + 1], cdocs)  # (B, L)
+            match = match & (p > 0)
+            score = score + p * use_score[:, t : t + 1]
+        score = torch.where(match, score, NEG_INF)
+        top_score, top_l = two_level_top_m(score, M)
+        kept = top_score > NEG_INF
+        top_docs = torch.where(kept, torch.gather(cdocs, 1, top_l), -1)
+        tfs = [_gather1d(postings_tf, cs[:, None] + top_l)]
+        for t in range(1, 1 + n_bs):
+            tfs.append(_gather1d(postings_tf,
+                                 torch.gather(lo[:, t - 1], 1, top_l)))
+        for t in range(1 + n_bs, T):
+            tfs.append(_dense_gather(dense_tf, slots[:, t : t + 1], top_docs))
+        tfs = torch.where(kept[:, None, :], torch.stack(tfs, dim=1), 0)
+        trunc = boundary_truncated(score, top_score, M)
+        return pack_with_flags(top_docs, tfs, trunc.to(torch.int32))
+
+    return kernel
+
+
+def _select_ub_blocks(blockmax, slots, weights, *, T: int, NB: int, C: int,
+                      blockmax2=None, argpos=None):
+    """Per-query 128-doc-block upper bounds and the top-C block pick.
+
+    A match needs every live term (weight > 0) present, and a term is
+    present in a block iff its blockmax there is > 0, so a block missing
+    a live term has joint bound 0. With blockmax2 (each term's
+    second-largest block score, with multiplicity) and argpos (the
+    argmax lane, uint8), the bound is the max over anchor terms t* of
+    bm_t* + sum over t != t* of (bm_t if argpos_t == argpos_t* else
+    bm2_t), summed anchor first and then in slot order: it bounds every
+    doc of the block (docs at no term's argmax are covered because each
+    anchor's bound >= sum bm2).
+
+    Returns (blk (B, C) int64 block ids in ascending order, next_ub (B,)
+    f32: the (C+1)-th largest bound, which bounds every unexamined
+    block). Which of several tied blocks at the cut is kept is free."""
+    B = slots.shape[0]
+    rows = slots.to(torch.int64)
+    feas = torch.ones((B, NB), dtype=torch.bool, device=blockmax.device)
+    bms, bm2s, aps = [], [], []
+    for t in range(T):
+        bm = blockmax[rows[:, t]]
+        w = weights[:, t : t + 1]
+        bms.append(bm * w)
+        feas &= (bm > 0.0) | (w == 0.0)
+        if blockmax2 is not None:
+            bm2s.append(blockmax2[rows[:, t]] * w)
+            aps.append(argpos[rows[:, t]])
+    if blockmax2 is None:
+        ub = bms[0]
+        for t in range(1, T):
+            ub = ub + bms[t]
+    else:
+        ub = torch.full((B, NB), NEG_INF, dtype=torch.float32,
+                        device=blockmax.device)
+        for ts in range(T):
+            bound = bms[ts]  # the anchor's own full max
+            for t in range(T):
+                if t != ts:
+                    bound = bound + torch.where(aps[t] == aps[ts],
+                                                bms[t], bm2s[t])
+            ub = torch.maximum(ub, bound)
+    ub = torch.where(feas, ub, 0.0)
+    top_ub, top_idx = torch.topk(ub, C + 1, dim=1)
+    blk, _ = torch.sort(top_idx[:, :C], dim=1)
+    return blk, top_ub[:, C]
+
+
+def prune_guard_flag(top_score, next_ub, ks, *, M: int, eps3: float):
+    """FLAG_PRUNE_MISS word: raised unless next_ub < kth * (1 - eps3),
+    kth = the per-query k-th kept f32 score (NEG_INF when fewer than k
+    matches, so then any nonzero unexamined bound flags). 1 - eps3 is
+    rounded to f32 first, as the reference's np.float32 constant."""
+    k_idx = (ks.to(torch.int64) - 1).clamp(0, M - 1)
+    kth = torch.gather(top_score, 1, k_idx[:, None])[:, 0]
+    miss = (next_ub > 0) & (next_ub >= kth * float(np.float32(1.0 - eps3)))
+    return miss.to(torch.int32) * FLAG_PRUNE_MISS
+
+
+def make_pruned_dense_kernel(T: int, NB: int, C: int, M: int, eps3: float):
+    """Block-max pruned dense scan (raw columns): score only the C·128
+    lanes of the C highest-bound blocks, summed in slot order from zeros
+    (the same order as the bound, one addend per slot, so every lane's
+    f32 score <= its block's bound), then raise FLAG_PRUNE_MISS where an
+    unexamined block could reach or tie the k-th kept score.
+
+    fn(dense_sc (H, NB*128) f32, dense_tf (H, NB*128) i32, blockmax,
+       blockmax2 (H, NB) f32, argpos (H, NB) u8, slots (B, T) i32,
+       use_score (B, T) f32, ks (B,) i32) -> packed (B, T+2, M) int32."""
+
+    def kernel(dense_sc, dense_tf, blockmax, blockmax2, argpos, slots,
+               use_score, ks):
+        B = slots.shape[0]
+        blk, next_ub = _select_ub_blocks(
+            blockmax, slots, use_score, T=T, NB=NB, C=C,
+            blockmax2=blockmax2, argpos=argpos)
+        sc_rows = dense_sc.view(dense_sc.shape[0] * NB, 128)
+        rows = slots.to(torch.int64)
+        lane = torch.arange(128, dtype=torch.int64, device=blk.device)
+        cand_docs = (blk[:, :, None] * 128 + lane).reshape(B, C * 128)
+        match = torch.ones((B, C, 128), dtype=torch.bool, device=blk.device)
+        score = torch.zeros((B, C, 128), dtype=torch.float32,
+                            device=blk.device)
+        for t in range(T):
+            p = sc_rows[rows[:, t : t + 1] * NB + blk]  # (B, C, 128)
+            match &= p > 0
+            score += p * use_score[:, t, None, None]
+        score = torch.where(match, score, NEG_INF).reshape(B, C * 128)
+        del match
+        top_score, top_l = two_level_top_m(score, M)
+        top_cand = torch.gather(cand_docs, 1, top_l)
+        kept = top_score > NEG_INF
+        top_docs = torch.where(kept, top_cand, -1).to(torch.int32)
+        tfs = torch.stack([
+            torch.where(kept, _dense_gather(dense_tf, slots[:, t : t + 1],
+                                            top_cand), 0)
+            for t in range(T)], dim=1)
+        flags = (boundary_truncated(score, top_score, M).to(torch.int32)
+                 | prune_guard_flag(top_score, next_ub, ks, M=M, eps3=eps3))
+        return pack_with_flags(top_docs, tfs, flags)
+
+    return kernel

@@ -1,11 +1,12 @@
 """StagedEngine — host-to-device posting staging for indexes larger than
 device memory (port of wiser_tpu/engine/staged.py, non-phrase queries).
 
-The paper's "read as needed": a hot tier of posting columns stays on
-the device (a TorchEngine over a hot view of the index, chosen within a
-byte budget); queries touching cold terms have the needed posting runs
-staged per batch into a scratch column set and run the same bs kernel
-against it. With cold_transfer="packed", staged doc ids whose block
+The paper's "read as needed": a hot tier of posting columns and dense
+head-term rows stays on the device (a TorchEngine over a hot view of the
+index, chosen within a byte budget; its dense rows come from the full
+index, so a head term is served dense-only while its CSR run is cold);
+queries touching cold terms have the needed posting runs staged per
+batch into a scratch column set and run the same bs kernel against it. With cold_transfer="packed", staged doc ids whose block
 deltas fit PACK_WIDTH bits ship bit-packed and are decoded on the device
 by the hand-written CUDA kernel (ops/unpack.py); wider runs ship raw in
 a trailing segment.
@@ -40,18 +41,12 @@ from wiser_tpu_torch.ops.unpack import (
     doc_block_deltas,
     doc_block_widths,
 )
+from wiser_tpu_torch.engine.topk import rescore_sorted_arrays, truncation_suspects
+from wiser_tpu_torch.index.format import BLOCK, SENTINEL_DOC, PackedIndex
+from wiser_tpu_torch.native import lib as native
 from wiser_tpu_torch.runtime import resolve_device
-from wiser_tpu_torch.shared import (
-    BLOCK,
-    SENTINEL_DOC,
-    Bm25Similarity,
-    PackedIndex,
-    SearchQuery,
-    SearchResult,
-    native,
-    rescore_sorted_arrays,
-    truncation_suspects,
-)
+from wiser_tpu_torch.scoring import Bm25Similarity
+from wiser_tpu_torch.types import SearchQuery, SearchResult
 
 # CHUNK_LIMIT bounds a cold chunk's staged postings; the top scratch
 # bucket is 2x that because the packed-transport cap must also cover
@@ -113,6 +108,33 @@ def per_term_device_cost(packed: PackedIndex, columns: str = "raw",
     if split:
         return core, phrase
     return core + phrase
+
+
+def _dense_eligible(packed: PackedIndex) -> np.ndarray:
+    return packed.df >= max(TorchEngine.DENSE_MIN_DF_FLOOR,
+                            packed.n_docs // TorchEngine.DENSE_ELIGIBLE_FRACTION)
+
+
+def _full_shares(packed: PackedIndex, cost_core: np.ndarray,
+                 cost_phr: np.ndarray):
+    """(dense, core, phrase) bytes at full residency: every eligible
+    dense row (capped as TorchEngine caps the tier), every CSR core and
+    every phrase component."""
+    n_pad = (packed.n_docs + 127) // 128 * 128
+    per_row = n_pad * 8 + (n_pad // 128) * 9
+    h_cap = max(0, (2**31 - 1) // max(n_pad // 128, 1) - 1)
+    full_dense = min(int(_dense_eligible(packed).sum()), h_cap) * per_row
+    return full_dense, int(cost_core.sum()), int(cost_phr.sum())
+
+
+def full_residency_bytes(packed: PackedIndex, columns: str = "raw") -> int:
+    """The staged planner's full-residency byte count (StagedEngine
+    .total_full), the base of its budget shares: a caller asks for a
+    fraction of it. The JAX package's full_device_bytes counts the dense
+    tier at TpuEngine's default budget instead; this counts every
+    eligible dense row."""
+    return max(1, sum(_full_shares(
+        packed, *per_term_device_cost(packed, columns, split=True))))
 
 
 def _hot_view(packed: PackedIndex, hot: np.ndarray, phrase_hot: np.ndarray):
@@ -185,12 +207,14 @@ class StagedEngine:
     COLD_HOST_CACHE_CAP = 200_000
 
     def __init__(self, packed: PackedIndex, hbm_budget_bytes: int, *,
-                 device, margin: int = 54, strict_parity: bool = False,
+                 device="cuda", margin: int = 54, strict_parity: bool = False,
                  columns: str = "raw", cold_transfer: str = "packed"):
         """hbm_budget_bytes: the total device budget. It splits across the
         dense rows, CSR cores and phrase components by their
-        full-residency byte shares, spilling unspendable remainders dense
-        -> core -> phrase (the reference's proportional-share planner)."""
+        full-residency byte shares (total_full), spilling unspendable
+        remainders dense -> core -> phrase (the reference's
+        proportional-share planner). device: "cuda" (default; raises
+        without a card) or "cpu"."""
         if cold_transfer not in ("raw", "packed"):
             raise ValueError(f"unknown cold_transfer {cold_transfer!r}")
         if columns != "raw":
@@ -202,16 +226,10 @@ class StagedEngine:
         self.packed = packed
         self.strict_parity = strict_parity
         cost_core, cost_phr = per_term_device_cost(packed, columns, split=True)
-        n_pad = (packed.n_docs + 127) // 128 * 128
-        per_row = n_pad * 8 + (n_pad // 128) * 9
-        dense_min = max(TorchEngine.DENSE_MIN_DF_FLOOR,
-                        packed.n_docs // TorchEngine.DENSE_ELIGIBLE_FRACTION)
-        eligible = packed.df >= dense_min
-        h_cap = max(0, (2**31 - 1) // max(n_pad // 128, 1) - 1)
-        full_dense = min(int(eligible.sum()), h_cap) * per_row
-        full_core = int(cost_core.sum())
-        full_phr = int(cost_phr.sum())
-        total_full = max(1, full_dense + full_core + full_phr)
+        full_dense, full_core, full_phr = _full_shares(packed, cost_core,
+                                                       cost_phr)
+        eligible = _dense_eligible(packed)
+        self.total_full = total_full = max(1, full_dense + full_core + full_phr)
         B = int(hbm_budget_bytes)
         if B >= total_full - total_full // 1000:
             dense_budget, core_budget, phrase_budget = (
@@ -255,7 +273,8 @@ class StagedEngine:
             dense_budget_bytes=dense_budget, dense_from=packed,
             host_packed=packed, single_term_depth=0)
         self.dense_mask = self.hot._dense_slot >= 0
-        self.hot_bytes_used = int(used + used_p)
+        self.hot_bytes_used = int(
+            used + used_p + self.hot.device_bytes()["dense_tier"])
         self.margin = margin
         self.similarity = Bm25Similarity(packed.avg_len)
         self.cache64 = self.similarity.cache

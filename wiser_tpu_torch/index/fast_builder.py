@@ -1,0 +1,271 @@
+"""Vectorized linedoc -> PackedIndex builder (the port's copy of
+wiser_tpu/index/fast_builder.py, in-memory and without bloom rows, which
+is how the port builds its indexes).
+
+The linedoc stream is parsed in chunks with column-level string ops (one
+`str.split` / `fromstring` per chunk, not per value), term ids are
+assigned through one dict pass, and the packed CSR columns are assembled
+with numpy prefix sums and ragged gathers. The columns are identical to
+those of the JAX package's builders.
+
+Input is the canonical WITH_POSITIONS linedoc shape written by
+data/scale_corpus.py: tokens = unique terms, single-space separated;
+positions groups "p1;p2;." per term; offsets groups "a,b;c,d;." per
+term. Non-canonical rows raise ValueError.
+"""
+
+from __future__ import annotations
+
+import warnings
+from itertools import repeat
+from typing import Dict, Iterator, List, Tuple
+
+import numpy as np
+
+from wiser_tpu_torch.codecs import uint_to_char4_np
+from wiser_tpu_torch.index.format import BLOCK, SENTINEL_DOC, PackedIndex
+from wiser_tpu_torch.scoring import RunningAvgLength
+
+
+def _fromstring(s: str, seps: str) -> np.ndarray:
+    for ch in seps:
+        s = s.replace(ch, " ")
+    if not s.strip():
+        return np.empty(0, dtype=np.int64)
+    with warnings.catch_warnings():
+        # np.fromstring's text mode is deprecated but is numpy's only
+        # C-speed bulk number parser; the callers check the counts
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return np.fromstring(s, dtype=np.int64, sep=" ")
+
+
+class _ChunkAccum:
+    def __init__(self):
+        self.vocab: Dict[str, int] = {}
+        self.term_ids: List[np.ndarray] = []
+        self.doc_ids: List[np.ndarray] = []
+        self.tf: List[np.ndarray] = []
+        self.positions: List[np.ndarray] = []
+        self.off_b: List[np.ndarray] = []
+        self.off_e: List[np.ndarray] = []
+        self.doc_lengths: List[np.ndarray] = []
+        self.n_docs = 0
+
+
+def _map_term_ids(vocab: Dict[str, int], flat_tokens: List[str]) -> np.ndarray:
+    """Dict-map tokens to int32 ids in discovery order, inserting new
+    terms."""
+    ids = np.fromiter(map(vocab.get, flat_tokens, repeat(-1)),
+                      dtype=np.int32, count=len(flat_tokens))
+    for i in np.nonzero(ids < 0)[0].tolist():
+        ids[i] = vocab.setdefault(flat_tokens[i], len(vocab))
+    return ids
+
+
+def _parse_group_col(cols: List[str], n_entries: int, seps: str,
+                     what: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Parse a '.'-separated per-term group column over a whole chunk.
+    Returns (counts int64[n_entries], flat numbers int64[total])."""
+    joined = "".join(cols)
+    groups = joined.split(".")
+    if groups and groups[-1] == "":
+        groups.pop()
+    if len(groups) != n_entries:
+        raise ValueError(
+            f"non-canonical {what} column: {len(groups)} groups for "
+            f"{n_entries} token entries (empty groups / missing dots?)")
+    counts = np.fromiter((g.count(";") for g in groups),
+                         dtype=np.int64, count=n_entries)
+    return counts, _fromstring(joined, ";,.")
+
+
+def _parse_linedoc_chunks(path: str, chunk_docs: int) -> Iterator[tuple]:
+    """Yield per-chunk column lists (tokens, positions, offsets, bodies)."""
+    cols: List[List[str]] = [[], [], [], []]
+    with open(path, "r", encoding="utf-8", errors="replace") as f:
+        f.readline()  # header
+        for line in f:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            items = line.split("\t")
+            cols[0].append(items[2])  # tokens
+            cols[1].append(items[4])  # positions
+            cols[2].append(items[3])  # offsets
+            cols[3].append(items[1])  # body
+            if len(cols[0]) >= chunk_docs:
+                yield tuple(cols)
+                cols = [[], [], [], []]
+    if cols[0]:
+        yield tuple(cols)
+
+
+def _accumulate_chunk(acc: _ChunkAccum, chunk: tuple) -> None:
+    tok_cols, pos_cols, off_cols, body_cols = chunk
+    n_docs = len(tok_cols)
+    flat_tokens: List[str] = []
+    n_tok = np.empty(n_docs, dtype=np.int64)
+    for i, tc in enumerate(tok_cols):
+        ts = tc.split(" ")
+        if ts and ts[-1] == "":
+            ts.pop()
+        flat_tokens.extend(ts)
+        n_tok[i] = len(ts)
+    if any(t == "" for t in flat_tokens):
+        raise ValueError("non-canonical tokens column (empty tokens)")
+    E = len(flat_tokens)
+
+    term_ids = _map_term_ids(acc.vocab, flat_tokens)
+    doc_ids = np.repeat(
+        np.arange(acc.n_docs, acc.n_docs + n_docs, dtype=np.int32), n_tok)
+    pos_counts, pos_nums = _parse_group_col(pos_cols, E, ";.", "positions")
+    if int(pos_counts.sum()) != len(pos_nums):
+        raise ValueError("non-canonical positions column (count mismatch)")
+    off_counts, off_nums = _parse_group_col(off_cols, E, ";,.", "offsets")
+    if 2 * int(off_counts.sum()) != len(off_nums):
+        raise ValueError("non-canonical offsets column (pair mismatch)")
+    if not np.array_equal(off_counts, pos_counts):
+        raise ValueError("offsets/positions group size mismatch")
+
+    # body length: count of non-empty space-separated terms
+    blen = np.empty(n_docs, dtype=np.int64)
+    for i, b in enumerate(body_cols):
+        if not b:
+            blen[i] = 0
+        elif "  " not in b and b[0] != " " and b[-1] != " ":
+            blen[i] = b.count(" ") + 1
+        else:
+            blen[i] = len([t for t in b.split(" ") if t])
+
+    acc.term_ids.append(term_ids)
+    acc.doc_ids.append(doc_ids)
+    acc.tf.append(pos_counts.astype(np.int32))
+    acc.positions.append(pos_nums.astype(np.int32))
+    acc.off_b.append(off_nums[0::2].astype(np.int32))
+    acc.off_e.append(off_nums[1::2].astype(np.int32))
+    acc.doc_lengths.append(blen)
+    acc.n_docs += n_docs
+
+
+def pack_from_arrays(term_ids: np.ndarray, doc_ids: np.ndarray,
+                     tf: np.ndarray, positions: np.ndarray,
+                     off_b: np.ndarray, off_e: np.ndarray,
+                     doc_lengths: np.ndarray,
+                     vocab: Dict[str, int]) -> PackedIndex:
+    """Assemble the packed CSR columns from flat occurrence arrays
+    (per-entry term ids in discovery order, doc ids, tfs, and the
+    per-entry groups of positions and offsets). Temporaries are int32
+    and freed as they are consumed; the inputs are consumed too."""
+    terms = sorted(vocab)
+    T = len(terms)
+    remap = np.empty(T, dtype=np.int32)
+    remap[np.fromiter((vocab[t] for t in terms), dtype=np.int64, count=T)] = \
+        np.arange(T, dtype=np.int32)
+    tid = remap[term_ids]
+    del term_ids
+
+    E = len(tid)
+    if E >= 2**31 or len(positions) >= 2**31:
+        raise ValueError("corpus exceeds int32 entry addressing "
+                         f"(E={E}, positions={len(positions)})")
+    order = np.lexsort((doc_ids, tid)).astype(np.int32)
+    df = np.bincount(tid[order], minlength=T)
+    del tid
+    padded = (df + BLOCK - 1) // BLOCK * BLOCK
+    term_starts = np.zeros(T + 1, dtype=np.int64)
+    np.cumsum(padded, out=term_starts[1:])
+    P = int(term_starts[-1])
+    if P >= 2**31:
+        raise ValueError(f"padded postings exceed int32 addressing (P={P})")
+
+    seg = np.zeros(T + 1, dtype=np.int64)
+    np.cumsum(df, out=seg[1:])
+    # sorted entry -> padded posting index, built in int32 pieces
+    pidx = np.repeat(term_starts[:-1].astype(np.int32), df)
+    pidx += np.arange(E, dtype=np.int32)
+    pidx -= np.repeat(seg[:-1].astype(np.int32), df)
+    del seg
+
+    postings_doc = np.full(P, SENTINEL_DOC, dtype=np.int32)
+    postings_doc[pidx] = doc_ids[order]
+    del doc_ids
+    tf_s = tf[order]
+    postings_tf = np.zeros(P, dtype=np.int32)
+    postings_tf[pidx] = tf_s
+
+    # second-level CSRs: ragged reorder of the per-entry bags,
+    # gather = repeat(src_starts[order] - new_starts, tf_s) + arange(total)
+    src_starts = np.zeros(E + 1, dtype=np.int64)
+    np.cumsum(tf, out=src_starts[1:])
+    del tf
+    new_starts = np.zeros(E + 1, dtype=np.int64)
+    np.cumsum(tf_s, out=new_starts[1:])
+    total = int(new_starts[-1])
+    base = src_starts[:-1].astype(np.int32)[order]
+    base -= new_starts[:-1].astype(np.int32)
+    del src_starts, new_starts, order
+    gather = np.repeat(base, tf_s)
+    del base
+    gather += np.arange(total, dtype=np.int32)
+
+    pos_counts_padded = np.zeros(P, dtype=np.int64)
+    pos_counts_padded[pidx] = tf_s
+    del tf_s, pidx
+    pos_starts = np.zeros(P + 1, dtype=np.int64)
+    np.cumsum(pos_counts_padded, out=pos_starts[1:])
+    del pos_counts_padded
+
+    positions_f = positions[gather]
+    del positions
+    off_b_f = off_b[gather]
+    del off_b
+    off_e_f = off_e[gather]
+    del off_e, gather
+
+    avg = RunningAvgLength()  # running mean in insertion order
+    for v in doc_lengths.tolist():
+        avg.add(int(v))
+
+    return PackedIndex(
+        terms=terms,
+        term_starts=term_starts,
+        df=df.astype(np.int64),
+        postings_doc=postings_doc,
+        postings_tf=postings_tf,
+        n_docs=len(doc_lengths),
+        avg_len=float(avg.avg),
+        doc_len_code=uint_to_char4_np(doc_lengths),
+        pos_starts=pos_starts,
+        positions=positions_f,
+        off_starts=pos_starts.copy(),  # one offset pair per position
+        off_begin=off_b_f,
+        off_end=off_e_f,
+    )
+
+
+def _consume_concat(chunks: List[np.ndarray]) -> np.ndarray:
+    """Concatenate chunk arrays, freeing each chunk as it is copied."""
+    if not chunks:
+        return np.empty(0, dtype=np.int32)
+    out = np.empty(sum(len(c) for c in chunks), dtype=chunks[0].dtype)
+    o = 0
+    while chunks:
+        c = chunks.pop(0)
+        out[o : o + len(c)] = c
+        o += len(c)
+    return out
+
+
+def build_packed_fast(path: str, chunk_docs: int = 20_000) -> PackedIndex:
+    """Stream a WITH_POSITIONS linedoc file into a PackedIndex."""
+    acc = _ChunkAccum()
+    for chunk in _parse_linedoc_chunks(path, chunk_docs):
+        _accumulate_chunk(acc, chunk)
+    if acc.n_docs == 0:
+        raise ValueError(f"no docs parsed from {path}")
+    cols = [_consume_concat(c) for c in (acc.term_ids, acc.doc_ids, acc.tf,
+                                          acc.positions, acc.off_b, acc.off_e)]
+    doc_lengths = _consume_concat(acc.doc_lengths)
+    vocab = acc.vocab
+    del acc
+    return pack_from_arrays(*cols, doc_lengths, vocab)

@@ -26,9 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from wiser_tpu_torch.shared import SENTINEL_DOC
-
-BLOCK = 128
+from wiser_tpu_torch.index.format import BLOCK, SENTINEL_DOC
 _MASK32 = 0xFFFFFFFF
 
 # kernel launches by wrapper name, counted where the kernel is launched
