@@ -2,18 +2,22 @@
 """Chip smoke for wiser_tpu_torch: drive the port's main path once on one
 CUDA card and check it.
 
-    python3 chip_smoke.py            # the full smoke (one card, ~10 min)
-    python3 chip_smoke.py --docs 200000 --phases kernel,dense
+    python3 chip_smoke.py            # the full smoke (one card, ~12 min)
+    python3 chip_smoke.py --docs 200000 --phases kernel,dense,phrase
 
 It always compiles csrc/unpack.cu for sm_90a first (nvcc, first use).
-The engine phases share a wiki-shaped 1M-doc index (data/scale_corpus
-defaults: vocab 200k, mean length 120, Zipf 1.25, seed 42; fast
-builder), cached under .smoke_cache/. Two AOL-mix query sets (k=10,
+The engine phases share a wiki-shaped 1M-doc index with bi-blooms
+(data/scale_corpus defaults: vocab 200k, mean length 120, Zipf 1.25,
+seed 42, WITH_BI_BLOOM rows; fast builder with the reference indexer's
+BloomConfig(5, 0.0009)), cached under .smoke_cache/ with the phrase
+pairs mined from its first 2,000 bodies. Two AOL-mix query sets (k=10,
 seed 7): `aol` is bench.py's (Zipf ranks over the spelling-sorted term
 dictionary), `aol_df` the same ranks over terms sorted by df, so head
-terms meet. Every run is a warm pass, then a timed pass with the result
-memos cleared, then parity of >= 200 distinct multi-term queries against
-the exact host search. Phases:
+terms meet; and `phrase`, 4,096 draws (seed 7) from the mined adjacent
+pairs, as the scale bench's config 4_phrase. Every run is a warm pass,
+then a timed pass with the result memos cleared, then parity of >= 200
+distinct multi-term queries against the exact host search (phrase
+search for phrases). Phases:
   kernel    the unpack kernel against its plain torch version and the
             repo's native codec, every width 1..32, G in {1, 256, 65536},
             bit for bit; kernel vs plain time at the staged shapes
@@ -21,6 +25,11 @@ the exact host search. Phases:
   dense     TorchEngine at the default dense budget: dense, pruned
             (block-max) and semidense routes with the batched rescue;
             raises unless aol_df takes the pruned and semidense routes
+  phrase    the phrase set through the same dense-budget TorchEngine:
+            full-scan mega (with its rescue), semidense, compact and
+            list-chain phrase routes and the exact host phrase search;
+            raises unless the full, semidense and compact-or-list routes
+            each answer some
   staged    StagedEngine with the device cold path and packed transport,
             at budget 0 and at a quarter of the full-residency bytes
             (which must admit dense rows and stage cold chunks); the
@@ -46,7 +55,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(ROOT, ".smoke_cache")
 K = 10
 PARITY_SAMPLE = 256
-PHASES = ("kernel", "resident", "dense", "staged")
+PHASES = ("kernel", "resident", "dense", "phrase", "staged")
 # H100 SXM HBM3 rate (NVIDIA's data sheet) for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
 
@@ -166,31 +175,52 @@ def kernel_phase(report: dict) -> dict:
 
 
 def get_index(n_docs: int, report: dict):
-    from wiser_tpu_torch.data.scale_corpus import generate_linedoc
+    """The bi-bloom index and the mined phrase pairs (cached together)."""
+    import resource
+
+    from wiser_tpu_torch.data.scale_corpus import (generate_linedoc,
+                                                   mine_phrases_from_linedoc)
+    from wiser_tpu_torch.index.bloom import BloomConfig
     from wiser_tpu_torch.index.fast_builder import build_packed_fast
     from wiser_tpu_torch.index.format import PackedIndex
 
-    idx_dir = os.path.join(CACHE, f"idx_{n_docs}")
+    idx_dir = os.path.join(CACHE, f"idx_{n_docs}_bibloom")
+    pairs_path = os.path.join(idx_dir, "phrase_pairs.json")
     t0 = time.perf_counter()
-    if os.path.isdir(idx_dir):
+    if os.path.exists(pairs_path):
         packed = PackedIndex.load(idx_dir)
+        with open(pairs_path) as f:
+            pairs = [tuple(p) for p in json.load(f)]
         report["index"] = {"cached": True, "load_s": time.perf_counter() - t0}
     else:
         os.makedirs(CACHE, exist_ok=True)
-        path = os.path.join(CACHE, f"wiki_{n_docs}.linedoc")
-        generate_linedoc(path, n_docs, verbose=False)
+        path = os.path.join(CACHE, f"wiki_{n_docs}_bibloom.linedoc")
+        generate_linedoc(path, n_docs, with_blooms=True, verbose=False)
         t1 = time.perf_counter()
-        packed = build_packed_fast(path)
+        stats: dict = {}
+        packed = build_packed_fast(path, with_blooms=True,
+                                   bloom_cfg=BloomConfig(5, 0.0009),
+                                   stats=stats)
         t2 = time.perf_counter()
+        pairs = mine_phrases_from_linedoc(path, packed.term_to_row,
+                                          max_pairs=2000, max_rows=2000)
         os.remove(path)
         packed.save(idx_dir)
-        report["index"] = {"cached": False, "generate_s": t1 - t0,
-                           "build_s": t2 - t1}
+        with open(pairs_path, "w") as f:
+            json.dump(pairs, f)
+        report["index"] = {
+            "cached": False, "generate_s": t1 - t0, "build_s": t2 - t1,
+            "bloom_build_s": stats["bloom_s"],
+            # ru_maxrss is in KiB on Linux
+            "peak_host_rss_bytes":
+                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
     report["index"].update(n_docs=packed.n_docs, n_terms=packed.n_terms,
                            padded_postings=packed.n_postings,
-                           max_df=int(packed.df.max()))
+                           max_df=int(packed.df.max()),
+                           bloom_row_bytes=2 * packed.bloom_ends.nbytes,
+                           phrase_pairs=len(pairs))
     log(f"index: {report['index']}")
-    return packed
+    return packed, pairs
 
 
 def aol_mixed_queries(packed, n_queries: int, seed: int = 7,
@@ -218,11 +248,22 @@ def aol_mixed_queries(packed, n_queries: int, seed: int = 7,
     return queries
 
 
+def phrase_queries(pairs, n_queries: int, seed: int = 7):
+    """n_queries phrase queries drawn uniformly from the mined pairs."""
+    import numpy as np
+
+    from wiser_tpu_torch.types import SearchQuery
+
+    idx = np.random.default_rng(seed).integers(0, len(pairs), size=n_queries)
+    return [SearchQuery(list(pairs[i]), n_results=K, is_phrase=True)
+            for i in idx]
+
+
 def parity_sample(queries):
     """Indices of up to PARITY_SAMPLE distinct multi-term queries."""
     seen, out = set(), []
     for i, q in enumerate(queries):
-        key = tuple(q.terms)
+        key = (tuple(q.terms), q.is_phrase)
         if len(q.terms) >= 2 and key not in seen:
             seen.add(key)
             out.append(i)
@@ -231,8 +272,9 @@ def parity_sample(queries):
 
 def check_parity(packed, queries, results, sample, what: str,
                  expected: dict) -> int:
-    """Compare against the exact host search; `expected` memoizes its
-    answers across runs (the index is the same)."""
+    """Compare against the exact host search (phrase search for phrase
+    queries); `expected` memoizes its answers across runs (the index is
+    the same)."""
     from wiser_tpu_torch.engine.host import host_exact_search
     from wiser_tpu_torch.scoring import Bm25Similarity
 
@@ -240,10 +282,11 @@ def check_parity(packed, queries, results, sample, what: str,
     bad = []
     for i in sample:
         q = queries[i]
-        key = (tuple(q.terms), q.n_results)
+        key = (tuple(q.terms), q.n_results, q.is_phrase)
         if key not in expected:
             rows = [packed.term_to_row[t] for t in q.terms]
-            d, s = host_exact_search(packed, cache64, rows, q.n_results)
+            d, s = host_exact_search(packed, cache64, rows, q.n_results,
+                                     is_phrase=q.is_phrase)
             expected[key] = [(int(a), float(b)) for a, b in zip(d, s)]
         want = expected[key]
         got = [(e.doc_id, e.doc_score) for e in results[i].entries]
@@ -341,9 +384,14 @@ def main() -> int:
         runs.append(("resident", lambda: TorchEngine(
             packed, device="cuda", dense_budget_bytes=0),
             {"aol": Q, "aol_df": Q // 8}))
+    dense_mixes = {}
     if "dense" in phases:
+        dense_mixes.update(aol=Q, aol_df=Q)
+    if "phrase" in phases:
+        dense_mixes["phrase"] = Q
+    if dense_mixes:
         runs.append(("dense", lambda: TorchEngine(packed, device="cuda"),
-                     {"aol": Q, "aol_df": Q}))
+                     dense_mixes))
     if "staged" in phases:
         def staged(frac):
             def make():
@@ -361,9 +409,10 @@ def main() -> int:
         from wiser_tpu_torch import StagedEngine, TorchEngine
         from wiser_tpu_torch.engine.staged import full_residency_bytes
 
-        packed = get_index(args.docs, report)
+        packed, pairs = get_index(args.docs, report)
         pools = {"aol": aol_mixed_queries(packed, Q),
-                 "aol_df": aol_mixed_queries(packed, Q, by_df=True)}
+                 "aol_df": aol_mixed_queries(packed, Q, by_df=True),
+                 "phrase": phrase_queries(pairs, Q)}
         expected: dict = {}
         for name, make, sizes in runs:
             t0 = time.perf_counter()
@@ -395,22 +444,32 @@ def main() -> int:
                     and st.get("route_semidense", 0) > 0):
                 raise AssertionError(
                     f"dense phase: aol_df took no pruned or semidense route {st}")
+        if "phrase" in phases:
+            st = report["dense_phrase"]["stats"]
+            routes = {r: st.get(f"route_phrase_{r}", 0)
+                      for r in ("full", "semidense", "compact", "list", "host")}
+            report["dense_phrase"]["phrase_routes"] = routes
+            if not (routes["full"] > 0 and routes["semidense"] > 0
+                    and routes["compact"] + routes["list"] > 0):
+                raise AssertionError(
+                    f"phrase phase: a phrase route took no query {routes}")
         if "staged" in phases:
             info = report["staged_q_engine"]
             chunks = sum(report[f"staged_q_{mix}"]["stats"].get("cold_chunks", 0)
-                         for mix in pools)
+                         for mix in ("aol", "aol_df"))
             if info["dense_rows"] <= 0 or chunks <= 0:
                 raise AssertionError(
                     f"quarter-budget staged run: {info['dense_rows']} dense "
                     f"rows, {chunks} cold chunks (both must be > 0)")
             launches = sum(report[f"{name}_{mix}"]["launches"]["unpack_delta_blocks"]
-                           for name in ("staged", "staged_q") for mix in pools)
+                           for name in ("staged", "staged_q")
+                           for mix in ("aol", "aol_df"))
             if launches <= 0:
                 raise AssertionError(
                     "staged phase never launched the unpack kernel")
             kern["launches"] = launches
         route_keys = ("route_", "flag_prune_miss", "prune_rescued",
-                      "forced_host", "host_exact_s", "rescue_s")
+                      "forced_host", "host_exact_s", "rescue_s", "phrase_")
         summary = {}
         for name, _, sizes in runs:
             for mix in sizes:

@@ -384,9 +384,9 @@ def spy_host(engine, monkeypatch):
     calls = []
     orig = engine._host_exact
 
-    def wrapped(rows, k):
+    def wrapped(rows, k, is_phrase=False):
         calls.append(tuple(rows))
-        return orig(rows, k)
+        return orig(rows, k, is_phrase)
 
     monkeypatch.setattr(engine, "_host_exact", wrapped)
     return calls

@@ -165,10 +165,21 @@ def test_host_merge_and_windowed_routes(corpus):
     assert st["route_host_merge"] > 0 and st["route_bs_windowed"] > 0
 
 
-def test_phrase_query_raises(engines):
-    te, _ = engines
-    with pytest.raises(NotImplementedError):
-        te.search(SearchQuery(["t0", "t1"], n_results=5, is_phrase=True))
+def test_phrase_query_raises(corpus, engines):
+    """A phrase query does not raise: TorchEngine answers 2- and 3-term
+    phrases (and the AND query over the same terms, in the same batch) as
+    TpuEngine and the oracle do."""
+    packed, oracle = corpus
+    te, je = engines
+    qs = [SearchQuery(["t0", "t1"], n_results=5, is_phrase=True),
+          SearchQuery(["t0", "t1"], n_results=5),
+          SearchQuery(["t1", "t0"], n_results=10, is_phrase=True),
+          SearchQuery(["t0", "t2", "t1"], n_results=10, is_phrase=True),
+          SearchQuery(["t3"], n_results=5, is_phrase=True)]
+    got = lists(te.search_batch(qs))
+    assert got == lists(je.search_batch(qs))
+    assert got == lists(oracle.search(q) for q in qs)
+    assert got[0] and got[0] != got[1]
 
 
 def test_dense_budget_admitting_rows_raises():
@@ -191,8 +202,11 @@ def test_dense_budget_admitting_rows_raises():
 
 
 def test_device_bytes(engines):
-    te, _ = engines
+    """Posting columns, position bags and bloom columns, as TpuEngine
+    counts them (no dense tier at budget 0)."""
+    te, je = engines
     b = te.device_bytes()
     assert b["postings"] == te._h_doc.nbytes * 3
-    assert b["positions"] == b["blooms"] == b["dense_tier"] == 0
-    assert b["total"] == b["postings"]
+    assert b == je.device_bytes()
+    assert b["positions"] > 0 and b["dense_tier"] == 0
+    assert b["total"] == b["postings"] + b["positions"] + b["blooms"]

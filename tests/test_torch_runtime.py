@@ -6,10 +6,12 @@ JAX package: an AST scan of its sources, and a subprocess that builds
 an index with the port's own generator and builder, searches it and
 then finds neither wiser_tpu nor jax in sys.modules. Its copies of the
 host modules agree with the JAX package's (the generated linedoc file
-byte for byte, the built index array for array, the native codec word
-for word), and an index carries across both ways: packed_from_arrays of
-the JAX object, PackedIndex.load of a directory the JAX package saved,
-and the JAX load of a directory the port saved. chip_smoke.py refuses
+byte for byte, with and without the bi-bloom columns; the built index
+array for array, bloom rows included; murmur2 and the folded probe
+masks; the native codec word for word), and an index carries across
+both ways: packed_from_arrays of the JAX object, PackedIndex.load of a
+directory the JAX package saved, and the JAX load of a directory the
+port saved. chip_smoke.py refuses
 to run without a card.
 """
 
@@ -25,6 +27,7 @@ import pytest
 import torch
 
 from wiser_tpu.data.scale_corpus import generate_linedoc as j_generate
+from wiser_tpu.index import bloom as j_bloom
 from wiser_tpu.data.synth import synth_docinfos
 from wiser_tpu.index.builder import build_index
 from wiser_tpu.index.fast_builder import build_packed_fast as j_build
@@ -32,7 +35,11 @@ from wiser_tpu.index.format import PackedIndex as JPackedIndex
 from wiser_tpu.native import lib as j_native
 from wiser_tpu_torch import StagedEngine, TorchEngine, resolve_device
 from wiser_tpu_torch.convert import packed_from_arrays
-from wiser_tpu_torch.data.scale_corpus import generate_linedoc
+from wiser_tpu_torch.data.scale_corpus import (
+    generate_linedoc,
+    mine_phrases_from_linedoc,
+)
+from wiser_tpu_torch.index import bloom
 from wiser_tpu_torch.index.fast_builder import build_packed_fast
 from wiser_tpu_torch.index.format import PackedIndex
 from wiser_tpu_torch.native import lib as native
@@ -90,12 +97,13 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "ab_serve.py")
 
 
 def test_no_source_imports_the_jax_package():
     """Every import (top level or inside a function) of every .py file
-    under wiser_tpu_torch/ and of chip_smoke.py names neither wiser_tpu
-    (wiser_tpu_torch is the port) nor jax."""
+    under wiser_tpu_torch/ and of chip_smoke.py / ab_serve.py names
+    neither wiser_tpu (wiser_tpu_torch is the port) nor jax."""
     bad, n_files = [], 0
     for path in _port_sources():
         n_files += 1
@@ -119,24 +127,30 @@ _STANDALONE = """
 import sys
 sys.path.insert(0, {root!r})
 from wiser_tpu_torch import StagedEngine, TorchEngine
-from wiser_tpu_torch.data.scale_corpus import generate_linedoc
+from wiser_tpu_torch.data.scale_corpus import (generate_linedoc,
+                                               mine_phrases_from_linedoc)
 from wiser_tpu_torch.engine.host import host_exact_search
 from wiser_tpu_torch.index.fast_builder import build_packed_fast
 from wiser_tpu_torch.types import SearchQuery
 
 generate_linedoc({path!r}, 1500, vocab_size=300, mean_len=30, seed=5,
-                 verbose=False)
-packed = build_packed_fast({path!r})
+                 with_blooms=True, verbose=False)
+packed = build_packed_fast({path!r}, with_blooms=True)
+assert packed.bloom_ends is not None
 by_df = sorted(range(packed.n_terms), key=lambda r: -packed.df[r])
 qs = [SearchQuery([packed.terms[by_df[i]], packed.terms[by_df[j]]],
                   n_results=10) for i, j in ((0, 1), (0, 40), (3, 120))]
 qs.append(SearchQuery([packed.terms[by_df[7]]], n_results=5))
+pairs = mine_phrases_from_linedoc({path!r}, packed.term_to_row, 40)
+phrases = [SearchQuery(list(p), n_results=10, is_phrase=True) for p in pairs]
 staged = StagedEngine(packed, 0, device="cpu")
 staged.COLD_COMPUTE = "device"
-for e in (TorchEngine(packed, device="cpu"), staged):
-    for q, r in zip(qs, e.search_batch(qs)):
+for e, batch in ((TorchEngine(packed, device="cpu"), qs + phrases),
+                 (staged, qs)):
+    for q, r in zip(batch, e.search_batch(batch)):
         rows = [packed.term_to_row[t] for t in q.terms]
-        d, s = host_exact_search(packed, e.cache64, rows, q.n_results)
+        d, s = host_exact_search(packed, e.cache64, rows, q.n_results,
+                                 is_phrase=q.is_phrase)
         got = [(x.doc_id, x.doc_score) for x in r.entries]
         assert got == list(zip(d.tolist(), s.tolist())), (q.terms, got)
         assert got
@@ -156,23 +170,115 @@ def test_port_runs_without_the_jax_package(tmp_path):
     assert out.stdout.strip().endswith("OK")
 
 
-@pytest.fixture(scope="module")
-def linedocs(tmp_path_factory):
+@pytest.fixture(scope="module", params=[False, True], ids=["plain", "blooms"])
+def linedocs(request, tmp_path_factory):
     d = tmp_path_factory.mktemp("corpus")
     mine, ref = str(d / "port.linedoc"), str(d / "jax.linedoc")
     kw = dict(vocab_size=2000, mean_len=40, seed=9, chunk_docs=700,
-              verbose=False)
+              with_blooms=request.param, verbose=False)
     generate_linedoc(mine, 2000, **kw)
     j_generate(ref, 2000, **kw)
-    return mine, ref
+    return mine, ref, request.param
 
 
 def test_generator_and_builder_match_the_jax_package(linedocs):
-    mine, ref = linedocs
+    """The file byte for byte; the index (bloom_ends / bloom_begins too,
+    built with the reference indexer's BloomConfig(5, 0.0009)) array for
+    array."""
+    mine, ref, blooms = linedocs
     with open(mine, "rb") as a, open(ref, "rb") as b:
         assert a.read() == b.read()
-    assert_same_index(build_packed_fast(mine, chunk_docs=700),
-                      j_build(ref, chunk_docs=700))
+    cfg = bloom.BloomConfig(5, 0.0009)
+    got = build_packed_fast(mine, chunk_docs=700, with_blooms=blooms,
+                            bloom_cfg=cfg)
+    want = j_build(ref, "WITH_BI_BLOOM" if blooms else "WITH_POSITIONS",
+                   chunk_docs=700, with_blooms=blooms,
+                   bloom_cfg=j_bloom.BloomConfig(5, 0.0009))
+    assert_same_index(got, want)
+    assert (got.bloom_ends is not None) == blooms
+    if blooms:
+        assert got.bloom_ends.any() and got.bloom_begins.any()
+
+
+def test_bloom_rows_need_the_bloom_columns(linedocs):
+    """with_blooms needs the WITH_BI_BLOOM columns; without it a bloom
+    file builds the same index with no bloom rows."""
+    mine, ref, blooms = linedocs
+    if not blooms:
+        with pytest.raises(ValueError):
+            build_packed_fast(mine, with_blooms=True)
+        return
+    plain = build_packed_fast(mine, chunk_docs=700)
+    assert plain.bloom_ends is None
+    assert_same_index(plain, j_build(ref, "WITH_BI_BLOOM", chunk_docs=700))
+
+
+def test_murmur2_and_probe_masks_match_the_jax_package():
+    """murmur2 (Python, native and batched) over keys of every tail
+    length, multi-byte UTF-8 and the seeds the filters use, and every
+    probe of BloomConfig, against the JAX package's."""
+    assert bloom.murmur2(b"", 0) == 0
+    for key in (b"", b"a", b"ab", b"abc", b"abcd", b"abcde", b"hello world",
+                "naïve".encode()):
+        for seed in (0, 1, bloom.MURMUR_SEED, 0xFFFFFFFF):
+            h = j_bloom.murmur2(key, seed)
+            assert bloom.murmur2(key, seed) == h
+            assert native.murmur2_batch_seeded(
+                key, [0], [len(key)], np.array([seed], dtype=np.uint32))[0] == h
+    assert bloom.MURMUR_SEED == j_bloom.MURMUR_SEED
+    rng = np.random.default_rng(2)
+    keys = ["".join(chr(97 + c) for c in rng.integers(0, 26, n))
+            for n in rng.integers(0, 15, 300)] + ["naïve", "日本"]
+    blob = "\x00".join(keys).encode("utf-8")
+    lens = np.array([len(k.encode("utf-8")) for k in keys])
+    starts = np.concatenate([[0], np.cumsum(lens[:-1] + 1)])
+    a = native.murmur2_batch_seeded(blob, starts, starts + lens, None)
+    b = native.murmur2_batch_seeded(blob, starts, starts + lens, a)
+    np.testing.assert_array_equal(
+        a, j_native.murmur2_batch_seeded(blob, starts, starts + lens, None))
+    np.testing.assert_array_equal(
+        b, j_native.murmur2_batch_seeded(blob, starts, starts + lens, a))
+    for cfg, jcfg in ((bloom.BloomConfig(), j_bloom.BloomConfig()),
+                      (bloom.BloomConfig(9, 0.01), j_bloom.BloomConfig(9, 0.01))):
+        for prop in ("bpe", "bits", "n_bytes", "n_hashes", "n_words"):
+            assert getattr(cfg, prop) == getattr(jcfg, prop)
+        for k in keys:
+            np.testing.assert_array_equal(cfg.probe_bits(k), jcfg.probe_bits(k))
+            for x, y in zip(cfg.probe_word_masks(k), jcfg.probe_word_masks(k)):
+                np.testing.assert_array_equal(x, y)
+            assert cfg.probe_mask_folded(k) == jcfg.probe_mask_folded(k)
+
+
+def test_bloom_column_hashing_parses_like_str_split():
+    """The native neighbor-column parser keeps Python's str.split(" ")
+    keys (empty keys between double spaces, empty groups, a last group
+    without its '!') and counts the groups."""
+    col = "ab cd!!x  y!z!tail"
+    keys, entry = [], []
+    groups = col.split("!")
+    for g, text in enumerate(groups):
+        if text:
+            keys += text.split(" ")
+            entry += [g + 7] * len(text.split(" "))
+    a, b, e = native.bloom_col_hash(col.encode(), len(groups), entry_base=7)
+    assert e.tolist() == entry
+    assert a.tolist() == [bloom.murmur2(k.encode(), bloom.MURMUR_SEED)
+                          for k in keys]
+    assert b.tolist() == [bloom.murmur2(k.encode(), int(x))
+                          for k, x in zip(keys, a)]
+    with pytest.raises(ValueError):
+        native.bloom_col_hash(col.encode(), len(groups) + 1)
+
+
+def test_mined_phrases_match_the_jax_package(linedocs):
+    from wiser_tpu.tools.scale_bench import mine_phrases_from_linedoc as j_mine
+
+    mine, ref, _ = linedocs
+    jp = j_build(ref, chunk_docs=700)
+    got = mine_phrases_from_linedoc(mine, jp.term_to_row, max_pairs=300,
+                                    max_rows=150)
+    assert got == j_mine(ref, jp, max_pairs=300, max_rows=150)
+    assert len(got) == 300
 
 
 @pytest.mark.parametrize("blooms", [False, True])

@@ -1,10 +1,11 @@
-"""TorchEngine — the device-resident conjunctive search engine in torch
-(port of wiser_tpu/engine/device.py TpuEngine, raw columns).
+"""TorchEngine — the device-resident search engine in torch (port of
+wiser_tpu/engine/device.py TpuEngine, raw columns).
 
-The posting columns (doc, f32 partial score, tf) and the dense head-term
-tier live on the device. The host does what hosts are good at: term
-lookup, request coalescing, shape bucketing, batch assembly, the exact
-f64 re-rank and its guards.
+The posting columns (doc, f32 partial score, tf), the position bags, the
+sparse folded bi-bloom columns and the dense head-term tier live on the
+device. The host does what hosts are good at: term lookup, request
+coalescing, shape bucketing, batch assembly, the exact f64 re-rank and
+its guards.
 
 Routing (as TpuEngine(columns="raw")):
   1 term            -> host impact table (deeper k: the bs kernel)
@@ -22,6 +23,19 @@ Routing (as TpuEngine(columns="raw")):
   windowed-eligible -> memoized exact host search
 Windowed-eligible groups take the bs kernel: the windowed block compare
 exists for the TPU's slow element gathers, and bs is exact at every L.
+
+Phrase queries (2+ terms, is_phrase; as TpuEngine._submit_phrase):
+  every term dense, candidate df > PHRASE_MAX_L, bags within bounds
+                    -> full-scan mega phrase (every doc lane scored from
+                       the dense rows, the KV best verified); its
+                       prune-guard misses re-run once at KV =
+                       PRUNED_PHRASE_RETRY_KV in the batch's rescue
+  candidate L bucket > KV, every other term dense -> semidense phrase
+  candidate L bucket > KV  -> compact phrase (bi-bloom gate, compaction
+                              to the KV best, window verify)
+  candidate L bucket <= KV -> list chain: match + bi-bloom gate, position
+                              verify, top-M select
+  saturated, lane budget or bag bounds exceeded -> exact host phrase
 Every device result goes through the f64 re-rank (engine/topk.py);
 guard-flagged rows take the exact host search.
 """
@@ -40,6 +54,7 @@ from wiser_tpu_torch.engine.host import (
     B_CHUNK,
     DEFAULT_MARGIN,
     L_BUCKETS,
+    PP_BUCKETS,
     T_BUCKETS,
     _bucket,
     _PlannedQuery,
@@ -67,12 +82,11 @@ BS_LANE_BUDGET = 1 << 28
 SEMIDENSE_LANE_BUDGET = 1 << 27  # B * (T-1) * L per semidense group
 PRUNED_LANE_BUDGET = 1 << 27  # B * T * C * 128 per pruned-dense group
 RESCUE_LANE_BUDGET = 1 << 28  # B * N_pad per full-scan rescue chunk
-
-
-def _not_phrase(q: SearchQuery) -> None:
-    if q.is_phrase and len(q.terms) >= 2:
-        raise NotImplementedError(
-            "phrase queries are not ported yet (ROADMAP A.8)")
+# Phrase groups: the compact / semidense / list routes keep ~10 L-wide
+# planes per query and (B, KV, PP, PW) verify compares under 2^27 lanes;
+# the mega route's (B, N_pad) planes under 2^29 (B = 128 at 1M docs).
+PHRASE_LANE_BUDGET = 1 << 27
+PRUNED_PHRASE_LANE_BUDGET = 1 << 29
 
 
 def _chunk_within(budget: int, lanes_per_row: int, buckets) -> int:
@@ -117,6 +131,24 @@ class TorchEngine:
     # per (T, M) per batch) instead of the host merge
     DENSE_RESCUE = True
     HOST_CACHE_CAP = 200_000
+    # phrases (as TpuEngine): verify tensors are (B, PP, L) per term, so
+    # candidate lists past PHRASE_MAX_L take the exact host phrase search
+    # unless the full-scan mega route takes them
+    PHRASE_MAX_L = 32768
+    PHRASE_B_BUCKETS = [8, 32, 128, 1024, 4096]
+    # the mega route engages where the pruned dense scan does (NB >=
+    # max(PRUNED_DENSE_MIN_NB, PRUNED_PHRASE_C + 1)); C also caps KV
+    PRUNED_PHRASE_C = 256
+    # compaction width of the compact / semidense / mega routes, and the
+    # mega rescue's: the (KV+1)-th candidate score bounds the rest
+    PRUNED_PHRASE_KV = 1024
+    PRUNED_PHRASE_RETRY_KV = 4096
+    PRUNED_PHRASE_MAX_PP = 128  # anchor bag bound of the mega route
+    PHRASE_MAX_PW = 128  # every term's bag bound of the window verify
+    POS_PAD = 1024  # trailing pad of the positions column (>= any PW)
+    # bloom rows live on the device only for terms with df <= this (the
+    # mega route has no bloom gate); a probe of a term above it is off
+    BLOOM_DF_CEILING = 32768
 
     def __init__(self, packed: PackedIndex, *, device="cuda",
                  margin: int = DEFAULT_MARGIN,
@@ -124,6 +156,7 @@ class TorchEngine:
                  dense_budget_bytes: int = 7 << 29,
                  strict_parity: bool = False,
                  columns: str = "raw",
+                 bloom_enable_factor: Optional[int] = 1,
                  dense_from: Optional[PackedIndex] = None,
                  host_packed: Optional[PackedIndex] = None):
         """packed: the index whose posting runs go to the device.
@@ -131,7 +164,10 @@ class TorchEngine:
         hot view passes the full index here). dense_from: the index the
         dense tier is built from (a staged hot view passes the full
         index, so head terms are served dense-only while their CSR runs
-        are cold). device: "cuda" (default; raises without a card) or
+        are cold). bloom_enable_factor: the cost-aware bi-bloom side
+        choice of 2-term phrases probes the rarer term's filter when the
+        other is at least this many times as frequent; None disables the
+        probes. device: "cuda" (default; raises without a card) or
         "cpu"."""
         if columns != "raw":
             raise NotImplementedError(
@@ -141,11 +177,12 @@ class TorchEngine:
         self.packed = packed
         self._host_packed = host_packed if host_packed is not None else packed
         self.strict_parity = strict_parity
+        self.bloom_enable_factor = bloom_enable_factor
         self.margin = margin
         self.rel_eps = 1e-6  # f32 summation slop bound of the raw columns
         self._lb = list(L_BUCKETS)
         self._tb = list(T_BUCKETS)
-        if packed.n_postings >= 2**31:
+        if packed.n_postings >= 2**31 or len(packed.positions) >= 2**31:
             raise ValueError("index too large for int32 device addressing")
 
         self.similarity = Bm25Similarity(packed.avg_len)
@@ -156,6 +193,7 @@ class TorchEngine:
         self.d_postings_doc = torch.from_numpy(self._h_doc).to(self.device)
         self.d_postings_score = torch.from_numpy(self._h_score).to(self.device)
         self.d_postings_tf = torch.from_numpy(self._h_tf).to(self.device)
+        self._upload_phrase_columns()
 
         self._max_df = int(packed.df.max(initial=1))
         self._starts32 = packed.term_starts.astype(np.int32)
@@ -240,25 +278,80 @@ class TorchEngine:
         self.d_dense_blockmax2 = torch.from_numpy(blockmax2).to(self.device)
         self.d_dense_argpos = torch.from_numpy(argpos).to(self.device)
 
+    # -- phrase columns -----------------------------------------------------
+
+    def _upload_phrase_columns(self) -> None:
+        """Position bags (int32 pos_starts; positions as 2-byte int16 bits
+        of uint16 when max position + MAX_T < 2^16 - 1, else int32) with a
+        POS_PAD trailing pad, so a PW-wide verify window starting inside
+        the data is never clamped (pad values 65535 / -1 never equal a
+        target), and the sparse folded bloom columns."""
+        packed = self.packed
+        if int(packed.positions.max(initial=0)) + self.MAX_T < 2**16 - 1:
+            pos = np.concatenate([
+                np.asarray(packed.positions).astype(np.uint16),
+                np.full(self.POS_PAD, 2**16 - 1, dtype=np.uint16)]
+            ).view(np.int16)
+        else:
+            pos = np.concatenate([
+                np.asarray(packed.positions, dtype=np.int32),
+                np.full(self.POS_PAD, -1, dtype=np.int32)])
+        self.d_positions = self._to_dev(pos)
+        self.d_pos_starts = self._to_dev(packed.pos_starts.astype(np.int32))
+        rows, bitmap, rank = self._build_bloom_sparse()
+        self.d_bloom_rows = self._to_dev(rows.view(np.int32))
+        self.d_bloom_bitmap = self._to_dev(bitmap.view(np.int32))
+        self.d_bloom_rank = self._to_dev(rank)
+
+    def _build_bloom_sparse(self):
+        """Sparse folded bloom columns (kernels._bloom_gate's layout):
+        each posting's filter row ORed into one word, stored only where
+        nonzero and the term's df <= BLOOM_DF_CEILING, addressed through a
+        presence bitmap and a per-32-group rank, following side then
+        preceding side. Returns (rows u32, bitmap u32, rank i32)."""
+        pk = self.packed
+        if pk.bloom_ends is None:
+            return (np.zeros(1, dtype=np.uint32), np.zeros(2, dtype=np.uint32),
+                    np.zeros(2, dtype=np.int32))
+        lens = np.diff(pk.term_starts)
+        term_mask = np.repeat(pk.df <= self.BLOOM_DF_CEILING, lens)
+        rows_parts, bitmap_parts, rank_parts = [], [], []
+        base = 0
+        for rows in (pk.bloom_ends, pk.bloom_begins):
+            fold = rows[:, 0].copy()
+            for w in range(1, rows.shape[1]):
+                np.bitwise_or(fold, rows[:, w], out=fold)
+            stored = (fold != 0) & term_mask
+            rows_parts.append(fold[stored])
+            bitmap_parts.append(
+                np.packbits(stored, bitorder="little").view("<u4"))
+            cnt = stored.reshape(-1, 32).sum(axis=1)
+            rank = np.zeros(len(cnt), dtype=np.int64)
+            np.cumsum(cnt[:-1], out=rank[1:])
+            rank_parts.append((rank + base).astype(np.int32))
+            base += int(stored.sum())
+        return ((np.concatenate(rows_parts) if base
+                 else np.zeros(1, dtype=np.uint32)),
+                np.concatenate(bitmap_parts).astype(np.uint32),
+                np.concatenate(rank_parts))
+
     # -- accounting -------------------------------------------------------
 
     def device_bytes(self) -> dict:
-        """Device-resident index bytes per column family. Only the
-        posting columns the conjunctive path reads are uploaded; position
-        bags and bloom columns come with the phrase path, so those
-        families are 0."""
+        """Device-resident index bytes per column family."""
         def nbytes(*ts):
             return int(sum(t.numel() * t.element_size() for t in ts))
 
         out = {
             "postings": nbytes(self.d_postings_doc, self.d_postings_score,
                                self.d_postings_tf),
-            "positions": 0,
+            "positions": nbytes(self.d_positions, self.d_pos_starts),
             "dense_tier": nbytes(
                 self.d_dense_sc, self.d_dense_tf, self.d_dense_blockmax,
                 self.d_dense_blockmax2, self.d_dense_argpos)
             if self._dense_H else 0,
-            "blooms": 0,
+            "blooms": nbytes(self.d_bloom_rows, self.d_bloom_bitmap,
+                             self.d_bloom_rank),
         }
         out["total"] = sum(out.values())
         return out
@@ -278,15 +371,16 @@ class TorchEngine:
     def clear_result_memos(self) -> None:
         self._host_cache.clear()
 
-    def _host_exact(self, rows, k: int):
+    def _host_exact(self, rows, k: int, is_phrase: bool = False):
         """Memoized exact host search."""
-        key = (tuple(rows), int(k))
+        key = (tuple(rows), int(k), bool(is_phrase))
         hit = self._host_cache.get(key)
         if hit is None:
             if len(self._host_cache) >= self.HOST_CACHE_CAP:
                 self._host_cache.clear()
             t0 = time.perf_counter()
-            hit = host_exact_search(self._host_packed, self.cache64, rows, k)
+            hit = host_exact_search(self._host_packed, self.cache64, rows, k,
+                                    is_phrase=is_phrase)
             self._bump(host_exact_calls=1,
                        host_exact_s=time.perf_counter() - t0)
             self._host_cache[key] = hit
@@ -349,20 +443,20 @@ class TorchEngine:
         lookup = self.packed.term_to_row.get
         flat_qi: List[int] = []
         flat_rows: List[List[int]] = []
+        phrase: List[_PlannedQuery] = []
         long_tail: List[_PlannedQuery] = []
-        # request coalescing: identical (rows, k) queries run once
+        # request coalescing: identical (rows, k, phrase) queries run once
         dedup: Dict[tuple, int] = {}
         dups: List[tuple] = []
         n_single = 0
         for qi, q in enumerate(queries):
-            _not_phrase(q)
             terms = q.terms
             if q.n_results <= 0 or not terms:
                 continue
             rows = [lookup(t, -1) for t in terms]
             if min(rows) < 0:
                 continue  # missing term -> empty result
-            key = (tuple(rows), q.n_results)
+            key = (tuple(rows), q.n_results, q.is_phrase)
             prim = dedup.get(key)
             if prim is not None:
                 dups.append((qi, prim))
@@ -372,7 +466,11 @@ class TorchEngine:
                     and self._serve_single_term(qi, rows[0], q, results)):
                 n_single += 1
                 continue
-            if len(rows) > self.MAX_T:
+            if q.is_phrase and len(rows) >= 2:
+                pq = _PlannedQuery(qi, rows, q)
+                pq.plan_slots(self.packed.df)
+                phrase.append(pq)
+            elif len(rows) > self.MAX_T:
                 pq = _PlannedQuery(qi, rows, q)
                 pq.plan_slots(self.packed.df)
                 long_tail.append(pq)
@@ -381,11 +479,13 @@ class TorchEngine:
                 flat_rows.append(rows)
         self._bump(q_coalesced=len(dups), route_single_table=n_single)
 
-        # prune-guard misses of every dense group collect here and re-run
-        # as one batched full scan per (T, M) in a barrier finalizer
+        # prune-guard misses of every dense and mega-phrase group collect
+        # here and re-run as one batched call per shape in a barrier
+        # finalizer
         rq: List[dict] = []
         pending = self._submit_flat_vec(flat_qi, flat_rows, queries, rq)
         pending += self._submit_flat(long_tail)
+        pending += self._submit_phrase(phrase, rq)
 
         def drain_rescues(res_list, rq=rq):
             self._drain_rescues(rq)
@@ -562,7 +662,8 @@ class TorchEngine:
         return pending
 
     def _finalizer(self, route: str, out: torch.Tensor, T: int, slot_of,
-                   idf64_q, ks, qis, flat_rows, members, on_flags=None):
+                   idf64_q, ks, qis, flat_rows, members, on_flags=None,
+                   is_phrase: bool = False):
         """The finalizer of one device group: fetch the packed output,
         derive the host-fallback mask, re-rank. on_flags(packed,
         res_list), if given, may take rows out of this finalize (the
@@ -582,7 +683,7 @@ class TorchEngine:
                     packed[rows, 0, :], packed[rows, 1 : T + 1, :],
                     flags[rows], slot_of[rows], idf64_q[rows], ks[rows],
                     qis[rows], flat_rows, members[rows], res_list,
-                    force_host=force[rows])
+                    force_host=force[rows], is_phrase=is_phrase)
             self._bump(**{f"{route}_s": time.perf_counter() - t0})
 
         return finalize
@@ -661,28 +762,29 @@ class TorchEngine:
                 on_flags = None
                 if pruned and self.DENSE_RESCUE:
                     on_flags = self._defer_prune_misses(
-                        rq, T, M, slots, use, slot_of, idf64_q, ks_g, qis,
-                        m, flat_rows)
+                        rq, ("dense", T, M), T, flat_rows, dict(
+                            slots=slots, use=use, slot_of=slot_of,
+                            idf64_q=idf64_q, ks=ks_g, qis=qis, members=m))
                 pending.append(self._finalizer(
                     route, out, T, slot_of, idf64_q, ks_g, qis, flat_rows,
                     m, on_flags=on_flags))
         return pending
 
     @staticmethod
-    def _defer_prune_misses(rq, T, M, slots, use, slot_of, idf64_q, ks,
-                            qis, members, flat_rows):
-        """on_flags hook of a pruned group: queue its FLAG_PRUNE_MISS rows
-        for the batch's rescue and finalize the rest now."""
+    def _defer_prune_misses(rq, key: tuple, T: int, flat_rows, per_row: dict):
+        """on_flags hook of a pruned dense or mega-phrase group: queue its
+        FLAG_PRUNE_MISS rows for the batch's rescue (key: ("dense", T, M)
+        or ("phrase", T, PP, PW, M); per_row: the group's per-row arrays,
+        the rescue's inputs and the finalize metadata) and finalize the
+        rest now."""
 
         def on_flags(packed, res_list):
             miss = (packed[:, T + 1, 0] & K.FLAG_PRUNE_MISS) != 0
             if miss.any():
                 sub = np.nonzero(miss)[0]
-                rq.append(dict(T=T, M=M, slots=slots[sub], use=use[sub],
-                               slot_of=slot_of[sub], idf64_q=idf64_q[sub],
-                               ks=ks[sub], qis=qis[sub],
-                               members=members[sub], flat_rows=flat_rows,
-                               res_list=res_list))
+                rq.append(dict(key=key, flat_rows=flat_rows,
+                               res_list=res_list,
+                               **{k: v[sub] for k, v in per_row.items()}))
             return np.nonzero(~miss)[0]
 
         return on_flags
@@ -717,17 +819,27 @@ class TorchEngine:
 
     def _drain_rescues(self, rq: List[dict]) -> None:
         """Barrier finalizer: the prune-guard misses deferred by every
-        dense group of the batch re-run together, one full-scan call per
-        (T, M), then finalize (rows the rescue still flags take the exact
-        host path)."""
+        group of the batch re-run together, then finalize (rows the rescue
+        still flags take the exact host path): dense rows as one full-scan
+        call per (T, M), mega-phrase rows as one retry at
+        PRUNED_PHRASE_RETRY_KV per (T, PP, PW, M)."""
         ctxs, rq[:] = list(rq), []
         groups: Dict[tuple, List[dict]] = {}
         for c in ctxs:
-            groups.setdefault((c["T"], c["M"]), []).append(c)
-        for (T, M), cs in groups.items():
-            rescued = self._dense_full_rescue(
-                T, M, np.concatenate([c["slots"] for c in cs]),
-                np.concatenate([c["use"] for c in cs]))
+            groups.setdefault(c["key"], []).append(c)
+        for key, cs in groups.items():
+            def cat(name, cs=cs):
+                return np.concatenate([c[name] for c in cs])
+
+            T = key[1]
+            if key[0] == "dense":
+                rescued = self._dense_full_rescue(T, key[2], cat("slots"),
+                                                  cat("use"))
+            else:
+                _, T, PP, PW, M = key
+                rescued = self._phrase_rescue(
+                    T, PP, PW, M, cat("starts"), cat("ends"), cat("slots"),
+                    cat("use"), cat("anchor"), cat("ks"))
             off = 0
             for c in cs:
                 sub = rescued[off : off + len(c["qis"])]
@@ -737,7 +849,8 @@ class TorchEngine:
                     sub[:, 0, :], sub[:, 1 : T + 1, :], flags, c["slot_of"],
                     c["idf64_q"], c["ks"], c["qis"], c["flat_rows"],
                     c["members"], c["res_list"],
-                    force_host=self._flags_to_force(flags, rescue=True))
+                    force_host=self._flags_to_force(flags, rescue=True),
+                    is_phrase=key[0] == "phrase")
 
     def _submit_semidense(self, sm, qi_arr, flat_rows, rows_pad, n_terms,
                           cand, ks, Lval):
@@ -829,6 +942,307 @@ class TorchEngine:
                     flat_rows, m))
         return pending
 
+    # -- phrases -------------------------------------------------------------
+
+    def _assemble_bloom_probes(self, group: List[_PlannedQuery], T: int,
+                               B: int):
+        """Folded probes of the sparse bloom gate (C = T-1 per query): a
+        2-term phrase probes one side by cost (query_processing.h:
+        796-807: the rarer term's filter, if the other is at least
+        bloom_enable_factor times as frequent), 3+ terms chain term c's
+        following-word filter for term c+1 (:784-794). A probe is active
+        only if its term has device rows (df <= BLOOM_DF_CEILING);
+        inactive probes pass. Returns (probe_slot i32, probe_begins bool,
+        probe_mask u32, probe_active bool), each (B, C)."""
+        cfg = self.packed.bloom_cfg
+        C = max(1, T - 1)
+        probe_slot = np.zeros((B, C), dtype=np.int32)
+        probe_begins = np.zeros((B, C), dtype=bool)
+        probe_mask = np.zeros((B, C), dtype=np.uint32)
+        probe_active = np.zeros((B, C), dtype=bool)
+        factor = self.bloom_enable_factor
+        ceil = self.BLOOM_DF_CEILING
+        if self.packed.bloom_ends is None or factor is None:
+            return probe_slot, probe_begins, probe_mask, probe_active
+        for i, pq in enumerate(group):
+            terms, rows, slot = pq.query.terms, pq.rows, pq.slot_of_term
+            dfs = [int(self.packed.df[r]) for r in rows]
+            if len(rows) == 2:
+                s1, s2 = dfs
+                if factor * s1 <= s2 and s1 <= ceil:
+                    probe_slot[i, 0], probe_begins[i, 0] = slot[0], False
+                    probe_mask[i, 0] = cfg.probe_mask_folded(terms[1])
+                    probe_active[i, 0] = True
+                elif factor * s2 < s1 and s2 <= ceil:
+                    probe_slot[i, 0], probe_begins[i, 0] = slot[1], True
+                    probe_mask[i, 0] = cfg.probe_mask_folded(terms[0])
+                    probe_active[i, 0] = True
+            else:
+                for c in range(len(rows) - 1):
+                    if dfs[c] > ceil:
+                        continue
+                    probe_slot[i, c], probe_begins[i, c] = slot[c], False
+                    probe_mask[i, c] = cfg.probe_mask_folded(terms[c + 1])
+                    probe_active[i, c] = True
+        return probe_slot, probe_begins, probe_mask, probe_active
+
+    def _run_host_phrases(self, group: List[_PlannedQuery]):
+        """Finalizer answering phrase queries with the memoized exact host
+        phrase search."""
+
+        def run(res_list):
+            t0 = time.perf_counter()
+            for pq in group:
+                d, s = self._host_exact(pq.rows, pq.query.n_results, True)
+                res_list[pq.qi].set_arrays(d, s)
+            self._bump(phrase_host_s=time.perf_counter() - t0)
+
+        return run
+
+    def _submit_phrase(self, planned: List[_PlannedQuery], rq):
+        """Route phrase queries (see the module docstring) as
+        TpuEngine._submit_phrase does at its defaults."""
+        if not planned:
+            return []
+        pending = []
+        df, max_tf, lb = self.packed.df, self.packed.max_tf, self._lb
+        if self._dense_H:
+            NB = self._n_pad_docs // 128
+            if NB >= max(self.PRUNED_DENSE_MIN_NB, self.PRUNED_PHRASE_C + 1):
+                mega, rest = [], []
+                for pq in planned:
+                    tfs = [int(max_tf[r]) for r in pq.rows]
+                    ok = (int(df[pq.slot_rows[0]]) > self.PHRASE_MAX_L
+                          and all(self._dense_slot[r] >= 0 for r in pq.rows)
+                          # recovery + verify read the CSR runs
+                          and all(self._csr_ok[r] for r in pq.rows)
+                          and min(tfs) <= self.PRUNED_PHRASE_MAX_PP
+                          and max(tfs) <= self.PHRASE_MAX_PW)
+                    (mega if ok else rest).append(pq)
+                if mega:
+                    pending += self._submit_full_phrase(mega, rq)
+                planned = rest
+        # exact host: saturated candidates or csr-cold terms; (L, PP) keys
+        # whose verify tensor exceeds the lane budget at the smallest B;
+        # window routes (L > KV) with a bag over PHRASE_MAX_PW
+        KV = self.PRUNED_PHRASE_KV
+        max_l = min(self.PHRASE_MAX_L, lb[-1])
+        host, keep = [], []
+        for pq in planned:
+            cand = int(df[pq.slot_rows[0]])
+            L = _bucket(cand, lb)
+            if (cand > max_l or not all(self._csr_ok[r] for r in pq.rows)
+                    or L * _bucket(int(max_tf[pq.rows[0]]), PP_BUCKETS)
+                    > PHRASE_LANE_BUDGET // self.PHRASE_B_BUCKETS[0]
+                    or (L > KV and max(int(max_tf[r]) for r in pq.rows)
+                        > self.PHRASE_MAX_PW)):
+                host.append(pq)
+            else:
+                keep.append(pq)
+        self._bump(route_phrase_host=len(host))
+        if host:
+            pending.append(self._run_host_phrases(host))
+
+        def key_of(pq):
+            L = _bucket(int(df[pq.slot_rows[0]]), lb)
+            return (len(pq.rows), L,
+                    _bucket(int(max_tf[pq.rows[0]]), PP_BUCKETS),
+                    _bucket(max(int(max_tf[r]) for r in pq.rows), PP_BUCKETS),
+                    L > KV and all(self._dense_slot[r] >= 0
+                                   for r in pq.slot_rows[1:]))
+
+        groups: Dict[tuple, List[_PlannedQuery]] = {}
+        for pq in keep:
+            groups.setdefault(key_of(pq), []).append(pq)
+        for (T, L, PP, PW, sd), members in groups.items():
+            # compact / semidense: ~10 L-wide planes and (KV, PP, PW)
+            # verify compares per query; list chain: (PP, L) per query
+            lanes = (max(10 * L, T * KV * PW, KV * PP * PW // 4) if L > KV
+                     else L * max(PP, 1))
+            chunk = _chunk_within(PHRASE_LANE_BUDGET, lanes,
+                                  self.PHRASE_B_BUCKETS)
+            for ci in range(0, len(members), chunk):
+                pending.append(self._dispatch_phrase(
+                    members[ci : ci + chunk], T, L, PP, PW, sd))
+        return pending
+
+    def _dispatch_phrase(self, group: List[_PlannedQuery], T: int, L: int,
+                         PP: int, PW: int, sd: bool):
+        """One semidense, compact or list-chain phrase group (T exact)."""
+        starts, ends, use, idf64_q, slot_of, ks = self._assemble(
+            group, T, self.PHRASE_B_BUCKETS)
+        qis = np.asarray([pq.qi for pq in group], dtype=np.int64)
+        B = starts.shape[0]
+        KV = self.PRUNED_PHRASE_KV
+        eps3 = 3.0 * self.rel_eps
+        n_bs = K.n_iters_for(self._max_df)
+        d_starts, d_ends, d_use = (self._to_dev(a) for a in (starts, ends, use))
+        d_ks = self._to_dev(ks)
+        d_slot_of = self._to_dev(slot_of.astype(np.int32))
+        t0 = time.perf_counter()
+        if L > KV:
+            assert PW <= self.POS_PAD, "verify windows need POS_PAD >= PW"
+            M = min(KV, int(ks.max(initial=1)) + self.margin)
+        else:
+            M = min(L, int(ks.max(initial=1)) + self.margin)
+        if sd:
+            route = "phrase_semidense"
+            slots = np.zeros((B, T), dtype=np.int32)
+            for bi, pq in enumerate(group):
+                slots[bi, 1:] = self._dense_slot[pq.slot_rows[1:]]
+            out = K.make_semidense_phrase_kernel(
+                T, L, KV, PP, PW, M, self._n_pad_docs, n_bs, eps3)(
+                self.d_postings_doc, self.d_postings_score,
+                self.d_postings_tf, self.d_dense_sc, self.d_positions,
+                self.d_pos_starts, d_starts, d_ends, d_use,
+                self._to_dev(slots), d_slot_of, d_ks)
+        else:
+            probe_slot, probe_begins, probe_mask, probe_active = \
+                self._assemble_bloom_probes(group, T, B)
+            probes = (self._to_dev(probe_slot), self._to_dev(probe_begins),
+                      self._to_dev(probe_mask.view(np.int32)),
+                      self._to_dev(probe_active))
+            blooms = (self.d_bloom_rows, self.d_bloom_bitmap,
+                      self.d_bloom_rank)
+            if L > KV:
+                route = "phrase_compact"
+                out = K.make_compact_phrase_kernel(
+                    T, L, KV, PP, PW, M, n_bs, eps3)(
+                    self.d_postings_doc, self.d_postings_score,
+                    self.d_postings_tf, self.d_positions, self.d_pos_starts,
+                    d_starts, d_ends, d_use, d_slot_of, d_ks, *blooms,
+                    *probes)
+            else:
+                route = "phrase_list"
+                match, bloom_pass, cdocs, pidx, score = K.make_match_kernel(
+                    T, L, n_bs)(self.d_postings_doc, self.d_postings_score,
+                                d_starts, d_ends, d_use, *blooms, *probes)
+                active = match & bloom_pass
+                pidx_q = K._slot_gather_q(pidx, d_slot_of)  # query order
+                n_pos_iters = K.n_iters_for(
+                    int(self.packed.max_tf.max(initial=1)))
+                n_matches = K.make_phrase_verify_kernel(
+                    T, L, PP, n_pos_iters)(self.d_positions,
+                                           self.d_pos_starts, pidx_q, active)
+                out = K.make_select_topk_kernel(T, L, M)(
+                    self.d_postings_tf, cdocs, pidx, score,
+                    active & (n_matches > 0))
+        dt = time.perf_counter() - t0
+        self._bump(**{"dispatch_s": dt, f"{route}_s": dt,
+                      f"route_{route}": len(group)})
+        return self._finalizer(route, out, T, slot_of, idf64_q, ks, qis,
+                               [pq.rows for pq in group],
+                               np.arange(len(group)), is_phrase=True)
+
+    def _submit_full_phrase(self, planned: List[_PlannedQuery], rq):
+        """All-dense mega phrases through the full-scan kernel, grouped by
+        (T, anchor bag bucket PP, every-bag bucket PW). Arrays are in
+        query-term order (adjacency is order-dependent); the anchor is the
+        term with the smallest max_tf. Prune-guard misses are deferred to
+        the batch's rescue."""
+        pending = []
+        self._bump(route_phrase_full=len(planned))
+        n_pad = self._n_pad_docs
+        KV = min(self.PRUNED_PHRASE_KV, self.PRUNED_PHRASE_C * 128 - 1,
+                 n_pad - 1)
+        max_tf = self.packed.max_tf
+        groups: Dict[tuple, List[_PlannedQuery]] = {}
+        for pq in planned:
+            tfs = [int(max_tf[r]) for r in pq.rows]
+            groups.setdefault((len(pq.rows), _bucket(min(tfs), PP_BUCKETS),
+                               _bucket(max(tfs), PP_BUCKETS)), []).append(pq)
+        for (T, PP, PW), members in groups.items():
+            chunk = _chunk_within(
+                PRUNED_PHRASE_LANE_BUDGET,
+                max(T * n_pad, T * KV * PW, KV * PP * PW // 4),
+                self.PHRASE_B_BUCKETS)
+            for ci in range(0, len(members), chunk):
+                group = members[ci : ci + chunk]
+                B = _bucket(len(group), self.PHRASE_B_BUCKETS)
+                starts = np.zeros((B, T), dtype=np.int32)
+                ends = np.zeros((B, T), dtype=np.int32)
+                slots = np.zeros((B, T), dtype=np.int32)
+                use = np.zeros((B, T), dtype=np.float32)
+                idf64_q = np.zeros((B, T), dtype=np.float64)
+                anchor = np.zeros(B, dtype=np.int32)
+                ks = np.zeros(B, dtype=np.int32)
+                for i, pq in enumerate(group):
+                    r = pq.rows
+                    ks[i] = pq.query.n_results
+                    anchor[i] = int(np.argmin(max_tf[r]))
+                    starts[i] = self._starts32[r]
+                    ends[i] = self._starts32[r] + self._df32[r]
+                    slots[i] = self._dense_slot[r]
+                    use[i] = 1.0
+                    idf64_q[i] = self.packed.idf64[r]
+                M = min(KV, int(ks.max(initial=1)) + self.margin)
+                t0 = time.perf_counter()
+                out = self._full_phrase_dispatch(T, PP, PW, M, KV, starts,
+                                                 ends, slots, use, anchor, ks)
+                dt = time.perf_counter() - t0
+                self._bump(dispatch_s=dt, phrase_full_s=dt)
+                # tfs come back in query-term order: identity slot_of
+                slot_of = np.tile(np.arange(T, dtype=np.int64), (B, 1))
+                qis = np.asarray([pq.qi for pq in group], dtype=np.int64)
+                m = np.arange(len(group))
+                on_flags = self._defer_prune_misses(
+                    rq, ("phrase", T, PP, PW, M), T,
+                    [pq.rows for pq in group],
+                    dict(starts=starts, ends=ends, slots=slots, use=use,
+                         anchor=anchor, ks=ks, slot_of=slot_of,
+                         idf64_q=idf64_q, qis=qis, members=m))
+                pending.append(self._finalizer(
+                    "phrase_full", out, T, slot_of, idf64_q, ks, qis,
+                    [pq.rows for pq in group], m, on_flags=on_flags,
+                    is_phrase=True))
+        return pending
+
+    def _full_phrase_dispatch(self, T, PP, PW, M, KV, starts, ends, slots,
+                              use, anchor, ks) -> torch.Tensor:
+        """The full-scan mega-phrase kernel at compaction width KV."""
+        assert PW <= self.POS_PAD, "verify windows need POS_PAD >= PW"
+        KV = min(KV, self._n_pad_docs - 1)
+        kern = K.make_full_phrase_kernel(
+            T, self._n_pad_docs, KV, PP, PW, M, K.n_iters_for(self._max_df),
+            3.0 * self.rel_eps)
+        return kern(self.d_dense_sc, self.d_dense_tf, self.d_postings_doc,
+                    self.d_positions, self.d_pos_starts, self._to_dev(starts),
+                    self._to_dev(ends), self._to_dev(slots), self._to_dev(use),
+                    self._to_dev(anchor), self._to_dev(ks))
+
+    def _phrase_rescue(self, T, PP, PW, M, starts, ends, slots, use, anchor,
+                       ks) -> np.ndarray:
+        """The batch's mega-phrase misses re-run once at KV =
+        PRUNED_PHRASE_RETRY_KV (a deeper compaction tightens the
+        unverified-lane bound), chunked within the mega lane budget.
+        Returns packed (n, T+2, M) rows; rows it still flags take the
+        exact host path."""
+        n = len(ks)
+        t0 = time.perf_counter()
+        KV2 = min(self.PRUNED_PHRASE_RETRY_KV, self._n_pad_docs - 1)
+        chunk = _chunk_within(
+            PRUNED_PHRASE_LANE_BUDGET,
+            max(T * self._n_pad_docs, T * KV2 * PW, KV2 * PP * PW // 4),
+            self.PHRASE_B_BUCKETS)
+        outs = []
+        for ci in range(0, n, chunk):
+            cn = min(chunk, n - ci)
+            B = _bucket(cn, self.PHRASE_B_BUCKETS)
+
+            def pad(a, ci=ci, cn=cn, B=B):
+                out = np.zeros((B,) + a.shape[1:], dtype=a.dtype)
+                out[:cn] = a[ci : ci + cn]
+                return out
+
+            outs.append((ci, cn, self._full_phrase_dispatch(
+                T, PP, PW, M, KV2, pad(starts), pad(ends), pad(slots),
+                pad(use), pad(anchor), pad(ks))))
+        out = np.empty((n, T + 2, M), dtype=np.int32)
+        for ci, cn, o in outs:
+            out[ci : ci + cn] = self._fetch(o)[:cn]
+        self._bump(prune_rescued=n, rescue_s=time.perf_counter() - t0)
+        return out
+
     # -- guards and the re-rank ---------------------------------------------
 
     def _flags_to_force(self, flags: np.ndarray,
@@ -855,7 +1269,7 @@ class TorchEngine:
 
     def _finalize_arrays(self, top_docs, top_tfs_slot, flags, slot_of,
                          idf64_q, ks, qis, flat_rows, members, results,
-                         force_host):
+                         force_host, is_phrase: bool = False):
         n = len(qis)
         t0 = time.perf_counter()
         B, T, M = top_tfs_slot.shape
@@ -876,7 +1290,8 @@ class TorchEngine:
         for i in range(n):
             res = results[int(qis[i])]
             if suspects[i]:
-                d, s = self._host_exact(flat_rows[int(members[i])], int(ks[i]))
+                d, s = self._host_exact(flat_rows[int(members[i])], int(ks[i]),
+                                        is_phrase)
                 res.set_arrays(d, s)
             else:
                 res.set_arrays(docs_f[i, : cnts[i]], score_f[i, : cnts[i]])
@@ -891,10 +1306,11 @@ class TorchEngine:
         L = _bucket(int(self.packed.df[pq.slot_rows[0]]), self._lb)
         return T, L
 
-    def _assemble(self, group: List[_PlannedQuery], T: int):
+    def _assemble(self, group: List[_PlannedQuery], T: int,
+                  buckets=B_BUCKETS):
         """Slot-ordered (starts, ends, use_score) + query-order f64
         metadata for the re-rank."""
-        B = _bucket(len(group), B_BUCKETS)
+        B = _bucket(len(group), buckets)
         starts = np.zeros((B, T), dtype=np.int32)
         ends = np.zeros((B, T), dtype=np.int32)
         use_score = np.zeros((B, T), dtype=np.float32)

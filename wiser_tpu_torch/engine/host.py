@@ -1,7 +1,7 @@
 """Host-side helpers of the engine (ported from wiser_tpu/engine/device.py,
 which imports jax.numpy and so cannot be imported by the port): shape
-buckets, the exact host search, the single-term impact table, query slot
-planning and the padded device columns."""
+buckets, the exact host search (conjunctive and phrase), the single-term
+impact table, query slot planning and the padded device columns."""
 
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ L_BUCKETS = [128, 512, 2048, 8192, 32768, 131072, 524288, 2097152]
 B_BUCKETS = [8, 32, 128, 1024, 4096]
 B_CHUNK = 4096
 T_BUCKETS = [1, 2, 3, 4, 8]
+PP_BUCKETS = [8, 32, 128, 512, 2048, 8192]  # position-bag bounds (max_tf)
 DEFAULT_MARGIN = 54  # M = k + margin
 
 
@@ -30,17 +31,27 @@ def _bucket(value: int, buckets: Sequence[int]) -> int:
 
 
 def host_exact_search(packed: PackedIndex, cache64: np.ndarray,
-                      rows: Sequence[int], k: int):
-    """Exact host conjunctive search over the packed columns: the
-    fallback for guard-flagged and saturated queries, and the reference
-    semantics for one-off queries. Returns (docs int64[<=k], scores
-    f64[<=k]) in final (score desc, doc asc) order."""
+                      rows: Sequence[int], k: int, is_phrase: bool = False):
+    """Exact host conjunctive or phrase search over the packed columns:
+    the fallback for guard-flagged and saturated queries, and the
+    reference semantics for one-off queries. Returns (docs int64[<=k],
+    scores f64[<=k]) in final (score desc, doc asc) order.
+
+    A phrase scores as the AND of its terms (BM25 over the term tfs; the
+    phrase only filters), so the AND matches are walked in final order and
+    verified for adjacency chunk by chunk until k survive: a later
+    candidate can never displace an earlier verified one. Before that, the
+    bi-bloom pre-gate (the reference's IsPossibleToPresent on the host
+    path, query_processing.h:796-807) drops candidates whose term t
+    "followers" filter lacks term t+1: a definite no, so the gate only
+    shrinks the verify set."""
     dfs = [int(packed.df[r]) for r in rows]
     cand = int(np.argmin(dfs))
     cs = int(packed.term_starts[rows[cand]])
     docs = packed.postings_doc[cs : cs + dfs[cand]].astype(np.int64)
     mask = np.ones(len(docs), dtype=bool)
     tfs = np.zeros((len(rows), len(docs)), dtype=np.int64)
+    pidx = np.zeros((len(rows), len(docs)), dtype=np.int64)
     for t, r in enumerate(rows):
         st, n = int(packed.term_starts[r]), dfs[t]
         arr = packed.postings_doc[st : st + n]
@@ -48,6 +59,7 @@ def host_exact_search(packed: PackedIndex, cache64: np.ndarray,
         idc = np.minimum(idx, n - 1)
         mask &= (idx < n) & (arr[idc] == docs)
         tfs[t] = packed.postings_tf[st + idc]
+        pidx[t] = st + idc
     docs_m = docs[mask]
     if docs_m.size == 0:
         return docs_m, np.zeros(0, dtype=np.float64)
@@ -57,8 +69,68 @@ def host_exact_search(packed: PackedIndex, cache64: np.ndarray,
     for t, r in enumerate(rows):
         f = tfs_m[t]
         score = score + np.float64(packed.idf64[r]) * ((f * (K1 + 1)) / (f + cache_val))
-    order = np.lexsort((docs_m, -score))[:k]
+    order = np.lexsort((docs_m, -score))
+    if not (is_phrase and len(rows) >= 2):
+        order = order[:k]
+        return docs_m[order], score[order]
+    pidx_m = pidx[:, mask]
+    if packed.bloom_ends is not None:
+        cfg = packed.bloom_cfg
+        keep = np.ones(docs_m.size, dtype=bool)
+        for t in range(len(rows) - 1):
+            widx, wmask = cfg.probe_word_masks(packed.terms[rows[t + 1]])
+            filt = packed.bloom_ends[pidx_m[t]]  # (n_cand, W)
+            for h in range(len(widx)):
+                keep &= (filt[:, widx[h]] & wmask[h]) == wmask[h]
+            if not keep.any():
+                break
+        sel = np.nonzero(keep)[0]
+        docs_m, score, pidx_m = docs_m[sel], score[sel], pidx_m[:, sel]
+        if docs_m.size == 0:
+            return docs_m, np.zeros(0, dtype=np.float64)
+        order = np.lexsort((docs_m, -score))
+    kept: list = []
+    i, chunk = 0, 2048
+    while i < order.size and len(kept) < k:
+        take = order[i : i + chunk]
+        ok = _host_phrase_mask(packed.positions, packed.pos_starts,
+                               docs_m[take], pidx_m[:, take], len(rows))
+        kept.extend(take[ok])
+        i += chunk
+        chunk *= 4  # phrase-rare pairs: reach the full set's cost fast
+    order = np.asarray(kept[:k], dtype=np.int64)
     return docs_m[order], score[order]
+
+
+def _host_phrase_mask(positions: np.ndarray, pos_starts: np.ndarray,
+                      docs: np.ndarray, pidx: np.ndarray,
+                      n_terms: int) -> np.ndarray:
+    """(n,) bool: which candidate docs hold the phrase, by the adjusted
+    position rule (term t at x + t for every t, query_processing.h:
+    266-362). Term t's positions are keyed doc * SHIFT + (pos - t); a
+    match is a key in every term's key set, found by iterated sorted
+    intersection. pidx: (n_terms, n) posting indices of the docs."""
+    if docs.size == 0:
+        return np.zeros(0, dtype=bool)
+    shift = np.int64(positions.max(initial=0)) + np.int64(n_terms) + 1
+
+    def keys(t: int) -> np.ndarray:
+        p = pidx[t]
+        s = pos_starts[p].astype(np.int64)
+        cnt = pos_starts[p + 1].astype(np.int64) - s
+        out_starts = np.zeros(len(p) + 1, dtype=np.int64)
+        np.cumsum(cnt, out=out_starts[1:])
+        idx = (np.repeat(s, cnt) + np.arange(int(out_starts[-1]))
+               - np.repeat(out_starts[:-1], cnt))
+        return (np.repeat(docs, cnt) * shift
+                + (positions[idx].astype(np.int64) - t))
+
+    base = keys(0)
+    for t in range(1, n_terms):
+        base = np.intersect1d(base, keys(t), assume_unique=False)
+        if base.size == 0:
+            break
+    return np.isin(docs, np.unique(base // shift))
 
 
 def tie_class_cut(flags: np.ndarray, score_f: np.ndarray, n_valid: np.ndarray,

@@ -14,8 +14,21 @@ blocks, only the C blocks with the highest joint upper bounds
 (make_pruned_dense_kernel) under a provable guard; tail x head queries
 probe the dense rows at their candidate docs (make_semidense_kernel).
 
+Phrases (raw columns): the list chain (make_match_kernel with the
+bi-bloom gate, make_phrase_verify_kernel, make_select_topk_kernel); the
+compact route (make_compact_phrase_kernel: bloom gate, compaction to the
+KV best AND scores, window verify); the semidense phrase route (dense
+membership before the compaction, no bloom gate); and the full-scan mega
+phrase (make_full_phrase_kernel: every doc lane scored from the dense
+rows, the KV best verified, the rest bounded by the exact (KV+1)-th
+value). Compaction keeps lax.top_k's index-ascending tie order through a
+stable descending sort, so the compacted set is the canonical one on
+every device; positions may live on the device as 2-byte int16 bits and
+are widened at load (_pos_gather).
+
 Slot convention (host assembly): slot 0 is the candidate term; the other
 terms fill slots 1..T-1; padded slots repeat slot 0 with use_score 0.
+Phrase verification runs in query-term order (slot_of re-permutes).
 
 These functions are the XLA programs of the JAX package written out as
 torch operations; they run on whatever device their tensors live on. f32
@@ -66,14 +79,25 @@ def _slice_rows(arr: torch.Tensor, starts: torch.Tensor, L: int) -> torch.Tensor
     return arr[s[:, None] + lane[None, :]]
 
 
-def _binary_search(postings_doc, targets, lo0, hi0, n_iters: int):
+def _pos_gather(positions: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """positions[idx] (clipped) as int32. The device column holds 2-byte
+    int16 bits of uint16 positions when they fit (half the bytes), widened
+    here with & 0xFFFF, so the 65535 pad reads as 65535 as in the
+    reference's uint16 column."""
+    v = _gather1d(positions, idx).to(torch.int32)
+    return v & 0xFFFF if positions.dtype == torch.int16 else v
+
+
+def _binary_search(postings_doc, targets, lo0, hi0, n_iters: int,
+                   gather=_gather1d):
     """Vectorized lower bound: the first position in [lo0, hi0) whose
-    value is >= target, after a fixed n_iters halvings."""
+    value is >= target, after a fixed n_iters halvings (gather reads the
+    searched column; _pos_gather for positions)."""
     lo = lo0.expand(targets.shape).to(torch.int32)
     hi = hi0.expand(targets.shape).to(torch.int32)
     for _ in range(n_iters):
         mid = (lo + hi) >> 1
-        less = _gather1d(postings_doc, mid) < targets
+        less = gather(postings_doc, mid) < targets
         lo = torch.where(less, mid + 1, lo)
         hi = torch.where(less, hi, mid)
     return lo
@@ -390,6 +414,424 @@ def make_pruned_dense_kernel(T: int, NB: int, C: int, M: int, eps3: float):
             for t in range(T)], dim=1)
         flags = (boundary_truncated(score, top_score, M).to(torch.int32)
                  | prune_guard_flag(top_score, next_ub, ks, M=M, eps3=eps3))
+        return pack_with_flags(top_docs, tfs, flags)
+
+    return kernel
+
+
+# -- phrases -------------------------------------------------------------------
+
+
+def _top_stable(x: torch.Tensor, k: int):
+    """Top-k along dim 1 with lax.top_k's tie order (equal values by
+    ascending index): a stable descending sort, then the first k."""
+    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Bit count of int64 lanes holding 32-bit values (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
+
+
+def _bloom_gate(pidx, bloom_rows, bloom_bitmap, bloom_rank, probe_slot,
+                probe_begins, probe_mask, probe_active):
+    """Chained bi-bloom probes over per-lane posting indices (the
+    IsPossibleToPresent analog, query_processing.h:784-807) against the
+    sparse folded bloom columns (the BloomBoxWriter presence-bitmap layout,
+    flash_containers.h:532-561). uint32 words are held as int32 bits:
+
+      bloom_bitmap: (2*P/32,) presence bits, following side then
+                    preceding side; a set bit = a filter row is stored
+      bloom_rank:   (2*P/32,) int32 stored rows before each 32-group
+      bloom_rows:   (NNZ,) single-word folded filter rows
+      probe_slot (B, C) i32 slot of pidx probed; probe_begins (B, C) bool
+      side; probe_mask (B, C) folded masks (pass iff (row & m) == m);
+      probe_active (B, C) bool (an inactive probe passes)
+
+    An absent row is an empty filter (prune). Returns (B, L) pass flags;
+    a failing lane has no phrase match."""
+    B, C = probe_slot.shape
+    L = pidx.shape[2]
+    Pw = bloom_bitmap.shape[0] // 2  # bitmap words per side
+    slot_pidx = torch.gather(
+        pidx, 1, probe_slot.to(torch.int64)[:, :, None].expand(B, C, L))
+    sp = slot_pidx.to(torch.int64) + torch.where(
+        probe_begins[:, :, None], Pw * 32, 0)  # (B, C, L)
+    w_idx = sp >> 5
+    word = _gather1d(bloom_bitmap, w_idx).to(torch.int64) & 0xFFFFFFFF
+    bit = sp & 31
+    present = ((word >> bit) & 1) != 0
+    below = word & (torch.bitwise_left_shift(torch.ones_like(bit), bit) - 1)
+    rank = _gather1d(bloom_rank, w_idx).to(torch.int64) + _popcount32(below)
+    row = _gather1d(bloom_rows, rank)
+    m = probe_mask[:, :, None]
+    probe_pass = (present & ((row & m) == m)) | ~probe_active[:, :, None]
+    return probe_pass.all(dim=1)
+
+
+def _match_step(postings_doc, postings_score, starts, ends, use_score, *,
+                T: int, L: int, n_bs_iters: int):
+    """Candidate load + bs intersection of slots 1.. -> (cdocs, cvalid,
+    cs, match, pidx (B, T, L) i32 posting index per slot, score f32 in
+    slot order)."""
+    B = starts.shape[0]
+    cdocs, cscore, cvalid, cs = _candidates(
+        postings_doc, postings_score, starts, ends, L)
+    lane = torch.arange(L, dtype=torch.int32, device=starts.device)
+    cpidx = cs[:, None] + lane[None, :]
+    targets = cdocs[:, None, :].expand(B, T - 1, L)
+    lo = _binary_search(postings_doc, targets, starts[:, 1:, None],
+                        ends[:, 1:, None], n_bs_iters)
+    found = (lo < ends[:, 1:, None]) & (_gather1d(postings_doc, lo) == targets)
+    match = found.all(dim=1) & cvalid
+    pidx = torch.cat([cpidx[:, None, :], lo], dim=1)
+    partial = (torch.where(found, _gather1d(postings_score, lo), 0.0)
+               * use_score[:, 1:, None])
+    acc = partial[:, 0]
+    for t in range(1, T - 1):
+        acc = acc + partial[:, t]
+    score = cscore * use_score[:, 0:1] + acc
+    return cdocs, cvalid, cs, match, pidx, score
+
+
+def make_match_kernel(T: int, L: int, n_bs_iters: int):
+    """Phase 1 of the list-chain phrase: intersection, per-lane posting
+    indices and the bloom gate. T >= 2; slot 0 = candidate.
+
+    fn(postings_doc, postings_score, starts, ends, use_score, bloom_rows,
+       bloom_bitmap, bloom_rank, probe_slot, probe_begins, probe_mask,
+       probe_active) -> (match (B, L) bool, bloom_pass (B, L) bool,
+       cdocs (B, L) i32, pidx (B, T, L) i32, score (B, L) f32)."""
+
+    def kernel(postings_doc, postings_score, starts, ends, use_score,
+               bloom_rows, bloom_bitmap, bloom_rank, probe_slot,
+               probe_begins, probe_mask, probe_active):
+        cdocs, _, _, match, pidx, score = _match_step(
+            postings_doc, postings_score, starts, ends, use_score,
+            T=T, L=L, n_bs_iters=n_bs_iters)
+        bloom_pass = _bloom_gate(pidx, bloom_rows, bloom_bitmap, bloom_rank,
+                                 probe_slot, probe_begins, probe_mask,
+                                 probe_active)
+        return match, bloom_pass, cdocs, pidx, score
+
+    return kernel
+
+
+def make_phrase_verify_kernel(T: int, L: int, PP: int, n_pos_iters: int):
+    """Adjusted-position phrase verification over matched lanes
+    (PhraseQueryProcessor2, query_processing.h:266-362): a phrase occurs
+    at base x iff term t is at x + t for every t. Bases come from query
+    term 0's bag (at most PP positions); membership of x + t in term t's
+    bag is a binary search over the positions column. pidx is in query
+    term order.
+
+    fn(positions, pos_starts i32, pidx (B, T, L), active (B, L))
+      -> n_matches (B, L) int32."""
+
+    def kernel(positions, pos_starts, pidx, active):
+        ps = _gather1d(pos_starts, pidx)
+        pe = _gather1d(pos_starts, pidx + 1)
+        lane = torch.arange(PP, dtype=torch.int32, device=pidx.device)
+        base_idx = ps[:, 0, None, :] + lane[None, :, None]  # (B, PP, L)
+        base_valid = base_idx < pe[:, 0, None, :]
+        base_pos = torch.where(base_valid, _pos_gather(positions, base_idx),
+                               INT32_MAX - T)
+        ok = base_valid
+        for t in range(1, T):
+            tgt = base_pos + t
+            lo = _binary_search(positions, tgt, ps[:, t, None, :],
+                                pe[:, t, None, :], n_pos_iters,
+                                gather=_pos_gather)
+            ok = ok & (lo < pe[:, t, None, :]) & (_pos_gather(positions, lo)
+                                                  == tgt)
+        return (ok & active[:, None, :]).sum(dim=1).to(torch.int32)
+
+    return kernel
+
+
+def _gather_slots(pidx, lanes):
+    """pidx (B, T, N) at lanes (B, M) -> (B, T, M)."""
+    B, T, _ = pidx.shape
+    return torch.gather(pidx, 2, lanes.to(torch.int64)[:, None, :].expand(
+        B, T, lanes.shape[1]))
+
+
+def make_select_topk_kernel(T: int, L: int, M: int):
+    """Phase 3 of the list chain: exact top-M over the verified lanes and
+    the per-slot tfs at the winners.
+
+    fn(postings_tf, cdocs, pidx, score, match) -> packed (B, T+2, M)."""
+
+    def kernel(postings_tf, cdocs, pidx, score, match):
+        score = torch.where(match, score, NEG_INF)
+        top_score, top_l = two_level_top_m(score, M)
+        top_docs = torch.where(top_score > NEG_INF,
+                               torch.gather(cdocs, 1, top_l), -1)
+        top_tfs = torch.where(top_docs[:, None, :] >= 0,
+                              _gather1d(postings_tf, _gather_slots(pidx, top_l)),
+                              0)
+        trunc = boundary_truncated(score, top_score, M)
+        return pack_with_flags(top_docs, top_tfs, trunc.to(torch.int32))
+
+    return kernel
+
+
+def _verify_pos_windows(positions, ps, pe, anchor, *, T: int, NL: int,
+                        PP: int, PW: int):
+    """Adjusted-position verification by windows: each (term, lane) bag
+    loads as one contiguous PW-wide window at its start, then a dense
+    (PP x PW) equality compare per lane. ps/pe: (B, T, NL) bag bounds;
+    anchor: (B,) the query term whose bag gives the bases y = pos -
+    anchor; term t must hold y + t. PP bounds the anchor's bag, PW every
+    term's. A window start is clamped to [0, n - PW] as dynamic_slice
+    clamps it: the engine pads the positions column with POS_PAD >= PW
+    entries that never equal a target, so a real window is never
+    clamped. Returns (B, NL) int32 phrase occurrence counts."""
+    B = ps.shape[0]
+    n = positions.shape[0]
+    j = torch.arange(PW, dtype=torch.int64, device=ps.device)
+    start = ps.to(torch.int64).clamp(0, max(0, n - PW))
+    win = _pos_gather(positions, start[..., None] + j)  # (B, T, NL, PW)
+    valid = j < (pe - ps).to(torch.int64)[..., None]
+    a = anchor.to(torch.int64)
+    rows = torch.arange(B, device=ps.device)
+    win_a = win[rows, a]  # (B, NL, PW)
+    valid_a = valid[rows, a]
+    y = win_a[:, :, :PP] - anchor.to(torch.int32)[:, None, None]
+    ok = valid_a[:, :, :PP]  # (B, NL, PP)
+    for t in range(T):
+        eq = ((y + t)[:, :, :, None] == win[:, t][:, :, None, :]) \
+            & valid[:, t][:, :, None, :]
+        ok = ok & eq.any(dim=3)
+    return ok.sum(dim=2).to(torch.int32)
+
+
+def _slot_gather_q(sel_pidx, slot_of):
+    """sel_pidx (B, T, N) in slot order -> query-term order via slot_of
+    (B, T) (query term t -> slot)."""
+    B, T, N = sel_pidx.shape
+    return torch.gather(sel_pidx, 1, slot_of.to(torch.int64)[:, :, None]
+                        .expand(B, T, N))
+
+
+def _verify_and_select(positions, pos_starts, postings_tf, sel_score,
+                       sel_docs, sel_pidx, slot_of, ks, unseen, *, T, KV,
+                       PP, PW, M, eps3):
+    """Shared tail of the compact and semidense phrase routes: window
+    verify of the KV compacted lanes in query-term order (anchored on
+    query term 0), top-M of the verified, the flag word (FLAG_TRUNC over
+    the KV lanes; FLAG_PRUNE_MISS where the (KV+1)-th surviving score
+    `unseen` could reach the k-th kept) and the per-slot tfs."""
+    B = sel_score.shape[0]
+    pidx_q = _slot_gather_q(sel_pidx, slot_of)
+    ps = _gather1d(pos_starts, pidx_q)
+    pe = _gather1d(pos_starts, pidx_q + 1)
+    n_matches = _verify_pos_windows(
+        positions, ps, pe, torch.zeros(B, dtype=torch.int32,
+                                       device=ps.device),
+        T=T, NL=KV, PP=PP, PW=PW)
+    final_score = torch.where((sel_score > NEG_INF) & (n_matches > 0),
+                              sel_score, NEG_INF)
+    top_score, top_l = torch.topk(final_score, M, dim=1)
+    top_docs = torch.where(top_score > NEG_INF,
+                           torch.gather(sel_docs, 1, top_l), -1)
+    flags = (boundary_truncated(final_score, top_score, M).to(torch.int32)
+             | prune_guard_flag(top_score, unseen, ks, M=M, eps3=eps3))
+    top_tfs = torch.where(top_docs[:, None, :] >= 0,
+                          _gather1d(postings_tf, _gather_slots(sel_pidx, top_l)),
+                          0)
+    return pack_with_flags(top_docs, top_tfs, flags)
+
+
+def compact_phrase_body(postings_doc, postings_score, postings_tf, positions,
+                        pos_starts, starts, ends, use_score, slot_of, ks,
+                        bloom_rows, bloom_bitmap, bloom_rank, probe_slot,
+                        probe_begins, probe_mask, probe_active, *, T: int,
+                        L: int, KV: int, PP: int, PW: int, M: int,
+                        n_bs_iters: int, eps3: float):
+    """The compact phrase pipeline (raw columns): bs match + bloom gate
+    over L lanes, compaction to the KV best-scored surviving lanes
+    (stable: score desc, index asc, so the canonical set), window verify
+    of those only, top-M. Bloom-failing lanes are proven non-matches; the
+    (KV+1)-th surviving score bounds every unverified lane (the prune
+    guard's proof). Returns packed (B, T+2, M)."""
+    cdocs, _, _, match, pidx, score = _match_step(
+        postings_doc, postings_score, starts, ends, use_score,
+        T=T, L=L, n_bs_iters=n_bs_iters)
+    bloom_pass = _bloom_gate(pidx, bloom_rows, bloom_bitmap, bloom_rank,
+                             probe_slot, probe_begins, probe_mask,
+                             probe_active)
+    mscore = torch.where(match & bloom_pass, score, NEG_INF)
+    top_cs, top_cl = _top_stable(mscore, KV + 1)
+    sel_l = top_cl[:, :KV]
+    return _verify_and_select(
+        positions, pos_starts, postings_tf, top_cs[:, :KV],
+        torch.gather(cdocs, 1, sel_l), _gather_slots(pidx, sel_l), slot_of,
+        ks, top_cs[:, KV], T=T, KV=KV, PP=PP, PW=PW, M=M, eps3=eps3)
+
+
+def make_compact_phrase_kernel(T: int, L: int, KV: int, PP: int, PW: int,
+                               M: int, n_bs_iters: int, eps3: float):
+    """compact_phrase_body at fixed shapes (raw columns).
+
+    fn(postings_doc, postings_score, postings_tf, positions, pos_starts,
+       starts, ends, use_score, slot_of, ks, bloom_rows, bloom_bitmap,
+       bloom_rank, probe_slot, probe_begins, probe_mask, probe_active)
+      -> packed (B, T+2, M)."""
+
+    def kernel(*args):
+        return compact_phrase_body(*args, T=T, L=L, KV=KV, PP=PP, PW=PW,
+                                   M=M, n_bs_iters=n_bs_iters, eps3=eps3)
+
+    return kernel
+
+
+def make_semidense_phrase_kernel(T: int, L: int, KV: int, PP: int, PW: int,
+                                 M: int, N_pad: int, n_rec_iters: int,
+                                 eps3: float):
+    """List-path phrase whose match stage is semidense (raw columns):
+    every non-candidate term is a dense-tier head, so membership and score
+    per candidate lane is one doc-indexed gather from its dense row, and
+    the lanes compact to the KV best AND scores (stable) before any
+    element-gather stage: posting-index recovery by binary search over KV
+    lanes (a matched doc is in every term's run: the dense rows are built
+    from them) and the window verify. No bloom gate: the (KV+1)-th AND
+    score bounds every unverified lane.
+
+    fn(postings_doc, postings_score, postings_tf, dense_sc, positions,
+       pos_starts, starts, ends, use_score, slots (B, T) dense rows of
+       slots 1.., slot_of, ks) -> packed (B, T+2, M)."""
+
+    def kernel(postings_doc, postings_score, postings_tf, dense_sc,
+               positions, pos_starts, starts, ends, use_score, slots,
+               slot_of, ks):
+        B = starts.shape[0]
+        cdocs, cscore, cvalid, cs = _candidates(
+            postings_doc, postings_score, starts, ends, L)
+        match = cvalid
+        score = cscore * use_score[:, 0:1]
+        for t in range(1, T):
+            p = _dense_gather(dense_sc, slots[:, t : t + 1], cdocs)
+            match = match & (p > 0)
+            score = score + p * use_score[:, t : t + 1]
+        mscore = torch.where(match, score, NEG_INF)
+        top_cs, top_cl = _top_stable(mscore, KV + 1)
+        sel_l = top_cl[:, :KV].to(torch.int32)
+        sel_docs = torch.gather(cdocs, 1, top_cl[:, :KV])
+        # invalid lanes recover in-range garbage, masked by their score
+        targets = sel_docs[:, None, :].expand(B, T - 1, KV)
+        lo = _binary_search(postings_doc, targets, starts[:, 1:, None],
+                            ends[:, 1:, None], n_rec_iters)
+        sel_pidx = torch.cat([(cs[:, None] + sel_l)[:, None, :], lo], dim=1)
+        return _verify_and_select(
+            positions, pos_starts, postings_tf, top_cs[:, :KV], sel_docs,
+            sel_pidx, slot_of, ks, top_cs[:, KV], T=T, KV=KV, PP=PP, PW=PW,
+            M=M, eps3=eps3)
+
+    return kernel
+
+
+def _full_phrase_body(rows_f32, postings_doc, positions, pos_starts, starts,
+                      ends, anchor, ks, *, T: int, N_pad: int, KV: int,
+                      PP: int, PW: int, M: int, n_bs_iters: int,
+                      eps3: float):
+    """Full-scan dense phrase (raw columns): score every doc lane, verify
+    the KV best candidates, bound the rest by the exact (KV+1)-th value.
+
+    Selection is a two-level exact top-(KV+1): per-128-block maxima, the
+    top (KV+1) blocks re-sorted ascending, then the top (KV+1) of their
+    lanes, both by stable sort (lax.top_k's tie order). Every lane
+    strictly above the (KV+1)-th value is selected, so `unseen` is that
+    value exactly. Membership in the selection comes from a scatter of
+    the selected lane ids, never from the sort order; the (KV+1)-th lane
+    is not verified and stays in the band. Raw columns carry no exact
+    integer payload, so any unselected lane within the eps3 band of the
+    k-th kept score raises FLAG_PRUNE_MISS (the payload-tie refinement is
+    the tc variant's).
+
+    rows_f32(t) -> (B, N_pad) f32 score contribution of query term t (0
+    where absent). All per-term arrays are in query-term order. Returns
+    (top_docs (B, M) i32, flags (B,) i32)."""
+    B = starts.shape[0]
+    dev = starts.device
+    score = torch.zeros((B, N_pad), dtype=torch.float32, device=dev)
+    match = torch.ones((B, N_pad), dtype=torch.bool, device=dev)
+    for t in range(T):
+        p = rows_f32(t)
+        match &= p > 0
+        score += p
+    score = torch.where(match, score, NEG_INF)
+    del match
+    NB = N_pad // 128
+    if NB >= KV + 1:
+        s3 = score.view(B, NB, 128)
+        _, blk = _top_stable(s3.amax(dim=2), KV + 1)
+        blk, _ = torch.sort(blk, dim=1)  # ascending: lane order = doc order
+        rows3 = torch.gather(s3, 1, blk[:, :, None].expand(B, KV + 1, 128))
+        top_cs, fl = _top_stable(rows3.reshape(B, (KV + 1) * 128), KV + 1)
+        top_cl = torch.gather(blk, 1, fl // 128) * 128 + fl % 128
+    else:  # tiny doc spaces: one flat selection
+        top_cs, top_cl = _top_stable(score, KV + 1)
+    unseen = top_cs[:, KV]
+    sel_score = top_cs[:, :KV]
+    sel_docs = top_cl[:, :KV].to(torch.int32)
+
+    targets = sel_docs[:, None, :].expand(B, T, KV)
+    lo = _binary_search(postings_doc, targets, starts[:, :, None],
+                        ends[:, :, None], n_bs_iters)
+    n_matches = _verify_pos_windows(
+        positions, _gather1d(pos_starts, lo), _gather1d(pos_starts, lo + 1),
+        anchor, T=T, NL=KV, PP=PP, PW=PW)
+    final_score = torch.where((sel_score > NEG_INF) & (n_matches > 0),
+                              sel_score, NEG_INF)
+    top_score, top_l = torch.topk(final_score, M, dim=1)
+    top_docs = torch.where(top_score > NEG_INF,
+                           torch.gather(sel_docs, 1, top_l), -1)
+
+    k_idx = (ks.to(torch.int64) - 1).clamp(0, M - 1)
+    kth = torch.gather(top_score, 1, k_idx[:, None])[:, 0]
+    no_k = kth <= NEG_INF
+    selected = torch.zeros((B, N_pad), dtype=torch.bool, device=dev)
+    selected.scatter_(1, top_cl[:, :KV].clamp(0, N_pad - 1), True)
+    safe_kth = torch.where(no_k, float("inf"), kth)
+    band = (~selected & (score > NEG_INF)
+            & (score >= safe_kth[:, None] * float(np.float32(1.0 - eps3))))
+    miss = (no_k & (unseen > NEG_INF)) | band.any(dim=1)
+    flags = (boundary_truncated(final_score, top_score, M).to(torch.int32)
+             | miss.to(torch.int32) * FLAG_PRUNE_MISS)
+    return top_docs, flags
+
+
+def make_full_phrase_kernel(T: int, N_pad: int, KV: int, PP: int, PW: int,
+                            M: int, n_bs_iters: int, eps3: float):
+    """Raw-column full-scan mega phrase (_full_phrase_body) with the
+    per-term tfs from the dense tf rows.
+
+    fn(dense_sc (H, N_pad) f32, dense_tf (H, N_pad) i32, postings_doc,
+       positions, pos_starts, starts (B, T), ends (B, T), slots (B, T),
+       use_score (B, T) f32, anchor (B,) i32, ks (B,) i32), per-term arrays
+       in query order -> packed (B, T+2, M) int32."""
+
+    def kernel(dense_sc, dense_tf, postings_doc, positions, pos_starts,
+               starts, ends, slots, use_score, anchor, ks):
+        rows = slots.to(torch.int64)
+
+        def row_f32(t):
+            return dense_sc[rows[:, t]] * use_score[:, t : t + 1]
+
+        top_docs, flags = _full_phrase_body(
+            row_f32, postings_doc, positions, pos_starts, starts, ends,
+            anchor, ks, T=T, N_pad=N_pad, KV=KV, PP=PP, PW=PW, M=M,
+            n_bs_iters=n_bs_iters, eps3=eps3)
+        tfs = torch.stack([
+            torch.where(top_docs >= 0,
+                        _dense_gather(dense_tf, slots[:, t : t + 1],
+                                      top_docs.clamp(min=0)), 0)
+            for t in range(T)], dim=1)
         return pack_with_flags(top_docs, tfs, flags)
 
     return kernel

@@ -1,5 +1,6 @@
 """StagedEngine — host-to-device posting staging for indexes larger than
-device memory (port of wiser_tpu/engine/staged.py, non-phrase queries).
+device memory (port of wiser_tpu/engine/staged.py, non-phrase queries;
+a phrase query raises NotImplementedError).
 
 The paper's "read as needed": a hot tier of posting columns and dense
 head-term rows stays on the device (a TorchEngine over a hot view of the
@@ -22,12 +23,7 @@ import numpy as np
 import torch
 
 from wiser_tpu_torch.engine import kernels as K
-from wiser_tpu_torch.engine.device import (
-    BS_LANE_BUDGET,
-    TorchEngine,
-    _not_phrase,
-    bs_chunk,
-)
+from wiser_tpu_torch.engine.device import BS_LANE_BUDGET, TorchEngine, bs_chunk
 from wiser_tpu_torch.engine.host import (
     B_BUCKETS,
     L_BUCKETS,
@@ -73,13 +69,22 @@ _G16_BUCKETS = [1 << 8, 1 << 10, 1 << 12, 1 << 14, 1 << 16]
 _GRAW_BUCKETS = [1 << 6, 1 << 9, 1 << 12, 1 << 16]
 
 
+def _not_phrase(q: SearchQuery) -> None:
+    """The staged phrase path (phrase residency routing, the cold phrase
+    routes) is not ported: a phrase query raises rather than pass
+    quietly to the host."""
+    if q.is_phrase and len(q.terms) >= 2:
+        raise NotImplementedError(
+            "StagedEngine: phrase queries are not ported yet (ROADMAP A.9)")
+
+
 def per_term_device_cost(packed: PackedIndex, columns: str = "raw",
                          split: bool = False) -> np.ndarray:
     """int64[n_terms] device bytes a term costs when resident, as the
     JAX engine lays it out: CSR posting columns (+ the int32 pos_starts
     lane), position bags and the term's share of the sparse bloom
-    columns. The port uploads only the posting columns, but charges the
-    same bytes so the hot/cold split is the reference's.
+    columns — what the hot TorchEngine uploads for it — so the hot/cold
+    split is the reference's.
 
     With split=True returns (core, phrase): core serves boolean/ranked
     queries, phrase (position bags + bloom rows) only phrase queries."""

@@ -1,6 +1,6 @@
 """Vectorized linedoc -> PackedIndex builder (the port's copy of
-wiser_tpu/index/fast_builder.py, in-memory and without bloom rows, which
-is how the port builds its indexes).
+wiser_tpu/index/fast_builder.py, in memory: the disk spill of the
+reference's builder is not carried).
 
 The linedoc stream is parsed in chunks with column-level string ops (one
 `str.split` / `fromstring` per chunk, not per value), term ids are
@@ -11,19 +11,27 @@ those of the JAX package's builders.
 Input is the canonical WITH_POSITIONS linedoc shape written by
 data/scale_corpus.py: tokens = unique terms, single-space separated;
 positions groups "p1;p2;." per term; offsets groups "a,b;c,d;." per
-term. Non-canonical rows raise ValueError.
+term. With with_blooms the rows must be WITH_BI_BLOOM: two more columns
+of per-term neighbor words ("w1 w2!" per term, following then
+preceding), from which each posting gets a pair of bloom filter rows
+(bloom_ends / bloom_begins), bit-equal to the JAX builder's. The native
+library parses and hashes the neighbor keys (libbloom's double murmur2).
+Non-canonical rows raise ValueError.
 """
 
 from __future__ import annotations
 
+import time
 import warnings
 from itertools import repeat
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from wiser_tpu_torch.codecs import uint_to_char4_np
+from wiser_tpu_torch.index.bloom import BloomConfig
 from wiser_tpu_torch.index.format import BLOCK, SENTINEL_DOC, PackedIndex
+from wiser_tpu_torch.native import lib as native
 from wiser_tpu_torch.scoring import RunningAvgLength
 
 
@@ -49,7 +57,13 @@ class _ChunkAccum:
         self.off_b: List[np.ndarray] = []
         self.off_e: List[np.ndarray] = []
         self.doc_lengths: List[np.ndarray] = []
+        # per chunk, per bloom side: (a u32, b u32, entry id i32) of every
+        # neighbor key, hashed at parse time (the key strings are not kept)
+        self.bloom_ends_keys: List[tuple] = []
+        self.bloom_begins_keys: List[tuple] = []
         self.n_docs = 0
+        self.n_entries = 0
+        self.bloom_s = 0.0  # seconds spent parsing and hashing bloom keys
 
 
 def _map_term_ids(vocab: Dict[str, int], flat_tokens: List[str]) -> np.ndarray:
@@ -79,9 +93,12 @@ def _parse_group_col(cols: List[str], n_entries: int, seps: str,
     return counts, _fromstring(joined, ";,.")
 
 
-def _parse_linedoc_chunks(path: str, chunk_docs: int) -> Iterator[tuple]:
-    """Yield per-chunk column lists (tokens, positions, offsets, bodies)."""
-    cols: List[List[str]] = [[], [], [], []]
+def _parse_linedoc_chunks(path: str, chunk_docs: int,
+                          with_blooms: bool) -> Iterator[tuple]:
+    """Yield per-chunk column lists (tokens, positions, offsets, bodies,
+    following-word groups, preceding-word groups; the last two empty
+    unless with_blooms)."""
+    cols: List[List[str]] = [[], [], [], [], [], []]
     with open(path, "r", encoding="utf-8", errors="replace") as f:
         f.readline()  # header
         for line in f:
@@ -93,15 +110,22 @@ def _parse_linedoc_chunks(path: str, chunk_docs: int) -> Iterator[tuple]:
             cols[1].append(items[4])  # positions
             cols[2].append(items[3])  # offsets
             cols[3].append(items[1])  # body
+            if with_blooms:
+                if len(items) < 7:
+                    raise ValueError("with_blooms needs WITH_BI_BLOOM rows "
+                                     "(7 columns)")
+                cols[4].append(items[5])  # bloom (following words)
+                cols[5].append(items[6])  # bloom_before (preceding words)
             if len(cols[0]) >= chunk_docs:
                 yield tuple(cols)
-                cols = [[], [], [], []]
+                cols = [[], [], [], [], [], []]
     if cols[0]:
         yield tuple(cols)
 
 
-def _accumulate_chunk(acc: _ChunkAccum, chunk: tuple) -> None:
-    tok_cols, pos_cols, off_cols, body_cols = chunk
+def _accumulate_chunk(acc: _ChunkAccum, chunk: tuple,
+                      with_blooms: bool) -> None:
+    tok_cols, pos_cols, off_cols, body_cols, ends_cols, begins_cols = chunk
     n_docs = len(tok_cols)
     flat_tokens: List[str] = []
     n_tok = np.empty(n_docs, dtype=np.int64)
@@ -144,18 +168,45 @@ def _accumulate_chunk(acc: _ChunkAccum, chunk: tuple) -> None:
     acc.off_b.append(off_nums[0::2].astype(np.int32))
     acc.off_e.append(off_nums[1::2].astype(np.int32))
     acc.doc_lengths.append(blen)
+    if with_blooms:
+        t0 = time.perf_counter()
+        for cols, store in ((ends_cols, acc.bloom_ends_keys),
+                            (begins_cols, acc.bloom_begins_keys)):
+            store.append(native.bloom_col_hash(
+                "".join(cols).encode("utf-8"), E, acc.n_entries))
+        acc.bloom_s += time.perf_counter() - t0
     acc.n_docs += n_docs
+    acc.n_entries += E
+
+
+def _bloom_rows(key_chunks, order_inv: np.ndarray, pidx: np.ndarray, P: int,
+                cfg: BloomConfig) -> np.ndarray:
+    """(P, n_words) uint32 bloom rows from hashed (a, b, entry id)
+    chunks: key bit x_i = ((a + i*b) mod 2^32) mod bits, i < n_hashes, is
+    set in the row of the key's posting (native). Entry ids are pre-sort;
+    order_inv maps them to sorted entries, pidx sorted entries to padded
+    posting indices."""
+    rows = np.zeros((P, cfg.n_words), dtype=np.uint32)
+    for a, b, entry_of in key_chunks:
+        native.bloom_set_bits(a, b, pidx[order_inv[entry_of]], cfg.n_hashes,
+                              cfg.bits, rows)
+    return rows
 
 
 def pack_from_arrays(term_ids: np.ndarray, doc_ids: np.ndarray,
                      tf: np.ndarray, positions: np.ndarray,
                      off_b: np.ndarray, off_e: np.ndarray,
                      doc_lengths: np.ndarray,
-                     vocab: Dict[str, int]) -> PackedIndex:
+                     vocab: Dict[str, int],
+                     bloom_cfg: Optional[BloomConfig] = None,
+                     bloom_key_chunks: Optional[tuple] = None,
+                     stats: Optional[dict] = None) -> PackedIndex:
     """Assemble the packed CSR columns from flat occurrence arrays
     (per-entry term ids in discovery order, doc ids, tfs, and the
-    per-entry groups of positions and offsets). Temporaries are int32
-    and freed as they are consumed; the inputs are consumed too."""
+    per-entry groups of positions and offsets) and, given
+    bloom_key_chunks = (following-side chunks, preceding-side chunks) of
+    hashed keys, the bloom rows. Temporaries are int32 and freed as they
+    are consumed; the inputs are consumed too."""
     terms = sorted(vocab)
     T = len(terms)
     remap = np.empty(T, dtype=np.int32)
@@ -203,14 +254,14 @@ def pack_from_arrays(term_ids: np.ndarray, doc_ids: np.ndarray,
     total = int(new_starts[-1])
     base = src_starts[:-1].astype(np.int32)[order]
     base -= new_starts[:-1].astype(np.int32)
-    del src_starts, new_starts, order
+    del src_starts, new_starts
     gather = np.repeat(base, tf_s)
     del base
     gather += np.arange(total, dtype=np.int32)
 
     pos_counts_padded = np.zeros(P, dtype=np.int64)
     pos_counts_padded[pidx] = tf_s
-    del tf_s, pidx
+    del tf_s
     pos_starts = np.zeros(P + 1, dtype=np.int64)
     np.cumsum(pos_counts_padded, out=pos_starts[1:])
     del pos_counts_padded
@@ -221,6 +272,21 @@ def pack_from_arrays(term_ids: np.ndarray, doc_ids: np.ndarray,
     del off_b
     off_e_f = off_e[gather]
     del off_e, gather
+
+    cfg = bloom_cfg or BloomConfig()
+    bloom_ends = bloom_begins = None
+    if bloom_key_chunks is not None:
+        t0 = time.perf_counter()
+        order_inv = np.empty(E, dtype=np.int32)
+        order_inv[order] = np.arange(E, dtype=np.int32)
+        bloom_ends = _bloom_rows(bloom_key_chunks[0], order_inv, pidx, P, cfg)
+        bloom_begins = _bloom_rows(bloom_key_chunks[1], order_inv, pidx, P,
+                                   cfg)
+        del order_inv
+        if stats is not None:
+            stats["bloom_s"] = stats.get("bloom_s", 0.0) + (
+                time.perf_counter() - t0)
+    del order, pidx
 
     avg = RunningAvgLength()  # running mean in insertion order
     for v in doc_lengths.tolist():
@@ -240,6 +306,9 @@ def pack_from_arrays(term_ids: np.ndarray, doc_ids: np.ndarray,
         off_starts=pos_starts.copy(),  # one offset pair per position
         off_begin=off_b_f,
         off_end=off_e_f,
+        bloom_cfg=cfg,
+        bloom_ends=bloom_ends,
+        bloom_begins=bloom_begins,
     )
 
 
@@ -256,16 +325,28 @@ def _consume_concat(chunks: List[np.ndarray]) -> np.ndarray:
     return out
 
 
-def build_packed_fast(path: str, chunk_docs: int = 20_000) -> PackedIndex:
-    """Stream a WITH_POSITIONS linedoc file into a PackedIndex."""
+def build_packed_fast(path: str, chunk_docs: int = 20_000,
+                      with_blooms: bool = False,
+                      bloom_cfg: Optional[BloomConfig] = None,
+                      stats: Optional[dict] = None) -> PackedIndex:
+    """Stream a linedoc file into a PackedIndex: a WITH_POSITIONS file, or
+    with with_blooms a WITH_BI_BLOOM file, whose bloom rows are built with
+    bloom_cfg (default BloomConfig(), the reference indexer's). stats, if
+    given, receives bloom_s: the seconds spent on the bloom rows (key
+    parsing and hashing, bit setting)."""
     acc = _ChunkAccum()
-    for chunk in _parse_linedoc_chunks(path, chunk_docs):
-        _accumulate_chunk(acc, chunk)
+    for chunk in _parse_linedoc_chunks(path, chunk_docs, with_blooms):
+        _accumulate_chunk(acc, chunk, with_blooms)
     if acc.n_docs == 0:
         raise ValueError(f"no docs parsed from {path}")
     cols = [_consume_concat(c) for c in (acc.term_ids, acc.doc_ids, acc.tf,
                                           acc.positions, acc.off_b, acc.off_e)]
     doc_lengths = _consume_concat(acc.doc_lengths)
     vocab = acc.vocab
+    blooms = ((acc.bloom_ends_keys, acc.bloom_begins_keys) if with_blooms
+              else None)
+    if stats is not None and with_blooms:
+        stats["bloom_s"] = stats.get("bloom_s", 0.0) + acc.bloom_s
     del acc
-    return pack_from_arrays(*cols, doc_lengths, vocab)
+    return pack_from_arrays(*cols, doc_lengths, vocab, bloom_cfg=bloom_cfg,
+                            bloom_key_chunks=blooms, stats=stats)

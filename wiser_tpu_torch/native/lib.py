@@ -1,5 +1,6 @@
 """ctypes bindings of the port's native host codecs (the port's copy of the
-parts of wiser_tpu/native/lib.py it calls). The library is built from
+parts of wiser_tpu/native/lib.py it calls, plus the bloom-column key
+hashing of the index builder). The library is built from
 native/wiser_native.cpp with g++ at first use into `.kernel_build/`
 (build.py); without a C++ compiler these functions raise."""
 
@@ -23,15 +24,30 @@ def get_lib() -> ctypes.CDLL:
     lib = load_host_library("wiser_native", _SRC)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     u32p = ctypes.POINTER(ctypes.c_uint32)
+    i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.wiser_murmur2_batch.restype = None
+    lib.wiser_murmur2_batch.argtypes = [u8p, i64p, i64p, ctypes.c_int64,
+                                        ctypes.c_uint32, u32p]
+    lib.wiser_murmur2_batch_seeded.restype = None
+    lib.wiser_murmur2_batch_seeded.argtypes = [u8p, i64p, i64p,
+                                               ctypes.c_int64, u32p, u32p]
+    lib.wiser_bloom_col_hash.restype = ctypes.c_int64
+    lib.wiser_bloom_col_hash.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.c_int32, ctypes.c_uint32,
+                                         ctypes.c_int64, u32p, u32p, i32p]
+    lib.wiser_bloom_set_bits.restype = None
+    lib.wiser_bloom_set_bits.argtypes = [u32p, u32p, i64p, ctypes.c_int64,
+                                         ctypes.c_int, ctypes.c_uint32,
+                                         ctypes.c_int, u32p]
     lib.wiser_pack_blocks.restype = ctypes.c_int64
     lib.wiser_pack_blocks.argtypes = [u32p, u8p, ctypes.c_int64, u32p]
     lib.wiser_unpack_blocks.restype = ctypes.c_int64
     lib.wiser_unpack_blocks.argtypes = [u32p, u8p, ctypes.c_int64, u32p]
     lib.wiser_linedoc_chunk.restype = ctypes.c_int64
     lib.wiser_linedoc_chunk.argtypes = [u8p, i64p, ctypes.c_int64, i64p,
-                                        i64p, ctypes.c_int64, u8p,
-                                        ctypes.c_int64]
+                                        i64p, ctypes.c_int64, ctypes.c_int,
+                                        u8p, ctypes.c_int64]
     return lib
 
 
@@ -43,8 +59,71 @@ def _u32(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
 
 
+def _i32(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
 def _i64(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def murmur2_batch_seeded(blob: bytes, starts: np.ndarray, ends: np.ndarray,
+                         seeds) -> np.ndarray:
+    """murmur2 of the keys blob[starts[i]:ends[i]]. seeds: None (libbloom's
+    MURMUR_SEED for every key) or uint32[n] per-key seeds (the double
+    hash's second pass)."""
+    from wiser_tpu_torch.index.bloom import MURMUR_SEED
+
+    lib = get_lib()
+    n = len(starts)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    ends = np.ascontiguousarray(ends, dtype=np.int64)
+    out = np.empty(n, dtype=np.uint32)
+    src = np.frombuffer(blob, dtype=np.uint8)
+    if seeds is None:
+        lib.wiser_murmur2_batch(_u8(src), _i64(starts), _i64(ends), n,
+                                ctypes.c_uint32(MURMUR_SEED), _u32(out))
+    else:
+        seeds = np.ascontiguousarray(seeds, dtype=np.uint32)
+        lib.wiser_murmur2_batch_seeded(_u8(src), _i64(starts), _i64(ends), n,
+                                       _u32(seeds), _u32(out))
+    return out
+
+
+def bloom_col_hash(col: bytes, n_entries: int, entry_base: int = 0):
+    """Parse one chunk's phrase-neighbor column (per-entry groups ending
+    in '!', keys separated by ' ') and double-hash every key as libbloom
+    does. Returns (a uint32, b uint32, entry_of int32) per key, where
+    entry_of is entry_base + the key's group index."""
+    from wiser_tpu_torch.index.bloom import MURMUR_SEED
+
+    src = np.frombuffer(col, dtype=np.uint8)
+    cap = col.count(b" ") + col.count(b"!") + 1
+    a = np.empty(cap, dtype=np.uint32)
+    b = np.empty(cap, dtype=np.uint32)
+    e = np.empty(cap, dtype=np.int32)
+    n = get_lib().wiser_bloom_col_hash(
+        _u8(src), len(col), n_entries, entry_base, MURMUR_SEED, cap,
+        _u32(a), _u32(b), _i32(e))
+    if n < 0:
+        raise ValueError(
+            f"non-canonical bloom column (not {n_entries} '!' groups)")
+    return a[:n], b[:n], e[:n]
+
+
+def bloom_set_bits(a: np.ndarray, b: np.ndarray, row: np.ndarray,
+                   n_hashes: int, bits: int, rows: np.ndarray) -> None:
+    """OR key k's n_hashes bloom bits ((a[k] + i*b[k]) mod 2^32 mod bits)
+    into rows[row[k]], a C-contiguous (P, n_words) uint32 array."""
+    if rows.dtype != np.uint32 or not rows.flags.c_contiguous:
+        raise ValueError("bloom_set_bits: rows must be C-contiguous uint32")
+    a = np.ascontiguousarray(a, dtype=np.uint32)
+    b = np.ascontiguousarray(b, dtype=np.uint32)
+    row = np.ascontiguousarray(row, dtype=np.int64)
+    if len(row) and not 0 <= int(row.min()) <= int(row.max()) < len(rows):
+        raise ValueError("bloom_set_bits: row index out of range")
+    get_lib().wiser_bloom_set_bits(_u32(a), _u32(b), _i64(row), len(a),
+                                   n_hashes, bits, rows.shape[1], _u32(rows))
 
 
 def pack_blocks(vals: np.ndarray, widths: np.ndarray) -> np.ndarray:
@@ -74,9 +153,11 @@ def unpack_blocks(words: np.ndarray, widths: np.ndarray) -> np.ndarray:
 
 
 def linedoc_chunk(vocab_blob: np.ndarray, vocab_offs: np.ndarray,
-                  ids: np.ndarray, bounds: np.ndarray) -> bytes:
-    """One chunk of canonical WITH_POSITIONS linedoc rows (each
-    newline-terminated) from flat token ids and doc bounds."""
+                  ids: np.ndarray, bounds: np.ndarray,
+                  with_blooms: bool = False) -> bytes:
+    """One chunk of canonical linedoc rows (each newline-terminated) from
+    flat token ids and doc bounds: WITH_POSITIONS, plus the two
+    WITH_BI_BLOOM neighbor columns when with_blooms."""
     lib = get_lib()
     ids = np.ascontiguousarray(ids, dtype=np.int64)
     bounds = np.ascontiguousarray(bounds, dtype=np.int64)
@@ -89,7 +170,8 @@ def linedoc_chunk(vocab_blob: np.ndarray, vocab_offs: np.ndarray,
         out = np.empty(cap, dtype=np.uint8)
         n = lib.wiser_linedoc_chunk(
             _u8(vocab_blob), _i64(vocab_offs), n_vocab, _i64(ids),
-            _i64(bounds), len(bounds) - 1, _u8(out), cap)
+            _i64(bounds), len(bounds) - 1, 1 if with_blooms else 0,
+            _u8(out), cap)
         if n >= 0:
             return out[:n].tobytes()
         cap *= 2

@@ -1,10 +1,13 @@
 // Native host codecs of wiser_tpu_torch (the port's copy of the parts of
-// wiser_tpu/native/wiser_native.cpp it calls): fixed-width bit packing of
-// 128-value blocks (the reference's LittleIntPacker analog) and the
-// linedoc chunk assembler of data/scale_corpus.py.
+// wiser_tpu/native/wiser_native.cpp it calls): libbloom's murmur2
+// (libbloom/murmur2/MurmurHash2.c) with the bloom-column key hashing of
+// the index builder, fixed-width bit packing of 128-value blocks (the
+// reference's LittleIntPacker analog) and the linedoc chunk assembler of
+// data/scale_corpus.py.
 //
 // Build: native/lib.py (g++ -O3 -shared -fPIC into .kernel_build/).
 
+#include <algorithm>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -12,6 +15,119 @@
 #include <vector>
 
 extern "C" {
+
+// ---------------------------------------------------------------------------
+// murmur2 (32-bit, little-endian): MurmurHash2 by Austin Appleby, the
+// variant libbloom uses (seed mixing, m=0x5bd1e995, r=24).
+// ---------------------------------------------------------------------------
+
+uint32_t wiser_murmur2(const void* key, int len, uint32_t seed) {
+  const uint32_t m = 0x5bd1e995;
+  const int r = 24;
+  uint32_t h = seed ^ (uint32_t)len;
+  const unsigned char* data = (const unsigned char*)key;
+  while (len >= 4) {
+    uint32_t k;
+    memcpy(&k, data, 4);
+    k *= m;
+    k ^= k >> r;
+    k *= m;
+    h *= m;
+    h ^= k;
+    data += 4;
+    len -= 4;
+  }
+  switch (len) {
+    case 3: h ^= (uint32_t)data[2] << 16; [[fallthrough]];
+    case 2: h ^= (uint32_t)data[1] << 8;  [[fallthrough]];
+    case 1: h ^= data[0]; h *= m;
+  }
+  h ^= h >> 13;
+  h *= m;
+  h ^= h >> 15;
+  return h;
+}
+
+// Batch murmur2 over n keys blob[starts[i], ends[i]) with one seed.
+void wiser_murmur2_batch(const uint8_t* blob, const int64_t* starts,
+                         const int64_t* ends, int64_t n, uint32_t seed,
+                         uint32_t* out) {
+  for (int64_t i = 0; i < n; i++) {
+    out[i] = wiser_murmur2(blob + starts[i], (int)(ends[i] - starts[i]), seed);
+  }
+}
+
+// Per-key seeds: libbloom's double hash needs b = murmur2(key, a), where a
+// is the key's first hash (bloom.c:57-58).
+void wiser_murmur2_batch_seeded(const uint8_t* blob, const int64_t* starts,
+                                const int64_t* ends, int64_t n,
+                                const uint32_t* seeds, uint32_t* out) {
+  for (int64_t i = 0; i < n; i++) {
+    out[i] = wiser_murmur2(blob + starts[i], (int)(ends[i] - starts[i]),
+                           seeds[i]);
+  }
+}
+
+// One chunk's phrase-neighbor column (the per-doc columns joined): groups
+// end with '!', one group per token entry; the keys of a group are
+// separated by ' ' (Python's str.split(" ") semantics: an empty key
+// between two spaces is a key); a trailing empty piece after the last '!'
+// is not a group. For every key writes a = murmur2(key, seed_a),
+// b = murmur2(key, a) and entry_base + its group index. Returns the key
+// count, -1 if more than `cap` keys, -2 if the group count is not
+// n_entries.
+int64_t wiser_bloom_col_hash(const uint8_t* col, int64_t n, int64_t n_entries,
+                             int32_t entry_base, uint32_t seed_a, int64_t cap,
+                             uint32_t* a, uint32_t* b, int32_t* entry_of) {
+  int64_t n_keys = 0, g = 0, gs = 0;
+  auto emit = [&](int64_t s, int64_t e) -> bool {
+    if (n_keys >= cap) return false;
+    uint32_t ha = wiser_murmur2(col + s, (int)(e - s), seed_a);
+    a[n_keys] = ha;
+    b[n_keys] = wiser_murmur2(col + s, (int)(e - s), ha);
+    entry_of[n_keys] = entry_base + (int32_t)g;
+    n_keys++;
+    return true;
+  };
+  auto group = [&](int64_t s, int64_t e) -> bool {
+    if (s == e) return true;  // an empty group has no keys
+    int64_t ks = s;
+    for (int64_t i = s; i < e; i++) {
+      if (col[i] == ' ') {
+        if (!emit(ks, i)) return false;
+        ks = i + 1;
+      }
+    }
+    return emit(ks, e);
+  };
+  for (int64_t i = 0; i < n; i++) {
+    if (col[i] == '!') {
+      if (!group(gs, i)) return -1;
+      g++;
+      gs = i + 1;
+    }
+  }
+  if (gs < n) {  // a last group without its closing '!'
+    if (!group(gs, n)) return -1;
+    g++;
+  }
+  return g == n_entries ? n_keys : -2;
+}
+
+// Set every key's bloom bits in its posting's filter row: bit
+// x_i = (uint32)(a + i*b) % bits for i < n_hashes (bloom.c:57-66), in the
+// little-endian uint32 row `rows + row[k] * n_words`.
+void wiser_bloom_set_bits(const uint32_t* a, const uint32_t* b,
+                          const int64_t* row, int64_t n_keys, int n_hashes,
+                          uint32_t bits, int n_words, uint32_t* rows) {
+  for (int64_t k = 0; k < n_keys; k++) {
+    uint32_t* r = rows + row[k] * n_words;
+    for (int i = 0; i < n_hashes; i++) {
+      uint32_t x = (a[k] + (uint32_t)i * b[k]) % bits;
+      r[x >> 5] |= 1u << (x & 31);
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Fixed-width bit packing of 128-value blocks: value i occupies bits
@@ -69,8 +185,10 @@ int64_t wiser_unpack_blocks(const uint32_t* words, const uint8_t* widths,
 // ---------------------------------------------------------------------------
 // Linedoc chunk assembler: one chunk's flat token ids -> canonical
 // WITH_POSITIONS rows (body, first-occurrence-unique tokenized column,
-// ";"-grouped offsets and positions), byte-identical to the JAX
-// package's generator for the same draws.
+// ";"-grouped offsets and positions) and, with_blooms, the two
+// WITH_BI_BLOOM neighbor columns (per term, the sorted unique following /
+// preceding words, "!"-terminated), byte-identical to the JAX package's
+// generator for the same draws.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -78,6 +196,7 @@ namespace {
 struct TermGroup {
   std::vector<int32_t> pos;
   std::vector<int64_t> off_start, off_end;
+  std::vector<int32_t> ends_set, begins_set;  // neighbor term ids (unsorted)
 };
 
 inline void append_int(std::string& s, int64_t v) {
@@ -97,7 +216,7 @@ extern "C" {
 int64_t wiser_linedoc_chunk(const uint8_t* vocab_blob, const int64_t* vocab_offs,
                             int64_t n_vocab, const int64_t* ids,
                             const int64_t* bounds, int64_t n_docs,
-                            uint8_t* out, int64_t out_cap) {
+                            int with_blooms, uint8_t* out, int64_t out_cap) {
   std::string row;
   std::vector<TermGroup> groups;
   std::vector<int32_t> uniq;
@@ -109,6 +228,7 @@ int64_t wiser_linedoc_chunk(const uint8_t* vocab_blob, const int64_t* vocab_offs
     wlen[t] = (int32_t)(vocab_offs[t + 1] - vocab_offs[t]);
   }
   int64_t written = 0;
+  std::vector<std::string> neigh;  // scratch: one group's neighbor words
   for (int64_t d = 0; d < n_docs; d++) {
     const int64_t* tok = ids + bounds[d];
     int64_t n = bounds[d + 1] - bounds[d];
@@ -140,6 +260,10 @@ int64_t wiser_linedoc_chunk(const uint8_t* vocab_blob, const int64_t* vocab_offs
       g.pos.push_back((int32_t)i);
       g.off_start.push_back(starts[i]);
       g.off_end.push_back(starts[i] + wlen[t] - 1);  // inclusive
+      if (with_blooms) {
+        if (i + 1 < n) g.ends_set.push_back((int32_t)tok[i + 1]);
+        if (i > 0) g.begins_set.push_back((int32_t)tok[i - 1]);
+      }
     }
     // tokenized column
     for (size_t u = 0; u < uniq.size(); u++) {
@@ -168,6 +292,26 @@ int64_t wiser_linedoc_chunk(const uint8_t* vocab_blob, const int64_t* vocab_offs
       }
       row += ";.";
     }
+    if (with_blooms) {
+      for (int side = 0; side < 2; side++) {
+        row += '\t';
+        for (size_t u = 0; u < uniq.size(); u++) {
+          TermGroup& g = groups[u];
+          std::vector<int32_t>& ids_set = side ? g.begins_set : g.ends_set;
+          std::sort(ids_set.begin(), ids_set.end());
+          ids_set.erase(std::unique(ids_set.begin(), ids_set.end()),
+                        ids_set.end());
+          neigh.clear();
+          for (int32_t t : ids_set) neigh.emplace_back(wptr[t], wlen[t]);
+          std::sort(neigh.begin(), neigh.end());
+          for (size_t j = 0; j < neigh.size(); j++) {
+            if (j) row += ' ';
+            row += neigh[j];
+          }
+          row += '!';
+        }
+      }
+    }
     row += '\n';
     if (written + (int64_t)row.size() > out_cap) return -1;
     memcpy(out + written, row.data(), row.size());
@@ -180,6 +324,8 @@ int64_t wiser_linedoc_chunk(const uint8_t* vocab_blob, const int64_t* vocab_offs
       g.pos.clear();
       g.off_start.clear();
       g.off_end.clear();
+      g.ends_set.clear();
+      g.begins_set.clear();
     }
   }
   return written;
