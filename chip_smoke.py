@@ -34,6 +34,17 @@ search for phrases). Phases:
             at budget 0 and at a quarter of the full-residency bytes
             (which must admit dense rows and stage cold chunks); the
             unpack kernel's launches on those runs must be > 0
+  tc        TorchEngine(columns="tc") at the default dense budget over
+            all three sets; raises unless aol_df takes the pruned and
+            semidense routes, the phrase set the full-scan, semidense
+            and compact-or-list routes, its postings take at most 0.51
+            of the raw engine's bytes and its dense tier holds more rows
+            than the raw one (those two against the dense phase's engine,
+            when it ran)
+  staged_tc StagedEngine(columns="tc"), device cold path, packed
+            transport, at a quarter of full_residency_bytes(packed,
+            "tc"); raises unless it admits dense rows, stages cold chunks
+            and launches the unpack kernel
 
 Any failure raises before the last line. The last line of stdout is the
 contract's {"ok": true, "device": {...}}; the line before it lists the
@@ -55,7 +66,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(ROOT, ".smoke_cache")
 K = 10
 PARITY_SAMPLE = 256
-PHASES = ("kernel", "resident", "dense", "phrase", "staged")
+PHASES = ("kernel", "resident", "dense", "phrase", "staged", "tc",
+          "staged_tc")
 # H100 SXM HBM3 rate (NVIDIA's data sheet) for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
 
@@ -331,6 +343,54 @@ def serve(engine, queries, report_key: str, report: dict):
     return results
 
 
+# -- route and capacity checks ------------------------------------------------
+
+
+def check_dense_routes(report: dict, name: str) -> None:
+    st = report[f"{name}_aol_df"]["stats"]
+    if not (st.get("route_pruned", 0) > 0
+            and st.get("route_semidense", 0) > 0):
+        raise AssertionError(
+            f"{name} run: aol_df took no pruned or semidense route {st}")
+
+
+def check_phrase_routes(report: dict, name: str) -> None:
+    st = report[f"{name}_phrase"]["stats"]
+    routes = {r: st.get(f"route_phrase_{r}", 0)
+              for r in ("full", "semidense", "compact", "list", "host")}
+    report[f"{name}_phrase"]["phrase_routes"] = routes
+    if not (routes["full"] > 0 and routes["semidense"] > 0
+            and routes["compact"] + routes["list"] > 0):
+        raise AssertionError(
+            f"{name} run: a phrase route took no query {routes}")
+
+
+def check_tc_capacity(report: dict) -> None:
+    """tc postings at most 0.51 of the raw engine's bytes and a larger
+    dense tier at the same budget, against the dense phase's engine."""
+    raw = report["dense_engine"]
+    tc = report["tc_engine"]
+    ratio = tc["device_bytes"]["postings"] / raw["device_bytes"]["postings"]
+    report["tc_engine"]["postings_vs_raw"] = ratio
+    if ratio > 0.51 or tc["dense_rows"] <= raw["dense_rows"]:
+        raise AssertionError(
+            f"tc capacity: postings {ratio:.4f} of raw (limit 0.51), "
+            f"{tc['dense_rows']} dense rows vs raw {raw['dense_rows']}")
+
+
+def check_staging(report: dict, name: str) -> None:
+    """A budget that stages: dense rows admitted, cold chunks staged and
+    their doc columns decoded by the unpack kernel."""
+    info = report[f"{name}_engine"]
+    mixes = [report[f"{name}_{mix}"] for mix in ("aol", "aol_df")]
+    chunks = sum(r["stats"].get("cold_chunks", 0) for r in mixes)
+    launches = sum(r["launches"]["unpack_delta_blocks"] for r in mixes)
+    if info["dense_rows"] <= 0 or chunks <= 0 or launches <= 0:
+        raise AssertionError(
+            f"{name} run: {info['dense_rows']} dense rows, {chunks} cold "
+            f"chunks, {launches} unpack launches (all must be > 0)")
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -345,6 +405,9 @@ def main() -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    if "tc" in phases and "dense" not in phases:
+        ap.error("the tc phase's byte and row checks need the dense phase "
+                 "as their raw reference")
 
     import torch
 
@@ -392,19 +455,28 @@ def main() -> int:
     if dense_mixes:
         runs.append(("dense", lambda: TorchEngine(packed, device="cuda"),
                      dense_mixes))
+
+    def staged(frac, columns="raw"):
+        def make():
+            budget = (int(full_residency_bytes(packed, columns) * frac)
+                      if frac else 0)
+            eng = StagedEngine(packed, budget, device="cuda",
+                               columns=columns, cold_transfer="packed")
+            eng.COLD_COMPUTE = "device"
+            return eng
+
+        return make
+
     if "staged" in phases:
-        def staged(frac):
-            def make():
-                budget = int(full_residency_bytes(packed) * frac) if frac else 0
-                eng = StagedEngine(packed, budget, device="cuda",
-                                   cold_transfer="packed")
-                eng.COLD_COMPUTE = "device"
-                return eng
-
-            return make
-
         runs.append(("staged", staged(0), {"aol": Q, "aol_df": Q // 8}))
         runs.append(("staged_q", staged(0.25), {"aol": Q, "aol_df": Q // 4}))
+    if "tc" in phases:
+        runs.append(("tc", lambda: TorchEngine(packed, device="cuda",
+                                               columns="tc"),
+                     {"aol": Q, "aol_df": Q, "phrase": Q}))
+    if "staged_tc" in phases:
+        runs.append(("staged_tc", staged(0.25, "tc"),
+                     {"aol": Q, "aol_df": Q // 4}))
     if runs:
         from wiser_tpu_torch import StagedEngine, TorchEngine
         from wiser_tpu_torch.engine.staged import full_residency_bytes
@@ -420,6 +492,7 @@ def main() -> int:
             torch.cuda.synchronize()
             hot = getattr(eng, "hot", eng)
             info = {"init_s": time.perf_counter() - t0,
+                    "columns": hot.columns,
                     "device_bytes": eng.device_bytes(),
                     "dense_rows": int(hot._dense_H),
                     "dense_build_s": hot.dense_build_s}
@@ -439,37 +512,24 @@ def main() -> int:
             del eng, hot, res
             torch.cuda.empty_cache()
         if "dense" in phases:
-            st = report["dense_aol_df"]["stats"]
-            if not (st.get("route_pruned", 0) > 0
-                    and st.get("route_semidense", 0) > 0):
-                raise AssertionError(
-                    f"dense phase: aol_df took no pruned or semidense route {st}")
+            check_dense_routes(report, "dense")
         if "phrase" in phases:
-            st = report["dense_phrase"]["stats"]
-            routes = {r: st.get(f"route_phrase_{r}", 0)
-                      for r in ("full", "semidense", "compact", "list", "host")}
-            report["dense_phrase"]["phrase_routes"] = routes
-            if not (routes["full"] > 0 and routes["semidense"] > 0
-                    and routes["compact"] + routes["list"] > 0):
-                raise AssertionError(
-                    f"phrase phase: a phrase route took no query {routes}")
-        if "staged" in phases:
-            info = report["staged_q_engine"]
-            chunks = sum(report[f"staged_q_{mix}"]["stats"].get("cold_chunks", 0)
-                         for mix in ("aol", "aol_df"))
-            if info["dense_rows"] <= 0 or chunks <= 0:
-                raise AssertionError(
-                    f"quarter-budget staged run: {info['dense_rows']} dense "
-                    f"rows, {chunks} cold chunks (both must be > 0)")
-            launches = sum(report[f"{name}_{mix}"]["launches"]["unpack_delta_blocks"]
-                           for name in ("staged", "staged_q")
-                           for mix in ("aol", "aol_df"))
-            if launches <= 0:
-                raise AssertionError(
-                    "staged phase never launched the unpack kernel")
-            kern["launches"] = launches
-        route_keys = ("route_", "flag_prune_miss", "prune_rescued",
-                      "forced_host", "host_exact_s", "rescue_s", "phrase_")
+            check_phrase_routes(report, "dense")
+        if "tc" in phases:
+            check_dense_routes(report, "tc")
+            check_phrase_routes(report, "tc")
+            check_tc_capacity(report)
+        staged_runs = [name for name, _, _ in runs
+                       if name.startswith("staged")]
+        for name in staged_runs:
+            if name != "staged":  # budget 0 admits no dense rows
+                check_staging(report, name)
+        kern["launches"] = sum(
+            report[f"{name}_{mix}"]["launches"]["unpack_delta_blocks"]
+            for name in staged_runs for mix in ("aol", "aol_df"))
+        route_keys = ("route_", "flag_prune_miss", "flag_tf_sat",
+                      "prune_rescued", "forced_host", "host_exact_s",
+                      "rescue_s", "phrase_")
         summary = {}
         for name, _, sizes in runs:
             for mix in sizes:

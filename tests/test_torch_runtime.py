@@ -3,8 +3,9 @@
 CUDA requested where there is none raises (no silent CPU fallback), and
 "cuda" is the engines' default device. The port imports nothing of the
 JAX package: an AST scan of its sources, and a subprocess that builds
-an index with the port's own generator and builder, searches it and
-then finds neither wiser_tpu nor jax in sys.modules. Its copies of the
+an index with the port's own generator and builder, searches it (both
+engines, raw and tc columns) and then finds neither wiser_tpu nor jax in
+sys.modules. Its copies of the
 host modules agree with the JAX package's (the generated linedoc file
 byte for byte, with and without the bi-bloom columns; the built index
 array for array, bloom rows included; murmur2 and the folded probe
@@ -143,10 +144,13 @@ qs = [SearchQuery([packed.terms[by_df[i]], packed.terms[by_df[j]]],
 qs.append(SearchQuery([packed.terms[by_df[7]]], n_results=5))
 pairs = mine_phrases_from_linedoc({path!r}, packed.term_to_row, 40)
 phrases = [SearchQuery(list(p), n_results=10, is_phrase=True) for p in pairs]
-staged = StagedEngine(packed, 0, device="cpu")
-staged.COLD_COMPUTE = "device"
-for e, batch in ((TorchEngine(packed, device="cpu"), qs + phrases),
-                 (staged, qs)):
+runs = []
+for columns in ("raw", "tc"):
+    staged = StagedEngine(packed, 0, device="cpu", columns=columns)
+    staged.COLD_COMPUTE = "device"
+    runs += [(TorchEngine(packed, device="cpu", columns=columns),
+              qs + phrases), (staged, qs)]
+for e, batch in runs:
     for q, r in zip(batch, e.search_batch(batch)):
         rows = [packed.term_to_row[t] for t in q.terms]
         d, s = host_exact_search(packed, e.cache64, rows, q.n_results,

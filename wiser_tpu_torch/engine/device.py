@@ -1,5 +1,5 @@
 """TorchEngine — the device-resident search engine in torch (port of
-wiser_tpu/engine/device.py TpuEngine, raw columns).
+wiser_tpu/engine/device.py TpuEngine, raw and tc columns).
 
 The posting columns (doc, f32 partial score, tf), the position bags, the
 sparse folded bi-bloom columns and the dense head-term tier live on the
@@ -7,7 +7,16 @@ device. The host does what hosts are good at: term lookup, request
 coalescing, shape bucketing, batch assembly, the exact f64 re-rank and
 its guards.
 
-Routing (as TpuEngine(columns="raw")):
+columns="tc" (as TpuEngine(columns="tc")): one uint16 lane doc_len_code
+<< 8 | min(tf, 255) replaces the (f32 score, i32 tf) pair (6 B per
+posting instead of 12), and a dense head-term row is one uint8 tf per doc
+beside a shared len-code row (1 B instead of 8). The kernels rebuild the
+f32 score from the lane (kernels.tc_score) with per-slot f32 idfs, so the
+guards widen to rel_eps = 1e-5, and a kept lane whose tf byte saturated
+sends its query to the exact host path (FLAG_TF_SAT). Every route below
+runs in either mode.
+
+Routing (as TpuEngine at its defaults):
   1 term            -> host impact table (deeper k: the bs kernel)
   all terms dense   -> doc-space dense scan; past PRUNED_DENSE_MIN_NB doc
                        blocks the block-max pruned scan, whose prune-guard
@@ -60,7 +69,9 @@ from wiser_tpu_torch.engine.host import (
     _PlannedQuery,
     build_single_term_table,
     host_exact_search,
+    _tc_score64_ub,
     padded_host_columns,
+    padded_tc_column,
     tie_class_cut,
 )
 from wiser_tpu_torch.engine.topk import rescore_sorted_arrays, truncation_suspects
@@ -167,19 +178,22 @@ class TorchEngine:
         are cold). bloom_enable_factor: the cost-aware bi-bloom side
         choice of 2-term phrases probes the rarer term's filter when the
         other is at least this many times as frequent; None disables the
-        probes. device: "cuda" (default; raises without a card) or
-        "cpu"."""
-        if columns != "raw":
-            raise NotImplementedError(
-                f"columns={columns!r}: only raw columns are ported (ROADMAP A.7)")
+        probes. columns: "raw" or "tc" (see the module docstring). device:
+        "cuda" (default; raises without a card) or "cpu"."""
+        if columns not in ("raw", "tc"):
+            raise ValueError(f"unknown columns mode {columns!r}")
         self.device = resolve_device(device)
         self.columns = columns
+        self.tc = columns == "tc"
         self.packed = packed
         self._host_packed = host_packed if host_packed is not None else packed
         self.strict_parity = strict_parity
         self.bloom_enable_factor = bloom_enable_factor
         self.margin = margin
-        self.rel_eps = 1e-6  # f32 summation slop bound of the raw columns
+        # f32 slop bound of the device scores: one rounding per baked raw
+        # score; the tc reconstruction's ~9 roundings per term plus the
+        # T-term sum stay under 4.8e-6 at T = 8
+        self.rel_eps = 1e-5 if self.tc else 1e-6
         self._lb = list(L_BUCKETS)
         self._tb = list(T_BUCKETS)
         if packed.n_postings >= 2**31 or len(packed.positions) >= 2**31:
@@ -190,9 +204,20 @@ class TorchEngine:
         scores64 = packed.partial_scores(self.cache64)
         self._h_doc, self._h_score, self._h_tf = padded_host_columns(
             packed, scores64, self._lb)
-        self.d_postings_doc = torch.from_numpy(self._h_doc).to(self.device)
-        self.d_postings_score = torch.from_numpy(self._h_score).to(self.device)
-        self.d_postings_tf = torch.from_numpy(self._h_tf).to(self.device)
+        self.d_postings_doc = self._to_dev(self._h_doc)
+        self.d_postings_score = self.d_postings_tf = self.d_postings_tc = None
+        if self.tc:
+            self._h_score = self._h_tf = None
+            self._h_tc = padded_tc_column(packed, self._lb)
+            # int16 bits of the uint16 lanes (kernels._u16 widens them)
+            self.d_postings_tc = self._to_dev(self._h_tc.view(np.int16))
+            # a device tensor: CUDA divides by a CPU scalar through its
+            # reciprocal, which the score's f32 op order does not allow
+            self.d_avg32 = torch.tensor(np.float32(packed.avg_len),
+                                        device=self.device)
+        else:
+            self.d_postings_score = self._to_dev(self._h_score)
+            self.d_postings_tf = self._to_dev(self._h_tf)
         self._upload_phrase_columns()
 
         self._max_df = int(packed.df.max(initial=1))
@@ -222,12 +247,13 @@ class TorchEngine:
     # -- dense head-term rows ---------------------------------------------
 
     def _build_dense_rows(self, packed: PackedIndex, budget_bytes: int) -> None:
-        """(N_pad,) f32 score and int32 tf rows for the head terms, plus
-        per-128-doc-block maxima for the pruned scan, uploaded to the
-        device. Eligible: df >= max(DENSE_MIN_DF_FLOOR, n_docs //
-        DENSE_ELIGIBLE_FRACTION) with a non-empty run in the source
-        index; admitted by df, largest first, while a row (8 B per doc +
-        9 B per block) fits the budget."""
+        """(N_pad,) rows for the head terms — f32 score and int32 tf rows
+        (raw), or one uint8 tf row each plus a shared uint8 len-code row
+        (tc) — and per-128-doc-block bound planes for the pruned scan,
+        uploaded to the device. Eligible: df >= max(DENSE_MIN_DF_FLOOR,
+        n_docs // DENSE_ELIGIBLE_FRACTION) with a non-empty run in the
+        source index; admitted by df, largest first, while a row (8 B per
+        doc raw, 1 B tc, + 9 B per block) fits the budget."""
         n = packed.n_docs
         self._dense_slot = np.full(packed.n_terms, -1, dtype=np.int32)
         dense_min = max(self.DENSE_MIN_DF_FLOOR,
@@ -238,7 +264,7 @@ class TorchEngine:
             return
         self._n_pad_docs = (n + 127) // 128 * 128
         NBLK = self._n_pad_docs // 128
-        per_row = self._n_pad_docs * 8 + NBLK * 9
+        per_row = self._n_pad_docs * (1 if self.tc else 8) + NBLK * 9
         cap = int(budget_bytes // per_row)
         if cap == 0:
             return
@@ -248,6 +274,9 @@ class TorchEngine:
         if len(rows) > cap:
             rows = rows[np.argsort(packed.df[rows])[::-1][:cap]]
         H = len(rows)
+        if self.tc:
+            self._build_dense_rows_tc(packed, rows, lens)
+            return
         dense_sc = np.zeros((H, self._n_pad_docs), dtype=np.float32)
         dense_tf = np.zeros((H, self._n_pad_docs), dtype=np.int32)
         for slot, r in enumerate(rows.tolist()):
@@ -277,6 +306,59 @@ class TorchEngine:
         self.d_dense_blockmax = torch.from_numpy(blockmax).to(self.device)
         self.d_dense_blockmax2 = torch.from_numpy(blockmax2).to(self.device)
         self.d_dense_argpos = torch.from_numpy(argpos).to(self.device)
+
+    # rows per chunk of the tc bound planes' f64 pass: ~2^24 lanes, so a
+    # chunk's f64 temporaries stay ~1 GB at any doc count
+    DENSE_UB_CHUNK_LANES = 1 << 24
+
+    def _build_dense_rows_tc(self, packed: PackedIndex, rows: np.ndarray,
+                             lens: np.ndarray) -> None:
+        """The tc dense tier: the (H, N_pad) uint8 tf plane (tf capped at
+        255) and the shared (N_pad,) uint8 len-code row (pad docs code 0,
+        so their lanes stay 0), uploaded; then the block planes computed
+        on the device from the composed lanes — the f64 bound of the
+        in-kernel f32 score (host._tc_score64_ub, with the f32 idf of
+        self.packed as the kernels use it), its block max, second max with
+        multiplicity (topk(2)) and argmax lane (first maximum)."""
+        H = len(rows)
+        N_pad = self._n_pad_docs
+        NBLK = N_pad // 128
+        dense_tf8 = np.zeros((H, N_pad), dtype=np.uint8)
+        for slot, r in enumerate(rows.tolist()):
+            s = int(packed.term_starts[r])
+            m = min(int(packed.df[r]), int(lens[r]))
+            dense_tf8[slot, packed.postings_doc[s : s + m]] = np.minimum(
+                packed.postings_tf[s : s + m], K.TF_SAT).astype(np.uint8)
+            self._dense_slot[r] = slot
+        len_code = np.zeros(N_pad, dtype=np.uint8)
+        len_code[: packed.n_docs] = packed.doc_len_code[: packed.n_docs]
+        self._dense_H = H
+        self.d_dense_tf8 = self._to_dev(dense_tf8)
+        self.d_len_code = self._to_dev(len_code)
+        del dense_tf8
+
+        dev = self.device
+        idf64 = self._to_dev(
+            self.packed.idf64[rows].astype(np.float32).astype(np.float64))
+        avg64 = torch.tensor(float(np.float32(self.packed.avg_len)),
+                             dtype=torch.float64, device=dev)
+        code_hi = self.d_len_code.to(torch.int32) << 8
+        bm = torch.empty((H, NBLK), dtype=torch.float32, device=dev)
+        bm2 = torch.empty((H, NBLK), dtype=torch.float32, device=dev)
+        ap = torch.empty((H, NBLK), dtype=torch.uint8, device=dev)
+        step = max(1, self.DENSE_UB_CHUNK_LANES // N_pad)
+        for h0 in range(0, H, step):
+            h1 = min(h0 + step, H)
+            tc = K._compose_tc(self.d_dense_tf8[h0:h1], code_hi[None, :])
+            ub3 = _tc_score64_ub(tc, idf64[h0:h1, None], avg64).view(
+                h1 - h0, NBLK, 128)
+            top2 = torch.topk(ub3, 2, dim=2).values
+            bm[h0:h1] = top2[:, :, 0]
+            bm2[h0:h1] = top2[:, :, 1]
+            ap[h0:h1] = torch.argmax(ub3, dim=2).to(torch.uint8)
+        self.d_dense_blockmax = bm
+        self.d_dense_blockmax2 = bm2
+        self.d_dense_argpos = ap
 
     # -- phrase columns -----------------------------------------------------
 
@@ -342,13 +424,18 @@ class TorchEngine:
         def nbytes(*ts):
             return int(sum(t.numel() * t.element_size() for t in ts))
 
+        if self.tc:
+            lanes = (self.d_postings_tc,)
+            rows = (self.d_dense_tf8, self.d_len_code) if self._dense_H else ()
+        else:
+            lanes = (self.d_postings_score, self.d_postings_tf)
+            rows = (self.d_dense_sc, self.d_dense_tf) if self._dense_H else ()
         out = {
-            "postings": nbytes(self.d_postings_doc, self.d_postings_score,
-                               self.d_postings_tf),
+            "postings": nbytes(self.d_postings_doc, *lanes),
             "positions": nbytes(self.d_positions, self.d_pos_starts),
             "dense_tier": nbytes(
-                self.d_dense_sc, self.d_dense_tf, self.d_dense_blockmax,
-                self.d_dense_blockmax2, self.d_dense_argpos)
+                *rows, self.d_dense_blockmax, self.d_dense_blockmax2,
+                self.d_dense_argpos)
             if self._dense_H else 0,
             "blooms": nbytes(self.d_bloom_rows, self.d_bloom_bitmap,
                              self.d_bloom_rank),
@@ -657,9 +744,43 @@ class TorchEngine:
                 ks_g = np.zeros(B, dtype=np.int32)
                 ks_g[: len(m)] = ks[m]
                 pending.append(self._dispatch_flat(
-                    T, L, starts, ends, use_score, idf64_q, slot_of, ks_g,
-                    qi_arr[m], flat_rows, m))
+                    T, L, starts, ends, self._weights(slot_rows, use_score),
+                    idf64_q, slot_of, ks_g, qi_arr[m], flat_rows, m))
         return pending
+
+    def _weights(self, rows: np.ndarray, use: np.ndarray) -> np.ndarray:
+        """The kernels' per-slot weights of term rows (B, T): use_score
+        itself on raw columns; on tc columns the f32 idfs, 0 where use is
+        0 (padded slots)."""
+        if not self.tc:
+            return use
+        return (self.packed.idf64[rows] * use).astype(np.float32)
+
+    # kernel family -> the column arguments of its kernels, (raw, tc), by
+    # attribute name: the list kernels take them after the doc column, the
+    # dense, pruned and full-scan kernels first
+    _COLS = {
+        "list": (("d_postings_score", "d_postings_tf"),
+                 ("d_postings_tc", "d_avg32")),
+        "match": (("d_postings_score",), ("d_postings_tc", "d_avg32")),
+        "select": (("d_postings_tf",), ("d_postings_tc",)),
+        "dense": (("d_dense_sc", "d_dense_tf"),
+                  ("d_dense_tf8", "d_len_code", "d_avg32")),
+        "semidense": (("d_dense_sc", "d_dense_tf"), ("d_dense_tf8",)),
+        "semidense_phrase": (("d_dense_sc",), ("d_dense_tf8",)),
+    }
+
+    def _cols(self, family: str) -> tuple:
+        return tuple(getattr(self, a) for a in self._COLS[family][self.tc])
+
+    def _make(self, name: str, *cfg):
+        """K.<name>(*cfg) on this engine's columns: its `_tc` twin on tc
+        columns where the kernels have one, else `name` with mode= (the
+        reference's two conventions). Looked up per call."""
+        twin = getattr(K, name + "_tc", None)
+        if twin is None:
+            return getattr(K, name)(*cfg, mode=self.columns)
+        return twin(*cfg) if self.tc else getattr(K, name)(*cfg)
 
     def _finalizer(self, route: str, out: torch.Tensor, T: int, slot_of,
                    idf64_q, ks, qis, flat_rows, members, on_flags=None,
@@ -688,14 +809,15 @@ class TorchEngine:
 
         return finalize
 
-    def _dispatch_flat(self, T, L, starts, ends, use_score, idf64_q,
+    def _dispatch_flat(self, T, L, starts, ends, weights, idf64_q,
                        slot_of, ks, qis, flat_rows, members):
         M = min(L, int(ks.max(initial=1)) + self.margin)
-        kern = K.make_search_kernel(T, L, M, K.n_iters_for(self._max_df))
+        kern = self._make("make_search_kernel", T, L, M,
+                          K.n_iters_for(self._max_df))
         t0 = time.perf_counter()
-        out = kern(self.d_postings_doc, self.d_postings_score,
-                   self.d_postings_tf, self._to_dev(starts),
-                   self._to_dev(ends), self._to_dev(use_score))
+        out = kern(self.d_postings_doc, *self._cols("list"),
+                   self._to_dev(starts), self._to_dev(ends),
+                   self._to_dev(weights))
         # host time to enqueue the group (it blocks when the card's launch
         # queue is full, so device-bound batches show up here too)
         dt = time.perf_counter() - t0
@@ -731,15 +853,18 @@ class TorchEngine:
                 m = np.asarray(members[ci : ci + chunk], dtype=np.int64)
                 n = len(m)
                 B = _bucket(n, buckets)
-                slots = np.zeros((B, T), dtype=np.int32)
+                trows = np.zeros((B, T), dtype=np.int64)
                 use = np.zeros((B, T), dtype=np.float32)
                 idf64_q = np.zeros((B, T), dtype=np.float64)
                 for bi, i in enumerate(m):
                     rows = flat_rows[i]
                     # query-term order; padded slots repeat the first term
-                    slots[bi] = self._dense_slot[rows + [rows[0]] * (T - len(rows))]
+                    trows[bi] = rows + [rows[0]] * (T - len(rows))
                     use[bi, : len(rows)] = 1.0
                     idf64_q[bi, : len(rows)] = self.packed.idf64[rows]
+                slots = np.zeros((B, T), dtype=np.int32)  # padding rows: 0
+                slots[:n] = self._dense_slot[trows[:n]]
+                w = self._weights(trows, use)
                 slot_of = np.tile(np.arange(T, dtype=np.int64), (B, 1))
                 ks_g = np.zeros(B, dtype=np.int32)
                 ks_g[:n] = ks[m]
@@ -747,15 +872,14 @@ class TorchEngine:
                         self._n_pad_docs)
                 t0 = time.perf_counter()
                 if pruned:
-                    out = K.make_pruned_dense_kernel(T, NB, C, M, eps3)(
-                        self.d_dense_sc, self.d_dense_tf,
-                        self.d_dense_blockmax, self.d_dense_blockmax2,
-                        self.d_dense_argpos, self._to_dev(slots),
-                        self._to_dev(use), self._to_dev(ks_g))
+                    out = self._make("make_pruned_dense_kernel",
+                                     T, NB, C, M, eps3)(
+                        *self._cols("dense"), self.d_dense_blockmax,
+                        self.d_dense_blockmax2, self.d_dense_argpos,
+                        self._to_dev(slots), self._to_dev(w),
+                        self._to_dev(ks_g))
                 else:
-                    out = K.make_dense_search_kernel(T, self._n_pad_docs, M)(
-                        self.d_dense_sc, self.d_dense_tf, self._to_dev(slots),
-                        self._to_dev(use))
+                    out = self._dense_scan(T, M, slots, w)
                 dt = time.perf_counter() - t0
                 self._bump(**{"dispatch_s": dt, f"{route}_s": dt})
                 qis = qi_arr[m]
@@ -763,7 +887,7 @@ class TorchEngine:
                 if pruned and self.DENSE_RESCUE:
                     on_flags = self._defer_prune_misses(
                         rq, ("dense", T, M), T, flat_rows, dict(
-                            slots=slots, use=use, slot_of=slot_of,
+                            slots=slots, w=w, slot_of=slot_of,
                             idf64_q=idf64_q, ks=ks_g, qis=qis, members=m))
                 pending.append(self._finalizer(
                     route, out, T, slot_of, idf64_q, ks_g, qis, flat_rows,
@@ -789,8 +913,15 @@ class TorchEngine:
 
         return on_flags
 
+    def _dense_scan(self, T: int, M: int, slots: np.ndarray,
+                    w: np.ndarray) -> torch.Tensor:
+        """The full doc-space dense scan of one group (slots, weights
+        (B, T))."""
+        return self._make("make_dense_search_kernel", T, self._n_pad_docs, M)(
+            *self._cols("dense"), self._to_dev(slots), self._to_dev(w))
+
     def _dense_full_rescue(self, T: int, M: int, slots: np.ndarray,
-                           use: np.ndarray) -> np.ndarray:
+                           w: np.ndarray) -> np.ndarray:
         """The exact full-scan dense kernel over prune-guard-flagged rows,
         chunked so B * N_pad <= RESCUE_LANE_BUDGET. Returns packed
         (n, T+2, M) rows in the pruned kernel's layout; no prune bit can
@@ -800,17 +931,15 @@ class TorchEngine:
         fit = RESCUE_LANE_BUDGET // max(self._n_pad_docs, 1)
         buckets = [b for b in [8, self.DENSE_CHUNK] if b <= max(fit, 8)]
         chunk = buckets[-1]
-        kern = K.make_dense_search_kernel(T, self._n_pad_docs, M)
         outs = []
         for ci in range(0, n, chunk):
             cn = min(chunk, n - ci)
             B = _bucket(cn, buckets)
             s_p = np.zeros((B, T), dtype=np.int32)
             s_p[:cn] = slots[ci : ci + cn]
-            u_p = np.zeros((B, T), dtype=np.float32)
-            u_p[:cn] = use[ci : ci + cn]
-            outs.append((ci, cn, kern(self.d_dense_sc, self.d_dense_tf,
-                                      self._to_dev(s_p), self._to_dev(u_p))))
+            w_p = np.zeros((B, T), dtype=np.float32)
+            w_p[:cn] = w[ci : ci + cn]
+            outs.append((ci, cn, self._dense_scan(T, M, s_p, w_p)))
         out = np.empty((n, T + 2, M), dtype=np.int32)
         for ci, cn, o in outs:
             out[ci : ci + cn] = self._fetch(o)[:cn]
@@ -834,12 +963,12 @@ class TorchEngine:
             T = key[1]
             if key[0] == "dense":
                 rescued = self._dense_full_rescue(T, key[2], cat("slots"),
-                                                  cat("use"))
+                                                  cat("w"))
             else:
                 _, T, PP, PW, M = key
                 rescued = self._phrase_rescue(
                     T, PP, PW, M, cat("starts"), cat("ends"), cat("slots"),
-                    cat("use"), cat("anchor"), cat("ks"))
+                    cat("w"), cat("anchor"), cat("ks"))
             off = 0
             for c in cs:
                 sub = rescued[off : off + len(c["qis"])]
@@ -919,8 +1048,8 @@ class TorchEngine:
                 sl = np.where(live | csbs, sl,
                               sl[:, first_dense : first_dense + 1])
                 slots[:n] = sl
-                use = np.zeros((B, T), dtype=np.float32)
-                use[:n] = live.astype(np.float32)
+                w = np.zeros((B, T), dtype=np.float32)
+                w[:n] = self._weights(srt, live.astype(np.float32))
                 idf64_q = np.zeros((B, T), dtype=np.float64)
                 idf64_q[:n] = idf64_q_s[gsel, :T]
                 slot_of = np.zeros((B, T), dtype=np.int64)
@@ -929,12 +1058,11 @@ class TorchEngine:
                 ks_g[:n] = ks[m]
                 M = min(L, int(ks_g.max(initial=1)) + self.margin)
                 t0 = time.perf_counter()
-                out = K.make_semidense_kernel(
-                    T, L, M, self._n_pad_docs, NBs, n_it)(
-                    self.d_postings_doc, self.d_postings_score,
-                    self.d_postings_tf, self.d_dense_sc, self.d_dense_tf,
-                    self._to_dev(starts), self._to_dev(ends),
-                    self._to_dev(use), self._to_dev(slots))
+                out = self._make("make_semidense_kernel", T, L, M,
+                                 self._n_pad_docs, NBs, n_it)(
+                    self.d_postings_doc, *self._cols("list"),
+                    *self._cols("semidense"), self._to_dev(starts),
+                    self._to_dev(ends), self._to_dev(w), self._to_dev(slots))
                 dt = time.perf_counter() - t0
                 self._bump(dispatch_s=dt, semidense_s=dt)
                 pending.append(self._finalizer(
@@ -1069,16 +1197,17 @@ class TorchEngine:
     def _dispatch_phrase(self, group: List[_PlannedQuery], T: int, L: int,
                          PP: int, PW: int, sd: bool):
         """One semidense, compact or list-chain phrase group (T exact)."""
-        starts, ends, use, idf64_q, slot_of, ks = self._assemble(
+        starts, ends, w, idf64_q, slot_of, ks = self._assemble(
             group, T, self.PHRASE_B_BUCKETS)
         qis = np.asarray([pq.qi for pq in group], dtype=np.int64)
         B = starts.shape[0]
         KV = self.PRUNED_PHRASE_KV
         eps3 = 3.0 * self.rel_eps
         n_bs = K.n_iters_for(self._max_df)
-        d_starts, d_ends, d_use = (self._to_dev(a) for a in (starts, ends, use))
+        d_starts, d_ends, d_w = (self._to_dev(a) for a in (starts, ends, w))
         d_ks = self._to_dev(ks)
         d_slot_of = self._to_dev(slot_of.astype(np.int32))
+        cols = self._cols("list")
         t0 = time.perf_counter()
         if L > KV:
             assert PW <= self.POS_PAD, "verify windows need POS_PAD >= PW"
@@ -1090,11 +1219,11 @@ class TorchEngine:
             slots = np.zeros((B, T), dtype=np.int32)
             for bi, pq in enumerate(group):
                 slots[bi, 1:] = self._dense_slot[pq.slot_rows[1:]]
-            out = K.make_semidense_phrase_kernel(
-                T, L, KV, PP, PW, M, self._n_pad_docs, n_bs, eps3)(
-                self.d_postings_doc, self.d_postings_score,
-                self.d_postings_tf, self.d_dense_sc, self.d_positions,
-                self.d_pos_starts, d_starts, d_ends, d_use,
+            out = self._make("make_semidense_phrase_kernel",
+                             T, L, KV, PP, PW, M, self._n_pad_docs, n_bs,
+                             eps3)(
+                self.d_postings_doc, *cols, *self._cols("semidense_phrase"),
+                self.d_positions, self.d_pos_starts, d_starts, d_ends, d_w,
                 self._to_dev(slots), d_slot_of, d_ks)
         else:
             probe_slot, probe_begins, probe_mask, probe_active = \
@@ -1106,17 +1235,18 @@ class TorchEngine:
                       self.d_bloom_rank)
             if L > KV:
                 route = "phrase_compact"
-                out = K.make_compact_phrase_kernel(
-                    T, L, KV, PP, PW, M, n_bs, eps3)(
-                    self.d_postings_doc, self.d_postings_score,
-                    self.d_postings_tf, self.d_positions, self.d_pos_starts,
-                    d_starts, d_ends, d_use, d_slot_of, d_ks, *blooms,
-                    *probes)
+                out = self._make("make_compact_phrase_kernel",
+                                 T, L, KV, PP, PW, M, n_bs, eps3)(
+                    self.d_postings_doc, *cols, self.d_positions,
+                    self.d_pos_starts, d_starts, d_ends, d_w, d_slot_of,
+                    d_ks, *blooms, *probes)
             else:
                 route = "phrase_list"
-                match, bloom_pass, cdocs, pidx, score = K.make_match_kernel(
-                    T, L, n_bs)(self.d_postings_doc, self.d_postings_score,
-                                d_starts, d_ends, d_use, *blooms, *probes)
+                # tc: a sixth output, the kept lanes' saturation
+                match, bloom_pass, cdocs, pidx, score, *sat_lane = \
+                    self._make("make_match_kernel", T, L, n_bs)(
+                        self.d_postings_doc, *self._cols("match"), d_starts,
+                        d_ends, d_w, *blooms, *probes)
                 active = match & bloom_pass
                 pidx_q = K._slot_gather_q(pidx, d_slot_of)  # query order
                 n_pos_iters = K.n_iters_for(
@@ -1124,9 +1254,10 @@ class TorchEngine:
                 n_matches = K.make_phrase_verify_kernel(
                     T, L, PP, n_pos_iters)(self.d_positions,
                                            self.d_pos_starts, pidx_q, active)
-                out = K.make_select_topk_kernel(T, L, M)(
-                    self.d_postings_tf, cdocs, pidx, score,
-                    active & (n_matches > 0))
+                final = active & (n_matches > 0)
+                out = self._make("make_select_topk_kernel", T, L, M)(
+                    *self._cols("select"), cdocs, pidx, score, final,
+                    *sat_lane)
         dt = time.perf_counter() - t0
         self._bump(**{"dispatch_s": dt, f"{route}_s": dt,
                       f"route_{route}": len(group)})
@@ -1161,7 +1292,7 @@ class TorchEngine:
                 B = _bucket(len(group), self.PHRASE_B_BUCKETS)
                 starts = np.zeros((B, T), dtype=np.int32)
                 ends = np.zeros((B, T), dtype=np.int32)
-                slots = np.zeros((B, T), dtype=np.int32)
+                trows = np.zeros((B, T), dtype=np.int64)
                 use = np.zeros((B, T), dtype=np.float32)
                 idf64_q = np.zeros((B, T), dtype=np.float64)
                 anchor = np.zeros(B, dtype=np.int32)
@@ -1172,13 +1303,16 @@ class TorchEngine:
                     anchor[i] = int(np.argmin(max_tf[r]))
                     starts[i] = self._starts32[r]
                     ends[i] = self._starts32[r] + self._df32[r]
-                    slots[i] = self._dense_slot[r]
+                    trows[i] = r
                     use[i] = 1.0
                     idf64_q[i] = self.packed.idf64[r]
+                slots = np.zeros((B, T), dtype=np.int32)  # padding rows: 0
+                slots[: len(group)] = self._dense_slot[trows[: len(group)]]
+                w = self._weights(trows, use)
                 M = min(KV, int(ks.max(initial=1)) + self.margin)
                 t0 = time.perf_counter()
                 out = self._full_phrase_dispatch(T, PP, PW, M, KV, starts,
-                                                 ends, slots, use, anchor, ks)
+                                                 ends, slots, w, anchor, ks)
                 dt = time.perf_counter() - t0
                 self._bump(dispatch_s=dt, phrase_full_s=dt)
                 # tfs come back in query-term order: identity slot_of
@@ -1188,7 +1322,7 @@ class TorchEngine:
                 on_flags = self._defer_prune_misses(
                     rq, ("phrase", T, PP, PW, M), T,
                     [pq.rows for pq in group],
-                    dict(starts=starts, ends=ends, slots=slots, use=use,
+                    dict(starts=starts, ends=ends, slots=slots, w=w,
                          anchor=anchor, ks=ks, slot_of=slot_of,
                          idf64_q=idf64_q, qis=qis, members=m))
                 pending.append(self._finalizer(
@@ -1198,19 +1332,19 @@ class TorchEngine:
         return pending
 
     def _full_phrase_dispatch(self, T, PP, PW, M, KV, starts, ends, slots,
-                              use, anchor, ks) -> torch.Tensor:
+                              w, anchor, ks) -> torch.Tensor:
         """The full-scan mega-phrase kernel at compaction width KV."""
         assert PW <= self.POS_PAD, "verify windows need POS_PAD >= PW"
         KV = min(KV, self._n_pad_docs - 1)
-        kern = K.make_full_phrase_kernel(
-            T, self._n_pad_docs, KV, PP, PW, M, K.n_iters_for(self._max_df),
-            3.0 * self.rel_eps)
-        return kern(self.d_dense_sc, self.d_dense_tf, self.d_postings_doc,
+        kern = self._make("make_full_phrase_kernel", T, self._n_pad_docs, KV,
+                          PP, PW, M, K.n_iters_for(self._max_df),
+                          3.0 * self.rel_eps)
+        return kern(*self._cols("dense"), self.d_postings_doc,
                     self.d_positions, self.d_pos_starts, self._to_dev(starts),
-                    self._to_dev(ends), self._to_dev(slots), self._to_dev(use),
+                    self._to_dev(ends), self._to_dev(slots), self._to_dev(w),
                     self._to_dev(anchor), self._to_dev(ks))
 
-    def _phrase_rescue(self, T, PP, PW, M, starts, ends, slots, use, anchor,
+    def _phrase_rescue(self, T, PP, PW, M, starts, ends, slots, w, anchor,
                        ks) -> np.ndarray:
         """The batch's mega-phrase misses re-run once at KV =
         PRUNED_PHRASE_RETRY_KV (a deeper compaction tightens the
@@ -1236,7 +1370,7 @@ class TorchEngine:
 
             outs.append((ci, cn, self._full_phrase_dispatch(
                 T, PP, PW, M, KV2, pad(starts), pad(ends), pad(slots),
-                pad(use), pad(anchor), pad(ks))))
+                pad(w), pad(anchor), pad(ks))))
         out = np.empty((n, T + 2, M), dtype=np.int32)
         for ci, cn, o in outs:
             out[ci : ci + cn] = self._fetch(o)[:cn]
@@ -1248,8 +1382,9 @@ class TorchEngine:
     def _flags_to_force(self, flags: np.ndarray,
                         rescue: bool = False) -> np.ndarray:
         """Kernel flag word -> host-fallback mask. Window overflow, tf
-        saturation and prune misses always force the exact path (the
-        kernels here raise only FLAG_TRUNC and FLAG_PRUNE_MISS);
+        saturation (a kept tc lane's tf byte saturated: its score was the
+        optimistic bound and its tf is wrong) and prune misses always
+        force the exact path (the kernels here raise no window overflow);
         FLAG_TRUNC forces only under strict_parity — a truncated tie
         class breaks parity only when an excluded member f32-collides
         with a distinct f64 score. rescue=True: the rescue's second pass,
@@ -1261,9 +1396,14 @@ class TorchEngine:
         if rescue:
             self._bump(forced_host_after_rescue=int(force.sum()))
             return force
+
+        def count(bit):
+            return int(((flags & bit) != 0).sum())
+
         self._bump(q_flag_seen=len(flags),
-                   flag_trunc=int(((flags & K.FLAG_TRUNC) != 0).sum()),
-                   flag_prune_miss=int(((flags & K.FLAG_PRUNE_MISS) != 0).sum()),
+                   flag_trunc=count(K.FLAG_TRUNC),
+                   flag_tf_sat=count(K.FLAG_TF_SAT),
+                   flag_prune_miss=count(K.FLAG_PRUNE_MISS),
                    forced_host=int(force.sum()))
         return force
 
@@ -1308,11 +1448,12 @@ class TorchEngine:
 
     def _assemble(self, group: List[_PlannedQuery], T: int,
                   buckets=B_BUCKETS):
-        """Slot-ordered (starts, ends, use_score) + query-order f64
-        metadata for the re-rank."""
+        """Slot-ordered (starts, ends, weights: use_score raw or idf32 tc)
+        + query-order f64 metadata for the re-rank."""
         B = _bucket(len(group), buckets)
         starts = np.zeros((B, T), dtype=np.int32)
         ends = np.zeros((B, T), dtype=np.int32)
+        srows_all = np.zeros((B, T), dtype=np.int64)
         use_score = np.zeros((B, T), dtype=np.float32)
         idf64_q = np.zeros((B, T), dtype=np.float64)  # query-term order
         slot_of = np.zeros((B, T), dtype=np.int64)
@@ -1322,6 +1463,7 @@ class TorchEngine:
             srows = pq.slot_rows
             for t in range(T):
                 r = srows[t] if t < len(srows) else srows[0]
+                srows_all[i, t] = r
                 starts[i, t] = self._starts32[r]
                 ends[i, t] = self._starts32[r] + self._df32[r]
                 if t < len(srows):
@@ -1329,7 +1471,8 @@ class TorchEngine:
             for t, qr in enumerate(pq.rows):
                 idf64_q[i, t] = self.packed.idf64[qr]
                 slot_of[i, t] = pq.slot_of_term[t]
-        return starts, ends, use_score, idf64_q, slot_of, ks
+        return (starts, ends, self._weights(srows_all, use_score), idf64_q,
+                slot_of, ks)
 
     def _submit_flat(self, planned: List[_PlannedQuery]):
         pending = []
@@ -1360,8 +1503,8 @@ class TorchEngine:
         return pending
 
     def _dispatch_group(self, group: List[_PlannedQuery], T: int, L: int):
-        starts, ends, use_score, idf64_q, slot_of, ks = self._assemble(group, T)
+        starts, ends, w, idf64_q, slot_of, ks = self._assemble(group, T)
         return self._dispatch_flat(
-            T, L, starts, ends, use_score, idf64_q, slot_of, ks,
+            T, L, starts, ends, w, idf64_q, slot_of, ks,
             np.asarray([pq.qi for pq in group], dtype=np.int64),
             [pq.rows for pq in group], np.arange(len(group)))

@@ -1,7 +1,9 @@
 """Host-side helpers of the engine (ported from wiser_tpu/engine/device.py,
 which imports jax.numpy and so cannot be imported by the port): shape
 buckets, the exact host search (conjunctive and phrase), the single-term
-impact table, query slot planning and the padded device columns."""
+impact table, query slot planning, the padded device columns (raw and
+tc) and the f64 bound of the tc score the dense tier's block planes
+hold."""
 
 from __future__ import annotations
 
@@ -9,9 +11,19 @@ from dataclasses import dataclass, field
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
-from wiser_tpu_torch.engine.kernels import FLAG_TRUNC, INT32_MAX
-from wiser_tpu_torch.index.format import PackedIndex
+from wiser_tpu_torch.engine.kernels import (
+    B_F32,
+    FLAG_TRUNC,
+    INT32_MAX,
+    K1_F32,
+    K1_PLUS_1,
+    ONE_MINUS_B_F32,
+    TF_SAT,
+    _char4_length,
+)
+from wiser_tpu_torch.index.format import SENTINEL_DOC, PackedIndex
 from wiser_tpu_torch.scoring import K1
 from wiser_tpu_torch.types import SearchQuery
 
@@ -190,6 +202,39 @@ def padded_host_columns(packed: PackedIndex, scores64: np.ndarray,
     h_score = np.pad(scores64.astype(np.float32), (0, pad))
     h_tf = np.pad(packed.postings_tf, (0, pad)).astype(np.int32)
     return h_doc, h_score, h_tf
+
+
+def padded_tc_column(packed: PackedIndex,
+                     l_buckets: Sequence[int] = L_BUCKETS) -> np.ndarray:
+    """The tc device column as a host uint16 array: doc_len_code << 8 |
+    min(tf, 255) per posting, 0 on sentinel pads, padded as the doc
+    column (padded_host_columns) with 0 lanes, which score exactly 0."""
+    pad = _bucket(int(packed.df.max(initial=1)), l_buckets) + 4096
+    real = packed.postings_doc != SENTINEL_DOC
+    code = packed.doc_len_code[
+        np.where(real, packed.postings_doc, 0).astype(np.int64)]
+    tf8 = np.minimum(packed.postings_tf, TF_SAT).astype(np.uint16)
+    tc = (code.astype(np.uint16) << 8) | tf8
+    return np.pad(np.where(real, tc, 0).astype(np.uint16), (0, pad))
+
+
+def _tc_score64_ub(tc: torch.Tensor, idf64: torch.Tensor,
+                   avg64: torch.Tensor) -> torch.Tensor:
+    """f32 upper bound on the device's f32 tc_score of int32 tc lanes: the
+    f64 reconstruction x (1 + 2e-6), which dominates its ~9 f32 rounding
+    steps, in the reference's f64 operation order (so the planes equal
+    the reference's on any device). idf64: the f64 value of the f32 idf
+    the kernel uses, broadcastable; avg64: 0-d f64 tensor of the f32
+    average length, on tc's device."""
+    tf_i = tc & 0xFF
+    tf = tf_i.to(torch.float64)
+    length = _char4_length((tc >> 8) & 0xFF)
+    cache = K1_F32 * (ONE_MINUS_B_F32
+                      + B_F32 * length.to(torch.float64) / avg64)
+    norm = (tf * K1_PLUS_1) / (tf + cache)
+    norm = torch.where(tf_i == 0, 0.0, norm)
+    norm = torch.where(tf_i >= TF_SAT, K1_PLUS_1, norm)
+    return (idf64 * norm * (1 + 2e-6)).to(torch.float32)
 
 
 @dataclass

@@ -1,5 +1,5 @@
-"""Batched conjunctive search steps in plain torch (raw-column subset of
-wiser_tpu/engine/kernels.py).
+"""Batched conjunctive and phrase search steps in plain torch (port of
+wiser_tpu/engine/kernels.py: raw and tc columns).
 
 The bs step: load each query's candidate run (slot 0, its least-frequent
 term) as a contiguous (B, L) slice, score it from the per-posting f32
@@ -26,9 +26,23 @@ stable descending sort, so the compacted set is the canonical one on
 every device; positions may live on the device as 2-byte int16 bits and
 are widened at load (_pos_gather).
 
+Compressed (tc) columns: one uint16 lane doc_len_code << 8 | min(tf, 255)
+replaces the (f32 score, i32 tf) pair of a posting, held on the device as
+int16 bits and widened at load (_u16); the dense tier keeps one uint8 tf
+plane and one shared uint8 len-code row, recomposed per lane. tc_score
+rebuilds the f32 selection score from a lane with per-slot f32 idfs (0 on
+padded slots); a tf byte of 255 scores the optimistic idf * (k1 + 1) and
+any query keeping such a lane raises FLAG_TF_SAT for the exact host path.
+Each tc step is its reference's (make_search_kernel(mode="tc"),
+make_match_kernel_tc, make_select_topk_kernel_tc, the tc modes of the
+compact and semidense phrase kernels, make_semidense_kernel_tc,
+make_dense_search_kernel_tc, make_pruned_dense_kernel_tc and
+make_full_phrase_kernel_tc with its exact payload-tie refinement).
+
 Slot convention (host assembly): slot 0 is the candidate term; the other
-terms fill slots 1..T-1; padded slots repeat slot 0 with use_score 0.
-Phrase verification runs in query-term order (slot_of re-permutes).
+terms fill slots 1..T-1; padded slots repeat slot 0 with use_score 0
+(idf32 0 in tc mode). Phrase verification runs in query-term order
+(slot_of re-permutes).
 
 These functions are the XLA programs of the JAX package written out as
 torch operations; they run on whatever device their tensors live on. f32
@@ -36,7 +50,11 @@ sums are written as sequential adds in slot order, one addend per slot,
 as the reference sums them (eager torch runs each add as its own
 operation, so nothing contracts into an FMA): the prune guard's proof
 needs the score and its bound summed in the same order, and the flag
-words then equal the reference's.
+words then equal the reference's. In tc mode the other slots of the bs,
+match and compact steps sum first and are then added to the candidate's
+score, as the reference writes it. A divisor is always a tensor on the
+operands' device: CUDA divides by a CPU scalar as a multiply by its
+reciprocal, which may round differently.
 """
 
 from __future__ import annotations
@@ -50,6 +68,60 @@ FLAG_TRUNC = 1  # f32 boundary class truncated
 FLAG_OVERFLOW = 2  # windowed-kernel window overflow (lanes missing)
 FLAG_TF_SAT = 4  # a kept lane's tf byte saturated (tc mode)
 FLAG_PRUNE_MISS = 8  # pruned-dense: an unexamined block could beat the kept set
+# BM25 constants of the tc decode, as f32 values
+K1_PLUS_1 = float(np.float32(2.2))
+K1_F32 = float(np.float32(1.2))
+B_F32 = float(np.float32(0.75))
+ONE_MINUS_B_F32 = float(np.float32(0.25))
+TF_SAT = 255
+
+
+def _char4_length(code: torch.Tensor) -> torch.Tensor:
+    """The 1-byte lossy length code's decoded length (CHAR4: 3 mantissa
+    bits, shift = code >> 3 - 1, capped at 27 for valid codes)."""
+    bits = code & 7
+    shift = ((code >> 3) - 1).clamp(max=27)
+    return torch.where(shift < 0, bits, (bits | 8) << shift.clamp(min=0))
+
+
+def tc_score(tc: torch.Tensor, idf32: torch.Tensor,
+             avg32: torch.Tensor) -> torch.Tensor:
+    """The f32 selection score of int32 tc lanes (code8 << 8 | tf8), in
+    the reference's operation order. idf32: broadcastable f32 per-slot
+    idf (0 on padded slots); avg32: 0-d f32 average field length on the
+    lanes' device. A tf byte of 0 scores exactly 0; 255 scores the
+    optimistic bound idf * (k1 + 1)."""
+    tf_i = tc & 0xFF
+    tf = tf_i.to(torch.float32)
+    length = _char4_length((tc >> 8) & 0xFF)
+    cache = K1_F32 * (ONE_MINUS_B_F32
+                      + B_F32 * length.to(torch.float32) / avg32)
+    norm = (tf * K1_PLUS_1) / (tf + cache)
+    norm = torch.where(tf_i >= TF_SAT, K1_PLUS_1, norm)
+    return idf32 * norm
+
+
+def tc_saturated(top_tc: torch.Tensor, top_docs: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: a kept lane (top_docs >= 0) carries a saturated tf
+    byte, so its score was the optimistic bound and its tf is wrong.
+    top_tc: (B, M) or (B, T, M) int32 lanes."""
+    sat = (top_tc & 0xFF) >= TF_SAT
+    if sat.dim() == 3:
+        sat = sat.any(dim=1)
+    return (sat & (top_docs >= 0)).any(dim=1)
+
+
+def _u16(x: torch.Tensor) -> torch.Tensor:
+    """int16 bits of a uint16 column (tc lanes, positions) widened to
+    int32 values; other dtypes pass through."""
+    return x.to(torch.int32) & 0xFFFF if x.dtype == torch.int16 else x
+
+
+def _compose_tc(tf8: torch.Tensor, code_hi: torch.Tensor) -> torch.Tensor:
+    """A dense-tier tc lane from a uint8 tf and the doc's len code
+    already shifted left by 8: code << 8 | tf, and 0 where tf is 0."""
+    tf = tf8.to(torch.int32)
+    return torch.where(tf > 0, code_hi | tf, 0)
 
 
 def _gather1d(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -84,8 +156,7 @@ def _pos_gather(positions: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     int16 bits of uint16 positions when they fit (half the bytes), widened
     here with & 0xFFFF, so the 65535 pad reads as 65535 as in the
     reference's uint16 column."""
-    v = _gather1d(positions, idx).to(torch.int32)
-    return v & 0xFFFF if positions.dtype == torch.int16 else v
+    return _u16(_gather1d(positions, idx)).to(torch.int32)
 
 
 def _binary_search(postings_doc, targets, lo0, hi0, n_iters: int,
@@ -104,14 +175,48 @@ def _binary_search(postings_doc, targets, lo0, hi0, n_iters: int,
 
 
 def _candidates(postings_doc, postings_score, starts, ends, L: int):
-    """Slot-0 contiguous candidate load -> (cdocs, cscore, cvalid, cs)."""
+    """Slot-0 contiguous candidate load -> (cdocs, cscore, cvalid, cs);
+    with a tc column in place of the score column, cscore is the int32
+    tc lanes."""
     cs = starts[:, 0]
     n_valid = ends[:, 0] - cs
     lane = torch.arange(L, dtype=torch.int32, device=starts.device)
     cvalid = lane[None, :] < n_valid[:, None]
     cdocs = torch.where(cvalid, _slice_rows(postings_doc, cs, L), INT32_MAX)
-    cscore = _slice_rows(postings_score, cs, L)
+    cscore = _u16(_slice_rows(postings_score, cs, L))
     return cdocs, cscore, cvalid, cs
+
+
+def _seq_sum(partial: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 1 as sequential adds in slot order (the reference's
+    reduction order on every device)."""
+    acc = partial[:, 0]
+    for t in range(1, partial.shape[1]):
+        acc = acc + partial[:, t]
+    return acc
+
+
+def _others(postings_doc, col, cdocs, starts, ends, n_iters: int, *,
+            weights, avg32=None):
+    """Binary search of the candidate docs into S other slots' runs
+    (starts/ends (B, S)), their f32 score contributions summed in slot
+    order, and for tc columns the hit lanes. weights: (B, S) use_score
+    (raw) or idf32 (tc, avg32 given). Returns (lo (B, S, L), found, acc
+    (B, L), hit_tc or None)."""
+    S = starts.shape[1]
+    targets = cdocs[:, None, :].expand(cdocs.shape[0], S, cdocs.shape[1])
+    lo = _binary_search(postings_doc, targets, starts[:, :, None],
+                        ends[:, :, None], n_iters)
+    found = (lo < ends[:, :, None]) & (_gather1d(postings_doc, lo) == targets)
+    if avg32 is None:
+        partial = (torch.where(found, _gather1d(col, lo), 0.0)
+                   * weights[:, :, None])
+        hit_tc = None
+    else:
+        hit_tc = _u16(_gather1d(col, lo))
+        partial = torch.where(found, tc_score(hit_tc, weights[:, :, None],
+                                              avg32), 0.0)
+    return lo, found, _seq_sum(partial), hit_tc
 
 
 def boundary_truncated(score, top_score, M: int):
@@ -148,33 +253,37 @@ def two_level_top_m(score_flat, M: int):
 
 
 def search_body(postings_doc, postings_score, postings_tf, starts, ends,
-                use_score, *, T: int, L: int, M: int, n_bs_iters: int):
-    """The batched AND / single-term step over raw columns.
+                use_score, *, T: int, L: int, M: int, n_bs_iters: int,
+                tc=None, idf32=None, avg32=None):
+    """The batched AND / single-term step.
 
     starts/ends: (B, T) int32 CSR bounds in slot order; use_score: (B, T)
-    f32 0/1. Returns (top_docs (B,M) i32, top_score (B,M) f32,
-    top_tfs (B,T,M) i32, top_pidx (B,T,M) i32, flags (B,) i32)."""
+    f32 0/1. tc mode: pass the tc column as tc, idf32 ((B, T) f32 in slot
+    order, 0 on padded slots) and avg32 instead of the score / tf columns
+    and use_score; kept saturated lanes raise FLAG_TF_SAT. Returns
+    (top_docs (B,M) i32, top_score (B,M) f32, top_tfs (B,T,M) i32,
+    top_pidx (B,T,M) i32, flags (B,) i32)."""
     B = starts.shape[0]
+    tc_mode = tc is not None
     cdocs, cscore, cvalid, cs = _candidates(
-        postings_doc, postings_score, starts, ends, L)
+        postings_doc, tc if tc_mode else postings_score, starts, ends, L)
+    if tc_mode:
+        cscore = tc_score(cscore, idf32[:, 0:1], avg32)
 
     if T == 1:
         score = torch.where(cvalid, cscore, NEG_INF)
     else:
-        targets = cdocs[:, None, :].expand(B, T - 1, L)
-        lo = _binary_search(postings_doc, targets, starts[:, 1:, None],
-                            ends[:, 1:, None], n_bs_iters)
-        found = (lo < ends[:, 1:, None]) & (_gather1d(postings_doc, lo) == targets)
-        match = found.all(dim=1) & cvalid
-        partial = torch.where(found, _gather1d(postings_score, lo), 0.0)
-        partial = partial * use_score[:, 1:, None]
-        # slot-order sequential sum: the same f32 rounding as the
+        # slot-order sequential sums: the same f32 rounding as the
         # reference's reduction on every device (a tree order would move
         # scores by an ulp and with them the boundary flags)
-        acc = partial[:, 0]
-        for t in range(1, T - 1):
-            acc = acc + partial[:, t]
-        score = torch.where(match, cscore * use_score[:, 0:1] + acc, NEG_INF)
+        lo, found, acc, _ = _others(
+            postings_doc, tc if tc_mode else postings_score, cdocs,
+            starts[:, 1:], ends[:, 1:], n_bs_iters,
+            weights=(idf32 if tc_mode else use_score)[:, 1:], avg32=avg32)
+        match = found.all(dim=1) & cvalid
+        if not tc_mode:
+            cscore = cscore * use_score[:, 0:1]
+        score = torch.where(match, cscore + acc, NEG_INF)
 
     top_score, top_l = two_level_top_m(score, M)
     kept = top_score > NEG_INF
@@ -186,7 +295,14 @@ def search_body(postings_doc, postings_score, postings_tf, starts, ends,
         top_lo = torch.gather(lo, 2, top_l[:, None, :].expand(B, T - 1, M))
         top_pidx = torch.cat([top_pidx, top_lo], dim=1)
     flags = boundary_truncated(score, top_score, M).to(torch.int32)
-    top_tfs = torch.where(kept[:, None, :], _gather1d(postings_tf, top_pidx), 0)
+    if tc_mode:
+        top_tc = _u16(_gather1d(tc, top_pidx))
+        top_tfs = torch.where(kept[:, None, :], top_tc & 0xFF, 0)
+        flags = flags | (tc_saturated(top_tc, top_docs).to(torch.int32)
+                         * FLAG_TF_SAT)
+    else:
+        top_tfs = torch.where(kept[:, None, :],
+                              _gather1d(postings_tf, top_pidx), 0)
     return top_docs, top_score, top_tfs, top_pidx, flags
 
 
@@ -198,16 +314,29 @@ def pack_with_flags(top_docs, top_tfs, flags):
     return torch.cat([top_docs[:, None, :], top_tfs, flag_row], dim=1)
 
 
-def make_search_kernel(T: int, L: int, M: int, n_bs_iters: int):
+def make_search_kernel(T: int, L: int, M: int, n_bs_iters: int,
+                       mode: str = "raw"):
     """search_body at fixed shapes, returning the packed (B, T+2, M)
-    int32 array. A plain function: torch runs eagerly, nothing to cache."""
+    int32 array. A plain function: torch runs eagerly, nothing to cache.
 
-    def kernel(postings_doc, postings_score, postings_tf, starts, ends,
-               use_score):
-        top_docs, _, top_tfs, _, flags = search_body(
-            postings_doc, postings_score, postings_tf, starts, ends,
-            use_score, T=T, L=L, M=M, n_bs_iters=n_bs_iters)
-        return pack_with_flags(top_docs, top_tfs, flags)
+    raw: fn(postings_doc, postings_score, postings_tf, starts, ends,
+            use_score); tc: fn(postings_doc, postings_tc, avg32, starts,
+            ends, idf32)."""
+
+    if mode == "tc":
+        def kernel(postings_doc, postings_tc, avg32, starts, ends, idf32):
+            top_docs, _, top_tfs, _, flags = search_body(
+                postings_doc, None, None, starts, ends, None, T=T, L=L, M=M,
+                n_bs_iters=n_bs_iters, tc=postings_tc, idf32=idf32,
+                avg32=avg32)
+            return pack_with_flags(top_docs, top_tfs, flags)
+    else:
+        def kernel(postings_doc, postings_score, postings_tf, starts, ends,
+                   use_score):
+            top_docs, _, top_tfs, _, flags = search_body(
+                postings_doc, postings_score, postings_tf, starts, ends,
+                use_score, T=T, L=L, M=M, n_bs_iters=n_bs_iters)
+            return pack_with_flags(top_docs, top_tfs, flags)
 
     return kernel
 
@@ -257,6 +386,61 @@ def make_dense_search_kernel(T: int, N_pad: int, M: int):
     return kernel
 
 
+def _dense_tc_lanes(dense_tf, code_hi, slots_t, docs):
+    """Composed tc lanes of dense rows slots_t (B, 1) at docs (B, L):
+    the uint8 tf plane re-joined with the shared len-code row (code_hi =
+    len_code << 8, int32). Lanes out of range clamp (callers mask)."""
+    return _compose_tc(_dense_gather(dense_tf, slots_t, docs),
+                       _gather1d(code_hi, docs))
+
+
+def make_dense_search_kernel_tc(T: int, N_pad: int, M: int):
+    """make_dense_search_kernel over the (H, N_pad) uint8 tf plane and the
+    shared (N_pad,) uint8 len-code row: each slot's composed lane (code
+    << 8 | tf, 0 where absent) scores by tc_score, summed in slot order
+    from zeros (padded slots idf 0); tfs and saturation from the kept
+    lanes, recomposed at the winners.
+
+    fn(dense_tf, len_code, avg32, slots (B, T), idf32 (B, T))
+      -> packed (B, T+2, M) int32."""
+
+    def kernel(dense_tf, len_code, avg32, slots, idf32):
+        B = slots.shape[0]
+        rows = slots.to(torch.int64)
+        code_hi = len_code.to(torch.int32) << 8
+        score = torch.zeros((B, N_pad), dtype=torch.float32,
+                            device=dense_tf.device)
+        match = torch.ones((B, N_pad), dtype=torch.bool,
+                           device=dense_tf.device)
+        for t in range(T):
+            tc_t = _compose_tc(dense_tf[rows[:, t]], code_hi[None, :])
+            match &= tc_t > 0
+            score += tc_score(tc_t, idf32[:, t : t + 1], avg32)
+            del tc_t
+        score = torch.where(match, score, NEG_INF)
+        del match
+        top_score, top_docs = two_level_top_m(score, M)  # lane = doc id
+        top_docs = torch.where(top_score > NEG_INF, top_docs, -1)
+        return _pack_dense_tc(
+            dense_tf, code_hi, slots, top_docs.to(torch.int32),
+            boundary_truncated(score, top_score, M).to(torch.int32), T)
+
+    return kernel
+
+
+def _pack_dense_tc(dense_tf, code_hi, slots, top_docs, flags, T: int):
+    """Packed output of a dense tc route: per-slot tfs of the kept docs
+    (top_docs >= 0) from their composed lanes, the flag word ORed with
+    FLAG_TF_SAT where a kept lane is saturated."""
+    top_tc = torch.stack([
+        _dense_tc_lanes(dense_tf, code_hi, slots[:, t : t + 1], top_docs)
+        for t in range(T)], dim=1)
+    kept = top_docs >= 0
+    flags = flags | tc_saturated(top_tc, top_docs).to(torch.int32) * FLAG_TF_SAT
+    return pack_with_flags(top_docs, torch.where(kept[:, None, :],
+                                                 top_tc & 0xFF, 0), flags)
+
+
 def make_semidense_kernel(T: int, L: int, M: int, N_pad: int,
                           n_bs: int = 0, n_bs_iters: int = 0):
     """Tail candidate x head others: the candidate run loads
@@ -272,46 +456,87 @@ def make_semidense_kernel(T: int, L: int, M: int, N_pad: int,
 
     def kernel(postings_doc, postings_score, postings_tf, dense_sc,
                dense_tf, starts, ends, use_score, slots):
-        B = starts.shape[0]
-        cdocs, cscore, cvalid, cs = _candidates(
-            postings_doc, postings_score, starts, ends, L)
-        # sentinel cdocs clamp to lane N_pad-1; cvalid masks them out of
-        # the match whatever that lane holds
-        match = cvalid
-        score = cscore * use_score[:, 0:1]
-        if n_bs:
-            targets = cdocs[:, None, :].expand(B, n_bs, L)
-            lo = _binary_search(postings_doc, targets,
-                                starts[:, 1 : 1 + n_bs, None],
-                                ends[:, 1 : 1 + n_bs, None], n_bs_iters)
-            found = ((lo < ends[:, 1 : 1 + n_bs, None])
-                     & (_gather1d(postings_doc, lo) == targets))
-            match = match & found.all(dim=1)
-            partial = (torch.where(found, _gather1d(postings_score, lo), 0.0)
-                       * use_score[:, 1 : 1 + n_bs, None])
-            acc = partial[:, 0]
-            for t in range(1, n_bs):
-                acc = acc + partial[:, t]
-            score = score + acc
-        for t in range(1 + n_bs, T):
-            p = _dense_gather(dense_sc, slots[:, t : t + 1], cdocs)  # (B, L)
-            match = match & (p > 0)
-            score = score + p * use_score[:, t : t + 1]
-        score = torch.where(match, score, NEG_INF)
-        top_score, top_l = two_level_top_m(score, M)
-        kept = top_score > NEG_INF
-        top_docs = torch.where(kept, torch.gather(cdocs, 1, top_l), -1)
+        return _semidense_step(
+            postings_doc, postings_score, dense_sc, starts, ends, use_score,
+            slots, T=T, L=L, M=M, n_bs=n_bs, n_bs_iters=n_bs_iters,
+            postings_tf=postings_tf, dense_tf=dense_tf)
+
+    return kernel
+
+
+def make_semidense_kernel_tc(T: int, L: int, M: int, N_pad: int,
+                             n_bs: int = 0, n_bs_iters: int = 0):
+    """make_semidense_kernel over tc columns: the dense rows are the
+    (H, N_pad) uint8 tf plane, and a lane's len code comes from the
+    candidate's own tc lane (ctc & 0xFF00), so each dense other is still
+    one gather per lane. Scores by tc_score; tfs and saturation from the
+    kept lanes.
+
+    fn(postings_doc, postings_tc, avg32, dense_tf (H, N_pad) u8, starts,
+       ends, idf32 (B, T) slot order, slots) -> packed (B, T+2, M)."""
+
+    def kernel(postings_doc, postings_tc, avg32, dense_tf, starts, ends,
+               idf32, slots):
+        return _semidense_step(
+            postings_doc, postings_tc, dense_tf, starts, ends, idf32, slots,
+            T=T, L=L, M=M, n_bs=n_bs, n_bs_iters=n_bs_iters, avg32=avg32)
+
+    return kernel
+
+
+def _semidense_step(postings_doc, col, dense, starts, ends, weights, slots,
+                    *, T, L, M, n_bs, n_bs_iters, postings_tf=None,
+                    dense_tf=None, avg32=None):
+    """The semidense step of both column modes. raw: col / dense are the
+    score column and plane, weights use_score, tfs gathered from
+    postings_tf / dense_tf; tc (avg32 given): col is the tc column, dense
+    the uint8 tf plane, weights idf32, tfs from the kept tc lanes."""
+    tc_mode = avg32 is not None
+    cdocs, cval, cvalid, cs = _candidates(postings_doc, col, starts, ends, L)
+    # sentinel cdocs clamp to lane N_pad-1; cvalid masks them out of
+    # the match whatever that lane holds
+    match = cvalid
+    score = (tc_score(cval, weights[:, 0:1], avg32) if tc_mode
+             else cval * weights[:, 0:1])
+    lanes = [cval]  # tc lanes per slot (tc mode)
+    if n_bs:
+        lo, found, acc, hit_tc = _others(
+            postings_doc, col, cdocs, starts[:, 1 : 1 + n_bs],
+            ends[:, 1 : 1 + n_bs], n_bs_iters,
+            weights=weights[:, 1 : 1 + n_bs], avg32=avg32)
+        match = match & found.all(dim=1)
+        score = score + acc
+        if tc_mode:
+            lanes += list(hit_tc.unbind(1))
+    for t in range(1 + n_bs, T):
+        p = _dense_gather(dense, slots[:, t : t + 1], cdocs)  # (B, L)
+        if tc_mode:
+            p = _compose_tc(p, cval & 0xFF00)
+            lanes.append(p)
+            score = score + tc_score(p, weights[:, t : t + 1], avg32)
+        else:
+            score = score + p * weights[:, t : t + 1]
+        match = match & (p > 0)
+    score = torch.where(match, score, NEG_INF)
+    top_score, top_l = two_level_top_m(score, M)
+    kept = top_score > NEG_INF
+    top_docs = torch.where(kept, torch.gather(cdocs, 1, top_l), -1)
+    flags = boundary_truncated(score, top_score, M).to(torch.int32)
+    if tc_mode:
+        top_tc = torch.stack([torch.gather(x, 1, top_l) for x in lanes], dim=1)
+        tfs = top_tc & 0xFF
+        flags = flags | (tc_saturated(top_tc, top_docs).to(torch.int32)
+                         * FLAG_TF_SAT)
+    else:
         tfs = [_gather1d(postings_tf, cs[:, None] + top_l)]
         for t in range(1, 1 + n_bs):
             tfs.append(_gather1d(postings_tf,
                                  torch.gather(lo[:, t - 1], 1, top_l)))
         for t in range(1 + n_bs, T):
             tfs.append(_dense_gather(dense_tf, slots[:, t : t + 1], top_docs))
-        tfs = torch.where(kept[:, None, :], torch.stack(tfs, dim=1), 0)
-        trunc = boundary_truncated(score, top_score, M)
-        return pack_with_flags(top_docs, tfs, trunc.to(torch.int32))
-
-    return kernel
+        tfs = torch.stack(tfs, dim=1)
+    return pack_with_flags(top_docs, torch.where(kept[:, None, :], tfs, 0),
+                           flags)
 
 
 def _select_ub_blocks(blockmax, slots, weights, *, T: int, NB: int, C: int,
@@ -387,36 +612,86 @@ def make_pruned_dense_kernel(T: int, NB: int, C: int, M: int, eps3: float):
 
     def kernel(dense_sc, dense_tf, blockmax, blockmax2, argpos, slots,
                use_score, ks):
-        B = slots.shape[0]
-        blk, next_ub = _select_ub_blocks(
-            blockmax, slots, use_score, T=T, NB=NB, C=C,
-            blockmax2=blockmax2, argpos=argpos)
         sc_rows = dense_sc.view(dense_sc.shape[0] * NB, 128)
         rows = slots.to(torch.int64)
-        lane = torch.arange(128, dtype=torch.int64, device=blk.device)
-        cand_docs = (blk[:, :, None] * 128 + lane).reshape(B, C * 128)
-        match = torch.ones((B, C, 128), dtype=torch.bool, device=blk.device)
-        score = torch.zeros((B, C, 128), dtype=torch.float32,
-                            device=blk.device)
-        for t in range(T):
+
+        def lanes(t, blk):
             p = sc_rows[rows[:, t : t + 1] * NB + blk]  # (B, C, 128)
-            match &= p > 0
-            score += p * use_score[:, t, None, None]
-        score = torch.where(match, score, NEG_INF).reshape(B, C * 128)
-        del match
-        top_score, top_l = two_level_top_m(score, M)
-        top_cand = torch.gather(cand_docs, 1, top_l)
-        kept = top_score > NEG_INF
-        top_docs = torch.where(kept, top_cand, -1).to(torch.int32)
+            return p, p * use_score[:, t, None, None]
+
+        top_docs, flags = _pruned_dense_body(
+            lanes, blockmax, blockmax2, argpos, slots, use_score, ks,
+            T=T, NB=NB, C=C, M=M, eps3=eps3)
         tfs = torch.stack([
-            torch.where(kept, _dense_gather(dense_tf, slots[:, t : t + 1],
-                                            top_cand), 0)
+            torch.where(top_docs >= 0,
+                        _dense_gather(dense_tf, slots[:, t : t + 1], top_docs),
+                        0)
             for t in range(T)], dim=1)
-        flags = (boundary_truncated(score, top_score, M).to(torch.int32)
-                 | prune_guard_flag(top_score, next_ub, ks, M=M, eps3=eps3))
         return pack_with_flags(top_docs, tfs, flags)
 
     return kernel
+
+
+def make_pruned_dense_kernel_tc(T: int, NB: int, C: int, M: int,
+                                eps3: float):
+    """make_pruned_dense_kernel over the uint8 tf plane and the shared
+    len-code row, composed per selected block. The block planes hold the
+    host's f64 bound on the in-kernel f32 tc_score x (1 + 2e-6) (idf
+    included), so the block weights are idf32 > 0: padded slots add no
+    bound.
+
+    fn(dense_tf (H, NB*128) u8, len_code (NB*128,) u8, avg32, blockmax,
+       blockmax2 (H, NB) f32, argpos (H, NB) u8, slots (B, T), idf32
+       (B, T) f32, ks (B,)) -> packed (B, T+2, M) int32."""
+
+    def kernel(dense_tf, len_code, avg32, blockmax, blockmax2, argpos,
+               slots, idf32, ks):
+        tf_rows = dense_tf.view(dense_tf.shape[0] * NB, 128)
+        code_hi = len_code.to(torch.int32) << 8
+        rows = slots.to(torch.int64)
+
+        def lanes(t, blk):
+            p = _compose_tc(tf_rows[rows[:, t : t + 1] * NB + blk],
+                            code_hi.view(NB, 128)[blk])
+            return p, tc_score(p, idf32[:, t, None, None], avg32)
+
+        top_docs, flags = _pruned_dense_body(
+            lanes, blockmax, blockmax2, argpos, slots,
+            (idf32 > 0).to(torch.float32), ks, T=T, NB=NB, C=C, M=M,
+            eps3=eps3)
+        return _pack_dense_tc(dense_tf, code_hi, slots, top_docs, flags, T)
+
+    return kernel
+
+
+def _pruned_dense_body(lanes, blockmax, blockmax2, argpos, slots, weights,
+                       ks, *, T: int, NB: int, C: int, M: int, eps3: float):
+    """The block-max pruned scan of both column modes: the C highest-bound
+    blocks per query (weights: the bound's per-slot multipliers), their
+    lanes scored in slot order from zeros, exact top-M, FLAG_TRUNC and
+    FLAG_PRUNE_MISS. lanes(t, blk) -> ((B, C, 128) lanes, 0 = absent;
+    their f32 score contributions). Returns (top_docs (B, M) int32 doc
+    ids or -1, flags (B,) int32)."""
+    B = slots.shape[0]
+    blk, next_ub = _select_ub_blocks(
+        blockmax, slots, weights, T=T, NB=NB, C=C,
+        blockmax2=blockmax2, argpos=argpos)
+    lane = torch.arange(128, dtype=torch.int64, device=blk.device)
+    cand_docs = (blk[:, :, None] * 128 + lane).reshape(B, C * 128)
+    match = torch.ones((B, C, 128), dtype=torch.bool, device=blk.device)
+    score = torch.zeros((B, C, 128), dtype=torch.float32, device=blk.device)
+    for t in range(T):
+        p, contrib = lanes(t, blk)
+        match &= p > 0
+        score += contrib
+    score = torch.where(match, score, NEG_INF).reshape(B, C * 128)
+    del match
+    top_score, top_l = two_level_top_m(score, M)
+    top_docs = torch.where(top_score > NEG_INF,
+                           torch.gather(cand_docs, 1, top_l), -1)
+    flags = (boundary_truncated(score, top_score, M).to(torch.int32)
+             | prune_guard_flag(top_score, next_ub, ks, M=M, eps3=eps3))
+    return top_docs.to(torch.int32), flags
 
 
 # -- phrases -------------------------------------------------------------------
@@ -473,29 +748,49 @@ def _bloom_gate(pidx, bloom_rows, bloom_bitmap, bloom_rank, probe_slot,
     return probe_pass.all(dim=1)
 
 
-def _match_step(postings_doc, postings_score, starts, ends, use_score, *,
-                T: int, L: int, n_bs_iters: int):
-    """Candidate load + bs intersection of slots 1.. -> (cdocs, cvalid,
-    cs, match, pidx (B, T, L) i32 posting index per slot, score f32 in
-    slot order)."""
-    B = starts.shape[0]
-    cdocs, cscore, cvalid, cs = _candidates(
-        postings_doc, postings_score, starts, ends, L)
+def _match_step(postings_doc, col, starts, ends, weights, *, T: int, L: int,
+                n_bs_iters: int, avg32=None):
+    """Candidate load + bs intersection of slots 1.. -> (cdocs, match,
+    pidx (B, T, L) i32 posting index per slot, score f32 in slot order,
+    sat_lane). raw: col is the score column, weights use_score, sat_lane
+    None; tc (avg32 given): col is the tc column, weights idf32, and
+    sat_lane (B, L) marks lanes with a saturated tf byte in a matched
+    slot."""
+    cdocs, cval, cvalid, cs = _candidates(postings_doc, col, starts, ends, L)
     lane = torch.arange(L, dtype=torch.int32, device=starts.device)
-    cpidx = cs[:, None] + lane[None, :]
-    targets = cdocs[:, None, :].expand(B, T - 1, L)
-    lo = _binary_search(postings_doc, targets, starts[:, 1:, None],
-                        ends[:, 1:, None], n_bs_iters)
-    found = (lo < ends[:, 1:, None]) & (_gather1d(postings_doc, lo) == targets)
+    lo, found, acc, hit_tc = _others(
+        postings_doc, col, cdocs, starts[:, 1:], ends[:, 1:], n_bs_iters,
+        weights=weights[:, 1:], avg32=avg32)
     match = found.all(dim=1) & cvalid
-    pidx = torch.cat([cpidx[:, None, :], lo], dim=1)
-    partial = (torch.where(found, _gather1d(postings_score, lo), 0.0)
-               * use_score[:, 1:, None])
-    acc = partial[:, 0]
-    for t in range(1, T - 1):
-        acc = acc + partial[:, t]
-    score = cscore * use_score[:, 0:1] + acc
-    return cdocs, cvalid, cs, match, pidx, score
+    pidx = torch.cat([(cs[:, None] + lane[None, :])[:, None, :], lo], dim=1)
+    sat_lane = None
+    if avg32 is None:
+        score = cval * weights[:, 0:1] + acc
+    else:
+        score = tc_score(cval, weights[:, 0:1], avg32) + acc
+        sat_lane = (((cval & 0xFF) >= TF_SAT)
+                    | (found & ((hit_tc & 0xFF) >= TF_SAT)).any(dim=1))
+    return cdocs, match, pidx, score, sat_lane
+
+
+def make_match_kernel_tc(T: int, L: int, n_bs_iters: int):
+    """make_match_kernel over the tc column, returning also the (B, L)
+    sat_lane mask the select step flags kept lanes by.
+
+    fn(postings_doc, postings_tc, avg32, starts, ends, idf32, bloom_rows,
+       bloom_bitmap, bloom_rank, probe_slot, probe_begins, probe_mask,
+       probe_active) -> (match, bloom_pass, cdocs, pidx, score, sat_lane)."""
+
+    def kernel(postings_doc, postings_tc, avg32, starts, ends, idf32,
+               bloom_rows, bloom_bitmap, bloom_rank, *probes):
+        cdocs, match, pidx, score, sat_lane = _match_step(
+            postings_doc, postings_tc, starts, ends, idf32, T=T, L=L,
+            n_bs_iters=n_bs_iters, avg32=avg32)
+        bloom_pass = _bloom_gate(pidx, bloom_rows, bloom_bitmap, bloom_rank,
+                                 *probes)
+        return match, bloom_pass, cdocs, pidx, score, sat_lane
+
+    return kernel
 
 
 def make_match_kernel(T: int, L: int, n_bs_iters: int):
@@ -510,7 +805,7 @@ def make_match_kernel(T: int, L: int, n_bs_iters: int):
     def kernel(postings_doc, postings_score, starts, ends, use_score,
                bloom_rows, bloom_bitmap, bloom_rank, probe_slot,
                probe_begins, probe_mask, probe_active):
-        cdocs, _, _, match, pidx, score = _match_step(
+        cdocs, match, pidx, score, _ = _match_step(
             postings_doc, postings_score, starts, ends, use_score,
             T=T, L=L, n_bs_iters=n_bs_iters)
         bloom_pass = _bloom_gate(pidx, bloom_rows, bloom_bitmap, bloom_rank,
@@ -580,6 +875,40 @@ def make_select_topk_kernel(T: int, L: int, M: int):
     return kernel
 
 
+def make_select_topk_kernel_tc(T: int, L: int, M: int):
+    """make_select_topk_kernel over the tc column: tfs from the tc lanes
+    at the winning posting indices; FLAG_TF_SAT where a kept lane's
+    sat_lane (make_match_kernel_tc) is set.
+
+    fn(postings_tc, cdocs, pidx, score, match, sat_lane)
+      -> packed (B, T+2, M)."""
+
+    def kernel(postings_tc, cdocs, pidx, score, match, sat_lane):
+        score = torch.where(match, score, NEG_INF)
+        top_score, top_l = two_level_top_m(score, M)
+        top_docs = torch.where(top_score > NEG_INF,
+                               torch.gather(cdocs, 1, top_l), -1)
+        return _pack_tc_lanes(postings_tc, _gather_slots(pidx, top_l),
+                              torch.gather(sat_lane, 1, top_l), top_docs,
+                              boundary_truncated(score, top_score, M)
+                              .to(torch.int32))
+
+    return kernel
+
+
+def _pack_tc_lanes(postings_tc, top_pidx, top_sat, top_docs, flags):
+    """Packed output of a tc list route: per-slot tfs from the tc lanes
+    at the winners' posting indices (B, T, M), the flag word ORed with
+    FLAG_TF_SAT where a kept lane's saturation mask top_sat (B, M) is
+    set."""
+    kept = top_docs >= 0
+    top_tfs = torch.where(kept[:, None, :],
+                          _u16(_gather1d(postings_tc, top_pidx)) & 0xFF, 0)
+    sat = (top_sat & kept).any(dim=1)
+    return pack_with_flags(top_docs, top_tfs,
+                           flags | sat.to(torch.int32) * FLAG_TF_SAT)
+
+
 def _verify_pos_windows(positions, ps, pe, anchor, *, T: int, NL: int,
                         PP: int, PW: int):
     """Adjusted-position verification by windows: each (term, lane) bag
@@ -618,14 +947,15 @@ def _slot_gather_q(sel_pidx, slot_of):
                         .expand(B, T, N))
 
 
-def _verify_and_select(positions, pos_starts, postings_tf, sel_score,
-                       sel_docs, sel_pidx, slot_of, ks, unseen, *, T, KV,
-                       PP, PW, M, eps3):
+def _verify_and_select(positions, pos_starts, sel_score, sel_docs,
+                       sel_pidx, slot_of, ks, unseen, *, T, KV, PP, PW, M,
+                       eps3):
     """Shared tail of the compact and semidense phrase routes: window
     verify of the KV compacted lanes in query-term order (anchored on
-    query term 0), top-M of the verified, the flag word (FLAG_TRUNC over
-    the KV lanes; FLAG_PRUNE_MISS where the (KV+1)-th surviving score
-    `unseen` could reach the k-th kept) and the per-slot tfs."""
+    query term 0), top-M of the verified and the flag word (FLAG_TRUNC
+    over the KV lanes; FLAG_PRUNE_MISS where the (KV+1)-th surviving
+    score `unseen` could reach the k-th kept). Returns (top_docs (B, M),
+    top_l (B, M) indices into the KV lanes, flags (B,))."""
     B = sel_score.shape[0]
     pidx_q = _slot_gather_q(sel_pidx, slot_of)
     ps = _gather1d(pos_starts, pidx_q)
@@ -641,10 +971,7 @@ def _verify_and_select(positions, pos_starts, postings_tf, sel_score,
                            torch.gather(sel_docs, 1, top_l), -1)
     flags = (boundary_truncated(final_score, top_score, M).to(torch.int32)
              | prune_guard_flag(top_score, unseen, ks, M=M, eps3=eps3))
-    top_tfs = torch.where(top_docs[:, None, :] >= 0,
-                          _gather1d(postings_tf, _gather_slots(sel_pidx, top_l)),
-                          0)
-    return pack_with_flags(top_docs, top_tfs, flags)
+    return top_docs, top_l, flags
 
 
 def compact_phrase_body(postings_doc, postings_score, postings_tf, positions,
@@ -652,85 +979,141 @@ def compact_phrase_body(postings_doc, postings_score, postings_tf, positions,
                         bloom_rows, bloom_bitmap, bloom_rank, probe_slot,
                         probe_begins, probe_mask, probe_active, *, T: int,
                         L: int, KV: int, PP: int, PW: int, M: int,
-                        n_bs_iters: int, eps3: float):
-    """The compact phrase pipeline (raw columns): bs match + bloom gate
-    over L lanes, compaction to the KV best-scored surviving lanes
-    (stable: score desc, index asc, so the canonical set), window verify
-    of those only, top-M. Bloom-failing lanes are proven non-matches; the
-    (KV+1)-th surviving score bounds every unverified lane (the prune
-    guard's proof). Returns packed (B, T+2, M)."""
-    cdocs, _, _, match, pidx, score = _match_step(
+                        n_bs_iters: int, eps3: float, tc_mode: bool = False,
+                        avg32=None):
+    """The compact phrase pipeline: bs match + bloom gate over L lanes,
+    compaction to the KV best-scored surviving lanes (stable: score desc,
+    index asc, so the canonical set), window verify of those only, top-M.
+    Bloom-failing lanes are proven non-matches; the (KV+1)-th surviving
+    score bounds every unverified lane (the prune guard's proof).
+    tc_mode: postings_score is the tc column, use_score the slot-order
+    idf32 and postings_tf unused; tfs come from the tc lanes and kept
+    saturated lanes raise FLAG_TF_SAT. Returns packed (B, T+2, M)."""
+    cdocs, match, pidx, score, sat_lane = _match_step(
         postings_doc, postings_score, starts, ends, use_score,
-        T=T, L=L, n_bs_iters=n_bs_iters)
+        T=T, L=L, n_bs_iters=n_bs_iters, avg32=avg32 if tc_mode else None)
     bloom_pass = _bloom_gate(pidx, bloom_rows, bloom_bitmap, bloom_rank,
                              probe_slot, probe_begins, probe_mask,
                              probe_active)
     mscore = torch.where(match & bloom_pass, score, NEG_INF)
     top_cs, top_cl = _top_stable(mscore, KV + 1)
     sel_l = top_cl[:, :KV]
-    return _verify_and_select(
-        positions, pos_starts, postings_tf, top_cs[:, :KV],
-        torch.gather(cdocs, 1, sel_l), _gather_slots(pidx, sel_l), slot_of,
-        ks, top_cs[:, KV], T=T, KV=KV, PP=PP, PW=PW, M=M, eps3=eps3)
+    sel_pidx = _gather_slots(pidx, sel_l)
+    top_docs, top_l, flags = _verify_and_select(
+        positions, pos_starts, top_cs[:, :KV], torch.gather(cdocs, 1, sel_l),
+        sel_pidx, slot_of, ks, top_cs[:, KV], T=T, KV=KV, PP=PP, PW=PW, M=M,
+        eps3=eps3)
+    top_pidx = _gather_slots(sel_pidx, top_l)
+    if tc_mode:
+        top_sat = torch.gather(torch.gather(sat_lane, 1, sel_l), 1, top_l)
+        return _pack_tc_lanes(postings_score, top_pidx, top_sat, top_docs,
+                              flags)
+    top_tfs = torch.where(top_docs[:, None, :] >= 0,
+                          _gather1d(postings_tf, top_pidx), 0)
+    return pack_with_flags(top_docs, top_tfs, flags)
 
 
 def make_compact_phrase_kernel(T: int, L: int, KV: int, PP: int, PW: int,
-                               M: int, n_bs_iters: int, eps3: float):
-    """compact_phrase_body at fixed shapes (raw columns).
+                               M: int, n_bs_iters: int, eps3: float,
+                               mode: str = "raw"):
+    """compact_phrase_body at fixed shapes.
 
-    fn(postings_doc, postings_score, postings_tf, positions, pos_starts,
-       starts, ends, use_score, slot_of, ks, bloom_rows, bloom_bitmap,
-       bloom_rank, probe_slot, probe_begins, probe_mask, probe_active)
-      -> packed (B, T+2, M)."""
-
-    def kernel(*args):
-        return compact_phrase_body(*args, T=T, L=L, KV=KV, PP=PP, PW=PW,
-                                   M=M, n_bs_iters=n_bs_iters, eps3=eps3)
+    raw: fn(postings_doc, postings_score, postings_tf, positions,
+            pos_starts, starts, ends, use_score, slot_of, ks, bloom_rows,
+            bloom_bitmap, bloom_rank, probe_slot, probe_begins, probe_mask,
+            probe_active) -> packed (B, T+2, M);
+    tc:  fn(postings_doc, postings_tc, avg32, positions, pos_starts,
+            starts, ends, idf32, slot_of, ks, bloom_rows, ..., probe_active)."""
+    kw = dict(T=T, L=L, KV=KV, PP=PP, PW=PW, M=M, n_bs_iters=n_bs_iters,
+              eps3=eps3)
+    if mode == "tc":
+        def kernel(postings_doc, postings_tc, avg32, *rest):
+            return compact_phrase_body(postings_doc, postings_tc, None, *rest,
+                                       tc_mode=True, avg32=avg32, **kw)
+    else:
+        def kernel(*args):
+            return compact_phrase_body(*args, **kw)
 
     return kernel
 
 
 def make_semidense_phrase_kernel(T: int, L: int, KV: int, PP: int, PW: int,
                                  M: int, N_pad: int, n_rec_iters: int,
-                                 eps3: float):
-    """List-path phrase whose match stage is semidense (raw columns):
-    every non-candidate term is a dense-tier head, so membership and score
-    per candidate lane is one doc-indexed gather from its dense row, and
-    the lanes compact to the KV best AND scores (stable) before any
+                                 eps3: float, mode: str = "raw"):
+    """List-path phrase whose match stage is semidense: every
+    non-candidate term is a dense-tier head, so membership and score per
+    candidate lane is one doc-indexed gather from its dense row, and the
+    lanes compact to the KV best AND scores (stable) before any
     element-gather stage: posting-index recovery by binary search over KV
     lanes (a matched doc is in every term's run: the dense rows are built
     from them) and the window verify. No bloom gate: the (KV+1)-th AND
     score bounds every unverified lane.
 
-    fn(postings_doc, postings_score, postings_tf, dense_sc, positions,
-       pos_starts, starts, ends, use_score, slots (B, T) dense rows of
-       slots 1.., slot_of, ks) -> packed (B, T+2, M)."""
+    raw: fn(postings_doc, postings_score, postings_tf, dense_sc, positions,
+            pos_starts, starts, ends, use_score, slots (B, T) dense rows of
+            slots 1.., slot_of, ks) -> packed (B, T+2, M); tfs from
+            postings_tf at the recovered posting indices.
+    tc:  fn(postings_doc, postings_tc, avg32, dense_tf (uint8 tf plane),
+            positions, pos_starts, starts, ends, idf32, slots, slot_of,
+            ks); each dense lane recomposed with the candidate lane's len
+            code, tfs and saturation from the kept lanes."""
+    tc_mode = mode == "tc"
 
-    def kernel(postings_doc, postings_score, postings_tf, dense_sc,
-               positions, pos_starts, starts, ends, use_score, slots,
-               slot_of, ks):
+    def body(postings_doc, col, postings_tf, avg32, dense, positions,
+             pos_starts, starts, ends, weights, slots, slot_of, ks):
         B = starts.shape[0]
-        cdocs, cscore, cvalid, cs = _candidates(
-            postings_doc, postings_score, starts, ends, L)
+        cdocs, cval, cvalid, cs = _candidates(postings_doc, col, starts,
+                                              ends, L)
         match = cvalid
-        score = cscore * use_score[:, 0:1]
+        score = (tc_score(cval, weights[:, 0:1], avg32) if tc_mode
+                 else cval * weights[:, 0:1])
+        lanes = [cval]  # tc lanes per slot (tc mode)
         for t in range(1, T):
-            p = _dense_gather(dense_sc, slots[:, t : t + 1], cdocs)
+            p = _dense_gather(dense, slots[:, t : t + 1], cdocs)
+            if tc_mode:
+                p = _compose_tc(p, cval & 0xFF00)
+                lanes.append(p)
+                score = score + tc_score(p, weights[:, t : t + 1], avg32)
+            else:
+                score = score + p * weights[:, t : t + 1]
             match = match & (p > 0)
-            score = score + p * use_score[:, t : t + 1]
         mscore = torch.where(match, score, NEG_INF)
         top_cs, top_cl = _top_stable(mscore, KV + 1)
-        sel_l = top_cl[:, :KV].to(torch.int32)
-        sel_docs = torch.gather(cdocs, 1, top_cl[:, :KV])
+        sel_cl = top_cl[:, :KV]
+        sel_docs = torch.gather(cdocs, 1, sel_cl)
         # invalid lanes recover in-range garbage, masked by their score
         targets = sel_docs[:, None, :].expand(B, T - 1, KV)
         lo = _binary_search(postings_doc, targets, starts[:, 1:, None],
                             ends[:, 1:, None], n_rec_iters)
-        sel_pidx = torch.cat([(cs[:, None] + sel_l)[:, None, :], lo], dim=1)
-        return _verify_and_select(
-            positions, pos_starts, postings_tf, top_cs[:, :KV], sel_docs,
-            sel_pidx, slot_of, ks, top_cs[:, KV], T=T, KV=KV, PP=PP, PW=PW,
-            M=M, eps3=eps3)
+        sel_pidx = torch.cat([(cs[:, None] + sel_cl.to(torch.int32))[:, None, :],
+                              lo], dim=1)
+        top_docs, top_l, flags = _verify_and_select(
+            positions, pos_starts, top_cs[:, :KV], sel_docs, sel_pidx,
+            slot_of, ks, top_cs[:, KV], T=T, KV=KV, PP=PP, PW=PW, M=M,
+            eps3=eps3)
+        kept = top_docs >= 0
+        if tc_mode:
+            top_cl_l = torch.gather(sel_cl, 1, top_l)
+            top_tc = torch.stack([torch.gather(x, 1, top_cl_l) for x in lanes],
+                                 dim=1)
+            flags = flags | (tc_saturated(top_tc, top_docs).to(torch.int32)
+                             * FLAG_TF_SAT)
+            top_tfs = torch.where(kept[:, None, :], top_tc & 0xFF, 0)
+        else:
+            top_tfs = torch.where(
+                kept[:, None, :],
+                _gather1d(postings_tf, _gather_slots(sel_pidx, top_l)), 0)
+        return pack_with_flags(top_docs, top_tfs, flags)
+
+    if tc_mode:
+        def kernel(postings_doc, postings_tc, avg32, dense_tf, *rest):
+            return body(postings_doc, postings_tc, None, avg32, dense_tf,
+                        *rest)
+    else:
+        def kernel(postings_doc, postings_score, postings_tf, dense_sc,
+                   *rest):
+            return body(postings_doc, postings_score, postings_tf, None,
+                        dense_sc, *rest)
 
     return kernel
 
@@ -738,9 +1121,9 @@ def make_semidense_phrase_kernel(T: int, L: int, KV: int, PP: int, PW: int,
 def _full_phrase_body(rows_f32, postings_doc, positions, pos_starts, starts,
                       ends, anchor, ks, *, T: int, N_pad: int, KV: int,
                       PP: int, PW: int, M: int, n_bs_iters: int,
-                      eps3: float):
-    """Full-scan dense phrase (raw columns): score every doc lane, verify
-    the KV best candidates, bound the rest by the exact (KV+1)-th value.
+                      eps3: float, rows_payload=None):
+    """Full-scan dense phrase: score every doc lane, verify the KV best
+    candidates, bound the rest by the exact (KV+1)-th value.
 
     Selection is a two-level exact top-(KV+1): per-128-block maxima, the
     top (KV+1) blocks re-sorted ascending, then the top (KV+1) of their
@@ -748,14 +1131,17 @@ def _full_phrase_body(rows_f32, postings_doc, positions, pos_starts, starts,
     strictly above the (KV+1)-th value is selected, so `unseen` is that
     value exactly. Membership in the selection comes from a scatter of
     the selected lane ids, never from the sort order; the (KV+1)-th lane
-    is not verified and stays in the band. Raw columns carry no exact
-    integer payload, so any unselected lane within the eps3 band of the
-    k-th kept score raises FLAG_PRUNE_MISS (the payload-tie refinement is
-    the tc variant's).
+    is not verified and stays in the band. Any unselected lane within the
+    eps3 band of the k-th kept score raises FLAG_PRUNE_MISS, except, with
+    rows_payload (tc columns), an exact payload tie: a lane whose integer
+    payload (len_code << 8 | tf on every term) equals the k-th kept doc's
+    has exactly its f64 score, so it can displace it only by the doc-asc
+    canon, and flags only if its doc id is smaller.
 
     rows_f32(t) -> (B, N_pad) f32 score contribution of query term t (0
-    where absent). All per-term arrays are in query-term order. Returns
-    (top_docs (B, M) i32, flags (B,) i32)."""
+    where absent); rows_payload(t) -> (B, N_pad) int32 payload lanes or
+    None. All per-term arrays are in query-term order. Returns (top_docs
+    (B, M) i32, flags (B,) i32)."""
     B = starts.shape[0]
     dev = starts.device
     score = torch.zeros((B, N_pad), dtype=torch.float32, device=dev)
@@ -788,7 +1174,9 @@ def _full_phrase_body(rows_f32, postings_doc, positions, pos_starts, starts,
         anchor, T=T, NL=KV, PP=PP, PW=PW)
     final_score = torch.where((sel_score > NEG_INF) & (n_matches > 0),
                               sel_score, NEG_INF)
-    top_score, top_l = torch.topk(final_score, M, dim=1)
+    # the sel lanes are in (score desc, doc asc) order, so a stable top-M
+    # puts the canonical doc at place k, which the payload-tie rule reads
+    top_score, top_l = _top_stable(final_score, M)
     top_docs = torch.where(top_score > NEG_INF,
                            torch.gather(sel_docs, 1, top_l), -1)
 
@@ -800,6 +1188,14 @@ def _full_phrase_body(rows_f32, postings_doc, positions, pos_starts, starts,
     safe_kth = torch.where(no_k, float("inf"), kth)
     band = (~selected & (score > NEG_INF)
             & (score >= safe_kth[:, None] * float(np.float32(1.0 - eps3))))
+    if rows_payload is not None:
+        kth_doc = torch.gather(top_docs, 1, k_idx[:, None]).clamp(min=0)
+        lane_id = torch.arange(N_pad, dtype=torch.int32, device=dev)
+        bad = lane_id[None, :] < kth_doc  # (B, N_pad)
+        for t in range(T):
+            pay = rows_payload(t)
+            bad |= pay != torch.gather(pay, 1, kth_doc.to(torch.int64))
+        band &= bad
     miss = (no_k & (unseen > NEG_INF)) | band.any(dim=1)
     flags = (boundary_truncated(final_score, top_score, M).to(torch.int32)
              | miss.to(torch.int32) * FLAG_PRUNE_MISS)
@@ -833,5 +1229,38 @@ def make_full_phrase_kernel(T: int, N_pad: int, KV: int, PP: int, PW: int,
                                       top_docs.clamp(min=0)), 0)
             for t in range(T)], dim=1)
         return pack_with_flags(top_docs, tfs, flags)
+
+    return kernel
+
+
+def make_full_phrase_kernel_tc(T: int, N_pad: int, KV: int, PP: int,
+                               PW: int, M: int, n_bs_iters: int,
+                               eps3: float):
+    """tc full-scan mega phrase: _full_phrase_body over lanes composed from
+    the uint8 tf plane and the shared len-code row (as
+    make_dense_search_kernel_tc), with the exact payload-tie refinement;
+    tfs and saturation from the kept lanes.
+
+    fn(dense_tf (H, N_pad) u8, len_code (N_pad,) u8, avg32, postings_doc,
+       positions, pos_starts, starts (B, T), ends (B, T), slots (B, T),
+       idf32 (B, T) f32, anchor (B,) i32, ks (B,) i32), per-term arrays in
+       query order -> packed (B, T+2, M) int32."""
+
+    def kernel(dense_tf, len_code, avg32, postings_doc, positions,
+               pos_starts, starts, ends, slots, idf32, anchor, ks):
+        rows = slots.to(torch.int64)
+        code_hi = len_code.to(torch.int32) << 8
+
+        def payload(t):
+            return _compose_tc(dense_tf[rows[:, t]], code_hi[None, :])
+
+        def row_f32(t):
+            return tc_score(payload(t), idf32[:, t : t + 1], avg32)
+
+        top_docs, flags = _full_phrase_body(
+            row_f32, postings_doc, positions, pos_starts, starts, ends,
+            anchor, ks, T=T, N_pad=N_pad, KV=KV, PP=PP, PW=PW, M=M,
+            n_bs_iters=n_bs_iters, eps3=eps3, rows_payload=payload)
+        return _pack_dense_tc(dense_tf, code_hi, slots, top_docs, flags, T)
 
     return kernel

@@ -10,7 +10,10 @@ queries touching cold terms have the needed posting runs staged per
 batch into a scratch column set and run the same bs kernel against it. With cold_transfer="packed", staged doc ids whose block
 deltas fit PACK_WIDTH bits ship bit-packed and are decoded on the device
 by the hand-written CUDA kernel (ops/unpack.py); wider runs ship raw in
-a trailing segment.
+a trailing segment. With columns="tc" the hot tier is a TorchEngine over
+tc columns (6 B per posting, 1 B per dense row per doc, so a budget holds
+more of the index) and the cold scratch ships one uint16 tc lane per
+posting instead of the f32 score and int32 tf columns.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ COLD_T_BUCKETS = [1, 2, 4, 8]
 # once the cold bs groups are lane-budgeted like the resident ones.
 COLD_L_MAX_MULTI = 524288
 BYTES_PER_POSTING = 12  # doc + tf + score columns (raw layout)
+BYTES_PER_POSTING_TC = 6  # doc + uint16 tc lane (compressed layout)
 # the resident engine stores bloom rows only for terms up to this df
 BLOOM_DF_CEILING = 32768
 # packed cold transport: blocks whose delta width fits PACK_WIDTH ship
@@ -88,10 +92,9 @@ def per_term_device_cost(packed: PackedIndex, columns: str = "raw",
 
     With split=True returns (core, phrase): core serves boolean/ranked
     queries, phrase (position bags + bloom rows) only phrase queries."""
-    if columns != "raw":
-        raise NotImplementedError("only raw columns are ported")
     lens = np.diff(packed.term_starts).astype(np.int64)
-    core = lens * (BYTES_PER_POSTING + 4)  # +4: int32 pos_starts per posting
+    bpp = BYTES_PER_POSTING_TC if columns == "tc" else BYTES_PER_POSTING
+    core = lens * (bpp + 4)  # +4: int32 pos_starts per posting
     s = packed.term_starts
     pos_cnt = (packed.pos_starts[s[1:]]
                - packed.pos_starts[s[:-1]]).astype(np.int64)
@@ -121,14 +124,15 @@ def _dense_eligible(packed: PackedIndex) -> np.ndarray:
 
 
 def _full_shares(packed: PackedIndex, cost_core: np.ndarray,
-                 cost_phr: np.ndarray):
+                 cost_phr: np.ndarray, columns: str = "raw"):
     """(dense, core, phrase) bytes at full residency: every eligible
-    dense row (capped as TorchEngine caps the tier), every CSR core and
-    every phrase component."""
+    dense row (capped as TorchEngine caps the tier; tc adds the shared
+    len-code row), every CSR core and every phrase component."""
     n_pad = (packed.n_docs + 127) // 128 * 128
-    per_row = n_pad * 8 + (n_pad // 128) * 9
+    per_row = n_pad * (1 if columns == "tc" else 8) + (n_pad // 128) * 9
     h_cap = max(0, (2**31 - 1) // max(n_pad // 128, 1) - 1)
-    full_dense = min(int(_dense_eligible(packed).sum()), h_cap) * per_row
+    full_dense = (min(int(_dense_eligible(packed).sum()), h_cap) * per_row
+                  + (n_pad if columns == "tc" else 0))
     return full_dense, int(cost_core.sum()), int(cost_phr.sum())
 
 
@@ -139,7 +143,8 @@ def full_residency_bytes(packed: PackedIndex, columns: str = "raw") -> int:
     tier at TpuEngine's default budget instead; this counts every
     eligible dense row."""
     return max(1, sum(_full_shares(
-        packed, *per_term_device_cost(packed, columns, split=True))))
+        packed, *per_term_device_cost(packed, columns, split=True),
+        columns)))
 
 
 def _hot_view(packed: PackedIndex, hot: np.ndarray, phrase_hot: np.ndarray):
@@ -218,13 +223,13 @@ class StagedEngine:
         dense rows, CSR cores and phrase components by their
         full-residency byte shares (total_full), spilling unspendable
         remainders dense -> core -> phrase (the reference's
-        proportional-share planner). device: "cuda" (default; raises
-        without a card) or "cpu"."""
+        proportional-share planner). columns: "raw" or "tc" (the hot
+        tier's and the cold scratch's layout). device: "cuda" (default;
+        raises without a card) or "cpu"."""
         if cold_transfer not in ("raw", "packed"):
             raise ValueError(f"unknown cold_transfer {cold_transfer!r}")
-        if columns != "raw":
-            raise NotImplementedError(
-                f"columns={columns!r}: only raw columns are ported (ROADMAP A.7)")
+        if columns not in ("raw", "tc"):
+            raise ValueError(f"unknown columns mode {columns!r}")
         self.device = resolve_device(device)
         self.cold_transfer = cold_transfer
         self.columns = columns
@@ -232,7 +237,7 @@ class StagedEngine:
         self.strict_parity = strict_parity
         cost_core, cost_phr = per_term_device_cost(packed, columns, split=True)
         full_dense, full_core, full_phr = _full_shares(packed, cost_core,
-                                                       cost_phr)
+                                                       cost_phr, columns)
         eligible = _dense_eligible(packed)
         self.total_full = total_full = max(1, full_dense + full_core + full_phr)
         B = int(hbm_budget_bytes)
@@ -284,7 +289,9 @@ class StagedEngine:
         self.similarity = Bm25Similarity(packed.avg_len)
         self.cache64 = self.similarity.cache
         scores64 = packed.partial_scores(self.cache64)
-        self._scores32 = scores64.astype(np.float32)
+        # the raw cold scratch's score column (tc ships tc lanes instead)
+        self._scores32 = (scores64.astype(np.float32) if columns == "raw"
+                          else None)
         # full-index single-term impact table (host RAM, any budget)
         self._st_depth = 64
         self._tt_starts, self._tt_docs, self._tt_scores = \
@@ -303,6 +310,8 @@ class StagedEngine:
             tb0 = (packed.term_starts[:-1] // BLOCK).astype(np.int64)
             self._pack16 = (np.maximum.reduceat(bw, tb0) <= PACK_WIDTH
                             if len(bw) else np.zeros(0, dtype=bool))
+        if columns == "tc":
+            self._code_u16 = packed.doc_len_code.astype(np.uint16)
 
     @property
     def hot_fraction(self) -> float:
@@ -459,7 +468,9 @@ class StagedEngine:
 
     def _stage_scratch(self, staged_terms: List[int]):
         """Host scratch columns for one chunk, laid out as the reference
-        lays them out. Returns (d_doc, d_sc, d_tf, scratch_start, cap)."""
+        lays them out. Returns (d_doc, cols, scratch_start, cap): cols the
+        bs kernel's posting-lane arguments after the doc column, (f32
+        score, int32 tf) raw or (uint16 tc as int16 bits, avg32) tc."""
         packed_mode = self.cold_transfer == "packed"
         if packed_mode:
             # pack-eligible runs first: the packed segment must be a
@@ -483,17 +494,28 @@ class StagedEngine:
             Grawb = _bucket(graw, _GRAW_BUCKETS) if graw else 0
             cap = _bucket(max(total + lmax, G16b * BLOCK,
                               A_total + Grawb * BLOCK), SCRATCH_BUCKETS)
+        tc = self.columns == "tc"
         s_doc = np.full(cap, SENTINEL_DOC, dtype=np.int32)
-        s_tf = np.zeros(cap, dtype=np.int32)
-        s_sc = np.zeros(cap, dtype=np.float32)
+        if tc:
+            s_tc = np.zeros(cap, dtype=np.uint16)
+        else:
+            s_tf = np.zeros(cap, dtype=np.int32)
+            s_sc = np.zeros(cap, dtype=np.float32)
         scratch_start: Dict[int, int] = {}
         pk = self.packed
         for i, r in enumerate(staged_terms):
             a, n = int(offs[i]), int(run_lens[i])
             src = int(self._starts32[r])
-            s_doc[a : a + n] = pk.postings_doc[src : src + n]
-            s_tf[a : a + n] = pk.postings_tf[src : src + n]
-            s_sc[a : a + n] = self._scores32[src : src + n]
+            docs = pk.postings_doc[src : src + n]
+            s_doc[a : a + n] = docs
+            if tc:
+                m = int(self._df32[r])  # real postings; run pads stay 0
+                s_tc[a : a + m] = (self._code_u16[docs[:m]] << np.uint16(8)) \
+                    | np.minimum(pk.postings_tf[src : src + m],
+                                 K.TF_SAT).astype(np.uint16)
+            else:
+                s_tf[a : a + n] = pk.postings_tf[src : src + n]
+                s_sc[a : a + n] = self._scores32[src : src + n]
             scratch_start[r] = a
         if packed_mode:
             w = PACK_WIDTH
@@ -514,7 +536,11 @@ class StagedEngine:
             self._bump(cold_packed_blocks=G16, cold_raw_postings=total - A_total)
         else:
             d_doc = self._to_dev(s_doc)
-        return d_doc, self._to_dev(s_sc), self._to_dev(s_tf), scratch_start, cap
+        if tc:
+            cols = (self._to_dev(s_tc.view(np.int16)), self.hot.d_avg32)
+        else:
+            cols = (self._to_dev(s_sc), self._to_dev(s_tf))
+        return d_doc, cols, scratch_start, cap
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -522,7 +548,7 @@ class StagedEngine:
     def _submit_cold_chunk(self, cold):
         staged_terms = sorted({r for _, rows, _ in cold for r in rows})
         t0 = time.perf_counter()
-        d_doc, d_sc, d_tf, scratch_start, _ = self._stage_scratch(staged_terms)
+        d_doc, cols, scratch_start, _ = self._stage_scratch(staged_terms)
         self._bump(route_cold_device=len(cold), cold_chunks=1,
                    cold_stage_s=time.perf_counter() - t0)
 
@@ -540,11 +566,10 @@ class StagedEngine:
             step = bs_chunk(T, L)
             for ci in range(0, len(group), step):
                 pending.append(self._dispatch_cold(
-                    group[ci : ci + step], T, L, d_doc, d_sc, d_tf,
-                    scratch_start))
+                    group[ci : ci + step], T, L, d_doc, cols, scratch_start))
         return pending
 
-    def _dispatch_cold(self, chunk, T, L, d_doc, d_sc, d_tf, scratch_start):
+    def _dispatch_cold(self, chunk, T, L, d_doc, cols, scratch_start):
         B = _bucket(len(chunk), COLD_B_BUCKETS)
         if B * max(T - 1, 1) * L > BS_LANE_BUDGET:
             # the coarse cold buckets would pad past the lane budget; the
@@ -552,6 +577,7 @@ class StagedEngine:
             B = _bucket(len(chunk), B_BUCKETS)
         starts = np.zeros((B, T), dtype=np.int32)
         ends = np.zeros((B, T), dtype=np.int32)
+        srows = np.zeros((B, T), dtype=np.int64)
         use_score = np.zeros((B, T), dtype=np.float32)
         idf64_q = np.zeros((B, T), dtype=np.float64)
         slot_of = np.zeros((B, T), dtype=np.int64)
@@ -565,6 +591,7 @@ class StagedEngine:
             order = [cslot] + [t for t in range(len(rows)) if t != cslot]
             for slot in range(T):
                 r = rows[order[slot] if slot < len(order) else order[0]]
+                srows[i, slot] = r
                 starts[i, slot] = scratch_start[r]
                 ends[i, slot] = scratch_start[r] + self._df32[r]
                 if slot < len(order):
@@ -574,10 +601,11 @@ class StagedEngine:
             for t, r in enumerate(rows):
                 idf64_q[i, t] = self.packed.idf64[r]
         M = min(L, int(ks.max(initial=1)) + self.margin)
-        kern = K.make_search_kernel(T, L, M, K.n_iters_for(self._max_df))
+        kern = K.make_search_kernel(T, L, M, K.n_iters_for(self._max_df),
+                                    mode=self.columns)
         t0 = time.perf_counter()
-        out = kern(d_doc, d_sc, d_tf, self._to_dev(starts),
-                   self._to_dev(ends), self._to_dev(use_score))
+        out = kern(d_doc, *cols, self._to_dev(starts), self._to_dev(ends),
+                   self._to_dev(self.hot._weights(srows, use_score)))
         self._bump(cold_dispatch_s=time.perf_counter() - t0)
         n = len(chunk)
 
@@ -593,8 +621,12 @@ class StagedEngine:
                 packed_out[:, 0, :], tf_q, idf64_q, self.packed.doc_len_code,
                 self.cache64)
             flags = packed_out[:, T + 1, 0]
-            suspects = (truncation_suspects(score_f, n_valid, ks, rel_eps=1e-6)
-                        | tie_class_cut(flags, score_f, n_valid, ks, 1e-6))
+            rel_eps = self.hot.rel_eps
+            # a kept saturated tc lane scored the optimistic bound
+            suspects = (truncation_suspects(score_f, n_valid, ks,
+                                            rel_eps=rel_eps)
+                        | tie_class_cut(flags, score_f, n_valid, ks, rel_eps)
+                        | ((flags & K.FLAG_TF_SAT) != 0))
             if self.strict_parity:
                 suspects = suspects | (flags != 0)
             self._bump(cold_host_fallback_q=int(suspects[:n].sum()))
