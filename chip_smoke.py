@@ -2,7 +2,7 @@
 """Chip smoke for wiser_tpu_torch: drive the port's main path once on one
 CUDA card and check it.
 
-    python3 chip_smoke.py            # the full smoke (one card, ~12 min)
+    python3 chip_smoke.py            # the full smoke (one card, ~15 min)
     python3 chip_smoke.py --docs 200000 --phases kernel,dense,phrase
 
 It always compiles csrc/unpack.cu for sm_90a first (nvcc, first use).
@@ -14,14 +14,23 @@ pairs mined from its first 2,000 bodies. Two AOL-mix query sets (k=10,
 seed 7): `aol` is bench.py's (Zipf ranks over the spelling-sorted term
 dictionary), `aol_df` the same ranks over terms sorted by df, so head
 terms meet; and `phrase`, 4,096 draws (seed 7) from the mined adjacent
-pairs, as the scale bench's config 4_phrase. Every run is a warm pass,
-then a timed pass with the result memos cleared, then parity of >= 200
+pairs, as the scale bench's config 4_phrase. Every run is a warm pass
+(on a 128-query prefix for the host-bound mixes: the staged and pruned
+phrase mixes and aol_df without a dense tier), then a
+timed pass with the result memos cleared, then parity of >= 200
 distinct multi-term queries against the exact host search (phrase
 search for phrases). Phases:
   kernel    the unpack kernel against its plain torch version and the
             repo's native codec, every width 1..32, G in {1, 256, 65536},
             bit for bit; kernel vs plain time at the staged shapes
-  resident  TorchEngine(dense_budget_bytes=0): bs routes and host merges
+  resident  TorchEngine(dense_budget_bytes=0): bs and windowed routes and
+            host merges; raises unless aol_df takes the windowed route.
+            Then `windowed`, up to 1,024 df-ranked draws (seed 8) that the
+            windowed route takes, served twice on the same engine: as
+            routed, and with the route switched off through its
+            thresholds (`windowed_bs`; the host-merge threshold raised
+            too, so every one of them takes bs), which times the windowed
+            kernel against bs on the same queries
   dense     TorchEngine at the default dense budget: dense, pruned
             (block-max) and semidense routes with the batched rescue;
             raises unless aol_df takes the pruned and semidense routes
@@ -29,22 +38,29 @@ search for phrases). Phases:
             full-scan mega (with its rescue), semidense, compact and
             list-chain phrase routes and the exact host phrase search;
             raises unless the full, semidense and compact-or-list routes
-            each answer some
+            each answer some; then a 1,024 prefix of it with
+            FULL_PHRASE_SCAN = False on the instance (`phrase_pruned`),
+            which must take the block-pruned mega route
   staged    StagedEngine with the device cold path and packed transport,
             at budget 0 and at a quarter of the full-residency bytes
-            (which must admit dense rows and stage cold chunks); the
-            unpack kernel's launches on those runs must be > 0
+            (which must admit dense rows and stage cold chunks), over
+            aol, aol_df and a 1,024 prefix of the phrase set: budget 0
+            must answer phrases on the cold device path (phrase_body over
+            staged position bags), the quarter budget some hot (the hot
+            engine's phrase routes) and some cold; the unpack kernel's
+            launches on those runs, phrase mixes included, must be > 0
   tc        TorchEngine(columns="tc") at the default dense budget over
-            all three sets; raises unless aol_df takes the pruned and
-            semidense routes, the phrase set the full-scan, semidense
-            and compact-or-list routes, its postings take at most 0.51
-            of the raw engine's bytes and its dense tier holds more rows
-            than the raw one (those two against the dense phase's engine,
-            when it ran)
+            all three sets, and the pruned phrase prefix as above;
+            raises unless aol_df takes the pruned and semidense routes,
+            the phrase set the full-scan, semidense and compact-or-list
+            routes, its postings take at most 0.51 of the raw engine's
+            bytes and its dense tier holds more rows than the raw one
+            (those two against the dense phase's engine, when it ran)
   staged_tc StagedEngine(columns="tc"), device cold path, packed
             transport, at a quarter of full_residency_bytes(packed,
-            "tc"); raises unless it admits dense rows, stages cold chunks
-            and launches the unpack kernel
+            "tc"), phrases included; raises unless it admits dense rows,
+            stages cold chunks, answers phrases hot and cold and launches
+            the unpack kernel
 
 Any failure raises before the last line. The last line of stdout is the
 contract's {"ok": true, "device": {...}}; the line before it lists the
@@ -271,6 +287,26 @@ def phrase_queries(pairs, n_queries: int, seed: int = 7):
             for i in idx]
 
 
+def windowed_eligible(packed, queries, limit: int):
+    """Up to `limit` of the queries that TorchEngine's routing sends to the
+    windowed kernel when it has no dense tier: 2+ terms, candidate (least
+    df) bucket within [WINDOWED_MIN_L, WINDOWED_MAX_L] and the longest
+    list's bucket at most WINDOWED_MAX_RATIO times it."""
+    from wiser_tpu_torch import TorchEngine as E
+    from wiser_tpu_torch.engine.host import L_BUCKETS, _bucket
+
+    out = []
+    for q in queries:
+        dfs = [int(packed.df[packed.term_to_row[t]]) for t in q.terms]
+        if len(dfs) < 2:
+            continue
+        L = _bucket(min(dfs), L_BUCKETS)
+        if (E.WINDOWED_MIN_L <= L <= E.WINDOWED_MAX_L
+                and _bucket(max(dfs), L_BUCKETS) // L <= E.WINDOWED_MAX_RATIO):
+            out.append(q)
+    return out[:limit]
+
+
 def parity_sample(queries):
     """Indices of up to PARITY_SAMPLE distinct multi-term queries."""
     seen, out = set(), []
@@ -313,15 +349,17 @@ def check_parity(packed, queries, results, sample, what: str,
     return len(sample)
 
 
-def serve(engine, queries, report_key: str, report: dict):
-    """Warm pass, then a timed pass with result memos cleared; returns the
-    timed pass's results. Kernel launch counts are zeroed just before the
-    timed pass and read just after it."""
+def serve(engine, queries, report_key: str, report: dict,
+          warm: int | None = None):
+    """Warm pass (over the first `warm` queries, or all), then a timed
+    pass over all of them with result memos cleared; returns the timed
+    pass's results. Kernel launch counts are zeroed just before the timed
+    pass and read just after it."""
     import torch
 
     from wiser_tpu_torch.ops import unpack as U
 
-    engine.search_batch(queries)
+    engine.search_batch(queries[:warm])
     engine.clear_result_memos()
     engine.stats_take()
     torch.cuda.synchronize()
@@ -334,7 +372,8 @@ def serve(engine, queries, report_key: str, report: dict):
     launches = dict(U.launch_counts)
     stats = engine.stats_take()
     multi = sum(len(q.terms) >= 2 for q in queries)
-    report[report_key] = {"queries": len(queries), "wall_s": wall,
+    report[report_key] = {"queries": len(queries), "warm_queries":
+                          len(queries[:warm]), "wall_s": wall,
                           "qps": len(queries) / wall, "stats": stats,
                           "multi_term_queries": multi, "launches": launches,
                           "peak_device_bytes": torch.cuda.max_memory_allocated()}
@@ -391,6 +430,45 @@ def check_staging(report: dict, name: str) -> None:
             f"chunks, {launches} unpack launches (all must be > 0)")
 
 
+def check_staged_phrases(report: dict, name: str) -> None:
+    """Phrases answered on the cold device path (phrase_body over staged
+    bags) with the unpack kernel launched, and at a budget that admits
+    terms some through the hot engine's phrase routes too."""
+    r = report[f"{name}_phrase"]
+    st = r["stats"]
+    hot = sum(v for k, v in st.items() if k.startswith("hot_route_phrase_"))
+    cold = st.get("route_cold_phrase", 0)
+    launches = r["launches"]["unpack_delta_blocks"]
+    r["phrase_split"] = {"hot": hot, "cold_device": cold,
+                         "cold_lane_budget_host":
+                             st.get("route_cold_phrase_host", 0),
+                         "cold_sat_host": st.get("route_cold_sat_host", 0)}
+    if cold <= 0 or launches <= 0 or (name != "staged" and hot <= 0):
+        raise AssertionError(
+            f"{name} phrase: {hot} hot, {cold} cold device phrases, "
+            f"{launches} unpack launches")
+
+
+def check_windowed(report: dict) -> None:
+    """Resident aol_df takes the windowed route; the windowed set takes
+    only it, and only bs with the route switched off."""
+    n = report["resident_aol_df"]["stats"].get("route_windowed", 0)
+    on = report["resident_windowed"]["stats"]
+    off = report["resident_windowed_bs"]["stats"]
+    if (n <= 0 or on.get("route_bs", 0) or on.get("route_host_merge", 0)
+            or off.get("route_windowed", 0) or off.get("route_host_merge", 0)
+            or on.get("route_windowed", 0) != off.get("route_bs", 0)):
+        raise AssertionError(
+            f"windowed: aol_df {n}; on {on}; off {off}")
+
+
+def check_pruned_phrases(report: dict, name: str) -> None:
+    st = report[f"{name}_phrase_pruned"]["stats"]
+    if st.get("route_phrase_pruned", 0) <= 0 or st.get("route_phrase_full"):
+        raise AssertionError(f"{name} phrase_pruned: no pruned mega route "
+                             f"{st}")
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -439,19 +517,33 @@ def main() -> int:
     if "kernel" in phases:
         kern.update(kernel_phase(report))
 
-    runs = []  # (run name, make engine, {mix: number of queries})
+    # (run name, make engine, {mix: (pool, number of queries, engine
+    # attributes set for that mix only, warm-pass queries or None = all)})
+    runs = []
     Q = args.queries
+    P = min(Q, 1024)  # the phrase prefix of the staged and pruned mixes
+    # mixes that spend seconds a pass on exact host searches and staging
+    # (the staged and pruned phrase mixes, and the df-ranked set without
+    # a dense tier) warm on a prefix
+    W = min(P, 128)
+    # the windowed set again with the route off: its groups take bs
+    windowed_off = {"WINDOWED_MIN_L": 1 << 30, "HOST_MERGE_MIN_L": 1 << 30}
+    pruned = {"FULL_PHRASE_SCAN": False}
     if "resident" in phases:
         # df-ranked head conjunctions cost ~0.14 s each on the exact host
         # merge at 1M docs without the dense tier: an eighth of the queries
         runs.append(("resident", lambda: TorchEngine(
             packed, device="cuda", dense_budget_bytes=0),
-            {"aol": Q, "aol_df": Q // 8}))
+            {"aol": ("aol", Q, {}, None), "aol_df": ("aol_df", Q // 8, {}, W),
+             "windowed": ("windowed", Q // 4, {}, None),
+             "windowed_bs": ("windowed", Q // 4, windowed_off, None)}))
     dense_mixes = {}
     if "dense" in phases:
-        dense_mixes.update(aol=Q, aol_df=Q)
+        dense_mixes.update(aol=("aol", Q, {}, None),
+                           aol_df=("aol_df", Q, {}, None))
     if "phrase" in phases:
-        dense_mixes["phrase"] = Q
+        dense_mixes.update(phrase=("phrase", Q, {}, None),
+                           phrase_pruned=("phrase", P, pruned, W))
     if dense_mixes:
         runs.append(("dense", lambda: TorchEngine(packed, device="cuda"),
                      dense_mixes))
@@ -468,15 +560,23 @@ def main() -> int:
         return make
 
     if "staged" in phases:
-        runs.append(("staged", staged(0), {"aol": Q, "aol_df": Q // 8}))
-        runs.append(("staged_q", staged(0.25), {"aol": Q, "aol_df": Q // 4}))
+        runs.append(("staged", staged(0), {
+            "aol": ("aol", Q, {}, None), "aol_df": ("aol_df", Q // 8, {}, W),
+            "phrase": ("phrase", P, {}, W)}))
+        runs.append(("staged_q", staged(0.25), {
+            "aol": ("aol", Q, {}, None), "aol_df": ("aol_df", Q // 4, {}, None),
+            "phrase": ("phrase", P, {}, W)}))
     if "tc" in phases:
         runs.append(("tc", lambda: TorchEngine(packed, device="cuda",
                                                columns="tc"),
-                     {"aol": Q, "aol_df": Q, "phrase": Q}))
+                     {"aol": ("aol", Q, {}, None),
+                      "aol_df": ("aol_df", Q, {}, None),
+                      "phrase": ("phrase", Q, {}, None),
+                      "phrase_pruned": ("phrase", P, pruned, W)}))
     if "staged_tc" in phases:
-        runs.append(("staged_tc", staged(0.25, "tc"),
-                     {"aol": Q, "aol_df": Q // 4}))
+        runs.append(("staged_tc", staged(0.25, "tc"), {
+            "aol": ("aol", Q, {}, None), "aol_df": ("aol_df", Q // 4, {}, None),
+            "phrase": ("phrase", P, {}, W)}))
     if runs:
         from wiser_tpu_torch import StagedEngine, TorchEngine
         from wiser_tpu_torch.engine.staged import full_residency_bytes
@@ -484,9 +584,13 @@ def main() -> int:
         packed, pairs = get_index(args.docs, report)
         pools = {"aol": aol_mixed_queries(packed, Q),
                  "aol_df": aol_mixed_queries(packed, Q, by_df=True),
-                 "phrase": phrase_queries(pairs, Q)}
+                 "phrase": phrase_queries(pairs, Q),
+                 # df-ranked draws the windowed route takes (seed 8)
+                 "windowed": windowed_eligible(
+                     packed, aol_mixed_queries(packed, 8 * Q, seed=8,
+                                               by_df=True), Q // 4)}
         expected: dict = {}
-        for name, make, sizes in runs:
+        for name, make, mixes in runs:
             t0 = time.perf_counter()
             eng = make()
             torch.cuda.synchronize()
@@ -498,41 +602,54 @@ def main() -> int:
                     "dense_build_s": hot.dense_build_s}
             if name.startswith("staged"):
                 info.update(hot_fraction=eng.hot_fraction,
+                            phrase_hot_fraction=float(
+                                eng.phrase_hot_mask.mean()),
                             hot_bytes_used=eng.hot_bytes_used,
                             total_full=eng.total_full)
             report[f"{name}_engine"] = info
             log(f"{name} engine: {info}")
-            for mix, nq in sizes.items():
-                queries = pools[mix][:nq]
+            for mix, (pool, nq, attrs, warm) in mixes.items():
+                queries = pools[pool][:nq]
                 key = f"{name}_{mix}"
-                res = serve(eng, queries, key, report)
+                for a, v in attrs.items():
+                    setattr(eng, a, v)  # this instance, this mix only
+                res = serve(eng, queries, key, report, warm)
+                for a in attrs:
+                    delattr(eng, a)
+                report[key]["engine_attrs"] = attrs
                 report[key]["parity_checked"] = check_parity(
                     packed, queries, res, parity_sample(queries), key,
                     expected)
             del eng, hot, res
             torch.cuda.empty_cache()
+        if "resident" in phases:
+            check_windowed(report)
         if "dense" in phases:
             check_dense_routes(report, "dense")
         if "phrase" in phases:
             check_phrase_routes(report, "dense")
+            check_pruned_phrases(report, "dense")
         if "tc" in phases:
             check_dense_routes(report, "tc")
             check_phrase_routes(report, "tc")
+            check_pruned_phrases(report, "tc")
             check_tc_capacity(report)
         staged_runs = [name for name, _, _ in runs
                        if name.startswith("staged")]
         for name in staged_runs:
             if name != "staged":  # budget 0 admits no dense rows
                 check_staging(report, name)
+            check_staged_phrases(report, name)
         kern["launches"] = sum(
             report[f"{name}_{mix}"]["launches"]["unpack_delta_blocks"]
-            for name in staged_runs for mix in ("aol", "aol_df"))
-        route_keys = ("route_", "flag_prune_miss", "flag_tf_sat",
-                      "prune_rescued", "forced_host", "host_exact_s",
-                      "rescue_s", "phrase_")
+            for name, _, mixes in runs if name in staged_runs
+            for mix in mixes)
+        route_keys = ("route_", "flag_", "prune_rescued", "forced_host",
+                      "host_exact_s", "rescue_s", "phrase_", "windowed_s",
+                      "bs_s", "cold_host_fallback_q", "cold_phrase_")
         summary = {}
-        for name, _, sizes in runs:
-            for mix in sizes:
+        for name, _, mixes in runs:
+            for mix in mixes:
                 r = report[f"{name}_{mix}"]
                 summary[f"{name}_{mix}"] = dict(
                     queries=r["queries"], qps=r["qps"],

@@ -152,7 +152,7 @@ def test_strict_parity_forces_truncated_rows():
 
 def test_host_merge_and_windowed_routes(corpus):
     """Lower the route thresholds so this small corpus exercises the host
-    merge and the windowed-eligible groups (which take bs here)."""
+    merge and the windowed block intersection."""
     packed, oracle = corpus
     te = TorchEngine(to_port(packed), device="cpu")
     te.HOST_MERGE_MIN_L = 128
@@ -162,7 +162,7 @@ def test_host_merge_and_windowed_routes(corpus):
     got = lists(te.search_batch(qs))
     assert got == lists(oracle.search(q) for q in qs)
     st = te.stats_take()
-    assert st["route_host_merge"] > 0 and st["route_bs_windowed"] > 0
+    assert st["route_host_merge"] > 0 and st["route_windowed"] > 0
 
 
 def test_phrase_query_raises(corpus, engines):

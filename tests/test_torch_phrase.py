@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import wiser_tpu.engine.device as JD
+import wiser_tpu.engine.staged as JS
 import wiser_tpu_torch.engine.kernels as TK
 from wiser_tpu.data.synth import make_docinfo, synth_docinfos, synth_query_terms
 from wiser_tpu.engine.device import TpuEngine, _PlannedQuery
@@ -505,7 +506,19 @@ def test_host_bloom_gate_exact_at_full_depth():
 
 
 def test_staged_engine_still_refuses_phrases(synth):
-    _, port, _ = synth
-    eng = StagedEngine(port, 1 << 30, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.search(SearchQuery(["t0", "t1"], n_results=5, is_phrase=True))
+    """The staged engine answers phrases: at a budget past full residency
+    every term is phrase-hot, so the hot engine's phrase routes serve
+    them, with the JAX staged engine's and the oracle's answers."""
+    jp, port, oracle = synth
+    te = StagedEngine(port, 1 << 30, device="cpu")
+    je = JS.StagedEngine(jp, 1 << 30)
+    assert te.phrase_hot_mask.all()
+    qs = [SearchQuery(t, n_results=5, is_phrase=True)
+          for t in synth_query_terms(12, 20, n_terms=2, seed=13)]
+    qs.append(SearchQuery(["t0", "t1"], n_results=5, is_phrase=True))
+    got = lists(te.search_batch(qs))
+    assert got == lists(je.search_batch(jq(qs)))
+    assert got == lists(oracle.search(q) for q in jq(qs))
+    st = te.stats_take()
+    assert st["hot_route_phrase_list"] == len({tuple(q.terms) for q in qs})
+    assert not any(k.startswith("route_cold") for k in st)

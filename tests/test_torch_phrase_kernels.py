@@ -18,6 +18,7 @@ phrase answer. The engine-level tests are in test_torch_phrase.py.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -465,3 +466,67 @@ def test_semidense_phrase_kernel_exact(dcorpus, KV):
             *(T_(a) for a in args)).numpy()
         np.testing.assert_array_equal(got, want)
         assert (got[:, 0] >= 0).any()
+
+
+@pytest.mark.parametrize("T", [2, 3])
+def test_phrase_body_exact(kcorpus, T):
+    """The bloomless phrase pipeline (the staged cold tier's step) on the
+    real columns with tie-free scores: packed output and the top-M score
+    plane equal, tolerance 0."""
+    jp, je, score = kcorpus
+    L, PP, _, starts, ends, use, slot_of, ks, _ = _group_inputs(
+        jp, je, T, seed=40 + T)
+    n_it = JK.n_iters_for(je._max_df)
+    n_pos = JK.n_iters_for(int(jp.max_tf.max()))
+    M = 20
+    args = (je._h_doc, score, je._h_tf, je._h_positions,
+            jp.pos_starts.astype(np.int32), starts, ends, use, slot_of)
+    kw = dict(T=T, L=L, PP=PP, M=M, n_bs_iters=n_it, n_pos_iters=n_pos)
+    want, want_s = jax.jit(lambda *a: JK.phrase_body(*a, **kw))(
+        *(J(a) for a in args))
+    got, got_s = TK.phrase_body(*(T_(a) for a in args), **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    kern = TK.make_phrase_kernel(T, L, PP, M, n_it, n_pos)
+    np.testing.assert_array_equal(kern(*(T_(a) for a in args)).numpy(),
+                                  np.asarray(want))
+    if T == 2:
+        assert (got.numpy()[:, 0] >= 0).sum() > 0  # real phrase matches
+
+
+def _block_planes(sc):
+    """Block max, second max (with multiplicity) and argmax lane of
+    (H, N_pad) dense score rows, as the engines build them."""
+    H, n_pad = sc.shape
+    sc3 = sc.reshape(H, n_pad // 128, 128)
+    top2 = np.partition(sc3, 126, axis=2)[:, :, 126:]
+    return (top2[:, :, 1].copy(), top2[:, :, 0].copy(),
+            np.argmax(sc3, axis=2).astype(np.uint8))
+
+
+@pytest.mark.parametrize("T,C,KV,k", [(2, 4, 40, 5), (3, 4, 40, 5),
+                                      (2, 6, 300, 10), (2, 12, 1535, 10)])
+def test_pruned_phrase_kernel_exact(dcorpus, T, C, KV, k):
+    """The block-pruned mega phrase over random dense rows (tie-free) on
+    the real presence pattern, with their block planes: a few blocks (the
+    guard flags), more, and all but one."""
+    jp, _, je, sc = dcorpus
+    NB = je._n_pad_docs // 128
+    KV = min(KV, C * 128 - 1)
+    terms = [t for t in HEADS if len(t) == T]
+    T, starts, ends, slots, use, anchor, ks, _, PP, PW = _full_inputs(
+        jp, je, terms, k)
+    M = min(KV, k + 6)
+    n_it = JK.n_iters_for(je._max_df)
+    bm, bm2, ap = _block_planes(sc)
+    args = (sc, je._h_dense_tf, bm, bm2, ap, je._h_doc, je._h_positions,
+            jp.pos_starts.astype(np.int32), starts, ends, slots, use, anchor,
+            ks)
+    want = np.asarray(JK.make_pruned_phrase_kernel(
+        T, NB, C, KV, PP, PW, M, n_it, 3e-6)(*(J(a) for a in args)))
+    got = TK.make_pruned_phrase_kernel(T, NB, C, KV, PP, PW, M, n_it, 3e-6)(
+        *(T_(a) for a in args)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[:, 0] >= 0).any()
+    if C == 4:
+        assert (got[:, T + 1, 0] & TK.FLAG_PRUNE_MISS).any()

@@ -185,9 +185,19 @@ def test_dense_rows_at_a_partial_budget(head_corpus, device_cold, frac):
 
 
 def test_phrase_query_raises(corpus):
-    packed, _ = corpus
-    eng = TS.StagedEngine(to_port(packed), 0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.search_batch([SearchQuery(["t0"], n_results=3),
-                          SearchQuery(["t0", "t1"], n_results=3,
-                                      is_phrase=True)])
+    """A phrase query does not raise: at budget 0 the staged engine
+    answers it (cold, memoized exact host phrase search) beside a term
+    query and the AND query over the same terms, as the JAX staged engine
+    and the oracle do."""
+    packed, oracle = corpus
+    te = TS.StagedEngine(to_port(packed), 0, device="cpu")
+    je = JS.StagedEngine(packed, 0)
+    qs = [SearchQuery(["t0"], n_results=3),
+          SearchQuery(["t0", "t1"], n_results=3, is_phrase=True),
+          SearchQuery(["t0", "t1"], n_results=3)]
+    qs += [SearchQuery(list(t), n_results=5, is_phrase=True)
+           for t in (("t1", "t0"), ("t2", "t5", "t7"))]
+    got = lists(te.search_batch(qs))
+    assert got == lists(je.search_batch(qs))
+    assert got == lists(oracle.search(q) for q in qs)
+    assert te.stats_take()["route_cold_host"] == len(qs) - 1

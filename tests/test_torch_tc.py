@@ -605,8 +605,18 @@ def test_staged_tc_saturated_cold(saturated, device_cold, budget_div):
 
 
 def test_staged_tc_still_refuses_phrases(staged_corpus):
-    jp, _ = staged_corpus
-    eng = TS.StagedEngine(to_port(jp), 1 << 30, device="cpu", columns="tc")
-    with pytest.raises(NotImplementedError):
-        eng.search(SearchQuery([jp.terms[0], jp.terms[1]], n_results=5,
-                               is_phrase=True))
+    """The tc staged engine answers phrases: past full residency through
+    the tc hot engine's phrase routes, with the JAX tc staged engine's and
+    the oracle's answers."""
+    jp, oracle = staged_corpus
+    te = TS.StagedEngine(to_port(jp), 1 << 30, device="cpu", columns="tc")
+    je = JS.StagedEngine(jp, 1 << 30, columns="tc")
+    qs = [SearchQuery([jp.terms[0], jp.terms[1]], n_results=5,
+                      is_phrase=True)]
+    qs += [SearchQuery(t, n_results=k, is_phrase=True)
+           for t in synth_query_terms(10, 20, n_terms=2, seed=31)
+           for k in (3, 10)]
+    three_way(te, je, oracle, qs)
+    st = te.stats_take()
+    assert st["hot_route_phrase_list"] > 0
+    assert not any(k.startswith("route_cold") for k in st)

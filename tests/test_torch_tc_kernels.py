@@ -700,3 +700,71 @@ def test_full_phrase_payload_tie_across_k(dcorpus):
     np.testing.assert_array_equal(g_docs[0].numpy(), np.asarray(w_docs)[0])
     assert g_docs[0].tolist() == [A, a, c]
     assert g_flags[0] & TK.FLAG_PRUNE_MISS
+
+
+# -- the bloomless phrase pipeline and the block-pruned mega phrase ---------------
+
+
+@pytest.mark.parametrize("T", [2, 3])
+def test_phrase_body_tc(kcorpus, T):
+    """phrase_body's tc mode (the mesh's phrase step) over hard lanes:
+    the others' tc scores sum first, then the candidate's; a kept lane
+    with a saturated tf byte in a matched slot raises FLAG_TF_SAT. The
+    top-M score planes are equal as sorted rows."""
+    jp, je, tc = kcorpus
+    L, PP, _, starts, ends, idf32, slot_of, ks, _ = group_inputs(
+        jp, je, T, seed=50 + T)
+    n_it = JK.n_iters_for(je._max_df)
+    n_pos = JK.n_iters_for(int(jp.max_tf.max()))
+    M = 20
+    kw = dict(T=T, L=L, PP=PP, M=M, n_bs_iters=n_it, n_pos_iters=n_pos)
+    args = (je._h_doc, je._h_positions, jp.pos_starts.astype(np.int32),
+            starts, ends, slot_of, tc, idf32, je._avg32)
+
+    def jax_body(doc, pos, ps, s, e, so, c, i, a):
+        return JK.phrase_body(doc, None, None, pos, ps, s, e, None, so,
+                              tc=c, idf32=i, avg32=a, **kw)
+
+    want, want_s = (np.asarray(x) for x in jref(jax_body, *args))
+    doc, pos, ps, s, e, so, c, i, a = (T_(x) for x in args)
+    got, got_s = TK.phrase_body(doc, None, None, pos, ps, s, e, None, so,
+                                tc=c, idf32=i, avg32=a, **kw)
+    got, got_s = got.numpy(), got_s.numpy()
+    clean = assert_packed_match(got, want, T)
+    np.testing.assert_array_equal(np.sort(got_s, axis=1),
+                                  np.sort(want_s, axis=1))
+    assert (got[clean, 0] >= 0).any()
+    if T == 2:
+        assert ((got[:, T + 1, 0] & TK.FLAG_TF_SAT) != 0).any()
+
+
+@pytest.mark.parametrize("T,C,KV,k", [(2, 4, 40, 5), (3, 4, 40, 5),
+                                      (2, 6, 300, 10), (2, 12, 1535, 10)])
+def test_pruned_phrase_kernel_tc(dcorpus, T, C, KV, k):
+    """The tc block-pruned mega phrase: quantized block bounds tie at the
+    C-th pick, so the planes are jittered above the bound (as in
+    test_pruned_dense_kernel_tc); both stages of the selection keep the
+    (score desc, index asc) canon, so the packed output is equal whole."""
+    jp, je, tf8, code, _ = dcorpus
+    NB = je._n_pad_docs // 128
+    KV = min(KV, C * 128 - 1)
+    bm, bm2, ap = bound_planes(je, tf8, code)
+    rng = np.random.default_rng(T * C + KV)
+    bm, bm2 = (np.where(p > 0, p * (1 + rng.random(p.shape) * 1e-3), 0)
+               .astype(np.float32) for p in (bm, bm2))
+    terms = [t for t in HEADS if len(t) == T]
+    T, starts, ends, slots, idf32, anchor, ks, PP, PW = full_inputs(
+        jp, je, terms, k)
+    M = min(KV, k + 6)
+    n_it = JK.n_iters_for(je._max_df)
+    args = (tf8, code, je._avg32, bm, bm2, ap, je._h_doc, je._h_positions,
+            jp.pos_starts.astype(np.int32), starts, ends, slots, idf32,
+            anchor, ks)
+    want = np.asarray(jref(JK.make_pruned_phrase_kernel_tc(
+        T, NB, C, KV, PP, PW, M, n_it, 3e-5), *args))
+    got = TK.make_pruned_phrase_kernel_tc(T, NB, C, KV, PP, PW, M, n_it,
+                                          3e-5)(*(T_(a) for a in args)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[:, 0] >= 0).any()
+    if C == 4:
+        assert (got[:, T + 1, 0] & TK.FLAG_PRUNE_MISS).any()

@@ -25,20 +25,27 @@ Routing (as TpuEngine at its defaults):
                        candidate list take semidense instead
   a dense other     -> semidense (candidate run x dense rows, short bs
                        for the non-dense others)
+  long, similar-length lists (candidate L bucket in [WINDOWED_MIN_L,
+  WINDOWED_MAX_L], longest list's bucket <= WINDOWED_MAX_RATIO x L)
+                    -> windowed block intersection
+                       (kernels.windowed_search_body), grouped by (T, L,
+                       longest list's bucket); FLAG_OVERFLOW rows take
+                       the exact host search
   2..8 terms        -> binary-search intersection (kernels.search_body),
                        grouped by (T bucket, candidate L bucket)
   > 8 terms         -> the same kernel with the exact slot count
   saturated, or candidate L bucket >= HOST_MERGE_MIN_L and not
   windowed-eligible -> memoized exact host search
-Windowed-eligible groups take the bs kernel: the windowed block compare
-exists for the TPU's slow element gathers, and bs is exact at every L.
 
 Phrase queries (2+ terms, is_phrase; as TpuEngine._submit_phrase):
   every term dense, candidate df > PHRASE_MAX_L, bags within bounds
-                    -> full-scan mega phrase (every doc lane scored from
-                       the dense rows, the KV best verified); its
+                    -> mega phrase: the full scan (every doc lane scored
+                       from the dense rows, the KV best verified) or, with
+                       FULL_PHRASE_SCAN off, the block-pruned scan of the
+                       PRUNED_PHRASE_C highest-bound blocks; its
                        prune-guard misses re-run once at KV =
-                       PRUNED_PHRASE_RETRY_KV in the batch's rescue
+                       PRUNED_PHRASE_RETRY_KV (pruned: and
+                       PRUNED_PHRASE_RETRY_C blocks) in the batch's rescue
   candidate L bucket > KV, every other term dense -> semidense phrase
   candidate L bucket > KV  -> compact phrase (bi-bloom gate, compaction
                               to the KV best, window verify)
@@ -85,9 +92,11 @@ from wiser_tpu_torch.types import SearchQuery, SearchResult
 # gathered values, the compare, the where results), so 2^28 lanes is
 # ~12 GB of intermediates: room on an 80 GB card beside the resident
 # columns (~1 GB at 1M docs) and a staged scratch, and wide enough that
-# L = 131072 groups (windowed-eligible queries now take bs) still run
-# at B = 1024 for T = 3.
+# L = 131072 groups still run at B = 1024 for T = 3.
 BS_LANE_BUDGET = 1 << 28
+# Window lanes one windowed group may hold, B * (T-1) * L * WIN: the
+# gathered window docs and their int64 indices per other slot
+WINDOWED_LANE_BUDGET = 1 << 27
 # The dense tier's lane budgets are the reference's (sized for a 16 GB
 # TPU); rebudgeting them for an 80 GB card is measured work (ROADMAP).
 SEMIDENSE_LANE_BUDGET = 1 << 27  # B * (T-1) * L per semidense group
@@ -115,6 +124,14 @@ def bs_chunk(T: int, L: int) -> int:
     """Widest B bucket whose bs group stays within BS_LANE_BUDGET."""
     return _chunk_within(BS_LANE_BUDGET, max(T - 1, 1) * L,
                          [b for b in B_BUCKETS if b <= B_CHUNK])
+
+
+def windowed_chunk(T: int, L: int, L2: int) -> int:
+    """Widest B bucket whose windowed group's (B, T-1, L, WIN) window
+    lanes stay within WINDOWED_LANE_BUDGET (the reference's cap)."""
+    win = K.default_win(L, L2 // 128)
+    return _chunk_within(WINDOWED_LANE_BUDGET, max(T - 1, 1) * L * win,
+                         B_BUCKETS)
 
 
 class TorchEngine:
@@ -154,6 +171,11 @@ class TorchEngine:
     # mega rescue's: the (KV+1)-th candidate score bounds the rest
     PRUNED_PHRASE_KV = 1024
     PRUNED_PHRASE_RETRY_KV = 4096
+    # the mega route scans every doc lane; False selects the block-pruned
+    # mega phrase (the C highest-bound blocks), whose misses retry at
+    # PRUNED_PHRASE_RETRY_C blocks and KV min(RETRY_KV, RETRY_C*128 - 1)
+    FULL_PHRASE_SCAN = True
+    PRUNED_PHRASE_RETRY_C = 1024
     PRUNED_PHRASE_MAX_PP = 128  # anchor bag bound of the mega route
     PHRASE_MAX_PW = 128  # every term's bag bound of the window verify
     POS_PAD = 1024  # trailing pad of the positions column (>= any PW)
@@ -619,7 +641,8 @@ class TorchEngine:
         lb = np.asarray(self._lb, dtype=np.int64)
         L_idx = np.minimum(np.searchsorted(lb, cand_df), len(lb) - 1)
         l2 = np.max(np.where(valid, dfs, 0), axis=1)
-        L2val = lb[np.minimum(np.searchsorted(lb, l2), len(lb) - 1)]
+        L2_idx = np.minimum(np.searchsorted(lb, l2), len(lb) - 1)
+        L2val = lb[L2_idx]
         Lval = lb[L_idx]
         windowed = ((n_terms > 1) & (Lval >= self.WINDOWED_MIN_L)
                     & (Lval <= self.WINDOWED_MAX_L)
@@ -630,13 +653,13 @@ class TorchEngine:
         def keep_only(keep):
             nonlocal qi_arr, n_terms, rows_pad, ks, valid, dfs, cand, \
                 cand_df, csr_bad, any_missing, Lval, windowed, T_idx, \
-                L_idx, flat_rows
+                L_idx, L2_idx, flat_rows
             (qi_arr, n_terms, rows_pad, ks, valid, dfs, cand, cand_df,
-             csr_bad, any_missing, Lval, windowed, T_idx, L_idx) = (
+             csr_bad, any_missing, Lval, windowed, T_idx, L_idx, L2_idx) = (
                 a[keep] for a in (
                     qi_arr, n_terms, rows_pad, ks, valid, dfs, cand,
                     cand_df, csr_bad, any_missing, Lval, windowed, T_idx,
-                    L_idx))
+                    L_idx, L2_idx))
             flat_rows = [flat_rows[i] for i in np.nonzero(keep)[0]]
 
         pending = []
@@ -690,8 +713,8 @@ class TorchEngine:
                       | (any_missing & ~semi))  # bs/single need every run
         bs = ~host_merge & ~semi
         self._bump(route_host_merge=int(host_merge.sum()),
-                   route_bs_windowed=int((windowed & bs).sum()),
-                   route_bs=int(bs.sum()))
+                   route_windowed=int((windowed & bs).sum()),
+                   route_bs=int((~windowed & bs).sum()))
         if host_merge.any():
             hm = np.nonzero(host_merge)[0]
 
@@ -706,7 +729,9 @@ class TorchEngine:
             return pending
         keep_only(bs)
 
-        key = T_idx.astype(np.int64) * 1000 + L_idx * 10
+        # windowed groups carry their longest list's bucket: L2 sizes G
+        key = (T_idx.astype(np.int64) * 1000 + L_idx * 10
+               + np.where(windowed, L2_idx + 1, 0))
         uniq_keys, inverse = np.unique(key, return_inverse=True)
 
         # slot order: candidate first, remaining real terms in query order,
@@ -724,7 +749,8 @@ class TorchEngine:
             members_all = np.nonzero(inverse == gi)[0]
             T = int(tb[gkey // 1000])
             L = int(lb[(gkey % 1000) // 10])
-            chunk = bs_chunk(T, L)
+            L2 = int(lb[gkey % 10 - 1]) if gkey % 10 else 0
+            chunk = windowed_chunk(T, L, L2) if L2 else bs_chunk(T, L)
             for ci in range(0, len(members_all), chunk):
                 m = members_all[ci : ci + chunk]
                 B = _bucket(len(m), B_BUCKETS)
@@ -745,7 +771,7 @@ class TorchEngine:
                 ks_g[: len(m)] = ks[m]
                 pending.append(self._dispatch_flat(
                     T, L, starts, ends, self._weights(slot_rows, use_score),
-                    idf64_q, slot_of, ks_g, qi_arr[m], flat_rows, m))
+                    idf64_q, slot_of, ks_g, qi_arr[m], flat_rows, m, L2=L2))
         return pending
 
     def _weights(self, rows: np.ndarray, use: np.ndarray) -> np.ndarray:
@@ -810,10 +836,18 @@ class TorchEngine:
         return finalize
 
     def _dispatch_flat(self, T, L, starts, ends, weights, idf64_q,
-                       slot_of, ks, qis, flat_rows, members):
+                       slot_of, ks, qis, flat_rows, members, L2: int = 0):
+        """One bs group, or with L2 (its longest list's bucket) one
+        windowed group."""
         M = min(L, int(ks.max(initial=1)) + self.margin)
-        kern = self._make("make_search_kernel", T, L, M,
-                          K.n_iters_for(self._max_df))
+        if L2:
+            route = "windowed"
+            kern = self._make("make_windowed_search_kernel", T, L, L2 // 128,
+                              M)
+        else:
+            route = "bs"
+            kern = self._make("make_search_kernel", T, L, M,
+                              K.n_iters_for(self._max_df))
         t0 = time.perf_counter()
         out = kern(self.d_postings_doc, *self._cols("list"),
                    self._to_dev(starts), self._to_dev(ends),
@@ -821,8 +855,8 @@ class TorchEngine:
         # host time to enqueue the group (it blocks when the card's launch
         # queue is full, so device-bound batches show up here too)
         dt = time.perf_counter() - t0
-        self._bump(dispatch_s=dt, bs_s=dt)
-        return self._finalizer("bs", out, T, slot_of, idf64_q, ks,
+        self._bump(**{"dispatch_s": dt, f"{route}_s": dt})
+        return self._finalizer(route, out, T, slot_of, idf64_q, ks,
                                np.asarray(qis), flat_rows,
                                np.asarray(members))
 
@@ -1148,7 +1182,7 @@ class TorchEngine:
                           and max(tfs) <= self.PHRASE_MAX_PW)
                     (mega if ok else rest).append(pq)
                 if mega:
-                    pending += self._submit_full_phrase(mega, rq)
+                    pending += self._submit_mega_phrase(mega, rq)
                 planned = rest
         # exact host: saturated candidates or csr-cold terms; (L, PP) keys
         # whose verify tensor exceeds the lane budget at the smallest B;
@@ -1265,17 +1299,20 @@ class TorchEngine:
                                [pq.rows for pq in group],
                                np.arange(len(group)), is_phrase=True)
 
-    def _submit_full_phrase(self, planned: List[_PlannedQuery], rq):
-        """All-dense mega phrases through the full-scan kernel, grouped by
-        (T, anchor bag bucket PP, every-bag bucket PW). Arrays are in
-        query-term order (adjacency is order-dependent); the anchor is the
-        term with the smallest max_tf. Prune-guard misses are deferred to
-        the batch's rescue."""
+    def _submit_mega_phrase(self, planned: List[_PlannedQuery], rq):
+        """All-dense mega phrases through the full-scan kernel (or, with
+        FULL_PHRASE_SCAN off, the block-pruned one), grouped by (T, anchor
+        bag bucket PP, every-bag bucket PW). Arrays are in query-term
+        order (adjacency is order-dependent); the anchor is the term with
+        the smallest max_tf. Prune-guard misses are deferred to the
+        batch's rescue."""
         pending = []
-        self._bump(route_phrase_full=len(planned))
+        route = "phrase_full" if self.FULL_PHRASE_SCAN else "phrase_pruned"
+        self._bump(**{f"route_{route}": len(planned)})
         n_pad = self._n_pad_docs
-        KV = min(self.PRUNED_PHRASE_KV, self.PRUNED_PHRASE_C * 128 - 1,
-                 n_pad - 1)
+        C = self.PRUNED_PHRASE_C
+        KV = min(self.PRUNED_PHRASE_KV, C * 128 - 1, n_pad - 1)
+        scan = n_pad if self.FULL_PHRASE_SCAN else C * 128
         max_tf = self.packed.max_tf
         groups: Dict[tuple, List[_PlannedQuery]] = {}
         for pq in planned:
@@ -1285,7 +1322,7 @@ class TorchEngine:
         for (T, PP, PW), members in groups.items():
             chunk = _chunk_within(
                 PRUNED_PHRASE_LANE_BUDGET,
-                max(T * n_pad, T * KV * PW, KV * PP * PW // 4),
+                max(T * scan, T * KV * PW, KV * PP * PW // 4),
                 self.PHRASE_B_BUCKETS)
             for ci in range(0, len(members), chunk):
                 group = members[ci : ci + chunk]
@@ -1311,10 +1348,10 @@ class TorchEngine:
                 w = self._weights(trows, use)
                 M = min(KV, int(ks.max(initial=1)) + self.margin)
                 t0 = time.perf_counter()
-                out = self._full_phrase_dispatch(T, PP, PW, M, KV, starts,
+                out = self._mega_phrase_dispatch(T, PP, PW, M, C, KV, starts,
                                                  ends, slots, w, anchor, ks)
                 dt = time.perf_counter() - t0
-                self._bump(dispatch_s=dt, phrase_full_s=dt)
+                self._bump(**{"dispatch_s": dt, f"{route}_s": dt})
                 # tfs come back in query-term order: identity slot_of
                 slot_of = np.tile(np.arange(T, dtype=np.int64), (B, 1))
                 qis = np.asarray([pq.qi for pq in group], dtype=np.int64)
@@ -1326,21 +1363,31 @@ class TorchEngine:
                          anchor=anchor, ks=ks, slot_of=slot_of,
                          idf64_q=idf64_q, qis=qis, members=m))
                 pending.append(self._finalizer(
-                    "phrase_full", out, T, slot_of, idf64_q, ks, qis,
+                    route, out, T, slot_of, idf64_q, ks, qis,
                     [pq.rows for pq in group], m, on_flags=on_flags,
                     is_phrase=True))
         return pending
 
-    def _full_phrase_dispatch(self, T, PP, PW, M, KV, starts, ends, slots,
-                              w, anchor, ks) -> torch.Tensor:
-        """The full-scan mega-phrase kernel at compaction width KV."""
+    def _mega_phrase_dispatch(self, T, PP, PW, M, C, KV, starts, ends,
+                              slots, w, anchor, ks) -> torch.Tensor:
+        """The mega-phrase kernel at compaction width KV: the full scan,
+        or with FULL_PHRASE_SCAN off the block-pruned scan of C blocks."""
         assert PW <= self.POS_PAD, "verify windows need POS_PAD >= PW"
         KV = min(KV, self._n_pad_docs - 1)
-        kern = self._make("make_full_phrase_kernel", T, self._n_pad_docs, KV,
-                          PP, PW, M, K.n_iters_for(self._max_df),
-                          3.0 * self.rel_eps)
-        return kern(*self._cols("dense"), self.d_postings_doc,
-                    self.d_positions, self.d_pos_starts, self._to_dev(starts),
+        n_bs, eps3 = K.n_iters_for(self._max_df), 3.0 * self.rel_eps
+        if self.FULL_PHRASE_SCAN:
+            kern = self._make("make_full_phrase_kernel", T, self._n_pad_docs,
+                              KV, PP, PW, M, n_bs, eps3)
+            planes = self._cols("dense")
+        else:
+            kern = self._make("make_pruned_phrase_kernel", T,
+                              self._n_pad_docs // 128, C, KV, PP, PW, M, n_bs,
+                              eps3)
+            planes = self._cols("dense") + (
+                self.d_dense_blockmax, self.d_dense_blockmax2,
+                self.d_dense_argpos)
+        return kern(*planes, self.d_postings_doc, self.d_positions,
+                    self.d_pos_starts, self._to_dev(starts),
                     self._to_dev(ends), self._to_dev(slots), self._to_dev(w),
                     self._to_dev(anchor), self._to_dev(ks))
 
@@ -1348,15 +1395,23 @@ class TorchEngine:
                        ks) -> np.ndarray:
         """The batch's mega-phrase misses re-run once at KV =
         PRUNED_PHRASE_RETRY_KV (a deeper compaction tightens the
-        unverified-lane bound), chunked within the mega lane budget.
-        Returns packed (n, T+2, M) rows; rows it still flags take the
-        exact host path."""
+        unverified-lane bound; the block-pruned scan also examines
+        PRUNED_PHRASE_RETRY_C blocks, which lowers the unexamined-block
+        bound), chunked within the mega lane budget. Returns packed (n,
+        T+2, M) rows; rows it still flags take the exact host path."""
         n = len(ks)
         t0 = time.perf_counter()
-        KV2 = min(self.PRUNED_PHRASE_RETRY_KV, self._n_pad_docs - 1)
+        if self.FULL_PHRASE_SCAN:
+            C2 = self.PRUNED_PHRASE_C  # unused by the full scan
+            KV2 = min(self.PRUNED_PHRASE_RETRY_KV, self._n_pad_docs - 1)
+            scan = self._n_pad_docs
+        else:
+            C2 = min(self.PRUNED_PHRASE_RETRY_C, self._n_pad_docs // 128 - 1)
+            KV2 = min(self.PRUNED_PHRASE_RETRY_KV, C2 * 128 - 1)
+            scan = C2 * 128
         chunk = _chunk_within(
             PRUNED_PHRASE_LANE_BUDGET,
-            max(T * self._n_pad_docs, T * KV2 * PW, KV2 * PP * PW // 4),
+            max(T * scan, T * KV2 * PW, KV2 * PP * PW // 4),
             self.PHRASE_B_BUCKETS)
         outs = []
         for ci in range(0, n, chunk):
@@ -1368,8 +1423,8 @@ class TorchEngine:
                 out[:cn] = a[ci : ci + cn]
                 return out
 
-            outs.append((ci, cn, self._full_phrase_dispatch(
-                T, PP, PW, M, KV2, pad(starts), pad(ends), pad(slots),
+            outs.append((ci, cn, self._mega_phrase_dispatch(
+                T, PP, PW, M, C2, KV2, pad(starts), pad(ends), pad(slots),
                 pad(w), pad(anchor), pad(ks))))
         out = np.empty((n, T + 2, M), dtype=np.int32)
         for ci, cn, o in outs:
@@ -1381,10 +1436,11 @@ class TorchEngine:
 
     def _flags_to_force(self, flags: np.ndarray,
                         rescue: bool = False) -> np.ndarray:
-        """Kernel flag word -> host-fallback mask. Window overflow, tf
-        saturation (a kept tc lane's tf byte saturated: its score was the
-        optimistic bound and its tf is wrong) and prune misses always
-        force the exact path (the kernels here raise no window overflow);
+        """Kernel flag word -> host-fallback mask. Window overflow (a
+        windowed query whose candidate block overlaps more blocks than its
+        window holds), tf saturation (a kept tc lane's tf byte saturated:
+        its score was the optimistic bound and its tf is wrong) and prune
+        misses always force the exact path;
         FLAG_TRUNC forces only under strict_parity — a truncated tie
         class breaks parity only when an excluded member f32-collides
         with a distinct f64 score. rescue=True: the rescue's second pass,
@@ -1402,6 +1458,7 @@ class TorchEngine:
 
         self._bump(q_flag_seen=len(flags),
                    flag_trunc=count(K.FLAG_TRUNC),
+                   flag_overflow=count(K.FLAG_OVERFLOW),
                    flag_tf_sat=count(K.FLAG_TF_SAT),
                    flag_prune_miss=count(K.FLAG_PRUNE_MISS),
                    forced_host=int(force.sum()))

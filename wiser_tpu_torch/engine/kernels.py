@@ -6,6 +6,10 @@ term) as a contiguous (B, L) slice, score it from the per-posting f32
 partial-score column, intersect by vectorized lower-bound binary search
 into every other slot's run, take the exact top-M lanes, and gather the
 per-slot tfs at the winners for the host's f64 re-rank (engine/topk.py).
+Long, similar-length lists take the windowed block intersection instead
+(windowed_search_body: each candidate block placed against the other
+list's block summaries, a searchsorted into a WIN-block window, and a
+per-query FLAG_OVERFLOW where the window is too narrow).
 
 The dense head-term tier: head terms keep (N_pad,) f32 score and int32
 tf rows (lane = doc id, 0 = absent). All-head conjunctions scan the doc
@@ -21,7 +25,10 @@ KV best AND scores, window verify); the semidense phrase route (dense
 membership before the compaction, no bloom gate); and the full-scan mega
 phrase (make_full_phrase_kernel: every doc lane scored from the dense
 rows, the KV best verified, the rest bounded by the exact (KV+1)-th
-value). Compaction keeps lax.top_k's index-ascending tie order through a
+value) or its block-pruned form (make_pruned_phrase_kernel: only the C
+highest-bound blocks scored); and the bloomless self-contained
+phrase_body (make_phrase_kernel), which the staged cold tier runs over
+its scratch columns. Compaction keeps lax.top_k's index-ascending tie order through a
 stable descending sort, so the compacted set is the canonical one on
 every device; positions may live on the device as 2-byte int16 bits and
 are widened at load (_pos_gather).
@@ -36,8 +43,10 @@ any query keeping such a lane raises FLAG_TF_SAT for the exact host path.
 Each tc step is its reference's (make_search_kernel(mode="tc"),
 make_match_kernel_tc, make_select_topk_kernel_tc, the tc modes of the
 compact and semidense phrase kernels, make_semidense_kernel_tc,
-make_dense_search_kernel_tc, make_pruned_dense_kernel_tc and
-make_full_phrase_kernel_tc with its exact payload-tie refinement).
+make_dense_search_kernel_tc, make_pruned_dense_kernel_tc,
+make_full_phrase_kernel_tc with its exact payload-tie refinement,
+make_pruned_phrase_kernel_tc, and the tc modes of phrase_body and
+windowed_search_body).
 
 Slot convention (host assembly): slot 0 is the candidate term; the other
 terms fill slots 1..T-1; padded slots repeat slot 0 with use_score 0
@@ -51,7 +60,8 @@ as the reference sums them (eager torch runs each add as its own
 operation, so nothing contracts into an FMA): the prune guard's proof
 needs the score and its bound summed in the same order, and the flag
 words then equal the reference's. In tc mode the other slots of the bs,
-match and compact steps sum first and are then added to the candidate's
+match, compact, windowed and phrase_body steps sum first and are then
+added to the candidate's
 score, as the reference writes it. A divisor is always a tensor on the
 operands' device: CUDA divides by a CPU scalar as a multiply by its
 reciprocal, which may round differently.
@@ -344,6 +354,145 @@ def make_search_kernel(T: int, L: int, M: int, n_bs_iters: int,
 def n_iters_for(max_len: int) -> int:
     """Binary-search iteration count covering lists up to max_len."""
     return max(1, int(np.ceil(np.log2(max(2, int(max_len) + 1)))))
+
+
+# -- the windowed block intersection ------------------------------------------
+
+
+def default_win(L: int, G: int) -> int:
+    """Window width in blocks: ~2x the other list's blocks per candidate
+    block, at most 16."""
+    ratio = max(1, (G * 128) // max(L, 1))
+    return min(16, 2 * ratio + 2)
+
+
+def windowed_search_body(postings_doc, postings_score, postings_tf, starts,
+                         ends, use_score, *, T: int, L: int, G: int, M: int,
+                         WIN: int, tc=None, idf32=None, avg32=None):
+    """AND of long, similar-length lists by windowed block intersection.
+
+    Each 128-lane candidate block is placed against the other list's block
+    summaries (first doc of each block, G blocks cover its run): the
+    window starts at the last block whose first doc is <= the candidate
+    block's min and spans WIN blocks. A query whose candidate block
+    overlaps more than WIN blocks (from the summaries alone) raises
+    FLAG_OVERFLOW and takes the exact host path; no other query pays for
+    it. Inside the window a candidate doc matches at most one lane (doc
+    ids are unique in a run, the window row ascends and masked lanes hold
+    INT32_MAX), found by a searchsorted into the window row and gathered:
+    the same function as the reference's 0/1 equality contraction,
+    without its (128 x WIN*128) tensor per block. Partial scores and tc
+    lanes of real postings are > 0, so a nonzero payload is membership.
+
+    Scores sum as the bs step sums them: raw cscore * use + the others in
+    slot order; tc the others' tc_score in slot order, then added to the
+    candidate's. tc mode as in search_body. Returns (top_docs (B, M) i32,
+    top_score (B, M) f32, top_tfs (B, T, M) i32, 0 outside the kept lanes,
+    flags (B,) i32)."""
+    B = starts.shape[0]
+    I = L // 128
+    tc_mode = tc is not None
+    dev = starts.device
+    cdocs, cval, cvalid, cs = _candidates(
+        postings_doc, tc if tc_mode else postings_score, starts, ends, L)
+    cblocks = cdocs.view(B, I, 128)
+    cbmin = cblocks[:, :, 0].contiguous()  # the first lane is the min
+    cbmax = torch.where(cblocks < INT32_MAX, cblocks, -1).amax(dim=2)
+    has_cand = cbmax >= 0
+    real = cblocks < INT32_MAX
+    g = torch.arange(G, dtype=torch.int64, device=dev)
+    w = torch.arange(WIN, dtype=torch.int64, device=dev)
+    lane = torch.arange(128, dtype=torch.int64, device=dev)
+    overflow = torch.zeros(B, dtype=torch.bool, device=dev)
+    others = []  # per other slot: (B, L) matched payload (score, tf) or tc
+    for t in range(1, T):
+        st = starts[:, t].to(torch.int64)
+        nblocks = (ends[:, t].to(torch.int64) - st + 127) >> 7
+        sblock = st >> 7  # runs are 128-aligned
+        gvalid = g[None, :] < nblocks[:, None]  # (B, G)
+        rows_idx = (sblock[:, None]
+                    + torch.minimum(g[None, :], nblocks[:, None] - 1)).clamp(min=0)
+        obfirst = torch.where(gvalid, _gather1d(postings_doc, rows_idx * 128),
+                              INT32_MAX).to(torch.int32)
+
+        def last_block_le(x):
+            # count(obfirst <= x) over the valid blocks - 1, at least 0
+            n_le = torch.searchsorted(obfirst, x, right=True)
+            return (torch.minimum(n_le, nblocks[:, None]) - 1).clamp(min=0)
+
+        j_lo = last_block_le(cbmin)  # (B, I)
+        j_hi = last_block_le(cbmax.contiguous())
+        overflow |= ((j_hi - j_lo + 1 > WIN) & has_cand).any(dim=1)
+        j = j_lo[:, :, None] + w  # (B, I, WIN)
+        wvalid = j < nblocks[:, None, None]
+        wrow = sblock[:, None, None] + torch.minimum(
+            j, (nblocks - 1).clamp(min=0)[:, None, None])
+        widx = (wrow[..., None] * 128 + lane).view(B, I, WIN * 128)
+        wdocs = torch.where(wvalid.repeat_interleave(128, dim=2),
+                            _gather1d(postings_doc, widx), INT32_MAX)
+        pos = torch.searchsorted(wdocs, cblocks).clamp(max=WIN * 128 - 1)
+        hit = real & (torch.gather(wdocs, 2, pos) == cblocks)
+        pidx = torch.gather(widx, 2, pos).view(B, L)
+        hit = hit.view(B, L)
+        if tc_mode:
+            others.append(torch.where(hit, _u16(_gather1d(tc, pidx)), 0))
+        else:
+            others.append((torch.where(hit, _gather1d(postings_score, pidx), 0.0),
+                           torch.where(hit, _gather1d(postings_tf, pidx), 0)))
+    if tc_mode:
+        tc_lanes = torch.stack(others, dim=1)  # (B, T-1, L)
+        match = (tc_lanes > 0).all(dim=1) & cvalid
+        score = tc_score(cval, idf32[:, 0:1], avg32) + _seq_sum(
+            tc_score(tc_lanes, idf32[:, 1:, None], avg32))
+    else:
+        partial = torch.stack([p for p, _ in others], dim=1)
+        match = (partial > 0).all(dim=1) & cvalid
+        score = cval * use_score[:, 0:1] + _seq_sum(
+            partial * use_score[:, 1:, None])
+    score = torch.where(match, score, NEG_INF)
+    top_score, top_l = two_level_top_m(score, M)
+    kept = top_score > NEG_INF
+    top_docs = torch.where(kept, torch.gather(cdocs, 1, top_l), -1)
+    flags = (boundary_truncated(score, top_score, M).to(torch.int32)
+             | overflow.to(torch.int32) * FLAG_OVERFLOW)
+    top_rest_l = top_l[:, None, :].expand(B, T - 1, M)
+    if tc_mode:
+        top_tc = torch.cat([torch.gather(cval, 1, top_l)[:, None, :],
+                            torch.gather(tc_lanes, 2, top_rest_l)], dim=1)
+        top_tfs = top_tc & 0xFF
+        flags = flags | (tc_saturated(top_tc, top_docs).to(torch.int32)
+                         * FLAG_TF_SAT)
+    else:
+        cand_tf = _gather1d(postings_tf, cs[:, None] + top_l.to(torch.int32))
+        rest_tf = torch.stack([f for _, f in others], dim=1)
+        top_tfs = torch.cat([cand_tf[:, None, :],
+                             torch.gather(rest_tf, 2, top_rest_l)], dim=1)
+    top_tfs = torch.where(kept[:, None, :], top_tfs, 0)
+    return top_docs, top_score, top_tfs, flags
+
+
+def make_windowed_search_kernel(T: int, L: int, G: int, M: int,
+                                mode: str = "raw"):
+    """windowed_search_body at fixed shapes (WIN = default_win(L, G)),
+    returning the packed (B, T+2, M) int32 array; the arguments are
+    make_search_kernel's."""
+    win = default_win(L, G)
+
+    if mode == "tc":
+        def kernel(postings_doc, postings_tc, avg32, starts, ends, idf32):
+            top_docs, _, top_tfs, flags = windowed_search_body(
+                postings_doc, None, None, starts, ends, None, T=T, L=L, G=G,
+                M=M, WIN=win, tc=postings_tc, idf32=idf32, avg32=avg32)
+            return pack_with_flags(top_docs, top_tfs, flags)
+    else:
+        def kernel(postings_doc, postings_score, postings_tf, starts, ends,
+                   use_score):
+            top_docs, _, top_tfs, flags = windowed_search_body(
+                postings_doc, postings_score, postings_tf, starts, ends,
+                use_score, T=T, L=L, G=G, M=M, WIN=win)
+            return pack_with_flags(top_docs, top_tfs, flags)
+
+    return kernel
 
 
 # -- the dense head-term tier ------------------------------------------------
@@ -909,6 +1058,63 @@ def _pack_tc_lanes(postings_tc, top_pidx, top_sat, top_docs, flags):
                            flags | sat.to(torch.int32) * FLAG_TF_SAT)
 
 
+def phrase_body(postings_doc, postings_score, postings_tf, positions,
+                pos_starts, starts, ends, use_score, slot_of, *, T: int,
+                L: int, PP: int, M: int, n_bs_iters: int, n_pos_iters: int,
+                tc=None, idf32=None, avg32=None):
+    """The self-contained bloomless phrase pipeline: bs match of slots 1..
+    against the slot-0 candidate run, adjusted-position verify of the
+    matched lanes in query-term order (bases from query term 0's bag, at
+    most PP of them), exact top-M. The bi-bloom gate only prunes, so a
+    scratch column set without bloom rows gives the same answers.
+
+    slot_of: (B, T) query term -> kernel slot. tc mode: pass the tc
+    column as tc, idf32 ((B, T) f32 in slot order, 0 on padded slots)
+    and avg32 instead of the score / tf columns and use_score; kept lanes
+    with a saturated tf byte in a matched slot raise FLAG_TF_SAT. Returns
+    (packed (B, T+2, M) int32, top_score (B, M) f32)."""
+    tc_mode = tc is not None
+    cdocs, match, pidx, score, sat_lane = _match_step(
+        postings_doc, tc if tc_mode else postings_score, starts, ends,
+        idf32 if tc_mode else use_score, T=T, L=L, n_bs_iters=n_bs_iters,
+        avg32=avg32 if tc_mode else None)
+    n_matches = make_phrase_verify_kernel(T, L, PP, n_pos_iters)(
+        positions, pos_starts, _slot_gather_q(pidx, slot_of), match)
+    score = torch.where(match & (n_matches > 0), score, NEG_INF)
+    top_score, top_l = two_level_top_m(score, M)
+    top_docs = torch.where(top_score > NEG_INF,
+                           torch.gather(cdocs, 1, top_l), -1)
+    top_pidx = _gather_slots(pidx, top_l)
+    flags = boundary_truncated(score, top_score, M).to(torch.int32)
+    if tc_mode:
+        packed = _pack_tc_lanes(tc, top_pidx, torch.gather(sat_lane, 1, top_l),
+                                top_docs, flags)
+    else:
+        packed = pack_with_flags(
+            top_docs, torch.where(top_docs[:, None, :] >= 0,
+                                  _gather1d(postings_tf, top_pidx), 0), flags)
+    return packed, top_score
+
+
+def make_phrase_kernel(T: int, L: int, PP: int, M: int, n_bs_iters: int,
+                       n_pos_iters: int):
+    """phrase_body (raw columns) at fixed shapes: the staged cold tier's
+    phrase step over a scratch column set, which carries no bloom rows.
+
+    fn(postings_doc, postings_score, postings_tf, positions, pos_starts,
+       starts, ends, use_score, slot_of) -> packed (B, T+2, M) int32."""
+
+    def kernel(postings_doc, postings_score, postings_tf, positions,
+               pos_starts, starts, ends, use_score, slot_of):
+        packed, _ = phrase_body(
+            postings_doc, postings_score, postings_tf, positions, pos_starts,
+            starts, ends, use_score, slot_of, T=T, L=L, PP=PP, M=M,
+            n_bs_iters=n_bs_iters, n_pos_iters=n_pos_iters)
+        return packed
+
+    return kernel
+
+
 def _verify_pos_windows(positions, ps, pe, anchor, *, T: int, NL: int,
                         PP: int, PW: int):
     """Adjusted-position verification by windows: each (term, lane) bag
@@ -1114,6 +1320,142 @@ def make_semidense_phrase_kernel(T: int, L: int, KV: int, PP: int, PW: int,
                    *rest):
             return body(postings_doc, postings_score, postings_tf, None,
                         dense_sc, *rest)
+
+    return kernel
+
+
+def _pruned_phrase_body(lanes, blockmax, blockmax2, argpos, postings_doc,
+                        positions, pos_starts, starts, ends, slots, weights,
+                        anchor, ks, *, T: int, NB: int, C: int, KV: int,
+                        PP: int, PW: int, M: int, n_bs_iters: int,
+                        eps3: float):
+    """Block-pruned mega phrase: the C highest-bound 128-doc blocks
+    (_select_ub_blocks; weights are the bound's per-slot multipliers), their
+    C*128 lanes scored in query-term order from zeros, compacted to the KV
+    best AND scores (stable: score desc, lane asc, the canonical set),
+    posting indices recovered by binary search (a matched doc is in every
+    term's run: the dense rows are built from them), window verify, then
+    a stable top-M over the (score desc, doc asc) ordered selection. The
+    guard bound is the larger of the (C+1)-th block bound (every
+    unexamined block) and the (KV+1)-th AND score (every unverified lane):
+    phrase matches are a subset of AND matches.
+
+    lanes(t, blk) -> ((B, C, 128) payload lanes, 0 = absent; their f32
+    score contributions). Per-term arrays are in query-term order; anchor
+    (B,) is the term whose bag gives the bases. Returns (top_docs (B, M)
+    int32 or -1, cand_l (B, M) int64 kept lanes in the C*128 selection,
+    payloads [(B, C*128)] per term, flags (B,) int32)."""
+    B = slots.shape[0]
+    CL = C * 128
+    blk, next_ub = _select_ub_blocks(blockmax, slots, weights, T=T, NB=NB,
+                                     C=C, blockmax2=blockmax2, argpos=argpos)
+    lane = torch.arange(128, dtype=torch.int64, device=blk.device)
+    cand_docs = (blk[:, :, None] * 128 + lane).reshape(B, CL)
+    match = torch.ones((B, CL), dtype=torch.bool, device=blk.device)
+    score = torch.zeros((B, CL), dtype=torch.float32, device=blk.device)
+    payloads = []
+    for t in range(T):
+        p, contrib = lanes(t, blk)
+        p = p.reshape(B, CL)
+        payloads.append(p)
+        match &= p > 0
+        score = score + contrib.reshape(B, CL)
+    score = torch.where(match, score, NEG_INF)
+    del match
+    top_cs, top_cl = _top_stable(score, KV + 1)
+    unseen = top_cs[:, KV]
+    sel_score = top_cs[:, :KV]
+    sel_l = top_cl[:, :KV]
+    sel_docs = torch.gather(cand_docs, 1, sel_l).to(torch.int32)
+    # invalid lanes recover in-range garbage, masked by their score
+    lo = _binary_search(postings_doc, sel_docs[:, None, :].expand(B, T, KV),
+                        starts[:, :, None], ends[:, :, None], n_bs_iters)
+    n_matches = _verify_pos_windows(
+        positions, _gather1d(pos_starts, lo), _gather1d(pos_starts, lo + 1),
+        anchor, T=T, NL=KV, PP=PP, PW=PW)
+    final_score = torch.where((sel_score > NEG_INF) & (n_matches > 0),
+                              sel_score, NEG_INF)
+    top_score, top_l = _top_stable(final_score, M)
+    top_docs = torch.where(top_score > NEG_INF,
+                           torch.gather(sel_docs, 1, top_l), -1)
+    flags = (boundary_truncated(final_score, top_score, M).to(torch.int32)
+             | prune_guard_flag(top_score, torch.maximum(next_ub, unseen), ks,
+                                M=M, eps3=eps3))
+    return top_docs, torch.gather(sel_l, 1, top_l), payloads, flags
+
+
+def make_pruned_phrase_kernel(T: int, NB: int, C: int, KV: int, PP: int,
+                              PW: int, M: int, n_bs_iters: int, eps3: float):
+    """Raw-column block-pruned mega phrase (_pruned_phrase_body), the
+    per-term tfs from the dense tf rows at the kept docs.
+
+    fn(dense_sc (H, NB*128) f32, dense_tf (H, NB*128) i32, blockmax,
+       blockmax2 (H, NB) f32, argpos (H, NB) u8, postings_doc, positions,
+       pos_starts, starts (B, T), ends (B, T), slots (B, T), use_score
+       (B, T) f32, anchor (B,) i32, ks (B,) i32), per-term arrays in query
+       order -> packed (B, T+2, M) int32."""
+
+    def kernel(dense_sc, dense_tf, blockmax, blockmax2, argpos, postings_doc,
+               positions, pos_starts, starts, ends, slots, use_score, anchor,
+               ks):
+        sc_rows = dense_sc.view(dense_sc.shape[0] * NB, 128)
+        rows = slots.to(torch.int64)
+
+        def lanes(t, blk):
+            p = sc_rows[rows[:, t : t + 1] * NB + blk]  # (B, C, 128)
+            return p, p * use_score[:, t, None, None]
+
+        top_docs, _, _, flags = _pruned_phrase_body(
+            lanes, blockmax, blockmax2, argpos, postings_doc, positions,
+            pos_starts, starts, ends, slots, use_score, anchor, ks, T=T,
+            NB=NB, C=C, KV=KV, PP=PP, PW=PW, M=M, n_bs_iters=n_bs_iters,
+            eps3=eps3)
+        tfs = torch.stack([
+            torch.where(top_docs >= 0,
+                        _dense_gather(dense_tf, slots[:, t : t + 1], top_docs),
+                        0)
+            for t in range(T)], dim=1)
+        return pack_with_flags(top_docs, tfs, flags)
+
+    return kernel
+
+
+def make_pruned_phrase_kernel_tc(T: int, NB: int, C: int, KV: int, PP: int,
+                                 PW: int, M: int, n_bs_iters: int,
+                                 eps3: float):
+    """make_pruned_phrase_kernel over the uint8 tf plane and the shared
+    len-code row, composed per selected block; scored by tc_score with
+    idf32 (B, T) in query order (the block weights are idf32 > 0); tfs
+    and saturation from the kept lanes.
+
+    fn(dense_tf (H, NB*128) u8, len_code (NB*128,) u8, avg32, blockmax,
+       blockmax2, argpos, postings_doc, positions, pos_starts, starts,
+       ends, slots, idf32, anchor, ks) -> packed (B, T+2, M) int32."""
+
+    def kernel(dense_tf, len_code, avg32, blockmax, blockmax2, argpos,
+               postings_doc, positions, pos_starts, starts, ends, slots,
+               idf32, anchor, ks):
+        tf_rows = dense_tf.view(dense_tf.shape[0] * NB, 128)
+        code_hi = len_code.to(torch.int32) << 8
+        rows = slots.to(torch.int64)
+
+        def lanes(t, blk):
+            p = _compose_tc(tf_rows[rows[:, t : t + 1] * NB + blk],
+                            code_hi.view(NB, 128)[blk])
+            return p, tc_score(p, idf32[:, t, None, None], avg32)
+
+        top_docs, cand_l, payloads, flags = _pruned_phrase_body(
+            lanes, blockmax, blockmax2, argpos, postings_doc, positions,
+            pos_starts, starts, ends, slots, (idf32 > 0).to(torch.float32),
+            anchor, ks, T=T, NB=NB, C=C, KV=KV, PP=PP, PW=PW, M=M,
+            n_bs_iters=n_bs_iters, eps3=eps3)
+        top_tc = torch.stack([torch.gather(p, 1, cand_l) for p in payloads],
+                             dim=1)
+        kept = top_docs >= 0
+        flags = flags | tc_saturated(top_tc, top_docs).to(torch.int32) \
+            * FLAG_TF_SAT
+        return pack_with_flags(
+            top_docs, torch.where(kept[:, None, :], top_tc & 0xFF, 0), flags)
 
     return kernel
 

@@ -1,19 +1,26 @@
 """StagedEngine — host-to-device posting staging for indexes larger than
-device memory (port of wiser_tpu/engine/staged.py, non-phrase queries;
-a phrase query raises NotImplementedError).
+device memory (port of wiser_tpu/engine/staged.py).
 
-The paper's "read as needed": a hot tier of posting columns and dense
-head-term rows stays on the device (a TorchEngine over a hot view of the
-index, chosen within a byte budget; its dense rows come from the full
-index, so a head term is served dense-only while its CSR run is cold);
-queries touching cold terms have the needed posting runs staged per
-batch into a scratch column set and run the same bs kernel against it. With cold_transfer="packed", staged doc ids whose block
+The paper's "read as needed": a hot tier of posting columns, position
+bags, bloom rows and dense head-term rows stays on the device (a
+TorchEngine over a hot view of the index, chosen within a byte budget;
+its dense rows come from the full index, so a head term is served
+dense-only while its CSR run is cold). A term query or conjunction goes
+hot when every term is CSR-hot or dense; a phrase query only when every
+term is CSR-hot and phrase-hot (its bags and bloom rows resident), and
+then takes the hot engine's phrase routes. Every other query is cold:
+with COLD_COMPUTE = "host" (the default) the memoized exact host search
+answers it; with "device" the posting runs it needs are staged per batch
+into a scratch column set and the bs step (flat queries) or the
+bloomless phrase_body (phrase queries, over staged position bags) runs
+against it. With cold_transfer="packed", staged doc ids whose block
 deltas fit PACK_WIDTH bits ship bit-packed and are decoded on the device
 by the hand-written CUDA kernel (ops/unpack.py); wider runs ship raw in
 a trailing segment. With columns="tc" the hot tier is a TorchEngine over
 tc columns (6 B per posting, 1 B per dense row per doc, so a budget holds
 more of the index) and the cold scratch ships one uint16 tc lane per
-posting instead of the f32 score and int32 tf columns.
+posting for flat queries; a chunk holding phrases also ships the raw f32
+score and int32 tf columns, which phrase_body reads.
 """
 
 from __future__ import annotations
@@ -26,10 +33,17 @@ import numpy as np
 import torch
 
 from wiser_tpu_torch.engine import kernels as K
-from wiser_tpu_torch.engine.device import BS_LANE_BUDGET, TorchEngine, bs_chunk
+from wiser_tpu_torch.engine.device import (
+    BS_LANE_BUDGET,
+    PHRASE_LANE_BUDGET,
+    TorchEngine,
+    _chunk_within,
+    bs_chunk,
+)
 from wiser_tpu_torch.engine.host import (
     B_BUCKETS,
     L_BUCKETS,
+    PP_BUCKETS,
     _bucket,
     build_single_term_table,
     host_exact_search,
@@ -71,15 +85,15 @@ BLOOM_DF_CEILING = 32768
 PACK_WIDTH = 16
 _G16_BUCKETS = [1 << 8, 1 << 10, 1 << 12, 1 << 14, 1 << 16]
 _GRAW_BUCKETS = [1 << 6, 1 << 9, 1 << 12, 1 << 16]
+# the re-rank guard width of raw f32 scores (cold phrases score from the
+# raw scratch under either columns mode)
+RAW_REL_EPS = 1e-6
 
 
-def _not_phrase(q: SearchQuery) -> None:
-    """The staged phrase path (phrase residency routing, the cold phrase
-    routes) is not ported: a phrase query raises rather than pass
-    quietly to the host."""
-    if q.is_phrase and len(q.terms) >= 2:
-        raise NotImplementedError(
-            "StagedEngine: phrase queries are not ported yet (ROADMAP A.9)")
+def _is_phrase(q: SearchQuery) -> bool:
+    """A phrase query in the routing sense: a single-term phrase is a
+    term query."""
+    return q.is_phrase and len(q.terms) >= 2
 
 
 def per_term_device_cost(packed: PackedIndex, columns: str = "raw",
@@ -289,9 +303,12 @@ class StagedEngine:
         self.similarity = Bm25Similarity(packed.avg_len)
         self.cache64 = self.similarity.cache
         scores64 = packed.partial_scores(self.cache64)
-        # the raw cold scratch's score column (tc ships tc lanes instead)
+        # the raw cold scratch's score column; tc stages tc lanes for flat
+        # queries and computes the raw scores of a phrase chunk's runs
+        # (_run_scores32)
         self._scores32 = (scores64.astype(np.float32) if columns == "raw"
                           else None)
+        self._n_pos_iters = K.n_iters_for(int(packed.max_tf.max(initial=1)))
         # full-index single-term impact table (host RAM, any budget)
         self._st_depth = 64
         self._tt_starts, self._tt_docs, self._tt_scores = \
@@ -362,8 +379,8 @@ class StagedEngine:
         hot_q: List[SearchQuery] = []
         hot_qi: List[int] = []
         cold: List[Tuple[int, List[int], SearchQuery]] = []
+        hot_mask, phrase_mask = self.hot_mask, self.phrase_hot_mask
         for qi, q in enumerate(queries):
-            _not_phrase(q)
             if q.n_results <= 0 or not q.terms:
                 continue
             rows = [lookup(t, -1) for t in q.terms]
@@ -372,7 +389,16 @@ class StagedEngine:
             if len(rows) == 1 and self._serve_single(qi, rows[0], q, results):
                 self._bump(route_single_table=1)
                 continue
-            if all(self.hot_mask[r] or self.dense_mask[r] for r in rows):
+            if _is_phrase(q):
+                # the phrase routes read CSR runs, position bags and bloom
+                # rows: the hot view holds the latter two only for
+                # phrase-hot terms
+                ok = all(hot_mask[r] and phrase_mask[r] for r in rows)
+            else:
+                # a dense row serves every non-phrase shape (the hot
+                # engine's planner fences csr-cold rows off list routes)
+                ok = all(hot_mask[r] or self.dense_mask[r] for r in rows)
+            if ok:
                 hot_q.append(q)
                 hot_qi.append(qi)
             else:
@@ -393,13 +419,14 @@ class StagedEngine:
 
     # -- cold path -------------------------------------------------------
 
-    def _host_exact_memo(self, rows, k: int):
-        key = (tuple(rows), int(k))
+    def _host_exact_memo(self, rows, k: int, is_phrase: bool = False):
+        key = (tuple(rows), int(k), bool(is_phrase))
         hit = self._cold_host_cache.get(key)
         if hit is None:
             if len(self._cold_host_cache) >= self.COLD_HOST_CACHE_CAP:
                 self._cold_host_cache.clear()
-            hit = host_exact_search(self.packed, self.cache64, rows, k)
+            hit = host_exact_search(self.packed, self.cache64, rows, k,
+                                    is_phrase=is_phrase)
             self._cold_host_cache[key] = hit
         return hit
 
@@ -417,8 +444,8 @@ class StagedEngine:
 
             def run_host_cold(res_list, cold=cold):
                 for qi, rows, q in cold:
-                    res_list[qi].set_arrays(
-                        *self._host_exact_memo(rows, q.n_results))
+                    res_list[qi].set_arrays(*self._host_exact_memo(
+                        rows, q.n_results, _is_phrase(q)))
 
             return [run_host_cold]
 
@@ -438,7 +465,8 @@ class StagedEngine:
                 t0 = time.perf_counter()
                 for qi, rows, q in sat:
                     res_list[qi].set_arrays(*host_exact_search(
-                        self.packed, self.cache64, rows, q.n_results))
+                        self.packed, self.cache64, rows, q.n_results,
+                        is_phrase=_is_phrase(q)))
                 self._bump(cold_sat_host_s=time.perf_counter() - t0)
 
             pending.append(run_host_sat)
@@ -446,6 +474,12 @@ class StagedEngine:
             max((int(self._df32[r]) for it in cold for r in it[1]),
                 default=1), COLD_L_BUCKETS)
         limit = CHUNK_LIMIT - slack
+        # queries that share their longest runs go in one chunk: ordered by
+        # their rows, longest run first, a batch restages each head run
+        # once per chunk of its queries, not once per chunk of the batch
+        # (the chunks differ from the reference's; no result does)
+        cold = sorted(cold, key=lambda it: sorted(
+            it[1], key=lambda r: (-int(self._lens[r]), r)))
         chunk, seen, tot = [], set(), 0
         for item in cold:
             new = sorted(set(item[1]) - seen)
@@ -466,11 +500,28 @@ class StagedEngine:
             pending += self._submit_cold_chunk(chunk)
         return pending
 
-    def _stage_scratch(self, staged_terms: List[int]):
+    def _run_scores32(self, r: int, src: int, n: int) -> np.ndarray:
+        """The f32 partial-score column of term r's padded run (n postings
+        from src): a slice of the raw engine's baked column, or under tc
+        the same f64 expression (PackedIndex.partial_scores) computed for
+        this run only, so the tc engine keeps no per-posting score array."""
+        if self._scores32 is not None:
+            return self._scores32[src : src + n]
+        pk = self.packed
+        docs = pk.postings_doc[src : src + n]
+        valid = docs != SENTINEL_DOC
+        code = pk.doc_len_code[np.where(valid, docs, 0).astype(np.int64)] & 0xFF
+        tf = pk.postings_tf[src : src + n].astype(np.float64)
+        sc = pk.idf64[r] * ((tf * 2.2) / (tf + self.cache64[code]))
+        return np.where(valid, sc, 0.0).astype(np.float32)
+
+    def _stage_scratch(self, staged_terms: List[int], raw_cols: bool,
+                       tc_col: bool):
         """Host scratch columns for one chunk, laid out as the reference
-        lays them out. Returns (d_doc, cols, scratch_start, cap): cols the
-        bs kernel's posting-lane arguments after the doc column, (f32
-        score, int32 tf) raw or (uint16 tc as int16 bits, avg32) tc."""
+        lays them out. raw_cols: stage the f32 score and int32 tf columns
+        (raw flat queries and every phrase query read them); tc_col: stage
+        the uint16 tc lanes (tc flat queries). Returns (d_doc, raw (d_sc,
+        d_tf) or None, d_tc (int16 bits) or None, scratch_start, cap)."""
         packed_mode = self.cold_transfer == "packed"
         if packed_mode:
             # pack-eligible runs first: the packed segment must be a
@@ -494,11 +545,10 @@ class StagedEngine:
             Grawb = _bucket(graw, _GRAW_BUCKETS) if graw else 0
             cap = _bucket(max(total + lmax, G16b * BLOCK,
                               A_total + Grawb * BLOCK), SCRATCH_BUCKETS)
-        tc = self.columns == "tc"
         s_doc = np.full(cap, SENTINEL_DOC, dtype=np.int32)
-        if tc:
+        if tc_col:
             s_tc = np.zeros(cap, dtype=np.uint16)
-        else:
+        if raw_cols:
             s_tf = np.zeros(cap, dtype=np.int32)
             s_sc = np.zeros(cap, dtype=np.float32)
         scratch_start: Dict[int, int] = {}
@@ -508,14 +558,14 @@ class StagedEngine:
             src = int(self._starts32[r])
             docs = pk.postings_doc[src : src + n]
             s_doc[a : a + n] = docs
-            if tc:
+            if tc_col:
                 m = int(self._df32[r])  # real postings; run pads stay 0
                 s_tc[a : a + m] = (self._code_u16[docs[:m]] << np.uint16(8)) \
                     | np.minimum(pk.postings_tf[src : src + m],
                                  K.TF_SAT).astype(np.uint16)
-            else:
+            if raw_cols:
                 s_tf[a : a + n] = pk.postings_tf[src : src + n]
-                s_sc[a : a + n] = self._scores32[src : src + n]
+                s_sc[a : a + n] = self._run_scores32(r, src, n)
             scratch_start[r] = a
         if packed_mode:
             w = PACK_WIDTH
@@ -536,24 +586,61 @@ class StagedEngine:
             self._bump(cold_packed_blocks=G16, cold_raw_postings=total - A_total)
         else:
             d_doc = self._to_dev(s_doc)
-        if tc:
-            cols = (self._to_dev(s_tc.view(np.int16)), self.hot.d_avg32)
-        else:
-            cols = (self._to_dev(s_sc), self._to_dev(s_tf))
-        return d_doc, cols, scratch_start, cap
+        raw = (self._to_dev(s_sc), self._to_dev(s_tf)) if raw_cols else None
+        d_tc = self._to_dev(s_tc.view(np.int16)) if tc_col else None
+        return d_doc, raw, d_tc, scratch_start, cap
+
+    def _stage_positions(self, terms, scratch_start, cap: int):
+        """The position bags of `terms` staged beside the scratch columns:
+        int32 pos_starts CSR-indexed by scratch posting index (cap + 1
+        entries; other postings get empty bags) and the bags concatenated
+        as int32. Returns (d_positions, d_pos_starts)."""
+        pk = self.packed
+        counts = np.zeros(cap, dtype=np.int64)
+        parts = []
+        for r in sorted(terms, key=scratch_start.get):
+            a, n = scratch_start[r], int(self._lens[r])
+            src = int(self._starts32[r])
+            ps = pk.pos_starts[src : src + n + 1]
+            counts[a : a + n] = np.diff(ps)
+            parts.append(pk.positions[int(ps[0]) : int(ps[-1])])
+        pos_starts = np.zeros(cap + 1, dtype=np.int64)
+        np.cumsum(counts, out=pos_starts[1:])
+        # one entry at least: the verify's clamped gathers read index 0
+        positions = np.concatenate(
+            parts + [np.zeros(1, dtype=np.int32)]).astype(np.int32)
+        return (self._to_dev(positions),
+                self._to_dev(pos_starts.astype(np.int32)))
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
     def _submit_cold_chunk(self, cold):
+        """Stage one chunk's runs once and run its flat queries (bs, in
+        the engine's columns) and its phrase queries (phrase_body over the
+        raw score / tf scratch and the staged position bags)."""
+        phrase = [it for it in cold if _is_phrase(it[2])]
+        flat = [it for it in cold if not _is_phrase(it[2])]
+        tc = self.columns == "tc"
         staged_terms = sorted({r for _, rows, _ in cold for r in rows})
         t0 = time.perf_counter()
-        d_doc, cols, scratch_start, _ = self._stage_scratch(staged_terms)
+        d_doc, raw, d_tc, scratch_start, cap = self._stage_scratch(
+            staged_terms, raw_cols=bool(phrase) or not tc,
+            tc_col=tc and bool(flat))
+        if phrase:
+            bags = self._stage_positions(
+                {r for _, rows, _ in phrase for r in rows}, scratch_start,
+                cap)
         self._bump(route_cold_device=len(cold), cold_chunks=1,
                    cold_stage_s=time.perf_counter() - t0)
+        pending = []
+        if phrase:
+            pending += self._submit_cold_phrase(phrase, scratch_start, d_doc,
+                                                raw, *bags)
+        cols = (d_tc, self.hot.d_avg32) if tc else raw
 
         groups: Dict[tuple, list] = {}
-        for qi, rows, q in cold:
+        for qi, rows, q in flat:
             dfs = [int(self._df32[r]) for r in rows]
             cslot = int(np.argmin(dfs))
             # past the largest T bucket the slot count is exact
@@ -561,7 +648,6 @@ class StagedEngine:
                  else _bucket(len(rows), COLD_T_BUCKETS))
             L = _bucket(dfs[cslot], COLD_L_BUCKETS)
             groups.setdefault((T, L), []).append((qi, rows, q, cslot))
-        pending = []
         for (T, L), group in groups.items():
             step = bs_chunk(T, L)
             for ci in range(0, len(group), step):
@@ -607,7 +693,16 @@ class StagedEngine:
         out = kern(d_doc, *cols, self._to_dev(starts), self._to_dev(ends),
                    self._to_dev(self.hot._weights(srows, use_score)))
         self._bump(cold_dispatch_s=time.perf_counter() - t0)
-        n = len(chunk)
+        return self._cold_finalizer(out, T, slot_of, idf64_q, ks, qis,
+                                    rows_of, self.hot.rel_eps, False)
+
+    def _cold_finalizer(self, out, T, slot_of, idf64_q, ks, qis, rows_of,
+                        rel_eps: float, is_phrase: bool):
+        """Fetch one cold group's packed output, re-rank in f64 and send
+        the suspect rows (near ties at the cut, truncated tie classes
+        reaching the k-th place, kept saturated tc lanes, and under
+        strict_parity any flag) to the exact host search."""
+        n = len(rows_of)
 
         def finalize(res_list):
             t0 = time.perf_counter()
@@ -621,7 +716,6 @@ class StagedEngine:
                 packed_out[:, 0, :], tf_q, idf64_q, self.packed.doc_len_code,
                 self.cache64)
             flags = packed_out[:, T + 1, 0]
-            rel_eps = self.hot.rel_eps
             # a kept saturated tc lane scored the optimistic bound
             suspects = (truncation_suspects(score_f, n_valid, ks,
                                             rel_eps=rel_eps)
@@ -634,9 +728,84 @@ class StagedEngine:
                 res = res_list[int(qis[i])]
                 if suspects[i]:
                     res.set_arrays(*host_exact_search(
-                        self.packed, self.cache64, rows_of[i], int(ks[i])))
+                        self.packed, self.cache64, rows_of[i], int(ks[i]),
+                        is_phrase=is_phrase))
                 else:
                     cnt = min(int(ks[i]), int(n_valid[i]))
                     res.set_arrays(docs_f[i, :cnt], score_f[i, :cnt])
 
         return finalize
+
+    def _submit_cold_phrase(self, phrase, scratch_start, d_doc, raw, d_pos,
+                            d_ps):
+        """Cold phrase queries against the staged scratch: phrase_body
+        (bloomless: the gate only prunes) over the raw score / tf scratch
+        and the staged bags, grouped by (exact T, cold L bucket, PP bucket
+        of query term 0's max tf) and chunked so B x max(T, PP) x L stays
+        within PHRASE_LANE_BUDGET. A key whose smallest B does not fit
+        takes the memoized exact host phrase search."""
+        groups: Dict[tuple, list] = {}
+        for qi, rows, q in phrase:
+            dfs = [int(self._df32[r]) for r in rows]
+            cslot = int(np.argmin(dfs))
+            T = len(rows)  # exact T: adjacency needs the true slots
+            L = _bucket(dfs[cslot], COLD_L_BUCKETS)
+            PP = _bucket(int(self.packed.max_tf[rows[0]]), PP_BUCKETS)
+            groups.setdefault((T, L, PP), []).append((qi, rows, q, cslot))
+        pending, host = [], []
+        for (T, L, PP), group in groups.items():
+            lanes = max(T, PP) * L
+            if B_BUCKETS[0] * lanes > PHRASE_LANE_BUDGET:
+                host += group
+                continue
+            step = _chunk_within(PHRASE_LANE_BUDGET, lanes, B_BUCKETS)
+            for ci in range(0, len(group), step):
+                pending.append(self._dispatch_cold_phrase(
+                    group[ci : ci + step], T, L, PP, d_doc, raw, d_pos, d_ps,
+                    scratch_start))
+        self._bump(route_cold_phrase=len(phrase) - len(host),
+                   route_cold_phrase_host=len(host))
+        if host:
+            def run_host(res_list, host=host):
+                for qi, rows, q, _ in host:
+                    res_list[qi].set_arrays(
+                        *self._host_exact_memo(rows, q.n_results, True))
+
+            pending.append(run_host)
+        return pending
+
+    def _dispatch_cold_phrase(self, chunk, T, L, PP, d_doc, raw, d_pos, d_ps,
+                              scratch_start):
+        # the fine B buckets: every padded row costs max(T, PP) x L lanes
+        B = _bucket(len(chunk), B_BUCKETS)
+        starts = np.zeros((B, T), dtype=np.int32)
+        ends = np.zeros((B, T), dtype=np.int32)
+        use_score = np.zeros((B, T), dtype=np.float32)
+        idf64_q = np.zeros((B, T), dtype=np.float64)
+        slot_of = np.zeros((B, T), dtype=np.int64)
+        ks = np.zeros(B, dtype=np.int32)
+        qis = np.zeros(B, dtype=np.int64)
+        rows_of = []
+        for i, (qi, rows, q, cslot) in enumerate(chunk):
+            ks[i] = q.n_results
+            qis[i] = qi
+            rows_of.append(rows)
+            order = [cslot] + [t for t in range(T) if t != cslot]
+            for slot, t in enumerate(order):
+                r = rows[t]
+                starts[i, slot] = scratch_start[r]
+                ends[i, slot] = scratch_start[r] + self._df32[r]
+                use_score[i, slot] = 1.0
+                slot_of[i, t] = slot
+            idf64_q[i] = self.packed.idf64[rows]
+        M = min(L, int(ks.max(initial=1)) + self.margin)
+        kern = K.make_phrase_kernel(T, L, PP, M, K.n_iters_for(self._max_df),
+                                    self._n_pos_iters)
+        t0 = time.perf_counter()
+        out = kern(d_doc, *raw, d_pos, d_ps, self._to_dev(starts),
+                   self._to_dev(ends), self._to_dev(use_score),
+                   self._to_dev(slot_of.astype(np.int32)))
+        self._bump(cold_phrase_dispatch_s=time.perf_counter() - t0)
+        # raw f32 scores whatever the columns: the raw guard width
+        return self._cold_finalizer(out, T, slot_of, idf64_q, ks, qis,
+                                    rows_of, RAW_REL_EPS, True)
