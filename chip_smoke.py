@@ -2,7 +2,7 @@
 """Chip smoke for wiser_tpu_torch: drive the port's main path once on one
 CUDA card and check it.
 
-    python3 chip_smoke.py            # the full smoke (one card, ~15 min)
+    python3 chip_smoke.py            # the full smoke (one card, ~17 min)
     python3 chip_smoke.py --docs 200000 --phases kernel,dense,phrase
 
 It always compiles csrc/unpack.cu for sm_90a first (nvcc, first use).
@@ -44,7 +44,7 @@ search for phrases). Phases:
   staged    StagedEngine with the device cold path and packed transport,
             at budget 0 and at a quarter of the full-residency bytes
             (which must admit dense rows and stage cold chunks), over
-            aol, aol_df and a 1,024 prefix of the phrase set: budget 0
+            aol, aol_df and a 512 prefix of the phrase set: budget 0
             must answer phrases on the cold device path (phrase_body over
             staged position bags), the quarter budget some hot (the hot
             engine's phrase routes) and some cold; the unpack kernel's
@@ -61,6 +61,25 @@ search for phrases). Phases:
             "tc"), phrases included; raises unless it admits dense rows,
             stages cold chunks, answers phrases hot and cold and launches
             the unpack kernel
+  headline  bench.py's headline on the card (wiser_tpu_torch.bench.
+            headline.run): its 20k-doc synthetic corpus built by the
+            port's builder (OracleEngine + pack_oracle) into
+            .smoke_cache/, 262,144 AOL-mix queries in batches of 131,072
+            with 2 in flight, a warm pass and two timed passes on raw
+            columns; prints its JSON line, and checks >= 200 distinct
+            multi-term queries of the last timed pass against the exact
+            host search
+  serve     the same corpus saved with a chunked LZ4 doc store under
+            <dir>/docs, the engine made by create_search_engine(
+            "torch:<dir>") (factory, LazyDocBodies, native LZ4), wrapped
+            in a BatchingExecutor(max_batch=4096, max_wait_ms=2.0) and
+            driven in process by 8 threads calling search_many on wire
+            batches of 64: 4,096 AOL-mix queries (seed 7) and 512 phrase
+            queries mined from the bodies, every other one asking for 3
+            snippet passages; >= 200 distinct multi-term queries, phrases
+            included, must equal the port's OracleEngine over the same
+            docs, snippet strings included, and some snippets must hold
+            "<b>"
 
 Any failure raises before the last line. The last line of stdout is the
 contract's {"ok": true, "device": {...}}; the line before it lists the
@@ -83,7 +102,7 @@ CACHE = os.path.join(ROOT, ".smoke_cache")
 K = 10
 PARITY_SAMPLE = 256
 PHASES = ("kernel", "resident", "dense", "phrase", "staged", "tc",
-          "staged_tc")
+          "staged_tc", "headline", "serve")
 # H100 SXM HBM3 rate (NVIDIA's data sheet) for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
 
@@ -469,6 +488,200 @@ def check_pruned_phrases(report: dict, name: str) -> None:
                              f"{st}")
 
 
+# -- headline and serve --------------------------------------------------------
+
+BENCH_VOCAB, BENCH_MEAN_LEN = 20_000, 120  # bench.py's corpus
+SERVE_QUERIES, SERVE_PHRASES, WIRE_BATCH, SERVE_THREADS = 4096, 512, 64, 8
+
+
+def bench_corpus(n_docs: int, report: dict):
+    """bench.py's synthetic corpus through the port's builder, saved where
+    bench.headline.get_index looks for it; returns (packed, oracle)."""
+    from wiser_tpu_torch.data.synth import synth_docinfos
+    from wiser_tpu_torch.index.builder import build_index
+
+    t0 = time.perf_counter()
+    docs = synth_docinfos(n_docs, BENCH_VOCAB, BENCH_MEAN_LEN, zipf_a=1.25,
+                          seed=42, with_blooms=False)
+    t1 = time.perf_counter()
+    packed, oracle = build_index(docs)
+    t2 = time.perf_counter()
+    packed.save(os.path.join(
+        CACHE, f"torch_idx_{n_docs}_{BENCH_VOCAB}_{BENCH_MEAN_LEN}"))
+    report["bench_index"] = {
+        "synth_s": t1 - t0, "build_s": t2 - t1, "n_docs": packed.n_docs,
+        "n_terms": packed.n_terms, "padded_postings": packed.n_postings}
+    log(f"bench index: {report['bench_index']}")
+    return packed, oracle
+
+
+def headline_phase(report: dict, n_docs: int, n_queries: int) -> None:
+    """bench_corpus(n_docs) has saved the index: run() loads it from CACHE."""
+    import torch
+
+    from wiser_tpu_torch.bench import headline as H
+    from wiser_tpu_torch.ops import unpack as U
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    U.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = H.run(n_docs=n_docs, vocab=BENCH_VOCAB, mean_len=BENCH_MEAN_LEN,
+                n_queries=n_queries, columns="raw", profile=True,
+                device="cuda", cache_dir=CACHE)
+    torch.cuda.synchronize()
+    line = out["line"]
+    report["headline"] = dict(
+        line, wall_s=time.perf_counter() - t0,
+        launches=dict(U.launch_counts),
+        peak_device_bytes=torch.cuda.max_memory_allocated())
+    queries, results = out["queries"], out["results"]
+    report["headline"]["parity_checked"] = check_parity(
+        out["packed"], queries, results, parity_sample(queries), "headline",
+        {})
+    log(f"headline: {report['headline']}")
+
+
+def mined_phrases(bodies, n: int):
+    """The first n distinct adjacent word pairs of the bodies."""
+    seen, out = set(), []
+    for body in bodies:
+        words = body.split(" ")
+        for a, b in zip(words, words[1:]):
+            if a != b and (a, b) not in seen:
+                seen.add((a, b))
+                out.append([a, b])
+                if len(out) == n:
+                    return out
+    return out
+
+
+def serve_phase(report: dict, corpus) -> None:
+    import threading
+
+    import numpy as np
+    import torch
+
+    from wiser_tpu_torch.bench import headline as H
+    from wiser_tpu_torch.engine.factory import create_search_engine
+    from wiser_tpu_torch.index.doc_store import (ChunkedDocStoreWriter,
+                                                 LazyDocBodies)
+    from wiser_tpu_torch.ops import unpack as U
+    from wiser_tpu_torch.serve.server import BatchingExecutor
+    from wiser_tpu_torch.types import SearchQuery
+
+    packed, oracle = corpus
+    t0 = time.perf_counter()
+    idx_dir = os.path.join(CACHE, f"serve_{packed.n_docs}")
+    packed.save(idx_dir)
+    w = ChunkedDocStoreWriter(os.path.join(idx_dir, "docs"))
+    for body in oracle.doc_bodies:
+        w.add(body)
+    w.close()
+    engine = create_search_engine(f"torch:{idx_dir}")
+    if not (isinstance(engine.doc_bodies, LazyDocBodies)
+            and engine.doc_bodies._r.codec == "lz4"):
+        raise AssertionError("serve: the engine has no LZ4 doc store")
+    setup_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(7)
+    queries = H.aol_mixed_queries(packed, SERVE_QUERIES) + [
+        SearchQuery(p, n_results=K, is_phrase=True)
+        for p in mined_phrases(oracle.doc_bodies, SERVE_PHRASES)]
+    queries = [queries[i] for i in rng.permutation(len(queries))]
+    for q in queries[::2]:
+        q.return_snippets, q.n_snippet_passages = True, 3
+    batches = [queries[i : i + WIRE_BATCH]
+               for i in range(0, len(queries), WIRE_BATCH)]
+
+    def drive(executor):
+        """8 threads, each serving every 8th wire batch through
+        search_many; returns (results in query order, per-request
+        latencies: each request's wire batch round trip, wall)."""
+        results = [None] * len(batches)
+        lat = [None] * len(batches)
+
+        def worker(tid):
+            for bi in range(tid, len(batches), SERVE_THREADS):
+                t = time.perf_counter()
+                results[bi] = executor.search_many(batches[bi])
+                lat[bi] = [time.perf_counter() - t] * len(batches[bi])
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(SERVE_THREADS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t
+        if any(r is None for r in results):
+            raise AssertionError("serve: a wire batch got no answer")
+        return ([r for rs in results for r in rs],
+                np.array([x for xs in lat for x in xs]), wall)
+
+    executor = BatchingExecutor(engine, max_batch=4096, max_wait_ms=2.0)
+    try:
+        drive(executor)  # warm pass
+        engine.clear_result_memos()
+        engine.stats_take()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        U.reset_launch_counts()
+        results, lat, wall = drive(executor)
+        torch.cuda.synchronize()
+    finally:
+        executor.stop()
+    launches = dict(U.launch_counts)
+
+    # parity: distinct multi-term queries (AND and phrase, with and without
+    # snippets) against the oracle over the same docs, snippets included
+    seen, sample = set(), []
+    for i, q in enumerate(queries):
+        key = (tuple(q.terms), q.is_phrase, q.return_snippets)
+        if len(q.terms) >= 2 and key not in seen:
+            seen.add(key)
+            sample.append(i)
+    sample = ([i for i in sample if not queries[i].is_phrase][:256]
+              + [i for i in sample if queries[i].is_phrase][:128])
+    bad = []
+    for i in sample:
+        want = [(e.doc_id, e.doc_score, e.snippet)
+                for e in oracle.search(queries[i]).entries]
+        got = [(e.doc_id, e.doc_score, e.snippet) for e in results[i].entries]
+        if got != want:
+            bad.append((queries[i], got[:1], want[:1]))
+    n_phr = sum(queries[i].is_phrase for i in sample)
+    if len(sample) < 200 or n_phr == 0:
+        raise AssertionError(f"serve: {len(sample)} parity queries, "
+                             f"{n_phr} phrases")
+    if bad:
+        raise AssertionError(f"serve: {len(bad)}/{len(sample)} mismatches "
+                             f"against the oracle, first: {bad[0]}")
+    snips = [e.snippet for q, r in zip(queries, results) if q.return_snippets
+             for e in r.entries]
+    if not any("<b>" in s for s in snips):
+        raise AssertionError("serve: no snippet holds <b>")
+    if any(e.snippet for q, r in zip(queries, results)
+           if not q.return_snippets for e in r.entries):
+        raise AssertionError("serve: a query that asked for no snippet "
+                             "got one")
+    log(f"serve: parity 0/{len(sample)} mismatches ({n_phr} phrases), "
+        f"snippets included")
+    report["serve"] = {
+        "queries": len(queries), "phrase_queries": SERVE_PHRASES,
+        "snippet_queries": len(queries[::2]), "threads": SERVE_THREADS,
+        "wire_batch": WIRE_BATCH, "setup_s": setup_s, "wall_s": wall,
+        "qps": len(queries) / wall,
+        "latency_ms": {"p50": 1e3 * float(np.percentile(lat, 50)),
+                       "p99": 1e3 * float(np.percentile(lat, 99))},
+        "snippets_with_b": sum("<b>" in s for s in snips),
+        "parity_checked": len(sample), "parity_phrases": n_phr,
+        "launches": launches, "stats": engine.stats_take(),
+        "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    log(f"serve: {report['serve']}")
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -476,6 +689,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=4096)
+    ap.add_argument("--bench-docs", type=int, default=20_000,
+                    help="the headline and serve corpus (bench.py's)")
+    ap.add_argument("--bench-queries", type=int, default=262_144,
+                    help="the headline's queries (bench.py's)")
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--report", help="also write the full report here (JSON)")
     args = ap.parse_args()
@@ -521,7 +738,8 @@ def main() -> int:
     # attributes set for that mix only, warm-pass queries or None = all)})
     runs = []
     Q = args.queries
-    P = min(Q, 1024)  # the phrase prefix of the staged and pruned mixes
+    P = min(Q, 1024)  # the phrase prefix of the pruned mixes
+    PS = min(Q, 512)  # the phrase prefix of the staged mixes
     # mixes that spend seconds a pass on exact host searches and staging
     # (the staged and pruned phrase mixes, and the df-ranked set without
     # a dense tier) warm on a prefix
@@ -562,10 +780,10 @@ def main() -> int:
     if "staged" in phases:
         runs.append(("staged", staged(0), {
             "aol": ("aol", Q, {}, None), "aol_df": ("aol_df", Q // 8, {}, W),
-            "phrase": ("phrase", P, {}, W)}))
+            "phrase": ("phrase", PS, {}, W)}))
         runs.append(("staged_q", staged(0.25), {
             "aol": ("aol", Q, {}, None), "aol_df": ("aol_df", Q // 4, {}, None),
-            "phrase": ("phrase", P, {}, W)}))
+            "phrase": ("phrase", PS, {}, W)}))
     if "tc" in phases:
         runs.append(("tc", lambda: TorchEngine(packed, device="cuda",
                                                columns="tc"),
@@ -576,7 +794,7 @@ def main() -> int:
     if "staged_tc" in phases:
         runs.append(("staged_tc", staged(0.25, "tc"), {
             "aol": ("aol", Q, {}, None), "aol_df": ("aol_df", Q // 4, {}, None),
-            "phrase": ("phrase", P, {}, W)}))
+            "phrase": ("phrase", PS, {}, W)}))
     if runs:
         from wiser_tpu_torch import StagedEngine, TorchEngine
         from wiser_tpu_torch.engine.staged import full_residency_bytes
@@ -659,6 +877,15 @@ def main() -> int:
                               for p in route_keys)})
         print(json.dumps({"routes": summary}), flush=True)
 
+    if "headline" in phases or "serve" in phases:
+        corpus = bench_corpus(args.bench_docs, report)
+        if "headline" in phases:
+            headline_phase(report, args.bench_docs, args.bench_queries)
+        if "serve" in phases:
+            serve_phase(report, corpus)
+        del corpus
+
+    # the new modules too: bench.headline, the factory, the server
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "wiser_tpu"))
     if leaked:

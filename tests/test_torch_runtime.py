@@ -4,8 +4,9 @@ CUDA requested where there is none raises (no silent CPU fallback), and
 "cuda" is the engines' default device. The port imports nothing of the
 JAX package: an AST scan of its sources, and a subprocess that builds
 an index with the port's own generator and builder, searches it (both
-engines, raw and tc columns) and then finds neither wiser_tpu nor jax in
-sys.modules. Its copies of the
+engines, raw and tc columns), imports the serving entry points
+(bench.headline, the factory, the server and the client), and then finds
+neither wiser_tpu, jax, grpc nor protobuf in sys.modules. Its copies of the
 host modules agree with the JAX package's (the generated linedoc file
 byte for byte, with and without the bi-bloom columns; the built index
 array for array, bloom rows included; murmur2 and the folded probe
@@ -133,6 +134,11 @@ from wiser_tpu_torch.data.scale_corpus import (generate_linedoc,
 from wiser_tpu_torch.engine.host import host_exact_search
 from wiser_tpu_torch.index.fast_builder import build_packed_fast
 from wiser_tpu_torch.types import SearchQuery
+# the serving entry points: none of them needs grpc or protobuf to import
+import wiser_tpu_torch.bench.headline
+import wiser_tpu_torch.engine.factory
+import wiser_tpu_torch.serve.client
+import wiser_tpu_torch.serve.server
 
 generate_linedoc({path!r}, 1500, vocab_size=300, mean_len=30, seed=5,
                  with_blooms=True, verbose=False)
@@ -159,7 +165,8 @@ for e, batch in runs:
         assert got == list(zip(d.tolist(), s.tolist())), (q.terms, got)
         assert got
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("wiser_tpu", "jax", "jaxlib"))
+             if m.split(".")[0] in ("wiser_tpu", "jax", "jaxlib", "grpc")
+             or m.startswith("google.protobuf"))
 assert not bad, bad
 print("OK")
 """

@@ -7,14 +7,16 @@ it needs (types, scoring, codecs, bloom probes, index format and
 builder, corpus generator, engine/topk, native codecs), and convert.py
 carries an index across from the JAX package.
 
-Ported so far: the resident serving path (TorchEngine, raw columns):
-single-term, AND and phrase queries, with the dense head-term tier
-(dense, semidense and block-max pruned scans and the batched rescue) and
-the phrase routes (bi-bloom gated list chain and compact route,
-semidense phrase, full-scan mega phrase with its rescue); and the staged
-engine's device cold path for non-phrase queries, with the packed-block
-decode as a hand-written CUDA kernel (ops/unpack.py, csrc/unpack.cu).
-Entry points run on the card unless the caller passes device="cpu".
+Ported so far: the single-card engines (TorchEngine, StagedEngine; raw
+and tc columns): single-term, AND and phrase queries over every route of
+the JAX engines, with snippets from the document bodies, and the staged
+cold path's packed-block decode as a hand-written CUDA kernel
+(ops/unpack.py, csrc/unpack.cu); the doc-built index (data/synth.py,
+oracle.py, index/builder.py, index/oracle_dump.py, the doc stores); and
+the serving entry points: bench/headline.py (bench.py's headline), the
+engine factory, and serve/ (the batching executor, the gRPC server and
+its client). Entry points run on the card unless the caller passes
+device="cpu".
 """
 
 from wiser_tpu_torch.engine.device import TorchEngine

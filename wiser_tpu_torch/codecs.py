@@ -7,6 +7,16 @@ from __future__ import annotations
 import numpy as np
 
 
+def uint_to_char4(val: int) -> int:
+    """Encode a non-negative int (< 2^31) into the lossy 1-byte code
+    (reference: utils.h:301-315)."""
+    v = int(val)
+    if v < 0x08:
+        return v & 0xFF
+    shift = v.bit_length() - 4
+    return ((v >> shift) & 0x07) | ((shift + 1) << 3)
+
+
 def char4_to_uint(code: int) -> int:
     """Decode the lossy 1-byte code (reference: utils.h:317-330)."""
     c = int(code) & 0xFF

@@ -53,13 +53,15 @@ Phrase queries (2+ terms, is_phrase; as TpuEngine._submit_phrase):
                               verify, top-M select
   saturated, lane budget or bag bounds exceeded -> exact host phrase
 Every device result goes through the f64 re-rank (engine/topk.py);
-guard-flagged rows take the exact host search.
+guard-flagged rows take the exact host search. With doc_bodies, a query
+that asks for snippets gets them from `snippet_for` over the full index
+(host_packed), after every route's finalizer and the rescue.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -82,6 +84,7 @@ from wiser_tpu_torch.engine.host import (
     tie_class_cut,
 )
 from wiser_tpu_torch.engine.topk import rescore_sorted_arrays, truncation_suspects
+from wiser_tpu_torch.highlighter import SimpleHighlighter
 from wiser_tpu_torch.index.format import PackedIndex
 from wiser_tpu_torch.runtime import resolve_device
 from wiser_tpu_torch.scoring import Bm25Similarity
@@ -191,7 +194,8 @@ class TorchEngine:
                  columns: str = "raw",
                  bloom_enable_factor: Optional[int] = 1,
                  dense_from: Optional[PackedIndex] = None,
-                 host_packed: Optional[PackedIndex] = None):
+                 host_packed: Optional[PackedIndex] = None,
+                 doc_bodies: Optional[Sequence[str]] = None):
         """packed: the index whose posting runs go to the device.
         host_packed: the index the exact host fallback searches (a staged
         hot view passes the full index here). dense_from: the index the
@@ -200,8 +204,10 @@ class TorchEngine:
         are cold). bloom_enable_factor: the cost-aware bi-bloom side
         choice of 2-term phrases probes the rarer term's filter when the
         other is at least this many times as frequent; None disables the
-        probes. columns: "raw" or "tc" (see the module docstring). device:
-        "cuda" (default; raises without a card) or "cpu"."""
+        probes. columns: "raw" or "tc" (see the module docstring).
+        doc_bodies: the document bodies by doc id (a list, or
+        doc_store.LazyDocBodies), for snippets; None leaves them empty.
+        device: "cuda" (default; raises without a card) or "cpu"."""
         if columns not in ("raw", "tc"):
             raise ValueError(f"unknown columns mode {columns!r}")
         self.device = resolve_device(device)
@@ -209,6 +215,7 @@ class TorchEngine:
         self.tc = columns == "tc"
         self.packed = packed
         self._host_packed = host_packed if host_packed is not None else packed
+        self.doc_bodies = doc_bodies
         self.strict_parity = strict_parity
         self.bloom_enable_factor = bloom_enable_factor
         self.margin = margin
@@ -480,6 +487,13 @@ class TorchEngine:
     def clear_result_memos(self) -> None:
         self._host_cache.clear()
 
+    def fill_snippets(self, res: SearchResult, rows, q: SearchQuery) -> None:
+        """Snippets of res's entries; posting bags come from the full index
+        (a staged hot view holds offset bags only for csr-hot terms)."""
+        for e in res.entries:
+            e.snippet = snippet_for(self._host_packed, self.doc_bodies, rows,
+                                    q, e.doc_id)
+
     def _host_exact(self, rows, k: int, is_phrase: bool = False):
         """Memoized exact host search."""
         key = (tuple(rows), int(k), bool(is_phrase))
@@ -554,9 +568,11 @@ class TorchEngine:
         flat_rows: List[List[int]] = []
         phrase: List[_PlannedQuery] = []
         long_tail: List[_PlannedQuery] = []
-        # request coalescing: identical (rows, k, phrase) queries run once
+        # request coalescing: identical (rows, k, phrase, snippets)
+        # queries run once
         dedup: Dict[tuple, int] = {}
         dups: List[tuple] = []
+        snips: List[tuple] = []  # (qi, rows, query) of primaries to snippet
         n_single = 0
         for qi, q in enumerate(queries):
             terms = q.terms
@@ -565,12 +581,15 @@ class TorchEngine:
             rows = [lookup(t, -1) for t in terms]
             if min(rows) < 0:
                 continue  # missing term -> empty result
-            key = (tuple(rows), q.n_results, q.is_phrase)
+            key = (tuple(rows), q.n_results, q.is_phrase, q.return_snippets,
+                   q.n_snippet_passages)
             prim = dedup.get(key)
             if prim is not None:
                 dups.append((qi, prim))
                 continue
             dedup[key] = qi
+            if q.return_snippets and self.doc_bodies is not None:
+                snips.append((qi, rows, q))
             if (len(rows) == 1 and self._st_depth
                     and self._serve_single_term(qi, rows[0], q, results)):
                 n_single += 1
@@ -601,6 +620,14 @@ class TorchEngine:
 
         drain_rescues.barrier = True  # after every plain finalizer
         pending.append(drain_rescues)
+        if snips:
+            def fill_snippets(res_list, snips=snips):
+                for qi, rows, q in snips:
+                    self.fill_snippets(res_list[qi], rows, q)
+
+            # every route's answer is final once the rescue has run
+            fill_snippets.barrier = True
+            pending.append(fill_snippets)
         if dups:
             def copy_dups(res_list, dups=dups):
                 for dqi, pqi in dups:
@@ -609,8 +636,8 @@ class TorchEngine:
                         dst.set_arrays(src._docs, src._scores)
                     dst._entries = list(src._entries)
 
-            # reads primaries' results, rescued ones included: appended
-            # after drain_rescues, so it runs after it
+            # reads primaries' results, rescued and snippeted ones
+            # included: appended after those barriers, so it runs last
             copy_dups.barrier = True
             pending.append(copy_dups)
         return results, pending
@@ -1565,3 +1592,42 @@ class TorchEngine:
             T, L, starts, ends, w, idf64_q, slot_of, ks,
             np.asarray([pq.qi for pq in group], dtype=np.int64),
             [pq.rows for pq in group], np.arange(len(group)))
+
+
+def _posting_index(packed: PackedIndex, row: int, doc: int) -> int:
+    ts, te = int(packed.term_starts[row]), int(packed.term_starts[row + 1])
+    return ts + int(np.searchsorted(packed.postings_doc[ts:te], doc))
+
+
+def snippet_for(pk: PackedIndex, doc_bodies, rows, query: SearchQuery,
+                doc: int) -> str:
+    """The snippet of one result doc from the index's offset bags (the
+    port's copy of wiser_tpu/engine/device.py's; vacuum_engine.h:243-255).
+    A phrase keeps only the offsets at its match positions
+    (ResultDocEntry::FilterOffsetByPosition, query_processing.h:469-492)."""
+    offset_table = []
+    pidxs = [_posting_index(pk, r, doc) for r in rows]
+    if query.is_phrase and len(rows) >= 2:
+        pos_lists = [pk.positions[pk.pos_starts[p] : pk.pos_starts[p + 1]]
+                     for p in pidxs]
+        base = set(int(x) for x in pos_lists[0])
+        for t in range(1, len(pos_lists)):
+            base &= set(int(x) - t for x in pos_lists[t])
+        for t, p in enumerate(pidxs):
+            pos_to_j = {int(x): j for j, x in enumerate(pos_lists[t])}
+            s, e = int(pk.off_starts[p]), int(pk.off_starts[p + 1])
+            pairs = []
+            for m in sorted(base):
+                j = pos_to_j.get(m + t)
+                if j is not None and s + j < e:
+                    pairs.append((int(pk.off_begin[s + j]),
+                                  int(pk.off_end[s + j])))
+            offset_table.append(pairs)
+    else:
+        for p in pidxs:
+            s, e = int(pk.off_starts[p]), int(pk.off_starts[p + 1])
+            offset_table.append(list(zip(pk.off_begin[s:e].tolist(),
+                                         pk.off_end[s:e].tolist())))
+    return SimpleHighlighter().highlight(offset_table,
+                                         query.n_snippet_passages,
+                                         doc_bodies[doc])

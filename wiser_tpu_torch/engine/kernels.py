@@ -704,7 +704,9 @@ def _select_ub_blocks(blockmax, slots, weights, *, T: int, NB: int, C: int,
 
     Returns (blk (B, C) int64 block ids in ascending order, next_ub (B,)
     f32: the (C+1)-th largest bound, which bounds every unexamined
-    block). Which of several tied blocks at the cut is kept is free."""
+    block). Of several tied blocks at the cut the lowest ids are kept, as
+    lax.top_k keeps them (a stable sort: torch.topk orders ties freely on
+    CUDA), so the examined blocks and the flags are the reference's."""
     B = slots.shape[0]
     rows = slots.to(torch.int64)
     feas = torch.ones((B, NB), dtype=torch.bool, device=blockmax.device)
@@ -732,7 +734,7 @@ def _select_ub_blocks(blockmax, slots, weights, *, T: int, NB: int, C: int,
                                                 bms[t], bm2s[t])
             ub = torch.maximum(ub, bound)
     ub = torch.where(feas, ub, 0.0)
-    top_ub, top_idx = torch.topk(ub, C + 1, dim=1)
+    top_ub, top_idx = _top_stable(ub, C + 1)
     blk, _ = torch.sort(top_idx[:, :C], dim=1)
     return blk, top_ub[:, C]
 

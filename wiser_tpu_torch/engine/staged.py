@@ -232,14 +232,16 @@ class StagedEngine:
 
     def __init__(self, packed: PackedIndex, hbm_budget_bytes: int, *,
                  device="cuda", margin: int = 54, strict_parity: bool = False,
-                 columns: str = "raw", cold_transfer: str = "packed"):
+                 columns: str = "raw", cold_transfer: str = "packed",
+                 doc_bodies=None):
         """hbm_budget_bytes: the total device budget. It splits across the
         dense rows, CSR cores and phrase components by their
         full-residency byte shares (total_full), spilling unspendable
         remainders dense -> core -> phrase (the reference's
         proportional-share planner). columns: "raw" or "tc" (the hot
-        tier's and the cold scratch's layout). device: "cuda" (default;
-        raises without a card) or "cpu"."""
+        tier's and the cold scratch's layout). doc_bodies: the bodies by doc
+        id, for snippets (hot queries get theirs from the hot engine).
+        device: "cuda" (default; raises without a card) or "cpu"."""
         if cold_transfer not in ("raw", "packed"):
             raise ValueError(f"unknown cold_transfer {cold_transfer!r}")
         if columns not in ("raw", "tc"):
@@ -295,7 +297,8 @@ class StagedEngine:
             _hot_view(packed, hot, phrase_hot), device=self.device,
             margin=margin, strict_parity=strict_parity, columns=columns,
             dense_budget_bytes=dense_budget, dense_from=packed,
-            host_packed=packed, single_term_depth=0)
+            host_packed=packed, single_term_depth=0, doc_bodies=doc_bodies)
+        self.doc_bodies = doc_bodies
         self.dense_mask = self.hot._dense_slot >= 0
         self.hot_bytes_used = int(
             used + used_p + self.hot.device_bytes()["dense_tier"])
@@ -379,6 +382,7 @@ class StagedEngine:
         hot_q: List[SearchQuery] = []
         hot_qi: List[int] = []
         cold: List[Tuple[int, List[int], SearchQuery]] = []
+        snips: List[Tuple[int, List[int], SearchQuery]] = []  # off the hot tier
         hot_mask, phrase_mask = self.hot_mask, self.phrase_hot_mask
         for qi, q in enumerate(queries):
             if q.n_results <= 0 or not q.terms:
@@ -388,6 +392,8 @@ class StagedEngine:
                 continue
             if len(rows) == 1 and self._serve_single(qi, rows[0], q, results):
                 self._bump(route_single_table=1)
+                if q.return_snippets:
+                    snips.append((qi, rows, q))
                 continue
             if _is_phrase(q):
                 # the phrase routes read CSR runs, position bags and bloom
@@ -403,6 +409,8 @@ class StagedEngine:
                 hot_qi.append(qi)
             else:
                 cold.append((qi, rows, q))
+                if q.return_snippets:
+                    snips.append((qi, rows, q))
 
         hot_results, hot_pending = self.hot.submit_batch(hot_q)
         for j, qi in enumerate(hot_qi):
@@ -415,6 +423,16 @@ class StagedEngine:
                 w.barrier = True
             pending.append(w)
         pending += self._submit_cold(cold)
+        if snips and self.doc_bodies is not None:
+            # the cold and saturated answers share memoized arrays, but
+            # each result makes its own entries: a snippet stays with the
+            # query that asked for it
+            def fill_snippets(res_list, snips=snips):
+                for qi, rows, q in snips:
+                    self.hot.fill_snippets(res_list[qi], rows, q)
+
+            fill_snippets.barrier = True  # after every cold finalizer
+            pending.append(fill_snippets)
         return results, pending
 
     # -- cold path -------------------------------------------------------

@@ -118,3 +118,12 @@ class BloomConfig:
         for b in (bits % 32).tolist():
             m |= np.uint32(1) << np.uint32(b)
         return m
+
+    def build_filter_words(self, keys) -> np.ndarray:
+        """One filter row, uint32[n_words], with every key added
+        (bloom_add)."""
+        words = np.zeros(self.n_words, dtype=np.uint32)
+        for key in keys:
+            w, m = self.probe_word_masks(key)
+            np.bitwise_or.at(words, w, m)
+        return words

@@ -1,6 +1,8 @@
 """ctypes bindings of the port's native host codecs (the port's copy of the
 parts of wiser_tpu/native/lib.py it calls, plus the bloom-column key
-hashing of the index builder). The library is built from
+hashing of the index builder): murmur2, block bit packing, the varint
+codec of the oracle dump, the LZ4 block codec of the doc store and the
+linedoc chunk assembler. The library is built from
 native/wiser_native.cpp with g++ at first use into `.kernel_build/`
 (build.py); without a C++ compiler these functions raise."""
 
@@ -48,6 +50,17 @@ def get_lib() -> ctypes.CDLL:
     lib.wiser_linedoc_chunk.argtypes = [u8p, i64p, ctypes.c_int64, i64p,
                                         i64p, ctypes.c_int64, ctypes.c_int,
                                         u8p, ctypes.c_int64]
+    lib.wiser_varint_encode.restype = ctypes.c_int64
+    lib.wiser_varint_encode.argtypes = [u32p, ctypes.c_int64, u8p]
+    lib.wiser_varint_decode.restype = ctypes.c_int64
+    lib.wiser_varint_decode.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64,
+                                        u32p]
+    lib.wiser_lz4_compress.restype = ctypes.c_int64
+    lib.wiser_lz4_compress.argtypes = [u8p, ctypes.c_int64, u8p,
+                                       ctypes.c_int64]
+    lib.wiser_lz4_decompress.restype = ctypes.c_int64
+    lib.wiser_lz4_decompress.argtypes = [u8p, ctypes.c_int64, u8p,
+                                         ctypes.c_int64]
     return lib
 
 
@@ -150,6 +163,44 @@ def unpack_blocks(words: np.ndarray, widths: np.ndarray) -> np.ndarray:
     out = np.empty(nb * 128, dtype=np.uint32)
     get_lib().wiser_unpack_blocks(_u32(words), _u8(widths), nb, _u32(out))
     return out
+
+
+def varint_encode_array(vals: np.ndarray) -> bytes:
+    """LEB128 bytes of uint32 values."""
+    vals = np.ascontiguousarray(vals, dtype=np.uint32)
+    out = np.empty(5 * len(vals) + 8, dtype=np.uint8)
+    n = get_lib().wiser_varint_encode(_u32(vals), len(vals), _u8(out))
+    return out[:n].tobytes()
+
+
+def varint_decode_array(buf: bytes, n: int) -> np.ndarray:
+    """The first n LEB128 values of buf as uint32."""
+    src = np.frombuffer(buf, dtype=np.uint8)
+    out = np.empty(n, dtype=np.uint32)
+    if get_lib().wiser_varint_decode(_u8(src), len(buf), n, _u32(out)) < 0:
+        raise ValueError("truncated varint stream")
+    return out
+
+
+def lz4_compress(data: bytes) -> bytes:
+    """One LZ4 block (no frame) of data."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    cap = len(data) + len(data) // 255 + 64
+    dst = np.empty(cap, dtype=np.uint8)
+    n = get_lib().wiser_lz4_compress(_u8(src), len(data), _u8(dst), cap)
+    if n < 0:
+        raise RuntimeError("lz4 compress failed")
+    return dst[:n].tobytes()
+
+
+def lz4_decompress(data: bytes, out_len: int) -> bytes:
+    """Inverse of lz4_compress; out_len is the raw length."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    dst = np.empty(max(out_len, 1), dtype=np.uint8)
+    n = get_lib().wiser_lz4_decompress(_u8(src), len(data), _u8(dst), out_len)
+    if n != out_len:
+        raise RuntimeError("lz4 decompress failed")
+    return dst[:out_len].tobytes()
 
 
 def linedoc_chunk(vocab_blob: np.ndarray, vocab_offs: np.ndarray,

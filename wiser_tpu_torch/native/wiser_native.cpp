@@ -2,8 +2,9 @@
 // wiser_tpu/native/wiser_native.cpp it calls): libbloom's murmur2
 // (libbloom/murmur2/MurmurHash2.c) with the bloom-column key hashing of
 // the index builder, fixed-width bit packing of 128-value blocks (the
-// reference's LittleIntPacker analog) and the linedoc chunk assembler of
-// data/scale_corpus.py.
+// reference's LittleIntPacker analog), the varint codec of the oracle
+// dump, the LZ4 block codec of the doc store and the linedoc chunk
+// assembler of data/scale_corpus.py.
 //
 // Build: native/lib.py (g++ -O3 -shared -fPIC into .kernel_build/).
 
@@ -178,6 +179,179 @@ int64_t wiser_unpack_blocks(const uint32_t* words, const uint8_t* widths,
     p += 4 * widths[b];
   }
   return p - words;
+}
+
+// ---------------------------------------------------------------------------
+// varint (LEB128) codec over uint32 arrays: the oracle dump's posting
+// stream.
+// ---------------------------------------------------------------------------
+
+// Returns the encoded byte count; out holds >= 5*n bytes.
+int64_t wiser_varint_encode(const uint32_t* vals, int64_t n, uint8_t* out) {
+  uint8_t* p = out;
+  for (int64_t i = 0; i < n; i++) {
+    uint32_t v = vals[i];
+    while (v >= 0x80) {
+      *p++ = (uint8_t)(v | 0x80);
+      v >>= 7;
+    }
+    *p++ = (uint8_t)v;
+  }
+  return p - out;
+}
+
+// Decodes n values; returns the bytes consumed, or -1 on a truncated or
+// over-long value.
+int64_t wiser_varint_decode(const uint8_t* buf, int64_t buf_len, int64_t n,
+                            uint32_t* out) {
+  const uint8_t* p = buf;
+  const uint8_t* end = buf + buf_len;
+  for (int64_t i = 0; i < n; i++) {
+    uint32_t v = 0;
+    int shift = 0;
+    while (true) {
+      if (p >= end) return -1;
+      uint8_t b = *p++;
+      v |= (uint32_t)(b & 0x7F) << shift;
+      if (!(b & 0x80)) break;
+      shift += 7;
+      if (shift > 31) return -1;
+    }
+    out[i] = v;
+  }
+  return p - buf;
+}
+
+// ---------------------------------------------------------------------------
+// LZ4 block format (the public spec): the doc store's chunk codec. The
+// same greedy single-hash matcher as the JAX package's, so both write the
+// same bytes and each reads the other's stores.
+// ---------------------------------------------------------------------------
+
+static const int kMinMatch = 4;
+static const int kHashLog = 16;
+
+static inline uint32_t lz4_hash(uint32_t seq) {
+  return (seq * 2654435761u) >> (32 - kHashLog);
+}
+
+static inline uint32_t read32(const uint8_t* p) {
+  uint32_t v;
+  memcpy(&v, p, 4);
+  return v;
+}
+
+// Compress src[0..n) into dst; returns the compressed size, or -1 if
+// dst_cap is too small (the worst case needs n + n/255 + 16 bytes).
+int64_t wiser_lz4_compress(const uint8_t* src, int64_t n, uint8_t* dst,
+                           int64_t dst_cap) {
+  if (n == 0) return 0;
+  std::vector<int32_t> table(1 << kHashLog, -1);
+  const uint8_t* ip = src;
+  const uint8_t* iend = src + n;
+  // the last match starts at least 12 bytes before the end; the final 5
+  // bytes are always literals
+  const uint8_t* mflimit = (n >= 13) ? iend - 12 : src;
+  const uint8_t* anchor = src;
+  uint8_t* op = dst;
+  uint8_t* oend = dst + dst_cap;
+
+  auto emit = [&](const uint8_t* lit, int64_t lit_len, int64_t match_len,
+                  int64_t offset) -> bool {
+    int64_t need = 1 + lit_len + lit_len / 255 + 2 + match_len / 255 + 2;
+    if (op + need > oend) return false;
+    uint8_t* token = op++;
+    if (lit_len >= 15) {
+      *token = 0xF0;
+      int64_t rest = lit_len - 15;
+      while (rest >= 255) { *op++ = 255; rest -= 255; }
+      *op++ = (uint8_t)rest;
+    } else {
+      *token = (uint8_t)(lit_len << 4);
+    }
+    memcpy(op, lit, lit_len);
+    op += lit_len;
+    if (offset == 0) return true;  // the final, literals-only sequence
+    op[0] = (uint8_t)(offset & 0xFF);
+    op[1] = (uint8_t)(offset >> 8);
+    op += 2;
+    int64_t ml = match_len - kMinMatch;
+    if (ml >= 15) {
+      *token |= 0x0F;
+      int64_t rest = ml - 15;
+      while (rest >= 255) { *op++ = 255; rest -= 255; }
+      *op++ = (uint8_t)rest;
+    } else {
+      *token |= (uint8_t)ml;
+    }
+    return true;
+  };
+
+  while (ip < mflimit) {
+    uint32_t h = lz4_hash(read32(ip));
+    int32_t cand = table[h];
+    table[h] = (int32_t)(ip - src);
+    if (cand >= 0 && (ip - src) - cand <= 0xFFFF &&
+        read32(src + cand) == read32(ip)) {
+      const uint8_t* match = src + cand;
+      const uint8_t* mend = iend - 5;  // keep the last 5 bytes literal
+      int64_t len = kMinMatch;
+      while (ip + len < mend && match[len] == ip[len]) len++;
+      if (!emit(anchor, ip - anchor, len, ip - match)) return -1;
+      ip += len;
+      anchor = ip;
+    } else {
+      ip++;
+    }
+  }
+  if (!emit(anchor, iend - anchor, 0, 0)) return -1;
+  return op - dst;
+}
+
+// Decompress into dst, which must come out exactly dst_len bytes; returns
+// dst_len, or -1 on a malformed block.
+int64_t wiser_lz4_decompress(const uint8_t* src, int64_t n, uint8_t* dst,
+                             int64_t dst_len) {
+  const uint8_t* ip = src;
+  const uint8_t* iend = src + n;
+  uint8_t* op = dst;
+  uint8_t* oend = dst + dst_len;
+  while (ip < iend) {
+    uint8_t token = *ip++;
+    int64_t lit = token >> 4;
+    if (lit == 15) {
+      uint8_t b;
+      do {
+        if (ip >= iend) return -1;
+        b = *ip++;
+        lit += b;
+      } while (b == 255);
+    }
+    if (ip + lit > iend || op + lit > oend) return -1;
+    memcpy(op, ip, lit);
+    ip += lit;
+    op += lit;
+    if (ip >= iend) break;  // the final sequence has no match part
+    if (ip + 2 > iend) return -1;
+    int64_t offset = ip[0] | ((int64_t)ip[1] << 8);
+    ip += 2;
+    if (offset == 0 || op - dst < offset) return -1;
+    int64_t ml = token & 0x0F;
+    if (ml == 15) {
+      uint8_t b;
+      do {
+        if (ip >= iend) return -1;
+        b = *ip++;
+        ml += b;
+      } while (b == 255);
+    }
+    ml += kMinMatch;
+    if (op + ml > oend) return -1;
+    const uint8_t* match = op - offset;
+    for (int64_t i = 0; i < ml; i++) op[i] = match[i];  // overlap-safe
+    op += ml;
+  }
+  return (op == oend) ? dst_len : -1;
 }
 
 }  // extern "C"

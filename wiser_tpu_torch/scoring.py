@@ -28,6 +28,9 @@ class Bm25Similarity:
     (scoring.h:85-90)."""
 
     def __init__(self, avg_field_length: float = 1.0):
+        self.reset(avg_field_length)
+
+    def reset(self, avg_field_length: float) -> None:
         self.avg_field_length = float(avg_field_length)
         lengths = CHAR4_DECODE_TABLE.astype(np.float64)
         self.cache = K1 * (1.0 - B + B * lengths
