@@ -38,7 +38,7 @@ search for phrases). Phases:
             full-scan mega (with its rescue), semidense, compact and
             list-chain phrase routes and the exact host phrase search;
             raises unless the full, semidense and compact-or-list routes
-            each answer some; then a 1,024 prefix of it with
+            each answer some; then a 512 prefix of it with
             FULL_PHRASE_SCAN = False on the instance (`phrase_pruned`),
             which must take the block-pruned mega route
   staged    StagedEngine with the device cold path and packed transport,
@@ -61,6 +61,21 @@ search for phrases). Phases:
             "tc"), phrases included; raises unless it admits dense rows,
             stages cold chunks, answers phrases hot and cold and launches
             the unpack kernel
+  harness   the port's measurement harnesses, called in process on the
+            same index (the dense and tc phases' engines when they ran):
+            tools/scale_bench configs 1-4 at 2,048 queries each (batch
+            2,048, 2 in flight; the phrase config from the cached pairs),
+            50 sampled per config against the host; tools/parity_audit,
+            64 queries per config through the engine with strict_parity
+            on, every result verified, flag counts reported;
+            tools/route_bench, every route set at 256 queries, whose
+            named route must take a majority, with zipf_t3 run once more
+            under torch.profiler (utils.trace: top device ops, device
+            busy share); bench/run_exp's memory grid at 0.05 and 0.25 of
+            full_device_bytes (aol_mix, 2,048 queries, device cold path),
+            which must launch the unpack kernel; tools/stage_probe (B=512,
+            T=3, C=512, M=16, SB=8) on tc columns. A mismatch or a failed
+            check raises
   headline  bench.py's headline on the card (wiser_tpu_torch.bench.
             headline.run): its 20k-doc synthetic corpus built by the
             port's builder (OracleEngine + pack_oracle) into
@@ -83,7 +98,8 @@ search for phrases). Phases:
 
 Any failure raises before the last line. The last line of stdout is the
 contract's {"ok": true, "device": {...}}; the line before it lists the
-kernels, the one before that the route summary of every run. The full
+kernels; before that come the harness summary and the route summary of
+every run. The full
 report is the last line of stderr, one JSON object (also written to
 the --report path, if given).
 """
@@ -91,6 +107,7 @@ the --report path, if given).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -102,7 +119,7 @@ CACHE = os.path.join(ROOT, ".smoke_cache")
 K = 10
 PARITY_SAMPLE = 256
 PHASES = ("kernel", "resident", "dense", "phrase", "staged", "tc",
-          "staged_tc", "headline", "serve")
+          "staged_tc", "harness", "headline", "serve")
 # H100 SXM HBM3 rate (NVIDIA's data sheet) for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
 
@@ -532,7 +549,7 @@ def headline_phase(report: dict, n_docs: int, n_queries: int) -> None:
     torch.cuda.synchronize()
     line = out["line"]
     report["headline"] = dict(
-        line, wall_s=time.perf_counter() - t0,
+        line, wall_s=time.perf_counter() - t0, passes=out["passes"],
         launches=dict(U.launch_counts),
         peak_device_bytes=torch.cuda.max_memory_allocated())
     queries, results = out["queries"], out["results"]
@@ -682,6 +699,154 @@ def serve_phase(report: dict, corpus) -> None:
     log(f"serve: {report['serve']}")
 
 
+# -- harness ------------------------------------------------------------------
+
+HARNESS_Q, HARNESS_AUDIT, HARNESS_ROUTE_Q = 2048, 64, 256
+HARNESS_FRACS = (0.05, 0.25)
+GRID_KEYS = ("budget_bytes", "hot_fraction", "phrase_hot_fraction",
+             "dense_fraction", "hot_bytes_used", "device_mem_bytes", "qps",
+             "unpack_launches")
+
+
+def harness_phase(report: dict, packed, pairs, engines: dict,
+                  trace_dir: str) -> int:
+    """The port's harness functions on the 1M index, in process: the
+    scale ladder (configs 1-4), a strict parity audit, the route sets
+    (zipf_t3 traced by torch.profiler), the memory grid and the stage
+    probe. engines: the dense and tc phases' engines, if they ran.
+    Returns the unpack kernel's launches over the phase."""
+    import torch
+
+    from wiser_tpu_torch import TorchEngine
+    from wiser_tpu_torch.bench import run_exp
+    from wiser_tpu_torch.ops import unpack as U
+    from wiser_tpu_torch.tools import (parity_audit, route_bench,
+                                       scale_bench, stage_probe)
+
+    out = report["harness"] = {}
+    t_phase = time.perf_counter()
+    U.reset_launch_counts()
+    dense = engines.get("dense") or TorchEngine(packed, device="cuda")
+
+    # the ladder: configs 1-4, HARNESS_Q queries each, 2 batches in flight
+    t0 = time.perf_counter()
+    configs = scale_bench.build_configs(packed, None, HARNESS_Q, K,
+                                        pairs=pairs)
+    ladder = scale_bench.ladder(dense, packed, configs, HARNESS_Q, 50)
+    out["scale_bench"] = {"configs": ladder,
+                          "wall_s": time.perf_counter() - t0}
+    bad = {n: r["parity_mismatches"] for n, r in ladder.items()}
+    if len(ladder) != 4 or any(bad.values()):
+        raise AssertionError(f"scale_bench: configs {sorted(ladder)}, "
+                             f"parity mismatches {bad}")
+    log(f"harness scale_bench: {out['scale_bench']}")
+
+    # strict parity, every result verified on the host (this engine with
+    # strict_parity on for the audit)
+    t0 = time.perf_counter()
+    dense.strict_parity = True
+    try:
+        audit = {n: parity_audit.audit_config(dense, packed,
+                                              qs[:HARNESS_AUDIT],
+                                              HARNESS_AUDIT)
+                 for n, qs in configs.items()}
+    finally:
+        dense.strict_parity = False
+    out["parity_audit"] = {"configs": audit,
+                           "wall_s": time.perf_counter() - t0}
+    bad = {n: r["mismatches"] for n, r in audit.items()}
+    if any(bad.values()):
+        raise AssertionError(f"parity_audit: mismatches {bad}")
+    log(f"harness parity_audit: {out['parity_audit']}")
+
+    # the route sets; the named route must take a majority of its set
+    t0 = time.perf_counter()
+    sets = route_bench.build_route_sets(packed, dense, HARNESS_ROUTE_Q, K)
+    sets.update(route_bench.build_phrase_route_sets(
+        packed, dense, None, HARNESS_ROUTE_Q, K, pairs=pairs))
+    routes, minority = {}, {}
+    for name, qs in sets.items():
+        row = route_bench.run_set(
+            dense, qs, HARNESS_ROUTE_Q,
+            trace_dir=trace_dir if name == "zipf_t3" else None)
+        row["route_counts"] = {k: v for k, v in row["stats"].items()
+                               if k.startswith("route_") and v}
+        share = route_bench.route_share(name, row["stats"])
+        if share is not None and not 2 * share[0] > share[1]:
+            minority[name] = row["route_counts"]
+        routes[name] = row
+        log(f"harness route {name}: {len(qs)} queries, {row['qps']:.1f} "
+            f"QPS, routes {row['route_counts']}")
+    out["route_bench"] = {"sets": routes, "wall_s": time.perf_counter() - t0}
+    if "zipf_t3" not in routes or minority:
+        raise AssertionError(f"route_bench: sets {sorted(routes)}; the named "
+                             f"route took no majority in {minority}")
+    traced = routes["zipf_t3"]["traced"]
+    log(f"harness trace zipf_t3: {traced}")
+    if traced["device"] != "cuda" or traced["busy_share"] is None:
+        raise AssertionError(f"the trace saw no device events: {traced}")
+
+    # the memory grid on this index, device cold path
+    t0 = time.perf_counter()
+    grid = []
+    for t in run_exp.memory_matrix(n_queries=HARNESS_Q, batch=HARNESS_Q,
+                                   fracs=HARNESS_FRACS,
+                                   cold_compute="device"):
+        before = U.launch_counts["unpack_delta_blocks"]
+        r = dataclasses.asdict(run_exp.run_treatment(t, device="cuda",
+                                                     packed=packed))
+        r["unpack_launches"] = U.launch_counts["unpack_delta_blocks"] - before
+        grid.append(r)
+        torch.cuda.empty_cache()
+        log(f"harness memory grid {t.name}: "
+            + json.dumps({k: r[k] for k in GRID_KEYS}))
+    out["run_exp"] = {"rows": grid, "wall_s": time.perf_counter() - t0}
+    if not any(r["unpack_launches"] for r in grid):
+        raise AssertionError("run_exp: no memory-grid row launched the "
+                             "unpack kernel")
+
+    # the stage probe on tc columns
+    t0 = time.perf_counter()
+    tc = engines.get("tc") or TorchEngine(packed, device="cuda",
+                                          columns="tc")
+    # C = 512 blocks, or half the index's blocks below 131,072 docs
+    C = min(512, packed.n_docs // 256)
+    out["stage_probe"] = dict(stage_probe.probe(tc, packed, B=512, T=3,
+                                                C=C, M=16, SB=8),
+                              wall_s=time.perf_counter() - t0)
+    log(f"harness stage_probe: {out['stage_probe']}")
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t_phase
+    launches = U.launch_counts["unpack_delta_blocks"]
+    out["unpack_launches"] = launches
+    return launches
+
+
+def harness_summary(h: dict) -> dict:
+    """The harness readings for the stdout line."""
+    traced = h["route_bench"]["sets"]["zipf_t3"]["traced"]
+    return {
+        "wall_s": h["wall_s"],
+        "scale_bench": {n: {"qps": r["qps"], "mismatches":
+                            r["parity_mismatches"]}
+                        for n, r in h["scale_bench"]["configs"].items()},
+        "parity_audit": {n: {"mismatches": r["mismatches"],
+                             "flags": r["flags"]}
+                         for n, r in h["parity_audit"]["configs"].items()},
+        "routes": {n: {"qps": r["qps"], "routes": r["route_counts"]}
+                   for n, r in h["route_bench"]["sets"].items()},
+        "trace_zipf_t3": {
+            "busy_share": traced["busy_share"],
+            "traced_wall_s": traced["wall_s"],
+            "untraced_wall_s": traced["untraced_wall_s"],
+            "top_ops": [(o["name"], o["self_ms"], o["calls"])
+                        for o in traced["top_ops"][:5]]},
+        "memory_grid": [{k: r[k] for k in GRID_KEYS}
+                        for r in h["run_exp"]["rows"]],
+        "stage_probe_ms": {k: v for k, v in h["stage_probe"].items()
+                           if k.endswith("_ms")}}
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -695,6 +860,8 @@ def main() -> int:
                     help="the headline's queries (bench.py's)")
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--report", help="also write the full report here (JSON)")
+    ap.add_argument("--trace-dir", default=os.path.join(CACHE, "trace"),
+                    help="the harness phase's torch.profiler trace")
     args = ap.parse_args()
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
@@ -738,7 +905,7 @@ def main() -> int:
     # attributes set for that mix only, warm-pass queries or None = all)})
     runs = []
     Q = args.queries
-    P = min(Q, 1024)  # the phrase prefix of the pruned mixes
+    P = min(Q, 512)  # the phrase prefix of the pruned mixes
     PS = min(Q, 512)  # the phrase prefix of the staged mixes
     # mixes that spend seconds a pass on exact host searches and staging
     # (the staged and pruned phrase mixes, and the df-ranked set without
@@ -795,11 +962,13 @@ def main() -> int:
         runs.append(("staged_tc", staged(0.25, "tc"), {
             "aol": ("aol", Q, {}, None), "aol_df": ("aol_df", Q // 4, {}, None),
             "phrase": ("phrase", PS, {}, W)}))
-    if runs:
+    keep: dict = {}  # the dense and tc engines, for the harness phase
+    if runs or "harness" in phases:
         from wiser_tpu_torch import StagedEngine, TorchEngine
         from wiser_tpu_torch.engine.staged import full_residency_bytes
 
         packed, pairs = get_index(args.docs, report)
+    if runs:
         pools = {"aol": aol_mixed_queries(packed, Q),
                  "aol_df": aol_mixed_queries(packed, Q, by_df=True),
                  "phrase": phrase_queries(pairs, Q),
@@ -838,6 +1007,8 @@ def main() -> int:
                 report[key]["parity_checked"] = check_parity(
                     packed, queries, res, parity_sample(queries), key,
                     expected)
+            if "harness" in phases and name in ("dense", "tc"):
+                keep[name] = eng
             del eng, hot, res
             torch.cuda.empty_cache()
         if "resident" in phases:
@@ -876,6 +1047,13 @@ def main() -> int:
                        if any(k.startswith(p) or k.startswith("hot_" + p)
                               for p in route_keys)})
         print(json.dumps({"routes": summary}), flush=True)
+    if "harness" in phases:
+        kern["launches"] += harness_phase(report, packed, pairs, keep,
+                                          args.trace_dir)
+        keep.clear()
+        torch.cuda.empty_cache()
+        print(json.dumps({"harness": harness_summary(report["harness"])}),
+              flush=True)
 
     if "headline" in phases or "serve" in phases:
         corpus = bench_corpus(args.bench_docs, report)

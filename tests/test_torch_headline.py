@@ -68,6 +68,18 @@ def test_json_line(runs, columns):
     assert os.listdir(cache) == ["torch_idx_300_400_30"]
 
 
+def test_pass_split(runs):
+    """Each timed pass's wall beside its host time in submit_batch and in
+    run_pending (the split the chip smoke writes to its report)."""
+    _, out = runs
+    passes = out["raw"]["passes"]
+    assert [round(p["qps"], 1) for p in passes] == out["raw"]["line"]["pass_qps"]
+    for p in passes:
+        assert p["batches"] == 3  # 600 queries in batches of 256
+        assert 0 < p["submit_s"] and 0 < p["run_pending_s"]
+        assert p["submit_s"] + p["run_pending_s"] <= p["wall_s"]
+
+
 def test_printed_line(tmp_path, capsys):
     headline.run(n_queries=50, batch=16, n_passes=1, device="cpu",
                  cache_dir=str(tmp_path), **SMALL)

@@ -5,8 +5,10 @@ CUDA requested where there is none raises (no silent CPU fallback), and
 JAX package: an AST scan of its sources, and a subprocess that builds
 an index with the port's own generator and builder, searches it (both
 engines, raw and tc columns), imports the serving entry points
-(bench.headline, the factory, the server and the client), and then finds
-neither wiser_tpu, jax, grpc nor protobuf in sys.modules. Its copies of the
+(bench.headline, the factory, the server and the client) and the
+harnesses and tools (bench.run_exp, data.synth_log, utils, tools/), and
+then finds neither wiser_tpu, jax, grpc nor protobuf in sys.modules. Its
+copies of the
 host modules agree with the JAX package's (the generated linedoc file
 byte for byte, with and without the bi-bloom columns; the built index
 array for array, bloom rows included; murmur2 and the folded probe
@@ -139,6 +141,15 @@ import wiser_tpu_torch.bench.headline
 import wiser_tpu_torch.engine.factory
 import wiser_tpu_torch.serve.client
 import wiser_tpu_torch.serve.server
+# the measurement harnesses and the index tools
+import wiser_tpu_torch.bench.run_exp
+import wiser_tpu_torch.data.synth_log
+import wiser_tpu_torch.utils
+from wiser_tpu_torch.tools import (check_posting_list, engine_bench,
+                                   index_stats, indexer, make_query_log,
+                                   parity_audit, route_bench,
+                                   run_client_server, scale_bench,
+                                   stage_probe)
 
 generate_linedoc({path!r}, 1500, vocab_size=300, mean_len=30, seed=5,
                  with_blooms=True, verbose=False)

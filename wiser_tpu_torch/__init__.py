@@ -15,8 +15,12 @@ cold path's packed-block decode as a hand-written CUDA kernel
 oracle.py, index/builder.py, index/oracle_dump.py, the doc stores); and
 the serving entry points: bench/headline.py (bench.py's headline), the
 engine factory, and serve/ (the batching executor, the gRPC server and
-its client). Entry points run on the card unless the caller passes
-device="cpu".
+its client); and what measures and operates the engines: utils.py
+(timers, torch.profiler traces), data/synth_log.py, bench/run_exp.py
+(the memory grid) and tools/ (the scale ladder, route profile, strict
+parity audit, stage probe, indexer, index checks, query logs, engine
+bench, client-server runner). Entry points run on the card unless the
+caller passes device="cpu".
 """
 
 from wiser_tpu_torch.engine.device import TorchEngine

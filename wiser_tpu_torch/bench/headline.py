@@ -125,7 +125,9 @@ def _timed_pass(engine, queries, batch: int, pipeline: int, profile: bool,
                 keep: bool):
     """One pass with `pipeline` batches in flight: the card works on batch
     i+1 while batch i is fetched and re-ranked. Returns (queries done,
-    wall, per-batch latencies, the results if keep else None). bench.py
+    wall, per-batch latencies, the results if keep else None, {"submit_s",
+    "run_pending_s", "batches"}: the host time in submit_batch and in
+    run_pending, and the batch count). bench.py
     keeps no results; keep is set on the last pass only, so no pass runs
     beside another's 262,144 live results."""
     submit_s = finalize_s = 0.0
@@ -157,7 +159,9 @@ def _timed_pass(engine, queries, batch: int, pipeline: int, profile: bool,
     if profile:
         log(f"profile: submit {submit_s:.2f}s, run_pending {finalize_s:.2f}s "
             f"of {wall:.2f}s wall ({len(lat)} batches)")
-    return done, wall, lat, results if keep else None
+    split = {"submit_s": submit_s, "run_pending_s": finalize_s,
+             "batches": len(lat)}
+    return done, wall, lat, results if keep else None, split
 
 
 def run(n_docs: int = N_DOCS, vocab: int = VOCAB, mean_len: int = MEAN_LEN,
@@ -165,8 +169,9 @@ def run(n_docs: int = N_DOCS, vocab: int = VOCAB, mean_len: int = MEAN_LEN,
         pipeline: int = PIPELINE, n_passes: int = N_PASSES,
         profile: bool = PROFILE, device="cuda", cache_dir: str = CACHE_DIR):
     """The headline at these knobs on `device`. Prints the JSON line and
-    returns a dict: "line" (that object), "packed", "queries" and
-    "results" (the last timed pass's, in query order)."""
+    returns a dict: "line" (that object), "packed", "queries",
+    "results" (the last timed pass's, in query order) and "passes" (per
+    timed pass: qps, wall_s and the submit / run_pending split)."""
     from wiser_tpu_torch.engine.device import TorchEngine
     from wiser_tpu_torch.runtime import resolve_device
 
@@ -199,7 +204,7 @@ def run(n_docs: int = N_DOCS, vocab: int = VOCAB, mean_len: int = MEAN_LEN,
                                   keep=p == n_passes - 1))
         log(f"pass {p + 1}/{n_passes}: {passes[-1][0] / passes[-1][1]:,.0f} QPS")
     results = passes[-1][3]
-    done, wall, lat, _ = max(passes, key=lambda t: t[0] / t[1])
+    done, wall, lat, _, _ = max(passes, key=lambda t: t[0] / t[1])
     qps = done / wall
     # replayed-log QPS (repeats served through coalescing) and unique-query
     # throughput, so the coalescing gain is visible
@@ -217,14 +222,16 @@ def run(n_docs: int = N_DOCS, vocab: int = VOCAB, mean_len: int = MEAN_LEN,
         "replayed_queries": done,
         "unique_qps": round(unique_qps, 1),
         "warmup_s": round(warmup_s, 1),
-        "pass_qps": [round(d / w, 1) for d, w, _, _ in passes],
+        "pass_qps": [round(p[0] / p[1], 1) for p in passes],
         "backend": "torch",
         "columns": columns,
         "card": card,
     }
     print(json.dumps(line), flush=True)
     return {"line": line, "packed": packed, "queries": queries,
-            "results": results}
+            "results": results,
+            "passes": [dict(qps=d / w, wall_s=w, **split)
+                       for d, w, _, _, split in passes]}
 
 
 def main() -> None:

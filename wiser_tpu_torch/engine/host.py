@@ -173,20 +173,36 @@ def build_single_term_table(packed: PackedIndex, scores64: np.ndarray,
     depth) postings in the exact (f64 score desc, doc asc) canon, so a
     single-term query with k <= depth (or k >= df) is a host slice.
 
-    Returns (tt_starts int64[T+1], tt_docs int64[...], tt_scores f64)."""
-    lens = np.diff(packed.term_starts)
-    term_of = np.repeat(np.arange(packed.n_terms, dtype=np.int64), lens)
-    # sentinel pads score exactly 0.0 < any real score -> sorted last
-    order = np.lexsort((packed.postings_doc, -scores64, term_of))
+    Returns (tt_starts int64[T+1], tt_docs int64[...], tt_scores f64).
+
+    The reference takes one lexsort of every posting by (term, -score,
+    doc); this sorts each run on its own, runs of one padded length
+    together as the rows of a 2-D array: a stable sort by -score keeps
+    the run's ascending doc order among equal scores, so the order is
+    the lexsort's at a fraction of its cost (a few seconds of each
+    engine's start at 1M docs)."""
+    lens = np.diff(packed.term_starts).astype(np.int64)
     # cap by actual run length too: a staged hot view keeps global df
     # for cold rows but gives them zero-length runs
     cnt = np.minimum(np.minimum(packed.df, lens), depth).astype(np.int64)
     tt_starts = np.zeros(packed.n_terms + 1, dtype=np.int64)
     np.cumsum(cnt, out=tt_starts[1:])
-    total = int(tt_starts[-1])
-    seg = packed.term_starts.astype(np.int64)
-    idx = order[np.repeat(seg[:-1], cnt)
-                + np.arange(total) - np.repeat(tt_starts[:-1], cnt)]
+    idx = np.empty(int(tt_starts[-1]), dtype=np.int64)
+    starts = packed.term_starts[:-1].astype(np.int64)
+    live = cnt > 0
+    for L in np.unique(lens[live]).tolist():
+        rows_L = np.nonzero(live & (lens == L))[0]
+        step = max(1, (1 << 24) // L)  # bound the (rows, L) temporaries
+        for r0 in range(0, len(rows_L), step):
+            rows = rows_L[r0 : r0 + step]
+            pos = starts[rows, None] + np.arange(L, dtype=np.int64)
+            # sentinel pads score exactly 0.0 < any real score -> last
+            order = np.argsort(-scores64[pos], axis=1, kind="stable")
+            c = cnt[rows]
+            m = int(c.max())
+            keep = np.arange(m) < c[:, None]
+            dest = tt_starts[rows, None] + np.arange(m)
+            idx[dest[keep]] = np.take_along_axis(pos, order[:, :m], 1)[keep]
     return tt_starts, packed.postings_doc[idx].astype(np.int64), scores64[idx]
 
 

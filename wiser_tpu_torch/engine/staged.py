@@ -153,12 +153,45 @@ def _full_shares(packed: PackedIndex, cost_core: np.ndarray,
 def full_residency_bytes(packed: PackedIndex, columns: str = "raw") -> int:
     """The staged planner's full-residency byte count (StagedEngine
     .total_full), the base of its budget shares: a caller asks for a
-    fraction of it. The JAX package's full_device_bytes counts the dense
-    tier at TpuEngine's default budget instead; this counts every
-    eligible dense row."""
+    fraction of it. full_device_bytes counts the dense tier at
+    TorchEngine's default budget instead; this counts every eligible
+    dense row."""
     return max(1, sum(_full_shares(
         packed, *per_term_device_cost(packed, columns, split=True),
         columns)))
+
+
+def dense_tier_bytes(packed: PackedIndex, columns: str = "raw",
+                     budget_bytes: int = None) -> int:
+    """Device bytes of TorchEngine's dense head-term tier under
+    budget_bytes (default: TorchEngine's default dense budget), computed
+    without building it: row plane + the f32 blockmax / blockmax2 and
+    uint8 argpos planes (+ the shared len-code row with tc columns). The
+    row cap is the JAX package's formula, so the two agree."""
+    if budget_bytes is None:
+        budget_bytes = TorchEngine.__init__.__kwdefaults__["dense_budget_bytes"]
+    if not budget_bytes:
+        return 0
+    n = packed.n_docs
+    n_pad = (n + 127) // 128 * 128
+    dense_min = max(TorchEngine.DENSE_MIN_DF_FLOOR,
+                    n // TorchEngine.DENSE_ELIGIBLE_FRACTION)
+    per_row = n_pad * (1 if columns == "tc" else 8) + (n_pad // 128) * 9
+    cap = min(int(budget_bytes // per_row), (2**31 - 1) // n_pad - 1)
+    H = min(int((packed.df >= dense_min).sum()), cap)
+    if H <= 0:
+        return 0
+    return H * per_row + (n_pad if columns == "tc" else 0)
+
+
+def full_device_bytes(packed: PackedIndex, columns: str = "raw") -> int:
+    """Device footprint of an unconstrained TorchEngine over `packed`
+    (every term resident, the dense tier at the default budget): the
+    base of the memory grid's budget fractions (bench/run_exp.py), as in
+    the JAX package. The staged planner's own base is
+    full_residency_bytes."""
+    return (int(per_term_device_cost(packed, columns).sum())
+            + dense_tier_bytes(packed, columns))
 
 
 def _hot_view(packed: PackedIndex, hot: np.ndarray, phrase_hot: np.ndarray):
@@ -233,7 +266,7 @@ class StagedEngine:
     def __init__(self, packed: PackedIndex, hbm_budget_bytes: int, *,
                  device="cuda", margin: int = 54, strict_parity: bool = False,
                  columns: str = "raw", cold_transfer: str = "packed",
-                 doc_bodies=None):
+                 doc_bodies=None, term_weights=None):
         """hbm_budget_bytes: the total device budget. It splits across the
         dense rows, CSR cores and phrase components by their
         full-residency byte shares (total_full), spilling unspendable
@@ -241,6 +274,9 @@ class StagedEngine:
         proportional-share planner). columns: "raw" or "tc" (the hot
         tier's and the cold scratch's layout). doc_bodies: the bodies by doc
         id, for snippets (hot queries get theirs from the hot engine).
+        term_weights: per-term admission weights (e.g. a query log's
+        per-batch presence counts); CSR terms are admitted by weight desc,
+        then df desc (None: by df).
         device: "cuda" (default; raises without a card) or "cpu"."""
         if cold_transfer not in ("raw", "packed"):
             raise ValueError(f"unknown cold_transfer {cold_transfer!r}")
@@ -270,9 +306,12 @@ class StagedEngine:
             carry = s_core + carry - core_budget
             phrase_budget = s_phr + carry
 
-        # CSR admission: df desc, dense-eligible terms last (their dense
-        # rows serve every non-phrase shape)
-        order = np.lexsort((-packed.df, eligible))
+        # CSR admission: weight desc (df when unweighted), then df desc,
+        # dense-eligible terms last (their dense rows serve every
+        # non-phrase shape)
+        w = (np.asarray(term_weights, dtype=np.float64)
+             if term_weights is not None else packed.df.astype(np.float64))
+        order = np.lexsort((-packed.df, -w, eligible))
         hot = np.zeros(packed.n_terms, dtype=bool)
         used = 0
         for r in order:
@@ -336,6 +375,13 @@ class StagedEngine:
     @property
     def hot_fraction(self) -> float:
         return float(self.hot_mask.mean()) if len(self.hot_mask) else 0.0
+
+    @property
+    def phrase_hot_fraction(self) -> float:
+        """Share of terms whose phrase components (position bags and bloom
+        rows) are resident."""
+        return (float(self.phrase_hot_mask.mean())
+                if len(self.phrase_hot_mask) else 0.0)
 
     def device_bytes(self) -> dict:
         """Resident (hot-tier) device bytes."""

@@ -1,6 +1,5 @@
 """Vectorized linedoc -> PackedIndex builder (the port's copy of
-wiser_tpu/index/fast_builder.py, in memory: the disk spill of the
-reference's builder is not carried).
+wiser_tpu/index/fast_builder.py).
 
 The linedoc stream is parsed in chunks with column-level string ops (one
 `str.split` / `fromstring` per chunk, not per value), term ids are
@@ -17,10 +16,17 @@ preceding), from which each posting gets a pair of bloom filter rows
 (bloom_ends / bloom_begins), bit-equal to the JAX builder's. The native
 library parses and hashes the neighbor keys (libbloom's double murmur2).
 Non-canonical rows raise ValueError.
+
+With spill_dir, the parsed columns stream through flat files on disk
+and are read back once at pack time, so the parse phase holds only the
+vocabulary and the doc lengths in RAM: the way to build a corpus whose
+columns outgrow the host's memory.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 import time
 import warnings
 from itertools import repeat
@@ -47,8 +53,50 @@ def _fromstring(s: str, seps: str) -> np.ndarray:
         return np.fromstring(s, dtype=np.int64, sep=" ")
 
 
+class _Spill:
+    """Append-only flat binary files, one per parsed column, under a
+    directory; each is read back once (np.fromfile) and deleted as soon
+    as its column is consumed."""
+
+    def __init__(self, spill_dir: str):
+        os.makedirs(spill_dir, exist_ok=True)
+        self.dir = spill_dir
+        self._files: Dict[str, object] = {}
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.dir, name + ".bin")
+
+    def append(self, name: str, arr: np.ndarray) -> None:
+        f = self._files.get(name)
+        if f is None:
+            f = self._files[name] = open(self._path(name), "wb")
+        f.write(memoryview(np.ascontiguousarray(arr)))
+
+    def load(self, name: str, dtype) -> np.ndarray:
+        f = self._files.pop(name, None)
+        if f is not None:
+            f.close()
+        if not os.path.exists(self._path(name)):
+            return np.empty(0, dtype=dtype)
+        return np.fromfile(self._path(name), dtype=dtype)
+
+    def drop(self, name: str) -> None:
+        if os.path.exists(self._path(name)):
+            os.remove(self._path(name))
+
+    def cleanup(self) -> None:
+        for f in self._files.values():
+            f.close()
+        self._files.clear()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 class _ChunkAccum:
-    def __init__(self):
+    """The parsed columns, chunk by chunk: in lists, or with a _Spill in
+    its files (then only the vocabulary and doc lengths stay in RAM)."""
+
+    def __init__(self, spill: Optional[_Spill] = None):
+        self.spill = spill
         self.vocab: Dict[str, int] = {}
         self.term_ids: List[np.ndarray] = []
         self.doc_ids: List[np.ndarray] = []
@@ -93,15 +141,21 @@ def _parse_group_col(cols: List[str], n_entries: int, seps: str,
     return counts, _fromstring(joined, ";,.")
 
 
-def _parse_linedoc_chunks(path: str, chunk_docs: int,
-                          with_blooms: bool) -> Iterator[tuple]:
+POSITIONAL_FORMATS = ("WITH_POSITIONS", "WITH_PHRASE_END", "WITH_BI_BLOOM")
+
+
+def _parse_linedoc_chunks(path: str, chunk_docs: int, with_blooms: bool,
+                          n_rows: Optional[int] = None) -> Iterator[tuple]:
     """Yield per-chunk column lists (tokens, positions, offsets, bodies,
     following-word groups, preceding-word groups; the last two empty
-    unless with_blooms)."""
+    unless with_blooms) of the first n_rows rows (all if None)."""
     cols: List[List[str]] = [[], [], [], [], [], []]
+    count = 0
     with open(path, "r", encoding="utf-8", errors="replace") as f:
         f.readline()  # header
         for line in f:
+            if n_rows is not None and count >= n_rows:
+                break
             line = line.rstrip("\n")
             if not line:
                 continue
@@ -116,6 +170,7 @@ def _parse_linedoc_chunks(path: str, chunk_docs: int,
                                      "(7 columns)")
                 cols[4].append(items[5])  # bloom (following words)
                 cols[5].append(items[6])  # bloom_before (preceding words)
+            count += 1
             if len(cols[0]) >= chunk_docs:
                 yield tuple(cols)
                 cols = [[], [], [], [], [], []]
@@ -161,19 +216,29 @@ def _accumulate_chunk(acc: _ChunkAccum, chunk: tuple,
         else:
             blen[i] = len([t for t in b.split(" ") if t])
 
-    acc.term_ids.append(term_ids)
-    acc.doc_ids.append(doc_ids)
-    acc.tf.append(pos_counts.astype(np.int32))
-    acc.positions.append(pos_nums.astype(np.int32))
-    acc.off_b.append(off_nums[0::2].astype(np.int32))
-    acc.off_e.append(off_nums[1::2].astype(np.int32))
+    parsed = {"term_ids": term_ids, "doc_ids": doc_ids,
+              "tf": pos_counts.astype(np.int32),
+              "positions": pos_nums.astype(np.int32),
+              "off_b": off_nums[0::2].astype(np.int32),
+              "off_e": off_nums[1::2].astype(np.int32)}
+    for name, arr in parsed.items():
+        if acc.spill is not None:
+            acc.spill.append(name, arr)
+        else:
+            getattr(acc, name).append(arr)
     acc.doc_lengths.append(blen)
     if with_blooms:
         t0 = time.perf_counter()
-        for cols, store in ((ends_cols, acc.bloom_ends_keys),
-                            (begins_cols, acc.bloom_begins_keys)):
-            store.append(native.bloom_col_hash(
-                "".join(cols).encode("utf-8"), E, acc.n_entries))
+        for cols, side, store in ((ends_cols, "ends", acc.bloom_ends_keys),
+                                  (begins_cols, "begins",
+                                   acc.bloom_begins_keys)):
+            keys = native.bloom_col_hash("".join(cols).encode("utf-8"), E,
+                                         acc.n_entries)
+            if acc.spill is not None:
+                for suffix, arr in zip(("_a", "_b", "_e"), keys):
+                    acc.spill.append(side + suffix, arr)
+            else:
+                store.append(keys)
         acc.bloom_s += time.perf_counter() - t0
     acc.n_docs += n_docs
     acc.n_entries += E
@@ -185,7 +250,10 @@ def _bloom_rows(key_chunks, order_inv: np.ndarray, pidx: np.ndarray, P: int,
     chunks: key bit x_i = ((a + i*b) mod 2^32) mod bits, i < n_hashes, is
     set in the row of the key's posting (native). Entry ids are pre-sort;
     order_inv maps them to sorted entries, pidx sorted entries to padded
-    posting indices."""
+    posting indices. key_chunks may also be a zero-argument callable that
+    returns an iterator of them (the spill path streams slices)."""
+    if callable(key_chunks):
+        key_chunks = key_chunks()
     rows = np.zeros((P, cfg.n_words), dtype=np.uint32)
     for a, b, entry_of in key_chunks:
         native.bloom_set_bits(a, b, pidx[order_inv[entry_of]], cfg.n_hashes,
@@ -325,28 +393,85 @@ def _consume_concat(chunks: List[np.ndarray]) -> np.ndarray:
     return out
 
 
-def build_packed_fast(path: str, chunk_docs: int = 20_000,
+def _spill_side_loader(spill: _Spill, side: str,
+                       slice_keys: int = 4_000_000):
+    """A zero-argument callable for _bloom_rows: loads one bloom side's
+    hashed keys from the spill, deletes their files, and yields bounded
+    slices (the bit-setting temporaries stay small)."""
+
+    def gen():
+        a = spill.load(side + "_a", np.uint32)
+        b = spill.load(side + "_b", np.uint32)
+        e = spill.load(side + "_e", np.int32)
+        for suffix in ("_a", "_b", "_e"):
+            spill.drop(side + suffix)
+        for i in range(0, len(a), slice_keys):
+            yield (a[i : i + slice_keys], b[i : i + slice_keys],
+                   e[i : i + slice_keys])
+
+    return gen
+
+
+_COLUMNS = ("term_ids", "doc_ids", "tf", "positions", "off_b", "off_e")
+
+
+def build_packed_fast(path: str, fmt: str = "WITH_POSITIONS",
+                      n_rows: Optional[int] = None,
+                      chunk_docs: int = 20_000,
                       with_blooms: bool = False,
                       bloom_cfg: Optional[BloomConfig] = None,
+                      verbose: bool = False,
+                      spill_dir: Optional[str] = None,
                       stats: Optional[dict] = None) -> PackedIndex:
-    """Stream a linedoc file into a PackedIndex: a WITH_POSITIONS file, or
-    with with_blooms a WITH_BI_BLOOM file, whose bloom rows are built with
-    bloom_cfg (default BloomConfig(), the reference indexer's). stats, if
-    given, receives bloom_s: the seconds spent on the bloom rows (key
-    parsing and hashing, bit setting)."""
-    acc = _ChunkAccum()
-    for chunk in _parse_linedoc_chunks(path, chunk_docs, with_blooms):
-        _accumulate_chunk(acc, chunk, with_blooms)
-    if acc.n_docs == 0:
-        raise ValueError(f"no docs parsed from {path}")
-    cols = [_consume_concat(c) for c in (acc.term_ids, acc.doc_ids, acc.tf,
-                                          acc.positions, acc.off_b, acc.off_e)]
-    doc_lengths = _consume_concat(acc.doc_lengths)
-    vocab = acc.vocab
-    blooms = ((acc.bloom_ends_keys, acc.bloom_begins_keys) if with_blooms
-              else None)
-    if stats is not None and with_blooms:
-        stats["bloom_s"] = stats.get("bloom_s", 0.0) + acc.bloom_s
-    del acc
-    return pack_from_arrays(*cols, doc_lengths, vocab, bloom_cfg=bloom_cfg,
-                            bloom_key_chunks=blooms, stats=stats)
+    """Stream the first n_rows rows (all if None) of a linedoc file into a
+    PackedIndex: a positional file (fmt WITH_POSITIONS, WITH_PHRASE_END or
+    WITH_BI_BLOOM), or with with_blooms a WITH_BI_BLOOM file, whose bloom
+    rows are built with bloom_cfg (default BloomConfig(), the reference
+    indexer's). spill_dir: stream the parsed columns through this
+    directory instead of RAM (it is removed afterwards); the index is the
+    same. verbose: progress on stdout. stats, if given, receives bloom_s:
+    the seconds spent on the bloom rows (key parsing and hashing, bit
+    setting)."""
+    if fmt not in POSITIONAL_FORMATS:
+        raise ValueError(f"fast builder supports positional formats, "
+                         f"not {fmt}")
+    spill = _Spill(spill_dir) if spill_dir else None
+    try:
+        acc = _ChunkAccum(spill)
+        t0 = time.time()
+        for chunk in _parse_linedoc_chunks(path, chunk_docs, with_blooms,
+                                           n_rows):
+            _accumulate_chunk(acc, chunk, with_blooms)
+            if verbose:
+                print(f"  parsed {acc.n_docs} docs ({time.time() - t0:.1f}s)",
+                      flush=True)
+        if acc.n_docs == 0:
+            raise ValueError(f"no docs parsed from {path}")
+        if spill is not None:
+            cols = []
+            for name in _COLUMNS:
+                cols.append(spill.load(name, np.int32))
+                spill.drop(name)
+            blooms = ((_spill_side_loader(spill, "ends"),
+                       _spill_side_loader(spill, "begins"))
+                      if with_blooms else None)
+        else:
+            cols = [_consume_concat(getattr(acc, name)) for name in _COLUMNS]
+            blooms = ((acc.bloom_ends_keys, acc.bloom_begins_keys)
+                      if with_blooms else None)
+        doc_lengths = _consume_concat(acc.doc_lengths)
+        vocab = acc.vocab
+        if stats is not None and with_blooms:
+            stats["bloom_s"] = stats.get("bloom_s", 0.0) + acc.bloom_s
+        del acc
+        packed = pack_from_arrays(*cols, doc_lengths, vocab,
+                                  bloom_cfg=bloom_cfg,
+                                  bloom_key_chunks=blooms, stats=stats)
+        if verbose:
+            print(f"  packed {packed.n_postings} postings / "
+                  f"{packed.n_terms} terms in {time.time() - t0:.1f}s",
+                  flush=True)
+        return packed
+    finally:
+        if spill is not None:
+            spill.cleanup()

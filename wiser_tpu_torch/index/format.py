@@ -124,7 +124,10 @@ class PackedIndex:
         np.savez(os.path.join(path, "columns.npz"), **cols)
 
     @classmethod
-    def load(cls, path: str) -> "PackedIndex":
+    def load(cls, path: str, skip_offsets: bool = False) -> "PackedIndex":
+        """Load a saved index. skip_offsets=True leaves the char-offset
+        bags empty (a zero-length CSR): only the highlighter reads them,
+        and they hold two int32 values per position."""
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         if meta["format_version"] != FORMAT_VERSION:
@@ -133,6 +136,14 @@ class PackedIndex:
             raw = f.read()
         z = np.load(os.path.join(path, "columns.npz"))
         blooms = meta["has_blooms"]
+        cols = {name: z[name] for name in COLUMNS
+                if not (skip_offsets and name.startswith("off_"))}
+        if skip_offsets:
+            cols.update(
+                off_starts=np.zeros(int(cols["term_starts"][-1]) + 1,
+                                    dtype=np.int64),
+                off_begin=np.zeros(0, dtype=np.int32),
+                off_end=np.zeros(0, dtype=np.int32))
         return cls(
             terms=raw.split("\n") if raw else [],
             n_docs=meta["n_docs"],
@@ -141,5 +152,5 @@ class PackedIndex:
                                   meta["bloom"]["error_ratio"]),
             bloom_ends=z["bloom_ends"] if blooms else None,
             bloom_begins=z["bloom_begins"] if blooms else None,
-            **{name: z[name] for name in COLUMNS},
+            **cols,
         )

@@ -42,6 +42,8 @@ class Client:
                          for _ in range(n_channels)]
         self.hists = [Histogram() for _ in range(n_threads)]
         self.counts = [0] * n_threads
+        # streams that ended in an exception before the run's end
+        self.errors: List[str] = []
         self._stop = threading.Event()
         self._record = threading.Event()
         if warmup_s <= 0:
@@ -60,6 +62,13 @@ class Client:
                 break
 
     def _thread_fn(self, tid: int) -> None:
+        try:
+            self._drive(tid)
+        except Exception as e:  # counted in run()'s "errors", not raised
+            if not self._stop.is_set():
+                self.errors.append(f"thread {tid}: {e!r}")
+
+    def _drive(self, tid: int) -> None:
         from wiser_tpu_torch.serve import wiser_pb2 as pb
 
         stub = WiserEngineStub(self.channels[tid % len(self.channels)])
@@ -109,6 +118,7 @@ class Client:
         wall = time.time() - t0
         total = sum(self.counts)
         return {"qps": total / wall, "total": total, "wall_s": wall,
+                "errors": len(self.errors), "error_messages": self.errors[:5],
                 "histogram": Histogram.merged(self.hists)}
 
 
@@ -122,7 +132,7 @@ def _proc_worker(target, queries, n_threads, streaming, duration,
                     wire_batch=wire_batch, warmup_s=warmup_s)
     stats = client.run()
     h = stats["histogram"]
-    out_q.put((stats["total"], stats["wall_s"],
+    out_q.put((stats["total"], stats["wall_s"], stats["errors"],
                h.buckets, h.count, h.sum, h.min, h.max))
 
 
@@ -146,12 +156,13 @@ def run_multiprocess(target, queries, n_procs, n_threads, streaming,
     for p in procs:
         p.start()
     merged = Histogram()
-    total = 0
+    total = errors = 0
     walls = []
     for _ in procs:
-        t, w, buckets, count, s, mn, mx = out_q.get(
+        t, w, err, buckets, count, s, mn, mx = out_q.get(
             timeout=duration + warmup_s + 120)
         total += t
+        errors += err
         walls.append(w)
         other = Histogram()
         other.buckets = list(buckets)
@@ -161,7 +172,7 @@ def run_multiprocess(target, queries, n_procs, n_threads, streaming,
         p.join(timeout=30)
     wall = max(walls) if walls else time.time() - t0
     return {"qps": total / wall, "total": total, "wall_s": wall,
-            "histogram": merged, "n_procs": n_procs}
+            "errors": errors, "histogram": merged, "n_procs": n_procs}
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -197,6 +208,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         stats = client.run()
     print(f"QPS\t{stats['qps']:.1f}")
     print(f"total\t{stats['total']}")
+    print(f"errors\t{stats['errors']}")
     print(format_latency_table(stats["histogram"]))
 
 
