@@ -2,7 +2,7 @@
 """Chip smoke for wiser_tpu_torch: drive the port's main path once on one
 CUDA card and check it.
 
-    python3 chip_smoke.py            # the full smoke (one card, ~17 min)
+    python3 chip_smoke.py            # the full smoke (one card, 15-19 min)
     python3 chip_smoke.py --docs 200000 --phases kernel,dense,phrase
 
 It always compiles csrc/unpack.cu for sm_90a first (nvcc, first use).
@@ -38,13 +38,13 @@ search for phrases). Phases:
             full-scan mega (with its rescue), semidense, compact and
             list-chain phrase routes and the exact host phrase search;
             raises unless the full, semidense and compact-or-list routes
-            each answer some; then a 512 prefix of it with
+            each answer some; then a 256 prefix of it with
             FULL_PHRASE_SCAN = False on the instance (`phrase_pruned`),
             which must take the block-pruned mega route
   staged    StagedEngine with the device cold path and packed transport,
             at budget 0 and at a quarter of the full-residency bytes
             (which must admit dense rows and stage cold chunks), over
-            aol, aol_df and a 512 prefix of the phrase set: budget 0
+            aol, aol_df and a 256 prefix of the phrase set: budget 0
             must answer phrases on the cold device path (phrase_body over
             staged position bags), the quarter budget some hot (the hot
             engine's phrase routes) and some cold; the unpack kernel's
@@ -66,16 +66,32 @@ search for phrases). Phases:
             tools/scale_bench configs 1-4 at 2,048 queries each (batch
             2,048, 2 in flight; the phrase config from the cached pairs),
             50 sampled per config against the host; tools/parity_audit,
-            64 queries per config through the engine with strict_parity
+            32 queries per config through the engine with strict_parity
             on, every result verified, flag counts reported;
             tools/route_bench, every route set at 256 queries, whose
             named route must take a majority, with zipf_t3 run once more
             under torch.profiler (utils.trace: top device ops, device
             busy share); bench/run_exp's memory grid at 0.05 and 0.25 of
-            full_device_bytes (aol_mix, 2,048 queries, device cold path),
+            full_device_bytes (aol_mix, 1,024 queries, device cold path),
             which must launch the unpack kernel; tools/stage_probe (B=512,
             T=3, C=512, M=16, SB=8) on tc columns. A mismatch or a failed
             check raises
+  mesh      the doc-partitioned mesh on the same 1M index, MESH_SHARDS =
+            4 shards on the one card (the layout a four-card machine gives,
+            one shard per card): tools/dryrun_multichip (every mesh route,
+            raw and tc, host-verified), ShardedIndex.from_packed timed, then
+            `mesh` (ShardedEngine, raw) and `mesh_tc` (columns="tc") over
+            aol, aol_df, aol_df_pruned (1,024 df-ranked queries with
+            PRUNED_DENSE_MIN_NB = 1024 on the instance: at 4 shards the
+            1,954 blocks per shard stay under the default 2,048) and a 512
+            phrase prefix; `mesh_staged` (ShardedStagedEngine at a quarter
+            of its full residency bytes) over aol, aol_df 1,024 and a 256
+            phrase prefix; and tools/shard_ladder.run on the mesh engine
+            (configs 1-4, 2,048 queries each, 50 sampled). Raises unless
+            aol_df takes the dense and semidense routes, aol_df_pruned the
+            pruned one, the phrase prefix the compact one, mesh_tc's
+            postings take <= 0.51 of mesh's bytes, and mesh_staged answers
+            some queries hot and stages some cold groups
   headline  bench.py's headline on the card (wiser_tpu_torch.bench.
             headline.run): its 20k-doc synthetic corpus built by the
             port's builder (OracleEngine + pack_oracle) into
@@ -98,8 +114,8 @@ search for phrases). Phases:
 
 Any failure raises before the last line. The last line of stdout is the
 contract's {"ok": true, "device": {...}}; the line before it lists the
-kernels; before that come the harness summary and the route summary of
-every run. The full
+kernels; before that come the mesh summary, the harness summary and the
+route summary of every run. The full
 report is the last line of stderr, one JSON object (also written to
 the --report path, if given).
 """
@@ -119,7 +135,7 @@ CACHE = os.path.join(ROOT, ".smoke_cache")
 K = 10
 PARITY_SAMPLE = 256
 PHASES = ("kernel", "resident", "dense", "phrase", "staged", "tc",
-          "staged_tc", "harness", "headline", "serve")
+          "staged_tc", "harness", "mesh", "headline", "serve")
 # H100 SXM HBM3 rate (NVIDIA's data sheet) for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
 
@@ -701,7 +717,9 @@ def serve_phase(report: dict, corpus) -> None:
 
 # -- harness ------------------------------------------------------------------
 
-HARNESS_Q, HARNESS_AUDIT, HARNESS_ROUTE_Q = 2048, 64, 256
+# the audit and the memory grid cut from 64 and 2,048 queries when the
+# mesh phase came in, to keep the smoke inside its time
+HARNESS_Q, HARNESS_AUDIT, HARNESS_ROUTE_Q, HARNESS_GRID_Q = 2048, 32, 256, 1024
 HARNESS_FRACS = (0.05, 0.25)
 GRID_KEYS = ("budget_bytes", "hot_fraction", "phrase_hot_fraction",
              "dense_fraction", "hot_bytes_used", "device_mem_bytes", "qps",
@@ -789,7 +807,8 @@ def harness_phase(report: dict, packed, pairs, engines: dict,
     # the memory grid on this index, device cold path
     t0 = time.perf_counter()
     grid = []
-    for t in run_exp.memory_matrix(n_queries=HARNESS_Q, batch=HARNESS_Q,
+    for t in run_exp.memory_matrix(n_queries=HARNESS_GRID_Q,
+                                   batch=HARNESS_GRID_Q,
                                    fracs=HARNESS_FRACS,
                                    cold_compute="device"):
         before = U.launch_counts["unpack_delta_blocks"]
@@ -845,6 +864,140 @@ def harness_summary(h: dict) -> dict:
                         for r in h["run_exp"]["rows"]],
         "stage_probe_ms": {k: v for k, v in h["stage_probe"].items()
                            if k.endswith("_ms")}}
+
+
+# -- mesh -------------------------------------------------------------------
+
+MESH_SHARDS, MESH_PRUNED_Q, MESH_PHRASE_Q, MESH_STAGED_PHRASE_Q = 4, 1024, 512, 256
+# the aol_df_pruned mix's PRUNED_DENSE_MIN_NB: under the 1,954 blocks a
+# shard holds at 1M docs and 4 shards
+MESH_PRUNED_MIN_NB = 1024
+
+
+def mesh_phase(report: dict, packed, pairs, pools: dict, expected: dict,
+               Q: int) -> dict:
+    """The mesh at MESH_SHARDS shards on the card: the dry run, the sharded
+    index, the raw / tc / staged mesh engines over the query sets (the
+    smoke's serve and check_parity), the shard ladder. Returns the summary
+    line's object."""
+    import torch
+
+    from wiser_tpu_torch.engine.shard import ShardedEngine, ShardedIndex
+    from wiser_tpu_torch.engine.staged_shard import (ShardedStagedEngine,
+                                                     full_residency_bytes)
+    from wiser_tpu_torch.tools import scale_bench, shard_ladder
+    from wiser_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+
+    D = MESH_SHARDS
+    out = report["mesh"] = {"shards": D}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_multichip(D, "cuda")
+    out["dryrun_s"] = time.perf_counter() - t0
+    log(f"mesh dryrun: {out['dryrun']}")
+    t0 = time.perf_counter()
+    sharded = ShardedIndex.from_packed(packed, D)
+    out["from_packed_s"] = time.perf_counter() - t0
+    W = min(Q, 128)
+    flat = {"aol": ("aol", Q, {}, None), "aol_df": ("aol_df", Q, {}, None),
+            "aol_df_pruned": ("aol_df", MESH_PRUNED_Q,
+                              {"PRUNED_DENSE_MIN_NB": MESH_PRUNED_MIN_NB}, W),
+            "phrase": ("phrase", MESH_PHRASE_Q, {}, W)}
+    runs = [("mesh", lambda: ShardedEngine(sharded), flat),
+            ("mesh_tc", lambda: ShardedEngine(sharded, columns="tc"), flat),
+            ("mesh_staged", lambda: ShardedStagedEngine(
+                packed, D, full_residency_bytes(packed, D) // 4,
+                full=sharded),
+             {"aol": ("aol", Q, {}, None),
+              "aol_df": ("aol_df", MESH_PRUNED_Q, {}, None),
+              "phrase": ("phrase", MESH_STAGED_PHRASE_Q, {}, W)})]
+    mixes_out = {}
+    for name, make, mixes in runs:
+        t0 = time.perf_counter()
+        eng = make()
+        torch.cuda.synchronize()
+        hot = getattr(eng, "hot", eng)
+        info = {"init_s": time.perf_counter() - t0, "columns": hot.columns,
+                "placement": [str(d) for d in hot.placement],
+                "device_bytes": eng.device_bytes(),
+                "shard_bytes": hot.shard_bytes(),
+                "dense_rows": int(hot._dense_H),
+                "dense_build_s": hot.dense_build_s}
+        if name == "mesh_staged":
+            info.update(hot_fraction=eng.hot_fraction,
+                        hot_bytes_used=eng.hot_bytes_used,
+                        total_full=eng.total_full)
+        report[f"{name}_engine"] = info
+        log(f"{name} engine: {info}")
+        for mix, (pool, nq, attrs, warm) in mixes.items():
+            queries = pools[pool][:nq]
+            key = f"{name}_{mix}"
+            for a, v in attrs.items():
+                setattr(eng, a, v)  # this instance, this mix only
+            res = serve(eng, queries, key, report, warm)
+            for a in attrs:
+                delattr(eng, a)
+            report[key]["engine_attrs"] = attrs
+            report[key]["parity_checked"] = check_parity(
+                packed, queries, res, parity_sample(queries), key, expected)
+            st = report[key]["stats"]
+            mixes_out[key] = {
+                "qps": report[key]["qps"], "queries": len(queries),
+                "peak_device_bytes": report[key]["peak_device_bytes"],
+                "routes": {k: v for k, v in st.items()
+                           if (k.startswith("route_") or k.startswith("flag_")
+                               or k in ("cold_chunks", "host_fallback_q",
+                                        "forced_host_tie_cut"))
+                           and v}}
+        if name == "mesh":
+            # the shard ladder on the raw mesh engine
+            t0 = time.perf_counter()
+            configs = scale_bench.build_configs(packed, None, HARNESS_Q, K,
+                                                pairs=pairs)
+            ladder = shard_ladder.run(packed, eng, configs, HARNESS_Q, 50)
+            out["ladder"] = {"configs": ladder,
+                             "wall_s": time.perf_counter() - t0}
+            bad = {n: r["parity_mismatches"] for n, r in ladder.items()}
+            if len(ladder) != 4 or any(bad.values()):
+                raise AssertionError(f"shard_ladder: configs {sorted(ladder)},"
+                                     f" parity mismatches {bad}")
+            log(f"mesh shard_ladder: {out['ladder']}")
+        del eng, hot, res
+        torch.cuda.empty_cache()
+
+    def st(key):
+        return report[key]["stats"]
+
+    checks = {
+        "mesh_aol_df dense + semidense": st("mesh_aol_df").get("route_dense", 0)
+        > 0 and st("mesh_aol_df").get("route_semidense", 0) > 0,
+        "mesh_aol_df_pruned pruned":
+            st("mesh_aol_df_pruned").get("route_pruned", 0) > 0,
+        "mesh_phrase compact":
+            st("mesh_phrase").get("route_phrase_compact", 0) > 0,
+        "mesh_tc postings <= 0.51 of mesh":
+            report["mesh_tc_engine"]["device_bytes"]["postings"]
+            <= 0.51 * report["mesh_engine"]["device_bytes"]["postings"],
+        "mesh_staged hot and cold": sum(
+            st(f"mesh_staged_{m}").get("route_hot", 0) for m in
+            ("aol", "aol_df", "phrase")) > 0 and sum(
+            st(f"mesh_staged_{m}").get("cold_chunks", 0) for m in
+            ("aol", "aol_df", "phrase")) > 0}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mesh: failed checks {failed}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return {"shards": D, "placement": report["mesh_engine"]["placement"],
+            "wall_s": out["wall_s"], "from_packed_s": out["from_packed_s"],
+            "dryrun_s": out["dryrun_s"],
+            "shard_bytes": {n: report[f"{n}_engine"]["shard_bytes"]
+                            for n, _, _ in runs},
+            "postings_tc_vs_raw":
+                report["mesh_tc_engine"]["device_bytes"]["postings"]
+                / report["mesh_engine"]["device_bytes"]["postings"],
+            "mixes": mixes_out,
+            "ladder_qps": {n: r["qps"] for n, r in
+                           out["ladder"]["configs"].items()}}
 
 
 # -- main --------------------------------------------------------------------
@@ -905,8 +1058,10 @@ def main() -> int:
     # attributes set for that mix only, warm-pass queries or None = all)})
     runs = []
     Q = args.queries
-    P = min(Q, 512)  # the phrase prefix of the pruned mixes
-    PS = min(Q, 512)  # the phrase prefix of the staged mixes
+    # the phrase prefixes of the pruned and the staged mixes (512 before
+    # the mesh phase came in, 1,024 before that)
+    P = min(Q, 256)
+    PS = min(Q, 256)
     # mixes that spend seconds a pass on exact host searches and staging
     # (the staged and pruned phrase mixes, and the df-ranked set without
     # a dense tier) warm on a prefix
@@ -963,20 +1118,21 @@ def main() -> int:
             "aol": ("aol", Q, {}, None), "aol_df": ("aol_df", Q // 4, {}, None),
             "phrase": ("phrase", PS, {}, W)}))
     keep: dict = {}  # the dense and tc engines, for the harness phase
-    if runs or "harness" in phases:
+    expected: dict = {}  # the exact host answers, across runs
+    if runs or "harness" in phases or "mesh" in phases:
         from wiser_tpu_torch import StagedEngine, TorchEngine
         from wiser_tpu_torch.engine.staged import full_residency_bytes
 
         packed, pairs = get_index(args.docs, report)
-    if runs:
+    if runs or "mesh" in phases:
         pools = {"aol": aol_mixed_queries(packed, Q),
                  "aol_df": aol_mixed_queries(packed, Q, by_df=True),
-                 "phrase": phrase_queries(pairs, Q),
-                 # df-ranked draws the windowed route takes (seed 8)
-                 "windowed": windowed_eligible(
-                     packed, aol_mixed_queries(packed, 8 * Q, seed=8,
-                                               by_df=True), Q // 4)}
-        expected: dict = {}
+                 "phrase": phrase_queries(pairs, Q)}
+    if runs:
+        # df-ranked draws the windowed route takes (seed 8)
+        pools["windowed"] = windowed_eligible(
+            packed, aol_mixed_queries(packed, 8 * Q, seed=8, by_df=True),
+            Q // 4)
         for name, make, mixes in runs:
             t0 = time.perf_counter()
             eng = make()
@@ -1054,6 +1210,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(json.dumps({"harness": harness_summary(report["harness"])}),
               flush=True)
+    if "mesh" in phases:
+        print(json.dumps({"mesh": mesh_phase(report, packed, pairs, pools,
+                                             expected, Q)}), flush=True)
+        torch.cuda.empty_cache()
 
     if "headline" in phases or "serve" in phases:
         corpus = bench_corpus(args.bench_docs, report)

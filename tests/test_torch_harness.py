@@ -357,7 +357,10 @@ def JX_verify(engine, packed, queries, batch):
 
 
 def test_trace_summary_and_tables(tmp_path):
-    with trace(str(tmp_path / "t")) as prof:
+    with pytest.raises(RuntimeError):  # the card by default
+        with trace(str(tmp_path / "c")):
+            pass
+    with trace(str(tmp_path / "t"), device="cpu") as prof:
         x = torch.randn(256, 256)
         for _ in range(3):
             x = x @ x

@@ -39,6 +39,8 @@ from wiser_tpu.index.format import PackedIndex as JPackedIndex
 from wiser_tpu.native import lib as j_native
 from wiser_tpu_torch import StagedEngine, TorchEngine, resolve_device
 from wiser_tpu_torch.convert import packed_from_arrays
+from wiser_tpu_torch.engine.shard import ShardedEngine, ShardedIndex
+from wiser_tpu_torch.engine.staged_shard import ShardedStagedEngine
 from wiser_tpu_torch.data.scale_corpus import (
     generate_linedoc,
     mine_phrases_from_linedoc,
@@ -47,6 +49,7 @@ from wiser_tpu_torch.index import bloom
 from wiser_tpu_torch.index.fast_builder import build_packed_fast
 from wiser_tpu_torch.index.format import PackedIndex
 from wiser_tpu_torch.native import lib as native
+from wiser_tpu_torch.tools.dryrun_multichip import dryrun_multichip
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # every field the two PackedIndex classes store, derived ones included
@@ -80,10 +83,15 @@ def test_cuda_request_raises_without_a_card():
     packed = to_port(jp)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    sharded = ShardedIndex.from_packed(packed, 2)
     for make in (lambda: TorchEngine(packed, device="cuda"),
                  lambda: TorchEngine(packed),  # "cuda" by default
                  lambda: StagedEngine(packed, 0, device="cuda"),
-                 lambda: StagedEngine(packed, 0)):
+                 lambda: StagedEngine(packed, 0),
+                 lambda: ShardedEngine(sharded),
+                 lambda: ShardedEngine(sharded, devices=["cuda:0"] * 2),
+                 lambda: ShardedStagedEngine(packed, 2, 0),
+                 lambda: dryrun_multichip(2)):
         with pytest.raises(RuntimeError):
             make()
 
@@ -150,6 +158,10 @@ from wiser_tpu_torch.tools import (check_posting_list, engine_bench,
                                    parity_audit, route_bench,
                                    run_client_server, scale_bench,
                                    stage_probe)
+# the mesh
+from wiser_tpu_torch.engine.shard import ShardedEngine, ShardedIndex
+from wiser_tpu_torch.engine.staged_shard import ShardedStagedEngine
+from wiser_tpu_torch.tools import dryrun_multichip, shard_ladder
 
 generate_linedoc({path!r}, 1500, vocab_size=300, mean_len=30, seed=5,
                  with_blooms=True, verbose=False)
@@ -166,7 +178,12 @@ for columns in ("raw", "tc"):
     staged = StagedEngine(packed, 0, device="cpu", columns=columns)
     staged.COLD_COMPUTE = "device"
     runs += [(TorchEngine(packed, device="cpu", columns=columns),
-              qs + phrases), (staged, qs)]
+              qs + phrases), (staged, qs),
+             (ShardedEngine(ShardedIndex.from_packed(packed, 4),
+                            devices=["cpu"] * 4, columns=columns),
+              qs + phrases)]
+runs.append((ShardedStagedEngine(packed, 4, 1 << 20, devices=["cpu"] * 4),
+             qs + phrases))
 for e, batch in runs:
     for q, r in zip(batch, e.search_batch(batch)):
         rows = [packed.term_to_row[t] for t in q.terms]

@@ -16,7 +16,11 @@ TorchEngine == TpuEngine == OracleEngine over duplicate-doc corpora
 through bs (flat and two-level), the pruned dense pick with its rescue,
 semidense, the compact, semidense, full-scan and block-pruned mega
 phrase routes, and the staged engine's cold finalizer (flat and phrase,
-margin 0).
+margin 0). The mesh (engine/shard.py, 4 shards): merge_shards keeps
+lax.top_k's order over gathered shard-major lanes full of ties (a stable
+sort: swapping in torch.topk fails here, ROADMAP C.3), and ShardedEngine
+== the JAX ShardedEngine == OracleEngine over bs (margin 0), the dense
+scan, the pruned pick, semidense and both phrase routes.
 """
 
 import dataclasses
@@ -33,10 +37,14 @@ import wiser_tpu_torch.engine.kernels as TK
 import wiser_tpu_torch.engine.staged as TS
 from wiser_tpu.data.synth import make_docinfo
 from wiser_tpu.engine.device import TpuEngine
+from wiser_tpu.engine.shard import ShardedEngine as JShardedEngine
+from wiser_tpu.engine.shard import ShardedIndex as JShardedIndex
 from wiser_tpu.index.builder import build_index
 from wiser_tpu.types import SearchQuery as JQuery
 from wiser_tpu_torch import TorchEngine
 from wiser_tpu_torch.convert import packed_from_arrays
+from wiser_tpu_torch.engine import shard_steps as SS
+from wiser_tpu_torch.engine.shard import ShardedEngine, ShardedIndex
 from wiser_tpu_torch.types import SearchQuery
 
 
@@ -413,3 +421,77 @@ def test_staged_cold_finalizer(dup, monkeypatch, phrase):
     st = te.stats_take()
     assert st.get("route_cold_phrase" if phrase else "cold_chunks", 0) > 0
     assert st["cold_host_fallback_q"] > 0
+
+
+# -- the mesh ------------------------------------------------------------------------
+
+
+def test_mesh_merge_keeps_lax_top_k_order():
+    """merge_shards over gathered lanes full of ties, against the JAX
+    merge's lax.top_k (shard-major lanes, lowest index first among equal
+    scores), M_out at and past the local M."""
+    rng = np.random.default_rng(3)
+    D, B, M, T = 4, 8, 6, 2
+    for Mo in (M, 2 * M + 1):
+        score = rng.choice(np.float32([4.0, 2.0, 2.0, 2.0]), size=(D, B, M))
+        score = -np.sort(-score, axis=2)
+        docs = (np.arange(D)[:, None, None] * 100
+                + np.arange(M)[None, None, :] * 3
+                + rng.integers(0, 3, size=(D, B, M))).astype(np.int32)
+        tfs = rng.integers(1, 5, size=(D, B, T, M)).astype(np.int32)
+        flags = np.zeros((D, B), dtype=np.int32)
+        gs = jnp.asarray(score.transpose(1, 0, 2).reshape(B, D * M))
+        s2, i2 = jax.lax.top_k(gs, Mo)
+        i2 = np.asarray(i2)
+        d2, sc2, t2, fl = SS.merge_shards(
+            *(torch.from_numpy(a) for a in (docs, score, tfs, flags)),
+            M_out=Mo)
+        gd = docs.transpose(1, 0, 2).reshape(B, D * M)
+        gt = tfs.transpose(1, 2, 0, 3).reshape(B, T, D * M)
+        np.testing.assert_array_equal(d2.numpy(),
+                                      np.take_along_axis(gd, i2, 1))
+        np.testing.assert_array_equal(sc2.numpy(), np.asarray(s2))
+        np.testing.assert_array_equal(
+            t2.numpy(), np.take_along_axis(gt, i2[:, None, :].repeat(T, 1), 2))
+        want_fl = np.asarray(JK.boundary_truncated(gs, s2, Mo)).astype(
+            np.int32) * JK.FLAG_TRUNC
+        np.testing.assert_array_equal(fl.numpy(), want_fl)
+
+
+def _mesh_pair(jp, port, margin=54, **over):
+    """The JAX ShardedEngine on 4 of the 8 virtual devices and the port's
+    on 4 CPU shards, with the same class-level overrides."""
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]), ("d",))
+    JE = type("JE", (JShardedEngine,), over)
+    TE = type("TE", (ShardedEngine,), over)
+    return (TE(ShardedIndex.from_packed(port, 4), devices=["cpu"] * 4,
+               margin=margin),
+            JE(JShardedIndex.from_packed(jp, 4), mesh=mesh, margin=margin))
+
+
+def test_mesh_engine_routes(dup):
+    """The mesh over the duplicate corpus: bs at margin 0 (the truncated
+    tie class reaches the k-th place: tie_class_cut), the dense scan, the
+    pruned pick over equal block bounds (C = 2 of 4 blocks per shard),
+    semidense and both phrase routes."""
+    jp, port, oracle = dup
+    conj = [SearchQuery(t, n_results=k)
+            for t in (["h0", "h1"], ["h1", "h2", "h0"], ["r5", "h1"],
+                      ["h2", "q7"], ["x", "h0"], ["h0", "y3"])
+            for k in (1, 5, 10)]
+    phr = [SearchQuery(t, n_results=k, is_phrase=True)
+           for t in (["h0", "h1"], ["h1", "h0"], ["r5", "h1"], ["q7", "r8"])
+           for k in (1, 10)]
+    te, je = _mesh_pair(jp, port, margin=0, DENSE_MIN_DF_FLOOR=1 << 20)
+    three_way(te, je, oracle, conj + phr)
+    st = te.stats_take()
+    assert st["route_bs"] > 0 and st["forced_host_tie_cut"] > 0
+    for over in ({}, {"PRUNED_DENSE_MIN_NB": 1, "PRUNED_DENSE_C": 2,
+                      "PHRASE_COMPACT_KV": 8}):
+        te, je = _mesh_pair(jp, port, **over)
+        three_way(te, je, oracle, conj + phr)
+        st = te.stats_take()
+        routes = (("route_pruned", "route_phrase_compact") if over
+                  else ("route_dense", "route_phrase_list"))
+        for route in routes + ("route_semidense",):
+            assert st.get(route, 0) > 0, route

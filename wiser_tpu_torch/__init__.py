@@ -19,8 +19,10 @@ its client); and what measures and operates the engines: utils.py
 (timers, torch.profiler traces), data/synth_log.py, bench/run_exp.py
 (the memory grid) and tools/ (the scale ladder, route profile, strict
 parity audit, stage probe, indexer, index checks, query logs, engine
-bench, client-server runner). Entry points run on the card unless the
-caller passes device="cpu".
+bench, client-server runner); and the mesh (engine/shard.py,
+engine/staged_shard.py: the doc-partitioned engines, one device per
+shard; tools/shard_ladder.py, tools/dryrun_multichip.py). Entry points
+run on the card unless the caller passes device="cpu".
 """
 
 from wiser_tpu_torch.engine.device import TorchEngine

@@ -137,6 +137,48 @@ def windowed_chunk(T: int, L: int, L2: int) -> int:
                          B_BUCKETS)
 
 
+def positions_column(positions: np.ndarray, max_t: int,
+                     pos_pad: int) -> np.ndarray:
+    """The device positions column: 2-byte int16 bits of uint16 when the
+    largest position + max_t fits below 2^16 - 1 (kernels._pos_gather
+    widens them), else int32; with a pos_pad tail (65535 / -1) that never
+    equals a target, so a verify window starting inside the data is never
+    clamped."""
+    if int(positions.max(initial=0)) + max_t < 2**16 - 1:
+        return np.concatenate([
+            np.asarray(positions).astype(np.uint16),
+            np.full(pos_pad, 2**16 - 1, dtype=np.uint16)]).view(np.int16)
+    return np.concatenate([np.asarray(positions, dtype=np.int32),
+                           np.full(pos_pad, -1, dtype=np.int32)])
+
+
+def fold_bloom_columns(bloom_ends: np.ndarray, bloom_begins: np.ndarray,
+                       gate: np.ndarray):
+    """Sparse folded bloom columns (kernels._bloom_gate's layout): each
+    posting's filter row ORed into one word, stored only where nonzero and
+    gate (bool per posting, a multiple of 32 long) holds, addressed
+    through a presence bitmap and a per-32-group rank, following side then
+    preceding side. Returns (rows u32, bitmap u32, rank i32)."""
+    rows_parts, bitmap_parts, rank_parts = [], [], []
+    base = 0
+    for rows in (bloom_ends, bloom_begins):
+        fold = rows[:, 0].copy()
+        for w in range(1, rows.shape[1]):
+            np.bitwise_or(fold, rows[:, w], out=fold)
+        stored = (fold != 0) & gate
+        rows_parts.append(fold[stored])
+        bitmap_parts.append(np.packbits(stored, bitorder="little").view("<u4"))
+        cnt = stored.reshape(-1, 32).sum(axis=1)
+        rank = np.zeros(len(cnt), dtype=np.int64)
+        np.cumsum(cnt[:-1], out=rank[1:])
+        rank_parts.append((rank + base).astype(np.int32))
+        base += int(stored.sum())
+    return ((np.concatenate(rows_parts) if base
+             else np.zeros(1, dtype=np.uint32)),
+            np.concatenate(bitmap_parts).astype(np.uint32),
+            np.concatenate(rank_parts))
+
+
 class TorchEngine:
     MAX_T = 8  # slot buckets of the vectorized flat path
     # routing thresholds, as TpuEngine
@@ -398,16 +440,8 @@ class TorchEngine:
         the data is never clamped (pad values 65535 / -1 never equal a
         target), and the sparse folded bloom columns."""
         packed = self.packed
-        if int(packed.positions.max(initial=0)) + self.MAX_T < 2**16 - 1:
-            pos = np.concatenate([
-                np.asarray(packed.positions).astype(np.uint16),
-                np.full(self.POS_PAD, 2**16 - 1, dtype=np.uint16)]
-            ).view(np.int16)
-        else:
-            pos = np.concatenate([
-                np.asarray(packed.positions, dtype=np.int32),
-                np.full(self.POS_PAD, -1, dtype=np.int32)])
-        self.d_positions = self._to_dev(pos)
+        self.d_positions = self._to_dev(
+            positions_column(packed.positions, self.MAX_T, self.POS_PAD))
         self.d_pos_starts = self._to_dev(packed.pos_starts.astype(np.int32))
         rows, bitmap, rank = self._build_bloom_sparse()
         self.d_bloom_rows = self._to_dev(rows.view(np.int32))
@@ -415,36 +449,17 @@ class TorchEngine:
         self.d_bloom_rank = self._to_dev(rank)
 
     def _build_bloom_sparse(self):
-        """Sparse folded bloom columns (kernels._bloom_gate's layout):
-        each posting's filter row ORed into one word, stored only where
-        nonzero and the term's df <= BLOOM_DF_CEILING, addressed through a
-        presence bitmap and a per-32-group rank, following side then
-        preceding side. Returns (rows u32, bitmap u32, rank i32)."""
+        """Sparse folded bloom columns of this index (fold_bloom_columns),
+        stored for the terms with df <= BLOOM_DF_CEILING. Returns (rows
+        u32, bitmap u32, rank i32)."""
         pk = self.packed
         if pk.bloom_ends is None:
             return (np.zeros(1, dtype=np.uint32), np.zeros(2, dtype=np.uint32),
                     np.zeros(2, dtype=np.int32))
         lens = np.diff(pk.term_starts)
-        term_mask = np.repeat(pk.df <= self.BLOOM_DF_CEILING, lens)
-        rows_parts, bitmap_parts, rank_parts = [], [], []
-        base = 0
-        for rows in (pk.bloom_ends, pk.bloom_begins):
-            fold = rows[:, 0].copy()
-            for w in range(1, rows.shape[1]):
-                np.bitwise_or(fold, rows[:, w], out=fold)
-            stored = (fold != 0) & term_mask
-            rows_parts.append(fold[stored])
-            bitmap_parts.append(
-                np.packbits(stored, bitorder="little").view("<u4"))
-            cnt = stored.reshape(-1, 32).sum(axis=1)
-            rank = np.zeros(len(cnt), dtype=np.int64)
-            np.cumsum(cnt[:-1], out=rank[1:])
-            rank_parts.append((rank + base).astype(np.int32))
-            base += int(stored.sum())
-        return ((np.concatenate(rows_parts) if base
-                 else np.zeros(1, dtype=np.uint32)),
-                np.concatenate(bitmap_parts).astype(np.uint32),
-                np.concatenate(rank_parts))
+        return fold_bloom_columns(
+            pk.bloom_ends, pk.bloom_begins,
+            np.repeat(pk.df <= self.BLOOM_DF_CEILING, lens))
 
     # -- accounting -------------------------------------------------------
 

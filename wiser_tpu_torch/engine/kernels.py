@@ -53,6 +53,11 @@ terms fill slots 1..T-1; padded slots repeat slot 0 with use_score 0
 (idf32 0 in tc mode). Phrase verification runs in query-term order
 (slot_of re-permutes).
 
+The bodies (search_body, dense_scan_body{,_tc}, pruned_scan_body,
+_semidense_step, phrase_body, compact_phrase_body) also return the kept
+f32 scores: the mesh (engine/shard_steps.py) runs them per shard and
+merges on them.
+
 These functions are the XLA programs of the JAX package written out as
 torch operations; they run on whatever device their tensors live on. f32
 sums are written as sequential adds in slot order, one addend per slot,
@@ -498,39 +503,47 @@ def make_windowed_search_kernel(T: int, L: int, G: int, M: int,
 # -- the dense head-term tier ------------------------------------------------
 
 
+def dense_scan_body(dense_sc, dense_tf, slots, use_score, *, T: int,
+                    N_pad: int, M: int):
+    """The raw doc-space dense scan: sum the T row-gathered (B, N_pad) f32
+    score rows in slot order from zeros, match where every row is
+    nonzero, take the exact top-M lanes (lane = doc id within the plane)
+    and gather the per-slot tfs from the dense tf rows; the count-based
+    FLAG_TRUNC runs over the full plane. Returns (top_docs (B, M) int32
+    lanes or -1, top_score (B, M) f32, tfs (B, T, M) int32, flags (B,))."""
+    B = slots.shape[0]
+    rows = slots.to(torch.int64)
+    score = torch.zeros((B, N_pad), dtype=torch.float32,
+                        device=dense_sc.device)
+    match = torch.ones((B, N_pad), dtype=torch.bool, device=dense_sc.device)
+    for t in range(T):
+        sc_t = dense_sc[rows[:, t]]  # (B, N_pad) rows
+        match &= sc_t > 0
+        score += sc_t * use_score[:, t : t + 1]
+    score = torch.where(match, score, NEG_INF)
+    del match
+    top_score, top_docs = two_level_top_m(score, M)  # lane = doc id
+    top_docs = torch.where(top_score > NEG_INF, top_docs, -1).to(torch.int32)
+    tfs = torch.stack([
+        torch.where(top_docs >= 0,
+                    _dense_gather(dense_tf, slots[:, t : t + 1], top_docs), 0)
+        for t in range(T)], dim=1)
+    trunc = boundary_truncated(score, top_score, M)
+    return top_docs, top_score, tfs, trunc.to(torch.int32)
+
+
 def make_dense_search_kernel(T: int, N_pad: int, M: int):
-    """Doc-space dense scan for all-head-term conjunctions: sum the T
-    row-gathered (B, N_pad) f32 score rows in slot order from zeros,
-    match where every row is nonzero, take the exact top-M lanes (lane =
-    doc id) and gather the per-slot tfs from the dense tf rows; the
-    count-based FLAG_TRUNC runs over the full plane.
+    """Doc-space dense scan for all-head-term conjunctions
+    (dense_scan_body, packed).
 
     fn(dense_sc (H, N_pad) f32, dense_tf (H, N_pad) i32, slots (B, T)
        i32 rows into H (padded slots repeat slot 0), use_score (B, T) f32)
       -> packed (B, T+2, M) int32."""
 
     def kernel(dense_sc, dense_tf, slots, use_score):
-        B = slots.shape[0]
-        rows = slots.to(torch.int64)
-        score = torch.zeros((B, N_pad), dtype=torch.float32,
-                            device=dense_sc.device)
-        match = torch.ones((B, N_pad), dtype=torch.bool,
-                           device=dense_sc.device)
-        for t in range(T):
-            sc_t = dense_sc[rows[:, t]]  # (B, N_pad) rows
-            match &= sc_t > 0
-            score += sc_t * use_score[:, t : t + 1]
-        score = torch.where(match, score, NEG_INF)
-        del match
-        top_score, top_docs = two_level_top_m(score, M)  # lane = doc id
-        top_docs = torch.where(top_score > NEG_INF, top_docs, -1)
-        tfs = torch.stack([
-            torch.where(top_docs >= 0,
-                        _dense_gather(dense_tf, slots[:, t : t + 1], top_docs), 0)
-            for t in range(T)], dim=1)
-        trunc = boundary_truncated(score, top_score, M)
-        return pack_with_flags(top_docs.to(torch.int32), tfs,
-                               trunc.to(torch.int32))
+        top_docs, _, tfs, flags = dense_scan_body(
+            dense_sc, dense_tf, slots, use_score, T=T, N_pad=N_pad, M=M)
+        return pack_with_flags(top_docs, tfs, flags)
 
     return kernel
 
@@ -543,51 +556,72 @@ def _dense_tc_lanes(dense_tf, code_hi, slots_t, docs):
                        _gather1d(code_hi, docs))
 
 
+def dense_scan_body_tc(dense_tf, len_code, avg32, slots, idf32, *, T: int,
+                       N_pad: int, M: int):
+    """dense_scan_body over the (H, N_pad) uint8 tf plane and the shared
+    (N_pad,) uint8 len-code row: each slot's composed lane (code << 8 |
+    tf, 0 where absent) scores by tc_score, summed in slot order from
+    zeros (padded slots idf 0); tfs and saturation (FLAG_TF_SAT) from the
+    kept lanes, recomposed at the winners. Returns (top_docs, top_score,
+    tfs, flags) as dense_scan_body."""
+    B = slots.shape[0]
+    rows = slots.to(torch.int64)
+    code_hi = len_code.to(torch.int32) << 8
+    score = torch.zeros((B, N_pad), dtype=torch.float32,
+                        device=dense_tf.device)
+    match = torch.ones((B, N_pad), dtype=torch.bool, device=dense_tf.device)
+    for t in range(T):
+        tc_t = _compose_tc(dense_tf[rows[:, t]], code_hi[None, :])
+        match &= tc_t > 0
+        score += tc_score(tc_t, idf32[:, t : t + 1], avg32)
+        del tc_t
+    score = torch.where(match, score, NEG_INF)
+    del match
+    top_score, top_docs = two_level_top_m(score, M)  # lane = doc id
+    top_docs = torch.where(top_score > NEG_INF, top_docs, -1).to(torch.int32)
+    tfs, flags = _dense_tc_tfs(
+        dense_tf, code_hi, slots, top_docs,
+        boundary_truncated(score, top_score, M).to(torch.int32), T)
+    return top_docs, top_score, tfs, flags
+
+
 def make_dense_search_kernel_tc(T: int, N_pad: int, M: int):
-    """make_dense_search_kernel over the (H, N_pad) uint8 tf plane and the
-    shared (N_pad,) uint8 len-code row: each slot's composed lane (code
-    << 8 | tf, 0 where absent) scores by tc_score, summed in slot order
-    from zeros (padded slots idf 0); tfs and saturation from the kept
-    lanes, recomposed at the winners.
+    """make_dense_search_kernel over tc columns (dense_scan_body_tc,
+    packed).
 
     fn(dense_tf, len_code, avg32, slots (B, T), idf32 (B, T))
       -> packed (B, T+2, M) int32."""
 
     def kernel(dense_tf, len_code, avg32, slots, idf32):
-        B = slots.shape[0]
-        rows = slots.to(torch.int64)
-        code_hi = len_code.to(torch.int32) << 8
-        score = torch.zeros((B, N_pad), dtype=torch.float32,
-                            device=dense_tf.device)
-        match = torch.ones((B, N_pad), dtype=torch.bool,
-                           device=dense_tf.device)
-        for t in range(T):
-            tc_t = _compose_tc(dense_tf[rows[:, t]], code_hi[None, :])
-            match &= tc_t > 0
-            score += tc_score(tc_t, idf32[:, t : t + 1], avg32)
-            del tc_t
-        score = torch.where(match, score, NEG_INF)
-        del match
-        top_score, top_docs = two_level_top_m(score, M)  # lane = doc id
-        top_docs = torch.where(top_score > NEG_INF, top_docs, -1)
-        return _pack_dense_tc(
-            dense_tf, code_hi, slots, top_docs.to(torch.int32),
-            boundary_truncated(score, top_score, M).to(torch.int32), T)
+        return pack_with_flags(*_drop_score(dense_scan_body_tc(
+            dense_tf, len_code, avg32, slots, idf32, T=T, N_pad=N_pad, M=M)))
 
     return kernel
 
 
-def _pack_dense_tc(dense_tf, code_hi, slots, top_docs, flags, T: int):
-    """Packed output of a dense tc route: per-slot tfs of the kept docs
-    (top_docs >= 0) from their composed lanes, the flag word ORed with
-    FLAG_TF_SAT where a kept lane is saturated."""
+def _drop_score(parts):
+    """(top_docs, top_score, tfs, flags) -> (top_docs, tfs, flags), the
+    arguments of pack_with_flags."""
+    top_docs, _, tfs, flags = parts
+    return top_docs, tfs, flags
+
+
+def _dense_tc_tfs(dense_tf, code_hi, slots, top_docs, flags, T: int):
+    """Per-slot tfs of the kept docs (top_docs >= 0, lanes of the plane)
+    of a dense tc route from their composed lanes, and the flag word ORed
+    with FLAG_TF_SAT where a kept lane is saturated."""
     top_tc = torch.stack([
         _dense_tc_lanes(dense_tf, code_hi, slots[:, t : t + 1], top_docs)
         for t in range(T)], dim=1)
     kept = top_docs >= 0
     flags = flags | tc_saturated(top_tc, top_docs).to(torch.int32) * FLAG_TF_SAT
-    return pack_with_flags(top_docs, torch.where(kept[:, None, :],
-                                                 top_tc & 0xFF, 0), flags)
+    return torch.where(kept[:, None, :], top_tc & 0xFF, 0), flags
+
+
+def _pack_dense_tc(dense_tf, code_hi, slots, top_docs, flags, T: int):
+    """Packed output of a dense tc route (_dense_tc_tfs)."""
+    return pack_with_flags(top_docs, *_dense_tc_tfs(dense_tf, code_hi, slots,
+                                                    top_docs, flags, T))
 
 
 def make_semidense_kernel(T: int, L: int, M: int, N_pad: int,
@@ -605,10 +639,10 @@ def make_semidense_kernel(T: int, L: int, M: int, N_pad: int,
 
     def kernel(postings_doc, postings_score, postings_tf, dense_sc,
                dense_tf, starts, ends, use_score, slots):
-        return _semidense_step(
+        return pack_with_flags(*_drop_score(_semidense_step(
             postings_doc, postings_score, dense_sc, starts, ends, use_score,
             slots, T=T, L=L, M=M, n_bs=n_bs, n_bs_iters=n_bs_iters,
-            postings_tf=postings_tf, dense_tf=dense_tf)
+            postings_tf=postings_tf, dense_tf=dense_tf)))
 
     return kernel
 
@@ -626,22 +660,26 @@ def make_semidense_kernel_tc(T: int, L: int, M: int, N_pad: int,
 
     def kernel(postings_doc, postings_tc, avg32, dense_tf, starts, ends,
                idf32, slots):
-        return _semidense_step(
+        return pack_with_flags(*_drop_score(_semidense_step(
             postings_doc, postings_tc, dense_tf, starts, ends, idf32, slots,
-            T=T, L=L, M=M, n_bs=n_bs, n_bs_iters=n_bs_iters, avg32=avg32)
+            T=T, L=L, M=M, n_bs=n_bs, n_bs_iters=n_bs_iters, avg32=avg32)))
 
     return kernel
 
 
 def _semidense_step(postings_doc, col, dense, starts, ends, weights, slots,
                     *, T, L, M, n_bs, n_bs_iters, postings_tf=None,
-                    dense_tf=None, avg32=None):
+                    dense_tf=None, avg32=None, doc_base: int = 0):
     """The semidense step of both column modes. raw: col / dense are the
     score column and plane, weights use_score, tfs gathered from
     postings_tf / dense_tf; tc (avg32 given): col is the tc column, dense
-    the uint8 tf plane, weights idf32, tfs from the kept tc lanes."""
+    the uint8 tf plane, weights idf32, tfs from the kept tc lanes.
+    doc_base: the doc id of the planes' lane 0 (a mesh shard's first
+    doc; a doc's lane is doc - doc_base). Returns (top_docs (B, M) i32 doc
+    ids or -1, top_score (B, M) f32, tfs (B, T, M) i32, flags (B,))."""
     tc_mode = avg32 is not None
     cdocs, cval, cvalid, cs = _candidates(postings_doc, col, starts, ends, L)
+    dense_docs = cdocs - doc_base if doc_base else cdocs
     # sentinel cdocs clamp to lane N_pad-1; cvalid masks them out of
     # the match whatever that lane holds
     match = cvalid
@@ -658,7 +696,7 @@ def _semidense_step(postings_doc, col, dense, starts, ends, weights, slots,
         if tc_mode:
             lanes += list(hit_tc.unbind(1))
     for t in range(1 + n_bs, T):
-        p = _dense_gather(dense, slots[:, t : t + 1], cdocs)  # (B, L)
+        p = _dense_gather(dense, slots[:, t : t + 1], dense_docs)  # (B, L)
         if tc_mode:
             p = _compose_tc(p, cval & 0xFF00)
             lanes.append(p)
@@ -670,6 +708,7 @@ def _semidense_step(postings_doc, col, dense, starts, ends, weights, slots,
     top_score, top_l = two_level_top_m(score, M)
     kept = top_score > NEG_INF
     top_docs = torch.where(kept, torch.gather(cdocs, 1, top_l), -1)
+    top_lanes = top_docs - doc_base if doc_base else top_docs
     flags = boundary_truncated(score, top_score, M).to(torch.int32)
     if tc_mode:
         top_tc = torch.stack([torch.gather(x, 1, top_l) for x in lanes], dim=1)
@@ -682,10 +721,11 @@ def _semidense_step(postings_doc, col, dense, starts, ends, weights, slots,
             tfs.append(_gather1d(postings_tf,
                                  torch.gather(lo[:, t - 1], 1, top_l)))
         for t in range(1 + n_bs, T):
-            tfs.append(_dense_gather(dense_tf, slots[:, t : t + 1], top_docs))
+            tfs.append(_dense_gather(dense_tf, slots[:, t : t + 1],
+                                     top_lanes))
         tfs = torch.stack(tfs, dim=1)
-    return pack_with_flags(top_docs, torch.where(kept[:, None, :], tfs, 0),
-                           flags)
+    return (top_docs, top_score, torch.where(kept[:, None, :], tfs, 0),
+            flags)
 
 
 def _select_ub_blocks(blockmax, slots, weights, *, T: int, NB: int, C: int,
@@ -751,11 +791,9 @@ def prune_guard_flag(top_score, next_ub, ks, *, M: int, eps3: float):
 
 
 def make_pruned_dense_kernel(T: int, NB: int, C: int, M: int, eps3: float):
-    """Block-max pruned dense scan (raw columns): score only the C·128
-    lanes of the C highest-bound blocks, summed in slot order from zeros
-    (the same order as the bound, one addend per slot, so every lane's
-    f32 score <= its block's bound), then raise FLAG_PRUNE_MISS where an
-    unexamined block could reach or tie the k-th kept score.
+    """Block-max pruned dense scan (raw columns; pruned_scan_body), with
+    FLAG_PRUNE_MISS where an unexamined block could reach or tie the k-th
+    kept score.
 
     fn(dense_sc (H, NB*128) f32, dense_tf (H, NB*128) i32, blockmax,
        blockmax2 (H, NB) f32, argpos (H, NB) u8, slots (B, T) i32,
@@ -763,22 +801,9 @@ def make_pruned_dense_kernel(T: int, NB: int, C: int, M: int, eps3: float):
 
     def kernel(dense_sc, dense_tf, blockmax, blockmax2, argpos, slots,
                use_score, ks):
-        sc_rows = dense_sc.view(dense_sc.shape[0] * NB, 128)
-        rows = slots.to(torch.int64)
-
-        def lanes(t, blk):
-            p = sc_rows[rows[:, t : t + 1] * NB + blk]  # (B, C, 128)
-            return p, p * use_score[:, t, None, None]
-
-        top_docs, flags = _pruned_dense_body(
-            lanes, blockmax, blockmax2, argpos, slots, use_score, ks,
-            T=T, NB=NB, C=C, M=M, eps3=eps3)
-        tfs = torch.stack([
-            torch.where(top_docs >= 0,
-                        _dense_gather(dense_tf, slots[:, t : t + 1], top_docs),
-                        0)
-            for t in range(T)], dim=1)
-        return pack_with_flags(top_docs, tfs, flags)
+        return _pack_pruned(pruned_scan_body(
+            dense_sc, dense_tf, None, None, blockmax, blockmax2, argpos,
+            slots, use_score, T=T, NB=NB, C=C, M=M), ks, M, eps3)
 
     return kernel
 
@@ -786,10 +811,7 @@ def make_pruned_dense_kernel(T: int, NB: int, C: int, M: int, eps3: float):
 def make_pruned_dense_kernel_tc(T: int, NB: int, C: int, M: int,
                                 eps3: float):
     """make_pruned_dense_kernel over the uint8 tf plane and the shared
-    len-code row, composed per selected block. The block planes hold the
-    host's f64 bound on the in-kernel f32 tc_score x (1 + 2e-6) (idf
-    included), so the block weights are idf32 > 0: padded slots add no
-    bound.
+    len-code row (pruned_scan_body's tc mode).
 
     fn(dense_tf (H, NB*128) u8, len_code (NB*128,) u8, avg32, blockmax,
        blockmax2 (H, NB) f32, argpos (H, NB) u8, slots (B, T), idf32
@@ -797,52 +819,83 @@ def make_pruned_dense_kernel_tc(T: int, NB: int, C: int, M: int,
 
     def kernel(dense_tf, len_code, avg32, blockmax, blockmax2, argpos,
                slots, idf32, ks):
-        tf_rows = dense_tf.view(dense_tf.shape[0] * NB, 128)
-        code_hi = len_code.to(torch.int32) << 8
-        rows = slots.to(torch.int64)
-
-        def lanes(t, blk):
-            p = _compose_tc(tf_rows[rows[:, t : t + 1] * NB + blk],
-                            code_hi.view(NB, 128)[blk])
-            return p, tc_score(p, idf32[:, t, None, None], avg32)
-
-        top_docs, flags = _pruned_dense_body(
-            lanes, blockmax, blockmax2, argpos, slots,
-            (idf32 > 0).to(torch.float32), ks, T=T, NB=NB, C=C, M=M,
-            eps3=eps3)
-        return _pack_dense_tc(dense_tf, code_hi, slots, top_docs, flags, T)
+        return _pack_pruned(pruned_scan_body(
+            dense_tf, None, len_code, avg32, blockmax, blockmax2, argpos,
+            slots, idf32, T=T, NB=NB, C=C, M=M), ks, M, eps3)
 
     return kernel
 
 
-def _pruned_dense_body(lanes, blockmax, blockmax2, argpos, slots, weights,
-                       ks, *, T: int, NB: int, C: int, M: int, eps3: float):
+def _pack_pruned(parts, ks, M: int, eps3: float):
+    """Packed output of a pruned scan, its flags ORed with the prune
+    guard of its own next_ub."""
+    top_docs, top_score, tfs, flags, next_ub = parts
+    return pack_with_flags(
+        top_docs, tfs,
+        flags | prune_guard_flag(top_score, next_ub, ks, M=M, eps3=eps3))
+
+
+def pruned_scan_body(dense, dense_tf, len_code, avg32, blockmax, blockmax2,
+                     argpos, slots, weights, *, T: int, NB: int, C: int,
+                     M: int):
     """The block-max pruned scan of both column modes: the C highest-bound
-    blocks per query (weights: the bound's per-slot multipliers), their
-    lanes scored in slot order from zeros, exact top-M, FLAG_TRUNC and
-    FLAG_PRUNE_MISS. lanes(t, blk) -> ((B, C, 128) lanes, 0 = absent;
-    their f32 score contributions). Returns (top_docs (B, M) int32 doc
-    ids or -1, flags (B,) int32)."""
+    blocks per query, their lanes scored in slot order from zeros (the
+    same order as the bound, one addend per slot, so every lane's f32
+    score <= its block's bound), exact top-M, tfs and FLAG_TRUNC.
+
+    raw (avg32 None): dense is the f32 score plane, dense_tf the tf
+    plane, weights use_score. tc: dense is the uint8 tf plane composed per
+    selected block with the len-code row, weights idf32; the block planes
+    hold the host's f64 bound on the in-kernel f32 tc_score x (1 + 2e-6)
+    (idf included), so the bound's weights are idf32 > 0 (padded slots
+    add no bound), and kept saturated lanes raise FLAG_TF_SAT. Without
+    blockmax2 / argpos the bound is the plain sum of the block maxima.
+
+    Returns (top_docs (B, M) int32 lanes of the plane or -1, top_score
+    (B, M) f32, tfs (B, T, M) i32, flags (B,) i32, next_ub (B,) f32: the
+    bound of every unexamined block, for the prune guard)."""
     B = slots.shape[0]
+    rows = slots.to(torch.int64)
+    tc_mode = avg32 is not None
+    if tc_mode:
+        code_hi = len_code.to(torch.int32) << 8
+        code_rows = code_hi.view(NB, 128)
+        bound_w = (weights > 0).to(torch.float32)
+    else:
+        bound_w = weights
     blk, next_ub = _select_ub_blocks(
-        blockmax, slots, weights, T=T, NB=NB, C=C,
+        blockmax, slots, bound_w, T=T, NB=NB, C=C,
         blockmax2=blockmax2, argpos=argpos)
+    plane_rows = dense.view(dense.shape[0] * NB, 128)
     lane = torch.arange(128, dtype=torch.int64, device=blk.device)
     cand_docs = (blk[:, :, None] * 128 + lane).reshape(B, C * 128)
     match = torch.ones((B, C, 128), dtype=torch.bool, device=blk.device)
     score = torch.zeros((B, C, 128), dtype=torch.float32, device=blk.device)
     for t in range(T):
-        p, contrib = lanes(t, blk)
+        p = plane_rows[rows[:, t : t + 1] * NB + blk]  # (B, C, 128)
+        if tc_mode:
+            p = _compose_tc(p, code_rows[blk])
+            contrib = tc_score(p, weights[:, t, None, None], avg32)
+        else:
+            contrib = p * weights[:, t, None, None]
         match &= p > 0
         score += contrib
     score = torch.where(match, score, NEG_INF).reshape(B, C * 128)
     del match
     top_score, top_l = two_level_top_m(score, M)
     top_docs = torch.where(top_score > NEG_INF,
-                           torch.gather(cand_docs, 1, top_l), -1)
-    flags = (boundary_truncated(score, top_score, M).to(torch.int32)
-             | prune_guard_flag(top_score, next_ub, ks, M=M, eps3=eps3))
-    return top_docs.to(torch.int32), flags
+                           torch.gather(cand_docs, 1, top_l), -1
+                           ).to(torch.int32)
+    flags = boundary_truncated(score, top_score, M).to(torch.int32)
+    if tc_mode:
+        tfs, flags = _dense_tc_tfs(dense, code_hi, slots, top_docs, flags, T)
+    else:
+        tfs = torch.stack([
+            torch.where(top_docs >= 0,
+                        _dense_gather(dense_tf, slots[:, t : t + 1], top_docs),
+                        0)
+            for t in range(T)], dim=1)
+    return top_docs, top_score, tfs, flags, next_ub
 
 
 # -- phrases -------------------------------------------------------------------
@@ -1163,7 +1216,7 @@ def _verify_and_select(positions, pos_starts, sel_score, sel_docs,
     query term 0), top-M of the verified and the flag word (FLAG_TRUNC
     over the KV lanes; FLAG_PRUNE_MISS where the (KV+1)-th surviving
     score `unseen` could reach the k-th kept). Returns (top_docs (B, M),
-    top_l (B, M) indices into the KV lanes, flags (B,))."""
+    top_l (B, M) indices into the KV lanes, flags (B,), top_score (B, M))."""
     B = sel_score.shape[0]
     pidx_q = _slot_gather_q(sel_pidx, slot_of)
     ps = _gather1d(pos_starts, pidx_q)
@@ -1179,7 +1232,7 @@ def _verify_and_select(positions, pos_starts, sel_score, sel_docs,
                            torch.gather(sel_docs, 1, top_l), -1)
     flags = (boundary_truncated(final_score, top_score, M).to(torch.int32)
              | prune_guard_flag(top_score, unseen, ks, M=M, eps3=eps3))
-    return top_docs, top_l, flags
+    return top_docs, top_l, flags, top_score
 
 
 def compact_phrase_body(postings_doc, postings_score, postings_tf, positions,
@@ -1196,7 +1249,8 @@ def compact_phrase_body(postings_doc, postings_score, postings_tf, positions,
     score bounds every unverified lane (the prune guard's proof).
     tc_mode: postings_score is the tc column, use_score the slot-order
     idf32 and postings_tf unused; tfs come from the tc lanes and kept
-    saturated lanes raise FLAG_TF_SAT. Returns packed (B, T+2, M)."""
+    saturated lanes raise FLAG_TF_SAT. Returns (packed (B, T+2, M), top_score
+    (B, M) f32)."""
     cdocs, match, pidx, score, sat_lane = _match_step(
         postings_doc, postings_score, starts, ends, use_score,
         T=T, L=L, n_bs_iters=n_bs_iters, avg32=avg32 if tc_mode else None)
@@ -1207,7 +1261,7 @@ def compact_phrase_body(postings_doc, postings_score, postings_tf, positions,
     top_cs, top_cl = _top_stable(mscore, KV + 1)
     sel_l = top_cl[:, :KV]
     sel_pidx = _gather_slots(pidx, sel_l)
-    top_docs, top_l, flags = _verify_and_select(
+    top_docs, top_l, flags, top_score = _verify_and_select(
         positions, pos_starts, top_cs[:, :KV], torch.gather(cdocs, 1, sel_l),
         sel_pidx, slot_of, ks, top_cs[:, KV], T=T, KV=KV, PP=PP, PW=PW, M=M,
         eps3=eps3)
@@ -1215,10 +1269,10 @@ def compact_phrase_body(postings_doc, postings_score, postings_tf, positions,
     if tc_mode:
         top_sat = torch.gather(torch.gather(sat_lane, 1, sel_l), 1, top_l)
         return _pack_tc_lanes(postings_score, top_pidx, top_sat, top_docs,
-                              flags)
+                              flags), top_score
     top_tfs = torch.where(top_docs[:, None, :] >= 0,
                           _gather1d(postings_tf, top_pidx), 0)
-    return pack_with_flags(top_docs, top_tfs, flags)
+    return pack_with_flags(top_docs, top_tfs, flags), top_score
 
 
 def make_compact_phrase_kernel(T: int, L: int, KV: int, PP: int, PW: int,
@@ -1237,10 +1291,10 @@ def make_compact_phrase_kernel(T: int, L: int, KV: int, PP: int, PW: int,
     if mode == "tc":
         def kernel(postings_doc, postings_tc, avg32, *rest):
             return compact_phrase_body(postings_doc, postings_tc, None, *rest,
-                                       tc_mode=True, avg32=avg32, **kw)
+                                       tc_mode=True, avg32=avg32, **kw)[0]
     else:
         def kernel(*args):
-            return compact_phrase_body(*args, **kw)
+            return compact_phrase_body(*args, **kw)[0]
 
     return kernel
 
@@ -1295,7 +1349,7 @@ def make_semidense_phrase_kernel(T: int, L: int, KV: int, PP: int, PW: int,
                             ends[:, 1:, None], n_rec_iters)
         sel_pidx = torch.cat([(cs[:, None] + sel_cl.to(torch.int32))[:, None, :],
                               lo], dim=1)
-        top_docs, top_l, flags = _verify_and_select(
+        top_docs, top_l, flags, _ = _verify_and_select(
             positions, pos_starts, top_cs[:, :KV], sel_docs, sel_pidx,
             slot_of, ks, top_cs[:, KV], T=T, KV=KV, PP=PP, PW=PW, M=M,
             eps3=eps3)

@@ -2,7 +2,7 @@
 copy of wiser_tpu/tools/stage_probe.py) — the route of the slowest
 all-head mixes (zipf_t3 / t4, dense_t3, dense_all_head_pair).
 
-The scan (kernels._pruned_dense_body) is three stages:
+The scan (kernels.pruned_scan_body) is three stages:
   S1 block select: the per-block upper bound over (B, NB) and the top
      C+1 pick (kernels._select_ub_blocks); also the bound alone;
   S2 payload: the (B, T, C, 128) gathers of the uint8 tf plane and the

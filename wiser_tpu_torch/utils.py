@@ -46,16 +46,19 @@ class PhaseTimer:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str, device="cpu"):
+def trace(log_dir: str, device="cuda"):
     """Profile the block: CPU activity, and CUDA activity when `device` is
-    a CUDA device. Yields the torch.profiler.profile object; on exit the
-    card is synchronized, the trace is written to
+    a CUDA device ("cuda" by default: raises without a card; pass "cpu"
+    for the CPU alone). Yields the torch.profiler.profile object; on exit
+    the card is synchronized, the trace is written to
     <log_dir>/trace.json and the block's wall time is set as
     prof.wall_s (summarize reads it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    cuda = torch.device(device).type == "cuda"
+    from wiser_tpu_torch.runtime import resolve_device
+
+    cuda = resolve_device(device).type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=acts) as prof:
