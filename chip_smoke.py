@@ -92,6 +92,22 @@ search for phrases). Phases:
             pruned one, the phrase prefix the compact one, mesh_tc's
             postings take <= 0.51 of mesh's bytes, and mesh_staged answers
             some queries hot and stages some cold groups
+  tools     the last modules of the port, on one card: tools/
+            wiki_pipeline at 100,000 docs (synthesized enwiki abstract XML
+            -> the analyzer of data/corpus -> WITH_BI_BLOOM linedoc -> fast
+            builder -> check_posting_list, which must find 0 errors ->
+            TorchEngine on the card, 4,096 df-Zipf 1-3-term queries with
+            200 of them re-searched on the host, 0 mismatches), then
+            ops/unpack's pack_doc_blocks + unpack_doc_blocks over the
+            pipeline index's whole doc column and, when an engine phase
+            loaded it, the 1M index's (the unpack kernel at every width
+            present), each bit for bit against the plain torch decode and
+            the native codec; tools/micro_bench's codec, host, snippet and
+            device rows; tools/gather_probe at its defaults (the four
+            gather forms, three of them bit-exact against each other, CUDA
+            events); tools/prune_probe (n 32, C 32,64,128) with the raw
+            and the tc engine's dense sets on the 1M index (the pipeline's
+            when no engine phase ran)
   headline  bench.py's headline on the card (wiser_tpu_torch.bench.
             headline.run): its 20k-doc synthetic corpus built by the
             port's builder (OracleEngine + pack_oracle) into
@@ -114,8 +130,8 @@ search for phrases). Phases:
 
 Any failure raises before the last line. The last line of stdout is the
 contract's {"ok": true, "device": {...}}; the line before it lists the
-kernels; before that come the mesh summary, the harness summary and the
-route summary of every run. The full
+kernels; before that come the tools summary, the mesh summary, the
+harness summary and the route summary of every run. The full
 report is the last line of stderr, one JSON object (also written to
 the --report path, if given).
 """
@@ -135,7 +151,7 @@ CACHE = os.path.join(ROOT, ".smoke_cache")
 K = 10
 PARITY_SAMPLE = 256
 PHASES = ("kernel", "resident", "dense", "phrase", "staged", "tc",
-          "staged_tc", "harness", "mesh", "headline", "serve")
+          "staged_tc", "harness", "mesh", "tools", "headline", "serve")
 # H100 SXM HBM3 rate (NVIDIA's data sheet) for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
 
@@ -1000,6 +1016,185 @@ def mesh_phase(report: dict, packed, pairs, pools: dict, expected: dict,
                            out["ladder"]["configs"].items()}}
 
 
+# -- tools ------------------------------------------------------------------
+
+TOOLS_PIPE_DOCS, TOOLS_PIPE_Q, TOOLS_PIPE_PARITY = 100_000, 4096, 200
+TOOLS_PRUNE_N, TOOLS_PRUNE_C = 32, (32, 64, 128)
+# gather_probe's defaults: n_pad, B, L, reps
+TOOLS_GATHER = (1_000_448, 128, 8192, 8)
+
+
+def column_round_trip(postings_doc) -> dict:
+    """A whole doc column through pack_doc_blocks and unpack_doc_blocks on
+    the card (the unpack kernel once per width present), held bit for bit
+    against the plain torch decode (on the card's tensors), the native
+    codec with a numpy delta decode, and the column itself (real lanes;
+    sentinel lanes carry the previous id). Returns the widths with their
+    blocks, the kernel's launches (counted from 0 around the decode
+    alone) and the whole decode's device time against the plain one's."""
+    import numpy as np
+    import torch
+
+    from wiser_tpu_torch.index.format import SENTINEL_DOC
+    from wiser_tpu_torch.native import lib as native
+    from wiser_tpu_torch.ops import unpack as U
+    from wiser_tpu_torch.runtime import resolve_device
+
+    t0 = time.perf_counter()
+    cols = U.pack_doc_blocks(postings_doc)
+    pack_s = time.perf_counter() - t0
+    U.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = U.unpack_doc_blocks(cols, device="cuda")
+    decode_s = time.perf_counter() - t0
+    launches = U.launch_counts["unpack_delta_blocks"]
+    if launches != len(cols["groups"]):
+        raise AssertionError(f"{launches} unpack launches for "
+                             f"{len(cols['groups'])} widths")
+    dev = resolve_device("cuda")
+    d_groups = {w: (torch.from_numpy(words.view(np.int32)).to(dev),
+                    torch.from_numpy(cols["block_first"][sel]).to(dev))
+                for w, (sel, words) in cols["groups"].items()}
+    G = len(cols["block_first"])
+    plain = np.zeros((G, 128), dtype=np.int32)
+    nat = np.zeros((G, 128), dtype=np.int64)
+    for w, (sel, words) in cols["groups"].items():
+        d_words, d_first = d_groups[w]
+        plain[sel] = U.delta_decode_docs(U.unpack_blocks_torch(d_words, w),
+                                         d_first).cpu().numpy()
+        d = native.unpack_blocks(words.reshape(-1), np.full(
+            len(sel), w, dtype=np.uint8)).reshape(-1, 128).astype(np.int64)
+        nat[sel] = (cols["block_first"][sel].astype(np.int64)[:, None]
+                    + np.cumsum(d + 1, axis=1) - (d[:, :1] + 1))
+    real = postings_doc != SENTINEL_DOC
+    for what, ref in (("plain torch", plain.reshape(-1)),
+                      ("native", nat.reshape(-1)),
+                      ("the column", np.where(real, postings_doc, got))):
+        if not np.array_equal(got, ref):
+            n_bad = int((got != ref).sum())
+            raise AssertionError(f"unpack_doc_blocks != {what} on {n_bad} "
+                                 f"of {len(got)} lanes")
+
+    def kernel():
+        for w, (d_words, d_first) in d_groups.items():
+            U.unpack_delta_blocks(d_words, d_first, w)
+
+    def plain_decode():
+        for w, (d_words, d_first) in d_groups.items():
+            U.delta_decode_docs(U.unpack_blocks_torch(d_words, w), d_first)
+
+    # kernel, plain, plain, kernel (these launches are not the path's)
+    k1, p1, p2, k2 = (cuda_ms(kernel, 5), cuda_ms(plain_decode, 5),
+                      cuda_ms(plain_decode, 5), cuda_ms(kernel, 5))
+    words_bytes = sum(4 * words.size for _, words in cols["groups"].values())
+    # each word and first id read once, each decoded id written once
+    bytes_moved = words_bytes + 4 * G + 4 * 128 * G
+    return {"blocks": G, "lanes": int(len(postings_doc)),
+            "widths": {int(w): len(sel)
+                       for w, (sel, _) in sorted(cols["groups"].items())},
+            "packed_bytes": words_bytes, "unpack_launches": launches,
+            "pack_s": pack_s, "decode_s": decode_s,
+            "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+            "bit_exact": True}
+
+
+def tools_phase(report: dict, packed) -> dict:
+    """The raw-text pipeline at TOOLS_PIPE_DOCS docs with its engine on
+    the card, the whole-column unpack round trip over its index and (when
+    an engine phase loaded it) the 1M index's, micro_bench's codec, host,
+    snippet and device rows, gather_probe at its defaults and prune_probe
+    (raw and tc dense sets) on the 1M index, or on the pipeline's when no
+    engine phase ran. Returns the summary line's object."""
+    import torch
+
+    from wiser_tpu_torch.index.format import PackedIndex
+    from wiser_tpu_torch.tools import (gather_probe, micro_bench,
+                                       prune_probe, wiki_pipeline)
+    from wiser_tpu_torch.utils import ResultTable
+
+    out = report["tools"] = {}
+    t_phase = time.perf_counter()
+    work = os.path.join(CACHE, "wikipipe")
+    t0 = time.perf_counter()
+    rec = wiki_pipeline.run_pipeline(work, TOOLS_PIPE_DOCS,
+                                     n_queries=TOOLS_PIPE_Q,
+                                     parity_n=TOOLS_PIPE_PARITY,
+                                     device="cuda")
+    rec["wall_s"] = time.perf_counter() - t0
+    out["pipeline"] = rec
+    log(f"tools pipeline: {rec}")
+    eng = rec["engine"]
+    if (rec["check_posting_list_errors"] or eng["parity_mismatches"]
+            or eng["parity_sample"] < TOOLS_PIPE_PARITY):
+        raise AssertionError(f"pipeline: {rec}")
+    pipe_packed = PackedIndex.load(os.path.join(work, "idx"),
+                                   skip_offsets=True)
+    out["unpack_pipeline"] = column_round_trip(pipe_packed.postings_doc)
+    log(f"tools unpack (pipeline column): {out['unpack_pipeline']}")
+    launches = out["unpack_pipeline"]["unpack_launches"]
+    if packed is not None:
+        out["unpack_1m"] = column_round_trip(packed.postings_doc)
+        log(f"tools unpack (1M column): {out['unpack_1m']}")
+        launches += out["unpack_1m"]["unpack_launches"]
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    table = ResultTable()
+    micro_bench.bench_codecs(table)
+    micro_bench.bench_intersection_host(table)
+    micro_bench.bench_snippets(table)
+    micro_bench.bench_device(table, "cuda")
+    out["micro_bench"] = {"rows": table.rows,
+                          "wall_s": time.perf_counter() - t0}
+    log(f"tools micro_bench: {out['micro_bench']}")
+
+    t0 = time.perf_counter()
+    out["gather_probe"] = dict(gather_probe.probe(*TOOLS_GATHER, "cuda"),
+                               wall_s=time.perf_counter() - t0)
+    log(f"tools gather_probe: {out['gather_probe']}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    target = packed if packed is not None else pipe_packed
+    prune = {"index_docs": target.n_docs}
+    for columns in ("raw", "tc"):
+        probe = prune_probe.Probe(target, columns=columns)
+        classes = prune_probe.build_classes(target, probe, TOOLS_PRUNE_N, K)
+        prune[columns] = {"dense_rows": int(probe.dense.sum()),
+                          "classes": prune_probe.report_classes(
+                              probe, classes, K, list(TOOLS_PRUNE_C))}
+        del probe
+    prune["wall_s"] = time.perf_counter() - t0
+    out["prune_probe"] = prune
+    log(f"tools prune_probe: {prune}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["unpack_launches"] = launches
+
+    def unpack_line(r):
+        return {k: r[k] for k in ("blocks", "widths", "unpack_launches",
+                                  "kernel_ms", "plain_ms", "bound_ms")}
+
+    return {
+        "wall_s": out["wall_s"],
+        "pipeline": {k: rec[k] for k in (
+            "n_docs", "xml_synth_s", "xml_to_linedoc_s", "index_s",
+            "check_s", "n_terms", "n_postings", "check_posting_list_errors",
+            "wall_s")} | {"engine": {k: eng[k] for k in (
+                "qps", "wall_s", "warmup_s", "parity_mismatches",
+                "parity_sample")}},
+        "unpack": {k: unpack_line(out[k]) for k in ("unpack_pipeline",
+                                                    "unpack_1m") if k in out},
+        "unpack_launches": launches,
+        "micro_bench": {r["bench"]: {k: v for k, v in r.items()
+                                     if k != "bench"}
+                        for r in table.rows},
+        "gather_probe": {n: {k: r[k] for k in ("ms", "G_lanes_per_s",
+                                               "bound_ms")}
+                         for n, r in out["gather_probe"]["variants"].items()},
+        "prune_probe": prune}
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -1119,6 +1314,7 @@ def main() -> int:
             "phrase": ("phrase", PS, {}, W)}))
     keep: dict = {}  # the dense and tc engines, for the harness phase
     expected: dict = {}  # the exact host answers, across runs
+    packed = None  # the 1M index, when a phase that needs it runs
     if runs or "harness" in phases or "mesh" in phases:
         from wiser_tpu_torch import StagedEngine, TorchEngine
         from wiser_tpu_torch.engine.staged import full_residency_bytes
@@ -1213,6 +1409,11 @@ def main() -> int:
     if "mesh" in phases:
         print(json.dumps({"mesh": mesh_phase(report, packed, pairs, pools,
                                              expected, Q)}), flush=True)
+        torch.cuda.empty_cache()
+    if "tools" in phases:
+        tools = tools_phase(report, packed)
+        kern["launches"] += tools["unpack_launches"]
+        print(json.dumps({"tools": tools}), flush=True)
         torch.cuda.empty_cache()
 
     if "headline" in phases or "serve" in phases:

@@ -49,7 +49,10 @@ from wiser_tpu_torch.index import bloom
 from wiser_tpu_torch.index.fast_builder import build_packed_fast
 from wiser_tpu_torch.index.format import PackedIndex
 from wiser_tpu_torch.native import lib as native
+from wiser_tpu_torch.ops.unpack import pack_doc_blocks, unpack_doc_blocks
+from wiser_tpu_torch.tools import gather_probe, micro_bench, wiki_pipeline
 from wiser_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+from wiser_tpu_torch.utils import ResultTable
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # every field the two PackedIndex classes store, derived ones included
@@ -91,7 +94,12 @@ def test_cuda_request_raises_without_a_card():
                  lambda: ShardedEngine(sharded),
                  lambda: ShardedEngine(sharded, devices=["cuda:0"] * 2),
                  lambda: ShardedStagedEngine(packed, 2, 0),
-                 lambda: dryrun_multichip(2)):
+                 lambda: dryrun_multichip(2),
+                 lambda: unpack_doc_blocks(pack_doc_blocks(jp.postings_doc)),
+                 lambda: gather_probe.probe(1024, 2, 16, 1),
+                 lambda: micro_bench.bench_device(ResultTable()),
+                 # raises before it writes anything
+                 lambda: wiki_pipeline.run_pipeline("/nonexistent/x", 10)):
         with pytest.raises(RuntimeError):
             make()
 
@@ -162,6 +170,10 @@ from wiser_tpu_torch.tools import (check_posting_list, engine_bench,
 from wiser_tpu_torch.engine.shard import ShardedEngine, ShardedIndex
 from wiser_tpu_torch.engine.staged_shard import ShardedStagedEngine
 from wiser_tpu_torch.tools import dryrun_multichip, shard_ladder
+# the raw-text pipeline, micro_bench and the probes
+from wiser_tpu_torch.data import corpus
+from wiser_tpu_torch.tools import (gather_probe, micro_bench, prune_probe,
+                                   wiki_pipeline)
 
 generate_linedoc({path!r}, 1500, vocab_size=300, mean_len=30, seed=5,
                  with_blooms=True, verbose=False)
@@ -192,6 +204,14 @@ for e, batch in runs:
         got = [(x.doc_id, x.doc_score) for x in r.entries]
         assert got == list(zip(d.tolist(), s.tolist())), (q.terms, got)
         assert got
+rec = wiki_pipeline.run_pipeline({work!r}, 200, n_queries=64, parity_n=32,
+                                 device="cpu")
+assert rec["check_posting_list_errors"] == 0
+assert rec["engine"]["parity_mismatches"] == 0
+probe = prune_probe.Probe(packed, columns="raw", dense_budget_bytes=1 << 20)
+assert (probe.dense == (TorchEngine(packed, device="cpu",
+        dense_budget_bytes=1 << 20)._dense_slot >= 0)).all()
+assert gather_probe.probe(1024, 2, 16, 1, device="cpu")["bit_exact"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("wiser_tpu", "jax", "jaxlib", "grpc")
              or m.startswith("google.protobuf"))
@@ -202,7 +222,8 @@ print("OK")
 
 def test_port_runs_without_the_jax_package(tmp_path):
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
-    src = _STANDALONE.format(root=ROOT, path=str(tmp_path / "c.linedoc"))
+    src = _STANDALONE.format(root=ROOT, path=str(tmp_path / "c.linedoc"),
+                             work=str(tmp_path / "wikipipe"))
     out = subprocess.run([sys.executable, "-c", src], capture_output=True,
                          text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr

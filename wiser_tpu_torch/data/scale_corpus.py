@@ -9,6 +9,9 @@ to the JAX package's for the same arguments.
 
 mine_phrases_from_linedoc (the port's copy of wiser_tpu/tools/
 scale_bench.py's) takes phrase queries from such a file.
+
+Run: python -m wiser_tpu_torch.data.scale_corpus --out c.linedoc \
+         --n-docs 1000000 [--with-blooms]
 """
 
 from __future__ import annotations
@@ -106,3 +109,25 @@ def mine_phrases_from_linedoc(path: str, term_to_row: dict,
                     if len(pairs) >= max_pairs:
                         break
     return pairs
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="generate a wiki-shaped linedoc corpus at scale")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--n-docs", type=int, required=True)
+    ap.add_argument("--vocab", type=int, default=200_000)
+    ap.add_argument("--mean-len", type=int, default=120)
+    ap.add_argument("--zipf-a", type=float, default=1.25)
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--with-blooms", action="store_true")
+    args = ap.parse_args(argv)
+    n = generate_linedoc(args.out, args.n_docs, args.vocab, args.mean_len,
+                         args.zipf_a, args.seed, args.with_blooms)
+    print(f"wrote {n} docs -> {args.out}", file=sys.stderr)
+
+
+if __name__ == "__main__":
+    main()

@@ -179,6 +179,35 @@ def fold_bloom_columns(bloom_ends: np.ndarray, bloom_begins: np.ndarray,
             np.concatenate(rank_parts))
 
 
+def admit_dense_rows(packed: PackedIndex, budget_bytes: int,
+                     columns: str = "raw",
+                     min_df_floor: Optional[int] = None,
+                     eligible_fraction: Optional[int] = None) -> np.ndarray:
+    """The term rows TorchEngine's dense tier admits, in slot order.
+    Eligible: df >= max(min_df_floor, n_docs // eligible_fraction) (the
+    engine's DENSE_MIN_DF_FLOOR / DENSE_ELIGIBLE_FRACTION by default) with
+    a non-empty run; admitted by df, largest first, while a row (8 B per
+    doc raw, 1 B tc, + 9 B per 128-doc block of bound planes) fits the
+    budget, and while H * NB < 2^31 (the reference's bound on the pruned
+    scan's block-row index, kept so both engines admit the same rows).
+    Uncapped, the eligible rows stay in row order."""
+    if min_df_floor is None:
+        min_df_floor = TorchEngine.DENSE_MIN_DF_FLOOR
+    if eligible_fraction is None:
+        eligible_fraction = TorchEngine.DENSE_ELIGIBLE_FRACTION
+    n = packed.n_docs
+    dense_min = max(min_df_floor, n // eligible_fraction)
+    lens = np.diff(packed.term_starts)
+    rows = np.nonzero((packed.df >= dense_min) & (lens > 0))[0]
+    NBLK = (n + 127) // 128
+    per_row = NBLK * 128 * (1 if columns == "tc" else 8) + NBLK * 9
+    cap = min(int(budget_bytes // per_row),
+              (2**31 - 1) // max(NBLK, 1) - 1)
+    if len(rows) > cap:
+        rows = rows[np.argsort(packed.df[rows])[::-1][:cap]]
+    return rows
+
+
 class TorchEngine:
     MAX_T = 8  # slot buckets of the vectorized flat path
     # routing thresholds, as TpuEngine
@@ -321,29 +350,17 @@ class TorchEngine:
         """(N_pad,) rows for the head terms — f32 score and int32 tf rows
         (raw), or one uint8 tf row each plus a shared uint8 len-code row
         (tc) — and per-128-doc-block bound planes for the pruned scan,
-        uploaded to the device. Eligible: df >= max(DENSE_MIN_DF_FLOOR,
-        n_docs // DENSE_ELIGIBLE_FRACTION) with a non-empty run in the
-        source index; admitted by df, largest first, while a row (8 B per
-        doc raw, 1 B tc, + 9 B per block) fits the budget."""
-        n = packed.n_docs
+        uploaded to the device, for the rows admit_dense_rows admits from
+        the source index."""
         self._dense_slot = np.full(packed.n_terms, -1, dtype=np.int32)
-        dense_min = max(self.DENSE_MIN_DF_FLOOR,
-                        n // self.DENSE_ELIGIBLE_FRACTION)
-        lens = np.diff(packed.term_starts)
-        rows = np.nonzero((packed.df >= dense_min) & (lens > 0))[0]
+        self._n_pad_docs = (packed.n_docs + 127) // 128 * 128
+        NBLK = self._n_pad_docs // 128
+        rows = admit_dense_rows(packed, budget_bytes, self.columns,
+                                self.DENSE_MIN_DF_FLOOR,
+                                self.DENSE_ELIGIBLE_FRACTION)
         if len(rows) == 0:
             return
-        self._n_pad_docs = (n + 127) // 128 * 128
-        NBLK = self._n_pad_docs // 128
-        per_row = self._n_pad_docs * (1 if self.tc else 8) + NBLK * 9
-        cap = int(budget_bytes // per_row)
-        if cap == 0:
-            return
-        # H * NB < 2^31: the reference's bound on the pruned scan's
-        # block-row index, kept so both engines admit the same rows
-        cap = min(cap, (2**31 - 1) // max(NBLK, 1) - 1)
-        if len(rows) > cap:
-            rows = rows[np.argsort(packed.df[rows])[::-1][:cap]]
+        lens = np.diff(packed.term_starts)
         H = len(rows)
         if self.tc:
             self._build_dense_rows_tc(packed, rows, lens)

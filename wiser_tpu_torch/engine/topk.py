@@ -1,5 +1,5 @@
 """Exact top-k finalization: the host f64 re-rank of device candidates
-(the port's copy of the parts of wiser_tpu/engine/topk.py it calls).
+(the port's copy of wiser_tpu/engine/topk.py).
 
 The device ranks in f32 and returns the top-M candidate docs with their
 per-term tfs; the host recomputes the exact f64 BM25 score in the
@@ -9,9 +9,36 @@ orders by (score desc, doc asc).
 
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import numpy as np
 
 from wiser_tpu_torch.scoring import K1
+
+
+def rescore_topk(
+    top_docs: np.ndarray,  # (M,) int32, -1 = invalid
+    top_tfs: np.ndarray,  # (T, M) int32, slot-major, query-term order
+    n_real_terms: int,
+    idf64: np.ndarray,  # (n_real_terms,) float64
+    doc_len_code: np.ndarray,  # (N,) uint8
+    cache64: np.ndarray,  # (256,) float64 tfnorm cache
+    k: int,
+) -> List[Tuple[float, int]]:
+    """One query's exact re-rank: [(score, doc_id)] of length <= k in
+    (score desc, doc asc) order."""
+    valid = top_docs >= 0
+    docs = top_docs[valid].astype(np.int64)
+    if docs.size == 0:
+        return []
+    tfs = top_tfs[:n_real_terms, valid].astype(np.float64)
+    cache_val = cache64[doc_len_code[docs] & 0xFF]
+    score = np.zeros(docs.size, dtype=np.float64)
+    for t in range(n_real_terms):
+        f = tfs[t]
+        score = score + np.float64(idf64[t]) * ((f * (K1 + 1)) / (f + cache_val))
+    order = np.lexsort((docs, -score))[:k]
+    return [(float(score[i]), int(docs[i])) for i in order]
 
 
 def rescore_sorted_arrays(
@@ -60,3 +87,21 @@ def truncation_suspects(score_f: np.ndarray, n_valid: np.ndarray,
     last = score_f[:, M - 1]
     near = np.abs(kth - last) <= rel_eps * np.maximum(np.abs(kth), 1e-30)
     return full & near & (kth != last)
+
+
+def rescore_topk_batch(
+    top_docs: np.ndarray,  # (B, M) int32, -1 = invalid
+    top_tfs: np.ndarray,  # (B, T, M) int32, slot-major, query-term order
+    idf64_slots: np.ndarray,  # (B, T) float64, 0.0 on padded slots
+    doc_len_code: np.ndarray,  # (N,) uint8
+    cache64: np.ndarray,  # (256,) float64
+    ks: np.ndarray,  # (B,) per-query k
+) -> List[List[Tuple[float, int]]]:
+    """rescore_topk for a whole group: per query, [(score, doc_id)] of
+    length <= k. Padded slots add exactly +0.0 to the f64 sum, so each
+    score equals the per-query reference order's (CalcDocScoreLossy)."""
+    docs_f, score_f, n_valid = rescore_sorted_arrays(
+        top_docs, top_tfs, idf64_slots, doc_len_code, cache64)
+    return [[(float(score_f[b, m]), int(docs_f[b, m]))
+             for m in range(min(int(ks[b]), int(n_valid[b])))]
+            for b in range(top_docs.shape[0])]

@@ -127,3 +127,15 @@ class BloomConfig:
             w, m = self.probe_word_masks(key)
             np.bitwise_or.at(words, w, m)
         return words
+
+    def check(self, words: np.ndarray, key: str) -> bool:
+        """bloom_check over a columnar row. An all-zero row (no filter
+        stored) is never 'present' (BloomFilter::Check's empty case,
+        bloom_filter.h:83-85)."""
+        w, m = self.probe_word_masks(key)
+        return bool(np.all((words[w] & m) == m))
+
+    def words_from_bytes(self, raw: bytes) -> np.ndarray:
+        """A libbloom byte array as the columnar word row."""
+        buf = raw.ljust(self.n_words * 4, b"\0")
+        return np.frombuffer(buf, dtype="<u4").copy()

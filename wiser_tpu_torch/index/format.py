@@ -86,6 +86,14 @@ class PackedIndex:
         """Padded posting count (block-aligned)."""
         return int(self.term_starts[-1])
 
+    def lookup(self, term: str) -> int:
+        """term -> row, or -1 (the TermTrieIndex::Find analog)."""
+        return self.term_to_row.get(term, -1)
+
+    def postinglist_size(self, term: str) -> int:
+        r = self.lookup(term)
+        return int(self.df[r]) if r >= 0 else 0
+
     def partial_scores(self, cache64: np.ndarray) -> np.ndarray:
         """Per-posting f64 partial BM25 score idf_term * lossy_tfnorm (the
         device's selection-phase score column). Sentinel postings score

@@ -16,6 +16,9 @@ them back.
   the kernel or raises.
 - `combine_doc_column`: the staged engine's scratch doc column rebuilt on
   the device (port of staged._make_doc_combine).
+- `pack_doc_blocks` / `unpack_doc_blocks`: a whole doc column packed on
+  the host into width buckets, and decoded on the device by
+  `unpack_delta_blocks` at every width present.
 """
 
 from __future__ import annotations
@@ -190,7 +193,47 @@ def doc_block_deltas(postings_doc: np.ndarray):
 
 def doc_block_widths(postings_doc: np.ndarray) -> np.ndarray:
     """(G,) uint8 per-128-block pack width (bits) of the delta stream."""
-    deltas, _ = doc_block_deltas(postings_doc)
+    return _delta_widths(doc_block_deltas(postings_doc)[0])
+
+
+def _delta_widths(deltas: np.ndarray) -> np.ndarray:
     return np.maximum(
         1, np.ceil(np.log2(deltas.max(axis=1).astype(np.float64) + 1.0)),
     ).astype(np.uint8)
+
+
+def pack_doc_blocks(postings_doc: np.ndarray) -> dict:
+    """Pack a 128-aligned, sentinel-padded doc column into width-bucketed
+    delta blocks: {"groups": {width: (block ids int32[gw], words
+    uint32[gw, 4*width])}, "block_first": int32[G], "widths": uint8[G]}.
+    Sentinel lanes pack as delta 0."""
+    from wiser_tpu_torch.native import lib as native
+
+    deltas, first = doc_block_deltas(postings_doc)
+    widths = _delta_widths(deltas)
+    out = {}
+    for w in np.unique(widths):
+        sel = np.nonzero(widths == w)[0].astype(np.int32)
+        words = native.pack_blocks(deltas[sel].reshape(-1),
+                                   np.full(len(sel), w, dtype=np.uint8))
+        out[int(w)] = (sel, words.reshape(len(sel), 4 * int(w)))
+    return {"groups": out, "block_first": first, "widths": widths}
+
+
+def unpack_doc_blocks(packed: dict, device="cuda") -> np.ndarray:
+    """Inverse of pack_doc_blocks -> int32[G*128] doc column (sentinel
+    lanes hold the carried previous id, not the sentinel). Each width's
+    blocks decode in one unpack_delta_blocks call on `device`: the CUDA
+    kernel on a card, the plain torch version on the CPU."""
+    from wiser_tpu_torch.runtime import resolve_device
+
+    dev = resolve_device(device)
+    G = len(packed["block_first"])
+    out = np.zeros((G, BLOCK), dtype=np.int32)
+    for w, (sel, words) in packed["groups"].items():
+        d_words = torch.from_numpy(
+            np.ascontiguousarray(words).view(np.int32)).to(dev)
+        d_first = torch.from_numpy(packed["block_first"][sel]).to(dev)
+        out[sel] = unpack_delta_blocks(d_words, d_first, w).cpu().numpy(
+            ).reshape(len(sel), BLOCK)
+    return out.reshape(-1)

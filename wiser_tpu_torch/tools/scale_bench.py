@@ -18,6 +18,7 @@ import argparse
 import json
 import sys
 import time
+import weakref
 
 import numpy as np
 
@@ -26,6 +27,9 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
+# id(packed) -> (a weak reference to it, its df order): an id is reused
+# once its index is freed, so a hit counts only while the reference
+# still names the same object
 _DF_ORDER = {}
 
 
@@ -33,9 +37,11 @@ def zipf_rows(packed, rng, n, nt):
     """Zipf draw over df rank (frequent terms queried most — the AOL
     shape): rank 0 = the highest-df term."""
     key = id(packed)
-    if key not in _DF_ORDER:
-        _DF_ORDER[key] = np.argsort(packed.df)[::-1].astype(np.int64)
-    order = _DF_ORDER[key]
+    got = _DF_ORDER.get(key)
+    if got is None or got[0]() is not packed:
+        got = _DF_ORDER[key] = (weakref.ref(packed),
+                                np.argsort(packed.df)[::-1].astype(np.int64))
+    order = got[1]
     ranks = np.minimum(rng.zipf(1.25, size=(n, nt)) - 1, packed.n_terms - 1)
     return order[ranks]
 
