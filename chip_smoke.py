@@ -20,9 +20,16 @@ phrase mixes and aol_df without a dense tier), then a
 timed pass with the result memos cleared, then parity of >= 200
 distinct multi-term queries against the exact host search (phrase
 search for phrases). Phases:
-  kernel    the unpack kernel against its plain torch version and the
-            repo's native codec, every width 1..32, G in {1, 256, 65536},
-            bit for bit; kernel vs plain time at the staged shapes
+  kernel    the unpack kernel's two entries against their plain torch
+            versions and the repo's native codec, bit for bit: the
+            uniform entry at every width 1..32, G in {1, 256, 65536},
+            raw and delta; the mixed entry (one launch over a block
+            table) at random widths 1..32 per block and a random order of
+            destinations, G in {1, 7, 65539}. Then both timed: device time
+            from torch.profiler (tools/unpack_bench), the wrapper's host
+            cost per call, the plain version's time and the bytes bound,
+            the uniform entry at w = 16 over the staged G buckets (and at
+            65,536 after an L2 flush), in turns with the plain version
   resident  TorchEngine(dense_budget_bytes=0): bs and windowed routes and
             host merges; raises unless aol_df takes the windowed route.
             Then `windowed`, up to 1,024 df-ranked draws (seed 8) that the
@@ -100,9 +107,12 @@ search for phrases). Phases:
             200 of them re-searched on the host, 0 mismatches), then
             ops/unpack's pack_doc_blocks + unpack_doc_blocks over the
             pipeline index's whole doc column and, when an engine phase
-            loaded it, the 1M index's (the unpack kernel at every width
-            present), each bit for bit against the plain torch decode and
-            the native codec; tools/micro_bench's codec, host, snippet and
+            loaded it, the 1M index's (exactly one unpack_mixed_blocks
+            launch a column, every width present), each bit for bit
+            against the plain torch decode, the native codec and the
+            column, then the single launch timed against the per-width
+            loop of unpack_delta_blocks in turns (single, loop, loop,
+            single); tools/micro_bench's codec, host, snippet and
             device rows; tools/gather_probe at its defaults (the four
             gather forms, three of them bit-exact against each other, CUDA
             events); tools/prune_probe (n 32, C 32,64,128) with the raw
@@ -130,8 +140,10 @@ search for phrases). Phases:
 
 Any failure raises before the last line. The last line of stdout is the
 contract's {"ok": true, "device": {...}}; the line before it lists the
-kernels; before that come the tools summary, the mesh summary, the
-harness summary and the route summary of every run. The full
+kernels (unpack_delta_blocks and unpack_mixed_blocks, the one kernel's
+two entries, each with its launches on the path, device ms, host us per
+call, plain ms and bound); before that come the tools summary, the mesh
+summary, the harness summary and the route summary of every run. The full
 report is the last line of stderr, one JSON object (also written to
 the --report path, if given).
 """
@@ -152,8 +164,6 @@ K = 10
 PARITY_SAMPLE = 256
 PHASES = ("kernel", "resident", "dense", "phrase", "staged", "tc",
           "staged_tc", "harness", "mesh", "tools", "headline", "serve")
-# H100 SXM HBM3 rate (NVIDIA's data sheet) for the bytes bound
-HBM_BYTES_PER_S = 3.35e12
 
 
 def log(*a):
@@ -189,13 +199,30 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def kernel_phase(report: dict) -> dict:
+    """Both entries of the unpack kernel against their plain torch
+    versions and the native codec, bit for bit, then timed: the uniform
+    entry at w = 16 over the staged engine's G buckets, the mixed entry
+    at G = 65,539 random widths; device time from torch.profiler, host
+    cost per call, in turns with the plain version (kernel, plain,
+    plain, kernel). Returns the kernels line's entries by name."""
     import numpy as np
     import torch
 
+    from wiser_tpu_torch.engine.staged import _G16_BUCKETS, PACK_WIDTH
     from wiser_tpu_torch.native import lib as native
     from wiser_tpu_torch.ops import unpack as U
+    from wiser_tpu_torch.tools import unpack_bench as UB
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
+
+    def check(a, b, what):
+        diff = int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max()
+                   ) if a.size else 0
+        if diff or a.shape != b.shape:
+            raise AssertionError(f"unpack kernel != {what} "
+                                 f"(max abs diff {diff})")
+        return diff
+
     max_err = 0
     checked = 0
     for w in range(1, 33):
@@ -220,51 +247,88 @@ def kernel_phase(report: dict) -> dict:
             for a, b, what in ((got.view(np.uint32), ref, "native"),
                                (got, plain, "plain unpack"),
                                (got_d, plain_d, "plain delta decode")):
-                diff = int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
-                max_err = max(max_err, diff)
-                if diff:
-                    raise AssertionError(
-                        f"unpack kernel != {what} at w={w} G={G} "
-                        f"(max abs diff {diff})")
+                max_err = max(max_err, check(a, b, f"{what} at w={w} G={G}"))
             checked += 1
     torch.cuda.synchronize()
-    log(f"kernel: {checked} (width, G) cases bit-exact")
+    log(f"kernel: {checked} uniform (width, G) cases bit-exact")
 
-    # time at the staged shapes: w = PACK_WIDTH, G over _G16_BUCKETS
-    from wiser_tpu_torch.engine.staged import _G16_BUCKETS, PACK_WIDTH
-
-    w = PACK_WIDTH
-    timing = []
-    for G in _G16_BUCKETS:
-        vals = rng.integers(0, 2**w, size=G * 128, dtype=np.uint64
-                            ).astype(np.uint32)
-        words = native.pack_blocks(vals, np.full(G, w, dtype=np.uint8))
-        d_words = torch.from_numpy(words.reshape(G, 4 * w).view(np.int32)).to(dev)
-        d_first = torch.from_numpy(
-            rng.integers(0, 2**30, size=G).astype(np.int32)).to(dev)
+    # the mixed entry: random widths 1..32 per block, the table in a
+    # random order of destinations, against the plain version and the
+    # native codec (which decodes a stream of mixed widths itself)
+    mixed_err = 0
+    mixed = {}
+    for G in (1, 7, 65539):
+        widths = rng.integers(1, 33, size=G).astype(np.uint8)
+        vals = (rng.integers(0, 2**32, size=(G, 128), dtype=np.uint64)
+                & ((np.uint64(1) << widths.astype(np.uint64)[:, None])
+                   - np.uint64(1))).astype(np.uint32)
+        stream = native.pack_blocks(vals.reshape(-1), widths)
+        offsets = np.zeros(G, dtype=np.int64)
+        np.cumsum(4 * widths[:-1].astype(np.int64), out=offsets[1:])
+        dest = rng.permutation(G).astype(np.int32)
+        first = rng.integers(-2**31, 2**31 - 1, size=G).astype(np.int32)
+        table = U.upload_table((stream, widths, offsets, dest, first), dev)
         out = torch.empty(G * 128, dtype=torch.int32, device=dev)
-        iters = 200
-        # kernel, plain, plain, kernel: compare within one call, in turns
-        k1 = cuda_ms(lambda: U.unpack_delta_blocks(d_words, d_first, w, out=out), iters)
-        p1 = cuda_ms(lambda: U.delta_decode_docs(
-            U.unpack_blocks_torch(d_words, w), d_first), iters)
-        p2 = cuda_ms(lambda: U.delta_decode_docs(
-            U.unpack_blocks_torch(d_words, w), d_first), iters)
-        k2 = cuda_ms(lambda: U.unpack_delta_blocks(d_words, d_first, w, out=out), iters)
-        # each word and first id read once, each decoded id written once
-        bytes_moved = G * 4 * w * 4 + G * 4 + G * 128 * 4
-        row = {"G": G, "width": w, "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-               "kernel_GBps": bytes_moved / (min(k1, k2) * 1e-3) / 1e9,
-               "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3}
+        got = U.unpack_mixed_blocks(*table, out=out).cpu().numpy()
+        plain = U.unpack_mixed_blocks_torch(
+            *table, out=torch.empty_like(out)).cpu().numpy()
+        d = native.unpack_blocks(stream, widths).reshape(G, 128).astype(np.int64)
+        nat = np.zeros((G, 128), dtype=np.int64)
+        nat[dest] = (first.astype(np.int64)[:, None] + np.cumsum(d + 1, axis=1)
+                     - (d[:, :1] + 1))
+        nat = ((nat + 2**31) % 2**32 - 2**31).reshape(-1)  # int32 wrap
+        for b, what in ((plain, "plain mixed"), (nat, "native mixed")):
+            mixed_err = max(mixed_err, check(got, b, f"{what} at G={G}"))
+        mixed = {"table": table, "out": out, "G": G, "stream": stream}
+    torch.cuda.synchronize()
+    log("kernel: 3 mixed-width cases bit-exact")
+
+    # the uniform entry at the staged shapes, in turns with the plain
+    # version; the mixed entry at the last case's table
+    w = PACK_WIDTH
+    turns = [UB.bench_uniform(U, dev, _G16_BUCKETS, w)]
+    plain = []
+    for _ in range(2):
+        plain.append({})
+        for G in _G16_BUCKETS:
+            d_words, d_first = UB.uniform_inputs(G, w, G, dev)
+            plain[-1][G] = cuda_ms(lambda: U.delta_decode_docs(
+                U.unpack_blocks_torch(d_words, w), d_first), 100)
+    turns.append(UB.bench_uniform(U, dev, _G16_BUCKETS, w))
+    timing = []
+    for a, b in zip(*turns):
+        row = {k: a[k] for k in ("G", "width", "l2", "bound_ms", "source")}
+        row.update({k: [a.get(k), b.get(k)] for k in ("ms", "host_us",
+                                                      "call_us", "share")})
+        if row["l2"] == "warm":
+            row["plain_ms"] = [p[row["G"]] for p in plain]
         timing.append(row)
         log(f"kernel timing {row}")
     report["kernel_timing"] = timing
-    big = timing[-1]
+    big = [r for r in timing if r["G"] == max(_G16_BUCKETS)
+           and r["l2"] == "warm"][0]
+
+    G, table, out = mixed["G"], mixed["table"], mixed["out"]
+    mixed_bytes = 4 * mixed["stream"].size + (4 + 13 + 512) * G
+    m1 = UB.timed(lambda: U.unpack_mixed_blocks(*table, out=out), 100, 500,
+                  mixed_bytes)
+    mp = cuda_ms(lambda: U.unpack_mixed_blocks_torch(*table, out=out), 5)
+    m2 = UB.timed(lambda: U.unpack_mixed_blocks(*table, out=out), 100, 500,
+                  mixed_bytes)
+    report["kernel_timing_mixed"] = {"G": G, "turns": [m1, m2],
+                                     "plain_ms": mp}
+    log(f"kernel timing mixed G={G}: {m1['ms']} / {m2['ms']} ms, plain {mp}")
     # the decode is a few integer ops per value: bytes bound it. No single
     # PyTorch call computes it (library_ms null).
-    return {"max_abs_err": max_err, "ms": min(big["kernel_ms"]),
-            "plain_ms": min(big["plain_ms"]), "bound_ms": big["bound_ms"],
-            "bound_by": "bytes", "library_ms": None}
+    return {
+        "unpack_delta_blocks": {
+            "max_abs_err": max_err, "ms": min(big["ms"]),
+            "host_us": min(big["host_us"]), "plain_ms": min(big["plain_ms"]),
+            "bound_ms": big["bound_ms"], "shape": f"w=16 G={big['G']}"},
+        "unpack_mixed_blocks": {
+            "max_abs_err": mixed_err, "ms": min(m1["ms"], m2["ms"]),
+            "host_us": min(m1["host_us"], m2["host_us"]), "plain_ms": mp,
+            "bound_ms": m1["bound_ms"], "shape": f"random widths G={G}"}}
 
 
 # -- index + queries ---------------------------------------------------------
@@ -1026,12 +1090,15 @@ TOOLS_GATHER = (1_000_448, 128, 8192, 8)
 
 def column_round_trip(postings_doc) -> dict:
     """A whole doc column through pack_doc_blocks and unpack_doc_blocks on
-    the card (the unpack kernel once per width present), held bit for bit
-    against the plain torch decode (on the card's tensors), the native
-    codec with a numpy delta decode, and the column itself (real lanes;
-    sentinel lanes carry the previous id). Returns the widths with their
-    blocks, the kernel's launches (counted from 0 around the decode
-    alone) and the whole decode's device time against the plain one's."""
+    the card (one unpack_mixed_blocks launch, every block written in
+    place), held bit for bit against the plain torch version (on the
+    card's tensors), the native codec with a numpy delta decode, and the
+    column itself (real lanes; sentinel lanes carry the previous id).
+    Returns the widths with their blocks, the kernel's launches (counted
+    from 0 around the decode alone), and the device time (torch.profiler)
+    and host cost per call of the single launch against the per-width
+    loop of unpack_delta_blocks (the decode before it), in turns (single,
+    loop, loop, single), with the plain version's and the bytes bound."""
     import numpy as np
     import torch
 
@@ -1039,6 +1106,7 @@ def column_round_trip(postings_doc) -> dict:
     from wiser_tpu_torch.native import lib as native
     from wiser_tpu_torch.ops import unpack as U
     from wiser_tpu_torch.runtime import resolve_device
+    from wiser_tpu_torch.tools import unpack_bench as UB
 
     t0 = time.perf_counter()
     cols = U.pack_doc_blocks(postings_doc)
@@ -1047,27 +1115,23 @@ def column_round_trip(postings_doc) -> dict:
     t0 = time.perf_counter()
     got = U.unpack_doc_blocks(cols, device="cuda")
     decode_s = time.perf_counter() - t0
-    launches = U.launch_counts["unpack_delta_blocks"]
-    if launches != len(cols["groups"]):
-        raise AssertionError(f"{launches} unpack launches for "
-                             f"{len(cols['groups'])} widths")
+    launches = dict(U.launch_counts)
+    if launches != {"unpack_delta_blocks": 0, "unpack_mixed_blocks": 1}:
+        raise AssertionError(f"unpack launches {launches} for one column "
+                             f"(one unpack_mixed_blocks launch expected)")
     dev = resolve_device("cuda")
-    d_groups = {w: (torch.from_numpy(words.view(np.int32)).to(dev),
-                    torch.from_numpy(cols["block_first"][sel]).to(dev))
-                for w, (sel, words) in cols["groups"].items()}
     G = len(cols["block_first"])
-    plain = np.zeros((G, 128), dtype=np.int32)
+    table = U.upload_table(U.doc_block_table(cols), dev)
+    plain = U.unpack_mixed_blocks_torch(*table, out=torch.empty(
+        G * 128, dtype=torch.int32, device=dev)).cpu().numpy()
     nat = np.zeros((G, 128), dtype=np.int64)
     for w, (sel, words) in cols["groups"].items():
-        d_words, d_first = d_groups[w]
-        plain[sel] = U.delta_decode_docs(U.unpack_blocks_torch(d_words, w),
-                                         d_first).cpu().numpy()
         d = native.unpack_blocks(words.reshape(-1), np.full(
             len(sel), w, dtype=np.uint8)).reshape(-1, 128).astype(np.int64)
         nat[sel] = (cols["block_first"][sel].astype(np.int64)[:, None]
                     + np.cumsum(d + 1, axis=1) - (d[:, :1] + 1))
     real = postings_doc != SENTINEL_DOC
-    for what, ref in (("plain torch", plain.reshape(-1)),
+    for what, ref in (("plain torch", plain),
                       ("native", nat.reshape(-1)),
                       ("the column", np.where(real, postings_doc, got))):
         if not np.array_equal(got, ref):
@@ -1075,28 +1139,35 @@ def column_round_trip(postings_doc) -> dict:
             raise AssertionError(f"unpack_doc_blocks != {what} on {n_bad} "
                                  f"of {len(got)} lanes")
 
-    def kernel():
-        for w, (d_words, d_first) in d_groups.items():
-            U.unpack_delta_blocks(d_words, d_first, w)
+    # these launches are not the path's
+    forms = UB.column_forms(U, cols, dev)
+    out = torch.empty(G * 128, dtype=torch.int32, device=dev)
+    rows = {"single": [], "loop": []}
+    for name in ("single", "loop", "loop", "single"):
+        fn, _ = forms[name]
+        rows[name].append(UB.timed(
+            fn, 10, 20, UB.column_bytes(cols, name == "single"),
+            launches=1 if name == "single" else len(cols["groups"])))
+    if not np.array_equal(forms["loop"][1]().cpu().numpy(), got):
+        raise AssertionError("the per-width loop != unpack_doc_blocks")
+    plain_ms = [cuda_ms(lambda: U.unpack_mixed_blocks_torch(*table, out=out),
+                        3) for _ in range(2)]
 
-    def plain_decode():
-        for w, (d_words, d_first) in d_groups.items():
-            U.delta_decode_docs(U.unpack_blocks_torch(d_words, w), d_first)
+    def turns(rs):
+        return {k: [r[k] for r in rs] for k in ("ms", "host_us", "call_us",
+                                                 "share", "launches_per_call",
+                                                 "source", "events")
+                } | {"bound_ms": rs[0]["bound_ms"]}
 
-    # kernel, plain, plain, kernel (these launches are not the path's)
-    k1, p1, p2, k2 = (cuda_ms(kernel, 5), cuda_ms(plain_decode, 5),
-                      cuda_ms(plain_decode, 5), cuda_ms(kernel, 5))
     words_bytes = sum(4 * words.size for _, words in cols["groups"].values())
-    # each word and first id read once, each decoded id written once
-    bytes_moved = words_bytes + 4 * G + 4 * 128 * G
     return {"blocks": G, "lanes": int(len(postings_doc)),
             "widths": {int(w): len(sel)
                        for w, (sel, _) in sorted(cols["groups"].items())},
-            "packed_bytes": words_bytes, "unpack_launches": launches,
+            "packed_bytes": words_bytes,
+            "unpack_launches": launches["unpack_mixed_blocks"],
             "pack_s": pack_s, "decode_s": decode_s,
-            "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-            "bit_exact": True}
+            "single": turns(rows["single"]), "loop": turns(rows["loop"]),
+            "plain_ms": plain_ms, "bit_exact": True}
 
 
 def tools_phase(report: dict, packed) -> dict:
@@ -1173,7 +1244,7 @@ def tools_phase(report: dict, packed) -> dict:
 
     def unpack_line(r):
         return {k: r[k] for k in ("blocks", "widths", "unpack_launches",
-                                  "kernel_ms", "plain_ms", "bound_ms")}
+                                  "single", "loop", "plain_ms")}
 
     return {
         "wall_s": out["wall_s"],
@@ -1241,13 +1312,19 @@ def main() -> int:
     print(f"build: csrc/unpack.cu in {build_s:.2f}s", flush=True)
     log(compiler_out)
 
-    kern = {"name": "unpack_delta_blocks", "route": "cuda",
-            "source": "wiser_tpu_torch/csrc/unpack.cu",
-            "replaces": "wiser_tpu/ops/unpack.py:123", "launches": 0,
-            "max_abs_err": None, "ms": None, "plain_ms": None,
-            "bound_ms": None, "bound_by": "bytes", "library_ms": None}
+    # the one kernel's two entries: the uniform width of the staged cold
+    # chunks and the block table of a whole doc column
+    kerns = {name: {"name": name, "route": "cuda",
+                    "source": "wiser_tpu_torch/csrc/unpack.cu",
+                    "replaces": "wiser_tpu/ops/unpack.py:123", "launches": 0,
+                    "max_abs_err": None, "ms": None, "host_us": None,
+                    "plain_ms": None, "bound_ms": None, "bound_by": "bytes",
+                    "library_ms": None}
+             for name in ("unpack_delta_blocks", "unpack_mixed_blocks")}
+    kern = kerns["unpack_delta_blocks"]
     if "kernel" in phases:
-        kern.update(kernel_phase(report))
+        for name, entry in kernel_phase(report).items():
+            kerns[name].update(entry)
 
     # (run name, make engine, {mix: (pool, number of queries, engine
     # attributes set for that mix only, warm-pass queries or None = all)})
@@ -1412,7 +1489,16 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "tools" in phases:
         tools = tools_phase(report, packed)
-        kern["launches"] += tools["unpack_launches"]
+        mixed = kerns["unpack_mixed_blocks"]
+        mixed["launches"] += tools["unpack_launches"]
+        # the main path's shape: the largest column it decoded
+        col = report["tools"].get("unpack_1m",
+                                  report["tools"]["unpack_pipeline"])
+        mixed.update(ms=min(col["single"]["ms"]),
+                     host_us=min(col["single"]["host_us"]),
+                     plain_ms=min(col["plain_ms"]),
+                     bound_ms=col["single"]["bound_ms"],
+                     shape=f"whole column, {col['blocks']} blocks")
         print(json.dumps({"tools": tools}), flush=True)
         torch.cuda.empty_cache()
 
@@ -1436,7 +1522,12 @@ def main() -> int:
                     exist_ok=True)
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
-    print(json.dumps({"kernels": [kern]}), flush=True)
+    # every entry a phase of this run drives must have launched there
+    if {"staged", "staged_tc", "harness"} & set(phases) and not kern["launches"]:
+        raise AssertionError("unpack_delta_blocks never launched on the path")
+    if "tools" in phases and not kerns["unpack_mixed_blocks"]["launches"]:
+        raise AssertionError("unpack_mixed_blocks never launched on the path")
+    print(json.dumps({"kernels": list(kerns.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

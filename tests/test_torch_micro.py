@@ -2,7 +2,9 @@
 (varint, pack_block / unpack_block, bits_needed, delta), the f64 scoring
 spec, rescore_topk / rescore_topk_batch, BloomConfig.check /
 words_from_bytes, PackedIndex.lookup / postinglist_size, the whole-column
-pack_doc_blocks / unpack_doc_blocks, the corpus generator's CLI, and
+pack_doc_blocks / unpack_doc_blocks (one block table; against the JAX
+function's Pallas kernel in interpret mode and its XLA path), the corpus
+generator's CLI, and
 tools/micro_bench (its rows, the engine rows on the CPU and the gRPC echo
 over a loopback server).
 
@@ -258,6 +260,27 @@ def test_unpack_doc_blocks_equals_jax():
     assert SENTINEL_DOC not in got
     widths = U.doc_block_widths(col)
     assert np.array_equal(widths, packed["widths"])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_unpack_doc_blocks_one_table_equals_jax_pallas(seed):
+    """The whole column through one block table (the plain version of the
+    single launch) equals the JAX unpack_doc_blocks through the Pallas
+    kernel in interpret mode and through its XLA path, and launches
+    nothing on the CPU."""
+    col = doc_column(seed)
+    packed = U.pack_doc_blocks(col)
+    j_packed = j_unpack.pack_doc_blocks(col)
+    assert len(packed["groups"]) >= 8
+    stream, widths, offsets, dest, first = U.doc_block_table(packed)
+    assert len(dest) == len(packed["block_first"])
+    U.reset_launch_counts()
+    got = U.unpack_doc_blocks(packed, device="cpu")
+    assert sum(U.launch_counts.values()) == 0
+    pallas = np.asarray(j_unpack.unpack_doc_blocks(j_packed, use_pallas=True,
+                                                   interpret=True))
+    assert np.array_equal(got, pallas)
+    assert np.array_equal(got, np.asarray(j_unpack.unpack_doc_blocks(j_packed)))
 
 
 def test_unpack_doc_blocks_default_device_is_the_card():
