@@ -5,8 +5,8 @@ CUDA card and check it.
     python3 chip_smoke.py            # the full smoke (one card, 15-19 min)
     python3 chip_smoke.py --docs 200000 --phases kernel,dense,phrase
 
-It always compiles csrc/unpack.cu and csrc/search.cu for sm_90a first
-(one nvcc each, started together, first use).
+It always compiles csrc/unpack.cu and then csrc/search.cu for sm_90a
+first (one nvcc each, first use).
 The engine phases share a wiki-shaped 1M-doc index with bi-blooms
 (data/scale_corpus defaults: vocab 200k, mean length 120, Zipf 1.25,
 seed 42, WITH_BI_BLOOM rows; fast builder with the reference indexer's
@@ -34,8 +34,12 @@ search for phrases). Phases:
             Then the bs search kernel (ops/search.bs_search, csrc/
             search.cu) against its plain torch version on the card
             (tools/search_bench.check_cases): raw and tc, T in {1, 2, 3,
-            4, 8, 9}, L in {128, 2048, 32768, 65536}, M in {16, 64, L},
-            empty, short and long candidate runs, planted boundary ties;
+            4, 8, 9}, L in {128, 512, 2048, 8192, 32768, 65536}, M in
+            {16, 64, L}, empty, short and long candidate runs, planted
+            boundary ties, and the grid's edges (search_bench.edge_cases:
+            M + 1 at the tile path's key cap and one above, candidate
+            slices clamped at the column's end, a window wider than
+            shared memory, a short n_bs_iters, several tiles a worker);
             flags bit-equal on every row, the kept lanes equal to the
             plain version's whole plane in (score desc, doc asc) order;
             entry() (wiser_tpu_torch/entry.py) on the card against the
@@ -46,7 +50,8 @@ search for phrases). Phases:
             plain version (flags bit-equal, the top-M score multiset,
             the kept lanes on unflagged rows and above the boundary on
             flagged ones) and timed in turns with it (kernel, plain,
-            plain, kernel; CUDA events), with the bytes bound
+            plain, kernel; CUDA events), once more after an L2 flush,
+            each launch by torch.profiler, with the bytes bound
   resident  TorchEngine(dense_budget_bytes=0): bs and windowed routes and
             host merges; raises unless aol_df takes the windowed route.
             Then `windowed`, up to 1,024 df-ranked draws (seed 8) that the
@@ -161,10 +166,11 @@ kernels (unpack_delta_blocks and unpack_mixed_blocks, the unpack
 kernel's two entries, and bs_search, each with its launches on the
 path, device ms, host us per call, plain ms and bound); before that come
 the tools summary, the mesh summary, the harness summary and the route
-summary of every run. bs_search's launches are counted on the timed
-passes of every engine run, the harness, the mesh and the headline; the
-smoke fails if the resident, dense, staged, mesh or headline phase ran
-and launched it 0 times. The full report is the last line of stderr, one
+summary of every run. bs_search's launches (its tile path; the plane
+path, for M + 1 past the key cap, counts as bs_search_plane) are
+counted on the timed passes of every engine run, the harness, the mesh
+and the headline; the smoke fails if the resident, dense, staged, mesh
+or headline phase ran and launched the tile path 0 times. The full report is the last line of stderr, one
 JSON object (also written to the --report path, if given).
 """
 
@@ -177,7 +183,6 @@ import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(ROOT, ".smoke_cache")
@@ -372,17 +377,21 @@ def kernel_phase(report: dict) -> dict:
 def search_kernel_phase(report: dict) -> dict:
     """The bs search kernel against its plain torch version on the card
     (tools/search_bench.check_cases: raw and tc, T in {1, 2, 3, 4, 8, 9},
-    L in {128, 2048, 32768, 65536}, M in {16, 64, L}, empty, short and
-    long candidate runs, planted boundary ties), entry() on the card
-    against the same call on the CPU (its rows at 4, 2 and 1 slots), then
-    the kernel held against and timed in turns with the plain version
-    (kernel, plain, plain, kernel; CUDA events) at the headline's bs
-    shapes, raw and tc (search_bench.time_shapes). Returns the kernels
-    line's bs_search entry."""
+    L in {128, 512, 2048, 8192, 32768, 65536}, M in {16, 64, L}, empty,
+    short and long candidate runs, planted boundary ties, and
+    search_bench.edge_cases), entry() on the card against the same call
+    on the CPU (its rows at 4, 2 and 1 slots), then the kernel held
+    against and timed in turns with the plain version (kernel, plain,
+    plain, kernel; CUDA events) at the headline's bs shapes, raw and tc
+    (search_bench.time_shapes), where each call must take the tile path
+    in the launches its plan names (one where L fits a tile) and
+    allocate no (B, L) plane. Returns the kernels line's bs_search
+    entry."""
     import torch
 
     from wiser_tpu_torch.engine.kernels import n_iters_for, search_body
     from wiser_tpu_torch.entry import entry
+    from wiser_tpu_torch.ops.search import bs_search
     from wiser_tpu_torch.tools import search_bench as SB
 
     dev = torch.device("cuda", 0)
@@ -428,12 +437,38 @@ def search_kernel_phase(report: dict) -> dict:
     t0 = time.perf_counter()
     timing = {mode: SB.time_shapes(dev, mode) for mode in ("raw", "tc")}
     report["search_timing"] = dict(timing, wall_s=time.perf_counter() - t0)
-    # the line's row: the widest group of the timed shapes
+    for rows in timing.values():
+        for r in rows:
+            plan = r["plan"]
+            seen = r["launch_ms"]["events"]
+            if plan["path"] != "tile" or (
+                    r["launch_ms"]["total"] is not None
+                    and r["launches_per_call"] != plan["launches"]):
+                raise AssertionError(f"bs_search at {r['mode']} T={r['T']} "
+                                     f"L={r['L']}: plan {plan}, launches "
+                                     f"{seen}")
+    # the tile path allocates no (B, L) plane: the widest group's peak
     row = max(timing["raw"], key=lambda r: r["B"] * r["L"] * r["T"])
+    B, cols, batch = SB.shape_batch(row["T"], row["L"])
+    t = SB.to_device(cols, batch, dev)
+    n_iters = n_iters_for(int(cols["t_len"].max()))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    SB.call(bs_search, t, "raw", row["T"], row["L"], row["M"], n_iters)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    report["search_peak_bytes"] = {"extra": extra,
+                                   "plane": B * row["L"] * 4}
+    if extra >= B * row["L"]:
+        raise AssertionError(f"bs_search allocated {extra} bytes on a "
+                             f"(B={B}, L={row['L']}) group")
+    del t
+    # the line's row: the widest group of the timed shapes
     err = max([chk["max_abs_err"]] + [r["check"]["max_abs_err"]
                                       for rows in timing.values()
                                       for r in rows])
-    return {"max_abs_err": err, "ms": min(row["ms"]),
+    return {"max_abs_err": err, "ms": row["device_ms"],
             "host_us": row["host_us"], "plain_ms": min(row["plain_ms"]),
             "bound_ms": row["bound_ms"],
             "shape": f"raw B={row['B']} T={row['T']} L={row['L']} "
@@ -1411,12 +1446,11 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "python": sys.version.split()[0]}
 
-    # both libraries at once: one nvcc each, started together (a build
-    # error is raised here)
+    # one nvcc a library, in turn (a build error is raised here)
     t0 = time.perf_counter()
     libs = ("unpack", "search")
-    with ThreadPoolExecutor(len(libs)) as pool:
-        list(pool.map(load_library, libs))
+    for lib in libs:
+        load_library(lib)
     report["build"] = {f"{n}_s": build_log[n][0] for n in libs}
     report["build"]["wall_s"] = time.perf_counter() - t0
     for n in libs:
@@ -1651,6 +1685,9 @@ def main() -> int:
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
     report["bs_search_launches"] = bs_by_phase
+    report["bs_search_plane_launches"] = sum(
+        r["launches"].get("bs_search_plane", 0) for r in report.values()
+        if isinstance(r, dict) and isinstance(r.get("launches"), dict))
     kerns["bs_search"]["launches"] = sum(bs_by_phase.values())
     idle = [p for p in ("resident", "dense", "staged", "mesh", "headline")
             if p in phases and not bs_by_phase.get(p)]

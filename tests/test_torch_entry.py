@@ -278,10 +278,10 @@ def test_cpu_tensors_take_the_plain_version(synth):
         want = SB.call(TK.search_body_torch, t, mode, 2, 128, 16, 9)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    assert S.launch_counts == {"bs_search": 0}
+    assert S.launch_counts == {"bs_search": 0, "bs_search_plane": 0}
     with pytest.raises(ValueError, match="CUDA tensors"):
         SB.call(S.bs_search, t, "raw", 2, 128, 16, 9)
-    assert S.launch_counts == {"bs_search": 0}
+    assert S.launch_counts == {"bs_search": 0, "bs_search_plane": 0}
 
 
 def _bad(case: str, t: dict) -> dict:

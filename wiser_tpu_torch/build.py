@@ -4,8 +4,8 @@ Each CUDA library is one `nvcc` call over one `csrc/*.cu` file with a
 plain C interface, loaded with ctypes (no PyTorch headers, so a build
 takes seconds), with NVCC_FLAGS and the library's own EXTRA_NVCC_FLAGS;
 the host codec library (native/wiser_native.cpp) is one `g++` call.
-There is a lock per library, so threads loading two libraries run their
-compilers at once. Output goes to `.kernel_build/` at the repository
+One lock guards every build, so a library is built once however many
+threads ask for it. Output goes to `.kernel_build/` at the repository
 root (listed in .gitignore) under a name that hashes the source and the
 flags, so a changed source is never served by a stale library.
 
@@ -33,8 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXTRA_NVCC_FLAGS = {"search": ("-fmad=false",)}
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
-_lock = threading.Lock()  # guards _locks
-_locks: Dict[str, threading.Lock] = {}
+_lock = threading.Lock()  # guards the builds and _libs
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent building, compiler output); 0 s when cached
 build_log: Dict[str, Tuple[float, str]] = {}
@@ -67,8 +66,6 @@ def load_host_library(name: str, src: str) -> ctypes.CDLL:
 
 def _load(name: str, src: str, flags, command) -> ctypes.CDLL:
     with _lock:
-        lock = _locks.setdefault(name, threading.Lock())
-    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

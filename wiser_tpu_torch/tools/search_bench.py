@@ -3,12 +3,20 @@ its plain torch version (engine/kernels.search_body_torch) on synthetic
 posting columns, and timed beside it at the engine's bs shapes.
 
     python -m wiser_tpu_torch.tools.search_bench [--out report.json]
+    python -m wiser_tpu_torch.tools.search_bench --trees OLD,.,.,OLD \
+        [--index IDX] --out report.json
 
 (on a card: the kernel builds at first use). `check_cases` runs raw and
-tc columns at T in {1, 2, 3, 4, 8, 9}, L in {128, 2048, 32768, 65536}
-and M in {16, 64, L}, over candidate runs that are empty, shorter than
-L and longer than L, with scores drawn from a few values on half the
-terms, so boundary ties are cut and FLAG_TRUNC fires. `check` is the
+tc columns at T in {1, 2, 3, 4, 8, 9}, L in {128, 512, 2048, 8192,
+32768, 65536} (each tile width of the kernel and one bucket above) and
+M in {16, 64, L}, over candidate runs that are empty, shorter than L and
+longer than L, with scores drawn from a few values on half the terms, so
+boundary ties are cut and FLAG_TRUNC fires; then `edge_cases`: M + 1 at
+the tile path's key cap and one above, candidate slices clamped at the
+column's end across another run (unsorted lanes), a short candidate run
+against a run of 2^20 + 3 (a window wider than shared memory), that run
+again at a short n_bs_iters (the bounded search stops short), and a
+group wide enough that each worker takes several tiles. `check` is the
 comparison: flags bit-equal on every row; each row's kept (doc, f32
 score bits, tfs, posting indices) equal, in the kernel's order (score
 desc, doc asc), to the plain version's whole plane (M = L) sorted so
@@ -19,17 +27,27 @@ at the engine's batch, B = engine/device.bs_chunk(T, L) (4,096 where
 the lane budget allows), and M = 64: it holds the kernel against the
 plain version there (`check` without the whole plane, which is too large
 to sort), then times both in turns (kernel, plain, plain, kernel) on
-CUDA events after a warm-up, with the wrapper's host cost per call, the
-device time of each of its two launches (score plane, select; by
-torch.profiler, `launch_ms`) and the bytes bound
-(`bound_bytes`).
+CUDA events after a warm-up, the kernel once more with the 50 MB L2
+flushed before each call (`flushed_ms`), its launches' own device time
+by torch.profiler (`launch_ms`: every kernel of the library, by name),
+the wrapper's host cost per call, and the bytes bound (`bound_bytes`).
+
+`--trees` measures each listed tree once, in turns, each in its own
+process importing wiser_tpu_torch from that tree (a checkout of another
+commit, e.g. unpacked from `git archive`), through
+tools/unpack_bench.run_trees, so that two versions compare within one
+call on one card: `time_shapes` raw and tc (the plain version's times
+left out), and with `--index` (a saved 1M index) route_bench's
+`--routes` sets, raw and tc, each traced.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -38,10 +56,13 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAX = 2**31 - 1
 CHECK_T = (1, 2, 3, 4, 8, 9)
-CHECK_L = (128, 2048, 32768, 65536)
+CHECK_L = (128, 512, 2048, 8192, 32768, 65536)
 # (T, L) of the timed groups: the headline's bs shapes at M = 64
 TIME_SHAPES = ((2, 128), (3, 2048), (4, 8192), (2, 32768), (4, 32768))
 TIME_M = 64
+FLUSH_BYTES = 256 << 20  # written before a call to flush the 50 MB L2
+# route_bench's sets whose queries take the bs step on the 1M index
+ROUTES = "bsearch_tail_pair,midcand_x_2head_t3,windowed_mid_pair"
 
 
 def log(*a):
@@ -50,14 +71,10 @@ def log(*a):
 
 def synth_columns(L: int, seed: int, lengths=None, n_terms: int = 24):
     """Raw and tc posting columns of n_terms runs over a doc range of
-    2L + 64, as numpy arrays: {"doc" int32, "score" f32, "tf" int32, "tc"
-    int16 bits of uint16 lanes, "t_start", "t_len"}. Each run is sorted,
-    padded to a multiple of 128 with INT32_MAX docs and 0 payload, and
-    the column ends in L + 4096 pad lanes, as the engine's columns do.
-    Run lengths: `lengths`, or empty, 1, short, about L and up to 2L
-    (the long ones dense in the range, so 9-way intersections match).
-    Half the terms draw their scores, tfs and tc lanes from a few values,
-    so equal sums tie at the boundary."""
+    2L + 64 (build_columns), the column ending in L + 4096 pad lanes as
+    the engine's columns do. Run lengths: `lengths`, or empty, 1, short,
+    about L and up to 2L (the long ones dense in the range, so 9-way
+    intersections match)."""
     rng = np.random.default_rng(seed)
     U = 2 * L + 64
     if lengths is None:
@@ -65,11 +82,25 @@ def synth_columns(L: int, seed: int, lengths=None, n_terms: int = 24):
                  3 * L // 2, 2 * L, 2 * L]
         lengths = fixed + list(rng.integers(1, 2 * L + 1,
                                             size=max(0, n_terms - len(fixed))))
+    # drawn lazily, each run just before its payloads
+    runs = (np.sort(rng.choice(U, size=int(min(n, U)), replace=False))
+            for n in lengths)
+    return build_columns(runs, rng, slack=L + 4096)
+
+
+def build_columns(runs, rng, slack: int):
+    """Raw and tc posting columns of the sorted doc-id runs `runs` (an
+    iterable), as
+    numpy arrays: {"doc" int32, "score" f32, "tf" int32, "tc" int16 bits
+    of uint16 lanes, "t_start", "t_len"}. Each run is padded to a
+    multiple of 128 with INT32_MAX docs and 0 payload, and the column
+    ends in `slack` pad lanes. Every other run draws its scores, tfs and
+    tc lanes from a few values, so equal sums tie at the boundary."""
     docs, scores, tfs, tcs, t_start, t_len = [], [], [], [], [], []
     pos = 0
-    for i, n in enumerate(lengths):
-        n = int(min(n, U))
-        d = np.sort(rng.choice(U, size=n, replace=False)).astype(np.int32)
+    for i, d in enumerate(runs):
+        d = np.asarray(d, dtype=np.int32)
+        n = len(d)
         if i % 2:  # tie-prone payloads
             sc = rng.integers(1, 5, size=n).astype(np.float32) * 0.5
             tf = rng.integers(1, 3, size=n).astype(np.int32)
@@ -89,7 +120,6 @@ def synth_columns(L: int, seed: int, lengths=None, n_terms: int = 24):
         t_start.append(pos)
         t_len.append(n)
         pos += n + pad
-    slack = L + 4096
     return {"doc": np.concatenate(docs + [np.full(slack, INT32_MAX, np.int32)]),
             "score": np.concatenate(scores + [np.zeros(slack, np.float32)]),
             "tf": np.concatenate(tfs + [np.zeros(slack, np.int32)]),
@@ -225,12 +255,118 @@ def check(kern, plain, full, M: int, what: str) -> dict:
             "max_abs_err": err}
 
 
-def check_cases(dev, seed: int = 0, Ls=CHECK_L, Ts=CHECK_T) -> dict:
-    """Every (mode, T, L, M) case through the kernel and the plain
-    version on the CUDA device `dev`. Raises on the first difference;
-    returns the totals and each case's counts."""
+def rows_batch(cols: dict, rows, T: int, seed: int) -> dict:
+    """synth_batch's arrays for explicit rows of term ids in slot order
+    (padded slots repeat slot 0 with use 0 and idf 0)."""
+    rng = np.random.default_rng(seed)
+    B = len(rows)
+    starts = np.zeros((B, T), dtype=np.int32)
+    ends = np.zeros((B, T), dtype=np.int32)
+    use = np.zeros((B, T), dtype=np.float32)
+    idf = np.zeros((B, T), dtype=np.float32)
+    for b, terms in enumerate(rows):
+        for t in range(T):
+            term = int(terms[t] if t < len(terms) else terms[0])
+            starts[b, t] = cols["t_start"][term]
+            ends[b, t] = cols["t_start"][term] + cols["t_len"][term]
+            if t < len(terms):
+                use[b, t] = 1.0
+                idf[b, t] = np.float32(rng.uniform(0.1, 8.0))
+    return {"starts": starts, "ends": ends, "use": use, "idf32": idf,
+            "avg32": np.float32(57.25)}
+
+
+def _n_iters(cols: dict) -> int:
+    from wiser_tpu_torch.engine.kernels import n_iters_for
+
+    return n_iters_for(int(cols["t_len"].max()))
+
+
+def edge_cases(seed: int = 0, wide_B: int = 1024) -> list:
+    """The check grid's edges, as dicts of name, cols, batch, T, L, M,
+    n_iters and full (whether the whole plane is compared):
+
+    - M + 1 at ops/search.KEY_CAP (the tile path, at one tile and at
+      several) and one above (the plane path);
+    - candidate slices clamped at the column's end: the candidate is the
+      column's last run, shorter than L, with nothing after it, so the
+      L-lane load starts inside the runs before it (unsorted lanes);
+    - short candidate runs against a run of 2^20 + 3 ids (a window wider
+      than shared memory and than the lanes' searches), then the same at
+      n_bs_iters 20, 10 and 0, where the bounded search stops short of
+      the lower bound in that run and not in a 500-id run beside it;
+    - a group of wide_B queries at L = 8192, so that each worker takes
+      several tiles (compared without the whole plane)."""
+    from wiser_tpu_torch.ops.search import KEY_CAP
+
+    rng = np.random.default_rng(seed)
+    out = []
+
+    def case(name, cols, batch, T, L, M, n_iters, full=True):
+        out.append(dict(name=name, cols=cols, batch=batch, T=T, L=L, M=M,
+                        n_iters=n_iters, full=full))
+
+    for L, T in ((2048, 2), (8192, 3)):
+        cols = synth_columns(L, seed + L + 1)
+        batch = synth_batch(cols, 16, T, seed + T)
+        for M in (KEY_CAP - 1, KEY_CAP):
+            case(f"cap L={L} M={M}", cols, batch, T, L, M, _n_iters(cols))
+    for L in (128, 2048, 8192):
+        U = 2 * L + 64
+        lengths = (L // 2, 2 * L, L, 3 * L // 2, L // 3)
+        cols = build_columns(
+            (np.sort(rng.choice(U, size=n, replace=False)) for n in lengths),
+            rng, slack=0)
+        last = len(lengths) - 1
+        n = int(cols["t_start"][last] + cols["t_len"][last])
+        cols = {k: (v[:n] if k in ("doc", "score", "tf", "tc") else v)
+                for k, v in cols.items()}
+        for T in (2, 3):
+            rows = [[last] + list(rng.integers(0, last, size=T - 1))
+                    for _ in range(12)]
+            case(f"clamped L={L} T={T}", cols, rows_batch(cols, rows, T, L + T),
+                 T, L, 16, _n_iters(cols))
+    # the wide run: the even docs below 2^21 + 6; the candidate runs and
+    # a 500-id run draw from it, so the intersections match
+    big = np.arange(0, 2 * (2**20 + 3), 2)
+    odd = 2 * rng.choice(len(big), size=50, replace=False) + 1
+    c0 = np.union1d(rng.choice(big, size=70, replace=False), odd[:30])
+    c3 = np.union1d(rng.choice(big, size=40, replace=False), odd[30:])
+    mid = np.union1d(rng.choice(c0[c0 % 2 == 0], size=40, replace=False),
+                     rng.choice(big, size=460, replace=False))
+    cols = build_columns([c0, big, mid, c3], rng, slack=4096)
+    for L in (128, 2048):
+        # 21 iterations finish every search of the wide run; 20 leave some
+        # a range of one id; 10 and 0 stop far short
+        for T, n_iters in ((2, 21), (3, 21), (2, 20), (3, 20), (3, 10),
+                           (3, 0)):
+            rows = [[0, 1], [3, 1]] if T == 2 else [[0, 2, 1], [3, 1, 2]]
+            case(f"wide L={L} T={T} iters={n_iters}", cols,
+                 rows_batch(cols, rows * 8, T, T * 100 + n_iters), T, L, 16,
+                 n_iters)
+    cols = synth_columns(8192, seed + 99)
+    case(f"several tiles B={wide_B}", cols,
+         synth_batch(cols, wide_B, 4, seed + 5), 4, 8192, 64, _n_iters(cols),
+         full=False)
+    return out
+
+
+def check_cases(dev, seed: int = 0, Ls=CHECK_L, Ts=CHECK_T,
+                edges: bool = True) -> dict:
+    """Every (mode, T, L, M) case, then every edge_cases entry, through
+    the kernel and the plain version on the CUDA device `dev`. Raises on
+    the first difference; returns the totals and each case's counts."""
     from wiser_tpu_torch.engine import kernels as K
     from wiser_tpu_torch.ops import search as S
+
+    def run(t, mode, T, L, M, n_iters, full, what):
+        kern = call(S.bs_search, t, mode, T, L, M, n_iters)
+        plain = call(K.search_body_torch, t, mode, T, L, M, n_iters)
+        whole = (call(K.search_body_torch, t, mode, T, L, L, n_iters)
+                 if full else None)
+        row = check(kern, plain, whole, M, what)
+        row.update(mode=mode, T=T, L=L, M=M, what=what)
+        return row
 
     cases = []
     for L in Ls:
@@ -242,15 +378,15 @@ def check_cases(dev, seed: int = 0, Ls=CHECK_L, Ts=CHECK_T) -> dict:
             t = to_device(cols, batch, dev)
             for M in sorted({16, 64, L}):
                 for mode in ("raw", "tc"):
-                    what = f"{mode} T={T} L={L} M={M}"
-                    kern = call(S.bs_search, t, mode, T, L, M, n_iters)
-                    plain = call(K.search_body_torch, t, mode, T, L, M,
-                                 n_iters)
-                    full = call(K.search_body_torch, t, mode, T, L, L,
-                                n_iters)
-                    row = check(kern, plain, full, M, what)
-                    row.update(mode=mode, T=T, L=L, M=M)
-                    cases.append(row)
+                    cases.append(run(t, mode, T, L, M, n_iters, True,
+                                     f"{mode} T={T} L={L} M={M}"))
+    if edges:
+        for e in edge_cases(seed):
+            t = to_device(e["cols"], e["batch"], dev)
+            for mode in ("raw", "tc"):
+                cases.append(run(t, mode, e["T"], e["L"], e["M"],
+                                 e["n_iters"], e["full"],
+                                 f"{mode} {e['name']}"))
     flagged = sum(c["flagged"] for c in cases)
     if not flagged:
         raise AssertionError("no case cut a boundary tie (FLAG_TRUNC)")
@@ -318,15 +454,35 @@ def host_us(fn, calls: int) -> float:
     return (t1 - t0) / calls * 1e6
 
 
-def launch_ms(fn, calls: int = 5) -> dict:
-    """Device ms per call of each of fn()'s two launches (score_kernel,
-    select_kernel): torch.profiler (utils.trace) over `calls` calls after
-    a warm one, the newest `calls` device events of each name. A launch
-    with fewer events in the trace reads None (not measured); `events`
-    counts each name's events and `other` the trace's other device
-    kernels."""
-    import tempfile
+def flushed_ms(fn, iters: int) -> float:
+    """Mean device time of fn() with the L2 flushed before each call: a
+    FLUSH_BYTES write, then CUDA events around the call alone."""
+    import torch
 
+    junk = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        junk.fill_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    del junk
+    return total / iters
+
+
+def launch_ms(fn, calls: int = 5) -> dict:
+    """Device ms per call of each kernel of the search library that fn()
+    launches (the names in wiser_search::, whatever the tree's form of
+    the kernel calls them): torch.profiler (utils.trace) over `calls`
+    calls after a warm one, the newest `calls` device events of each
+    name. `total` sums them (None where a name has fewer events than
+    calls: not measured); `events` counts each name's events and `other`
+    names the trace's other device kernels."""
     import torch
     from torch.autograd import DeviceType
 
@@ -341,99 +497,196 @@ def launch_ms(fn, calls: int = 5) -> dict:
         events = sorted((e.time_range.start, e.time_range.end, e.name)
                         for e in prof.events()
                         if e.device_type == DeviceType.CUDA)
-    out = {"events": {}}
-    for name in ("score", "select"):
-        mine = [b - a for a, b, n in events if f"{name}_kernel" in n]
-        out["events"][name] = len(mine)
-        out[name] = (sum(mine[-calls:]) / 1e3 / calls
-                     if len(mine) >= calls else None)
+    names = sorted({n for *_, n in events if "wiser_search::" in n})
+    out = {"kernels": {}, "events": {}, "calls": calls}
+    for name in names:
+        mine = [b - a for a, b, n in events if n == name]
+        key = name.split("wiser_search::")[1].split("(")[0]
+        out["events"][key] = len(mine)
+        out["kernels"][key] = (sum(mine[-calls:]) / 1e3 / calls
+                               if len(mine) >= calls else None)
+    vals = list(out["kernels"].values())
+    out["total"] = sum(vals) if vals and None not in vals else None
     out["other"] = sorted({n.split("(")[0] for *_, n in events
-                           if "score_kernel" not in n
-                           and "select_kernel" not in n})
+                           if "wiser_search::" not in n})
     return out
 
 
-def time_shapes(dev, mode: str = "raw", shapes=TIME_SHAPES, M: int = TIME_M,
-                iters: int = 20, plain_iters: int = 3, seed: int = 1) -> list:
-    """The kernel and its plain version at each (T, L) of `shapes`:
-    compared (`check`), then timed in turns (kernel, plain, plain,
-    kernel), then each launch on its own. Candidate runs are L/2..L long (a candidate's L bucket), the
-    other slots' L..4L."""
-    from wiser_tpu_torch.engine import kernels as K
+def shape_batch(T: int, L: int, seed: int = 1):
+    """The timed group at (T, L): B = bs_chunk(T, L) queries whose
+    candidate runs are L/2..L long (a candidate's L bucket), the other
+    slots' L..4L, over a doc range of 8L + 64."""
     from wiser_tpu_torch.engine.device import bs_chunk
+
+    B = bs_chunk(T, L)
+    rng = np.random.default_rng(seed + L)
+    n_cand = 32
+    lengths = list(rng.integers(L // 2 + 1, L + 1, size=n_cand)) + list(
+        rng.integers(L, 4 * L + 1, size=32))
+    cols = synth_columns(4 * L, seed + L, lengths=lengths)
+    batch = synth_batch(cols, B, T, seed + T, cand=np.arange(n_cand),
+                        n_pad_rows=0)
+    return B, cols, batch
+
+
+def time_shapes(dev, mode: str = "raw", shapes=TIME_SHAPES, M: int = TIME_M,
+                iters: int = 20, plain_iters: int = 3, seed: int = 1,
+                plain: bool = True) -> list:
+    """The kernel and its plain version at each (T, L) of `shapes`
+    (shape_batch): compared (`check`), then timed in turns (kernel,
+    plain, plain, kernel; with plain=False the kernel twice), the kernel
+    once more with the L2 flushed before each call, its launches by
+    name (launch_ms) and the wrapper's host cost per call."""
+    import torch
+
+    from wiser_tpu_torch.engine import kernels as K
     from wiser_tpu_torch.ops import search as S
 
     rows = []
     for T, L in shapes:
-        B = bs_chunk(T, L)
-        rng = np.random.default_rng(seed + L)
-        n_cand = 32
-        lengths = list(rng.integers(L // 2 + 1, L + 1, size=n_cand)) + list(
-            rng.integers(L, 4 * L + 1, size=32))
-        cols = synth_columns(4 * L, seed + L, lengths=lengths)
-        batch = synth_batch(cols, B, T, seed + T, cand=np.arange(n_cand),
-                            n_pad_rows=0)
+        B, cols, batch = shape_batch(T, L, seed)
         t = to_device(cols, batch, dev)
         n_iters = K.n_iters_for(int(cols["t_len"].max()))
 
         def kern():
             return call(S.bs_search, t, mode, T, L, M, n_iters)
 
-        def plain():
+        def plain_fn():
             return call(K.search_body_torch, t, mode, T, L, M, n_iters)
 
         # the kernel against its plain version at this batch size
-        chk = check(kern(), plain(), None, M, f"{mode} B={B} T={T} L={L} M={M}")
+        chk = check(kern(), plain_fn(), None, M,
+                    f"{mode} B={B} T={T} L={L} M={M}")
         k1 = event_ms(kern, iters)
-        p1 = event_ms(plain, plain_iters)
-        p2 = event_ms(plain, plain_iters)
+        p = [event_ms(plain_fn, plain_iters),
+             event_ms(plain_fn, plain_iters)] if plain else []
         k2 = event_ms(kern, iters)
+        fl = flushed_ms(kern, iters)
         hu = host_us(kern, iters)
         split = launch_ms(kern)
         nbytes = bound_bytes(batch["starts"], batch["ends"], mode, L, M)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
+        # the kernel's own time: its launches' device time where the
+        # trace holds them all, else the CUDA events around the calls
+        own = split["total"] or min(k1, k2)
+        plan = getattr(S, "plan", None)
         row = {"mode": mode, "B": B, "T": T, "L": L, "M": M,
-               "ms": [k1, k2], "plain_ms": [p1, p2], "host_us": hu,
-               "launch_ms": split,
-               "bytes": nbytes, "bound_ms": bound,
-               "share": bound / min(k1, k2),
-               "speedup": min(p1, p2) / min(k1, k2), "check": chk}
+               "event_ms": [k1, k2], "device_ms": own, "flushed_ms": fl,
+               "host_us": hu, "launch_ms": split,
+               "launches_per_call": (sum(split["events"].values())
+                                     / split["calls"]),
+               "plan": plan(B, T, L, M)._asdict() if plan else None,
+               "bytes": nbytes, "bound_ms": bound, "share": bound / own,
+               "flushed_share": bound / fl, "check": chk}
+        if plain:
+            row.update(plain_ms=p, speedup=min(p) / own)
         rows.append(row)
         log(f"search timing {row}")
         del t
-        import torch
-
         torch.cuda.empty_cache()
     return rows
+
+
+def measure(root: str, index=None, routes: str = ROUTES) -> dict:
+    """One tree's readings, in this process: time_shapes raw and tc (no
+    plain times) and, given a saved index, route_bench's `routes` raw and
+    tc, each set traced."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from wiser_tpu_torch.ops import search as S
+    from wiser_tpu_torch.tools.unpack_bench import card_line
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("search_bench measures a card: none is available")
+    dev = torch.device("cuda", 0)
+    out = {"tree": root, "card": card_line(),
+           "module": os.path.abspath(S.__file__),
+           "timing": {m: time_shapes(dev, m, plain=False)
+                      for m in ("raw", "tc")}}
+    if index:
+        from wiser_tpu_torch.tools import route_bench as RB
+
+        out["routes"] = {}
+        for columns in ("raw", "tc"):
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "routes.json")
+                RB.main(["--index", index, "--columns", columns,
+                         "--routes", routes, "--trace", tmp, "--out", path])
+                with open(path) as f:
+                    out["routes"][columns] = json.load(f)["routes"]
+    return out
+
+
+def summary(runs: list) -> dict:
+    """Per run: each shape's [device ms, flushed ms, host us, bound
+    share], and each route set's [untraced wall s, device ms of the search
+    kernels in its traced pass, device busy ms of that pass]."""
+    res = []
+    for r in runs:
+        s = {"tree": r["tree"], "card": r["card"]}
+        for mode, rows in r["timing"].items():
+            for x in rows:
+                s[f"{mode}_T{x['T']}_L{x['L']}"] = [
+                    x["device_ms"], x["flushed_ms"], x["host_us"],
+                    x["share"]]
+        for columns, sets in r.get("routes", {}).items():
+            for name, row in sets.items():
+                traced = row.get("traced") or {}
+                kern_ms = sum(op["self_ms"] for op in traced.get("top_ops", [])
+                              if "wiser_search::" in op["kernel"])
+                s[f"{columns}_{name}"] = [row.get("wall_s"), kern_ms,
+                                          traced.get("device_busy_ms")]
+        res.append(s)
+    return {"search_bench": res}
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--skip-check", action="store_true")
+    ap.add_argument("--trees", default=None,
+                    help="comma-separated trees, measured in turns")
+    ap.add_argument("--root", help="measure this tree in this process")
+    ap.add_argument("--index", help="a saved index for route_bench's sets")
+    ap.add_argument("--routes", default=ROUTES)
     args = ap.parse_args(argv)
-    import torch
+    if args.root:
+        res = measure(args.root, args.index, args.routes)
+        print(json.dumps(res), flush=True)
+        return res
+    if args.trees:
+        from wiser_tpu_torch.tools.unpack_bench import run_trees
 
-    from wiser_tpu_torch.runtime import resolve_device
+        extra = ["--routes", args.routes]
+        if args.index:
+            extra += ["--index", os.path.abspath(args.index)]
+        res = {"runs": run_trees(__file__, args.trees.split(","), extra)}
+        print(json.dumps(summary(res["runs"])), flush=True)
+    else:
+        import torch
 
-    from wiser_tpu_torch.build import build_log
-    from wiser_tpu_torch.ops import search as S
+        from wiser_tpu_torch.build import build_log
+        from wiser_tpu_torch.ops import search as S
+        from wiser_tpu_torch.runtime import resolve_device
+        from wiser_tpu_torch.tools.unpack_bench import card_line
 
-    dev = resolve_device("cuda")
-    out = {"card": torch.cuda.get_device_name(0)}
-    S._kernel_fns()
-    out["build_s"], compiler = build_log["search"]
-    log(compiler)
-    if not args.skip_check:
-        out["check"] = check_cases(dev)
-        out["check"].pop("rows")
-        log(f"search check: {out['check']}")
-    out["timing"] = {m: time_shapes(dev, m) for m in ("raw", "tc")}
-    print(json.dumps(out))
+        dev = resolve_device("cuda")
+        res = {"card": card_line(), "device": torch.cuda.get_device_name(0)}
+        S._kernel_fns()
+        res["build_s"], compiler = build_log["search"]
+        log(compiler)
+        if not args.skip_check:
+            res["check"] = check_cases(dev)
+            res["check"].pop("rows")
+            log(f"search check: {res['check']}")
+        res["timing"] = {m: time_shapes(dev, m) for m in ("raw", "tc")}
+        print(json.dumps(res))
     if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(out, f, indent=1)
-    return out
+            json.dump(res, f, indent=1)
+    return res
 
 
 if __name__ == "__main__":

@@ -318,6 +318,23 @@ def make_columns(columns_dir: str, n_docs: int = 1_000_000,
             f"{time.perf_counter() - t0:.1f}s")
 
 
+def run_trees(script: str, trees, args) -> list:
+    """Run `script --root TREE *args` once per tree, in turns, each in its
+    own process (-P: the script's directory stays off sys.path, so the
+    child imports wiser_tpu_torch from TREE alone); each child prints its
+    readings as the last line of its stdout. Returns them in order."""
+    runs = []
+    for tree in trees:
+        proc = subprocess.run(
+            [sys.executable, "-P", os.path.abspath(script), "--root", tree,
+             *args], capture_output=True, text=True)
+        sys.stderr.write(proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"measuring {tree} failed ({proc.returncode})")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    return runs
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--columns", required=True,
@@ -332,17 +349,8 @@ def main(argv=None) -> dict:
         print(json.dumps(res), flush=True)
         return res
     make_columns(args.columns)
-    runs = []
-    for tree in args.trees.split(","):
-        # -P: this file's directory stays off sys.path, so the child
-        # imports wiser_tpu_torch from `tree` alone
-        proc = subprocess.run(
-            [sys.executable, "-P", os.path.abspath(__file__), "--root", tree,
-             "--columns", args.columns], capture_output=True, text=True)
-        sys.stderr.write(proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"measuring {tree} failed ({proc.returncode})")
-        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    runs = run_trees(__file__, args.trees.split(","),
+                     ["--columns", args.columns])
     res = {"runs": runs}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
