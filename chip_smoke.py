@@ -5,8 +5,8 @@ CUDA card and check it.
     python3 chip_smoke.py            # the full smoke (one card, 15-19 min)
     python3 chip_smoke.py --docs 200000 --phases kernel,dense,phrase
 
-It always compiles csrc/unpack.cu and then csrc/search.cu for sm_90a
-first (one nvcc each, first use).
+It always compiles csrc/unpack.cu, csrc/search.cu and csrc/dense.cu for
+sm_90a first (one nvcc each, all three at the same time, first use).
 The engine phases share a wiki-shaped 1M-doc index with bi-blooms
 (data/scale_corpus defaults: vocab 200k, mean length 120, Zipf 1.25,
 seed 42, WITH_BI_BLOOM rows; fast builder with the reference indexer's
@@ -51,7 +51,19 @@ search for phrases). Phases:
             the kept lanes on unflagged rows and above the boundary on
             flagged ones) and timed in turns with it (kernel, plain,
             plain, kernel; CUDA events), once more after an L2 flush,
-            each launch by torch.profiler, with the bytes bound
+            each launch by torch.profiler, with the bytes bound. Then the
+            dense tier's kernels (ops/dense.py, csrc/dense.cu) against
+            their plain torch versions (tools/dense_bench.check_cases):
+            the block-list scan over every block, raw and tc, T in {1, 2,
+            3, 4, 8}, N_pad in {1, 157, 7,816} x 128, M in {1, 16, 64,
+            254}, B in {1, 8, 128, 1,024}; the block pick in both bound
+            forms and the pruned scan at C in {256, 512, 1,024}; no
+            match, fewer than M matches, padded slots, saturated tf bytes,
+            len codes >= 128, bounds past shared memory; flags, blk and
+            next_ub bit-equal, the kept lanes equal on unflagged rows,
+            the top-M score multiset on every row; then both timed on
+            synthetic 1M planes (dense_bench.time_shapes at B 128, T 2,
+            and the pruned group B 1,024, T 2, C 512)
   resident  TorchEngine(dense_budget_bytes=0): bs and windowed routes and
             host merges; raises unless aol_df takes the windowed route.
             Then `windowed`, up to 1,024 df-ranked draws (seed 8) that the
@@ -62,7 +74,13 @@ search for phrases). Phases:
             kernel against bs on the same queries
   dense     TorchEngine at the default dense budget: dense, pruned
             (block-max) and semidense routes with the batched rescue;
-            raises unless aol_df takes the pruned and semidense routes
+            raises unless aol_df takes the pruned and semidense routes;
+            then the dense kernels on the engine's own planes
+            (dense_bench.time_shapes: the full scan at B 128, T 2-4, M
+            64; the pruned scan and its pick at T 2 B 1,024, T 3-4 B
+            512, C 512), each held against and timed in turns with its
+            plain version, with the peak memory above the inputs (the tc
+            phase does the same on its planes)
   phrase    the phrase set through the same dense-budget TorchEngine:
             full-scan mega (with its rescue), semidense, compact and
             list-chain phrase routes and the exact host phrase search;
@@ -170,7 +188,12 @@ summary of every run. bs_search's launches (its tile path; the plane
 path, for M + 1 past the key cap, counts as bs_search_plane) are
 counted on the timed passes of every engine run, the harness, the mesh
 and the headline; the smoke fails if the resident, dense, staged, mesh
-or headline phase ran and launched the tile path 0 times. The full report is the last line of stderr, one
+or headline phase ran and launched the tile path 0 times. So are the
+dense kernels' (dense_scan, its merge launch dense_scan_merge, and
+dense_pick): the smoke fails if dense_scan never launched on the dense,
+tc or mesh phase, or on another phase whose route counters show dense,
+pruned or rescued queries, or if dense_pick never launched on the dense
+or tc phase. The full report is the last line of stderr, one
 JSON object (also written to the --report path, if given).
 """
 
@@ -223,19 +246,22 @@ def cuda_ms(fn, iters: int) -> float:
 
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
+    from wiser_tpu_torch.ops import dense as D
     from wiser_tpu_torch.ops import search as S
     from wiser_tpu_torch.ops import unpack as U
 
     U.reset_launch_counts()
     S.reset_launch_counts()
+    D.reset_launch_counts()
 
 
 def read_counts() -> dict:
     """Every kernel wrapper's launch count, by wrapper name."""
+    from wiser_tpu_torch.ops import dense as D
     from wiser_tpu_torch.ops import search as S
     from wiser_tpu_torch.ops import unpack as U
 
-    return {**U.launch_counts, **S.launch_counts}
+    return {**U.launch_counts, **S.launch_counts, **D.launch_counts}
 
 
 # -- kernel ----------------------------------------------------------------
@@ -473,6 +499,136 @@ def search_kernel_phase(report: dict) -> dict:
             "bound_ms": row["bound_ms"],
             "shape": f"raw B={row['B']} T={row['T']} L={row['L']} "
                      f"M={row['M']}"}
+
+
+# the dense tier's kernels: (name, the TPU-side step it replaces)
+DENSE_KERNELS = (
+    ("dense_scan", "wiser_tpu/engine/kernels.py:1863"),
+    ("dense_scan_merge", "wiser_tpu/engine/kernels.py:284"),
+    ("dense_pick", "wiser_tpu/engine/kernels.py:1222"))
+# the kernel phase's timed shapes on synthetic 1M planes (the dense and
+# tc phases time every engine shape on the engines' own planes)
+DENSE_KERNEL_FULL, DENSE_KERNEL_PRUNED = ((128, 2),), ((1024, 2),)
+
+
+def dense_rows(timing: dict, err: float) -> dict:
+    """The kernels line's entries of the dense kernels from
+    dense_bench.time_shapes rows (raw): dense_scan and dense_scan_merge
+    from the full scan at B 128, T 2, dense_pick from the pick at the
+    first pruned group; each its own launch's device time by
+    torch.profiler, or, where the capture lost that launch, the call's
+    CUDA events (less the merge's reading, for the scan). The merge's
+    entry is left out when its launch was not captured (an earlier
+    reading then stands); its bound is the segments' keys read and the
+    outputs written, and plain_ms is the plain version of the whole scan
+    for the scan and the merge."""
+    from wiser_tpu_torch.ops import dense as D
+    from wiser_tpu_torch.tools.dense_bench import HBM_BYTES_PER_S
+
+    rows = timing["raw"]
+    full = next(r for r in rows if r["kind"] == "full")
+    pick = next(r for r in rows if r["kind"] == "pick")
+
+    def own(r, prefix):
+        return next((v for k, v in r["launch_ms"]["kernels"].items()
+                     if k.startswith(prefix) and v is not None), None)
+
+    scan_ms, merge_ms = own(full, "scan_kernel"), own(full, "merge_kernel")
+    pick_ms = own(pick, "pick_kernel")
+    B, T, M = full["B"], full["T"], full["M"]
+    p = D.plan(B, T, full["N_pad"] // 128, M, "raw")
+    merge_bytes = B * p.nseg * p.K * 8 + B * (2 * M + T * M + 1) * 4
+    shape = f"raw B={B} T={T} N_pad={full['N_pad']} M={M}"
+    out = {
+        "dense_scan": {
+            "max_abs_err": err,
+            "ms": (scan_ms if scan_ms is not None
+                   else full["device_ms"] - (merge_ms or 0.0)),
+            "timing": ("torch.profiler" if scan_ms is not None
+                       else "CUDA events"),
+            "host_us": full["host_us"], "plain_ms": min(full["plain_ms"]),
+            "bound_ms": full["bound_ms"], "shape": shape},
+        "dense_pick": {
+            "max_abs_err": 0.0,
+            "ms": pick_ms if pick_ms is not None else pick["device_ms"],
+            "timing": ("torch.profiler" if pick_ms is not None
+                       else "CUDA events"),
+            "host_us": pick["host_us"], "plain_ms": min(pick["plain_ms"]),
+            "bound_ms": pick["bound_ms"],
+            "shape": f"raw B={pick['B']} T={pick['T']} NB={pick['NB']} "
+                     f"C={pick['C']} anchor form"}}
+    if merge_ms is not None:
+        out["dense_scan_merge"] = {
+            "max_abs_err": err, "ms": merge_ms, "timing": "torch.profiler",
+            "host_us": full["host_us"], "plain_ms": min(full["plain_ms"]),
+            "bound_ms": merge_bytes / HBM_BYTES_PER_S * 1e3,
+            "shape": f"{shape}, {p.nseg} segments"}
+    return out
+
+
+def dense_kernel_phase(report: dict) -> dict:
+    """The dense tier's kernels against their plain torch versions on the
+    card (tools/dense_bench.check_cases: the block-list scan over every
+    block, raw and tc, the pick in both bound forms, the pruned scan, and
+    the grid's edges), then timed on synthetic 1M planes in turns with
+    the plain versions (dense_bench.time_shapes at DENSE_KERNEL_FULL and
+    DENSE_KERNEL_PRUNED). Returns the kernels line's dense entries."""
+    import torch
+
+    from wiser_tpu_torch.tools import dense_bench as DB
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    chk = DB.check_cases(dev)
+    torch.cuda.synchronize()
+    chk.pop("rows")
+    report["dense_check"] = dict(chk, wall_s=time.perf_counter() - t0)
+    log(f"kernel: the dense kernels equal their plain versions in "
+        f"{chk['cases']} cases: {report['dense_check']}")
+    t0 = time.perf_counter()
+    planes = DB.planes_1m(dev)
+    timing = {mode: DB.time_shapes(dev, mode, planes=planes,
+                                   full=DENSE_KERNEL_FULL,
+                                   pruned=DENSE_KERNEL_PRUNED)
+              for mode in ("raw", "tc")}
+    err = max([chk["max_abs_err"]] + [r["check"]["max_abs_err"]
+                                      for rows in timing.values()
+                                      for r in rows])
+    out = dense_rows(timing, err)
+    for _ in range(2):  # a capture that lost the merge launch: again
+        if "dense_scan_merge" in out:
+            break
+        again = {"raw": DB.time_shapes(dev, "raw", planes=planes,
+                                       full=DENSE_KERNEL_FULL,
+                                       pruned=DENSE_KERNEL_PRUNED)}
+        out = dense_rows(again, err)
+    del planes
+    torch.cuda.empty_cache()
+    report["dense_kernel_timing"] = dict(timing,
+                                         wall_s=time.perf_counter() - t0)
+    return out
+
+
+def dense_engine_timing(report: dict, name: str, eng) -> dict:
+    """dense_bench.time_shapes on a TorchEngine's own 1M planes (every
+    engine shape, its columns' mode); these launches come after the
+    timed passes, so the main path's counts do not hold them. Returns
+    the kernels line's dense entries when raw."""
+    import torch
+
+    from wiser_tpu_torch.tools import dense_bench as DB
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    timing = {eng.columns: DB.time_shapes(dev, eng.columns,
+                                          planes=DB.engine_planes(eng))}
+    torch.cuda.empty_cache()
+    report[f"{name}_dense_timing"] = dict(timing,
+                                          wall_s=time.perf_counter() - t0)
+    if eng.columns != "raw":
+        return {}
+    err = max(r["check"]["max_abs_err"] for r in timing["raw"])
+    return dense_rows(timing, err)
 
 
 # -- index + queries ---------------------------------------------------------
@@ -787,7 +943,7 @@ def headline_phase(report: dict, n_docs: int, n_queries: int) -> None:
     line = out["line"]
     report["headline"] = dict(
         line, wall_s=time.perf_counter() - t0, passes=out["passes"],
-        launches=read_counts(),
+        launches=read_counts(), stats=out["stats"],
         peak_device_bytes=torch.cuda.max_memory_allocated())
     queries, results = out["queries"], out["results"]
     report["headline"]["parity_checked"] = check_parity(
@@ -1059,6 +1215,7 @@ def harness_phase(report: dict, packed, pairs, engines: dict,
     launches = U.launch_counts["unpack_delta_blocks"]
     out["unpack_launches"] = launches
     out["bs_search_launches"] = read_counts()["bs_search"]
+    out["launches"] = read_counts()
     return launches
 
 
@@ -1437,7 +1594,7 @@ def main() -> int:
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
         return 2
     sys.path.insert(0, ROOT)
-    from wiser_tpu_torch.build import build_log, load_library
+    from wiser_tpu_torch.build import build_log, load_libraries
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1446,11 +1603,11 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "python": sys.version.split()[0]}
 
-    # one nvcc a library, in turn (a build error is raised here)
+    # one nvcc a library, all at the same time (a build error is raised
+    # here)
     t0 = time.perf_counter()
-    libs = ("unpack", "search")
-    for lib in libs:
-        load_library(lib)
+    libs = ("unpack", "search", "dense")
+    load_libraries(libs)
     report["build"] = {f"{n}_s": build_log[n][0] for n in libs}
     report["build"]["wall_s"] = time.perf_counter() - t0
     for n in libs:
@@ -1471,12 +1628,17 @@ def main() -> int:
     kerns["bs_search"] = kernel_row("bs_search",
                                     "wiser_tpu_torch/csrc/search.cu",
                                     "wiser_tpu/engine/kernels.py:205")
+    for name, replaces in DENSE_KERNELS:
+        kerns[name] = kernel_row(name, "wiser_tpu_torch/csrc/dense.cu",
+                                 replaces)
     kern = kerns["unpack_delta_blocks"]
     if "kernel" in phases:
         for name, entry in kernel_phase(report).items():
             kerns[name].update(entry)
         kerns["bs_search"].update(search_kernel_phase(report))
         torch.cuda.empty_cache()
+        for name, entry in dense_kernel_phase(report).items():
+            kerns[name].update(entry)
 
     # (run name, make engine, {mix: (pool, number of queries, engine
     # attributes set for that mix only, warm-pass queries or None = all)})
@@ -1544,6 +1706,19 @@ def main() -> int:
     keep: dict = {}  # the dense and tc engines, for the harness phase
     # bs_search launches on each phase's timed passes
     bs_by_phase: dict = {}
+    # the dense kernels' launches on each phase's timed passes, and the
+    # dense, pruned and rescued queries its route counters show
+    dense_by_phase: dict = {}
+    dense_work: dict = {}
+
+    def add_dense(phase: str, r: dict) -> None:
+        c = dense_by_phase.setdefault(
+            phase, {name: 0 for name, _ in DENSE_KERNELS})
+        for name in c:
+            c[name] += r["launches"].get(name, 0)
+        dense_work[phase] = dense_work.get(phase, 0) + sum(
+            v for k, v in r.get("stats", {}).items()
+            if k.endswith(("route_dense", "route_pruned", "prune_rescued")))
 
     def phase_of(run_name: str) -> str:
         return "staged" if run_name == "staged_q" else run_name
@@ -1593,6 +1768,10 @@ def main() -> int:
                 report[key]["parity_checked"] = check_parity(
                     packed, queries, res, parity_sample(queries), key,
                     expected)
+            if name in ("dense", "tc"):
+                for k, entry in dense_engine_timing(report, name,
+                                                    hot).items():
+                    kerns[k].update(entry)
             if "harness" in phases and name in ("dense", "tc"):
                 keep[name] = eng
             del eng, hot, res
@@ -1624,6 +1803,8 @@ def main() -> int:
                 phase_of(name), 0) + sum(
                 report[f"{name}_{mix}"]["launches"]["bs_search"]
                 for mix in mixes)
+            for mix in mixes:
+                add_dense(phase_of(name), report[f"{name}_{mix}"])
         route_keys = ("route_", "flag_", "prune_rescued", "forced_host",
                       "host_exact_s", "rescue_s", "phrase_", "windowed_s",
                       "bs_s", "cold_host_fallback_q", "cold_phrase_")
@@ -1642,6 +1823,8 @@ def main() -> int:
         kern["launches"] += harness_phase(report, packed, pairs, keep,
                                           args.trace_dir)
         bs_by_phase["harness"] = report["harness"]["bs_search_launches"]
+        add_dense("harness", report["harness"])
+        dense_work["harness"] = 1  # its stage probe runs the pruned scan
         keep.clear()
         torch.cuda.empty_cache()
         print(json.dumps({"harness": harness_summary(report["harness"])}),
@@ -1653,6 +1836,10 @@ def main() -> int:
             r["launches"]["bs_search"] for k, r in report.items()
             if k.startswith("mesh_") and isinstance(r, dict)
             and "launches" in r)
+        for k, r in report.items():
+            if (k.startswith("mesh_") and isinstance(r, dict)
+                    and "launches" in r):
+                add_dense("mesh", r)
         torch.cuda.empty_cache()
     if "tools" in phases:
         tools = tools_phase(report, packed)
@@ -1675,8 +1862,10 @@ def main() -> int:
             headline_phase(report, args.bench_docs, args.bench_queries)
             bs_by_phase["headline"] = report["headline"]["launches"][
                 "bs_search"]
+            add_dense("headline", report["headline"])
         if "serve" in phases:
             serve_phase(report, corpus)
+            add_dense("serve", report["serve"])
         del corpus
 
     # the new modules too: bench.headline, the factory, the server
@@ -1691,6 +1880,22 @@ def main() -> int:
     kerns["bs_search"]["launches"] = sum(bs_by_phase.values())
     idle = [p for p in ("resident", "dense", "staged", "mesh", "headline")
             if p in phases and not bs_by_phase.get(p)]
+    report["dense_launches"] = dense_by_phase
+    report["dense_route_work"] = dense_work
+    for name, _ in DENSE_KERNELS:
+        kerns[name]["launches"] = sum(c[name]
+                                      for c in dense_by_phase.values())
+    # dense_scan must launch on the dense, tc and mesh phases (each runs
+    # the rescue or the mesh's dense step) and on every other phase
+    # whose route counters show dense, pruned or rescued queries;
+    # dense_pick on the dense and tc phases
+    dense_idle = sorted(
+        p for p, c in dense_by_phase.items()
+        if not c["dense_scan"] and (p in ("dense", "tc", "mesh")
+                                    or dense_work.get(p)))
+    pick_idle = sorted(p for p in ("dense", "tc")
+                       if p in dense_by_phase
+                       and not dense_by_phase[p]["dense_pick"])
     report["total_s"] = time.perf_counter() - t_start
     log(json.dumps(report))
     if args.report:
@@ -1706,6 +1911,11 @@ def main() -> int:
     if idle:
         raise AssertionError(f"bs_search never launched on the {idle} "
                              f"phases ({bs_by_phase})")
+    if dense_idle or pick_idle:
+        raise AssertionError(
+            f"dense_scan never launched on the {dense_idle} phases, "
+            f"dense_pick on {pick_idle} ({dense_by_phase}; route work "
+            f"{dense_work})")
     print(json.dumps({"kernels": list(kerns.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -229,7 +229,7 @@ def run(n_docs: int = N_DOCS, vocab: int = VOCAB, mean_len: int = MEAN_LEN,
     }
     print(json.dumps(line), flush=True)
     return {"line": line, "packed": packed, "queries": queries,
-            "results": results,
+            "results": results, "stats": engine.stats_take(),
             "passes": [dict(qps=d / w, wall_s=w, **split)
                        for d, w, _, _, split in passes]}
 

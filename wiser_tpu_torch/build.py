@@ -4,10 +4,13 @@ Each CUDA library is one `nvcc` call over one `csrc/*.cu` file with a
 plain C interface, loaded with ctypes (no PyTorch headers, so a build
 takes seconds), with NVCC_FLAGS and the library's own EXTRA_NVCC_FLAGS;
 the host codec library (native/wiser_native.cpp) is one `g++` call.
-One lock guards every build, so a library is built once however many
-threads ask for it. Output goes to `.kernel_build/` at the repository
-root (listed in .gitignore) under a name that hashes the source and the
-flags, so a changed source is never served by a stale library.
+Each library has its own lock, so it is built once however many threads
+ask for it, and different libraries build at the same time
+(`load_libraries` starts one nvcc each). Output goes to `.kernel_build/`
+at the repository root (listed in .gitignore) under a name that hashes
+the source, every header of its directory (`*.cuh`, which the sources
+include) and the flags, so a changed source or header is never served by
+a stale library.
 
 The CUDA build needs `nvcc` (found through PyTorch's CUDA_HOME); there
 is no fallback, since a CUDA tensor must run its kernel or fail.
@@ -28,12 +31,13 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".kernel_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# search.cu's f32 scores must equal the plain version's bit for bit: no
-# multiply-add contracted into an FMA
-EXTRA_NVCC_FLAGS = {"search": ("-fmad=false",)}
+# search.cu's and dense.cu's f32 scores and bounds must equal the plain
+# versions' bit for bit: no multiply-add contracted into an FMA
+EXTRA_NVCC_FLAGS = {"search": ("-fmad=false",), "dense": ("-fmad=false",)}
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
-_lock = threading.Lock()  # guards the builds and _libs
+_lock = threading.Lock()  # guards _locks
+_locks: Dict[str, threading.Lock] = {}  # a library's build and load
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent building, compiler output); 0 s when cached
 build_log: Dict[str, Tuple[float, str]] = {}
@@ -57,6 +61,46 @@ def load_library(name: str) -> ctypes.CDLL:
                  lambda s, out: [_nvcc(), *flags, "-o", out, s])
 
 
+def load_libraries(names) -> Dict[str, ctypes.CDLL]:
+    """load_library for each name, the builds running at the same time
+    (one thread, and so one nvcc, a library). Raises the first build
+    error."""
+    names = list(names)
+    out: Dict[str, ctypes.CDLL] = {}
+    errors = []
+
+    def one(name):
+        try:
+            out[name] = load_library(name)
+        except Exception as e:  # re-raised below, in this thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def source_digest(src: str, flags) -> str:
+    """The hash a library's file name carries: the source, every `*.cuh`
+    header beside it (sorted by name) and the flags."""
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    d = os.path.dirname(src)
+    if src.endswith(".cu"):
+        for name in sorted(os.listdir(d)):
+            if name.endswith(".cuh"):
+                with open(os.path.join(d, name), "rb") as f:
+                    h.update(name.encode() + b"\0" + f.read())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def load_host_library(name: str, src: str) -> ctypes.CDLL:
     """Compile the C++ source `src` with g++ if needed and return the
     loaded library."""
@@ -66,12 +110,13 @@ def load_host_library(name: str, src: str) -> ctypes.CDLL:
 
 def _load(name: str, src: str, flags, command) -> ctypes.CDLL:
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(flags).encode())
-        out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+        out = os.path.join(BUILD_DIR,
+                           f"lib{name}_{source_digest(src, flags)}.so")
         if os.path.exists(out):
             build_log[name] = (0.0, "cached")
         else:

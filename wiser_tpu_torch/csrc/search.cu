@@ -103,13 +103,18 @@
 // bit. Searches compute mid as lo + ((hi - lo) >> 1) in 64 bits; offsets
 // into the columns, the plane, the scratch and the outputs are 64-bit.
 // Gathers clamp their index into the column as the plain version's
-// _gather1d does.
+// _gather1d does. The keys, the tc decode and the top-K sort and merge
+// live in keys.cuh, shared with dense.cu.
 
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "keys.cuh"
+
 namespace wiser_search {
+
+using namespace wiser_keys;
 
 constexpr int kThreads = 256;    // every launch's CTA
 constexpr int kKeyCap = 1024;    // the tile path's largest K = min(M+1, L)
@@ -119,14 +124,6 @@ constexpr int kMiscBytes = 512;  // a worker's scalars (struct Misc)
 // registers are capped at 65,536 / (256 * 4) = 64 a thread (no spills up
 // to 4 lanes a thread; 3 and 2 CTAs ran 15-35% slower, 5 and 6 spilled)
 constexpr int kMinBlocks = 4;
-constexpr int kFlagTrunc = 1;
-constexpr int kFlagTfSat = 4;
-constexpr int kTfSat = 255;
-// BM25 constants of the tc decode, as f32 values
-constexpr float kK1 = 1.2f;
-constexpr float kK1Plus1 = 2.2f;
-constexpr float kB = 0.75f;
-constexpr float kOneMinusB = 0.25f;
 
 struct Args {
   const int32_t* doc;
@@ -222,22 +219,6 @@ __device__ __forceinline__ int tc_lane(const Args& a, long long i) {
   return a.tc[clampll(i, 0, a.n_tc - 1)];
 }
 
-// kernels.tc_score in its operation order
-__device__ __forceinline__ float tc_score(int lane, float idf, float avg) {
-  const int tf_i = lane & 0xFF;
-  const float tf = __int2float_rn(tf_i);
-  const int code = (lane >> 8) & 0xFF;
-  const int bits = code & 7;
-  const int shift = min((code >> 3) - 1, 27);
-  const int length = shift < 0 ? bits : (bits | 8) << max(shift, 0);
-  const float cache = __fmul_rn(
-      kK1, __fadd_rn(kOneMinusB,
-                     __fdiv_rn(__fmul_rn(kB, __int2float_rn(length)), avg)));
-  float norm = __fdiv_rn(__fmul_rn(tf, kK1Plus1), __fadd_rn(tf, cache));
-  if (tf_i >= kTfSat) norm = kK1Plus1;
-  return __fmul_rn(idf, norm);
-}
-
 // the first position in [lo, hi) whose doc is >= target, after at most
 // n_iters halvings (the fixed-count loop's `found`, and its lo wherever
 // found holds)
@@ -261,45 +242,6 @@ __device__ __forceinline__ bool found_at(const Args& a, long long lo,
 
 // ---------------------------------------------------------------------------
 // The tile path.
-
-// (score desc, lane asc) as one unsigned order: the score's bits mapped so
-// that larger floats compare larger (-0 read as +0, which compares equal to
-// it), above the inverted lane, above a bit that says the score was -0.
-// Key 0 is below every key (the padding).
-__device__ __forceinline__ unsigned long long tile_key(float s, int lane) {
-  const unsigned bits = __float_as_uint(s);
-  const unsigned nz = bits == 0x80000000u;
-  unsigned u = nz ? 0u : bits;
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((unsigned long long)u << 32) |
-         ((unsigned)(0x7fffffff - lane) << 1) | nz;
-}
-
-__device__ __forceinline__ int tile_key_lane(unsigned long long key) {
-  return 0x7fffffff - (int)(((unsigned)key) >> 1);
-}
-
-__device__ __forceinline__ float tile_key_score(unsigned long long key) {
-  const unsigned u = (unsigned)(key >> 32);
-  unsigned bits = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
-  if (key & 1) bits = 0x80000000u;
-  return __uint_as_float(bits);
-}
-
-template <int G>
-__device__ __forceinline__ void wsync() {
-  if (G == 32) {
-    __syncwarp();
-  } else {
-    __syncthreads();
-  }
-}
-
-template <int G>
-__device__ __forceinline__ int wany(bool p) {
-  if (G == 32) return __any_sync(0xffffffffu, p);
-  return __syncthreads_or(p);
-}
 
 // The live lanes' min, max and count over the worker: stats_put reduces
 // them over the warp and, in a CTA worker, leaves each warp's partials in
@@ -388,82 +330,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// Descending bitonic sort of keys[0, P), P a power of 2, by G threads.
-template <int G>
-__device__ void bitonic_sort(unsigned long long* keys, int P, int tid) {
-  for (int k = 2; k <= P; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = tid; p < (P >> 1); p += G) {
-        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const int l = i + j;
-        const unsigned long long x = keys[i], y = keys[l];
-        if ((i & k) == 0 ? x < y : x > y) {
-          keys[i] = y;
-          keys[l] = x;
-        }
-      }
-      wsync<G>();
-    }
-  }
-}
-
-// Descending order of the unique keys[0, c), in place: by rank where a
-// thread can hold each key (its place is the number of keys above it),
-// else a bitonic sort of the padded power of 2 (keys holds it).
-template <int G>
-__device__ void sort_keys(unsigned long long* keys, int c, int tid) {
-  if (c <= G) {
-    const unsigned long long k = tid < c ? keys[tid] : 0ull;
-    int r = 0;
-    if (tid < c)
-      for (int j = 0; j < c; ++j) r += keys[j] > k;
-    wsync<G>();
-    if (tid < c) keys[r] = k;
-    wsync<G>();
-    return;
-  }
-  int P = 1;
-  while (P < c) P <<= 1;
-  for (int i = c + tid; i < P; i += G) keys[i] = 0ull;
-  wsync<G>();
-  bitonic_sort<G>(keys, P, tid);
-}
-
-// Merge the n_in keys of the descending list Q (nonzero; sources Qsrc,
-// or src_base + index where Qsrc is null) with the descending running
-// list R of KP (key, source) pairs, the top KP of both into R2: a key's
-// place is its index plus the number of keys of the other list above it
-// (keys are unique, R's padding 0s lie below every key of Q).
-template <int G>
-__device__ void merge_ranks(const unsigned long long* R, const uint32_t* Rsrc,
-                            unsigned long long* R2, uint32_t* R2src, int KP,
-                            const unsigned long long* Q, const uint32_t* Qsrc,
-                            int n_in, uint32_t src_base, int tid) {
-  const int top = n_in > 0 ? 1 << (31 - __clz(n_in)) : 0;
-  for (int i = tid; i < KP; i += G) {
-    const unsigned long long r = R[i];
-    int p = 0;
-    for (int step = top; step > 0; step >>= 1)
-      if (p + step <= n_in && Q[p + step - 1] > r) p += step;
-    if (i + p < KP) {
-      R2[i + p] = r;
-      R2src[i + p] = Rsrc[i];
-    }
-  }
-  for (int j = tid; j < n_in; j += G) {
-    const unsigned long long q = Q[j];
-    int p = 0;
-    for (int step = KP >> 1; step > 0; step >>= 1)
-      if (R[p + step - 1] > q) p += step;
-    p += R[p] > q;
-    if (j + p < KP) {
-      R2[j + p] = q;
-      R2src[j + p] = Qsrc ? Qsrc[j] : src_base + j;
-    }
-  }
-  wsync<G>();
 }
 
 // The outputs of query b from its sorted keys (navail of them readable,
@@ -925,17 +791,13 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(Args a) {
     R[i] = i < K ? a.part_keys[o + i] : 0ull;
     Rsrc[i] = i < K ? a.part_src[o + i] : 0u;
   }
-  const int top = 1 << (31 - __clz(K));
   for (int s = 1; s < a.nseg; ++s) {
     for (int i = tid; i < K; i += kThreads) {
       Q[i] = a.part_keys[o + (long long)s * K + i];
       Qsrc[i] = a.part_src[o + (long long)s * K + i];
     }
     __syncthreads();
-    // the list's keys (its 0s pad it)
-    int n_in = 0;
-    for (int step = top; step > 0; step >>= 1)
-      if (n_in + step <= K && Q[n_in + step - 1] != 0ull) n_in += step;
+    const int n_in = list_length(Q, K);  // its 0s pad it
     merge_ranks<kThreads>(R, Rsrc, R2, R2src, KP, Q, Qsrc, n_in, 0u, tid);
     unsigned long long* rk = R;
     R = R2;

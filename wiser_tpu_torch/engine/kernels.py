@@ -19,6 +19,12 @@ space (make_dense_search_kernel) or, past PRUNED_DENSE_MIN_NB doc
 blocks, only the C blocks with the highest joint upper bounds
 (make_pruned_dense_kernel) under a provable guard; tail x head queries
 probe the dense rows at their candidate docs (make_semidense_kernel).
+On CUDA tensors the scans (dense_scan_body{,_tc}, pruned_scan_body) and
+the block pick (_select_ub_blocks) run as hand-written kernels
+(ops/dense.py, csrc/dense.cu: a block-list scan that keeps each query's
+top K in shared memory, and a one-CTA-a-query pick), or raise; CPU
+tensors take the plain versions (the *_torch functions) after the same
+argument checks.
 
 Phrases (raw columns): the list chain (make_match_kernel with the
 bi-bloom gate, make_phrase_verify_kernel, make_select_topk_kernel); the
@@ -80,6 +86,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from wiser_tpu_torch.ops import dense as _dense_op
 from wiser_tpu_torch.ops import search as _search_op
 
 NEG_INF = float("-inf")
@@ -531,12 +538,27 @@ def make_windowed_search_kernel(T: int, L: int, G: int, M: int,
 
 def dense_scan_body(dense_sc, dense_tf, slots, use_score, *, T: int,
                     N_pad: int, M: int):
-    """The raw doc-space dense scan: sum the T row-gathered (B, N_pad) f32
-    score rows in slot order from zeros, match where every row is
-    nonzero, take the exact top-M lanes (lane = doc id within the plane)
-    and gather the per-slot tfs from the dense tf rows; the count-based
-    FLAG_TRUNC runs over the full plane. Returns (top_docs (B, M) int32
-    lanes or -1, top_score (B, M) f32, tfs (B, T, M) int32, flags (B,))."""
+    """The raw doc-space dense scan (dense_scan_body_torch's outputs):
+    on CUDA tensors the block-list kernel over every block
+    (ops/dense.dense_scan), or it raises; on CPU tensors the plain
+    version. Both check their arguments first (ValueError)."""
+    args = (dense_sc, dense_tf, slots, use_score)
+    kw = dict(T=T, N_pad=N_pad, M=M)
+    if isinstance(dense_sc, torch.Tensor) and dense_sc.is_cuda:
+        return _dense_op.dense_scan(*args, **kw)
+    _dense_op.check_inputs(*args, **kw)
+    return dense_scan_body_torch(*args, **kw)
+
+
+def dense_scan_body_torch(dense_sc, dense_tf, slots, use_score, *, T: int,
+                          N_pad: int, M: int):
+    """The raw doc-space dense scan's plain version: sum the T
+    row-gathered (B, N_pad) f32 score rows in slot order from zeros,
+    match where every row is nonzero, take the exact top-M lanes (lane =
+    doc id within the plane) and gather the per-slot tfs from the dense
+    tf rows; the count-based FLAG_TRUNC runs over the full plane.
+    Returns (top_docs (B, M) int32 lanes or -1, top_score (B, M) f32,
+    tfs (B, T, M) int32, flags (B,))."""
     B = slots.shape[0]
     rows = slots.to(torch.int64)
     score = torch.zeros((B, N_pad), dtype=torch.float32,
@@ -584,7 +606,20 @@ def _dense_tc_lanes(dense_tf, code_hi, slots_t, docs):
 
 def dense_scan_body_tc(dense_tf, len_code, avg32, slots, idf32, *, T: int,
                        N_pad: int, M: int):
-    """dense_scan_body over the (H, N_pad) uint8 tf plane and the shared
+    """dense_scan_body over tc columns (dense_scan_body_tc_torch's
+    outputs): on CUDA tensors the block-list kernel, or it raises; on CPU
+    tensors the plain version, after the same checks."""
+    kw = dict(T=T, N_pad=N_pad, M=M, len_code=len_code, avg32=avg32)
+    if isinstance(dense_tf, torch.Tensor) and dense_tf.is_cuda:
+        return _dense_op.dense_scan(dense_tf, None, slots, idf32, **kw)
+    _dense_op.check_inputs(dense_tf, None, slots, idf32, **kw)
+    return dense_scan_body_tc_torch(dense_tf, len_code, avg32, slots, idf32,
+                                    T=T, N_pad=N_pad, M=M)
+
+
+def dense_scan_body_tc_torch(dense_tf, len_code, avg32, slots, idf32, *,
+                             T: int, N_pad: int, M: int):
+    """dense_scan_body_torch over the (H, N_pad) uint8 tf plane and the shared
     (N_pad,) uint8 len-code row: each slot's composed lane (code << 8 |
     tf, 0 where absent) scores by tc_score, summed in slot order from
     zeros (padded slots idf 0); tfs and saturation (FLAG_TF_SAT) from the
@@ -756,7 +791,20 @@ def _semidense_step(postings_doc, col, dense, starts, ends, weights, slots,
 
 def _select_ub_blocks(blockmax, slots, weights, *, T: int, NB: int, C: int,
                       blockmax2=None, argpos=None):
-    """Per-query 128-doc-block upper bounds and the top-C block pick.
+    """Per-query 128-doc-block upper bounds and the top-C block pick
+    (_select_ub_blocks_torch's outputs): on CUDA tensors the pick kernel
+    (ops/dense.dense_pick), or it raises; on CPU tensors the plain
+    version, after the same checks (ValueError)."""
+    kw = dict(T=T, NB=NB, C=C, blockmax2=blockmax2, argpos=argpos)
+    if isinstance(blockmax, torch.Tensor) and blockmax.is_cuda:
+        return _dense_op.dense_pick(blockmax, slots, weights, **kw)
+    _dense_op.check_pick_inputs(blockmax, slots, weights, **kw)
+    return _select_ub_blocks_torch(blockmax, slots, weights, **kw)
+
+
+def _select_ub_blocks_torch(blockmax, slots, weights, *, T: int, NB: int,
+                            C: int, blockmax2=None, argpos=None):
+    """_select_ub_blocks's plain version.
 
     A match needs every live term (weight > 0) present, and a term is
     present in a block iff its blockmax there is > 0, so a block missing
@@ -864,10 +912,39 @@ def _pack_pruned(parts, ks, M: int, eps3: float):
 def pruned_scan_body(dense, dense_tf, len_code, avg32, blockmax, blockmax2,
                      argpos, slots, weights, *, T: int, NB: int, C: int,
                      M: int):
-    """The block-max pruned scan of both column modes: the C highest-bound
-    blocks per query, their lanes scored in slot order from zeros (the
-    same order as the bound, one addend per slot, so every lane's f32
-    score <= its block's bound), exact top-M, tfs and FLAG_TRUNC.
+    """The block-max pruned scan (pruned_scan_body_torch's outputs): on
+    CUDA tensors the pick kernel, then the block-list scan kernel over
+    the C picked blocks (ops/dense), or it raises; on CPU tensors the
+    plain version, after the same checks (ValueError)."""
+    tc_mode = avg32 is not None
+    if not tc_mode:
+        len_code = None  # raw planes carry no len-code row
+    args = (dense, dense_tf, len_code, avg32, blockmax, blockmax2, argpos,
+            slots, weights)
+    kw = dict(T=T, NB=NB, C=C, M=M)
+    if isinstance(dense, torch.Tensor) and dense.is_cuda:
+        if not _dense_op.pruned_args_ok(*args, **kw):
+            _dense_op.check_pruned_inputs(*args, **kw)
+        blk, next_ub = _select_ub_blocks(
+            blockmax, slots, (weights > 0).to(torch.float32) if tc_mode
+            else weights, T=T, NB=NB, C=C, blockmax2=blockmax2,
+            argpos=argpos)
+        top_docs, top_score, tfs, flags = _dense_op.dense_scan(
+            dense, dense_tf, slots, weights, T=T, N_pad=NB * 128, M=M,
+            blocks=blk, len_code=len_code, avg32=avg32)
+        return top_docs, top_score, tfs, flags, next_ub
+    _dense_op.check_pruned_inputs(*args, **kw)
+    return pruned_scan_body_torch(*args, **kw)
+
+
+def pruned_scan_body_torch(dense, dense_tf, len_code, avg32, blockmax,
+                           blockmax2, argpos, slots, weights, *, T: int,
+                           NB: int, C: int, M: int):
+    """The block-max pruned scan's plain version, both column modes:
+    the C highest-bound blocks per query, their lanes scored in slot
+    order from zeros (the same order as the bound, one addend per slot,
+    so every lane's f32 score <= its block's bound), exact top-M, tfs and
+    FLAG_TRUNC.
 
     raw (avg32 None): dense is the f32 score plane, dense_tf the tf
     plane, weights use_score. tc: dense is the uint8 tf plane composed per
@@ -889,7 +966,7 @@ def pruned_scan_body(dense, dense_tf, len_code, avg32, blockmax, blockmax2,
         bound_w = (weights > 0).to(torch.float32)
     else:
         bound_w = weights
-    blk, next_ub = _select_ub_blocks(
+    blk, next_ub = _select_ub_blocks_torch(
         blockmax, slots, bound_w, T=T, NB=NB, C=C,
         blockmax2=blockmax2, argpos=argpos)
     plane_rows = dense.view(dense.shape[0] * NB, 128)

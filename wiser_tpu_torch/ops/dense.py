@@ -1,0 +1,442 @@
+"""The dense head-term tier as hand-written CUDA kernels (csrc/dense.cu).
+
+`dense_scan` computes the block-list scan: engine/kernels.dense_scan_body
+and dense_scan_body_tc over every 128-doc block of the dense plane, or the
+scan half of pruned_scan_body over a (B, C) list of picked blocks, raw or
+tc (top_docs, top_score, tfs, flags). `dense_pick` computes
+_select_ub_blocks: every block's joint upper bound, plain sum or anchor
+form, and the stable top-(C+1) pick (blk (B, C) int64 ascending, next_ub
+(B,) f32). `plan` and `pick_plan` say how each runs: a scan CTA takes a
+(query, segment of blocks) pair and keeps its top K = M + 1 keys in
+shared memory, so no (B, N_pad) or (B, C * 128) plane is allocated; a
+group narrower than TARGET_CTAS splits each query's blocks into
+segments, and a second launch merges their lists (counted as
+dense_scan_merge). The pick is one CTA a query.
+
+engine/kernels.py calls these for CUDA tensors and runs the plain torch
+versions (dense_scan_body_torch, dense_scan_body_tc_torch,
+pruned_scan_body_torch, _select_ub_blocks_torch) for CPU tensors, after
+`check_inputs` / `check_pick_inputs`. The entries here check the same
+conditions with the cheap `args_ok` / `pick_args_ok` before every launch,
+so a bad argument raises ValueError the same way on either device.
+
+Where the plain version is exact the kernels equal it bit for bit: the
+flags on every row; the kept lanes' docs, f32 scores and tfs, and the
+kept set, wherever no boundary tie was cut (FLAG_TRUNC clear); blk and
+next_ub always. The kernel's order is (score desc, doc asc), lax.top_k's;
+on a flagged row it keeps the lowest docs of the boundary class, which
+torch.topk on a card does not promise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+
+# kernel launches by wrapper name, counted where a kernel is launched
+launch_counts = {"dense_scan": 0, "dense_scan_merge": 0, "dense_pick": 0}
+# the running top-K lists in shared memory up to this KP, past it in a
+# device scratch (dense.cu kKeySmemCap)
+KEY_SMEM_CAP = 4096
+THREADS = 256  # a scan or merge CTA
+MISC_BYTES = 16  # the scan's step counters
+# a group narrower than this many CTAs splits each query's blocks into
+# segments, merged by a second launch
+TARGET_CTAS = 512
+MAX_SMEM = 232_448  # the shared bytes an H100 block can opt into
+UB_SMEM_BYTES = 200 * 1024  # the pick's bounds in shared memory up to this
+MAX_B = 65535  # the scan's grid.y
+
+
+class Plan(NamedTuple):
+    """How dense_scan runs one (B, T, NB, M, mode) group."""
+    LPT: int  # lanes a thread loads a step (one 16-byte load a slot)
+    step_blocks: int  # 128-lane blocks a CTA covers a step
+    nseg: int  # CTAs a query (> 1: the merge launch runs)
+    bps: int  # blocks a segment
+    K: int  # keys kept a query: M + 1
+    KP: int  # the power of 2 >= K
+    smem: int  # dynamic shared bytes of the scan launch
+    merge_smem: int  # of the merge launch (0 without it)
+    launches: int  # CUDA launches a call
+    part_words: int  # int32 words of the segments' keys
+    r_words: int  # int32 words of the running lists' scratch (KP > cap)
+    out_words: int  # int32 words of the outputs
+
+
+class PickPlan(NamedTuple):
+    """How dense_pick runs one (B, T, NB, C) group."""
+    ub_smem: bool  # the NB bounds in shared memory (else a scratch)
+    smem: int  # dynamic shared bytes
+    scratch_words: int  # f32 words of the bounds' scratch
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def scan_bytes(T: int, KP: int, mode: str) -> int:
+    """dense.cu's scan_bytes: the counters | T row offsets | T weights |
+    R and R2 (KP keys each, up to KEY_SMEM_CAP) | X (two steps of
+    keys)."""
+    LPT = 16 if mode == "tc" else 4
+    return (MISC_BYTES + _align16(8 * T) + _align16(4 * T)
+            + (16 * KP if KP <= KEY_SMEM_CAP else 0) + 16 * THREADS * LPT)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(B: int, T: int, NB: int, M: int, mode: str) -> Plan:
+    """The launch plan of a scan group (arguments already checked): NB is
+    the lane set's blocks (N_pad / 128 for the full scan, C for a block
+    list). Segments of whole steps, as many as fill TARGET_CTAS."""
+    LPT = 16 if mode == "tc" else 4
+    step_blocks = THREADS * LPT // 128
+    K = M + 1
+    KP = _pow2(K)
+    steps = -(-NB // step_blocks)
+    nseg = max(1, min(steps, -(-TARGET_CTAS // max(B, 1))))
+    bps = -(-steps // nseg) * step_blocks
+    nseg = -(-NB // bps)
+    smem = scan_bytes(T, KP, mode)
+    in_smem = KP <= KEY_SMEM_CAP
+    merge_smem = 24 * KP if nseg > 1 and in_smem else 0
+    part_words = 2 * B * nseg * K if nseg > 1 else 0
+    r_words = 0 if in_smem else 4 * B * nseg * KP
+    return Plan(LPT, step_blocks, nseg, bps, K, KP, smem, merge_smem,
+                1 + (nseg > 1), part_words, r_words,
+                B * (2 * M + T * M + 1))
+
+
+@functools.lru_cache(maxsize=4096)
+def pick_plan(B: int, T: int, NB: int, C: int) -> PickPlan:
+    """The pick's plan: the bounds in shared memory up to UB_SMEM_BYTES,
+    else in a (B, NB) f32 scratch."""
+    ub_smem = 4 * NB <= UB_SMEM_BYTES
+    smem = _align16(8 * T) + _align16(4 * T) + (4 * NB if ub_smem else 0)
+    return PickPlan(ub_smem, smem, 0 if ub_smem else B * NB)
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+_T = torch.Tensor
+
+
+def _ok(t, dtype, shape, dev, aligned: bool = False) -> bool:
+    """A contiguous tensor of dtype and shape on dev (and 16-byte aligned,
+    for the rows the scan reads 16 bytes at a time)."""
+    return (isinstance(t, _T) and t.dtype is dtype
+            and tuple(t.shape) == shape and t.is_contiguous()
+            and t.device == dev and (not aligned or t.data_ptr() % 16 == 0))
+
+
+def _need(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _tensor(name, t, dtype, shape, dev, aligned: bool = False) -> None:
+    what = "contiguous, 16-byte aligned" if aligned else "contiguous"
+    _need(_ok(t, dtype, shape, dev, aligned),
+          f"{name} must be a {what} {dtype} tensor of shape {shape} on {dev}")
+
+
+def _scan_shapes(plane, slots, blocks, T: int, N_pad: int, M: int):
+    """(dev, H, B, lanes) of a scan call, or None where the leading
+    arguments cannot say."""
+    if (not isinstance(plane, _T) or plane.dim() != 2
+            or not isinstance(slots, _T) or slots.dim() != 2):
+        return None
+    lanes = N_pad if blocks is None else (
+        blocks.shape[1] * 128 if isinstance(blocks, _T)
+        and blocks.dim() == 2 else -1)
+    return plane.device, plane.shape[0], slots.shape[0], lanes
+
+
+def check_inputs(plane, tf_plane, slots, weights, *, T: int, N_pad: int,
+                 M: int, blocks=None, len_code=None, avg32=None) -> None:
+    """Raise ValueError unless the arguments are what the scan takes: the
+    (H, N_pad) plane (raw f32 scores with the int32 tf plane, or tc uint8
+    tfs with the (N_pad,) uint8 len-code row and a one-element f32 avg32),
+    N_pad a positive multiple of 128; (B, T) int32 slots and f32 weights;
+    blocks None (every block) or (B, C) int64 with 1 <= C <= N_pad / 128;
+    1 <= M <= the lane set (N_pad or C * 128); every
+    tensor contiguous and on the plane's device (cpu or cuda), the plane
+    and len_code 16-byte aligned."""
+    sh = _scan_shapes(plane, slots, blocks, T, N_pad, M)
+    _need(sh is not None, "plane and slots must be 2-D tensors")
+    dev, H, B, lanes = sh
+    _need(dev.type in ("cpu", "cuda"), f"unsupported device {dev}")
+    _need(T >= 1 and H >= 1 and N_pad >= 128 and N_pad % 128 == 0,
+          f"need T >= 1, H >= 1 and N_pad a positive multiple of 128, got "
+          f"T={T} H={H} N_pad={N_pad}")
+    tc = len_code is not None
+    _tensor("plane", plane, torch.uint8 if tc else torch.float32,
+            (H, N_pad), dev, True)
+    if tc:
+        _tensor("len_code", len_code, torch.uint8, (N_pad,), dev, True)
+        _need(isinstance(avg32, _T) and avg32.dtype is torch.float32
+              and avg32.numel() == 1 and avg32.device == dev,
+              f"avg32 must be a one-element float32 tensor on {dev}")
+    else:
+        _tensor("tf_plane", tf_plane, torch.int32, (H, N_pad), dev)
+    _tensor("slots", slots, torch.int32, (B, T), dev)
+    _tensor("weights", weights, torch.float32, (B, T), dev)
+    if blocks is not None:
+        _need(isinstance(blocks, _T) and blocks.dim() == 2,
+              "blocks must be a (B, C) tensor")
+        C = blocks.shape[1]
+        _tensor("blocks", blocks, torch.int64, (B, C), dev)
+        _need(1 <= C <= N_pad // 128,
+              f"need 1 <= C <= N_pad / 128, got C={C}")
+    _need(1 <= M <= lanes, f"need 1 <= M <= {lanes} lanes, got M={M}")
+
+
+def args_ok(plane, tf_plane, slots, weights, *, T: int, N_pad: int, M: int,
+            blocks=None, len_code=None, avg32=None) -> bool:
+    """check_inputs's conditions as one cheap test: True exactly where
+    check_inputs raises nothing."""
+    sh = _scan_shapes(plane, slots, blocks, T, N_pad, M)
+    if sh is None:
+        return False
+    dev, H, B, lanes = sh
+    if not (dev.type in ("cpu", "cuda") and T >= 1 and H >= 1
+            and N_pad >= 128 and N_pad % 128 == 0 and 1 <= M <= lanes
+            and _ok(slots, torch.int32, (B, T), dev)
+            and _ok(weights, torch.float32, (B, T), dev)):
+        return False
+    if blocks is not None and not (
+            _ok(blocks, torch.int64, (B, blocks.shape[1]), dev)
+            and blocks.shape[1] <= N_pad // 128):
+        return False
+    if len_code is not None:
+        return (_ok(plane, torch.uint8, (H, N_pad), dev, True)
+                and _ok(len_code, torch.uint8, (N_pad,), dev, True)
+                and isinstance(avg32, _T) and avg32.dtype is torch.float32
+                and avg32.numel() == 1 and avg32.device == dev)
+    return (_ok(plane, torch.float32, (H, N_pad), dev, True)
+            and _ok(tf_plane, torch.int32, (H, N_pad), dev))
+
+
+def check_pick_inputs(blockmax, slots, weights, *, T: int, NB: int, C: int,
+                      blockmax2=None, argpos=None) -> None:
+    """Raise ValueError unless the arguments are what the pick takes: the
+    (H, NB) f32 blockmax (with blockmax2 f32 and argpos uint8 of the same
+    shape, both or neither), (B, T) int32 slots and f32 weights, T >= 1
+    and 1 <= C < NB; every tensor contiguous and on blockmax's device (cpu
+    or cuda)."""
+    _need(isinstance(blockmax, _T) and blockmax.dim() == 2
+          and isinstance(slots, _T) and slots.dim() == 2,
+          "blockmax and slots must be 2-D tensors")
+    dev, H, B = blockmax.device, blockmax.shape[0], slots.shape[0]
+    _need(dev.type in ("cpu", "cuda"), f"unsupported device {dev}")
+    _need(T >= 1 and H >= 1 and 1 <= C < NB,
+          f"need T >= 1, H >= 1 and 1 <= C < NB, got T={T} H={H} C={C} "
+          f"NB={NB}")
+    _tensor("blockmax", blockmax, torch.float32, (H, NB), dev)
+    _need((blockmax2 is None) == (argpos is None),
+          "blockmax2 and argpos go together")
+    if blockmax2 is not None:
+        _tensor("blockmax2", blockmax2, torch.float32, (H, NB), dev)
+        _tensor("argpos", argpos, torch.uint8, (H, NB), dev)
+    _tensor("slots", slots, torch.int32, (B, T), dev)
+    _tensor("weights", weights, torch.float32, (B, T), dev)
+
+
+def pick_args_ok(blockmax, slots, weights, *, T: int, NB: int, C: int,
+                 blockmax2=None, argpos=None) -> bool:
+    """check_pick_inputs's conditions as one cheap test."""
+    if not (isinstance(blockmax, _T) and blockmax.dim() == 2
+            and isinstance(slots, _T) and slots.dim() == 2):
+        return False
+    dev, H, B = blockmax.device, blockmax.shape[0], slots.shape[0]
+    if not (dev.type in ("cpu", "cuda") and T >= 1 and H >= 1
+            and 1 <= C < NB and (blockmax2 is None) == (argpos is None)
+            and _ok(blockmax, torch.float32, (H, NB), dev)
+            and _ok(slots, torch.int32, (B, T), dev)
+            and _ok(weights, torch.float32, (B, T), dev)):
+        return False
+    return blockmax2 is None or (
+        _ok(blockmax2, torch.float32, (H, NB), dev)
+        and _ok(argpos, torch.uint8, (H, NB), dev))
+
+
+def check_pruned_inputs(dense, dense_tf, len_code, avg32, blockmax,
+                        blockmax2, argpos, slots, weights, *, T: int,
+                        NB: int, C: int, M: int) -> None:
+    """pruned_scan_body's conditions: the pick's (check_pick_inputs, with
+    the bound's weights) and the scan's over C picked blocks
+    (check_inputs, M <= C * 128)."""
+    check_pick_inputs(blockmax, slots, weights, T=T, NB=NB, C=C,
+                      blockmax2=blockmax2, argpos=argpos)
+    check_inputs(dense, dense_tf, slots, weights, T=T, N_pad=NB * 128, M=M,
+                 len_code=len_code, avg32=avg32)
+    _need(M <= C * 128, f"need M <= C * 128 lanes, got M={M} C={C}")
+
+
+def pruned_args_ok(dense, dense_tf, len_code, avg32, blockmax, blockmax2,
+                   argpos, slots, weights, *, T: int, NB: int, C: int,
+                   M: int) -> bool:
+    """check_pruned_inputs's conditions as one cheap test."""
+    return (M <= C * 128
+            and pick_args_ok(blockmax, slots, weights, T=T, NB=NB, C=C,
+                             blockmax2=blockmax2, argpos=argpos)
+            and args_ok(dense, dense_tf, slots, weights, T=T, N_pad=NB * 128,
+                        M=M, len_code=len_code, avg32=avg32))
+
+
+class _ScanParams(ctypes.Structure):
+    """dense.cu's WiserDenseScanParams: every field 8 bytes, in order."""
+    _fields_ = [(n, ctypes.c_longlong) for n in (
+        "sc tf tf8 code avg32 slots weights blocks H N_pad B T M nblk K KP "
+        "nseg bps smem merge_smem part_keys rscratch top_docs top_score "
+        "top_tfs flags").split()]
+
+
+class _PickParams(ctypes.Structure):
+    """dense.cu's WiserDensePickParams."""
+    _fields_ = [(n, ctypes.c_longlong) for n in (
+        "bm bm2 ap slots weights H NB B T C smem ub_scratch blk "
+        "next_ub").split()]
+
+
+class _Fns:
+    """The kernel library's C functions, bound once."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self.scan = lib.wiser_dense_scan
+        self.scan.argtypes = [ctypes.POINTER(_ScanParams), ctypes.c_void_p]
+        self.scan.restype = ctypes.c_int
+        self.pick = lib.wiser_dense_pick
+        self.pick.argtypes = [ctypes.POINTER(_PickParams), ctypes.c_void_p]
+        self.pick.restype = ctypes.c_int
+        self.error = lib.wiser_dense_error_string
+        self.error.argtypes = [ctypes.c_int]
+        self.error.restype = ctypes.c_char_p
+
+
+_fns: Optional[_Fns] = None
+
+
+def _kernel_fns() -> _Fns:
+    """Build and bind the kernel library at first use."""
+    global _fns
+    if _fns is None:
+        from wiser_tpu_torch.build import load_library
+
+        _fns = _Fns(load_library("dense"))
+    return _fns
+
+
+def _launch(fn, params, dev: torch.device, what: str) -> None:
+    fns = _kernel_fns()
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx == torch.cuda.current_device():
+        rc = fn(fns)(ctypes.byref(params),
+                     torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            rc = fn(fns)(ctypes.byref(params),
+                         torch._C._cuda_getCurrentRawStream(idx))
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: " + fns.error(rc).decode())
+
+
+def dense_scan(plane, tf_plane, slots, weights, *, T: int, N_pad: int,
+               M: int, blocks=None, len_code=None, avg32=None):
+    """The block-list scan's outputs from the kernel, on CUDA tensors:
+    (top_docs (B, M) int32 lanes of the plane or -1, top_score (B, M) f32,
+    tfs (B, T, M) int32, flags (B,) int32). raw: plane is the f32 score
+    plane, tf_plane the int32 tfs, weights use_score; tc (len_code
+    given): plane is the uint8 tf plane, tf_plane unused, weights idf32.
+    blocks: None (every block) or (B, C) int64 ascending block ids. Checks
+    the arguments as check_inputs does (ValueError before any launch),
+    allocates the outputs (and the segments' keys and, past KEY_SMEM_CAP,
+    the running lists' scratch) as views of one buffer, launches on the
+    current stream and does not synchronize."""
+    kw = dict(T=T, N_pad=N_pad, M=M, blocks=blocks, len_code=len_code,
+              avg32=avg32)
+    if not (args_ok(plane, tf_plane, slots, weights, **kw)
+            and plane.device.type == "cuda"):
+        check_inputs(plane, tf_plane, slots, weights, **kw)
+        raise ValueError(f"dense_scan runs on CUDA tensors, got "
+                         f"{plane.device}")
+    dev = plane.device
+    B = slots.shape[0]
+    if B > MAX_B:
+        raise ValueError(f"B = {B} queries exceed the grid's {MAX_B}")
+    tc = len_code is not None
+    nblk = N_pad // 128 if blocks is None else blocks.shape[1]
+    p = plan(B, T, nblk, M, "tc" if tc else "raw")
+    buf = torch.empty(p.part_words + p.r_words + p.out_words,
+                      dtype=torch.int32, device=dev)
+    BM, BTM = B * M, B * T * M
+    _, _, docs, score, tfs, flags = buf.split(
+        (p.part_words, p.r_words, BM, BM, BTM, B))
+    res = (docs.view(B, M), score.view(torch.float32).view(B, M),
+           tfs.view(B, T, M), flags)
+    if B == 0:
+        return res
+    # the segments' keys, then the running lists' scratch (both 8-byte
+    # aligned), then the outputs
+    base = buf.data_ptr()
+    o = base + 4 * (p.part_words + p.r_words)
+    params = _ScanParams(
+        0 if tc else plane.data_ptr(), 0 if tc else tf_plane.data_ptr(),
+        plane.data_ptr() if tc else 0, len_code.data_ptr() if tc else 0,
+        avg32.data_ptr() if tc else 0, slots.data_ptr(), weights.data_ptr(),
+        0 if blocks is None else blocks.data_ptr(), plane.shape[0], N_pad, B,
+        T, M, nblk, p.K, p.KP, p.nseg, p.bps, p.smem, p.merge_smem,
+        base if p.part_words else 0,
+        base + 4 * p.part_words if p.r_words else 0, o, o + 4 * BM,
+        o + 8 * BM, o + 4 * (2 * BM + BTM))
+    _launch(lambda f: f.scan, params, dev, "dense_scan")
+    launch_counts["dense_scan"] += 1
+    if p.nseg > 1:
+        launch_counts["dense_scan_merge"] += 1
+    return res
+
+
+def dense_pick(blockmax, slots, weights, *, T: int, NB: int, C: int,
+               blockmax2=None, argpos=None):
+    """_select_ub_blocks's outputs from the kernel, on CUDA tensors: (blk
+    (B, C) int64 ascending block ids, next_ub (B,) f32). Checks the
+    arguments as check_pick_inputs does, allocates the outputs (and the
+    bounds' scratch, where they leave shared memory) as views of one
+    buffer, launches on the current stream and does not synchronize."""
+    kw = dict(T=T, NB=NB, C=C, blockmax2=blockmax2, argpos=argpos)
+    if not (pick_args_ok(blockmax, slots, weights, **kw)
+            and blockmax.device.type == "cuda"):
+        check_pick_inputs(blockmax, slots, weights, **kw)
+        raise ValueError(f"dense_pick runs on CUDA tensors, got "
+                         f"{blockmax.device}")
+    dev = blockmax.device
+    B = slots.shape[0]
+    p = pick_plan(B, T, NB, C)
+    # int64 ids first (8-byte aligned), then next_ub, then the scratch
+    nb_pad = (B + 1) // 2 * 2
+    buf = torch.empty(2 * B * C + nb_pad + p.scratch_words,
+                      dtype=torch.int32, device=dev)
+    blk = buf[: 2 * B * C].view(torch.int64).view(B, C)
+    next_ub = buf[2 * B * C: 2 * B * C + B].view(torch.float32)
+    if B == 0:
+        return blk, next_ub
+    base = buf.data_ptr()
+    params = _PickParams(
+        blockmax.data_ptr(), 0 if blockmax2 is None else blockmax2.data_ptr(),
+        0 if argpos is None else argpos.data_ptr(), slots.data_ptr(),
+        weights.data_ptr(), blockmax.shape[0], NB, B, T, C, p.smem,
+        0 if p.ub_smem else base + 4 * (2 * B * C + nb_pad), base,
+        base + 8 * B * C)
+    _launch(lambda f: f.pick, params, dev, "dense_pick")
+    launch_counts["dense_pick"] += 1
+    return blk, next_ub

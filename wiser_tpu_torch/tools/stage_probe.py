@@ -4,9 +4,15 @@ all-head mixes (zipf_t3 / t4, dense_t3, dense_all_head_pair).
 
 The scan (kernels.pruned_scan_body) is three stages:
   S1 block select: the per-block upper bound over (B, NB) and the top
-     C+1 pick (kernels._select_ub_blocks); also the bound alone;
+     C+1 pick (kernels._select_ub_blocks: on a card the dense_pick
+     kernel of ops/dense.py, on the CPU its plain version; `s1_pick`
+     says which); also the bound alone, in plain torch;
   S2 payload: the (B, T, C, 128) gathers of the uint8 tf plane and the
-     shared len-code row, composed to tc lanes and scored (tc_score);
+     shared len-code row, composed to tc lanes and scored (tc_score),
+     in plain torch; beside it the fused block-list scan over the same
+     picked blocks, payload and top-M in one (on a card the dense_scan
+     kernel, on the CPU the plain payload stage and its top-M;
+     `s2_fused` says which);
   S3 the final top-M and the guard flags (the whole kernel),
 plus two top-k isolates (C+1 of NB blocks, M of C*128 lanes), and a
 two-level block select: superblock maxima of SB blocks, top C/SB of
@@ -52,6 +58,7 @@ def probe(eng, packed, B: int = 512, T: int = 3, C: int = 512, M: int = 16,
     tier) at B queries of T all-head terms (Zipf draws over the df-ranked
     dense rows), C blocks, M lanes. Times in ms."""
     from wiser_tpu_torch.engine import kernels as K
+    from wiser_tpu_torch.ops import dense as D
 
     if not eng.tc or not eng._dense_H:
         raise ValueError("stage_probe needs a tc TorchEngine with a dense tier")
@@ -132,6 +139,18 @@ def probe(eng, packed, B: int = 512, T: int = 3, C: int = 512, M: int = 16,
             argpos=ap)
         return payload_score(slots, idf, blk).sum()
 
+    on_card = torch.device(dev).type == "cuda"
+
+    def s2_fused(slots, idf, blk):
+        """The block-list scan over the picked blocks: the fused kernel
+        on a card, the plain payload stage and its top-M on the CPU."""
+        if on_card:
+            return D.dense_scan(
+                eng.d_dense_tf8, None, slots, idf, T=T, N_pad=NB * 128, M=M,
+                blocks=blk, len_code=eng.d_len_code,
+                avg32=eng.d_avg32)[1].sum()
+        return torch.topk(payload_score(slots, idf, blk), M, dim=1)[0].sum()
+
     kern = K.make_pruned_dense_kernel_tc(T, NB, C, M, eps3)
 
     def full_kernel(slots, idf, ks):
@@ -180,11 +199,18 @@ def probe(eng, packed, B: int = 512, T: int = 3, C: int = 512, M: int = 16,
         return 1e3 * time_call(fn, *args, device=dev, reps=reps)
 
     res = {"NB": int(NB), "B": B, "T": T, "C": C, "M": M, "SB": SB,
-           "device": str(dev), "reps": reps}
+           "device": str(dev), "reps": reps,
+           "s1_pick": ("dense_pick kernel" if on_card
+                       else "plain torch (_select_ub_blocks_torch)"),
+           "s2_fused": ("dense_scan kernel" if on_card
+                        else "plain torch (payload stage + top-M)")}
     res["s1_ub_only_ms"] = ms(s1_ub_only, d_slots, d_idf)
     res["s1_select_ms"] = ms(s1_select, d_slots, d_idf)
     res["s1_two_level_ms"] = ms(s1_two_level, d_slots, d_idf)
     res["s2_payload_ms"] = ms(s2_payload, d_slots, d_idf)
+    picked = K._select_ub_blocks(bm, d_slots, weights_of(d_idf), T=T, NB=NB,
+                                 C=C, blockmax2=bm2, argpos=ap)[0]
+    res["s2_fused_scan_ms"] = ms(s2_fused, d_slots, d_idf, picked)
     res["full_ms"] = ms(full_kernel, d_slots, d_idf, d_ks)
     res["full_two_level_ms"] = ms(full_two_level, d_slots, d_idf, d_ks)
     res["topk_blocks_ms"] = ms(topk_blocks, rnd_blocks)
