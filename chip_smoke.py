@@ -140,7 +140,7 @@ search for phrases). Phases:
             postings take <= 0.51 of mesh's bytes, and mesh_staged answers
             some queries hot and stages some cold groups
   tools     the last modules of the port, on one card: tools/
-            wiki_pipeline at 100,000 docs (synthesized enwiki abstract XML
+            wiki_pipeline at 50,000 docs (synthesized enwiki abstract XML
             -> the analyzer of data/corpus -> WITH_BI_BLOOM linedoc -> fast
             builder -> check_posting_list, which must find 0 errors ->
             TorchEngine on the card, 4,096 df-Zipf 1-3-term queries with
@@ -189,11 +189,14 @@ path, for M + 1 past the key cap, counts as bs_search_plane) are
 counted on the timed passes of every engine run, the harness, the mesh
 and the headline; the smoke fails if the resident, dense, staged, mesh
 or headline phase ran and launched the tile path 0 times. So are the
-dense kernels' (dense_scan, its merge launch dense_scan_merge, and
-dense_pick): the smoke fails if dense_scan never launched on the dense,
-tc or mesh phase, or on another phase whose route counters show dense,
-pruned or rescued queries, or if dense_pick never launched on the dense
-or tc phase. The full report is the last line of stderr, one
+dense kernels' (the scan's raw instantiation dense_scan and its tc one
+dense_scan_tc, the tc table dense_tc_table launched before each tc
+scan, the merge launch dense_scan_merge, and dense_pick): the smoke
+fails if neither scan launched on the dense, tc or mesh phase, or on
+another phase whose route counters show dense, pruned or rescued
+queries, if dense_scan never launched on the dense phase or
+dense_scan_tc on the tc phase, or if dense_pick never launched on the
+dense or tc phase. The full report is the last line of stderr, one
 JSON object (also written to the --report path, if given).
 """
 
@@ -501,9 +504,13 @@ def search_kernel_phase(report: dict) -> dict:
                      f"M={row['M']}"}
 
 
-# the dense tier's kernels: (name, the TPU-side step it replaces)
+# the dense tier's kernels: (name, the TPU-side step it replaces);
+# dense_scan counts the raw scan's launches, dense_scan_tc the tc
+# scan's
 DENSE_KERNELS = (
     ("dense_scan", "wiser_tpu/engine/kernels.py:1863"),
+    ("dense_scan_tc", "wiser_tpu/engine/kernels.py:1061"),
+    ("dense_tc_table", "wiser_tpu/engine/kernels.py:77"),
     ("dense_scan_merge", "wiser_tpu/engine/kernels.py:284"),
     ("dense_pick", "wiser_tpu/engine/kernels.py:1222"))
 # the kernel phase's timed shapes on synthetic 1M planes (the dense and
@@ -513,56 +520,74 @@ DENSE_KERNEL_FULL, DENSE_KERNEL_PRUNED = ((128, 2),), ((1024, 2),)
 
 def dense_rows(timing: dict, err: float) -> dict:
     """The kernels line's entries of the dense kernels from
-    dense_bench.time_shapes rows (raw): dense_scan and dense_scan_merge
-    from the full scan at B 128, T 2, dense_pick from the pick at the
-    first pruned group; each its own launch's device time by
-    torch.profiler, or, where the capture lost that launch, the call's
-    CUDA events (less the merge's reading, for the scan). The merge's
-    entry is left out when its launch was not captured (an earlier
-    reading then stands); its bound is the segments' keys read and the
-    outputs written, and plain_ms is the plain version of the whole scan
-    for the scan and the merge."""
+    dense_bench.time_shapes rows: dense_scan and dense_scan_merge from the
+    raw full scan at B 128, T 2, dense_scan_tc from the tc one (when
+    timed), dense_pick from the raw pick at the first pruned group; each
+    its own launch's device time by torch.profiler, or, where the capture
+    lost that launch, the call's CUDA events (less the merge's reading,
+    for a scan); its host cost a call, its bound and its shares of the
+    group's bound and of the per-query one. The merge's entry is left out
+    when its launch was not captured (an earlier reading then stands);
+    its bound is the segments' keys read and the outputs written, and
+    plain_ms is the plain version of the whole scan for the scan and the
+    merge."""
+    import torch
+
     from wiser_tpu_torch.ops import dense as D
     from wiser_tpu_torch.tools.dense_bench import HBM_BYTES_PER_S
-
-    rows = timing["raw"]
-    full = next(r for r in rows if r["kind"] == "full")
-    pick = next(r for r in rows if r["kind"] == "pick")
 
     def own(r, prefix):
         return next((v for k, v in r["launch_ms"]["kernels"].items()
                      if k.startswith(prefix) and v is not None), None)
 
-    scan_ms, merge_ms = own(full, "scan_kernel"), own(full, "merge_kernel")
-    pick_ms = own(pick, "pick_kernel")
-    B, T, M = full["B"], full["T"], full["M"]
-    p = D.plan(B, T, full["N_pad"] // 128, M, "raw")
-    merge_bytes = B * p.nseg * p.K * 8 + B * (2 * M + T * M + 1) * 4
-    shape = f"raw B={B} T={T} N_pad={full['N_pad']} M={M}"
-    out = {
-        "dense_scan": {
-            "max_abs_err": err,
-            "ms": (scan_ms if scan_ms is not None
-                   else full["device_ms"] - (merge_ms or 0.0)),
+    def scan_entry(full, mode):
+        scan_ms = own(full, "scan_kernel")
+        merge_ms = own(full, "merge_kernel")
+        ms = (scan_ms if scan_ms is not None
+              else full["device_ms"] - (merge_ms or 0.0))
+        return merge_ms, {
+            "max_abs_err": err, "ms": ms,
             "timing": ("torch.profiler" if scan_ms is not None
                        else "CUDA events"),
             "host_us": full["host_us"], "plain_ms": min(full["plain_ms"]),
-            "bound_ms": full["bound_ms"], "shape": shape},
-        "dense_pick": {
-            "max_abs_err": 0.0,
-            "ms": pick_ms if pick_ms is not None else pick["device_ms"],
-            "timing": ("torch.profiler" if pick_ms is not None
-                       else "CUDA events"),
-            "host_us": pick["host_us"], "plain_ms": min(pick["plain_ms"]),
-            "bound_ms": pick["bound_ms"],
-            "shape": f"raw B={pick['B']} T={pick['T']} NB={pick['NB']} "
-                     f"C={pick['C']} anchor form"}}
+            "bound_ms": full["bound_ms"],
+            "share": full["bound_ms"] / ms,
+            "share_per_query": full["bound_ms_per_query"] / ms,
+            "shape": f"{mode} B={full['B']} T={full['T']} "
+                     f"N_pad={full['N_pad']} M={full['M']}"}
+
+    out = {}
+    tc_full = next((r for r in timing.get("tc", []) if r["kind"] == "full"),
+                   None)
+    if tc_full is not None:
+        out["dense_scan_tc"] = scan_entry(tc_full, "tc")[1]
+    if "raw" not in timing:
+        return out
+    full = next(r for r in timing["raw"] if r["kind"] == "full")
+    pick = next(r for r in timing["raw"] if r["kind"] == "pick")
+    merge_ms, out["dense_scan"] = scan_entry(full, "raw")
+    pick_ms = own(pick, "pick_kernel")
+    pick_ms = pick_ms if pick_ms is not None else pick["device_ms"]
+    out["dense_pick"] = {
+        "max_abs_err": 0.0, "ms": pick_ms,
+        "timing": ("torch.profiler" if own(pick, "pick_kernel") is not None
+                   else "CUDA events"),
+        "host_us": pick["host_us"], "plain_ms": min(pick["plain_ms"]),
+        "bound_ms": pick["bound_ms"], "share": pick["bound_ms"] / pick_ms,
+        "share_per_query": pick["bound_ms_per_query"] / pick_ms,
+        "shape": f"raw B={pick['B']} T={pick['T']} NB={pick['NB']} "
+                 f"C={pick['C']} anchor form"}
     if merge_ms is not None:
+        B, T, M = full["B"], full["T"], full["M"]
+        dev = torch.device("cuda", 0)
+        p = D.plan(B, T, full["N_pad"] // 128, M, "raw",
+                   D.resident_for("raw", T, M, dev))
+        merge_bytes = B * p.nseg * p.K * 8 + B * (2 * M + T * M + 1) * 4
         out["dense_scan_merge"] = {
             "max_abs_err": err, "ms": merge_ms, "timing": "torch.profiler",
             "host_us": full["host_us"], "plain_ms": min(full["plain_ms"]),
             "bound_ms": merge_bytes / HBM_BYTES_PER_S * 1e3,
-            "shape": f"{shape}, {p.nseg} segments"}
+            "shape": f"{out['dense_scan']['shape']}, {p.nseg} segments"}
     return out
 
 
@@ -604,6 +629,7 @@ def dense_kernel_phase(report: dict) -> dict:
         out = dense_rows(again, err)
     del planes
     torch.cuda.empty_cache()
+    out["dense_tc_table"] = DB.time_tc_table(dev)
     report["dense_kernel_timing"] = dict(timing,
                                          wall_s=time.perf_counter() - t0)
     return out
@@ -613,7 +639,8 @@ def dense_engine_timing(report: dict, name: str, eng) -> dict:
     """dense_bench.time_shapes on a TorchEngine's own 1M planes (every
     engine shape, its columns' mode); these launches come after the
     timed passes, so the main path's counts do not hold them. Returns
-    the kernels line's dense entries when raw."""
+    the kernels line's dense entries (raw: the scan, its merge and the
+    pick; tc: the tc scan)."""
     import torch
 
     from wiser_tpu_torch.tools import dense_bench as DB
@@ -625,9 +652,7 @@ def dense_engine_timing(report: dict, name: str, eng) -> dict:
     torch.cuda.empty_cache()
     report[f"{name}_dense_timing"] = dict(timing,
                                           wall_s=time.perf_counter() - t0)
-    if eng.columns != "raw":
-        return {}
-    err = max(r["check"]["max_abs_err"] for r in timing["raw"])
+    err = max(r["check"]["max_abs_err"] for r in timing[eng.columns])
     return dense_rows(timing, err)
 
 
@@ -1380,7 +1405,9 @@ def mesh_phase(report: dict, packed, pairs, pools: dict, expected: dict,
 
 # -- tools ------------------------------------------------------------------
 
-TOOLS_PIPE_DOCS, TOOLS_PIPE_Q, TOOLS_PIPE_PARITY = 100_000, 4096, 200
+# the pipeline's corpus: 50,000 docs, so that the smoke's wall stays
+# under its 1,200 s limit on a slow host (the 1M index is the main path's)
+TOOLS_PIPE_DOCS, TOOLS_PIPE_Q, TOOLS_PIPE_PARITY = 50_000, 4096, 200
 TOOLS_PRUNE_N, TOOLS_PRUNE_C = 32, (32, 64, 128)
 # gather_probe's defaults: n_pad, B, L, reps
 TOOLS_GATHER = (1_000_448, 128, 8192, 8)
@@ -1885,17 +1912,21 @@ def main() -> int:
     for name, _ in DENSE_KERNELS:
         kerns[name]["launches"] = sum(c[name]
                                       for c in dense_by_phase.values())
-    # dense_scan must launch on the dense, tc and mesh phases (each runs
-    # the rescue or the mesh's dense step) and on every other phase
-    # whose route counters show dense, pruned or rescued queries;
+    # a scan (raw or tc) must launch on the dense, tc and mesh phases
+    # (each runs the rescue or the mesh's dense step) and on every other
+    # phase whose route counters show dense, pruned or rescued queries;
+    # the raw one on the dense phase, the tc one on the tc phase;
     # dense_pick on the dense and tc phases
     dense_idle = sorted(
         p for p, c in dense_by_phase.items()
-        if not c["dense_scan"] and (p in ("dense", "tc", "mesh")
-                                    or dense_work.get(p)))
+        if not (c["dense_scan"] or c["dense_scan_tc"])
+        and (p in ("dense", "tc", "mesh") or dense_work.get(p)))
     pick_idle = sorted(p for p in ("dense", "tc")
                        if p in dense_by_phase
                        and not dense_by_phase[p]["dense_pick"])
+    for p, name in (("dense", "dense_scan"), ("tc", "dense_scan_tc")):
+        if p in dense_by_phase and not dense_by_phase[p][name]:
+            dense_idle.append(f"{p} ({name})")
     report["total_s"] = time.perf_counter() - t_start
     log(json.dumps(report))
     if args.report:
@@ -1913,7 +1944,7 @@ def main() -> int:
                              f"phases ({bs_by_phase})")
     if dense_idle or pick_idle:
         raise AssertionError(
-            f"dense_scan never launched on the {dense_idle} phases, "
+            f"the dense scan never launched on the {dense_idle} phases, "
             f"dense_pick on {pick_idle} ({dense_by_phase}; route work "
             f"{dense_work})")
     print(json.dumps({"kernels": list(kerns.values())}), flush=True)

@@ -338,7 +338,8 @@ def test_scan_args_ok_refuses_what_check_inputs_refuses(planes, case, mode):
     with pytest.raises(ValueError) as err:
         D.dense_scan(*args, **kw)
     assert "CUDA tensors" not in str(err.value)
-    assert D.launch_counts == {"dense_scan": 0, "dense_scan_merge": 0,
+    assert D.launch_counts == {"dense_scan": 0, "dense_scan_tc": 0,
+                               "dense_tc_table": 0, "dense_scan_merge": 0,
                                "dense_pick": 0}
     if "blocks" not in kw:
         with pytest.raises(ValueError):
@@ -455,43 +456,70 @@ def test_pruned_checks_cover_pick_and_scan(wide):
 # -- the launch plans ---------------------------------------------------------
 
 
+def _eff(nseg: int, B: int, resident: int) -> float:
+    """The grid's share of its whole waves."""
+    items = nseg * B
+    return items / (-(-items // resident) * resident)
+
+
 @pytest.mark.parametrize("mode", ["raw", "tc"])
 @pytest.mark.parametrize("T", T_BUCKETS)
 def test_plan_at_every_engine_shape(mode, T):
-    """B in {8, 128, 512, 1,024}, the full scan over 157, 1,954 and 7,816
-    blocks and the pruned scan over C 256, 512 and 1,024, M 64 and 254
-    (and 1,500 and 5,000, past the shared lists): shared bytes within the
-    H100's 227 KB and equal to dense.cu's layout, the running lists in a
-    scratch past KEY_SMEM_CAP, B within grid.y, segments of whole steps
-    that cover the lane set, one launch where B fills the card, the
-    pick's bounds in shared memory up to 51,200 blocks."""
-    for B in (8, 128, 512, 1024):
+    """B in {1, 7, 8, 128, 512, 1,024}, the full scan over 157, 1,954 and
+    7,816 blocks and the pruned scan over C 256, 512 and 1,024, M 64 and
+    254 (and 1,500 and 5,000, past the shared lists), at three resident
+    counts: shared bytes within the H100's 227 KB and equal to dense.cu's
+    layout, the running lists in a scratch past KEY_SMEM_CAP, segments of
+    whole steps that cover the lane set, whole waves wherever the plan
+    says so, the pick's bounds in shared memory up to 51,200 blocks."""
+    for B in (1, 7, 8, 128, 512, 1024):
         for nblk in (157, 1954, 7816, 256, 512, 1024):
             for M in (64, 254, 1500, 5000):
                 if M > nblk * 128:
                     continue
-                p = D.plan(B, T, nblk, M, mode)
-                assert p.K == M + 1 and p.KP >= p.K
-                assert p.KP & (p.KP - 1) == 0
-                in_smem = p.KP <= D.KEY_SMEM_CAP
-                assert p.r_words == (0 if in_smem else 4 * B * p.nseg * p.KP)
-                assert p.LPT * D.THREADS == p.step_blocks * 128
-                assert p.LPT == (16 if mode == "tc" else 4)
-                assert p.bps % p.step_blocks == 0
-                assert (p.nseg - 1) * p.bps < nblk <= p.nseg * p.bps
-                assert p.smem == D.scan_bytes(T, p.KP, mode) <= D.MAX_SMEM
-                assert p.merge_smem <= D.MAX_SMEM and B <= D.MAX_B
-                assert p.launches == 1 + (p.nseg > 1)
-                assert (p.merge_smem > 0) == (p.nseg > 1 and in_smem)
-                if B >= D.TARGET_CTAS:
-                    assert p.nseg == 1
-                else:
-                    # segments of whole steps: at least half the target
-                    assert 2 * p.nseg * B >= min(D.TARGET_CTAS, B * -(
-                        -nblk // p.step_blocks))
-                assert p.out_words == B * (2 * M + T * M + 1)
-                assert p.part_words == (2 * B * p.nseg * p.K
-                                        if p.nseg > 1 else 0)
+                listed = nblk in (256, 512, 1024)  # the pruned scan's C
+                for resident in (264, 396, 528):
+                    p = D.plan(B, T, nblk, M, mode, resident, listed)
+                    assert p.K == M + 1 and p.KP >= p.K
+                    assert p.KP & (p.KP - 1) == 0
+                    in_smem = p.KP <= D.KEY_SMEM_CAP
+                    assert p.r_words == (0 if in_smem
+                                         else 4 * B * p.nseg * p.KP)
+                    assert D.MIN_STAGES <= p.NS <= D.MAX_STAGES
+                    assert p.step_blocks in (1, 2, 4, 8)
+                    assert p.bps % p.step_blocks == 0
+                    assert (p.nseg - 1) * p.bps < nblk <= p.nseg * p.bps
+                    assert p.smem == D.scan_bytes(T, p.KP, mode, p.NS,
+                                                  p.step_blocks, listed)
+                    assert not listed or p.bps <= D.IDS_CAP
+                    assert p.smem <= D.MAX_SMEM and B <= D.MAX_B
+                    assert p.launches == 1 + (p.nseg > 1) + (mode == "tc")
+                    assert p.table_words == (D.TC_TABLE_WORDS
+                                             if mode == "tc" else 0)
+                    assert p.merge_smem == (D.merge_bytes(p.KP)
+                                            if p.nseg > 1 else 0)
+                    assert p.merge_smem <= D.MAX_SMEM
+                    # whole waves: within WAVE_EFF of them, or one
+                    # segment when the queries fill two waves, or the most
+                    # the steps allow
+                    items = B * p.nseg
+                    waves = -(-items // resident)
+                    assert p.wave_eff == pytest.approx(
+                        items / (waves * resident))
+                    steps = -(-nblk // p.step_blocks)
+                    least = (-(-steps // (D.IDS_CAP // p.step_blocks))
+                             if listed else 1)
+                    most = max(least, steps // D.MIN_SEG_STEPS)
+                    assert least <= p.nseg <= most
+                    assert (p.wave_eff >= D.WAVE_EFF
+                            or (p.nseg == least and B >= 2 * resident)
+                            or p.wave_eff >= max(
+                                _eff(-(-steps // -(-steps // n)), B,
+                                     resident)
+                                for n in range(least, most + 1)))
+                    assert p.out_words == B * (2 * M + T * M + 1)
+                    assert p.part_words == (2 * B * p.nseg * p.K
+                                            if p.nseg > 1 else 0)
             for C in (256, 512, 1024):
                 for NBp in (1954, 7816, 65536):
                     if C >= NBp:
@@ -499,17 +527,112 @@ def test_plan_at_every_engine_shape(mode, T):
                     pp = D.pick_plan(B, T, NBp, C)
                     assert pp.smem <= D.MAX_SMEM
                     assert pp.ub_smem == (NBp * 4 <= D.UB_SMEM_BYTES)
-                    assert pp.scratch_words == (0 if pp.ub_smem else B * NBp)
+                    assert pp.scratch_words == (
+                        B * NBp if pp.nsplit > 1 or not pp.ub_smem else 0)
+                    assert pp.done_words == (B if pp.nsplit > 1 else 0)
+
+
+@pytest.mark.parametrize("mode", ["raw", "tc"])
+@pytest.mark.parametrize("T", range(1, 9))
+def test_scan_layout_fits_every_T_and_M(mode, T):
+    """Every T up to 8 and every M the engine asks (1 to 5,000, each side
+    of the powers of 2 and of KEY_SMEM_CAP), over every block and over a
+    block list: a layout within the block's shared memory, and room for
+    two CTAs an SM wherever a step of one block leaves it."""
+    Ms = sorted({1, 2, 5000} | {v + d for e in range(1, 13)
+                                for v in (1 << e,) for d in (-2, -1, 0)})
+    for M in Ms:
+        KP = 1 << max(0, M).bit_length()
+        for listed in (False, True):
+            NS, SB, smem = D.scan_layout(T, KP, mode, listed)
+            assert smem <= D.MAX_SMEM
+            assert D.MIN_STAGES <= NS <= D.MAX_STAGES and SB in (1, 2, 4, 8)
+            assert smem == D.scan_bytes(T, KP, mode, NS, SB, listed)
+            assert (smem <= D.SMEM_TWO_CTAS or D.scan_bytes(
+                T, KP, mode, D.MIN_STAGES, 1, listed) > D.SMEM_TWO_CTAS)
+        p = D.plan(8, T, 7816, M, mode, 264)
+        assert p.smem <= D.MAX_SMEM
+
+
+@pytest.mark.parametrize("B,NB,want", [(1, 7816, 7), (8, 7816, 7),
+                                       (8, 1954, 1), (16, 65536, 9),
+                                       (100, 7816, 2), (132, 7816, 1),
+                                       (1024, 7816, 1), (2, 1100, 1)])
+def test_pick_plan_splits_small_groups(B, NB, want):
+    """A group of fewer than PICK_SPLIT_CTAS queries splits each query's
+    bounds over up to that many CTAs together, each part at least
+    PICK_PART blocks; the parts write a (B, NB) scratch and count
+    themselves on B words; a larger group takes one CTA a query."""
+    pp = D.pick_plan(B, 2, NB, 256)
+    assert pp.nsplit == want
+    assert pp.nsplit == 1 or (B * pp.nsplit <= D.PICK_SPLIT_CTAS + B
+                              and NB // pp.nsplit >= D.PICK_PART)
+    assert pp.scratch_words == (B * NB if want > 1 or not pp.ub_smem else 0)
+    assert pp.done_words == (B if want > 1 else 0)
 
 
 def test_scan_layout_counts_every_region():
-    """scan_bytes: the counters, T row offsets and weights (16-byte
-    aligned), two running lists of KP keys (up to KEY_SMEM_CAP) and two
-    steps of keys."""
-    assert D.scan_bytes(3, 128, "raw") == 16 + 32 + 16 + 16 * 128 + 16 * 1024
-    assert D.scan_bytes(1, 256, "tc") == 16 + 16 + 16 + 16 * 256 + 16 * 4096
+    """scan_bytes: the mbarriers and the row count (48 B), 3 counters, a
+    flush's scratch, T row offsets, row indices and weights (each 16-byte
+    aligned), a block list's ids, tc's cache and norm tables, NS stages
+    of T row segments (and the len-code segment, tc), two running lists
+    of KP keys (up to KEY_SMEM_CAP) and two steps of keys."""
+    F = D.FLUSH_BYTES
+    # raw, T 3, KP 128, 4 stages of 8 blocks: 3 rows of 4 KB a stage
+    assert D.scan_bytes(3, 128, "raw", 4, 8) == (
+        48 + 16 + F + 32 + 16 + 16 + 4 * 3 * 4096 + 16 * 128 + 16 * 1024)
+    # tc, T 2, KP 256, 2 stages of 4 blocks: 2 rows and the codes
+    assert D.scan_bytes(2, 256, "tc", 2, 4) == (
+        48 + 16 + F + 16 + 16 + 16 + 1024 + 4 * 256 * D.TC_TFT
+        + 2 * (2 * 512 + 512) + 16 * 256 + 16 * 512)
     # past KEY_SMEM_CAP the lists live in the scratch
-    assert D.scan_bytes(2, 8192, "raw") == 16 + 16 + 16 + 16 * 1024
+    assert D.scan_bytes(2, 8192, "raw", 2, 8) == (
+        48 + 16 + F + 16 + 16 + 16 + 2 * 2 * 4096 + 16 * 1024)
+    # a block list: its segment's ids
+    assert D.scan_bytes(2, 128, "raw", 2, 8, listed=True) == (
+        48 + 16 + F + 16 + 16 + 16 + 8 * D.IDS_CAP + 2 * 2 * 4096
+        + 16 * 128 + 16 * 1024)
+    assert D.merge_bytes(128) == 16 + 16 * 1024 + F + 16 * 128
+    assert D.merge_bytes(8192) == 16 + 16 * 1024 + F
+
+
+# -- the tc tables -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("idf", [0.1, 2.75, 11.3])
+@pytest.mark.parametrize("avg", [1.0, 57.25, 312.7])
+def test_tc_tables_equal_jax_tc_score(avg, idf):
+    """idf * norm[code, tf] (the shared table, below TC_TFT) and the
+    device table (every tf byte, 255 the fixed bound) as the tc scan
+    scores a lane equal the JAX tc_score bit for bit on all 65,536 (len
+    code, tf) lanes; cache equals the length term of tc_score."""
+    avg32 = np.float32(avg)
+    lanes = (np.arange(256, dtype=np.int32)[:, None] << 8
+             | np.arange(256, dtype=np.int32)[None, :])
+    cache, norm = D.tc_tables(torch.tensor(avg32))
+    assert cache.dtype == norm.dtype == torch.float32
+    assert tuple(norm.shape) == (256, D.TC_TFT)
+    w = np.float32(idf)
+    want = np.asarray(jref(lambda l, i, a: JK.tc_score(l, i, a), lanes,
+                           w, avg32))
+    got = D.tc_lane_scores(torch.tensor(avg32), float(w)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    below = (torch.tensor(w) * norm).numpy()
+    np.testing.assert_array_equal(below.view(np.int32),
+                                  want[:, :D.TC_TFT].view(np.int32))
+    # the device table's plain version: every (tf, code) lane at idf 1
+    table = D.tc_table(torch.tensor(avg32)).numpy()
+    want1 = np.asarray(jref(lambda l, i, a: JK.tc_score(l, i, a), lanes,
+                            np.float32(1.0), avg32))
+    np.testing.assert_array_equal(table.view(np.int32),
+                                  want1.T.view(np.int32))
+    # the length term: tc_score of tf 1 is idf * 2.2 / (1 + cache)
+    one = np.asarray(jref(lambda l, i, a: JK.tc_score(l, i, a),
+                          lanes[:, 1], np.float32(1.0), avg32))
+    k1p1 = np.float32(2.2)
+    np.testing.assert_array_equal(
+        (k1p1 / (np.float32(1.0) + cache.numpy())).view(np.int32),
+        one.view(np.int32))
 
 
 # -- the bytes bound ----------------------------------------------------------

@@ -31,46 +31,72 @@
 // block) payload its queries read, once (4 B a lane raw, 1 B tc, plus the
 // len-code row's blocks once in tc), the (B, T) slots and weights, the
 // winners' tf loads and the outputs (tools/dense_bench.bound_bytes); the
-// arithmetic is a few operations a byte. The plain version moves several
-// times that: a (B, N_pad) f32 score plane, a bool match plane and one
-// gathered (B, N_pad) row a slot are each written to device memory and
-// read back, and its top-M reads the plane twice more (512 MB a plane at
-// B 128 and 1M docs). This form keeps every lane in registers:
-//   - a CTA of 256 threads takes one (query, segment of blocks) pair and
-//     streams each slot's row segment with 16-byte loads (4 f32 lanes a
-//     thread raw, 16 tf bytes tc, and the len-code row's 16 bytes once for
-//     every slot), summing and masking in registers; in tc the length term
-//     of each lane is computed once for all its slots;
-//   - matched lanes whose 64-bit key (keys.cuh: ordered score bits above
-//     the inverted doc) passes the running K-th key (K = M + 1) are
-//     compacted into a shared-memory buffer (one atomic a warp and lane
-//     slot); when the buffer holds a step's worth of keys it is sorted and
-//     merged by rank into the running top K, which raises the threshold
-//     (the running lists in shared memory up to 4,096 keys, past that in
-//     a device scratch, so any M runs); no (B, N_pad) or (B, C * 128)
-//     plane ever reaches device memory;
+// arithmetic is a few operations a byte once tc's divisions leave the
+// lane loop. The design:
+//   - a CTA of 256 threads takes a (segment of blocks, query) pair. Its
+//     prologue finds the query's distinct rows (a padded slot repeats
+//     slot 0's row); each step of up to 8 blocks (1,024 lanes) brings
+//     every distinct row's segment, and in tc the len-code row's, into a
+//     ring of 2-4 shared-memory stages, so the next steps' loads are in
+//     flight while one is consumed. Over every block the copies are
+//     cp.async.bulk (TMA's 1-D bulk copy), one a row segment, issued by
+//     warp 0, each stage completing on its own mbarrier; warp 0 refills
+//     a stage right after the step's barrier, which every thread passes
+//     only once it has read that stage (that barrier is the step's key
+//     count's, needed anyway), so no empty barriers and no producer warp
+//     are needed. Over a block list (the pruned scan; the segment's
+//     block ids read into shared memory first) each thread copies its
+//     own lanes of each row with 16-byte (tc: 4-byte) cp.async, one
+//     commit group a step, NS - 1 steps ahead, and waits for its own
+//     copies alone: there the bulk copies, one a (row, block) of 128 or
+//     512 bytes, held warp 0 and every step's barrier up (PERF.md §6);
+//   - each thread scores 4 lanes from shared memory, summing and masking
+//     in registers. No tc lane divides: each CTA fills exact tables from
+//     avg32 in its prologue (keys.cuh tc_fill_tables: the length term of
+//     the 256 len codes, and the tf part of the score for tf < kTft of
+//     each), and a lane whose tf byte is kTft or more reads the tf part
+//     from the (tf byte, len code) table tc_norm_kernel writes to device
+//     memory before the scan (255 its fixed bound there). Every entry is
+//     the division path's own helper (keys.cuh tc_norm), so a lane costs
+//     one multiply by idf and equals that path's score bit for bit;
+//   - the matched lanes whose 64-bit key (keys.cuh: ordered score bits
+//     above the inverted doc) passes the running K-th key (K = M + 1) are
+//     compacted into the key buffer (one atomic a warp and lane slot);
+//     when the buffer holds a step's worth of keys, its K-th key is found
+//     by a radix select and the K keys at or above it ranked (K > 256:
+//     the buffer sorted whole), then merged by rank into the running top
+//     K, which raises the threshold (the running lists in shared memory
+//     up to 4,096 keys, past that in a device scratch, so any M runs); no
+//     (B, N_pad) or (B, C * 128) plane ever reaches device memory;
 //   - keys are unique, so ties fall to the lowest doc on every row, the
-//     set is exact at every lane-set size (the plain version's flat top-k
-//     below M + 1 blocks and its two-level one above both keep it), and
-//     FLAG_TRUNC reads the (M+1)-th key;
-//   - a group too narrow to fill the card splits each query's blocks into
-//     nseg segments; each leaves its K keys, and a second launch
-//     (merge_kernel) merges them per query. The winners' tfs come from
-//     the keys' docs, with no second pass over the lanes.
+//     set is exact at every lane-set size, and FLAG_TRUNC reads the
+//     (M+1)-th key;
+//   - the plan (ops/dense.plan) splits each query's blocks into nseg
+//     segments so that the grid's CTAs come to whole waves of the card's
+//     resident slots; each segment leaves its K keys, and a second launch
+//     (merge_kernel) streams the other segments' keys of a query through
+//     the same threshold, compaction and merge. The winners' tfs come
+//     from the keys' docs, with no second pass over the lanes.
 //
-// pick_kernel: one CTA a query computes every block's bound into shared
-// memory (device scratch past kUbSmemBytes): raw the plain sum bm_0 * w_0
-// + bm_1 * w_1 + ... in slot order; with blockmax2 and argpos the max
-// over anchors ts of bm_ts * w_ts + sum over t != ts, in slot order, of
-// (argpos_t == argpos_ts ? bm_t : bm2_t) * w_t; 0 where a live slot
-// (w != 0) has blockmax <= 0. A radix select over the bounds' ordered bits
-// (four 8-bit digits, a warp's scan of each histogram) finds the
-// (C+1)-th largest value v; the blocks above v and the lowest-id blocks
-// equal to it are compacted in id order by two block-wide prefix counts,
-// which keeps the pick stable (equal bounds go to the lowest ids, as
-// lax.top_k keeps them) and leaves the C ids ascending; next_ub is the
-// bound of the (C+1)-th. Bound: bytes, each slot's blockmax row (and
-// blockmax2 and argpos, 9 B a block) read once.
+// pick_kernel: a query's bounds come from nsplit CTAs, each over a slice
+// of the NB blocks (nsplit > 1 only for a group too small to fill the
+// card; its bounds go to a device scratch and the last CTA of the query
+// to finish, counted on a zeroed word, selects); each thread loads a
+// block's bm, bm2 and ap of every slot once into registers (T <= 8) and
+// computes: raw the plain sum bm_0 * w_0 + bm_1 * w_1 + ... in slot order;
+// with blockmax2 and argpos the max over anchors ts of bm_ts * w_ts + sum
+// over t != ts, in slot order, of (argpos_t == argpos_ts ? bm_t : bm2_t)
+// * w_t; 0 where a live slot (w != 0) has blockmax <= 0. A radix select
+// over the bounds' ordered bits finds the (C+1)-th largest value v in
+// digits of 12, 10 and 10 bits (the digit most of a warp's lanes share
+// is counted in a register and added once, so the histogram's counters
+// are not contended), and once at most 512 bounds share the prefix they
+// are gathered and ranked instead of counted further; the blocks above
+// v and the lowest-id blocks equal to it are compacted in id order
+// by two block-wide prefix counts, which keeps the pick stable (equal
+// bounds go to the lowest ids, as lax.top_k keeps them) and leaves the C
+// ids ascending; next_ub is the bound of the (C+1)-th. Bound: bytes, each
+// slot's blockmax row (and blockmax2 and argpos, 9 B a block) read once.
 //
 // Arithmetic: every f32 operation is an explicit round-to-nearest
 // intrinsic and the library is built with -fmad=false, so scores and
@@ -86,12 +112,51 @@ namespace wiser_dense {
 
 using namespace wiser_keys;
 
-constexpr int kThreads = 256;      // the scan's and the merge's CTA
-constexpr int kPickThreads = 512;  // the pick's CTA
+// Phase marks for a measuring build (-DWISER_DENSE_CLOCKS; never the
+// library the entry points load): thread 0 of every CTA adds the cycles
+// between marks to its phase's counter, read by wiser_dense_clocks.
+#ifdef WISER_DENSE_CLOCKS
+__device__ unsigned long long g_clk[32];
+#define CLK_START long long clk_t = clock64();
+#define CLK(i)                                              \
+  do {                                                      \
+    if (threadIdx.x == 0) {                                 \
+      const long long clk_n = clock64();                    \
+      atomicAdd(&g_clk[i], (unsigned long long)(clk_n - clk_t)); \
+      clk_t = clk_n;                                        \
+    }                                                       \
+  } while (0)
+#define CLK_COUNT(i) \
+  if (threadIdx.x == 0) atomicAdd(&g_clk[i], 1ull)
+#else
+#define CLK_START
+#define CLK(i) \
+  do {         \
+  } while (0)
+#define CLK_COUNT(i)
+#endif
+
+constexpr int kThreads = 256;     // the scan's and the merge's CTA
+constexpr int kLPT = 4;           // lanes a thread scores a step
+constexpr int kMaxStepBlocks = 8;  // 1,024 lanes: kThreads * kLPT
+constexpr int kMaxStages = 4;
+// the raw scan's CTAs an SM its registers must allow: 4 by measurement
+// (PERF.md §6; with no bound it took 92 registers, two CTAs an SM; 5 or
+// 6 spill). The tc scan takes 48 registers with no bound.
+constexpr int kRawMinBlocks = 4;
+// tf bytes below this score from the shared norm table, 16 by
+// measurement among 16, 32 and 64 (PERF.md §6; ops/dense.TC_TFT)
+constexpr int kTft = 16;
+// the bits of a word's 4 tf bytes that are set in a byte >= kTft
+constexpr unsigned kTftHigh = (0xFFu ^ (kTft - 1)) * 0x01010101u;
 // the running lists (R, R2) live in shared memory up to this KP, past it
 // in a device scratch the wrapper allocates (a K = M + 1 of any size)
 constexpr int kKeySmemCap = 4096;
-constexpr int kMiscBytes = 16;     // the scan's step counters
+constexpr int kMergeLanes = 1024;  // keys a merge step reads
+constexpr int kIdsCap = 1024;      // a block list's ids a segment at most
+constexpr int kFlushBytes = 1056;  // a flush's scratch (FlushSmem)
+constexpr int kPickThreads = 512;  // the pick's CTA
+constexpr int kPickWarps = kPickThreads / 32;
 // the pick keeps its NB bounds in shared memory up to this many bytes
 constexpr long long kUbSmemBytes = 200 * 1024;
 
@@ -101,11 +166,13 @@ struct ScanArgs {
   const uint8_t* tf8;       // tc: (H, N_pad) u8 tfs; null on raw planes
   const uint8_t* code;      // tc: (N_pad,) u8 len codes
   const float* avg32;       // tc: one f32
+  float* norm_g;            // tc: (256, 256) f32, tc_norm_kernel's table
   const int32_t* slots;     // (B, T) rows
   const float* weights;     // (B, T) use_score (raw) or idf32 (tc)
   const long long* blocks;  // (B, nblk) ascending block ids; null: every block
   long long H, N_pad;
   int B, T, M, nblk, K, KP, nseg, bps;
+  int NS, SB;  // ring stages, blocks a step
   unsigned long long* part_keys;  // (B, nseg, K) when nseg > 1
   unsigned long long* rscratch;   // (B, nseg, 2, KP) when KP > kKeySmemCap
   int32_t* top_docs;  // (B, M)
@@ -118,40 +185,153 @@ __host__ __device__ constexpr long long align16(long long x) {
   return (x + 15) & ~15LL;
 }
 
-// Lanes a thread holds: one 16-byte load of a row segment.
-template <bool TC>
-__host__ __device__ constexpr int lanes_per_thread() {
-  return TC ? 16 : 4;
-}
-
-// Lanes a step of the CTA covers, and the key buffer's flush point; the
-// buffer holds twice that (a power of 2, so it sorts in place).
-template <bool TC>
-__host__ __device__ constexpr int step_lanes() {
-  return kThreads * lanes_per_thread<TC>();
-}
-
 __host__ __device__ constexpr bool keys_in_smem(int KP) {
   return KP <= kKeySmemCap;
 }
 
-// The scan's shared bytes: the counters | T row offsets | T weights | R
-// and R2 (KP keys each, up to kKeySmemCap) | X (2 * step_lanes keys).
-// ops/dense.plan computes the same.
-template <bool TC>
-__host__ __device__ constexpr long long scan_bytes(int T, int KP) {
-  return kMiscBytes + align16(8LL * T) + align16(4LL * T) +
-         (keys_in_smem(KP) ? 16LL * KP : 0) + 16LL * step_lanes<TC>();
+// The scan's shared memory, in order: kMaxStages mbarriers and the row
+// count (48 B) | 3 step counters | a flush's scratch | the query's
+// distinct row offsets, each slot's row index and weight (T each) | a
+// block list's segment ids (kIdsCap) | tc: the cache (256 f32) and norm
+// (256 * kTft f32) tables | NS ring stages, each T row segments of SB *
+// 128 lanes and, tc, the len-code segment | R and R2 (KP keys each, up
+// to kKeySmemCap) and X (2 * SB * 128 keys). ops/dense.scan_bytes
+// computes the same.
+struct ScanLayout {
+  long long counters, fsm, off, ri, w, ids, cache, norm, ring, stage, lists,
+      total;
+};
+
+__host__ __device__ inline ScanLayout scan_layout(bool tc, bool listed, int T,
+                                                  int KP, int NS, int SB) {
+  ScanLayout L;
+  const long long SL = (long long)SB * 128;
+  long long o = 48;
+  L.counters = o;
+  o += 16;
+  L.fsm = o;
+  o += kFlushBytes;
+  L.off = o;
+  o += align16(8LL * T);
+  L.ri = o;
+  o += align16(4LL * T);
+  L.w = o;
+  o += align16(4LL * T);
+  L.ids = o;
+  o += listed ? 8LL * kIdsCap : 0;
+  L.cache = o;
+  o += tc ? 1024 : 0;
+  L.norm = o;
+  o += tc ? 4LL * 256 * kTft : 0;
+  L.ring = o;
+  L.stage = align16(T * SL * (tc ? 1 : 4) + (tc ? SL : 0));
+  o += NS * L.stage;
+  L.lists = o;
+  o += (keys_in_smem(KP) ? 16LL * KP : 0) + 16 * SL;
+  L.total = o;
+  return L;
 }
 
-// The merge's: R, R2 and the list read in (none past kKeySmemCap: then R
-// and R2 are the scratch and the lists are read in place).
+// The merge's: 3 counters (16 B) | X (2 * kMergeLanes keys) | a flush's
+// scratch | R and R2 (none past kKeySmemCap: then they are the first
+// segment's scratch).
 __host__ __device__ constexpr long long merge_bytes(int KP) {
-  return keys_in_smem(KP) ? 24LL * KP : 0;
+  return 16 + 16LL * kMergeLanes + kFlushBytes +
+         (keys_in_smem(KP) ? 16LL * KP : 0);
 }
 
 __device__ __forceinline__ long long clamp_row(int r, long long H) {
   return r < 0 ? 0 : (r >= H ? H - 1 : r);
+}
+
+// -- the ring's asynchronous copies --------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of copies to complete
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// a 16-byte aligned run of `bytes` (a multiple of 16) from device memory
+// into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 4 or 16 bytes from device memory into shared memory (a block list's
+// lanes, each thread its own)
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// this thread's copies complete but for its newest n groups (n < 4)
+__device__ __forceinline__ void copy_wait(int n) {
+  if (n <= 1) {
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+  } else if (n == 2) {
+    asm volatile("cp.async.wait_group 2;" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 3;" ::: "memory");
+  }
+}
+
+// -- the scan ------------------------------------------------------------
+
+// The tc table of every (tf byte, len code) in device memory,
+// norm[tf * 256 + code] = tc_norm(tf, tc_cache(code, avg)) (255: the
+// fixed bound): the scan's lanes with tf >= kTft read it (through L1),
+// so no lane divides. Grid 256 (tf) x 256 threads (code), launched
+// before the scan on its stream.
+__global__ void __launch_bounds__(256) tc_norm_kernel(const float* avg32,
+                                                      float* norm) {
+  const int tf = blockIdx.x, code = threadIdx.x;
+  norm[tf * 256 + code] = tc_norm(tf, tc_cache(code, *avg32));
 }
 
 // The outputs of query b from its descending keys (at least K readable,
@@ -193,173 +373,424 @@ __device__ void write_outputs(const ScanArgs& a, int b,
   }
 }
 
+// This thread's LPT keys: those above tau go to X after the `base` keys
+// already there, at places counted on *count (one atomic a warp and lane
+// slot). Every thread of the CTA calls it.
+__device__ __forceinline__ void push_keys(const unsigned long long* key,
+                                          unsigned long long tau,
+                                          unsigned long long* X, int base,
+                                          int* count) {
+  const unsigned lt = (1u << (threadIdx.x & 31)) - 1;
+#pragma unroll
+  for (int j = 0; j < kLPT; ++j) {
+    const bool pass = key[j] > tau;
+    const unsigned m = __ballot_sync(0xffffffffu, pass);
+    if (m) {
+      int at = 0;
+      if ((threadIdx.x & 31) == __ffs(m) - 1) at = atomicAdd(count, __popc(m));
+      at = __shfl_sync(0xffffffffu, at, __ffs(m) - 1);
+      if (pass) X[base + at + __popc(m & lt)] = key[j];
+    }
+  }
+}
+
+// A flush's shared scratch: a digit histogram and the select's words.
+struct FlushSmem {
+  unsigned hist[256];
+  unsigned digit, rem, count, n;
+  unsigned long long key;
+};
+static_assert(sizeof(FlushSmem) <= kFlushBytes, "kFlushBytes");
+
+// The k-th largest (1 <= k <= c) of the c unique keys X[0, c), by the CTA:
+// a radix select from the top byte, each pass counting the keys with the
+// prefix found so far (the digit most of a warp's lanes share added
+// once), until one key alone has the prefix.
+__device__ unsigned long long kth_key(const unsigned long long* X, int c,
+                                      int k, FlushSmem& f, int tid) {
+  const int wl = tid & 31;
+  unsigned long long prefix = 0;
+  unsigned rem = k;
+  int shift = 56;
+  for (;; shift -= 8) {
+    for (int i = tid; i < 256; i += kThreads) f.hist[i] = 0;
+    __syncthreads();
+    const unsigned long long hi = shift == 56 ? 0ull : ~0ull << (shift + 8);
+    for (int i0 = 0; i0 < c; i0 += kThreads) {
+      const int i = i0 + tid;
+      const unsigned long long x = i < c ? X[i] : 0ull;
+      const bool in = i < c && (x & hi) == prefix;
+      const unsigned d = (unsigned)(x >> shift) & 255u;
+      const unsigned act = __ballot_sync(0xffffffffu, in);
+      if (act) {
+        const int lead = __ffs(act) - 1;
+        const unsigned dl = __shfl_sync(0xffffffffu, d, lead);
+        const unsigned same = __ballot_sync(0xffffffffu, in && d == dl);
+        if (wl == lead) atomicAdd(&f.hist[dl], __popc(same));
+        if (in && d != dl) atomicAdd(&f.hist[d], 1u);
+      }
+    }
+    __syncthreads();
+    if (tid < 32) {
+      // lane l holds digits 255 - 8l down to 248 - 8l
+      unsigned sum = 0;
+      for (int i = 0; i < 8; ++i) sum += f.hist[255 - 8 * tid - i];
+      unsigned incl = sum;
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (tid >= off) incl += y;
+      }
+      const unsigned q = __ballot_sync(0xffffffffu, incl >= rem);
+      if (tid == __ffs(q) - 1) {
+        unsigned cum = incl - sum;
+        for (int i = 0; i < 8; ++i) {
+          const int d = 255 - 8 * tid - i;
+          if (cum + f.hist[d] >= rem) {
+            f.digit = d;
+            f.rem = rem - cum;
+            f.count = f.hist[d];
+            break;
+          }
+          cum += f.hist[d];
+        }
+      }
+    }
+    __syncthreads();
+    prefix |= (unsigned long long)f.digit << shift;
+    rem = f.rem;
+    if (f.count == 1 || shift == 0) break;
+  }
+  if (shift == 0) return prefix;
+  // the one key with this prefix
+  for (int i = tid; i < c; i += kThreads)
+    if ((X[i] >> shift) == (prefix >> shift)) f.key = X[i];
+  __syncthreads();
+  return f.key;
+}
+
+// The c keys of X merged into the running list R (KP keys, the top K
+// kept) through R2, which then swap. Where K <= kThreads and c > K only
+// X's top K are needed: the K-th key found by kth_key, the K keys at or
+// above it gathered into R2 (free until the merge writes it), ranked
+// there and put back; else X is sorted whole (keys.cuh sort_keys).
+__device__ void flush_keys(unsigned long long*& R, unsigned long long*& R2,
+                           int KP, int K, unsigned long long* X, int c,
+                           FlushSmem& f, int tid) {
+  if (K <= kThreads && c > K) {
+    const unsigned long long t = kth_key(X, c, K, f, tid);
+    if (tid == 0) f.n = 0;
+    __syncthreads();
+    const unsigned lt = (1u << (tid & 31)) - 1;
+    for (int i0 = 0; i0 < c; i0 += kThreads) {
+      const int i = i0 + tid;
+      const unsigned long long x = i < c ? X[i] : 0ull;
+      const bool keep = i < c && x >= t;
+      const unsigned m = __ballot_sync(0xffffffffu, keep);
+      if (m) {
+        int at = 0;
+        if ((tid & 31) == __ffs(m) - 1) at = atomicAdd(&f.n, __popc(m));
+        at = __shfl_sync(0xffffffffu, at, __ffs(m) - 1);
+        if (keep) R2[at + __popc(m & lt)] = x;
+      }
+    }
+    __syncthreads();
+    sort_keys<kThreads>(R2, K, tid);
+    for (int i = tid; i < K; i += kThreads) X[i] = R2[i];
+    __syncthreads();
+    c = K;
+  } else {
+    sort_keys<kThreads>(X, c, tid);
+  }
+  merge_ranks<kThreads, false>(R, nullptr, R2, nullptr, KP, X, nullptr,
+                               min(c, K), 0u, tid);
+  unsigned long long* r = R;
+  R = R2;
+  R2 = r;
+}
+
 // One (segment, query) pair a CTA: grid (nseg, B).
 template <bool TC>
-__global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
-  constexpr int LPT = lanes_per_thread<TC>();
-  constexpr int SL = step_lanes<TC>();
-  constexpr int SB = SL / 128;  // blocks a step
+__global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
+    scan_kernel(ScanArgs a) {
+  constexpr int LB = TC ? 1 : 4;  // bytes a lane
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int seg = blockIdx.x, b = blockIdx.y;
-  const int T = a.T, KP = a.KP;
-  int* cnt = reinterpret_cast<int*>(smem);  // 3 step counters
-  long long* s_off = reinterpret_cast<long long*>(smem + kMiscBytes);
-  float* s_w = reinterpret_cast<float*>(smem + kMiscBytes + align16(8LL * T));
-  unsigned char* const keys =
-      smem + kMiscBytes + align16(8LL * T) + align16(4LL * T);
-  unsigned long long* R =
-      a.rscratch ? a.rscratch + ((long long)b * a.nseg + seg) * 2 * KP
-                 : reinterpret_cast<unsigned long long*>(keys);
-  unsigned long long* R2 = R + KP;
-  unsigned long long* X = a.rscratch
-                              ? reinterpret_cast<unsigned long long*>(keys)
-                              : R2 + KP;
-  for (int t = tid; t < T; t += kThreads) {
-    s_off[t] = clamp_row(a.slots[(long long)b * T + t], a.H) * a.N_pad;
-    s_w[t] = a.weights[(long long)b * T + t];
+  const int T = a.T, KP = a.KP, K = a.K;
+  const int SB = a.SB, SL = SB * 128, NS = a.NS;
+  const ScanLayout L = scan_layout(TC, a.blocks != nullptr, T, KP, NS, SB);
+  CLK_START
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  int* s_nrows = reinterpret_cast<int*>(smem + 32);
+  int* cnt = reinterpret_cast<int*>(smem + L.counters);
+  FlushSmem& fs = *reinterpret_cast<FlushSmem*>(smem + L.fsm);
+  long long* s_ids = reinterpret_cast<long long*>(smem + L.ids);
+  long long* s_off = reinterpret_cast<long long*>(smem + L.off);
+  int* s_ri = reinterpret_cast<int*>(smem + L.ri);
+  float* s_w = reinterpret_cast<float*>(smem + L.w);
+  float* s_cache = reinterpret_cast<float*>(smem + L.cache);
+  float* s_norm = reinterpret_cast<float*>(smem + L.norm);
+  unsigned char* const ring = smem + L.ring;
+  if (tid == 0) {
+    // the query's distinct rows, in slot order (a padded slot repeats
+    // slot 0's row): each is copied once a step
+    int nr = 0;
+    for (int t = 0; t < T; ++t) {
+      const long long off =
+          clamp_row(a.slots[(long long)b * T + t], a.H) * a.N_pad;
+      int j = 0;
+      while (j < nr && s_off[j] != off) ++j;
+      if (j == nr) s_off[nr++] = off;
+      s_ri[t] = j;
+    }
+    *s_nrows = nr;
+    for (int s = 0; s < NS; ++s) mbar_init(bar + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int i = tid; i < KP; i += kThreads) R[i] = 0ull;
-  if (tid < 3) cnt[tid] = 0;
-  __syncthreads();
-  const float avg = TC ? *a.avg32 : 0.f;
   const long long NB = a.N_pad >> 7;
   const int blk_lo = seg * a.bps;
   const int blk_hi = min(a.nblk, blk_lo + a.bps);
-  const int sub = (tid * LPT) >> 7;      // this thread's block in a step
-  const int lane0 = (tid * LPT) & 127;   // its first lane in the block
-  const unsigned lt = (1u << (tid & 31)) - 1;
-  int base = 0;  // keys in X before this step
-  int step = 0;
-  auto flush = [&](int c) {
-    sort_keys<kThreads>(X, c, tid);
-    merge_ranks<kThreads, false>(R, nullptr, R2, nullptr, KP, X, nullptr,
-                                 min(c, a.K), 0u, tid);
-    unsigned long long* r = R;
-    R = R2;
-    R2 = r;
-  };
-  for (int s0 = blk_lo; s0 < blk_hi; s0 += SB, ++step) {
-    const int i = s0 + sub;
-    const bool active = i < blk_hi;
-    unsigned match = 0;
-    float acc[LPT];
-    long long doc0 = 0;
-#pragma unroll
-    for (int j = 0; j < LPT; ++j) acc[j] = 0.f;
-    if (active) {
-      long long blk = a.blocks ? a.blocks[(long long)b * a.nblk + i] : i;
-      blk = blk < 0 ? 0 : (blk >= NB ? NB - 1 : blk);
-      doc0 = blk * 128 + lane0;
-      match = (1u << LPT) - 1;
-      if (TC) {
-        const uint4 cq = *reinterpret_cast<const uint4*>(a.code + doc0);
-        const unsigned cw[4] = {cq.x, cq.y, cq.z, cq.w};
-        float cache[LPT];
-#pragma unroll
-        for (int j = 0; j < LPT; ++j)
-          cache[j] = tc_cache((cw[j >> 2] >> (8 * (j & 3))) & 0xFF, avg);
-        for (int t = 0; t < T; ++t) {
-          const uint4 q =
-              *reinterpret_cast<const uint4*>(a.tf8 + s_off[t] + doc0);
-          const unsigned qw[4] = {q.x, q.y, q.z, q.w};
-          const float w = s_w[t];
-#pragma unroll
-          for (int j = 0; j < LPT; ++j) {
-            const int tf = (qw[j >> 2] >> (8 * (j & 3))) & 0xFF;
-            if (tf) {
-              acc[j] = __fadd_rn(acc[j], tc_score_cached(tf, cache[j], w));
-            } else {
-              match &= ~(1u << j);
-            }
-          }
+  const int nsteps = (blk_hi - blk_lo + SB - 1) / SB;
+  // the pruned scan's block list: this segment's ids
+  if (a.blocks) {
+    const long long* blocks = a.blocks + (long long)b * a.nblk;
+    for (int i = blk_lo + tid; i < blk_hi; i += kThreads) {
+      const long long blk = blocks[i];
+      s_ids[i - blk_lo] = blk < 0 ? 0 : (blk >= NB ? NB - 1 : blk);
+    }
+  }
+  for (int t = tid; t < T; t += kThreads)
+    s_w[t] = a.weights[(long long)b * T + t];
+  if (tid < 3) cnt[tid] = 0;
+  unsigned char* const lst = smem + L.lists;
+  unsigned long long* R =
+      a.rscratch ? a.rscratch + ((long long)b * a.nseg + seg) * 2 * KP
+                 : reinterpret_cast<unsigned long long*>(lst);
+  unsigned long long* R2 = R + KP;
+  unsigned long long* const X =
+      a.rscratch ? reinterpret_cast<unsigned long long*>(lst) : R2 + KP;
+  for (int i = tid; i < KP; i += kThreads) R[i] = 0ull;
+  if (TC) {
+    tc_fill_tables<kThreads>(s_cache, s_norm, kTft, *a.avg32, tid);
+  } else {
+    __syncthreads();
+  }
+  const int nr = *s_nrows;
+  const unsigned char* plane =
+      TC ? a.tf8 : reinterpret_cast<const unsigned char*>(a.sc);
+  const long long code_at = (long long)T * SL;  // tc: in a stage
+  const int nrc = nr + (TC ? 1 : 0);  // rows copied a step
+  const int warp = tid >> 5, wl = tid & 31;
+
+  const int lane = tid * kLPT;  // this thread's first lane in a step
+  const int sub = lane >> 7, lane0 = lane & 127;
+  // a block list: every thread copies its own lanes of each row (and of
+  // the len codes) of step s into its stage, one commit group a step;
+  // no other thread reads them, so its own wait is enough
+  const bool own = a.blocks != nullptr;
+  auto issue_own = [&](int s) {
+    const int s0 = blk_lo + s * SB;
+    if (s < nsteps && lane < min(SB, blk_hi - s0) * 128) {
+      unsigned char* stage = ring + (s % NS) * L.stage;
+      const long long doc = s_ids[s0 - blk_lo + sub] * 128 + lane0;
+      for (int j = 0; j < nr; ++j) {
+        unsigned char* dst = stage + ((long long)j * SL + lane) * LB;
+        const unsigned char* src = plane + (s_off[j] + doc) * LB;
+        if (TC) {
+          copy4(dst, src);
+        } else {
+          copy16(dst, src);
         }
-      } else {
-        for (int t = 0; t < T; ++t) {
-          const float4 q =
-              *reinterpret_cast<const float4*>(a.sc + s_off[t] + doc0);
-          const float v[4] = {q.x, q.y, q.z, q.w};
-          const float w = s_w[t];
+      }
+      if (TC) copy4(stage + code_at + lane, a.code + doc);
+    }
+    copy_commit();
+  };
+  // warp 0, every block: step s's row segments into its stage, a copy a
+  // row segment, completing on the stage's mbarrier
+  auto issue = [&](int s) {
+    const int st = s % NS;
+    const int s0 = blk_lo + s * SB, nb = min(SB, blk_hi - s0);
+    unsigned char* stage = ring + st * L.stage;
+    if (wl == 0)
+      mbar_expect(bar + st, (unsigned)(nb * 128 * LB * nr +
+                                       (TC ? nb * 128 : 0)));
+    __syncwarp();
+    for (int j = wl; j < nrc; j += 32) {
+      const bool code = TC && j == nr;
+      const unsigned char* src =
+          code ? a.code + (long long)s0 * 128
+               : plane + (s_off[j] + (long long)s0 * 128) * LB;
+      bulk_copy(stage + (code ? code_at : (long long)j * SL * LB), src,
+                (unsigned)(nb * 128 * (code ? 1 : LB)), bar + st);
+    }
+  };
+  if (own) {
+    for (int s = 0; s < NS - 1; ++s) issue_own(s);
+  } else if (warp == 0) {
+    for (int s = 0; s < min(NS, nsteps); ++s) issue(s);
+  }
+  CLK(0);
+
+  int base = 0;  // keys in X before this step
+  for (int s = 0; s < nsteps; ++s) {
+    const int s0 = blk_lo + s * SB;
+    const bool active = lane < min(SB, blk_hi - s0) * 128;
+    long long doc0 = 0;
+    if (active)
+      doc0 = (a.blocks ? s_ids[s0 - blk_lo + sub] : (long long)s0 + sub) *
+                 128 + lane0;
+    if (own) {
+      // the stage of step s - 1 is this thread's to refill
+      issue_own(s + NS - 1);
+      copy_wait(NS - 1);
+    } else {
+      mbar_wait(bar + s % NS, (unsigned)((s / NS) & 1));
+    }
+    CLK(1);
+    const unsigned char* stage = ring + (s % NS) * L.stage;
+    unsigned match = 0;
+    float acc[kLPT];
 #pragma unroll
-          for (int j = 0; j < LPT; ++j) {
+    for (int j = 0; j < kLPT; ++j) acc[j] = 0.f;
+    if (active) {
+      match = (1u << kLPT) - 1;
+      unsigned cw = 0;  // tc: the 4 lanes' len codes
+      if (TC) cw = *reinterpret_cast<const unsigned*>(stage + code_at + lane);
+      unsigned nz = 0x80808080u;  // tc: bit 7 of a lane's byte: tf > 0
+      for (int t = 0; t < T; ++t) {
+        const long long at = (long long)s_ri[t] * SL + lane;
+        const float w = s_w[t];
+        if (TC) {
+          const unsigned qw = *reinterpret_cast<const unsigned*>(stage + at);
+          nz &= ((qw & 0x7f7f7f7fu) + 0x7f7f7f7fu) | qw;
+          // each lane's table index tf << 8 | code, two lanes' a byte
+          // permute (tf 0 reads 0): the shared table below kTft, the
+          // device one (every tf byte) past it
+          const unsigned p01 = __byte_perm(cw, qw, 0x5140);
+          const unsigned p23 = __byte_perm(cw, qw, 0x7362);
+          const unsigned ix[kLPT] = {p01 & 0xffff, p01 >> 16, p23 & 0xffff,
+                                     p23 >> 16};
+          float norm[kLPT];
+          if (!(qw & kTftHigh)) {
+#pragma unroll
+            for (int j = 0; j < kLPT; ++j) norm[j] = s_norm[ix[j]];
+          } else {
+#pragma unroll
+            for (int j = 0; j < kLPT; ++j)
+              norm[j] = ix[j] < kTft * 256 ? s_norm[ix[j]]
+                                           : __ldg(a.norm_g + ix[j]);
+          }
+#pragma unroll
+          for (int j = 0; j < kLPT; ++j)
+            acc[j] = __fadd_rn(acc[j], __fmul_rn(w, norm[j]));
+        } else {
+          const float4 v4 = *reinterpret_cast<const float4*>(stage + at * 4);
+          const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+          for (int j = 0; j < kLPT; ++j) {
             if (!(v[j] > 0.f)) match &= ~(1u << j);
             acc[j] = __fadd_rn(acc[j], __fmul_rn(v[j], w));
           }
         }
       }
+      if (TC)
+        match = (nz >> 7 & 1) | (nz >> 14 & 2) | (nz >> 21 & 4) |
+                (nz >> 28 & 8);
     }
     // the matched keys above the running K-th, compacted into X after
     // the keys of earlier steps; R changes only between barriers
-    const unsigned long long tau = R[a.K - 1];
-    int* count = cnt + step % 3;
+    unsigned long long key[kLPT];
 #pragma unroll
-    for (int j = 0; j < LPT; ++j) {
-      unsigned long long key = 0ull;
-      if (match >> j & 1) key = tile_key(acc[j], (int)(doc0 + j));
-      const bool pass = key > tau;
-      const unsigned m = __ballot_sync(0xffffffffu, pass);
-      if (m) {
-        int at = 0;
-        if ((tid & 31) == __ffs(m) - 1) at = atomicAdd(count, __popc(m));
-        at = __shfl_sync(0xffffffffu, at, __ffs(m) - 1);
-        if (pass) X[base + at + __popc(m & lt)] = key;
-      }
-    }
+    for (int j = 0; j < kLPT; ++j)
+      key[j] = match >> j & 1 ? tile_key(acc[j], (int)(doc0 + j)) : 0ull;
+    push_keys(key, R[K - 1], X, base, cnt + s % 3);
+    CLK(2);
+    // every thread has read this stage and counted its keys: warp 0
+    // refills it
     __syncthreads();
+    if (!own && warp == 0 && s + NS < nsteps) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      issue(s + NS);
+    }
+    CLK(3);
     // this step's counter is read by every thread before the next
     // barrier; the one two steps on was last read before this barrier
-    const int c = base + *count;
-    if (tid == 0) cnt[(step + 2) % 3] = 0;
+    const int c = base + cnt[s % 3];
+    if (tid == 0) cnt[(s + 2) % 3] = 0;
     if (c >= SL) {
-      flush(c);
+      flush_keys(R, R2, KP, K, X, c, fs, tid);
+      CLK_COUNT(7);
       base = 0;
     } else {
       base = c;
     }
+    CLK(4);
   }
-  if (base) flush(base);
+  if (base) flush_keys(R, R2, KP, K, X, base, fs, tid);
   __syncthreads();
   if (a.nseg == 1) {
     write_outputs<TC>(a, b, R, tid);
   } else {
-    const long long o = ((long long)b * a.nseg + seg) * a.K;
-    for (int i = tid; i < a.K; i += kThreads) a.part_keys[o + i] = R[i];
+    const long long o = ((long long)b * a.nseg + seg) * K;
+    for (int i = tid; i < K; i += kThreads) a.part_keys[o + i] = R[i];
   }
+  CLK(5);
+#ifdef WISER_DENSE_CLOCKS
+  if (tid == 0) atomicAdd(&g_clk[6], 1ull);
+#endif
 }
 
 // The second launch where a query's blocks span nseg segments: one CTA a
-// query merges their nseg lists of K keys and writes the outputs.
+// query starts its running list from the first segment's K keys and
+// streams the other segments' keys through the same threshold,
+// compaction and merge as the scan, then writes the outputs.
 template <bool TC>
 __global__ void __launch_bounds__(kThreads) merge_kernel(ScanArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int KP = a.KP, K = a.K;
   const int b = blockIdx.x, tid = threadIdx.x;
+  int* cnt = reinterpret_cast<int*>(smem);
+  unsigned long long* X = reinterpret_cast<unsigned long long*>(smem + 16);
+  FlushSmem& fs =
+      *reinterpret_cast<FlushSmem*>(smem + 16 + 16LL * kMergeLanes);
   // past kKeySmemCap: R and R2 in the first segment's scratch (its scan
-  // is done), each list merged where it lies
+  // is done)
   unsigned long long* R =
       a.rscratch ? a.rscratch + (long long)b * a.nseg * 2 * KP
-                 : reinterpret_cast<unsigned long long*>(smem);
+                 : reinterpret_cast<unsigned long long*>(
+                       smem + 16 + 16LL * kMergeLanes + kFlushBytes);
   unsigned long long* R2 = R + KP;
-  unsigned long long* Q = a.rscratch ? nullptr : R2 + KP;
-  const long long o = (long long)b * a.nseg * K;
-  for (int i = tid; i < KP; i += kThreads)
-    R[i] = i < K ? a.part_keys[o + i] : 0ull;
-  for (int s = 1; s < a.nseg; ++s) {
-    const unsigned long long* list = a.part_keys + o + (long long)s * K;
-    if (Q) {
-      for (int i = tid; i < K; i += kThreads) Q[i] = list[i];
-      list = Q;
+  const unsigned long long* part = a.part_keys + (long long)b * a.nseg * K;
+  for (int i = tid; i < KP; i += kThreads) R[i] = i < K ? part[i] : 0ull;
+  if (tid < 3) cnt[tid] = 0;
+  __syncthreads();
+  const long long n = (long long)(a.nseg - 1) * K;  // the other keys
+  int base = 0, step = 0;
+  for (long long i0 = 0; i0 < n; i0 += kMergeLanes, ++step) {
+    unsigned long long key[kLPT];
+#pragma unroll
+    for (int j = 0; j < kLPT; ++j) {
+      const long long i = i0 + tid * kLPT + j;
+      key[j] = i < n ? part[K + i] : 0ull;
     }
+    push_keys(key, R[K - 1], X, base, cnt + step % 3);
     __syncthreads();
-    merge_ranks<kThreads, false>(R, nullptr, R2, nullptr, KP, list, nullptr,
-                                 list_length(list, K), 0u, tid);
-    unsigned long long* r = R;
-    R = R2;
-    R2 = r;
+    const int c = base + cnt[step % 3];
+    if (tid == 0) cnt[(step + 2) % 3] = 0;
+    if (c >= kMergeLanes) {
+      flush_keys(R, R2, KP, K, X, c, fs, tid);
+      base = 0;
+    } else {
+      base = c;
+    }
   }
+  if (base) flush_keys(R, R2, KP, K, X, base, fs, tid);
   __syncthreads();
   write_outputs<TC>(a, b, R, tid);
 }
+
+// -- the pick ------------------------------------------------------------
 
 struct PickArgs {
   const float* bm;    // (H, NB) block maxima
@@ -368,8 +799,10 @@ struct PickArgs {
   const int32_t* slots;   // (B, T)
   const float* weights;   // (B, T) the bound's multipliers
   long long H, NB;
-  int B, T, C;
-  float* ub_scratch;  // (B, NB) when the bounds leave shared memory
+  int B, T, C, nsplit, ub_smem;
+  float* ub_scratch;  // (B, NB) when the bounds leave shared memory or
+                      // nsplit > 1
+  unsigned* done;     // (B,) zeroed words when nsplit > 1
   long long* blk;     // (B, C)
   float* next_ub;     // (B,)
 };
@@ -385,53 +818,47 @@ __device__ __forceinline__ unsigned order_bits(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// The exclusive prefix sum of v over the CTA (every thread calls it).
-__device__ int cta_exclusive_scan(int v, int* s_warp) {
-  const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
-  int x = v;
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, off);
-    if (l >= off) x += y;
-  }
-  if (l == 31) s_warp[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    int t = l < kPickThreads / 32 ? s_warp[l] : 0;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, t, off);
-      if (l >= off) t += y;
-    }
-    if (l < kPickThreads / 32) s_warp[l] = t;  // inclusive warp totals
-  }
-  __syncthreads();
-  const int out = x - v + (w ? s_warp[w - 1] : 0);
-  __syncthreads();  // s_warp is free again
-  return out;
-}
-
-__global__ void __launch_bounds__(kPickThreads) pick_kernel(PickArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ unsigned hist[256];
-  __shared__ int s_warp[kPickThreads / 32];
-  __shared__ unsigned s_digit, s_rem;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int T = a.T;
-  const long long NB = a.NB;
-  long long* s_off = reinterpret_cast<long long*>(smem);
-  float* s_w = reinterpret_cast<float*>(smem + align16(8LL * T));
-  float* U = a.ub_scratch
-                 ? a.ub_scratch + (long long)b * NB
-                 : reinterpret_cast<float*>(smem + align16(8LL * T) +
-                                            align16(4LL * T));
-  for (int t = tid; t < T; t += kPickThreads) {
-    s_off[t] = clamp_row(a.slots[(long long)b * T + t], a.H) * NB;
-    s_w[t] = a.weights[(long long)b * T + t];
-  }
-  __syncthreads();
+// Block k's joint bound. NT > 0 (T = NT, 1..8): each slot's bm,
+// bm2 and ap loaded once into registers, the anchor loop reading them
+// there; NT = 0: any T, loaded where used. The arithmetic is the same.
+template <int NT>
+__device__ __forceinline__ float block_bound(const PickArgs& a,
+                                             const long long* s_off,
+                                             const float* s_w, long long k) {
   const float ninf = -__int_as_float(0x7f800000);
-  for (long long k = tid; k < NB; k += kPickThreads) {
-    bool feas = true;
-    float ub = 0.f;
+  bool feas = true;
+  float ub;
+  if (NT > 0) {
+    float x[NT > 0 ? NT : 1], x2[NT > 0 ? NT : 1];
+    unsigned p[NT > 0 ? NT : 1];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      x[t] = a.bm[s_off[t] + k];
+      feas = feas && (x[t] > 0.f || s_w[t] == 0.f);
+      x2[t] = a.bm2 ? a.bm2[s_off[t] + k] : 0.f;
+      p[t] = a.bm2 ? a.ap[s_off[t] + k] : 0u;
+    }
+    if (!a.bm2) {
+      ub = __fmul_rn(x[0], s_w[0]);
+#pragma unroll
+      for (int t = 1; t < NT; ++t) ub = __fadd_rn(ub, __fmul_rn(x[t], s_w[t]));
+    } else {
+      ub = ninf;
+#pragma unroll
+      for (int ts = 0; ts < NT; ++ts) {
+        float bound = __fmul_rn(x[ts], s_w[ts]);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          if (t == ts) continue;
+          bound = __fadd_rn(bound, __fmul_rn(p[t] == p[ts] ? x[t] : x2[t],
+                                             s_w[t]));
+        }
+        if (bound > ub) ub = bound;
+      }
+    }
+  } else {
+    const int T = a.T;
+    ub = 0.f;
     for (int t = 0; t < T; ++t) {
       const float x = a.bm[s_off[t] + k];
       const float w = s_w[t];
@@ -455,25 +882,147 @@ __global__ void __launch_bounds__(kPickThreads) pick_kernel(PickArgs a) {
         if (bound > ub) ub = bound;
       }
     }
-    U[k] = feas ? ub : 0.f;
+  }
+  return feas ? ub : 0.f;
+}
+
+// The exclusive prefix sum of v over the CTA (every thread calls it).
+__device__ int cta_exclusive_scan(int v, int* s_warp) {
+  const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
+  int x = v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    if (l >= off) x += y;
+  }
+  if (l == 31) s_warp[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    int t = l < kPickWarps ? s_warp[l] : 0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, t, off);
+      if (l >= off) t += y;
+    }
+    if (l < kPickWarps) s_warp[l] = t;  // inclusive warp totals
   }
   __syncthreads();
+  const int out = x - v + (w ? s_warp[w - 1] : 0);
+  __syncthreads();  // s_warp is free again
+  return out;
+}
 
-  // the (C+1)-th largest order_bits, a digit at a time from the top
-  unsigned prefix = 0, rem = a.C + 1;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = tid; i < 256; i += kPickThreads) hist[i] = 0;
+// Part blockIdx.x of query blockIdx.y: grid (nsplit, B); NT as
+// block_bound's.
+template <int NT>
+__global__ void __launch_bounds__(kPickThreads,
+                                  NT >= 1 && NT <= 2 ? 4 : 3)
+    pick_kernel(PickArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned hist[4096];
+  __shared__ unsigned csum[256];
+  __shared__ int s_warp[kPickWarps];
+  __shared__ unsigned s_digit, s_rem, s_cnt, s_val;
+  __shared__ int s_n;
+  __shared__ int s_last;
+  const int part = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int wl = tid & 31;
+  const int T = a.T;
+  const long long NB = a.NB;
+  CLK_START
+  long long* s_off = reinterpret_cast<long long*>(smem);
+  float* s_w = reinterpret_cast<float*>(smem + align16(8LL * T));
+  float* Us = reinterpret_cast<float*>(smem + align16(8LL * T) +
+                                       align16(4LL * T));
+  float* Ug = a.ub_scratch ? a.ub_scratch + (long long)b * NB : nullptr;
+  for (int t = tid; t < T; t += kPickThreads) {
+    s_off[t] = clamp_row(a.slots[(long long)b * T + t], a.H) * NB;
+    s_w[t] = a.weights[(long long)b * T + t];
+  }
+  __syncthreads();
+  // this part's bounds: into shared memory, or the scratch where the
+  // select reads them from device memory or they come from several parts
+  const bool to_smem = a.ub_smem && a.nsplit == 1;
+  float* U = to_smem ? Us : Ug;
+  const long long chunk = (NB + a.nsplit - 1) / a.nsplit;
+  const long long lo = min(NB, part * chunk), hi = min(NB, lo + chunk);
+  // two blocks a thread at a time, so both blocks' loads are in flight
+  for (long long k = lo + tid; k < hi; k += 2 * kPickThreads) {
+    const long long k2 = k + kPickThreads;
+    const float u1 = block_bound<NT>(a, s_off, s_w, k);
+    const float u2 = k2 < hi ? block_bound<NT>(a, s_off, s_w, k2) : 0.f;
+    U[k] = u1;
+    if (k2 < hi) U[k2] = u2;
+  }
+  CLK(8);
+  if (a.nsplit > 1) {
+    // the last part of the query to finish selects
+    __threadfence();
     __syncthreads();
-    for (long long k = tid; k < NB; k += kPickThreads) {
-      const unsigned u = order_bits(U[k]);
-      if (shift == 24 || (u >> (shift + 8)) == (prefix >> (shift + 8)))
-        atomicAdd(&hist[(u >> shift) & 255], 1u);
+    if (tid == 0)
+      s_last = atomicAdd(a.done + b, 1u) == (unsigned)(a.nsplit - 1);
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    if (a.ub_smem) {
+      for (long long k = tid; k < NB; k += kPickThreads) Us[k] = __ldcg(Ug + k);
+      U = Us;
+    }
+  }
+  __syncthreads();
+  CLK(9);
+  const bool global = U != Us;
+  auto load = [&](long long k) { return global ? __ldcg(U + k) : U[k]; };
+
+  // the (C+1)-th largest order_bits, a digit at a time from the top:
+  // digits of 12, 10 and 10 bits, each pass's histogram in shared
+  // memory, then, once few bounds have the prefix, those ranked
+  unsigned prefix = 0, rem = a.C + 1;
+  int known = 0;  // the top bits of prefix found
+  for (int pass = 0; pass < 3; ++pass) {
+    const int width = pass == 0 ? 12 : 10;
+    const int shift = 32 - known - width;
+    const int nbins = 1 << width, per = nbins >> 8;
+    const unsigned hi_mask = known ? ~0u << (32 - known) : 0u;
+    for (int i = tid; i < nbins; i += kPickThreads) hist[i] = 0;
+    __syncthreads();
+    // the digit most of a warp's lanes share (bounds of one query differ
+    // in few top digits) is counted in a register, warp-uniform, while
+    // it stays the same, and added once; any other lane adds its own one
+    unsigned run_d = 0, run_n = 0;
+    for (long long k0 = 0; k0 < NB; k0 += kPickThreads) {
+      const long long k = k0 + tid;
+      bool in = false;
+      unsigned d = 0;
+      if (k < NB) {
+        const unsigned u = order_bits(load(k));
+        in = (u & hi_mask) == prefix;
+        d = (u >> shift) & (nbins - 1);
+      }
+      const unsigned act = __ballot_sync(0xffffffffu, in);
+      if (act) {
+        const unsigned dl = __shfl_sync(0xffffffffu, d, __ffs(act) - 1);
+        const unsigned same = __ballot_sync(0xffffffffu, in && d == dl);
+        if (dl != run_d) {
+          if (wl == 0 && run_n) atomicAdd(&hist[run_d], run_n);
+          run_d = dl;
+          run_n = 0;
+        }
+        run_n += __popc(same);
+        if (in && d != dl) atomicAdd(&hist[d], 1u);
+      }
+    }
+    if (wl == 0 && run_n) atomicAdd(&hist[run_d], run_n);
+    __syncthreads();
+    // 256 runs of per bins from the top digit down, their sums, then
+    // warp 0 finds the run and the digit holding the rem-th bound
+    for (int c = tid; c < 256; c += kPickThreads) {
+      unsigned sum = 0;
+      for (int i = 0; i < per; ++i) sum += hist[nbins - 1 - c * per - i];
+      csum[c] = sum;
     }
     __syncthreads();
     if (tid < 32) {
-      // lane l holds digits 255 - 8l down to 248 - 8l
       unsigned sum = 0;
-      for (int i = 0; i < 8; ++i) sum += hist[255 - 8 * tid - i];
+      for (int i = 0; i < 8; ++i) sum += csum[tid * 8 + i];
       unsigned incl = sum;
       for (int off = 1; off < 32; off <<= 1) {
         const unsigned y = __shfl_up_sync(0xffffffffu, incl, off);
@@ -482,46 +1031,137 @@ __global__ void __launch_bounds__(kPickThreads) pick_kernel(PickArgs a) {
       const unsigned q = __ballot_sync(0xffffffffu, incl >= rem);
       if (tid == __ffs(q) - 1) {
         unsigned cum = incl - sum;
-        for (int i = 0; i < 8; ++i) {
-          const int d = 255 - 8 * tid - i;
-          if (cum + hist[d] >= rem) {
-            s_digit = d;
-            s_rem = rem - cum;
-            break;
+        bool found = false;
+        for (int c = tid * 8; c < tid * 8 + 8 && !found; ++c) {
+          if (cum + csum[c] < rem) {
+            cum += csum[c];
+            continue;
           }
-          cum += hist[d];
+          for (int i = 0; i < per && !found; ++i) {
+            const int d = nbins - 1 - c * per - i;
+            if (cum + hist[d] >= rem) {
+              s_digit = d;
+              s_rem = rem - cum;
+              s_cnt = hist[d];
+              found = true;
+            } else {
+              cum += hist[d];
+            }
+          }
         }
       }
     }
     __syncthreads();
     prefix |= s_digit << shift;
     rem = s_rem;
+    known += width;
+    CLK_COUNT(13);
+    if (known < 32 && s_cnt <= kPickThreads) {
+      // few bounds have this prefix: gather them (value bits, id) and
+      // rank them, the (C+1)-th is the one with rem - 1 above it in
+      // (value desc, id asc) order
+      const unsigned mask = ~0u << (32 - known);
+      unsigned* cu = hist;
+      unsigned* ck = hist + kPickThreads;
+      if (tid == 0) s_n = 0;
+      __syncthreads();
+      for (long long k0 = 0; k0 < NB; k0 += kPickThreads) {
+        const long long k = k0 + tid;
+        const unsigned u = k < NB ? order_bits(load(k)) : 0u;
+        const bool in = k < NB && (u & mask) == prefix;
+        const unsigned m = __ballot_sync(0xffffffffu, in);
+        if (m) {
+          int at = 0;
+          if (wl == __ffs(m) - 1) at = atomicAdd(&s_n, __popc(m));
+          at = __shfl_sync(0xffffffffu, at, __ffs(m) - 1);
+          if (in) {
+            const int i = at + __popc(m & ((1u << wl) - 1));
+            cu[i] = u;
+            ck[i] = (unsigned)k;
+          }
+        }
+      }
+      __syncthreads();
+      const int n = s_n;
+      if (tid < n) {
+        const unsigned u = cu[tid], k = ck[tid];
+        int above = 0, eq_before = 0;
+        for (int i = 0; i < n; ++i) {
+          above += cu[i] > u || (cu[i] == u && ck[i] < k);
+          eq_before += cu[i] == u && ck[i] < k;
+        }
+        if (above == (int)rem - 1) {
+          s_val = u;
+          s_rem = eq_before + 1;
+        }
+      }
+      __syncthreads();
+      prefix = s_val;
+      rem = s_rem;
+      CLK_COUNT(14);
+      break;
+    }
   }
+  CLK(10);
   // the C picked: every block above prefix, and the first rem - 1 equal
   // to it in id order; the rem-th equal one is the (C+1)-th
-  const long long chunk = (NB + kPickThreads - 1) / kPickThreads;
-  const long long lo = min(NB, tid * chunk), hi = min(NB, lo + chunk);
+  // each thread a run of span consecutive ids; up to 32 ids a thread,
+  // their comparisons kept as bits, read in a rotated order (a run's
+  // threads then read distinct banks) and the run walked in id order
+  const long long span = (NB + kPickThreads - 1) / kPickThreads;
+  const long long clo = min(NB, tid * span), chi = min(NB, clo + span);
+  const int len = (int)(chi - clo);
   int n_gt = 0, n_eq = 0;
-  for (long long k = lo; k < hi; ++k) {
-    const unsigned u = order_bits(U[k]);
-    n_gt += u > prefix;
-    n_eq += u == prefix;
+  unsigned gt_bits = 0, eq_bits = 0;
+  if (span <= 32) {
+    for (int i0 = 0; i0 < len; ++i0) {
+      const int i = (i0 + tid) % len;
+      const unsigned u = order_bits(load(clo + i));
+      gt_bits |= (unsigned)(u > prefix) << i;
+      eq_bits |= (unsigned)(u == prefix) << i;
+    }
+    n_gt = __popc(gt_bits);
+    n_eq = __popc(eq_bits);
+  } else {
+    for (long long k = clo; k < chi; ++k) {
+      const unsigned u = order_bits(load(k));
+      n_gt += u > prefix;
+      n_eq += u == prefix;
+    }
   }
   const int eq0 = cta_exclusive_scan(n_eq, s_warp);
   const int take = max(0, min(n_eq, (int)rem - 1 - eq0));
   int pos = cta_exclusive_scan(n_gt + take, s_warp);
   long long* out = a.blk + (long long)b * a.C;
   int r = eq0;
-  for (long long k = lo; k < hi; ++k) {
-    const unsigned u = order_bits(U[k]);
-    if (u > prefix) {
-      out[pos++] = k;
-    } else if (u == prefix) {
-      if (r < (int)rem - 1) out[pos++] = k;
-      if (r == (int)rem - 1) a.next_ub[b] = U[k];
-      ++r;
+  if (span <= 32) {
+    for (unsigned m = gt_bits | eq_bits; m; m &= m - 1) {
+      const int i = __ffs(m) - 1;
+      if (gt_bits >> i & 1) {
+        out[pos++] = clo + i;
+      } else {
+        if (r < (int)rem - 1) out[pos++] = clo + i;
+        if (r == (int)rem - 1) a.next_ub[b] = load(clo + i);
+        ++r;
+      }
+    }
+  } else {
+    for (long long k = clo; k < chi; ++k) {
+      const float v = load(k);
+      const unsigned u = order_bits(v);
+      if (u > prefix) {
+        out[pos++] = k;
+      } else if (u == prefix) {
+        if (r < (int)rem - 1) out[pos++] = k;
+        if (r == (int)rem - 1) a.next_ub[b] = v;
+        ++r;
+      }
     }
   }
+  CLK(11);
+#ifdef WISER_DENSE_CLOCKS
+  if (tid == 0) atomicAdd(&g_clk[12], 1ull);
+#endif
 }
 
 template <typename F>
@@ -531,11 +1171,24 @@ cudaError_t raise_smem(F* kernel, long long smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <int NT>
+cudaError_t launch_pick(const PickArgs& a, long long smem, cudaStream_t s) {
+  cudaError_t err = raise_smem(pick_kernel<NT>, smem);
+  if (err != cudaSuccess) return err;
+  pick_kernel<NT><<<dim3(a.nsplit, a.B), kPickThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 template <bool TC>
 cudaError_t launch_scan(const ScanArgs& a, long long smem, long long msmem,
                         cudaStream_t s) {
   cudaError_t err = raise_smem(scan_kernel<TC>, smem);
   if (err != cudaSuccess) return err;
+  if (TC) {
+    tc_norm_kernel<<<256, 256, 0, s>>>(a.avg32, a.norm_g);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   scan_kernel<TC><<<dim3(a.nseg, a.B), kThreads, smem, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.nseg == 1) return err;
@@ -545,6 +1198,19 @@ cudaError_t launch_scan(const ScanArgs& a, long long smem, long long msmem,
   return cudaGetLastError();
 }
 
+template <bool TC>
+int resident(long long smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = raise_smem(scan_kernel<TC>, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, scan_kernel<TC>, kThreads, (size_t)smem);
+  return err == cudaSuccess ? per_sm * sms : -(int)err;
+}
+
 }  // namespace wiser_dense
 
 extern "C" {
@@ -552,15 +1218,23 @@ extern "C" {
 // The wrappers' arguments (ops/dense._ScanParams and _PickParams, every
 // field 8 bytes): pointers to device memory or 0, counts, and the plan.
 struct WiserDenseScanParams {
-  long long sc, tf, tf8, code, avg32, slots, weights, blocks;
-  long long H, N_pad, B, T, M, nblk, K, KP, nseg, bps, smem, merge_smem;
+  long long sc, tf, tf8, code, avg32, norm_g, slots, weights, blocks;
+  long long H, N_pad, B, T, M, nblk, K, KP, nseg, bps, NS, SB;
+  long long smem, merge_smem;
   long long part_keys, rscratch, top_docs, top_score, top_tfs, flags;
 };
 
 struct WiserDensePickParams {
-  long long bm, bm2, ap, slots, weights, H, NB, B, T, C, smem;
-  long long ub_scratch, blk, next_ub;
+  long long bm, bm2, ap, slots, weights, H, NB, B, T, C, nsplit, ub_smem;
+  long long smem, ub_scratch, done, blk, next_ub;
 };
+
+// The scan's CTAs the card holds at once (SMs times CTAs an SM) at this
+// shared-memory size, or minus a CUDA error code.
+int wiser_dense_resident(int tc, long long smem) {
+  return tc ? wiser_dense::resident<true>(smem)
+            : wiser_dense::resident<false>(smem);
+}
 
 // Launch the scan on `stream` (no synchronize): one launch, or two where
 // nseg > 1. Returns the first launch error (0 on success); a plan whose
@@ -574,6 +1248,7 @@ int wiser_dense_scan(const WiserDenseScanParams* p, void* stream) {
   a.tf8 = (const uint8_t*)p->tf8;
   a.code = (const uint8_t*)p->code;
   a.avg32 = (const float*)p->avg32;
+  a.norm_g = (float*)p->norm_g;
   a.slots = (const int32_t*)p->slots;
   a.weights = (const float*)p->weights;
   a.blocks = (const long long*)p->blocks;
@@ -587,6 +1262,8 @@ int wiser_dense_scan(const WiserDenseScanParams* p, void* stream) {
   a.KP = (int)p->KP;
   a.nseg = (int)p->nseg;
   a.bps = (int)p->bps;
+  a.NS = (int)p->NS;
+  a.SB = (int)p->SB;
   a.part_keys = (unsigned long long*)p->part_keys;
   a.rscratch = (unsigned long long*)p->rscratch;
   a.top_docs = (int32_t*)p->top_docs;
@@ -594,21 +1271,27 @@ int wiser_dense_scan(const WiserDenseScanParams* p, void* stream) {
   a.top_tfs = (int32_t*)p->top_tfs;
   a.flags = (int32_t*)p->flags;
   const bool tc = a.tf8 != nullptr;
-  const long long smem = tc ? scan_bytes<true>(a.T, a.KP)
-                            : scan_bytes<false>(a.T, a.KP);
+  const long long smem =
+      scan_layout(tc, a.blocks != nullptr, a.T, a.KP, a.NS, a.SB).total;
   const long long msmem = merge_bytes(a.KP);
   if (smem != p->smem || (a.nseg > 1 && msmem != p->merge_smem) ||
-      a.K != a.M + 1 || a.K > a.KP || a.B > 65535 || a.nseg < 1 ||
+      a.K != a.M + 1 || a.K > a.KP || a.nseg < 1 || a.B < 1 ||
+      a.B > 65535 || (a.blocks && a.bps > kIdsCap) ||
+      a.NS < 2 || a.NS > kMaxStages || a.SB < 1 ||
+      a.SB > kMaxStepBlocks || a.bps < 1 || a.bps % a.SB ||
       (a.nseg > 1 && !a.part_keys) ||
       keys_in_smem(a.KP) != (a.rscratch == nullptr) ||
-      (long long)a.nseg * a.bps < a.nblk || a.N_pad % 128)
+      (tc && !a.norm_g) ||
+      (long long)a.nseg * a.bps < a.nblk ||
+      (long long)(a.nseg - 1) * a.bps >= a.nblk || a.N_pad % 128)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(tc ? launch_scan<true>(a, smem, msmem, s)
                   : launch_scan<false>(a, smem, msmem, s));
 }
 
-// Launch the pick on `stream` (no synchronize), one CTA a query.
+// Launch the pick on `stream` (no synchronize): nsplit CTAs a query
+// (their done words zeroed first where nsplit > 1).
 int wiser_dense_pick(const WiserDensePickParams* p, void* stream) {
   using namespace wiser_dense;
   PickArgs a;
@@ -622,18 +1305,60 @@ int wiser_dense_pick(const WiserDensePickParams* p, void* stream) {
   a.B = (int)p->B;
   a.T = (int)p->T;
   a.C = (int)p->C;
+  a.nsplit = (int)p->nsplit;
+  a.ub_smem = (int)p->ub_smem;
   a.ub_scratch = (float*)p->ub_scratch;
+  a.done = (unsigned*)p->done;
   a.blk = (long long*)p->blk;
   a.next_ub = (float*)p->next_ub;
-  const bool ub_smem = a.ub_scratch == nullptr;
-  const long long smem = pick_bytes(a.T, a.NB, ub_smem);
-  if (smem != p->smem || (ub_smem && 4 * a.NB > kUbSmemBytes) ||
-      a.C < 1 || a.C + 1 > a.NB || (a.bm2 && !a.ap))
+  const long long smem = pick_bytes(a.T, a.NB, a.ub_smem);
+  if (smem != p->smem || (a.ub_smem && 4 * a.NB > kUbSmemBytes) ||
+      a.C < 1 || a.C + 1 > a.NB || (a.bm2 && !a.ap) || a.nsplit < 1 ||
+      a.nsplit > 65535 || a.B > 65535 ||
+      ((!a.ub_smem || a.nsplit > 1) && !a.ub_scratch) ||
+      (a.nsplit > 1 && !a.done))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = raise_smem(pick_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  pick_kernel<<<a.B, kPickThreads, smem, (cudaStream_t)stream>>>(a);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (a.nsplit > 1) {
+    const cudaError_t err =
+        cudaMemsetAsync(a.done, 0, sizeof(unsigned) * a.B, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  switch (a.T) {
+    case 1: return (int)launch_pick<1>(a, smem, s);
+    case 2: return (int)launch_pick<2>(a, smem, s);
+    case 3: return (int)launch_pick<3>(a, smem, s);
+    case 4: return (int)launch_pick<4>(a, smem, s);
+    case 5: return (int)launch_pick<5>(a, smem, s);
+    case 6: return (int)launch_pick<6>(a, smem, s);
+    case 7: return (int)launch_pick<7>(a, smem, s);
+    case 8: return (int)launch_pick<8>(a, smem, s);
+    default: return (int)launch_pick<0>(a, smem, s);
+  }
+}
+
+// tc_norm_kernel alone on `stream` (no synchronize): avg32 one f32, out
+// (256, 256) f32. The scan launches it itself; this entry is for the
+// checks and timings.
+int wiser_dense_tc_table(const float* avg32, float* out, void* stream) {
+  wiser_dense::tc_norm_kernel<<<256, 256, 0, (cudaStream_t)stream>>>(avg32,
+                                                                     out);
   return (int)cudaGetLastError();
+}
+
+// A measuring build's phase counters (32 words) into `out`, then zeroed;
+// cudaErrorNotSupported in the library the entry points load.
+int wiser_dense_clocks(unsigned long long* out) {
+#ifdef WISER_DENSE_CLOCKS
+  cudaError_t err = cudaMemcpyFromSymbol(out, wiser_dense::g_clk,
+                                         sizeof(wiser_dense::g_clk));
+  if (err != cudaSuccess) return (int)err;
+  static const unsigned long long zero[32] = {};
+  return (int)cudaMemcpyToSymbol(wiser_dense::g_clk, zero, sizeof(zero));
+#else
+  (void)out;
+  return (int)cudaErrorNotSupported;
+#endif
 }
 
 const char* wiser_dense_error_string(int err) {

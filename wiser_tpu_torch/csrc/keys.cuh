@@ -47,12 +47,35 @@ __device__ __forceinline__ float tc_cache(int code, float avg) {
                      __fdiv_rn(__fmul_rn(kB, __int2float_rn(length)), avg)));
 }
 
-__device__ __forceinline__ float tc_score_cached(int tf_i, float cache,
-                                                 float idf) {
+// the tf part of a lane's score before the multiply by idf
+__device__ __forceinline__ float tc_norm(int tf_i, float cache) {
   const float tf = __int2float_rn(tf_i);
   float norm = __fdiv_rn(__fmul_rn(tf, kK1Plus1), __fadd_rn(tf, cache));
   if (tf_i >= kTfSat) norm = kK1Plus1;
-  return __fmul_rn(idf, norm);
+  return norm;
+}
+
+__device__ __forceinline__ float tc_score_cached(int tf_i, float cache,
+                                                 float idf) {
+  return __fmul_rn(idf, tc_norm(tf_i, cache));
+}
+
+// The exact tc tables of one avg, filled by the G threads of a CTA
+// (every thread calls it; it ends with a barrier): cache[code] =
+// tc_cache(code, avg) for the 256 len codes, and norm[tf * 256 + code] =
+// tc_norm(tf, cache[code]) for tf < tft (tf-major, so the lanes of a
+// warp, whose tfs repeat and whose codes vary, gather from spread
+// banks), so idf * norm[tf * 256 + code] is tc_score_cached(tf,
+// cache[code], idf) bit for bit: the same operations on the same f32
+// inputs.
+template <int G>
+__device__ void tc_fill_tables(float* cache, float* norm, int tft, float avg,
+                               int tid) {
+  for (int c = tid; c < 256; c += G) cache[c] = tc_cache(c, avg);
+  __syncthreads();
+  for (int i = tid; i < 256 * tft; i += G)
+    norm[i] = tc_norm(i >> 8, cache[i & 255]);
+  __syncthreads();
 }
 
 // lane = code8 << 8 | tf8

@@ -7,11 +7,16 @@ tc (top_docs, top_score, tfs, flags). `dense_pick` computes
 _select_ub_blocks: every block's joint upper bound, plain sum or anchor
 form, and the stable top-(C+1) pick (blk (B, C) int64 ascending, next_ub
 (B,) f32). `plan` and `pick_plan` say how each runs: a scan CTA takes a
-(query, segment of blocks) pair and keeps its top K = M + 1 keys in
-shared memory, so no (B, N_pad) or (B, C * 128) plane is allocated; a
-group narrower than TARGET_CTAS splits each query's blocks into
-segments, and a second launch merges their lists (counted as
-dense_scan_merge). The pick is one CTA a query.
+(segment of blocks, query) pair, streams the query's distinct rows
+through a ring of shared-memory stages (TMA bulk copies) and keeps its
+top K = M + 1 keys in shared memory, so no (B, N_pad) or (B, C * 128)
+plane is allocated; tc lanes score from exact tables of the index's
+avg32 (`tc_tables` below TC_TFT, `tc_table` past it), with no
+division. Each query's blocks are split into as many segments as bring the
+grid to whole waves of the card's resident CTAs, and a second launch
+merges a split query's lists (counted as dense_scan_merge). The pick is
+one CTA a query, or several for a small group (the last to finish
+selects), with a radix select whose histograms are counted per warp.
 
 engine/kernels.py calls these for CUDA tensors and runs the plain torch
 versions (dense_scan_body_torch, dense_scan_body_tc_torch,
@@ -36,25 +41,52 @@ from typing import NamedTuple, Optional
 
 import torch
 
-# kernel launches by wrapper name, counted where a kernel is launched
-launch_counts = {"dense_scan": 0, "dense_scan_merge": 0, "dense_pick": 0}
+# kernel launches by wrapper name, counted where a kernel is launched:
+# dense_scan the raw scan's, dense_scan_tc the tc scan's, dense_tc_table
+# the tc table's launch before each tc scan, dense_scan_merge the second
+# launch of a split query (raw or tc)
+launch_counts = {"dense_scan": 0, "dense_scan_tc": 0, "dense_tc_table": 0,
+                 "dense_scan_merge": 0, "dense_pick": 0}
 # the running top-K lists in shared memory up to this KP, past it in a
 # device scratch (dense.cu kKeySmemCap)
 KEY_SMEM_CAP = 4096
 THREADS = 256  # a scan or merge CTA
-MISC_BYTES = 16  # the scan's step counters
-# a group narrower than this many CTAs splits each query's blocks into
-# segments, merged by a second launch
-TARGET_CTAS = 512
+LPT = 4  # lanes a scan thread scores a step
+STEP_BLOCKS = 8  # a step's 128-lane blocks at most: THREADS * LPT lanes
+MIN_STAGES, MAX_STAGES = 2, 4  # the ring's stages
+# the ring's stages together, as far as 2 allow: 16 KB by measurement
+# (PERF.md §6; 32 KB no faster, 48-64 KB up to 25% slower)
+RING_BYTES = 16 * 1024
+# tf bytes below this score from the shared norm table (dense.cu kTft),
+# the rest from the device table; 16 by measurement among 16, 32 and 64
+# (PERF.md §6)
+TC_TFT = 16
+TC_TABLE_WORDS = 256 * 256  # the device table: every (tf byte, len code)
+MERGE_LANES = 1024  # keys a merge step reads
+IDS_CAP = 1024  # a block list's ids a segment at most (dense.cu kIdsCap)
+FLUSH_BYTES = 1056  # a key flush's shared scratch (dense.cu kFlushBytes)
 MAX_SMEM = 232_448  # the shared bytes an H100 block can opt into
+# two CTAs an SM: the SM's 233,472 shared bytes less 1 KB a CTA, halved
+# (a layout takes a smaller step before it takes more than this)
+SMEM_TWO_CTAS = 115_712
+# the segments of a query are as many as bring the grid within this
+# share of whole waves of the card's resident CTAs (or nearest to it),
+# each of at least MIN_SEG_STEPS steps (a shorter one spends more on its
+# prologue, its keys and the merge than the last wave's idle share)
+WAVE_EFF = 0.9
+MIN_SEG_STEPS = 32
 UB_SMEM_BYTES = 200 * 1024  # the pick's bounds in shared memory up to this
-MAX_B = 65535  # the scan's grid.y
+# a pick group of fewer queries than this splits each query's bounds
+# over several CTAs (the H100's SMs), each part of >= PICK_PART blocks
+PICK_SPLIT_CTAS = 132
+PICK_PART = 1024
+MAX_B = 65535  # the scan's and the pick's grid.y
 
 
 class Plan(NamedTuple):
     """How dense_scan runs one (B, T, NB, M, mode) group."""
-    LPT: int  # lanes a thread loads a step (one 16-byte load a slot)
-    step_blocks: int  # 128-lane blocks a CTA covers a step
+    NS: int  # ring stages
+    step_blocks: int  # 128-lane blocks a step (SB)
     nseg: int  # CTAs a query (> 1: the merge launch runs)
     bps: int  # blocks a segment
     K: int  # keys kept a query: M + 1
@@ -64,14 +96,19 @@ class Plan(NamedTuple):
     launches: int  # CUDA launches a call
     part_words: int  # int32 words of the segments' keys
     r_words: int  # int32 words of the running lists' scratch (KP > cap)
+    table_words: int  # f32 words of tc's device table
     out_words: int  # int32 words of the outputs
+    resident: int  # the card's resident scan CTAs the plan was made for
+    wave_eff: float  # CTAs / (whole waves * resident)
 
 
 class PickPlan(NamedTuple):
     """How dense_pick runs one (B, T, NB, C) group."""
-    ub_smem: bool  # the NB bounds in shared memory (else a scratch)
+    nsplit: int  # CTAs a query (> 1: bounds in the scratch, the last selects)
+    ub_smem: bool  # the NB bounds in shared memory for the select
     smem: int  # dynamic shared bytes
     scratch_words: int  # f32 words of the bounds' scratch
+    done_words: int  # the (B,) words the parts count themselves on
 
 
 def _pow2(n: int) -> int:
@@ -82,45 +119,201 @@ def _align16(n: int) -> int:
     return (n + 15) & ~15
 
 
-def scan_bytes(T: int, KP: int, mode: str) -> int:
-    """dense.cu's scan_bytes: the counters | T row offsets | T weights |
-    R and R2 (KP keys each, up to KEY_SMEM_CAP) | X (two steps of
-    keys)."""
-    LPT = 16 if mode == "tc" else 4
-    return (MISC_BYTES + _align16(8 * T) + _align16(4 * T)
-            + (16 * KP if KP <= KEY_SMEM_CAP else 0) + 16 * THREADS * LPT)
+def stage_bytes(T: int, mode: str, SB: int = STEP_BLOCKS) -> int:
+    """One ring stage: T row segments of SB * 128 lanes (4 B raw, 1 B tc)
+    and, tc, the len-code row's segment."""
+    tc = mode == "tc"
+    SL = SB * 128
+    return _align16(T * SL * (1 if tc else 4) + (SL if tc else 0))
+
+
+def scan_bytes(T: int, KP: int, mode: str, NS: int = MIN_STAGES,
+               SB: int = STEP_BLOCKS, listed: bool = False) -> int:
+    """dense.cu's scan_layout: the stages' mbarriers and the row count
+    (48 B) | 3 step counters | a flush's scratch (FLUSH_BYTES) | T row
+    offsets, row indices and weights | a block list's segment ids
+    (IDS_CAP int64) | tc: the cache and norm tables (256 + 256 * TC_TFT
+    f32) | NS stages | R and R2 (KP keys each, up to KEY_SMEM_CAP) and X
+    (two steps of keys)."""
+    tc = mode == "tc"
+    return (48 + 16 + FLUSH_BYTES + _align16(8 * T) + 2 * _align16(4 * T)
+            + (8 * IDS_CAP if listed else 0)
+            + ((1024 + 4 * 256 * TC_TFT) if tc else 0)
+            + NS * stage_bytes(T, mode, SB)
+            + (16 * KP if KP <= KEY_SMEM_CAP else 0) + 16 * SB * 128)
+
+
+def merge_bytes(KP: int) -> int:
+    """dense.cu's merge_bytes: 3 counters | X | a flush's scratch | R and
+    R2 (up to KEY_SMEM_CAP)."""
+    return (16 + 16 * MERGE_LANES + FLUSH_BYTES
+            + (16 * KP if KP <= KEY_SMEM_CAP else 0))
+
+
+def _fit(T: int, KP: int, mode: str, cap: int, listed: bool):
+    """(NS, SB, smem) of the largest step, then the most stages (up to
+    RING_BYTES together, at least MIN_STAGES), within cap bytes."""
+    for SB in (8, 4, 2, 1):
+        top = min(MAX_STAGES, max(MIN_STAGES,
+                                  RING_BYTES // stage_bytes(T, mode, SB)))
+        for NS in range(top, MIN_STAGES - 1, -1):
+            smem = scan_bytes(T, KP, mode, NS, SB, listed)
+            if smem <= cap:
+                return NS, SB, smem
+    return None
+
+
+def scan_layout(T: int, KP: int, mode: str, listed: bool = False):
+    """(NS, SB, smem) of a scan (listed: over a block list): the largest
+    step whose layout leaves room for two CTAs an SM, else the largest
+    within the block's limit. Raises ValueError where none fits (T in the
+    hundreds)."""
+    fit = (_fit(T, KP, mode, SMEM_TWO_CTAS, listed)
+           or _fit(T, KP, mode, MAX_SMEM, listed))
+    if fit is None:
+        raise ValueError(f"no scan layout fits {MAX_SMEM} shared bytes at "
+                         f"T={T}, KP={KP}")
+    return fit
+
+
+def _segments(B: int, steps: int, SB: int, resident: int, max_bps: int):
+    """(nseg, bps, eff): the fewest segments of whole steps (of at most
+    max_bps blocks, at least MIN_SEG_STEPS steps where there are that
+    many) whose grid (B * nseg CTAs) comes within WAVE_EFF of whole waves
+    of `resident` CTAs, else the count nearest to them; the fewest
+    segments where the queries alone fill two waves (the last wave's
+    idle share is then under a third, and a split would add the merge
+    launch)."""
+    least = -(-steps // (max_bps // SB))
+    most = max(least, steps // MIN_SEG_STEPS)
+    if B >= 2 * resident:
+        sps = -(-steps // least)
+        nseg = -(-steps // sps)
+        items = B * nseg
+        return nseg, sps * SB, items / (-(-items // resident) * resident)
+    best = None
+    prev = 0
+    for n in range(least, most + 1):
+        sps = -(-steps // n)  # steps a segment
+        nseg = -(-steps // sps)
+        if nseg == prev:
+            continue
+        prev = nseg
+        items = B * nseg
+        eff = items / (-(-items // resident) * resident)
+        if eff >= WAVE_EFF:
+            return nseg, sps * SB, eff
+        if best is None or eff > best[2]:
+            best = (nseg, sps * SB, eff)
+    return best
 
 
 @functools.lru_cache(maxsize=4096)
-def plan(B: int, T: int, NB: int, M: int, mode: str) -> Plan:
+def plan(B: int, T: int, NB: int, M: int, mode: str, resident: int,
+         listed: bool = False) -> Plan:
     """The launch plan of a scan group (arguments already checked): NB is
     the lane set's blocks (N_pad / 128 for the full scan, C for a block
-    list). Segments of whole steps, as many as fill TARGET_CTAS."""
-    LPT = 16 if mode == "tc" else 4
-    step_blocks = THREADS * LPT // 128
+    list: listed); `resident` the card's resident CTAs at the layout's
+    shared bytes (resident_for on a card). A ring of stages, and each
+    query's blocks in segments of whole steps, as many as bring the grid
+    to whole waves (a block list's segments of at most IDS_CAP
+    blocks)."""
     K = M + 1
     KP = _pow2(K)
-    steps = -(-NB // step_blocks)
-    nseg = max(1, min(steps, -(-TARGET_CTAS // max(B, 1))))
-    bps = -(-steps // nseg) * step_blocks
-    nseg = -(-NB // bps)
-    smem = scan_bytes(T, KP, mode)
+    NS, SB, smem = scan_layout(T, KP, mode, listed)
+    steps = -(-NB // SB)
+    nseg, bps, eff = _segments(B, steps, SB, resident,
+                               IDS_CAP if listed else steps * SB)
     in_smem = KP <= KEY_SMEM_CAP
-    merge_smem = 24 * KP if nseg > 1 and in_smem else 0
+    merge_smem = merge_bytes(KP) if nseg > 1 else 0
     part_words = 2 * B * nseg * K if nseg > 1 else 0
     r_words = 0 if in_smem else 4 * B * nseg * KP
-    return Plan(LPT, step_blocks, nseg, bps, K, KP, smem, merge_smem,
-                1 + (nseg > 1), part_words, r_words,
-                B * (2 * M + T * M + 1))
+    tc = mode == "tc"
+    return Plan(NS, SB, nseg, bps, K, KP, smem, merge_smem,
+                1 + (nseg > 1) + tc, part_words, r_words,
+                TC_TABLE_WORDS if tc else 0, B * (2 * M + T * M + 1),
+                resident, eff)
 
 
 @functools.lru_cache(maxsize=4096)
 def pick_plan(B: int, T: int, NB: int, C: int) -> PickPlan:
-    """The pick's plan: the bounds in shared memory up to UB_SMEM_BYTES,
-    else in a (B, NB) f32 scratch."""
+    """The pick's plan: a group of fewer than PICK_SPLIT_CTAS queries
+    splits each query's bounds over up to that many CTAs together (parts
+    of at least PICK_PART blocks), into a (B, NB) f32 scratch; the select
+    reads the bounds from shared memory up to UB_SMEM_BYTES, else from
+    that scratch."""
+    nsplit = max(1, min(-(-PICK_SPLIT_CTAS // max(B, 1)), NB // PICK_PART))
     ub_smem = 4 * NB <= UB_SMEM_BYTES
     smem = _align16(8 * T) + _align16(4 * T) + (4 * NB if ub_smem else 0)
-    return PickPlan(ub_smem, smem, 0 if ub_smem else B * NB)
+    scratch = B * NB if (nsplit > 1 or not ub_smem) else 0
+    return PickPlan(nsplit, ub_smem, smem, scratch,
+                    B if nsplit > 1 else 0)
+
+
+def tc_tables(avg32):
+    """The tc scan's exact tables as dense.cu fills them (keys.cuh
+    tc_fill_tables), in f32 on avg32's device: cache (256,) the length
+    term of each len code, norm (256, TC_TFT) the tf part of the score of
+    each (code, tf < TC_TFT), before the multiply by idf; each entry one
+    round-to-nearest f32 operation at a time, in tc_score's order."""
+    avg = avg32.reshape(()).to(torch.float32)
+    dev = avg.device
+    code = torch.arange(256, dtype=torch.int32, device=dev)
+    bits = code & 7
+    shift = ((code >> 3) - 1).clamp(max=27)
+    length = torch.where(shift < 0, bits, (bits | 8) << shift.clamp(min=0))
+    f32 = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
+    cache = f32(1.2) * (f32(0.25) + f32(0.75) * length.to(torch.float32)
+                        / avg)
+    tf = torch.arange(TC_TFT, dtype=torch.float32, device=dev)
+    norm = (tf[None, :] * f32(2.2)) / (tf[None, :] + cache[:, None])
+    return cache, norm
+
+
+def tc_table_torch(avg32):
+    """The tc scan's device table's plain version: (256, 256) f32,
+    [tf, code] = the tf part of the score of that lane (255: 2.2)."""
+    return tc_lane_scores(avg32, 1.0).T.contiguous()
+
+
+def tc_table(avg32):
+    """The tc scan's device table (dense.cu tc_norm_kernel, which
+    dense_scan launches before every tc scan) for a one-element f32
+    avg32: on a CUDA tensor the kernel alone (counted as
+    dense_tc_table), on the CPU tc_table_torch."""
+    _need(isinstance(avg32, _T) and avg32.dtype is torch.float32
+          and avg32.numel() == 1 and avg32.is_contiguous(),
+          "avg32 must be a contiguous one-element float32 tensor")
+    if avg32.device.type != "cuda":
+        return tc_table_torch(avg32)
+    out = torch.empty((256, 256), dtype=torch.float32, device=avg32.device)
+    fns = _kernel_fns()
+    idx = (avg32.device.index if avg32.device.index is not None
+           else torch.cuda.current_device())
+    with torch.cuda.device(idx):
+        rc = fns.tc_table(avg32.data_ptr(), out.data_ptr(),
+                          torch._C._cuda_getCurrentRawStream(idx))
+    if rc != 0:
+        raise RuntimeError("dense_tc_table launch failed: "
+                           + fns.error(rc).decode())
+    launch_counts["dense_tc_table"] += 1
+    return out
+
+
+def tc_lane_scores(avg32, idf: float):
+    """(256, 256) f32: the score the tc scan gives a lane of len code c
+    and tf byte f in a slot of this idf: idf * norm[c, f] below TC_TFT
+    (the shared table), the division of tc_score_cached at and above it
+    (the device table; 255: idf * 2.2)."""
+    cache, norm = tc_tables(avg32)
+    dev = cache.device
+    w = torch.tensor(idf, dtype=torch.float32, device=dev)
+    tf = torch.arange(256, dtype=torch.float32, device=dev)
+    k1p1 = torch.tensor(2.2, dtype=torch.float32, device=dev)
+    div = (tf[None, :] * k1p1) / (tf[None, :] + cache[:, None])
+    div[:, 255] = k1p1
+    full = torch.cat([norm, div[:, TC_TFT:]], dim=1)
+    return w * full
 
 
 def reset_launch_counts() -> None:
@@ -297,16 +490,16 @@ def pruned_args_ok(dense, dense_tf, len_code, avg32, blockmax, blockmax2,
 class _ScanParams(ctypes.Structure):
     """dense.cu's WiserDenseScanParams: every field 8 bytes, in order."""
     _fields_ = [(n, ctypes.c_longlong) for n in (
-        "sc tf tf8 code avg32 slots weights blocks H N_pad B T M nblk K KP "
-        "nseg bps smem merge_smem part_keys rscratch top_docs top_score "
-        "top_tfs flags").split()]
+        "sc tf tf8 code avg32 norm_g slots weights blocks H N_pad B T M nblk "
+        "K KP nseg bps NS SB smem merge_smem part_keys rscratch "
+        "top_docs top_score top_tfs flags").split()]
 
 
 class _PickParams(ctypes.Structure):
     """dense.cu's WiserDensePickParams."""
     _fields_ = [(n, ctypes.c_longlong) for n in (
-        "bm bm2 ap slots weights H NB B T C smem ub_scratch blk "
-        "next_ub").split()]
+        "bm bm2 ap slots weights H NB B T C nsplit ub_smem smem ub_scratch "
+        "done blk next_ub").split()]
 
 
 class _Fns:
@@ -319,6 +512,13 @@ class _Fns:
         self.pick = lib.wiser_dense_pick
         self.pick.argtypes = [ctypes.POINTER(_PickParams), ctypes.c_void_p]
         self.pick.restype = ctypes.c_int
+        self.tc_table = lib.wiser_dense_tc_table
+        self.tc_table.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_void_p]
+        self.tc_table.restype = ctypes.c_int
+        self.resident = lib.wiser_dense_resident
+        self.resident.argtypes = [ctypes.c_int, ctypes.c_longlong]
+        self.resident.restype = ctypes.c_int
         self.error = lib.wiser_dense_error_string
         self.error.argtypes = [ctypes.c_int]
         self.error.restype = ctypes.c_char_p
@@ -335,6 +535,27 @@ def _kernel_fns() -> _Fns:
 
         _fns = _Fns(load_library("dense"))
     return _fns
+
+
+@functools.lru_cache(maxsize=256)
+def _resident(mode: str, smem: int, idx: int) -> int:
+    fns = _kernel_fns()
+    with torch.cuda.device(idx):
+        n = fns.resident(int(mode == "tc"), smem)
+    if n <= 0:
+        raise RuntimeError("dense_scan occupancy query failed: "
+                           + fns.error(-n).decode())
+    return n
+
+
+def resident_for(mode: str, T: int, M: int, dev: torch.device,
+                 listed: bool = False) -> int:
+    """The card's resident scan CTAs (SMs times CTAs an SM, from the CUDA
+    runtime's occupancy) at the layout plan() picks for these
+    arguments."""
+    _, _, smem = scan_layout(T, _pow2(M + 1), mode, listed)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _resident(mode, smem, idx)
 
 
 def _launch(fn, params, dev: torch.device, what: str) -> None:
@@ -375,32 +596,42 @@ def dense_scan(plane, tf_plane, slots, weights, *, T: int, N_pad: int,
     if B > MAX_B:
         raise ValueError(f"B = {B} queries exceed the grid's {MAX_B}")
     tc = len_code is not None
+    mode = "tc" if tc else "raw"
     nblk = N_pad // 128 if blocks is None else blocks.shape[1]
-    p = plan(B, T, nblk, M, "tc" if tc else "raw")
-    buf = torch.empty(p.part_words + p.r_words + p.out_words,
-                      dtype=torch.int32, device=dev)
+    listed = blocks is not None
+    p = plan(B, T, nblk, M, mode,
+             resident_for(mode, T, M, dev, listed) if B else 1, listed)
+    buf = torch.empty(p.part_words + p.r_words + p.table_words
+                      + p.out_words, dtype=torch.int32, device=dev)
     BM, BTM = B * M, B * T * M
-    _, _, docs, score, tfs, flags = buf.split(
-        (p.part_words, p.r_words, BM, BM, BTM, B))
+    _, _, _, docs, score, tfs, flags = buf.split(
+        (p.part_words, p.r_words, p.table_words, BM, BM, BTM, B))
     res = (docs.view(B, M), score.view(torch.float32).view(B, M),
            tfs.view(B, T, M), flags)
     if B == 0:
         return res
     # the segments' keys, then the running lists' scratch (both 8-byte
-    # aligned), then the outputs
+    # aligned), tc's table, then the outputs
     base = buf.data_ptr()
-    o = base + 4 * (p.part_words + p.r_words)
+    table = base + 4 * (p.part_words + p.r_words)
+    o = table + 4 * p.table_words
     params = _ScanParams(
         0 if tc else plane.data_ptr(), 0 if tc else tf_plane.data_ptr(),
         plane.data_ptr() if tc else 0, len_code.data_ptr() if tc else 0,
-        avg32.data_ptr() if tc else 0, slots.data_ptr(), weights.data_ptr(),
+        avg32.data_ptr() if tc else 0, table if tc else 0,
+        slots.data_ptr(), weights.data_ptr(),
         0 if blocks is None else blocks.data_ptr(), plane.shape[0], N_pad, B,
-        T, M, nblk, p.K, p.KP, p.nseg, p.bps, p.smem, p.merge_smem,
+        T, M, nblk, p.K, p.KP, p.nseg, p.bps, p.NS, p.step_blocks, p.smem,
+        p.merge_smem,
         base if p.part_words else 0,
         base + 4 * p.part_words if p.r_words else 0, o, o + 4 * BM,
         o + 8 * BM, o + 4 * (2 * BM + BTM))
     _launch(lambda f: f.scan, params, dev, "dense_scan")
-    launch_counts["dense_scan"] += 1
+    if tc:
+        launch_counts["dense_scan_tc"] += 1
+        launch_counts["dense_tc_table"] += 1
+    else:
+        launch_counts["dense_scan"] += 1
     if p.nseg > 1:
         launch_counts["dense_scan_merge"] += 1
     return res
@@ -411,8 +642,9 @@ def dense_pick(blockmax, slots, weights, *, T: int, NB: int, C: int,
     """_select_ub_blocks's outputs from the kernel, on CUDA tensors: (blk
     (B, C) int64 ascending block ids, next_ub (B,) f32). Checks the
     arguments as check_pick_inputs does, allocates the outputs (and the
-    bounds' scratch, where they leave shared memory) as views of one
-    buffer, launches on the current stream and does not synchronize."""
+    bounds' scratch and the parts' words, where the plan needs them) as
+    views of one buffer, launches on the current stream and does not
+    synchronize."""
     kw = dict(T=T, NB=NB, C=C, blockmax2=blockmax2, argpos=argpos)
     if not (pick_args_ok(blockmax, slots, weights, **kw)
             and blockmax.device.type == "cuda"):
@@ -421,21 +653,26 @@ def dense_pick(blockmax, slots, weights, *, T: int, NB: int, C: int,
                          f"{blockmax.device}")
     dev = blockmax.device
     B = slots.shape[0]
+    if B > MAX_B:
+        raise ValueError(f"B = {B} queries exceed the grid's {MAX_B}")
     p = pick_plan(B, T, NB, C)
-    # int64 ids first (8-byte aligned), then next_ub, then the scratch
+    # int64 ids first (8-byte aligned), then next_ub, the scratch and the
+    # parts' words
     nb_pad = (B + 1) // 2 * 2
-    buf = torch.empty(2 * B * C + nb_pad + p.scratch_words,
+    buf = torch.empty(2 * B * C + nb_pad + p.scratch_words + p.done_words,
                       dtype=torch.int32, device=dev)
     blk = buf[: 2 * B * C].view(torch.int64).view(B, C)
     next_ub = buf[2 * B * C: 2 * B * C + B].view(torch.float32)
     if B == 0:
         return blk, next_ub
     base = buf.data_ptr()
+    scratch = base + 4 * (2 * B * C + nb_pad)
     params = _PickParams(
         blockmax.data_ptr(), 0 if blockmax2 is None else blockmax2.data_ptr(),
         0 if argpos is None else argpos.data_ptr(), slots.data_ptr(),
-        weights.data_ptr(), blockmax.shape[0], NB, B, T, C, p.smem,
-        0 if p.ub_smem else base + 4 * (2 * B * C + nb_pad), base,
+        weights.data_ptr(), blockmax.shape[0], NB, B, T, C, p.nsplit,
+        int(p.ub_smem), p.smem, scratch if p.scratch_words else 0,
+        scratch + 4 * p.scratch_words if p.done_words else 0, base,
         base + 8 * B * C)
     _launch(lambda f: f.pick, params, dev, "dense_pick")
     launch_counts["dense_pick"] += 1

@@ -3,6 +3,7 @@ against their plain torch versions on synthetic dense planes, and timed
 beside them at the engine's shapes.
 
     python -m wiser_tpu_torch.tools.dense_bench [--out report.json]
+    python -m wiser_tpu_torch.tools.dense_bench --probe [--index IDX]
     python -m wiser_tpu_torch.tools.dense_bench --trees OLD,.,.,OLD \
         [--index IDX] --out report.json
 
@@ -18,8 +19,11 @@ memory); and the pruned scan (pruned_scan_body against
 pruned_scan_body_torch) at those C; then the grid's edges: queries with
 no match, with fewer than M matches, fewer than M + 1 blocks, padded
 slots, saturated tf bytes and len codes >= 128 (every tc plane has
-them). Half of the synthetic rows draw their scores from a few values,
-so boundary ties are cut at the M-th place and block bounds tie at the
+them); and the redesign's edges (`edge_cases`): groups whose queries
+share every row, none, or repeat a row, B 1 and B 8, every (len code,
+tf byte) lane of the tc tables and the tc table kernel itself, equal
+and signed-zero bounds, C + 1 = NB, a small group's split pick. Half of the synthetic rows draw their scores from a
+few values, so boundary ties are cut at the M-th place and block bounds tie at the
 C-th. `check` is the comparison: flags bit-equal on every row; the
 kernel's lanes in (score desc, doc asc) order; its kept (doc, f32 score
 bits, tfs) equal to the plain version's sorted so, on unflagged rows,
@@ -35,14 +39,19 @@ cost per call, the peak device memory above the inputs (kernel and
 plain), and the bytes bound (`bound_bytes`, the group's distinct rows and
 per query).
 
+`--probe [--index IDX]` reads each kernel phase's cycles from a
+measuring build's `clock64()` marks (`probe`), on synthetic 1M planes
+and, with `--index`, on the engines' own planes.
+
 `--trees` measures each listed tree once, in turns, each in its own
 process importing wiser_tpu_torch from that tree (a checkout of another
 commit, e.g. unpacked from `git archive`), through
 tools/unpack_bench.run_trees: the engine's entry points (dense_scan_body,
 pruned_scan_body, _select_ub_blocks: a kernel in this tree, the plain
-version in a tree without one) at `time_shapes`'s shapes, and with
-`--index` (a saved 1M index) route_bench's ROUTES sets, raw and tc, each
-traced.
+version in a tree without one) at `time_shapes`'s shapes on synthetic 1M
+planes and, with `--index` (a saved 1M index), on that index's own
+planes (a TorchEngine's, raw and tc), then route_bench's ROUTES sets,
+raw and tc, each traced.
 """
 
 from __future__ import annotations
@@ -373,6 +382,7 @@ def check_cases(dev, seed: int = 0, NBs=CHECK_NB, Ts=CHECK_T, Ms=CHECK_M,
                        pick_call(K._select_ub_blocks_torch, p, q, "raw", 1024,
                                  second), what),
             kind="pick", mode="raw", NB=NB, B=8, T=3, C=1024, what=what)
+    cases += edge_cases(dev, seed, H)
     flagged = sum(c.get("flagged", 0) for c in cases)
     if not flagged:
         raise AssertionError("no case cut a boundary tie (FLAG_TRUNC)")
@@ -381,6 +391,159 @@ def check_cases(dev, seed: int = 0, NBs=CHECK_NB, Ts=CHECK_T, Ms=CHECK_M,
             "kept_lanes": sum(c.get("kept", 0) for c in cases),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "rows": cases}
+
+
+# the scan's group edges: (name, B, T, rows per query or None for random
+# draws)
+SCAN_EDGES = (("shared", 8, 2, [[3, 4]]),
+              ("disjoint", 4, 2, [[3, 4], [5, 6], [7, 8], [9, 10]]),
+              ("repeat", 7, 3, [[5, 5, 6], [6, 5, 5], [3, 3, 3], [4, 7, 4],
+                                [8, 9, 10], [5, 6], [11]]),
+              ("one", 1, 2, [[3, 4]]),
+              ("rescue8", 8, 3, None))
+
+
+def tc_lane_planes(tft: int, NB: int = 12) -> dict:
+    """tc planes whose lanes hold every len code 0..255 against the tf
+    bytes 0, 1, tft - 1, tft, 254 and 255 (doc d: code d % 256, row 0's
+    tf byte the (d // 256)-th of those), row 1 tf 1 everywhere."""
+    N = NB * 128
+    tfs = np.array([0, 1, tft - 1, tft, 254, 255], dtype=np.uint8)
+    d = np.arange(N)
+    tf8 = np.ones((2, N), dtype=np.uint8)
+    tf8[0] = tfs[(d // 256) % len(tfs)]
+    return {"tf8": tf8, "code": (d % 256).astype(np.uint8),
+            "avg32": np.float32(57.25)}
+
+
+def pick_edge_planes(NB: int = 1000, seed: int = 5) -> dict:
+    """Block planes of 3 rows over NB blocks (no multiple of the pick's
+    512-thread CTA): row 0 every bound equal (1.0, second maxima 1.0,
+    argmax 0), row 1 +1, -1 and 0 mixed (times a weight of 0: bounds +0
+    and -0), row 2 drawn from a few values."""
+    rng = np.random.default_rng(seed)
+    bm = np.ones((3, NB), dtype=np.float32)
+    bm[1] = rng.choice(np.array([1.0, -1.0, 0.0], dtype=np.float32), NB)
+    bm[2] = rng.integers(0, 4, NB).astype(np.float32) * 0.5
+    bm2 = np.minimum(bm, np.float32(0.5))
+    ap = np.zeros((3, NB), dtype=np.uint8)
+    ap[2] = rng.integers(0, 128, NB)
+    return {"bm": bm, "bm2": bm2, "ap": ap}
+
+
+def edge_cases(dev, seed: int = 0, H: int = 12) -> list:
+    """The redesign's edges, each kernel against its plain version: the
+    full scan over groups whose queries share every row, none, or repeat
+    a row within a query (each row copied once a step), B 1 and the
+    rescue's B 8, raw and tc;
+    every (len code, tf byte) lane of the tc tables at tf 0, 1, TC_TFT -
+    1, TC_TFT, 254 and 255; the pick with every bound equal, +0 and -0
+    bounds, C + 1 = NB, NB no multiple of its CTA and B 1, both bound
+    forms, and B 1 over the 1M blocks (its bounds split over CTAs)."""
+    import torch
+
+    from wiser_tpu_torch.engine import kernels as K
+    from wiser_tpu_torch.ops import dense as D
+
+    kern_full = (K.dense_scan_body, K.dense_scan_body_tc)
+    plain_full = (K.dense_scan_body_torch, K.dense_scan_body_tc_torch)
+    cases = []
+    p = to_device(synth_planes(H, 157, seed + 157), dev)
+    for name, B, T, rows in SCAN_EDGES:
+        q = to_device(synth_slots(B, T, H, seed + B + T, rows=rows,
+                                  n_pad_rows=0), dev)
+        for mode in ("raw", "tc"):
+            M = 64 if name != "one" else 254
+            what = f"rows {name} {mode} B={B} T={T} M={M}"
+            row = check(full_call(kern_full, p, q, mode, M),
+                        full_call(plain_full, p, q, mode, M), M, what)
+            row.update(kind="rows", mode=mode, NB=157, B=B, T=T, M=M,
+                       what=what)
+            cases.append(row)
+    lp = to_device(tc_lane_planes(D.TC_TFT), dev)
+    for rows, M in (([[0]], 1500), ([[0, 1], [1, 0]], 1500), ([[0]], 64)):
+        T = len(rows[0])
+        q = to_device(synth_slots(len(rows), T, 2, seed, rows=rows,
+                                  n_pad_rows=0), dev)
+        N_pad = lp["tf8"].shape[1]
+        what = f"tc lanes T={T} M={M}"
+        args = (lp["tf8"], lp["code"], lp["avg32"], q["slots"], q["idf32"])
+        row = check(K.dense_scan_body_tc(*args, T=T, N_pad=N_pad, M=M),
+                    K.dense_scan_body_tc_torch(*args, T=T, N_pad=N_pad, M=M),
+                    M, what)
+        if M == 1500 and row["kept"] != len(rows) * 5 * 256:
+            raise AssertionError(f"{what}: {row['kept']} lanes kept, not "
+                                 f"every lane with a tf byte")
+        row.update(kind="tc_lanes", mode="tc", B=len(rows), T=T, M=M,
+                   what=what)
+        cases.append(row)
+    pp = to_device(pick_edge_planes(), dev)
+    NB = pp["bm"].shape[1]
+    picks = (("equal", [[0]], [[1.0]]), ("signed_zero", [[1]], [[0.0]]),
+             ("mixed", [[1, 2], [2, 0], [0, 2]], [[0.0, 1.0], [1.0, 1.0],
+                                                  [1.0, 0.0]]))
+    for name, rows, w in picks:
+        for C in (1, 300, NB - 1):
+            for second in (True, False):
+                slots = torch.tensor(rows, dtype=torch.int32, device=dev)
+                ws = torch.tensor(w, dtype=torch.float32, device=dev)
+                kw = dict(T=slots.shape[1], NB=NB, C=C,
+                          blockmax2=pp["bm2"] if second else None,
+                          argpos=pp["ap"] if second else None)
+                what = (f"pick {name} B={len(rows)} C={C} "
+                        f"{'anchor' if second else 'sum'}")
+                row = check_pick(K._select_ub_blocks(pp["bm"], slots, ws,
+                                                     **kw),
+                                 K._select_ub_blocks_torch(pp["bm"], slots,
+                                                           ws, **kw), what)
+                row.update(kind="pick_edge", mode="raw", NB=NB,
+                           B=len(rows), C=C, what=what)
+                cases.append(row)
+    for avg in (1.0, 57.25, 312.7):
+        a32 = torch.tensor([avg], dtype=torch.float32, device=dev)
+        got, want = D.tc_table(a32).cpu().numpy(), D.tc_table_torch(
+            a32).cpu().numpy()
+        what = f"tc table avg={avg}"
+        if not np.array_equal(got.view(np.int32), want.view(np.int32)):
+            raise AssertionError(f"{what}: differs from the plain table")
+        cases.append({"kind": "tc_table", "mode": "tc", "what": what,
+                      "rows": 256, "max_abs_err": 0.0})
+    p1 = to_device(synth_planes(H, NB_1M, seed + 1), dev)
+    q = to_device(synth_slots(1, 3, H, seed + 2, n_pad_rows=0), dev)
+    for mode in ("raw", "tc"):
+        what = f"pick split {mode} B=1 NB={NB_1M} C=512"
+        row = check_pick(pick_call(K._select_ub_blocks, p1, q, mode, 512),
+                         pick_call(K._select_ub_blocks_torch, p1, q, mode,
+                                   512), what)
+        row.update(kind="pick_edge", mode=mode, NB=NB_1M, B=1, C=512,
+                   what=what)
+        cases.append(row)
+    return cases
+
+
+def time_tc_table(dev, avg: float = 57.25, iters: int = 20) -> dict:
+    """The tc table kernel alone against its plain version (bit-equal
+    first): the kernel's own device time by torch.profiler (CUDA events
+    around the calls where the capture lost it), the plain version's by
+    CUDA events; its bound: the table written and avg32 read."""
+    import torch
+
+    from wiser_tpu_torch.ops import dense as D
+    from wiser_tpu_torch.tools.search_bench import event_ms, host_us
+
+    a32 = torch.tensor([avg], dtype=torch.float32, device=dev)
+    got, want = D.tc_table(a32), D.tc_table_torch(a32)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("tc table differs from the plain table")
+    nbytes = 4 * 256 * 256 + 4
+    own = launch_ms(lambda: D.tc_table(a32))["kernels"].get("tc_norm_kernel")
+    return {"ms": own if own is not None
+            else event_ms(lambda: D.tc_table(a32), iters),
+            "timing": "torch.profiler" if own is not None else "CUDA events",
+            "plain_ms": event_ms(lambda: D.tc_table_torch(a32), iters),
+            "host_us": host_us(lambda: D.tc_table(a32), iters),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_err": 0.0,
+            "shape": "(256, 256) f32"}
 
 
 def bound_bytes(slots, mode: str, N_pad: int, M: int, kept: int = None,
@@ -625,11 +788,134 @@ def time_shapes(dev, mode: str = "raw", planes=None, M: int = TIME_M,
     return rows
 
 
+# the phase marks of dense.cu's measuring build (WISER_DENSE_CLOCKS):
+# counter index -> phase; scan counters 0-5 over the CTAs in 6, pick
+# counters 8-11 over the selecting CTAs in 12
+SCAN_PHASES = ("prologue", "load", "score", "barrier", "flush", "epilogue")
+PICK_PHASES = ("bounds", "gather", "select", "compact")
+
+
+def clocks_build() -> object:
+    """dense.cu built with -DWISER_DENSE_CLOCKS (a measuring build beside
+    the library the entry points load), bound as ops/dense._Fns, with its
+    `clocks` reader."""
+    import ctypes
+
+    from wiser_tpu_torch import build
+    from wiser_tpu_torch.ops import dense as D
+
+    flags = (build.NVCC_FLAGS + build.EXTRA_NVCC_FLAGS["dense"]
+             + ("-DWISER_DENSE_CLOCKS",))
+    lib = build._load("dense_clocks", os.path.join(build.CSRC, "dense.cu"),
+                      flags, lambda src, out: [build._nvcc(), *flags, "-o",
+                                               out, src])
+    fns = D._Fns(lib)
+    fns.clocks = lib.wiser_dense_clocks
+    fns.clocks.argtypes = [ctypes.c_void_p]
+    fns.clocks.restype = ctypes.c_int
+    return fns
+
+
+def _bind(fns) -> None:
+    """Point ops/dense's entry points at the kernel library fns (and its
+    occupancy)."""
+    from wiser_tpu_torch.ops import dense as D
+
+    D._fns = fns
+    D._resident.cache_clear()
+
+
+def read_clocks(fns) -> list:
+    import ctypes
+
+    import torch
+
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * 32)()
+    rc = fns.clocks(ctypes.addressof(buf))
+    if rc:
+        raise RuntimeError(f"wiser_dense_clocks: {rc}")
+    return list(buf)
+
+
+def phase_split(fn, fns, calls: int = 3) -> dict:
+    """Each phase's cycles a CTA (thread 0's view) over `calls` calls of
+    fn() in the measuring build fns: the scan's and the pick's phases, and
+    each phase's share of its kernel's total."""
+    fn()
+    read_clocks(fns)
+    for _ in range(calls):
+        fn()
+    c = read_clocks(fns)
+    out = {}
+    for names, first, n_at in ((SCAN_PHASES, 0, 6), (PICK_PHASES, 8, 12)):
+        if not c[n_at]:
+            continue
+        cyc = {k: c[first + i] / c[n_at] for i, k in enumerate(names)}
+        tot = sum(cyc.values())
+        out["scan" if first == 0 else "pick"] = {
+            "ctas_a_call": c[n_at] / calls, "cycles_a_cta": cyc,
+            "share": {k: v / tot for k, v in cyc.items()},
+            # scan: key flushes a CTA; pick: select passes and early
+            # rankings a selecting CTA
+            "counts": ({"flushes": c[7] / c[n_at]} if first == 0 else
+                       {"passes": c[13] / c[n_at],
+                        "ranked": c[14] / c[n_at]})}
+    return out
+
+
+def probe(dev, planes=None, modes=("raw", "tc"), full=FULL_SHAPES,
+          pruned=PRUNED_SHAPES, M: int = TIME_M, C: int = TIME_C,
+          iters: int = 10, seed: int = 1) -> list:
+    """Each kernel phase's cycles by clock64() marks (the measuring
+    build) at the full scan's shapes and at the pruned scan's with its
+    pick, on `planes` (default synthetic 1M planes) in `modes`, each
+    beside its event-timed ms in that build. The entry points use the
+    library they loaded again afterwards."""
+    import torch
+
+    from wiser_tpu_torch.engine import kernels as K
+    from wiser_tpu_torch.ops import dense as D
+    from wiser_tpu_torch.tools.search_bench import event_ms
+
+    p = planes if planes is not None else planes_1m(dev, seed)
+    H = p["bm"].shape[0]
+    qs = {(B, T): to_device(synth_slots(B, T, H, seed + B + T, n_pad_rows=0),
+                            dev) for B, T in full + pruned}
+    kern_full = (K.dense_scan_body, K.dense_scan_body_tc)
+    rows = []
+    loaded = D._kernel_fns()
+    fns = clocks_build()
+    try:
+        _bind(fns)
+        for mode in modes:
+            for kind, shapes in (("full", full), ("pruned", pruned)):
+                for B, T in shapes:
+                    q = qs[(B, T)]
+                    if kind == "full":
+                        def fn(q=q, mode=mode):
+                            return full_call(kern_full, p, q, mode, M)
+                    else:
+                        def fn(q=q, mode=mode):
+                            return pruned_call(K.pruned_scan_body, p, q,
+                                               mode, C, M)
+                    rows.append(dict(kind=kind, mode=mode, B=B, T=T,
+                                     ms=event_ms(fn, iters),
+                                     **phase_split(fn, fns)))
+    finally:
+        _bind(loaded)
+        torch.cuda.empty_cache()
+    for row in rows:
+        log(f"dense probe {json.dumps(row)}")
+    return rows
+
+
 def measure(root: str, index=None, routes: str = ROUTES) -> dict:
     """One tree's readings, in this process: its entry points at
-    time_shapes's shapes, raw and tc (no plain times, no comparison) and,
-    given a saved index, route_bench's `routes` raw and tc, each set
-    traced."""
+    time_shapes's shapes, raw and tc (no plain times, no comparison), on
+    synthetic 1M planes and, given a saved index, on a TorchEngine's own
+    planes of it in each column mode; then route_bench's `routes` raw and
+    tc, each set traced."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -648,8 +934,20 @@ def measure(root: str, index=None, routes: str = ROUTES) -> dict:
     del p
     torch.cuda.empty_cache()
     if index:
+        from wiser_tpu_torch import TorchEngine
+        from wiser_tpu_torch.index.format import PackedIndex
         from wiser_tpu_torch.tools import route_bench as RB
 
+        packed = PackedIndex.load(index, skip_offsets=True)
+        out["engine_timing"] = {}
+        for columns in ("raw", "tc"):
+            eng = TorchEngine(packed, device="cuda", columns=columns)
+            out["engine_timing"][columns] = time_shapes(
+                dev, columns, planes=engine_planes(eng), plain=False,
+                compare=False)
+            del eng
+            torch.cuda.empty_cache()
+        del packed
         out["routes"] = {}
         for columns in ("raw", "tc"):
             with tempfile.TemporaryDirectory() as tmp:
@@ -664,16 +962,19 @@ def measure(root: str, index=None, routes: str = ROUTES) -> dict:
 
 def summary(runs: list) -> dict:
     """Per run: each shape's [device ms, flushed ms, host us, bound
-    share], and each route set's [untraced wall s, traced device busy ms,
-    device ms of the dense kernels in the traced pass, busy share]."""
+    share] (on the index's planes: keys prefixed engine_), and each route
+    set's [untraced wall s, traced device busy ms, device ms of the dense
+    kernels in the traced pass, busy share]."""
     res = []
     for r in runs:
         s = {"tree": r["tree"], "card": r["card"]}
-        for mode, rows in r["timing"].items():
-            for x in rows:
-                s[f"{x['kind']}_{mode}_B{x['B']}_T{x['T']}"] = [
-                    x["device_ms"], x["flushed_ms"], x["host_us"],
-                    x["share"]]
+        for prefix, timing in (("", r["timing"]),
+                               ("engine_", r.get("engine_timing", {}))):
+            for mode, rows in timing.items():
+                for x in rows:
+                    s[f"{prefix}{x['kind']}_{mode}_B{x['B']}_T{x['T']}"] = [
+                        x["device_ms"], x["flushed_ms"], x["host_us"],
+                        x["share"]]
         for columns, sets in r.get("routes", {}).items():
             for name, row in sets.items():
                 traced = row.get("traced") or {}
@@ -695,6 +996,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--root", help="measure this tree in this process")
     ap.add_argument("--index", help="a saved 1M index for route_bench's sets")
     ap.add_argument("--routes", default=ROUTES)
+    ap.add_argument("--probe", action="store_true",
+                    help="each kernel phase's cycles (clock64() marks)")
     args = ap.parse_args(argv)
     if args.root:
         res = measure(args.root, args.index, args.routes)
@@ -727,7 +1030,25 @@ def main(argv=None) -> dict:
             res["check"].pop("rows")
             res["check"]["wall_s"] = time.perf_counter() - t0
             log(f"dense check: {res['check']}")
-        res["timing"] = {m: time_shapes(dev, m) for m in ("raw", "tc")}
+        if args.probe and args.index:
+            # each column mode on a TorchEngine's own planes of the
+            # index, then the synthetic planes
+            from wiser_tpu_torch import TorchEngine
+            from wiser_tpu_torch.index.format import PackedIndex
+
+            packed = PackedIndex.load(args.index, skip_offsets=True)
+            res["probe"] = {}
+            for columns in ("raw", "tc"):
+                eng = TorchEngine(packed, device="cuda", columns=columns)
+                res["probe"][columns] = probe(
+                    dev, planes=engine_planes(eng), modes=(columns,))
+                del eng
+                torch.cuda.empty_cache()
+            res["probe"]["synthetic"] = probe(dev)
+        elif args.probe:
+            res["probe"] = probe(dev)
+        else:
+            res["timing"] = {m: time_shapes(dev, m) for m in ("raw", "tc")}
         print(json.dumps(res))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
