@@ -130,11 +130,11 @@ search for phrases). Phases:
             `mesh` (ShardedEngine, raw) and `mesh_tc` (columns="tc") over
             aol, aol_df, aol_df_pruned (1,024 df-ranked queries with
             PRUNED_DENSE_MIN_NB = 1024 on the instance: at 4 shards the
-            1,954 blocks per shard stay under the default 2,048) and a 512
+            1,954 blocks per shard stay under the default 2,048) and a 256
             phrase prefix; `mesh_staged` (ShardedStagedEngine at a quarter
             of its full residency bytes) over aol, aol_df 1,024 and a 256
             phrase prefix; and tools/shard_ladder.run on the mesh engine
-            (configs 1-4, 2,048 queries each, 50 sampled). Raises unless
+            (configs 1-4, 1,024 queries each, 50 sampled). Raises unless
             aol_df takes the dense and semidense routes, aol_df_pruned the
             pruned one, the phrase prefix the compact one, mesh_tc's
             postings take <= 0.51 of mesh's bytes, and mesh_staged answers
@@ -196,8 +196,18 @@ fails if neither scan launched on the dense, tc or mesh phase, or on
 another phase whose route counters show dense, pruned or rescued
 queries, if dense_scan never launched on the dense phase or
 dense_scan_tc on the tc phase, or if dense_pick never launched on the
-dense or tc phase. The full report is the last line of stderr, one
-JSON object (also written to the --report path, if given).
+dense or tc phase. The full-scan mega phrase's kernels (the selection
+phrase_select and its band pass phrase_band, phrase_select_tc and
+phrase_band_tc on tc columns) are held against their plain versions in
+the kernel phase (dense_bench.check_phrase_cases: raw and tc, T 2, 3 and
+8, KV 1,024 and 4,096 over 1, 157 and 7,816 blocks, the band at
+thresholds each side of the (KV+1)-th score and, tc, its payload ties
+and a full stream) and timed there on synthetic 1M planes and in the
+dense and tc phases on the engines' planes; the smoke fails if the
+phrase set's full-scan route answered queries on the dense or tc phase
+and either kernel did not launch there. The full report is the last
+line of stderr, one JSON object (also written to the --report path, if
+given).
 """
 
 from __future__ import annotations
@@ -512,10 +522,55 @@ DENSE_KERNELS = (
     ("dense_scan_tc", "wiser_tpu/engine/kernels.py:1061"),
     ("dense_tc_table", "wiser_tpu/engine/kernels.py:77"),
     ("dense_scan_merge", "wiser_tpu/engine/kernels.py:284"),
-    ("dense_pick", "wiser_tpu/engine/kernels.py:1222"))
+    ("dense_pick", "wiser_tpu/engine/kernels.py:1222"),
+    ("phrase_select", "wiser_tpu/engine/kernels.py:1648"),
+    ("phrase_select_tc", "wiser_tpu/engine/kernels.py:1648"),
+    ("phrase_band", "wiser_tpu/engine/kernels.py:1648"),
+    ("phrase_band_tc", "wiser_tpu/engine/kernels.py:1648"))
 # the kernel phase's timed shapes on synthetic 1M planes (the dense and
 # tc phases time every engine shape on the engines' own planes)
 DENSE_KERNEL_FULL, DENSE_KERNEL_PRUNED = ((128, 2),), ((1024, 2),)
+# the phrase's passes: the kernel phase times the mega chunk (B 128, T 2)
+# at KV 1,024 and the rescue's 4,096 on synthetic 1M planes; the dense
+# and tc phases every group of dense_bench.PHRASE_SHAPES at KV 1,024 and
+# the chunk at 4,096 on the engines' planes, with one plain turn each
+PHRASE_KERNEL = ((128, 2),)
+PHRASE_PLAIN_ITERS = 1
+
+
+def phrase_rows(timing: dict) -> dict:
+    """The kernels line's entries of the phrase's passes from
+    dense_bench.time_phrase_shapes rows ({mode: rows}): phrase_select
+    {,_tc} from the selection at B 128, T 2, KV 1,024, phrase_band{,_tc}
+    from its band pass at the `skip` threshold (the usual group: no row
+    needs the band); each its own launches' device time by torch.profiler
+    (the call's CUDA events where the capture lost one), host cost,
+    plain version, bound and shares; the other readings stay in the
+    report."""
+    out = {}
+    for mode, rows in timing.items():
+        sfx = "_tc" if mode == "tc" else ""
+        for kind, name in (("phrase_select", "phrase_select"),
+                           ("phrase_band_skip", "phrase_band")):
+            r = next((x for x in rows if x["kind"] == kind and x["B"] == 128
+                      and x["T"] == 2 and x["KV"] == 1024), None)
+            if r is None:
+                continue
+            ms = r["launch_ms"]["total"]
+            out[name + sfx] = {
+                "max_abs_err": 0.0, "ms": ms if ms is not None
+                else r["device_ms"],
+                "timing": "torch.profiler" if ms is not None
+                else "CUDA events",
+                "host_us": r["host_us"], "plain_ms": min(r["plain_ms"]),
+                "bound_ms": r["bound_ms"],
+                "share": r["bound_ms"] / r["device_ms"],
+                "share_per_query": r["bound_ms_per_query"] / r["device_ms"],
+                "launches_per_call": r["launches_per_call"],
+                "shape": f"{mode} B=128 T=2 N_pad={r['N_pad']} KV=1024"
+                         + (" (no row needs the band)" if "band" in kind
+                            else "")}
+    return out
 
 
 def dense_rows(timing: dict, err: float) -> dict:
@@ -611,6 +666,13 @@ def dense_kernel_phase(report: dict) -> dict:
     log(f"kernel: the dense kernels equal their plain versions in "
         f"{chk['cases']} cases: {report['dense_check']}")
     t0 = time.perf_counter()
+    chk = DB.check_phrase_cases(dev)
+    torch.cuda.synchronize()
+    chk.pop("rows")
+    report["phrase_check"] = dict(chk, wall_s=time.perf_counter() - t0)
+    log(f"kernel: the phrase's passes equal their plain versions in "
+        f"{chk['cases']} cases: {report['phrase_check']}")
+    t0 = time.perf_counter()
     planes = DB.planes_1m(dev)
     timing = {mode: DB.time_shapes(dev, mode, planes=planes,
                                    full=DENSE_KERNEL_FULL,
@@ -627,10 +689,16 @@ def dense_kernel_phase(report: dict) -> dict:
                                        full=DENSE_KERNEL_FULL,
                                        pruned=DENSE_KERNEL_PRUNED)}
         out = dense_rows(again, err)
+    ph = {mode: [r for KV in DB.PHRASE_KVS
+                 for r in DB.time_phrase_shapes(
+                     dev, mode, planes=planes, shapes=PHRASE_KERNEL,
+                     KVs=(KV,), plain_iters=PHRASE_PLAIN_ITERS)]
+          for mode in ("raw", "tc")}
+    out.update(phrase_rows(ph))
     del planes
     torch.cuda.empty_cache()
     out["dense_tc_table"] = DB.time_tc_table(dev)
-    report["dense_kernel_timing"] = dict(timing,
+    report["dense_kernel_timing"] = dict(timing, phrase=ph,
                                          wall_s=time.perf_counter() - t0)
     return out
 
@@ -653,7 +721,19 @@ def dense_engine_timing(report: dict, name: str, eng) -> dict:
     report[f"{name}_dense_timing"] = dict(timing,
                                           wall_s=time.perf_counter() - t0)
     err = max(r["check"]["max_abs_err"] for r in timing[eng.columns])
-    return dense_rows(timing, err)
+    t0 = time.perf_counter()
+    planes = DB.engine_planes(eng)
+    ph = {eng.columns: DB.time_phrase_shapes(
+              dev, eng.columns, planes=planes, KVs=(1024,),
+              plain_iters=PHRASE_PLAIN_ITERS)
+          + DB.time_phrase_shapes(dev, eng.columns, planes=planes,
+                                  shapes=PHRASE_KERNEL, KVs=(4096,),
+                                  plain_iters=PHRASE_PLAIN_ITERS)}
+    del planes
+    torch.cuda.empty_cache()
+    report[f"{name}_phrase_timing"] = dict(ph,
+                                           wall_s=time.perf_counter() - t0)
+    return {**dense_rows(timing, err), **phrase_rows(ph)}
 
 
 # -- index + queries ---------------------------------------------------------
@@ -849,14 +929,25 @@ def check_dense_routes(report: dict, name: str) -> None:
 
 
 def check_phrase_routes(report: dict, name: str) -> None:
-    st = report[f"{name}_phrase"]["stats"]
-    routes = {r: st.get(f"route_phrase_{r}", 0)
-              for r in ("full", "semidense", "compact", "list", "host")}
-    report[f"{name}_phrase"]["phrase_routes"] = routes
+    """The full-scan, semidense and compact-or-list phrase routes each
+    answer some of the phrase set, and where the full scan answered any,
+    both of the phrase's kernels launched (the tc ones on tc columns)."""
+    r = report[f"{name}_phrase"]
+    st = r["stats"]
+    routes = {k: st.get(f"route_phrase_{k}", 0)
+              for k in ("full", "semidense", "compact", "list", "host")}
+    r["phrase_routes"] = routes
     if not (routes["full"] > 0 and routes["semidense"] > 0
             and routes["compact"] + routes["list"] > 0):
         raise AssertionError(
             f"{name} run: a phrase route took no query {routes}")
+    sfx = "_tc" if report[f"{name}_engine"]["columns"] == "tc" else ""
+    kernels = {k + sfx: r["launches"].get(k + sfx, 0)
+               for k in ("phrase_select", "phrase_band")}
+    if routes["full"] > 0 and not all(kernels.values()):
+        raise AssertionError(
+            f"{name} run: {routes['full']} full-scan phrases, but the "
+            f"phrase's kernels launched {kernels}")
 
 
 def check_tc_capacity(report: dict) -> None:
@@ -1271,7 +1362,11 @@ def harness_summary(h: dict) -> dict:
 
 # -- mesh -------------------------------------------------------------------
 
-MESH_SHARDS, MESH_PRUNED_Q, MESH_PHRASE_Q, MESH_STAGED_PHRASE_Q = 4, 1024, 512, 256
+# the phrase prefix and the shard ladder's queries a config cut from 512
+# and 2,048 when the full-scan phrase's checks came in, to keep the smoke
+# well inside its time on a slow host
+MESH_SHARDS, MESH_PRUNED_Q, MESH_LADDER_Q = 4, 1024, 1024
+MESH_PHRASE_Q, MESH_STAGED_PHRASE_Q = 256, 256
 # the aol_df_pruned mix's PRUNED_DENSE_MIN_NB: under the 1,954 blocks a
 # shard holds at 1M docs and 4 shards
 MESH_PRUNED_MIN_NB = 1024
@@ -1355,9 +1450,10 @@ def mesh_phase(report: dict, packed, pairs, pools: dict, expected: dict,
         if name == "mesh":
             # the shard ladder on the raw mesh engine
             t0 = time.perf_counter()
-            configs = scale_bench.build_configs(packed, None, HARNESS_Q, K,
-                                                pairs=pairs)
-            ladder = shard_ladder.run(packed, eng, configs, HARNESS_Q, 50)
+            configs = scale_bench.build_configs(packed, None, MESH_LADDER_Q,
+                                                K, pairs=pairs)
+            ladder = shard_ladder.run(packed, eng, configs, MESH_LADDER_Q,
+                                      50)
             out["ladder"] = {"configs": ladder,
                              "wall_s": time.perf_counter() - t0}
             bad = {n: r["parity_mismatches"] for n, r in ladder.items()}

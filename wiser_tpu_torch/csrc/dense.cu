@@ -98,6 +98,41 @@
 // ids ascending; next_ub is the bound of the (C+1)-th. Bound: bytes, each
 // slot's blockmax row (and blockmax2 and argpos, 9 B a block) read once.
 //
+// The full-scan mega phrase (wiser_tpu/engine/kernels.py _full_phrase_body
+// :1648, make_full_phrase_kernel :1829, make_full_phrase_kernel_tc :1783;
+// port engine/kernels.full_phrase_select and full_phrase_band) runs as
+// two more instantiations of scan_kernel, each over every block:
+//   - kSelect: the same streaming over every block with K = KV + 1
+//     (1,025, or the rescue's 4,097) under the phrase's rule: p = row *
+//     weight (tc: weight * the tf part from the tables), summed in slot
+//     order from 0, matched where every p > 0. At K in the thousands a
+//     sorted running list costs a bitonic sort and a merge a flush, so
+//     the keys above the push threshold tau pile up unsorted in one
+//     shared buffer of KP + 2 steps' keys; when fewer than a step's
+//     lanes are free, keep_top cuts it to its top K by the radix select
+//     and a compaction and raises tau to the K-th key. Each segment of a
+//     split query publishes its tau to the query's word (atomicMax) and
+//     polls the others' each step: every one is below the query's K-th
+//     key, so the highest serves every segment. The kept keys are sorted
+//     once, at the end (by select_merge_kernel for a split query, whose
+//     segments write theirs unsorted). It writes each query's K keys as
+//     (lane, f32 score) in (score desc, doc asc) order, lane -1 and
+//     score -inf past the matched lanes: the canonical top K, which the
+//     plain version's stable two-level selection keeps too, ties
+//     included (ops/dense.py says why);
+//   - kBand: a query needs the band only where its (KV+1)-th score
+//     reaches thr = kth * (1 - eps3), since no lane outside the
+//     selection scores above it; every other query's CTAs return at
+//     once. A needing query first tests that (KV+1)-th lane itself
+//     (raw: it always flags then), else streams every block through the
+//     same ring and rescores each lane: a lane flags where it matches,
+//     scores >= thr, ranks after the KV-th selected key and, tc, its
+//     payload differs from the k-th kept doc's on some term or its doc
+//     is below that doc's. A CTA stops at its query's first hit, through
+//     the query's word that it polls each step; the word is the output.
+// Bound: bytes, the query's distinct rows read once for the select (the
+// band reads nothing where no query needs it).
+//
 // Arithmetic: every f32 operation is an explicit round-to-nearest
 // intrinsic and the library is built with -fmad=false, so scores and
 // bounds equal the plain version's bit for bit. Offsets into the planes
@@ -155,6 +190,10 @@ constexpr int kKeySmemCap = 4096;
 constexpr int kMergeLanes = 1024;  // keys a merge step reads
 constexpr int kIdsCap = 1024;      // a block list's ids a segment at most
 constexpr int kFlushBytes = 1056;  // a flush's scratch (FlushSmem)
+// scan_kernel's instantiations: the dense scan, the phrase's selection
+// and its band pass
+constexpr int kScan = 0, kSelect = 1, kBand = 2;
+constexpr int kBandMaxT = 128;     // the band's slots at most (BandSmem)
 constexpr int kPickThreads = 512;  // the pick's CTA
 constexpr int kPickWarps = kPickThreads / 32;
 // the pick keeps its NB bounds in shared memory up to this many bytes
@@ -175,10 +214,20 @@ struct ScanArgs {
   int NS, SB;  // ring stages, blocks a step
   unsigned long long* part_keys;  // (B, nseg, K) when nseg > 1
   unsigned long long* rscratch;   // (B, nseg, 2, KP) when KP > kKeySmemCap
-  int32_t* top_docs;  // (B, M)
-  float* top_score;   // (B, M)
+  // kSelect split (nseg > 1): (B,) words zeroed before the launch, each
+  // query's highest K-th key of a segment so far
+  unsigned long long* gtau;
+  int32_t* top_docs;  // (B, M); kSelect: (B, K) lanes
+  float* top_score;   // (B, M); kSelect: (B, K) scores
   int32_t* top_tfs;   // (B, T, M)
   int32_t* flags;     // (B,)
+  // kBand: a selection's (B, K) lanes and scores, (B,) thresholds and,
+  // tc, the k-th kept docs; hit (B,) zeroed before the launch
+  const int32_t* sel_lanes;
+  const float* sel_score;
+  const float* thr;
+  const int32_t* kth_doc;
+  int32_t* hit;
 };
 
 __host__ __device__ constexpr long long align16(long long x) {
@@ -195,15 +244,18 @@ __host__ __device__ constexpr bool keys_in_smem(int KP) {
 // block list's segment ids (kIdsCap) | tc: the cache (256 f32) and norm
 // (256 * kTft f32) tables | NS ring stages, each T row segments of SB *
 // 128 lanes and, tc, the len-code segment | R and R2 (KP keys each, up
-// to kKeySmemCap) and X (2 * SB * 128 keys). ops/dense.scan_bytes
-// computes the same.
+// to kKeySmemCap) and X (2 * SB * 128 keys); the selection (sel) keeps
+// only X, of KP + 2 * SB * 128 keys (select_keys); the band keeps no keys
+// (KP 0) and uses the flush's scratch for its words (BandSmem).
+// ops/dense.scan_bytes computes the same.
 struct ScanLayout {
   long long counters, fsm, off, ri, w, ids, cache, norm, ring, stage, lists,
       total;
 };
 
 __host__ __device__ inline ScanLayout scan_layout(bool tc, bool listed, int T,
-                                                  int KP, int NS, int SB) {
+                                                  int KP, int NS, int SB,
+                                                  bool sel = false) {
   ScanLayout L;
   const long long SL = (long long)SB * 128;
   long long o = 48;
@@ -227,17 +279,23 @@ __host__ __device__ inline ScanLayout scan_layout(bool tc, bool listed, int T,
   L.stage = align16(T * SL * (tc ? 1 : 4) + (tc ? SL : 0));
   o += NS * L.stage;
   L.lists = o;
-  o += (keys_in_smem(KP) ? 16LL * KP : 0) + 16 * SL;
+  if (sel) {
+    o += 8 * (KP + 2 * SL);
+  } else {
+    o += KP ? (keys_in_smem(KP) ? 16LL * KP : 0) + 16 * SL : 0;
+  }
   L.total = o;
   return L;
 }
 
 // The merge's: 3 counters (16 B) | X (2 * kMergeLanes keys) | a flush's
 // scratch | R and R2 (none past kKeySmemCap: then they are the first
-// segment's scratch).
-__host__ __device__ constexpr long long merge_bytes(int KP) {
-  return 16 + 16LL * kMergeLanes + kFlushBytes +
-         (keys_in_smem(KP) ? 16LL * KP : 0);
+// segment's scratch). The selection's merge (sel): 3 counters and its
+// threshold (16 B) | a flush's scratch | X of KP + 2 * kMergeLanes keys.
+__host__ __device__ constexpr long long merge_bytes(int KP, bool sel = false) {
+  return sel ? 16 + kFlushBytes + 8LL * (KP + 2 * kMergeLanes)
+             : 16 + 16LL * kMergeLanes + kFlushBytes +
+                   (keys_in_smem(KP) ? 16LL * KP : 0);
 }
 
 __device__ __forceinline__ long long clamp_row(int r, long long H) {
@@ -335,12 +393,21 @@ __global__ void __launch_bounds__(256) tc_norm_kernel(const float* avg32,
 }
 
 // The outputs of query b from its descending keys (at least K readable,
-// 0-padded).
-template <bool TC>
+// 0-padded): kSelect the K keys as (lane, score).
+template <bool TC, int KIND>
 __device__ void write_outputs(const ScanArgs& a, int b,
                               const unsigned long long* keys, int tid) {
   const int T = a.T, M = a.M;
   const float ninf = -__int_as_float(0x7f800000);
+  if constexpr (KIND == kSelect) {
+    for (int m = tid; m < a.K; m += kThreads) {
+      const unsigned long long key = keys[m];
+      const long long o = (long long)b * a.K + m;
+      a.top_docs[o] = key ? tile_key_lane(key) : -1;
+      a.top_score[o] = key ? tile_key_score(key) : ninf;
+    }
+    return;
+  }
   bool sat = false;
   for (int m = tid; m < M; m += kThreads) {
     const unsigned long long key = keys[m];
@@ -394,13 +461,76 @@ __device__ __forceinline__ void push_keys(const unsigned long long* key,
   }
 }
 
-// A flush's shared scratch: a digit histogram and the select's words.
+// A flush's shared scratch: a digit histogram and the select's words;
+// the selection's push threshold (tau: the keys above it are pushed).
 struct FlushSmem {
   unsigned hist[256];
   unsigned digit, rem, count, n;
-  unsigned long long key;
+  unsigned long long key, tau;
 };
 static_assert(sizeof(FlushSmem) <= kFlushBytes, "kFlushBytes");
+
+// The band's words, in the flush's scratch (the band keeps no keys).
+struct BandSmem {
+  unsigned long long kvkey;  // the KV-th selected key: a lane flags below it
+  float thr;
+  int kd;                    // tc: the k-th kept doc
+  unsigned code_k;           // tc: its len code, in each byte
+  int stop;                  // the query is decided: hit set, or to set
+  unsigned ktf[kBandMaxT];   // tc: its tf byte in each distinct row, in
+                             // each byte
+};
+static_assert(sizeof(BandSmem) <= kFlushBytes, "kFlushBytes");
+
+// The band's words of query b, by one thread, once the query's distinct
+// rows (s_off, s_ri), weights and, tc, the cache table are in shared
+// memory; then the (KV+1)-th lane alone is tested (it flags unless, tc,
+// it is a payload tie of the k-th kept doc at a higher doc): stop where
+// it flags or another CTA of the query has already flagged.
+template <bool TC>
+__device__ void band_setup(const ScanArgs& a, int b, int nr,
+                           const long long* s_off, const int* s_ri,
+                           const float* s_w, const float* s_cache,
+                           BandSmem& bs) {
+  const long long kb = (long long)b * a.K;
+  const int kvl = a.sel_lanes[kb + a.K - 2];
+  bs.kvkey = kvl >= 0 ? tile_key(a.sel_score[kb + a.K - 2], kvl) : 0ull;
+  const float thr = a.thr[b];
+  bs.thr = thr;
+  int kd = 0;
+  if (TC) {
+    const int k = a.kth_doc[b];
+    kd = k < 0 ? 0 : (k >= a.N_pad ? (int)a.N_pad - 1 : k);
+    bs.kd = kd;
+    bs.code_k = a.code[kd] * 0x01010101u;
+    for (int j = 0; j < nr; ++j)
+      bs.ktf[j] = a.tf8[s_off[j] + kd] * 0x01010101u;
+  }
+  bool hit = false;
+  const int lane = a.sel_lanes[kb + a.K - 1];
+  if (lane >= 0 && lane < a.N_pad) {
+    bool match = true, bad = lane < kd;
+    float acc = 0.f;
+    const int code = TC ? a.code[lane] : 0;
+    if (TC) bad = bad || (unsigned)code != (bs.code_k & 255u);
+    for (int t = 0; t < a.T; ++t) {
+      const long long i = s_off[s_ri[t]] + lane;
+      float p;
+      if (TC) {
+        const int tf = a.tf8[i];
+        p = __fmul_rn(s_w[t], tc_norm(tf, s_cache[code]));
+        bad = bad || (unsigned)tf != (bs.ktf[s_ri[t]] & 255u);
+      } else {
+        p = __fmul_rn(a.sc[i], s_w[t]);
+      }
+      match = match && p > 0.f;
+      acc = __fadd_rn(acc, p);
+    }
+    hit = match && acc >= thr && tile_key(acc, lane) < bs.kvkey &&
+          (!TC || bad);
+  }
+  bs.stop = hit || *reinterpret_cast<volatile const int*>(a.hit + b);
+}
 
 // The k-th largest (1 <= k <= c) of the c unique keys X[0, c), by the CTA:
 // a radix select from the top byte, each pass counting the keys with the
@@ -508,17 +638,61 @@ __device__ void flush_keys(unsigned long long*& R, unsigned long long*& R2,
   R2 = r;
 }
 
-// One (segment, query) pair a CTA: grid (nseg, B).
-template <bool TC>
+// The selection's flush: of the c > K unique keys X[0, c) keep the K
+// largest, compacted in place to X[0, K) (unsorted): their least found by
+// kth_key, the rest gathered a chunk of kThreads at a time (each chunk
+// read before any of its places is written; a chunk's writes land below
+// its end). Returns that least key. Every thread calls it; it ends with
+// a barrier.
+__device__ unsigned long long keep_top(unsigned long long* X, int c, int K,
+                                       FlushSmem& f, int tid) {
+  const unsigned long long t = kth_key(X, c, K, f, tid);
+  if (tid == 0) f.n = 0;
+  const unsigned lt = (1u << (tid & 31)) - 1;
+  for (int i0 = 0; i0 < c; i0 += kThreads) {
+    const int i = i0 + tid;
+    const unsigned long long x = i < c ? X[i] : 0ull;
+    __syncthreads();
+    const bool keep = i < c && x >= t;
+    const unsigned m = __ballot_sync(0xffffffffu, keep);
+    if (m) {
+      int at = 0;
+      if ((tid & 31) == __ffs(m) - 1) at = atomicAdd(&f.n, __popc(m));
+      at = __shfl_sync(0xffffffffu, at, __ffs(m) - 1);
+      if (keep) X[at + __popc(m & lt)] = x;
+    }
+  }
+  __syncthreads();
+  return t;
+}
+
+// The selection's c kept keys X[0, c) (c <= K, unsorted) in descending
+// order, 0-padded to K. Every thread calls it; it ends with a barrier.
+__device__ void sort_kept(unsigned long long* X, int c, int K, int tid) {
+  sort_keys<kThreads>(X, c, tid);
+  for (int i = c + tid; i < K; i += kThreads) X[i] = 0ull;
+  __syncthreads();
+}
+
+// One (segment, query) pair a CTA: grid (nseg, B). KIND: kScan the dense
+// scan, kSelect the phrase's selection, kBand its band pass.
+template <bool TC, int KIND>
 __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
     scan_kernel(ScanArgs a) {
   constexpr int LB = TC ? 1 : 4;  // bytes a lane
+  constexpr bool kPhrase = KIND != kScan;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int seg = blockIdx.x, b = blockIdx.y;
   const int T = a.T, KP = a.KP, K = a.K;
+  if constexpr (KIND == kBand) {
+    // no lane outside the selection scores above its (KV+1)-th: where
+    // that score is below thr (or -inf), the band is empty
+    if (!(a.sel_score[(long long)b * K + K - 1] >= a.thr[b])) return;
+  }
   const int SB = a.SB, SL = SB * 128, NS = a.NS;
-  const ScanLayout L = scan_layout(TC, a.blocks != nullptr, T, KP, NS, SB);
+  const ScanLayout L =
+      scan_layout(TC, a.blocks != nullptr, T, KP, NS, SB, KIND == kSelect);
   CLK_START
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   int* s_nrows = reinterpret_cast<int*>(smem + 32);
@@ -567,15 +741,34 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
       a.rscratch ? a.rscratch + ((long long)b * a.nseg + seg) * 2 * KP
                  : reinterpret_cast<unsigned long long*>(lst);
   unsigned long long* R2 = R + KP;
+  // the selection keeps X alone: the keys above tau, unsorted, cut to
+  // their top K (keep_top) when fewer than a step's lanes are free
   unsigned long long* const X =
-      a.rscratch ? reinterpret_cast<unsigned long long*>(lst) : R2 + KP;
-  for (int i = tid; i < KP; i += kThreads) R[i] = 0ull;
+      a.rscratch || KIND == kSelect
+          ? reinterpret_cast<unsigned long long*>(lst)
+          : R2 + KP;
+  const int xcap = KP + 2 * SL;
+  volatile unsigned long long* const tau = &fs.tau;
+  if (KIND == kScan) {
+    for (int i = tid; i < KP; i += kThreads) R[i] = 0ull;
+  } else if (KIND == kSelect && tid == 0) {
+    *tau = 0ull;
+  }
   if (TC) {
     tc_fill_tables<kThreads>(s_cache, s_norm, kTft, *a.avg32, tid);
   } else {
     __syncthreads();
   }
   const int nr = *s_nrows;
+  BandSmem& bs = *reinterpret_cast<BandSmem*>(smem + L.fsm);
+  if constexpr (KIND == kBand) {
+    if (tid == 0) band_setup<TC>(a, b, nr, s_off, s_ri, s_w, s_cache, bs);
+    __syncthreads();
+    if (bs.stop) {
+      if (tid == 0) a.hit[b] = 1;
+      return;
+    }
+  }
   const unsigned char* plane =
       TC ? a.tf8 : reinterpret_cast<const unsigned char*>(a.sc);
   const long long code_at = (long long)T * SL;  // tc: in a stage
@@ -640,6 +833,15 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
     if (active)
       doc0 = (a.blocks ? s_ids[s0 - blk_lo + sub] : (long long)s0 + sub) *
                  128 + lane0;
+    // the band: another CTA's hit on this query, read before the wait;
+    // the split selection: the other segments' highest K-th key
+    int polled = 0;
+    unsigned long long gpoll = 0;
+    if (KIND == kBand && tid == 0)
+      polled = *reinterpret_cast<volatile const int*>(a.hit + b);
+    if (KIND == kSelect && a.nseg > 1 && tid == 0)
+      gpoll = *reinterpret_cast<volatile const unsigned long long*>(a.gtau +
+                                                                     b);
     if (own) {
       // the stage of step s - 1 is this thread's to refill
       issue_own(s + NS - 1);
@@ -650,6 +852,8 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
     CLK(1);
     const unsigned char* stage = ring + (s % NS) * L.stage;
     unsigned match = 0;
+    unsigned dif = 0;  // the band, tc: a lane's byte nonzero where its
+                       // payload differs from the k-th kept doc's
     float acc[kLPT];
 #pragma unroll
     for (int j = 0; j < kLPT; ++j) acc[j] = 0.f;
@@ -657,16 +861,19 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
       match = (1u << kLPT) - 1;
       unsigned cw = 0;  // tc: the 4 lanes' len codes
       if (TC) cw = *reinterpret_cast<const unsigned*>(stage + code_at + lane);
+      if (KIND == kBand && TC) dif = cw ^ bs.code_k;
       unsigned nz = 0x80808080u;  // tc: bit 7 of a lane's byte: tf > 0
       for (int t = 0; t < T; ++t) {
         const long long at = (long long)s_ri[t] * SL + lane;
         const float w = s_w[t];
         if (TC) {
           const unsigned qw = *reinterpret_cast<const unsigned*>(stage + at);
-          nz &= ((qw & 0x7f7f7f7fu) + 0x7f7f7f7fu) | qw;
+          if (!kPhrase) nz &= ((qw & 0x7f7f7f7fu) + 0x7f7f7f7fu) | qw;
+          if (KIND == kBand) dif |= qw ^ bs.ktf[s_ri[t]];
           // each lane's table index tf << 8 | code, two lanes' a byte
           // permute (tf 0 reads 0): the shared table below kTft, the
-          // device one (every tf byte) past it
+          // device one (every tf byte) past it (the band: the division
+          // it holds, on the shared cache)
           const unsigned p01 = __byte_perm(cw, qw, 0x5140);
           const unsigned p23 = __byte_perm(cw, qw, 0x7362);
           const unsigned ix[kLPT] = {p01 & 0xffff, p01 >> 16, p23 & 0xffff,
@@ -678,25 +885,59 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
           } else {
 #pragma unroll
             for (int j = 0; j < kLPT; ++j)
-              norm[j] = ix[j] < kTft * 256 ? s_norm[ix[j]]
-                                           : __ldg(a.norm_g + ix[j]);
+              norm[j] = ix[j] < kTft * 256
+                            ? s_norm[ix[j]]
+                            : (KIND == kBand
+                                   ? tc_norm(ix[j] >> 8, s_cache[ix[j] & 255])
+                                   : __ldg(a.norm_g + ix[j]));
           }
 #pragma unroll
-          for (int j = 0; j < kLPT; ++j)
-            acc[j] = __fadd_rn(acc[j], __fmul_rn(w, norm[j]));
+          for (int j = 0; j < kLPT; ++j) {
+            const float p = __fmul_rn(w, norm[j]);
+            if (kPhrase && !(p > 0.f)) match &= ~(1u << j);
+            acc[j] = __fadd_rn(acc[j], p);
+          }
         } else {
           const float4 v4 = *reinterpret_cast<const float4*>(stage + at * 4);
           const float v[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
           for (int j = 0; j < kLPT; ++j) {
-            if (!(v[j] > 0.f)) match &= ~(1u << j);
-            acc[j] = __fadd_rn(acc[j], __fmul_rn(v[j], w));
+            const float p = __fmul_rn(v[j], w);
+            if (!((kPhrase ? p : v[j]) > 0.f)) match &= ~(1u << j);
+            acc[j] = __fadd_rn(acc[j], p);
           }
         }
       }
-      if (TC)
+      if (TC && !kPhrase)
         match = (nz >> 7 & 1) | (nz >> 14 & 2) | (nz >> 21 & 4) |
                 (nz >> 28 & 8);
+    }
+    if constexpr (KIND == kBand) {
+      // a lane of the band: matched, at or above thr, ranked after the
+      // KV-th selected key and, tc, no payload tie above the k-th doc
+      bool flag = false;
+#pragma unroll
+      for (int j = 0; j < kLPT; ++j) {
+        const int doc = (int)(doc0 + j);
+        flag = flag || ((match >> j & 1) && acc[j] >= bs.thr &&
+                        tile_key(acc[j], doc) < bs.kvkey &&
+                        (!TC || ((dif >> (8 * j)) & 255u) || doc < bs.kd));
+      }
+      CLK(2);
+      // the step's barrier: every thread has read this stage
+      if (__syncthreads_or(flag || polled)) {
+        if (tid == 0) a.hit[b] = 1;
+        // the copies still in flight land before the CTA leaves
+        for (int s2 = s + 1; s2 < min(s + NS, nsteps); ++s2)
+          mbar_wait(bar + s2 % NS, (unsigned)((s2 / NS) & 1));
+        return;
+      }
+      if (warp == 0 && s + NS < nsteps) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        issue(s + NS);
+      }
+      CLK(3);
+      continue;
     }
     // the matched keys above the running K-th, compacted into X after
     // the keys of earlier steps; R changes only between barriers
@@ -704,7 +945,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
 #pragma unroll
     for (int j = 0; j < kLPT; ++j)
       key[j] = match >> j & 1 ? tile_key(acc[j], (int)(doc0 + j)) : 0ull;
-    push_keys(key, R[K - 1], X, base, cnt + s % 3);
+    push_keys(key, KIND == kSelect ? *tau : R[K - 1], X, base, cnt + s % 3);
     CLK(2);
     // every thread has read this stage and counted its keys: warp 0
     // refills it
@@ -718,6 +959,28 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
     // barrier; the one two steps on was last read before this barrier
     const int c = base + cnt[s % 3];
     if (tid == 0) cnt[(s + 2) % 3] = 0;
+    if constexpr (KIND == kSelect) {
+      // a threshold read late or early is still below the query's K-th
+      // key: either keeps every key of its top K
+      if (tid == 0 && gpoll > *tau) *tau = gpoll;
+      if (c > xcap - SL) {
+        const unsigned long long t = keep_top(X, c, K, fs, tid);
+        if (tid == 0) {
+          // this segment's K-th key, published to the query's others
+          const unsigned long long g =
+              a.nseg > 1 ? atomicMax(a.gtau + b, t) : 0ull;
+          const unsigned long long nt = g > t ? g : t;
+          if (nt > *tau) *tau = nt;
+        }
+        __syncthreads();
+        CLK_COUNT(7);
+        base = K;
+      } else {
+        base = c;
+      }
+      CLK(4);
+      continue;
+    }
     if (c >= SL) {
       flush_keys(R, R2, KP, K, X, c, fs, tid);
       CLK_COUNT(7);
@@ -727,13 +990,31 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
     }
     CLK(4);
   }
-  if (base) flush_keys(R, R2, KP, K, X, base, fs, tid);
-  __syncthreads();
-  if (a.nseg == 1) {
-    write_outputs<TC>(a, b, R, tid);
-  } else {
-    const long long o = ((long long)b * a.nseg + seg) * K;
-    for (int i = tid; i < K; i += kThreads) a.part_keys[o + i] = R[i];
+  if constexpr (KIND == kScan) {
+    if (base) flush_keys(R, R2, KP, K, X, base, fs, tid);
+    __syncthreads();
+    if (a.nseg == 1) {
+      write_outputs<TC, KIND>(a, b, R, tid);
+    } else {
+      const long long o = ((long long)b * a.nseg + seg) * K;
+      for (int i = tid; i < K; i += kThreads) a.part_keys[o + i] = R[i];
+    }
+  } else if constexpr (KIND == kSelect) {
+    __syncthreads();
+    int c = base;
+    if (c > K) {
+      keep_top(X, c, K, fs, tid);
+      c = K;
+    }
+    if (a.nseg == 1) {
+      sort_kept(X, c, K, tid);
+      write_outputs<TC, KIND>(a, b, X, tid);
+    } else {
+      // unsorted, 0-padded: the merge sorts the query's keys once
+      const long long o = ((long long)b * a.nseg + seg) * K;
+      for (int i = tid; i < K; i += kThreads)
+        a.part_keys[o + i] = i < c ? X[i] : 0ull;
+    }
   }
   CLK(5);
 #ifdef WISER_DENSE_CLOCKS
@@ -787,7 +1068,59 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(ScanArgs a) {
   }
   if (base) flush_keys(R, R2, KP, K, X, base, fs, tid);
   __syncthreads();
-  write_outputs<TC>(a, b, R, tid);
+  write_outputs<TC, kScan>(a, b, R, tid);
+}
+
+// The selection's second launch where a query's blocks span nseg
+// segments: one CTA a query streams the segments' kept keys (unsorted,
+// 0-padded) through the same push and keep_top as the scan, from just
+// below the query's highest published K-th key (a bound below its K-th
+// key, so every key of its top K passes), then sorts the K kept once and
+// writes them.
+__global__ void __launch_bounds__(kThreads) select_merge_kernel(ScanArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int K = a.K, b = blockIdx.x, tid = threadIdx.x;
+  const int xcap = a.KP + 2 * kMergeLanes;
+  int* cnt = reinterpret_cast<int*>(smem);
+  FlushSmem& fs = *reinterpret_cast<FlushSmem*>(smem + 16);
+  unsigned long long* X =
+      reinterpret_cast<unsigned long long*>(smem + 16 + kFlushBytes);
+  const unsigned long long* part = a.part_keys + (long long)b * a.nseg * K;
+  if (tid < 3) cnt[tid] = 0;
+  if (tid == 0) {
+    const unsigned long long g = a.gtau[b];
+    fs.tau = g ? g - 1 : 0ull;
+  }
+  __syncthreads();
+  const long long n = (long long)a.nseg * K;
+  int base = 0, step = 0;
+  for (long long i0 = 0; i0 < n; i0 += kMergeLanes, ++step) {
+    unsigned long long key[kLPT];
+#pragma unroll
+    for (int j = 0; j < kLPT; ++j) {
+      const long long i = i0 + tid * kLPT + j;
+      key[j] = i < n ? part[i] : 0ull;
+    }
+    push_keys(key, fs.tau, X, base, cnt + step % 3);
+    __syncthreads();
+    const int c = base + cnt[step % 3];
+    if (tid == 0) cnt[(step + 2) % 3] = 0;
+    if (c > xcap - kMergeLanes) {
+      const unsigned long long t = keep_top(X, c, K, fs, tid);
+      if (tid == 0) fs.tau = t;
+      __syncthreads();
+      base = K;
+    } else {
+      base = c;
+    }
+  }
+  int c = base;
+  if (c > K) {
+    keep_top(X, c, K, fs, tid);
+    c = K;
+  }
+  sort_kept(X, c, K, tid);
+  write_outputs<false, kSelect>(a, b, X, tid);
 }
 
 // -- the pick ------------------------------------------------------------
@@ -1179,36 +1512,56 @@ cudaError_t launch_pick(const PickArgs& a, long long smem, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <bool TC>
+template <bool TC, int KIND>
 cudaError_t launch_scan(const ScanArgs& a, long long smem, long long msmem,
                         cudaStream_t s) {
-  cudaError_t err = raise_smem(scan_kernel<TC>, smem);
+  cudaError_t err = raise_smem(scan_kernel<TC, KIND>, smem);
   if (err != cudaSuccess) return err;
-  if (TC) {
+  if (TC && KIND != kBand) {
     tc_norm_kernel<<<256, 256, 0, s>>>(a.avg32, a.norm_g);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  scan_kernel<TC><<<dim3(a.nseg, a.B), kThreads, smem, s>>>(a);
+  if (KIND == kBand || (KIND == kSelect && a.nseg > 1)) {
+    err = KIND == kBand
+              ? cudaMemsetAsync(a.hit, 0, sizeof(int32_t) * a.B, s)
+              : cudaMemsetAsync(a.gtau, 0, sizeof(unsigned long long) * a.B,
+                                s);
+    if (err != cudaSuccess) return err;
+  }
+  scan_kernel<TC, KIND><<<dim3(a.nseg, a.B), kThreads, smem, s>>>(a);
   err = cudaGetLastError();
-  if (err != cudaSuccess || a.nseg == 1) return err;
-  err = raise_smem(merge_kernel<TC>, msmem);
-  if (err != cudaSuccess) return err;
-  merge_kernel<TC><<<a.B, kThreads, msmem, s>>>(a);
+  if (err != cudaSuccess || a.nseg == 1 || KIND == kBand) return err;
+  if (KIND == kSelect) {
+    err = raise_smem(select_merge_kernel, msmem);
+    if (err != cudaSuccess) return err;
+    select_merge_kernel<<<a.B, kThreads, msmem, s>>>(a);
+  } else {
+    err = raise_smem(merge_kernel<TC>, msmem);
+    if (err != cudaSuccess) return err;
+    merge_kernel<TC><<<a.B, kThreads, msmem, s>>>(a);
+  }
   return cudaGetLastError();
 }
 
-template <bool TC>
+template <bool TC, int KIND>
 int resident(long long smem) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = raise_smem(scan_kernel<TC>, smem);
+  if (err == cudaSuccess) err = raise_smem(scan_kernel<TC, KIND>, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, scan_kernel<TC>, kThreads, (size_t)smem);
+        &per_sm, scan_kernel<TC, KIND>, kThreads, (size_t)smem);
   return err == cudaSuccess ? per_sm * sms : -(int)err;
+}
+
+template <int KIND>
+int launch_kind(const ScanArgs& a, long long smem, long long msmem,
+                cudaStream_t s) {
+  return (int)(a.tf8 ? launch_scan<true, KIND>(a, smem, msmem, s)
+                     : launch_scan<false, KIND>(a, smem, msmem, s));
 }
 
 }  // namespace wiser_dense
@@ -1222,6 +1575,7 @@ struct WiserDenseScanParams {
   long long H, N_pad, B, T, M, nblk, K, KP, nseg, bps, NS, SB;
   long long smem, merge_smem;
   long long part_keys, rscratch, top_docs, top_score, top_tfs, flags;
+  long long kind, sel_lanes, sel_score, thr, kth_doc, hit;
 };
 
 struct WiserDensePickParams {
@@ -1230,16 +1584,23 @@ struct WiserDensePickParams {
 };
 
 // The scan's CTAs the card holds at once (SMs times CTAs an SM) at this
-// shared-memory size, or minus a CUDA error code.
-int wiser_dense_resident(int tc, long long smem) {
-  return tc ? wiser_dense::resident<true>(smem)
-            : wiser_dense::resident<false>(smem);
+// shared-memory size, or minus a CUDA error code; kind 0 the dense scan,
+// 1 the phrase's selection, 2 its band pass.
+int wiser_dense_resident(int tc, int kind, long long smem) {
+  using namespace wiser_dense;
+  if (kind == kSelect)
+    return tc ? resident<true, kSelect>(smem) : resident<false, kSelect>(smem);
+  if (kind == kBand)
+    return tc ? resident<true, kBand>(smem) : resident<false, kBand>(smem);
+  return tc ? resident<true, kScan>(smem) : resident<false, kScan>(smem);
 }
 
-// Launch the scan on `stream` (no synchronize): one launch, or two where
-// nseg > 1. Returns the first launch error (0 on success); a plan whose
-// shared bytes disagree with this file's layout, or whose grid the card
-// cannot run, is refused as cudaErrorInvalidValue before any launch.
+// Launch the scan of `kind` on `stream` (no synchronize): the dense scan
+// or the phrase's selection in one launch, or two where nseg > 1 (after
+// tc's table); the band in one, after zeroing its words. Returns the
+// first launch error (0 on success); a plan whose shared bytes disagree
+// with this file's layout, or whose grid the card cannot run, is refused
+// as cudaErrorInvalidValue before any launch.
 int wiser_dense_scan(const WiserDenseScanParams* p, void* stream) {
   using namespace wiser_dense;
   ScanArgs a;
@@ -1270,24 +1631,44 @@ int wiser_dense_scan(const WiserDenseScanParams* p, void* stream) {
   a.top_score = (float*)p->top_score;
   a.top_tfs = (int32_t*)p->top_tfs;
   a.flags = (int32_t*)p->flags;
+  a.sel_lanes = (const int32_t*)p->sel_lanes;
+  a.sel_score = (const float*)p->sel_score;
+  a.thr = (const float*)p->thr;
+  a.kth_doc = (const int32_t*)p->kth_doc;
+  a.hit = (int32_t*)p->hit;
+  const int kind = (int)p->kind;
   const bool tc = a.tf8 != nullptr;
+  const bool band = kind == kBand;
+  const bool sel = kind == kSelect;
   const long long smem =
-      scan_layout(tc, a.blocks != nullptr, a.T, a.KP, a.NS, a.SB).total;
-  const long long msmem = merge_bytes(a.KP);
-  if (smem != p->smem || (a.nseg > 1 && msmem != p->merge_smem) ||
-      a.K != a.M + 1 || a.K > a.KP || a.nseg < 1 || a.B < 1 ||
+      scan_layout(tc, a.blocks != nullptr, a.T, a.KP, a.NS, a.SB, sel).total;
+  const long long msmem = merge_bytes(a.KP, sel);
+  // the split selection's thresholds follow its segments' keys
+  a.gtau = sel && a.nseg > 1 && a.part_keys
+               ? a.part_keys + (long long)a.B * a.nseg * a.K
+               : nullptr;
+  if (kind < kScan || kind > kBand ||
+      (kind != kScan && (a.blocks || a.K < 2 || a.K > a.N_pad)) ||
+      (band && (a.KP || a.rscratch || a.part_keys || !a.hit ||
+                !a.sel_lanes || !a.sel_score || !a.thr ||
+                (tc && !a.kth_doc) || a.T > kBandMaxT)))
+    return (int)cudaErrorInvalidValue;
+  if (smem != p->smem || (a.nseg > 1 && !band && msmem != p->merge_smem) ||
+      a.K != a.M + 1 || (!band && a.K > a.KP) || a.nseg < 1 || a.B < 1 ||
       a.B > 65535 || (a.blocks && a.bps > kIdsCap) ||
       a.NS < 2 || a.NS > kMaxStages || a.SB < 1 ||
       a.SB > kMaxStepBlocks || a.bps < 1 || a.bps % a.SB ||
-      (a.nseg > 1 && !a.part_keys) ||
-      keys_in_smem(a.KP) != (a.rscratch == nullptr) ||
-      (tc && !a.norm_g) ||
+      (!band && a.nseg > 1 && !a.part_keys) ||
+      (!band && !sel && keys_in_smem(a.KP) != (a.rscratch == nullptr)) ||
+      (sel && a.rscratch) ||
+      (tc && !band && !a.norm_g) ||
       (long long)a.nseg * a.bps < a.nblk ||
       (long long)(a.nseg - 1) * a.bps >= a.nblk || a.N_pad % 128)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(tc ? launch_scan<true>(a, smem, msmem, s)
-                  : launch_scan<false>(a, smem, msmem, s));
+  if (kind == kSelect) return launch_kind<kSelect>(a, smem, msmem, s);
+  if (band) return launch_kind<kBand>(a, smem, msmem, s);
+  return launch_kind<kScan>(a, smem, msmem, s);
 }
 
 // Launch the pick on `stream` (no synchronize): nsplit CTAs a query

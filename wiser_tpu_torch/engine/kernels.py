@@ -19,12 +19,14 @@ space (make_dense_search_kernel) or, past PRUNED_DENSE_MIN_NB doc
 blocks, only the C blocks with the highest joint upper bounds
 (make_pruned_dense_kernel) under a provable guard; tail x head queries
 probe the dense rows at their candidate docs (make_semidense_kernel).
-On CUDA tensors the scans (dense_scan_body{,_tc}, pruned_scan_body) and
-the block pick (_select_ub_blocks) run as hand-written kernels
-(ops/dense.py, csrc/dense.cu: a block-list scan that keeps each query's
-top K in shared memory, and a one-CTA-a-query pick), or raise; CPU
-tensors take the plain versions (the *_torch functions) after the same
-argument checks.
+On CUDA tensors the scans (dense_scan_body{,_tc}, pruned_scan_body),
+the block pick (_select_ub_blocks) and the full-scan mega phrase's two
+passes (full_phrase_select, full_phrase_band) run as hand-written
+kernels (ops/dense.py, csrc/dense.cu: a block-list scan that keeps each
+query's top K in shared memory, a one-CTA-a-query pick, the phrase's
+scan at K = KV + 1 and its band pass), or raise; CPU tensors take the
+plain versions (the *_torch functions) after the same argument
+checks.
 
 Phrases (raw columns): the list chain (make_match_kernel with the
 bi-bloom gate, make_phrase_verify_kernel, make_select_topk_kernel); the
@@ -1619,40 +1621,65 @@ def make_pruned_phrase_kernel_tc(T: int, NB: int, C: int, KV: int, PP: int,
     return kernel
 
 
-def _full_phrase_body(rows_f32, postings_doc, positions, pos_starts, starts,
-                      ends, anchor, ks, *, T: int, N_pad: int, KV: int,
-                      PP: int, PW: int, M: int, n_bs_iters: int,
-                      eps3: float, rows_payload=None):
-    """Full-scan dense phrase: score every doc lane, verify the KV best
-    candidates, bound the rest by the exact (KV+1)-th value.
-
-    Selection is a two-level exact top-(KV+1): per-128-block maxima, the
-    top (KV+1) blocks re-sorted ascending, then the top (KV+1) of their
-    lanes, both by stable sort (lax.top_k's tie order). Every lane
-    strictly above the (KV+1)-th value is selected, so `unseen` is that
-    value exactly. Membership in the selection comes from a scatter of
-    the selected lane ids, never from the sort order; the (KV+1)-th lane
-    is not verified and stays in the band. Any unselected lane within the
-    eps3 band of the k-th kept score raises FLAG_PRUNE_MISS, except, with
-    rows_payload (tc columns), an exact payload tie: a lane whose integer
-    payload (len_code << 8 | tf on every term) equals the k-th kept doc's
-    has exactly its f64 score, so it can displace it only by the doc-asc
-    canon, and flags only if its doc id is smaller.
-
-    rows_f32(t) -> (B, N_pad) f32 score contribution of query term t (0
-    where absent); rows_payload(t) -> (B, N_pad) int32 payload lanes or
-    None. All per-term arrays are in query-term order. Returns (top_docs
-    (B, M) i32, flags (B,) i32)."""
-    B = starts.shape[0]
-    dev = starts.device
-    score = torch.zeros((B, N_pad), dtype=torch.float32, device=dev)
-    match = torch.ones((B, N_pad), dtype=torch.bool, device=dev)
-    for t in range(T):
+def _phrase_score(rows_f32, T: int) -> torch.Tensor:
+    """The full-scan phrase's (B, N_pad) f32 score plane: rows_f32(t)
+    summed in query-term order from zeros, -inf where some term's
+    contribution is not > 0."""
+    p = rows_f32(0)
+    score = torch.zeros_like(p) + p  # from zeros: -0 sums to +0
+    match = p > 0
+    for t in range(1, T):
         p = rows_f32(t)
         match &= p > 0
         score += p
-    score = torch.where(match, score, NEG_INF)
-    del match
+    return torch.where(match, score, NEG_INF)
+
+
+def _phrase_rows(plane, slots, weights, len_code=None, avg32=None):
+    """(rows_f32, rows_payload) of the planes (_full_phrase_body's row
+    functions): raw the score rows times use_score, tc the composed
+    payload lanes (rows_payload) scored by tc_score with idf32; every
+    array in query-term order."""
+    rows = slots.to(torch.int64)
+    if len_code is None:
+        return (lambda t: plane[rows[:, t]] * weights[:, t : t + 1]), None
+    code_hi = len_code.to(torch.int32) << 8
+
+    def payload(t):
+        return _compose_tc(plane[rows[:, t]], code_hi[None, :])
+
+    return (lambda t: tc_score(payload(t), weights[:, t : t + 1], avg32),
+            payload)
+
+
+def full_phrase_select(plane, slots, weights, *, T: int, N_pad: int,
+                       KV: int, len_code=None, avg32=None):
+    """The full-scan phrase's selection (full_phrase_select_torch's
+    outputs) of the planes: raw the (H, N_pad) f32 score plane with
+    use_score, tc the uint8 tf plane with the len-code row, avg32 and
+    idf32 as weights; slots and weights in query-term order. On CUDA
+    tensors the kernel (ops/dense.phrase_select), or it raises; on CPU
+    tensors the plain version. Both check their arguments first
+    (ValueError)."""
+    kw = dict(T=T, N_pad=N_pad, KV=KV, len_code=len_code, avg32=avg32)
+    if isinstance(plane, torch.Tensor) and plane.is_cuda:
+        return _dense_op.phrase_select(plane, slots, weights, **kw)
+    _dense_op.check_phrase_inputs(plane, slots, weights, **kw)
+    rows_f32, _ = _phrase_rows(plane, slots, weights, len_code, avg32)
+    return full_phrase_select_torch(rows_f32, T=T, N_pad=N_pad, KV=KV)
+
+
+def full_phrase_select_torch(rows_f32, *, T: int, N_pad: int, KV: int):
+    """The full-scan phrase's selection, plain: an exact top-(KV+1) of
+    the score plane (_phrase_score), two-level (per-128-block maxima, the
+    top KV + 1 blocks re-sorted ascending, then the top KV + 1 of their
+    lanes, both by stable sort, lax.top_k's tie order), or one flat
+    selection where the doc space has fewer blocks. Every lane strictly
+    above the (KV+1)-th value is selected, so that value is exact.
+    Returns (top_cs (B, KV+1) f32 in descending order, top_cl (B, KV+1)
+    int32 lanes, -1 where the score is -inf)."""
+    score = _phrase_score(rows_f32, T)
+    B = score.shape[0]
     NB = N_pad // 128
     if NB >= KV + 1:
         s3 = score.view(B, NB, 128)
@@ -1663,9 +1690,75 @@ def _full_phrase_body(rows_f32, postings_doc, positions, pos_starts, starts,
         top_cl = torch.gather(blk, 1, fl // 128) * 128 + fl % 128
     else:  # tiny doc spaces: one flat selection
         top_cs, top_cl = _top_stable(score, KV + 1)
+    return (top_cs.contiguous(),
+            torch.where(top_cs > NEG_INF, top_cl, -1).to(torch.int32))
+
+
+def full_phrase_band(plane, slots, weights, top_cs, top_cl, thr, *, T: int,
+                     N_pad: int, KV: int, kth_doc=None, len_code=None,
+                     avg32=None):
+    """The full-scan phrase's band word (full_phrase_band_torch's output)
+    of the planes (as full_phrase_select) and a selection of them: on
+    CUDA tensors the kernel (ops/dense.phrase_band), or it raises; on CPU
+    tensors the plain version. Both check their arguments first
+    (ValueError)."""
+    kw = dict(T=T, N_pad=N_pad, KV=KV, len_code=len_code, avg32=avg32)
+    if isinstance(plane, torch.Tensor) and plane.is_cuda:
+        return _dense_op.phrase_band(plane, slots, weights, top_cs, top_cl,
+                                     thr, kth_doc=kth_doc, **kw)
+    _dense_op.check_phrase_inputs(plane, slots, weights,
+                                  band=(top_cs, top_cl, thr, kth_doc), **kw)
+    rows_f32, payload = _phrase_rows(plane, slots, weights, len_code, avg32)
+    return full_phrase_band_torch(rows_f32, top_cl, thr, T=T, N_pad=N_pad,
+                                  KV=KV, rows_payload=payload,
+                                  kth_doc=kth_doc)
+
+
+def full_phrase_band_torch(rows_f32, top_cl, thr, *, T: int, N_pad: int,
+                           KV: int, rows_payload=None, kth_doc=None):
+    """The full-scan phrase's band word, plain: 1 where some lane that is
+    not among the selection's first KV lanes (a scatter of top_cl[:, :KV])
+    has a score (_phrase_score) > -inf and >= thr, else 0. With
+    rows_payload (tc columns), a lane whose integer payload (len_code <<
+    8 | tf on every term) equals the kth_doc's has exactly its f64 score,
+    so it can displace it only by the doc-asc canon: it counts only if
+    its doc id is smaller. Returns (B,) int32."""
+    score = _phrase_score(rows_f32, T)
+    B = score.shape[0]
+    dev = score.device
+    # the empty places (-1) go to a spare last column
+    sel = top_cl[:, :KV].to(torch.int64)
+    selected = torch.zeros((B, N_pad + 1), dtype=torch.bool, device=dev)
+    selected.scatter_(1, torch.where(sel >= 0, sel, N_pad), True)
+    band = (~selected[:, :N_pad] & (score > NEG_INF)
+            & (score >= thr[:, None]))
+    if rows_payload is not None:
+        kd = kth_doc.to(torch.int64).clamp(0, N_pad - 1)
+        lane_id = torch.arange(N_pad, dtype=torch.int64, device=dev)
+        bad = lane_id[None, :] < kd[:, None]  # (B, N_pad)
+        for t in range(T):
+            pay = rows_payload(t)
+            bad |= pay != torch.gather(pay, 1, kd[:, None])
+        band &= bad
+    return band.any(dim=1).to(torch.int32)
+
+
+def _full_phrase_run(select, band, postings_doc, positions, pos_starts,
+                     starts, ends, anchor, ks, *, T: int, KV: int, PP: int,
+                     PW: int, M: int, n_bs_iters: int, eps3: float):
+    """Full-scan dense phrase: select the KV + 1 best lanes (select() ->
+    (top_cs, top_cl)), verify the KV best candidates by position windows,
+    bound the rest by the exact (KV+1)-th value: band(top_cs, top_cl,
+    thr, kth_doc) -> (B,) int32 flags every row where an unselected lane
+    scores within the eps3 band of the k-th kept score (thr), and
+    FLAG_PRUNE_MISS is raised there and where no k-th doc was kept while
+    the (KV+1)-th lane matched. The (KV+1)-th lane is not verified and
+    stays in the band. Returns (top_docs (B, M) i32, flags (B,) i32)."""
+    B = starts.shape[0]
+    top_cs, top_cl = select()
     unseen = top_cs[:, KV]
     sel_score = top_cs[:, :KV]
-    sel_docs = top_cl[:, :KV].to(torch.int32)
+    sel_docs = top_cl[:, :KV]
 
     targets = sel_docs[:, None, :].expand(B, T, KV)
     lo = _binary_search(postings_doc, targets, starts[:, :, None],
@@ -1684,29 +1777,63 @@ def _full_phrase_body(rows_f32, postings_doc, positions, pos_starts, starts,
     k_idx = (ks.to(torch.int64) - 1).clamp(0, M - 1)
     kth = torch.gather(top_score, 1, k_idx[:, None])[:, 0]
     no_k = kth <= NEG_INF
-    selected = torch.zeros((B, N_pad), dtype=torch.bool, device=dev)
-    selected.scatter_(1, top_cl[:, :KV].clamp(0, N_pad - 1), True)
     safe_kth = torch.where(no_k, float("inf"), kth)
-    band = (~selected & (score > NEG_INF)
-            & (score >= safe_kth[:, None] * float(np.float32(1.0 - eps3))))
-    if rows_payload is not None:
-        kth_doc = torch.gather(top_docs, 1, k_idx[:, None]).clamp(min=0)
-        lane_id = torch.arange(N_pad, dtype=torch.int32, device=dev)
-        bad = lane_id[None, :] < kth_doc  # (B, N_pad)
-        for t in range(T):
-            pay = rows_payload(t)
-            bad |= pay != torch.gather(pay, 1, kth_doc.to(torch.int64))
-        band &= bad
-    miss = (no_k & (unseen > NEG_INF)) | band.any(dim=1)
+    thr = safe_kth * float(np.float32(1.0 - eps3))
+    kth_doc = torch.gather(top_docs, 1, k_idx[:, None])[:, 0].clamp(min=0)
+    hit = band(top_cs, top_cl, thr, kth_doc)
+    miss = (no_k & (unseen > NEG_INF)) | (hit != 0)
     flags = (boundary_truncated(final_score, top_score, M).to(torch.int32)
              | miss.to(torch.int32) * FLAG_PRUNE_MISS)
     return top_docs, flags
 
 
+def _full_phrase_body(rows_f32, postings_doc, positions, pos_starts, starts,
+                      ends, anchor, ks, *, T: int, N_pad: int, KV: int,
+                      PP: int, PW: int, M: int, n_bs_iters: int,
+                      eps3: float, rows_payload=None):
+    """_full_phrase_run over row functions, with the plain passes.
+
+    Any unselected lane within the eps3 band of the k-th kept score
+    raises FLAG_PRUNE_MISS, except, with rows_payload (tc columns), an
+    exact payload tie (full_phrase_band_torch). rows_f32(t) -> (B, N_pad)
+    f32 score contribution of query term t (0 where absent);
+    rows_payload(t) -> (B, N_pad) int32 payload lanes or None. All
+    per-term arrays are in query-term order. Returns (top_docs (B, M)
+    i32, flags (B,) i32)."""
+    kw = dict(T=T, N_pad=N_pad, KV=KV)
+    return _full_phrase_run(
+        lambda: full_phrase_select_torch(rows_f32, **kw),
+        lambda top_cs, top_cl, thr, kth_doc: full_phrase_band_torch(
+            rows_f32, top_cl, thr, rows_payload=rows_payload,
+            kth_doc=kth_doc, **kw),
+        postings_doc, positions, pos_starts, starts, ends, anchor, ks, T=T,
+        KV=KV, PP=PP, PW=PW, M=M, n_bs_iters=n_bs_iters, eps3=eps3)
+
+
+def _full_phrase_planes(plane, slots, weights, postings_doc, positions,
+                        pos_starts, starts, ends, anchor, ks, *, T: int,
+                        N_pad: int, KV: int, PP: int, PW: int, M: int,
+                        n_bs_iters: int, eps3: float, len_code=None,
+                        avg32=None):
+    """_full_phrase_run over the planes, through the dispatching passes
+    (full_phrase_select, full_phrase_band): on a card the kernels, which
+    write no (B, N_pad) plane."""
+    kw = dict(T=T, N_pad=N_pad, KV=KV, len_code=len_code, avg32=avg32)
+    tc = len_code is not None
+    return _full_phrase_run(
+        lambda: full_phrase_select(plane, slots, weights, **kw),
+        lambda top_cs, top_cl, thr, kth_doc: full_phrase_band(
+            plane, slots, weights, top_cs, top_cl, thr,
+            kth_doc=kth_doc if tc else None, **kw),
+        postings_doc, positions, pos_starts, starts, ends, anchor, ks, T=T,
+        KV=KV, PP=PP, PW=PW, M=M, n_bs_iters=n_bs_iters, eps3=eps3)
+
+
 def make_full_phrase_kernel(T: int, N_pad: int, KV: int, PP: int, PW: int,
                             M: int, n_bs_iters: int, eps3: float):
-    """Raw-column full-scan mega phrase (_full_phrase_body) with the
-    per-term tfs from the dense tf rows.
+    """Raw-column full-scan mega phrase (_full_phrase_planes: on a card
+    the phrase's select and band kernels) with the per-term tfs from the
+    dense tf rows.
 
     fn(dense_sc (H, N_pad) f32, dense_tf (H, N_pad) i32, postings_doc,
        positions, pos_starts, starts (B, T), ends (B, T), slots (B, T),
@@ -1715,15 +1842,10 @@ def make_full_phrase_kernel(T: int, N_pad: int, KV: int, PP: int, PW: int,
 
     def kernel(dense_sc, dense_tf, postings_doc, positions, pos_starts,
                starts, ends, slots, use_score, anchor, ks):
-        rows = slots.to(torch.int64)
-
-        def row_f32(t):
-            return dense_sc[rows[:, t]] * use_score[:, t : t + 1]
-
-        top_docs, flags = _full_phrase_body(
-            row_f32, postings_doc, positions, pos_starts, starts, ends,
-            anchor, ks, T=T, N_pad=N_pad, KV=KV, PP=PP, PW=PW, M=M,
-            n_bs_iters=n_bs_iters, eps3=eps3)
+        top_docs, flags = _full_phrase_planes(
+            dense_sc, slots, use_score, postings_doc, positions, pos_starts,
+            starts, ends, anchor, ks, T=T, N_pad=N_pad, KV=KV, PP=PP, PW=PW,
+            M=M, n_bs_iters=n_bs_iters, eps3=eps3)
         tfs = torch.stack([
             torch.where(top_docs >= 0,
                         _dense_gather(dense_tf, slots[:, t : t + 1],
@@ -1737,8 +1859,8 @@ def make_full_phrase_kernel(T: int, N_pad: int, KV: int, PP: int, PW: int,
 def make_full_phrase_kernel_tc(T: int, N_pad: int, KV: int, PP: int,
                                PW: int, M: int, n_bs_iters: int,
                                eps3: float):
-    """tc full-scan mega phrase: _full_phrase_body over lanes composed from
-    the uint8 tf plane and the shared len-code row (as
+    """tc full-scan mega phrase: _full_phrase_planes over lanes composed
+    from the uint8 tf plane and the shared len-code row (as
     make_dense_search_kernel_tc), with the exact payload-tie refinement;
     tfs and saturation from the kept lanes.
 
@@ -1749,19 +1871,12 @@ def make_full_phrase_kernel_tc(T: int, N_pad: int, KV: int, PP: int,
 
     def kernel(dense_tf, len_code, avg32, postings_doc, positions,
                pos_starts, starts, ends, slots, idf32, anchor, ks):
-        rows = slots.to(torch.int64)
+        top_docs, flags = _full_phrase_planes(
+            dense_tf, slots, idf32, postings_doc, positions, pos_starts,
+            starts, ends, anchor, ks, T=T, N_pad=N_pad, KV=KV, PP=PP, PW=PW,
+            M=M, n_bs_iters=n_bs_iters, eps3=eps3, len_code=len_code,
+            avg32=avg32)
         code_hi = len_code.to(torch.int32) << 8
-
-        def payload(t):
-            return _compose_tc(dense_tf[rows[:, t]], code_hi[None, :])
-
-        def row_f32(t):
-            return tc_score(payload(t), idf32[:, t : t + 1], avg32)
-
-        top_docs, flags = _full_phrase_body(
-            row_f32, postings_doc, positions, pos_starts, starts, ends,
-            anchor, ks, T=T, N_pad=N_pad, KV=KV, PP=PP, PW=PW, M=M,
-            n_bs_iters=n_bs_iters, eps3=eps3, rows_payload=payload)
         return _pack_dense_tc(dense_tf, code_hi, slots, top_docs, flags, T)
 
     return kernel

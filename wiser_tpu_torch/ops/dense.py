@@ -18,6 +18,18 @@ merges a split query's lists (counted as dense_scan_merge). The pick is
 one CTA a query, or several for a small group (the last to finish
 selects), with a radix select whose histograms are counted per warp.
 
+`phrase_select` and `phrase_band` compute the full-scan mega phrase's two
+passes (engine/kernels.full_phrase_select and full_phrase_band): the same
+scan, over every block, under the phrase's rule (p = row * weight, or tc
+the table score times idf, summed in slot order from 0; matched where
+every p > 0, so a weight of 0 matches nothing), keeping K = KV + 1 keys
+in an unsorted buffer cut to its top K by a radix select (one sort at
+the end; a split query's segments share their thresholds) and writing
+them as (score, lane); then the band pass, whose CTAs return at once
+for every query whose (KV+1)-th score is below thr, test that lane
+first, and otherwise stream the query's rows until the first lane of
+the band (`plan(..., kind=...)`: "select" and "band").
+
 engine/kernels.py calls these for CUDA tensors and runs the plain torch
 versions (dense_scan_body_torch, dense_scan_body_tc_torch,
 pruned_scan_body_torch, _select_ub_blocks_torch) for CPU tensors, after
@@ -31,6 +43,21 @@ kept set, wherever no boundary tie was cut (FLAG_TRUNC clear); blk and
 next_ub always. The kernel's order is (score desc, doc asc), lax.top_k's;
 on a flagged row it keeps the lowest docs of the boundary class, which
 torch.topk on a card does not promise.
+
+The phrase's selection is the canonical top KV + 1 by (score desc, doc
+asc), and so is the plain version's two-level selection (stable sorts):
+every block holding a lane above the (KV+1)-th value v is among the KV +
+1 blocks it gathers (fewer than KV + 1 lanes lie above v), then the
+lowest-id blocks whose maximum is v, and every lane of the class of v
+that the canonical set keeps lies in one of them (the blocks below the
+first one left out hold at least as many lanes of that class as the set
+still needs). So where a tie class straddles the (KV+1)-th place, both
+keep its lowest docs: the kernel equals the plain version bit for bit
+on every row, ties included (lanes, score bits; -1 and -inf past the
+matched lanes). The band pass's word equals the plain version's on the
+same selection: its membership test is the key order, the plain
+version's a scatter of the selected lanes, which agree on a canonical
+selection.
 """
 
 from __future__ import annotations
@@ -43,10 +70,14 @@ import torch
 
 # kernel launches by wrapper name, counted where a kernel is launched:
 # dense_scan the raw scan's, dense_scan_tc the tc scan's, dense_tc_table
-# the tc table's launch before each tc scan, dense_scan_merge the second
-# launch of a split query (raw or tc)
+# the tc table's launch before each tc scan or tc phrase selection,
+# dense_scan_merge the second launch of a split query (raw or tc, scan or
+# phrase selection), phrase_select{,_tc} and phrase_band{,_tc} the
+# phrase's passes
 launch_counts = {"dense_scan": 0, "dense_scan_tc": 0, "dense_tc_table": 0,
-                 "dense_scan_merge": 0, "dense_pick": 0}
+                 "dense_scan_merge": 0, "dense_pick": 0, "phrase_select": 0,
+                 "phrase_select_tc": 0, "phrase_band": 0,
+                 "phrase_band_tc": 0}
 # the running top-K lists in shared memory up to this KP, past it in a
 # device scratch (dense.cu kKeySmemCap)
 KEY_SMEM_CAP = 4096
@@ -81,6 +112,8 @@ UB_SMEM_BYTES = 200 * 1024  # the pick's bounds in shared memory up to this
 PICK_SPLIT_CTAS = 132
 PICK_PART = 1024
 MAX_B = 65535  # the scan's and the pick's grid.y
+BAND_MAX_T = 128  # the band pass's slots at most (dense.cu kBandMaxT)
+KINDS = ("scan", "select", "band")  # dense.cu kScan, kSelect, kBand
 
 
 class Plan(NamedTuple):
@@ -128,48 +161,64 @@ def stage_bytes(T: int, mode: str, SB: int = STEP_BLOCKS) -> int:
 
 
 def scan_bytes(T: int, KP: int, mode: str, NS: int = MIN_STAGES,
-               SB: int = STEP_BLOCKS, listed: bool = False) -> int:
+               SB: int = STEP_BLOCKS, listed: bool = False,
+               kind: str = "scan") -> int:
     """dense.cu's scan_layout: the stages' mbarriers and the row count
     (48 B) | 3 step counters | a flush's scratch (FLUSH_BYTES) | T row
     offsets, row indices and weights | a block list's segment ids
     (IDS_CAP int64) | tc: the cache and norm tables (256 + 256 * TC_TFT
     f32) | NS stages | R and R2 (KP keys each, up to KEY_SMEM_CAP) and X
-    (two steps of keys)."""
+    (two steps of keys); the selection: X alone, of KP keys and two
+    steps' (select_keys); the band pass (KP 0): no keys."""
     tc = mode == "tc"
+    if kind == "select":
+        keys = 8 * select_keys(KP, SB * 128)
+    else:
+        keys = ((16 * KP if KP <= KEY_SMEM_CAP else 0) + 16 * SB * 128
+                if KP else 0)
     return (48 + 16 + FLUSH_BYTES + _align16(8 * T) + 2 * _align16(4 * T)
             + (8 * IDS_CAP if listed else 0)
             + ((1024 + 4 * 256 * TC_TFT) if tc else 0)
-            + NS * stage_bytes(T, mode, SB)
-            + (16 * KP if KP <= KEY_SMEM_CAP else 0) + 16 * SB * 128)
+            + NS * stage_bytes(T, mode, SB) + keys)
 
 
-def merge_bytes(KP: int) -> int:
+def select_keys(KP: int, lanes: int) -> int:
+    """The selection's key buffer (dense.cu xcap): KP keys kept and two
+    reads of `lanes` (a step's, or a merge step's) pushed on top."""
+    return KP + 2 * lanes
+
+
+def merge_bytes(KP: int, kind: str = "scan") -> int:
     """dense.cu's merge_bytes: 3 counters | X | a flush's scratch | R and
-    R2 (up to KEY_SMEM_CAP)."""
+    R2 (up to KEY_SMEM_CAP); the selection's: 3 counters | a flush's
+    scratch | X (select_keys)."""
+    if kind == "select":
+        return 16 + FLUSH_BYTES + 8 * select_keys(KP, MERGE_LANES)
     return (16 + 16 * MERGE_LANES + FLUSH_BYTES
             + (16 * KP if KP <= KEY_SMEM_CAP else 0))
 
 
-def _fit(T: int, KP: int, mode: str, cap: int, listed: bool):
+def _fit(T: int, KP: int, mode: str, cap: int, listed: bool, kind: str):
     """(NS, SB, smem) of the largest step, then the most stages (up to
     RING_BYTES together, at least MIN_STAGES), within cap bytes."""
     for SB in (8, 4, 2, 1):
         top = min(MAX_STAGES, max(MIN_STAGES,
                                   RING_BYTES // stage_bytes(T, mode, SB)))
         for NS in range(top, MIN_STAGES - 1, -1):
-            smem = scan_bytes(T, KP, mode, NS, SB, listed)
+            smem = scan_bytes(T, KP, mode, NS, SB, listed, kind)
             if smem <= cap:
                 return NS, SB, smem
     return None
 
 
-def scan_layout(T: int, KP: int, mode: str, listed: bool = False):
-    """(NS, SB, smem) of a scan (listed: over a block list): the largest
-    step whose layout leaves room for two CTAs an SM, else the largest
-    within the block's limit. Raises ValueError where none fits (T in the
-    hundreds)."""
-    fit = (_fit(T, KP, mode, SMEM_TWO_CTAS, listed)
-           or _fit(T, KP, mode, MAX_SMEM, listed))
+def scan_layout(T: int, KP: int, mode: str, listed: bool = False,
+                kind: str = "scan"):
+    """(NS, SB, smem) of a scan (listed: over a block list) of that kind:
+    the largest step whose layout leaves room for two CTAs an SM, else
+    the largest within the block's limit. Raises ValueError where none
+    fits (T in the hundreds)."""
+    fit = (_fit(T, KP, mode, SMEM_TWO_CTAS, listed, kind)
+           or _fit(T, KP, mode, MAX_SMEM, listed, kind))
     if fit is None:
         raise ValueError(f"no scan layout fits {MAX_SMEM} shared bytes at "
                          f"T={T}, KP={KP}")
@@ -208,31 +257,44 @@ def _segments(B: int, steps: int, SB: int, resident: int, max_bps: int):
     return best
 
 
+def _layout_kp(M: int, kind: str) -> int:
+    """The KP of a kind's layout: the power of 2 >= M + 1 keys, 0 for the
+    band pass (it keeps none)."""
+    return 0 if kind == "band" else _pow2(M + 1)
+
+
 @functools.lru_cache(maxsize=4096)
 def plan(B: int, T: int, NB: int, M: int, mode: str, resident: int,
-         listed: bool = False) -> Plan:
+         listed: bool = False, kind: str = "scan") -> Plan:
     """The launch plan of a scan group (arguments already checked): NB is
     the lane set's blocks (N_pad / 128 for the full scan, C for a block
     list: listed); `resident` the card's resident CTAs at the layout's
     shared bytes (resident_for on a card). A ring of stages, and each
     query's blocks in segments of whole steps, as many as bring the grid
     to whole waves (a block list's segments of at most IDS_CAP
-    blocks)."""
+    blocks). kind "select" (the phrase's selection, M = KV: K = KV + 1
+    keys written as (lane, score)) or "band" (its band pass: no keys, no
+    merge, no tc table; one word a query)."""
     K = M + 1
-    KP = _pow2(K)
-    NS, SB, smem = scan_layout(T, KP, mode, listed)
+    KP = _layout_kp(M, kind)
+    NS, SB, smem = scan_layout(T, KP, mode, listed, kind)
     steps = -(-NB // SB)
     nseg, bps, eff = _segments(B, steps, SB, resident,
                                IDS_CAP if listed else steps * SB)
-    in_smem = KP <= KEY_SMEM_CAP
-    merge_smem = merge_bytes(KP) if nseg > 1 else 0
-    part_words = 2 * B * nseg * K if nseg > 1 else 0
-    r_words = 0 if in_smem else 4 * B * nseg * KP
-    tc = mode == "tc"
+    keys = kind != "band"
+    split = nseg > 1 and keys
+    merge_smem = merge_bytes(KP, kind) if split else 0
+    # the segments' keys; the split selection's thresholds after them
+    part_words = (2 * B * nseg * K + 2 * B * (kind == "select")
+                  if split else 0)
+    r_words = (0 if KP <= KEY_SMEM_CAP or kind == "select"
+               else 4 * B * nseg * KP)
+    table = mode == "tc" and keys
+    out_words = {"scan": B * (2 * M + T * M + 1), "select": 2 * B * K,
+                 "band": B}[kind]
     return Plan(NS, SB, nseg, bps, K, KP, smem, merge_smem,
-                1 + (nseg > 1) + tc, part_words, r_words,
-                TC_TABLE_WORDS if tc else 0, B * (2 * M + T * M + 1),
-                resident, eff)
+                1 + split + table, part_words, r_words,
+                TC_TABLE_WORDS if table else 0, out_words, resident, eff)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -492,7 +554,8 @@ class _ScanParams(ctypes.Structure):
     _fields_ = [(n, ctypes.c_longlong) for n in (
         "sc tf tf8 code avg32 norm_g slots weights blocks H N_pad B T M nblk "
         "K KP nseg bps NS SB smem merge_smem part_keys rscratch "
-        "top_docs top_score top_tfs flags").split()]
+        "top_docs top_score top_tfs flags kind sel_lanes sel_score thr "
+        "kth_doc hit").split()]
 
 
 class _PickParams(ctypes.Structure):
@@ -517,7 +580,8 @@ class _Fns:
                                   ctypes.c_void_p]
         self.tc_table.restype = ctypes.c_int
         self.resident = lib.wiser_dense_resident
-        self.resident.argtypes = [ctypes.c_int, ctypes.c_longlong]
+        self.resident.argtypes = [ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_longlong]
         self.resident.restype = ctypes.c_int
         self.error = lib.wiser_dense_error_string
         self.error.argtypes = [ctypes.c_int]
@@ -538,10 +602,10 @@ def _kernel_fns() -> _Fns:
 
 
 @functools.lru_cache(maxsize=256)
-def _resident(mode: str, smem: int, idx: int) -> int:
+def _resident(mode: str, smem: int, idx: int, kind: str = "scan") -> int:
     fns = _kernel_fns()
     with torch.cuda.device(idx):
-        n = fns.resident(int(mode == "tc"), smem)
+        n = fns.resident(int(mode == "tc"), KINDS.index(kind), smem)
     if n <= 0:
         raise RuntimeError("dense_scan occupancy query failed: "
                            + fns.error(-n).decode())
@@ -549,13 +613,13 @@ def _resident(mode: str, smem: int, idx: int) -> int:
 
 
 def resident_for(mode: str, T: int, M: int, dev: torch.device,
-                 listed: bool = False) -> int:
+                 listed: bool = False, kind: str = "scan") -> int:
     """The card's resident scan CTAs (SMs times CTAs an SM, from the CUDA
-    runtime's occupancy) at the layout plan() picks for these
-    arguments."""
-    _, _, smem = scan_layout(T, _pow2(M + 1), mode, listed)
+    runtime's occupancy) of that kind's kernel at the layout plan() picks
+    for these arguments."""
+    _, _, smem = scan_layout(T, _layout_kp(M, kind), mode, listed, kind)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _resident(mode, smem, idx)
+    return _resident(mode, smem, idx, kind)
 
 
 def _launch(fn, params, dev: torch.device, what: str) -> None:
@@ -625,7 +689,7 @@ def dense_scan(plane, tf_plane, slots, weights, *, T: int, N_pad: int,
         p.merge_smem,
         base if p.part_words else 0,
         base + 4 * p.part_words if p.r_words else 0, o, o + 4 * BM,
-        o + 8 * BM, o + 4 * (2 * BM + BTM))
+        o + 8 * BM, o + 4 * (2 * BM + BTM), 0, 0, 0, 0, 0, 0)
     _launch(lambda f: f.scan, params, dev, "dense_scan")
     if tc:
         launch_counts["dense_scan_tc"] += 1
@@ -635,6 +699,168 @@ def dense_scan(plane, tf_plane, slots, weights, *, T: int, N_pad: int,
     if p.nseg > 1:
         launch_counts["dense_scan_merge"] += 1
     return res
+
+
+def check_phrase_inputs(plane, slots, weights, *, T: int, N_pad: int,
+                        KV: int, len_code=None, avg32=None,
+                        band=None) -> None:
+    """Raise ValueError unless the arguments are what the phrase's passes
+    take: the (H, N_pad) plane (raw f32 scores, or tc uint8 tfs with the
+    (N_pad,) uint8 len-code row and a one-element f32 avg32; the plane and
+    len_code 16-byte aligned), N_pad a positive multiple of 128, (B, T)
+    int32 slots and f32 weights (query-term order), 1 <= KV < N_pad; for
+    the band pass, band = (top_cs (B, KV + 1) f32, top_cl (B, KV + 1)
+    int32, thr (B,) f32, kth_doc (B,) int32 in tc, else None) and T <=
+    BAND_MAX_T; every tensor contiguous and on the plane's device (cpu or
+    cuda)."""
+    _need(isinstance(plane, _T) and plane.dim() == 2
+          and isinstance(slots, _T) and slots.dim() == 2,
+          "plane and slots must be 2-D tensors")
+    dev, H, B = plane.device, plane.shape[0], slots.shape[0]
+    _need(dev.type in ("cpu", "cuda"), f"unsupported device {dev}")
+    _need(T >= 1 and H >= 1 and N_pad >= 128 and N_pad % 128 == 0,
+          f"need T >= 1, H >= 1 and N_pad a positive multiple of 128, got "
+          f"T={T} H={H} N_pad={N_pad}")
+    _need(1 <= KV < N_pad, f"need 1 <= KV < N_pad, got KV={KV} "
+                           f"N_pad={N_pad}")
+    tc = len_code is not None
+    _tensor("plane", plane, torch.uint8 if tc else torch.float32,
+            (H, N_pad), dev, True)
+    if tc:
+        _tensor("len_code", len_code, torch.uint8, (N_pad,), dev, True)
+        _need(isinstance(avg32, _T) and avg32.dtype is torch.float32
+              and avg32.numel() == 1 and avg32.device == dev,
+              f"avg32 must be a one-element float32 tensor on {dev}")
+    _tensor("slots", slots, torch.int32, (B, T), dev)
+    _tensor("weights", weights, torch.float32, (B, T), dev)
+    if band is not None:
+        top_cs, top_cl, thr, kth_doc = band
+        _need(T <= BAND_MAX_T, f"the band pass takes T <= {BAND_MAX_T}, "
+                               f"got T={T}")
+        _tensor("top_cs", top_cs, torch.float32, (B, KV + 1), dev)
+        _tensor("top_cl", top_cl, torch.int32, (B, KV + 1), dev)
+        _tensor("thr", thr, torch.float32, (B,), dev)
+        _need((kth_doc is not None) == tc,
+              "kth_doc goes with tc columns, and only with them")
+        if tc:
+            _tensor("kth_doc", kth_doc, torch.int32, (B,), dev)
+
+
+def phrase_args_ok(plane, slots, weights, *, T: int, N_pad: int, KV: int,
+                   len_code=None, avg32=None, band=None) -> bool:
+    """check_phrase_inputs's conditions as one cheap test."""
+    if not (isinstance(plane, _T) and plane.dim() == 2
+            and isinstance(slots, _T) and slots.dim() == 2):
+        return False
+    dev, H, B = plane.device, plane.shape[0], slots.shape[0]
+    tc = len_code is not None
+    if not (dev.type in ("cpu", "cuda") and T >= 1 and H >= 1
+            and N_pad >= 128 and N_pad % 128 == 0 and 1 <= KV < N_pad
+            and _ok(plane, torch.uint8 if tc else torch.float32, (H, N_pad),
+                    dev, True)
+            and _ok(slots, torch.int32, (B, T), dev)
+            and _ok(weights, torch.float32, (B, T), dev)):
+        return False
+    if tc and not (_ok(len_code, torch.uint8, (N_pad,), dev, True)
+                   and isinstance(avg32, _T) and avg32.dtype is torch.float32
+                   and avg32.numel() == 1 and avg32.device == dev):
+        return False
+    if band is None:
+        return True
+    top_cs, top_cl, thr, kth_doc = band
+    return (T <= BAND_MAX_T and _ok(top_cs, torch.float32, (B, KV + 1), dev)
+            and _ok(top_cl, torch.int32, (B, KV + 1), dev)
+            and _ok(thr, torch.float32, (B,), dev)
+            and (kth_doc is not None) == tc
+            and (not tc or _ok(kth_doc, torch.int32, (B,), dev)))
+
+
+def _phrase_launch(kind: str, plane, slots, weights, *, T: int, N_pad: int,
+                   KV: int, len_code, avg32, band):
+    """Check, plan, allocate and launch one of the phrase's passes;
+    returns (plan, the buffer's outputs view, B)."""
+    kw = dict(T=T, N_pad=N_pad, KV=KV, len_code=len_code, avg32=avg32,
+              band=band)
+    what = "phrase_" + kind
+    if not (phrase_args_ok(plane, slots, weights, **kw)
+            and plane.device.type == "cuda"):
+        check_phrase_inputs(plane, slots, weights, **kw)
+        raise ValueError(f"{what} runs on CUDA tensors, got {plane.device}")
+    dev = plane.device
+    B = slots.shape[0]
+    if B > MAX_B:
+        raise ValueError(f"B = {B} queries exceed the grid's {MAX_B}")
+    tc = len_code is not None
+    mode = "tc" if tc else "raw"
+    p = plan(B, T, N_pad // 128, KV, mode,
+             resident_for(mode, T, KV, dev, kind=kind) if B else 1,
+             kind=kind)
+    buf = torch.empty(p.part_words + p.r_words + p.table_words
+                      + p.out_words, dtype=torch.int32, device=dev)
+    out = buf[p.part_words + p.r_words + p.table_words:]
+    if B == 0:
+        return out
+    base = buf.data_ptr()
+    table = base + 4 * (p.part_words + p.r_words)
+    o = table + 4 * p.table_words
+    K = KV + 1
+    select = kind == "select"
+    top_cs, top_cl, thr, kth_doc = band if band is not None else (None,) * 4
+    params = _ScanParams(
+        0 if tc else plane.data_ptr(), 0, plane.data_ptr() if tc else 0,
+        len_code.data_ptr() if tc else 0, avg32.data_ptr() if tc else 0,
+        table if tc and select else 0, slots.data_ptr(), weights.data_ptr(),
+        0, plane.shape[0], N_pad, B, T, KV, N_pad // 128, p.K, p.KP, p.nseg,
+        p.bps, p.NS, p.step_blocks, p.smem, p.merge_smem,
+        base if p.part_words else 0,
+        base + 4 * p.part_words if p.r_words else 0,
+        o if select else 0, o + 4 * B * K if select else 0, 0, 0,
+        KINDS.index(kind),
+        0 if select else top_cl.data_ptr(),
+        0 if select else top_cs.data_ptr(), 0 if select else thr.data_ptr(),
+        kth_doc.data_ptr() if kth_doc is not None else 0,
+        0 if select else o)
+    _launch(lambda f: f.scan, params, dev, what)
+    launch_counts[what + ("_tc" if tc else "")] += 1
+    if tc and select:
+        launch_counts["dense_tc_table"] += 1
+    if select and p.nseg > 1:
+        launch_counts["dense_scan_merge"] += 1
+    return out
+
+
+def phrase_select(plane, slots, weights, *, T: int, N_pad: int, KV: int,
+                  len_code=None, avg32=None):
+    """The full-scan phrase's selection from the kernel, on CUDA tensors:
+    each query's top K = KV + 1 lanes of the plane under the phrase's
+    rule, in (score desc, doc asc) order, as (top_cs (B, K) f32, top_cl
+    (B, K) int32; -inf and -1 past the matched lanes). raw: plane is the
+    f32 score plane, weights use_score; tc (len_code given): plane is the
+    uint8 tf plane, weights idf32. Checks the arguments as
+    check_phrase_inputs does (ValueError before any launch), allocates
+    the outputs (and the segments' keys with the split query's
+    thresholds, and tc's table) as views of one buffer, launches on the
+    current stream and does not synchronize."""
+    out = _phrase_launch("select", plane, slots, weights, T=T, N_pad=N_pad,
+                         KV=KV, len_code=len_code, avg32=avg32, band=None)
+    B, K = slots.shape[0], KV + 1
+    return (out[B * K:].view(torch.float32).view(B, K),
+            out[: B * K].view(B, K))
+
+
+def phrase_band(plane, slots, weights, top_cs, top_cl, thr, *, T: int,
+                N_pad: int, KV: int, kth_doc=None, len_code=None,
+                avg32=None):
+    """The full-scan phrase's band pass from the kernel, on CUDA tensors:
+    (B,) int32, 1 where some lane outside the selection (top_cs, top_cl
+    from phrase_select) matches, scores at least thr and ranks after the
+    KV-th selected lane (tc: and its payload differs from kth_doc's on
+    some term or its doc is below kth_doc), else 0. Checks the arguments
+    as check_phrase_inputs does, launches on the current stream (the
+    words zeroed first) and does not synchronize."""
+    return _phrase_launch("band", plane, slots, weights, T=T, N_pad=N_pad,
+                          KV=KV, len_code=len_code, avg32=avg32,
+                          band=(top_cs, top_cl, thr, kth_doc))
 
 
 def dense_pick(blockmax, slots, weights, *, T: int, NB: int, C: int,

@@ -4,8 +4,10 @@ beside them at the engine's shapes.
 
     python -m wiser_tpu_torch.tools.dense_bench [--out report.json]
     python -m wiser_tpu_torch.tools.dense_bench --probe [--index IDX]
+    python -m wiser_tpu_torch.tools.dense_bench --phrase [--probe] \
+        [--index IDX]
     python -m wiser_tpu_torch.tools.dense_bench --trees OLD,.,.,OLD \
-        [--index IDX] --out report.json
+        [--index IDX] [--routes phrase_mega --parts phrase] --out report.json
 
 (on a card: the kernels build at first use). `check_cases` runs the
 block-list scan over every block (engine/kernels.dense_scan_body{,_tc}
@@ -43,6 +45,16 @@ per query).
 measuring build's `clock64()` marks (`probe`), on synthetic 1M planes
 and, with `--index`, on the engines' own planes.
 
+`--phrase` does the same for the full-scan mega phrase's passes
+(full_phrase_select and full_phrase_band against their plain versions):
+`check_phrase_cases` (the selection's lanes and score bits, every band
+word), `time_phrase_shapes` at PHRASE_SHAPES and KV 1,024 and 4,096
+(the band where no row needs it and where every needing row streams),
+with `--index` on the engines' planes and `phrase_mega_set`
+(route_bench's phrase_mega set from the index's mined pairs: traced
+device time, the set's and a mega group's peak memory); `--probe` the
+selection's phase cycles (`probe_phrase`).
+
 `--trees` measures each listed tree once, in turns, each in its own
 process importing wiser_tpu_torch from that tree (a checkout of another
 commit, e.g. unpacked from `git archive`), through
@@ -51,7 +63,9 @@ pruned_scan_body, _select_ub_blocks: a kernel in this tree, the plain
 version in a tree without one) at `time_shapes`'s shapes on synthetic 1M
 planes and, with `--index` (a saved 1M index), on that index's own
 planes (a TorchEngine's, raw and tc), then route_bench's ROUTES sets,
-raw and tc, each traced.
+raw and tc, each traced; with `--parts phrase` the phrase's passes
+instead (a tree without them times none) and `--routes phrase_mega`
+the phrase_mega set (`phrase_mega_set`).
 """
 
 from __future__ import annotations
@@ -685,6 +699,30 @@ def _time(kern, plain, iters: int, plain_iters: int, with_plain: bool):
             / split["calls"]}
 
 
+def _record(rows: list, row: dict, kern, plain_fn, nbytes: int,
+            nbytes_q: int, iters: int, plain_iters: int, plain: bool,
+            what: str) -> None:
+    """Time kern (and plain_fn) at a timed shape (`_time`), its peak
+    memory above the inputs and its bytes bound (the group's, and per
+    query), into row; log it and append it to rows."""
+    import torch
+
+    row.update(_time(kern, plain_fn, iters, plain_iters, plain))
+    row.update(bytes=nbytes, bytes_per_query=nbytes_q,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               bound_ms_per_query=nbytes_q / HBM_BYTES_PER_S * 1e3)
+    row["share"] = row["bound_ms"] / row["device_ms"]
+    row["share_per_query"] = row["bound_ms_per_query"] / row["device_ms"]
+    row["flushed_share"] = row["bound_ms"] / row["flushed_ms"]
+    row["peak_extra"] = {"kernel": peak_extra(kern)}
+    if plain:
+        row["peak_extra"]["plain"] = peak_extra(plain_fn)
+        row["speedup"] = min(row["plain_ms"]) / row["device_ms"]
+    log(f"{what} timing {json.dumps(row)}")
+    rows.append(row)
+    torch.cuda.empty_cache()
+
+
 def time_shapes(dev, mode: str = "raw", planes=None, M: int = TIME_M,
                 C: int = TIME_C, full=FULL_SHAPES, pruned=PRUNED_SHAPES,
                 iters: int = 10, plain_iters: int = 3, seed: int = 1,
@@ -697,8 +735,6 @@ def time_shapes(dev, mode: str = "raw", planes=None, M: int = TIME_M,
     peak memory above the inputs and its bytes bound. plain=False: the
     entry points alone (the kernel, or in a tree without one its plain
     version), timed without a plain column."""
-    import torch
-
     from wiser_tpu_torch.engine import kernels as K
 
     p = planes if planes is not None else planes_1m(dev, seed)
@@ -713,21 +749,8 @@ def time_shapes(dev, mode: str = "raw", planes=None, M: int = TIME_M,
     rows = []
 
     def record(row, kern, plain_fn, nbytes, nbytes_q):
-        t = _time(kern, plain_fn, iters, plain_iters, plain)
-        row.update(t)
-        row.update(bytes=nbytes, bytes_per_query=nbytes_q,
-                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                   bound_ms_per_query=nbytes_q / HBM_BYTES_PER_S * 1e3)
-        row["share"] = row["bound_ms"] / row["device_ms"]
-        row["share_per_query"] = row["bound_ms_per_query"] / row["device_ms"]
-        row["flushed_share"] = row["bound_ms"] / row["flushed_ms"]
-        row["peak_extra"] = {"kernel": peak_extra(kern)}
-        if plain:
-            row["peak_extra"]["plain"] = peak_extra(plain_fn)
-            row["speedup"] = min(row["plain_ms"]) / row["device_ms"]
-        log(f"dense timing {json.dumps(row)}")
-        rows.append(row)
-        torch.cuda.empty_cache()
+        _record(rows, row, kern, plain_fn, nbytes, nbytes_q, iters,
+                plain_iters, plain, "dense")
 
     for B, T in full:
         q = to_device(synth_slots(B, T, H, seed + B + T, n_pad_rows=0), dev)
@@ -785,6 +808,322 @@ def time_shapes(dev, mode: str = "raw", planes=None, M: int = TIME_M,
                + pick_bound_bytes(s, NB, C),
                bound_bytes(s, mode, N_pad, M, kept, blocks=b, per_query=True)
                + pick_bound_bytes(s, NB, C, per_query=True))
+    return rows
+
+
+# -- the full-scan mega phrase's passes ---------------------------------------
+
+# the phrase's timed groups (B, T) at KV 1,024 and the rescue's 4,096:
+# the mega phrase's chunk on the 1M index is B 128 (engine/device.py's
+# lane budget), smaller groups where fewer mega phrases meet
+PHRASE_SHAPES = ((8, 2), (32, 2), (128, 2), (128, 3))
+PHRASE_KVS = (1024, 4096)
+PHRASE_EPS3 = 3e-6
+
+
+def phrase_slots(B: int, T: int, H: int, seed: int, n_pad_rows: int = 1,
+                 rows=None) -> dict:
+    """(B, T) int32 slots and f32 weights of a phrase group, as the engine
+    assembles them: T real rows a query (every slot a term, query-term
+    order; drawn from rows 3.. without repeats, or `rows`), use 1 and idf
+    0.1-8; the last n_pad_rows queries are batch padding (slot 0, weights
+    0: they match nothing)."""
+    rng = np.random.default_rng(seed)
+    slots = np.zeros((B, T), dtype=np.int32)
+    use = np.zeros((B, T), dtype=np.float32)
+    idf = np.zeros((B, T), dtype=np.float32)
+    for b in range(max(0, B - n_pad_rows) if rows is None else B):
+        r = (list(rows[b % len(rows)]) if rows is not None else
+             list(rng.choice(np.arange(3, H), size=T, replace=T > H - 3)))
+        slots[b] = r
+        use[b] = 1.0
+        idf[b] = rng.uniform(0.1, 8.0, size=T)
+    return {"slots": slots, "use": use, "idf32": idf}
+
+
+def _phrase_args(p: dict, q: dict, mode: str, KV: int):
+    """(plane, slots, weights) and the keywords of the phrase's passes."""
+    tc = mode == "tc"
+    plane = p["tf8"] if tc else p["sc"]
+    kw = dict(T=q["slots"].shape[1], N_pad=plane.shape[1], KV=KV)
+    if tc:
+        kw.update(len_code=p["code"], avg32=p["avg32"])
+    return (plane, q["slots"], weights(q, mode)), kw
+
+
+def select_call(plain: bool, p: dict, q: dict, mode: str, KV: int):
+    """full_phrase_select (the kernel on a card) or its plain version."""
+    from wiser_tpu_torch.engine import kernels as K
+
+    args, kw = _phrase_args(p, q, mode, KV)
+    if not plain:
+        return K.full_phrase_select(*args, **kw)
+    rows_f32, _ = K._phrase_rows(*args, len_code=kw.get("len_code"),
+                                 avg32=kw.get("avg32"))
+    return K.full_phrase_select_torch(rows_f32, T=kw["T"],
+                                      N_pad=kw["N_pad"], KV=KV)
+
+
+def band_call(plain: bool, p: dict, q: dict, mode: str, KV: int, sel, thr,
+              kth_doc=None):
+    """full_phrase_band (the kernel on a card) or its plain version, on the
+    selection sel = (top_cs, top_cl)."""
+    from wiser_tpu_torch.engine import kernels as K
+
+    args, kw = _phrase_args(p, q, mode, KV)
+    kth = kth_doc if mode == "tc" else None
+    if not plain:
+        return K.full_phrase_band(*args, *sel, thr, kth_doc=kth, **kw)
+    rows_f32, payload = K._phrase_rows(*args, len_code=kw.get("len_code"),
+                                       avg32=kw.get("avg32"))
+    return K.full_phrase_band_torch(rows_f32, sel[1], thr, T=kw["T"],
+                                    N_pad=kw["N_pad"], KV=KV,
+                                    rows_payload=payload, kth_doc=kth)
+
+
+def check_select(kern, plain, KV: int, what: str) -> dict:
+    """The selections bit-equal at every place: score bits and lanes (the
+    canonical top KV + 1 on both sides, ops/dense.py), in (score desc,
+    lane asc) order, -inf and -1 past the matched lanes."""
+    ks_, kl = _np(kern)
+    ps, pl = _np(plain)
+    for name, got, want in (("score bits", ks_.view(np.int32),
+                             ps.view(np.int32)), ("lanes", kl, pl)):
+        rows = np.nonzero((got != want).any(axis=1))[0]
+        if len(rows):
+            b = rows[0]
+            raise AssertionError(
+                f"{what}: {name} differ on {len(rows)} rows, first row {b}: "
+                f"kernel {got[b][:8]} plain {want[b][:8]}")
+    order = np.lexsort((np.where(kl >= 0, kl, 1 << 31), -ks_), axis=1)
+    if not np.array_equal(order, np.broadcast_to(np.arange(kl.shape[1]),
+                                                 kl.shape)):
+        raise AssertionError(f"{what}: not in (score desc, lane asc) order")
+    fin = np.isfinite(ks_[:, KV])
+    return {"rows": kl.shape[0], "kept": int((kl >= 0).sum()),
+            "full_rows": int(fin.sum()), "max_abs_err": 0.0}
+
+
+def band_cases(sel, mode: str, N_pad: int):
+    """(name, thr, kth_doc) cases of the band on a selection (device
+    tensors): thr past every (KV+1)-th score (no row needs the band), at
+    it (every full row does), just under it and far under it; tc also
+    with the k-th doc at the (KV+1)-th lane itself (its payload tie: the
+    stream runs), at doc 0 and past the last doc."""
+    import torch
+
+    cs, cl = sel
+    unseen = cs[:, -1]
+    fin = torch.isfinite(unseen)
+    top = unseen[fin].max() if bool(fin.any()) else torch.tensor(1.0)
+    base = {"skip": torch.full_like(unseen, float(top) * 2 + 1),
+            "at": torch.where(fin, unseen, 1.0),
+            "under": torch.where(fin, unseen * 0.999, 1.0),
+            "far": torch.full_like(unseen, 1e-3)}
+    kths = {"lane0": torch.zeros_like(cl[:, 0])}
+    if mode == "tc":
+        kths = {"kv1": cl[:, -1].clamp(min=0).contiguous(),
+                "lane0": kths["lane0"],
+                "past": torch.full_like(cl[:, 0], N_pad + 5)}
+    return [(f"{t}/{k}", thr.contiguous(), kd)
+            for t, thr in base.items() for k, kd in kths.items()]
+
+
+def check_phrase_cases(dev, seed: int = 0, H: int = 12,
+                       NBs=(1, 157, NB_1M)) -> dict:
+    """The phrase's kernels against their plain versions on the CUDA
+    device `dev`: the selection (check_select) raw and tc at T 2 and 3,
+    KV 1,024 and 4,096 (reduced to the lane set), over 1, 157 and 7,816
+    blocks (B 128 and 32 on the 1M planes, 8 below), then T 8 and the
+    edge rows (a repeated row, disjoint rows, a sparse row, batch
+    padding); the band word bit-equal on each selection at every
+    band_cases case; and the band's stream on tc planes of one payload
+    (it reads every lane and finds nothing) with a lane of another
+    payload at the last doc (it finds it at its last step). Raises on the
+    first difference; returns the totals and each case's counts."""
+    import torch
+
+    cases = []
+    rows_need = [0, 0]
+
+    def one(p, q, mode, KV, what, **kw):
+        sel = select_call(False, p, q, mode, KV)
+        row = check_select(sel, select_call(True, p, q, mode, KV), KV, what)
+        N_pad = (p["tf8"] if mode == "tc" else p["sc"]).shape[1]
+        for name, thr, kd in band_cases(sel, mode, N_pad):
+            got = band_call(False, p, q, mode, KV, sel, thr, kd)
+            want = band_call(True, p, q, mode, KV, sel, thr, kd)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{what} band {name}: words differ: kernel "
+                    f"{got.tolist()[:16]} plain {want.tolist()[:16]}")
+            need = sel[0][:, -1] >= thr
+            rows_need[0] += int(need.sum())
+            rows_need[1] += int(got.sum())
+        row.update(kind="phrase", mode=mode, KV=KV, what=what, **kw)
+        cases.append(row)
+
+    for NB in NBs:
+        p = to_device(synth_planes(H, NB, seed + NB), dev)
+        for T in (2, 3):
+            for KV in PHRASE_KVS:
+                KVr = min(KV, NB * 128 - 1)
+                B = (128 if KV == 1024 else 32) if NB == NB_1M else 8
+                q = to_device(phrase_slots(B, T, H, seed + 7 * T + KV), dev)
+                for mode in ("raw", "tc"):
+                    one(p, q, mode, KVr, f"phrase {mode} NB={NB} B={B} "
+                        f"T={T} KV={KVr}", NB=NB, B=B, T=T)
+        if NB == 157:
+            edge = to_device(phrase_slots(
+                5, 3, H, seed, rows=[[5, 5, 6], [0, 1, 4], [2, 4, 6],
+                                     [3, 5, 7], [6, 3, 6]]), dev)
+            edge["use"][4] = 0.0
+            edge["idf32"][4] = 0.0
+            q8 = to_device(phrase_slots(8, 8, H, seed + 8), dev)
+            for mode in ("raw", "tc"):
+                one(p, edge, mode, 1024, f"phrase edges {mode}", NB=NB, B=5,
+                    T=3)
+                one(p, q8, mode, 1024, f"phrase T=8 {mode}", NB=NB, B=8,
+                    T=8)
+        del p
+    # the band's stream: one payload everywhere (row 1: a lower tf byte at
+    # the last doc), the k-th doc at the (KV+1)-th lane, thr at the
+    # lowest score of the row: every lane is in the band, and only that
+    # last one is no payload tie
+    from wiser_tpu_torch.engine import kernels as K
+
+    NB = 157
+    tf8 = np.full((2, NB * 128), 3, dtype=np.uint8)
+    tf8[1, -1] = 2
+    p = to_device({"tf8": tf8, "code": np.full(NB * 128, 40, np.uint8),
+                   "avg32": np.float32(57.25)}, dev)
+    for rows in ([[0, 0]], [[0, 1]]):
+        q = to_device(phrase_slots(1, 2, 2, seed, rows=rows), dev)
+        sel = select_call(False, p, q, "tc", 1024)
+        check_select(sel, select_call(True, p, q, "tc", 1024), 1024,
+                     f"stream {rows}")
+        args, kw = _phrase_args(p, q, "tc", 1024)
+        rows_f32, _ = K._phrase_rows(*args, len_code=kw["len_code"],
+                                     avg32=kw["avg32"])
+        thr = K._phrase_score(rows_f32, 2).amin(dim=1).contiguous()
+        kd = sel[1][:, -1].contiguous()
+        got = band_call(False, p, q, "tc", 1024, sel, thr, kd)
+        want = band_call(True, p, q, "tc", 1024, sel, thr, kd)
+        if not torch.equal(got, want) or int(got[0]) != (rows[0][1] == 1):
+            raise AssertionError(f"band stream {rows}: kernel "
+                                 f"{got.tolist()} plain {want.tolist()}")
+        cases.append({"kind": "band_stream", "mode": "tc", "rows": 1,
+                      "hit": int(got[0]), "what": f"stream {rows}",
+                      "max_abs_err": 0.0})
+    if not (rows_need[0] and rows_need[1]):
+        raise AssertionError(f"the band cases need {rows_need[0]} rows and "
+                             f"flag {rows_need[1]}")
+    return {"cases": len(cases), "need_rows": rows_need[0],
+            "band_rows": rows_need[1],
+            "kept_lanes": sum(c.get("kept", 0) for c in cases),
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "rows": cases}
+
+
+def phrase_bound_bytes(slots, mode: str, N_pad: int, K: int,
+                       per_query: bool = False, lanes=None) -> int:
+    """The bytes the selection must move, each once: every lane of the
+    distinct rows its queries read (4 B raw, 1 B tc, and tc the len-code
+    row once; per_query: counted per query), the (B, T) slots and
+    weights, and the (B, K) lanes and scores written. `lanes` ((B,)): the
+    band pass's, lanes[b] lanes of query b's distinct rows (and tc of the
+    len codes) read, its selection's two words, its (KV+1)-th score and
+    thr read and its word written."""
+    slots = np.asarray(slots, dtype=np.int64)
+    B, T = slots.shape
+    lane_b = 4 if mode == "raw" else 1
+    if lanes is not None:
+        per = [len(np.unique(r)) * lane_b + (mode == "tc") for r in slots]
+        return int(sum(n * int(x) for n, x in zip(per, lanes))
+                   + B * T * 8 + B * (8 + 4 + 4 + 4))
+    n_rows = (sum(len(np.unique(r)) for r in slots) if per_query
+              else len(np.unique(slots)))
+    total = n_rows * N_pad * lane_b + (N_pad * (B if per_query else 1)
+                                       if mode == "tc" else 0)
+    return int(total + B * T * 8 + B * K * 8)
+
+
+def time_phrase_shapes(dev, mode: str = "raw", planes=None,
+                       shapes=PHRASE_SHAPES, KVs=PHRASE_KVS, iters: int = 10,
+                       plain_iters: int = 3, seed: int = 1,
+                       plain: bool = True, compare: bool = True) -> list:
+    """The phrase's kernels and plain versions at the engine's groups on
+    `planes` (synthetic 1M planes by default): at each (B, T) of `shapes`
+    and each KV of KVs, the selection (compared with check_select) and the
+    band pass at two thresholds: `skip`, past every (KV+1)-th score (no
+    row needs the band: the usual group), and `stream`, at each row's
+    (KV+1)-th score (raw: that lane flags itself; tc: with the k-th doc
+    at that lane, a payload tie, every lane is read until a band lane).
+    Each timed (`_time`: turns with the plain version, an L2 flush, each
+    launch by torch.profiler, host cost), its peak memory above the
+    inputs and its bytes bound."""
+    import torch
+
+    p = planes if planes is not None else planes_1m(dev, seed)
+    H, N_pad = (p["tf8"] if mode == "tc" else p["sc"]).shape
+    rows = []
+
+    def record(row, kern, plain_fn, nbytes, nbytes_q):
+        _record(rows, row, kern, plain_fn, nbytes, nbytes_q, iters,
+                plain_iters, plain, "phrase")
+
+    for B, T in shapes:
+        q = to_device(phrase_slots(B, T, H, seed + B + T, n_pad_rows=0), dev)
+        s = q["slots"].cpu().numpy()
+        for KV in KVs:
+            KV = min(KV, N_pad - 1)
+            head = {"mode": mode, "B": B, "T": T, "N_pad": N_pad, "KV": KV}
+
+            def sel_k(q=q, KV=KV):
+                return select_call(False, p, q, mode, KV)
+
+            def sel_p(q=q, KV=KV):
+                return select_call(True, p, q, mode, KV)
+
+            sel = sel_k()
+            row = dict(head, kind="phrase_select")
+            if compare:
+                row["check"] = check_select(sel, sel_p(), KV,
+                                            f"{mode} select B={B} T={T}")
+            record(row, sel_k, sel_p,
+                   phrase_bound_bytes(s, mode, N_pad, KV + 1),
+                   phrase_bound_bytes(s, mode, N_pad, KV + 1, True))
+            unseen = sel[0][:, -1]
+            fin = torch.isfinite(unseen)
+            top = float(unseen[fin].max()) if bool(fin.any()) else 1.0
+            kd = sel[1][:, -1].clamp(min=0).contiguous()
+            for name, thr in (
+                    ("skip", torch.full_like(unseen, top * 2 + 1)),
+                    ("stream", torch.where(fin, unseen, 1.0).contiguous())):
+                def band_k(q=q, KV=KV, thr=thr):
+                    return band_call(False, p, q, mode, KV, sel, thr, kd)
+
+                def band_p(q=q, KV=KV, thr=thr):
+                    return band_call(True, p, q, mode, KV, sel, thr, kd)
+
+                row = dict(head, kind=f"phrase_band_{name}")
+                got = band_k()
+                if compare and not torch.equal(got, band_p()):
+                    raise AssertionError(f"{mode} band {name} B={B} T={T}: "
+                                         f"words differ")
+                row["flagged"] = int(got.sum())
+                # the lanes the band must read: none for a row that does
+                # not need it, every lane of one that needs it and finds
+                # nothing, at least one of one that flags
+                need = (sel[0][:, -1] >= thr).cpu().numpy()
+                hit = got.cpu().numpy() != 0
+                lanes = np.where(need, np.where(hit, 1, N_pad), 0)
+                row["need_rows"] = int(need.sum())
+                record(row, band_k, band_p,
+                       phrase_bound_bytes(s, mode, N_pad, KV + 1,
+                                          lanes=lanes),
+                       phrase_bound_bytes(s, mode, N_pad, KV + 1, True,
+                                          lanes=lanes))
     return rows
 
 
@@ -910,12 +1249,141 @@ def probe(dev, planes=None, modes=("raw", "tc"), full=FULL_SHAPES,
     return rows
 
 
-def measure(root: str, index=None, routes: str = ROUTES) -> dict:
-    """One tree's readings, in this process: its entry points at
-    time_shapes's shapes, raw and tc (no plain times, no comparison), on
-    synthetic 1M planes and, given a saved index, on a TorchEngine's own
-    planes of it in each column mode; then route_bench's `routes` raw and
-    tc, each set traced."""
+def phrase_mega_set(index: str, columns: str, n: int = 2048,
+                    trace: bool = True) -> dict:
+    """route_bench's phrase_mega set (up to n phrase queries from the
+    index's mined pairs, `<index>/phrase_pairs.json`, whose terms are
+    both dense) on a TorchEngine of the index: route_bench.run_set (warm
+    pass, timed pass, a traced pass), with the peak device memory of the
+    passes above the engine's own, and that of a mega-phrase group above
+    its inputs (the largest over the engine's _mega_phrase_dispatch
+    calls: the group's arrays, its outputs included)."""
+    import torch
+
+    from wiser_tpu_torch import TorchEngine
+    from wiser_tpu_torch.index.format import PackedIndex
+    from wiser_tpu_torch.tools import route_bench as RB
+
+    with open(os.path.join(index, "phrase_pairs.json")) as f:
+        pairs = [tuple(x) for x in json.load(f)]
+    packed = PackedIndex.load(index, skip_offsets=True)
+    eng = TorchEngine(packed, device="cuda", columns=columns)
+    queries = RB.build_phrase_route_sets(packed, eng, None, n, 10,
+                                         pairs=pairs)["phrase_mega"]
+    dispatch = eng._mega_phrase_dispatch
+    group_peak = [0]
+
+    def measured(*args):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = dispatch(*args)
+        torch.cuda.synchronize()
+        group_peak[0] = max(group_peak[0],
+                            torch.cuda.max_memory_allocated() - before)
+        return out
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        eng.search_batch(queries)  # the set's peak, without the wrapper
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        eng.clear_result_memos()
+        eng._mega_phrase_dispatch = measured
+        eng.search_batch(queries)
+        del eng._mega_phrase_dispatch
+        eng.clear_result_memos()
+        eng.stats_take()
+        torch.cuda.reset_peak_memory_stats()
+        row = RB.run_set(eng, queries, 2048, trace_dir=tmp if trace else None)
+    row["peak_above_engine_bytes"] = int(max(
+        peak, torch.cuda.max_memory_allocated() - base))
+    row["group_peak_bytes"] = int(group_peak[0])
+    row["queries"] = len(queries)
+    log(f"phrase_mega {columns}: {json.dumps(row)}")
+    return row
+
+
+def probe_phrase(dev, planes=None, modes=("raw", "tc"),
+                 shapes=PHRASE_SHAPES, KVs=PHRASE_KVS, iters: int = 5,
+                 seed: int = 1) -> list:
+    """Each phase's cycles of the phrase's selection (the measuring
+    build's scan counters: the flush's share and the flushes a CTA) at
+    each (B, T) and KV, beside its event-timed ms in that build."""
+    import torch
+
+    from wiser_tpu_torch.ops import dense as D
+    from wiser_tpu_torch.tools.search_bench import event_ms
+
+    p = planes if planes is not None else planes_1m(dev, seed)
+    rows = []
+    loaded = D._kernel_fns()
+    fns = clocks_build()
+    try:
+        _bind(fns)
+        for mode in modes:
+            H, N_pad = (p["tf8"] if mode == "tc" else p["sc"]).shape
+            for B, T in shapes:
+                q = to_device(phrase_slots(B, T, H, seed + B + T,
+                                           n_pad_rows=0), dev)
+                for KV in KVs:
+                    KV = min(KV, N_pad - 1)
+
+                    def fn(q=q, mode=mode, KV=KV):
+                        return select_call(False, p, q, mode, KV)
+
+                    rows.append(dict(kind="phrase_select", mode=mode, B=B,
+                                     T=T, KV=KV, ms=event_ms(fn, iters),
+                                     **phase_split(fn, fns)))
+                    log(f"phrase probe {json.dumps(rows[-1])}")
+    finally:
+        _bind(loaded)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phrase_readings(dev, index=None, probe: bool = False) -> dict:
+    """`--phrase`: time_phrase_shapes raw and tc on synthetic 1M planes
+    and, with a saved index, on a TorchEngine's own planes of it in each
+    column mode with its phrase_mega set; with `probe`, probe_phrase on
+    the same planes instead."""
+    import torch
+
+    out = {}
+    fn = probe_phrase if probe else (
+        lambda dev, planes, modes: {m: time_phrase_shapes(dev, m, planes)
+                                    for m in modes})
+    if index:
+        from wiser_tpu_torch import TorchEngine
+        from wiser_tpu_torch.index.format import PackedIndex
+
+        packed = PackedIndex.load(index, skip_offsets=True)
+        out["engine"] = {}
+        for columns in ("raw", "tc"):
+            eng = TorchEngine(packed, device="cuda", columns=columns)
+            out["engine"][columns] = fn(dev, engine_planes(eng), (columns,))
+            del eng
+            torch.cuda.empty_cache()
+        del packed
+        if not probe:
+            out["phrase_mega"] = {c: phrase_mega_set(index, c)
+                                  for c in ("raw", "tc")}
+    out["synthetic"] = fn(dev, planes_1m(dev), ("raw", "tc"))
+    torch.cuda.empty_cache()
+    return {"probe" if probe else "timing": out}
+
+
+def measure(root: str, index=None, routes: str = ROUTES,
+            parts: str = "dense") -> dict:
+    """One tree's readings, in this process: with "dense" in `parts` its
+    entry points at time_shapes's shapes, with "phrase" the phrase's
+    passes at time_phrase_shapes's (where the tree has them), raw and tc
+    (no plain times, no comparison), on synthetic 1M planes and, given a
+    saved index, on a TorchEngine's own planes of it in each column mode;
+    then route_bench's `routes` raw and tc, each set traced (phrase_mega:
+    phrase_mega_set, from the index's mined pairs)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -925,38 +1393,61 @@ def measure(root: str, index=None, routes: str = ROUTES) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("dense_bench measures a card: none is available")
     dev = torch.device("cuda", 0)
-    p = planes_1m(dev)
+    parts = set(parts.split(","))
+    if "phrase" in parts and not hasattr(K, "full_phrase_select"):
+        parts.discard("phrase")  # a tree before the phrase's kernels
+
+    def timings(planes_of):
+        out = {}
+        for m in ("raw", "tc"):
+            p = planes_of(m)
+            if "dense" in parts:
+                out[m] = time_shapes(dev, m, planes=p, plain=False,
+                                     compare=False)
+            if "phrase" in parts:
+                out[f"phrase_{m}"] = time_phrase_shapes(
+                    dev, m, planes=p, plain=False, compare=False)
+            del p
+            torch.cuda.empty_cache()
+        return out
+
+    p1 = planes_1m(dev)
     out = {"tree": root, "card": card_line(),
            "module": os.path.abspath(K.__file__),
-           "timing": {m: time_shapes(dev, m, planes=p, plain=False,
-                                     compare=False)
-                      for m in ("raw", "tc")}}
-    del p
+           "timing": timings(lambda m: p1)}
+    del p1
     torch.cuda.empty_cache()
+    sets = [r for r in routes.split(",") if r]
     if index:
         from wiser_tpu_torch import TorchEngine
         from wiser_tpu_torch.index.format import PackedIndex
         from wiser_tpu_torch.tools import route_bench as RB
 
-        packed = PackedIndex.load(index, skip_offsets=True)
-        out["engine_timing"] = {}
-        for columns in ("raw", "tc"):
-            eng = TorchEngine(packed, device="cuda", columns=columns)
-            out["engine_timing"][columns] = time_shapes(
-                dev, columns, planes=engine_planes(eng), plain=False,
-                compare=False)
-            del eng
-            torch.cuda.empty_cache()
-        del packed
+        if parts & {"dense", "phrase"}:
+            packed = PackedIndex.load(index, skip_offsets=True)
+
+            def engine_planes_of(columns):
+                eng = TorchEngine(packed, device="cuda", columns=columns)
+                return engine_planes(eng)
+
+            out["engine_timing"] = timings(engine_planes_of)
+            del packed
         out["routes"] = {}
         for columns in ("raw", "tc"):
-            with tempfile.TemporaryDirectory() as tmp:
-                path = os.path.join(tmp, "routes.json")
-                RB.main(["--index", index, "--columns", columns,
-                         "--n-queries", "2048", "--routes", routes,
-                         "--trace", tmp, "--out", path])
-                with open(path) as f:
-                    out["routes"][columns] = json.load(f)["routes"]
+            rest = [r for r in sets if r != "phrase_mega"]
+            out["routes"][columns] = {}
+            if rest:
+                with tempfile.TemporaryDirectory() as tmp:
+                    path = os.path.join(tmp, "routes.json")
+                    RB.main(["--index", index, "--columns", columns,
+                             "--n-queries", "2048", "--routes",
+                             ",".join(rest), "--trace", tmp, "--out", path])
+                    with open(path) as f:
+                        out["routes"][columns] = json.load(f)["routes"]
+            if "phrase_mega" in sets:
+                out["routes"][columns]["phrase_mega"] = phrase_mega_set(
+                    index, columns)
+            torch.cuda.empty_cache()
     return out
 
 
@@ -972,9 +1463,11 @@ def summary(runs: list) -> dict:
                                ("engine_", r.get("engine_timing", {}))):
             for mode, rows in timing.items():
                 for x in rows:
-                    s[f"{prefix}{x['kind']}_{mode}_B{x['B']}_T{x['T']}"] = [
-                        x["device_ms"], x["flushed_ms"], x["host_us"],
-                        x["share"]]
+                    kv = f"_KV{x['KV']}" if "KV" in x else ""
+                    key = (f"{prefix}{x['kind']}_{x.get('mode', mode)}"
+                           f"_B{x['B']}_T{x['T']}{kv}")
+                    s[key] = [x["device_ms"], x["flushed_ms"], x["host_us"],
+                              x["share"]]
         for columns, sets in r.get("routes", {}).items():
             for name, row in sets.items():
                 traced = row.get("traced") or {}
@@ -983,6 +1476,10 @@ def summary(runs: list) -> dict:
                 s[f"{columns}_{name}"] = [row.get("wall_s"),
                                           traced.get("device_busy_ms"),
                                           kern_ms, traced.get("busy_share")]
+                if "peak_above_engine_bytes" in row:
+                    s[f"{columns}_{name}_peak_bytes"] = [
+                        row["peak_above_engine_bytes"],
+                        row["group_peak_bytes"]]
         res.append(s)
     return {"dense_bench": res}
 
@@ -998,15 +1495,22 @@ def main(argv=None) -> dict:
     ap.add_argument("--routes", default=ROUTES)
     ap.add_argument("--probe", action="store_true",
                     help="each kernel phase's cycles (clock64() marks)")
+    ap.add_argument("--phrase", action="store_true",
+                    help="the full-scan phrase's passes instead of the "
+                         "dense scan and pick")
+    ap.add_argument("--parts", default="dense",
+                    help="--trees: what each tree times (dense, phrase)")
     args = ap.parse_args(argv)
     if args.root:
-        res = measure(args.root, args.index, args.routes)
+        res = measure(args.root, args.index, args.routes, args.parts)
         print(json.dumps(res), flush=True)
         return res
     if args.trees:
         from wiser_tpu_torch.tools.unpack_bench import run_trees
 
         extra = ["--routes", args.routes]
+        if args.parts != "dense":
+            extra += ["--parts", args.parts]
         if args.index:
             extra += ["--index", os.path.abspath(args.index)]
         res = {"runs": run_trees(__file__, args.trees.split(","), extra)}
@@ -1026,11 +1530,14 @@ def main(argv=None) -> dict:
         log(compiler)
         if not args.skip_check:
             t0 = time.perf_counter()
-            res["check"] = check_cases(dev)
+            res["check"] = (check_phrase_cases if args.phrase
+                            else check_cases)(dev)
             res["check"].pop("rows")
             res["check"]["wall_s"] = time.perf_counter() - t0
             log(f"dense check: {res['check']}")
-        if args.probe and args.index:
+        if args.phrase:
+            res.update(phrase_readings(dev, args.index, args.probe))
+        elif args.probe and args.index:
             # each column mode on a TorchEngine's own planes of the
             # index, then the synthetic planes
             from wiser_tpu_torch import TorchEngine
