@@ -134,13 +134,13 @@ search for phrases). Phases:
             phrase prefix; `mesh_staged` (ShardedStagedEngine at a quarter
             of its full residency bytes) over aol, aol_df 1,024 and a 256
             phrase prefix; and tools/shard_ladder.run on the mesh engine
-            (configs 1-4, 1,024 queries each, 50 sampled). Raises unless
+            (configs 1-4, 512 queries each, 50 sampled). Raises unless
             aol_df takes the dense and semidense routes, aol_df_pruned the
             pruned one, the phrase prefix the compact one, mesh_tc's
             postings take <= 0.51 of mesh's bytes, and mesh_staged answers
             some queries hot and stages some cold groups
   tools     the last modules of the port, on one card: tools/
-            wiki_pipeline at 50,000 docs (synthesized enwiki abstract XML
+            wiki_pipeline at 25,000 docs (synthesized enwiki abstract XML
             -> the analyzer of data/corpus -> WITH_BI_BLOOM linedoc -> fast
             builder -> check_posting_list, which must find 0 errors ->
             TorchEngine on the card, 4,096 df-Zipf 1-3-term queries with
@@ -205,9 +205,21 @@ thresholds each side of the (KV+1)-th score and, tc, its payload ties
 and a full stream) and timed there on synthetic 1M planes and in the
 dense and tc phases on the engines' planes; the smoke fails if the
 phrase set's full-scan route answered queries on the dense or tc phase
-and either kernel did not launch there. The full report is the last
-line of stderr, one JSON object (also written to the --report path, if
-given).
+and either kernel did not launch there. The semidense step (semidense
+on raw columns, semidense_tc on tc ones; csrc/semidense.cu) and the
+phrase position verification (phrase_verify; csrc/phrase.cu) are held
+against their plain versions in the kernel phase (semidense_bench.
+semidense_cases and verify_cases: raw and tc, T 2 to 8 with 0 to 2
+searched others, a mesh shard's doc_base, a deep k on the plane path;
+bags with planted phrases, clamped windows, anchors not 0, int16 and
+int32 columns) and timed there on synthetic 1M inputs, then on the dense
+and tc phases' own calls (semidense_bench.Recorder: each kind's largest
+group and most called shape, compared and timed after the passes,
+the kernels line reading the largest); the smoke
+fails if semidense never launched on the dense phase, semidense_tc on
+the tc phase, or phrase_verify on the dense or tc phase with the phrase
+set. The full report is the last line of stderr, one JSON object (also
+written to the --report path, if given).
 """
 
 from __future__ import annotations
@@ -257,24 +269,28 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def reset_counts() -> None:
-    """Every kernel wrapper's launch count to 0."""
+def _ops():
     from wiser_tpu_torch.ops import dense as D
+    from wiser_tpu_torch.ops import phrase as PH
     from wiser_tpu_torch.ops import search as S
+    from wiser_tpu_torch.ops import semidense as SD
     from wiser_tpu_torch.ops import unpack as U
 
-    U.reset_launch_counts()
-    S.reset_launch_counts()
-    D.reset_launch_counts()
+    return U, S, D, SD, PH
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    for m in _ops():
+        m.reset_launch_counts()
 
 
 def read_counts() -> dict:
     """Every kernel wrapper's launch count, by wrapper name."""
-    from wiser_tpu_torch.ops import dense as D
-    from wiser_tpu_torch.ops import search as S
-    from wiser_tpu_torch.ops import unpack as U
-
-    return {**U.launch_counts, **S.launch_counts, **D.launch_counts}
+    out = {}
+    for m in _ops():
+        out.update(m.launch_counts)
+    return out
 
 
 # -- kernel ----------------------------------------------------------------
@@ -701,6 +717,98 @@ def dense_kernel_phase(report: dict) -> dict:
     report["dense_kernel_timing"] = dict(timing, phrase=ph,
                                          wall_s=time.perf_counter() - t0)
     return out
+
+
+# the semidense step's and the verification's kernels: (name, the
+# TPU-side step it replaces, its source)
+SEMI_KERNELS = (
+    ("semidense", "wiser_tpu/engine/kernels.py:1103",
+     "wiser_tpu_torch/csrc/semidense.cu"),
+    ("semidense_tc", "wiser_tpu/engine/kernels.py:989",
+     "wiser_tpu_torch/csrc/semidense.cu"),
+    ("phrase_verify", "wiser_tpu/engine/kernels.py:1291",
+     "wiser_tpu_torch/csrc/phrase.cu"))
+# the kernel phase's timed shapes on synthetic 1M inputs: the semidense
+# group (T, n_bs, L) at the engine's B, the verification's mega chunk
+SEMI_KERNEL_SHAPES = ((3, 0, 2048),)
+VERIFY_KERNEL_SHAPES = ((128, 2, 1024, 128, 128),)
+
+
+def semi_rows(rows: list, err: float, source: str) -> dict:
+    """The kernels line's entries from semidense_bench timing rows: the
+    first semidense row of each column mode and the first verification
+    row, each with its device time (torch.profiler, or the call's CUDA
+    events where the capture lost a launch), host cost, plain version,
+    bound and share."""
+    out = {}
+    for r in rows:
+        name = ("phrase_verify" if r["kind"] == "verify"
+                else "semidense" + ("_tc" if r["mode"] == "tc" else ""))
+        if name in out:
+            continue
+        shape = (f"{r['mode']} B={r['B']} T={r['T']} n_bs={r['n_bs']} "
+                 f"L={r['L']} M={r['M']} N_pad={r['N_pad']}"
+                 if r["kind"] == "semidense" else
+                 f"B={r['B']} T={r['T']} NL={r['NL']} PP={r['PP']} "
+                 f"PW={r['PW']}")
+        out[name] = {
+            "max_abs_err": err if r["kind"] == "semidense" else 0.0,
+            "ms": r["device_ms"], "timing": r["timing"],
+            "host_us": r["host_us"], "plain_ms": min(r["plain_ms"]),
+            "bound_ms": r["bound_ms"], "share": r["share"],
+            "launches_per_call": r["launches_per_call"],
+            "peak_extra": r["peak_extra"],
+            "shape": f"{shape} ({source})"}
+    return out
+
+
+def semi_kernel_phase(report: dict) -> dict:
+    """The semidense step's and the verification's kernels against their
+    plain versions on the card (semidense_bench.semidense_cases and
+    verify_cases), then timed on synthetic 1M inputs in turns with the
+    plain versions. Returns the kernels line's entries."""
+    import torch
+
+    from wiser_tpu_torch.tools import semidense_bench as SDB
+
+    dev = torch.device("cuda", 0)
+    for key, fn in (("semidense_check", SDB.semidense_cases),
+                    ("verify_check", SDB.verify_cases)):
+        t0 = time.perf_counter()
+        chk = fn(dev)
+        torch.cuda.synchronize()
+        chk.pop("rows")
+        report[key] = dict(chk, wall_s=time.perf_counter() - t0)
+        log(f"kernel: {key}: the kernel equals its plain version in "
+            f"{chk['cases']} cases: {report[key]}")
+    t0 = time.perf_counter()
+    rows = (SDB.time_semidense(dev, shapes=SEMI_KERNEL_SHAPES)
+            + SDB.time_verify(dev, shapes=VERIFY_KERNEL_SHAPES))
+    torch.cuda.empty_cache()
+    report["semi_kernel_timing"] = {"rows": rows,
+                                    "wall_s": time.perf_counter() - t0}
+    return semi_rows(rows, report["semidense_check"]["max_abs_err"],
+                     "synthetic 1M")
+
+
+def semi_engine_timing(report: dict, name: str, rec) -> dict:
+    """The largest recorded group and the most called shape of each kind
+    (the semidense step, the verification) of a run's passes, each
+    compared and timed after them (semidense_bench.time_calls); these
+    launches come after the passes, so the main path's counts do not
+    hold them. Returns the kernels line's entries (the largest
+    group's)."""
+    import torch
+
+    from wiser_tpu_torch.tools import semidense_bench as SDB
+
+    t0 = time.perf_counter()
+    out = SDB.time_calls(rec)
+    torch.cuda.empty_cache()
+    report[f"{name}_semi_timing"] = dict(out, wall_s=time.perf_counter() - t0)
+    rows = out["semidense"] + out["verify"]
+    err = max([r["check"]["max_abs_err"] for r in out["semidense"]] + [0.0])
+    return semi_rows(rows, err, f"the {name} engine's own calls")
 
 
 def dense_engine_timing(report: dict, name: str, eng) -> dict:
@@ -1363,9 +1471,10 @@ def harness_summary(h: dict) -> dict:
 # -- mesh -------------------------------------------------------------------
 
 # the phrase prefix and the shard ladder's queries a config cut from 512
-# and 2,048 when the full-scan phrase's checks came in, to keep the smoke
-# well inside its time on a slow host
-MESH_SHARDS, MESH_PRUNED_Q, MESH_LADDER_Q = 4, 1024, 1024
+# and 2,048 when the full-scan phrase's checks came in, and the ladder's
+# to 512 when the semidense and verification checks came in, to keep the
+# smoke well inside its time on a slow host
+MESH_SHARDS, MESH_PRUNED_Q, MESH_LADDER_Q = 4, 1024, 512
 MESH_PHRASE_Q, MESH_STAGED_PHRASE_Q = 256, 256
 # the aol_df_pruned mix's PRUNED_DENSE_MIN_NB: under the 1,954 blocks a
 # shard holds at 1M docs and 4 shards
@@ -1501,9 +1610,10 @@ def mesh_phase(report: dict, packed, pairs, pools: dict, expected: dict,
 
 # -- tools ------------------------------------------------------------------
 
-# the pipeline's corpus: 50,000 docs, so that the smoke's wall stays
-# under its 1,200 s limit on a slow host (the 1M index is the main path's)
-TOOLS_PIPE_DOCS, TOOLS_PIPE_Q, TOOLS_PIPE_PARITY = 50_000, 4096, 200
+# the pipeline's corpus: 25,000 docs (50,000 before the semidense and
+# verification checks came in), so that the smoke's wall stays under its
+# 1,200 s limit on a slow host (the 1M index is the main path's)
+TOOLS_PIPE_DOCS, TOOLS_PIPE_Q, TOOLS_PIPE_PARITY = 25_000, 4096, 200
 TOOLS_PRUNE_N, TOOLS_PRUNE_C = 32, (32, 64, 128)
 # gather_probe's defaults: n_pad, B, L, reps
 TOOLS_GATHER = (1_000_448, 128, 8192, 8)
@@ -1729,7 +1839,7 @@ def main() -> int:
     # one nvcc a library, all at the same time (a build error is raised
     # here)
     t0 = time.perf_counter()
-    libs = ("unpack", "search", "dense")
+    libs = ("unpack", "search", "dense", "semidense", "phrase")
     load_libraries(libs)
     report["build"] = {f"{n}_s": build_log[n][0] for n in libs}
     report["build"]["wall_s"] = time.perf_counter() - t0
@@ -1754,6 +1864,8 @@ def main() -> int:
     for name, replaces in DENSE_KERNELS:
         kerns[name] = kernel_row(name, "wiser_tpu_torch/csrc/dense.cu",
                                  replaces)
+    for name, replaces, source in SEMI_KERNELS:
+        kerns[name] = kernel_row(name, source, replaces)
     kern = kerns["unpack_delta_blocks"]
     if "kernel" in phases:
         for name, entry in kernel_phase(report).items():
@@ -1761,6 +1873,9 @@ def main() -> int:
         kerns["bs_search"].update(search_kernel_phase(report))
         torch.cuda.empty_cache()
         for name, entry in dense_kernel_phase(report).items():
+            kerns[name].update(entry)
+        torch.cuda.empty_cache()
+        for name, entry in semi_kernel_phase(report).items():
             kerns[name].update(entry)
 
     # (run name, make engine, {mix: (pool, number of queries, engine
@@ -1861,8 +1976,13 @@ def main() -> int:
         pools["windowed"] = windowed_eligible(
             packed, aol_mixed_queries(packed, 8 * Q, seed=8, by_df=True),
             Q // 4)
+        from wiser_tpu_torch.tools.semidense_bench import Recorder
+
         for name, make, mixes in runs:
             t0 = time.perf_counter()
+            # the dense and tc runs record their semidense and
+            # verification calls, timed after their passes
+            rec = Recorder().__enter__() if name in ("dense", "tc") else None
             eng = make()
             torch.cuda.synchronize()
             hot = getattr(eng, "hot", eng)
@@ -1891,6 +2011,12 @@ def main() -> int:
                 report[key]["parity_checked"] = check_parity(
                     packed, queries, res, parity_sample(queries), key,
                     expected)
+            if rec is not None:
+                rec.__exit__(None, None, None)
+                for k, entry in semi_engine_timing(report, name,
+                                                   rec).items():
+                    kerns[k].update(entry)
+                del rec
             if name in ("dense", "tc"):
                 for k, entry in dense_engine_timing(report, name,
                                                     hot).items():
@@ -2005,6 +2131,26 @@ def main() -> int:
             if p in phases and not bs_by_phase.get(p)]
     report["dense_launches"] = dense_by_phase
     report["dense_route_work"] = dense_work
+    # the semidense and verification kernels' launches on every timed
+    # pass: each run's (by its phase), the harness's, the mesh's, the
+    # headline's and the serve phase's
+    semi_by_phase: dict = {}
+    for key, r in report.items():
+        if not (isinstance(r, dict) and isinstance(r.get("launches"), dict)):
+            continue
+        c = semi_by_phase.setdefault(
+            phase_of(key.split("_")[0]) if key != "harness" else key,
+            {name: 0 for name, _, _ in SEMI_KERNELS})
+        for name in c:
+            c[name] += r["launches"].get(name, 0)
+    report["semi_launches"] = semi_by_phase
+    for name, _, _ in SEMI_KERNELS:
+        kerns[name]["launches"] = sum(c[name] for c in semi_by_phase.values())
+    semi_idle = [f"{p} ({name})" for p, name in (
+        ("dense", "semidense"), ("tc", "semidense_tc"),
+        ("dense", "phrase_verify"), ("tc", "phrase_verify"))
+        if p in phases and (name != "phrase_verify" or "phrase" in phases)
+        and not semi_by_phase.get(p, {}).get(name)]
     for name, _ in DENSE_KERNELS:
         kerns[name]["launches"] = sum(c[name]
                                       for c in dense_by_phase.values())
@@ -2043,6 +2189,9 @@ def main() -> int:
             f"the dense scan never launched on the {dense_idle} phases, "
             f"dense_pick on {pick_idle} ({dense_by_phase}; route work "
             f"{dense_work})")
+    if semi_idle:
+        raise AssertionError(f"never launched on the path: {semi_idle} "
+                             f"({semi_by_phase})")
     print(json.dumps({"kernels": list(kerns.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

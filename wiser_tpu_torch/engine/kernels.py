@@ -26,7 +26,10 @@ kernels (ops/dense.py, csrc/dense.cu: a block-list scan that keeps each
 query's top K in shared memory, a one-CTA-a-query pick, the phrase's
 scan at K = KV + 1 and its band pass), or raise; CPU tensors take the
 plain versions (the *_torch functions) after the same argument
-checks.
+checks. So do the semidense step (_semidense_step: ops/semidense.py,
+csrc/semidense.cu, the bs step's tile path with a dense phase) and the
+position verification every resident phrase route ends in
+(_verify_pos_windows: ops/phrase.py, csrc/phrase.cu).
 
 Phrases (raw columns): the list chain (make_match_kernel with the
 bi-bloom gate, make_phrase_verify_kernel, make_select_topk_kernel); the
@@ -89,7 +92,9 @@ import numpy as np
 import torch
 
 from wiser_tpu_torch.ops import dense as _dense_op
+from wiser_tpu_torch.ops import phrase as _phrase_op
 from wiser_tpu_torch.ops import search as _search_op
+from wiser_tpu_torch.ops import semidense as _semi_op
 
 NEG_INF = float("-inf")
 INT32_MAX = 2**31 - 1
@@ -739,7 +744,31 @@ def _semidense_step(postings_doc, col, dense, starts, ends, weights, slots,
     the uint8 tf plane, weights idf32, tfs from the kept tc lanes.
     doc_base: the doc id of the planes' lane 0 (a mesh shard's first
     doc; a doc's lane is doc - doc_base). Returns (top_docs (B, M) i32 doc
-    ids or -1, top_score (B, M) f32, tfs (B, T, M) i32, flags (B,))."""
+    ids or -1, top_score (B, M) f32, tfs (B, T, M) i32, flags (B,)).
+
+    On CUDA tensors the hand-written kernel (ops/semidense.semidense)
+    runs it, or raises; on CPU tensors the plain version,
+    _semidense_step_torch. Both check their arguments first
+    (ValueError)."""
+    args = (postings_doc, col, dense, starts, ends, weights, slots)
+    kw = dict(T=T, L=L, M=M, n_bs=n_bs, n_bs_iters=n_bs_iters,
+              postings_tf=postings_tf, dense_tf=dense_tf, avg32=avg32,
+              doc_base=doc_base)
+    if isinstance(postings_doc, torch.Tensor) and postings_doc.is_cuda:
+        return _semi_op.semidense(*args, **kw)
+    _semi_op.check_inputs(*args, **kw)
+    return _semidense_step_torch(*args, **kw)
+
+
+def _semidense_step_torch(postings_doc, col, dense, starts, ends, weights,
+                          slots, *, T, L, M, n_bs, n_bs_iters,
+                          postings_tf=None, dense_tf=None, avg32=None,
+                          doc_base: int = 0):
+    """_semidense_step's plain torch version: the reference's operations
+    one by one, on any device (the tests and the chip smoke hold the
+    kernel against it). The f32 score sums as s0 + (b1 + ... + bn) + d1 +
+    d2 + ...: the searched others among themselves first, then each
+    dense other in slot order."""
     tc_mode = avg32 is not None
     cdocs, cval, cvalid, cs = _candidates(postings_doc, col, starts, ends, L)
     dense_docs = cdocs - doc_base if doc_base else cdocs
@@ -1279,13 +1308,30 @@ def _verify_pos_windows(positions, ps, pe, anchor, *, T: int, NL: int,
                         PP: int, PW: int):
     """Adjusted-position verification by windows: each (term, lane) bag
     loads as one contiguous PW-wide window at its start, then a dense
-    (PP x PW) equality compare per lane. ps/pe: (B, T, NL) bag bounds;
-    anchor: (B,) the query term whose bag gives the bases y = pos -
-    anchor; term t must hold y + t. PP bounds the anchor's bag, PW every
-    term's. A window start is clamped to [0, n - PW] as dynamic_slice
-    clamps it: the engine pads the positions column with POS_PAD >= PW
-    entries that never equal a target, so a real window is never
-    clamped. Returns (B, NL) int32 phrase occurrence counts."""
+    (PP x PW) equality compare per lane. ps/pe: (B, T, NL) int32 bag
+    bounds; anchor: (B,) int32, the query term whose bag gives the bases
+    y = pos - anchor; term t must hold y + t. PP bounds the anchor's bag,
+    PW every term's. A window start is clamped to [0, n - PW] as
+    dynamic_slice clamps it: the engine pads the positions column with
+    POS_PAD >= PW entries that never equal a target, so a real window is
+    never clamped. Returns (B, NL) int32 phrase occurrence counts.
+
+    On CUDA tensors the hand-written kernel (ops/phrase.phrase_verify)
+    runs it, or raises; on CPU tensors the plain version,
+    _verify_pos_windows_torch. Both check their arguments first
+    (ValueError)."""
+    kw = dict(T=T, NL=NL, PP=PP, PW=PW)
+    if isinstance(positions, torch.Tensor) and positions.is_cuda:
+        return _phrase_op.phrase_verify(positions, ps, pe, anchor, **kw)
+    _phrase_op.check_verify_inputs(positions, ps, pe, anchor, **kw)
+    return _verify_pos_windows_torch(positions, ps, pe, anchor, **kw)
+
+
+def _verify_pos_windows_torch(positions, ps, pe, anchor, *, T: int, NL: int,
+                              PP: int, PW: int):
+    """_verify_pos_windows's plain torch version: the reference's
+    (B, T, NL, PW) windows and (B, NL, PP, PW) compare planes, on any
+    device (the tests and the chip smoke hold the kernel against it)."""
     B = ps.shape[0]
     n = positions.shape[0]
     j = torch.arange(PW, dtype=torch.int64, device=ps.device)

@@ -70,7 +70,8 @@ import torch
 
 # kernel launches by wrapper name, counted where a kernel is launched:
 # dense_scan the raw scan's, dense_scan_tc the tc scan's, dense_tc_table
-# the tc table's launch before each tc scan or tc phrase selection,
+# the tc table's launch before each tc scan, tc phrase selection or tc
+# semidense step (ops/semidense),
 # dense_scan_merge the second launch of a split query (raw or tc, scan or
 # phrase selection), phrase_select{,_tc} and phrase_band{,_tc} the
 # phrase's passes

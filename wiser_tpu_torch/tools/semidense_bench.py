@@ -1,0 +1,959 @@
+"""The semidense step's kernel (ops/semidense.semidense, csrc/semidense.cu)
+and the phrase position verification's (ops/phrase.phrase_verify,
+csrc/phrase.cu) held against their plain torch versions
+(engine/kernels._semidense_step_torch, _verify_pos_windows_torch) and
+timed beside them.
+
+    python -m wiser_tpu_torch.tools.semidense_bench [--out report.json]
+    python -m wiser_tpu_torch.tools.semidense_bench --trees OLD,.,.,OLD \
+        --index IDX [--routes ROUTES] [--headline] --out report.json
+
+(on a card: the kernels build at first use). `semidense_cases` runs raw
+and tc columns at T in {2, 3, 4, 8} with 0, 1 and 2 searched others,
+L in {128, 2048, 32768} (a warp's tile, a CTA's, many tiles) and M in
+{1, 16, 64}, over tools/search_bench's synthetic columns (empty, short
+and long runs; half the terms' payloads from a few values, so boundary
+ties are cut) and dense rows half full (half of them from a few values,
+saturated tf bytes among the tc ones); then the edges: a mesh shard's
+doc_base, a deep k past the tile path's keys (the plane path), a narrow
+group whose tiles split across CTAs, a group wide enough for several
+tiles a worker and B 1. `check_semidense` is the comparison
+(tools/search_bench.check without posting indices): flags bit-equal on
+every row; the kept (doc, f32 score bits, tfs) in (score desc, doc asc)
+order, equal to the plain version's on unflagged rows and above the
+boundary score on flagged ones; the top-M score multisets equal.
+`verify_cases` runs the verification over position bags that hold
+planted phrases and noise, sorted and unsorted, int16 (uint16 bits, the
+65535 pad) and int32 columns, anchors 0 and not 0, PP < PW, empty bags,
+a window clamped at the column's end and T up to 8; the counts must be
+equal on every row.
+
+`time_semidense` and `time_verify` work at the engine's shapes on
+synthetic 1M inputs (semidense: B by the engine's lane budget; the
+verification: the mega phrase's chunk, B 128, KV 1,024 and 4,096), and
+`time_calls` at the calls an engine made (`Recorder`): each compared,
+then timed in turns with the plain version (kernel, plain, plain,
+kernel; CUDA events), the kernel once more after an L2 flush, its
+launches by torch.profiler, the wrapper's host cost per call, the peak
+device memory above the inputs and the bytes bound
+(`semidense_bound_bytes`, `verify_bound_bytes`).
+
+`--trees` measures each listed tree once, in turns, each in its own
+process importing wiser_tpu_torch from that tree (tools/unpack_bench.
+run_trees): the entry points (_semidense_step, _verify_pos_windows: the
+kernels in this tree, the plain versions in a tree without them) at the
+synthetic shapes, then with `--index` (a saved 1M index) route_bench's
+`--routes` sets, raw and tc, each traced, with the peak device memory
+of a semidense group and of a mega phrase group above their inputs;
+with `--headline`, bench.headline.run in each tree (its stats:
+semidense_s, bs_s, the route counts).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+# H100 SXM HBM3 rate (NVIDIA's data sheet) for the bytes bound
+HBM_BYTES_PER_S = 3.35e12
+INT32_MAX = 2**31 - 1
+SECTOR = 32  # bytes a DRAM sector: the unit a gather moves
+N_1M = 1_000_448  # the 1M index's padded doc lanes
+CHECK_T = ((2, 0), (2, 1), (3, 0), (3, 1), (3, 2), (4, 0), (4, 2), (8, 0),
+           (8, 2))  # (T, n_bs)
+CHECK_L = (128, 2048, 32768)
+CHECK_M = (1, 16, 64)
+# (T, n_bs, L) of the timed semidense groups, B by the engine's lane
+# budget; the verification's (B, T, NL, PP, PW): the mega phrase chunk
+SEMI_SHAPES = ((2, 0, 2048), (3, 0, 2048), (3, 1, 8192), (2, 0, 32768))
+VERIFY_SHAPES = ((128, 2, 1024, 128, 128), (128, 2, 4096, 128, 128),
+                 (128, 3, 1024, 32, 128))
+TIME_M = 64
+# route_bench's sets that take the semidense step (dense_t3 on tc
+# columns, the zipf ladder's mixes, the tail x head sets) and the
+# verification (the phrase sets)
+ROUTES = ("dense_t3,zipf_t2,zipf_t3,zipf_t4,semidense_t3,"
+          "semidense_tail_x_head,phrase_mega,phrase_mixed")
+SEMI_TAGS = ("wiser_semidense::", "tc_norm_kernel")
+VERIFY_TAGS = ("wiser_phrase::",)
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+# -- the semidense step ------------------------------------------------------
+
+
+def dense_rows(H: int, n_pad: int, seed: int, density: float = 0.5) -> dict:
+    """H dense rows of n_pad lanes: raw f32 scores (0 = absent; every
+    other row from a few values) with int32 tfs, and tc uint8 tf bytes
+    (0 = absent, 3% of the present ones 255)."""
+    rng = np.random.default_rng(seed)
+    present = rng.random((H, n_pad)) < density
+    few = rng.integers(1, 5, size=(H, n_pad)).astype(np.float32) * 0.5
+    wide = rng.uniform(0.1, 5.0, size=(H, n_pad)).astype(np.float32)
+    sc = np.where((np.arange(H) % 2 == 1)[:, None], few, wide)
+    tf8 = np.where(rng.random((H, n_pad)) < 0.03, 255,
+                   rng.integers(1, 255, size=(H, n_pad)))
+    return {"dense_sc": np.where(present, sc, 0).astype(np.float32),
+            "dense_tf": np.where(present, rng.integers(1, 40, size=(H, n_pad)),
+                                 0).astype(np.int32),
+            "dense_tf8": np.where(present, tf8, 0).astype(np.uint8)}
+
+
+def semi_batch(cols: dict, B: int, T: int, n_bs: int, H: int, seed: int,
+               cand=None, n_pad_rows: int = 2) -> dict:
+    """(B, T) arrays as the engine assembles a semidense group: slot 0
+    the candidate, slots 1..n_bs searched others, then 1 to T - 1 - n_bs
+    dense rows, the padded dense slots repeating the first with use 0 and
+    idf 0 (starts / ends 0 past the searched slots); the last n_pad_rows
+    rows are batch padding (empty runs)."""
+    rng = np.random.default_rng(seed)
+    n_terms = len(cols["t_start"])
+    starts = np.zeros((B, T), dtype=np.int32)
+    ends = np.zeros((B, T), dtype=np.int32)
+    use = np.zeros((B, T), dtype=np.float32)
+    idf = np.zeros((B, T), dtype=np.float32)
+    slots = np.zeros((B, T), dtype=np.int32)
+    nd = T - 1 - n_bs
+    for b in range(max(0, B - n_pad_rows)):
+        terms = [int(rng.choice(cand)) if cand is not None
+                 else int(rng.integers(n_terms))]
+        terms += [int(x) for x in rng.integers(n_terms, size=n_bs)]
+        for t, term in enumerate(terms):
+            starts[b, t] = cols["t_start"][term]
+            ends[b, t] = cols["t_start"][term] + cols["t_len"][term]
+        n_real = (int(rng.integers(1, nd + 1)) if b % 4 else nd) if nd else 0
+        rows = rng.integers(H, size=max(nd, 1))
+        for i in range(nd):
+            slots[b, 1 + n_bs + i] = rows[i] if i < n_real else rows[0]
+        for t in range(T):
+            if t < 1 + n_bs + n_real:
+                use[b, t] = 1.0
+                idf[b, t] = np.float32(rng.uniform(0.1, 8.0))
+    return {"starts": starts, "ends": ends, "use": use, "idf32": idf,
+            "slots": slots, "avg32": np.float32(57.25)}
+
+
+def semi_tensors(cols: dict, planes: dict, batch: dict, dev) -> dict:
+    """The columns, the dense rows and a batch as tensors on dev."""
+    import torch
+
+    from wiser_tpu_torch.tools import search_bench as SB
+
+    t = SB.to_device(cols, batch, dev)
+    for k in ("dense_sc", "dense_tf", "dense_tf8"):
+        if k in planes:
+            v = planes[k]
+            t[k] = (v if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.ascontiguousarray(v))).to(dev)
+    t["slots"] = torch.from_numpy(batch["slots"]).to(dev)
+    return t
+
+
+def semi_call(fn, t: dict, mode: str, T: int, L: int, M: int, n_bs: int,
+              n_iters: int, doc_base: int = 0):
+    """fn (kernels._semidense_step or its plain version) on the tensors t."""
+    kw = dict(T=T, L=L, M=M, n_bs=n_bs, n_bs_iters=n_iters,
+              doc_base=doc_base)
+    if mode == "tc":
+        return fn(t["doc"], t["tc"], t["dense_tf8"], t["starts"], t["ends"],
+                  t["idf32"], t["slots"], avg32=t["avg32"], **kw)
+    return fn(t["doc"], t["score"], t["dense_sc"], t["starts"], t["ends"],
+              t["use"], t["slots"], postings_tf=t["tf"],
+              dense_tf=t["dense_tf"], **kw)
+
+
+def _with_pidx(out):
+    """A semidense output with zero posting indices, the shape
+    tools/search_bench.check compares."""
+    import torch
+
+    docs, score, tfs, flags = out
+    return docs, score, tfs, torch.zeros_like(tfs), flags
+
+
+def check_semidense(kern, plain, M: int, what: str) -> dict:
+    """search_bench.check of the kernel's outputs against the plain
+    version's on the same inputs, without posting indices (raises
+    AssertionError on the first difference)."""
+    from wiser_tpu_torch.tools import search_bench as SB
+
+    return SB.check(_with_pidx(kern), _with_pidx(plain), None, M, what)
+
+
+def _shift_docs(cols: dict, doc_base: int) -> dict:
+    out = dict(cols)
+    d = cols["doc"]
+    out["doc"] = np.where(d == INT32_MAX, d, d + doc_base).astype(np.int32)
+    return out
+
+
+def semidense_cases(dev, seed: int = 0, Ls=CHECK_L, Ts=CHECK_T,
+                    Ms=CHECK_M, B: int = 32) -> dict:
+    """The kernel against the plain version (both on dev) over the grid
+    and the edges the module docstring names. Returns the case count,
+    the rows, and the largest absolute score difference (0: exact)."""
+    from wiser_tpu_torch.engine import kernels as K
+    from wiser_tpu_torch.tools import search_bench as SB
+
+    rows, err, n = [], 0.0, 0
+
+    def one(cols, planes, batch, mode, T, L, M, n_bs, what, doc_base=0):
+        nonlocal err, n
+        t = semi_tensors(cols, planes, batch, dev)
+        it = SB._n_iters(cols) if n_bs else 0
+        r = check_semidense(
+            semi_call(K._semidense_step, t, mode, T, L, M, n_bs, it,
+                      doc_base),
+            semi_call(K._semidense_step_torch, t, mode, T, L, M, n_bs, it,
+                      doc_base), M, what)
+        r.update(mode=mode, T=T, L=L, M=M, n_bs=n_bs, what=what)
+        rows.append(r)
+        err = max(err, r["max_abs_err"])
+        n += 1
+
+    H = 6
+    for L in Ls:
+        cols = SB.synth_columns(L, seed + L)
+        n_pad = -(-(2 * L + 64) // 128) * 128
+        planes = dense_rows(H, n_pad, seed + L + 1)
+        for T, n_bs in Ts:
+            batch = semi_batch(cols, B, T, n_bs, H, seed + T + n_bs)
+            for M in Ms:
+                for mode in ("raw", "tc"):
+                    one(cols, planes, batch, mode, T, L, M, n_bs,
+                        f"semidense {mode} T={T} n_bs={n_bs} L={L} M={M}")
+    # a mesh shard: its docs from doc_base, its rows' lane 0 at doc_base
+    L = 2048
+    base = 777_000
+    cols = _shift_docs(SB.synth_columns(L, seed + 5), base)
+    planes = dense_rows(H, -(-(2 * L + 64) // 128) * 128, seed + 6)
+    for T, n_bs in ((2, 0), (3, 1)):
+        batch = semi_batch(cols, B, T, n_bs, H, seed + 7)
+        for mode in ("raw", "tc"):
+            one(cols, planes, batch, mode, T, L, 16, n_bs,
+                f"semidense {mode} doc_base={base} T={T} n_bs={n_bs}",
+                doc_base=base)
+    # a deep k (the plane path), a narrow split group, a wide group, B 1
+    L = 4096
+    cols = SB.synth_columns(L, seed + 9)
+    planes = dense_rows(H, -(-(2 * L + 64) // 128) * 128, seed + 10)
+    for mode in ("raw", "tc"):
+        for Bx, T, n_bs, M, what in ((16, 3, 1, 1500, "deep k, plane path"),
+                                     (4, 3, 1, 64, "split tiles"),
+                                     (2048, 2, 0, 16, "wide group"),
+                                     (1, 4, 2, 8, "B 1")):
+            batch = semi_batch(cols, Bx, T, n_bs, H, seed + Bx,
+                               n_pad_rows=0 if Bx == 1 else 2)
+            one(cols, planes, batch, mode, T, L, M, n_bs,
+                f"semidense {mode} {what} B={Bx} T={T} n_bs={n_bs} M={M}")
+    return {"cases": n, "rows": rows, "max_abs_err": err}
+
+
+def semidense_bound_bytes(t: dict, mode: str, T: int, L: int, M: int,
+                          n_bs: int, doc_base: int = 0) -> int:
+    """The bytes the step must move, each once, for this call's data: the
+    candidate slices' valid lanes (doc + score, 8 B a lane raw; doc + tc
+    lane, 6 B tc); each searched slot's run once (4 B a doc id) and its
+    payload at the hits (4 B raw, 2 B tc); per dense slot, the distinct
+    32-byte sectors of its row that the lanes still alive there touch
+    (distinct over the group: queries that share a row share its
+    sectors); the winners' tf loads (4 B raw, 1 B tc a slot); the
+    outputs (docs, scores, tfs, the flag word) and the (B, T) bounds,
+    weights and slots."""
+    import torch
+
+    starts = t["starts"].cpu().numpy().astype(np.int64)
+    ends = t["ends"].cpu().numpy().astype(np.int64)
+    slots = t["slots"].cpu().numpy().astype(np.int64)
+    docs = t["doc"].cpu().numpy()
+    plane = t["dense_tf8" if mode == "tc" else "dense_sc"]
+    B = starts.shape[0]
+    n_doc, n_pad = docs.shape[0], plane.shape[1]
+    lane_b = 1 if mode == "tc" else 4
+    run = np.maximum(ends - starts, 0)
+    valid = np.minimum(run[:, 0], L)
+    total = int(valid.sum()) * (8 if mode == "raw" else 6)
+    # each query's candidate docs, cut by its searched slots
+    cand = []
+    for b in range(B):
+        s = int(min(max(starts[b, 0], 0), max(n_doc - L, 0)))
+        cd = docs[s : s + int(valid[b])].astype(np.int64)
+        for t_ in range(1, 1 + n_bs):
+            r = docs[starts[b, t_] : ends[b, t_]]
+            total += len(r) * 4
+            cd = cd[np.isin(cd, r)]
+            total += len(cd) * (4 if mode == "raw" else 2)
+        cand.append(cd)
+    sectors = []
+    flat = plane.reshape(-1)
+    for t_ in range(1 + n_bs, T):
+        sizes = [len(c) for c in cand]
+        if not sum(sizes):
+            break
+        at = np.concatenate([slots[b, t_] * n_pad
+                             + np.clip(c - doc_base, 0, n_pad - 1)
+                             for b, c in enumerate(cand)])
+        sectors.append(np.unique(at * lane_b // SECTOR))
+        held = (flat[torch.from_numpy(at).to(plane.device)] > 0).cpu().numpy()
+        parts = np.split(held, np.cumsum(sizes)[:-1])
+        cand = [c[h] for c, h in zip(cand, parts)]
+    if sectors:
+        total += len(np.unique(np.concatenate(sectors))) * SECTOR
+    total += B * T * M * lane_b
+    total += B * (2 * M + T * M + 1) * 4 + B * T * 16
+    return int(total)
+
+
+def semi_shape(T: int, n_bs: int, L: int, seed: int = 1, H: int = 16):
+    """The timed group at (T, n_bs, L) on a synthetic 1M doc space: B by
+    the engine's semidense lane budget, candidate runs of L/2..L docs,
+    searched runs of L..4L, H dense rows of N_1M lanes 30% full."""
+    from wiser_tpu_torch.engine.device import (B_BUCKETS,
+                                               SEMIDENSE_LANE_BUDGET,
+                                               _chunk_within)
+    from wiser_tpu_torch.tools import search_bench as SB
+
+    B = _chunk_within(SEMIDENSE_LANE_BUDGET, (T - 1) * L, B_BUCKETS)
+    rng = np.random.default_rng(seed + L)
+    n_cand = 32
+    lengths = (list(rng.integers(L // 2 + 1, L + 1, size=n_cand))
+               + list(rng.integers(L, 4 * L + 1, size=16)))
+    runs = (np.sort(rng.choice(N_1M - 448, size=int(n), replace=False))
+            for n in lengths)
+    cols = SB.build_columns(runs, rng, slack=L + 4096)
+    planes = dense_rows(H, N_1M, seed + 3, density=0.3)
+    batch = semi_batch(cols, B, T, n_bs, H, seed + T, cand=np.arange(n_cand),
+                       n_pad_rows=0)
+    if n_bs:  # the searched others from the longer runs
+        r = rng.integers(n_cand, len(lengths), size=(B, n_bs))
+        batch["starts"][:, 1 : 1 + n_bs] = cols["t_start"][r]
+        batch["ends"][:, 1 : 1 + n_bs] = cols["t_start"][r] + cols["t_len"][r]
+    return B, cols, planes, batch
+
+
+# -- the position verification -------------------------------------------------
+
+
+def verify_inputs(B: int, T: int, NL: int, PP: int, PW: int, seed: int,
+                  wide: bool = False, sort: bool = True, max_tf: int = None,
+                  anchor=None, tail: bool = False) -> dict:
+    """Position bags for a (B, T, NL) verification, as numpy arrays: a
+    positions column (int16 bits of uint16, or int32 with `wide`) of
+    every (query, term, lane) bag in turn, ps / pe their bounds and the
+    (B,) anchors (`anchor`: one value for every row, else random in
+    [0, T)). A third of the lanes hold a planted phrase (bases y with y +
+    t in term t's bag), the rest noise; bags hold 0 to max_tf (default
+    PW + 2, so some pass the window) positions, sorted or not (`sort`);
+    with `tail` the column ends at the last bag, with no pad, so its
+    window is clamped at n - PW. An int16 column also holds 65535 and
+    positions past 32,767."""
+    rng = np.random.default_rng(seed)
+    hi = 65535 if not wide else 200_000
+    max_tf = PW + 2 if max_tf is None else max_tf
+    anc = (rng.integers(0, T, size=B) if anchor is None
+           else np.full(B, anchor)).astype(np.int32)
+    bags = [[None] * NL for _ in range(B * T)]
+    for b in range(B):
+        for lane in range(NL):
+            planted = rng.random() < 1 / 3
+            ys = (rng.integers(0, hi - 2 * T, size=int(rng.integers(1, 4)))
+                  if planted else np.zeros(0, np.int64))
+            for t in range(T):
+                n = int(rng.integers(0, max_tf + 1))
+                if rng.random() < 0.1:
+                    n = 0  # an empty bag
+                noise = rng.integers(0, hi + 1, size=n)
+                bag = np.concatenate([ys + t, noise])[: max(n, len(ys))]
+                if not sort:
+                    rng.shuffle(bag)
+                else:
+                    bag = np.sort(bag)
+                bags[b * T + t][lane] = bag
+    order = [(i, lane) for i in range(B * T) for lane in range(NL)]
+    perm = rng.permutation(len(order))  # bags lie in no query order
+    ps = np.zeros((B * T, NL), dtype=np.int64)
+    pe = np.zeros((B * T, NL), dtype=np.int64)
+    chunks, pos = [], 0
+    for k in perm:
+        i, lane = order[k]
+        bag = bags[i][lane]
+        ps[i, lane] = pos
+        pe[i, lane] = pos + len(bag)
+        chunks.append(bag)
+        pos += len(bag)
+    col = np.concatenate(chunks + [np.zeros(0, np.int64)])
+    if not tail:
+        col = np.concatenate([col, np.full(PW + 8, 65535 if not wide else -1)])
+    if len(col) == 0:
+        col = np.zeros(1, np.int64)
+    positions = (col.astype(np.int32) if wide
+                 else col.astype(np.uint16).view(np.int16))
+    return {"positions": positions,
+            "ps": ps.reshape(B, T, NL).astype(np.int32),
+            "pe": pe.reshape(B, T, NL).astype(np.int32), "anchor": anc}
+
+
+def verify_tensors(v: dict, dev) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for k, x in v.items()}
+
+
+def verify_call(fn, t: dict, T: int, NL: int, PP: int, PW: int):
+    """fn (kernels._verify_pos_windows or its plain version) on t."""
+    return fn(t["positions"], t["ps"], t["pe"], t["anchor"], T=T, NL=NL,
+              PP=PP, PW=PW)
+
+
+def check_verify(kern, plain, what: str) -> dict:
+    """The counts equal on every row (raises AssertionError)."""
+    k, p = kern.cpu().numpy(), plain.cpu().numpy()
+    if k.shape != p.shape or not np.array_equal(k, p):
+        bad = np.nonzero((k != p).any(axis=1))[0] if k.shape == p.shape \
+            else []
+        raise AssertionError(f"{what}: counts differ on {len(bad)} rows "
+                             f"(shapes {k.shape} {p.shape})")
+    return {"rows": int(k.shape[0]), "lanes_matched": int((k > 0).sum()),
+            "max_count": int(k.max(initial=0))}
+
+
+def verify_cases(dev, seed: int = 0) -> dict:
+    """The kernel against the plain version (both on dev) over the edges
+    the module docstring names. Returns the case count and the rows."""
+    from wiser_tpu_torch.engine import kernels as K
+
+    rows = []
+    grid = [  # (B, T, NL, PP, PW, inputs' options)
+        (4, 2, 64, 8, 8, {}), (4, 2, 64, 32, 32, {"sort": False}),
+        (3, 3, 50, 8, 32, {}), (2, 4, 40, 128, 128, {"max_tf": 140}),
+        (2, 8, 16, 32, 32, {"sort": False}), (3, 2, 33, 32, 128, {}),
+        (2, 3, 20, 8, 8, {"anchor": 0}), (2, 3, 20, 8, 8, {"anchor": 2}),
+        (2, 2, 30, 32, 32, {"wide": True}),
+        (2, 3, 10, 8, 32, {"tail": True}),
+        (2, 2, 12, 8, 512, {"max_tf": 20}),
+        (1, 1, 7, 8, 8, {}), (64, 2, 128, 32, 32, {"max_tf": 6}),
+    ]
+    for i, (B, T, NL, PP, PW, opt) in enumerate(grid):
+        t = verify_tensors(verify_inputs(B, T, NL, PP, PW, seed + i, **opt),
+                           dev)
+        what = f"verify B={B} T={T} NL={NL} PP={PP} PW={PW} {opt}"
+        r = check_verify(verify_call(K._verify_pos_windows, t, T, NL, PP, PW),
+                         verify_call(K._verify_pos_windows_torch, t, T, NL,
+                                     PP, PW), what)
+        r.update(B=B, T=T, NL=NL, PP=PP, PW=PW, what=what)
+        rows.append(r)
+    return {"cases": len(rows), "rows": rows, "max_abs_err": 0.0}
+
+
+def verify_bound_bytes(t: dict, T: int, NL: int, PW: int) -> int:
+    """The bytes the verification must move, each once: ps and pe (4 B
+    each a (query, term, lane)), the distinct 32-byte sectors of every
+    (lane, term) window's valid entries (2 B a position from an int16
+    column, 4 B int32), the (B,) anchors and the (B, NL) counts."""
+    ps = t["ps"].cpu().numpy().astype(np.int64).ravel()
+    pe = t["pe"].cpu().numpy().astype(np.int64).ravel()
+    n = t["positions"].shape[0]
+    es = t["positions"].element_size()
+    start = np.clip(ps, 0, max(0, n - PW))
+    cnt = np.clip(pe - ps, 0, PW)
+    live = cnt > 0
+    first = start[live] * es // SECTOR
+    last = np.minimum(start[live] + cnt[live] - 1, n - 1) * es // SECTOR
+    # each window's sector range, expanded (windows are short), distinct
+    span = last - first + 1
+    sec = np.repeat(first, span) + (np.arange(span.sum())
+                                    - np.repeat(np.cumsum(span) - span, span))
+    B = t["ps"].shape[0]
+    return int(len(np.unique(sec)) * SECTOR + 2 * ps.size * 4 + B * 4
+               + B * NL * 4)
+
+
+# -- timing ------------------------------------------------------------------
+
+
+def launch_ms(fn, tags, calls: int = 5) -> dict:
+    """Device ms per call of each device kernel fn() launches whose name
+    holds one of `tags`: torch.profiler (utils.trace) over `calls` calls
+    after a warm one, the mean of each name's newest `calls` events
+    (None with fewer, after three captures). `total` sums them (None
+    where one is None or none ran); `events` counts each name's events;
+    `all_ms` is every device event of the window a call."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from wiser_tpu_torch.utils import trace
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a capture that lost events is taken again
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp) as prof:
+                for _ in range(calls):
+                    fn()
+            events = sorted((e.time_range.start, e.time_range.end, e.name)
+                            for e in prof.events()
+                            if e.device_type == DeviceType.CUDA)
+        out = {"kernels": {}, "events": {}, "calls": calls,
+               "all_ms": sum(b - a for a, b, _ in events) / 1e3 / calls}
+        for name in sorted({n for *_, n in events
+                            if any(g in n for g in tags)}):
+            mine = [b - a for a, b, n in events if n == name]
+            key = name.split("(")[0].split("::")[-1]
+            out["events"][key] = len(mine)
+            out["kernels"][key] = (sum(mine[-calls:]) / 1e3 / calls
+                                   if len(mine) >= calls else None)
+        vals = list(out["kernels"].values())
+        out["total"] = sum(vals) if vals and None not in vals else None
+        if None not in vals:
+            break
+    return out
+
+
+def time_pair(kern, plain, nbytes: int, tags, iters: int = 10,
+              plain_iters: int = 3, with_plain: bool = True) -> dict:
+    """The kernel and its plain version in turns (kernel, plain, plain,
+    kernel; CUDA events), the kernel after an L2 flush, its launches'
+    device time by torch.profiler, its host cost a call, both versions'
+    peak memory above their inputs and the bytes bound."""
+    import torch
+
+    from wiser_tpu_torch.tools import search_bench as SB
+    from wiser_tpu_torch.tools.dense_bench import peak_extra
+
+    k1 = SB.event_ms(kern, iters)
+    p = ([SB.event_ms(plain, plain_iters), SB.event_ms(plain, plain_iters)]
+         if with_plain else [])
+    k2 = SB.event_ms(kern, iters)
+    split = launch_ms(kern, tags)
+    row = {"event_ms": [k1, k2], "plain_ms": p,
+           "device_ms": split["total"] or min(k1, k2),
+           "timing": ("torch.profiler" if split["total"] is not None
+                      else "CUDA events"),
+           "flushed_ms": SB.flushed_ms(kern, iters),
+           "host_us": SB.host_us(kern, iters), "launch_ms": split,
+           "launches_per_call": sum(split["events"].values()) / split["calls"],
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "peak_extra": {"kernel": peak_extra(kern)}}
+    row["share"] = row["bound_ms"] / row["device_ms"]
+    if with_plain:
+        row["peak_extra"]["plain"] = peak_extra(plain)
+        row["speedup"] = min(p) / row["device_ms"]
+    torch.cuda.empty_cache()
+    return row
+
+
+def time_semidense(dev, modes=("raw", "tc"), shapes=SEMI_SHAPES,
+                   M: int = TIME_M, plain: bool = True,
+                   compare: bool = True) -> list:
+    """_semidense_step (the kernel where this tree has one) and, with
+    `plain`, its plain version at `shapes` on synthetic 1M inputs:
+    compared (`compare`), then timed (`time_pair`)."""
+    import torch
+
+    from wiser_tpu_torch.engine import kernels as K
+    from wiser_tpu_torch.tools import search_bench as SB
+
+    plain_fn_of = getattr(K, "_semidense_step_torch", K._semidense_step)
+    rows = []
+    for T, n_bs, L in shapes:
+        B, cols, planes, batch = semi_shape(T, n_bs, L)
+        it = SB._n_iters(cols) if n_bs else 0
+        for mode in modes:
+            t = semi_tensors(cols, {k: planes[k] for k in (
+                ("dense_tf8",) if mode == "tc" else ("dense_sc", "dense_tf"))},
+                batch, dev)
+
+            def kern(t=t, mode=mode):
+                return semi_call(K._semidense_step, t, mode, T, L, M, n_bs,
+                                 it)
+
+            def plain_fn(t=t, mode=mode):
+                return semi_call(plain_fn_of, t, mode, T, L, M, n_bs, it)
+
+            row = {"kind": "semidense", "mode": mode, "B": B, "T": T,
+                   "n_bs": n_bs, "L": L, "M": M, "N_pad": N_1M}
+            if compare:
+                row["check"] = check_semidense(kern(), plain_fn(), M,
+                                               f"semidense timed {row}")
+            row.update(time_pair(kern, plain_fn, semidense_bound_bytes(
+                t, mode, T, L, M, n_bs), SEMI_TAGS, with_plain=plain))
+            log(f"semidense timing {json.dumps(row)}")
+            rows.append(row)
+            del t
+            torch.cuda.empty_cache()
+    return rows
+
+
+def time_verify(dev, shapes=VERIFY_SHAPES, plain: bool = True,
+                compare: bool = True) -> list:
+    """_verify_pos_windows (the kernel where this tree has one) and, with
+    `plain`, its plain version at `shapes` on synthetic bags (head terms'
+    tfs, 1 to 12 positions, sorted, an int16 column), compared and
+    timed."""
+    import torch
+
+    from wiser_tpu_torch.engine import kernels as K
+
+    plain_fn_of = getattr(K, "_verify_pos_windows_torch",
+                          K._verify_pos_windows)
+    rows = []
+    for B, T, NL, PP, PW in shapes:
+        t = verify_tensors(verify_inputs(B, T, NL, PP, PW, 11 + NL,
+                                         max_tf=12), dev)
+
+        def kern(t=t):
+            return verify_call(K._verify_pos_windows, t, T, NL, PP, PW)
+
+        def plain_fn(t=t):
+            return verify_call(plain_fn_of, t, T, NL, PP, PW)
+
+        row = {"kind": "verify", "B": B, "T": T, "NL": NL, "PP": PP,
+               "PW": PW}
+        if compare:
+            row["check"] = check_verify(kern(), plain_fn(),
+                                        f"verify timed {row}")
+        row.update(time_pair(kern, plain_fn,
+                             verify_bound_bytes(t, T, NL, PW), VERIFY_TAGS,
+                             with_plain=plain))
+        log(f"verify timing {json.dumps(row)}")
+        rows.append(row)
+        del t
+        torch.cuda.empty_cache()
+    return rows
+
+
+# -- the engine's own calls -------------------------------------------------------
+
+
+class Recorder:
+    """Records the calls an engine makes of kernels._semidense_step and
+    kernels._verify_pos_windows (each distinct shape's largest group, at
+    most `per_kind` shapes a kind) while installed (`with Recorder() as
+    rec:`), so that `time_calls` can hold and time them afterwards."""
+
+    def __init__(self, per_kind: int = 16):
+        self.per_kind = per_kind
+        self.calls = {"semidense": {}, "verify": {}}
+        self.counts = {"semidense": {}, "verify": {}}
+
+    def __enter__(self):
+        from wiser_tpu_torch.engine import kernels as K
+
+        self._orig = (K._semidense_step, K._verify_pos_windows)
+        semi, verify = self._orig
+
+        def semi_rec(*args, **kw):
+            mode = "tc" if kw.get("avg32") is not None else "raw"
+            self._keep("semidense", (mode, kw["T"], kw["n_bs"], kw["L"],
+                                     kw["M"]), args[3].shape[0], args, kw)
+            return semi(*args, **kw)
+
+        def verify_rec(*args, **kw):
+            key = (kw["T"], kw["NL"], kw["PP"], kw["PW"])
+            self._keep("verify", key, args[1].shape[0], args, kw)
+            return verify(*args, **kw)
+
+        K._semidense_step = semi_rec
+        K._verify_pos_windows = verify_rec
+        return self
+
+    def _keep(self, kind, key, B, args, kw):
+        c = self.counts[kind]
+        c[key] = c.get(key, 0) + 1
+        calls = self.calls[kind]
+        if key in calls:
+            if B > calls[key][0]:
+                calls[key] = (B, args, kw)
+        elif len(calls) < self.per_kind:
+            calls[key] = (B, args, kw)
+
+    def __exit__(self, *exc):
+        from wiser_tpu_torch.engine import kernels as K
+
+        K._semidense_step, K._verify_pos_windows = self._orig
+        return False
+
+    def chosen(self, kind: str):
+        """A kind's recorded shape with the most lanes (B * L, or B * NL
+        for the verification; its largest group), then its most called
+        one where that is another: [(key, calls, (B, args, kw))]."""
+        c, calls = self.counts[kind], self.calls[kind]
+        if not calls:
+            return []
+        biggest = max(calls, key=lambda k: calls[k][0] * k[-2 if kind ==
+                                                        "semidense" else 1])
+        busiest = max(calls, key=lambda k: c[k])
+        keys = [biggest] + ([busiest] if busiest != biggest else [])
+        return [(k, c[k], calls[k]) for k in keys]
+
+
+def time_calls(rec: Recorder, plain: bool = True) -> dict:
+    """Each kind's chosen recorded shapes (`Recorder.chosen`: the largest
+    group, the most called shape): the kernel against the plain version
+    on the recorded inputs, then timed (`time_pair`). Returns
+    {"semidense": rows, "verify": rows}, the largest first."""
+    from wiser_tpu_torch.engine import kernels as K
+
+    out = {"semidense": [], "verify": []}
+    for key, calls, (B, args, kw) in rec.chosen("semidense"):
+        mode, T, n_bs, L, M = key
+
+        def kern(args=args, kw=kw):
+            return K._semidense_step(*args, **kw)
+
+        def plain_fn(args=args, kw=kw):
+            return K._semidense_step_torch(*args, **kw)
+
+        row = {"kind": "semidense", "mode": mode, "B": B, "T": T,
+               "n_bs": n_bs, "L": L, "M": M, "calls": calls,
+               "N_pad": int(args[2].shape[1])}
+        row["check"] = check_semidense(kern(), plain_fn(), M,
+                                       f"semidense engine call {row}")
+        t = {"doc": args[0], "starts": args[3], "ends": args[4],
+             "slots": args[6],
+             ("dense_tf8" if mode == "tc" else "dense_sc"): args[2]}
+        row.update(time_pair(kern, plain_fn, semidense_bound_bytes(
+            t, mode, T, L, M, n_bs, kw.get("doc_base", 0)), SEMI_TAGS,
+            with_plain=plain))
+        log(f"semidense engine timing {json.dumps(row)}")
+        out["semidense"].append(row)
+    for key, calls, (B, args, kw) in rec.chosen("verify"):
+        T, NL, PP, PW = key
+
+        def kern(args=args, kw=kw):
+            return K._verify_pos_windows(*args, **kw)
+
+        def plain_fn(args=args, kw=kw):
+            return K._verify_pos_windows_torch(*args, **kw)
+
+        row = {"kind": "verify", "B": B, "T": T, "NL": NL, "PP": PP,
+               "PW": PW, "calls": calls}
+        row["check"] = check_verify(kern(), plain_fn(),
+                                    f"verify engine call {row}")
+        t = {"positions": args[0], "ps": args[1], "pe": args[2]}
+        row.update(time_pair(kern, plain_fn, verify_bound_bytes(t, T, NL, PW),
+                             VERIFY_TAGS, with_plain=plain))
+        log(f"verify engine timing {json.dumps(row)}")
+        out["verify"].append(row)
+    return out
+
+
+# -- old against new -----------------------------------------------------------
+
+
+def _group_peaks(eng, queries) -> dict:
+    """The peak device memory above their inputs of the engine's largest
+    semidense group and mega phrase group over one pass of queries (the
+    step's or dispatch's allocations, its outputs included)."""
+    import torch
+
+    from wiser_tpu_torch.engine import kernels as K
+
+    peaks = {"semidense": 0, "phrase_mega": 0}
+    semi = K._semidense_step
+    mega = getattr(eng, "_mega_phrase_dispatch", None)
+
+    def measured(kind, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            peaks[kind] = max(peaks[kind], int(
+                torch.cuda.max_memory_allocated() - before))
+            return out
+        return run
+
+    K._semidense_step = measured("semidense", semi)
+    if mega is not None:
+        eng._mega_phrase_dispatch = measured("phrase_mega", mega)
+    try:
+        eng.clear_result_memos()
+        eng.search_batch(queries)
+    finally:
+        K._semidense_step = semi
+        if mega is not None:
+            del eng._mega_phrase_dispatch
+        eng.clear_result_memos()
+        eng.stats_take()
+    return peaks
+
+
+def route_sets(index: str, columns: str, routes, n: int = 2048) -> dict:
+    """route_bench's sets on a TorchEngine of the index (the phrase sets
+    from the index's mined pairs, `<index>/phrase_pairs.json`), each run
+    by route_bench.run_set with a traced pass, and each with the peak
+    device memory of its largest semidense and mega phrase group."""
+    import torch
+
+    from wiser_tpu_torch import TorchEngine
+    from wiser_tpu_torch.index.format import PackedIndex
+    from wiser_tpu_torch.tools import route_bench as RB
+
+    packed = PackedIndex.load(index, skip_offsets=True)
+    eng = TorchEngine(packed, device="cuda", columns=columns)
+    sets = RB.build_route_sets(packed, eng, n, 10)
+    if any(r.startswith("phrase_") for r in routes):
+        with open(os.path.join(index, "phrase_pairs.json")) as f:
+            pairs = [tuple(x) for x in json.load(f)]
+        sets.update(RB.build_phrase_route_sets(packed, eng, None, n, 10,
+                                               pairs=pairs))
+    out = {}
+    for name in routes:
+        queries = sets.get(name)
+        if not queries:
+            continue
+        peaks = _group_peaks(eng, queries)
+        with tempfile.TemporaryDirectory() as tmp:
+            row = RB.run_set(eng, queries, 2048, trace_dir=tmp)
+        row["group_peak_bytes"] = peaks
+        row["queries"] = len(queries)
+        log(f"{columns} {name}: {json.dumps(row)}")
+        out[name] = row
+        torch.cuda.empty_cache()
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def measure(root: str, index=None, routes: str = ROUTES,
+            headline: bool = False) -> dict:
+    """One tree's readings, in this process: the entry points at the
+    synthetic shapes (no plain times, no comparison), then, given a saved
+    index, route_bench's `routes` raw and tc, each traced, with the group
+    peaks; with `headline`, bench.headline.run (bench.py's workload on
+    the card, its index built in the tree's own cache) and its stats
+    (semidense_s, bs_s and the route counts among them)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from wiser_tpu_torch.engine import kernels as K
+    from wiser_tpu_torch.tools.unpack_bench import card_line
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("semidense_bench measures a card: none is "
+                           "available")
+    dev = torch.device("cuda", 0)
+    out = {"tree": root, "card": card_line(),
+           "module": os.path.abspath(K.__file__),
+           "timing": time_semidense(dev, plain=False, compare=False)
+           + time_verify(dev, plain=False, compare=False)}
+    if index:
+        sets = [r for r in routes.split(",") if r]
+        out["routes"] = {c: route_sets(index, c, sets) for c in ("raw", "tc")}
+    if headline:
+        from wiser_tpu_torch.bench import headline as HL
+
+        h = HL.run(device="cuda")
+        out["headline"] = {"line": h["line"], "passes": h["passes"],
+                           "stats": h["stats"]}
+        del h
+        torch.cuda.empty_cache()
+    return out
+
+
+def summary(runs: list) -> dict:
+    """Per run: each timed shape's [device ms, flushed ms, host us, bound
+    share], each route set's [untraced wall s, traced device busy ms,
+    busy share, semidense group peak bytes, mega group peak bytes] and
+    the headline's [pass QPS, semidense_s, bs_s, route_semidense,
+    route_bs]."""
+    res = []
+    for r in runs:
+        s = {"tree": r["tree"], "card": r["card"]}
+        for x in r["timing"]:
+            key = (f"semidense_{x['mode']}_B{x['B']}_T{x['T']}_nbs"
+                   f"{x['n_bs']}_L{x['L']}" if x["kind"] == "semidense"
+                   else f"verify_B{x['B']}_T{x['T']}_NL{x['NL']}")
+            s[key] = [x["device_ms"], x["flushed_ms"], x["host_us"],
+                      x["share"]]
+        for columns, sets in r.get("routes", {}).items():
+            for name, row in sets.items():
+                traced = row.get("traced") or {}
+                s[f"{columns}_{name}"] = [
+                    row.get("wall_s"), traced.get("device_busy_ms"),
+                    traced.get("busy_share"),
+                    row["group_peak_bytes"]["semidense"],
+                    row["group_peak_bytes"]["phrase_mega"]]
+        if "headline" in r:
+            st = r["headline"]["stats"]
+            s["headline"] = [r["headline"]["line"]["pass_qps"],
+                             st.get("semidense_s"), st.get("bs_s"),
+                             st.get("route_semidense"), st.get("route_bs")]
+        res.append(s)
+    return {"semidense_bench": res}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--skip-check", action="store_true")
+    ap.add_argument("--check-only", action="store_true",
+                    help="build and compare, no timing")
+    ap.add_argument("--trees", default=None,
+                    help="comma-separated trees, measured in turns")
+    ap.add_argument("--root", help="measure this tree in this process")
+    ap.add_argument("--index", help="a saved 1M index for route_bench's sets")
+    ap.add_argument("--routes", default=ROUTES)
+    ap.add_argument("--headline", action="store_true",
+                    help="--trees: each tree's bench.headline run too")
+    args = ap.parse_args(argv)
+    if args.root:
+        res = measure(args.root, args.index, args.routes, args.headline)
+        print(json.dumps(res), flush=True)
+        return res
+    if args.trees:
+        from wiser_tpu_torch.tools.unpack_bench import run_trees
+
+        extra = ["--routes", args.routes]
+        if args.headline:
+            extra.append("--headline")
+        if args.index:
+            extra += ["--index", os.path.abspath(args.index)]
+        res = {"runs": run_trees(__file__, args.trees.split(","), extra)}
+        print(json.dumps(summary(res["runs"])), flush=True)
+    else:
+        import torch
+
+        from wiser_tpu_torch.build import build_log, load_libraries
+        from wiser_tpu_torch.runtime import resolve_device
+        from wiser_tpu_torch.tools.unpack_bench import card_line
+
+        dev = resolve_device("cuda")
+        res = {"card": card_line(), "device": torch.cuda.get_device_name(0)}
+        load_libraries(("semidense", "phrase", "dense"))
+        res["build_s"] = {n: build_log[n][0]
+                          for n in ("semidense", "phrase", "dense")}
+        for n in ("semidense", "phrase"):
+            log(build_log[n][1])
+        if not args.skip_check:
+            for name, fn in (("semidense_check", semidense_cases),
+                             ("verify_check", verify_cases)):
+                t0 = time.perf_counter()
+                res[name] = fn(dev)
+                res[name].pop("rows")
+                res[name]["wall_s"] = time.perf_counter() - t0
+                log(f"{name}: {res[name]}")
+        if not args.check_only:
+            res["timing"] = time_semidense(dev) + time_verify(dev)
+        print(json.dumps(res))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+    return res
+
+
+if __name__ == "__main__":
+    main()
