@@ -119,7 +119,7 @@ search for phrases). Phases:
             named route must take a majority, with zipf_t3 run once more
             under torch.profiler (utils.trace: top device ops, device
             busy share); bench/run_exp's memory grid at 0.05 and 0.25 of
-            full_device_bytes (aol_mix, 1,024 queries, device cold path),
+            full_device_bytes (aol_mix, 512 queries, device cold path),
             which must launch the unpack kernel; tools/stage_probe (B=512,
             T=3, C=512, M=16, SB=8) on tc columns. A mismatch or a failed
             check raises
@@ -134,7 +134,7 @@ search for phrases). Phases:
             phrase prefix; `mesh_staged` (ShardedStagedEngine at a quarter
             of its full residency bytes) over aol, aol_df 1,024 and a 256
             phrase prefix; and tools/shard_ladder.run on the mesh engine
-            (configs 1-4, 512 queries each, 50 sampled). Raises unless
+            (configs 1-4, 256 queries each, 50 sampled). Raises unless
             aol_df takes the dense and semidense routes, aol_df_pruned the
             pruned one, the phrase prefix the compact one, mesh_tc's
             postings take <= 0.51 of mesh's bytes, and mesh_staged answers
@@ -218,8 +218,24 @@ group and most called shape, compared and timed after the passes,
 the kernels line reading the largest); the smoke
 fails if semidense never launched on the dense phase, semidense_tc on
 the tc phase, or phrase_verify on the dense or tc phase with the phrase
-set. The full report is the last line of stderr, one JSON object (also
-written to the --report path, if given).
+set. The semidense phrase route (semidense_phrase, semidense_phrase_tc;
+csrc/phrase_route.cu: the selection of the KV + 1 best AND keys, the
+recovery and window verification of the kept lanes, the top M) and the
+list chain (list_phrase, list_phrase_tc: match, bloom gate, verification
+by binary search and top M in one launch) are held against their plain
+versions in the kernel phase (phrase_bench.semidense_phrase_cases and
+list_phrase_cases: raw and tc, T 2 to 4, ties straddling the (KV+1)-th
+lane, fewer than KV + 1 matches, absent bloom rows, no active probe, PP
+above every bag, a bag holding 65,535; packed outputs bit for bit) and
+timed there on synthetic 1M inputs, then on the dense and tc phases'
+own calls (phrase_bench.Recorder: each kind's largest group, compared
+and timed after the passes); the smoke fails if a run's mix (the mesh's
+aside: its list route is phrase_body) answered queries on the semidense
+phrase or list route and that route's kernel did not launch on its
+timed pass, or if the raw kernels never launched on the dense phase or
+the tc ones on the tc phase with the phrase set. The full report is the
+last line of stderr, one JSON object (also written to the --report path,
+if given).
 """
 
 from __future__ import annotations
@@ -272,11 +288,12 @@ def cuda_ms(fn, iters: int) -> float:
 def _ops():
     from wiser_tpu_torch.ops import dense as D
     from wiser_tpu_torch.ops import phrase as PH
+    from wiser_tpu_torch.ops import phrase_route as PR
     from wiser_tpu_torch.ops import search as S
     from wiser_tpu_torch.ops import semidense as SD
     from wiser_tpu_torch.ops import unpack as U
 
-    return U, S, D, SD, PH
+    return U, S, D, SD, PH, PR
 
 
 def reset_counts() -> None:
@@ -811,6 +828,87 @@ def semi_engine_timing(report: dict, name: str, rec) -> dict:
     return semi_rows(rows, err, f"the {name} engine's own calls")
 
 
+ROUTE_KERNELS = (
+    ("semidense_phrase", "wiser_tpu/engine/kernels.py:840"),
+    ("semidense_phrase_tc", "wiser_tpu/engine/kernels.py:840"),
+    ("list_phrase", "wiser_tpu/engine/kernels.py:465"),
+    ("list_phrase_tc", "wiser_tpu/engine/kernels.py:363"))
+# the kernel phase's timed groups on synthetic 1M inputs: the semidense
+# phrase at the mega chunk's B, a full list group
+ROUTE_SDP_SHAPES = ((128, 2, 2048),)
+ROUTE_LIST_SHAPES = ((1024, 2, 1024),)
+
+
+def route_kernel_phase(report: dict) -> dict:
+    """The semidense phrase route's and the list chain's kernels against
+    their plain versions on the card (phrase_bench.semidense_phrase_cases
+    and list_phrase_cases), then timed on synthetic 1M inputs in turns
+    with the plain versions. Returns the kernels line's entries."""
+    import torch
+
+    from wiser_tpu_torch.tools import phrase_bench as PB
+
+    dev = torch.device("cuda", 0)
+    for key, fn in (("semidense_phrase_check", PB.semidense_phrase_cases),
+                    ("list_phrase_check", PB.list_phrase_cases)):
+        t0 = time.perf_counter()
+        chk = fn(dev)
+        torch.cuda.synchronize()
+        report[key] = dict(chk, wall_s=time.perf_counter() - t0)
+        log(f"kernel: {key}: the kernel equals its plain version bit for "
+            f"bit in {chk['cases']} cases: {report[key]}")
+    t0 = time.perf_counter()
+    rows = (PB.time_semidense_phrase(dev, shapes=ROUTE_SDP_SHAPES)
+            + PB.time_list_phrase(dev, shapes=ROUTE_LIST_SHAPES))
+    torch.cuda.empty_cache()
+    report["route_kernel_timing"] = {"rows": rows,
+                                     "wall_s": time.perf_counter() - t0}
+    return PB.kernel_rows(rows, "synthetic 1M")
+
+
+def route_engine_timing(report: dict, name: str, rec) -> dict:
+    """The largest recorded group of each kind (the semidense phrase
+    route, the list chain) of a run's passes, compared and timed after
+    them (phrase_bench.time_calls); these launches come after the passes,
+    so the main path's counts do not hold them. Returns the kernels
+    line's entries."""
+    import torch
+
+    from wiser_tpu_torch.tools import phrase_bench as PB
+
+    t0 = time.perf_counter()
+    out = PB.time_calls(rec, busiest=False)
+    torch.cuda.empty_cache()
+    report[f"{name}_route_timing"] = dict(out,
+                                          wall_s=time.perf_counter() - t0)
+    return PB.kernel_rows(out["semidense_phrase"] + out["list_phrase"],
+                          f"the {name} engine's own calls")
+
+
+def route_launches(report: dict):
+    """Whether every run mix's timed pass (the mesh's aside) that answered
+    queries on the semidense phrase or the list route launched that
+    route's kernel (either column mode) there. Returns ({entry and
+    kernel: [queries, launches]}, [the entries where it did not])."""
+    seen, idle = {}, []
+    for key, r in report.items():
+        if not (isinstance(r, dict) and isinstance(r.get("launches"), dict)
+                and isinstance(r.get("stats"), dict)) or \
+                key.startswith("mesh"):
+            continue
+        st, ln = r["stats"], r["launches"]
+        for route, kernel in (("phrase_semidense", "semidense_phrase"),
+                              ("phrase_list", "list_phrase")):
+            took = (st.get(f"route_{route}", 0)
+                    + st.get(f"hot_route_{route}", 0))
+            n = ln.get(kernel, 0) + ln.get(kernel + "_tc", 0)
+            if took:
+                seen[f"{key} {kernel}"] = [took, n]
+                if not n:
+                    idle.append(f"{key} ({route}: {took} queries)")
+    return seen, idle
+
+
 def dense_engine_timing(report: dict, name: str, eng) -> dict:
     """dense_bench.time_shapes on a TorchEngine's own 1M planes (every
     engine shape, its columns' mode); these launches come after the
@@ -1318,8 +1416,9 @@ def serve_phase(report: dict, corpus) -> None:
 # -- harness ------------------------------------------------------------------
 
 # the audit and the memory grid cut from 64 and 2,048 queries when the
-# mesh phase came in, to keep the smoke inside its time
-HARNESS_Q, HARNESS_AUDIT, HARNESS_ROUTE_Q, HARNESS_GRID_Q = 2048, 32, 256, 1024
+# mesh phase came in, and the grid again from 1,024 when the phrase
+# routes' kernels came in, to keep the smoke inside its time
+HARNESS_Q, HARNESS_AUDIT, HARNESS_ROUTE_Q, HARNESS_GRID_Q = 2048, 32, 256, 512
 HARNESS_FRACS = (0.05, 0.25)
 GRID_KEYS = ("budget_bytes", "hot_fraction", "phrase_hot_fraction",
              "dense_fraction", "hot_bytes_used", "device_mem_bytes", "qps",
@@ -1472,9 +1571,10 @@ def harness_summary(h: dict) -> dict:
 
 # the phrase prefix and the shard ladder's queries a config cut from 512
 # and 2,048 when the full-scan phrase's checks came in, and the ladder's
-# to 512 when the semidense and verification checks came in, to keep the
-# smoke well inside its time on a slow host
-MESH_SHARDS, MESH_PRUNED_Q, MESH_LADDER_Q = 4, 1024, 512
+# to 512 when the semidense and verification checks came in and to 256
+# when the phrase routes' kernels came in, to keep the smoke well inside
+# its time on a slow host
+MESH_SHARDS, MESH_PRUNED_Q, MESH_LADDER_Q = 4, 1024, 256
 MESH_PHRASE_Q, MESH_STAGED_PHRASE_Q = 256, 256
 # the aol_df_pruned mix's PRUNED_DENSE_MIN_NB: under the 1,954 blocks a
 # shard holds at 1M docs and 4 shards
@@ -1839,7 +1939,8 @@ def main() -> int:
     # one nvcc a library, all at the same time (a build error is raised
     # here)
     t0 = time.perf_counter()
-    libs = ("unpack", "search", "dense", "semidense", "phrase")
+    libs = ("unpack", "search", "dense", "semidense", "phrase",
+            "phrase_route")
     load_libraries(libs)
     report["build"] = {f"{n}_s": build_log[n][0] for n in libs}
     report["build"]["wall_s"] = time.perf_counter() - t0
@@ -1866,6 +1967,9 @@ def main() -> int:
                                  replaces)
     for name, replaces, source in SEMI_KERNELS:
         kerns[name] = kernel_row(name, source, replaces)
+    for name, replaces in ROUTE_KERNELS:
+        kerns[name] = kernel_row(name, "wiser_tpu_torch/csrc/phrase_route.cu",
+                                 replaces)
     kern = kerns["unpack_delta_blocks"]
     if "kernel" in phases:
         for name, entry in kernel_phase(report).items():
@@ -1876,6 +1980,9 @@ def main() -> int:
             kerns[name].update(entry)
         torch.cuda.empty_cache()
         for name, entry in semi_kernel_phase(report).items():
+            kerns[name].update(entry)
+        torch.cuda.empty_cache()
+        for name, entry in route_kernel_phase(report).items():
             kerns[name].update(entry)
 
     # (run name, make engine, {mix: (pool, number of queries, engine
@@ -1976,13 +2083,15 @@ def main() -> int:
         pools["windowed"] = windowed_eligible(
             packed, aol_mixed_queries(packed, 8 * Q, seed=8, by_df=True),
             Q // 4)
+        from wiser_tpu_torch.tools.phrase_bench import Recorder as PRec
         from wiser_tpu_torch.tools.semidense_bench import Recorder
 
         for name, make, mixes in runs:
             t0 = time.perf_counter()
-            # the dense and tc runs record their semidense and
-            # verification calls, timed after their passes
+            # the dense and tc runs record their semidense, verification
+            # and phrase route calls, timed after their passes
             rec = Recorder().__enter__() if name in ("dense", "tc") else None
+            prec = PRec().__enter__() if name in ("dense", "tc") else None
             eng = make()
             torch.cuda.synchronize()
             hot = getattr(eng, "hot", eng)
@@ -2013,10 +2122,14 @@ def main() -> int:
                     expected)
             if rec is not None:
                 rec.__exit__(None, None, None)
+                prec.__exit__(None, None, None)
                 for k, entry in semi_engine_timing(report, name,
                                                    rec).items():
                     kerns[k].update(entry)
-                del rec
+                for k, entry in route_engine_timing(report, name,
+                                                    prec).items():
+                    kerns[k].update(entry)
+                del rec, prec
             if name in ("dense", "tc"):
                 for k, entry in dense_engine_timing(report, name,
                                                     hot).items():
@@ -2154,6 +2267,26 @@ def main() -> int:
     for name, _ in DENSE_KERNELS:
         kerns[name]["launches"] = sum(c[name]
                                       for c in dense_by_phase.values())
+    # the phrase routes' kernels: launches on every timed pass, by phase
+    route_by_phase: dict = {}
+    for key, r in report.items():
+        if not (isinstance(r, dict) and isinstance(r.get("launches"), dict)):
+            continue
+        c = route_by_phase.setdefault(
+            phase_of(key.split("_")[0]) if key != "harness" else key,
+            {name: 0 for name, _ in ROUTE_KERNELS})
+        for name in c:
+            c[name] += r["launches"].get(name, 0)
+    report["route_launches"] = route_by_phase
+    for name, _ in ROUTE_KERNELS:
+        kerns[name]["launches"] = sum(c[name]
+                                      for c in route_by_phase.values())
+    route_idle = [f"{p} ({name})" for p, name in (
+        ("dense", "semidense_phrase"), ("tc", "semidense_phrase_tc"),
+        ("dense", "list_phrase"), ("tc", "list_phrase_tc"))
+        if p in phases and "phrase" in phases
+        and not route_by_phase.get(p, {}).get(name)]
+    report["route_launch_check"], route_unlaunched = route_launches(report)
     # a scan (raw or tc) must launch on the dense, tc and mesh phases
     # (each runs the rescue or the mesh's dense step) and on every other
     # phase whose route counters show dense, pruned or rescued queries;
@@ -2192,6 +2325,11 @@ def main() -> int:
     if semi_idle:
         raise AssertionError(f"never launched on the path: {semi_idle} "
                              f"({semi_by_phase})")
+    if route_idle or route_unlaunched:
+        raise AssertionError(
+            f"never launched on the path: {route_idle}; a phrase route "
+            f"took queries but its kernel never launched: "
+            f"{route_unlaunched} ({route_by_phase})")
     print(json.dumps({"kernels": list(kerns.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

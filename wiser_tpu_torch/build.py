@@ -31,11 +31,12 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".kernel_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# search.cu's, dense.cu's and semidense.cu's f32 scores and bounds must
-# equal the plain versions' bit for bit: no multiply-add contracted into
-# an FMA (phrase.cu's verification is integer work)
+# search.cu's, dense.cu's, semidense.cu's and phrase_route.cu's f32 scores
+# and bounds must equal the plain versions' bit for bit: no multiply-add
+# contracted into an FMA (phrase.cu's verification is integer work)
 EXTRA_NVCC_FLAGS = {"search": ("-fmad=false",), "dense": ("-fmad=false",),
-                    "semidense": ("-fmad=false",)}
+                    "semidense": ("-fmad=false",),
+                    "phrase_route": ("-fmad=false",)}
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()  # guards _locks

@@ -33,7 +33,8 @@
 //
 // Design: one warp a (query, lane), W warps a CTA (ops/phrase.plan: as
 // many as fit VERIFY_SMEM together). Thread t < T reads term t's bounds;
-// the warp copies each term's valid entries, and only those, into its
+// verify.cuh's warp_count (which phrase_route.cu's finish kernels call
+// too) copies each term's valid entries, and only those, into its
 // shared-memory windows (T x PW int32, at most 32 KB a warp at T 8 and
 // PW 1,024); then each thread takes bases i = l32, l32 + 32, ... and
 // scans the other terms' windows for y + t, stopping at the first hit
@@ -45,6 +46,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "verify.cuh"
 
 namespace wiser_phrase {
 
@@ -61,63 +64,24 @@ struct VerifyArgs {
 };
 
 template <bool kU16>
-__device__ __forceinline__ int position(const VerifyArgs& a, long long i) {
-  if (kU16) return static_cast<const uint16_t*>(a.positions)[i];
-  return static_cast<const int32_t*>(a.positions)[i];
-}
-
-template <bool kU16>
 __global__ void __launch_bounds__(256) verify_kernel(VerifyArgs a) {
   extern __shared__ __align__(16) int smem[];
   const int W = blockDim.x >> 5;
   const int wid = threadIdx.x >> 5, l32 = threadIdx.x & 31;
   const long long item = (long long)blockIdx.x * W + wid;
   if (item >= (long long)a.B * a.NL) return;  // the warp alone
-  const int T = a.T, PW = a.PW;
+  const int T = a.T;
   const int b = (int)(item / a.NL);
   const int lane = (int)(item % a.NL);
-  // this warp's windows, T x PW, then the T valid counts
-  int* win = smem + (long long)wid * (T * PW + T);
-  int* cnts = win + T * PW;
-  long long start = 0;
-  int cnt = 0;
+  long long s = 0, e = 0;
   if (l32 < T) {
     const long long o = ((long long)b * T + l32) * a.NL + lane;
-    const long long s = a.ps[o];
-    const long long span = (long long)a.pe[o] - s;
-    const long long top = a.n - PW;
-    start = s < 0 ? 0 : (s > (top > 0 ? top : 0) ? (top > 0 ? top : 0) : s);
-    cnt = (int)(span < 0 ? 0 : (span > PW ? PW : span));
-    cnts[l32] = cnt;
+    s = a.ps[o];
+    e = a.pe[o];
   }
-  for (int t = 0; t < T; ++t) {
-    const long long st = __shfl_sync(0xffffffffu, start, t);
-    const int c = __shfl_sync(0xffffffffu, cnt, t);
-    for (int j = l32; j < c; j += 32) {
-      const long long i = st + j;
-      win[t * PW + j] = position<kU16>(a, i < a.n ? i : a.n - 1);
-    }
-  }
-  __syncwarp();
-  int A = a.anchor[b];
-  A = A < 0 ? 0 : (A >= T ? T - 1 : A);
-  const int nbase = min(cnts[A], a.PP);
-  int count = 0;
-  for (int i = l32; i < nbase; i += 32) {
-    const int y = win[A * PW + i] - A;
-    bool ok = true;
-    for (int t = 0; t < T && ok; ++t) {
-      if (t == A) continue;
-      const int* w = win + t * PW;
-      const int c = cnts[t], target = y + t;
-      bool hit = false;
-      for (int j = 0; j < c && !hit; ++j) hit = w[j] == target;
-      ok = hit;
-    }
-    count += ok;
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    count += __shfl_xor_sync(0xffffffffu, count, off);
+  const int count = wiser_verify::warp_count<kU16>(
+      a.positions, a.n, s, e, T, a.PP, a.PW, a.anchor[b],
+      smem + (long long)wid * wiser_verify::warp_ints(T, a.PW), l32);
   if (l32 == 0) a.out[item] = count;
 }
 
@@ -164,7 +128,7 @@ int wiser_phrase_verify(const WiserVerifyParams* p, void* stream) {
   a.PP = (int)p->PP;
   a.PW = (int)p->PW;
   const int W = (int)p->W;
-  const long long smem = (long long)W * (a.T * (long long)a.PW + a.T) * 4;
+  const long long smem = (long long)W * wiser_verify::warp_ints(a.T, a.PW) * 4;
   if (a.T < 1 || a.T > kMaxT || a.PW < 1 || a.PP < 1 || a.n < 1 || W < 1 ||
       W > 8 || smem != p->smem)
     return (int)cudaErrorInvalidValue;

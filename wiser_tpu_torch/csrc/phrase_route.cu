@@ -1,0 +1,834 @@
+// Two resident phrase routes for Hopper (sm_90a): the semidense phrase
+// route and the list chain, each from the candidate slice to the packed
+// (B, T+2, M) output with no torch stage between.
+//
+// Replaces, in wiser_tpu/engine/kernels.py (XLA-compiled jnp, not Pallas;
+// dispatched at wiser_tpu/engine/device.py:2099 and :2148-2186):
+//   - make_semidense_phrase_kernel (:840), raw and tc. Its eager torch
+//     form (engine/kernels.semidense_phrase_torch, the plain version)
+//     writes some ten (B, L) planes a group, a full stable sort of (B, L)
+//     and (B, T-1, KV) search planes, L up to 32,768;
+//   - the list chain (L <= KV): make_match_kernel (:465) and
+//     make_match_kernel_tc (:363) with _bloom_gate (:403),
+//     make_phrase_verify_kernel (:508), make_select_topk_kernel (:662) and
+//     make_select_topk_kernel_tc (:442). Its plain version
+//     (engine/kernels.list_phrase_torch) runs them as three calls with
+//     torch steps between, over (B, L), (B, T, L) and (B, PP, L) planes.
+//
+// The semidense phrase route, per query b (engine/kernels.py
+// semidense_phrase_torch says the same in torch):
+//   - every lane of slot 0's run (the slice clamped as dynamic_slice
+//     clamps it) is a candidate; every other slot is a dense head: one
+//     gather from its dense row slots[b, t] at the lane's doc (clamped into
+//     the row). raw: the f32 score, matched where > 0; tc: the uint8 tf
+//     composed with the candidate's len code, matched where > 0;
+//   - the AND score sums s0 + d1 + d2 + ... in slot order (raw: score *
+//     use; tc: idf * the device table's entry, dense.cu's tc_norm_kernel,
+//     which equals tc_score bit for bit);
+//   - sdp_select_kernel keeps the K = KV + 1 best keys (keys.cuh: score
+//     desc, lane asc, so lax.top_k's order) in select.cuh's unsorted
+//     buffer, cut by its radix select when it fills, sorted once at the
+//     end: one CTA a query, 1,024 lanes a step, no (B, L) plane;
+//   - sdp_verify_kernel, a warp a (query, kept lane): the posting index
+//     of each slot 1.. recovered by the fixed-count binary search of the
+//     plain version over the slot's run (slot 0's is cs + lane), the bag
+//     bounds from pos_starts in query-term order (slot_of), then
+//     verify.cuh's window verification (phrase.cu's, anchor 0); it
+//     writes the (B, KV) counts and the (B, T, KV) posting indices;
+//   - sdp_output_kernel, a warp a query: the first M verified kept lanes
+//     in key order are the top M (the plain version's stable top-M over
+//     the ordered selection), FLAG_TRUNC where the (M+1)-th verified
+//     ties the M-th, FLAG_PRUNE_MISS where the (KV+1)-th AND score
+//     (`unseen`, which bounds every lane not verified) is > 0 and >= the
+//     k-th kept score times f32(1 - eps3), the winners' tfs (raw:
+//     postings_tf at the recovered indices; tc: the candidate's tf byte
+//     and the dense tf bytes, FLAG_TF_SAT where one is 255), packed.
+//
+// The list chain, per query b, one CTA (list_kernel): the L <= 1,024
+// candidate lanes of slot 0, each searched in slots 1.. by the plain
+// version's fixed-count lower bound (its posting index per slot kept in
+// shared memory, the score s0 + (b1 + b2 + ...)); with kGate the bi-bloom
+// gate per probe (the probed slot's posting index, the following side
+// first, the preceding side at + Pw * 32: presence word and bit, the
+// row's rank from bloom_rank plus the popcount below, pass where (row &
+// mask) == mask; an absent row prunes, an inactive probe passes); then
+// the verification by binary search (bases: query term 0's first PP
+// positions; term t's bag searched for base + t in n_pos_iters halvings,
+// positions read as uint16 bits), a thread a (lane, base); then the top
+// M of the verified lanes by key with FLAG_TRUNC and the tfs at the
+// winners' posting indices (raw postings_tf; tc the tc lanes' bytes, with
+// FLAG_TF_SAT from the lane's saturation). Nothing (B, L) or (B, T, L)
+// reaches device memory. Without kGate (a compile-time switch) it is the
+// bloomless chain of phrase_body, which the staged cold tier runs.
+//
+// Bound: bytes. The least the semidense phrase route must move is the
+// candidate slice (8 bytes a lane raw, 6 tc), the 32-byte sectors of each
+// dense row that the ascending docs touch, the K keys, and for the KV
+// kept lanes the recovery's and the verification's reads; the list
+// chain's: the candidate slice, each searched run once or one sector a
+// probe where that is fewer, the probed bloom words and rows, the bags'
+// sectors and the output (tools/phrase_bench.*_bound_bytes). The
+// searches are chains of dependent loads: latency, not bytes, is what
+// the kernels wait on; the design keeps every (B, L) intermediate in
+// registers or shared memory and runs many queries' chains at once.
+//
+// Arithmetic: every f32 operation is an explicit round-to-nearest
+// intrinsic and the library is built with -fmad=false, so the scores
+// equal the plain versions' bit for bit. Offsets are 64-bit.
+
+#include <climits>
+#include <cstdint>
+#include <cstring>
+#include <cuda_runtime.h>
+
+#include "keys.cuh"
+#include "select.cuh"
+#include "verify.cuh"
+
+namespace wiser_phrase_route {
+
+using namespace wiser_keys;
+using namespace wiser_select;
+
+constexpr int kThreads = kSelThreads;   // every CTA of the selection and list
+constexpr int kStep = kThreads * kSelLPT;  // lanes a selection step
+constexpr int kMaxT = 8;
+constexpr int kListMaxL = 1024;  // the list chain's lanes: L <= KV
+constexpr int kFlagPruneMiss = 8;
+constexpr int kWarps = 8;  // the output kernel's queries a CTA
+
+__host__ __device__ constexpr long long align16(long long x) {
+  return (x + 15) & ~15LL;
+}
+
+__device__ __forceinline__ long long clampll(long long x, long long lo,
+                                             long long hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// the start of a contiguous L-lane load, clamped as dynamic_slice clamps it
+__device__ __forceinline__ long long slice_start(long long s, long long n,
+                                                 int L) {
+  const long long top = n - L;
+  return clampll(s, 0, top > 0 ? top : 0);
+}
+
+// kernels._binary_search: the fixed-count int32 lower bound of target in
+// [lo, hi), reads clamped into the column (every value as the plain
+// version reads it: int32 docs, or positions as uint16 bits / int32)
+template <int kKind>  // 0: int32 docs, 1: uint16 positions, 2: int32 positions
+__device__ __forceinline__ int search_fixed(const void* col, long long n,
+                                            int target, int lo, int hi,
+                                            int iters) {
+  for (int it = 0; it < iters; ++it) {
+    const int mid = (int)((unsigned)lo + (unsigned)hi) >> 1;
+    const long long i = clampll(mid, 0, n - 1);
+    const int v = kKind == 1 ? (int)static_cast<const uint16_t*>(col)[i]
+                             : static_cast<const int32_t*>(col)[i];
+    const bool less = v < target;
+    lo = less ? mid + 1 : lo;
+    hi = less ? hi : mid;
+  }
+  return lo;
+}
+
+// the score of a tc lane (code8 << 8 | tf8) in a slot of this idf: the
+// device table's entry times idf (bit for bit tc_score)
+__device__ __forceinline__ float tc_lane_score(const float* norm_g, int lane,
+                                               float idf) {
+  return __fmul_rn(idf, __ldg(norm_g + (lane & 0xFF) * 256 +
+                              ((lane >> 8) & 0xFF)));
+}
+
+// ---------------------------------------------------------------------------
+// The semidense phrase route.
+
+struct SdpArgs {
+  const int32_t* doc;
+  long long n_doc;
+  const float* score;  // raw
+  long long n_score;
+  const int32_t* tf;  // raw
+  long long n_tf;
+  const uint16_t* tc;  // tc lanes; null on raw columns
+  long long n_tc;
+  const float* dense_sc;     // raw: (H, n_pad)
+  const uint8_t* dense_tf8;  // tc: (H, n_pad)
+  long long n_pad;
+  const float* norm_g;  // tc: (256, 256), [tf * 256 + code]
+  const void* positions;
+  long long n_pos;
+  const int32_t* pos_starts;
+  long long n_ps;
+  const int32_t* starts;   // (B, T)
+  const int32_t* ends;     // (B, T)
+  const float* weights;    // (B, T): use_score (raw) or idf32 (tc)
+  const int32_t* slots;    // (B, T) dense rows (slot 0 unread)
+  const int32_t* slot_of;  // (B, T) query term -> slot
+  const int32_t* ks;       // (B,)
+  int B, T, L, KV, K, KP, PP, PW, M, n_iters;
+  float keep;  // f32(1 - eps3)
+  unsigned long long* keys;  // (B, K)
+  int32_t* counts;           // (B, KV)
+  int32_t* pidx;             // (B, T, KV), slot order
+  int32_t* out;              // (B, T + 2, M)
+};
+
+// The selection's shared bytes: the flush's scratch | 3 step counters |
+// X, KP + 2 steps' keys. ops/phrase_route.plan_semidense computes the same.
+__host__ __device__ constexpr long long select_bytes(int KP) {
+  return align16(sizeof(FlushSmem)) + 16 + 8LL * (KP + 2 * kStep);
+}
+
+template <bool TC>
+__global__ void __launch_bounds__(kThreads) sdp_select_kernel(SdpArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  FlushSmem& fs = *reinterpret_cast<FlushSmem*>(smem);
+  int* cnt = reinterpret_cast<int*>(smem + align16(sizeof(FlushSmem)));
+  unsigned long long* X = reinterpret_cast<unsigned long long*>(
+      smem + align16(sizeof(FlushSmem)) + 16);
+  volatile unsigned long long* const tau = &fs.tau;
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const int T = a.T, K = a.K;
+  const int32_t* st = a.starts + (long long)b * T;
+  const int32_t* en = a.ends + (long long)b * T;
+  const float* w = a.weights + (long long)b * T;
+  const int32_t* sl = a.slots + (long long)b * T;
+  const long long cs = st[0];
+  const long long n_valid = clampll((long long)en[0] - cs, 0, a.L);
+  const long long s_doc = slice_start(cs, a.n_doc, a.L);
+  const long long s_col = slice_start(cs, TC ? a.n_tc : a.n_score, a.L);
+  const float w0 = w[0];
+  if (tid < 3) cnt[tid] = 0;
+  if (tid == 0) *tau = 0ull;
+  __syncthreads();
+  const int xcap = a.KP + 2 * kStep;
+  const int nsteps = (int)((n_valid + kStep - 1) / kStep);
+  int base = 0;
+  for (int s = 0; s < nsteps; ++s) {
+    const long long lane0 = (long long)s * kStep;
+    int d[kSelLPT], code[kSelLPT];
+    float acc[kSelLPT];
+    unsigned live = 0;
+#pragma unroll
+    for (int j = 0; j < kSelLPT; ++j) {
+      const long long l = lane0 + j * kThreads + tid;
+      d[j] = 0;
+      code[j] = 0;
+      acc[j] = 0.f;
+      if (l < n_valid) {
+        live |= 1u << j;
+        d[j] = a.doc[s_doc + l];
+        if (TC) {
+          const int cl = a.tc[s_col + l];
+          code[j] = cl & 0xFF00;
+          acc[j] = tc_lane_score(a.norm_g, cl, w0);
+        } else {
+          acc[j] = __fmul_rn(a.score[s_col + l], w0);
+        }
+      }
+    }
+    // the dense others in slot order: a slot's gathers go out together
+    for (int t = 1; t < T; ++t) {
+      const long long row = (long long)sl[t] * a.n_pad;
+      const float wt = w[t];
+      int pv[kSelLPT];
+#pragma unroll
+      for (int j = 0; j < kSelLPT; ++j) {
+        pv[j] = 0;
+        if (live >> j & 1) {
+          const long long at = row + clampll(d[j], 0, a.n_pad - 1);
+          pv[j] = TC ? (int)a.dense_tf8[at] : __float_as_int(a.dense_sc[at]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kSelLPT; ++j) {
+        if (live >> j & 1) {
+          const bool hold = TC ? pv[j] > 0 : __int_as_float(pv[j]) > 0.f;
+          if (!hold) {
+            live &= ~(1u << j);
+          } else if (TC) {
+            acc[j] = __fadd_rn(acc[j],
+                               tc_lane_score(a.norm_g, code[j] | pv[j], wt));
+          } else {
+            acc[j] = __fadd_rn(acc[j], __fmul_rn(__int_as_float(pv[j]), wt));
+          }
+        }
+      }
+    }
+    unsigned long long key[kSelLPT];
+#pragma unroll
+    for (int j = 0; j < kSelLPT; ++j)
+      key[j] = live >> j & 1
+                   ? tile_key(acc[j], (int)(lane0 + j * kThreads + tid))
+                   : 0ull;
+    push_keys(key, *tau, X, base, cnt + s % 3);
+    __syncthreads();
+    // this step's counter is read by every thread before the next
+    // barrier; the one two steps on was last read before this barrier
+    const int c = base + cnt[s % 3];
+    if (tid == 0) cnt[(s + 2) % 3] = 0;
+    if (c > xcap - kStep) {
+      const unsigned long long t = keep_top(X, c, K, fs, tid);
+      if (tid == 0) *tau = t;
+      __syncthreads();
+      base = K;
+    } else {
+      base = c;
+    }
+  }
+  __syncthreads();
+  int c = base;
+  if (c > K) {
+    keep_top(X, c, K, fs, tid);
+    c = K;
+  }
+  sort_kept(X, c, K, tid);
+  for (int i = tid; i < K; i += kThreads) a.keys[(long long)b * K + i] = X[i];
+}
+
+// A warp a (query, kept lane m < KV): recovery, bag bounds, verification.
+template <bool kU16>
+__global__ void __launch_bounds__(256) sdp_verify_kernel(SdpArgs a) {
+  extern __shared__ __align__(16) int vsmem[];
+  const int W = blockDim.x >> 5;
+  const int wid = threadIdx.x >> 5, l32 = threadIdx.x & 31;
+  const long long item = (long long)blockIdx.x * W + wid;
+  if (item >= (long long)a.B * a.KV) return;  // the warp alone
+  const int T = a.T, KV = a.KV;
+  const int b = (int)(item / KV);
+  const int m = (int)(item % KV);
+  const unsigned long long key = a.keys[(long long)b * a.K + m];
+  const long long po = (long long)b * T * KV + m;
+  if (key == 0ull) {  // past the matched lanes: never read again
+    if (l32 == 0) a.counts[item] = 0;
+    if (l32 < T) a.pidx[po + (long long)l32 * KV] = 0;
+    return;
+  }
+  const int32_t* st = a.starts + (long long)b * T;
+  const int32_t* en = a.ends + (long long)b * T;
+  const int lane = tile_key_lane(key);
+  const long long cs = st[0];
+  const int doc = a.doc[slice_start(cs, a.n_doc, a.L) + lane];
+  // lane t holds slot t's posting index
+  int p = 0;
+  if (l32 == 0) {
+    p = (int)((unsigned)cs + (unsigned)lane);
+  } else if (l32 < T) {
+    p = search_fixed<0>(a.doc, a.n_doc, doc, st[l32], en[l32], a.n_iters);
+  }
+  // lane t < T: query term t's bag, from its slot's posting index
+  const int src =
+      l32 < T ? (int)clampll(a.slot_of[(long long)b * T + l32], 0, T - 1) : 0;
+  const int pq = __shfl_sync(0xffffffffu, p, src);
+  long long s = 0, e = 0;
+  if (l32 < T) {
+    s = a.pos_starts[clampll(pq, 0, a.n_ps - 1)];
+    e = a.pos_starts[clampll((long long)pq + 1, 0, a.n_ps - 1)];
+  }
+  const int count = wiser_verify::warp_count<kU16>(
+      a.positions, a.n_pos, s, e, T, a.PP, a.PW, 0,
+      vsmem + (long long)wid * wiser_verify::warp_ints(T, a.PW), l32);
+  if (l32 == 0) a.counts[item] = count;
+  if (l32 < T) a.pidx[po + (long long)l32 * KV] = p;
+}
+
+// A warp a query: the top M of the verified kept lanes, the flags and the
+// winners' tfs, packed. Each warp keeps up to M + 1 chosen lanes.
+template <bool TC>
+__global__ void __launch_bounds__(kWarps * 32) sdp_output_kernel(SdpArgs a) {
+  extern __shared__ __align__(16) int osmem[];
+  const int wid = threadIdx.x >> 5, l32 = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + wid;
+  if (b >= a.B) return;  // the warp alone
+  const int T = a.T, M = a.M, KV = a.KV, K = a.K;
+  int* sel = osmem + (long long)wid * (M + 1);
+  const unsigned long long* keys = a.keys + (long long)b * K;
+  const int32_t* counts = a.counts + (long long)b * KV;
+  int nf = 0;
+  for (int m0 = 0; m0 < KV && nf <= M; m0 += 32) {
+    const int m = m0 + l32;
+    const bool v = m < KV && keys[m] != 0ull && counts[m] > 0;
+    const unsigned bal = __ballot_sync(0xffffffffu, v);
+    const int at = nf + __popc(bal & ((1u << l32) - 1));
+    if (v && at <= M) sel[at] = m;
+    nf += __popc(bal);
+  }
+  nf = min(nf, M + 1);
+  __syncwarp();
+  const float ninf = -__int_as_float(0x7f800000);
+  const long long cs = a.starts[(long long)b * T];
+  const long long s_doc = slice_start(cs, a.n_doc, a.L);
+  const long long s_col = slice_start(cs, TC ? a.n_tc : a.n_score, a.L);
+  int32_t* out = a.out + (long long)b * (T + 2) * M;
+  bool sat = false;
+  for (int i = l32; i < M; i += 32) {
+    int doc = -1, lane = 0, m = 0;
+    if (i < nf) {
+      m = sel[i];
+      lane = tile_key_lane(keys[m]);
+      doc = a.doc[s_doc + lane];
+    }
+    out[i] = doc;
+    for (int t = 0; t < T; ++t) {
+      int tf = 0;
+      if (i < nf) {
+        if (TC) {
+          tf = t == 0 ? (a.tc[s_col + lane] & 0xFF)
+                      : (int)a.dense_tf8[(long long)a.slots[(long long)b * T +
+                                                             t] *
+                                             a.n_pad +
+                                         clampll(doc, 0, a.n_pad - 1)];
+          sat = sat || tf >= kTfSat;
+        } else {
+          const long long p = a.pidx[((long long)b * T + t) * KV + m];
+          tf = a.tf[clampll(p, 0, a.n_tf - 1)];
+        }
+      }
+      out[(long long)(t + 1) * M + i] = tf;
+    }
+  }
+  auto score = [&](int i) {
+    return i < nf ? tile_key_score(keys[sel[i]]) : ninf;
+  };
+  int f = 0;
+  if (nf > M) {
+    const float s0 = score(M - 1), s1 = score(M);
+    if (s0 > ninf && s1 == s0) f |= kFlagTrunc;
+  }
+  const float unseen =
+      keys[KV] != 0ull ? tile_key_score(keys[KV]) : ninf;
+  const int ki = (int)clampll((long long)a.ks[b] - 1, 0, M - 1);
+  const float kth = score(ki);
+  if (unseen > 0.f && unseen >= __fmul_rn(kth, a.keep)) f |= kFlagPruneMiss;
+  if (__any_sync(0xffffffffu, sat)) f |= kFlagTfSat;
+  for (int i = l32; i < M; i += 32) out[(long long)(T + 1) * M + i] = f;
+}
+
+// ---------------------------------------------------------------------------
+// The list chain.
+
+struct ListArgs {
+  const int32_t* doc;
+  long long n_doc;
+  const float* score;  // raw
+  long long n_score;
+  const int32_t* tf;  // raw
+  long long n_tf;
+  const uint16_t* tc;  // tc lanes; null on raw columns
+  long long n_tc;
+  const float* norm_g;  // tc
+  const void* positions;
+  long long n_pos;
+  const int32_t* pos_starts;
+  long long n_ps;
+  // the bi-bloom columns and the (B, C) probes (kGate)
+  const int32_t* bloom_rows;
+  long long n_rows;
+  const int32_t* bloom_bitmap;
+  long long n_bitmap;
+  const int32_t* bloom_rank;
+  const int32_t* probe_slot;
+  const uint8_t* probe_begins;
+  const int32_t* probe_mask;
+  const uint8_t* probe_active;
+  int C;
+  const int32_t* starts;   // (B, T)
+  const int32_t* ends;     // (B, T)
+  const float* weights;    // (B, T)
+  const int32_t* slot_of;  // (B, T)
+  int B, T, L, PP, M, n_iters, n_pos_iters;
+  int32_t* out;  // (B, T + 2, M)
+};
+
+// The list kernel's shared bytes: 2 counters (16 B) | pidx (T, L) int32,
+// slot order | ps, pe (T, L) int32 each, query-term order | counts (L) |
+// the active lanes (L) | saturation bytes (L) | the verified keys (the
+// power of 2 >= L). ops/phrase_route.plan_list computes the same.
+struct ListLayout {
+  long long pidx, ps, pe, cnt, act, sat, keys, total;
+};
+
+__host__ __device__ inline ListLayout list_layout(int T, int L) {
+  ListLayout o;
+  long long x = 16;
+  o.pidx = x;
+  x += align16(4LL * T * L);
+  o.ps = x;
+  x += align16(4LL * T * L);
+  o.pe = x;
+  x += align16(4LL * T * L);
+  o.cnt = x;
+  x += align16(4LL * L);
+  o.act = x;
+  x += align16(4LL * L);
+  o.sat = x;
+  x += align16(L);
+  o.keys = x;
+  int P = 1;
+  while (P < L) P <<= 1;
+  x += 8LL * P;
+  o.total = x;
+  return o;
+}
+
+template <bool TC, bool kGate, bool kU16>
+__global__ void __launch_bounds__(kThreads) list_kernel(ListArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = a.T, L = a.L, PP = a.PP;
+  const ListLayout lay = list_layout(T, L);
+  int* n_act = reinterpret_cast<int*>(smem);
+  int* n_ver = n_act + 1;
+  int32_t* s_pidx = reinterpret_cast<int32_t*>(smem + lay.pidx);
+  int32_t* s_ps = reinterpret_cast<int32_t*>(smem + lay.ps);
+  int32_t* s_pe = reinterpret_cast<int32_t*>(smem + lay.pe);
+  int32_t* s_cnt = reinterpret_cast<int32_t*>(smem + lay.cnt);
+  int32_t* s_act = reinterpret_cast<int32_t*>(smem + lay.act);
+  uint8_t* s_sat = smem + lay.sat;
+  unsigned long long* X =
+      reinterpret_cast<unsigned long long*>(smem + lay.keys);
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const int32_t* st = a.starts + (long long)b * T;
+  const int32_t* en = a.ends + (long long)b * T;
+  const float* w = a.weights + (long long)b * T;
+  const long long cs = st[0];
+  const long long n_valid = clampll((long long)en[0] - cs, 0, L);
+  const long long s_doc = slice_start(cs, a.n_doc, L);
+  const long long s_col = slice_start(cs, TC ? a.n_tc : a.n_score, L);
+  if (tid == 0) {
+    *n_act = 0;
+    *n_ver = 0;
+  }
+  __syncthreads();
+
+  // match: the candidate lanes against slots 1.., posting indices kept
+  constexpr int LPT = kListMaxL / kThreads;
+  float sc[LPT];
+  unsigned act = 0;
+#pragma unroll
+  for (int j = 0; j < LPT; ++j) {
+    const int l = j * kThreads + tid;
+    sc[j] = 0.f;
+    if (l >= n_valid) continue;
+    const int d = a.doc[s_doc + l];
+    bool sat = false;
+    float s0;
+    if (TC) {
+      const int cl = a.tc[s_col + l];
+      s0 = tc_lane_score(a.norm_g, cl, w[0]);
+      sat = (cl & 0xFF) >= kTfSat;
+    } else {
+      s0 = __fmul_rn(a.score[s_col + l], w[0]);
+    }
+    s_pidx[l] = (int)((unsigned)cs + (unsigned)l);
+    bool alive = true;
+    float acc = 0.f;
+    for (int t = 1; t < T && alive; ++t) {
+      const int lo = search_fixed<0>(a.doc, a.n_doc, d, st[t], en[t],
+                                     a.n_iters);
+      s_pidx[t * L + l] = lo;
+      alive = lo < en[t] && a.doc[clampll(lo, 0, a.n_doc - 1)] == d;
+      if (!alive) break;
+      float p;
+      if (TC) {
+        const int h = a.tc[clampll(lo, 0, a.n_tc - 1)];
+        p = tc_lane_score(a.norm_g, h, w[t]);
+        sat = sat || (h & 0xFF) >= kTfSat;
+      } else {
+        p = __fmul_rn(a.score[clampll(lo, 0, a.n_score - 1)], w[t]);
+      }
+      acc = t == 1 ? p : __fadd_rn(acc, p);
+    }
+    if (!alive) continue;
+    if constexpr (kGate) {
+      // the bi-bloom gate: every active probe of the query must pass
+      const int Pw = (int)(a.n_bitmap / 2);
+      for (int c = 0; c < a.C && alive; ++c) {
+        const long long pc = (long long)b * a.C + c;
+        if (!a.probe_active[pc]) continue;
+        const int slot = (int)clampll(a.probe_slot[pc], 0, T - 1);
+        const long long sp = (long long)s_pidx[slot * L + l] +
+                             (a.probe_begins[pc] ? (long long)Pw * 32 : 0);
+        const long long wi = clampll(sp >> 5, 0, a.n_bitmap - 1);
+        const unsigned word = (unsigned)a.bloom_bitmap[wi];
+        const int bit = (int)(sp & 31);
+        const bool present = (word >> bit) & 1u;
+        const unsigned below = word & ((1u << bit) - 1u);
+        const long long rank = (long long)a.bloom_rank[wi] + __popc(below);
+        const unsigned row = (unsigned)a.bloom_rows[clampll(rank, 0,
+                                                            a.n_rows - 1)];
+        const unsigned mask = (unsigned)a.probe_mask[pc];
+        alive = present && (row & mask) == mask;
+      }
+      if (!alive) continue;
+    }
+    act |= 1u << j;
+    sc[j] = __fadd_rn(s0, acc);
+    s_sat[l] = sat;
+    s_act[atomicAdd(n_act, 1)] = l;
+  }
+  __syncthreads();
+
+  // each active lane's bags in query-term order, its count zeroed
+  const int na = *n_act;
+  for (int i = tid; i < na * T; i += kThreads) {
+    const int l = s_act[i / T], t = i % T;
+    const int slot = (int)clampll(a.slot_of[(long long)b * T + t], 0, T - 1);
+    const int pq = s_pidx[slot * L + l];
+    s_ps[t * L + l] = a.pos_starts[clampll(pq, 0, a.n_ps - 1)];
+    s_pe[t * L + l] = a.pos_starts[clampll((long long)pq + 1, 0, a.n_ps - 1)];
+    if (t == 0) s_cnt[l] = 0;
+  }
+  __syncthreads();
+
+  // the verification, a thread a (active lane, base): the base is valid
+  // while it lies in term 0's bag; term t must hold base + t, found by
+  // the fixed-count search over its bag
+  for (int i = tid; i < na * PP; i += kThreads) {
+    const int l = s_act[i / PP], p = i % PP;
+    const int bi = (int)((unsigned)s_ps[l] + (unsigned)p);
+    if (!(bi < s_pe[l])) continue;
+    const long long bc = clampll(bi, 0, a.n_pos - 1);
+    const int base = kU16 ? (int)static_cast<const uint16_t*>(a.positions)[bc]
+                          : static_cast<const int32_t*>(a.positions)[bc];
+    bool ok = true;
+    for (int t = 1; t < T && ok; ++t) {
+      const int tgt = base + t;
+      const int pe = s_pe[t * L + l];
+      const int lo = search_fixed<kU16 ? 1 : 2>(a.positions, a.n_pos, tgt,
+                                                s_ps[t * L + l], pe,
+                                                a.n_pos_iters);
+      const long long lc = clampll(lo, 0, a.n_pos - 1);
+      const int v = kU16 ? (int)static_cast<const uint16_t*>(a.positions)[lc]
+                         : static_cast<const int32_t*>(a.positions)[lc];
+      ok = lo < pe && v == tgt;
+    }
+    if (ok) atomicAdd(s_cnt + l, 1);
+  }
+  __syncthreads();
+
+  // the verified lanes' keys, sorted: the top M by (score desc, lane asc)
+#pragma unroll
+  for (int j = 0; j < LPT; ++j) {
+    const int l = j * kThreads + tid;
+    if ((act >> j & 1) && s_cnt[l] > 0)
+      X[atomicAdd(n_ver, 1)] = tile_key(sc[j], l);
+  }
+  __syncthreads();
+  const int c = *n_ver;
+  sort_keys<kThreads>(X, c, tid);
+  const int M = a.M;
+  int32_t* out = a.out + (long long)b * (T + 2) * M;
+  bool sat = false;
+  for (int m = tid; m < M; m += kThreads) {
+    const bool kept = m < c;
+    const int lane = kept ? tile_key_lane(X[m]) : 0;
+    out[m] = kept ? a.doc[s_doc + lane] : -1;
+    for (int t = 0; t < T; ++t) {
+      int tf = 0;
+      if (kept) {
+        const long long p = s_pidx[t * L + lane];
+        tf = TC ? (a.tc[clampll(p, 0, a.n_tc - 1)] & 0xFF)
+                : a.tf[clampll(p, 0, a.n_tf - 1)];
+      }
+      out[(long long)(t + 1) * M + m] = tf;
+    }
+    if (TC && kept) sat = sat || s_sat[lane];
+  }
+  const int any_sat = __syncthreads_or(sat);
+  int f = 0;
+  if (c > M && tile_key_score(X[M]) == tile_key_score(X[M - 1]))
+    f |= kFlagTrunc;
+  if (any_sat) f |= kFlagTfSat;
+  for (int m = tid; m < M; m += kThreads) out[(long long)(T + 1) * M + m] = f;
+}
+
+template <typename Kern, typename Args>
+cudaError_t launch(Kern kern, unsigned grid, unsigned threads, long long smem,
+                   const Args& a, cudaStream_t s) {
+  if (smem > (48 << 10)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<grid, threads, (size_t)smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool TC, bool kGate>
+cudaError_t launch_list(const ListArgs& a, bool u16, long long smem,
+                        cudaStream_t s) {
+  return u16 ? launch(list_kernel<TC, kGate, true>, a.B, kThreads, smem, a, s)
+             : launch(list_kernel<TC, kGate, false>, a.B, kThreads, smem, a,
+                      s);
+}
+
+}  // namespace wiser_phrase_route
+
+extern "C" {
+
+// ops/phrase_route._SdpParams: every field 8 bytes (keep: the f32 bits).
+struct WiserSdpParams {
+  long long doc, n_doc, score, n_score, tf, n_tf, tc, n_tc;
+  long long dense_sc, dense_tf8, n_pad, norm_g;
+  long long positions, n_pos, u16, pos_starts, n_ps;
+  long long starts, ends, weights, slots, slot_of, ks;
+  long long B, T, L, KV, K, KP, PP, PW, M, n_iters, keep_bits;
+  long long keys, counts, pidx, out;
+  long long W, smem_select, smem_verify, smem_output;
+};
+
+// The semidense phrase route on `stream` (no synchronize): three
+// launches. Returns the first launch error (0 on success); a plan that
+// disagrees with this file's layout is refused as cudaErrorInvalidValue.
+int wiser_semidense_phrase(const WiserSdpParams* p, void* stream) {
+  using namespace wiser_phrase_route;
+  SdpArgs a;
+  a.doc = (const int32_t*)p->doc;
+  a.n_doc = p->n_doc;
+  a.score = (const float*)p->score;
+  a.n_score = p->n_score;
+  a.tf = (const int32_t*)p->tf;
+  a.n_tf = p->n_tf;
+  a.tc = (const uint16_t*)p->tc;
+  a.n_tc = p->n_tc;
+  a.dense_sc = (const float*)p->dense_sc;
+  a.dense_tf8 = (const uint8_t*)p->dense_tf8;
+  a.n_pad = p->n_pad;
+  a.norm_g = (const float*)p->norm_g;
+  a.positions = (const void*)p->positions;
+  a.n_pos = p->n_pos;
+  a.pos_starts = (const int32_t*)p->pos_starts;
+  a.n_ps = p->n_ps;
+  a.starts = (const int32_t*)p->starts;
+  a.ends = (const int32_t*)p->ends;
+  a.weights = (const float*)p->weights;
+  a.slots = (const int32_t*)p->slots;
+  a.slot_of = (const int32_t*)p->slot_of;
+  a.ks = (const int32_t*)p->ks;
+  a.B = (int)p->B;
+  a.T = (int)p->T;
+  a.L = (int)p->L;
+  a.KV = (int)p->KV;
+  a.K = (int)p->K;
+  a.KP = (int)p->KP;
+  a.PP = (int)p->PP;
+  a.PW = (int)p->PW;
+  a.M = (int)p->M;
+  a.n_iters = (int)p->n_iters;
+  const unsigned kb = (unsigned)p->keep_bits;
+  std::memcpy(&a.keep, &kb, sizeof(float));
+  a.keys = (unsigned long long*)p->keys;
+  a.counts = (int32_t*)p->counts;
+  a.pidx = (int32_t*)p->pidx;
+  a.out = (int32_t*)p->out;
+  const bool tc = a.tc != nullptr;
+  const int W = (int)p->W;
+  int KP = 1;
+  while (KP < a.K) KP <<= 1;
+  if (a.T < 2 || a.T > kMaxT || a.K != a.KV + 1 || a.KP != KP || a.M < 1 ||
+      a.M > a.KV || a.PP < 1 || a.PW < 1 || W < 1 || W > 8 ||
+      (tc ? !a.dense_tf8 || !a.norm_g : !a.dense_sc || !a.score || !a.tf) ||
+      p->smem_select != select_bytes(KP) ||
+      p->smem_verify != 4LL * W * wiser_verify::warp_ints(a.T, a.PW) ||
+      p->smem_output != 4LL * kWarps * (a.M + 1))
+    return (int)cudaErrorInvalidValue;
+  if (a.B == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err =
+      tc ? launch(sdp_select_kernel<true>, a.B, kThreads, p->smem_select, a, s)
+         : launch(sdp_select_kernel<false>, a.B, kThreads, p->smem_select, a,
+                  s);
+  if (err != cudaSuccess) return (int)err;
+  const long long items = (long long)a.B * a.KV;
+  const unsigned vgrid = (unsigned)((items + W - 1) / W);
+  err = p->u16 ? launch(sdp_verify_kernel<true>, vgrid, W * 32,
+                        p->smem_verify, a, s)
+               : launch(sdp_verify_kernel<false>, vgrid, W * 32,
+                        p->smem_verify, a, s);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned ogrid = (unsigned)((a.B + kWarps - 1) / kWarps);
+  err = tc ? launch(sdp_output_kernel<true>, ogrid, kWarps * 32,
+                    p->smem_output, a, s)
+           : launch(sdp_output_kernel<false>, ogrid, kWarps * 32,
+                    p->smem_output, a, s);
+  return (int)err;
+}
+
+// ops/phrase_route._ListParams: every field 8 bytes.
+struct WiserListParams {
+  long long doc, n_doc, score, n_score, tf, n_tf, tc, n_tc, norm_g;
+  long long positions, n_pos, u16, pos_starts, n_ps;
+  long long bloom_rows, n_rows, bloom_bitmap, n_bitmap, bloom_rank;
+  long long probe_slot, probe_begins, probe_mask, probe_active, C, gate;
+  long long starts, ends, weights, slot_of;
+  long long B, T, L, PP, M, n_iters, n_pos_iters, out, smem;
+};
+
+// The list chain on `stream` (no synchronize): one launch. gate 0 leaves
+// the bloom gate out (the bloomless chain). Returns the launch error (0 on
+// success); a plan that disagrees with this file's layout is refused as
+// cudaErrorInvalidValue.
+int wiser_list_phrase(const WiserListParams* p, void* stream) {
+  using namespace wiser_phrase_route;
+  ListArgs a;
+  a.doc = (const int32_t*)p->doc;
+  a.n_doc = p->n_doc;
+  a.score = (const float*)p->score;
+  a.n_score = p->n_score;
+  a.tf = (const int32_t*)p->tf;
+  a.n_tf = p->n_tf;
+  a.tc = (const uint16_t*)p->tc;
+  a.n_tc = p->n_tc;
+  a.norm_g = (const float*)p->norm_g;
+  a.positions = (const void*)p->positions;
+  a.n_pos = p->n_pos;
+  a.pos_starts = (const int32_t*)p->pos_starts;
+  a.n_ps = p->n_ps;
+  a.bloom_rows = (const int32_t*)p->bloom_rows;
+  a.n_rows = p->n_rows;
+  a.bloom_bitmap = (const int32_t*)p->bloom_bitmap;
+  a.n_bitmap = p->n_bitmap;
+  a.bloom_rank = (const int32_t*)p->bloom_rank;
+  a.probe_slot = (const int32_t*)p->probe_slot;
+  a.probe_begins = (const uint8_t*)p->probe_begins;
+  a.probe_mask = (const int32_t*)p->probe_mask;
+  a.probe_active = (const uint8_t*)p->probe_active;
+  a.C = (int)p->C;
+  a.starts = (const int32_t*)p->starts;
+  a.ends = (const int32_t*)p->ends;
+  a.weights = (const float*)p->weights;
+  a.slot_of = (const int32_t*)p->slot_of;
+  a.B = (int)p->B;
+  a.T = (int)p->T;
+  a.L = (int)p->L;
+  a.PP = (int)p->PP;
+  a.M = (int)p->M;
+  a.n_iters = (int)p->n_iters;
+  a.n_pos_iters = (int)p->n_pos_iters;
+  a.out = (int32_t*)p->out;
+  const bool tc = a.tc != nullptr, gate = p->gate != 0;
+  if (a.T < 2 || a.T > kMaxT || a.L < 1 || a.L > kListMaxL || a.M < 1 ||
+      a.M > a.L || a.PP < 1 || !a.norm_g == tc ||
+      (!tc && (!a.score || !a.tf)) ||
+      (gate && (a.C < 0 || a.n_rows < 1 || a.n_bitmap < 2)) ||
+      p->smem != list_layout(a.T, a.L).total)
+    return (int)cudaErrorInvalidValue;
+  if (a.B == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (tc) {
+    err = gate ? launch_list<true, true>(a, p->u16, p->smem, s)
+               : launch_list<true, false>(a, p->u16, p->smem, s);
+  } else {
+    err = gate ? launch_list<false, true>(a, p->u16, p->smem, s)
+               : launch_list<false, false>(a, p->u16, p->smem, s);
+  }
+  return (int)err;
+}
+
+const char* wiser_phrase_route_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

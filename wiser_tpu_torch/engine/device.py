@@ -847,8 +847,6 @@ class TorchEngine:
     _COLS = {
         "list": (("d_postings_score", "d_postings_tf"),
                  ("d_postings_tc", "d_avg32")),
-        "match": (("d_postings_score",), ("d_postings_tc", "d_avg32")),
-        "select": (("d_postings_tf",), ("d_postings_tc",)),
         "dense": (("d_dense_sc", "d_dense_tf"),
                   ("d_dense_tf8", "d_len_code", "d_avg32")),
         "semidense": (("d_dense_sc", "d_dense_tf"), ("d_dense_tf8",)),
@@ -1335,22 +1333,15 @@ class TorchEngine:
                     d_ks, *blooms, *probes)
             else:
                 route = "phrase_list"
-                # tc: a sixth output, the kept lanes' saturation
-                match, bloom_pass, cdocs, pidx, score, *sat_lane = \
-                    self._make("make_match_kernel", T, L, n_bs)(
-                        self.d_postings_doc, *self._cols("match"), d_starts,
-                        d_ends, d_w, *blooms, *probes)
-                active = match & bloom_pass
-                pidx_q = K._slot_gather_q(pidx, d_slot_of)  # query order
-                n_pos_iters = K.n_iters_for(
-                    int(self.packed.max_tf.max(initial=1)))
-                n_matches = K.make_phrase_verify_kernel(
-                    T, L, PP, n_pos_iters)(self.d_positions,
-                                           self.d_pos_starts, pidx_q, active)
-                final = active & (n_matches > 0)
-                out = self._make("make_select_topk_kernel", T, L, M)(
-                    *self._cols("select"), cdocs, pidx, score, final,
-                    *sat_lane)
+                col, extra = cols  # raw: (score, tf); tc: (tc, avg32)
+                out = K.list_phrase(
+                    self.d_postings_doc, col, self.d_positions,
+                    self.d_pos_starts, d_starts, d_ends, d_w, d_slot_of,
+                    *blooms, *probes, T=T, L=L, PP=PP, M=M, n_bs_iters=n_bs,
+                    n_pos_iters=K.n_iters_for(
+                        int(self.packed.max_tf.max(initial=1))),
+                    postings_tf=None if self.tc else extra,
+                    avg32=extra if self.tc else None)
         dt = time.perf_counter() - t0
         self._bump(**{"dispatch_s": dt, f"{route}_s": dt,
                       f"route_{route}": len(group)})

@@ -27,9 +27,12 @@ query's top K in shared memory, a one-CTA-a-query pick, the phrase's
 scan at K = KV + 1 and its band pass), or raise; CPU tensors take the
 plain versions (the *_torch functions) after the same argument
 checks. So do the semidense step (_semidense_step: ops/semidense.py,
-csrc/semidense.cu, the bs step's tile path with a dense phase) and the
+csrc/semidense.cu, the bs step's tile path with a dense phase), the
 position verification every resident phrase route ends in
-(_verify_pos_windows: ops/phrase.py, csrc/phrase.cu).
+(_verify_pos_windows: ops/phrase.py, csrc/phrase.cu), and the semidense
+phrase route and the list chain from their candidate slices to their
+packed outputs (semidense_phrase_body, list_phrase: ops/phrase_route.py,
+csrc/phrase_route.cu).
 
 Phrases (raw columns): the list chain (make_match_kernel with the
 bi-bloom gate, make_phrase_verify_kernel, make_select_topk_kernel); the
@@ -93,6 +96,7 @@ import torch
 
 from wiser_tpu_torch.ops import dense as _dense_op
 from wiser_tpu_torch.ops import phrase as _phrase_op
+from wiser_tpu_torch.ops import phrase_route as _route_op
 from wiser_tpu_torch.ops import search as _search_op
 from wiser_tpu_torch.ops import semidense as _semi_op
 
@@ -1194,14 +1198,15 @@ def _gather_slots(pidx, lanes):
 
 
 def make_select_topk_kernel(T: int, L: int, M: int):
-    """Phase 3 of the list chain: exact top-M over the verified lanes and
+    """Phase 3 of the list chain: exact top-M over the verified lanes (a
+    stable sort: lax.top_k's order, equal scores by ascending lane) and
     the per-slot tfs at the winners.
 
     fn(postings_tf, cdocs, pidx, score, match) -> packed (B, T+2, M)."""
 
     def kernel(postings_tf, cdocs, pidx, score, match):
         score = torch.where(match, score, NEG_INF)
-        top_score, top_l = two_level_top_m(score, M)
+        top_score, top_l = _top_stable(score, M)
         top_docs = torch.where(top_score > NEG_INF,
                                torch.gather(cdocs, 1, top_l), -1)
         top_tfs = torch.where(top_docs[:, None, :] >= 0,
@@ -1223,7 +1228,7 @@ def make_select_topk_kernel_tc(T: int, L: int, M: int):
 
     def kernel(postings_tc, cdocs, pidx, score, match, sat_lane):
         score = torch.where(match, score, NEG_INF)
-        top_score, top_l = two_level_top_m(score, M)
+        top_score, top_l = _top_stable(score, M)
         top_docs = torch.where(top_score > NEG_INF,
                                torch.gather(cdocs, 1, top_l), -1)
         return _pack_tc_lanes(postings_tc, _gather_slots(pidx, top_l),
@@ -1245,6 +1250,65 @@ def _pack_tc_lanes(postings_tc, top_pidx, top_sat, top_docs, flags):
     sat = (top_sat & kept).any(dim=1)
     return pack_with_flags(top_docs, top_tfs,
                            flags | sat.to(torch.int32) * FLAG_TF_SAT)
+
+
+def list_phrase(postings_doc, col, positions, pos_starts, starts, ends,
+                weights, slot_of, bloom_rows, bloom_bitmap, bloom_rank,
+                probe_slot, probe_begins, probe_mask, probe_active, *, T: int,
+                L: int, PP: int, M: int, n_bs_iters: int, n_pos_iters: int,
+                postings_tf=None, avg32=None):
+    """The list-chain phrase (L <= PRUNED_PHRASE_KV) as one call: match
+    with the bi-bloom gate, the adjusted-position verify of the active
+    lanes in query-term order (slot_of), the exact top-M with tfs. raw:
+    col the f32 scores and postings_tf; tc: col the tc lanes and avg32
+    (tfs from the tc lanes, FLAG_TF_SAT from the kept lanes'
+    saturation). Returns the packed (B, T+2, M) int32 output.
+
+    On CUDA tensors the hand-written kernel (ops/phrase_route.
+    list_phrase) runs it, or raises; on CPU tensors the plain version,
+    list_phrase_torch. Both check their arguments first (ValueError)."""
+    kw = dict(T=T, L=L, PP=PP, M=M, n_bs_iters=n_bs_iters,
+              n_pos_iters=n_pos_iters, postings_tf=postings_tf, avg32=avg32)
+    args = (postings_doc, col, positions, pos_starts, starts, ends, weights,
+            slot_of, bloom_rows, bloom_bitmap, bloom_rank, probe_slot,
+            probe_begins, probe_mask, probe_active)
+    if isinstance(postings_doc, torch.Tensor) and postings_doc.is_cuda:
+        return _route_op.list_phrase(*args, **kw)
+    _route_op.check_list_inputs(*args, **kw)
+    return list_phrase_torch(*args, **kw)
+
+
+def list_phrase_torch(postings_doc, col, positions, pos_starts, starts, ends,
+                      weights, slot_of, bloom_rows, bloom_bitmap, bloom_rank,
+                      probe_slot, probe_begins, probe_mask, probe_active, *,
+                      T: int, L: int, PP: int, M: int, n_bs_iters: int,
+                      n_pos_iters: int, postings_tf=None, avg32=None):
+    """list_phrase's plain torch version: the reference's three steps
+    (make_match_kernel{,_tc}, make_phrase_verify_kernel,
+    make_select_topk_kernel{,_tc}) with the torch steps between them, on
+    any device (the tests and the chip smoke hold the kernel against
+    it)."""
+    blooms = (bloom_rows, bloom_bitmap, bloom_rank, probe_slot, probe_begins,
+              probe_mask, probe_active)
+    if avg32 is None:
+        match, bloom_pass, cdocs, pidx, score = make_match_kernel(
+            T, L, n_bs_iters)(postings_doc, col, starts, ends, weights,
+                              *blooms)
+        sat_lane = ()
+    else:
+        match, bloom_pass, cdocs, pidx, score, sat = make_match_kernel_tc(
+            T, L, n_bs_iters)(postings_doc, col, avg32, starts, ends,
+                              weights, *blooms)
+        sat_lane = (sat,)
+    active = match & bloom_pass
+    n_matches = make_phrase_verify_kernel(T, L, PP, n_pos_iters)(
+        positions, pos_starts, _slot_gather_q(pidx, slot_of), active)
+    final = active & (n_matches > 0)
+    if avg32 is None:
+        return make_select_topk_kernel(T, L, M)(postings_tf, cdocs, pidx,
+                                                score, final)
+    return make_select_topk_kernel_tc(T, L, M)(col, cdocs, pidx, score,
+                                               final, *sat_lane)
 
 
 def phrase_body(postings_doc, postings_score, postings_tf, positions,
@@ -1364,7 +1428,8 @@ def _verify_and_select(positions, pos_starts, sel_score, sel_docs,
                        eps3):
     """Shared tail of the compact and semidense phrase routes: window
     verify of the KV compacted lanes in query-term order (anchored on
-    query term 0), top-M of the verified and the flag word (FLAG_TRUNC
+    query term 0), the stable top-M of the verified (lax.top_k's order, so
+    the first M verified in selection order) and the flag word (FLAG_TRUNC
     over the KV lanes; FLAG_PRUNE_MISS where the (KV+1)-th surviving
     score `unseen` could reach the k-th kept). Returns (top_docs (B, M),
     top_l (B, M) indices into the KV lanes, flags (B,), top_score (B, M))."""
@@ -1378,7 +1443,7 @@ def _verify_and_select(positions, pos_starts, sel_score, sel_docs,
         T=T, NL=KV, PP=PP, PW=PW)
     final_score = torch.where((sel_score > NEG_INF) & (n_matches > 0),
                               sel_score, NEG_INF)
-    top_score, top_l = torch.topk(final_score, M, dim=1)
+    top_score, top_l = _top_stable(final_score, M)
     top_docs = torch.where(top_score > NEG_INF,
                            torch.gather(sel_docs, 1, top_l), -1)
     flags = (boundary_truncated(final_score, top_score, M).to(torch.int32)
@@ -1460,7 +1525,7 @@ def make_semidense_phrase_kernel(T: int, L: int, KV: int, PP: int, PW: int,
     element-gather stage: posting-index recovery by binary search over KV
     lanes (a matched doc is in every term's run: the dense rows are built
     from them) and the window verify. No bloom gate: the (KV+1)-th AND
-    score bounds every unverified lane.
+    score bounds every unverified lane (semidense_phrase_body).
 
     raw: fn(postings_doc, postings_score, postings_tf, dense_sc, positions,
             pos_starts, starts, ends, use_score, slots (B, T) dense rows of
@@ -1470,65 +1535,97 @@ def make_semidense_phrase_kernel(T: int, L: int, KV: int, PP: int, PW: int,
             positions, pos_starts, starts, ends, idf32, slots, slot_of,
             ks); each dense lane recomposed with the candidate lane's len
             code, tfs and saturation from the kept lanes."""
-    tc_mode = mode == "tc"
-
-    def body(postings_doc, col, postings_tf, avg32, dense, positions,
-             pos_starts, starts, ends, weights, slots, slot_of, ks):
-        B = starts.shape[0]
-        cdocs, cval, cvalid, cs = _candidates(postings_doc, col, starts,
-                                              ends, L)
-        match = cvalid
-        score = (tc_score(cval, weights[:, 0:1], avg32) if tc_mode
-                 else cval * weights[:, 0:1])
-        lanes = [cval]  # tc lanes per slot (tc mode)
-        for t in range(1, T):
-            p = _dense_gather(dense, slots[:, t : t + 1], cdocs)
-            if tc_mode:
-                p = _compose_tc(p, cval & 0xFF00)
-                lanes.append(p)
-                score = score + tc_score(p, weights[:, t : t + 1], avg32)
-            else:
-                score = score + p * weights[:, t : t + 1]
-            match = match & (p > 0)
-        mscore = torch.where(match, score, NEG_INF)
-        top_cs, top_cl = _top_stable(mscore, KV + 1)
-        sel_cl = top_cl[:, :KV]
-        sel_docs = torch.gather(cdocs, 1, sel_cl)
-        # invalid lanes recover in-range garbage, masked by their score
-        targets = sel_docs[:, None, :].expand(B, T - 1, KV)
-        lo = _binary_search(postings_doc, targets, starts[:, 1:, None],
-                            ends[:, 1:, None], n_rec_iters)
-        sel_pidx = torch.cat([(cs[:, None] + sel_cl.to(torch.int32))[:, None, :],
-                              lo], dim=1)
-        top_docs, top_l, flags, _ = _verify_and_select(
-            positions, pos_starts, top_cs[:, :KV], sel_docs, sel_pidx,
-            slot_of, ks, top_cs[:, KV], T=T, KV=KV, PP=PP, PW=PW, M=M,
-            eps3=eps3)
-        kept = top_docs >= 0
-        if tc_mode:
-            top_cl_l = torch.gather(sel_cl, 1, top_l)
-            top_tc = torch.stack([torch.gather(x, 1, top_cl_l) for x in lanes],
-                                 dim=1)
-            flags = flags | (tc_saturated(top_tc, top_docs).to(torch.int32)
-                             * FLAG_TF_SAT)
-            top_tfs = torch.where(kept[:, None, :], top_tc & 0xFF, 0)
-        else:
-            top_tfs = torch.where(
-                kept[:, None, :],
-                _gather1d(postings_tf, _gather_slots(sel_pidx, top_l)), 0)
-        return pack_with_flags(top_docs, top_tfs, flags)
-
-    if tc_mode:
+    kw = dict(T=T, L=L, KV=KV, PP=PP, PW=PW, M=M, n_rec_iters=n_rec_iters,
+              eps3=eps3)
+    if mode == "tc":
         def kernel(postings_doc, postings_tc, avg32, dense_tf, *rest):
-            return body(postings_doc, postings_tc, None, avg32, dense_tf,
-                        *rest)
+            return semidense_phrase_body(postings_doc, postings_tc, dense_tf,
+                                         *rest, avg32=avg32, **kw)
     else:
         def kernel(postings_doc, postings_score, postings_tf, dense_sc,
                    *rest):
-            return body(postings_doc, postings_score, postings_tf, None,
-                        dense_sc, *rest)
+            return semidense_phrase_body(postings_doc, postings_score,
+                                         dense_sc, *rest,
+                                         postings_tf=postings_tf, **kw)
 
     return kernel
+
+
+def semidense_phrase_body(postings_doc, col, dense, positions, pos_starts,
+                          starts, ends, weights, slots, slot_of, ks, *,
+                          T: int, L: int, KV: int, PP: int, PW: int, M: int,
+                          n_rec_iters: int, eps3: float, postings_tf=None,
+                          avg32=None):
+    """The semidense phrase route's packed (B, T+2, M) int32 output (raw:
+    col the f32 scores, dense the f32 score rows, postings_tf; tc: col the
+    tc lanes, dense the uint8 tf plane, avg32).
+
+    On CUDA tensors the hand-written kernels (ops/phrase_route.
+    semidense_phrase) run it, or raise; on CPU tensors the plain version,
+    semidense_phrase_torch. Both check their arguments first
+    (ValueError)."""
+    kw = dict(T=T, L=L, KV=KV, PP=PP, PW=PW, M=M, n_rec_iters=n_rec_iters,
+              eps3=eps3, postings_tf=postings_tf, avg32=avg32)
+    args = (postings_doc, col, dense, positions, pos_starts, starts, ends,
+            weights, slots, slot_of, ks)
+    if isinstance(postings_doc, torch.Tensor) and postings_doc.is_cuda:
+        return _route_op.semidense_phrase(*args, **kw)
+    _route_op.check_semidense_inputs(*args, **kw)
+    return semidense_phrase_torch(*args, **kw)
+
+
+def semidense_phrase_torch(postings_doc, col, dense, positions, pos_starts,
+                           starts, ends, weights, slots, slot_of, ks, *,
+                           T: int, L: int, KV: int, PP: int, PW: int, M: int,
+                           n_rec_iters: int, eps3: float, postings_tf=None,
+                           avg32=None):
+    """semidense_phrase_body's plain torch version: the reference's
+    operations one by one, (B, L) planes, the stable sort and the
+    (B, T-1, KV) search planes included (on any device; the tests and the
+    chip smoke hold the kernels against it)."""
+    tc_mode = avg32 is not None
+    B = starts.shape[0]
+    cdocs, cval, cvalid, cs = _candidates(postings_doc, col, starts, ends, L)
+    match = cvalid
+    score = (tc_score(cval, weights[:, 0:1], avg32) if tc_mode
+             else cval * weights[:, 0:1])
+    lanes = [cval]  # tc lanes per slot (tc mode)
+    for t in range(1, T):
+        p = _dense_gather(dense, slots[:, t : t + 1], cdocs)
+        if tc_mode:
+            p = _compose_tc(p, cval & 0xFF00)
+            lanes.append(p)
+            score = score + tc_score(p, weights[:, t : t + 1], avg32)
+        else:
+            score = score + p * weights[:, t : t + 1]
+        match = match & (p > 0)
+    mscore = torch.where(match, score, NEG_INF)
+    top_cs, top_cl = _top_stable(mscore, KV + 1)
+    sel_cl = top_cl[:, :KV]
+    sel_docs = torch.gather(cdocs, 1, sel_cl)
+    # invalid lanes recover in-range garbage, masked by their score
+    targets = sel_docs[:, None, :].expand(B, T - 1, KV)
+    lo = _binary_search(postings_doc, targets, starts[:, 1:, None],
+                        ends[:, 1:, None], n_rec_iters)
+    sel_pidx = torch.cat([(cs[:, None] + sel_cl.to(torch.int32))[:, None, :],
+                          lo], dim=1)
+    top_docs, top_l, flags, _ = _verify_and_select(
+        positions, pos_starts, top_cs[:, :KV], sel_docs, sel_pidx,
+        slot_of, ks, top_cs[:, KV], T=T, KV=KV, PP=PP, PW=PW, M=M,
+        eps3=eps3)
+    kept = top_docs >= 0
+    if tc_mode:
+        top_cl_l = torch.gather(sel_cl, 1, top_l)
+        top_tc = torch.stack([torch.gather(x, 1, top_cl_l) for x in lanes],
+                             dim=1)
+        flags = flags | (tc_saturated(top_tc, top_docs).to(torch.int32)
+                         * FLAG_TF_SAT)
+        top_tfs = torch.where(kept[:, None, :], top_tc & 0xFF, 0)
+    else:
+        top_tfs = torch.where(
+            kept[:, None, :],
+            _gather1d(postings_tf, _gather_slots(sel_pidx, top_l)), 0)
+    return pack_with_flags(top_docs, top_tfs, flags)
 
 
 def _pruned_phrase_body(lanes, blockmax, blockmax2, argpos, postings_doc,

@@ -1,0 +1,371 @@
+"""Two resident phrase routes as hand-written CUDA kernels
+(csrc/phrase_route.cu): the semidense phrase route and the list chain,
+each from the candidate slice to the packed (B, T+2, M) output.
+
+`semidense_phrase` computes engine/kernels.semidense_phrase_torch (the
+body of make_semidense_phrase_kernel) in three launches: the selection
+of the KV + 1 best AND keys a query (one CTA a query, the keys in
+shared memory: no (B, L) plane), the recovery and window verification
+of the KV kept lanes (a warp a lane), the top M with its flags and
+tfs. `list_phrase` computes engine/kernels.list_phrase_torch (the list
+chain: make_match_kernel with the bi-bloom gate, make_phrase_verify_kernel,
+make_select_topk_kernel, or their tc forms) in one launch, one CTA a
+query holding its L <= 1,024 lanes in shared memory; `gate=False` leaves
+the bloom gate out (a compile-time switch of the kernel). tc columns
+score from dense.cu's device table (ops/dense.tc_table, launched first
+and counted as dense_tc_table), so no lane divides.
+
+engine/kernels dispatches both for CUDA tensors and runs the plain
+versions for CPU tensors after the same argument checks
+(`check_semidense_inputs`, `check_list_inputs`), which the wrappers run
+before every launch, so a bad argument raises ValueError the same way on
+either device. The packed output equals the plain version's bit for
+bit: the keys order lanes by (score desc, lane asc), lax.top_k's order,
+which the plain versions keep with stable sorts.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from wiser_tpu_torch.ops import dense as _D
+from wiser_tpu_torch.ops import phrase as _P
+
+# kernel launches by wrapper name, one a call (raw and tc columns)
+launch_counts = {"semidense_phrase": 0, "semidense_phrase_tc": 0,
+                 "list_phrase": 0, "list_phrase_tc": 0}
+MAX_T = 8  # terms at most (phrase_route.cu kMaxT)
+LIST_MAX_L = 1024  # the list chain's lanes at most (kListMaxL)
+STEP = 1024  # the selection's lanes a step (kStep)
+FLUSH_BYTES = 1056  # select.cuh FlushSmem, 16-aligned
+OUT_WARPS = 8  # the semidense phrase output kernel's queries a CTA
+MAX_SMEM = 232_448  # the shared bytes an H100 block can opt into
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+class SdpPlan(NamedTuple):
+    """How semidense_phrase runs one (B, T, KV, PW, M) group."""
+    K: int  # keys kept a query: KV + 1
+    KP: int  # the power of 2 >= K
+    smem_select: int  # the selection's shared bytes a CTA
+    W: int  # the verification's warps a CTA, one a (query, kept lane)
+    smem_verify: int
+    smem_output: int  # the output kernel's, OUT_WARPS queries a CTA
+    scratch_bytes: int  # the keys, counts and posting indices
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_semidense(B: int, T: int, KV: int, PW: int, M: int) -> SdpPlan:
+    K = KV + 1
+    KP = _pow2(K)
+    per = _P.warp_bytes(T, PW)
+    W = max(1, min(_P.MAX_WARPS, _P.VERIFY_SMEM // per))
+    return SdpPlan(K, KP, FLUSH_BYTES + 16 + 8 * (KP + 2 * STEP), W, W * per,
+                   4 * OUT_WARPS * (M + 1), B * (8 * K + 4 * KV
+                                                    + 4 * T * KV))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_list(T: int, L: int) -> int:
+    """The list kernel's shared bytes a CTA (phrase_route.cu list_layout):
+    2 counters, pidx, ps and pe (T, L) int32 each, the counts and the
+    active lanes (L) int32, the saturation bytes and the keys (the power
+    of 2 >= L)."""
+    return (16 + 3 * _align16(4 * T * L) + 2 * _align16(4 * L)
+            + _align16(L) + 8 * _pow2(L))
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+_T = torch.Tensor
+
+
+def _need(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _vec(name, t, dtypes, dev, n_min: int = 1) -> None:
+    _need(isinstance(t, _T) and t.dtype in dtypes and t.dim() == 1
+          and t.is_contiguous() and t.device == dev and t.shape[0] >= n_min,
+          f"{name} must be a contiguous 1-D tensor of "
+          f"{' or '.join(map(str, dtypes))} on {dev}, at least {n_min} long")
+
+
+def _mat(name, t, dtype, shape, dev) -> None:
+    _need(isinstance(t, _T) and t.dtype is dtype and tuple(t.shape) == shape
+          and t.is_contiguous() and t.device == dev,
+          f"{name} must be a contiguous {dtype} tensor of shape {shape} "
+          f"on {dev}")
+
+
+def _common(postings_doc, col, positions, pos_starts, starts, ends, weights,
+            slot_of, T: int, L: int, postings_tf, avg32):
+    """The checks both routes share; returns (dev, B)."""
+    _need(isinstance(postings_doc, _T), "postings_doc must be a tensor")
+    dev = postings_doc.device
+    _need(dev.type in ("cpu", "cuda"), f"unsupported device {dev}")
+    _need(2 <= T <= MAX_T and L >= 1,
+          f"need 2 <= T <= {MAX_T} and L >= 1, got T={T} L={L}")
+    _vec("postings_doc", postings_doc, (torch.int32,), dev, L)
+    if avg32 is not None:
+        _vec("tc", col, (torch.int16,), dev, L)
+        _need(isinstance(avg32, _T) and avg32.dtype is torch.float32
+              and avg32.numel() == 1 and avg32.is_contiguous()
+              and avg32.device == dev,
+              f"avg32 must be a contiguous one-element float32 tensor on {dev}")
+    else:
+        _vec("postings_score", col, (torch.float32,), dev, L)
+        _vec("postings_tf", postings_tf, (torch.int32,), dev)
+    _vec("positions", positions, (torch.int16, torch.int32), dev)
+    _vec("pos_starts", pos_starts, (torch.int32,), dev)
+    _need(isinstance(starts, _T) and starts.dim() == 2,
+          "starts must be a (B, T) tensor")
+    shape = (starts.shape[0], T)
+    _mat("starts", starts, torch.int32, shape, dev)
+    _mat("ends", ends, torch.int32, shape, dev)
+    _mat("idf32" if avg32 is not None else "use_score", weights,
+         torch.float32, shape, dev)
+    _mat("slot_of", slot_of, torch.int32, shape, dev)
+    return dev, shape[0]
+
+
+def check_semidense_inputs(postings_doc, col, dense, positions, pos_starts,
+                           starts, ends, weights, slots, slot_of, ks, *,
+                           T: int, L: int, KV: int, PP: int, PW: int, M: int,
+                           n_rec_iters: int, eps3: float, postings_tf=None,
+                           avg32=None) -> None:
+    """Raise ValueError unless the arguments are what the semidense phrase
+    route takes: contiguous 1-D columns (doc int32 and the candidate's
+    column, raw f32 score with an int32 tf column or tc int16 lanes, at
+    least L long; positions int16 or int32; pos_starts int32); a
+    contiguous 2-D dense plane (raw f32, tc uint8); contiguous (B, T)
+    int32 starts, ends, slots and slot_of, f32 weights and (B,) int32 ks;
+    a one-element f32 avg32 (tc); every tensor on postings_doc's device;
+    2 <= T <= MAX_T, KV >= 1, 1 <= M <= KV, PP and PW >= 1, every
+    kernel's shared bytes (plan_semidense) within the card's,
+    n_rec_iters >= 0 and 0 <= eps3 < 1."""
+    dev, B = _common(postings_doc, col, positions, pos_starts, starts, ends,
+                     weights, slot_of, T, L, postings_tf, avg32)
+    ok = KV >= 1 and 1 <= M <= KV and PP >= 1 and PW >= 1
+    if ok:
+        p = plan_semidense(B, T, KV, PW, M)
+        ok = max(p.smem_select, p.smem_verify, p.smem_output) <= MAX_SMEM
+    _need(ok and n_rec_iters >= 0 and 0.0 <= eps3 < 1.0,
+          f"need KV >= 1, 1 <= M <= KV, PP, PW >= 1 (shared bytes within "
+          f"{MAX_SMEM}), n_rec_iters >= 0 and 0 <= eps3 < 1, got KV={KV} "
+          f"M={M} PP={PP} PW={PW} n_rec_iters={n_rec_iters} eps3={eps3}")
+    dt = torch.uint8 if avg32 is not None else torch.float32
+    _need(isinstance(dense, _T) and dense.dtype is dt and dense.dim() == 2
+          and dense.is_contiguous() and dense.device == dev
+          and dense.shape[1] >= 1,
+          f"dense must be a contiguous (H, N_pad) {dt} tensor on {dev}")
+    _mat("slots", slots, torch.int32, (B, T), dev)
+    _mat("ks", ks, torch.int32, (B,), dev)
+
+
+def check_list_inputs(postings_doc, col, positions, pos_starts, starts, ends,
+                      weights, slot_of, bloom_rows, bloom_bitmap, bloom_rank,
+                      probe_slot, probe_begins, probe_mask, probe_active, *,
+                      T: int, L: int, PP: int, M: int, n_bs_iters: int,
+                      n_pos_iters: int, postings_tf=None, avg32=None,
+                      gate: bool = True) -> None:
+    """Raise ValueError unless the arguments are what the list chain
+    takes: the columns and (B, T) planes as check_semidense_inputs says
+    (no dense plane, slots or ks); with the gate, contiguous 1-D int32
+    bloom rows (at least one), bitmap (an even count, at least 2) and
+    rank (the bitmap's length), and (B, C) probes (int32 slot and mask,
+    bool begins and active); 2 <= T <= MAX_T, 1 <= L <= LIST_MAX_L,
+    1 <= M <= L, PP >= 1, n_bs_iters and n_pos_iters >= 0."""
+    dev, B = _common(postings_doc, col, positions, pos_starts, starts, ends,
+                     weights, slot_of, T, L, postings_tf, avg32)
+    _need(L <= LIST_MAX_L and 1 <= M <= L and PP >= 1 and n_bs_iters >= 0
+          and n_pos_iters >= 0,
+          f"need L <= {LIST_MAX_L}, 1 <= M <= L, PP >= 1 and iteration "
+          f"counts >= 0, got L={L} M={M} PP={PP} n_bs_iters={n_bs_iters} "
+          f"n_pos_iters={n_pos_iters}")
+    if not gate:
+        return
+    _vec("bloom_rows", bloom_rows, (torch.int32,), dev)
+    _vec("bloom_bitmap", bloom_bitmap, (torch.int32,), dev, 2)
+    _need(bloom_bitmap.shape[0] % 2 == 0,
+          "bloom_bitmap holds two sides of equal length")
+    _vec("bloom_rank", bloom_rank, (torch.int32,), dev,
+         bloom_bitmap.shape[0])
+    _need(isinstance(probe_slot, _T) and probe_slot.dim() == 2,
+          "probe_slot must be a (B, C) tensor")
+    shape = (B, probe_slot.shape[1])
+    _mat("probe_slot", probe_slot, torch.int32, shape, dev)
+    _mat("probe_begins", probe_begins, torch.bool, shape, dev)
+    _mat("probe_mask", probe_mask, torch.int32, shape, dev)
+    _mat("probe_active", probe_active, torch.bool, shape, dev)
+
+
+class _SdpParams(ctypes.Structure):
+    """phrase_route.cu's WiserSdpParams: every field 8 bytes."""
+    _fields_ = [(n, ctypes.c_longlong) for n in (
+        "doc n_doc score n_score tf n_tf tc n_tc dense_sc dense_tf8 n_pad "
+        "norm_g positions n_pos u16 pos_starts n_ps starts ends weights "
+        "slots slot_of ks B T L KV K KP PP PW M n_iters keep_bits keys "
+        "counts pidx out W smem_select smem_verify smem_output").split()]
+
+
+class _ListParams(ctypes.Structure):
+    """phrase_route.cu's WiserListParams: every field 8 bytes."""
+    _fields_ = [(n, ctypes.c_longlong) for n in (
+        "doc n_doc score n_score tf n_tf tc n_tc norm_g positions n_pos u16 "
+        "pos_starts n_ps bloom_rows n_rows bloom_bitmap n_bitmap bloom_rank "
+        "probe_slot probe_begins probe_mask probe_active C gate starts ends "
+        "weights slot_of B T L PP M n_iters n_pos_iters out smem").split()]
+
+
+class _Fns:
+    """The kernel library's C functions, bound once."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self.sdp = lib.wiser_semidense_phrase
+        self.sdp.argtypes = [ctypes.POINTER(_SdpParams), ctypes.c_void_p]
+        self.sdp.restype = ctypes.c_int
+        self.list = lib.wiser_list_phrase
+        self.list.argtypes = [ctypes.POINTER(_ListParams), ctypes.c_void_p]
+        self.list.restype = ctypes.c_int
+        self.error = lib.wiser_phrase_route_error_string
+        self.error.argtypes = [ctypes.c_int]
+        self.error.restype = ctypes.c_char_p
+
+
+_fns: Optional[_Fns] = None
+
+
+def _kernel_fns() -> _Fns:
+    """Build and bind the kernel library at first use."""
+    global _fns
+    if _fns is None:
+        from wiser_tpu_torch.build import load_library
+
+        _fns = _Fns(load_library("phrase_route"))
+    return _fns
+
+
+def _run(fn, params, dev, what: str) -> None:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(idx):
+        rc = fn(ctypes.byref(params), torch._C._cuda_getCurrentRawStream(idx))
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + _kernel_fns().error(rc).decode())
+
+
+def _ptr(t) -> int:
+    return t.data_ptr() if t is not None else 0
+
+
+def semidense_phrase(postings_doc, col, dense, positions, pos_starts, starts,
+                     ends, weights, slots, slot_of, ks, *, T: int, L: int,
+                     KV: int, PP: int, PW: int, M: int, n_rec_iters: int,
+                     eps3: float, postings_tf=None, avg32=None):
+    """The semidense phrase route's packed (B, T+2, M) int32 output from
+    the kernels, on CUDA tensors (raw: col the f32 scores, dense the f32
+    score rows, postings_tf; tc: col the tc lanes, dense the uint8 tf
+    rows, avg32). Checks the arguments (ValueError before any launch),
+    allocates the output and the (B, KV + 1) keys, (B, KV) counts and
+    (B, T, KV) posting indices, launches on the current stream (tc: the
+    table kernel first) and does not synchronize."""
+    kw = dict(T=T, L=L, KV=KV, PP=PP, PW=PW, M=M, n_rec_iters=n_rec_iters,
+              eps3=eps3, postings_tf=postings_tf, avg32=avg32)
+    args = (postings_doc, col, dense, positions, pos_starts, starts, ends,
+            weights, slots, slot_of, ks)
+    check_semidense_inputs(*args, **kw)
+    dev = postings_doc.device
+    _need(dev.type == "cuda", f"semidense_phrase runs on CUDA tensors, got "
+          f"{dev}")
+    tc = avg32 is not None
+    B = starts.shape[0]
+    out = torch.empty((B, T + 2, M), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    p = plan_semidense(B, T, KV, PW, M)
+    keys = torch.empty((B, p.K), dtype=torch.int64, device=dev)
+    counts = torch.empty((B, KV), dtype=torch.int32, device=dev)
+    pidx = torch.empty((B, T, KV), dtype=torch.int32, device=dev)
+    norm = _D.tc_table(avg32) if tc else None
+    keep = int(np.float32(1.0 - eps3).view(np.uint32))
+    params = _SdpParams(
+        postings_doc.data_ptr(), postings_doc.shape[0],
+        0 if tc else col.data_ptr(), col.shape[0],
+        0 if tc else postings_tf.data_ptr(),
+        0 if tc else postings_tf.shape[0],
+        col.data_ptr() if tc else 0, col.shape[0],
+        0 if tc else dense.data_ptr(), dense.data_ptr() if tc else 0,
+        dense.shape[1], _ptr(norm), positions.data_ptr(), positions.shape[0],
+        int(positions.dtype is torch.int16), pos_starts.data_ptr(),
+        pos_starts.shape[0], starts.data_ptr(), ends.data_ptr(),
+        weights.data_ptr(), slots.data_ptr(), slot_of.data_ptr(),
+        ks.data_ptr(), B, T, L, KV, p.K, p.KP, PP, PW, M, n_rec_iters, keep,
+        keys.data_ptr(), counts.data_ptr(), pidx.data_ptr(), out.data_ptr(),
+        p.W, p.smem_select, p.smem_verify, p.smem_output)
+    _run(_kernel_fns().sdp, params, dev, "semidense_phrase")
+    launch_counts["semidense_phrase_tc" if tc else "semidense_phrase"] += 1
+    return out
+
+
+def list_phrase(postings_doc, col, positions, pos_starts, starts, ends,
+                weights, slot_of, bloom_rows, bloom_bitmap, bloom_rank,
+                probe_slot, probe_begins, probe_mask, probe_active, *, T: int,
+                L: int, PP: int, M: int, n_bs_iters: int, n_pos_iters: int,
+                postings_tf=None, avg32=None, gate: bool = True):
+    """The list chain's packed (B, T+2, M) int32 output from the kernel,
+    on CUDA tensors (raw: col the f32 scores and postings_tf; tc: col the
+    tc lanes and avg32). Checks the arguments (ValueError before any
+    launch), allocates the output, launches on the current stream (tc:
+    the table kernel first) and does not synchronize. gate=False leaves
+    the bloom gate out (the bloom and probe arguments are not read)."""
+    kw = dict(T=T, L=L, PP=PP, M=M, n_bs_iters=n_bs_iters,
+              n_pos_iters=n_pos_iters, postings_tf=postings_tf, avg32=avg32,
+              gate=gate)
+    args = (postings_doc, col, positions, pos_starts, starts, ends, weights,
+            slot_of, bloom_rows, bloom_bitmap, bloom_rank, probe_slot,
+            probe_begins, probe_mask, probe_active)
+    check_list_inputs(*args, **kw)
+    dev = postings_doc.device
+    _need(dev.type == "cuda", f"list_phrase runs on CUDA tensors, got {dev}")
+    tc = avg32 is not None
+    B = starts.shape[0]
+    out = torch.empty((B, T + 2, M), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    norm = _D.tc_table(avg32) if tc else None
+    g = (bloom_rows, bloom_bitmap, bloom_rank, probe_slot, probe_begins,
+         probe_mask, probe_active) if gate else (None,) * 7
+    params = _ListParams(
+        postings_doc.data_ptr(), postings_doc.shape[0],
+        0 if tc else col.data_ptr(), col.shape[0],
+        0 if tc else postings_tf.data_ptr(),
+        0 if tc else postings_tf.shape[0],
+        col.data_ptr() if tc else 0, col.shape[0], _ptr(norm),
+        positions.data_ptr(), positions.shape[0],
+        int(positions.dtype is torch.int16), pos_starts.data_ptr(),
+        pos_starts.shape[0], _ptr(g[0]), g[0].shape[0] if gate else 0,
+        _ptr(g[1]), g[1].shape[0] if gate else 0, _ptr(g[2]), _ptr(g[3]),
+        _ptr(g[4]), _ptr(g[5]), _ptr(g[6]),
+        g[3].shape[1] if gate else 0, int(gate), starts.data_ptr(),
+        ends.data_ptr(), weights.data_ptr(), slot_of.data_ptr(), B, T, L, PP,
+        M, n_bs_iters, n_pos_iters, out.data_ptr(), plan_list(T, L))
+    _run(_kernel_fns().list, params, dev, "list_phrase")
+    launch_counts["list_phrase_tc" if tc else "list_phrase"] += 1
+    return out

@@ -1,0 +1,856 @@
+"""The semidense phrase route's kernels and the list chain's
+(ops/phrase_route.py, csrc/phrase_route.cu) held against their plain
+torch versions (engine/kernels.semidense_phrase_torch,
+list_phrase_torch) and timed beside them; and the phrase route sets split
+by the route each query takes.
+
+    python -m wiser_tpu_torch.tools.phrase_bench [--check-only] [--out r.json]
+    python -m wiser_tpu_torch.tools.phrase_bench --split --index IDX \
+        [--sets phrase_mixed,phrase_mega] --out r.json
+    python -m wiser_tpu_torch.tools.phrase_bench --trees OLD,.,.,OLD \
+        --index IDX --out r.json
+
+(on a card: the kernels build at first use). `semidense_phrase_cases`
+and `list_phrase_cases` run raw and tc columns at T 2-4 over synthetic
+columns with planted phrases (`synth_columns`, `phrase_batch`): ties
+straddling the (KV+1)-th lane, fewer than KV + 1 matches, absent bloom
+rows and an all-inactive probe set, PP larger than a bag, a bag holding
+65,535, bags in no sorted order, the list kernel without its gate; each
+packed (B, T+2, M) output must equal the plain version's bit for bit. `time_semidense_phrase` and `time_list_phrase`
+time the entry points at synthetic 1M shapes (the semidense phrase: B
+128, T 2, L 2,048 and 32,768, KV 1,024; the list chain: B 1,024, T 2-3,
+L 128-1,024) in turns with the plain versions (semidense_bench.time_pair:
+CUDA events, an L2-flushed reading, torch.profiler per launch, host µs,
+peak memory above the inputs, the bytes bound).
+
+`--split` runs route_bench's phrase sets of a saved index (pairs from
+`<index>/phrase_pairs.json`), raw and tc: one untraced pass records the
+route each distinct query takes (`_dispatch_phrase`'s semidense, compact
+and list branches, the mega routes, the host), then each route's
+queries run alone as a set (route_bench.run_set, traced), so a set's
+device ms splits by route; each phrase group's peak device memory above
+its inputs is kept by route. `--trees` measures each listed tree in its
+own process (tools/unpack_bench.run_trees): the entry points at the
+synthetic shapes where the tree has them, then, with `--index`, the
+split.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+SECTOR = 32
+SETS = ("phrase_mixed", "phrase_mega")
+ROUTE_KEYS = ("phrase_semidense", "phrase_compact", "phrase_list", "mega",
+              "host")
+SPLIT_N = 2048
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+# -- the route split ---------------------------------------------------------
+
+
+class RouteSpy:
+    """While installed on an engine (`with RouteSpy(eng) as spy:`),
+    records the route of every phrase query the engine dispatches (keyed
+    by (terms, k)) and each phrase group's peak device memory above its
+    inputs, by route."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.route = {}
+        self.peaks = {k: 0 for k in ROUTE_KEYS}
+        self.groups = {k: 0 for k in ROUTE_KEYS}
+
+    @staticmethod
+    def key(q):
+        return (tuple(q.terms), int(q.n_results))
+
+    def _measured(self, kind, fn):
+        import torch
+
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.peaks[kind] = max(self.peaks[kind], int(
+                torch.cuda.max_memory_allocated() - before))
+            return out
+        return run
+
+    def __enter__(self):
+        eng = self.eng
+        dispatch, mega, host = (eng._dispatch_phrase, eng._submit_mega_phrase,
+                                eng._run_host_phrases)
+        KV = eng.PRUNED_PHRASE_KV
+
+        def dispatch_rec(group, T, L, PP, PW, sd):
+            kind = ("phrase_semidense" if sd else
+                    "phrase_compact" if L > KV else "phrase_list")
+            for pq in group:
+                self.route[self.key(pq.query)] = kind
+            self.groups[kind] += 1
+            return self._measured(kind, dispatch)(group, T, L, PP, PW, sd)
+
+        def mega_rec(planned, rq):
+            for pq in planned:
+                self.route[self.key(pq.query)] = "mega"
+            self.groups["mega"] += 1
+            return self._measured("mega", mega)(planned, rq)
+
+        def host_rec(group):
+            for pq in group:
+                self.route[self.key(pq.query)] = "host"
+            self.groups["host"] += 1
+            return host(group)
+
+        eng._dispatch_phrase = dispatch_rec
+        eng._submit_mega_phrase = mega_rec
+        eng._run_host_phrases = host_rec
+        return self
+
+    def __exit__(self, *exc):
+        for name in ("_dispatch_phrase", "_submit_mega_phrase",
+                     "_run_host_phrases"):
+            del self.eng.__dict__[name]
+        return False
+
+
+def split_set(eng, queries, batch: int = 2048) -> dict:
+    """One set's device ms split by route: a pass under RouteSpy (routes
+    and group peaks), the whole set by route_bench.run_set (traced), then
+    each route's queries alone, traced."""
+    import torch
+
+    from wiser_tpu_torch.tools import route_bench as RB
+
+    eng.clear_result_memos()
+    with RouteSpy(eng) as spy:
+        eng.search_batch(queries)
+    eng.stats_take()
+    out = {"queries": len(queries), "group_peak_bytes": spy.peaks,
+           "groups": spy.groups}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["all"] = RB.run_set(eng, queries, batch, trace_dir=tmp)
+    by = {}
+    for q in queries:
+        by.setdefault(spy.route.get(RouteSpy.key(q), "unrouted"), []).append(q)
+    out["routes"] = {}
+    for kind, qs in sorted(by.items()):
+        with tempfile.TemporaryDirectory() as tmp:
+            row = RB.run_set(eng, qs, batch, trace_dir=tmp)
+        row["queries"] = len(qs)
+        out["routes"][kind] = row
+        log(f"  {kind}: {len(qs)} queries, device ms "
+            f"{(row.get('traced') or {}).get('device_busy_ms')}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def route_split(index: str, columns: str, sets=SETS, n: int = SPLIT_N):
+    """route_bench's phrase sets of a saved index on a TorchEngine of
+    these columns, each split by route (split_set)."""
+    import torch
+
+    from wiser_tpu_torch import TorchEngine
+    from wiser_tpu_torch.index.format import PackedIndex
+    from wiser_tpu_torch.tools import route_bench as RB
+
+    packed = PackedIndex.load(index, skip_offsets=True)
+    eng = TorchEngine(packed, device="cuda", columns=columns)
+    with open(os.path.join(index, "phrase_pairs.json")) as f:
+        pairs = [tuple(x) for x in json.load(f)]
+    all_sets = RB.build_phrase_route_sets(packed, eng, None, n, 10,
+                                          pairs=pairs)
+    out = {}
+    for name in sets:
+        if not all_sets.get(name):
+            continue
+        log(f"== {columns} {name}")
+        out[name] = split_set(eng, all_sets[name])
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def split_summary(split: dict) -> dict:
+    """{columns_set: {"all": device ms, route: [queries, device ms],
+    "peak": {route: bytes}}}."""
+    res = {}
+    for columns, sets in split.items():
+        for name, s in sets.items():
+            dm = lambda row: (row.get("traced") or {}).get("device_busy_ms")
+            res[f"{columns}_{name}"] = {
+                "all": [s["queries"], dm(s["all"]), s["all"]["wall_s"]],
+                **{k: [r["queries"], dm(r), r["wall_s"]]
+                   for k, r in s["routes"].items()},
+                "peak": s["group_peak_bytes"]}
+    return res
+
+
+# -- synthetic columns ---------------------------------------------------------
+
+POS_PAD = 1024  # the engine's trailing pad of the positions column
+
+
+def synth_columns(seed: int, n_docs: int, dfs, *, n_cands: int = 1,
+                  max_tf: int = 4, tie: bool = False, plant: float = 0.4,
+                  sorted_bags: bool = False, pos65535: bool = True) -> dict:
+    """A small index as host columns (numpy, the engine's host dtypes).
+    Terms 0..n_cands-1 are candidates of df dfs[0] each, the later terms
+    heads of dfs[1:]; every term's run is a sorted random doc set. Per
+    posting a tf in 1..max_tf and as many positions (random, so in no
+    sorted order unless `sorted_bags`). A doc holding a candidate and
+    heads 1..j is, with probability `plant`, given a phrase at some x: each
+    candidate's first position x, head i's x + i (so the query
+    (candidate, head 1, ..., head T-1) matches there); with `pos65535` the
+    deepest such doc's phrase ends at 65,535. raw scores are random f32
+    (with `tie`, three values, so AND scores tie); tc lanes carry random
+    len codes and tf bytes (2% saturated at 255); the dense planes hold
+    the heads' rows (score, tf, tf byte); the bloom columns are random
+    (bitmap bits 85% set, rows mostly all ones)."""
+    rng = np.random.default_rng(seed)
+    all_dfs = [int(dfs[0])] * n_cands + [int(d) for d in dfs[1:]]
+    nh = len(dfs) - 1
+    runs = [np.sort(rng.choice(n_docs, size=df, replace=False)).astype(
+        np.int32) for df in all_dfs]
+    has_cand = np.zeros(n_docs, dtype=bool)
+    for r in runs[:n_cands]:
+        has_cand[r] = True
+    depth = np.zeros(n_docs, dtype=np.int64)  # heads 1..depth in the doc
+    chain = has_cand.copy()
+    for r in runs[n_cands:]:
+        m = np.zeros(n_docs, dtype=bool)
+        m[r] = True
+        chain &= m
+        depth += chain
+    planted = has_cand & (depth >= 1) & (rng.random(n_docs) < plant)
+    x = rng.integers(0, 60000, size=n_docs)
+    if pos65535 and planted.any():
+        d = int(np.argmax(np.where(planted, depth, -1)))
+        x[d] = 65535 - depth[d]
+    doc = np.concatenate(runs)
+    term = np.repeat(np.arange(len(runs)), all_dfs)
+    P = len(doc)
+    tf = rng.integers(1, max_tf + 1, size=P).astype(np.int32)
+    pos_starts = np.zeros(P + 1, dtype=np.int32)
+    pos_starts[1:] = np.cumsum(tf)
+    pos = rng.integers(0, 60000, size=int(pos_starts[-1]))
+    head_i = np.where(term >= n_cands, term - n_cands + 1, 0)
+    hit = planted[doc] & (head_i <= depth[doc])
+    pos[pos_starts[:-1][hit]] = x[doc[hit]] + head_i[hit]
+    if sorted_bags:
+        owner = np.repeat(np.arange(P), tf)
+        pos = pos[np.lexsort((pos, owner))]
+    positions = np.concatenate([pos, np.full(POS_PAD, 65535)]).astype(
+        np.uint16)
+    if tie:
+        score = rng.choice(np.float32([0.5, 1.0, 1.5]), size=P)
+    else:
+        score = (rng.random(P) * 2 + 0.1).astype(np.float32)
+    code = rng.integers(0, 232, size=n_docs)
+    tfb = np.minimum(tf, 254)
+    tfb[rng.random(P) < 0.02] = 255
+    tc = ((code[doc] << 8) | tfb).astype(np.uint16)
+    term_starts = np.concatenate([[0], np.cumsum(all_dfs)]).astype(np.int64)
+    n_pad = -(-n_docs // 128) * 128
+    dense_sc = np.zeros((max(nh, 1), n_pad), dtype=np.float32)
+    dense_tf = np.zeros((max(nh, 1), n_pad), dtype=np.int32)
+    dense_tf8 = np.zeros((max(nh, 1), n_pad), dtype=np.uint8)
+    for h in range(nh):
+        a, b = term_starts[n_cands + h], term_starts[n_cands + h + 1]
+        dense_sc[h, doc[a:b]] = score[a:b]
+        dense_tf[h, doc[a:b]] = tf[a:b]
+        dense_tf8[h, doc[a:b]] = tfb[a:b]
+    Pw = -(-P // 32)
+    bitmap = np.zeros(2 * Pw, dtype=np.uint32)
+    for i in range(32):
+        bitmap |= (rng.random(2 * Pw) < 0.85).astype(np.uint32) << np.uint32(i)
+    pop = np.unpackbits(bitmap.view(np.uint8)).reshape(-1, 32).sum(axis=1)
+    rank = np.concatenate([[0], np.cumsum(pop)[:-1]]).astype(np.int32)
+    nnz = max(1, int(pop.sum()))
+    rows = np.full(nnz, 0xFFFFFFFF, dtype=np.uint32)
+    some = rng.random(nnz) < 0.2
+    rows[some] = rng.integers(0, 2**32, size=int(some.sum()),
+                              dtype=np.uint64).astype(np.uint32)
+    return {"doc": doc.astype(np.int32), "score": score, "tf": tf, "tc": tc,
+            "positions": positions, "pos_starts": pos_starts,
+            "term_starts": term_starts,
+            "dfs": np.asarray(all_dfs, dtype=np.int64), "n_cands": n_cands,
+            "dense_sc": dense_sc, "dense_tf": dense_tf,
+            "dense_tf8": dense_tf8,
+            "avg32": np.float32([np.float32(rng.random() * 100 + 20)]),
+            "bloom_rows": rows, "bloom_bitmap": bitmap, "bloom_rank": rank,
+            "n_docs": n_docs, "max_tf": int(tf.max())}
+
+
+def phrase_batch(cols: dict, B: int, T: int, M: int, seed: int, *,
+                 in_order: float = 0.7, probes_off: bool = False) -> dict:
+    """A group of B phrase queries of T terms over synth_columns: a
+    candidate (slot 0) and T - 1 heads; with probability `in_order` the
+    query is (candidate, head 1, ..., head T-1) (the planted phrase),
+    else the candidate and T - 1 random heads in a shuffled order. Slot
+    order: the candidate, then the heads in query order. raw weights
+    use_score 1; tc weights random idf32; slots name the heads' dense
+    rows; ks in 1..M; bloom probes as the engine assembles them (C = T -
+    1 a query: the probed slot, the side, a folded mask of up to 3 bits,
+    active or not; `probes_off`: none active), and query 0 with no
+    active probe."""
+    rng = np.random.default_rng(seed)
+    nc = cols["n_cands"]
+    ts, dfs = cols["term_starts"], cols["dfs"]
+    nh = len(dfs) - nc
+    starts = np.zeros((B, T), dtype=np.int32)
+    ends = np.zeros((B, T), dtype=np.int32)
+    use = np.zeros((B, T), dtype=np.float32)
+    idf = np.zeros((B, T), dtype=np.float32)
+    slots = np.zeros((B, T), dtype=np.int32)
+    slot_of = np.zeros((B, T), dtype=np.int32)
+    for b in range(B):
+        c = int(rng.integers(nc))
+        if rng.random() < in_order:
+            q = [c] + [nc + h for h in range(T - 1)]
+        else:
+            q = [c] + [nc + int(h) for h in rng.choice(nh, size=T - 1,
+                                                        replace=False)]
+            rng.shuffle(q)
+        slot_terms = [c] + [t for t in q if t != c]
+        for s, t in enumerate(slot_terms):
+            starts[b, s] = ts[t]
+            ends[b, s] = ts[t] + dfs[t]
+            slots[b, s] = max(0, t - nc)
+            use[b, s] = 1.0
+            idf[b, s] = np.float32(rng.random() * 4 + 0.5)
+        for i, t in enumerate(q):
+            slot_of[b, i] = slot_terms.index(t)
+    C = T - 1
+    probe_slot = rng.integers(0, T, size=(B, C)).astype(np.int32)
+    probe_begins = rng.random((B, C)) < 0.5
+    masks = np.zeros((B, C), dtype=np.uint32)
+    for _ in range(3):
+        bit = np.uint32(1) << rng.integers(0, 32, size=(B, C)).astype(
+            np.uint32)
+        masks |= bit * (rng.random((B, C)) < 0.7).astype(np.uint32)
+    probe_active = (rng.random((B, C)) < 0.8) & (not probes_off)
+    probe_active[0] = False
+    return {"starts": starts, "ends": ends, "use": use, "idf": idf,
+            "slots": slots, "slot_of": slot_of,
+            "ks": rng.integers(1, M + 1, size=B).astype(np.int32),
+            "probe_slot": probe_slot, "probe_begins": probe_begins,
+            "probe_mask": masks, "probe_active": probe_active}
+
+
+def to_torch(a, dev):
+    """numpy -> torch on dev; unsigned columns travel as their signed
+    bits, as the engine holds them on the device."""
+    import torch
+
+    a = np.array(a, copy=True, order="C")
+    if a.dtype == np.uint16:
+        a = a.view(np.int16)
+    elif a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(dev)
+
+
+def semidense_args(cols: dict, batch: dict, mode: str, dev):
+    """(args, kw) of kernels.semidense_phrase_body on dev (kw lacks the
+    shapes)."""
+    t = lambda k, src=cols: to_torch(src[k], dev)
+    if mode == "tc":
+        head = (t("doc"), t("tc"), t("dense_tf8"))
+        kw = {"avg32": t("avg32")}
+    else:
+        head = (t("doc"), t("score"), t("dense_sc"))
+        kw = {"postings_tf": t("tf")}
+    args = head + (t("positions"), t("pos_starts"), t("starts", batch),
+                   t("ends", batch), t("idf" if mode == "tc" else "use",
+                                        batch),
+                   t("slots", batch), t("slot_of", batch), t("ks", batch))
+    return args, kw
+
+
+def list_args(cols: dict, batch: dict, mode: str, dev):
+    """(args, kw) of kernels.list_phrase on dev (kw lacks the shapes)."""
+    t = lambda k, src=cols: to_torch(src[k], dev)
+    if mode == "tc":
+        col, kw = t("tc"), {"avg32": t("avg32")}
+    else:
+        col, kw = t("score"), {"postings_tf": t("tf")}
+    args = (t("doc"), col, t("positions"), t("pos_starts"),
+            t("starts", batch), t("ends", batch),
+            t("idf" if mode == "tc" else "use", batch), t("slot_of", batch),
+            t("bloom_rows"), t("bloom_bitmap"), t("bloom_rank"),
+            t("probe_slot", batch), t("probe_begins", batch),
+            t("probe_mask", batch), t("probe_active", batch))
+    return args, kw
+
+
+def _iters(n: int) -> int:
+    return max(1, int(np.ceil(np.log2(max(2, int(n) + 1)))))
+
+
+# (name, seed, n_docs, dfs, B, T, L, KV, PP, PW, M, tie, sorted bags): the
+# semidense phrase cases. KV 4-64 over thousands of candidates straddles
+# ties at the (KV+1)-th lane; KV 1,024 leaves fewer than KV + 1 matches.
+SDP_CASES = (
+    ("ties_kv4", 1, 4096, (1900, 3000, 2600, 2200), 8, 2, 2048, 4, 8, 8, 4,
+     True, False),
+    ("ties_kv16_t3", 2, 4096, (1900, 3000, 2600, 2200), 8, 3, 2048, 16, 8, 8,
+     8, True, False),
+    ("ties_kv64_t4", 3, 4096, (1900, 3000, 2600, 2200), 8, 4, 2048, 64, 8,
+     16, 16, True, True),
+    ("short_kv1024", 4, 4096, (1500, 2000, 1800, 1700), 8, 2, 2048, 1024, 4,
+     8, 24, False, False),
+    ("short_kv1024_t3", 5, 4096, (1500, 2600, 2000, 1700), 8, 3, 2048, 1024,
+     8, 8, 24, False, False),
+    ("pp_over_bags_t2", 6, 4096, (1900, 3500, 2600, 2200), 16, 2, 2048, 256,
+     32, 32, 12, False, False),
+    ("long_l", 7, 40000, (30000, 36000, 33000, 31000), 4, 2, 32768, 1024, 8,
+     8, 12, False, False),
+)
+# the list chain's: (name, seed, n_docs, dfs, B, T, L, PP, M, tie, probes
+# off, sorted bags)
+LIST_CASES = (
+    ("ties_t2", 11, 4096, (900, 3000, 2600, 2200), 16, 2, 1024, 8, 8, True,
+     False, False),
+    ("t3", 12, 4096, (900, 3000, 2600, 2200), 16, 3, 1024, 8, 16, False,
+     False, False),
+    ("t4", 13, 4096, (700, 3000, 2600, 2200), 8, 4, 1024, 8, 16, False,
+     False, True),
+    ("no_probes", 14, 4096, (900, 3000, 2600, 2200), 8, 2, 1024, 8, 8, False,
+     True, False),
+    ("pp_over_bags", 15, 4096, (100, 3000, 2600, 2200), 8, 2, 128, 32, 10,
+     False, False, False),
+    ("short_l", 16, 2048, (60, 1500, 1200, 900), 8, 3, 128, 4, 64, True,
+     False, False),
+)
+
+
+def semidense_case(case, mode: str, dev):
+    """(args, kw) of one SDP_CASES case, shapes included."""
+    (_, seed, n_docs, dfs, B, T, L, KV, PP, PW, M, tie, sb) = case
+    cols = synth_columns(seed, n_docs, dfs, tie=tie, sorted_bags=sb)
+    batch = phrase_batch(cols, B, T, M, seed + 100)
+    args, kw = semidense_args(cols, batch, mode, dev)
+    kw.update(T=T, L=L, KV=KV, PP=PP, PW=PW, M=M,
+              n_rec_iters=_iters(max(dfs)), eps3=3e-6 if mode == "raw"
+              else 3e-5)
+    return args, kw
+
+
+def list_case(case, mode: str, dev):
+    """(args, kw) of one LIST_CASES case, shapes included."""
+    (_, seed, n_docs, dfs, B, T, L, PP, M, tie, off, sb) = case
+    cols = synth_columns(seed, n_docs, dfs, tie=tie, sorted_bags=sb)
+    batch = phrase_batch(cols, B, T, M, seed + 100, probes_off=off)
+    args, kw = list_args(cols, batch, mode, dev)
+    kw.update(T=T, L=L, PP=PP, M=M, n_bs_iters=_iters(max(dfs)),
+              n_pos_iters=_iters(cols["max_tf"]))
+    return args, kw
+
+
+def _summary(got, want, what: str) -> dict:
+    """Bit-equality of two packed outputs (raises where they differ)."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    if g.shape != w.shape or not np.array_equal(g, w):
+        bad = np.nonzero((g != w).reshape(g.shape[0], -1).any(axis=1))[0] \
+            if g.shape == w.shape else "shape"
+        raise AssertionError(f"{what}: the kernel's packed output differs "
+                             f"from the plain version's (rows {bad})")
+    T = g.shape[1] - 2
+    return {"kept": int((g[:, 0] >= 0).sum()),
+            "flags": sorted({int(f) for f in g[:, T + 1, 0]})}
+
+
+def semidense_phrase_cases(dev, modes=("raw", "tc")) -> dict:
+    """Every SDP_CASES case, raw and tc: the kernels' packed output equal
+    to the plain version's bit for bit."""
+    from wiser_tpu_torch.engine import kernels as K
+
+    rows = []
+    for case in SDP_CASES:
+        for mode in modes:
+            args, kw = semidense_case(case, mode, dev)
+            row = {"case": case[0], "mode": mode}
+            row.update(_summary(K.semidense_phrase_body(*args, **kw),
+                                K.semidense_phrase_torch(*args, **kw),
+                                f"semidense phrase {row}"))
+            rows.append(row)
+    return {"cases": len(rows), "rows": rows}
+
+
+def list_phrase_cases(dev, modes=("raw", "tc")) -> dict:
+    """Every LIST_CASES case, raw and tc: the kernel's packed output equal
+    to the plain version's bit for bit; the gate-off kernel against the
+    plain version with every probe inactive."""
+    from wiser_tpu_torch.engine import kernels as K
+    from wiser_tpu_torch.ops import phrase_route as R
+
+    rows = []
+    for case in LIST_CASES:
+        for mode in modes:
+            args, kw = list_case(case, mode, dev)
+            row = {"case": case[0], "mode": mode}
+            row.update(_summary(K.list_phrase(*args, **kw),
+                                K.list_phrase_torch(*args, **kw),
+                                f"list phrase {row}"))
+            rows.append(row)
+            if case[0] == "t3" and dev.type == "cuda":
+                off = list(args)
+                off[14] = args[14] & False  # no active probe
+                r2 = {"case": "t3_gate_off", "mode": mode}
+                r2.update(_summary(R.list_phrase(*args, gate=False, **kw),
+                                   K.list_phrase_torch(*off, **kw),
+                                   f"list phrase {r2}"))
+                rows.append(r2)
+    return {"cases": len(rows), "rows": rows}
+
+
+# -- bounds and timing ------------------------------------------------------------
+
+
+def semidense_bound_bytes(args, kw) -> int:
+    """The least bytes the semidense phrase route must move on these
+    inputs: the candidate slices (8 B a valid lane raw, 6 tc), the
+    distinct 32-byte sectors of the dense rows the valid lanes' docs
+    touch (4 B a lane raw, 1 tc), the K keys, and for each kept matched
+    lane (at most KV a query) a sector of each searched run, of
+    pos_starts and of each bag; the packed output."""
+    import torch
+
+    doc, col, dense = args[0], args[1], args[2]
+    starts, ends, slots = args[5], args[6], args[8]
+    T, L, KV, M = kw["T"], kw["L"], kw["KV"], kw["M"]
+    tc = kw.get("avg32") is not None
+    B = starts.shape[0]
+    lane = torch.arange(L, device=doc.device)
+    cs = starts[:, 0].long()
+    nv = (ends[:, 0].long() - cs).clamp(0, L)
+    valid = lane[None, :] < nv[:, None]
+    s = cs.clamp(0, max(0, doc.shape[0] - L))
+    cdoc = doc[(s[:, None] + lane[None, :]).clamp(max=doc.shape[0] - 1)].long()
+    cdoc = cdoc.clamp(0, dense.shape[1] - 1)
+    eb = 1 if tc else 4
+    match = valid.clone()
+    sectors = 0
+    for t in range(1, T):
+        row = slots[:, t].long()[:, None]
+        key = (row * dense.shape[1] + cdoc) * eb // SECTOR
+        sectors += int(torch.unique(key[valid]).numel())
+        match &= dense[row.expand(-1, L), cdoc] > 0
+    kept = int(match.sum(dim=1).clamp(max=KV).sum())
+    return (int(nv.sum()) * (6 if tc else 8) + sectors * SECTOR
+            + B * (KV + 1) * 8 + kept * (3 * T - 1) * SECTOR
+            + B * (T + 2) * M * 4)
+
+
+def list_bound_bytes(args, kw) -> int:
+    """The least bytes the list chain must move on these inputs: the
+    candidate slices (8 B a valid lane raw, 6 tc), each searched slot's
+    run or a sector a lane still searching it where that is fewer, 12 B
+    (bloom word, rank and row) a (matched lane, active probe), a sector
+    of pos_starts and of each bag of every lane the gate passes, and the
+    packed output. The lanes and their survival are the plain
+    version's."""
+    import torch
+
+    from wiser_tpu_torch.engine import kernels as K
+
+    doc, col = args[0], args[1]
+    starts, ends, w = args[4], args[5], args[6]
+    T, L, M = kw["T"], kw["L"], kw["M"]
+    avg32 = kw.get("avg32")
+    cdocs, _, cvalid, _ = K._candidates(doc, col, starts, ends, L)
+    _, found, _, _ = K._others(doc, col, cdocs, starts[:, 1:], ends[:, 1:],
+                               kw["n_bs_iters"], weights=w[:, 1:],
+                               avg32=avg32)
+    _, match, pidx, _, _ = K._match_step(doc, col, starts, ends, w, T=T,
+                                         L=L, n_bs_iters=kw["n_bs_iters"],
+                                         avg32=avg32)
+    active = match & K._bloom_gate(pidx, *args[8:15])
+    alive = cvalid.clone()
+    total = int(cvalid.sum()) * (6 if avg32 is not None else 8)
+    for t in range(1, T):
+        run = (ends[:, t] - starts[:, t]).long().clamp(min=0) * 4
+        total += int(torch.minimum(run, alive.sum(dim=1) * SECTOR).sum())
+        alive &= found[:, t - 1]
+    total += int((match.sum(dim=1) * args[14].sum(dim=1)).sum()) * 12
+    total += int(active.sum()) * T * 2 * SECTOR
+    return total + starts.shape[0] * (T + 2) * M * 4
+
+
+ROUTE_TAGS = ("wiser_phrase_route::", "tc_norm_kernel")
+N_DOCS_1M = 1_000_000
+TIME_KV = 1024
+TIME_M = 64  # k 10 + the engine's margin 54
+# (B, T, L) of the timed groups on synthetic 1M columns: the semidense
+# phrase at the mega chunk's B, the list chain at a list group's
+SDP_TIME = ((128, 2, 2048), (128, 2, 32768))
+LIST_TIME = ((1024, 2, 128), (1024, 2, 1024), (1024, 3, 1024))
+
+
+def _timed(kind, args, kw, mode, plain: bool, compare: bool, what) -> dict:
+    """One group: the kernel against the plain version (`compare`), then
+    timed in turns with it (semidense_bench.time_pair), with the bytes
+    bound of these inputs."""
+    from wiser_tpu_torch.engine import kernels as K
+    from wiser_tpu_torch.tools import semidense_bench as SDB
+
+    if kind == "semidense_phrase":
+        fn, plain_fn, bound = (K.semidense_phrase_body,
+                               K.semidense_phrase_torch,
+                               semidense_bound_bytes)
+    else:
+        fn, plain_fn, bound = K.list_phrase, K.list_phrase_torch, \
+            list_bound_bytes
+    row = {"kind": kind, "mode": mode, "B": int(args[5 if kind ==
+                                                   "semidense_phrase" else 4]
+                                                .shape[0]),
+           **{k: kw[k] for k in ("T", "L", "M", "PP") if k in kw}}
+    if "KV" in kw:
+        row["KV"] = kw["KV"]
+    if compare:
+        row["check"] = _summary(fn(*args, **kw), plain_fn(*args, **kw),
+                                f"{what} {row}")
+    row.update(SDB.time_pair(lambda: fn(*args, **kw),
+                             lambda: plain_fn(*args, **kw),
+                             bound(args, kw), ROUTE_TAGS, with_plain=plain))
+    log(f"{what} {json.dumps(row)}")
+    return row
+
+
+def time_semidense_phrase(dev, shapes=SDP_TIME, modes=("raw", "tc"),
+                          plain: bool = True, compare: bool = True) -> list:
+    """The semidense phrase route at `shapes` on synthetic 1M columns (64
+    candidate terms of df L - L / 16, heads of df 300,000; KV 1,024, M
+    64, PP = PW = 8), raw and tc."""
+    import torch
+
+    rows = []
+    for B, T, L in shapes:
+        cols = synth_columns(1, N_DOCS_1M, (L - L // 16,) + (300_000,) *
+                             (T - 1), n_cands=64)
+        batch = phrase_batch(cols, B, T, TIME_M, 101)
+        for mode in modes:
+            args, kw = semidense_args(cols, batch, mode, dev)
+            kw.update(T=T, L=L, KV=TIME_KV, PP=8, PW=8, M=TIME_M,
+                      n_rec_iters=_iters(300_000),
+                      eps3=3e-6 if mode == "raw" else 3e-5)
+            rows.append(_timed("semidense_phrase", args, kw, mode, plain,
+                               compare, "semidense phrase timing"))
+            del args
+            torch.cuda.empty_cache()
+    return rows
+
+
+def time_list_phrase(dev, shapes=LIST_TIME, modes=("raw", "tc"),
+                     plain: bool = True, compare: bool = True) -> list:
+    """The list chain at `shapes` on synthetic 1M columns (256 candidate
+    terms of df L - L / 8, heads of df 50,000; PP 8, M min(L, 64)), raw
+    and tc, the bloom gate on."""
+    import torch
+
+    rows = []
+    for B, T, L in shapes:
+        cols = synth_columns(2, N_DOCS_1M, (L - L // 8,) + (50_000,) *
+                             (T - 1), n_cands=256)
+        M = min(L, TIME_M)
+        batch = phrase_batch(cols, B, T, M, 102)
+        for mode in modes:
+            args, kw = list_args(cols, batch, mode, dev)
+            kw.update(T=T, L=L, PP=8, M=M, n_bs_iters=_iters(50_000),
+                      n_pos_iters=_iters(cols["max_tf"]))
+            rows.append(_timed("list_phrase", args, kw, mode, plain, compare,
+                               "list phrase timing"))
+            del args
+            torch.cuda.empty_cache()
+    return rows
+
+
+class Recorder:
+    """Records the calls an engine makes of kernels.semidense_phrase_body
+    and kernels.list_phrase (each distinct shape's largest group, at most
+    `per_kind` shapes a kind) while installed (`with Recorder() as
+    rec:`), so that `time_calls` can hold and time them afterwards."""
+
+    KINDS = ("semidense_phrase", "list_phrase")
+
+    def __init__(self, per_kind: int = 16):
+        self.per_kind = per_kind
+        self.calls = {k: {} for k in self.KINDS}
+        self.counts = {k: {} for k in self.KINDS}
+
+    def __enter__(self):
+        from wiser_tpu_torch.engine import kernels as K
+
+        self._orig = (K.semidense_phrase_body, K.list_phrase)
+        sdp, lst = self._orig
+
+        def rec(kind, fn, b_arg):
+            def run(*args, **kw):
+                mode = "tc" if kw.get("avg32") is not None else "raw"
+                key = (mode, kw["T"], kw["L"], kw["M"])
+                B = args[b_arg].shape[0]
+                c = self.counts[kind]
+                c[key] = c.get(key, 0) + 1
+                calls = self.calls[kind]
+                if (key in calls and B > calls[key][0]) or (
+                        key not in calls and len(calls) < self.per_kind):
+                    calls[key] = (B, args, kw)
+                return fn(*args, **kw)
+            return run
+
+        K.semidense_phrase_body = rec("semidense_phrase", sdp, 5)
+        K.list_phrase = rec("list_phrase", lst, 4)
+        return self
+
+    def __exit__(self, *exc):
+        from wiser_tpu_torch.engine import kernels as K
+
+        K.semidense_phrase_body, K.list_phrase = self._orig
+        return False
+
+    def chosen(self, kind: str, busiest: bool = True):
+        """A kind's recorded shape with the most lanes (B * L; its largest
+        group), then, with `busiest`, its most called one where that is
+        another."""
+        c, calls = self.counts[kind], self.calls[kind]
+        if not calls:
+            return []
+        biggest = max(calls, key=lambda k: calls[k][0] * k[2])
+        most = max(calls, key=lambda k: c[k])
+        keys = [biggest] + ([most] if busiest and most != biggest else [])
+        return [(k, c[k], calls[k]) for k in keys]
+
+
+def time_calls(rec: Recorder, plain: bool = True,
+               busiest: bool = True) -> dict:
+    """Each kind's chosen recorded groups (`Recorder.chosen`): the kernel
+    against the plain version on the recorded inputs, then timed."""
+    out = {}
+    for kind in Recorder.KINDS:
+        out[kind] = []
+        for key, calls, (B, args, kw) in rec.chosen(kind, busiest):
+            row = _timed(kind, args, kw, key[0], plain, True,
+                         f"{kind} engine call")
+            row["calls"] = calls
+            out[kind].append(row)
+    return out
+
+
+def kernel_rows(rows: list, source: str) -> dict:
+    """The chip smoke's kernels-line entries from timing rows: the first
+    row of each kind and column mode."""
+    out = {}
+    for r in rows:
+        name = r["kind"] + ("_tc" if r["mode"] == "tc" else "")
+        if name in out:
+            continue
+        shape = " ".join(f"{k}={r[k]}" for k in ("B", "T", "L", "KV", "M",
+                                                  "PP") if k in r)
+        out[name] = {
+            "max_abs_err": 0.0, "ms": r["device_ms"], "timing": r["timing"],
+            "host_us": r["host_us"],
+            "plain_ms": min(r["plain_ms"]) if r["plain_ms"] else None,
+            "bound_ms": r["bound_ms"], "share": r["share"],
+            "launches_per_call": r["launches_per_call"],
+            "peak_extra": r["peak_extra"], "shape": f"{shape} ({source})"}
+    return out
+
+
+# -- one tree -----------------------------------------------------------------
+
+
+def measure(root: str, index=None, sets=SETS) -> dict:
+    """One tree's readings, in this process: with `index`, the route
+    split, raw and tc."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from wiser_tpu_torch.engine import kernels as K
+    from wiser_tpu_torch.tools.unpack_bench import card_line
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phrase_bench measures a card: none is available")
+    out = {"tree": root, "card": card_line(),
+           "module": os.path.abspath(K.__file__)}
+    if index:
+        out["split"] = {c: route_split(index, c, sets) for c in ("raw", "tc")}
+    return out
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--trees", default=None,
+                    help="comma-separated trees, measured in turns")
+    ap.add_argument("--root", help="measure this tree in this process")
+    ap.add_argument("--index", help="a saved 1M index (with phrase_pairs.json)")
+    ap.add_argument("--sets", default=",".join(SETS))
+    ap.add_argument("--split", action="store_true",
+                    help="the route split of --index in this tree only")
+    ap.add_argument("--check-only", action="store_true",
+                    help="build and compare the kernels, no timing")
+    args = ap.parse_args(argv)
+    sets = [s for s in args.sets.split(",") if s]
+    if args.root:
+        res = measure(args.root, args.index, sets)
+        print(json.dumps(res), flush=True)
+        return res
+    if args.trees:
+        from wiser_tpu_torch.tools.unpack_bench import run_trees
+
+        extra = ["--sets", ",".join(sets)]
+        if args.index:
+            extra += ["--index", os.path.abspath(args.index)]
+        res = {"runs": run_trees(__file__, args.trees.split(","), extra)}
+        print(json.dumps({"phrase_bench": [
+            {"tree": r["tree"], "card": r["card"],
+             **split_summary(r.get("split", {}))} for r in res["runs"]]}),
+            flush=True)
+    elif args.split:
+        res = measure(".", args.index, sets)
+        print(json.dumps(split_summary(res["split"])), flush=True)
+    else:
+        import torch
+
+        from wiser_tpu_torch.build import build_log, load_libraries
+        from wiser_tpu_torch.runtime import resolve_device
+        from wiser_tpu_torch.tools.unpack_bench import card_line
+
+        dev = resolve_device("cuda")
+        res = {"card": card_line(), "device": torch.cuda.get_device_name(0)}
+        load_libraries(("phrase_route", "dense"))
+        res["build_s"] = build_log["phrase_route"][0]
+        log(build_log["phrase_route"][1])
+        for name, fn in (("semidense_phrase_check", semidense_phrase_cases),
+                         ("list_phrase_check", list_phrase_cases)):
+            t0 = time.perf_counter()
+            res[name] = fn(dev)
+            res[name]["wall_s"] = time.perf_counter() - t0
+            log(f"{name}: {res[name]}")
+        if not args.check_only:
+            res["timing"] = time_semidense_phrase(dev) + time_list_phrase(dev)
+        print(json.dumps({k: v for k, v in res.items() if k != "timing"}))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+    return res
+
+
+if __name__ == "__main__":
+    main()
