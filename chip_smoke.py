@@ -209,8 +209,10 @@ and either kernel did not launch there. The semidense step (semidense
 on raw columns, semidense_tc on tc ones; csrc/semidense.cu) and the
 phrase position verification (phrase_verify; csrc/phrase.cu) are held
 against their plain versions in the kernel phase (semidense_bench.
-semidense_cases and verify_cases: raw and tc, T 2 to 8 with 0 to 2
-searched others, a mesh shard's doc_base, a deep k on the plane path;
+semidense_cases, segment_cases and verify_cases: raw and tc, T 2 to 8
+with 0 to 2 searched others, a mesh shard's doc_base, a deep k, the
+segmented kernel's edges: L at the 256-lane units' edges with B 1 and 8,
+runs past the iteration count, a K whose keys lie in device memory;
 bags with planted phrases, clamped windows, anchors not 0, int16 and
 int32 columns) and timed there on synthetic 1M inputs, then on the dense
 and tc phases' own calls (semidense_bench.Recorder: each kind's largest
@@ -226,16 +228,23 @@ by binary search and top M in one launch) are held against their plain
 versions in the kernel phase (phrase_bench.semidense_phrase_cases and
 list_phrase_cases: raw and tc, T 2 to 4, ties straddling the (KV+1)-th
 lane, fewer than KV + 1 matches, absent bloom rows, no active probe, PP
-above every bag, a bag holding 65,535; packed outputs bit for bit) and
+above every bag, a bag holding 65,535, B 1 over 8 segments with ties
+across their edges, a recovery past its iteration count; packed outputs
+bit for bit) and
 timed there on synthetic 1M inputs, then on the dense and tc phases'
 own calls (phrase_bench.Recorder: each kind's largest group, compared
 and timed after the passes); the smoke fails if a run's mix (the mesh's
 aside: its list route is phrase_body) answered queries on the semidense
 phrase or list route and that route's kernel did not launch on its
 timed pass, or if the raw kernels never launched on the dense phase or
-the tc ones on the tc phase with the phrase set. The full report is the
-last line of stderr, one JSON object (also written to the --report path,
-if given).
+the tc ones on the tc phase with the phrase set. Every kernel's device
+ms summed over the main path (tools/kernel_tally: each wrapper's calls
+on the timed runs and the harness, mesh, headline and serve phases,
+each call shape timed with its calls queued behind a sleep kernel
+before the phase's engines go) is the report's kernel_device_ms, by
+phase and shape, and a line of its own. The full report is the last
+line of stderr, one JSON object (also written to the --report path, if
+given).
 """
 
 from __future__ import annotations
@@ -781,15 +790,17 @@ def semi_rows(rows: list, err: float, source: str) -> dict:
 
 def semi_kernel_phase(report: dict) -> dict:
     """The semidense step's and the verification's kernels against their
-    plain versions on the card (semidense_bench.semidense_cases and
-    verify_cases), then timed on synthetic 1M inputs in turns with the
-    plain versions. Returns the kernels line's entries."""
+    plain versions on the card (semidense_bench.semidense_cases, the
+    segmented kernel's edges segment_cases, and verify_cases), then timed
+    on synthetic 1M inputs in turns with the plain versions. Returns the
+    kernels line's entries."""
     import torch
 
     from wiser_tpu_torch.tools import semidense_bench as SDB
 
     dev = torch.device("cuda", 0)
     for key, fn in (("semidense_check", SDB.semidense_cases),
+                    ("segment_check", SDB.segment_cases),
                     ("verify_check", SDB.verify_cases)):
         t0 = time.perf_counter()
         chk = fn(dev)
@@ -804,7 +815,8 @@ def semi_kernel_phase(report: dict) -> dict:
     torch.cuda.empty_cache()
     report["semi_kernel_timing"] = {"rows": rows,
                                     "wall_s": time.perf_counter() - t0}
-    return semi_rows(rows, report["semidense_check"]["max_abs_err"],
+    return semi_rows(rows, max(report["semidense_check"]["max_abs_err"],
+                               report["segment_check"]["max_abs_err"]),
                      "synthetic 1M")
 
 
@@ -996,27 +1008,11 @@ def get_index(n_docs: int, report: dict):
 
 def aol_mixed_queries(packed, n_queries: int, seed: int = 7,
                       by_df: bool = False):
-    """1-4 term conjunctive queries with the AOL length mix (bench.py's
-    workload generator). Its Zipf ranks index the term dictionary, which
-    is sorted by spelling, so over this corpus the picks are unrelated to
-    term frequency; by_df=True indexes the terms by descending df
-    instead, so the ranks follow frequency and head terms meet."""
-    import numpy as np
+    """bench.py's AOL-mix conjunctions over the index, k = K
+    (tools/route_bench.aol_mixed_queries; by_df: the df-ranked set)."""
+    from wiser_tpu_torch.tools.route_bench import aol_mixed_queries as aol
 
-    from wiser_tpu_torch.types import SearchQuery
-
-    rng = np.random.default_rng(seed)
-    n_terms = rng.choice([1, 2, 3, 4], size=n_queries,
-                         p=[0.43, 0.29, 0.20, 0.08])
-    terms = packed.terms
-    if by_df:
-        order = np.argsort(-packed.df, kind="stable")
-        terms = [packed.terms[r] for r in order]
-    queries = []
-    for nt in n_terms:
-        ranks = np.minimum(rng.zipf(1.25, size=int(nt)) - 1, packed.n_terms - 1)
-        queries.append(SearchQuery([terms[r] for r in ranks], n_results=K))
-    return queries
+    return aol(packed, n_queries, seed, by_df, K)
 
 
 def phrase_queries(pairs, n_queries: int, seed: int = 7):
@@ -2069,6 +2065,12 @@ def main() -> int:
         return "staged" if run_name == "staged_q" else run_name
     expected: dict = {}  # the exact host answers, across runs
     packed = None  # the 1M index, when a phase that needs it runs
+    # every kernel's device ms summed over the main path's launches (the
+    # timed passes of every run and the harness, mesh, headline and serve
+    # phases), timed per call shape before each phase's engines go
+    from wiser_tpu_torch.tools.kernel_tally import KernelTally
+
+    tally = KernelTally()
     if runs or "harness" in phases or "mesh" in phases:
         from wiser_tpu_torch import StagedEngine, TorchEngine
         from wiser_tpu_torch.engine.staged import full_residency_bytes
@@ -2113,13 +2115,15 @@ def main() -> int:
                 key = f"{name}_{mix}"
                 for a, v in attrs.items():
                     setattr(eng, a, v)  # this instance, this mix only
-                res = serve(eng, queries, key, report, warm)
+                with tally:
+                    res = serve(eng, queries, key, report, warm)
                 for a in attrs:
                     delattr(eng, a)
                 report[key]["engine_attrs"] = attrs
                 report[key]["parity_checked"] = check_parity(
                     packed, queries, res, parity_sample(queries), key,
                     expected)
+            tally.flush(phase_of(name))
             if rec is not None:
                 rec.__exit__(None, None, None)
                 prec.__exit__(None, None, None)
@@ -2182,8 +2186,10 @@ def main() -> int:
                               for p in route_keys)})
         print(json.dumps({"routes": summary}), flush=True)
     if "harness" in phases:
-        kern["launches"] += harness_phase(report, packed, pairs, keep,
-                                          args.trace_dir)
+        with tally:
+            kern["launches"] += harness_phase(report, packed, pairs, keep,
+                                              args.trace_dir)
+        tally.flush("harness")
         bs_by_phase["harness"] = report["harness"]["bs_search_launches"]
         add_dense("harness", report["harness"])
         dense_work["harness"] = 1  # its stage probe runs the pruned scan
@@ -2192,8 +2198,10 @@ def main() -> int:
         print(json.dumps({"harness": harness_summary(report["harness"])}),
               flush=True)
     if "mesh" in phases:
-        print(json.dumps({"mesh": mesh_phase(report, packed, pairs, pools,
-                                             expected, Q)}), flush=True)
+        with tally:
+            mesh = mesh_phase(report, packed, pairs, pools, expected, Q)
+        tally.flush("mesh")
+        print(json.dumps({"mesh": mesh}), flush=True)
         bs_by_phase["mesh"] = sum(
             r["launches"]["bs_search"] for k, r in report.items()
             if k.startswith("mesh_") and isinstance(r, dict)
@@ -2221,12 +2229,16 @@ def main() -> int:
     if "headline" in phases or "serve" in phases:
         corpus = bench_corpus(args.bench_docs, report)
         if "headline" in phases:
-            headline_phase(report, args.bench_docs, args.bench_queries)
+            with tally:
+                headline_phase(report, args.bench_docs, args.bench_queries)
+            tally.flush("headline")
             bs_by_phase["headline"] = report["headline"]["launches"][
                 "bs_search"]
             add_dense("headline", report["headline"])
         if "serve" in phases:
-            serve_phase(report, corpus)
+            with tally:
+                serve_phase(report, corpus)
+            tally.flush("serve")
             add_dense("serve", report["serve"])
         del corpus
 
@@ -2235,6 +2247,10 @@ def main() -> int:
         "jax", "jaxlib", "wiser_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
+    report["kernel_device_ms"] = {"total": tally.totals(),
+                                  "by_phase": tally.sums}
+    print(json.dumps({"kernel_device_ms": report["kernel_device_ms"][
+        "total"]}), flush=True)
     report["bs_search_launches"] = bs_by_phase
     report["bs_search_plane_launches"] = sum(
         r["launches"].get("bs_search_plane", 0) for r in report.values()

@@ -62,8 +62,9 @@ def test_json_line(runs, columns):
     assert line["replayed_queries"] == 600 and line["unique_queries"] == uniq
     assert len(line["pass_qps"]) == 2 and line["value"] == max(line["pass_qps"])
     assert line["vs_baseline"] == round(line["value"] / 10_000, 3)
-    assert line["unique_qps"] == pytest.approx(line["value"] * uniq / 600,
-                                               rel=1e-3)
+    # the best pass's unrounded QPS over the same queries' uniques
+    best = max(p["qps"] for p in out[columns]["passes"])
+    assert line["unique_qps"] == round(best * uniq / 600, 1)
     json.dumps(line)
     assert os.listdir(cache) == ["torch_idx_300_400_30"]
 

@@ -36,6 +36,7 @@ import wiser_tpu.engine.kernels as JK
 from wiser_tpu_torch.engine import kernels as TK
 from wiser_tpu_torch.ops import phrase as P
 from wiser_tpu_torch.ops import phrase_route as R
+from wiser_tpu_torch.ops import semidense as SD
 from wiser_tpu_torch.tools import phrase_bench as PB
 
 NO_FMA = {"xla_backend_optimization_level": 0}
@@ -327,14 +328,17 @@ def test_plans_at_engine_shapes(T):
             for M in (1, 64, KV):
                 p = R.plan_semidense(4096, T, KV, PW, M)
                 assert p.K == KV + 1 and p.KP >= p.K and p.KP < 2 * p.K
-                assert p.smem_select == 1056 + 16 + 8 * (p.KP + 2048)
+                # the segmented selection's buffer: two steps past KP, or
+                # three lists of KP where a query may split (KP <= 2,048)
+                xc = 3 * p.KP if p.KP <= 2048 else p.KP + 2048
+                assert p.smem_select == SD.HEAD_BYTES + 8 * xc
                 assert p.smem_select <= R.MAX_SMEM
                 assert p.smem_verify == p.W * P.warp_bytes(T, PW)
                 assert 1 <= p.W <= 8 and p.smem_verify <= R.MAX_SMEM
                 assert p.smem_output == 4 * 8 * (M + 1) <= R.MAX_SMEM
                 assert p.scratch_bytes == 4096 * (8 * (KV + 1) + 4 * KV
                                                   + 4 * T * KV)
-    assert R.plan_semidense(128, 2, 1024, 8, 24).smem_select == 33840
+    assert R.plan_semidense(128, 2, 1024, 8, 24).smem_select == 50480
     for L in (1, 128, 1000, 1024):
         s = R.plan_list(T, L)
         P2 = 1 << (L - 1).bit_length()
@@ -346,8 +350,9 @@ def test_plans_at_engine_shapes(T):
 
 
 def test_select_keys_fit_the_flush_scratch():
-    """select.cuh's FlushSmem: 256 histogram words, 4 words and 2 keys."""
-    assert R.FLUSH_BYTES == 256 * 4 + 4 * 4 + 2 * 8
+    """select.cuh's FlushSmem: 256 histogram words, 4 words and 2 keys,
+    ahead of segsel.cuh's 4 step counters and the query's 16-slot rows."""
+    assert SD.HEAD_BYTES == 256 * 4 + 4 * 4 + 2 * 8 + 16 + 4 * 4 * 16
 
 
 def test_semidense_bound_by_hand():

@@ -345,11 +345,12 @@ def test_cpu_tensors_take_the_plain_version(mode, monkeypatch):
 
 def test_launch_plans_at_every_engine_shape():
     """Every engine group (T bucket >= 2, 0 <= n_bs < T - 1, L bucket, B
-    by the lane budget, M = min(L, k + margin) at k 10, 100 and 1,000):
-    the tile path wherever K = min(M + 1, L) fits its keys, laid out for
-    the 1 + n_bs slots searched, within the card's shared memory, its
-    output without posting indices; the plane path past that (a deep
-    k)."""
+    by the lane budget, M = min(L, k + margin) at k 10, 100 and 1,000) on
+    an H100 of 132 SMs: K = min(M + 1, L) keys, the
+    CTA's buffer within the card's shared memory (a deep k's past it in
+    device memory, one CTA a query), whole 256-lane segments covering L
+    in at most a cluster's 8, a split only where the merge's three lists
+    fit the buffer; the output without posting indices."""
     seen = set()
     for T in (t for t in T_BUCKETS if t >= 2):
         for n_bs in range(T - 1):
@@ -358,23 +359,26 @@ def test_launch_plans_at_every_engine_shape():
                                   B_BUCKETS)
                 for k in (10, 100, 1000):
                     Mx = min(Lb, k + DEFAULT_MARGIN)
-                    p = SD.plan(B, T, n_bs, Lb, Mx)
-                    K_ = min(Mx + 1, Lb)
+                    p = SD.plan(B, T, n_bs, Lb, Mx, 132)
+                    g = p.seg
                     assert p.out_words == B * (2 * Mx + T * Mx + 1)
-                    assert p.K == K_
-                    if K_ > S.KEY_CAP:
-                        assert p.path == "plane"
-                        continue
-                    assert p.path == "tile"
-                    assert p.smem <= S.MAX_SMEM
-                    multi = p.ntiles > 1
-                    assert p.smem == (S.THREADS // p.G) * S.worker_bytes(
-                        p.G, 1 + n_bs, p.TL, p.KP, multi)
-                    assert p.ntiles * p.TL >= Lb
-                    assert p.nseg * p.tps >= p.ntiles
-                    seen.add((p.G, p.LPT, p.nseg > 1))
-    # a warp's tile, each CTA tile width, and split groups all occur
-    assert {(32, 4, False), (256, 4, False), (256, 4, True)} <= seen
+                    assert g.K == min(Mx + 1, Lb)
+                    assert g.KP >= g.K and g.KP < 2 * g.K
+                    assert g.XC == (3 * g.KP if g.KP == 2 * SD.STEP
+                                    else g.KP + 2 * SD.STEP)
+                    assert g.smem <= SD.MAX_SMEM
+                    assert g.global_x == (SD.HEAD_BYTES + 8 * g.XC
+                                          > SD.MAX_SMEM)
+                    assert 1 <= g.nseg <= SD.MAX_CLUSTER
+                    assert g.seg_lanes % SD.UNIT == 0
+                    assert g.nseg * g.seg_lanes >= Lb
+                    assert (g.nseg - 1) * g.seg_lanes < Lb
+                    assert g.nseg == 1 or 3 * g.KP <= g.XC
+                    assert p.scratch_bytes == (8 * B * g.XC if g.global_x
+                                               else 0)
+                    seen.add((g.nseg > 1, g.global_x))
+    # split groups and one-CTA groups both occur
+    assert {(True, False), (False, False)} <= seen
 
 
 def test_bound_bytes_hand_count():

@@ -149,29 +149,10 @@ namespace wiser_dense {
 using namespace wiser_keys;
 using namespace wiser_select;
 
-// Phase marks for a measuring build (-DWISER_DENSE_CLOCKS; never the
-// library the entry points load): thread 0 of every CTA adds the cycles
-// between marks to its phase's counter, read by wiser_dense_clocks.
-#ifdef WISER_DENSE_CLOCKS
-__device__ unsigned long long g_clk[32];
-#define CLK_START long long clk_t = clock64();
-#define CLK(i)                                              \
-  do {                                                      \
-    if (threadIdx.x == 0) {                                 \
-      const long long clk_n = clock64();                    \
-      atomicAdd(&g_clk[i], (unsigned long long)(clk_n - clk_t)); \
-      clk_t = clk_n;                                        \
-    }                                                       \
-  } while (0)
-#define CLK_COUNT(i) \
-  if (threadIdx.x == 0) atomicAdd(&g_clk[i], 1ull)
-#else
-#define CLK_START
-#define CLK(i) \
-  do {         \
-  } while (0)
-#define CLK_COUNT(i)
-#endif
+// Phase marks for a measuring build (-DWISER_CLOCKS, clocks.cuh; never
+// the library the entry points load): thread 0 of every CTA adds the
+// cycles between marks to its phase's counter, read by wiser_dense_clocks.
+#include "clocks.cuh"
 
 constexpr int kThreads = 256;     // the scan's and the merge's CTA
 constexpr int kLPT = 4;           // lanes a thread scores a step
@@ -567,7 +548,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
   const int SB = a.SB, SL = SB * 128, NS = a.NS;
   const ScanLayout L =
       scan_layout(TC, a.blocks != nullptr, T, KP, NS, SB, KIND == kSelect);
-  CLK_START
+  WCLK_START
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   int* s_nrows = reinterpret_cast<int*>(smem + 32);
   int* cnt = reinterpret_cast<int*>(smem + L.counters);
@@ -697,7 +678,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
   } else if (warp == 0) {
     for (int s = 0; s < min(NS, nsteps); ++s) issue(s);
   }
-  CLK(0);
+  WCLK(0);
 
   int base = 0;  // keys in X before this step
   for (int s = 0; s < nsteps; ++s) {
@@ -723,7 +704,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
     } else {
       mbar_wait(bar + s % NS, (unsigned)((s / NS) & 1));
     }
-    CLK(1);
+    WCLK(1);
     const unsigned char* stage = ring + (s % NS) * L.stage;
     unsigned match = 0;
     unsigned dif = 0;  // the band, tc: a lane's byte nonzero where its
@@ -797,7 +778,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
                         tile_key(acc[j], doc) < bs.kvkey &&
                         (!TC || ((dif >> (8 * j)) & 255u) || doc < bs.kd));
       }
-      CLK(2);
+      WCLK(2);
       // the step's barrier: every thread has read this stage
       if (__syncthreads_or(flag || polled)) {
         if (tid == 0) a.hit[b] = 1;
@@ -810,7 +791,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         issue(s + NS);
       }
-      CLK(3);
+      WCLK(3);
       continue;
     }
     // the matched keys above the running K-th, compacted into X after
@@ -820,7 +801,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
     for (int j = 0; j < kLPT; ++j)
       key[j] = match >> j & 1 ? tile_key(acc[j], (int)(doc0 + j)) : 0ull;
     push_keys(key, KIND == kSelect ? *tau : R[K - 1], X, base, cnt + s % 3);
-    CLK(2);
+    WCLK(2);
     // every thread has read this stage and counted its keys: warp 0
     // refills it
     __syncthreads();
@@ -828,7 +809,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       issue(s + NS);
     }
-    CLK(3);
+    WCLK(3);
     // this step's counter is read by every thread before the next
     // barrier; the one two steps on was last read before this barrier
     const int c = base + cnt[s % 3];
@@ -847,22 +828,22 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
           if (nt > *tau) *tau = nt;
         }
         __syncthreads();
-        CLK_COUNT(7);
+        WCLK_COUNT(7);
         base = K;
       } else {
         base = c;
       }
-      CLK(4);
+      WCLK(4);
       continue;
     }
     if (c >= SL) {
       flush_keys(R, R2, KP, K, X, c, fs, tid);
-      CLK_COUNT(7);
+      WCLK_COUNT(7);
       base = 0;
     } else {
       base = c;
     }
-    CLK(4);
+    WCLK(4);
   }
   if constexpr (KIND == kScan) {
     if (base) flush_keys(R, R2, KP, K, X, base, fs, tid);
@@ -890,10 +871,8 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
         a.part_keys[o + i] = i < c ? X[i] : 0ull;
     }
   }
-  CLK(5);
-#ifdef WISER_DENSE_CLOCKS
-  if (tid == 0) atomicAdd(&g_clk[6], 1ull);
-#endif
+  WCLK(5);
+  WCLK_COUNT(6);
 }
 
 // The second launch where a query's blocks span nseg segments: one CTA a
@@ -1134,7 +1113,7 @@ __global__ void __launch_bounds__(kPickThreads,
   const int wl = tid & 31;
   const int T = a.T;
   const long long NB = a.NB;
-  CLK_START
+  WCLK_START
   long long* s_off = reinterpret_cast<long long*>(smem);
   float* s_w = reinterpret_cast<float*>(smem + align16(8LL * T));
   float* Us = reinterpret_cast<float*>(smem + align16(8LL * T) +
@@ -1159,7 +1138,7 @@ __global__ void __launch_bounds__(kPickThreads,
     U[k] = u1;
     if (k2 < hi) U[k2] = u2;
   }
-  CLK(8);
+  WCLK(8);
   if (a.nsplit > 1) {
     // the last part of the query to finish selects
     __threadfence();
@@ -1175,7 +1154,7 @@ __global__ void __launch_bounds__(kPickThreads,
     }
   }
   __syncthreads();
-  CLK(9);
+  WCLK(9);
   const bool global = U != Us;
   auto load = [&](long long k) { return global ? __ldcg(U + k) : U[k]; };
 
@@ -1262,7 +1241,7 @@ __global__ void __launch_bounds__(kPickThreads,
     prefix |= s_digit << shift;
     rem = s_rem;
     known += width;
-    CLK_COUNT(13);
+    WCLK_COUNT(13);
     if (known < 32 && s_cnt <= kPickThreads) {
       // few bounds have this prefix: gather them (value bits, id) and
       // rank them, the (C+1)-th is the one with rem - 1 above it in
@@ -1305,11 +1284,11 @@ __global__ void __launch_bounds__(kPickThreads,
       __syncthreads();
       prefix = s_val;
       rem = s_rem;
-      CLK_COUNT(14);
+      WCLK_COUNT(14);
       break;
     }
   }
-  CLK(10);
+  WCLK(10);
   // the C picked: every block above prefix, and the first rem - 1 equal
   // to it in id order; the rem-th equal one is the (C+1)-th
   // each thread a run of span consecutive ids; up to 32 ids a thread,
@@ -1365,10 +1344,8 @@ __global__ void __launch_bounds__(kPickThreads,
       }
     }
   }
-  CLK(11);
-#ifdef WISER_DENSE_CLOCKS
-  if (tid == 0) atomicAdd(&g_clk[12], 1ull);
-#endif
+  WCLK(11);
+  WCLK_COUNT(12);
 }
 
 template <typename F>
@@ -1601,23 +1578,10 @@ int wiser_dense_tc_table(const float* avg32, float* out, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// A measuring build's phase counters (32 words) into `out`, then zeroed;
-// cudaErrorNotSupported in the library the entry points load.
-int wiser_dense_clocks(unsigned long long* out) {
-#ifdef WISER_DENSE_CLOCKS
-  cudaError_t err = cudaMemcpyFromSymbol(out, wiser_dense::g_clk,
-                                         sizeof(wiser_dense::g_clk));
-  if (err != cudaSuccess) return (int)err;
-  static const unsigned long long zero[32] = {};
-  return (int)cudaMemcpyToSymbol(wiser_dense::g_clk, zero, sizeof(zero));
-#else
-  (void)out;
-  return (int)cudaErrorNotSupported;
-#endif
-}
-
 const char* wiser_dense_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"
+
+WISER_CLOCKS_READER(wiser_dense_clocks, wiser_dense)

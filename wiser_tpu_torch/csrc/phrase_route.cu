@@ -26,12 +26,18 @@
 //     use; tc: idf * the device table's entry, dense.cu's tc_norm_kernel,
 //     which equals tc_score bit for bit);
 //   - sdp_select_kernel keeps the K = KV + 1 best keys (keys.cuh: score
-//     desc, lane asc, so lax.top_k's order) in select.cuh's unsorted
-//     buffer, cut by its radix select when it fills, sorted once at the
-//     end: one CTA a query, 1,024 lanes a step, no (B, L) plane;
+//     desc, lane asc, so lax.top_k's order) by segsel.cuh's segmented
+//     selection: a query's lanes in up to 8 segments of one cluster
+//     (planned over the card's SMs, ops/semidense.segments), each keeping its
+//     top K in select.cuh's unsorted shared-memory buffer, cut by its
+//     radix select when it fills, sorted once; the segments merged in a
+//     tree through distributed shared memory; no (B, L) plane;
 //   - sdp_verify_kernel, a warp a (query, kept lane): the posting index
-//     of each slot 1.. recovered by the fixed-count binary search of the
-//     plain version over the slot's run (slot 0's is cs + lane), the bag
+//     of each slot 1.. recovered over the slot's run by the warp's 32-ary
+//     lower bound (bound.cuh: ~4 dependent rounds at 1M docs where a
+//     binary search takes ~20) where the plain version's fixed-count
+//     search has converged, else by a replay of that search (slot 0's is
+//     cs + lane), so the indices agree everywhere; the bag
 //     bounds from pos_starts in query-term order (slot_of), then
 //     verify.cuh's window verification (phrase.cu's, anchor 0); it
 //     writes the (B, KV) counts and the (B, T, KV) posting indices;
@@ -61,6 +67,10 @@
 // reaches device memory. Without kGate (a compile-time switch) it is the
 // bloomless chain of phrase_body, which the staged cold tier runs.
 //
+// A selection of one CTA a query ran under one wave at the engine's B <=
+// 128 groups and 32 steps in series at L 32,768, and a recovery by the
+// fixed-count search took 78% of a verification CTA's cycles (PERF.md §6).
+//
 // Bound: bytes. The least the semidense phrase route must move is the
 // candidate slice (8 bytes a lane raw, 6 tc), the 32-byte sectors of each
 // dense row that the ascending docs touch, the K keys, and for the KV
@@ -81,17 +91,19 @@
 #include <cstring>
 #include <cuda_runtime.h>
 
+#include "bound.cuh"
 #include "keys.cuh"
+#include "segsel.cuh"
 #include "select.cuh"
 #include "verify.cuh"
 
 namespace wiser_phrase_route {
 
+using namespace wiser_bound;
 using namespace wiser_keys;
+using namespace wiser_segsel;  // kThreads, the CTA of the selection and list
 using namespace wiser_select;
 
-constexpr int kThreads = kSelThreads;   // every CTA of the selection and list
-constexpr int kStep = kThreads * kSelLPT;  // lanes a selection step
 constexpr int kMaxT = 8;
 constexpr int kListMaxL = 1024;  // the list chain's lanes: L <= KV
 constexpr int kFlagPruneMiss = 8;
@@ -99,18 +111,6 @@ constexpr int kWarps = 8;  // the output kernel's queries a CTA
 
 __host__ __device__ constexpr long long align16(long long x) {
   return (x + 15) & ~15LL;
-}
-
-__device__ __forceinline__ long long clampll(long long x, long long lo,
-                                             long long hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
-// the start of a contiguous L-lane load, clamped as dynamic_slice clamps it
-__device__ __forceinline__ long long slice_start(long long s, long long n,
-                                                 int L) {
-  const long long top = n - L;
-  return clampll(s, 0, top > 0 ? top : 0);
 }
 
 // kernels._binary_search: the fixed-count int32 lower bound of target in
@@ -130,14 +130,6 @@ __device__ __forceinline__ int search_fixed(const void* col, long long n,
     hi = less ? hi : mid;
   }
   return lo;
-}
-
-// the score of a tc lane (code8 << 8 | tf8) in a slot of this idf: the
-// device table's entry times idf (bit for bit tc_score)
-__device__ __forceinline__ float tc_lane_score(const float* norm_g, int lane,
-                                               float idf) {
-  return __fmul_rn(idf, __ldg(norm_g + (lane & 0xFF) * 256 +
-                              ((lane >> 8) & 0xFF)));
 }
 
 // ---------------------------------------------------------------------------
@@ -174,123 +166,50 @@ struct SdpArgs {
   int32_t* out;              // (B, T + 2, M)
 };
 
-// The selection's shared bytes: the flush's scratch | 3 step counters |
-// X, KP + 2 steps' keys. ops/phrase_route.plan_semidense computes the same.
-__host__ __device__ constexpr long long select_bytes(int KP) {
-  return align16(sizeof(FlushSmem)) + 16 + 8LL * (KP + 2 * kStep);
+// The selection (segsel.cuh): a CTA a (query, segment), the CTAs of a
+// query one cluster; the cluster's first CTA writes the query's K keys.
+template <bool TC>
+__global__ void __launch_bounds__(kThreads) sdp_select_kernel(
+    SelArgs a, unsigned long long* keys) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* X =
+      reinterpret_cast<unsigned long long*>(smem + kHead);
+  const int b = blockIdx.x / a.nseg, seg = blockIdx.x % a.nseg;
+  const int tid = threadIdx.x;
+  select_segment<TC, false>(a, b, seg, X, smem, tid);
+  const unsigned long long* R = merge_segments(a, X, seg, tid);
+  if (!R) return;
+  WCLK_START
+  for (int i = tid; i < a.K; i += kThreads) keys[(long long)b * a.K + i] = R[i];
+  WCLK(4);
+  WCLK_COUNT(6);
 }
 
-template <bool TC>
-__global__ void __launch_bounds__(kThreads) sdp_select_kernel(SdpArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  FlushSmem& fs = *reinterpret_cast<FlushSmem*>(smem);
-  int* cnt = reinterpret_cast<int*>(smem + align16(sizeof(FlushSmem)));
-  unsigned long long* X = reinterpret_cast<unsigned long long*>(
-      smem + align16(sizeof(FlushSmem)) + 16);
-  volatile unsigned long long* const tau = &fs.tau;
-  const int tid = threadIdx.x, b = blockIdx.x;
-  const int T = a.T, K = a.K;
-  const int32_t* st = a.starts + (long long)b * T;
-  const int32_t* en = a.ends + (long long)b * T;
-  const float* w = a.weights + (long long)b * T;
-  const int32_t* sl = a.slots + (long long)b * T;
-  const long long cs = st[0];
-  const long long n_valid = clampll((long long)en[0] - cs, 0, a.L);
-  const long long s_doc = slice_start(cs, a.n_doc, a.L);
-  const long long s_col = slice_start(cs, TC ? a.n_tc : a.n_score, a.L);
-  const float w0 = w[0];
-  if (tid < 3) cnt[tid] = 0;
-  if (tid == 0) *tau = 0ull;
-  __syncthreads();
-  const int xcap = a.KP + 2 * kStep;
-  const int nsteps = (int)((n_valid + kStep - 1) / kStep);
-  int base = 0;
-  for (int s = 0; s < nsteps; ++s) {
-    const long long lane0 = (long long)s * kStep;
-    int d[kSelLPT], code[kSelLPT];
-    float acc[kSelLPT];
-    unsigned live = 0;
-#pragma unroll
-    for (int j = 0; j < kSelLPT; ++j) {
-      const long long l = lane0 + j * kThreads + tid;
-      d[j] = 0;
-      code[j] = 0;
-      acc[j] = 0.f;
-      if (l < n_valid) {
-        live |= 1u << j;
-        d[j] = a.doc[s_doc + l];
-        if (TC) {
-          const int cl = a.tc[s_col + l];
-          code[j] = cl & 0xFF00;
-          acc[j] = tc_lane_score(a.norm_g, cl, w0);
-        } else {
-          acc[j] = __fmul_rn(a.score[s_col + l], w0);
-        }
-      }
-    }
-    // the dense others in slot order: a slot's gathers go out together
-    for (int t = 1; t < T; ++t) {
-      const long long row = (long long)sl[t] * a.n_pad;
-      const float wt = w[t];
-      int pv[kSelLPT];
-#pragma unroll
-      for (int j = 0; j < kSelLPT; ++j) {
-        pv[j] = 0;
-        if (live >> j & 1) {
-          const long long at = row + clampll(d[j], 0, a.n_pad - 1);
-          pv[j] = TC ? (int)a.dense_tf8[at] : __float_as_int(a.dense_sc[at]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kSelLPT; ++j) {
-        if (live >> j & 1) {
-          const bool hold = TC ? pv[j] > 0 : __int_as_float(pv[j]) > 0.f;
-          if (!hold) {
-            live &= ~(1u << j);
-          } else if (TC) {
-            acc[j] = __fadd_rn(acc[j],
-                               tc_lane_score(a.norm_g, code[j] | pv[j], wt));
-          } else {
-            acc[j] = __fadd_rn(acc[j], __fmul_rn(__int_as_float(pv[j]), wt));
-          }
-        }
-      }
-    }
-    unsigned long long key[kSelLPT];
-#pragma unroll
-    for (int j = 0; j < kSelLPT; ++j)
-      key[j] = live >> j & 1
-                   ? tile_key(acc[j], (int)(lane0 + j * kThreads + tid))
-                   : 0ull;
-    push_keys(key, *tau, X, base, cnt + s % 3);
-    __syncthreads();
-    // this step's counter is read by every thread before the next
-    // barrier; the one two steps on was last read before this barrier
-    const int c = base + cnt[s % 3];
-    if (tid == 0) cnt[(s + 2) % 3] = 0;
-    if (c > xcap - kStep) {
-      const unsigned long long t = keep_top(X, c, K, fs, tid);
-      if (tid == 0) *tau = t;
-      __syncthreads();
-      base = K;
-    } else {
-      base = c;
-    }
-  }
-  __syncthreads();
-  int c = base;
-  if (c > K) {
-    keep_top(X, c, K, fs, tid);
-    c = K;
-  }
-  sort_kept(X, c, K, tid);
-  for (int i = tid; i < K; i += kThreads) a.keys[(long long)b * K + i] = X[i];
+// The recovery's posting index of doc in [lo, hi) by the warp's 32-ary
+// lower bound, where the fixed-count search (search_fixed, n_iters
+// halvings) has converged (the run within 2^n_iters - 1 ids, inside the
+// column, its int32 midpoints without wraparound) and the bound lies in
+// the run: the two agree there. Returns -1 elsewhere (a run past the
+// count, or a doc above every id of the run, where the fixed-count search
+// may step past hi): the caller replays the fixed-count search. Every
+// lane of the warp calls it and gets the index.
+__device__ __forceinline__ int warp_recover(const int32_t* doc,
+                                            long long n_doc, int target,
+                                            int lo, int hi, int n_iters,
+                                            int l32) {
+  const long long run = (long long)hi - lo;
+  const long long max_run = n_iters >= 31 ? (1LL << 31) : (1LL << n_iters) - 1;
+  if (lo < 0 || run < 0 || hi > n_doc || hi >= (1 << 30) || run > max_run)
+    return -1;
+  const long long r = warp_lower_bound(doc, lo, hi, target, l32);
+  return r < hi ? (int)r : -1;
 }
 
 // A warp a (query, kept lane m < KV): recovery, bag bounds, verification.
 template <bool kU16>
 __global__ void __launch_bounds__(256) sdp_verify_kernel(SdpArgs a) {
   extern __shared__ __align__(16) int vsmem[];
+  WCLK_START
   const int W = blockDim.x >> 5;
   const int wid = threadIdx.x >> 5, l32 = threadIdx.x & 31;
   const long long item = (long long)blockIdx.x * W + wid;
@@ -310,13 +229,20 @@ __global__ void __launch_bounds__(256) sdp_verify_kernel(SdpArgs a) {
   const int lane = tile_key_lane(key);
   const long long cs = st[0];
   const int doc = a.doc[slice_start(cs, a.n_doc, a.L) + lane];
-  // lane t holds slot t's posting index
-  int p = 0;
-  if (l32 == 0) {
-    p = (int)((unsigned)cs + (unsigned)lane);
-  } else if (l32 < T) {
-    p = search_fixed<0>(a.doc, a.n_doc, doc, st[l32], en[l32], a.n_iters);
+  // lane t holds slot t's posting index: each slot's found by the warp,
+  // or by lane t's replay of the fixed-count search
+  int p = l32 == 0 ? (int)((unsigned)cs + (unsigned)lane) : 0;
+  bool replay = false;
+  for (int t = 1; t < T; ++t) {
+    const int r = warp_recover(a.doc, a.n_doc, doc, st[t], en[t], a.n_iters,
+                               l32);
+    if (l32 == t) {
+      p = r;
+      replay = r < 0;
+    }
   }
+  if (replay)
+    p = search_fixed<0>(a.doc, a.n_doc, doc, st[l32], en[l32], a.n_iters);
   // lane t < T: query term t's bag, from its slot's posting index
   const int src =
       l32 < T ? (int)clampll(a.slot_of[(long long)b * T + l32], 0, T - 1) : 0;
@@ -326,11 +252,14 @@ __global__ void __launch_bounds__(256) sdp_verify_kernel(SdpArgs a) {
     s = a.pos_starts[clampll(pq, 0, a.n_ps - 1)];
     e = a.pos_starts[clampll((long long)pq + 1, 0, a.n_ps - 1)];
   }
+  WCLK(8);
   const int count = wiser_verify::warp_count<kU16>(
       a.positions, a.n_pos, s, e, T, a.PP, a.PW, 0,
       vsmem + (long long)wid * wiser_verify::warp_ints(T, a.PW), l32);
   if (l32 == 0) a.counts[item] = count;
   if (l32 < T) a.pidx[po + (long long)l32 * KV] = p;
+  WCLK(9);
+  WCLK_COUNT(10);
 }
 
 // A warp a query: the top M of the verified kept lanes, the flags and the
@@ -338,6 +267,7 @@ __global__ void __launch_bounds__(256) sdp_verify_kernel(SdpArgs a) {
 template <bool TC>
 __global__ void __launch_bounds__(kWarps * 32) sdp_output_kernel(SdpArgs a) {
   extern __shared__ __align__(16) int osmem[];
+  WCLK_START
   const int wid = threadIdx.x >> 5, l32 = threadIdx.x & 31;
   const int b = blockIdx.x * kWarps + wid;
   if (b >= a.B) return;  // the warp alone
@@ -403,6 +333,8 @@ __global__ void __launch_bounds__(kWarps * 32) sdp_output_kernel(SdpArgs a) {
   if (unseen > 0.f && unseen >= __fmul_rn(kth, a.keep)) f |= kFlagPruneMiss;
   if (__any_sync(0xffffffffu, sat)) f |= kFlagTfSat;
   for (int i = l32; i < M; i += 32) out[(long long)(T + 1) * M + i] = f;
+  WCLK(12);
+  WCLK_COUNT(13);
 }
 
 // ---------------------------------------------------------------------------
@@ -515,7 +447,7 @@ __global__ void __launch_bounds__(kThreads) list_kernel(ListArgs a) {
     float s0;
     if (TC) {
       const int cl = a.tc[s_col + l];
-      s0 = tc_lane_score(a.norm_g, cl, w[0]);
+      s0 = table_score(a.norm_g, cl, w[0]);
       sat = (cl & 0xFF) >= kTfSat;
     } else {
       s0 = __fmul_rn(a.score[s_col + l], w[0]);
@@ -532,7 +464,7 @@ __global__ void __launch_bounds__(kThreads) list_kernel(ListArgs a) {
       float p;
       if (TC) {
         const int h = a.tc[clampll(lo, 0, a.n_tc - 1)];
-        p = tc_lane_score(a.norm_g, h, w[t]);
+        p = table_score(a.norm_g, h, w[t]);
         sat = sat || (h & 0xFF) >= kTfSat;
       } else {
         p = __fmul_rn(a.score[clampll(lo, 0, a.n_score - 1)], w[t]);
@@ -675,7 +607,7 @@ struct WiserSdpParams {
   long long starts, ends, weights, slots, slot_of, ks;
   long long B, T, L, KV, K, KP, PP, PW, M, n_iters, keep_bits;
   long long keys, counts, pidx, out;
-  long long W, smem_select, smem_verify, smem_output;
+  long long W, smem_select, smem_verify, smem_output, nseg, seg_lanes;
 };
 
 // The semidense phrase route on `stream` (no synchronize): three
@@ -724,21 +656,48 @@ int wiser_semidense_phrase(const WiserSdpParams* p, void* stream) {
   a.out = (int32_t*)p->out;
   const bool tc = a.tc != nullptr;
   const int W = (int)p->W;
-  int KP = 1;
-  while (KP < a.K) KP <<= 1;
-  if (a.T < 2 || a.T > kMaxT || a.K != a.KV + 1 || a.KP != KP || a.M < 1 ||
-      a.M > a.KV || a.PP < 1 || a.PW < 1 || W < 1 || W > 8 ||
+  // the selection's view: the candidate, every other slot a dense head
+  SelArgs sel;
+  sel.doc = a.doc;
+  sel.n_doc = a.n_doc;
+  sel.score = a.score;
+  sel.n_score = a.n_score;
+  sel.tc = a.tc;
+  sel.n_tc = a.n_tc;
+  sel.dense_sc = a.dense_sc;
+  sel.dense_tf8 = a.dense_tf8;
+  sel.n_pad = a.n_pad;
+  sel.doc_base = 0;
+  sel.norm_g = a.norm_g;
+  sel.starts = a.starts;
+  sel.ends = a.ends;
+  sel.weights = a.weights;
+  sel.slots = a.slots;
+  sel.B = a.B;
+  sel.T = a.T;
+  sel.L = a.L;
+  sel.nb = 1;
+  sel.n_iters = 0;
+  sel.K = a.K;
+  sel.KP = a.KP;
+  sel.XC = buffer_keys(a.KP);
+  sel.nseg = (int)p->nseg;
+  sel.seg_lanes = (int)p->seg_lanes;
+  sel.xg = nullptr;
+  if (a.T < 2 || a.T > kMaxT || a.K != a.KV + 1 || !plan_ok(sel) ||
+      a.M < 1 || a.M > a.KV || a.PP < 1 || a.PW < 1 || W < 1 || W > 8 ||
       (tc ? !a.dense_tf8 || !a.norm_g : !a.dense_sc || !a.score || !a.tf) ||
-      p->smem_select != select_bytes(KP) ||
+      p->smem_select != sel_smem(sel.XC, false) ||
       p->smem_verify != 4LL * W * wiser_verify::warp_ints(a.T, a.PW) ||
       p->smem_output != 4LL * kWarps * (a.M + 1))
     return (int)cudaErrorInvalidValue;
   if (a.B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err =
-      tc ? launch(sdp_select_kernel<true>, a.B, kThreads, p->smem_select, a, s)
-         : launch(sdp_select_kernel<false>, a.B, kThreads, p->smem_select, a,
-                  s);
+      tc ? launch_segments(sdp_select_kernel<true>, a.B, sel.nseg,
+                           p->smem_select, s, sel, a.keys)
+         : launch_segments(sdp_select_kernel<false>, a.B, sel.nseg,
+                           p->smem_select, s, sel, a.keys);
   if (err != cudaSuccess) return (int)err;
   const long long items = (long long)a.B * a.KV;
   const unsigned vgrid = (unsigned)((items + W - 1) / W);
@@ -827,8 +786,11 @@ int wiser_list_phrase(const WiserListParams* p, void* stream) {
   return (int)err;
 }
 
+
 const char* wiser_phrase_route_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"
+
+WISER_CLOCKS_READER(wiser_phrase_route_clocks, wiser_segsel)

@@ -105,16 +105,14 @@
 // Gathers clamp their index into the column as the plain version's
 // _gather1d does. The keys, the tc decode and the top-K sort and merge
 // live in keys.cuh, shared with dense.cu; the tile and plane paths live in
-// tile.cuh, compiled here as the bs step (WISER_TILE_SEMI 0) and in
-// semidense.cu as the semidense step.
+// tile.cuh, the warp's 32-ary lower bound in bound.cuh.
 
 #define WISER_TILE_NS wiser_search
-#define WISER_TILE_SEMI 0
 #include "tile.cuh"
 
 extern "C" {
 
-// The bs step on `stream` (tile.cuh launch; the semidense fields 0).
+// The bs step on `stream` (tile.cuh launch).
 int wiser_bs_search(const WiserStepParams* p, void* stream) {
   return wiser_search::launch(p, stream);
 }

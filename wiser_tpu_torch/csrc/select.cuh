@@ -1,7 +1,8 @@
 // The selection machinery of a top K of 64-bit keys (keys.cuh) kept in an
 // unsorted shared-memory buffer, shared by dense.cu (the full-scan mega
-// phrase's selection, and the dense scan's flush) and phrase_route.cu (the
-// semidense phrase route's selection): keys above a threshold pushed into
+// phrase's selection, and the dense scan's flush) and segsel.cuh (the
+// semidense step's and the semidense phrase route's segmented selection):
+// keys above a threshold pushed into
 // the buffer, the buffer cut to its top K by a radix select and a
 // compaction when it fills (keep_top, which raises the threshold to the
 // K-th key), and the kept keys sorted once at the end (sort_kept). Every

@@ -1,37 +1,19 @@
-// The tile path and the plane path of the bs step (search.cu), shared
-// with the semidense step (semidense.cu): the candidate stream, each
-// searched slot's cursor window in shared memory, the running top K of
-// 64-bit keys and the winners' outputs. search.cu's comment says what the
-// paths do and why; this file is their code.
-//
-// An including file defines WISER_TILE_NS (the namespace the kernels are
-// compiled into, so that each library's kernels carry their own name in
-// a trace) and WISER_TILE_SEMI before the include:
-//   - 0 (search.cu): the bs step, every slot searched in its run;
-//   - 1 (semidense.cu): the semidense step. Slots 1..nb-1 are searched as
-//     bs slots are; every later slot is a dense other, one doc-indexed
-//     gather a live lane into its dense row at lane doc - doc_base
-//     (clamped into the row): a raw f32 score (matched where > 0) or a
-//     uint8 tf composed with the candidate lane's len code (matched where
-//     the tf is > 0). The f32 score is the candidate's (raw: times
-//     use[0]), plus the searched slots' sum where there are any, plus
-//     each dense slot's in slot order: kernels._semidense_step's order.
-//     tc scores come from the device table of dense.cu's tc_norm_kernel
-//     (ops/dense.tc_table: every (tf byte, len code) entry, each the
-//     division path's own operations), one multiply by idf a lane and no
-//     division. The outputs carry no posting indices; the dense slots'
-//     tfs are the dense tf rows' (raw) or the tf bytes (tc) at the kept
-//     docs. With WISER_TILE_SEMI 0 each semidense branch compiles away,
-//     so the bs step's code is what it was.
+// The tile path and the plane path of the bs step (search.cu): the
+// candidate stream, each searched slot's cursor window in shared memory,
+// the running top K of 64-bit keys and the winners' outputs. search.cu's
+// comment says what the paths do and why; this file is their code. The
+// including file defines WISER_TILE_NS, the namespace the kernels are
+// compiled into (so that a library's kernels carry its name in a trace).
 
 #ifndef WISER_TILE_NS
-#error "define WISER_TILE_NS and WISER_TILE_SEMI before including tile.cuh"
+#error "define WISER_TILE_NS before including tile.cuh"
 #endif
 
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bound.cuh"
 #include "keys.cuh"
 
 // A wrapper's arguments (ops/search._Params, every field 8 bytes):
@@ -45,13 +27,11 @@ struct WiserStepParams {
   long long lo_scratch, part_keys, part_src;
   long long plane, sort_scratch, P;
   long long top_docs, top_score, top_tfs, top_pidx, flags;
-  // the semidense step (0 in the bs step)
-  long long nb, dense_sc, dense_tf, dense_tf8, slots, norm_g, n_pad, doc_base;
 };
 
 namespace WISER_TILE_NS {
 
-constexpr bool kSemi = WISER_TILE_SEMI;
+using namespace wiser_bound;
 using namespace wiser_keys;
 
 constexpr int kThreads = 256;    // every launch's CTA
@@ -93,17 +73,8 @@ struct Args {
   int32_t* top_docs;   // (B, M)
   float* top_score;    // (B, M)
   int32_t* top_tfs;    // (B, T, M)
-  int32_t* top_pidx;   // (B, T, M); null in the semidense step
+  int32_t* top_pidx;   // (B, T, M)
   int32_t* flags;      // (B,)
-  // the semidense step: slots [1, nb) are searched, [nb, T) gathered from
-  // their dense rows (slots (B, T)), a doc's lane doc - doc_base of n_pad
-  int nb;                    // slots searched, the candidate's included
-  const float* dense_sc;     // raw: (H, n_pad) f32 score rows
-  const int32_t* dense_tf;   // raw: (H, n_pad) int32 tf rows
-  const uint8_t* dense_tf8;  // tc: (H, n_pad) uint8 tf rows
-  const int32_t* slots;      // (B, T) dense rows
-  const float* norm_g;       // tc: (256, 256) tc_norm_kernel's table
-  long long n_pad, doc_base;
 };
 
 constexpr int kCursors = 8;  // slots 1..8 keep a cursor into their run
@@ -167,23 +138,10 @@ __device__ __forceinline__ int tc_lane(const Args& a, long long i) {
   return a.tc[clampll(i, 0, a.n_tc - 1)];
 }
 
-// the score of a tc lane (code8 << 8 | tf8) in a slot of this idf: the
-// division path (keys.cuh tc_score) in the bs step, the device table's
-// entry times idf in the semidense step (bit for bit the same)
+// the score of a tc lane (code8 << 8 | tf8) in a slot of this idf
 __device__ __forceinline__ float lane_score(const Args& a, int lane,
                                             float idf, float avg) {
-  if constexpr (kSemi) {
-    return __fmul_rn(
-        idf, __ldg(a.norm_g + (lane & 0xFF) * 256 + ((lane >> 8) & 0xFF)));
-  } else {
-    return tc_score(lane, idf, avg);
-  }
-}
-
-// the semidense step's dense lane of doc d in a row: d - doc_base,
-// clamped into the row as the plain version's gather clamps it
-__device__ __forceinline__ long long dense_lane(const Args& a, int d) {
-  return clampll((long long)d - a.doc_base, 0, a.n_pad - 1);
+  return tc_score(lane, idf, avg);
 }
 
 // the first position in [lo, hi) whose doc is >= target, after at most
@@ -243,46 +201,6 @@ __device__ __forceinline__ void stats_get(int& mn, int& mx, int& cnt,
   }
 }
 
-// One round of a warp's 32-ary lower bound in [lo, hi): the probe this
-// lane makes (-1: none). Above 32 ids, 31 pivots lo + n(i+1)/32 split the
-// range; at most 32, each id is probed.
-__device__ __forceinline__ long long probe_at(long long lo, long long hi,
-                                              int l32) {
-  const long long n = hi - lo;
-  if (n <= 0) return -1;
-  if (n <= 32) return l32 < n ? lo + l32 : -1;
-  return l32 < 31 ? lo + ((n * (l32 + 1)) >> 5) : -1;
-}
-
-// narrow [lo, hi) given c, the number of this round's probes below target
-__device__ __forceinline__ void narrow(long long& lo, long long& hi, int c) {
-  const long long n = hi - lo;
-  if (n <= 0) return;
-  if (n <= 32) {
-    lo += c;
-    hi = lo;
-    return;
-  }
-  const long long l0 = lo;
-  if (c > 0) lo = l0 + ((n * c) >> 5) + 1;
-  if (c < 31) hi = l0 + ((n * (c + 1)) >> 5);
-}
-
-// The lower bound of target in the sorted ids [lo, hi) of the column, by
-// one warp (uniform result). Reads only inside [lo, hi).
-__device__ __forceinline__ long long warp_lower_bound(const int32_t* doc,
-                                                      long long lo,
-                                                      long long hi,
-                                                      long long target,
-                                                      int l32) {
-  while (hi > lo) {
-    const long long p = probe_at(lo, hi, l32);
-    const int d = p >= 0 ? doc[p] : 0;
-    narrow(lo, hi, __popc(__ballot_sync(0xffffffffu, p >= 0 && d < target)));
-  }
-  return lo;
-}
-
 __device__ __forceinline__ void cp_async4(int32_t* dst, const int32_t* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
@@ -301,17 +219,14 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // The outputs of query b from its sorted keys (navail of them readable,
 // padding 0 past the real ones): lower bounds from the one tile's s_lo
-// (tile width TL) or, with sources, from lo_scratch. The semidense step's
-// dense slots read their tfs from the dense rows at the kept docs, and
-// its candidate's tc lane from the candidate slice, as the plain version
-// keeps it.
+// (tile width TL) or, with sources, from lo_scratch.
 template <int G>
 __device__ void write_outputs(const Args& a, int b,
                               const unsigned long long* keys,
                               const uint32_t* src, int navail,
                               const int32_t* s_lo, int TL, int tid) {
   const int T = a.T, M = a.M;
-  const int NS = kSemi ? a.nb : T;  // the slots searched
+  const int NS = T;  // the slots searched
   const long long cs = a.starts[(long long)b * T];
   const long long s_doc = slice_start(cs, a.n_doc, a.L);
   const float ninf = -__int_as_float(0x7f800000);
@@ -331,21 +246,6 @@ __device__ void write_outputs(const Args& a, int b,
     a.top_docs[o] = doc;
     for (int t = 0; t < T; ++t) {
       const long long ot = ((long long)b * T + t) * M + m;
-      if (kSemi && t >= NS) {
-        int tf = 0;
-        if (kept) {
-          const long long at = (long long)a.slots[(long long)b * T + t] *
-                                   a.n_pad + dense_lane(a, doc);
-          if (a.tc) {
-            tf = a.dense_tf8[at];
-            sat = sat || tf >= kTfSat;
-          } else {
-            tf = a.dense_tf[at];
-          }
-        }
-        a.top_tfs[ot] = tf;
-        continue;
-      }
       long long pidx = -1;
       if (key) {
         if (t == 0) {
@@ -358,14 +258,11 @@ __device__ void write_outputs(const Args& a, int b,
                               src[m]];
         }
       }
-      if (!kSemi) a.top_pidx[ot] = (int32_t)pidx;
+      a.top_pidx[ot] = (int32_t)pidx;
       int tf = 0;
       if (kept) {
         if (a.tc) {
-          tf = (kSemi && t == 0
-                    ? (int)a.tc[slice_start(cs, a.n_tc, a.L) + lane]
-                    : tc_lane(a, pidx)) &
-               0xFF;
+          tf = tc_lane(a, pidx) & 0xFF;
           sat = sat || tf >= kTfSat;
         } else {
           tf = a.tf[clampll(pidx, 0, a.n_tf - 1)];
@@ -402,7 +299,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int wid = threadIdx.x / G;
   const bool multi = a.ntiles > 1;
   unsigned char* base =
-      smem + wid * worker_bytes(G, kSemi ? a.nb : a.T, TL, a.KP, multi);
+      smem + wid * worker_bytes(G, a.T, TL, a.KP, multi);
   Misc* ms = reinterpret_cast<Misc*>(base);
   int32_t* S = reinterpret_cast<int32_t*>(base + kMiscBytes);
   unsigned long long* X = reinterpret_cast<unsigned long long*>(
@@ -426,7 +323,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     seg = blockIdx.x % a.nseg;
   }
   const int T = a.T;
-  const int NS = kSemi ? a.nb : T;  // the slots searched
+  const int NS = T;  // the slots searched
   const int32_t* st = a.starts + (long long)b * T;
   const int32_t* en = a.ends + (long long)b * T;
   const float* w = a.weights + (long long)b * T;
@@ -473,7 +370,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     if (tile0 >= n_valid) break;
     int d[LPT];
     float cv[LPT], acc[LPT];
-    int cc[LPT];  // semidense tc: the candidate lane's len code, << 8
     unsigned alive = 0;
     cp_async_wait<0>();
 #pragma unroll
@@ -482,13 +378,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       d[j] = 0;
       cv[j] = 0.f;
       acc[j] = 0.f;
-      cc[j] = 0;
       if (lane < n_valid) {
         alive |= 1u << j;
         d[j] = S[j * G + tid];
         cv[j] = a.tc ? lane_score(a, a.tc[s_col + lane], w[0], avg)
                      : a.score[s_col + lane];
-        if (kSemi && a.tc) cc[j] = a.tc[s_col + lane] & 0xFF00;
       }
     }
     stage(tile + 1);
@@ -688,47 +582,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
     if (found) add(t - 1);  // the last slot (a break left found 0)
 
-    // the semidense step's dense others in slot order: the live lanes'
-    // gathers of a slot go out together, then each lane drops out where
-    // its row holds nothing (raw score or tf byte 0) or adds its score
-    [[maybe_unused]] float fs[LPT];
-    if constexpr (kSemi) {
-#pragma unroll
-      for (int j = 0; j < LPT; ++j) {
-        const float c0 = a.tc ? cv[j] : __fmul_rn(cv[j], w[0]);
-        fs[j] = NS == 1 ? c0 : __fadd_rn(c0, acc[j]);
-      }
-      for (int td = NS; td < T; ++td) {
-        const long long row =
-            (long long)a.slots[(long long)b * T + td] * a.n_pad;
-        const float wt = w[td];
-        int pd[LPT];  // the rows' values: score bits (raw), tf byte (tc)
-#pragma unroll
-        for (int j = 0; j < LPT; ++j) {
-          pd[j] = 0;
-          if (alive >> j & 1) {
-            const long long at = row + dense_lane(a, d[j]);
-            pd[j] = a.tc ? (int)a.dense_tf8[at]
-                         : __float_as_int(a.dense_sc[at]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < LPT; ++j) {
-          if (alive >> j & 1) {
-            const bool hold =
-                a.tc ? pd[j] > 0 : __int_as_float(pd[j]) > 0.f;
-            if (!hold) {
-              alive &= ~(1u << j);
-            } else if (a.tc) {
-              fs[j] = __fadd_rn(fs[j], lane_score(a, cc[j] | pd[j], wt, avg));
-            } else {
-              fs[j] = __fadd_rn(fs[j], __fmul_rn(__int_as_float(pd[j]), wt));
-            }
-          }
-        }
-      }
-    }
-
     // the tile's matched keys above the running threshold, compacted
     // keys at or below the running K-th cannot enter the top K; the
     // count of this tile's parity was zeroed a tile back
@@ -742,14 +595,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       unsigned long long key = 0ull;
       bool pass = false;
       if (alive >> j & 1) {
-        float s;
-        if constexpr (kSemi) {
-          s = fs[j];
-        } else {
-          s = T == 1 ? cv[j]
-                     : (a.tc ? __fadd_rn(cv[j], acc[j])
-                             : __fadd_rn(__fmul_rn(cv[j], w[0]), acc[j]));
-        }
+        const float s =
+            T == 1 ? cv[j]
+                   : (a.tc ? __fadd_rn(cv[j], acc[j])
+                           : __fadd_rn(__fmul_rn(cv[j], w[0]), acc[j]));
         key = tile_key(s, (int)(tile0 + j * G + tid));
         pass = s != ninf && key > tau;
       }
@@ -870,8 +719,8 @@ __global__ void __launch_bounds__(kThreads) score_kernel(Args a) {
     const float cscore = a.tc
                              ? lane_score(a, ctc, w[0], avg)
                              : a.score[slice_start(cs, a.n_score, a.L) + lane];
-    const int NS = kSemi ? a.nb : a.T;  // the slots searched
-    if (!kSemi && a.T == 1) {
+    const int NS = a.T;  // the slots searched
+    if (a.T == 1) {
       score = cscore;
     } else {
       float acc = 0.f;
@@ -888,27 +737,7 @@ __global__ void __launch_bounds__(kThreads) score_kernel(Args a) {
                  : __fmul_rn(a.score[clampll(lo, 0, a.n_score - 1)], w[t]);
         acc = t == 1 ? p : __fadd_rn(acc, p);
       }
-      if constexpr (kSemi) {
-        // the dense others in slot order (tile_kernel's dense phase)
-        float s = a.tc ? cscore : __fmul_rn(cscore, w[0]);
-        if (NS > 1) s = __fadd_rn(s, acc);
-        for (int t = NS; match && t < a.T; ++t) {
-          const long long at =
-              (long long)a.slots[(long long)b * a.T + t] * a.n_pad +
-              dense_lane(a, target);
-          if (a.tc) {
-            const int tf = a.dense_tf8[at];
-            match = tf > 0;
-            if (match)
-              s = __fadd_rn(s, lane_score(a, (ctc & 0xFF00) | tf, w[t], avg));
-          } else {
-            const float p = a.dense_sc[at];
-            match = p > 0.f;
-            if (match) s = __fadd_rn(s, __fmul_rn(p, w[t]));
-          }
-        }
-        if (match) score = s;
-      } else if (match) {
+      if (match) {
         score = a.tc ? __fadd_rn(cscore, acc)
                      : __fadd_rn(__fmul_rn(cscore, w[0]), acc);
       }
@@ -1027,32 +856,13 @@ __global__ void __launch_bounds__(kThreads) select_kernel(Args a) {
     bool sat = false;
     for (int t = 0; t < a.T; ++t) {
       const long long ot = ((long long)b * a.T + t) * a.M + m;
-      if (kSemi && t >= a.nb) {  // a dense other: its row at the doc
-        int tf = 0;
-        if (kept) {
-          const long long at =
-              (long long)a.slots[(long long)b * a.T + t] * a.n_pad +
-              dense_lane(a, target);
-          if (a.tc) {
-            tf = a.dense_tf8[at];
-            sat = sat || tf >= kTfSat;
-          } else {
-            tf = a.dense_tf[at];
-          }
-        }
-        a.top_tfs[ot] = tf;
-        continue;
-      }
       const long long pidx =
           t == 0 ? cs + lane : lower_bound(a, target, st[t], en[t]);
-      if (!kSemi) a.top_pidx[ot] = (int32_t)pidx;
+      a.top_pidx[ot] = (int32_t)pidx;
       int tf = 0;
       if (kept) {
         if (a.tc) {
-          tf = (kSemi && t == 0
-                    ? tc_lane(a, slice_start(cs, a.n_tc, a.L) + lane)
-                    : tc_lane(a, pidx)) &
-               0xFF;
+          tf = tc_lane(a, pidx) & 0xFF;
           sat = sat || tf >= kTfSat;
         } else {
           tf = a.tf[clampll(pidx, 0, a.n_tf - 1)];
@@ -1128,18 +938,6 @@ inline int launch(const WiserStepParams* p, void* stream) {
   a.top_tfs = (int32_t*)p->top_tfs;
   a.top_pidx = (int32_t*)p->top_pidx;
   a.flags = (int32_t*)p->flags;
-  a.nb = (int)p->nb;
-  a.dense_sc = (const float*)p->dense_sc;
-  a.dense_tf = (const int32_t*)p->dense_tf;
-  a.dense_tf8 = (const uint8_t*)p->dense_tf8;
-  a.slots = (const int32_t*)p->slots;
-  a.norm_g = (const float*)p->norm_g;
-  a.n_pad = p->n_pad;
-  a.doc_base = p->doc_base;
-  if (kSemi && (a.nb < 1 || a.nb > a.T || a.n_pad < 1 ||
-                (a.tc ? !a.dense_tf8 || !a.norm_g
-                      : !a.dense_sc || !a.dense_tf)))
-    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (p->path == 1) {
@@ -1154,8 +952,8 @@ inline int launch(const WiserStepParams* p, void* stream) {
   }
   const int G = (int)p->G;
   const bool multi = a.ntiles > 1;
-  const long long smem = (kThreads / G) * worker_bytes(G, kSemi ? a.nb : a.T,
-                                                       a.TL, a.KP, multi);
+  const long long smem =
+      (kThreads / G) * worker_bytes(G, a.T, a.TL, a.KP, multi);
   const long long msmem = kMiscBytes + 3 * align8(a.KP * 12LL);
   if (smem != p->smem || (a.nseg > 1 && msmem != p->merge_smem) ||
       a.K > kKeyCap || a.K > a.KP)

@@ -30,7 +30,7 @@ __device__ __forceinline__ int position(const void* positions, long long i) {
 // second item would need a __syncwarp before it refills them). Every
 // thread of the warp calls it and gets the count.
 template <bool kU16>
-__device__ int warp_count(const void* positions, long long n, long long s,
+__device__ __forceinline__ int warp_count(const void* positions, long long n, long long s,
                           long long e, int T, int PP, int PW, int anchor,
                           int* win, int l32) {
   int* cnts = win + T * PW;

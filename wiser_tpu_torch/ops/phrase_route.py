@@ -4,12 +4,16 @@ each from the candidate slice to the packed (B, T+2, M) output.
 
 `semidense_phrase` computes engine/kernels.semidense_phrase_torch (the
 body of make_semidense_phrase_kernel) in three launches: the selection
-of the KV + 1 best AND keys a query (one CTA a query, the keys in
-shared memory: no (B, L) plane), the recovery and window verification
-of the KV kept lanes (a warp a lane), the top M with its flags and
-tfs. `list_phrase` computes engine/kernels.list_phrase_torch (the list
-chain: make_match_kernel with the bi-bloom gate, make_phrase_verify_kernel,
-make_select_topk_kernel, or their tc forms) in one launch, one CTA a
+of the KV + 1 best AND keys a query (csrc/segsel.cuh: the query's lanes
+in segments planned over the card's SMs, ops/semidense.segments, a CTA a
+segment keeping its keys in shared memory, the segments of a query one
+cluster merged through distributed shared memory: no (B, L) plane), the
+recovery (the warp's 32-ary lower bound a slot) and window
+verification of the KV kept lanes (a warp a lane), the top M with its
+flags and tfs. `list_phrase` computes engine/kernels.list_phrase_torch
+(the list chain: make_match_kernel with the bi-bloom gate,
+make_phrase_verify_kernel, make_select_topk_kernel, or their tc forms)
+in one launch, one CTA a
 query holding its L <= 1,024 lanes in shared memory; `gate=False` leaves
 the bloom gate out (a compile-time switch of the kernel). tc columns
 score from dense.cu's device table (ops/dense.tc_table, launched first
@@ -35,14 +39,13 @@ import torch
 
 from wiser_tpu_torch.ops import dense as _D
 from wiser_tpu_torch.ops import phrase as _P
+from wiser_tpu_torch.ops import semidense as _SD
 
 # kernel launches by wrapper name, one a call (raw and tc columns)
 launch_counts = {"semidense_phrase": 0, "semidense_phrase_tc": 0,
                  "list_phrase": 0, "list_phrase_tc": 0}
 MAX_T = 8  # terms at most (phrase_route.cu kMaxT)
 LIST_MAX_L = 1024  # the list chain's lanes at most (kListMaxL)
-STEP = 1024  # the selection's lanes a step (kStep)
-FLUSH_BYTES = 1056  # select.cuh FlushSmem, 16-aligned
 OUT_WARPS = 8  # the semidense phrase output kernel's queries a CTA
 MAX_SMEM = 232_448  # the shared bytes an H100 block can opt into
 
@@ -72,7 +75,8 @@ def plan_semidense(B: int, T: int, KV: int, PW: int, M: int) -> SdpPlan:
     KP = _pow2(K)
     per = _P.warp_bytes(T, PW)
     W = max(1, min(_P.MAX_WARPS, _P.VERIFY_SMEM // per))
-    return SdpPlan(K, KP, FLUSH_BYTES + 16 + 8 * (KP + 2 * STEP), W, W * per,
+    # the selection's buffer always in shared memory (segsel.cuh's)
+    return SdpPlan(K, KP, _SD.HEAD_BYTES + 8 * _SD.layout(K)[1], W, W * per,
                    4 * OUT_WARPS * (M + 1), B * (8 * K + 4 * KV
                                                     + 4 * T * KV))
 
@@ -222,7 +226,8 @@ class _SdpParams(ctypes.Structure):
         "doc n_doc score n_score tf n_tf tc n_tc dense_sc dense_tf8 n_pad "
         "norm_g positions n_pos u16 pos_starts n_ps starts ends weights "
         "slots slot_of ks B T L KV K KP PP PW M n_iters keep_bits keys "
-        "counts pidx out W smem_select smem_verify smem_output").split()]
+        "counts pidx out W smem_select smem_verify smem_output nseg "
+        "seg_lanes").split()]
 
 
 class _ListParams(ctypes.Structure):
@@ -300,6 +305,8 @@ def semidense_phrase(postings_doc, col, dense, positions, pos_starts, starts,
     if B == 0:
         return out
     p = plan_semidense(B, T, KV, PW, M)
+    fns = _kernel_fns()
+    seg = _SD.segments(B, L, p.K, _SD.sms_of(dev))
     keys = torch.empty((B, p.K), dtype=torch.int64, device=dev)
     counts = torch.empty((B, KV), dtype=torch.int32, device=dev)
     pidx = torch.empty((B, T, KV), dtype=torch.int32, device=dev)
@@ -318,8 +325,9 @@ def semidense_phrase(postings_doc, col, dense, positions, pos_starts, starts,
         weights.data_ptr(), slots.data_ptr(), slot_of.data_ptr(),
         ks.data_ptr(), B, T, L, KV, p.K, p.KP, PP, PW, M, n_rec_iters, keep,
         keys.data_ptr(), counts.data_ptr(), pidx.data_ptr(), out.data_ptr(),
-        p.W, p.smem_select, p.smem_verify, p.smem_output)
-    _run(_kernel_fns().sdp, params, dev, "semidense_phrase")
+        p.W, p.smem_select, p.smem_verify, p.smem_output, seg.nseg,
+        seg.seg_lanes)
+    _run(fns.sdp, params, dev, "semidense_phrase")
     launch_counts["semidense_phrase_tc" if tc else "semidense_phrase"] += 1
     return out
 

@@ -232,14 +232,12 @@ def args_ok(postings_doc, postings_score, postings_tf, starts, ends,
 
 
 class _Params(ctypes.Structure):
-    """tile.cuh's WiserStepParams (the bs step and the semidense step):
-    every field 8 bytes, in its order; the semidense fields stay 0 here."""
+    """tile.cuh's WiserStepParams: every field 8 bytes, in its order."""
     _fields_ = [(n, ctypes.c_longlong) for n in (
         "doc n_doc score n_score tf n_tf tc n_tc starts ends weights avg32 "
         "B T L M n_iters path G LPT ntiles nseg tps K KP smem merge_smem "
         "lo_scratch part_keys part_src plane sort_scratch P "
-        "top_docs top_score top_tfs top_pidx flags "
-        "nb dense_sc dense_tf dense_tf8 slots norm_g n_pad doc_base").split()]
+        "top_docs top_score top_tfs top_pidx flags").split()]
 
 
 class _Fns:

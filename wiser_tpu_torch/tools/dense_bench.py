@@ -43,7 +43,10 @@ per query).
 
 `--probe [--index IDX]` reads each kernel phase's cycles from a
 measuring build's `clock64()` marks (`probe`), on synthetic 1M planes
-and, with `--index`, on the engines' own planes.
+and, with `--index`, on the engines' own planes. Its machinery
+(`clocks_build`, `read_clocks`, `phase_split` with a library's counter
+groups) builds and reads the semidense and phrase route libraries'
+measuring builds too (semidense_bench and phrase_bench `--probe`).
 
 `--phrase` does the same for the full-scan mega phrase's passes
 (full_phrase_select and full_phrase_band against their plain versions):
@@ -1127,29 +1130,35 @@ def time_phrase_shapes(dev, mode: str = "raw", planes=None,
     return rows
 
 
-# the phase marks of dense.cu's measuring build (WISER_DENSE_CLOCKS):
+# the phase marks of dense.cu's measuring build (WISER_CLOCKS, clocks.cuh):
 # counter index -> phase; scan counters 0-5 over the CTAs in 6, pick
 # counters 8-11 over the selecting CTAs in 12
 SCAN_PHASES = ("prologue", "load", "score", "barrier", "flush", "epilogue")
 PICK_PHASES = ("bounds", "gather", "select", "compact")
+# phase_split's groups: (name, phases, first counter, the CTA count's
+# counter, {a count's name: its counter}), each count over the CTAs
+DENSE_GROUPS = (("scan", SCAN_PHASES, 0, 6, {"flushes": 7}),
+                ("pick", PICK_PHASES, 8, 12, {"passes": 13, "ranked": 14}))
 
 
-def clocks_build() -> object:
-    """dense.cu built with -DWISER_DENSE_CLOCKS (a measuring build beside
-    the library the entry points load), bound as ops/dense._Fns, with its
-    `clocks` reader."""
+def clocks_build(name: str = "dense", fns_cls=None) -> object:
+    """csrc/<name>.cu built with -DWISER_CLOCKS (a measuring build beside
+    the library the entry points load: csrc/clocks.cuh's marks), bound as
+    fns_cls (default ops/dense._Fns), with its `clocks` reader
+    wiser_<name>_clocks."""
     import ctypes
 
     from wiser_tpu_torch import build
     from wiser_tpu_torch.ops import dense as D
 
-    flags = (build.NVCC_FLAGS + build.EXTRA_NVCC_FLAGS["dense"]
-             + ("-DWISER_DENSE_CLOCKS",))
-    lib = build._load("dense_clocks", os.path.join(build.CSRC, "dense.cu"),
+    flags = (build.NVCC_FLAGS + build.EXTRA_NVCC_FLAGS.get(name, ())
+             + ("-DWISER_CLOCKS",))
+    lib = build._load(f"{name}_clocks", os.path.join(build.CSRC,
+                                                     f"{name}.cu"),
                       flags, lambda src, out: [build._nvcc(), *flags, "-o",
                                                out, src])
-    fns = D._Fns(lib)
-    fns.clocks = lib.wiser_dense_clocks
+    fns = (fns_cls or D._Fns)(lib)
+    fns.clocks = getattr(lib, f"wiser_{name}_clocks")
     fns.clocks.argtypes = [ctypes.c_void_p]
     fns.clocks.restype = ctypes.c_int
     return fns
@@ -1173,33 +1182,31 @@ def read_clocks(fns) -> list:
     buf = (ctypes.c_ulonglong * 32)()
     rc = fns.clocks(ctypes.addressof(buf))
     if rc:
-        raise RuntimeError(f"wiser_dense_clocks: {rc}")
+        raise RuntimeError(f"clocks reader: {rc}")
     return list(buf)
 
 
-def phase_split(fn, fns, calls: int = 3) -> dict:
+def phase_split(fn, fns, calls: int = 3, groups=DENSE_GROUPS) -> dict:
     """Each phase's cycles a CTA (thread 0's view) over `calls` calls of
-    fn() in the measuring build fns: the scan's and the pick's phases, and
-    each phase's share of its kernel's total."""
+    fn() in the measuring build fns, for each group of counters (default
+    dense.cu's scan and pick): its CTAs a call, each phase's cycles a CTA
+    and share of the group's total, and its counts a CTA (scan: key
+    flushes; pick: select passes and early rankings a selecting CTA)."""
     fn()
     read_clocks(fns)
     for _ in range(calls):
         fn()
     c = read_clocks(fns)
     out = {}
-    for names, first, n_at in ((SCAN_PHASES, 0, 6), (PICK_PHASES, 8, 12)):
+    for label, names, first, n_at, counts in groups:
         if not c[n_at]:
             continue
         cyc = {k: c[first + i] / c[n_at] for i, k in enumerate(names)}
         tot = sum(cyc.values())
-        out["scan" if first == 0 else "pick"] = {
+        out[label] = {
             "ctas_a_call": c[n_at] / calls, "cycles_a_cta": cyc,
-            "share": {k: v / tot for k, v in cyc.items()},
-            # scan: key flushes a CTA; pick: select passes and early
-            # rankings a selecting CTA
-            "counts": ({"flushes": c[7] / c[n_at]} if first == 0 else
-                       {"passes": c[13] / c[n_at],
-                        "ranked": c[14] / c[n_at]})}
+            "share": {k: (v / tot if tot else 0.0) for k, v in cyc.items()},
+            "counts": {k: c[i] / c[n_at] for k, i in counts.items()}}
     return out
 
 

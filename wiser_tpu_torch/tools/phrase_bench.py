@@ -5,6 +5,7 @@ list_phrase_torch) and timed beside them; and the phrase route sets split
 by the route each query takes.
 
     python -m wiser_tpu_torch.tools.phrase_bench [--check-only] [--out r.json]
+    python -m wiser_tpu_torch.tools.phrase_bench --probe [--out r.json]
     python -m wiser_tpu_torch.tools.phrase_bench --split --index IDX \
         [--sets phrase_mixed,phrase_mega] --out r.json
     python -m wiser_tpu_torch.tools.phrase_bench --trees OLD,.,.,OLD \
@@ -15,10 +16,14 @@ and `list_phrase_cases` run raw and tc columns at T 2-4 over synthetic
 columns with planted phrases (`synth_columns`, `phrase_batch`): ties
 straddling the (KV+1)-th lane, fewer than KV + 1 matches, absent bloom
 rows and an all-inactive probe set, PP larger than a bag, a bag holding
-65,535, bags in no sorted order, the list kernel without its gate; each
-packed (B, T+2, M) output must equal the plain version's bit for bit. `time_semidense_phrase` and `time_list_phrase`
-time the entry points at synthetic 1M shapes (the semidense phrase: B
-128, T 2, L 2,048 and 32,768, KV 1,024; the list chain: B 1,024, T 2-3,
+65,535, bags in no sorted order, the list kernel without its gate, and
+(SDP_EDGE_CASES) the segmented selection's edges: B 1 over a cluster's
+8 segments with ties across their edges, B 8 at L 2,049, a recovery
+past its iteration count; each packed (B, T+2, M) output must equal the
+plain version's bit for bit. `time_semidense_phrase` and
+`time_list_phrase` time the entry points at synthetic 1M shapes (the
+semidense phrase: B 128, T 2, L 2,048 and 32,768, KV 1,024, and the
+engines' B 8 and 32 groups, SDP_ENGINE; the list chain: B 1,024, T 2-3,
 L 128-1,024) in turns with the plain versions (semidense_bench.time_pair:
 CUDA events, an L2-flushed reading, torch.profiler per launch, host µs,
 peak memory above the inputs, the bytes bound).
@@ -30,9 +35,10 @@ and list branches, the mega routes, the host), then each route's
 queries run alone as a set (route_bench.run_set, traced), so a set's
 device ms splits by route; each phrase group's peak device memory above
 its inputs is kept by route. `--trees` measures each listed tree in its
-own process (tools/unpack_bench.run_trees): the entry points at the
-synthetic shapes where the tree has them, then, with `--index`, the
-split.
+own process (tools/unpack_bench.run_trees): the semidense phrase route
+at the timed shapes, then, with `--index`, the split. `--probe` reads the
+semidense phrase route's phase cycles from a measuring build (clock64()
+marks, csrc/clocks.cuh; tools/dense_bench.clocks_build, phase_split).
 """
 
 from __future__ import annotations
@@ -421,6 +427,19 @@ SDP_CASES = (
     ("long_l", 7, 40000, (30000, 36000, 33000, 31000), 4, 2, 32768, 1024, 8,
      8, 12, False, False),
 )
+# the segmented selection's edges (csrc/segsel.cuh), in the same form: B
+# 1 over 8,192 lanes (8 segments of one cluster, ties straddling their
+# edges), B 8 at L 2,049 (a unit past a segment), a run searched past
+# its iteration count (SDP_ITERS: the recovery's replay)
+SDP_EDGE_CASES = (
+    ("b1_segments_ties", 28, 16384, (8000, 12000, 10000, 9000), 1, 2, 8192,
+     64, 8, 8, 16, True, False),
+    ("b8_l2049_t3", 9, 8192, (2040, 5000, 4000, 3000), 8, 3, 2049, 128, 8,
+     8, 16, True, False),
+    ("past_iters", 10, 4096, (1900, 3000, 2600, 2200), 8, 2, 2048, 256, 8,
+     8, 12, False, False),
+)
+SDP_ITERS = {"past_iters": 10}  # below the head runs' ceil(log2(df + 1))
 # the list chain's: (name, seed, n_docs, dfs, B, T, L, PP, M, tie, probes
 # off, sorted bags)
 LIST_CASES = (
@@ -446,8 +465,8 @@ def semidense_case(case, mode: str, dev):
     batch = phrase_batch(cols, B, T, M, seed + 100)
     args, kw = semidense_args(cols, batch, mode, dev)
     kw.update(T=T, L=L, KV=KV, PP=PP, PW=PW, M=M,
-              n_rec_iters=_iters(max(dfs)), eps3=3e-6 if mode == "raw"
-              else 3e-5)
+              n_rec_iters=SDP_ITERS.get(case[0], _iters(max(dfs))),
+              eps3=3e-6 if mode == "raw" else 3e-5)
     return args, kw
 
 
@@ -476,12 +495,12 @@ def _summary(got, want, what: str) -> dict:
 
 
 def semidense_phrase_cases(dev, modes=("raw", "tc")) -> dict:
-    """Every SDP_CASES case, raw and tc: the kernels' packed output equal
-    to the plain version's bit for bit."""
+    """Every SDP_CASES and SDP_EDGE_CASES case, raw and tc: the kernels'
+    packed output equal to the plain version's bit for bit."""
     from wiser_tpu_torch.engine import kernels as K
 
     rows = []
-    for case in SDP_CASES:
+    for case in SDP_CASES + SDP_EDGE_CASES:
         for mode in modes:
             args, kw = semidense_case(case, mode, dev)
             row = {"case": case[0], "mode": mode}
@@ -599,7 +618,22 @@ TIME_M = 64  # k 10 + the engine's margin 54
 # (B, T, L) of the timed groups on synthetic 1M columns: the semidense
 # phrase at the mega chunk's B, the list chain at a list group's
 SDP_TIME = ((128, 2, 2048), (128, 2, 32768))
+# the engines' most called semidense phrase groups (the chip smoke's
+# serve phase: B 8 at every L bucket, then B 32; PERF.md §6)
+SDP_ENGINE = ((8, 2, 2048), (8, 2, 8192), (8, 2, 32768), (32, 2, 32768))
 LIST_TIME = ((1024, 2, 128), (1024, 2, 1024), (1024, 3, 1024))
+# the phase marks of phrase_route.cu's measuring build (WISER_CLOCKS,
+# csrc/clocks.cuh), as tools/dense_bench.phase_split reads them: the
+# selection's (csrc/segsel.cuh) candidates, dense gathers, key pushes with
+# flushes and sort, and its keys' write in counters 0-4 over its CTAs in
+# 6 (flushes counted in 11), a split query's cluster merge in 5 over the
+# merging CTAs in 7; the verification's recovery and window check in 8-9
+# over its CTAs in 10; the output in 12 over 13.
+SDP_GROUPS = (("select", ("candidates", "windows", "gathers", "flush",
+                          "keys"), 0, 6, {"flushes": 11}),
+              ("merge", ("merge",), 5, 7, {}),
+              ("verify", ("recovery", "verification"), 8, 10, {}),
+              ("output", ("output",), 12, 13, {}))
 
 
 def _timed(kind, args, kw, mode, plain: bool, compare: bool, what) -> dict:
@@ -653,6 +687,50 @@ def time_semidense_phrase(dev, shapes=SDP_TIME, modes=("raw", "tc"),
                                compare, "semidense phrase timing"))
             del args
             torch.cuda.empty_cache()
+    return rows
+
+
+def probe(dev, shapes=SDP_TIME + SDP_ENGINE[:1], modes=("raw", "tc"),
+          iters: int = 10) -> list:
+    """Each phase's cycles of the semidense phrase route by clock64()
+    marks (its measuring build, tools/dense_bench.clocks_build) at the
+    timed shapes (time_semidense_phrase's inputs), each beside its
+    event-timed ms in that build. The entry point uses the library it
+    loaded again afterwards."""
+    import torch
+
+    from wiser_tpu_torch.engine import kernels as K
+    from wiser_tpu_torch.ops import phrase_route as PR
+    from wiser_tpu_torch.tools.dense_bench import clocks_build, phase_split
+    from wiser_tpu_torch.tools.search_bench import event_ms
+
+    loaded = PR._kernel_fns()
+    fns = clocks_build("phrase_route", PR._Fns)
+    rows = []
+    try:
+        PR._fns = fns
+        for B, T, L in shapes:
+            cols = synth_columns(1, N_DOCS_1M, (L - L // 16,) + (300_000,)
+                                 * (T - 1), n_cands=64)
+            batch = phrase_batch(cols, B, T, TIME_M, 101)
+            for mode in modes:
+                args, kw = semidense_args(cols, batch, mode, dev)
+                kw.update(T=T, L=L, KV=TIME_KV, PP=8, PW=8, M=TIME_M,
+                          n_rec_iters=_iters(300_000),
+                          eps3=3e-6 if mode == "raw" else 3e-5)
+
+                def fn(args=args, kw=kw):
+                    return K.semidense_phrase_body(*args, **kw)
+
+                row = dict(kind="semidense_phrase", mode=mode, B=B, T=T, L=L,
+                           KV=TIME_KV, M=TIME_M, ms=event_ms(fn, iters),
+                           **phase_split(fn, fns, groups=SDP_GROUPS))
+                log(f"semidense phrase probe {json.dumps(row)}")
+                rows.append(row)
+                del args
+                torch.cuda.empty_cache()
+    finally:
+        PR._fns = loaded
     return rows
 
 
@@ -786,7 +864,10 @@ def measure(root: str, index=None, sets=SETS) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("phrase_bench measures a card: none is available")
     out = {"tree": root, "card": card_line(),
-           "module": os.path.abspath(K.__file__)}
+           "module": os.path.abspath(K.__file__),
+           "timing": time_semidense_phrase(torch.device("cuda", 0),
+                                           SDP_TIME + SDP_ENGINE,
+                                           plain=False, compare=False)}
     if index:
         out["split"] = {c: route_split(index, c, sets) for c in ("raw", "tc")}
     return out
@@ -804,6 +885,9 @@ def main(argv=None) -> dict:
                     help="the route split of --index in this tree only")
     ap.add_argument("--check-only", action="store_true",
                     help="build and compare the kernels, no timing")
+    ap.add_argument("--probe", action="store_true",
+                    help="the semidense phrase route's phase cycles at the "
+                    "timed shapes (a measuring build), then stop")
     args = ap.parse_args(argv)
     sets = [s for s in args.sets.split(",") if s]
     if args.root:
@@ -819,6 +903,9 @@ def main(argv=None) -> dict:
         res = {"runs": run_trees(__file__, args.trees.split(","), extra)}
         print(json.dumps({"phrase_bench": [
             {"tree": r["tree"], "card": r["card"],
+             **{f"{x['kind']}_{x['mode']}_B{x['B']}_L{x['L']}":
+                [x["device_ms"], x["flushed_ms"], x["share"]]
+                for x in r.get("timing", [])},
              **split_summary(r.get("split", {}))} for r in res["runs"]]}),
             flush=True)
     elif args.split:
@@ -836,14 +923,20 @@ def main(argv=None) -> dict:
         load_libraries(("phrase_route", "dense"))
         res["build_s"] = build_log["phrase_route"][0]
         log(build_log["phrase_route"][1])
-        for name, fn in (("semidense_phrase_check", semidense_phrase_cases),
-                         ("list_phrase_check", list_phrase_cases)):
+        probing = args.probe
+        if probing:
+            res["probe"] = probe(dev)
+        checks = () if probing else (
+            ("semidense_phrase_check", semidense_phrase_cases),
+            ("list_phrase_check", list_phrase_cases))
+        for name, fn in checks:
             t0 = time.perf_counter()
             res[name] = fn(dev)
             res[name]["wall_s"] = time.perf_counter() - t0
             log(f"{name}: {res[name]}")
-        if not args.check_only:
-            res["timing"] = time_semidense_phrase(dev) + time_list_phrase(dev)
+        if not (args.check_only or probing):
+            res["timing"] = (time_semidense_phrase(dev, SDP_TIME + SDP_ENGINE)
+                             + time_list_phrase(dev))
         print(json.dumps({k: v for k, v in res.items() if k != "timing"}))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

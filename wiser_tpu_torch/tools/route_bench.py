@@ -98,6 +98,30 @@ def build_phrase_route_sets(packed, engine, linedoc, n: int, k: int, seed=3,
     return sets
 
 
+def aol_mixed_queries(packed, n_queries: int, seed: int = 7,
+                      by_df: bool = False, k: int = 10):
+    """1-4 term conjunctive queries with the AOL length mix (bench.py's
+    workload generator; the chip smoke's `aol` and `aol_df` sets). Its
+    Zipf ranks index the term dictionary, which is sorted by spelling, so
+    over this corpus the picks are unrelated to term frequency;
+    by_df=True indexes the terms by descending df instead, so the ranks
+    follow frequency and head terms meet."""
+    from wiser_tpu_torch.types import SearchQuery
+
+    rng = np.random.default_rng(seed)
+    n_terms = rng.choice([1, 2, 3, 4], size=n_queries,
+                         p=[0.43, 0.29, 0.20, 0.08])
+    terms = packed.terms
+    if by_df:
+        order = np.argsort(-packed.df, kind="stable")
+        terms = [packed.terms[r] for r in order]
+    queries = []
+    for nt in n_terms:
+        ranks = np.minimum(rng.zipf(1.25, size=int(nt)) - 1, packed.n_terms - 1)
+        queries.append(SearchQuery([terms[r] for r in ranks], n_results=k))
+    return queries
+
+
 def build_route_sets(packed, engine, n: int, k: int, seed=3):
     """Query sets keyed by the route they exercise, from the df and tier
     boundaries the planner routes by."""

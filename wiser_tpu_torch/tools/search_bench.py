@@ -438,6 +438,36 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int, cycles: int = 2_000_000) -> float:
+    """Mean device time of fn() over `iters` calls queued behind a sleep
+    kernel (torch.cuda._sleep): the host enqueues the calls while the card
+    waits, so no host gap between them enters the CUDA events around
+    them, as it does in event_ms where the wrapper's host cost exceeds
+    its kernels' time. After a warm call; the sleep grows until it
+    outlasts the enqueueing (fn must not synchronize)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(4):
+        s0 = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms < 0.9 * s0.elapsed_time(start):
+            break
+        cycles *= 4
+    return start.elapsed_time(end) / iters
+
+
 def host_us(fn, calls: int) -> float:
     """The wrapper's host cost per call: the host clock over `calls`
     calls of fn() until the last returns (after a warm one and a

@@ -5,6 +5,7 @@ csrc/phrase.cu) held against their plain torch versions
 timed beside them.
 
     python -m wiser_tpu_torch.tools.semidense_bench [--out report.json]
+    python -m wiser_tpu_torch.tools.semidense_bench --probe [--out r.json]
     python -m wiser_tpu_torch.tools.semidense_bench --trees OLD,.,.,OLD \
         --index IDX [--routes ROUTES] [--headline] --out report.json
 
@@ -15,9 +16,11 @@ L in {128, 2048, 32768} (a warp's tile, a CTA's, many tiles) and M in
 and long runs; half the terms' payloads from a few values, so boundary
 ties are cut) and dense rows half full (half of them from a few values,
 saturated tf bytes among the tc ones); then the edges: a mesh shard's
-doc_base, a deep k past the tile path's keys (the plane path), a narrow
-group whose tiles split across CTAs, a group wide enough for several
-tiles a worker and B 1. `check_semidense` is the comparison
+doc_base, a deep k, a narrow group, a wide group and B 1;
+`segment_cases` the segmented kernel's edges (L at the 256-lane units'
+edges with B 1 and 8, runs past the iteration count, doc_base over
+split queries, a K that splits and one whose keys lie in device
+memory). `check_semidense` is the comparison
 (tools/search_bench.check without posting indices): flags bit-equal on
 every row; the kept (doc, f32 score bits, tfs) in (score desc, doc asc)
 order, equal to the plain version's on unflagged rows and above the
@@ -29,12 +32,14 @@ a window clamped at the column's end and T up to 8; the counts must be
 equal on every row.
 
 `time_semidense` and `time_verify` work at the engine's shapes on
-synthetic 1M inputs (semidense: B by the engine's lane budget; the
-verification: the mega phrase's chunk, B 128, KV 1,024 and 4,096), and
+synthetic 1M inputs (semidense: B by the engine's lane budget, and the
+engines' own group shapes, ENGINE_SHAPES; the verification: the mega
+phrase's chunk, B 128, KV 1,024 and 4,096), and
 `time_calls` at the calls an engine made (`Recorder`): each compared,
 then timed in turns with the plain version (kernel, plain, plain,
 kernel; CUDA events), the kernel once more after an L2 flush, its
-launches by torch.profiler, the wrapper's host cost per call, the peak
+launches by torch.profiler (else CUDA events around calls queued behind
+a sleep, search_bench.queued_ms), the wrapper's host cost per call, the peak
 device memory above the inputs and the bytes bound
 (`semidense_bound_bytes`, `verify_bound_bytes`).
 
@@ -46,7 +51,9 @@ synthetic shapes, then with `--index` (a saved 1M index) route_bench's
 `--routes` sets, raw and tc, each traced, with the peak device memory
 of a semidense group and of a mega phrase group above their inputs;
 with `--headline`, bench.headline.run in each tree (its stats:
-semidense_s, bs_s, the route counts).
+semidense_s, bs_s, the route counts). `--probe` reads each phase's
+cycles at ENGINE_SHAPES from a measuring build (clock64() marks,
+csrc/clocks.cuh; tools/dense_bench.clocks_build and phase_split).
 """
 
 from __future__ import annotations
@@ -72,6 +79,20 @@ CHECK_M = (1, 16, 64)
 # (T, n_bs, L) of the timed semidense groups, B by the engine's lane
 # budget; the verification's (B, T, NL, PP, PW): the mega phrase chunk
 SEMI_SHAPES = ((2, 0, 2048), (3, 0, 2048), (3, 1, 8192), (2, 0, 32768))
+# (B, T, n_bs, L) of the engines' semidense groups the smoke times (its
+# dense and tc runs' largest and busiest: raw B 8 T 4 n_bs 2 L 128 and B
+# 128 T 2 L 8,192; tc B 128 T 2 L 2,048 and B 1,024 T 2 L 128), on
+# synthetic 1M inputs: the probe's and the trees' engine shapes
+ENGINE_SHAPES = ((8, 4, 2, 128), (128, 2, 0, 8192), (128, 2, 0, 2048),
+                 (1024, 2, 0, 128))
+# the phase marks of semidense.cu's measuring build (WISER_CLOCKS, csrc/
+# clocks.cuh; csrc/segsel.cuh's layout): the step's candidates, searched
+# slots, dense gathers, key pushes with flushes and sort, and outputs in
+# counters 0-4 over the CTAs in 6 (flushes counted in 11), a split query's
+# merge in 5 over the merging CTAs in 7
+SEMI_GROUPS = (("step", ("candidates", "windows", "gathers", "flush",
+                         "outputs"), 0, 6, {"flushes": 11}),
+               ("merge", ("merge",), 5, 7, {}))
 VERIFY_SHAPES = ((128, 2, 1024, 128, 128), (128, 2, 4096, 128, 128),
                  (128, 3, 1024, 32, 128))
 TIME_M = 64
@@ -79,7 +100,7 @@ TIME_M = 64
 # columns, the zipf ladder's mixes, the tail x head sets) and the
 # verification (the phrase sets)
 ROUTES = ("dense_t3,zipf_t2,zipf_t3,zipf_t4,semidense_t3,"
-          "semidense_tail_x_head,phrase_mega,phrase_mixed")
+          "semidense_tail_x_head,aol_df,phrase_mega,phrase_mixed")
 SEMI_TAGS = ("wiser_semidense::", "tc_norm_kernel")
 VERIFY_TAGS = ("wiser_phrase::",)
 
@@ -204,21 +225,11 @@ def semidense_cases(dev, seed: int = 0, Ls=CHECK_L, Ts=CHECK_T,
     from wiser_tpu_torch.engine import kernels as K
     from wiser_tpu_torch.tools import search_bench as SB
 
-    rows, err, n = [], 0.0, 0
+    rows = []
 
     def one(cols, planes, batch, mode, T, L, M, n_bs, what, doc_base=0):
-        nonlocal err, n
-        t = semi_tensors(cols, planes, batch, dev)
-        it = SB._n_iters(cols) if n_bs else 0
-        r = check_semidense(
-            semi_call(K._semidense_step, t, mode, T, L, M, n_bs, it,
-                      doc_base),
-            semi_call(K._semidense_step_torch, t, mode, T, L, M, n_bs, it,
-                      doc_base), M, what)
-        r.update(mode=mode, T=T, L=L, M=M, n_bs=n_bs, what=what)
-        rows.append(r)
-        err = max(err, r["max_abs_err"])
-        n += 1
+        rows.append(_check_one(dev, cols, planes, batch, mode, T, L, M, n_bs,
+                               what, doc_base))
 
     H = 6
     for L in Ls:
@@ -255,7 +266,77 @@ def semidense_cases(dev, seed: int = 0, Ls=CHECK_L, Ts=CHECK_T,
                                n_pad_rows=0 if Bx == 1 else 2)
             one(cols, planes, batch, mode, T, L, M, n_bs,
                 f"semidense {mode} {what} B={Bx} T={T} n_bs={n_bs} M={M}")
-    return {"cases": n, "rows": rows, "max_abs_err": err}
+    return {"cases": len(rows), "rows": rows,
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def _check_one(dev, cols, planes, batch, mode, T, L, M, n_bs, what,
+               doc_base=0, n_iters=None) -> dict:
+    """One case: the kernel against the plain version on dev (n_iters:
+    the searched slots' halvings, by default enough for every run)."""
+    from wiser_tpu_torch.engine import kernels as K
+    from wiser_tpu_torch.tools import search_bench as SB
+
+    t = semi_tensors(cols, planes, batch, dev)
+    it = n_iters if n_iters is not None else (SB._n_iters(cols) if n_bs
+                                              else 0)
+    r = check_semidense(
+        semi_call(K._semidense_step, t, mode, T, L, M, n_bs, it, doc_base),
+        semi_call(K._semidense_step_torch, t, mode, T, L, M, n_bs, it,
+                  doc_base), M, what)
+    r.update(mode=mode, T=T, L=L, M=M, n_bs=n_bs, what=what)
+    return r
+
+
+# (L, B): candidate loads at the 256-lane units' edges, B 1 and 8 (a
+# query spread over a cluster of up to 8 CTAs)
+SEGMENT_EDGES = ((255, 8), (256, 1), (257, 8), (1023, 1), (1024, 8),
+                 (1025, 1), (2049, 8), (8191, 1))
+
+
+def segment_cases(dev, seed: int = 0, edges=SEGMENT_EDGES) -> dict:
+    """The segmented kernel's edges (ops/semidense.plan) against the plain
+    version, raw and tc: L at the units' edges with B 1 and 8 (T 2, and T
+    3 with a searched slot); a searched slot's runs past the iteration
+    count (n_bs_iters 3, against runs of up to 2L); a mesh shard's
+    doc_base over split queries; a K whose two lists still fit the buffer
+    (K 1,501: split) and one past shared memory (K 20,001: one CTA a
+    query, its keys in device memory)."""
+    from wiser_tpu_torch.tools import search_bench as SB
+
+    rows = []
+    H = 6
+    for L, B in edges:
+        cols = SB.synth_columns(L, seed + L)
+        planes = dense_rows(H, -(-(2 * L + 64) // 128) * 128, seed + L + 1)
+        for T, n_bs in ((2, 0), (3, 1)):
+            batch = semi_batch(cols, B, T, n_bs, H, seed + T + L,
+                               n_pad_rows=0 if B == 1 else 2)
+            for mode in ("raw", "tc"):
+                rows.append(_check_one(
+                    dev, cols, planes, batch, mode, T, L, 16, n_bs,
+                    f"segments {mode} L={L} B={B} T={T} n_bs={n_bs}"))
+    L = 2048
+    cols = SB.synth_columns(L, seed + 21)
+    planes = dense_rows(H, -(-(2 * L + 64) // 128) * 128, seed + 22)
+    batch = semi_batch(cols, 8, 4, 2, H, seed + 23)
+    shifted = _shift_docs(cols, 777_000)
+    for mode in ("raw", "tc"):
+        rows.append(_check_one(dev, cols, planes, batch, mode, 4, L, 16, 2,
+                               f"segments {mode} past the count n_bs_iters 3",
+                               n_iters=3))
+        rows.append(_check_one(dev, shifted, planes, batch, mode, 4, L, 16, 2,
+                               f"segments {mode} doc_base 777000 B=8",
+                               doc_base=777_000))
+    for L, B, M in ((4096, 8, 1500), (32768, 2, 20000)):
+        cols = SB.synth_columns(L, seed + L + 5)
+        planes = dense_rows(H, -(-(2 * L + 64) // 128) * 128, seed + L + 6)
+        batch = semi_batch(cols, B, 3, 1, H, seed + 29, n_pad_rows=0)
+        for mode in ("raw", "tc"):
+            rows.append(_check_one(dev, cols, planes, batch, mode, 3, L, M, 1,
+                                   f"segments {mode} K={M + 1} L={L} B={B}"))
+    return {"cases": len(rows), "rows": rows,
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
 def semidense_bound_bytes(t: dict, mode: str, T: int, L: int, M: int,
@@ -313,16 +394,18 @@ def semidense_bound_bytes(t: dict, mode: str, T: int, L: int, M: int,
     return int(total)
 
 
-def semi_shape(T: int, n_bs: int, L: int, seed: int = 1, H: int = 16):
-    """The timed group at (T, n_bs, L) on a synthetic 1M doc space: B by
-    the engine's semidense lane budget, candidate runs of L/2..L docs,
+def semi_shape(T: int, n_bs: int, L: int, seed: int = 1, H: int = 16,
+               B=None):
+    """The timed group at (T, n_bs, L) on a synthetic 1M doc space: B
+    given or by the engine's semidense lane budget, candidate runs of L/2..L docs,
     searched runs of L..4L, H dense rows of N_1M lanes 30% full."""
     from wiser_tpu_torch.engine.device import (B_BUCKETS,
                                                SEMIDENSE_LANE_BUDGET,
                                                _chunk_within)
     from wiser_tpu_torch.tools import search_bench as SB
 
-    B = _chunk_within(SEMIDENSE_LANE_BUDGET, (T - 1) * L, B_BUCKETS)
+    if B is None:
+        B = _chunk_within(SEMIDENSE_LANE_BUDGET, (T - 1) * L, B_BUCKETS)
     rng = np.random.default_rng(seed + L)
     n_cand = 32
     lengths = (list(rng.integers(L // 2 + 1, L + 1, size=n_cand))
@@ -523,8 +606,10 @@ def time_pair(kern, plain, nbytes: int, tags, iters: int = 10,
               plain_iters: int = 3, with_plain: bool = True) -> dict:
     """The kernel and its plain version in turns (kernel, plain, plain,
     kernel; CUDA events), the kernel after an L2 flush, its launches'
-    device time by torch.profiler, its host cost a call, both versions'
-    peak memory above their inputs and the bytes bound."""
+    device time by torch.profiler (else CUDA events around calls queued
+    behind a sleep, search_bench.queued_ms: no host gap), its host cost
+    a call, both versions' peak memory above their inputs and the bytes
+    bound."""
     import torch
 
     from wiser_tpu_torch.tools import search_bench as SB
@@ -535,10 +620,11 @@ def time_pair(kern, plain, nbytes: int, tags, iters: int = 10,
          if with_plain else [])
     k2 = SB.event_ms(kern, iters)
     split = launch_ms(kern, tags)
-    row = {"event_ms": [k1, k2], "plain_ms": p,
-           "device_ms": split["total"] or min(k1, k2),
+    queued = SB.queued_ms(kern, iters)
+    row = {"event_ms": [k1, k2], "plain_ms": p, "queued_ms": queued,
+           "device_ms": split["total"] or queued,
            "timing": ("torch.profiler" if split["total"] is not None
-                      else "CUDA events"),
+                      else "CUDA events, queued"),
            "flushed_ms": SB.flushed_ms(kern, iters),
            "host_us": SB.host_us(kern, iters), "launch_ms": split,
            "launches_per_call": sum(split["events"].values()) / split["calls"],
@@ -556,8 +642,9 @@ def time_semidense(dev, modes=("raw", "tc"), shapes=SEMI_SHAPES,
                    M: int = TIME_M, plain: bool = True,
                    compare: bool = True) -> list:
     """_semidense_step (the kernel where this tree has one) and, with
-    `plain`, its plain version at `shapes` on synthetic 1M inputs:
-    compared (`compare`), then timed (`time_pair`)."""
+    `plain`, its plain version at `shapes` ((T, n_bs, L), B by the lane
+    budget, or (B, T, n_bs, L)) on synthetic 1M inputs: compared
+    (`compare`), then timed (`time_pair`)."""
     import torch
 
     from wiser_tpu_torch.engine import kernels as K
@@ -565,8 +652,9 @@ def time_semidense(dev, modes=("raw", "tc"), shapes=SEMI_SHAPES,
 
     plain_fn_of = getattr(K, "_semidense_step_torch", K._semidense_step)
     rows = []
-    for T, n_bs, L in shapes:
-        B, cols, planes, batch = semi_shape(T, n_bs, L)
+    for shape in shapes:
+        Bx, T, n_bs, L = shape if len(shape) == 4 else (None, *shape)
+        B, cols, planes, batch = semi_shape(T, n_bs, L, B=Bx)
         it = SB._n_iters(cols) if n_bs else 0
         for mode in modes:
             t = semi_tensors(cols, {k: planes[k] for k in (
@@ -748,6 +836,49 @@ def time_calls(rec: Recorder, plain: bool = True) -> dict:
     return out
 
 
+def probe(dev, shapes=ENGINE_SHAPES, modes=("raw", "tc"), M: int = TIME_M,
+          iters: int = 10) -> list:
+    """Each phase's cycles of the semidense step by clock64() marks (its
+    measuring build, tools/dense_bench.clocks_build) at the engines'
+    group shapes on synthetic 1M inputs, each beside its event-timed ms
+    in that build. The entry point uses the library it loaded again
+    afterwards."""
+    import torch
+
+    from wiser_tpu_torch.engine import kernels as K
+    from wiser_tpu_torch.ops import semidense as SD
+    from wiser_tpu_torch.tools import search_bench as SB
+    from wiser_tpu_torch.tools.dense_bench import clocks_build, phase_split
+
+    loaded = SD._kernel_fns()
+    fns = clocks_build("semidense", SD._Fns)
+    rows = []
+    try:
+        SD._fns = fns
+        for B, T, n_bs, L in shapes:
+            _, cols, planes, batch = semi_shape(T, n_bs, L, B=B)
+            it = SB._n_iters(cols) if n_bs else 0
+            for mode in modes:
+                t = semi_tensors(cols, {k: planes[k] for k in (
+                    ("dense_tf8",) if mode == "tc"
+                    else ("dense_sc", "dense_tf"))}, batch, dev)
+
+                def fn(t=t, mode=mode):
+                    return semi_call(K._semidense_step, t, mode, T, L, M,
+                                     n_bs, it)
+
+                row = dict(kind="semidense", mode=mode, B=B, T=T, n_bs=n_bs,
+                           L=L, M=M, ms=SB.event_ms(fn, iters),
+                           **phase_split(fn, fns, groups=SEMI_GROUPS))
+                log(f"semidense probe {json.dumps(row)}")
+                rows.append(row)
+                del t
+                torch.cuda.empty_cache()
+    finally:
+        SD._fns = loaded
+    return rows
+
+
 # -- old against new -----------------------------------------------------------
 
 
@@ -804,6 +935,8 @@ def route_sets(index: str, columns: str, routes, n: int = 2048) -> dict:
     packed = PackedIndex.load(index, skip_offsets=True)
     eng = TorchEngine(packed, device="cuda", columns=columns)
     sets = RB.build_route_sets(packed, eng, n, 10)
+    if "aol_df" in routes:  # the chip smoke's df-ranked AOL mix
+        sets["aol_df"] = RB.aol_mixed_queries(packed, n, by_df=True)
     if any(r.startswith("phrase_") for r in routes):
         with open(os.path.join(index, "phrase_pairs.json")) as f:
             pairs = [tuple(x) for x in json.load(f)]
@@ -847,7 +980,8 @@ def measure(root: str, index=None, routes: str = ROUTES,
     dev = torch.device("cuda", 0)
     out = {"tree": root, "card": card_line(),
            "module": os.path.abspath(K.__file__),
-           "timing": time_semidense(dev, plain=False, compare=False)
+           "timing": time_semidense(dev, shapes=SEMI_SHAPES + ENGINE_SHAPES,
+                                    plain=False, compare=False)
            + time_verify(dev, plain=False, compare=False)}
     if index:
         sets = [r for r in routes.split(",") if r]
@@ -908,6 +1042,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--routes", default=ROUTES)
     ap.add_argument("--headline", action="store_true",
                     help="--trees: each tree's bench.headline run too")
+    ap.add_argument("--probe", action="store_true",
+                    help="each phase's cycles at the engines' shapes "
+                    "(a measuring build), then stop")
     args = ap.parse_args(argv)
     if args.root:
         res = measure(args.root, args.index, args.routes, args.headline)
@@ -937,8 +1074,12 @@ def main(argv=None) -> dict:
                           for n in ("semidense", "phrase", "dense")}
         for n in ("semidense", "phrase"):
             log(build_log[n][1])
+        if args.probe:
+            args.skip_check = args.check_only = True
+            res["probe"] = probe(dev)
         if not args.skip_check:
             for name, fn in (("semidense_check", semidense_cases),
+                             ("segment_check", segment_cases),
                              ("verify_check", verify_cases)):
                 t0 = time.perf_counter()
                 res[name] = fn(dev)
@@ -946,7 +1087,9 @@ def main(argv=None) -> dict:
                 res[name]["wall_s"] = time.perf_counter() - t0
                 log(f"{name}: {res[name]}")
         if not args.check_only:
-            res["timing"] = time_semidense(dev) + time_verify(dev)
+            res["timing"] = (time_semidense(dev, shapes=SEMI_SHAPES
+                                            + ENGINE_SHAPES)
+                             + time_verify(dev))
         print(json.dumps(res))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
