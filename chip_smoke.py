@@ -196,31 +196,40 @@ fails if neither scan launched on the dense, tc or mesh phase, or on
 another phase whose route counters show dense, pruned or rescued
 queries, if dense_scan never launched on the dense phase or
 dense_scan_tc on the tc phase, or if dense_pick never launched on the
-dense or tc phase. The full-scan mega phrase's kernels (the selection
-phrase_select and its band pass phrase_band, phrase_select_tc and
-phrase_band_tc on tc columns) are held against their plain versions in
-the kernel phase (dense_bench.check_phrase_cases: raw and tc, T 2, 3 and
-8, KV 1,024 and 4,096 over 1, 157 and 7,816 blocks, the band at
-thresholds each side of the (KV+1)-th score and, tc, its payload ties
-and a full stream) and timed there on synthetic 1M planes and in the
-dense and tc phases on the engines' planes; the smoke fails if the
-phrase set's full-scan route answered queries on the dense or tc phase
-and either kernel did not launch there. The semidense step (semidense
-on raw columns, semidense_tc on tc ones; csrc/semidense.cu) and the
-phrase position verification (phrase_verify; csrc/phrase.cu) are held
-against their plain versions in the kernel phase (semidense_bench.
-semidense_cases, segment_cases and verify_cases: raw and tc, T 2 to 8
-with 0 to 2 searched others, a mesh shard's doc_base, a deep k, the
-segmented kernel's edges: L at the 256-lane units' edges with B 1 and 8,
-runs past the iteration count, a K whose keys lie in device memory;
-bags with planted phrases, clamped windows, anchors not 0, int16 and
-int32 columns) and timed there on synthetic 1M inputs, then on the dense
-and tc phases' own calls (semidense_bench.Recorder: each kind's largest
-group and most called shape, compared and timed after the passes,
-the kernels line reading the largest); the smoke
-fails if semidense never launched on the dense phase, semidense_tc on
-the tc phase, or phrase_verify on the dense or tc phase with the phrase
-set. The semidense phrase route (semidense_phrase, semidense_phrase_tc;
+dense or tc phase. The full-scan mega phrase's kernels (the selection's
+block-key sweep phrase_sweep and the selection phrase_select, threshold
+first or in one pass, and its band pass phrase_band; phrase_sweep_tc,
+phrase_select_tc and phrase_band_tc on tc columns) are held against
+their plain versions in the kernel phase (dense_bench.
+check_phrase_cases: raw and tc, T 2, 3 and 8, KV 1,024 and 4,096 over
+1, 157 and 7,816 blocks, each selection by both paths where the doc
+space allows, one score everywhere so every block key ties at kappa's
+score, the band at thresholds each side of the (KV+1)-th score and, tc,
+its payload ties and a full stream) and timed there on synthetic 1M
+planes and in the dense and tc phases on the engines' planes; the smoke
+fails if the phrase set's full-scan route answered queries on the dense
+or tc phase and the selection, the band or the verification from kept
+docs did not launch there, or the sweep where the mega chunk's plan
+takes the threshold-first path. The semidense step (semidense on raw
+columns, semidense_tc on tc ones; csrc/semidense.cu) and the phrase
+position verification (csrc/phrase.cu: phrase_verify_docs from kept
+docs, the mega routes; phrase_verify_pidx from posting indices, the
+compact route) are held against their plain
+versions in the kernel phase (semidense_bench.semidense_cases,
+segment_cases and docs_cases: raw and tc, T 2 to 8 with 0
+to 2 searched others, a mesh shard's doc_base, a deep k, the segmented
+kernel's edges: L at the 256-lane units' edges with B 1 and 8, runs past
+the iteration count, a K whose keys lie in device memory; bags with
+planted phrases, clamped windows, anchors not 0, int16 and int32
+columns, runs past the recovery's iteration count, docs in no run) and
+timed there on synthetic 1M inputs, then on the dense and tc phases' own
+calls (semidense_bench.Recorder: each kind's largest group and most
+called shape, compared and timed after the passes, the kernels line
+reading the largest); the smoke fails if semidense never launched on
+the dense phase, semidense_tc on the tc phase, phrase_verify_docs on
+the dense or tc phase with the phrase set, or phrase_verify_pidx on a
+timed pass whose compact route answered queries. The semidense phrase
+route (semidense_phrase, semidense_phrase_tc;
 csrc/phrase_route.cu: the selection of the KV + 1 best AND keys, the
 recovery and window verification of the kept lanes, the top M) and the
 list chain (list_phrase, list_phrase_tc: match, bloom gate, verification
@@ -565,6 +574,8 @@ DENSE_KERNELS = (
     ("dense_tc_table", "wiser_tpu/engine/kernels.py:77"),
     ("dense_scan_merge", "wiser_tpu/engine/kernels.py:284"),
     ("dense_pick", "wiser_tpu/engine/kernels.py:1222"),
+    ("phrase_sweep", "wiser_tpu/engine/kernels.py:1648"),
+    ("phrase_sweep_tc", "wiser_tpu/engine/kernels.py:1648"),
     ("phrase_select", "wiser_tpu/engine/kernels.py:1648"),
     ("phrase_select_tc", "wiser_tpu/engine/kernels.py:1648"),
     ("phrase_band", "wiser_tpu/engine/kernels.py:1648"),
@@ -582,36 +593,63 @@ PHRASE_PLAIN_ITERS = 1
 
 def phrase_rows(timing: dict) -> dict:
     """The kernels line's entries of the phrase's passes from
-    dense_bench.time_phrase_shapes rows ({mode: rows}): phrase_select
-    {,_tc} from the selection at B 128, T 2, KV 1,024, phrase_band{,_tc}
-    from its band pass at the `skip` threshold (the usual group: no row
-    needs the band); each its own launches' device time by torch.profiler
-    (the call's CUDA events where the capture lost one), host cost,
-    plain version, bound and shares; the other readings stay in the
-    report."""
+    dense_bench.time_phrase_shapes rows ({mode: rows}): phrase_sweep
+    {,_tc} and phrase_select{,_tc} from the selection at B 128, T 2, KV
+    1,024 (the threshold-first path: each launch's own device time and
+    bound, dense_bench.phrase_part_bytes), phrase_band{,_tc} from its
+    band pass at the `skip` threshold (the usual group: no row needs the
+    band); each its own launches' device time by torch.profiler (the
+    call's CUDA events where the capture lost one), host cost, plain
+    version (the whole selection's for both of its launches), bound and
+    shares; the other readings stay in the report."""
+    from wiser_tpu_torch.tools.dense_bench import HBM_BYTES_PER_S
+
     out = {}
     for mode, rows in timing.items():
         sfx = "_tc" if mode == "tc" else ""
+        tc = "true" if mode == "tc" else "false"
         for kind, name in (("phrase_select", "phrase_select"),
                            ("phrase_band_skip", "phrase_band")):
             r = next((x for x in rows if x["kind"] == kind and x["B"] == 128
                       and x["T"] == 2 and x["KV"] == 1024), None)
             if r is None:
                 continue
-            ms = r["launch_ms"]["total"]
-            out[name + sfx] = {
-                "max_abs_err": 0.0, "ms": ms if ms is not None
-                else r["device_ms"],
-                "timing": "torch.profiler" if ms is not None
-                else "CUDA events",
-                "host_us": r["host_us"], "plain_ms": min(r["plain_ms"]),
-                "bound_ms": r["bound_ms"],
-                "share": r["bound_ms"] / r["device_ms"],
-                "share_per_query": r["bound_ms_per_query"] / r["device_ms"],
-                "launches_per_call": r["launches_per_call"],
-                "shape": f"{mode} B=128 T=2 N_pad={r['N_pad']} KV=1024"
-                         + (" (no row needs the band)" if "band" in kind
-                            else "")}
+            shape = (f"{mode} B=128 T=2 N_pad={r['N_pad']} KV=1024"
+                     + (" (no row needs the band)" if "band" in kind
+                        else ""))
+            base = {"max_abs_err": 0.0, "host_us": r["host_us"],
+                    "plain_ms": min(r["plain_ms"]),
+                    "launches_per_call": r["launches_per_call"]}
+            if kind == "phrase_band_skip":
+                ms = r["launch_ms"]["total"]
+                out[name + sfx] = dict(
+                    base, ms=ms if ms is not None else r["device_ms"],
+                    timing="torch.profiler" if ms is not None
+                    else "CUDA events", bound_ms=r["bound_ms"],
+                    share=r["bound_ms"] / r["device_ms"],
+                    share_per_query=r["bound_ms_per_query"]
+                    / r["device_ms"], shape=shape)
+                continue
+            kernels = r["launch_ms"]["kernels"]
+            parts = r.get("part_ms") or {}
+            for part, kid in (("sweep", 3), ("select", 1)):
+                nbytes = r["part_bytes"].get(part)
+                if nbytes is None:
+                    continue
+                ms = kernels.get(f"scan_kernel<{tc}, {kid}>")
+                timing = "torch.profiler"
+                if ms is None and part in parts:
+                    ms, timing = parts[part], "CUDA events, queued, alone"
+                elif ms is None:
+                    ms, timing = r["device_ms"], "CUDA events (the selection)"
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                out[f"phrase_{part}{sfx}"] = dict(
+                    base, ms=ms, timing=timing,
+                    bound_ms=bound, share=bound / ms,
+                    selection_ms=r["device_ms"],
+                    selection_bound_ms=r["bound_ms"],
+                    selection_share=r["bound_ms"] / r["device_ms"],
+                    shape=shape)
     return out
 
 
@@ -745,19 +783,24 @@ def dense_kernel_phase(report: dict) -> dict:
     return out
 
 
-# the semidense step's and the verification's kernels: (name, the
-# TPU-side step it replaces, its source)
+# the semidense step's and the verification's kernels on the path:
+# (name, the TPU-side step it replaces, its source); the verification
+# from kept docs (the mega routes) and from posting indices (the compact
+# route)
 SEMI_KERNELS = (
     ("semidense", "wiser_tpu/engine/kernels.py:1103",
      "wiser_tpu_torch/csrc/semidense.cu"),
     ("semidense_tc", "wiser_tpu/engine/kernels.py:989",
      "wiser_tpu_torch/csrc/semidense.cu"),
-    ("phrase_verify", "wiser_tpu/engine/kernels.py:1291",
+    ("phrase_verify_docs", "wiser_tpu/engine/kernels.py:1291",
+     "wiser_tpu_torch/csrc/phrase.cu"),
+    ("phrase_verify_pidx", "wiser_tpu/engine/kernels.py:1291",
      "wiser_tpu_torch/csrc/phrase.cu"))
 # the kernel phase's timed shapes on synthetic 1M inputs: the semidense
 # group (T, n_bs, L) at the engine's B, the verification's mega chunk
+# (B, T, NL, PP, PW, run ids)
 SEMI_KERNEL_SHAPES = ((3, 0, 2048),)
-VERIFY_KERNEL_SHAPES = ((128, 2, 1024, 128, 128),)
+DOCS_KERNEL_SHAPES = ((128, 2, 1024, 16, 16, 30_000),)
 
 
 def semi_rows(rows: list, err: float, source: str) -> dict:
@@ -768,7 +811,7 @@ def semi_rows(rows: list, err: float, source: str) -> dict:
     bound and share."""
     out = {}
     for r in rows:
-        name = ("phrase_verify" if r["kind"] == "verify"
+        name = ("phrase_" + r["kind"] if r["kind"].startswith("verify")
                 else "semidense" + ("_tc" if r["mode"] == "tc" else ""))
         if name in out:
             continue
@@ -791,7 +834,7 @@ def semi_rows(rows: list, err: float, source: str) -> dict:
 def semi_kernel_phase(report: dict) -> dict:
     """The semidense step's and the verification's kernels against their
     plain versions on the card (semidense_bench.semidense_cases, the
-    segmented kernel's edges segment_cases, and verify_cases), then timed
+    segmented kernel's edges segment_cases, and docs_cases), then timed
     on synthetic 1M inputs in turns with the plain versions. Returns the
     kernels line's entries."""
     import torch
@@ -801,7 +844,7 @@ def semi_kernel_phase(report: dict) -> dict:
     dev = torch.device("cuda", 0)
     for key, fn in (("semidense_check", SDB.semidense_cases),
                     ("segment_check", SDB.segment_cases),
-                    ("verify_check", SDB.verify_cases)):
+                    ("verify_docs_check", SDB.docs_cases)):
         t0 = time.perf_counter()
         chk = fn(dev)
         torch.cuda.synchronize()
@@ -811,7 +854,7 @@ def semi_kernel_phase(report: dict) -> dict:
             f"{chk['cases']} cases: {report[key]}")
     t0 = time.perf_counter()
     rows = (SDB.time_semidense(dev, shapes=SEMI_KERNEL_SHAPES)
-            + SDB.time_verify(dev, shapes=VERIFY_KERNEL_SHAPES))
+            + SDB.time_docs(dev, shapes=DOCS_KERNEL_SHAPES))
     torch.cuda.empty_cache()
     report["semi_kernel_timing"] = {"rows": rows,
                                     "wall_s": time.perf_counter() - t0}
@@ -835,7 +878,7 @@ def semi_engine_timing(report: dict, name: str, rec) -> dict:
     out = SDB.time_calls(rec)
     torch.cuda.empty_cache()
     report[f"{name}_semi_timing"] = dict(out, wall_s=time.perf_counter() - t0)
-    rows = out["semidense"] + out["verify"]
+    rows = out["semidense"] + out["verify_docs"] + out["verify_pidx"]
     err = max([r["check"]["max_abs_err"] for r in out["semidense"]] + [0.0])
     return semi_rows(rows, err, f"the {name} engine's own calls")
 
@@ -899,8 +942,9 @@ def route_engine_timing(report: dict, name: str, rec) -> dict:
 
 def route_launches(report: dict):
     """Whether every run mix's timed pass (the mesh's aside) that answered
-    queries on the semidense phrase or the list route launched that
-    route's kernel (either column mode) there. Returns ({entry and
+    queries on the semidense phrase, the list or the compact route
+    launched that route's kernel (either column mode; the compact
+    route's verification from posting indices) there. Returns ({entry and
     kernel: [queries, launches]}, [the entries where it did not])."""
     seen, idle = {}, []
     for key, r in report.items():
@@ -910,7 +954,8 @@ def route_launches(report: dict):
             continue
         st, ln = r["stats"], r["launches"]
         for route, kernel in (("phrase_semidense", "semidense_phrase"),
-                              ("phrase_list", "list_phrase")):
+                              ("phrase_list", "list_phrase"),
+                              ("phrase_compact", "phrase_verify_pidx")):
             took = (st.get(f"route_{route}", 0)
                     + st.get(f"hot_route_{route}", 0))
             n = ln.get(kernel, 0) + ln.get(kernel + "_tc", 0)
@@ -1133,7 +1178,12 @@ def check_dense_routes(report: dict, name: str) -> None:
 def check_phrase_routes(report: dict, name: str) -> None:
     """The full-scan, semidense and compact-or-list phrase routes each
     answer some of the phrase set, and where the full scan answered any,
-    both of the phrase's kernels launched (the tc ones on tc columns)."""
+    the phrase's selection, band and verification from kept docs
+    launched (the tc ones on tc columns), and the selection's sweep
+    where the mega chunk's plan takes the threshold-first path (its doc
+    space holds KV + 1 blocks)."""
+    from wiser_tpu_torch.ops import dense as D
+
     r = report[f"{name}_phrase"]
     st = r["stats"]
     routes = {k: st.get(f"route_phrase_{k}", 0)
@@ -1143,9 +1193,15 @@ def check_phrase_routes(report: dict, name: str) -> None:
             and routes["compact"] + routes["list"] > 0):
         raise AssertionError(
             f"{name} run: a phrase route took no query {routes}")
-    sfx = "_tc" if report[f"{name}_engine"]["columns"] == "tc" else ""
-    kernels = {k + sfx: r["launches"].get(k + sfx, 0)
-               for k in ("phrase_select", "phrase_band")}
+    info = report[f"{name}_engine"]
+    sfx = "_tc" if info["columns"] == "tc" else ""
+    names = ["phrase_select", "phrase_band"]
+    if D.select_path(1, info["n_pad_docs"] // 128,
+                     info["phrase_kv"]) == "two":
+        names.append("phrase_sweep")
+    kernels = {k + sfx: r["launches"].get(k + sfx, 0) for k in names}
+    kernels["phrase_verify_docs"] = r["launches"].get("phrase_verify_docs",
+                                                      0)
     if routes["full"] > 0 and not all(kernels.values()):
         raise AssertionError(
             f"{name} run: {routes['full']} full-scan phrases, but the "
@@ -2101,7 +2157,9 @@ def main() -> int:
                     "columns": hot.columns,
                     "device_bytes": eng.device_bytes(),
                     "dense_rows": int(hot._dense_H),
-                    "dense_build_s": hot.dense_build_s}
+                    "dense_build_s": hot.dense_build_s,
+                    "n_pad_docs": int(getattr(hot, "_n_pad_docs", 0)),
+                    "phrase_kv": int(hot.PRUNED_PHRASE_KV)}
             if name.startswith("staged"):
                 info.update(hot_fraction=eng.hot_fraction,
                             phrase_hot_fraction=float(
@@ -2277,8 +2335,9 @@ def main() -> int:
         kerns[name]["launches"] = sum(c[name] for c in semi_by_phase.values())
     semi_idle = [f"{p} ({name})" for p, name in (
         ("dense", "semidense"), ("tc", "semidense_tc"),
-        ("dense", "phrase_verify"), ("tc", "phrase_verify"))
-        if p in phases and (name != "phrase_verify" or "phrase" in phases)
+        ("dense", "phrase_verify_docs"), ("tc", "phrase_verify_docs"))
+        if p in phases and (not name.startswith("phrase")
+                            or "phrase" in phases)
         and not semi_by_phase.get(p, {}).get(name)]
     for name, _ in DENSE_KERNELS:
         kerns[name]["launches"] = sum(c[name]

@@ -340,7 +340,8 @@ def test_scan_args_ok_refuses_what_check_inputs_refuses(planes, case, mode):
     assert "CUDA tensors" not in str(err.value)
     assert D.launch_counts == {"dense_scan": 0, "dense_scan_tc": 0,
                                "dense_tc_table": 0, "dense_scan_merge": 0,
-                               "dense_pick": 0, "phrase_select": 0,
+                               "dense_pick": 0, "phrase_sweep": 0,
+                               "phrase_sweep_tc": 0, "phrase_select": 0,
                                "phrase_select_tc": 0, "phrase_band": 0,
                                "phrase_band_tc": 0}
     if "blocks" not in kw:

@@ -4,7 +4,8 @@ The same seeded numpy inputs (real index columns, bloom columns and
 probes of a synth corpus, assembled by TpuEngine's own helpers) go
 through the JAX step and the port's: _bloom_gate, the list chain
 (make_match_kernel, make_phrase_verify_kernel, make_select_topk_kernel),
-_verify_pos_windows, the compact, semidense and full-scan phrase
+_verify_pos_windows (the port's plain _verify_pos_windows_torch), the
+compact, semidense and full-scan phrase
 kernels. With tie-free scores (random f32 partial scores or dense rows)
 outputs are equal with tolerance 0. Compaction keeps lax.top_k's
 index-ascending tie order (a stable sort), so with tied scores the
@@ -184,8 +185,8 @@ def test_verify_pos_windows_exact(kcorpus):
     args = (je._h_positions, ps, pe, anchor)
     want = np.asarray(JK._verify_pos_windows(*(J(a) for a in args), T=T,
                                              NL=NL, PP=PP, PW=PW))
-    got = TK._verify_pos_windows(*(T_(a) for a in args), T=T, NL=NL, PP=PP,
-                                 PW=PW).numpy()
+    got = TK._verify_pos_windows_torch(*(T_(a) for a in args), T=T, NL=NL,
+                                       PP=PP, PW=PW).numpy()
     np.testing.assert_array_equal(got, want)
     # adjacent bags of one doc: the phrase "t_i t_j" where it occurs
     assert want.dtype == got.dtype == np.int32

@@ -602,37 +602,50 @@ def test_cpu_tensors_take_the_plain_passes(mode):
 @pytest.mark.parametrize("mode", ["raw", "tc"])
 @pytest.mark.parametrize("KV", [1024, 4096])
 def test_plan_at_the_phrase_keys(mode, KV):
-    """The selection at K = KV + 1 (1,025 and the rescue's 4,097) and the
-    band over the 1M index's 7,816 blocks and a small doc space, B 8 to
-    128, T 2 to 4 and 8, three resident counts: within the H100's shared
-    bytes and equal to dense.cu's layout, with room for two CTAs an SM;
-    the selection's keys in one shared buffer of KP + 2 steps' keys at
-    either K (KP 8,192 is past KEY_SMEM_CAP, where the dense scan's
-    running lists leave shared memory: no scratch here); the merge only
-    for a split selection, its thresholds after the segments' keys; the
-    band with no keys, no merge, no table and one word a query; the
-    band's words within the flush's scratch."""
+    """The selection at K = KV + 1 (1,025 and the rescue's 4,097), its
+    sweep and the band over the 1M index's 7,816 blocks and a small doc
+    space, B 8 to 128, T 2 to 4 and 8, three resident counts: within the
+    H100's shared bytes and equal to dense.cu's layout, with room for two
+    CTAs an SM; the selection's keys in one shared buffer of KP + 2
+    steps' keys at either K (KP 8,192 is past KEY_SMEM_CAP, where the
+    dense scan's running lists leave shared memory: no scratch here), a
+    query's segments at most one cluster and no merge launch or scratch
+    (one pass over every block, or the listed selection over K ranks of
+    at most IDS_CAP a segment, which reads its sweep's tc table); the
+    sweep with no keys, no merge, the (B, NB) block keys out; the band
+    with no keys, no merge, no table and one word a query; the band's
+    words within the flush's scratch."""
     assert 8 + 4 * 4 + 4 * D.BAND_MAX_T <= D.FLUSH_BYTES
+    tc = mode == "tc"
     for B in (8, 32, 128):
         for T in (2, 3, 4, 8):
             for NB in (7816, 157):
                 for resident in (264, 396, 528):
-                    s = D.plan(B, T, NB, KV, mode, resident, kind="select")
-                    assert s.K == KV + 1 and s.KP == 1 << KV.bit_length()
-                    assert s.smem == D.scan_bytes(T, s.KP, mode, s.NS,
-                                                  s.step_blocks,
-                                                  kind="select")
-                    assert s.smem <= D.SMEM_TWO_CTAS
-                    assert s.r_words == 0
-                    assert s.out_words == 2 * B * s.K
-                    split = s.nseg > 1
-                    assert s.merge_smem == (D.merge_bytes(s.KP, "select")
-                                            if split else 0)
-                    assert s.merge_smem <= D.MAX_SMEM
-                    assert s.part_words == (2 * B * s.nseg * s.K + 2 * B
-                                            if split else 0)
-                    assert s.launches == 1 + split + (mode == "tc")
-                    assert (s.nseg - 1) * s.bps < NB <= s.nseg * s.bps
+                    for listed in (False, True):
+                        if listed and NB < KV + 1:
+                            continue
+                        s = D.plan(B, T, KV + 1 if listed else NB, KV, mode,
+                                   resident, listed, kind="select")
+                        assert s.K == KV + 1 and s.KP == 1 << KV.bit_length()
+                        assert s.smem == D.scan_bytes(T, s.KP, mode, s.NS,
+                                                      s.step_blocks, listed,
+                                                      kind="select")
+                        assert s.smem <= D.SMEM_TWO_CTAS
+                        assert (s.merge_smem, s.part_words, s.r_words) == (
+                            0, 0, 0)
+                        assert s.out_words == 2 * B * s.K
+                        assert 1 <= s.nseg <= D.MAX_CLUSTER
+                        assert not listed or s.bps <= D.IDS_CAP
+                        assert s.launches == 1 + (tc and not listed)
+                        n = KV + 1 if listed else NB
+                        assert (s.nseg - 1) * s.bps < n <= s.nseg * s.bps
+                    w = D.plan(B, T, NB, KV, mode, resident, kind="sweep")
+                    assert w.KP == 0 and w.smem == D.scan_bytes(
+                        T, 0, mode, w.NS, w.step_blocks)
+                    assert (w.merge_smem, w.part_words, w.r_words,
+                            w.out_words, w.launches) == (
+                        0, 0, 0, 2 * B * NB, 1 + tc)
+                    assert (w.nseg - 1) * w.bps < NB <= w.nseg * w.bps
                     b = D.plan(B, T, NB, KV, mode, resident, kind="band")
                     assert b.K == KV + 1 and b.KP == 0
                     assert b.smem == D.scan_bytes(T, 0, mode, b.NS,
@@ -653,7 +666,7 @@ def test_plan_at_the_phrase_keys(mode, KV):
     assert D.scan_bytes(2, 8192, "raw", 2, 8, kind="select") == (
         base + 8 * (8192 + 2 * 1024))
     assert D.scan_bytes(2, 0, "raw", 2, 8) == base
-    assert D.merge_bytes(8192, "select") == 16 + F + 8 * (8192 + 2 * 1024)
+    assert D.scan_bytes(2, 0, "raw", 2, 8, kind="sweep") == base
 
 
 # -- the slice end to end -----------------------------------------------------

@@ -7,7 +7,7 @@ the CPU through their plans and numpy models of what the kernels do:
   many CTAs as keep the group within two CTAs an SM (at most a cluster's
   8, none shorter than 512 lanes), fits the card's shared memory and
   covers L;
-- the recovery (phrase_route.cu `warp_recover`: bound.cuh's 32-ary warp
+- the recovery (bound.cuh `recover`: its 32-ary warp
   lower bound, else lane t's replay of the fixed-count search) equals
   the fixed-count search of engine/kernels._binary_search everywhere,
   and takes the warp search wherever that search has converged in the
@@ -138,7 +138,7 @@ def warp_lower_bound(doc, lo, hi, target):
 
 
 def recover(doc, target, lo, hi, iters):
-    """phrase_route.cu's recovery (warp_recover, else the replay):
+    """phrase_route.cu's recovery (bound.cuh recover, else the replay):
     (posting index, route)."""
     run = hi - lo
     max_run = 2**31 if iters >= 31 else 2**iters - 1

@@ -1,21 +1,21 @@
-"""The phrase position verification on the CPU (engine/kernels.
-_verify_pos_windows, its plain version _verify_pos_windows_torch, and the
-kernel's entry in ops/phrase.py).
+"""The phrase position verification on the CPU (the reference
+engine/kernels._verify_pos_windows_torch, and the kernel's entries in
+ops/phrase.py with their dispatchers _verify_docs and _verify_pidx).
 
-The plain verification against the JAX package's _verify_pos_windows on
-tools/semidense_bench's position bags (planted phrases among noise,
-empty bags, bags past the window) at the edges: a window clamped at n -
-PW (the column ends at its last bag), anchors other than 0, PP < PW, T
-at the engine's MAX_T, unsorted bags, and the 65535 pad (an int16
-column of uint16 bits holding 65535 among its positions), plus an int32
-column. Then the checks (verify_args_ok refuses exactly what
-check_verify_inputs refuses; the kernel's entry raises ValueError on any
-CPU call before a launch), the dispatch (CPU tensors take the plain
-version and launch nothing), the launch plans at the engine's shapes and
-a hand count of the bytes bound.
+The plain window verification against the JAX package's
+_verify_pos_windows on tools/semidense_bench's position bags (planted
+phrases among noise, empty bags, bags past the window) at the edges: a
+window clamped at n - PW (the column ends at its last bag), anchors
+other than 0, PP < PW, T at the engine's MAX_T, unsorted bags, and the
+65535 pad (an int16 column of uint16 bits holding 65535 among its
+positions), plus an int32 column. Then the checks (the dispatcher, the
+argument check and the kernel's entry refuse the same bad arguments; the
+entry raises ValueError on any CPU call before a launch), the dispatch
+(CPU tensors take the plain versions and launch nothing), the launch
+plans at the engine's shapes and a hand count of the bytes bound.
 
 Tolerances: none (integer counts, equal on every row). The card's check
-(the kernel against the plain version) is marked cuda and skips here.
+(the kernels against the plain versions) is marked cuda and skips here.
 """
 
 from functools import partial
@@ -71,8 +71,8 @@ EDGES = [  # (B, T, NL, PP, PW, semidense_bench.verify_inputs options)
 def test_plain_matches_jax(B, T, NL, PP, PW, opt):
     v = SDB.verify_inputs(B, T, NL, PP, PW, 5 + NL + T, **opt)
     t = SDB.verify_tensors(v, torch.device("cpu"))
-    got = TK._verify_pos_windows(t["positions"], t["ps"], t["pe"],
-                                 t["anchor"], T=T, NL=NL, PP=PP, PW=PW)
+    got = TK._verify_pos_windows_torch(t["positions"], t["ps"], t["pe"],
+                                       t["anchor"], T=T, NL=NL, PP=PP, PW=PW)
     want = _jax_counts(v, T, NL, PP, PW)
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want > 0).any() and (want == 0).any()
@@ -91,111 +91,132 @@ def test_the_65535_pad_is_a_position():
              1, 0, 2).copy(),
          "anchor": np.zeros(1, dtype=np.int32)}
     t = SDB.verify_tensors(v, torch.device("cpu"))
-    got = TK._verify_pos_windows(t["positions"], t["ps"], t["pe"],
-                                 t["anchor"], T=2, NL=2, PP=8, PW=8).numpy()
+    got = TK._verify_pos_windows_torch(t["positions"], t["ps"], t["pe"],
+                                       t["anchor"], T=2, NL=2, PP=8,
+                                       PW=8).numpy()
     np.testing.assert_array_equal(got, [[1, 0]])
     np.testing.assert_array_equal(got, _jax_counts(v, 2, 2, 8, 8))
 
 
+_DOCS = ("postings_doc", "positions", "pos_starts", "docs", "starts",
+         "ends", "anchor")
+
+
 def _good():
-    v = SDB.verify_inputs(2, 3, 10, 8, 32, 3)
+    v = SDB.docs_inputs(2, 3, 10, 8, 32, 3)
+    it = v.pop("n_iters")
     t = SDB.verify_tensors(v, torch.device("cpu"))
-    return [t["positions"], t["ps"], t["pe"], t["anchor"]], dict(
-        T=3, NL=10, PP=8, PW=32)
+    return [t[k] for k in _DOCS], dict(T=3, NL=10, PP=8, PW=32, n_iters=it)
 
 
 def _bad():
     args, kw = _good()
     out = []
 
-    def arg(i, v, what):
+    def arg(k, v, what):
         a = list(args)
-        a[i] = v
+        a[_DOCS.index(k)] = v
         out.append((what, a, dict(kw)))
 
     def key(k, v, what):
         out.append((what, list(args), dict(kw, **{k: v})))
 
-    arg(0, args[0].to(torch.int64), "positions int64")
-    arg(0, args[0][:0], "empty positions")
-    arg(0, args[0].reshape(-1, 1), "positions 2-D")
-    arg(1, args[1].to(torch.int64), "ps int64")
-    arg(1, args[1][:, :2], "ps of the wrong shape")
-    arg(2, args[2].transpose(0, 2).contiguous().transpose(0, 2),
-        "pe not contiguous")
-    arg(3, args[3].to(torch.int64), "anchor int64")
-    arg(3, args[3][:1], "anchor of the wrong shape")
+    pos, docs = args[1], args[3]
+    arg("positions", pos.to(torch.int64), "positions int64")
+    arg("positions", pos[:0], "empty positions")
+    arg("positions", pos.reshape(-1, 1), "positions 2-D")
+    arg("postings_doc", args[0].to(torch.int64), "postings_doc int64")
+    arg("pos_starts", args[2][:0], "empty pos_starts")
+    arg("docs", docs.to(torch.int64), "docs int64")
+    arg("docs", docs[:, :2].contiguous(), "docs of the wrong shape")
+    arg("starts", args[4].t().contiguous().t(), "starts not contiguous")
+    arg("ends", args[5][:, :2].contiguous(), "ends of the wrong shape")
+    arg("anchor", args[6].to(torch.int64), "anchor int64")
+    arg("anchor", args[6][:1], "anchor of the wrong shape")
     key("T", 0, "T 0")
     key("T", PH.MAX_T + 1, "T past MAX_T")
     key("PP", 0, "PP 0")
     key("PW", 0, "PW 0")
-    key("NL", 11, "NL against ps")
+    key("NL", 11, "NL against docs")
+    key("n_iters", -1, "n_iters -1")
     return out
 
 
 def test_args_ok_refuses_what_check_inputs_refuses():
+    """The dispatcher, check_docs_inputs and the kernel's entry refuse
+    the same bad arguments (ValueError) and launch nothing."""
     args, kw = _good()
-    assert PH.verify_args_ok(*args, **kw)
-    PH.check_verify_inputs(*args, **kw)
+    PH.check_docs_inputs(*args, **kw)
     with pytest.raises(ValueError, match="CUDA"):
-        PH.phrase_verify(*args, **kw)
+        PH.phrase_verify_docs(*args, **kw)
     for what, a, k in _bad():
-        assert not PH.verify_args_ok(*a, **k), what
         with pytest.raises(ValueError):
-            PH.check_verify_inputs(*a, **k)
+            PH.check_docs_inputs(*a, **k)
         with pytest.raises(ValueError):
-            TK._verify_pos_windows(*a, **k)
+            TK._verify_docs(*a, **k)
         with pytest.raises(ValueError):
-            PH.phrase_verify(*a, **k)
-    assert PH.launch_counts == {"phrase_verify": 0}
+            PH.phrase_verify_docs(*a, **k)
+    assert PH.launch_counts == {"phrase_verify_docs": 0,
+                                "phrase_verify_pidx": 0}
 
 
 def test_cpu_tensors_take_the_plain_version(monkeypatch):
     def no_kernel(*a, **k):
         raise AssertionError("the kernel's entry ran on CPU tensors")
 
-    monkeypatch.setattr(PH, "phrase_verify", no_kernel)
+    monkeypatch.setattr(PH, "phrase_verify_docs", no_kernel)
+    monkeypatch.setattr(PH, "phrase_verify_pidx", no_kernel)
     args, kw = _good()
     np.testing.assert_array_equal(
-        TK._verify_pos_windows(*args, **kw).numpy(),
-        TK._verify_pos_windows_torch(*args, **kw).numpy())
-    assert PH.launch_counts == {"phrase_verify": 0}
+        TK._verify_docs(*args, **kw).numpy(),
+        TK._verify_docs_torch(*args, **kw).numpy())
+    v = SDB.docs_inputs(2, 3, 10, 8, 32, 3)
+    t = SDB.verify_tensors(v, torch.device("cpu"))
+    np.testing.assert_array_equal(
+        SDB.pidx_call(TK._verify_pidx, t, 3, 10, 8, 32).numpy(),
+        SDB.pidx_call(TK._verify_pidx_torch, t, 3, 10, 8, 32).numpy())
+    assert PH.launch_counts == {"phrase_verify_docs": 0,
+                                "phrase_verify_pidx": 0}
 
 
 @pytest.mark.parametrize("T", [1, 2, 3, 4, 8])
 def test_launch_plans_at_engine_shapes(T):
     """Every PW the engine verifies with (a PP bucket up to its POS_PAD):
-    as many warps a CTA as fit VERIFY_SMEM (at least one), their windows
-    within the card's shared memory, one warp a (query, lane)."""
+    a group of 8 threads an item up to PW 32, a warp past it; as many
+    warps a CTA as fit VERIFY_SMEM (at least one), their windows within
+    the card's shared memory, every (query, lane) an item."""
     for PW in (b for b in PP_BUCKETS if b <= TorchEngine.POS_PAD):
         for B, NL in ((128, 1024), (128, 4096), (8, 2048), (1, 1)):
-            p = PH.plan(B, T, NL, PW)
-            per = PH.warp_bytes(T, PW)
+            p = PH.group_plan(B, T, NL, PW)
+            per = PH.warp_bytes(T, PW) * (32 // p.G)
+            assert p.G == (8 if PW <= 32 else 32)
             assert 1 <= p.W <= PH.MAX_WARPS
             assert p.smem == p.W * per <= PH.MAX_SMEM
             assert p.W == 1 or p.smem <= PH.VERIFY_SMEM
             assert p.W == PH.MAX_WARPS or (p.W + 1) * per > PH.VERIFY_SMEM
-            assert p.ctas * p.W >= B * NL > (p.ctas - 1) * p.W
-    assert PH.plan(128, 2, 1024, 128).W == 8
+            items = p.W * 32 // p.G
+            assert p.ctas * items >= B * NL > (p.ctas - 1) * items
+    assert PH.group_plan(128, 2, 1024, 128).W == 8
 
 
 def test_bound_bytes_hand_count():
-    """One query, T 2, NL 2 over an int16 column: the windows [0, 3) and
-    [20, 22) of term 0 and [3, 5) and [40, 40) (empty) of term 1 touch
-    sectors {0}, {1}, {0} and none (2 B a position, 16 a sector): 2
-    distinct sectors, then ps and pe (4 B each of 4), the anchor and the
-    2 counts."""
-    pos = torch.zeros(64, dtype=torch.int16)
-    t = {"positions": pos,
-         "ps": torch.tensor([[[0, 20], [3, 40]]], dtype=torch.int32),
-         "pe": torch.tensor([[[3, 22], [5, 40]]], dtype=torch.int32)}
-    want = 2 * 32 + 2 * 4 * 4 + 4 + 2 * 4
-    assert SDB.verify_bound_bytes(t, 2, 2, 8) == want
+    """One query, T 2, NL 2 from posting indices over an int16 column:
+    term 0's indices 0 and 3 give the windows [0, 3) and [20, 22), term
+    1's 1 and 5 give [3, 5) and [40, 40) (empty); they touch sectors {0},
+    {1}, {0} and none (2 B a position, 16 a sector): 2 distinct sectors;
+    the pos_starts pairs lie in one sector; then the (1, 2, 2) indices,
+    the (1, 2) slot_of and the 2 counts (4 B each)."""
+    t = {"positions": torch.zeros(64, dtype=torch.int16),
+         "pos_starts": torch.tensor([0, 3, 5, 20, 22, 40, 40, 40],
+                                    dtype=torch.int32),
+         "pidx": torch.tensor([[[0, 3], [1, 5]]], dtype=torch.int32)}
+    want = (2 + 1) * 32 + 4 * 4 + 2 * 4 + 2 * 4
+    assert SDB.pidx_bound_bytes(t, 2, 2, 8) == want
 
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    out = SDB.verify_cases(torch.device("cuda", 0))
+    out = SDB.docs_cases(torch.device("cuda", 0))
     assert out["cases"] > 0

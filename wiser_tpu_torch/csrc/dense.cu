@@ -101,25 +101,45 @@
 // The full-scan mega phrase (wiser_tpu/engine/kernels.py _full_phrase_body
 // :1648, make_full_phrase_kernel :1829, make_full_phrase_kernel_tc :1783;
 // port engine/kernels.full_phrase_select and full_phrase_band) runs as
-// two more instantiations of scan_kernel, each over every block:
-//   - kSelect: the same streaming over every block with K = KV + 1
-//     (1,025, or the rescue's 4,097) under the phrase's rule: p = row *
-//     weight (tc: weight * the tf part from the tables), summed in slot
-//     order from 0, matched where every p > 0. At K in the thousands a
-//     sorted running list costs a bitonic sort and a merge a flush, so
-//     the keys above the push threshold tau pile up unsorted in one
-//     shared buffer of KP + 2 steps' keys; when fewer than a step's
-//     lanes are free, keep_top cuts it to its top K by the radix select
-//     and a compaction and raises tau to the K-th key. Each segment of a
-//     split query publishes its tau to the query's word (atomicMax) and
-//     polls the others' each step: every one is below the query's K-th
-//     key, so the highest serves every segment. The kept keys are sorted
-//     once, at the end (by select_merge_kernel for a split query, whose
-//     segments write theirs unsorted). It writes each query's K keys as
-//     (lane, f32 score) in (score desc, doc asc) order, lane -1 and
-//     score -inf past the matched lanes: the canonical top K, which the
-//     plain version's stable two-level selection keeps too, ties
-//     included (ops/dense.py says why);
+// three more instantiations of scan_kernel, under the phrase's rule: p =
+// row * weight (tc: weight * the tf part from the tables), summed in slot
+// order from 0, matched where every p > 0. The selection keeps the K =
+// KV + 1 best lanes (1,025, or the rescue's 4,097), threshold first, in
+// the plain version's own two-level order:
+//   - kSweep streams every block of the query's rows through the ring and
+//     pushes no key: each warp's 128 lanes are one block, whose largest
+//     key (keys.cuh: score desc, doc asc, unique) two warp max-reductions
+//     find and lane 0 writes to a (B, NB) row of block keys (0: no
+//     matched lane). In tc a 4-lane word's tf bytes are tested for a
+//     match first (tf > 0 on every term, one instruction a term), and
+//     only a word with a matched lane reads the tables. Its segments
+//     share nothing, so they are planned to whole waves with no merge;
+//   - kSelect over a block list read from those keys (the listed
+//     selection): each CTA copies its query's block keys into shared
+//     memory, finds their K-th largest, kappa, by a radix select from
+//     the first byte the matched blocks' keys differ in, ranking the
+//     last 256 candidates outright (kth_block_key), and ranks the
+//     blocks whose key is at or above it in id order (exactly K where
+//     kappa > 0; every matched block where fewer than K match). Every
+//     one of the K blocks holds a lane at or above kappa, so the
+//     (KV+1)-th lane key is too, and no lane outside them reaches it:
+//     the CTA streams its slice of those blocks (each thread copying its
+//     own lanes) and pushes only keys at or above kappa;
+//   - kSelect over every block (the one-pass selection), where the doc
+//     space has fewer than K blocks (ops/dense.select_path).
+// Either selection keeps the keys above its push threshold tau unsorted
+// in one shared buffer of KP + 2 steps' keys; when fewer than a step's
+// lanes are free, keep_top cuts it to its top K by the radix select and
+// a compaction and raises tau to the K-th key. A query's segments (at
+// most 8) are one thread-block cluster: they share their thresholds
+// through the first CTA's word, each cuts its keys to K, and the first
+// CTA streams the others' kept keys out of distributed shared memory
+// through the same push and keep_top, so no second launch and no
+// device-memory scratch is needed. The kept keys are sorted once,
+// at the end, and written as (lane, f32 score) in (score desc, doc asc)
+// order, lane -1 and score -inf past the matched lanes: the canonical
+// top K, which the plain version's stable two-level selection keeps too,
+// ties included (ops/dense.py says why);
 //   - kBand: a query needs the band only where its (KV+1)-th score
 //     reaches thr = kth * (1 - eps3), since no lane outside the
 //     selection scores above it; every other query's CTAs return at
@@ -130,14 +150,17 @@
 //     payload differs from the k-th kept doc's on some term or its doc
 //     is below that doc's. A CTA stops at its query's first hit, through
 //     the query's word that it polls each step; the word is the output.
-// Bound: bytes, the query's distinct rows read once for the select (the
-// band reads nothing where no query needs it).
+// Bound: bytes, the query's distinct rows read once for the selection
+// (the sweep reads them; the listed selection reads K blocks of them
+// again, and the block keys; the band reads nothing where no query needs
+// it).
 //
 // Arithmetic: every f32 operation is an explicit round-to-nearest
 // intrinsic and the library is built with -fmad=false, so scores and
 // bounds equal the plain version's bit for bit. Offsets into the planes
 // (row * N_pad + doc, row * NB + blk) and the outputs are 64-bit.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -173,9 +196,14 @@ constexpr int kKeySmemCap = 4096;
 constexpr int kMergeLanes = 1024;  // keys a merge step reads
 constexpr int kIdsCap = 1024;      // a block list's ids a segment at most
 constexpr int kFlushBytes = 1056;  // a flush's scratch (FlushSmem)
-// scan_kernel's instantiations: the dense scan, the phrase's selection
-// and its band pass
-constexpr int kScan = 0, kSelect = 1, kBand = 2;
+// scan_kernel's instantiations: the dense scan, the phrase's selection,
+// its band pass and its block-key sweep
+constexpr int kScan = 0, kSelect = 1, kBand = 2, kSweep = 3;
+constexpr int kMaxCluster = 8;     // a selection's segments at most
+// the listed selection copies its query's block keys into shared memory
+// (over its ring and key buffer, before either is used) for the pick up
+// to this many bytes, else reads them from device memory
+constexpr long long kPickSmemCap = 160 * 1024;
 constexpr int kBandMaxT = 128;     // the band's slots at most (BandSmem)
 constexpr int kPickThreads = 512;  // the pick's CTA
 constexpr int kPickWarps = kPickThreads / 32;
@@ -197,9 +225,9 @@ struct ScanArgs {
   int NS, SB;  // ring stages, blocks a step
   unsigned long long* part_keys;  // (B, nseg, K) when nseg > 1
   unsigned long long* rscratch;   // (B, nseg, 2, KP) when KP > kKeySmemCap
-  // kSelect split (nseg > 1): (B,) words zeroed before the launch, each
-  // query's highest K-th key of a segment so far
-  unsigned long long* gtau;
+  // the threshold-first selection: (B, NB) block keys, written by the
+  // sweep and read by the listed selection (kSelect with bkeys set)
+  unsigned long long* bkeys;
   int32_t* top_docs;  // (B, M); kSelect: (B, K) lanes
   float* top_score;   // (B, M); kSelect: (B, K) scores
   int32_t* top_tfs;   // (B, T, M)
@@ -221,8 +249,9 @@ __host__ __device__ constexpr bool keys_in_smem(int KP) {
   return KP <= kKeySmemCap;
 }
 
-// The scan's shared memory, in order: kMaxStages mbarriers and the row
-// count (48 B) | 3 step counters | a flush's scratch | the query's
+// The scan's shared memory, in order: kMaxStages mbarriers, the row
+// count and, a split selection, its cluster's threshold word (48 B) | 3
+// step counters | a flush's scratch | the query's
 // distinct row offsets, each slot's row index and weight (T each) | a
 // block list's segment ids (kIdsCap) | tc: the cache (256 f32) and norm
 // (256 * kTft f32) tables | NS ring stages, each T row segments of SB *
@@ -273,12 +302,10 @@ __host__ __device__ inline ScanLayout scan_layout(bool tc, bool listed, int T,
 
 // The merge's: 3 counters (16 B) | X (2 * kMergeLanes keys) | a flush's
 // scratch | R and R2 (none past kKeySmemCap: then they are the first
-// segment's scratch). The selection's merge (sel): 3 counters and its
-// threshold (16 B) | a flush's scratch | X of KP + 2 * kMergeLanes keys.
-__host__ __device__ constexpr long long merge_bytes(int KP, bool sel = false) {
-  return sel ? 16 + kFlushBytes + 8LL * (KP + 2 * kMergeLanes)
-             : 16 + 16LL * kMergeLanes + kFlushBytes +
-                   (keys_in_smem(KP) ? 16LL * KP : 0);
+// segment's scratch).
+__host__ __device__ constexpr long long merge_bytes(int KP) {
+  return 16 + 16LL * kMergeLanes + kFlushBytes +
+         (keys_in_smem(KP) ? 16LL * KP : 0);
 }
 
 __device__ __forceinline__ long long clamp_row(int r, long long H) {
@@ -529,13 +556,349 @@ __device__ void flush_keys(unsigned long long*& R, unsigned long long*& R2,
   R2 = r;
 }
 
+// A phrase lane set's 4 lanes of this thread in a stage (kSweep,
+// kSelect): match bit j where every slot's p > 0, acc[j] the f32 sum of
+// the p in slot order from 0 (raw p = v * w; tc p = w * the tf part from
+// the shared table below kTft, the device one past it). tc first tests
+// the word's tf bytes: a lane whose byte is 0 in some slot has p 0 there,
+// so a word with no lane nonzero in every slot reads no table.
+template <bool TC>
+__device__ __forceinline__ unsigned phrase_lanes(
+    const unsigned char* stage, int lane, long long SL, long long code_at,
+    int T, const int* s_ri, const float* s_w, const float* s_norm,
+    const float* norm_g, float* acc) {
+  unsigned match = (1u << kLPT) - 1;
+  if (TC) {
+    const unsigned cw = *reinterpret_cast<const unsigned*>(stage + code_at +
+                                                           lane);
+    unsigned nz = 0x80808080u;  // bit 7 of a lane's byte: tf > 0 so far
+    for (int t = 0; t < T; ++t) {
+      const unsigned qw = *reinterpret_cast<const unsigned*>(
+          stage + (long long)s_ri[t] * SL + lane);
+      nz &= ((qw & 0x7f7f7f7fu) + 0x7f7f7f7fu) | qw;
+    }
+    if (!nz) return 0u;
+    for (int t = 0; t < T; ++t) {
+      const unsigned qw = *reinterpret_cast<const unsigned*>(
+          stage + (long long)s_ri[t] * SL + lane);
+      const float w = s_w[t];
+      // each lane's table index tf << 8 | code, two lanes' a byte permute
+      // (tf 0 reads 0)
+      const unsigned p01 = __byte_perm(cw, qw, 0x5140);
+      const unsigned p23 = __byte_perm(cw, qw, 0x7362);
+      const unsigned ix[kLPT] = {p01 & 0xffff, p01 >> 16, p23 & 0xffff,
+                                 p23 >> 16};
+      float norm[kLPT];
+      if (!(qw & kTftHigh)) {  // every tf byte below kTft: the shared table
+#pragma unroll
+        for (int j = 0; j < kLPT; ++j) norm[j] = s_norm[ix[j]];
+      } else {
+#pragma unroll
+        for (int j = 0; j < kLPT; ++j)
+          norm[j] = ix[j] < kTft * 256 ? s_norm[ix[j]] : __ldg(norm_g + ix[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < kLPT; ++j) {
+        const float p = __fmul_rn(w, norm[j]);
+        if (!(p > 0.f)) match &= ~(1u << j);
+        acc[j] = __fadd_rn(acc[j], p);
+      }
+    }
+    return match;
+  }
+  for (int t = 0; t < T; ++t) {
+    const float4 v4 = *reinterpret_cast<const float4*>(
+        stage + ((long long)s_ri[t] * SL + lane) * 4);
+    const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+    const float w = s_w[t];
+#pragma unroll
+    for (int j = 0; j < kLPT; ++j) {
+      const float p = __fmul_rn(v[j], w);
+      if (!(p > 0.f)) match &= ~(1u << j);
+      acc[j] = __fadd_rn(acc[j], p);
+    }
+  }
+  return match;
+}
+
+// The k-th largest (1 <= k <= n) of the n block keys X[0, n), by the CTA.
+// Keys are unique but for 0 (a block with no match): where fewer than k
+// are nonzero, 0. Else a first pass finds the high bits every nonzero
+// key shares (their AND and OR), then select.cuh kth_key's radix select
+// runs from the first byte they differ in (the digit most of a warp's
+// lanes share counted once), until at most kThreads keys share the
+// prefix found so far: those are gathered into G (kThreads keys of
+// scratch) and ranked, a thread a key. Every thread calls it; it ends
+// with a barrier.
+__device__ unsigned long long kth_block_key(const unsigned long long* X,
+                                            int n, int k, FlushSmem& f,
+                                            unsigned long long* G, int tid) {
+  const int wl = tid & 31;
+  unsigned long long all_and = ~0ull, any_or = 0ull;
+  int nz = 0;
+  for (int i = tid; i < n; i += kThreads) {
+    const unsigned long long x = X[i];
+    if (x) {
+      all_and &= x;
+      any_or |= x;
+      ++nz;
+    }
+  }
+  if (tid == 0) {
+    G[0] = ~0ull;
+    G[1] = 0ull;
+    f.n = 0;
+  }
+  __syncthreads();
+  const unsigned a_hi = __reduce_and_sync(0xffffffffu, (unsigned)(all_and >> 32));
+  const unsigned a_lo = __reduce_and_sync(0xffffffffu, (unsigned)all_and);
+  const unsigned o_hi = __reduce_or_sync(0xffffffffu, (unsigned)(any_or >> 32));
+  const unsigned o_lo = __reduce_or_sync(0xffffffffu, (unsigned)any_or);
+  const unsigned nz_w = __reduce_add_sync(0xffffffffu, (unsigned)nz);
+  if (wl == 0) {
+    atomicAnd(G, (unsigned long long)a_hi << 32 | a_lo);
+    atomicOr(G + 1, (unsigned long long)o_hi << 32 | o_lo);
+    atomicAdd(&f.n, nz_w);
+  }
+  __syncthreads();
+  const unsigned long long common = G[0], diff = G[0] ^ G[1];
+  const unsigned n_nz = f.n;
+  __syncthreads();  // every thread has read G and f
+  if (n_nz < (unsigned)k) return 0ull;
+  if (!diff) return common;  // one nonzero key
+  // the radix select from the byte of the highest differing bit
+  const int start = ((63 - __clzll((long long)diff)) >> 3) << 3;
+  unsigned long long prefix = start == 56 ? 0ull : common & (~0ull << (start + 8));
+  unsigned rem = k;
+  for (int shift = start;; shift -= 8) {
+    for (int i = tid; i < 256; i += kThreads) f.hist[i] = 0;
+    __syncthreads();
+    const unsigned long long hi = shift == 56 ? 0ull : ~0ull << (shift + 8);
+    for (int i0 = 0; i0 < n; i0 += kThreads) {
+      const int i = i0 + tid;
+      const unsigned long long x = i < n ? X[i] : 0ull;
+      const bool in = i < n && (x & hi) == prefix;
+      const unsigned d = (unsigned)(x >> shift) & 255u;
+      const unsigned act = __ballot_sync(0xffffffffu, in);
+      if (act) {
+        const int lead = __ffs(act) - 1;
+        const unsigned dl = __shfl_sync(0xffffffffu, d, lead);
+        const unsigned same = __ballot_sync(0xffffffffu, in && d == dl);
+        if (wl == lead) atomicAdd(&f.hist[dl], __popc(same));
+        if (in && d != dl) atomicAdd(&f.hist[d], 1u);
+      }
+    }
+    __syncthreads();
+    if (tid < 32) {
+      // lane l holds digits 255 - 8l down to 248 - 8l
+      unsigned sum = 0;
+      for (int i = 0; i < 8; ++i) sum += f.hist[255 - 8 * tid - i];
+      unsigned incl = sum;
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (tid >= off) incl += y;
+      }
+      const unsigned q = __ballot_sync(0xffffffffu, incl >= rem);
+      if (tid == __ffs(q) - 1) {
+        unsigned cum = incl - sum;
+        for (int i = 0; i < 8; ++i) {
+          const int d = 255 - 8 * tid - i;
+          if (cum + f.hist[d] >= rem) {
+            f.digit = d;
+            f.rem = rem - cum;
+            f.count = f.hist[d];
+            break;
+          }
+          cum += f.hist[d];
+        }
+      }
+    }
+    __syncthreads();
+    prefix |= (unsigned long long)f.digit << shift;
+    rem = f.rem;
+    const unsigned count = f.count;
+    if (shift == 0 && count > 1) {  // equal keys: only zeros can be
+      __syncthreads();  // every thread has read f
+      return prefix;
+    }
+    if (count > kThreads) continue;
+    // few keys share the prefix: gather and rank them
+    const unsigned long long mask = ~0ull << shift;
+    __syncthreads();  // every thread has read f
+    if (tid == 0) f.n = 0;
+    __syncthreads();
+    for (int i0 = 0; i0 < n; i0 += kThreads) {
+      const int i = i0 + tid;
+      const unsigned long long x = i < n ? X[i] : 0ull;
+      const bool in = i < n && (x & mask) == prefix;
+      const unsigned m = __ballot_sync(0xffffffffu, in);
+      if (m) {
+        int at = 0;
+        if (wl == __ffs(m) - 1) at = atomicAdd(&f.n, __popc(m));
+        at = __shfl_sync(0xffffffffu, at, __ffs(m) - 1);
+        if (in) G[at + __popc(m & ((1u << wl) - 1))] = x;
+      }
+    }
+    __syncthreads();
+    if (tid < (int)count) {
+      const unsigned long long x = G[tid];
+      unsigned above = 0;
+      for (unsigned j = 0; j < count; ++j) above += G[j] > x;
+      if (above == rem - 1) f.key = x;
+    }
+    __syncthreads();
+    const unsigned long long key = f.key;
+    __syncthreads();  // every thread has read f
+    return key;
+  }
+}
+
+// The bytes the listed selection's pick keeps in shared memory: its
+// query's NB block keys, or 0 where they are read from device memory.
+__host__ __device__ constexpr long long pick_smem(long long NB) {
+  return 8 * NB <= kPickSmemCap ? 8 * NB : 0;
+}
+
+// The listed selection's blocks of query b: kappa, the K-th largest of
+// its NB block keys (the sweep's; copied to `keys` first, shared memory
+// free until the ring fills, where pick_smem allows), then the blocks
+// whose key is at or above max(kappa, 1) ranked in id order, those of
+// ranks [lo, lo + bps) into s_ids. Returns the end of this segment's
+// ranks (at most lo + bps; at or below lo where the query has fewer) and
+// sets tau0 to the push threshold, kappa's predecessor. Every thread
+// calls it; it ends with a barrier.
+__device__ int listed_blocks(const ScanArgs& a, int b, int lo, long long* s_ids,
+                             unsigned long long* keys, FlushSmem& fs,
+                             unsigned long long& tau0, int tid) {
+  constexpr int kUnroll = 8;  // loads in flight a thread while copying
+#ifdef WISER_CLOCKS
+  // a measuring build's split of the pick: the copy (26), the K-th key
+  // (27), the ranks (28)
+  long long pick_t = clock64();
+  auto mark = [&](int i) {
+    if (tid == 0) {
+      const long long now = clock64();
+      atomicAdd(&g_clk[i], (unsigned long long)(now - pick_t));
+      pick_t = now;
+    }
+  };
+#else
+  auto mark = [](int) {};
+#endif
+  const long long NB = a.N_pad >> 7;
+  const unsigned long long* bk = a.bkeys + (long long)b * NB;
+  if (pick_smem(NB)) {
+    for (long long i0 = tid; i0 < NB; i0 += kUnroll * kThreads) {
+      unsigned long long v[kUnroll];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        const long long i = i0 + (long long)j * kThreads;
+        v[j] = i < NB ? __ldcg(bk + i) : 0ull;
+      }
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        const long long i = i0 + (long long)j * kThreads;
+        if (i < NB) keys[i] = v[j];
+      }
+    }
+    __syncthreads();
+    bk = keys;
+  }
+  mark(26);
+  // s_ids is free until the ranks below fill it: the ranking's scratch
+  const unsigned long long kap0 = kth_block_key(
+      bk, (int)NB, a.K, fs, reinterpret_cast<unsigned long long*>(s_ids),
+      tid);
+  mark(27);
+  const unsigned long long kap = kap0 ? kap0 : 1ull;
+  tau0 = kap - 1;
+  // each thread a run of consecutive ids: its blocks at or above kap
+  // counted, one exclusive scan over the CTA, then written in id order
+  const long long span = (NB + kThreads - 1) / kThreads;
+  const long long clo = min(NB, tid * span), chi = min(NB, clo + span);
+  int n_in = 0;
+  for (long long i = clo; i < chi; ++i) n_in += bk[i] >= kap;
+  const int wl = tid & 31, w = tid >> 5;
+  int x = n_in;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    if (wl >= off) x += y;
+  }
+  if (wl == 31) fs.hist[w] = x;  // each warp's total
+  __syncthreads();
+  int r = x - n_in, total = 0;
+  for (int v = 0; v < kThreads / 32; ++v) {
+    const int c = fs.hist[v];
+    r += v < w ? c : 0;
+    total += c;
+  }
+  for (long long i = clo; i < chi && r < lo + a.bps; ++i) {
+    if (bk[i] < kap) continue;
+    if (r >= lo) s_ids[r - lo] = i;
+    ++r;
+  }
+  __syncthreads();
+  mark(28);
+  return min(total, lo + a.bps);
+}
+
+// A split selection's merge: the c kept keys of each CTA of the cluster
+// (X[0, c), c <= K, unsorted) streamed by the cluster's first CTA out of
+// distributed shared memory through its push threshold and keep_top,
+// SL keys a round. Returns the first CTA's kept count (the others' return
+// value is unused: they leave once every CTA has passed the last cluster
+// barrier). Every thread of every CTA of the cluster calls it.
+__device__ int merge_cluster(unsigned long long* X, int c, int K, int SL,
+                             int xcap, FlushSmem& fs, int* cnt, int seg,
+                             int nseg, int tid) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (tid < 3) cnt[tid] = 0;
+  if (tid == 0) cnt[3] = c;
+  cluster.sync();  // every CTA's keys and count are whole
+  if (seg == 0) {
+    int base = c, step = 0;
+    for (int r = 1; r < nseg; ++r) {
+      const unsigned long long* P = cluster.map_shared_rank(X, r);
+      const int pc = *cluster.map_shared_rank(cnt + 3, r);
+      for (int i0 = 0; i0 < pc; i0 += SL, ++step) {
+        unsigned long long key[kLPT];
+#pragma unroll
+        for (int j = 0; j < kLPT; ++j) {
+          const int i = i0 + tid * kLPT + j;
+          key[j] = tid * kLPT + j < SL && i < pc ? P[i] : 0ull;
+        }
+        push_keys(key, fs.tau, X, base, cnt + step % 3);
+        __syncthreads();
+        const int n = base + cnt[step % 3];
+        if (tid == 0) cnt[(step + 2) % 3] = 0;
+        if (n > xcap - SL) {
+          const unsigned long long t = keep_top(X, n, K, fs, tid);
+          if (tid == 0) fs.tau = t;
+          __syncthreads();
+          base = K;
+        } else {
+          base = n;
+        }
+      }
+    }
+    c = base;
+  }
+  cluster.sync();  // the first CTA has read every other's keys
+  return c;
+}
+
 // One (segment, query) pair a CTA: grid (nseg, B). KIND: kScan the dense
-// scan, kSelect the phrase's selection, kBand its band pass.
+// scan, kSelect the phrase's selection, kBand its band pass, kSweep its
+// block-key sweep.
 template <bool TC, int KIND>
 __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
     scan_kernel(ScanArgs a) {
   constexpr int LB = TC ? 1 : 4;  // bytes a lane
   constexpr bool kPhrase = KIND != kScan;
+  // a measuring build's counters: the sweep's phases apart from the
+  // others' (clocks.cuh)
+  constexpr int kClk = KIND == kSweep ? 16 : 0;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int seg = blockIdx.x, b = blockIdx.y;
@@ -546,8 +909,9 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
     if (!(a.sel_score[(long long)b * K + K - 1] >= a.thr[b])) return;
   }
   const int SB = a.SB, SL = SB * 128, NS = a.NS;
-  const ScanLayout L =
-      scan_layout(TC, a.blocks != nullptr, T, KP, NS, SB, KIND == kSelect);
+  const ScanLayout L = scan_layout(
+      TC, KIND == kSelect ? a.bkeys != nullptr : a.blocks != nullptr, T, KP,
+      NS, SB, KIND == kSelect);
   WCLK_START
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   int* s_nrows = reinterpret_cast<int*>(smem + 32);
@@ -578,7 +942,18 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
   }
   const long long NB = a.N_pad >> 7;
   const int blk_lo = seg * a.bps;
-  const int blk_hi = min(a.nblk, blk_lo + a.bps);
+  int blk_hi = min(a.nblk, blk_lo + a.bps);
+  // the listed selection: this segment's blocks of the query's K best,
+  // and the push threshold below the K-th best block key
+  unsigned long long tau0 = 0;
+  if constexpr (KIND == kSelect) {
+    if (a.bkeys)
+      blk_hi = max(blk_lo, listed_blocks(
+          a, b, blk_lo, s_ids,
+          reinterpret_cast<unsigned long long*>(smem + L.ring), fs, tau0,
+          tid));
+    WCLK(24);
+  }
   const int nsteps = (blk_hi - blk_lo + SB - 1) / SB;
   // the pruned scan's block list: this segment's ids
   if (a.blocks) {
@@ -607,7 +982,24 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
   if (KIND == kScan) {
     for (int i = tid; i < KP; i += kThreads) R[i] = 0ull;
   } else if (KIND == kSelect && tid == 0) {
-    *tau = 0ull;
+    *tau = tau0;
+  }
+  // a split selection's segments share their thresholds through the
+  // cluster's first CTA's word (the header's spare 8 bytes): each
+  // publishes its K-th key there when it cuts its keys (atomicMax) and
+  // thread 0 reads it each step; every one is below the query's K-th
+  // key, so the highest serves every segment
+  unsigned long long* lead_tau = nullptr;
+  if constexpr (KIND == kSelect) {
+    if (a.nseg > 1) {
+      namespace cg = cooperative_groups;
+      cg::cluster_group cluster = cg::this_cluster();
+      unsigned long long* own_word =
+          reinterpret_cast<unsigned long long*>(smem + 40);
+      if (tid == 0) *own_word = 0ull;
+      lead_tau = cluster.map_shared_rank(own_word, 0);
+      cluster.sync();  // the first CTA's word is zeroed
+    }
   }
   if (TC) {
     tc_fill_tables<kThreads>(s_cache, s_norm, kTft, *a.avg32, tid);
@@ -635,7 +1027,8 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
   // a block list: every thread copies its own lanes of each row (and of
   // the len codes) of step s into its stage, one commit group a step;
   // no other thread reads them, so its own wait is enough
-  const bool own = a.blocks != nullptr;
+  const bool own =
+      KIND == kSelect ? a.bkeys != nullptr : a.blocks != nullptr;
   auto issue_own = [&](int s) {
     const int s0 = blk_lo + s * SB;
     if (s < nsteps && lane < min(SB, blk_hi - s0) * 128) {
@@ -678,7 +1071,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
   } else if (warp == 0) {
     for (int s = 0; s < min(NS, nsteps); ++s) issue(s);
   }
-  WCLK(0);
+  WCLK(kClk + 0);
 
   int base = 0;  // keys in X before this step
   for (int s = 0; s < nsteps; ++s) {
@@ -686,17 +1079,18 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
     const bool active = lane < min(SB, blk_hi - s0) * 128;
     long long doc0 = 0;
     if (active)
-      doc0 = (a.blocks ? s_ids[s0 - blk_lo + sub] : (long long)s0 + sub) *
+      doc0 = ((KIND == kSelect ? own : a.blocks != nullptr)
+                  ? s_ids[s0 - blk_lo + sub]
+                  : (long long)s0 + sub) *
                  128 + lane0;
-    // the band: another CTA's hit on this query, read before the wait;
-    // the split selection: the other segments' highest K-th key
+    // the band: another CTA's hit on this query, read before the wait
     int polled = 0;
-    unsigned long long gpoll = 0;
     if (KIND == kBand && tid == 0)
       polled = *reinterpret_cast<volatile const int*>(a.hit + b);
-    if (KIND == kSelect && a.nseg > 1 && tid == 0)
-      gpoll = *reinterpret_cast<volatile const unsigned long long*>(a.gtau +
-                                                                     b);
+    // the split selection: the cluster's highest K-th key so far
+    unsigned long long gpoll = 0;
+    if (KIND == kSelect && lead_tau && tid == 0)
+      gpoll = *reinterpret_cast<volatile const unsigned long long*>(lead_tau);
     if (own) {
       // the stage of step s - 1 is this thread's to refill
       issue_own(s + NS - 1);
@@ -704,7 +1098,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
     } else {
       mbar_wait(bar + s % NS, (unsigned)((s / NS) & 1));
     }
-    WCLK(1);
+    WCLK(kClk + 1);
     const unsigned char* stage = ring + (s % NS) * L.stage;
     unsigned match = 0;
     unsigned dif = 0;  // the band, tc: a lane's byte nonzero where its
@@ -712,7 +1106,11 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
     float acc[kLPT];
 #pragma unroll
     for (int j = 0; j < kLPT; ++j) acc[j] = 0.f;
-    if (active) {
+    if constexpr (KIND == kSweep || KIND == kSelect) {
+      if (active)
+        match = phrase_lanes<TC>(stage, lane, SL, code_at, T, s_ri, s_w,
+                                 s_norm, a.norm_g, acc);
+    } else if (active) {
       match = (1u << kLPT) - 1;
       unsigned cw = 0;  // tc: the 4 lanes' len codes
       if (TC) cw = *reinterpret_cast<const unsigned*>(stage + code_at + lane);
@@ -767,6 +1165,34 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
         match = (nz >> 7 & 1) | (nz >> 14 & 2) | (nz >> 21 & 4) |
                 (nz >> 28 & 8);
     }
+    if constexpr (KIND == kSweep) {
+      // the block's largest key: a warp's 128 lanes are one block (its
+      // score bits first, then the lowest lane among its lanes that have
+      // them); lane 0 writes it, 0 where no lane matched
+      unsigned long long best = 0;
+#pragma unroll
+      for (int j = 0; j < kLPT; ++j)
+        if (match >> j & 1) {
+          const unsigned long long k = tile_key(acc[j], (int)(doc0 + j));
+          best = k > best ? k : best;
+        }
+      const unsigned hi = __reduce_max_sync(0xffffffffu,
+                                            (unsigned)(best >> 32));
+      const unsigned lo = __reduce_max_sync(
+          0xffffffffu, (unsigned)(best >> 32) == hi ? (unsigned)best : 0u);
+      if (active && wl == 0)
+        a.bkeys[(long long)b * NB + s0 + sub] =
+            hi ? (unsigned long long)hi << 32 | lo : 0ull;
+      WCLK(kClk + 2);
+      // every thread has read this stage: warp 0 refills it
+      __syncthreads();
+      if (warp == 0 && s + NS < nsteps) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        issue(s + NS);
+      }
+      WCLK(kClk + 3);
+      continue;
+    }
     if constexpr (KIND == kBand) {
       // a lane of the band: matched, at or above thr, ranked after the
       // KV-th selected key and, tc, no payload tie above the k-th doc
@@ -778,7 +1204,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
                         tile_key(acc[j], doc) < bs.kvkey &&
                         (!TC || ((dif >> (8 * j)) & 255u) || doc < bs.kd));
       }
-      WCLK(2);
+      WCLK(kClk + 2);
       // the step's barrier: every thread has read this stage
       if (__syncthreads_or(flag || polled)) {
         if (tid == 0) a.hit[b] = 1;
@@ -791,7 +1217,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         issue(s + NS);
       }
-      WCLK(3);
+      WCLK(kClk + 3);
       continue;
     }
     // the matched keys above the running K-th, compacted into X after
@@ -801,7 +1227,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
     for (int j = 0; j < kLPT; ++j)
       key[j] = match >> j & 1 ? tile_key(acc[j], (int)(doc0 + j)) : 0ull;
     push_keys(key, KIND == kSelect ? *tau : R[K - 1], X, base, cnt + s % 3);
-    WCLK(2);
+    WCLK(kClk + 2);
     // every thread has read this stage and counted its keys: warp 0
     // refills it
     __syncthreads();
@@ -809,7 +1235,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       issue(s + NS);
     }
-    WCLK(3);
+    WCLK(kClk + 3);
     // this step's counter is read by every thread before the next
     // barrier; the one two steps on was last read before this barrier
     const int c = base + cnt[s % 3];
@@ -821,29 +1247,27 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
       if (c > xcap - SL) {
         const unsigned long long t = keep_top(X, c, K, fs, tid);
         if (tid == 0) {
-          // this segment's K-th key, published to the query's others
-          const unsigned long long g =
-              a.nseg > 1 ? atomicMax(a.gtau + b, t) : 0ull;
+          const unsigned long long g = lead_tau ? atomicMax(lead_tau, t) : 0;
           const unsigned long long nt = g > t ? g : t;
           if (nt > *tau) *tau = nt;
         }
         __syncthreads();
-        WCLK_COUNT(7);
+        WCLK_COUNT(kClk + 7);
         base = K;
       } else {
         base = c;
       }
-      WCLK(4);
+      WCLK(kClk + 4);
       continue;
     }
     if (c >= SL) {
       flush_keys(R, R2, KP, K, X, c, fs, tid);
-      WCLK_COUNT(7);
+      WCLK_COUNT(kClk + 7);
       base = 0;
     } else {
       base = c;
     }
-    WCLK(4);
+    WCLK(kClk + 4);
   }
   if constexpr (KIND == kScan) {
     if (base) flush_keys(R, R2, KP, K, X, base, fs, tid);
@@ -861,18 +1285,24 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
       keep_top(X, c, K, fs, tid);
       c = K;
     }
-    if (a.nseg == 1) {
-      sort_kept(X, c, K, tid);
-      write_outputs<TC, KIND>(a, b, X, tid);
-    } else {
-      // unsorted, 0-padded: the merge sorts the query's keys once
-      const long long o = ((long long)b * a.nseg + seg) * K;
-      for (int i = tid; i < K; i += kThreads)
-        a.part_keys[o + i] = i < c ? X[i] : 0ull;
+    // a split query: its cluster's keys into the first CTA
+    if (a.nseg > 1) {
+      c = merge_cluster(X, c, K, SL, xcap, fs, cnt, seg, a.nseg, tid);
+      WCLK(25);
+      if (seg != 0) {
+        WCLK_COUNT(kClk + 6);
+        return;
+      }
+      if (c > K) {
+        keep_top(X, c, K, fs, tid);
+        c = K;
+      }
     }
+    sort_kept(X, c, K, tid);
+    write_outputs<TC, KIND>(a, b, X, tid);
   }
-  WCLK(5);
-  WCLK_COUNT(6);
+  WCLK(kClk + 5);
+  WCLK_COUNT(kClk + 6);
 }
 
 // The second launch where a query's blocks span nseg segments: one CTA a
@@ -922,58 +1352,6 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(ScanArgs a) {
   if (base) flush_keys(R, R2, KP, K, X, base, fs, tid);
   __syncthreads();
   write_outputs<TC, kScan>(a, b, R, tid);
-}
-
-// The selection's second launch where a query's blocks span nseg
-// segments: one CTA a query streams the segments' kept keys (unsorted,
-// 0-padded) through the same push and keep_top as the scan, from just
-// below the query's highest published K-th key (a bound below its K-th
-// key, so every key of its top K passes), then sorts the K kept once and
-// writes them.
-__global__ void __launch_bounds__(kThreads) select_merge_kernel(ScanArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int K = a.K, b = blockIdx.x, tid = threadIdx.x;
-  const int xcap = a.KP + 2 * kMergeLanes;
-  int* cnt = reinterpret_cast<int*>(smem);
-  FlushSmem& fs = *reinterpret_cast<FlushSmem*>(smem + 16);
-  unsigned long long* X =
-      reinterpret_cast<unsigned long long*>(smem + 16 + kFlushBytes);
-  const unsigned long long* part = a.part_keys + (long long)b * a.nseg * K;
-  if (tid < 3) cnt[tid] = 0;
-  if (tid == 0) {
-    const unsigned long long g = a.gtau[b];
-    fs.tau = g ? g - 1 : 0ull;
-  }
-  __syncthreads();
-  const long long n = (long long)a.nseg * K;
-  int base = 0, step = 0;
-  for (long long i0 = 0; i0 < n; i0 += kMergeLanes, ++step) {
-    unsigned long long key[kLPT];
-#pragma unroll
-    for (int j = 0; j < kLPT; ++j) {
-      const long long i = i0 + tid * kLPT + j;
-      key[j] = i < n ? part[i] : 0ull;
-    }
-    push_keys(key, fs.tau, X, base, cnt + step % 3);
-    __syncthreads();
-    const int c = base + cnt[step % 3];
-    if (tid == 0) cnt[(step + 2) % 3] = 0;
-    if (c > xcap - kMergeLanes) {
-      const unsigned long long t = keep_top(X, c, K, fs, tid);
-      if (tid == 0) fs.tau = t;
-      __syncthreads();
-      base = K;
-    } else {
-      base = c;
-    }
-  }
-  int c = base;
-  if (c > K) {
-    keep_top(X, c, K, fs, tid);
-    c = K;
-  }
-  sort_kept(X, c, K, tid);
-  write_outputs<false, kSelect>(a, b, X, tid);
 }
 
 // -- the pick ------------------------------------------------------------
@@ -1368,30 +1746,40 @@ cudaError_t launch_scan(const ScanArgs& a, long long smem, long long msmem,
                         cudaStream_t s) {
   cudaError_t err = raise_smem(scan_kernel<TC, KIND>, smem);
   if (err != cudaSuccess) return err;
-  if (TC && KIND != kBand) {
+  // tc's device table, before every scan that reads it first (the listed
+  // selection reads the one its sweep's launch wrote)
+  if (TC && KIND != kBand && !(KIND == kSelect && a.bkeys)) {
     tc_norm_kernel<<<256, 256, 0, s>>>(a.avg32, a.norm_g);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (KIND == kBand || (KIND == kSelect && a.nseg > 1)) {
-    err = KIND == kBand
-              ? cudaMemsetAsync(a.hit, 0, sizeof(int32_t) * a.B, s)
-              : cudaMemsetAsync(a.gtau, 0, sizeof(unsigned long long) * a.B,
-                                s);
+  if (KIND == kBand) {
+    err = cudaMemsetAsync(a.hit, 0, sizeof(int32_t) * a.B, s);
     if (err != cudaSuccess) return err;
+  }
+  if (KIND == kSelect && a.nseg > 1) {
+    // a query's segments are one cluster, merged in its first CTA
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)a.nseg, (unsigned)a.B);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)a.nseg;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, scan_kernel<TC, KIND>, a);
+    return err != cudaSuccess ? err : cudaGetLastError();
   }
   scan_kernel<TC, KIND><<<dim3(a.nseg, a.B), kThreads, smem, s>>>(a);
   err = cudaGetLastError();
-  if (err != cudaSuccess || a.nseg == 1 || KIND == kBand) return err;
-  if (KIND == kSelect) {
-    err = raise_smem(select_merge_kernel, msmem);
-    if (err != cudaSuccess) return err;
-    select_merge_kernel<<<a.B, kThreads, msmem, s>>>(a);
-  } else {
-    err = raise_smem(merge_kernel<TC>, msmem);
-    if (err != cudaSuccess) return err;
-    merge_kernel<TC><<<a.B, kThreads, msmem, s>>>(a);
-  }
+  if (err != cudaSuccess || a.nseg == 1 || KIND != kScan) return err;
+  err = raise_smem(merge_kernel<TC>, msmem);
+  if (err != cudaSuccess) return err;
+  merge_kernel<TC><<<a.B, kThreads, msmem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -1426,7 +1814,7 @@ struct WiserDenseScanParams {
   long long H, N_pad, B, T, M, nblk, K, KP, nseg, bps, NS, SB;
   long long smem, merge_smem;
   long long part_keys, rscratch, top_docs, top_score, top_tfs, flags;
-  long long kind, sel_lanes, sel_score, thr, kth_doc, hit;
+  long long kind, sel_lanes, sel_score, thr, kth_doc, hit, bkeys;
 };
 
 struct WiserDensePickParams {
@@ -1436,22 +1824,27 @@ struct WiserDensePickParams {
 
 // The scan's CTAs the card holds at once (SMs times CTAs an SM) at this
 // shared-memory size, or minus a CUDA error code; kind 0 the dense scan,
-// 1 the phrase's selection, 2 its band pass.
+// 1 the phrase's selection, 2 its band pass, 3 its block-key sweep.
 int wiser_dense_resident(int tc, int kind, long long smem) {
   using namespace wiser_dense;
   if (kind == kSelect)
     return tc ? resident<true, kSelect>(smem) : resident<false, kSelect>(smem);
   if (kind == kBand)
     return tc ? resident<true, kBand>(smem) : resident<false, kBand>(smem);
+  if (kind == kSweep)
+    return tc ? resident<true, kSweep>(smem) : resident<false, kSweep>(smem);
   return tc ? resident<true, kScan>(smem) : resident<false, kScan>(smem);
 }
 
-// Launch the scan of `kind` on `stream` (no synchronize): the dense scan
-// or the phrase's selection in one launch, or two where nseg > 1 (after
-// tc's table); the band in one, after zeroing its words. Returns the
-// first launch error (0 on success); a plan whose shared bytes disagree
-// with this file's layout, or whose grid the card cannot run, is refused
-// as cudaErrorInvalidValue before any launch.
+// Launch the scan of `kind` on `stream` (no synchronize), after tc's
+// table where it reads it first: the dense scan in one launch, or two
+// where nseg > 1; the phrase's selection in one (a query's nseg <= 8
+// segments one cluster), over every block, or, with bkeys, over the
+// blocks its sweep's keys pick (nblk = K ranks); the band in one, after
+// zeroing its words; the sweep in one, writing bkeys. Returns the first
+// launch error (0 on success); a plan whose shared bytes disagree with
+// this file's layout, or whose grid the card cannot run, is refused as
+// cudaErrorInvalidValue before any launch.
 int wiser_dense_scan(const WiserDenseScanParams* p, void* stream) {
   using namespace wiser_dense;
   ScanArgs a;
@@ -1487,38 +1880,46 @@ int wiser_dense_scan(const WiserDenseScanParams* p, void* stream) {
   a.thr = (const float*)p->thr;
   a.kth_doc = (const int32_t*)p->kth_doc;
   a.hit = (int32_t*)p->hit;
+  a.bkeys = (unsigned long long*)p->bkeys;
   const int kind = (int)p->kind;
   const bool tc = a.tf8 != nullptr;
   const bool band = kind == kBand;
   const bool sel = kind == kSelect;
+  const bool sweep = kind == kSweep;
+  const bool listed = a.blocks != nullptr || (sel && a.bkeys);
+  const long long NB = a.N_pad / 128;
+  const ScanLayout L = scan_layout(tc, listed, a.T, a.KP, a.NS, a.SB, sel);
+  // the listed selection's pick: its block keys over the ring and lists
   const long long smem =
-      scan_layout(tc, a.blocks != nullptr, a.T, a.KP, a.NS, a.SB, sel).total;
-  const long long msmem = merge_bytes(a.KP, sel);
-  // the split selection's thresholds follow its segments' keys
-  a.gtau = sel && a.nseg > 1 && a.part_keys
-               ? a.part_keys + (long long)a.B * a.nseg * a.K
-               : nullptr;
-  if (kind < kScan || kind > kBand ||
+      sel && a.bkeys && L.ring + pick_smem(NB) > L.total
+          ? L.ring + pick_smem(NB)
+          : L.total;
+  const long long msmem = merge_bytes(a.KP);
+  if (kind < kScan || kind > kSweep ||
       (kind != kScan && (a.blocks || a.K < 2 || a.K > a.N_pad)) ||
-      (band && (a.KP || a.rscratch || a.part_keys || !a.hit ||
-                !a.sel_lanes || !a.sel_score || !a.thr ||
-                (tc && !a.kth_doc) || a.T > kBandMaxT)))
+      ((band || sweep) && (a.KP || a.rscratch || a.part_keys)) ||
+      (band && (!a.hit || !a.sel_lanes || !a.sel_score || !a.thr ||
+                (tc && !a.kth_doc) || a.T > kBandMaxT)) ||
+      (sweep && (!a.bkeys || a.nblk != NB)) ||
+      (sel && (a.rscratch || a.part_keys || a.nseg > kMaxCluster ||
+               (a.bkeys ? a.nblk != a.K || NB < a.K : a.nblk != NB))))
     return (int)cudaErrorInvalidValue;
-  if (smem != p->smem || (a.nseg > 1 && !band && msmem != p->merge_smem) ||
-      a.K != a.M + 1 || (!band && a.K > a.KP) || a.nseg < 1 || a.B < 1 ||
-      a.B > 65535 || (a.blocks && a.bps > kIdsCap) ||
+  if (smem != p->smem ||
+      (a.nseg > 1 && kind == kScan && msmem != p->merge_smem) ||
+      a.K != a.M + 1 || (!band && !sweep && a.K > a.KP) || a.nseg < 1 ||
+      a.B < 1 || a.B > 65535 || (listed && a.bps > kIdsCap) ||
       a.NS < 2 || a.NS > kMaxStages || a.SB < 1 ||
       a.SB > kMaxStepBlocks || a.bps < 1 || a.bps % a.SB ||
-      (!band && a.nseg > 1 && !a.part_keys) ||
-      (!band && !sel && keys_in_smem(a.KP) != (a.rscratch == nullptr)) ||
-      (sel && a.rscratch) ||
+      (kind == kScan && a.nseg > 1 && !a.part_keys) ||
+      (kind == kScan && keys_in_smem(a.KP) != (a.rscratch == nullptr)) ||
       (tc && !band && !a.norm_g) ||
       (long long)a.nseg * a.bps < a.nblk ||
       (long long)(a.nseg - 1) * a.bps >= a.nblk || a.N_pad % 128)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (kind == kSelect) return launch_kind<kSelect>(a, smem, msmem, s);
+  if (sel) return launch_kind<kSelect>(a, smem, msmem, s);
   if (band) return launch_kind<kBand>(a, smem, msmem, s);
+  if (sweep) return launch_kind<kSweep>(a, smem, msmem, s);
   return launch_kind<kScan>(a, smem, msmem, s);
 }
 

@@ -113,25 +113,6 @@ __host__ __device__ constexpr long long align16(long long x) {
   return (x + 15) & ~15LL;
 }
 
-// kernels._binary_search: the fixed-count int32 lower bound of target in
-// [lo, hi), reads clamped into the column (every value as the plain
-// version reads it: int32 docs, or positions as uint16 bits / int32)
-template <int kKind>  // 0: int32 docs, 1: uint16 positions, 2: int32 positions
-__device__ __forceinline__ int search_fixed(const void* col, long long n,
-                                            int target, int lo, int hi,
-                                            int iters) {
-  for (int it = 0; it < iters; ++it) {
-    const int mid = (int)((unsigned)lo + (unsigned)hi) >> 1;
-    const long long i = clampll(mid, 0, n - 1);
-    const int v = kKind == 1 ? (int)static_cast<const uint16_t*>(col)[i]
-                             : static_cast<const int32_t*>(col)[i];
-    const bool less = v < target;
-    lo = less ? mid + 1 : lo;
-    hi = less ? hi : mid;
-  }
-  return lo;
-}
-
 // ---------------------------------------------------------------------------
 // The semidense phrase route.
 
@@ -185,26 +166,6 @@ __global__ void __launch_bounds__(kThreads) sdp_select_kernel(
   WCLK_COUNT(6);
 }
 
-// The recovery's posting index of doc in [lo, hi) by the warp's 32-ary
-// lower bound, where the fixed-count search (search_fixed, n_iters
-// halvings) has converged (the run within 2^n_iters - 1 ids, inside the
-// column, its int32 midpoints without wraparound) and the bound lies in
-// the run: the two agree there. Returns -1 elsewhere (a run past the
-// count, or a doc above every id of the run, where the fixed-count search
-// may step past hi): the caller replays the fixed-count search. Every
-// lane of the warp calls it and gets the index.
-__device__ __forceinline__ int warp_recover(const int32_t* doc,
-                                            long long n_doc, int target,
-                                            int lo, int hi, int n_iters,
-                                            int l32) {
-  const long long run = (long long)hi - lo;
-  const long long max_run = n_iters >= 31 ? (1LL << 31) : (1LL << n_iters) - 1;
-  if (lo < 0 || run < 0 || hi > n_doc || hi >= (1 << 30) || run > max_run)
-    return -1;
-  const long long r = warp_lower_bound(doc, lo, hi, target, l32);
-  return r < hi ? (int)r : -1;
-}
-
 // A warp a (query, kept lane m < KV): recovery, bag bounds, verification.
 template <bool kU16>
 __global__ void __launch_bounds__(256) sdp_verify_kernel(SdpArgs a) {
@@ -234,8 +195,7 @@ __global__ void __launch_bounds__(256) sdp_verify_kernel(SdpArgs a) {
   int p = l32 == 0 ? (int)((unsigned)cs + (unsigned)lane) : 0;
   bool replay = false;
   for (int t = 1; t < T; ++t) {
-    const int r = warp_recover(a.doc, a.n_doc, doc, st[t], en[t], a.n_iters,
-                               l32);
+    const int r = recover(a.doc, a.n_doc, doc, st[t], en[t], a.n_iters, l32);
     if (l32 == t) {
       p = r;
       replay = r < 0;

@@ -1,6 +1,7 @@
-// The position verification of one (query, lane) by one warp: the body of
-// phrase.cu's verify_kernel, shared with phrase_route.cu's semidense
-// phrase finish. phrase.cu's comment says what it computes and why.
+// The position verification of one (query, lane) by a group of G threads
+// (a warp by default): the body of phrase.cu's group_kernel, shared with
+// phrase_route.cu's semidense phrase finish. phrase.cu's comment says what
+// it computes and why.
 
 #pragma once
 
@@ -23,39 +24,43 @@ __device__ __forceinline__ int position(const void* positions, long long i) {
 
 // The number of bases y (the anchor term's first PP valid positions
 // minus the anchor) at which every term t holds y + t among its valid
-// window entries. Thread t < T passes term t's bag bounds [s, e) (the
-// others' are not read); each window starts at s clamped to [0, n - PW]
-// and holds min(e - s, PW) entries, each read clamped into the column.
-// win: the warp's warp_ints(T, PW) shared ints, one item a warp (a
-// second item would need a __syncwarp before it refills them). Every
-// thread of the warp calls it and gets the count.
-template <bool kU16>
+// window entries. Thread t < T of the group passes term t's bag bounds
+// [s, e) (the others' are not read); each window starts at s clamped to
+// [0, n - PW] and holds min(e - s, PW) entries, each read clamped into the
+// column. win: the group's warp_ints(T, PW) shared ints, one item a group
+// (a second item would need a __syncwarp before it refills them); lane:
+// this thread's lane in the group, mask: the group's lanes. Every thread
+// of the group calls it and gets the count.
+template <bool kU16, int G = 32>
 __device__ __forceinline__ int warp_count(const void* positions, long long n, long long s,
                           long long e, int T, int PP, int PW, int anchor,
-                          int* win, int l32) {
+                          int* win, int lane, unsigned mask = 0xffffffffu) {
+  // a warp's shuffles keep their default width (warpSize), as its code
+  // did before groups of 8 shared it
+  const int width = G == 32 ? warpSize : G;
   int* cnts = win + T * PW;
   long long start = 0;
   int cnt = 0;
-  if (l32 < T) {
+  if (lane < T) {
     const long long span = e - s;
     const long long top = n - PW;
     start = s < 0 ? 0 : (s > (top > 0 ? top : 0) ? (top > 0 ? top : 0) : s);
     cnt = (int)(span < 0 ? 0 : (span > PW ? PW : span));
-    cnts[l32] = cnt;
+    cnts[lane] = cnt;
   }
   for (int t = 0; t < T; ++t) {
-    const long long st = __shfl_sync(0xffffffffu, start, t);
-    const int c = __shfl_sync(0xffffffffu, cnt, t);
-    for (int j = l32; j < c; j += 32) {
+    const long long st = __shfl_sync(mask, start, t, width);
+    const int c = __shfl_sync(mask, cnt, t, width);
+    for (int j = lane; j < c; j += G) {
       const long long i = st + j;
       win[t * PW + j] = position<kU16>(positions, i < n ? i : n - 1);
     }
   }
-  __syncwarp();
+  __syncwarp(mask);
   const int A = anchor < 0 ? 0 : (anchor >= T ? T - 1 : anchor);
   const int nbase = min(cnts[A], PP);
   int count = 0;
-  for (int i = l32; i < nbase; i += 32) {
+  for (int i = lane; i < nbase; i += G) {
     const int y = win[A * PW + i] - A;
     bool ok = true;
     for (int t = 0; t < T && ok; ++t) {
@@ -68,8 +73,8 @@ __device__ __forceinline__ int warp_count(const void* positions, long long n, lo
     }
     count += ok;
   }
-  for (int off = 16; off > 0; off >>= 1)
-    count += __shfl_xor_sync(0xffffffffu, count, off);
+  for (int off = G / 2; off > 0; off >>= 1)
+    count += __shfl_xor_sync(mask, count, off, width);
   return count;
 }
 

@@ -24,12 +24,14 @@ the block pick (_select_ub_blocks) and the full-scan mega phrase's two
 passes (full_phrase_select, full_phrase_band) run as hand-written
 kernels (ops/dense.py, csrc/dense.cu: a block-list scan that keeps each
 query's top K in shared memory, a one-CTA-a-query pick, the phrase's
-scan at K = KV + 1 and its band pass), or raise; CPU tensors take the
-plain versions (the *_torch functions) after the same argument
-checks. So do the semidense step (_semidense_step: ops/semidense.py,
-csrc/semidense.cu, the bs step's tile path with a dense phase), the
-position verification every resident phrase route ends in
-(_verify_pos_windows: ops/phrase.py, csrc/phrase.cu), and the semidense
+selection at K = KV + 1, threshold first, and its band pass), or raise;
+CPU tensors take the plain versions (the *_torch functions) after the
+same argument checks. So do the semidense step (_semidense_step:
+ops/semidense.py, csrc/semidense.cu), the position verification the
+mega and compact phrase routes end in (_verify_docs from kept docs,
+_verify_pidx from posting indices: ops/phrase.py, csrc/phrase.cu; the
+reference _verify_pos_windows_torch verifies from bag bounds), and the
+semidense
 phrase route and the list chain from their candidate slices to their
 packed outputs (semidense_phrase_body, list_phrase: ops/phrase_route.py,
 csrc/phrase_route.cu).
@@ -1368,9 +1370,10 @@ def make_phrase_kernel(T: int, L: int, PP: int, M: int, n_bs_iters: int,
     return kernel
 
 
-def _verify_pos_windows(positions, ps, pe, anchor, *, T: int, NL: int,
-                        PP: int, PW: int):
-    """Adjusted-position verification by windows: each (term, lane) bag
+def _verify_pos_windows_torch(positions, ps, pe, anchor, *, T: int, NL: int,
+                              PP: int, PW: int):
+    """Adjusted-position verification by windows, in plain torch (the
+    reference's _verify_pos_windows, on any device): each (term, lane) bag
     loads as one contiguous PW-wide window at its start, then a dense
     (PP x PW) equality compare per lane. ps/pe: (B, T, NL) int32 bag
     bounds; anchor: (B,) int32, the query term whose bag gives the bases
@@ -1378,24 +1381,9 @@ def _verify_pos_windows(positions, ps, pe, anchor, *, T: int, NL: int,
     PW every term's. A window start is clamped to [0, n - PW] as
     dynamic_slice clamps it: the engine pads the positions column with
     POS_PAD >= PW entries that never equal a target, so a real window is
-    never clamped. Returns (B, NL) int32 phrase occurrence counts.
-
-    On CUDA tensors the hand-written kernel (ops/phrase.phrase_verify)
-    runs it, or raises; on CPU tensors the plain version,
-    _verify_pos_windows_torch. Both check their arguments first
-    (ValueError)."""
-    kw = dict(T=T, NL=NL, PP=PP, PW=PW)
-    if isinstance(positions, torch.Tensor) and positions.is_cuda:
-        return _phrase_op.phrase_verify(positions, ps, pe, anchor, **kw)
-    _phrase_op.check_verify_inputs(positions, ps, pe, anchor, **kw)
-    return _verify_pos_windows_torch(positions, ps, pe, anchor, **kw)
-
-
-def _verify_pos_windows_torch(positions, ps, pe, anchor, *, T: int, NL: int,
-                              PP: int, PW: int):
-    """_verify_pos_windows's plain torch version: the reference's
-    (B, T, NL, PW) windows and (B, NL, PP, PW) compare planes, on any
-    device (the tests and the chip smoke hold the kernel against it)."""
+    never clamped. Returns (B, NL) int32 phrase occurrence counts. The
+    kernel's forms (_verify_docs, _verify_pidx) find the bag bounds
+    themselves; their plain versions end here."""
     B = ps.shape[0]
     n = positions.shape[0]
     j = torch.arange(PW, dtype=torch.int64, device=ps.device)
@@ -1413,6 +1401,77 @@ def _verify_pos_windows_torch(positions, ps, pe, anchor, *, T: int, NL: int,
             & valid[:, t][:, :, None, :]
         ok = ok & eq.any(dim=3)
     return ok.sum(dim=2).to(torch.int32)
+
+
+def _verify_docs(postings_doc, positions, pos_starts, docs, starts, ends,
+                 anchor, *, T: int, NL: int, PP: int, PW: int, n_iters: int):
+    """The mega routes' verification from kept docs: each doc's posting
+    index in each query term's run [starts, ends) by the fixed-count
+    search (_binary_search, n_iters halvings), its bag bounds from
+    pos_starts, then the window verification (_verify_pos_windows_torch)
+    anchored on anchor (B,). docs
+    (B, NL) int32 (a lane past the matched ones recovers in-range
+    garbage, masked by the caller); starts, ends (B, T) in query-term
+    order. Returns (B, NL) int32 counts.
+
+    On CUDA tensors the hand-written kernel (ops/phrase.phrase_verify_docs:
+    the search and the gathers inside it), or it raises; on CPU tensors
+    the plain version, _verify_docs_torch. Both check their arguments
+    first (ValueError)."""
+    kw = dict(T=T, NL=NL, PP=PP, PW=PW)
+    if isinstance(positions, torch.Tensor) and positions.is_cuda:
+        return _phrase_op.phrase_verify_docs(
+            postings_doc, positions, pos_starts, docs, starts, ends, anchor,
+            n_iters=n_iters, **kw)
+    _phrase_op.check_docs_inputs(postings_doc, positions, pos_starts, docs,
+                                 starts, ends, anchor, n_iters=n_iters, **kw)
+    return _verify_docs_torch(postings_doc, positions, pos_starts, docs,
+                              starts, ends, anchor, n_iters=n_iters, **kw)
+
+
+def _verify_docs_torch(postings_doc, positions, pos_starts, docs, starts,
+                       ends, anchor, *, T: int, NL: int, PP: int, PW: int,
+                       n_iters: int):
+    """_verify_docs's plain torch version: the (B, T, NL) search planes,
+    the two pos_starts gathers and _verify_pos_windows_torch (on any
+    device; the tests and the chip smoke hold the kernel against it)."""
+    B = docs.shape[0]
+    lo = _binary_search(postings_doc, docs[:, None, :].expand(B, T, NL),
+                        starts[:, :, None], ends[:, :, None], n_iters)
+    return _verify_pos_windows_torch(
+        positions, _gather1d(pos_starts, lo), _gather1d(pos_starts, lo + 1),
+        anchor, T=T, NL=NL, PP=PP, PW=PW)
+
+
+def _verify_pidx(positions, pos_starts, pidx, slot_of, *, T: int, NL: int,
+                 PP: int, PW: int):
+    """The compact route's verification from posting indices: pidx (B, T,
+    NL) int32 in slot order, slot_of (B, T) (query term -> slot), each
+    term's bag bounds from pos_starts, then the window verification
+    anchored on query term 0. Returns (B, NL) int32 counts.
+
+    On CUDA tensors the hand-written kernel (ops/phrase.phrase_verify_pidx),
+    or it raises; on CPU tensors the plain version, _verify_pidx_torch.
+    Both check their arguments first (ValueError)."""
+    kw = dict(T=T, NL=NL, PP=PP, PW=PW)
+    if isinstance(positions, torch.Tensor) and positions.is_cuda:
+        return _phrase_op.phrase_verify_pidx(positions, pos_starts, pidx,
+                                             slot_of, **kw)
+    _phrase_op.check_pidx_inputs(positions, pos_starts, pidx, slot_of, **kw)
+    return _verify_pidx_torch(positions, pos_starts, pidx, slot_of, **kw)
+
+
+def _verify_pidx_torch(positions, pos_starts, pidx, slot_of, *, T: int,
+                       NL: int, PP: int, PW: int):
+    """_verify_pidx's plain torch version: the slot gather
+    (_slot_gather_q), the two pos_starts gathers and
+    _verify_pos_windows_torch with anchor 0 (on any device)."""
+    pidx_q = _slot_gather_q(pidx, slot_of)
+    return _verify_pos_windows_torch(
+        positions, _gather1d(pos_starts, pidx_q),
+        _gather1d(pos_starts, pidx_q + 1),
+        torch.zeros(pidx.shape[0], dtype=torch.int32, device=pidx.device),
+        T=T, NL=NL, PP=PP, PW=PW)
 
 
 def _slot_gather_q(sel_pidx, slot_of):
@@ -1433,14 +1492,8 @@ def _verify_and_select(positions, pos_starts, sel_score, sel_docs,
     over the KV lanes; FLAG_PRUNE_MISS where the (KV+1)-th surviving
     score `unseen` could reach the k-th kept). Returns (top_docs (B, M),
     top_l (B, M) indices into the KV lanes, flags (B,), top_score (B, M))."""
-    B = sel_score.shape[0]
-    pidx_q = _slot_gather_q(sel_pidx, slot_of)
-    ps = _gather1d(pos_starts, pidx_q)
-    pe = _gather1d(pos_starts, pidx_q + 1)
-    n_matches = _verify_pos_windows(
-        positions, ps, pe, torch.zeros(B, dtype=torch.int32,
-                                       device=ps.device),
-        T=T, NL=KV, PP=PP, PW=PW)
+    n_matches = _verify_pidx(positions, pos_starts, sel_pidx.contiguous(),
+                             slot_of, T=T, NL=KV, PP=PP, PW=PW)
     final_score = torch.where((sel_score > NEG_INF) & (n_matches > 0),
                               sel_score, NEG_INF)
     top_score, top_l = _top_stable(final_score, M)
@@ -1672,11 +1725,9 @@ def _pruned_phrase_body(lanes, blockmax, blockmax2, argpos, postings_doc,
     sel_l = top_cl[:, :KV]
     sel_docs = torch.gather(cand_docs, 1, sel_l).to(torch.int32)
     # invalid lanes recover in-range garbage, masked by their score
-    lo = _binary_search(postings_doc, sel_docs[:, None, :].expand(B, T, KV),
-                        starts[:, :, None], ends[:, :, None], n_bs_iters)
-    n_matches = _verify_pos_windows(
-        positions, _gather1d(pos_starts, lo), _gather1d(pos_starts, lo + 1),
-        anchor, T=T, NL=KV, PP=PP, PW=PW)
+    n_matches = _verify_docs(postings_doc, positions, pos_starts, sel_docs,
+                             starts, ends, anchor, T=T, NL=KV, PP=PP, PW=PW,
+                             n_iters=n_bs_iters)
     final_score = torch.where((sel_score > NEG_INF) & (n_matches > 0),
                               sel_score, NEG_INF)
     top_score, top_l = _top_stable(final_score, M)
@@ -1897,18 +1948,14 @@ def _full_phrase_run(select, band, postings_doc, positions, pos_starts,
     FLAG_PRUNE_MISS is raised there and where no k-th doc was kept while
     the (KV+1)-th lane matched. The (KV+1)-th lane is not verified and
     stays in the band. Returns (top_docs (B, M) i32, flags (B,) i32)."""
-    B = starts.shape[0]
     top_cs, top_cl = select()
     unseen = top_cs[:, KV]
     sel_score = top_cs[:, :KV]
     sel_docs = top_cl[:, :KV]
-
-    targets = sel_docs[:, None, :].expand(B, T, KV)
-    lo = _binary_search(postings_doc, targets, starts[:, :, None],
-                        ends[:, :, None], n_bs_iters)
-    n_matches = _verify_pos_windows(
-        positions, _gather1d(pos_starts, lo), _gather1d(pos_starts, lo + 1),
-        anchor, T=T, NL=KV, PP=PP, PW=PW)
+    # invalid lanes (-1) recover in-range garbage, masked by their score
+    n_matches = _verify_docs(postings_doc, positions, pos_starts,
+                             sel_docs.contiguous(), starts, ends, anchor,
+                             T=T, NL=KV, PP=PP, PW=PW, n_iters=n_bs_iters)
     final_score = torch.where((sel_score > NEG_INF) & (n_matches > 0),
                               sel_score, NEG_INF)
     # the sel lanes are in (score desc, doc asc) order, so a stable top-M

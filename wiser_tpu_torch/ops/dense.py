@@ -20,15 +20,21 @@ selects), with a radix select whose histograms are counted per warp.
 
 `phrase_select` and `phrase_band` compute the full-scan mega phrase's two
 passes (engine/kernels.full_phrase_select and full_phrase_band): the same
-scan, over every block, under the phrase's rule (p = row * weight, or tc
-the table score times idf, summed in slot order from 0; matched where
-every p > 0, so a weight of 0 matches nothing), keeping K = KV + 1 keys
-in an unsorted buffer cut to its top K by a radix select (one sort at
-the end; a split query's segments share their thresholds) and writing
-them as (score, lane); then the band pass, whose CTAs return at once
-for every query whose (KV+1)-th score is below thr, test that lane
-first, and otherwise stream the query's rows until the first lane of
-the band (`plan(..., kind=...)`: "select" and "band").
+scan under the phrase's rule (p = row * weight, or tc the table score
+times idf, summed in slot order from 0; matched where every p > 0, so a
+weight of 0 matches nothing). The selection keeps K = KV + 1 keys,
+threshold first (`select_plan`): a sweep over every block writes each
+128-doc block's largest key ("sweep"), then the listed selection finds
+the K-th largest block key kappa and streams only the blocks at or above
+it, pushing only keys at or above kappa ("select" over K listed blocks);
+where the doc space has fewer than K blocks, one pass over every block
+("select"). Either keeps its keys in an unsorted buffer cut to its top K
+by a radix select, a query's segments (at most MAX_CLUSTER) one cluster
+sharing their thresholds and merged in its first CTA, one sort at the
+end, and writes them as (score, lane). Then the band pass, whose CTAs return at once for every query
+whose (KV+1)-th score is below thr, test that lane first, and otherwise
+stream the query's rows until the first lane of the band (`plan(...,
+kind=...)`: "sweep", "select" and "band").
 
 engine/kernels.py calls these for CUDA tensors and runs the plain torch
 versions (dense_scan_body_torch, dense_scan_body_tc_torch,
@@ -72,11 +78,12 @@ import torch
 # dense_scan the raw scan's, dense_scan_tc the tc scan's, dense_tc_table
 # the tc table's launch before each tc scan, tc phrase selection or tc
 # semidense step (ops/semidense),
-# dense_scan_merge the second launch of a split query (raw or tc, scan or
-# phrase selection), phrase_select{,_tc} and phrase_band{,_tc} the
-# phrase's passes
+# dense_scan_merge the second launch of a split scan (raw or tc),
+# phrase_sweep{,_tc} the selection's block-key sweep, phrase_select{,_tc}
+# its selection (listed or one pass) and phrase_band{,_tc} the band pass
 launch_counts = {"dense_scan": 0, "dense_scan_tc": 0, "dense_tc_table": 0,
-                 "dense_scan_merge": 0, "dense_pick": 0, "phrase_select": 0,
+                 "dense_scan_merge": 0, "dense_pick": 0, "phrase_sweep": 0,
+                 "phrase_sweep_tc": 0, "phrase_select": 0,
                  "phrase_select_tc": 0, "phrase_band": 0,
                  "phrase_band_tc": 0}
 # the running top-K lists in shared memory up to this KP, past it in a
@@ -87,7 +94,8 @@ LPT = 4  # lanes a scan thread scores a step
 STEP_BLOCKS = 8  # a step's 128-lane blocks at most: THREADS * LPT lanes
 MIN_STAGES, MAX_STAGES = 2, 4  # the ring's stages
 # the ring's stages together, as far as 2 allow: 16 KB by measurement
-# (PERF.md §6; 32 KB no faster, 48-64 KB up to 25% slower)
+# (PERF.md §6; 32 KB no faster, 48-64 KB up to 25% slower; for the
+# phrase's sweep and listed selection 16 and 32 KB read the same)
 RING_BYTES = 16 * 1024
 # tf bytes below this score from the shared norm table (dense.cu kTft),
 # the rest from the device table; 16 by measurement among 16, 32 and 64
@@ -114,14 +122,21 @@ PICK_SPLIT_CTAS = 132
 PICK_PART = 1024
 MAX_B = 65535  # the scan's and the pick's grid.y
 BAND_MAX_T = 128  # the band pass's slots at most (dense.cu kBandMaxT)
-KINDS = ("scan", "select", "band")  # dense.cu kScan, kSelect, kBand
+# dense.cu kScan, kSelect, kBand, kSweep
+KINDS = ("scan", "select", "band", "sweep")
+MAX_CLUSTER = 8  # a selection's segments a query: one cluster
+# the listed selection's segments a query: as many as bring the group to
+# LISTED_CTAS CTAs (at most a cluster's), fewer segments reading each
+# more blocks (PERF.md §6)
+LISTED_CTAS = 256
 
 
 class Plan(NamedTuple):
     """How dense_scan runs one (B, T, NB, M, mode) group."""
     NS: int  # ring stages
     step_blocks: int  # 128-lane blocks a step (SB)
-    nseg: int  # CTAs a query (> 1: the merge launch runs)
+    nseg: int  # CTAs a query (> 1: the scan's merge launch runs, the
+    # selection's cluster merges)
     bps: int  # blocks a segment
     K: int  # keys kept a query: M + 1
     KP: int  # the power of 2 >= K
@@ -170,7 +185,7 @@ def scan_bytes(T: int, KP: int, mode: str, NS: int = MIN_STAGES,
     (IDS_CAP int64) | tc: the cache and norm tables (256 + 256 * TC_TFT
     f32) | NS stages | R and R2 (KP keys each, up to KEY_SMEM_CAP) and X
     (two steps of keys); the selection: X alone, of KP keys and two
-    steps' (select_keys); the band pass (KP 0): no keys."""
+    steps' (select_keys); the band pass and the sweep (KP 0): no keys."""
     tc = mode == "tc"
     if kind == "select":
         keys = 8 * select_keys(KP, SB * 128)
@@ -183,18 +198,34 @@ def scan_bytes(T: int, KP: int, mode: str, NS: int = MIN_STAGES,
             + NS * stage_bytes(T, mode, SB) + keys)
 
 
+# the listed selection keeps its query's NB block keys in shared memory
+# for its pick (over its ring and key buffer) up to this many bytes
+# (dense.cu kPickSmemCap), else reads them from device memory
+PICK_SMEM_CAP = 160 * 1024
+
+
+def pick_smem(NB: int) -> int:
+    """dense.cu's pick_smem: the listed pick's block keys in shared
+    memory (8 B each), or 0 past PICK_SMEM_CAP."""
+    return 8 * NB if 8 * NB <= PICK_SMEM_CAP else 0
+
+
+def ring_offset(T: int, mode: str, listed: bool = False) -> int:
+    """dense.cu's ScanLayout.ring: the bytes ahead of the ring."""
+    return (48 + 16 + FLUSH_BYTES + _align16(8 * T) + 2 * _align16(4 * T)
+            + (8 * IDS_CAP if listed else 0)
+            + ((1024 + 4 * 256 * TC_TFT) if mode == "tc" else 0))
+
+
 def select_keys(KP: int, lanes: int) -> int:
     """The selection's key buffer (dense.cu xcap): KP keys kept and two
-    reads of `lanes` (a step's, or a merge step's) pushed on top."""
+    steps' `lanes` pushed on top."""
     return KP + 2 * lanes
 
 
-def merge_bytes(KP: int, kind: str = "scan") -> int:
+def merge_bytes(KP: int) -> int:
     """dense.cu's merge_bytes: 3 counters | X | a flush's scratch | R and
-    R2 (up to KEY_SMEM_CAP); the selection's: 3 counters | a flush's
-    scratch | X (select_keys)."""
-    if kind == "select":
-        return 16 + FLUSH_BYTES + 8 * select_keys(KP, MERGE_LANES)
+    R2 (up to KEY_SMEM_CAP)."""
     return (16 + 16 * MERGE_LANES + FLUSH_BYTES
             + (16 * KP if KP <= KEY_SMEM_CAP else 0))
 
@@ -260,42 +291,97 @@ def _segments(B: int, steps: int, SB: int, resident: int, max_bps: int):
 
 def _layout_kp(M: int, kind: str) -> int:
     """The KP of a kind's layout: the power of 2 >= M + 1 keys, 0 for the
-    band pass (it keeps none)."""
-    return 0 if kind == "band" else _pow2(M + 1)
+    band pass and the sweep (they keep none)."""
+    return 0 if kind in ("band", "sweep") else _pow2(M + 1)
 
 
 @functools.lru_cache(maxsize=4096)
 def plan(B: int, T: int, NB: int, M: int, mode: str, resident: int,
-         listed: bool = False, kind: str = "scan") -> Plan:
+         listed: bool = False, kind: str = "scan", pick_nb: int = 0) -> Plan:
     """The launch plan of a scan group (arguments already checked): NB is
     the lane set's blocks (N_pad / 128 for the full scan, C for a block
-    list: listed); `resident` the card's resident CTAs at the layout's
-    shared bytes (resident_for on a card). A ring of stages, and each
-    query's blocks in segments of whole steps, as many as bring the grid
-    to whole waves (a block list's segments of at most IDS_CAP
-    blocks). kind "select" (the phrase's selection, M = KV: K = KV + 1
-    keys written as (lane, score)) or "band" (its band pass: no keys, no
-    merge, no tc table; one word a query)."""
+    list: listed; the listed selection's K ranks); `resident` the card's
+    resident CTAs at the layout's shared bytes (resident_for on a card).
+    A ring of stages, and each query's blocks in segments of whole steps,
+    as many as bring the grid to whole waves (a block list's segments of
+    at most IDS_CAP blocks). kind "select" (the phrase's selection, M =
+    KV: K = KV + 1 keys written as (lane, score); at most MAX_CLUSTER
+    segments a query, one cluster, no merge launch; its tc table launched
+    by the one pass, the listed selection reading its sweep's), "sweep"
+    (the selection's block keys: no keys kept, no merge; (B, NB) 64-bit
+    keys out) or "band" (its band pass: no keys, no merge, no tc table;
+    one word a query). pick_nb: the listed selection's doc space in
+    blocks, whose keys its pick holds in shared memory (pick_smem) over
+    its ring and key buffer."""
     K = M + 1
     KP = _layout_kp(M, kind)
     NS, SB, smem = scan_layout(T, KP, mode, listed, kind)
+    if pick_nb:
+        smem = max(smem, ring_offset(T, mode, listed) + pick_smem(pick_nb))
     steps = -(-NB // SB)
     nseg, bps, eff = _segments(B, steps, SB, resident,
                                IDS_CAP if listed else steps * SB)
-    keys = kind != "band"
-    split = nseg > 1 and keys
-    merge_smem = merge_bytes(KP, kind) if split else 0
-    # the segments' keys; the split selection's thresholds after them
-    part_words = (2 * B * nseg * K + 2 * B * (kind == "select")
-                  if split else 0)
-    r_words = (0 if KP <= KEY_SMEM_CAP or kind == "select"
+    if kind == "select":
+        # at most a cluster; the listed selection's to LISTED_CTAS CTAs
+        want = (max(-(-steps // (IDS_CAP // SB)),
+                    min(MAX_CLUSTER, -(-LISTED_CTAS // max(B, 1))))
+                if listed else min(nseg, MAX_CLUSTER))
+        sps = -(-steps // want)
+        nseg = -(-steps // sps)
+        bps = sps * SB
+        items = B * nseg
+        eff = items / (-(-items // resident) * resident)
+    split = nseg > 1 and kind == "scan"
+    merge_smem = merge_bytes(KP) if split else 0
+    part_words = 2 * B * nseg * K if split else 0
+    r_words = (0 if KP <= KEY_SMEM_CAP or kind != "scan"
                else 4 * B * nseg * KP)
-    table = mode == "tc" and keys
+    table = mode == "tc" and (kind in ("scan", "sweep")
+                              or (kind == "select" and not listed))
     out_words = {"scan": B * (2 * M + T * M + 1), "select": 2 * B * K,
-                 "band": B}[kind]
+                 "band": B, "sweep": 2 * B * NB}[kind]
     return Plan(NS, SB, nseg, bps, K, KP, smem, merge_smem,
                 1 + split + table, part_words, r_words,
                 TC_TABLE_WORDS if table else 0, out_words, resident, eff)
+
+
+class SelectPlan(NamedTuple):
+    """How phrase_select runs one (B, T, NB, KV, mode) group."""
+    path: str  # "two": the sweep, then the listed selection; "one"
+    sweep: Optional[Plan]  # the sweep's plan ("two")
+    select: Plan  # the selection's: over K listed blocks, or every block
+    launches: int  # CUDA launches a call, tc's table included
+
+
+def select_path(B: int, NB: int, KV: int) -> str:
+    """The selection's path: "two" (threshold first) where the doc space
+    has at least K = KV + 1 blocks and a cluster's listed segments hold K
+    (K <= MAX_CLUSTER * IDS_CAP), else "one". On the 1M index's planes
+    threshold first was the faster at every group and KV the engine runs,
+    the rescue's K = 4,097 of 7,816 blocks included (PERF.md §6)."""
+    K = KV + 1
+    return "one" if NB < K or K > MAX_CLUSTER * IDS_CAP else "two"
+
+
+def select_plan(B: int, T: int, NB: int, KV: int, mode: str,
+                resident) -> SelectPlan:
+    """The selection's launch plans (arguments already checked) on NB
+    blocks, by select_path: "two", the sweep over every block then the
+    selection over K = KV + 1 listed ranks, or "one", the selection over
+    every block. resident(kind, listed) -> the card's resident CTAs of
+    that layout (resident_for on a card; the listed selection's with its
+    pick's keys, pick_nb = NB)."""
+    path = select_path(B, NB, KV)
+    if path not in ("one", "two") or (path == "two" and NB < KV + 1):
+        raise ValueError(f"no selection path {path!r} at NB={NB}, KV={KV}")
+    if path == "one":
+        sel = plan(B, T, NB, KV, mode, resident("select", False),
+                   kind="select")
+        return SelectPlan("one", None, sel, sel.launches)
+    sweep = plan(B, T, NB, KV, mode, resident("sweep", False), kind="sweep")
+    sel = plan(B, T, KV + 1, KV, mode, resident("select", True),
+               listed=True, kind="select", pick_nb=NB)
+    return SelectPlan("two", sweep, sel, sweep.launches + sel.launches)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -556,7 +642,7 @@ class _ScanParams(ctypes.Structure):
         "sc tf tf8 code avg32 norm_g slots weights blocks H N_pad B T M nblk "
         "K KP nseg bps NS SB smem merge_smem part_keys rscratch "
         "top_docs top_score top_tfs flags kind sel_lanes sel_score thr "
-        "kth_doc hit").split()]
+        "kth_doc hit bkeys").split()]
 
 
 class _PickParams(ctypes.Structure):
@@ -614,11 +700,14 @@ def _resident(mode: str, smem: int, idx: int, kind: str = "scan") -> int:
 
 
 def resident_for(mode: str, T: int, M: int, dev: torch.device,
-                 listed: bool = False, kind: str = "scan") -> int:
+                 listed: bool = False, kind: str = "scan",
+                 pick_nb: int = 0) -> int:
     """The card's resident scan CTAs (SMs times CTAs an SM, from the CUDA
     runtime's occupancy) of that kind's kernel at the layout plan() picks
     for these arguments."""
     _, _, smem = scan_layout(T, _layout_kp(M, kind), mode, listed, kind)
+    if pick_nb:
+        smem = max(smem, ring_offset(T, mode, listed) + pick_smem(pick_nb))
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     return _resident(mode, smem, idx, kind)
 
@@ -690,7 +779,7 @@ def dense_scan(plane, tf_plane, slots, weights, *, T: int, N_pad: int,
         p.merge_smem,
         base if p.part_words else 0,
         base + 4 * p.part_words if p.r_words else 0, o, o + 4 * BM,
-        o + 8 * BM, o + 4 * (2 * BM + BTM), 0, 0, 0, 0, 0, 0)
+        o + 8 * BM, o + 4 * (2 * BM + BTM), 0, 0, 0, 0, 0, 0, 0)
     _launch(lambda f: f.scan, params, dev, "dense_scan")
     if tc:
         launch_counts["dense_scan_tc"] += 1
@@ -776,75 +865,95 @@ def phrase_args_ok(plane, slots, weights, *, T: int, N_pad: int, KV: int,
             and (not tc or _ok(kth_doc, torch.int32, (B,), dev)))
 
 
-def _phrase_launch(kind: str, plane, slots, weights, *, T: int, N_pad: int,
-                   KV: int, len_code, avg32, band):
-    """Check, plan, allocate and launch one of the phrase's passes;
-    returns (plan, the buffer's outputs view, B)."""
+def _phrase_checked(what: str, plane, slots, weights, *, T: int,
+                    N_pad: int, KV: int, len_code, avg32, band):
+    """Check one of the phrase's passes' arguments (ValueError before any
+    launch); returns (device, B, mode)."""
     kw = dict(T=T, N_pad=N_pad, KV=KV, len_code=len_code, avg32=avg32,
               band=band)
-    what = "phrase_" + kind
     if not (phrase_args_ok(plane, slots, weights, **kw)
             and plane.device.type == "cuda"):
         check_phrase_inputs(plane, slots, weights, **kw)
         raise ValueError(f"{what} runs on CUDA tensors, got {plane.device}")
-    dev = plane.device
     B = slots.shape[0]
     if B > MAX_B:
         raise ValueError(f"B = {B} queries exceed the grid's {MAX_B}")
+    return plane.device, B, "tc" if len_code is not None else "raw"
+
+
+def _phrase_params(kind: str, p: Plan, plane, slots, weights, *, T: int,
+                   N_pad: int, KV: int, nblk: int, len_code, avg32,
+                   table: int = 0, bkeys: int = 0, outs=(0, 0),
+                   band=None, hit: int = 0) -> _ScanParams:
+    """One phrase pass's _ScanParams: the plane and the query's rows, the
+    plan, tc's table, the block keys, the selection's (lanes, scores)
+    outputs or the band's selection, thresholds and words."""
     tc = len_code is not None
-    mode = "tc" if tc else "raw"
-    p = plan(B, T, N_pad // 128, KV, mode,
-             resident_for(mode, T, KV, dev, kind=kind) if B else 1,
-             kind=kind)
-    buf = torch.empty(p.part_words + p.r_words + p.table_words
-                      + p.out_words, dtype=torch.int32, device=dev)
-    out = buf[p.part_words + p.r_words + p.table_words:]
-    if B == 0:
-        return out
-    base = buf.data_ptr()
-    table = base + 4 * (p.part_words + p.r_words)
-    o = table + 4 * p.table_words
-    K = KV + 1
-    select = kind == "select"
     top_cs, top_cl, thr, kth_doc = band if band is not None else (None,) * 4
-    params = _ScanParams(
+    return _ScanParams(
         0 if tc else plane.data_ptr(), 0, plane.data_ptr() if tc else 0,
         len_code.data_ptr() if tc else 0, avg32.data_ptr() if tc else 0,
-        table if tc and select else 0, slots.data_ptr(), weights.data_ptr(),
-        0, plane.shape[0], N_pad, B, T, KV, N_pad // 128, p.K, p.KP, p.nseg,
-        p.bps, p.NS, p.step_blocks, p.smem, p.merge_smem,
-        base if p.part_words else 0,
-        base + 4 * p.part_words if p.r_words else 0,
-        o if select else 0, o + 4 * B * K if select else 0, 0, 0,
-        KINDS.index(kind),
-        0 if select else top_cl.data_ptr(),
-        0 if select else top_cs.data_ptr(), 0 if select else thr.data_ptr(),
-        kth_doc.data_ptr() if kth_doc is not None else 0,
-        0 if select else o)
-    _launch(lambda f: f.scan, params, dev, what)
-    launch_counts[what + ("_tc" if tc else "")] += 1
-    if tc and select:
-        launch_counts["dense_tc_table"] += 1
-    if select and p.nseg > 1:
-        launch_counts["dense_scan_merge"] += 1
-    return out
+        table, slots.data_ptr(), weights.data_ptr(), 0, plane.shape[0],
+        N_pad, slots.shape[0], T, KV, nblk, p.K, p.KP, p.nseg, p.bps, p.NS,
+        p.step_blocks, p.smem, 0, 0, 0, outs[0], outs[1], 0, 0,
+        KINDS.index(kind), 0 if band is None else top_cl.data_ptr(),
+        0 if band is None else top_cs.data_ptr(),
+        0 if band is None else thr.data_ptr(),
+        kth_doc.data_ptr() if kth_doc is not None else 0, hit, bkeys)
 
 
 def phrase_select(plane, slots, weights, *, T: int, N_pad: int, KV: int,
                   len_code=None, avg32=None):
-    """The full-scan phrase's selection from the kernel, on CUDA tensors:
+    """The full-scan phrase's selection from the kernels, on CUDA tensors:
     each query's top K = KV + 1 lanes of the plane under the phrase's
     rule, in (score desc, doc asc) order, as (top_cs (B, K) f32, top_cl
     (B, K) int32; -inf and -1 past the matched lanes). raw: plane is the
     f32 score plane, weights use_score; tc (len_code given): plane is the
-    uint8 tf plane, weights idf32. Checks the arguments as
-    check_phrase_inputs does (ValueError before any launch), allocates
-    the outputs (and the segments' keys with the split query's
-    thresholds, and tc's table) as views of one buffer, launches on the
-    current stream and does not synchronize."""
-    out = _phrase_launch("select", plane, slots, weights, T=T, N_pad=N_pad,
-                         KV=KV, len_code=len_code, avg32=avg32, band=None)
-    B, K = slots.shape[0], KV + 1
+    uint8 tf plane, weights idf32. `select_plan` picks the path: "two",
+    the sweep (its block keys in the call's buffer) then the listed
+    selection; "one", the selection over every block. Checks the arguments as check_phrase_inputs does
+    (ValueError before any launch), allocates the block keys, tc's table
+    and the outputs as views of one buffer, launches on the current
+    stream and does not synchronize."""
+    dev, B, mode = _phrase_checked("phrase_select", plane, slots, weights,
+                                   T=T, N_pad=N_pad, KV=KV,
+                                   len_code=len_code, avg32=avg32,
+                                   band=None)
+    NB, K = N_pad // 128, KV + 1
+    tc = mode == "tc"
+    if B == 0:
+        return (torch.empty((0, K), dtype=torch.float32, device=dev),
+                torch.empty((0, K), dtype=torch.int32, device=dev))
+    sp = select_plan(B, T, NB, KV, mode,
+                     lambda kind, listed: resident_for(
+                         mode, T, KV, dev, listed, kind,
+                         NB if listed else 0))
+    key_words = sp.sweep.out_words if sp.sweep else 0
+    table_words = TC_TABLE_WORDS if tc else 0
+    buf = torch.empty(key_words + table_words + 2 * B * K,
+                      dtype=torch.int32, device=dev)
+    # the block keys first (8-byte aligned), tc's table, the outputs
+    base = buf.data_ptr()
+    bkeys = base if sp.sweep else 0
+    table = base + 4 * key_words if tc else 0
+    o = base + 4 * (key_words + table_words)
+    kw = dict(T=T, N_pad=N_pad, KV=KV, len_code=len_code, avg32=avg32,
+              table=table, bkeys=bkeys)
+    sfx = "_tc" if tc else ""
+    if sp.sweep:
+        _launch(lambda f: f.scan,
+                _phrase_params("sweep", sp.sweep, plane, slots, weights,
+                               nblk=NB, **kw), dev, "phrase_sweep")
+        launch_counts["phrase_sweep" + sfx] += 1
+    _launch(lambda f: f.scan,
+            _phrase_params("select", sp.select, plane, slots, weights,
+                           nblk=K if sp.sweep else NB,
+                           outs=(o, o + 4 * B * K), **kw),
+            dev, "phrase_select")
+    launch_counts["phrase_select" + sfx] += 1
+    if tc:
+        launch_counts["dense_tc_table"] += 1
+    out = buf[key_words + table_words:]
     return (out[B * K:].view(torch.float32).view(B, K),
             out[: B * K].view(B, K))
 
@@ -859,9 +968,24 @@ def phrase_band(plane, slots, weights, top_cs, top_cl, thr, *, T: int,
     some term or its doc is below kth_doc), else 0. Checks the arguments
     as check_phrase_inputs does, launches on the current stream (the
     words zeroed first) and does not synchronize."""
-    return _phrase_launch("band", plane, slots, weights, T=T, N_pad=N_pad,
-                          KV=KV, len_code=len_code, avg32=avg32,
-                          band=(top_cs, top_cl, thr, kth_doc))
+    band = (top_cs, top_cl, thr, kth_doc)
+    dev, B, mode = _phrase_checked("phrase_band", plane, slots, weights,
+                                   T=T, N_pad=N_pad, KV=KV,
+                                   len_code=len_code, avg32=avg32,
+                                   band=band)
+    hit = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return hit
+    NB = N_pad // 128
+    p = plan(B, T, NB, KV, mode, resident_for(mode, T, KV, dev, kind="band"),
+             kind="band")
+    _launch(lambda f: f.scan,
+            _phrase_params("band", p, plane, slots, weights, T=T,
+                           N_pad=N_pad, KV=KV, nblk=NB, len_code=len_code,
+                           avg32=avg32, band=band, hit=hit.data_ptr()),
+            dev, "phrase_band")
+    launch_counts["phrase_band" + ("_tc" if mode == "tc" else "")] += 1
+    return hit
 
 
 def dense_pick(blockmax, slots, weights, *, T: int, NB: int, C: int,

@@ -1,20 +1,27 @@
-"""The phrase steps as hand-written CUDA kernels (csrc/phrase.cu).
+"""The phrase position verification as a hand-written CUDA kernel
+(csrc/phrase.cu group_kernel).
 
-`phrase_verify` computes engine/kernels._verify_pos_windows: for each
+It computes engine/kernels._verify_pos_windows_torch's counts: for each
 (query, lane) of a (B, NL) group, the number of bases y (the anchor
 term's first PP valid positions minus the anchor) at which every term t
-holds y + t in its PW-wide position window. `plan` says how it runs: one
-warp a (query, lane), W warps a CTA, each warp's T windows (the valid
-entries only) in shared memory, so no (B, NL, PP, PW) compare plane
-reaches device memory; the output is the (B, NL) int32 counts.
-
-engine/kernels._verify_pos_windows calls `phrase_verify` for CUDA
-tensors and runs its plain torch version (_verify_pos_windows_torch)
-for CPU tensors after `check_verify_inputs`; `phrase_verify` checks the
-same conditions with the cheap `verify_args_ok` before every launch, so
-a bad argument raises ValueError the same way on either device. The
-counts are integer work: the kernel equals the plain version on every
-row.
+holds y + t in its PW-wide position window, from what the phrase routes
+hold instead of the bag bounds. `group_plan` says how it runs: a group of
+G threads an item (8 where T <= 8 and PW <= 32, else 32), W warps a CTA,
+each item's T windows (the valid entries only) in shared memory, so no
+(B, NL, PP, PW) compare plane reaches device memory; the output is the
+(B, NL) int32 counts. Two forms:
+`phrase_verify_docs` (engine/kernels._verify_docs, the mega routes): the
+kept docs (B, NL) and the query terms' runs (B, T); each term's posting
+index recovered inside the kernel exactly as the plain version's
+fixed-count search finds it, the bag bounds read from pos_starts, the
+verification anchored on each query's anchor term;
+`phrase_verify_pidx` (engine/kernels._verify_pidx, the compact route):
+the (B, T, NL) posting indices in slot order with slot_of, anchored on
+query term 0. Their plain versions are engine/kernels._verify_docs_torch
+and _verify_pidx_torch; `check_docs_inputs` and `check_pidx_inputs`
+check their arguments, so a bad argument raises ValueError the same way
+on either device. The counts are integer work: the kernel equals the
+plain version on every row.
 """
 
 from __future__ import annotations
@@ -26,20 +33,18 @@ from typing import NamedTuple, Optional
 import torch
 
 # kernel launches by wrapper name, one a call
-launch_counts = {"phrase_verify": 0}
+launch_counts = {"phrase_verify_docs": 0, "phrase_verify_pidx": 0}
 MAX_T = 32  # terms at most (phrase.cu kMaxT: a thread a term's bounds)
 MAX_WARPS = 8  # warps a CTA
 # a CTA's windows together at most, as far as one warp allows: 8 warps
 # at T 8 and PW 128 (33 KB) take one CTA's whole share
 VERIFY_SMEM = 48 * 1024
 MAX_SMEM = 232_448  # the shared bytes an H100 block can opt into
-
-
-class Plan(NamedTuple):
-    """How phrase_verify runs one (B, T, NL, PW) group."""
-    W: int  # warps a CTA, one a (query, lane)
-    smem: int  # dynamic shared bytes a CTA
-    ctas: int  # the grid
+# a group of GROUP_SMALL threads an item where T and PW allow it
+# (phrase.cu kGroupMaxT, kGroupMaxPW), else a warp
+GROUP_SMALL = 8
+GROUP_MAX_T, GROUP_MAX_PW = 8, 32
+FORMS = ("pidx", "docs")  # phrase.cu kFromPidx, kFromDocs
 
 
 def warp_bytes(T: int, PW: int) -> int:
@@ -47,13 +52,24 @@ def warp_bytes(T: int, PW: int) -> int:
     return (T * PW + T) * 4
 
 
+class GroupPlan(NamedTuple):
+    """How phrase_verify_docs / _pidx run one (B, T, NL, PW) group."""
+    G: int  # threads an item
+    W: int  # warps a CTA, 32 / G items each
+    smem: int  # dynamic shared bytes a CTA
+    ctas: int  # the grid
+
+
 @functools.lru_cache(maxsize=1024)
-def plan(B: int, T: int, NL: int, PW: int) -> Plan:
-    """The launch plan of a (B, T, NL, PW) group (arguments already
-    checked): as many warps a CTA as fit VERIFY_SMEM, at least one."""
-    per = warp_bytes(T, PW)
+def group_plan(B: int, T: int, NL: int, PW: int) -> GroupPlan:
+    """The launch plan (arguments already checked): G =
+    GROUP_SMALL where T <= GROUP_MAX_T and PW <= GROUP_MAX_PW, else 32;
+    as many warps a CTA as fit VERIFY_SMEM, at least one."""
+    G = GROUP_SMALL if T <= GROUP_MAX_T and PW <= GROUP_MAX_PW else 32
+    per = warp_bytes(T, PW) * (32 // G)  # a warp's items' windows
     W = max(1, min(MAX_WARPS, VERIFY_SMEM // per))
-    return Plan(W, W * per, -(-(B * NL) // W))
+    items = W * (32 // G)
+    return GroupPlan(G, W, W * per, -(-(B * NL) // items))
 
 
 def reset_launch_counts() -> None:
@@ -70,75 +86,13 @@ def _ok(t, dtype, shape, dev) -> bool:
             and t.device == dev)
 
 
-def check_verify_inputs(positions, ps, pe, anchor, *, T: int, NL: int,
-                        PP: int, PW: int) -> None:
-    """Raise ValueError unless the arguments are what _verify_pos_windows
-    takes: a non-empty contiguous 1-D positions column (int16 bits of
-    uint16, or int32), contiguous (B, T, NL) int32 ps and pe, a contiguous
-    (B,) int32 anchor (values in [0, T)), every tensor on one device,
-    1 <= T <= MAX_T, NL >= 0, PP >= 1, PW >= 1 and a warp's windows
-    within the card's shared memory."""
-    if not isinstance(positions, _T):
-        raise ValueError("positions must be a tensor")
-    dev = positions.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    if (not 1 <= T <= MAX_T or NL < 0 or PP < 1 or PW < 1
-            or warp_bytes(T, PW) > MAX_SMEM):
-        raise ValueError(f"need 1 <= T <= {MAX_T}, NL >= 0, PP >= 1 and "
-                         f"PW >= 1 (T * PW windows within {MAX_SMEM} "
-                         f"shared bytes), got T={T} NL={NL} PP={PP} PW={PW}")
-    if (positions.dtype not in (torch.int16, torch.int32)
-            or positions.dim() != 1 or not positions.is_contiguous()
-            or positions.shape[0] < 1):
-        raise ValueError(f"positions must be a non-empty contiguous 1-D "
-                         f"int16 or int32 tensor on {dev}")
-    if not isinstance(ps, _T) or ps.dim() != 3:
-        raise ValueError("ps must be a (B, T, NL) tensor")
-    shape = (ps.shape[0], T, NL)
-    for name, t in (("ps", ps), ("pe", pe)):
-        if not _ok(t, torch.int32, shape, dev):
-            raise ValueError(f"{name} must be a contiguous int32 tensor of "
-                             f"shape {shape} on {dev}")
-    if not _ok(anchor, torch.int32, (shape[0],), dev):
-        raise ValueError(f"anchor must be a contiguous int32 tensor of "
-                         f"shape {(shape[0],)} on {dev}")
-
-
-def verify_args_ok(positions, ps, pe, anchor, *, T: int, NL: int, PP: int,
-                   PW: int) -> bool:
-    """check_verify_inputs's conditions as one cheap test (no message):
-    True exactly where it raises nothing."""
-    if not isinstance(positions, _T) or not isinstance(ps, _T):
-        return False
-    dev = positions.device
-    if dev.type not in ("cpu", "cuda") or ps.dim() != 3:
-        return False
-    shape = (ps.shape[0], T, NL)
-    return (1 <= T <= MAX_T and NL >= 0 and PP >= 1 and PW >= 1
-            and warp_bytes(T, PW) <= MAX_SMEM
-            and positions.dtype in (torch.int16, torch.int32)
-            and positions.dim() == 1 and positions.is_contiguous()
-            and positions.shape[0] >= 1
-            and _ok(ps, torch.int32, shape, dev)
-            and _ok(pe, torch.int32, shape, dev)
-            and _ok(anchor, torch.int32, (shape[0],), dev))
-
-
-class _VerifyParams(ctypes.Structure):
-    """phrase.cu's WiserVerifyParams: every field 8 bytes."""
-    _fields_ = [(n, ctypes.c_longlong) for n in (
-        "positions n u16 ps pe anchor out B T NL PP PW W smem").split()]
-
-
 class _Fns:
     """The kernel library's C functions, bound once."""
 
     def __init__(self, lib: ctypes.CDLL):
-        self.verify = lib.wiser_phrase_verify
-        self.verify.argtypes = [ctypes.POINTER(_VerifyParams),
-                                ctypes.c_void_p]
-        self.verify.restype = ctypes.c_int
+        self.group = lib.wiser_phrase_verify_group
+        self.group.argtypes = [ctypes.POINTER(_GroupParams), ctypes.c_void_p]
+        self.group.restype = ctypes.c_int
         self.error = lib.wiser_phrase_error_string
         self.error.argtypes = [ctypes.c_int]
         self.error.restype = ctypes.c_char_p
@@ -157,39 +111,160 @@ def _kernel_fns() -> _Fns:
     return _fns
 
 
-def phrase_verify(positions, ps, pe, anchor, *, T: int, NL: int, PP: int,
-                  PW: int):
-    """_verify_pos_windows's (B, NL) int32 counts from the kernel, on CUDA
-    tensors. Checks the arguments as check_verify_inputs does (ValueError
-    before any launch), allocates the output, launches on the current
-    stream and does not synchronize."""
-    kw = dict(T=T, NL=NL, PP=PP, PW=PW)
-    if not (verify_args_ok(positions, ps, pe, anchor, **kw)
-            and positions.device.type == "cuda"):
-        check_verify_inputs(positions, ps, pe, anchor, **kw)
-        raise ValueError(f"phrase_verify runs on CUDA tensors, got "
-                         f"{positions.device}")
+def _check_common(positions, T: int, NL: int, PP: int, PW: int):
+    """Both forms' conditions on the positions column and the shape
+    arguments: a non-empty contiguous 1-D positions column (int16 bits of
+    uint16, or int32) on the CPU or a card, 1 <= T <= MAX_T, NL >= 0,
+    PP >= 1, PW >= 1 and a warp's windows within the card's shared
+    memory. Returns the device."""
+    if not isinstance(positions, _T):
+        raise ValueError("positions must be a tensor")
     dev = positions.device
-    B = ps.shape[0]
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if (not 1 <= T <= MAX_T or NL < 0 or PP < 1 or PW < 1
+            or warp_bytes(T, PW) > MAX_SMEM):
+        raise ValueError(f"need 1 <= T <= {MAX_T}, NL >= 0, PP >= 1 and "
+                         f"PW >= 1 (T * PW windows within {MAX_SMEM} "
+                         f"shared bytes), got T={T} NL={NL} PP={PP} PW={PW}")
+    if (positions.dtype not in (torch.int16, torch.int32)
+            or positions.dim() != 1 or not positions.is_contiguous()
+            or positions.shape[0] < 1):
+        raise ValueError(f"positions must be a non-empty contiguous 1-D "
+                         f"int16 or int32 tensor on {dev}")
+    return dev
+
+
+def _need_i32(name, t, shape, dev) -> None:
+    if not _ok(t, torch.int32, shape, dev):
+        raise ValueError(f"{name} must be a contiguous int32 tensor of "
+                         f"shape {shape} on {dev}")
+
+
+def _column(name, t, dev) -> None:
+    if not (isinstance(t, _T) and t.dtype is torch.int32 and t.dim() == 1
+            and t.is_contiguous() and t.shape[0] >= 1 and t.device == dev):
+        raise ValueError(f"{name} must be a non-empty contiguous 1-D int32 "
+                         f"tensor on {dev}")
+
+
+def check_docs_inputs(postings_doc, positions, pos_starts, docs, starts,
+                      ends, anchor, *, T: int, NL: int, PP: int, PW: int,
+                      n_iters: int) -> None:
+    """Raise ValueError unless the arguments are what _verify_docs takes:
+    the positions column and shapes as _check_common says, non-empty
+    contiguous 1-D int32 postings_doc and pos_starts, contiguous (B, NL)
+    int32 docs, (B, T) int32 starts and ends, a (B,) int32 anchor, every
+    tensor on one device, n_iters >= 0."""
+    dev = _check_common(positions, T, NL, PP, PW)
+    _column("postings_doc", postings_doc, dev)
+    _column("pos_starts", pos_starts, dev)
+    if not isinstance(docs, _T) or docs.dim() != 2:
+        raise ValueError("docs must be a (B, NL) tensor")
+    B = docs.shape[0]
+    _need_i32("docs", docs, (B, NL), dev)
+    _need_i32("starts", starts, (B, T), dev)
+    _need_i32("ends", ends, (B, T), dev)
+    _need_i32("anchor", anchor, (B,), dev)
+    if n_iters < 0:
+        raise ValueError(f"need n_iters >= 0, got {n_iters}")
+
+
+def check_pidx_inputs(positions, pos_starts, pidx, slot_of, *, T: int,
+                      NL: int, PP: int, PW: int) -> None:
+    """Raise ValueError unless the arguments are what _verify_pidx takes:
+    the positions column and shapes as _check_common says, a non-empty
+    contiguous 1-D int32 pos_starts, contiguous (B, T, NL) int32 pidx
+    (slot order) and (B, T) int32 slot_of, every tensor on one device."""
+    dev = _check_common(positions, T, NL, PP, PW)
+    _column("pos_starts", pos_starts, dev)
+    if not isinstance(pidx, _T) or pidx.dim() != 3:
+        raise ValueError("pidx must be a (B, T, NL) tensor")
+    B = pidx.shape[0]
+    _need_i32("pidx", pidx, (B, T, NL), dev)
+    _need_i32("slot_of", slot_of, (B, T), dev)
+
+
+class _GroupParams(ctypes.Structure):
+    """phrase.cu's WiserVerifyGroupParams: every field 8 bytes."""
+    _fields_ = [(n, ctypes.c_longlong) for n in (
+        "positions n u16 pos_starts n_ps pidx slot_of doc n_doc docs "
+        "starts ends anchor out B T NL PP PW n_iters form G W "
+        "smem").split()]
+
+
+def _launch_group(params, dev, what: str) -> None:
+    fns = _kernel_fns()
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(idx):
+        rc = fns.group(ctypes.byref(params),
+                       torch._C._cuda_getCurrentRawStream(idx))
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: " + fns.error(rc).decode())
+    launch_counts[what] += 1
+
+
+def _group_params(form: str, positions, pos_starts, out, B, T, NL, PP, PW,
+                  n_iters=0, pidx=None, slot_of=None, doc=None, docs=None,
+                  starts=None, ends=None, anchor=None) -> _GroupParams:
+    g = group_plan(B, T, NL, PW)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    return _GroupParams(
+        positions.data_ptr(), positions.shape[0],
+        int(positions.dtype is torch.int16), pos_starts.data_ptr(),
+        pos_starts.shape[0], ptr(pidx), ptr(slot_of), ptr(doc),
+        0 if doc is None else doc.shape[0], ptr(docs), ptr(starts),
+        ptr(ends), ptr(anchor), out.data_ptr(), B, T, NL, PP, PW, n_iters,
+        FORMS.index(form), g.G, g.W, g.smem)
+
+
+def phrase_verify_docs(postings_doc, positions, pos_starts, docs, starts,
+                       ends, anchor, *, T: int, NL: int, PP: int, PW: int,
+                       n_iters: int):
+    """_verify_docs's (B, NL) int32 counts from the kernel, on CUDA
+    tensors: each kept doc's posting index in each query term's run
+    recovered as the fixed-count search finds it, its bag bounds from
+    pos_starts, the verification anchored on anchor[b]. Checks the
+    arguments as check_docs_inputs does (ValueError before any launch),
+    allocates the output, launches on the current stream and does not
+    synchronize."""
+    check_docs_inputs(postings_doc, positions, pos_starts, docs, starts,
+                      ends, anchor, T=T, NL=NL, PP=PP, PW=PW,
+                      n_iters=n_iters)
+    dev = positions.device
+    if dev.type != "cuda":
+        raise ValueError(f"phrase_verify_docs runs on CUDA tensors, got "
+                         f"{dev}")
+    B = docs.shape[0]
     out = torch.empty((B, NL), dtype=torch.int32, device=dev)
     if B * NL == 0:
         return out
-    p = plan(B, T, NL, PW)
-    params = _VerifyParams(
-        positions.data_ptr(), positions.shape[0],
-        int(positions.dtype is torch.int16), ps.data_ptr(), pe.data_ptr(),
-        anchor.data_ptr(), out.data_ptr(), B, T, NL, PP, PW, p.W, p.smem)
-    fns = _kernel_fns()
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx == torch.cuda.current_device():
-        rc = fns.verify(ctypes.byref(params),
-                        torch._C._cuda_getCurrentRawStream(idx))
-    else:
-        with torch.cuda.device(idx):
-            rc = fns.verify(ctypes.byref(params),
-                            torch._C._cuda_getCurrentRawStream(idx))
-    if rc != 0:
-        raise RuntimeError("phrase_verify launch failed: "
-                           + fns.error(rc).decode())
-    launch_counts["phrase_verify"] += 1
+    _launch_group(_group_params("docs", positions, pos_starts, out, B, T,
+                                NL, PP, PW, n_iters, doc=postings_doc,
+                                docs=docs, starts=starts, ends=ends,
+                                anchor=anchor), dev, "phrase_verify_docs")
+    return out
+
+
+def phrase_verify_pidx(positions, pos_starts, pidx, slot_of, *, T: int,
+                       NL: int, PP: int, PW: int):
+    """_verify_pidx's (B, NL) int32 counts from the kernel, on CUDA
+    tensors: term t's posting index from pidx's slot_of[b, t] row, its
+    bag bounds from pos_starts, the verification anchored on term 0.
+    Checks the arguments as check_pidx_inputs does (ValueError before any
+    launch), allocates the output, launches on the current stream and
+    does not synchronize."""
+    check_pidx_inputs(positions, pos_starts, pidx, slot_of, T=T, NL=NL,
+                      PP=PP, PW=PW)
+    dev = positions.device
+    if dev.type != "cuda":
+        raise ValueError(f"phrase_verify_pidx runs on CUDA tensors, got "
+                         f"{dev}")
+    B = pidx.shape[0]
+    out = torch.empty((B, NL), dtype=torch.int32, device=dev)
+    if B * NL == 0:
+        return out
+    _launch_group(_group_params("pidx", positions, pos_starts, out, B, T,
+                                NL, PP, PW, pidx=pidx, slot_of=slot_of),
+                  dev, "phrase_verify_pidx")
     return out

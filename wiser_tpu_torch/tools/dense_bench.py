@@ -4,6 +4,8 @@ beside them at the engine's shapes.
 
     python -m wiser_tpu_torch.tools.dense_bench [--out report.json]
     python -m wiser_tpu_torch.tools.dense_bench --probe [--index IDX]
+    python -m wiser_tpu_torch.tools.dense_bench --phrase --tune [--index IDX] \
+        [--out r.json]
     python -m wiser_tpu_torch.tools.dense_bench --phrase [--probe] \
         [--index IDX]
     python -m wiser_tpu_torch.tools.dense_bench --trees OLD,.,.,OLD \
@@ -74,6 +76,7 @@ the phrase_mega set (`phrase_mega_set`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -854,13 +857,32 @@ def _phrase_args(p: dict, q: dict, mode: str, KV: int):
     return (plane, q["slots"], weights(q, mode)), kw
 
 
-def select_call(plain: bool, p: dict, q: dict, mode: str, KV: int):
-    """full_phrase_select (the kernel on a card) or its plain version."""
+@contextlib.contextmanager
+def forced_path(path):
+    """ops/dense.select_path answers `path` ("one" or "two"; None: its
+    own rule) while the block runs, restored after."""
+    from wiser_tpu_torch.ops import dense as D
+
+    rule = D.select_path
+    if path is not None:
+        D.select_path = lambda B, NB, KV: path
+    try:
+        yield
+    finally:
+        D.select_path = rule
+
+
+def select_call(plain: bool, p: dict, q: dict, mode: str, KV: int,
+                path=None):
+    """full_phrase_select (the kernels on a card; `path` forces
+    ops/dense.select_path's answer there, forced_path) or its plain
+    version."""
     from wiser_tpu_torch.engine import kernels as K
 
     args, kw = _phrase_args(p, q, mode, KV)
     if not plain:
-        return K.full_phrase_select(*args, **kw)
+        with forced_path(path):
+            return K.full_phrase_select(*args, **kw)
     rows_f32, _ = K._phrase_rows(*args, len_code=kw.get("len_code"),
                                  avg32=kw.get("avg32"))
     return K.full_phrase_select_torch(rows_f32, T=kw["T"],
@@ -939,19 +961,35 @@ def check_phrase_cases(dev, seed: int = 0, H: int = 12,
     KV 1,024 and 4,096 (reduced to the lane set), over 1, 157 and 7,816
     blocks (B 128 and 32 on the 1M planes, 8 below), then T 8 and the
     edge rows (a repeated row, disjoint rows, a sparse row, batch
-    padding); the band word bit-equal on each selection at every
-    band_cases case; and the band's stream on tc planes of one payload
-    (it reads every lane and finds nothing) with a lane of another
-    payload at the last doc (it finds it at its last step). Raises on the
+    padding); each selection also by the path its plan did not take
+    (ops/dense.select_path: the one pass, and threshold first wherever
+    the doc space has K blocks); the band word bit-equal on each
+    selection at every band_cases case; the band's stream on tc planes of
+    one payload (it reads every lane and finds nothing) with a lane of
+    another payload at the last doc (it finds it at its last step); and
+    planes of one score in every lane of 2,048 blocks, raw and tc, B 1
+    and 8, KV 1,024 by both paths and the rescue's 4,096 in one pass
+    (every block key ties at kappa's score, so the lowest docs decide). Raises on the
     first difference; returns the totals and each case's counts."""
     import torch
+
+    from wiser_tpu_torch.ops import dense as D
 
     cases = []
     rows_need = [0, 0]
 
     def one(p, q, mode, KV, what, **kw):
         sel = select_call(False, p, q, mode, KV)
-        row = check_select(sel, select_call(True, p, q, mode, KV), KV, what)
+        want = select_call(True, p, q, mode, KV)
+        row = check_select(sel, want, KV, what)
+        # the path the plan did not take, where the doc space allows it
+        NB = (p["tf8"] if mode == "tc" else p["sc"]).shape[1] // 128
+        taken = D.select_path(q["slots"].shape[0], NB, KV)
+        for path in ("one", "two"):
+            if path != taken and (path == "one" or NB >= KV + 1):
+                check_select(select_call(False, p, q, mode, KV, path), want,
+                             KV, f"{what} path {path}")
+                row[f"path_{path}"] = True
         N_pad = (p["tf8"] if mode == "tc" else p["sc"]).shape[1]
         for name, thr, kd in band_cases(sel, mode, N_pad):
             got = band_call(False, p, q, mode, KV, sel, thr, kd)
@@ -1018,6 +1056,27 @@ def check_phrase_cases(dev, seed: int = 0, H: int = 12,
         cases.append({"kind": "band_stream", "mode": "tc", "rows": 1,
                       "hit": int(got[0]), "what": f"stream {rows}",
                       "max_abs_err": 0.0})
+    # one score everywhere: every block key ties at kappa's score
+    NB = 2048
+    tie = {"sc": np.ones((2, NB * 128), np.float32),
+           "tf8": np.full((2, NB * 128), 3, np.uint8),
+           "code": np.full(NB * 128, 40, np.uint8),
+           "avg32": np.float32(57.25)}
+    tie["sc"][1, ::5] = 0.0  # row 1 misses every fifth doc
+    tie["tf8"][1, ::5] = 0
+    p = to_device(tie, dev)
+    for B in (1, 8):
+        q = to_device(phrase_slots(B, 2, 2, seed, rows=[[0, 1]]), dev)
+        for mode in ("raw", "tc"):
+            for KV in PHRASE_KVS:
+                want = select_call(True, p, q, mode, KV)
+                for path in ("one", "two")[:1 + (NB >= KV + 1)]:
+                    what = f"ties {mode} B={B} KV={KV} path {path}"
+                    cases.append(dict(check_select(
+                        select_call(False, p, q, mode, KV, path), want, KV,
+                        what), kind="phrase_ties", mode=mode, KV=KV, B=B,
+                        path=path, what=what))
+    del p
     if not (rows_need[0] and rows_need[1]):
         raise AssertionError(f"the band cases need {rows_need[0]} rows and "
                              f"flag {rows_need[1]}")
@@ -1049,6 +1108,77 @@ def phrase_bound_bytes(slots, mode: str, N_pad: int, K: int,
     total = n_rows * N_pad * lane_b + (N_pad * (B if per_query else 1)
                                        if mode == "tc" else 0)
     return int(total + B * T * 8 + B * K * 8)
+
+
+def phrase_part_bytes(slots, mode: str, N_pad: int, KV: int) -> dict:
+    """The least bytes of each launch of the selection's path
+    (ops/dense.select_path), each read once: "sweep" the distinct rows'
+    lanes (and tc the len-code row once), the slots and weights, the (B,
+    NB) block keys written; "select" threshold first: each query's K
+    listed blocks of its distinct rows (and tc their len codes), its
+    block keys read, the slots and weights, the (B, K) outputs; in one
+    pass: phrase_bound_bytes."""
+    from wiser_tpu_torch.ops import dense as D
+
+    slots = np.asarray(slots, dtype=np.int64)
+    B, T = slots.shape
+    NB, K = N_pad // 128, KV + 1
+    # a tree without the threshold-first selection makes one pass
+    if getattr(D, "select_path", lambda *a: "one")(B, NB, KV) == "one":
+        return {"select": phrase_bound_bytes(slots, mode, N_pad, K)}
+    lane_b = 4 if mode == "raw" else 1
+    rows = sum(len(np.unique(r)) for r in slots)
+    sweep = phrase_bound_bytes(slots, mode, N_pad, 0) + B * NB * 8
+    listed = (rows * K * 128 * lane_b + (B * K * 128 if mode == "tc" else 0)
+              + B * NB * 8 + B * T * 8 + B * K * 8)
+    return {"sweep": sweep, "select": listed}
+
+
+def select_parts_ms(p: dict, q: dict, mode: str, KV: int,
+                    iters: int = 10):
+    """The threshold-first selection's two launches timed apart
+    (search_bench.queued_ms): the sweep alone (tc: its table launch too),
+    then the listed selection alone on the sweep's block keys, through
+    ops/dense's launch helpers (no launch counted). None where the plan
+    takes one pass, or in a tree without the sweep."""
+    import torch
+
+    from wiser_tpu_torch.ops import dense as D
+    from wiser_tpu_torch.tools.search_bench import queued_ms
+
+    if not hasattr(D, "select_plan"):
+        return None
+    (plane, slots, weights), kw = _phrase_args(p, q, mode, KV)
+    dev, B, T, N_pad = plane.device, slots.shape[0], kw["T"], kw["N_pad"]
+    NB, K = N_pad // 128, KV + 1
+    sp = D.select_plan(B, T, NB, KV, mode,
+                       lambda kind, listed: D.resident_for(
+                           mode, T, KV, dev, listed, kind,
+                           NB if listed else 0))
+    if sp.sweep is None:
+        return None
+    bkeys = torch.empty(2 * B * NB, dtype=torch.int32, device=dev)
+    table = torch.empty(D.TC_TABLE_WORDS, dtype=torch.float32, device=dev)
+    out = torch.empty(2 * B * K, dtype=torch.int32, device=dev)
+    pk = dict(T=T, N_pad=N_pad, KV=KV, len_code=kw.get("len_code"),
+              avg32=kw.get("avg32"),
+              table=table.data_ptr() if mode == "tc" else 0,
+              bkeys=bkeys.data_ptr())
+
+    def sweep():
+        D._launch(lambda f: f.scan, D._phrase_params(
+            "sweep", sp.sweep, plane, slots, weights, nblk=NB, **pk), dev,
+            "phrase_sweep")
+
+    def listed():
+        D._launch(lambda f: f.scan, D._phrase_params(
+            "select", sp.select, plane, slots, weights, nblk=K,
+            outs=(out.data_ptr(), out.data_ptr() + 4 * B * K), **pk), dev,
+            "phrase_select")
+
+    sweep()
+    torch.cuda.synchronize()
+    return {"sweep": queued_ms(sweep, iters), "select": queued_ms(listed, iters)}
 
 
 def time_phrase_shapes(dev, mode: str = "raw", planes=None,
@@ -1093,6 +1223,8 @@ def time_phrase_shapes(dev, mode: str = "raw", planes=None,
             if compare:
                 row["check"] = check_select(sel, sel_p(), KV,
                                             f"{mode} select B={B} T={T}")
+            row["part_bytes"] = phrase_part_bytes(s, mode, N_pad, KV)
+            row["part_ms"] = select_parts_ms(p, q, mode, KV, iters)
             record(row, sel_k, sel_p,
                    phrase_bound_bytes(s, mode, N_pad, KV + 1),
                    phrase_bound_bytes(s, mode, N_pad, KV + 1, True))
@@ -1130,6 +1262,92 @@ def time_phrase_shapes(dev, mode: str = "raw", planes=None,
     return rows
 
 
+# the selection's tuning grid: groups (B, T), KVs, the listed
+# selection's forced segments a query (None: the plan's) and rings
+TUNE_SHAPES = ((128, 2), (32, 2), (8, 2))
+TUNE_NSEG = (None, 1, 2, 4, 8)
+
+
+def tune_select(dev, planes=None, modes=("raw", "tc"), shapes=TUNE_SHAPES,
+                KVs=PHRASE_KVS, nsegs=TUNE_NSEG, iters: int = 10,
+                seed: int = 1) -> list:
+    """The selection's launches timed by path ("one"; "two" at each
+    forced segment count of the listed selection at the first KV, the
+    plan's own at the others), each compared with the plain version
+    first: per launch its device ms by torch.profiler (launch_ms) and the
+    call's ms queued behind a sleep (search_bench.queued_ms). The path is
+    forced by forced_path and the segments by wrapping ops/dense.plan for
+    the call, both restored after; LISTED_CTAS was chosen from these rows
+    on synthetic planes and ops/dense.select_path from them on the
+    engine planes (PERF.md §6)."""
+    import torch
+
+    from wiser_tpu_torch.ops import dense as D
+    from wiser_tpu_torch.tools.search_bench import queued_ms
+
+    p = planes if planes is not None else planes_1m(dev, seed)
+    plan0 = D.plan
+    rows = []
+
+    def forced(nseg):
+        def plan(B, T, NB, M, mode, resident, listed=False, kind="scan",
+                 pick_nb=0):
+            pl = plan0(B, T, NB, M, mode, resident, listed, kind, pick_nb)
+            if not (nseg and listed and kind == "select"):
+                return pl
+            steps = -(-NB // pl.step_blocks)
+            sps = -(-steps // nseg)
+            if sps * pl.step_blocks > D.IDS_CAP:
+                return pl
+            return pl._replace(nseg=-(-steps // sps),
+                               bps=sps * pl.step_blocks)
+        return plan
+
+    try:
+        for mode in modes:
+            H, N_pad = (p["tf8"] if mode == "tc" else p["sc"]).shape
+            for B, T in shapes:
+                q = to_device(phrase_slots(B, T, H, seed + B + T,
+                                           n_pad_rows=0), dev)
+                for KV in KVs:
+                    want = select_call(True, p, q, mode, KV)
+                    grid = [("one", None)] + [
+                        ("two", n) for n in (nsegs if KV == KVs[0]
+                                             else (None,))]
+                    for path, nseg in grid:
+                        D.plan = forced(nseg)
+                        plan0.cache_clear()
+                        D._resident.cache_clear()
+
+                        def fn(q=q, KV=KV, path=path):
+                            return select_call(False, p, q, mode, KV, path)
+
+                        check_select(fn(), want, KV, f"tune {mode} B={B} "
+                                     f"KV={KV} {path} {nseg}")
+                        with forced_path(path):
+                            sp = D.select_plan(
+                                B, T, N_pad // 128, KV, mode,
+                                lambda kind, listed: D.resident_for(
+                                    mode, T, KV, dev, listed, kind,
+                                    N_pad // 128 if listed else 0))
+                        split = launch_ms(fn)
+                        rows.append({
+                            "mode": mode, "B": B, "T": T, "KV": KV,
+                            "path": path, "nseg": sp.select.nseg,
+                            "NS": sp.select.NS,
+                            "sweep_nseg": sp.sweep.nseg if sp.sweep else None,
+                            "kernels": split["kernels"],
+                            "total_ms": split["total"],
+                            "queued_ms": queued_ms(fn, iters)})
+                        log(f"tune {json.dumps(rows[-1])}")
+    finally:
+        D.plan = plan0
+        plan0.cache_clear()
+        D._resident.cache_clear()
+        torch.cuda.empty_cache()
+    return rows
+
+
 # the phase marks of dense.cu's measuring build (WISER_CLOCKS, clocks.cuh):
 # counter index -> phase; scan counters 0-5 over the CTAs in 6, pick
 # counters 8-11 over the selecting CTAs in 12
@@ -1139,6 +1357,16 @@ PICK_PHASES = ("bounds", "gather", "select", "compact")
 # counter, {a count's name: its counter}), each count over the CTAs
 DENSE_GROUPS = (("scan", SCAN_PHASES, 0, 6, {"flushes": 7}),
                 ("pick", PICK_PHASES, 8, 12, {"passes": 13, "ranked": 14}))
+# the phrase's selection: the selection's scan counters (0-5 over its
+# CTAs in 6, keep_tops in 7), the listed selection's pick of its blocks
+# (24: from the CTA's start; its copy, K-th key and ranks in 26-28) and a
+# split query's cluster merge (25) over the same CTAs, and the sweep's own
+# scan counters (16-21 over its CTAs in 22)
+PHRASE_GROUPS = (("select", SCAN_PHASES, 0, 6, {"keep_tops": 7}),
+                 ("listed_pick", ("pick",), 24, 6, {}),
+                 ("pick_split", ("copy", "kth", "ranks"), 26, 6, {}),
+                 ("cluster_merge", ("merge",), 25, 6, {}),
+                 ("sweep", SCAN_PHASES, 16, 22, {}))
 
 
 def clocks_build(name: str = "dense", fns_cls=None) -> object:
@@ -1317,8 +1545,10 @@ def probe_phrase(dev, planes=None, modes=("raw", "tc"),
                  shapes=PHRASE_SHAPES, KVs=PHRASE_KVS, iters: int = 5,
                  seed: int = 1) -> list:
     """Each phase's cycles of the phrase's selection (the measuring
-    build's scan counters: the flush's share and the flushes a CTA) at
-    each (B, T) and KV, beside its event-timed ms in that build."""
+    build's counters, PHRASE_GROUPS: the sweep's phases, the listed
+    selection's pick of its blocks, its scan phases and keep_tops, a
+    split query's cluster merge) at each (B, T) and KV, beside its
+    event-timed ms in that build."""
     import torch
 
     from wiser_tpu_torch.ops import dense as D
@@ -1343,7 +1573,9 @@ def probe_phrase(dev, planes=None, modes=("raw", "tc"),
 
                     rows.append(dict(kind="phrase_select", mode=mode, B=B,
                                      T=T, KV=KV, ms=event_ms(fn, iters),
-                                     **phase_split(fn, fns)))
+                                     path=D.select_path(B, N_pad // 128, KV),
+                                     **phase_split(fn, fns,
+                                                   groups=PHRASE_GROUPS)))
                     log(f"phrase probe {json.dumps(rows[-1])}")
     finally:
         _bind(loaded)
@@ -1505,6 +1737,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--phrase", action="store_true",
                     help="the full-scan phrase's passes instead of the "
                          "dense scan and pick")
+    ap.add_argument("--tune", action="store_true",
+                    help="--phrase: the selection's paths, segments and "
+                    "rings timed (tune_select; with --index each path on "
+                    "the engines' planes), then stop")
     ap.add_argument("--parts", default="dense",
                     help="--trees: what each tree times (dense, phrase)")
     args = ap.parse_args(argv)
@@ -1542,7 +1778,24 @@ def main(argv=None) -> dict:
             res["check"].pop("rows")
             res["check"]["wall_s"] = time.perf_counter() - t0
             log(f"dense check: {res['check']}")
-        if args.phrase:
+        if args.phrase and args.tune and args.index:
+            # each path forced on each column mode's engine planes of the
+            # index (the plan's own segments), then stop
+            from wiser_tpu_torch import TorchEngine
+            from wiser_tpu_torch.index.format import PackedIndex
+
+            packed = PackedIndex.load(args.index, skip_offsets=True)
+            res["tune"] = {}
+            for columns in ("raw", "tc"):
+                eng = TorchEngine(packed, device="cuda", columns=columns)
+                res["tune"][columns] = tune_select(
+                    dev, planes=engine_planes(eng), modes=(columns,),
+                    nsegs=(None,))
+                del eng
+                torch.cuda.empty_cache()
+        elif args.phrase and args.tune:
+            res["tune"] = tune_select(dev)
+        elif args.phrase:
             res.update(phrase_readings(dev, args.index, args.probe))
         elif args.probe and args.index:
             # each column mode on a TorchEngine's own planes of the

@@ -3,8 +3,10 @@
 While a `KernelTally` is installed (`with KernelTally() as tally:`), every
 call of a kernel wrapper (ops/search.bs_search, ops/dense.dense_scan,
 dense_pick, phrase_select and phrase_band, ops/semidense.semidense,
-ops/phrase.phrase_verify, ops/phrase_route.semidense_phrase and
-list_phrase) is counted by its kernel's name (`_tc` on tc columns) and
+ops/phrase.phrase_verify_docs and phrase_verify_pidx,
+ops/phrase_route.semidense_phrase and list_phrase; in an older tree the
+bag-bound ops/phrase.phrase_verify too) is counted by its
+kernel's name (`_tc` on tc columns) and
 its call shape (every tensor argument's shape and dtype, every other
 argument's value), and the newest call of each shape is kept. `flush`
 (called before the engine whose tensors those calls hold goes away)
@@ -17,6 +19,15 @@ launches took (the newest call stands for its shape's others, whose data
 differed); the timing launches are not counted: every launch count is
 restored after them. A tc wrapper's sum includes its table launch
 (ops/dense.tc_table).
+
+The torch steps a kernel replaced are tallied the same way where a tree
+still runs them (TORCH_STEPS), so two trees' sums cover the same work:
+the mega routes' posting-index recovery before their verification
+(engine/kernels._binary_search and the two pos_starts _gather1d reads,
+called from _full_phrase_run or _pruned_phrase_body on a card), which
+phrase_verify_docs does inside its kernel, is `phrase_recovery_torch`
+(its launches: each call's torch launches, n_iters halvings of about 6
+each for a search, 1 for a gather).
 """
 
 from __future__ import annotations
@@ -32,12 +43,27 @@ WRAPPERS = (
     ("wiser_tpu_torch.ops.dense", "phrase_select", "phrase_select", 1),
     ("wiser_tpu_torch.ops.dense", "phrase_band", "phrase_band", 1),
     ("wiser_tpu_torch.ops.semidense", "semidense", "semidense", 3),
-    ("wiser_tpu_torch.ops.phrase", "phrase_verify", "phrase_verify", 1),
+    ("wiser_tpu_torch.ops.phrase", "phrase_verify", "phrase_verify", 1),  # older
+    ("wiser_tpu_torch.ops.phrase", "phrase_verify_docs",
+     "phrase_verify_docs", 3),
+    ("wiser_tpu_torch.ops.phrase", "phrase_verify_pidx",
+     "phrase_verify_pidx", 2),
     ("wiser_tpu_torch.ops.phrase_route", "semidense_phrase",
      "semidense_phrase", 5),
     ("wiser_tpu_torch.ops.phrase_route", "list_phrase", "list_phrase", 4),
 )
 _TC_KW = ("avg32", "len_code", "tc")
+# (module, torch step, name, callers, torch launches a call: a function
+# of the call's arguments): torch steps that a kernel replaced, tallied
+# where the named callers still run them on CUDA tensors
+TORCH_STEPS = (
+    ("wiser_tpu_torch.engine.kernels", "_binary_search",
+     "phrase_recovery_torch", ("_full_phrase_run", "_pruned_phrase_body"),
+     lambda args, kw: 6 * int(args[4] if len(args) > 4
+                              else kw["n_iters"])),
+    ("wiser_tpu_torch.engine.kernels", "_gather1d", "phrase_recovery_torch",
+     ("_full_phrase_run", "_pruned_phrase_body"), lambda args, kw: 1),
+)
 
 
 def _sig(x):
@@ -66,9 +92,16 @@ class KernelTally:
     def __enter__(self):
         for mod_name, attr, base, b_arg in WRAPPERS:
             mod = importlib.import_module(mod_name)
-            fn = getattr(mod, attr)
+            fn = getattr(mod, attr, None)
+            if fn is None:  # a tree without this kernel
+                continue
             self._orig.append((mod, attr, fn))
             setattr(mod, attr, self._wrap(fn, base, b_arg))
+        for mod_name, attr, name, callers, launches in TORCH_STEPS:
+            mod = importlib.import_module(mod_name)
+            fn = getattr(mod, attr)
+            self._orig.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap_step(fn, name, callers, launches))
         return self
 
     def __exit__(self, *exc):
@@ -94,6 +127,25 @@ class KernelTally:
             return fn(*args, **kw)
         return run
 
+    def _wrap_step(self, fn, name, callers, launches):
+        import sys
+
+        def run(*args, **kw):
+            if (sys._getframe(1).f_code.co_name in callers
+                    and getattr(args[1], "is_cuda", False)):
+                key = (name, fn.__name__, _sig(args),
+                       _sig(tuple(sorted(kw.items()))))
+                entry = self.calls.get(key)
+                if entry is None:
+                    shape = {"B": int(args[1].shape[0]), "step": fn.__name__,
+                             "launches_a_call": launches(args, kw)}
+                    self.calls[key] = [1, fn, args, kw, shape]
+                else:
+                    entry[0] += 1
+                    entry[2], entry[3] = args, kw
+            return fn(*args, **kw)
+        return run
+
     def flush(self, label: str) -> dict:
         """Time every kept call (queued_ms over `iters` calls) and add
         calls x ms to label's sums; returns them."""
@@ -110,7 +162,7 @@ class KernelTally:
                 ms = queued_ms(lambda: fn(*args, **kw), self.iters)
                 row = out.setdefault(name, {"launches": 0, "ms": 0.0,
                                             "by_shape": []})
-                row["launches"] += n
+                row["launches"] += n * shape.get("launches_a_call", 1)
                 row["ms"] += n * ms
                 row["by_shape"].append(dict(shape, calls=n, ms=ms))
         finally:

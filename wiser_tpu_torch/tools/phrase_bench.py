@@ -7,7 +7,7 @@ by the route each query takes.
     python -m wiser_tpu_torch.tools.phrase_bench [--check-only] [--out r.json]
     python -m wiser_tpu_torch.tools.phrase_bench --probe [--out r.json]
     python -m wiser_tpu_torch.tools.phrase_bench --split --index IDX \
-        [--sets phrase_mixed,phrase_mega] --out r.json
+        [--sets phrase_mixed,phrase_mega] [--select-path one|two] --out r.json
     python -m wiser_tpu_torch.tools.phrase_bench --trees OLD,.,.,OLD \
         --index IDX --out r.json
 
@@ -34,7 +34,8 @@ route each distinct query takes (`_dispatch_phrase`'s semidense, compact
 and list branches, the mega routes, the host), then each route's
 queries run alone as a set (route_bench.run_set, traced), so a set's
 device ms splits by route; each phrase group's peak device memory above
-its inputs is kept by route. `--trees` measures each listed tree in its
+its inputs is kept by route; `--select-path` forces the full-scan
+selection's path for the run. `--trees` measures each listed tree in its
 own process (tools/unpack_bench.run_trees): the semidense phrase route
 at the timed shapes, then, with `--index`, the split. `--probe` reads the
 semidense phrase route's phase cycles from a measuring build (clock64()
@@ -883,6 +884,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--sets", default=",".join(SETS))
     ap.add_argument("--split", action="store_true",
                     help="the route split of --index in this tree only")
+    ap.add_argument("--select-path", choices=("one", "two"), default=None,
+                    help="--split: the full-scan selection forced to this "
+                    "path (tools/dense_bench.forced_path)")
     ap.add_argument("--check-only", action="store_true",
                     help="build and compare the kernels, no timing")
     ap.add_argument("--probe", action="store_true",
@@ -909,7 +913,11 @@ def main(argv=None) -> dict:
              **split_summary(r.get("split", {}))} for r in res["runs"]]}),
             flush=True)
     elif args.split:
-        res = measure(".", args.index, sets)
+        from wiser_tpu_torch.tools.dense_bench import forced_path
+
+        with forced_path(args.select_path):
+            res = measure(".", args.index, sets)
+        res["select_path"] = args.select_path
         print(json.dumps(split_summary(res["split"])), flush=True)
     else:
         import torch

@@ -1,8 +1,8 @@
 """The semidense step's kernel (ops/semidense.semidense, csrc/semidense.cu)
-and the phrase position verification's (ops/phrase.phrase_verify,
-csrc/phrase.cu) held against their plain torch versions
-(engine/kernels._semidense_step_torch, _verify_pos_windows_torch) and
-timed beside them.
+and the phrase position verification's (ops/phrase.phrase_verify_docs and
+phrase_verify_pidx, csrc/phrase.cu) held against their plain torch
+versions (engine/kernels._semidense_step_torch, _verify_docs_torch,
+_verify_pidx_torch) and timed beside them.
 
     python -m wiser_tpu_torch.tools.semidense_bench [--out report.json]
     python -m wiser_tpu_torch.tools.semidense_bench --probe [--out r.json]
@@ -25,28 +25,31 @@ memory). `check_semidense` is the comparison
 every row; the kept (doc, f32 score bits, tfs) in (score desc, doc asc)
 order, equal to the plain version's on unflagged rows and above the
 boundary score on flagged ones; the top-M score multisets equal.
-`verify_cases` runs the verification over position bags that hold
-planted phrases and noise, sorted and unsorted, int16 (uint16 bits, the
-65535 pad) and int32 columns, anchors 0 and not 0, PP < PW, empty bags,
-a window clamped at the column's end and T up to 8; the counts must be
-equal on every row.
+`docs_cases` runs the verification's two forms (from kept docs, from
+posting indices) over postings with planted phrases and noise (DOCS_GRID:
+anchors on term 0 and later terms, a group of 8 and a warp an item, an
+int32 column, runs past the iteration count, docs in no run, -1 lanes);
+the counts must be equal on every row. `verify_inputs` makes position
+bags for the plain window verification (_verify_pos_windows_torch) that
+the tests hold against the JAX package.
 
-`time_semidense` and `time_verify` work at the engine's shapes on
+`time_semidense` and `time_docs` work at the engine's shapes on
 synthetic 1M inputs (semidense: B by the engine's lane budget, and the
 engines' own group shapes, ENGINE_SHAPES; the verification: the mega
-phrase's chunk, B 128, KV 1,024 and 4,096), and
+phrase's chunk, B 128 NL 1,024 at PP / PW 8-32, and the serve phase's
+small groups, DOCS_SHAPES), and
 `time_calls` at the calls an engine made (`Recorder`): each compared,
 then timed in turns with the plain version (kernel, plain, plain,
 kernel; CUDA events), the kernel once more after an L2 flush, its
 launches by torch.profiler (else CUDA events around calls queued behind
 a sleep, search_bench.queued_ms), the wrapper's host cost per call, the peak
 device memory above the inputs and the bytes bound
-(`semidense_bound_bytes`, `verify_bound_bytes`).
+(`semidense_bound_bytes`, `docs_bound_bytes`, `pidx_bound_bytes`).
 
 `--trees` measures each listed tree once, in turns, each in its own
 process importing wiser_tpu_torch from that tree (tools/unpack_bench.
-run_trees): the entry points (_semidense_step, _verify_pos_windows: the
-kernels in this tree, the plain versions in a tree without them) at the
+run_trees): the entry points (_semidense_step, the verification as the
+tree's routes run it: route_forms) at the
 synthetic shapes, then with `--index` (a saved 1M index) route_bench's
 `--routes` sets, raw and tc, each traced, with the peak device memory
 of a semidense group and of a mega phrase group above their inputs;
@@ -93,8 +96,6 @@ ENGINE_SHAPES = ((8, 4, 2, 128), (128, 2, 0, 8192), (128, 2, 0, 2048),
 SEMI_GROUPS = (("step", ("candidates", "windows", "gathers", "flush",
                          "outputs"), 0, 6, {"flushes": 11}),
                ("merge", ("merge",), 5, 7, {}))
-VERIFY_SHAPES = ((128, 2, 1024, 128, 128), (128, 2, 4096, 128, 128),
-                 (128, 3, 1024, 32, 128))
 TIME_M = 64
 # route_bench's sets that take the semidense step (dense_t3 on tc
 # columns, the zipf ladder's mixes, the tail x head sets) and the
@@ -102,7 +103,6 @@ TIME_M = 64
 ROUTES = ("dense_t3,zipf_t2,zipf_t3,zipf_t4,semidense_t3,"
           "semidense_tail_x_head,aol_df,phrase_mega,phrase_mixed")
 SEMI_TAGS = ("wiser_semidense::", "tc_norm_kernel")
-VERIFY_TAGS = ("wiser_phrase::",)
 
 
 def log(*a):
@@ -492,12 +492,6 @@ def verify_tensors(v: dict, dev) -> dict:
             for k, x in v.items()}
 
 
-def verify_call(fn, t: dict, T: int, NL: int, PP: int, PW: int):
-    """fn (kernels._verify_pos_windows or its plain version) on t."""
-    return fn(t["positions"], t["ps"], t["pe"], t["anchor"], T=T, NL=NL,
-              PP=PP, PW=PW)
-
-
 def check_verify(kern, plain, what: str) -> dict:
     """The counts equal on every row (raises AssertionError)."""
     k, p = kern.cpu().numpy(), plain.cpu().numpy()
@@ -510,54 +504,222 @@ def check_verify(kern, plain, what: str) -> dict:
             "max_count": int(k.max(initial=0))}
 
 
-def verify_cases(dev, seed: int = 0) -> dict:
-    """The kernel against the plain version (both on dev) over the edges
-    the module docstring names. Returns the case count and the rows."""
+def docs_inputs(B: int, T: int, NL: int, PP: int, PW: int, seed: int, *,
+                run: int = 300, long_run: int = 0, wide: bool = False,
+                anchor=None, max_tf: int = 6) -> dict:
+    """Inputs of the routes' verification forms, as numpy arrays: each
+    query's T terms' sorted runs in a postings_doc column ((B, T) starts
+    and ends, query-term order), a pos_starts column (one bag a posting,
+    and its end) and the positions column of every posting's bag (int16
+    bits of uint16, 65535 pads; or int32 with `wide`); docs (B, NL) of
+    kept lanes: most in every run (a third with a planted phrase: y + t
+    in term t's bag), some in no run (between ids, below and above every
+    id), some -1 (past the matched lanes); the (B,) anchors (`anchor`:
+    one value, else random in [0, T)); runs of about `run` ids, and with
+    `long_run` one term a query of that many, past a small n_iters's
+    count; pidx (B, T, NL) the posting indices the fixed-count search
+    finds, laid out in slot order by a random slot_of (B, T), with
+    in-range garbage on the -1 lanes; n_iters the converged count."""
+    rng = np.random.default_rng(seed)
+    hi = 65535 if not wide else 200_000
+    n_docs = 4 * max(run, long_run, NL) + 64
+    anc = (rng.integers(0, T, size=B) if anchor is None
+           else np.full(B, anchor)).astype(np.int32)
+    runs = []  # (ids, kept docs with a phrase, their bases + t) a (b, t)
+    docs = np.full((B, NL), -1, np.int64)
+    for b in range(B):
+        shared = rng.choice(n_docs, size=NL, replace=False)
+        kind = rng.random(NL)
+        # 0.7 in every run, 0.2 in none, 0.1 past the matched lanes
+        kept = shared[kind < 0.7]
+        outside = np.sort(shared[(kind >= 0.7) & (kind < 0.9)])
+        ph = kept[rng.random(len(kept)) < 1 / 3]
+        ys = rng.integers(0, hi - 2 * T, size=len(ph))
+        free = np.ones(n_docs, bool)
+        free[kept] = False
+        free[outside] = False
+        pool = np.nonzero(free)[0]
+        for t in range(T):
+            size = long_run if long_run and t == b % T else run
+            extra = rng.choice(pool, size=min(len(pool), size), replace=False)
+            runs.append((np.sort(np.concatenate([kept, extra])), ph, ys + t))
+        lanes = np.concatenate([kept, outside])[:NL]
+        docs[b, rng.permutation(NL)[: len(lanes)]] = lanes
+    if NL >= 2:  # a doc past every id of the column, and doc 0
+        docs[0, :2] = [n_docs + 5, 0]
+    lens = np.array([len(r[0]) for r in runs], np.int64)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    ends = starts + lens
+    postings_doc = np.concatenate([r[0] for r in runs]).astype(np.int32)
+    n_post = len(postings_doc)
+    # every bag: noise, and the planted bases' y + t where a phrase is
+    n_noise = rng.integers(0, max_tf + 1, size=n_post)
+    owner = [np.repeat(np.arange(n_post), n_noise)]
+    vals = [rng.integers(0, hi + 1, size=int(n_noise.sum()))]
+    for i, (ids, ph, yt) in enumerate(runs):
+        owner.append(starts[i] + np.searchsorted(ids, ph))
+        vals.append(yt)
+    owner = np.concatenate(owner)
+    vals = np.concatenate(vals)
+    order = np.lexsort((vals, owner))
+    pos_starts = np.concatenate(
+        [[0], np.cumsum(np.bincount(owner, minlength=n_post))])
+    col = np.concatenate([vals[order],
+                          np.full(PW + 8, 65535 if not wide else -1)])
+    positions = (col.astype(np.int32) if wide
+                 else col.astype(np.uint16).view(np.int16))
+    # the fixed-count search's indices, then in slot order
+    n_iters = int(np.ceil(np.log2(int(lens.max()) + 1)))
+    pidx_q = np.zeros((B, T, NL), np.int64)
+    for b in range(B):
+        for t in range(T):
+            i = b * T + t
+            pidx_q[b, t] = starts[i] + np.searchsorted(runs[i][0], docs[b])
+    pidx_q = np.where((docs < 0)[:, None, :], rng.integers(
+        0, n_post, size=pidx_q.shape), pidx_q)
+    slot_of = np.stack([rng.permutation(T) for _ in range(B)]).astype(
+        np.int32)
+    pidx = np.zeros_like(pidx_q)
+    for b in range(B):
+        pidx[b, slot_of[b]] = pidx_q[b]
+    return {"postings_doc": postings_doc, "positions": positions,
+            "pos_starts": pos_starts.astype(np.int32),
+            "docs": docs.astype(np.int32),
+            "starts": starts.reshape(B, T).astype(np.int32),
+            "ends": ends.reshape(B, T).astype(np.int32),
+            "anchor": anc, "pidx": pidx.astype(np.int32),
+            "slot_of": slot_of, "n_iters": n_iters}
+
+
+def docs_call(fn, t: dict, T: int, NL: int, PP: int, PW: int,
+              n_iters: int):
+    """fn (kernels._verify_docs or its plain version) on t."""
+    return fn(t["postings_doc"], t["positions"], t["pos_starts"], t["docs"],
+              t["starts"], t["ends"], t["anchor"], T=T, NL=NL, PP=PP, PW=PW,
+              n_iters=n_iters)
+
+
+def pidx_call(fn, t: dict, T: int, NL: int, PP: int, PW: int):
+    """fn (kernels._verify_pidx or its plain version) on t."""
+    return fn(t["positions"], t["pos_starts"], t["pidx"], t["slot_of"], T=T,
+              NL=NL, PP=PP, PW=PW)
+
+
+# (B, T, NL, PP, PW, docs_inputs options, n_iters: None the converged
+# count, else that many halvings)
+DOCS_GRID = (
+    (4, 2, 64, 8, 8, {}, None), (4, 2, 64, 32, 32, {}, None),
+    (3, 3, 50, 8, 32, {"anchor": 2}, None),
+    (3, 3, 40, 16, 16, {"anchor": 0}, None),
+    (2, 4, 40, 64, 64, {"max_tf": 40}, None),  # a warp an item
+    (2, 8, 16, 32, 32, {}, None), (2, 9, 12, 8, 8, {}, None),
+    (2, 2, 30, 32, 32, {"wide": True}, None),
+    (2, 2, 48, 16, 16, {"long_run": 5000}, 9),  # runs past the count
+    (3, 2, 40, 8, 8, {"run": 2}, None),  # runs of a few ids
+    (1, 1, 7, 8, 8, {}, None), (32, 2, 128, 16, 16, {}, None),
+)
+
+
+def docs_cases(dev, seed: int = 0) -> dict:
+    """The routes' verification forms (from kept docs, from posting
+    indices) against their plain versions, both on dev, over DOCS_GRID:
+    anchors on term 0 and later terms, an item a group of 8 and a warp,
+    T past a group's 8, an int32 column, runs past the iteration count
+    (the recovery replays the fixed-count search there), runs of a few
+    ids, docs in no run and above every id, -1 lanes. Returns the case
+    count and the rows."""
     from wiser_tpu_torch.engine import kernels as K
 
     rows = []
-    grid = [  # (B, T, NL, PP, PW, inputs' options)
-        (4, 2, 64, 8, 8, {}), (4, 2, 64, 32, 32, {"sort": False}),
-        (3, 3, 50, 8, 32, {}), (2, 4, 40, 128, 128, {"max_tf": 140}),
-        (2, 8, 16, 32, 32, {"sort": False}), (3, 2, 33, 32, 128, {}),
-        (2, 3, 20, 8, 8, {"anchor": 0}), (2, 3, 20, 8, 8, {"anchor": 2}),
-        (2, 2, 30, 32, 32, {"wide": True}),
-        (2, 3, 10, 8, 32, {"tail": True}),
-        (2, 2, 12, 8, 512, {"max_tf": 20}),
-        (1, 1, 7, 8, 8, {}), (64, 2, 128, 32, 32, {"max_tf": 6}),
-    ]
-    for i, (B, T, NL, PP, PW, opt) in enumerate(grid):
-        t = verify_tensors(verify_inputs(B, T, NL, PP, PW, seed + i, **opt),
-                           dev)
-        what = f"verify B={B} T={T} NL={NL} PP={PP} PW={PW} {opt}"
-        r = check_verify(verify_call(K._verify_pos_windows, t, T, NL, PP, PW),
-                         verify_call(K._verify_pos_windows_torch, t, T, NL,
-                                     PP, PW), what)
-        r.update(B=B, T=T, NL=NL, PP=PP, PW=PW, what=what)
+    for i, (B, T, NL, PP, PW, opt, it) in enumerate(DOCS_GRID):
+        v = docs_inputs(B, T, NL, PP, PW, seed + i, **opt)
+        n_iters = v.pop("n_iters") if it is None else it
+        v.pop("n_iters", None)
+        t = verify_tensors(v, dev)
+        what = f"verify_docs B={B} T={T} NL={NL} PP={PP} PW={PW} {opt}"
+        r = check_verify(docs_call(K._verify_docs, t, T, NL, PP, PW, n_iters),
+                         docs_call(K._verify_docs_torch, t, T, NL, PP, PW,
+                                   n_iters), what)
+        r.update(form="docs", B=B, T=T, NL=NL, PP=PP, PW=PW, what=what)
+        rows.append(r)
+        r = check_verify(pidx_call(K._verify_pidx, t, T, NL, PP, PW),
+                         pidx_call(K._verify_pidx_torch, t, T, NL, PP, PW),
+                         what.replace("docs", "pidx"))
+        r.update(form="pidx", B=B, T=T, NL=NL, PP=PP, PW=PW, what=what)
         rows.append(r)
     return {"cases": len(rows), "rows": rows, "max_abs_err": 0.0}
 
 
-def verify_bound_bytes(t: dict, T: int, NL: int, PW: int) -> int:
-    """The bytes the verification must move, each once: ps and pe (4 B
-    each a (query, term, lane)), the distinct 32-byte sectors of every
-    (lane, term) window's valid entries (2 B a position from an int16
-    column, 4 B int32), the (B,) anchors and the (B, NL) counts."""
-    ps = t["ps"].cpu().numpy().astype(np.int64).ravel()
-    pe = t["pe"].cpu().numpy().astype(np.int64).ravel()
-    n = t["positions"].shape[0]
-    es = t["positions"].element_size()
+def _window_sectors(positions, ps, pe, PW: int) -> int:
+    """The distinct 32-byte sectors of the (lane, term) windows' valid
+    entries: ps, pe numpy bag bounds, positions the column."""
+    n = positions.shape[0]
+    es = positions.element_size()
     start = np.clip(ps, 0, max(0, n - PW))
     cnt = np.clip(pe - ps, 0, PW)
     live = cnt > 0
     first = start[live] * es // SECTOR
     last = np.minimum(start[live] + cnt[live] - 1, n - 1) * es // SECTOR
-    # each window's sector range, expanded (windows are short), distinct
     span = last - first + 1
     sec = np.repeat(first, span) + (np.arange(span.sum())
                                     - np.repeat(np.cumsum(span) - span, span))
-    B = t["ps"].shape[0]
-    return int(len(np.unique(sec)) * SECTOR + 2 * ps.size * 4 + B * 4
+    return int(len(np.unique(sec)))
+
+
+def _pos_pairs(pos_starts, pidx):
+    """(ps, pe, the distinct sectors of the pos_starts pairs) of posting
+    indices pidx (numpy), each index clamped into the column."""
+    n = len(pos_starts)
+    i0 = np.clip(pidx, 0, n - 1)
+    i1 = np.clip(pidx + 1, 0, n - 1)
+    sec = np.unique(np.concatenate([i0, i1]) * 4 // SECTOR)
+    return pos_starts[i0], pos_starts[i1], len(sec)
+
+
+def docs_bound_bytes(t: dict, T: int, NL: int, PW: int, n_iters: int) -> int:
+    """The bytes the verification from kept docs must move, each once:
+    the (B, NL) kept docs, the (B, T) runs, the distinct 32-byte sectors
+    of postings_doc that the fixed-count search's probes touch over every
+    (lane, term) (the ids a search must compare), the sectors of each
+    (lane, term)'s pos_starts pair and of its window's valid entries, the
+    (B,) anchors and the (B, NL) counts."""
+    doc = t["postings_doc"].cpu().numpy()
+    docs = t["docs"].cpu().numpy().astype(np.int64)
+    st = t["starts"].cpu().numpy().astype(np.int64)
+    en = t["ends"].cpu().numpy().astype(np.int64)
+    B = docs.shape[0]
+    target = np.broadcast_to(docs[:, None, :], (B, T, NL)).ravel()
+    lo = np.broadcast_to(st[:, :, None], (B, T, NL)).ravel().copy()
+    hi = np.broadcast_to(en[:, :, None], (B, T, NL)).ravel().copy()
+    n = len(doc)
+    probes = []
+    for _ in range(n_iters):
+        mid = ((lo + hi).astype(np.int32) >> 1).astype(np.int64)
+        i = np.clip(mid, 0, n - 1)
+        probes.append(i)
+        less = doc[i] < target
+        lo = np.where(less, mid + 1, lo)
+        hi = np.where(less, hi, mid)
+    search = len(np.unique(np.concatenate(probes) * 4 // SECTOR)) \
+        if probes else 0
+    ps, pe, pairs = _pos_pairs(t["pos_starts"].cpu().numpy()
+                               .astype(np.int64), lo)
+    wins = _window_sectors(t["positions"], ps, pe, PW)
+    return int((search + pairs + wins) * SECTOR + B * NL * 4 + B * T * 8
+               + B * 4 + B * NL * 4)
+
+
+def pidx_bound_bytes(t: dict, T: int, NL: int, PW: int) -> int:
+    """The bytes the verification from posting indices must move, each
+    once: the (B, T, NL) indices and (B, T) slot_of, the sectors of each
+    (lane, term)'s pos_starts pair and of its window's valid entries, and
+    the (B, NL) counts."""
+    pidx = t["pidx"].cpu().numpy().astype(np.int64)
+    B = pidx.shape[0]
+    ps, pe, pairs = _pos_pairs(t["pos_starts"].cpu().numpy()
+                               .astype(np.int64), pidx.ravel())
+    wins = _window_sectors(t["positions"], ps, pe, PW)
+    return int((pairs + wins) * SECTOR + B * T * NL * 4 + B * T * 4
                + B * NL * 4)
 
 
@@ -682,39 +844,94 @@ def time_semidense(dev, modes=("raw", "tc"), shapes=SEMI_SHAPES,
     return rows
 
 
-def time_verify(dev, shapes=VERIFY_SHAPES, plain: bool = True,
-                compare: bool = True) -> list:
-    """_verify_pos_windows (the kernel where this tree has one) and, with
-    `plain`, its plain version at `shapes` on synthetic bags (head terms'
-    tfs, 1 to 12 positions, sorted, an int16 column), compared and
-    timed."""
+# the routes' forms' timed groups (B, T, NL, PP, PW, run ids): the mega
+# chunk at the engine's PP / PW 8-32 over head-term runs, and the serve
+# phase's small groups
+DOCS_SHAPES = ((128, 2, 1024, 16, 16, 30_000), (128, 2, 1024, 32, 32, 30_000),
+               (128, 3, 1024, 32, 32, 30_000), (8, 2, 1024, 16, 16, 30_000),
+               (32, 2, 1024, 16, 16, 30_000))
+DOCS_TAGS = ("wiser_phrase::",)
+
+
+def route_forms(K):
+    """(from docs, from posting indices): the verification as this
+    tree's mega and compact routes run it, _verify_docs and _verify_pidx
+    where the tree has them, else the steps the routes ran before them
+    (the search, the slot gather and the pos_starts gathers in torch, then
+    _verify_pos_windows: its kernel on a card), so two trees time the
+    same work."""
+    import torch
+
+    if hasattr(K, "_verify_docs"):
+        return K._verify_docs, K._verify_pidx
+
+    def docs(postings_doc, positions, pos_starts, docs, starts, ends, anchor,
+             *, T, NL, PP, PW, n_iters):
+        B = docs.shape[0]
+        lo = K._binary_search(postings_doc, docs[:, None, :].expand(B, T, NL),
+                              starts[:, :, None], ends[:, :, None], n_iters)
+        return K._verify_pos_windows(
+            positions, K._gather1d(pos_starts, lo),
+            K._gather1d(pos_starts, lo + 1), anchor, T=T, NL=NL, PP=PP,
+            PW=PW)
+
+    def pidx(positions, pos_starts, pidx, slot_of, *, T, NL, PP, PW):
+        q = K._slot_gather_q(pidx, slot_of)
+        return K._verify_pos_windows(
+            positions, K._gather1d(pos_starts, q),
+            K._gather1d(pos_starts, q + 1),
+            torch.zeros(pidx.shape[0], dtype=torch.int32,
+                        device=pidx.device), T=T, NL=NL, PP=PP, PW=PW)
+
+    return docs, pidx
+
+
+def time_docs(dev, shapes=DOCS_SHAPES, plain: bool = True,
+              compare: bool = True) -> list:
+    """The verification from kept docs and from posting indices as this
+    tree's routes run it (route_forms: the kernels where the tree has
+    them) and, with `plain`, their plain versions at `shapes` on
+    docs_inputs, compared and timed (time_pair; device_ms the calls
+    queued behind a sleep, every launch of the form included), each
+    beside its bytes bound (docs_bound_bytes, pidx_bound_bytes)."""
     import torch
 
     from wiser_tpu_torch.engine import kernels as K
 
-    plain_fn_of = getattr(K, "_verify_pos_windows_torch",
-                          K._verify_pos_windows)
+    docs_form, pidx_form = route_forms(K)
     rows = []
-    for B, T, NL, PP, PW in shapes:
-        t = verify_tensors(verify_inputs(B, T, NL, PP, PW, 11 + NL,
-                                         max_tf=12), dev)
+    for B, T, NL, PP, PW, run in shapes:
+        v = docs_inputs(B, T, NL, PP, PW, 17 + B + T, run=run)
+        it = v.pop("n_iters")
+        t = verify_tensors(v, dev)
+        for form in ("docs", "pidx"):
+            if form == "docs":
+                def kern(t=t):
+                    return docs_call(docs_form, t, T, NL, PP, PW, it)
 
-        def kern(t=t):
-            return verify_call(K._verify_pos_windows, t, T, NL, PP, PW)
+                def plain_fn(t=t):
+                    return docs_call(K._verify_docs_torch, t, T, NL, PP, PW,
+                                     it)
+                nbytes = docs_bound_bytes(t, T, NL, PW, it)
+            else:
+                def kern(t=t):
+                    return pidx_call(pidx_form, t, T, NL, PP, PW)
 
-        def plain_fn(t=t):
-            return verify_call(plain_fn_of, t, T, NL, PP, PW)
-
-        row = {"kind": "verify", "B": B, "T": T, "NL": NL, "PP": PP,
-               "PW": PW}
-        if compare:
-            row["check"] = check_verify(kern(), plain_fn(),
-                                        f"verify timed {row}")
-        row.update(time_pair(kern, plain_fn,
-                             verify_bound_bytes(t, T, NL, PW), VERIFY_TAGS,
-                             with_plain=plain))
-        log(f"verify timing {json.dumps(row)}")
-        rows.append(row)
+                def plain_fn(t=t):
+                    return pidx_call(K._verify_pidx_torch, t, T, NL, PP, PW)
+                nbytes = pidx_bound_bytes(t, T, NL, PW)
+            row = {"kind": f"verify_{form}", "B": B, "T": T, "NL": NL,
+                   "PP": PP, "PW": PW, "run": run, "n_iters": it}
+            if compare:
+                row["check"] = check_verify(kern(), plain_fn(),
+                                            f"verify_{form} timed {row}")
+            row.update(time_pair(kern, plain_fn, nbytes, DOCS_TAGS,
+                                 with_plain=plain))
+            row["device_ms"] = row["queued_ms"]
+            row["timing"] = "CUDA events, queued (every launch of the form)"
+            row["share"] = row["bound_ms"] / row["device_ms"]
+            log(f"verify_{form} timing {json.dumps(row)}")
+            rows.append(row)
         del t
         torch.cuda.empty_cache()
     return rows
@@ -725,20 +942,23 @@ def time_verify(dev, shapes=VERIFY_SHAPES, plain: bool = True,
 
 class Recorder:
     """Records the calls an engine makes of kernels._semidense_step and
-    kernels._verify_pos_windows (each distinct shape's largest group, at
-    most `per_kind` shapes a kind) while installed (`with Recorder() as
-    rec:`), so that `time_calls` can hold and time them afterwards."""
+    the verification's forms (_verify_docs, _verify_pidx; each distinct
+    shape's largest group, at most `per_kind`
+    shapes a kind) while installed (`with Recorder() as rec:`), so that
+    `time_calls` can hold and time them afterwards."""
+
+    KINDS = ("semidense", "verify_docs", "verify_pidx")
 
     def __init__(self, per_kind: int = 16):
         self.per_kind = per_kind
-        self.calls = {"semidense": {}, "verify": {}}
-        self.counts = {"semidense": {}, "verify": {}}
+        self.calls = {k: {} for k in self.KINDS}
+        self.counts = {k: {} for k in self.KINDS}
 
     def __enter__(self):
         from wiser_tpu_torch.engine import kernels as K
 
-        self._orig = (K._semidense_step, K._verify_pos_windows)
-        semi, verify = self._orig
+        self._orig = (K._semidense_step, K._verify_docs, K._verify_pidx)
+        semi, docs, pidx = self._orig
 
         def semi_rec(*args, **kw):
             mode = "tc" if kw.get("avg32") is not None else "raw"
@@ -746,13 +966,19 @@ class Recorder:
                                      kw["M"]), args[3].shape[0], args, kw)
             return semi(*args, **kw)
 
-        def verify_rec(*args, **kw):
+        def docs_rec(*args, **kw):
+            key = (kw["T"], kw["NL"], kw["PP"], kw["PW"], kw["n_iters"])
+            self._keep("verify_docs", key, args[3].shape[0], args, kw)
+            return docs(*args, **kw)
+
+        def pidx_rec(*args, **kw):
             key = (kw["T"], kw["NL"], kw["PP"], kw["PW"])
-            self._keep("verify", key, args[1].shape[0], args, kw)
-            return verify(*args, **kw)
+            self._keep("verify_pidx", key, args[2].shape[0], args, kw)
+            return pidx(*args, **kw)
 
         K._semidense_step = semi_rec
-        K._verify_pos_windows = verify_rec
+        K._verify_docs = docs_rec
+        K._verify_pidx = pidx_rec
         return self
 
     def _keep(self, kind, key, B, args, kw):
@@ -768,7 +994,7 @@ class Recorder:
     def __exit__(self, *exc):
         from wiser_tpu_torch.engine import kernels as K
 
-        K._semidense_step, K._verify_pos_windows = self._orig
+        K._semidense_step, K._verify_docs, K._verify_pidx = self._orig
         return False
 
     def chosen(self, kind: str):
@@ -789,10 +1015,10 @@ def time_calls(rec: Recorder, plain: bool = True) -> dict:
     """Each kind's chosen recorded shapes (`Recorder.chosen`: the largest
     group, the most called shape): the kernel against the plain version
     on the recorded inputs, then timed (`time_pair`). Returns
-    {"semidense": rows, "verify": rows}, the largest first."""
+    {kind: rows} (Recorder.KINDS), the largest first."""
     from wiser_tpu_torch.engine import kernels as K
 
-    out = {"semidense": [], "verify": []}
+    out = {k: [] for k in Recorder.KINDS}
     for key, calls, (B, args, kw) in rec.chosen("semidense"):
         mode, T, n_bs, L, M = key
 
@@ -815,24 +1041,33 @@ def time_calls(rec: Recorder, plain: bool = True) -> dict:
             with_plain=plain))
         log(f"semidense engine timing {json.dumps(row)}")
         out["semidense"].append(row)
-    for key, calls, (B, args, kw) in rec.chosen("verify"):
-        T, NL, PP, PW = key
+    for form, call, plain_call in (
+            ("docs", K._verify_docs, K._verify_docs_torch),
+            ("pidx", K._verify_pidx, K._verify_pidx_torch)):
+        for key, calls, (B, args, kw) in rec.chosen("verify_" + form):
+            T, NL, PP, PW = key[:4]
 
-        def kern(args=args, kw=kw):
-            return K._verify_pos_windows(*args, **kw)
+            def kern(args=args, kw=kw, call=call):
+                return call(*args, **kw)
 
-        def plain_fn(args=args, kw=kw):
-            return K._verify_pos_windows_torch(*args, **kw)
+            def plain_fn(args=args, kw=kw, call=plain_call):
+                return call(*args, **kw)
 
-        row = {"kind": "verify", "B": B, "T": T, "NL": NL, "PP": PP,
-               "PW": PW, "calls": calls}
-        row["check"] = check_verify(kern(), plain_fn(),
-                                    f"verify engine call {row}")
-        t = {"positions": args[0], "ps": args[1], "pe": args[2]}
-        row.update(time_pair(kern, plain_fn, verify_bound_bytes(t, T, NL, PW),
-                             VERIFY_TAGS, with_plain=plain))
-        log(f"verify engine timing {json.dumps(row)}")
-        out["verify"].append(row)
+            row = {"kind": "verify_" + form, "B": B, "T": T, "NL": NL,
+                   "PP": PP, "PW": PW, "calls": calls}
+            row["check"] = check_verify(kern(), plain_fn(),
+                                        f"verify_{form} engine call {row}")
+            if form == "docs":
+                t = dict(zip(("postings_doc", "positions", "pos_starts",
+                              "docs", "starts", "ends"), args))
+                nbytes = docs_bound_bytes(t, T, NL, PW, kw["n_iters"])
+            else:
+                t = dict(zip(("positions", "pos_starts", "pidx"), args))
+                nbytes = pidx_bound_bytes(t, T, NL, PW)
+            row.update(time_pair(kern, plain_fn, nbytes, DOCS_TAGS,
+                                 with_plain=plain))
+            log(f"verify_{form} engine timing {json.dumps(row)}")
+            out["verify_" + form].append(row)
     return out
 
 
@@ -982,7 +1217,7 @@ def measure(root: str, index=None, routes: str = ROUTES,
            "module": os.path.abspath(K.__file__),
            "timing": time_semidense(dev, shapes=SEMI_SHAPES + ENGINE_SHAPES,
                                     plain=False, compare=False)
-           + time_verify(dev, plain=False, compare=False)}
+           + time_docs(dev, plain=False, compare=False)}
     if index:
         sets = [r for r in routes.split(",") if r]
         out["routes"] = {c: route_sets(index, c, sets) for c in ("raw", "tc")}
@@ -1009,7 +1244,8 @@ def summary(runs: list) -> dict:
         for x in r["timing"]:
             key = (f"semidense_{x['mode']}_B{x['B']}_T{x['T']}_nbs"
                    f"{x['n_bs']}_L{x['L']}" if x["kind"] == "semidense"
-                   else f"verify_B{x['B']}_T{x['T']}_NL{x['NL']}")
+                   else f"{x['kind']}_B{x['B']}_T{x['T']}_NL{x['NL']}"
+                   f"_PW{x['PW']}")
             s[key] = [x["device_ms"], x["flushed_ms"], x["host_us"],
                       x["share"]]
         for columns, sets in r.get("routes", {}).items():
@@ -1080,7 +1316,7 @@ def main(argv=None) -> dict:
         if not args.skip_check:
             for name, fn in (("semidense_check", semidense_cases),
                              ("segment_check", segment_cases),
-                             ("verify_check", verify_cases)):
+                             ("verify_check", docs_cases)):
                 t0 = time.perf_counter()
                 res[name] = fn(dev)
                 res[name].pop("rows")
@@ -1089,7 +1325,7 @@ def main(argv=None) -> dict:
         if not args.check_only:
             res["timing"] = (time_semidense(dev, shapes=SEMI_SHAPES
                                             + ENGINE_SHAPES)
-                             + time_verify(dev))
+                             + time_docs(dev))
         print(json.dumps(res))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
