@@ -11,7 +11,12 @@ The engine phases share a wiki-shaped 1M-doc index with bi-blooms
 (data/scale_corpus defaults: vocab 200k, mean length 120, Zipf 1.25,
 seed 42, WITH_BI_BLOOM rows; fast builder with the reference indexer's
 BloomConfig(5, 0.0009)), cached under .smoke_cache/ with the phrase
-pairs mined from its first 2,000 bodies. Two AOL-mix query sets (k=10,
+pairs mined from its first 2,000 bodies; where it is not cached, a child
+process builds it (host work, started first) while the libraries build,
+the kernel phase holds the card, the headline and serve phases run on
+bench.py's own corpus and the tools phase runs its part that needs no
+1M index (their reports and each kernels-line row say whether the build
+ran beside them). Two AOL-mix query sets (k=10,
 seed 7): `aol` is bench.py's (Zipf ranks over the spelling-sorted term
 dictionary), `aol_df` the same ranks over terms sorted by df, so head
 terms meet; and `phrase`, 4,096 draws (seed 7) from the mined adjacent
@@ -110,8 +115,8 @@ search for phrases). Phases:
             the unpack kernel
   harness   the port's measurement harnesses, called in process on the
             same index (the dense and tc phases' engines when they ran):
-            tools/scale_bench configs 1-4 at 2,048 queries each (batch
-            2,048, 2 in flight; the phrase config from the cached pairs),
+            tools/scale_bench configs 1-4 at 1,024 queries each (batch
+            1,024, 2 in flight; the phrase config from the cached pairs),
             50 sampled per config against the host; tools/parity_audit,
             32 queries per config through the engine with strict_parity
             on, every result verified, flag counts reported;
@@ -134,13 +139,13 @@ search for phrases). Phases:
             phrase prefix; `mesh_staged` (ShardedStagedEngine at a quarter
             of its full residency bytes) over aol, aol_df 1,024 and a 256
             phrase prefix; and tools/shard_ladder.run on the mesh engine
-            (configs 1-4, 256 queries each, 50 sampled). Raises unless
+            (configs 1-4, 128 queries each, 50 sampled). Raises unless
             aol_df takes the dense and semidense routes, aol_df_pruned the
             pruned one, the phrase prefix the compact one, mesh_tc's
             postings take <= 0.51 of mesh's bytes, and mesh_staged answers
             some queries hot and stages some cold groups
   tools     the last modules of the port, on one card: tools/
-            wiki_pipeline at 25,000 docs (synthesized enwiki abstract XML
+            wiki_pipeline at 15,000 docs (synthesized enwiki abstract XML
             -> the analyzer of data/corpus -> WITH_BI_BLOOM linedoc -> fast
             builder -> check_posting_list, which must find 0 errors ->
             TorchEngine on the card, 4,096 df-Zipf 1-3-term queries with
@@ -198,15 +203,20 @@ queries, if dense_scan never launched on the dense phase or
 dense_scan_tc on the tc phase, or if dense_pick never launched on the
 dense or tc phase. The full-scan mega phrase's kernels (the selection's
 block-key sweep phrase_sweep and the selection phrase_select, threshold
-first or in one pass, and its band pass phrase_band; phrase_sweep_tc,
-phrase_select_tc and phrase_band_tc on tc columns) are held against
-their plain versions in the kernel phase (dense_bench.
-check_phrase_cases: raw and tc, T 2, 3 and 8, KV 1,024 and 4,096 over
-1, 157 and 7,816 blocks, each selection by both paths where the doc
-space allows, one score everywhere so every block key ties at kappa's
-score, the band at thresholds each side of the (KV+1)-th score and, tc,
-its payload ties and a full stream) and timed there on synthetic 1M
-planes and in the dense and tc phases on the engines' planes; the smoke
+first or in one pass, and its band pass phrase_band, which streams only
+the blocks whose sweep key reaches thr where the selection took the
+threshold-first path; phrase_sweep_tc, phrase_select_tc and
+phrase_band_tc on tc columns) are held against their plain versions in
+the kernel phase (dense_bench.check_phrase_cases: raw and tc, T 2, 3
+and 8, KV 1,024 and 4,096 over 1, 157 and 7,816 blocks, each selection
+by both paths where the doc space allows, one score everywhere so every
+block key ties at kappa's score, every band case as the engine runs it
+(tc listed where the selection gave block keys, else over every block)
+at thresholds each side of the (KV+1)-th score and, tc, its payload
+ties, a full stream and a band lane outside the selection's
+listed blocks) and timed there on synthetic 1M planes and in the dense
+and tc phases on the engines' planes (the band where no row needs it
+and where every row needs it and, tc, none flags); the smoke
 fails if the phrase set's full-scan route answered queries on the dense
 or tc phase and the selection, the band or the verification from kept
 docs did not launch there, or the sweep where the mega chunk's plan
@@ -232,16 +242,20 @@ timed pass whose compact route answered queries. The semidense phrase
 route (semidense_phrase, semidense_phrase_tc;
 csrc/phrase_route.cu: the selection of the KV + 1 best AND keys, the
 recovery and window verification of the kept lanes, the top M) and the
-list chain (list_phrase, list_phrase_tc: match, bloom gate, verification
-by binary search and top M in one launch) are held against their plain
-versions in the kernel phase (phrase_bench.semidense_phrase_cases and
+list chain (list_phrase, list_phrase_tc: a query's lanes in segments of
+one cluster, a thread a lane through match and bloom gate, the round's
+active lanes compacted, a thread a (lane, base) through the
+verification by binary search, the verified keys pushed into the
+cluster's first CTA and their top M taken there, one launch) are held against their plain versions
+in the kernel phase (phrase_bench.semidense_phrase_cases and
 list_phrase_cases: raw and tc, T 2 to 4, ties straddling the (KV+1)-th
 lane, fewer than KV + 1 matches, absent bloom rows, no active probe, PP
 above every bag, a bag holding 65,535, B 1 over 8 segments with ties
-across their edges, a recovery past its iteration count; packed outputs
-bit for bit) and
-timed there on synthetic 1M inputs, then on the dense and tc phases'
-own calls (phrase_bench.Recorder: each kind's largest group, compared
+across their edges, a recovery past its iteration count, a list group
+over 8 segments with hundreds of verified lanes, every list case with
+and without the gate; packed outputs bit for bit) and timed there on
+synthetic 1M inputs (the list chain at the engines' B 128 and B 8 groups
+too), then on the dense and tc phases' own calls (phrase_bench.Recorder: each kind's largest group, compared
 and timed after the passes); the smoke fails if a run's mix (the mesh's
 aside: its list route is phrase_body) answered queries on the semidense
 phrase or list route and that route's kernel did not launch on its
@@ -259,6 +273,7 @@ given).
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import json
 import os
@@ -597,38 +612,57 @@ def phrase_rows(timing: dict) -> dict:
     {,_tc} and phrase_select{,_tc} from the selection at B 128, T 2, KV
     1,024 (the threshold-first path: each launch's own device time and
     bound, dense_bench.phrase_part_bytes), phrase_band{,_tc} from its
-    band pass at the `skip` threshold (the usual group: no row needs the
-    band); each its own launches' device time by torch.profiler (the
-    call's CUDA events where the capture lost one), host cost, plain
-    version (the whole selection's for both of its launches), bound and
-    shares; the other readings stay in the report."""
+    band pass at the `stream` threshold (every row needs the band; tc:
+    a payload tie at the (KV+1)-th lane, so a row reads its listed
+    blocks and finds no band lane; raw: that lane flags at once), beside
+    the `skip` reading (no row needs the band: the usual group) and, where
+    the band was listed, the stream over every block; each its own
+    launches' device time by torch.profiler (the call's CUDA events where
+    the capture lost one; the band's queued behind a sleep too), host
+    cost, plain version (the whole selection's for both of its launches),
+    bound and shares; the other readings stay in the report."""
     from wiser_tpu_torch.tools.dense_bench import HBM_BYTES_PER_S
 
     out = {}
     for mode, rows in timing.items():
         sfx = "_tc" if mode == "tc" else ""
         tc = "true" if mode == "tc" else "false"
+        def at(kind):
+            return next((x for x in rows if x["kind"] == kind
+                         and x["B"] == 128 and x["T"] == 2
+                         and x["KV"] == 1024), None)
+
         for kind, name in (("phrase_select", "phrase_select"),
-                           ("phrase_band_skip", "phrase_band")):
-            r = next((x for x in rows if x["kind"] == kind and x["B"] == 128
-                      and x["T"] == 2 and x["KV"] == 1024), None)
+                           ("phrase_band_stream", "phrase_band")):
+            r = at(kind)
             if r is None:
                 continue
             shape = (f"{mode} B=128 T=2 N_pad={r['N_pad']} KV=1024"
-                     + (" (no row needs the band)" if "band" in kind
-                        else ""))
+                     + (f" (every row needs the band; {r['need_rows']} "
+                        f"rows, {r['flagged']} flag, "
+                        f"{r.get('listed_blocks', 'every')} listed blocks "
+                        f"read by the rest)" if "band" in kind else ""))
             base = {"max_abs_err": 0.0, "host_us": r["host_us"],
                     "plain_ms": min(r["plain_ms"]),
                     "launches_per_call": r["launches_per_call"]}
-            if kind == "phrase_band_skip":
+            if kind == "phrase_band_stream":
                 ms = r["launch_ms"]["total"]
-                out[name + sfx] = dict(
-                    base, ms=ms if ms is not None else r["device_ms"],
+                entry_ms = ms if ms is not None else r["queued_ms"]
+                entry = dict(
+                    base, ms=entry_ms,
                     timing="torch.profiler" if ms is not None
-                    else "CUDA events", bound_ms=r["bound_ms"],
-                    share=r["bound_ms"] / r["device_ms"],
-                    share_per_query=r["bound_ms_per_query"]
-                    / r["device_ms"], shape=shape)
+                    else "CUDA events, queued", queued_ms=r["queued_ms"],
+                    bound_ms=r["bound_ms"], share=r["bound_ms"] / entry_ms,
+                    share_per_query=r["bound_ms_per_query"] / entry_ms,
+                    queued_share=r["bound_ms"] / r["queued_ms"],
+                    shape=shape)
+                for other, key in (("phrase_band_skip", "skip"),
+                                   ("phrase_band_stream_all", "stream_all")):
+                    o = at(other)
+                    if o is not None:
+                        entry[f"{key}_ms"] = o["queued_ms"]
+                        entry[f"{key}_bound_ms"] = o["bound_ms"]
+                out[name + sfx] = entry
                 continue
             kernels = r["launch_ms"]["kernels"]
             parts = r.get("part_ms") or {}
@@ -889,9 +923,11 @@ ROUTE_KERNELS = (
     ("list_phrase", "wiser_tpu/engine/kernels.py:465"),
     ("list_phrase_tc", "wiser_tpu/engine/kernels.py:363"))
 # the kernel phase's timed groups on synthetic 1M inputs: the semidense
-# phrase at the mega chunk's B, a full list group
+# phrase at the mega chunk's B; the list chain at the engines' B 128 (the
+# kernels line's row) and the serve phase's B 8 (phrase_bench.
+# LIST_ENGINE), and a full list group
 ROUTE_SDP_SHAPES = ((128, 2, 2048),)
-ROUTE_LIST_SHAPES = ((1024, 2, 1024),)
+ROUTE_LIST_SHAPES = ((128, 2, 512), (8, 2, 512), (1024, 2, 1024))
 
 
 def route_kernel_phase(report: dict) -> dict:
@@ -1049,6 +1085,30 @@ def get_index(n_docs: int, report: dict):
                            phrase_pairs=len(pairs))
     log(f"index: {report['index']}")
     return packed, pairs
+
+
+# the phases that load the 1M index
+INDEX_PHASES = ("resident", "dense", "phrase", "staged", "tc", "staged_tc",
+                "harness", "mesh")
+
+
+def start_index_build(n_docs: int):
+    """get_index in a child process, so that the index's host-bound build
+    runs while the libraries build and the kernel, headline and serve
+    phases run; None where the index is cached. The child builds into this process's CACHE and prints
+    get_index's report line last on stdout. The kernel phase's host
+    readings are then taken beside the build: each row says so
+    (host_us_beside_build)."""
+    idx_dir = os.path.join(CACHE, f"idx_{n_docs}_bibloom")
+    if os.path.exists(os.path.join(idx_dir, "phrase_pairs.json")):
+        return None
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; chip_smoke.CACHE = sys.argv[3]; r = {}; "
+            "chip_smoke.get_index(int(sys.argv[2]), r); "
+            "print(json.dumps(r['index']), flush=True)")
+    return subprocess.Popen([sys.executable, "-c", code, ROOT, str(n_docs),
+                             CACHE], stdout=subprocess.PIPE, text=True,
+                            cwd=ROOT)
 
 
 def aol_mixed_queries(packed, n_queries: int, seed: int = 7,
@@ -1468,9 +1528,10 @@ def serve_phase(report: dict, corpus) -> None:
 # -- harness ------------------------------------------------------------------
 
 # the audit and the memory grid cut from 64 and 2,048 queries when the
-# mesh phase came in, and the grid again from 1,024 when the phrase
-# routes' kernels came in, to keep the smoke inside its time
-HARNESS_Q, HARNESS_AUDIT, HARNESS_ROUTE_Q, HARNESS_GRID_Q = 2048, 32, 256, 512
+# mesh phase came in, the grid again from 1,024 when the phrase routes'
+# kernels came in, and the scale configs from 2,048 with the list
+# chain's and the band's redesign, to keep the smoke inside its time
+HARNESS_Q, HARNESS_AUDIT, HARNESS_ROUTE_Q, HARNESS_GRID_Q = 1024, 32, 256, 512
 HARNESS_FRACS = (0.05, 0.25)
 GRID_KEYS = ("budget_bytes", "hot_fraction", "phrase_hot_fraction",
              "dense_fraction", "hot_bytes_used", "device_mem_bytes", "qps",
@@ -1623,10 +1684,11 @@ def harness_summary(h: dict) -> dict:
 
 # the phrase prefix and the shard ladder's queries a config cut from 512
 # and 2,048 when the full-scan phrase's checks came in, and the ladder's
-# to 512 when the semidense and verification checks came in and to 256
-# when the phrase routes' kernels came in, to keep the smoke well inside
-# its time on a slow host
-MESH_SHARDS, MESH_PRUNED_Q, MESH_LADDER_Q = 4, 1024, 256
+# to 512 when the semidense and verification checks came in, to 256
+# when the phrase routes' kernels came in and to 128 with the list
+# chain's and the band's redesign, to keep the smoke well inside its time
+# on a slow host
+MESH_SHARDS, MESH_PRUNED_Q, MESH_LADDER_Q = 4, 1024, 128
 MESH_PHRASE_Q, MESH_STAGED_PHRASE_Q = 256, 256
 # the aol_df_pruned mix's PRUNED_DENSE_MIN_NB: under the 1,954 blocks a
 # shard holds at 1M docs and 4 shards
@@ -1762,10 +1824,11 @@ def mesh_phase(report: dict, packed, pairs, pools: dict, expected: dict,
 
 # -- tools ------------------------------------------------------------------
 
-# the pipeline's corpus: 25,000 docs (50,000 before the semidense and
-# verification checks came in), so that the smoke's wall stays under its
+# the pipeline's corpus: 15,000 docs (50,000 before the semidense and
+# verification checks came in, 25,000 before the list chain's and the
+# band's redesign added theirs), so that the smoke's wall stays under its
 # 1,200 s limit on a slow host (the 1M index is the main path's)
-TOOLS_PIPE_DOCS, TOOLS_PIPE_Q, TOOLS_PIPE_PARITY = 25_000, 4096, 200
+TOOLS_PIPE_DOCS, TOOLS_PIPE_Q, TOOLS_PIPE_PARITY = 15_000, 4096, 200
 TOOLS_PRUNE_N, TOOLS_PRUNE_C = 32, (32, 64, 128)
 # gather_probe's defaults: n_pad, B, L, reps
 TOOLS_GATHER = (1_000_448, 128, 8192, 8)
@@ -1853,21 +1916,20 @@ def column_round_trip(postings_doc) -> dict:
             "plain_ms": plain_ms, "bit_exact": True}
 
 
-def tools_phase(report: dict, packed) -> dict:
-    """The raw-text pipeline at TOOLS_PIPE_DOCS docs with its engine on
-    the card, the whole-column unpack round trip over its index and (when
-    an engine phase loaded it) the 1M index's, micro_bench's codec, host,
-    snippet and device rows, gather_probe at its defaults and prune_probe
-    (raw and tc dense sets) on the 1M index, or on the pipeline's when no
-    engine phase ran. Returns the summary line's object."""
+def tools_phase_early(report: dict, beside: bool) -> None:
+    """The tools phase's part that needs no 1M index (tools_phase runs it
+    where it has not run): the raw-text pipeline at TOOLS_PIPE_DOCS docs
+    with its engine on the card, the whole-column unpack round trip over
+    its index, micro_bench's codec, host, snippet and device rows and
+    gather_probe at its defaults. beside: the 1M index was building on
+    the host as it started."""
     import torch
 
     from wiser_tpu_torch.index.format import PackedIndex
-    from wiser_tpu_torch.tools import (gather_probe, micro_bench,
-                                       prune_probe, wiki_pipeline)
+    from wiser_tpu_torch.tools import gather_probe, micro_bench, wiki_pipeline
     from wiser_tpu_torch.utils import ResultTable
 
-    out = report["tools"] = {}
+    out = report["tools"] = {"beside_the_index_build": beside}
     t_phase = time.perf_counter()
     work = os.path.join(CACHE, "wikipipe")
     t0 = time.perf_counter()
@@ -1886,11 +1948,6 @@ def tools_phase(report: dict, packed) -> dict:
                                    skip_offsets=True)
     out["unpack_pipeline"] = column_round_trip(pipe_packed.postings_doc)
     log(f"tools unpack (pipeline column): {out['unpack_pipeline']}")
-    launches = out["unpack_pipeline"]["unpack_launches"]
-    if packed is not None:
-        out["unpack_1m"] = column_round_trip(packed.postings_doc)
-        log(f"tools unpack (1M column): {out['unpack_1m']}")
-        launches += out["unpack_1m"]["unpack_launches"]
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1908,9 +1965,36 @@ def tools_phase(report: dict, packed) -> dict:
                                wall_s=time.perf_counter() - t0)
     log(f"tools gather_probe: {out['gather_probe']}")
     torch.cuda.empty_cache()
+    out["early_wall_s"] = time.perf_counter() - t_phase
+
+
+def tools_phase(report: dict, packed) -> dict:
+    """tools_phase_early where it has not run, then the whole-column
+    unpack round trip over the 1M index (when an engine phase loaded it)
+    and prune_probe (raw and tc dense sets) on the 1M index, or on the
+    pipeline's when no engine phase ran. Returns the summary line's
+    object; wall_s is the two parts' sum."""
+    import torch
+
+    from wiser_tpu_torch.index.format import PackedIndex
+    from wiser_tpu_torch.tools import prune_probe
+
+    if "tools" not in report:
+        tools_phase_early(report, False)
+    out = report["tools"]
+    t_phase = time.perf_counter()
+    rec = out["pipeline"]
+    eng = rec["engine"]
+    launches = out["unpack_pipeline"]["unpack_launches"]
+    if packed is not None:
+        out["unpack_1m"] = column_round_trip(packed.postings_doc)
+        log(f"tools unpack (1M column): {out['unpack_1m']}")
+        launches += out["unpack_1m"]["unpack_launches"]
+        torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    target = packed if packed is not None else pipe_packed
+    target = (packed if packed is not None else PackedIndex.load(
+        os.path.join(CACHE, "wikipipe", "idx"), skip_offsets=True))
     prune = {"index_docs": target.n_docs}
     for columns in ("raw", "tc"):
         probe = prune_probe.Probe(target, columns=columns)
@@ -1922,7 +2006,7 @@ def tools_phase(report: dict, packed) -> dict:
     prune["wall_s"] = time.perf_counter() - t0
     out["prune_probe"] = prune
     log(f"tools prune_probe: {prune}")
-    out["wall_s"] = time.perf_counter() - t_phase
+    out["wall_s"] = out["early_wall_s"] + time.perf_counter() - t_phase
     out["unpack_launches"] = launches
 
     def unpack_line(r):
@@ -1942,7 +2026,7 @@ def tools_phase(report: dict, packed) -> dict:
         "unpack_launches": launches,
         "micro_bench": {r["bench"]: {k: v for k, v in r.items()
                                      if k != "bench"}
-                        for r in table.rows},
+                        for r in out["micro_bench"]["rows"]},
         "gather_probe": {n: {k: r[k] for k in ("ms", "G_lanes_per_s",
                                                "bound_ms")}
                          for n, r in out["gather_probe"]["variants"].items()},
@@ -1988,6 +2072,12 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "python": sys.version.split()[0]}
 
+    # the 1M index builds on the host (a child process) while the
+    # libraries build and the kernel phase runs
+    idx_proc = (start_index_build(args.docs)
+                if any(p in phases for p in INDEX_PHASES) else None)
+    if idx_proc is not None:
+        atexit.register(lambda: idx_proc.poll() is None and idx_proc.kill())
     # one nvcc a library, all at the same time (a build error is raised
     # here)
     t0 = time.perf_counter()
@@ -2003,7 +2093,8 @@ def main() -> int:
     def kernel_row(name, source, replaces):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": 0, "max_abs_err": None,
-                "ms": None, "host_us": None, "plain_ms": None,
+                "ms": None, "host_us": None, "host_us_beside_build": None,
+                "plain_ms": None,
                 "bound_ms": None, "bound_by": "bytes", "library_ms": None}
 
     # the unpack kernel's two entries (the uniform width of the staged
@@ -2036,6 +2127,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         for name, entry in route_kernel_phase(report).items():
             kerns[name].update(entry)
+    # the kernel phase's host readings, taken while the index built on
+    # the host where it was not cached (a later phase's reading of a row
+    # replaces its own); runs of the two kinds are not comparable
+    kernel_host_us = {n: r["host_us"] for n, r in kerns.items()}
 
     # (run name, make engine, {mix: (pool, number of queries, engine
     # attributes set for that mix only, warm-pass queries or None = all)})
@@ -2127,11 +2222,52 @@ def main() -> int:
     from wiser_tpu_torch.tools.kernel_tally import KernelTally
 
     tally = KernelTally()
+
+    def bench_phases(beside: bool) -> None:
+        """The headline and serve phases, on bench.py's own corpus (no 1M
+        index); beside: the 1M index was building on the host as they
+        started (their host-clock readings say so)."""
+        corpus = bench_corpus(args.bench_docs, report)
+        if "headline" in phases:
+            with tally:
+                headline_phase(report, args.bench_docs, args.bench_queries)
+            tally.flush("headline")
+            bs_by_phase["headline"] = report["headline"]["launches"][
+                "bs_search"]
+            add_dense("headline", report["headline"])
+            report["headline"]["beside_the_index_build"] = beside
+        if "serve" in phases:
+            with tally:
+                serve_phase(report, corpus)
+            tally.flush("serve")
+            add_dense("serve", report["serve"])
+            report["serve"]["beside_the_index_build"] = beside
+        del corpus
+        torch.cuda.empty_cache()
+
+    bench_done = False
     if runs or "harness" in phases or "mesh" in phases:
         from wiser_tpu_torch import StagedEngine, TorchEngine
         from wiser_tpu_torch.engine.staged import full_residency_bytes
 
+        built = None
+        if idx_proc is not None:
+            # the bench phases and the tools phase's first part need no
+            # 1M index: they run while it builds
+            if "headline" in phases or "serve" in phases:
+                bench_phases(idx_proc.poll() is None)
+                bench_done = True
+            if "tools" in phases:
+                tools_phase_early(report, idx_proc.poll() is None)
+            out, _ = idx_proc.communicate()
+            if idx_proc.returncode:
+                raise RuntimeError(f"the index build failed "
+                                   f"({idx_proc.returncode})")
+            built = json.loads(out.strip().splitlines()[-1])
         packed, pairs = get_index(args.docs, report)
+        if built is not None:
+            report["index"] = dict(built, load_s=report["index"]["load_s"],
+                                   beside_the_kernel_phase=True)
     if runs or "mesh" in phases:
         pools = {"aol": aol_mixed_queries(packed, Q),
                  "aol_df": aol_mixed_queries(packed, Q, by_df=True),
@@ -2284,21 +2420,8 @@ def main() -> int:
         print(json.dumps({"tools": tools}), flush=True)
         torch.cuda.empty_cache()
 
-    if "headline" in phases or "serve" in phases:
-        corpus = bench_corpus(args.bench_docs, report)
-        if "headline" in phases:
-            with tally:
-                headline_phase(report, args.bench_docs, args.bench_queries)
-            tally.flush("headline")
-            bs_by_phase["headline"] = report["headline"]["launches"][
-                "bs_search"]
-            add_dense("headline", report["headline"])
-        if "serve" in phases:
-            with tally:
-                serve_phase(report, corpus)
-            tally.flush("serve")
-            add_dense("serve", report["serve"])
-        del corpus
+    if ("headline" in phases or "serve" in phases) and not bench_done:
+        bench_phases(False)
 
     # the new modules too: bench.headline, the factory, the server
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -2405,6 +2528,10 @@ def main() -> int:
             f"never launched on the path: {route_idle}; a phrase route "
             f"took queries but its kernel never launched: "
             f"{route_unlaunched} ({route_by_phase})")
+    for n, r in kerns.items():
+        if r["host_us"] is not None:
+            r["host_us_beside_build"] = (idx_proc is not None and
+                                         r["host_us"] == kernel_host_us[n])
     print(json.dumps({"kernels": list(kerns.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

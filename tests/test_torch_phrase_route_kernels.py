@@ -342,11 +342,16 @@ def test_plans_at_engine_shapes(T):
     for L in (1, 128, 1000, 1024):
         s = R.plan_list(T, L)
         P2 = 1 << (L - 1).bit_length()
-        assert s == (16 + 3 * ((4 * T * L + 15) // 16 * 16)
-                     + 2 * ((4 * L + 15) // 16 * 16) + (L + 15) // 16 * 16
-                     + 8 * P2)
+        # the counters, the query's rows, a round's 256 active lanes
+        # (lane, score, count, saturation, T posting indices, T bag starts
+        # and ends), the verified keys, their posting indices and
+        # saturation bytes, a flush's scratch
+        assert s == (16 + 4 * 4 * 8 + 4 * 256 * (4 + 3 * T) + 8 * P2
+                     + (4 * T * L + 15) // 16 * 16 + (L + 15) // 16 * 16
+                     + 1056)
         assert s <= R.MAX_SMEM
-    assert R.plan_list(2, 1024) == 16 + 3 * 8192 + 2 * 4096 + 1024 + 8192
+    assert R.plan_list(2, 1024) == (16 + 128 + 10240 + 8192 + 8192 + 1024
+                                    + 1056)
 
 
 def test_select_keys_fit_the_flush_scratch():

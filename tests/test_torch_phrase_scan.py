@@ -279,7 +279,7 @@ def test_selection_is_the_canonical_top(wide, mode, T, KV):
     rows' sums); padding and disjoint rows keep nothing."""
     p, q3, q2 = wide
     args, kw = _wide_call(p, q3 if T == 3 else q2, mode, KV)
-    top_cs, top_cl = TK.full_phrase_select(*args, **kw)
+    top_cs, top_cl, _ = TK.full_phrase_select(*args, **kw)
     rows_f32, _ = TK._phrase_rows(*args, len_code=kw.get("len_code"),
                                   avg32=kw.get("avg32"))
     cs, cl, score = _canonical(rows_f32, T, KV)
@@ -310,8 +310,8 @@ def test_selection_keeps_the_lowest_docs_of_a_straddling_class():
     sc[0, 5 * 128 + 9] = hi
     slots = torch.tensor([[0, 1]], dtype=torch.int32)
     w = torch.ones((1, 2), dtype=torch.float32)
-    top_cs, top_cl = TK.full_phrase_select(T_(sc), slots, w, T=2,
-                                           N_pad=NB * 128, KV=3)
+    top_cs, top_cl, _ = TK.full_phrase_select(T_(sc), slots, w, T=2,
+                                              N_pad=NB * 128, KV=3)
     assert top_cl[0].tolist() == [5 * 128 + 1, 5 * 128 + 9, 100, 128 + 5]
     assert top_cs[0].tolist() == [8.0, 8.0, 3.0, 3.0]
     cs, cl, score = _canonical(TK._phrase_rows(T_(sc), slots, w)[0], 2, 3)
@@ -352,7 +352,7 @@ def test_band_is_empty_unless_the_kv1_score_reaches_thr(wide, mode):
     p, _, q2 = wide
     KV = 1024
     args, kw = _wide_call(p, q2, mode, KV)
-    top_cs, top_cl = TK.full_phrase_select(*args, **kw)
+    top_cs, top_cl, _ = TK.full_phrase_select(*args, **kw)
     rows_f32, payload = TK._phrase_rows(*args, len_code=kw.get("len_code"),
                                         avg32=kw.get("avg32"))
     score = TK._phrase_score(rows_f32, 2).numpy()
@@ -575,7 +575,7 @@ def test_cpu_tensors_take_the_plain_passes(mode):
     D.check_phrase_inputs(*args, band=band, **kw)
     assert D.phrase_args_ok(*args, **kw)
     assert D.phrase_args_ok(*args, band=band, **kw)
-    top_cs, top_cl = TK.full_phrase_select(*args, **kw)
+    top_cs, top_cl, _ = TK.full_phrase_select(*args, **kw)
     rows_f32, payload = TK._phrase_rows(*args, len_code=kw.get("len_code"),
                                         avg32=kw.get("avg32"))
     want = TK.full_phrase_select_torch(rows_f32, T=2, N_pad=kw["N_pad"],

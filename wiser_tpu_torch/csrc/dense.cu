@@ -144,16 +144,27 @@
 //     reaches thr = kth * (1 - eps3), since no lane outside the
 //     selection scores above it; every other query's CTAs return at
 //     once. A needing query first tests that (KV+1)-th lane itself
-//     (raw: it always flags then), else streams every block through the
-//     same ring and rescores each lane: a lane flags where it matches,
-//     scores >= thr, ranks after the KV-th selected key and, tc, its
-//     payload differs from the k-th kept doc's on some term or its doc
-//     is below that doc's. A CTA stops at its query's first hit, through
-//     the query's word that it polls each step; the word is the output.
+//     (raw: it always flags then), else rescores lanes: a lane flags
+//     where it matches, scores >= thr, ranks after the KV-th selected
+//     key and, tc, its payload differs from the k-th kept doc's on some
+//     term or its doc is below that doc's. With the sweep's block keys
+//     (the listed band: tc, after the threshold-first selection; a raw
+//     row that needs the band always flags at its (KV+1)-th lane) each
+//     CTA lists, in id order, the blocks of its segment whose key is a
+//     match scoring >= thr (band_blocks: one key a thread, a ballot a
+//     warp) and streams only those, each thread copying its own lanes as
+//     the listed selection does: a band lane's block key is at least its
+//     own key, and the sweep's score of a lane is the band's bit for bit
+//     (its table entry past kTft is the division the band makes on its
+//     cache), so no other block holds one. Without them (raw, or the
+//     one-pass selection, NB < K) it streams every block through the
+//     ring. A CTA stops at its query's first hit, through the query's
+//     word that it polls each step; the word is the output.
 // Bound: bytes, the query's distinct rows read once for the selection
 // (the sweep reads them; the listed selection reads K blocks of them
 // again, and the block keys; the band reads nothing where no query needs
-// it).
+// it, and a needing query's block keys and its listed blocks' rows where
+// none flags).
 //
 // Arithmetic: every f32 operation is an explicit round-to-nearest
 // intrinsic and the library is built with -fmad=false, so scores and
@@ -465,6 +476,12 @@ struct BandSmem {
                              // each byte
 };
 static_assert(sizeof(BandSmem) <= kFlushBytes, "kFlushBytes");
+// the listed band's warp counts (band_blocks), in the flush's histogram
+// past the band's words
+constexpr int kBandCounts = 248;
+static_assert(sizeof(BandSmem) <= 4 * kBandCounts &&
+                  kBandCounts + kThreads / 32 <= 256,
+              "the band's counts");
 
 // The band's words of query b, by one thread, once the query's distinct
 // rows (s_off, s_ri), weights and, tc, the cache table are in shared
@@ -842,6 +859,43 @@ __device__ int listed_blocks(const ScanArgs& a, int b, int lo, long long* s_ids,
   return min(total, lo + a.bps);
 }
 
+// The listed band's blocks of query b in this segment's id range [lo,
+// hi) (at most kIdsCap): those whose sweep key (a.bkeys) is a match that
+// scores at or above thr, in id order, into s_ids. A lane of the band
+// matches and scores at or above thr, and its block's key is its block's
+// largest lane key, whose score is the same f32 as the band's score of
+// that lane (the sweep's table entry past kTft and the band's division
+// are the same operations on the same inputs), so no other block holds
+// one. Returns their count. Every thread calls it, once band_setup has
+// found the query undecided; it ends with a barrier. wc: 8 words of
+// scratch (past the band's words).
+__device__ int band_blocks(const ScanArgs& a, int b, int lo, int hi,
+                           long long* s_ids, unsigned* wc, int tid) {
+  const long long NB = a.N_pad >> 7;
+  const unsigned long long* bk = a.bkeys + (long long)b * NB;
+  const float thr = a.thr[b];
+  const int wl = tid & 31, w = tid >> 5;
+  int total = 0;
+  for (int i0 = lo; i0 < hi; i0 += kThreads) {
+    const int i = i0 + tid;
+    const unsigned long long k = i < hi ? __ldcg(bk + i) : 0ull;
+    const bool in = k != 0ull && tile_key_score(k) >= thr;
+    const unsigned m = __ballot_sync(0xffffffffu, in);
+    if (wl == 0) wc[w] = __popc(m);
+    __syncthreads();
+    int at = total, all = 0;
+    for (int v = 0; v < kThreads / 32; ++v) {
+      const int c = wc[v];
+      at += v < w ? c : 0;
+      all += c;
+    }
+    if (in) s_ids[at + __popc(m & ((1u << wl) - 1))] = i;
+    total += all;
+    __syncthreads();  // every thread has read the counts
+  }
+  return total;
+}
+
 // A split selection's merge: the c kept keys of each CTA of the cluster
 // (X[0, c), c <= K, unsorted) streamed by the cluster's first CTA out of
 // distributed shared memory through its push threshold and keep_top,
@@ -910,8 +964,10 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
   }
   const int SB = a.SB, SL = SB * 128, NS = a.NS;
   const ScanLayout L = scan_layout(
-      TC, KIND == kSelect ? a.bkeys != nullptr : a.blocks != nullptr, T, KP,
-      NS, SB, KIND == kSelect);
+      TC,
+      KIND == kSelect || KIND == kBand ? a.bkeys != nullptr
+                                       : a.blocks != nullptr,
+      T, KP, NS, SB, KIND == kSelect);
   WCLK_START
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   int* s_nrows = reinterpret_cast<int*>(smem + 32);
@@ -954,7 +1010,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
           tid));
     WCLK(24);
   }
-  const int nsteps = (blk_hi - blk_lo + SB - 1) / SB;
+  int nsteps = (blk_hi - blk_lo + SB - 1) / SB;
   // the pruned scan's block list: this segment's ids
   if (a.blocks) {
     const long long* blocks = a.blocks + (long long)b * a.nblk;
@@ -1015,6 +1071,13 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
       if (tid == 0) a.hit[b] = 1;
       return;
     }
+    // the listed band (tc), where the query goes on to stream: this
+    // segment's blocks whose sweep key reaches thr
+    if (a.bkeys) {
+      blk_hi = blk_lo + band_blocks(a, b, blk_lo, blk_hi, s_ids,
+                                    fs.hist + kBandCounts, tid);
+      nsteps = (blk_hi - blk_lo + SB - 1) / SB;
+    }
   }
   const unsigned char* plane =
       TC ? a.tf8 : reinterpret_cast<const unsigned char*>(a.sc);
@@ -1027,8 +1090,8 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
   // a block list: every thread copies its own lanes of each row (and of
   // the len codes) of step s into its stage, one commit group a step;
   // no other thread reads them, so its own wait is enough
-  const bool own =
-      KIND == kSelect ? a.bkeys != nullptr : a.blocks != nullptr;
+  const bool own = KIND == kSelect || KIND == kBand ? a.bkeys != nullptr
+                                                    : a.blocks != nullptr;
   auto issue_own = [&](int s) {
     const int s0 = blk_lo + s * SB;
     if (s < nsteps && lane < min(SB, blk_hi - s0) * 128) {
@@ -1079,7 +1142,7 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
     const bool active = lane < min(SB, blk_hi - s0) * 128;
     long long doc0 = 0;
     if (active)
-      doc0 = ((KIND == kSelect ? own : a.blocks != nullptr)
+      doc0 = ((KIND == kSelect || KIND == kBand ? own : a.blocks != nullptr)
                   ? s_ids[s0 - blk_lo + sub]
                   : (long long)s0 + sub) *
                  128 + lane0;
@@ -1209,11 +1272,15 @@ __global__ void __launch_bounds__(kThreads, TC ? 1 : kRawMinBlocks)
       if (__syncthreads_or(flag || polled)) {
         if (tid == 0) a.hit[b] = 1;
         // the copies still in flight land before the CTA leaves
-        for (int s2 = s + 1; s2 < min(s + NS, nsteps); ++s2)
-          mbar_wait(bar + s2 % NS, (unsigned)((s2 / NS) & 1));
+        if (own) {
+          asm volatile("cp.async.wait_all;" ::: "memory");
+        } else {
+          for (int s2 = s + 1; s2 < min(s + NS, nsteps); ++s2)
+            mbar_wait(bar + s2 % NS, (unsigned)((s2 / NS) & 1));
+        }
         return;
       }
-      if (warp == 0 && s + NS < nsteps) {
+      if (!own && warp == 0 && s + NS < nsteps) {
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         issue(s + NS);
       }
@@ -1886,7 +1953,7 @@ int wiser_dense_scan(const WiserDenseScanParams* p, void* stream) {
   const bool band = kind == kBand;
   const bool sel = kind == kSelect;
   const bool sweep = kind == kSweep;
-  const bool listed = a.blocks != nullptr || (sel && a.bkeys);
+  const bool listed = a.blocks != nullptr || ((sel || band) && a.bkeys);
   const long long NB = a.N_pad / 128;
   const ScanLayout L = scan_layout(tc, listed, a.T, a.KP, a.NS, a.SB, sel);
   // the listed selection's pick: its block keys over the ring and lists
@@ -1901,6 +1968,7 @@ int wiser_dense_scan(const WiserDenseScanParams* p, void* stream) {
       (band && (!a.hit || !a.sel_lanes || !a.sel_score || !a.thr ||
                 (tc && !a.kth_doc) || a.T > kBandMaxT)) ||
       (sweep && (!a.bkeys || a.nblk != NB)) ||
+      (band && a.bkeys && a.nblk != NB) ||
       (sel && (a.rscratch || a.part_keys || a.nseg > kMaxCluster ||
                (a.bkeys ? a.nblk != a.K || NB < a.K : a.nblk != NB))))
     return (int)cudaErrorInvalidValue;

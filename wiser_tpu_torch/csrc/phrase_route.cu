@@ -50,26 +50,48 @@
 //     postings_tf at the recovered indices; tc: the candidate's tf byte
 //     and the dense tf bytes, FLAG_TF_SAT where one is 255), packed.
 //
-// The list chain, per query b, one CTA (list_kernel): the L <= 1,024
-// candidate lanes of slot 0, each searched in slots 1.. by the plain
-// version's fixed-count lower bound (its posting index per slot kept in
-// shared memory, the score s0 + (b1 + b2 + ...)); with kGate the bi-bloom
-// gate per probe (the probed slot's posting index, the following side
-// first, the preceding side at + Pw * 32: presence word and bit, the
-// row's rank from bloom_rank plus the popcount below, pass where (row &
-// mask) == mask; an absent row prunes, an inactive probe passes); then
-// the verification by binary search (bases: query term 0's first PP
-// positions; term t's bag searched for base + t in n_pos_iters halvings,
-// positions read as uint16 bits), a thread a (lane, base); then the top
-// M of the verified lanes by key with FLAG_TRUNC and the tfs at the
-// winners' posting indices (raw postings_tf; tc the tc lanes' bytes, with
-// FLAG_TF_SAT from the lane's saturation). Nothing (B, L) or (B, T, L)
-// reaches device memory. Without kGate (a compile-time switch) it is the
-// bloomless chain of phrase_body, which the staged cold tier runs.
+// The list chain, per query b (list_kernel): the L <= 1,024 candidate
+// lanes of slot 0, each searched in slots 1.. for its posting index as
+// the plain version's fixed-count lower bound finds it (the score s0 +
+// (b1 + b2 + ...)); with kGate the bi-bloom gate per probe (the probed
+// slot's posting index, the following side first, the preceding side at
+// + Pw * 32: presence word and bit, the row's rank from bloom_rank plus
+// the popcount below, pass where (row & mask) == mask; an absent row
+// prunes, an inactive probe passes); then the verification by binary
+// search (bases: query term 0's first PP positions; term t's bag searched
+// for base + t in n_pos_iters halvings, positions read as uint16 bits);
+// then the top M of the verified lanes by key with FLAG_TRUNC and the
+// tfs at the winners' posting indices (raw postings_tf; tc the tc lanes'
+// bytes, with FLAG_TF_SAT from the lane's saturation). Without kGate (a
+// compile-time switch) it is the bloomless chain of phrase_body, which
+// the staged cold tier runs. The design:
+//   - a query's lanes lie in nseg segments of whole warps of lanes, a CTA
+//     a segment, the CTAs of a query one cluster (at most 8), each about
+//     one round of kThreads lanes where the card holds them
+//     (ops/phrase_route.list_plan): the serve phase's B 8 groups no
+//     longer run on 8 SMs, and a thread has one lane, not four, to search;
+//   - a round: a thread a lane matches it (each slot's posting index by
+//     the plain version's fixed-count search, so the indices and the
+//     match are its own) and gates it; the round's active lanes are
+//     compacted with their posting indices; a thread a (lane, term) reads
+//     the bags and a thread a (lane, base) verifies, as the plain
+//     version's kernels split the work. A group of 8 threads a lane
+//     searching by bound.cuh's 8-ary bound was measured 2-3x slower at
+//     the engine's B 128 groups (PERF.md §6): the binary search's upper
+//     levels are shared by every lane and cached, and a group runs its
+//     lanes in turn;
+//   - a lane that verifies pushes its key, its T posting indices and its
+//     saturation into the cluster's first CTA through distributed shared
+//     memory; that CTA sorts only those c keys (cut to the top M + 1 by
+//     select.cuh's radix select past 256) and writes the output, in the
+//     one launch, with no device-memory scratch.
+// Nothing (B, L) or (B, T, L) reaches device memory.
 //
 // A selection of one CTA a query ran under one wave at the engine's B <=
 // 128 groups and 32 steps in series at L 32,768, and a recovery by the
-// fixed-count search took 78% of a verification CTA's cycles (PERF.md §6).
+// fixed-count search took 78% of a verification CTA's cycles; the list
+// chain's first form (a CTA a query, four lanes a thread in turn)
+// reached 0.2-0.3% of its bound at the engine's groups (PERF.md §6).
 //
 // Bound: bytes. The least the semidense phrase route must move is the
 // candidate slice (8 bytes a lane raw, 6 tc), the 32-byte sectors of each
@@ -103,6 +125,7 @@ using namespace wiser_bound;
 using namespace wiser_keys;
 using namespace wiser_segsel;  // kThreads, the CTA of the selection and list
 using namespace wiser_select;
+namespace cg = cooperative_groups;
 
 constexpr int kMaxT = 8;
 constexpr int kListMaxL = 1024;  // the list chain's lanes: L <= KV
@@ -300,6 +323,8 @@ __global__ void __launch_bounds__(kWarps * 32) sdp_output_kernel(SdpArgs a) {
 // ---------------------------------------------------------------------------
 // The list chain.
 
+constexpr int kListRound = 32;  // a segment holds whole warps of lanes
+
 struct ListArgs {
   const int32_t* doc;
   long long n_doc;
@@ -330,186 +355,255 @@ struct ListArgs {
   const float* weights;    // (B, T)
   const int32_t* slot_of;  // (B, T)
   int B, T, L, PP, M, n_iters, n_pos_iters;
-  int32_t* out;  // (B, T + 2, M)
+  int nseg, seg_lanes;  // CTAs a query (one cluster), lanes a CTA
+  int32_t* out;         // (B, T + 2, M)
 };
 
-// The list kernel's shared bytes: 2 counters (16 B) | pidx (T, L) int32,
-// slot order | ps, pe (T, L) int32 each, query-term order | counts (L) |
-// the active lanes (L) | saturation bytes (L) | the verified keys (the
-// power of 2 >= L). ops/phrase_route.plan_list computes the same.
+// The query's (B, T) rows, copied into shared memory once a CTA.
+struct ListQuery {
+  int st[kMaxT], en[kMaxT], so[kMaxT];
+  float w[kMaxT];
+};
+
+// The list kernel's shared bytes: 2 counters (16 B) | the query's rows
+// (ListQuery) | a round's active lanes (at most kThreads): lane, score,
+// verified count, saturation, then T posting indices (slot order) and T
+// bag starts and ends (query-term order) each | the verified keys (the
+// power of 2 >= L) | pidx (T, L) int32 by lane, slot order | saturation
+// bytes (L) | a flush's scratch. Every CTA of a query pushes its verified
+// lanes into the cluster's first CTA's keys, pidx and saturation; the
+// others' go unused (a launch gives every CTA the same).
+// ops/phrase_route.plan_list computes the same.
 struct ListLayout {
-  long long pidx, ps, pe, cnt, act, sat, keys, total;
+  long long query, act, keys, pidx, sat, fs, total;
 };
 
 __host__ __device__ inline ListLayout list_layout(int T, int L) {
   ListLayout o;
   long long x = 16;
-  o.pidx = x;
-  x += align16(4LL * T * L);
-  o.ps = x;
-  x += align16(4LL * T * L);
-  o.pe = x;
-  x += align16(4LL * T * L);
-  o.cnt = x;
-  x += align16(4LL * L);
+  o.query = x;
+  x += align16(sizeof(ListQuery));
   o.act = x;
-  x += align16(4LL * L);
-  o.sat = x;
-  x += align16(L);
+  x += 4LL * kThreads * (4 + 3 * T);
   o.keys = x;
   int P = 1;
   while (P < L) P <<= 1;
   x += 8LL * P;
+  o.pidx = x;
+  x += align16(4LL * T * L);
+  o.sat = x;
+  x += align16(L);
+  o.fs = x;
+  x += align16(sizeof(FlushSmem));
   o.total = x;
   return o;
 }
 
+// A CTA a (query, segment of seg_lanes lanes), the segments of a query one
+// cluster, rounds of kThreads lanes: a thread a lane matches it (the plain
+// version's fixed-count search in each slot) and gates it, the round's
+// active lanes are compacted; then a thread a (active lane, term) reads
+// its bag and a thread a (active lane, base) verifies; a thread a
+// verified lane pushes its key, posting indices and saturation into the
+// cluster's first CTA, which then takes the top M of the verified keys
+// and writes the output.
 template <bool TC, bool kGate, bool kU16>
-__global__ void __launch_bounds__(kThreads) list_kernel(ListArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) list_kernel(ListArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = a.T, L = a.L, PP = a.PP;
   const ListLayout lay = list_layout(T, L);
-  int* n_act = reinterpret_cast<int*>(smem);
-  int* n_ver = n_act + 1;
-  int32_t* s_pidx = reinterpret_cast<int32_t*>(smem + lay.pidx);
-  int32_t* s_ps = reinterpret_cast<int32_t*>(smem + lay.ps);
-  int32_t* s_pe = reinterpret_cast<int32_t*>(smem + lay.pe);
-  int32_t* s_cnt = reinterpret_cast<int32_t*>(smem + lay.cnt);
-  int32_t* s_act = reinterpret_cast<int32_t*>(smem + lay.act);
-  uint8_t* s_sat = smem + lay.sat;
+  const int b = blockIdx.x / a.nseg, seg = blockIdx.x % a.nseg;
+  const int tid = threadIdx.x;
+  int* n_ver = reinterpret_cast<int*>(smem);
+  int* n_act = n_ver + 1;
+  ListQuery& q = *reinterpret_cast<ListQuery*>(smem + lay.query);
+  // the round's active lanes
+  int* act_lane = reinterpret_cast<int*>(smem + lay.act);
+  float* act_score = reinterpret_cast<float*>(act_lane + kThreads);
+  int* act_cnt = act_lane + 2 * kThreads;
+  int* act_sat = act_lane + 3 * kThreads;
+  int* act_mp = act_lane + 4 * kThreads;     // [a * T + slot]
+  int* act_ps = act_mp + T * kThreads;       // [a * T + term]
+  int* act_pe = act_ps + T * kThreads;
   unsigned long long* X =
       reinterpret_cast<unsigned long long*>(smem + lay.keys);
-  const int tid = threadIdx.x, b = blockIdx.x;
-  const int32_t* st = a.starts + (long long)b * T;
-  const int32_t* en = a.ends + (long long)b * T;
-  const float* w = a.weights + (long long)b * T;
-  const long long cs = st[0];
-  const long long n_valid = clampll((long long)en[0] - cs, 0, L);
+  int32_t* s_pidx = reinterpret_cast<int32_t*>(smem + lay.pidx);
+  uint8_t* s_sat = smem + lay.sat;
+  if (tid < T) {
+    const long long o = (long long)b * T + tid;
+    q.st[tid] = a.starts[o];
+    q.en[tid] = a.ends[o];
+    q.so[tid] = (int)clampll(a.slot_of[o], 0, T - 1);
+    q.w[tid] = a.weights[o];
+  }
+  if (tid == 0) *n_ver = 0;
+  // where the lanes go: the cluster's first CTA's count and arrays
+  int* lead_n = n_ver;
+  unsigned long long* lead_X = X;
+  int32_t* lead_pidx = s_pidx;
+  uint8_t* lead_sat = s_sat;
+  if (a.nseg > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    lead_n = cluster.map_shared_rank(n_ver, 0);
+    lead_X = cluster.map_shared_rank(X, 0);
+    lead_pidx = cluster.map_shared_rank(s_pidx, 0);
+    lead_sat = cluster.map_shared_rank(s_sat, 0);
+    cluster.sync();  // the first CTA's count is zeroed
+  } else {
+    __syncthreads();
+  }
+  WCLK_START
+  const long long cs = q.st[0];
+  const int n_valid = (int)clampll((long long)q.en[0] - cs, 0, L);
   const long long s_doc = slice_start(cs, a.n_doc, L);
   const long long s_col = slice_start(cs, TC ? a.n_tc : a.n_score, L);
-  if (tid == 0) {
-    *n_act = 0;
-    *n_ver = 0;
-  }
-  __syncthreads();
-
-  // match: the candidate lanes against slots 1.., posting indices kept
-  constexpr int LPT = kListMaxL / kThreads;
-  float sc[LPT];
-  unsigned act = 0;
-#pragma unroll
-  for (int j = 0; j < LPT; ++j) {
-    const int l = j * kThreads + tid;
-    sc[j] = 0.f;
-    if (l >= n_valid) continue;
-    const int d = a.doc[s_doc + l];
-    bool sat = false;
-    float s0;
-    if (TC) {
-      const int cl = a.tc[s_col + l];
-      s0 = table_score(a.norm_g, cl, w[0]);
-      sat = (cl & 0xFF) >= kTfSat;
-    } else {
-      s0 = __fmul_rn(a.score[s_col + l], w[0]);
-    }
-    s_pidx[l] = (int)((unsigned)cs + (unsigned)l);
-    bool alive = true;
-    float acc = 0.f;
-    for (int t = 1; t < T && alive; ++t) {
-      const int lo = search_fixed<0>(a.doc, a.n_doc, d, st[t], en[t],
-                                     a.n_iters);
-      s_pidx[t * L + l] = lo;
-      alive = lo < en[t] && a.doc[clampll(lo, 0, a.n_doc - 1)] == d;
-      if (!alive) break;
-      float p;
+  const int lane_hi = min(n_valid, (seg + 1) * a.seg_lanes);
+  const float w0 = q.w[0];
+  for (int r0 = seg * a.seg_lanes; r0 < lane_hi; r0 += kThreads) {
+    if (tid == 0) *n_act = 0;
+    __syncthreads();
+    // match: the lane against slots 1.., each slot's posting index kept
+    const int l = r0 + tid;
+    if (l < lane_hi) {
+      const int d = a.doc[s_doc + l];
+      bool sat = false;
+      float s0;
       if (TC) {
-        const int h = a.tc[clampll(lo, 0, a.n_tc - 1)];
-        p = table_score(a.norm_g, h, w[t]);
-        sat = sat || (h & 0xFF) >= kTfSat;
+        const int cl = a.tc[s_col + l];
+        s0 = table_score(a.norm_g, cl, w0);
+        sat = (cl & 0xFF) >= kTfSat;
       } else {
-        p = __fmul_rn(a.score[clampll(lo, 0, a.n_score - 1)], w[t]);
+        s0 = __fmul_rn(a.score[s_col + l], w0);
       }
-      acc = t == 1 ? p : __fadd_rn(acc, p);
-    }
-    if (!alive) continue;
-    if constexpr (kGate) {
-      // the bi-bloom gate: every active probe of the query must pass
-      const int Pw = (int)(a.n_bitmap / 2);
-      for (int c = 0; c < a.C && alive; ++c) {
-        const long long pc = (long long)b * a.C + c;
-        if (!a.probe_active[pc]) continue;
-        const int slot = (int)clampll(a.probe_slot[pc], 0, T - 1);
-        const long long sp = (long long)s_pidx[slot * L + l] +
-                             (a.probe_begins[pc] ? (long long)Pw * 32 : 0);
-        const long long wi = clampll(sp >> 5, 0, a.n_bitmap - 1);
-        const unsigned word = (unsigned)a.bloom_bitmap[wi];
-        const int bit = (int)(sp & 31);
-        const bool present = (word >> bit) & 1u;
-        const unsigned below = word & ((1u << bit) - 1u);
-        const long long rank = (long long)a.bloom_rank[wi] + __popc(below);
-        const unsigned row = (unsigned)a.bloom_rows[clampll(rank, 0,
-                                                            a.n_rows - 1)];
-        const unsigned mask = (unsigned)a.probe_mask[pc];
-        alive = present && (row & mask) == mask;
-      }
-      if (!alive) continue;
-    }
-    act |= 1u << j;
-    sc[j] = __fadd_rn(s0, acc);
-    s_sat[l] = sat;
-    s_act[atomicAdd(n_act, 1)] = l;
-  }
-  __syncthreads();
-
-  // each active lane's bags in query-term order, its count zeroed
-  const int na = *n_act;
-  for (int i = tid; i < na * T; i += kThreads) {
-    const int l = s_act[i / T], t = i % T;
-    const int slot = (int)clampll(a.slot_of[(long long)b * T + t], 0, T - 1);
-    const int pq = s_pidx[slot * L + l];
-    s_ps[t * L + l] = a.pos_starts[clampll(pq, 0, a.n_ps - 1)];
-    s_pe[t * L + l] = a.pos_starts[clampll((long long)pq + 1, 0, a.n_ps - 1)];
-    if (t == 0) s_cnt[l] = 0;
-  }
-  __syncthreads();
-
-  // the verification, a thread a (active lane, base): the base is valid
-  // while it lies in term 0's bag; term t must hold base + t, found by
-  // the fixed-count search over its bag
-  for (int i = tid; i < na * PP; i += kThreads) {
-    const int l = s_act[i / PP], p = i % PP;
-    const int bi = (int)((unsigned)s_ps[l] + (unsigned)p);
-    if (!(bi < s_pe[l])) continue;
-    const long long bc = clampll(bi, 0, a.n_pos - 1);
-    const int base = kU16 ? (int)static_cast<const uint16_t*>(a.positions)[bc]
-                          : static_cast<const int32_t*>(a.positions)[bc];
-    bool ok = true;
-    for (int t = 1; t < T && ok; ++t) {
-      const int tgt = base + t;
-      const int pe = s_pe[t * L + l];
-      const int lo = search_fixed<kU16 ? 1 : 2>(a.positions, a.n_pos, tgt,
-                                                s_ps[t * L + l], pe,
-                                                a.n_pos_iters);
-      const long long lc = clampll(lo, 0, a.n_pos - 1);
-      const int v = kU16 ? (int)static_cast<const uint16_t*>(a.positions)[lc]
-                         : static_cast<const int32_t*>(a.positions)[lc];
-      ok = lo < pe && v == tgt;
-    }
-    if (ok) atomicAdd(s_cnt + l, 1);
-  }
-  __syncthreads();
-
-  // the verified lanes' keys, sorted: the top M by (score desc, lane asc)
+      int mp[kMaxT];
+      mp[0] = (int)((unsigned)cs + (unsigned)l);
+      bool alive = true;
+      float acc = 0.f;
 #pragma unroll
-  for (int j = 0; j < LPT; ++j) {
-    const int l = j * kThreads + tid;
-    if ((act >> j & 1) && s_cnt[l] > 0)
-      X[atomicAdd(n_ver, 1)] = tile_key(sc[j], l);
+      for (int t = 1; t < kMaxT; ++t) {
+        mp[t] = 0;
+        if (t >= T || !alive) continue;
+        const int r = search_fixed<0>(a.doc, a.n_doc, d, q.st[t], q.en[t],
+                                      a.n_iters);
+        mp[t] = r;
+        alive = r < q.en[t] && a.doc[clampll(r, 0, a.n_doc - 1)] == d;
+        if (!alive) continue;
+        float p;
+        if (TC) {
+          const int h = a.tc[clampll(r, 0, a.n_tc - 1)];
+          p = table_score(a.norm_g, h, q.w[t]);
+          sat = sat || (h & 0xFF) >= kTfSat;
+        } else {
+          p = __fmul_rn(a.score[clampll(r, 0, a.n_score - 1)], q.w[t]);
+        }
+        acc = t == 1 ? p : __fadd_rn(acc, p);
+      }
+      if constexpr (kGate) {
+        // the bi-bloom gate: every active probe of the query must pass
+        const int Pw = (int)(a.n_bitmap / 2);
+        for (int c = 0; c < a.C && alive; ++c) {
+          const long long pc = (long long)b * a.C + c;
+          if (!a.probe_active[pc]) continue;
+          const int slot = (int)clampll(a.probe_slot[pc], 0, T - 1);
+          int pq = mp[0];
+#pragma unroll
+          for (int t = 1; t < kMaxT; ++t) pq = slot == t ? mp[t] : pq;
+          const long long sp =
+              (long long)pq + (a.probe_begins[pc] ? (long long)Pw * 32 : 0);
+          const long long wi = clampll(sp >> 5, 0, a.n_bitmap - 1);
+          const unsigned word = (unsigned)a.bloom_bitmap[wi];
+          const int bit = (int)(sp & 31);
+          const bool present = (word >> bit) & 1u;
+          const unsigned below = word & ((1u << bit) - 1u);
+          const long long rank = (long long)a.bloom_rank[wi] + __popc(below);
+          const unsigned row =
+              (unsigned)a.bloom_rows[clampll(rank, 0, a.n_rows - 1)];
+          const unsigned mask = (unsigned)a.probe_mask[pc];
+          alive = present && (row & mask) == mask;
+        }
+      }
+      if (alive) {
+        const int i = atomicAdd(n_act, 1);
+        act_lane[i] = l;
+        act_score[i] = __fadd_rn(s0, acc);
+        act_sat[i] = sat;
+#pragma unroll
+        for (int t = 0; t < kMaxT; ++t)
+          if (t < T) act_mp[i * T + t] = mp[t];
+      }
+    }
+    __syncthreads();
+    WCLK(14);
+    // each active lane's bags in query-term order, its count zeroed
+    const int na = *n_act;
+    for (int i = tid; i < na * T; i += kThreads) {
+      const int x = i / T, t = i % T;
+      const int pq = act_mp[x * T + q.so[t]];
+      act_ps[i] = a.pos_starts[clampll(pq, 0, a.n_ps - 1)];
+      act_pe[i] = a.pos_starts[clampll((long long)pq + 1, 0, a.n_ps - 1)];
+      if (t == 0) act_cnt[x] = 0;
+    }
+    __syncthreads();
+    WCLK(15);
+    // the verification, a thread a (active lane, base): the base is valid
+    // while it lies in term 0's bag; term t must hold base + t, found by
+    // the fixed-count search over its bag
+    for (int i = tid; i < na * PP; i += kThreads) {
+      const int x = i / PP, p = i % PP;
+      const int* ps = act_ps + x * T;
+      const int* pe = act_pe + x * T;
+      const int bi = (int)((unsigned)ps[0] + (unsigned)p);
+      if (!(bi < pe[0])) continue;
+      const int base = wiser_verify::position<kU16>(
+          a.positions, clampll(bi, 0, a.n_pos - 1));
+      bool ok = true;
+      for (int t = 1; t < T && ok; ++t) {
+        const int tgt = base + t;
+        const int lo = search_fixed<kU16 ? 1 : 2>(a.positions, a.n_pos, tgt,
+                                                  ps[t], pe[t],
+                                                  a.n_pos_iters);
+        ok = lo < pe[t] &&
+             wiser_verify::position<kU16>(
+                 a.positions, clampll(lo, 0, a.n_pos - 1)) == tgt;
+      }
+      if (ok) atomicAdd(act_cnt + x, 1);
+    }
+    __syncthreads();
+    WCLK(16);
+    // a verified lane's key, posting indices and saturation into the
+    // cluster's first CTA
+    for (int i = tid; i < na * T; i += kThreads) {
+      const int x = i / T, t = i % T;
+      if (act_cnt[x] <= 0) continue;
+      const int lane = act_lane[x];
+      if (t == 0) {
+        lead_X[atomicAdd(lead_n, 1)] = tile_key(act_score[x], lane);
+        lead_sat[lane] = act_sat[x];
+      }
+      lead_pidx[t * L + lane] = act_mp[x * T + t];
+    }
+    __syncthreads();  // the round's arrays are read
+    WCLK(17);
   }
-  __syncthreads();
-  const int c = *n_ver;
-  sort_keys<kThreads>(X, c, tid);
+  if (a.nseg > 1) {
+    cg::this_cluster().sync();  // every lane is in the first CTA
+  } else {
+    __syncthreads();
+  }
+  WCLK(18);
+  WCLK_COUNT(20);
+  if (seg != 0) return;
+
+  // the top M of the c verified keys by (score desc, lane asc): past a
+  // thread a key, cut to the top M + 1 by the radix select first
+  int c = *n_ver;
   const int M = a.M;
+  if (c > kThreads && c > M + 1) {
+    keep_top(X, c, M + 1, *reinterpret_cast<FlushSmem*>(smem + lay.fs),
+             tid);
+    c = M + 1;
+  }
+  sort_keys<kThreads>(X, c, tid);
   int32_t* out = a.out + (long long)b * (T + 2) * M;
   bool sat = false;
   for (int m = tid; m < M; m += kThreads) {
@@ -533,6 +627,8 @@ __global__ void __launch_bounds__(kThreads) list_kernel(ListArgs a) {
     f |= kFlagTrunc;
   if (any_sat) f |= kFlagTfSat;
   for (int m = tid; m < M; m += kThreads) out[(long long)(T + 1) * M + m] = f;
+  WCLK(19);
+  WCLK_COUNT(21);
 }
 
 template <typename Kern, typename Args>
@@ -550,9 +646,10 @@ cudaError_t launch(Kern kern, unsigned grid, unsigned threads, long long smem,
 template <bool TC, bool kGate>
 cudaError_t launch_list(const ListArgs& a, bool u16, long long smem,
                         cudaStream_t s) {
-  return u16 ? launch(list_kernel<TC, kGate, true>, a.B, kThreads, smem, a, s)
-             : launch(list_kernel<TC, kGate, false>, a.B, kThreads, smem, a,
-                      s);
+  return u16 ? launch_segments(list_kernel<TC, kGate, true>, a.B, a.nseg,
+                               smem, s, a)
+             : launch_segments(list_kernel<TC, kGate, false>, a.B, a.nseg,
+                               smem, s, a);
 }
 
 }  // namespace wiser_phrase_route
@@ -681,13 +778,14 @@ struct WiserListParams {
   long long bloom_rows, n_rows, bloom_bitmap, n_bitmap, bloom_rank;
   long long probe_slot, probe_begins, probe_mask, probe_active, C, gate;
   long long starts, ends, weights, slot_of;
-  long long B, T, L, PP, M, n_iters, n_pos_iters, out, smem;
+  long long B, T, L, PP, M, n_iters, n_pos_iters, out, smem, nseg;
+  long long seg_lanes;
 };
 
-// The list chain on `stream` (no synchronize): one launch. gate 0 leaves
-// the bloom gate out (the bloomless chain). Returns the launch error (0 on
-// success); a plan that disagrees with this file's layout is refused as
-// cudaErrorInvalidValue.
+// The list chain on `stream` (no synchronize): one launch, a query's nseg
+// segments one cluster. gate 0 leaves the bloom gate out (the bloomless
+// chain). Returns the launch error (0 on success); a plan that disagrees
+// with this file's layout is refused as cudaErrorInvalidValue.
 int wiser_list_phrase(const WiserListParams* p, void* stream) {
   using namespace wiser_phrase_route;
   ListArgs a;
@@ -726,9 +824,15 @@ int wiser_list_phrase(const WiserListParams* p, void* stream) {
   a.n_iters = (int)p->n_iters;
   a.n_pos_iters = (int)p->n_pos_iters;
   a.out = (int32_t*)p->out;
+  a.nseg = (int)p->nseg;
+  a.seg_lanes = (int)p->seg_lanes;
   const bool tc = a.tc != nullptr, gate = p->gate != 0;
   if (a.T < 2 || a.T > kMaxT || a.L < 1 || a.L > kListMaxL || a.M < 1 ||
-      a.M > a.L || a.PP < 1 || !a.norm_g == tc ||
+      a.M > a.L || a.PP < 1 || !a.norm_g == tc || a.nseg < 1 ||
+      a.nseg > kMaxCluster ||
+      a.seg_lanes < kListRound || a.seg_lanes % kListRound ||
+      (long long)a.seg_lanes * a.nseg < a.L ||
+      (long long)a.seg_lanes * (a.nseg - 1) >= a.L ||
       (!tc && (!a.score || !a.tf)) ||
       (gate && (a.C < 0 || a.n_rows < 1 || a.n_bitmap < 2)) ||
       p->smem != list_layout(a.T, a.L).total)

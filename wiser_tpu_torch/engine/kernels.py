@@ -1854,13 +1854,16 @@ def full_phrase_select(plane, slots, weights, *, T: int, N_pad: int,
     idf32 as weights; slots and weights in query-term order. On CUDA
     tensors the kernel (ops/dense.phrase_select), or it raises; on CPU
     tensors the plain version. Both check their arguments first
-    (ValueError)."""
+    (ValueError). A third output: the kernels' (B, NB) block keys for
+    the listed band (full_phrase_band's bkeys; None where the selection
+    took one pass, and on CPU tensors)."""
     kw = dict(T=T, N_pad=N_pad, KV=KV, len_code=len_code, avg32=avg32)
     if isinstance(plane, torch.Tensor) and plane.is_cuda:
         return _dense_op.phrase_select(plane, slots, weights, **kw)
     _dense_op.check_phrase_inputs(plane, slots, weights, **kw)
     rows_f32, _ = _phrase_rows(plane, slots, weights, len_code, avg32)
-    return full_phrase_select_torch(rows_f32, T=T, N_pad=N_pad, KV=KV)
+    return full_phrase_select_torch(rows_f32, T=T, N_pad=N_pad,
+                                    KV=KV) + (None,)
 
 
 def full_phrase_select_torch(rows_f32, *, T: int, N_pad: int, KV: int):
@@ -1890,18 +1893,22 @@ def full_phrase_select_torch(rows_f32, *, T: int, N_pad: int, KV: int):
 
 def full_phrase_band(plane, slots, weights, top_cs, top_cl, thr, *, T: int,
                      N_pad: int, KV: int, kth_doc=None, len_code=None,
-                     avg32=None):
+                     avg32=None, bkeys=None):
     """The full-scan phrase's band word (full_phrase_band_torch's output)
     of the planes (as full_phrase_select) and a selection of them: on
-    CUDA tensors the kernel (ops/dense.phrase_band), or it raises; on CPU
-    tensors the plain version. Both check their arguments first
+    CUDA tensors the kernel (ops/dense.phrase_band: tc with the
+    selection's block keys bkeys, a query that needs the band streams only
+    the blocks whose key reaches thr), or it raises; on CPU tensors the
+    plain
+    version, which reads every lane. Both check their arguments first
     (ValueError)."""
     kw = dict(T=T, N_pad=N_pad, KV=KV, len_code=len_code, avg32=avg32)
     if isinstance(plane, torch.Tensor) and plane.is_cuda:
         return _dense_op.phrase_band(plane, slots, weights, top_cs, top_cl,
-                                     thr, kth_doc=kth_doc, **kw)
+                                     thr, kth_doc=kth_doc, bkeys=bkeys, **kw)
     _dense_op.check_phrase_inputs(plane, slots, weights,
-                                  band=(top_cs, top_cl, thr, kth_doc), **kw)
+                                  band=(top_cs, top_cl, thr, kth_doc),
+                                  bkeys=bkeys, **kw)
     rows_f32, payload = _phrase_rows(plane, slots, weights, len_code, avg32)
     return full_phrase_band_torch(rows_f32, top_cl, thr, T=T, N_pad=N_pad,
                                   KV=KV, rows_payload=payload,
@@ -2007,14 +2014,23 @@ def _full_phrase_planes(plane, slots, weights, postings_doc, positions,
                         avg32=None):
     """_full_phrase_run over the planes, through the dispatching passes
     (full_phrase_select, full_phrase_band): on a card the kernels, which
-    write no (B, N_pad) plane."""
+    write no (B, N_pad) plane; the band reads the selection's block
+    keys."""
     kw = dict(T=T, N_pad=N_pad, KV=KV, len_code=len_code, avg32=avg32)
     tc = len_code is not None
+    bkeys = []
+
+    def select():
+        top_cs, top_cl, keys = full_phrase_select(plane, slots, weights,
+                                                  **kw)
+        bkeys.append(keys)
+        return top_cs, top_cl
+
     return _full_phrase_run(
-        lambda: full_phrase_select(plane, slots, weights, **kw),
+        select,
         lambda top_cs, top_cl, thr, kth_doc: full_phrase_band(
             plane, slots, weights, top_cs, top_cl, thr,
-            kth_doc=kth_doc if tc else None, **kw),
+            kth_doc=kth_doc if tc else None, bkeys=bkeys[0], **kw),
         postings_doc, positions, pos_starts, starts, ends, anchor, ks, T=T,
         KV=KV, PP=PP, PW=PW, M=M, n_bs_iters=n_bs_iters, eps3=eps3)
 

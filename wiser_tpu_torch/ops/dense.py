@@ -31,10 +31,13 @@ where the doc space has fewer than K blocks, one pass over every block
 ("select"). Either keeps its keys in an unsorted buffer cut to its top K
 by a radix select, a query's segments (at most MAX_CLUSTER) one cluster
 sharing their thresholds and merged in its first CTA, one sort at the
-end, and writes them as (score, lane). Then the band pass, whose CTAs return at once for every query
-whose (KV+1)-th score is below thr, test that lane first, and otherwise
-stream the query's rows until the first lane of the band (`plan(...,
-kind=...)`: "sweep", "select" and "band").
+end, and writes them as (score, lane). Then the band pass, whose CTAs
+return at once for every query whose (KV+1)-th score is below thr, test
+that lane first, and otherwise stream the query's rows until the first
+lane of the band: tc after the threshold-first selection only the
+blocks whose sweep key scores at least thr (the listed band:
+phrase_select's third output, passed to phrase_band as bkeys), else every block (`plan(..., kind=...)`: "sweep", "select" and
+"band").
 
 engine/kernels.py calls these for CUDA tensors and runs the plain torch
 versions (dense_scan_body_torch, dense_scan_body_tc_torch,
@@ -310,9 +313,10 @@ def plan(B: int, T: int, NB: int, M: int, mode: str, resident: int,
     by the one pass, the listed selection reading its sweep's), "sweep"
     (the selection's block keys: no keys kept, no merge; (B, NB) 64-bit
     keys out) or "band" (its band pass: no keys, no merge, no tc table;
-    one word a query). pick_nb: the listed selection's doc space in
-    blocks, whose keys its pick holds in shared memory (pick_smem) over
-    its ring and key buffer."""
+    one word a query; listed, its segments' blocks at most IDS_CAP, over
+    the blocks its sweep's keys list). pick_nb: the listed selection's
+    doc space in blocks, whose keys its pick holds in shared memory
+    (pick_smem) over its ring and key buffer."""
     K = M + 1
     KP = _layout_kp(M, kind)
     NS, SB, smem = scan_layout(T, KP, mode, listed, kind)
@@ -793,7 +797,7 @@ def dense_scan(plane, tf_plane, slots, weights, *, T: int, N_pad: int,
 
 def check_phrase_inputs(plane, slots, weights, *, T: int, N_pad: int,
                         KV: int, len_code=None, avg32=None,
-                        band=None) -> None:
+                        band=None, bkeys=None) -> None:
     """Raise ValueError unless the arguments are what the phrase's passes
     take: the (H, N_pad) plane (raw f32 scores, or tc uint8 tfs with the
     (N_pad,) uint8 len-code row and a one-element f32 avg32; the plane and
@@ -801,8 +805,9 @@ def check_phrase_inputs(plane, slots, weights, *, T: int, N_pad: int,
     int32 slots and f32 weights (query-term order), 1 <= KV < N_pad; for
     the band pass, band = (top_cs (B, KV + 1) f32, top_cl (B, KV + 1)
     int32, thr (B,) f32, kth_doc (B,) int32 in tc, else None) and T <=
-    BAND_MAX_T; every tensor contiguous and on the plane's device (cpu or
-    cuda)."""
+    BAND_MAX_T, with the selection's (B, N_pad / 128) int64 block keys
+    bkeys or None; every tensor contiguous and on the plane's device (cpu
+    or cuda)."""
     _need(isinstance(plane, _T) and plane.dim() == 2
           and isinstance(slots, _T) and slots.dim() == 2,
           "plane and slots must be 2-D tensors")
@@ -834,10 +839,13 @@ def check_phrase_inputs(plane, slots, weights, *, T: int, N_pad: int,
               "kth_doc goes with tc columns, and only with them")
         if tc:
             _tensor("kth_doc", kth_doc, torch.int32, (B,), dev)
+        if bkeys is not None:
+            _tensor("bkeys", bkeys, torch.int64, (B, N_pad // 128), dev)
 
 
 def phrase_args_ok(plane, slots, weights, *, T: int, N_pad: int, KV: int,
-                   len_code=None, avg32=None, band=None) -> bool:
+                   len_code=None, avg32=None, band=None,
+                   bkeys=None) -> bool:
     """check_phrase_inputs's conditions as one cheap test."""
     if not (isinstance(plane, _T) and plane.dim() == 2
             and isinstance(slots, _T) and slots.dim() == 2):
@@ -862,15 +870,17 @@ def phrase_args_ok(plane, slots, weights, *, T: int, N_pad: int, KV: int,
             and _ok(top_cl, torch.int32, (B, KV + 1), dev)
             and _ok(thr, torch.float32, (B,), dev)
             and (kth_doc is not None) == tc
-            and (not tc or _ok(kth_doc, torch.int32, (B,), dev)))
+            and (not tc or _ok(kth_doc, torch.int32, (B,), dev))
+            and (bkeys is None
+                 or _ok(bkeys, torch.int64, (B, N_pad // 128), dev)))
 
 
 def _phrase_checked(what: str, plane, slots, weights, *, T: int,
-                    N_pad: int, KV: int, len_code, avg32, band):
+                    N_pad: int, KV: int, len_code, avg32, band, bkeys=None):
     """Check one of the phrase's passes' arguments (ValueError before any
     launch); returns (device, B, mode)."""
     kw = dict(T=T, N_pad=N_pad, KV=KV, len_code=len_code, avg32=avg32,
-              band=band)
+              band=band, bkeys=bkeys)
     if not (phrase_args_ok(plane, slots, weights, **kw)
             and plane.device.type == "cuda"):
         check_phrase_inputs(plane, slots, weights, **kw)
@@ -907,14 +917,17 @@ def phrase_select(plane, slots, weights, *, T: int, N_pad: int, KV: int,
     """The full-scan phrase's selection from the kernels, on CUDA tensors:
     each query's top K = KV + 1 lanes of the plane under the phrase's
     rule, in (score desc, doc asc) order, as (top_cs (B, K) f32, top_cl
-    (B, K) int32; -inf and -1 past the matched lanes). raw: plane is the
+    (B, K) int32; -inf and -1 past the matched lanes, bkeys). raw: plane is the
     f32 score plane, weights use_score; tc (len_code given): plane is the
     uint8 tf plane, weights idf32. `select_plan` picks the path: "two",
     the sweep (its block keys in the call's buffer) then the listed
-    selection; "one", the selection over every block. Checks the arguments as check_phrase_inputs does
-    (ValueError before any launch), allocates the block keys, tc's table
-    and the outputs as views of one buffer, launches on the current
-    stream and does not synchronize."""
+    selection; "one", the selection over every block. Checks the
+    arguments as check_phrase_inputs does (ValueError before any launch),
+    allocates the block keys, tc's table and the outputs as views of one
+    buffer, launches on the current stream and does not synchronize.
+    bkeys is the sweep's (B, NB) int64 block keys (a view of the same
+    buffer, which the listed band pass reads: phrase_band's bkeys), or
+    None where the path took one pass."""
     dev, B, mode = _phrase_checked("phrase_select", plane, slots, weights,
                                    T=T, N_pad=N_pad, KV=KV,
                                    len_code=len_code, avg32=avg32,
@@ -922,8 +935,9 @@ def phrase_select(plane, slots, weights, *, T: int, N_pad: int, KV: int,
     NB, K = N_pad // 128, KV + 1
     tc = mode == "tc"
     if B == 0:
-        return (torch.empty((0, K), dtype=torch.float32, device=dev),
-                torch.empty((0, K), dtype=torch.int32, device=dev))
+        empty = (torch.empty((0, K), dtype=torch.float32, device=dev),
+                 torch.empty((0, K), dtype=torch.int32, device=dev))
+        return empty + (None,)
     sp = select_plan(B, T, NB, KV, mode,
                      lambda kind, listed: resident_for(
                          mode, T, KV, dev, listed, kind,
@@ -955,34 +969,44 @@ def phrase_select(plane, slots, weights, *, T: int, N_pad: int, KV: int,
         launch_counts["dense_tc_table"] += 1
     out = buf[key_words + table_words:]
     return (out[B * K:].view(torch.float32).view(B, K),
-            out[: B * K].view(B, K))
+            out[: B * K].view(B, K),
+            buf[:key_words].view(torch.int64).view(B, NB)
+            if sp.sweep else None)
 
 
 def phrase_band(plane, slots, weights, top_cs, top_cl, thr, *, T: int,
                 N_pad: int, KV: int, kth_doc=None, len_code=None,
-                avg32=None):
+                avg32=None, bkeys=None):
     """The full-scan phrase's band pass from the kernel, on CUDA tensors:
     (B,) int32, 1 where some lane outside the selection (top_cs, top_cl
     from phrase_select) matches, scores at least thr and ranks after the
     KV-th selected lane (tc: and its payload differs from kth_doc's on
-    some term or its doc is below kth_doc), else 0. Checks the arguments
-    as check_phrase_inputs does, launches on the current stream (the
-    words zeroed first) and does not synchronize."""
+    some term or its doc is below kth_doc), else 0. tc with bkeys (the
+    selection's (B, NB) int64 block keys, phrase_select's third output)
+    a query that needs the band streams only the blocks whose key scores
+    at least thr (the listed band, segments of at most IDS_CAP blocks),
+    else every block; raw takes no keys (a raw row that needs the band
+    always flags at its (KV+1)-th lane, before any block). Checks the
+    arguments as check_phrase_inputs does, launches on the current stream
+    (the words zeroed first) and does not synchronize."""
     band = (top_cs, top_cl, thr, kth_doc)
     dev, B, mode = _phrase_checked("phrase_band", plane, slots, weights,
                                    T=T, N_pad=N_pad, KV=KV,
                                    len_code=len_code, avg32=avg32,
-                                   band=band)
+                                   band=band, bkeys=bkeys)
     hit = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return hit
     NB = N_pad // 128
-    p = plan(B, T, NB, KV, mode, resident_for(mode, T, KV, dev, kind="band"),
-             kind="band")
+    listed = bkeys is not None and mode == "tc"
+    p = plan(B, T, NB, KV, mode,
+             resident_for(mode, T, KV, dev, listed, kind="band"),
+             listed=listed, kind="band")
     _launch(lambda f: f.scan,
             _phrase_params("band", p, plane, slots, weights, T=T,
                            N_pad=N_pad, KV=KV, nblk=NB, len_code=len_code,
-                           avg32=avg32, band=band, hit=hit.data_ptr()),
+                           avg32=avg32, band=band, hit=hit.data_ptr(),
+                           bkeys=bkeys.data_ptr() if listed else 0),
             dev, "phrase_band")
     launch_counts["phrase_band" + ("_tc" if mode == "tc" else "")] += 1
     return hit

@@ -13,9 +13,13 @@ verification of the KV kept lanes (a warp a lane), the top M with its
 flags and tfs. `list_phrase` computes engine/kernels.list_phrase_torch
 (the list chain: make_match_kernel with the bi-bloom gate,
 make_phrase_verify_kernel, make_select_topk_kernel, or their tc forms)
-in one launch, one CTA a
-query holding its L <= 1,024 lanes in shared memory; `gate=False` leaves
-the bloom gate out (a compile-time switch of the kernel). tc columns
+in one launch: a query's L <= 1,024 lanes in segments of one cluster
+planned over the card (`list_plan`), a thread a lane through the match
+and the gate, a thread a (lane, term) and a (lane, base) through the
+bags and the verification of the round's active lanes, the verified
+lanes pushed through distributed shared memory into the cluster's first
+CTA, which takes their top M; `gate=False` leaves the bloom gate out (a
+compile-time switch of the kernel). tc columns
 score from dense.cu's device table (ops/dense.tc_table, launched first
 and counted as dense_tc_table), so no lane divides.
 
@@ -48,6 +52,18 @@ MAX_T = 8  # terms at most (phrase_route.cu kMaxT)
 LIST_MAX_L = 1024  # the list chain's lanes at most (kListMaxL)
 OUT_WARPS = 8  # the semidense phrase output kernel's queries a CTA
 MAX_SMEM = 232_448  # the shared bytes an H100 block can opt into
+# the list chain (phrase_route.cu list_kernel): a CTA of LIST_THREADS, a
+# round of that many lanes a thread each; a segment holds whole warps of
+# lanes (LIST_ROUND); the query's (T,) rows in shared memory (ListQuery:
+# 4 int32 or f32 words a slot)
+LIST_THREADS = 256
+LIST_ROUND = 32
+LIST_QUERY_BYTES = 4 * 4 * MAX_T
+# a group's segments: as many as bring each to LIST_SEG_LANES lanes (one
+# round), within LIST_CTAS_PER_SM CTAs an SM over the group (PERF.md §6:
+# the forced counts at the engines' groups)
+LIST_SEG_LANES = 256
+LIST_CTAS_PER_SM = 2
 
 
 def _pow2(n: int) -> int:
@@ -84,11 +100,40 @@ def plan_semidense(B: int, T: int, KV: int, PW: int, M: int) -> SdpPlan:
 @functools.lru_cache(maxsize=1024)
 def plan_list(T: int, L: int) -> int:
     """The list kernel's shared bytes a CTA (phrase_route.cu list_layout):
-    2 counters, pidx, ps and pe (T, L) int32 each, the counts and the
-    active lanes (L) int32, the saturation bytes and the keys (the power
-    of 2 >= L)."""
-    return (16 + 3 * _align16(4 * T * L) + 2 * _align16(4 * L)
-            + _align16(L) + 8 * _pow2(L))
+    2 counters (16 B), the query's rows (LIST_QUERY_BYTES), a round's
+    active lanes (LIST_THREADS of: lane, score, count, saturation, T
+    posting indices, T bag starts and ends, int32 each), the verified
+    keys (the power of 2 >= L), their posting indices (T, L) int32, their
+    saturation bytes (L) and a flush's scratch."""
+    return (16 + LIST_QUERY_BYTES + 4 * LIST_THREADS * (4 + 3 * T)
+            + 8 * _pow2(L) + _align16(4 * T * L) + _align16(L)
+            + _align16(_D.FLUSH_BYTES))
+
+
+class ListPlan(NamedTuple):
+    """How list_phrase runs one (B, T, L) group."""
+    nseg: int  # CTAs a query, one cluster
+    seg_lanes: int  # lanes a CTA, whole warps of LIST_ROUND
+    smem: int  # dynamic shared bytes a CTA (plan_list)
+
+
+def segment_plan(L: int, nseg: int, T: int) -> ListPlan:
+    """nseg segments of L lanes (as far as the lanes allow), whole warps
+    of lanes each."""
+    rounds = -(-L // LIST_ROUND)
+    seg_lanes = -(-rounds // max(1, min(nseg, rounds))) * LIST_ROUND
+    return ListPlan(-(-L // seg_lanes), seg_lanes, plan_list(T, L))
+
+
+@functools.lru_cache(maxsize=4096)
+def list_plan(B: int, T: int, L: int, sms: int) -> ListPlan:
+    """The list chain's segments on a card of `sms` SMs: as many as bring
+    each to LIST_SEG_LANES lanes (a thread a lane, one round), at most
+    LIST_CTAS_PER_SM CTAs an SM over the group and a cluster's
+    MAX_CLUSTER, at least one."""
+    n = max(1, min(_SD.MAX_CLUSTER, -(-L // LIST_SEG_LANES),
+                   LIST_CTAS_PER_SM * sms // max(B, 1)))
+    return segment_plan(L, n, T)
 
 
 def reset_launch_counts() -> None:
@@ -236,7 +281,8 @@ class _ListParams(ctypes.Structure):
         "doc n_doc score n_score tf n_tf tc n_tc norm_g positions n_pos u16 "
         "pos_starts n_ps bloom_rows n_rows bloom_bitmap n_bitmap bloom_rank "
         "probe_slot probe_begins probe_mask probe_active C gate starts ends "
-        "weights slot_of B T L PP M n_iters n_pos_iters out smem").split()]
+        "weights slot_of B T L PP M n_iters n_pos_iters out smem nseg "
+        "seg_lanes").split()]
 
 
 class _Fns:
@@ -341,8 +387,9 @@ def list_phrase(postings_doc, col, positions, pos_starts, starts, ends,
     on CUDA tensors (raw: col the f32 scores and postings_tf; tc: col the
     tc lanes and avg32). Checks the arguments (ValueError before any
     launch), allocates the output, launches on the current stream (tc:
-    the table kernel first) and does not synchronize. gate=False leaves
-    the bloom gate out (the bloom and probe arguments are not read)."""
+    the table kernel first; the group's segments by list_plan) and does
+    not synchronize. gate=False leaves the bloom gate out (the bloom and
+    probe arguments are not read)."""
     kw = dict(T=T, L=L, PP=PP, M=M, n_bs_iters=n_bs_iters,
               n_pos_iters=n_pos_iters, postings_tf=postings_tf, avg32=avg32,
               gate=gate)
@@ -358,6 +405,7 @@ def list_phrase(postings_doc, col, positions, pos_starts, starts, ends,
     if B == 0:
         return out
     norm = _D.tc_table(avg32) if tc else None
+    p = list_plan(B, T, L, _SD.sms_of(dev))
     g = (bloom_rows, bloom_bitmap, bloom_rank, probe_slot, probe_begins,
          probe_mask, probe_active) if gate else (None,) * 7
     params = _ListParams(
@@ -373,7 +421,8 @@ def list_phrase(postings_doc, col, positions, pos_starts, starts, ends,
         _ptr(g[4]), _ptr(g[5]), _ptr(g[6]),
         g[3].shape[1] if gate else 0, int(gate), starts.data_ptr(),
         ends.data_ptr(), weights.data_ptr(), slot_of.data_ptr(), B, T, L, PP,
-        M, n_bs_iters, n_pos_iters, out.data_ptr(), plan_list(T, L))
+        M, n_bs_iters, n_pos_iters, out.data_ptr(), p.smem, p.nseg,
+        p.seg_lanes)
     _run(_kernel_fns().list, params, dev, "list_phrase")
     launch_counts["list_phrase_tc" if tc else "list_phrase"] += 1
     return out

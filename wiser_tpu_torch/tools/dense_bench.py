@@ -876,29 +876,36 @@ def select_call(plain: bool, p: dict, q: dict, mode: str, KV: int,
                 path=None):
     """full_phrase_select (the kernels on a card; `path` forces
     ops/dense.select_path's answer there, forced_path) or its plain
-    version."""
+    version, as (top_cs, top_cl, bkeys): the selection's block keys for
+    the listed band, None where the path took one pass, for the plain
+    version, or in a tree whose selection returns two outputs."""
     from wiser_tpu_torch.engine import kernels as K
 
     args, kw = _phrase_args(p, q, mode, KV)
     if not plain:
         with forced_path(path):
-            return K.full_phrase_select(*args, **kw)
+            sel = tuple(K.full_phrase_select(*args, **kw))
+        return sel if len(sel) == 3 else sel + (None,)
     rows_f32, _ = K._phrase_rows(*args, len_code=kw.get("len_code"),
                                  avg32=kw.get("avg32"))
     return K.full_phrase_select_torch(rows_f32, T=kw["T"],
-                                      N_pad=kw["N_pad"], KV=KV)
+                                      N_pad=kw["N_pad"], KV=KV) + (None,)
 
 
 def band_call(plain: bool, p: dict, q: dict, mode: str, KV: int, sel, thr,
-              kth_doc=None):
-    """full_phrase_band (the kernel on a card) or its plain version, on the
-    selection sel = (top_cs, top_cl)."""
+              kth_doc=None, bkeys=None):
+    """full_phrase_band (the kernel on a card: with the selection's block
+    keys bkeys the listed band, else the stream over every block) or its
+    plain version, on the selection sel = (top_cs, top_cl[, bkeys]): the
+    keys passed are bkeys, not sel's."""
     from wiser_tpu_torch.engine import kernels as K
 
     args, kw = _phrase_args(p, q, mode, KV)
     kth = kth_doc if mode == "tc" else None
     if not plain:
-        return K.full_phrase_band(*args, *sel, thr, kth_doc=kth, **kw)
+        if bkeys is not None:
+            kw["bkeys"] = bkeys
+        return K.full_phrase_band(*args, *sel[:2], thr, kth_doc=kth, **kw)
     rows_f32, payload = K._phrase_rows(*args, len_code=kw.get("len_code"),
                                        avg32=kw.get("avg32"))
     return K.full_phrase_band_torch(rows_f32, sel[1], thr, T=kw["T"],
@@ -909,9 +916,10 @@ def band_call(plain: bool, p: dict, q: dict, mode: str, KV: int, sel, thr,
 def check_select(kern, plain, KV: int, what: str) -> dict:
     """The selections bit-equal at every place: score bits and lanes (the
     canonical top KV + 1 on both sides, ops/dense.py), in (score desc,
-    lane asc) order, -inf and -1 past the matched lanes."""
-    ks_, kl = _np(kern)
-    ps, pl = _np(plain)
+    lane asc) order, -inf and -1 past the matched lanes. Either may carry
+    its block keys third (select_call), which are not compared."""
+    ks_, kl = _np(kern[:2])
+    ps, pl = _np(plain[:2])
     for name, got, want in (("score bits", ks_.view(np.int32),
                              ps.view(np.int32)), ("lanes", kl, pl)):
         rows = np.nonzero((got != want).any(axis=1))[0]
@@ -929,6 +937,43 @@ def check_select(kern, plain, KV: int, what: str) -> dict:
             "full_rows": int(fin.sum()), "max_abs_err": 0.0}
 
 
+def key_scores(bkeys):
+    """(scores, valid) of the sweep's (B, NB) block keys as numpy: each
+    key's f32 score (keys.cuh tile_key_score) and whether it is a match
+    (key 0: a block with no matched lane)."""
+    k = bkeys.cpu().numpy().view(np.uint64)
+    u = (k >> np.uint64(32)).astype(np.uint32)
+    bits = np.where(u & np.uint32(0x80000000), u & np.uint32(0x7FFFFFFF),
+                    ~u).astype(np.uint32)
+    bits = np.where((k & np.uint64(1)) != 0, np.uint32(0x80000000), bits)
+    return bits.view(np.float32), k != 0
+
+
+def listed_blocks(bkeys, thr) -> np.ndarray:
+    """(B,) the blocks the listed band streams for each query: those whose
+    sweep key is a match scoring at least thr."""
+    sc, valid = key_scores(bkeys)
+    t = thr.cpu().numpy().astype(np.float32)
+    return (valid & (sc >= t[:, None])).sum(axis=1)
+
+
+def band_bound_bytes(slots, mode: str, N_pad: int, K: int, need, hit,
+                     listed=None, per_query: bool = False) -> int:
+    """The band pass's least bytes: phrase_bound_bytes with the lanes it
+    must read, none for a row that does not need the band, one for a row
+    that flags, and for a needing row that finds nothing every lane, or,
+    listed ((B,) listed_blocks), its listed blocks' lanes and its NB block
+    keys."""
+    need = np.asarray(need, dtype=bool)
+    hit = np.asarray(hit, dtype=bool)
+    rest = np.full(len(need), N_pad) if listed is None \
+        else np.asarray(listed) * 128
+    lanes = np.where(need, np.where(hit, 1, rest), 0)
+    keys = 0 if listed is None else int((need & ~hit).sum()) * (N_pad // 128) * 8
+    return phrase_bound_bytes(slots, mode, N_pad, K, per_query,
+                              lanes=lanes) + keys
+
+
 def band_cases(sel, mode: str, N_pad: int):
     """(name, thr, kth_doc) cases of the band on a selection (device
     tensors): thr past every (KV+1)-th score (no row needs the band), at
@@ -937,7 +982,7 @@ def band_cases(sel, mode: str, N_pad: int):
     stream runs), at doc 0 and past the last doc."""
     import torch
 
-    cs, cl = sel
+    cs, cl = sel[:2]
     unseen = cs[:, -1]
     fin = torch.isfinite(unseen)
     top = unseen[fin].max() if bool(fin.any()) else torch.tensor(1.0)
@@ -964,7 +1009,9 @@ def check_phrase_cases(dev, seed: int = 0, H: int = 12,
     padding); each selection also by the path its plan did not take
     (ops/dense.select_path: the one pass, and threshold first wherever
     the doc space has K blocks); the band word bit-equal on each
-    selection at every band_cases case; the band's stream on tc planes of
+    selection at every band_cases case, run as the engine runs it (tc
+    listed by the selection's block keys where it gave them, else over
+    every block); the band's stream on tc planes of
     one payload (it reads every lane and finds nothing) with a lane of
     another payload at the last doc (it finds it at its last step); and
     planes of one score in every lane of 2,048 blocks, raw and tc, B 1
@@ -979,7 +1026,7 @@ def check_phrase_cases(dev, seed: int = 0, H: int = 12,
     rows_need = [0, 0]
 
     def one(p, q, mode, KV, what, **kw):
-        sel = select_call(False, p, q, mode, KV)
+        *sel, bk = select_call(False, p, q, mode, KV)
         want = select_call(True, p, q, mode, KV)
         row = check_select(sel, want, KV, what)
         # the path the plan did not take, where the doc space allows it
@@ -992,12 +1039,17 @@ def check_phrase_cases(dev, seed: int = 0, H: int = 12,
                 row[f"path_{path}"] = True
         N_pad = (p["tf8"] if mode == "tc" else p["sc"]).shape[1]
         for name, thr, kd in band_cases(sel, mode, N_pad):
-            got = band_call(False, p, q, mode, KV, sel, thr, kd)
+            # as the engine runs it: listed where the selection gave
+            # block keys (tc; a raw row takes none), else every block
             want = band_call(True, p, q, mode, KV, sel, thr, kd)
+            got = band_call(False, p, q, mode, KV, sel, thr, kd, bk)
             if not torch.equal(got, want):
                 raise AssertionError(
                     f"{what} band {name}: words differ: kernel "
                     f"{got.tolist()[:16]} plain {want.tolist()[:16]}")
+            if bk is not None:
+                row["listed_band_cases"] = row.get("listed_band_cases",
+                                                   0) + 1
             need = sel[0][:, -1] >= thr
             rows_need[0] += int(need.sum())
             rows_need[1] += int(got.sum())
@@ -1055,6 +1107,40 @@ def check_phrase_cases(dev, seed: int = 0, H: int = 12,
                                  f"{got.tolist()} plain {want.tolist()}")
         cases.append({"kind": "band_stream", "mode": "tc", "rows": 1,
                       "hit": int(got[0]), "what": f"stream {rows}",
+                      "max_abs_err": 0.0})
+    # the listed band (tc, 2,048 blocks, threshold first): tf 5 in blocks
+    # 0-15 (2,048 lanes: the selection keeps the first 1,025), tf 2
+    # elsewhere but one lane of tf 4 in block 2,000; the k-th doc at the
+    # (KV+1)-th lane, a payload tie of every tf-5 lane. At thr = that
+    # lane's score only it flags, from a block the selection never
+    # listed, and the band lists blocks 0-15 and 2,000; just above it
+    # nothing flags
+    NB = 2048
+    tf8 = np.full((1, NB * 128), 2, dtype=np.uint8)
+    tf8[0, :16 * 128] = 5
+    x = 2000 * 128 + 77
+    tf8[0, x] = 4
+    p = to_device({"tf8": tf8, "code": np.full(NB * 128, 40, np.uint8),
+                   "avg32": np.float32(57.25)}, dev)
+    q = to_device(phrase_slots(1, 1, 1, seed, rows=[[0]]), dev)
+    *sel, bk = select_call(False, p, q, "tc", 1024)
+    check_select(sel, select_call(True, p, q, "tc", 1024), 1024,
+                 "listed band edge")
+    args, kw = _phrase_args(p, q, "tc", 1024)
+    rows_f32, _ = K._phrase_rows(*args, len_code=kw["len_code"],
+                                 avg32=kw["avg32"])
+    sx = K._phrase_score(rows_f32, 1)[:, x].contiguous()
+    kd = sel[1][:, -1].contiguous()
+    for thr, hit, listed in ((sx, 1, 17), (torch.nextafter(
+            sx, torch.full_like(sx, float("inf"))), 0, 16)):
+        got = band_call(False, p, q, "tc", 1024, sel, thr, kd, bk)
+        want = band_call(True, p, q, "tc", 1024, sel, thr, kd)
+        n = int(listed_blocks(bk, thr)[0]) if bk is not None else None
+        if not torch.equal(got, want) or int(got[0]) != hit or n != listed:
+            raise AssertionError(f"listed band edge: kernel {got.tolist()} "
+                                 f"plain {want.tolist()}, {n} blocks listed")
+        cases.append({"kind": "band_listed", "mode": "tc", "rows": 1,
+                      "hit": hit, "listed": n, "what": "listed band edge",
                       "max_abs_err": 0.0})
     # one score everywhere: every block key ties at kappa's score
     NB = 2048
@@ -1188,14 +1274,20 @@ def time_phrase_shapes(dev, mode: str = "raw", planes=None,
     """The phrase's kernels and plain versions at the engine's groups on
     `planes` (synthetic 1M planes by default): at each (B, T) of `shapes`
     and each KV of KVs, the selection (compared with check_select) and the
-    band pass at two thresholds: `skip`, past every (KV+1)-th score (no
-    row needs the band: the usual group), and `stream`, at each row's
-    (KV+1)-th score (raw: that lane flags itself; tc: with the k-th doc
-    at that lane, a payload tie, every lane is read until a band lane).
-    Each timed (`_time`: turns with the plain version, an L2 flush, each
-    launch by torch.profiler, host cost), its peak memory above the
-    inputs and its bytes bound."""
+    band pass as the engine runs it (listed, on the selection's block
+    keys, where it took the threshold-first path) at two thresholds:
+    `skip`, past every (KV+1)-th score (no row needs the band: the usual
+    group), and `stream`, at each row's (KV+1)-th score (raw: that lane
+    flags itself; tc: with the k-th doc at that lane, a payload tie, every
+    listed block is read until a band lane); where it was listed, also
+    `stream_all`, the same band over every block. Each timed (`_time`:
+    turns with the plain version, an L2 flush, each launch by
+    torch.profiler, host cost; the band also queued behind a sleep), its
+    peak memory above the inputs and its bytes bound (the band's:
+    band_bound_bytes)."""
     import torch
+
+    from wiser_tpu_torch.tools.search_bench import queued_ms
 
     p = planes if planes is not None else planes_1m(dev, seed)
     H, N_pad = (p["tf8"] if mode == "tc" else p["sc"]).shape
@@ -1218,7 +1310,7 @@ def time_phrase_shapes(dev, mode: str = "raw", planes=None,
             def sel_p(q=q, KV=KV):
                 return select_call(True, p, q, mode, KV)
 
-            sel = sel_k()
+            *sel, bk = sel_k()
             row = dict(head, kind="phrase_select")
             if compare:
                 row["check"] = check_select(sel, sel_p(), KV,
@@ -1232,11 +1324,21 @@ def time_phrase_shapes(dev, mode: str = "raw", planes=None,
             fin = torch.isfinite(unseen)
             top = float(unseen[fin].max()) if bool(fin.any()) else 1.0
             kd = sel[1][:, -1].clamp(min=0).contiguous()
-            for name, thr in (
-                    ("skip", torch.full_like(unseen, top * 2 + 1)),
-                    ("stream", torch.where(fin, unseen, 1.0).contiguous())):
-                def band_k(q=q, KV=KV, thr=thr):
-                    return band_call(False, p, q, mode, KV, sel, thr, kd)
+            # the band as the engine runs it (listed where the selection
+            # gave block keys) at `skip`, and at `stream` both listed and,
+            # where it was, over every block (`stream_all`)
+            for name, thr, keys in (
+                    ("skip", torch.full_like(unseen, top * 2 + 1), bk),
+                    ("stream", torch.where(fin, unseen, 1.0).contiguous(),
+                     bk),
+                    ("stream_all", torch.where(fin, unseen,
+                                               1.0).contiguous(), None)):
+                if name == "stream_all" and bk is None:
+                    continue
+
+                def band_k(q=q, KV=KV, thr=thr, keys=keys):
+                    return band_call(False, p, q, mode, KV, sel, thr, kd,
+                                     keys)
 
                 def band_p(q=q, KV=KV, thr=thr):
                     return band_call(True, p, q, mode, KV, sel, thr, kd)
@@ -1248,17 +1350,23 @@ def time_phrase_shapes(dev, mode: str = "raw", planes=None,
                                          f"words differ")
                 row["flagged"] = int(got.sum())
                 # the lanes the band must read: none for a row that does
-                # not need it, every lane of one that needs it and finds
+                # not need it, every lane (listed: its listed blocks' lanes
+                # and its block keys) of one that needs it and finds
                 # nothing, at least one of one that flags
                 need = (sel[0][:, -1] >= thr).cpu().numpy()
                 hit = got.cpu().numpy() != 0
-                lanes = np.where(need, np.where(hit, 1, N_pad), 0)
+                listed = None if keys is None else listed_blocks(keys, thr)
                 row["need_rows"] = int(need.sum())
+                if listed is not None:
+                    row["listed_blocks"] = int(listed[need & ~hit].sum())
                 record(row, band_k, band_p,
-                       phrase_bound_bytes(s, mode, N_pad, KV + 1,
-                                          lanes=lanes),
-                       phrase_bound_bytes(s, mode, N_pad, KV + 1, True,
-                                          lanes=lanes))
+                       band_bound_bytes(s, mode, N_pad, KV + 1, need, hit,
+                                        listed),
+                       band_bound_bytes(s, mode, N_pad, KV + 1, need, hit,
+                                        listed, True))
+                # queued behind a sleep: no host gap in the reading
+                row["queued_ms"] = queued_ms(band_k, iters)
+                row["queued_share"] = row["bound_ms"] / row["queued_ms"]
     return rows
 
 
@@ -1692,7 +1800,8 @@ def measure(root: str, index=None, routes: str = ROUTES,
 
 def summary(runs: list) -> dict:
     """Per run: each shape's [device ms, flushed ms, host us, bound
-    share] (on the index's planes: keys prefixed engine_), and each route
+    share] and, where read (the band), its queued ms (on the index's
+    planes: keys prefixed engine_), and each route
     set's [untraced wall s, traced device busy ms, device ms of the dense
     kernels in the traced pass, busy share]."""
     res = []
@@ -1706,7 +1815,8 @@ def summary(runs: list) -> dict:
                     key = (f"{prefix}{x['kind']}_{x.get('mode', mode)}"
                            f"_B{x['B']}_T{x['T']}{kv}")
                     s[key] = [x["device_ms"], x["flushed_ms"], x["host_us"],
-                              x["share"]]
+                              x["share"]] + ([x["queued_ms"]]
+                                             if "queued_ms" in x else [])
         for columns, sets in r.get("routes", {}).items():
             for name, row in sets.items():
                 traced = row.get("traced") or {}

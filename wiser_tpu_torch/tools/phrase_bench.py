@@ -6,6 +6,7 @@ by the route each query takes.
 
     python -m wiser_tpu_torch.tools.phrase_bench [--check-only] [--out r.json]
     python -m wiser_tpu_torch.tools.phrase_bench --probe [--out r.json]
+    python -m wiser_tpu_torch.tools.phrase_bench --tune-list [--out r.json]
     python -m wiser_tpu_torch.tools.phrase_bench --split --index IDX \
         [--sets phrase_mixed,phrase_mega] [--select-path one|two] --out r.json
     python -m wiser_tpu_torch.tools.phrase_bench --trees OLD,.,.,OLD \
@@ -16,17 +17,21 @@ and `list_phrase_cases` run raw and tc columns at T 2-4 over synthetic
 columns with planted phrases (`synth_columns`, `phrase_batch`): ties
 straddling the (KV+1)-th lane, fewer than KV + 1 matches, absent bloom
 rows and an all-inactive probe set, PP larger than a bag, a bag holding
-65,535, bags in no sorted order, the list kernel without its gate, and
-(SDP_EDGE_CASES) the segmented selection's edges: B 1 over a cluster's
-8 segments with ties across their edges, B 8 at L 2,049, a recovery
-past its iteration count; each packed (B, T+2, M) output must equal the
-plain version's bit for bit. `time_semidense_phrase` and
-`time_list_phrase` time the entry points at synthetic 1M shapes (the
-semidense phrase: B 128, T 2, L 2,048 and 32,768, KV 1,024, and the
-engines' B 8 and 32 groups, SDP_ENGINE; the list chain: B 1,024, T 2-3,
-L 128-1,024) in turns with the plain versions (semidense_bench.time_pair:
-CUDA events, an L2-flushed reading, torch.profiler per launch, host µs,
-peak memory above the inputs, the bytes bound).
+65,535, bags in no sorted order, every list case also without its gate
+(on a card), a list group over a cluster's 8 segments with ties across
+their edges and hundreds of verified lanes, and (SDP_EDGE_CASES) the
+segmented selection's edges: B 1 over a cluster's 8 segments with ties
+across their edges, B 8 at L 2,049, a recovery past its iteration
+count; each packed (B, T+2, M) output must equal the plain version's
+bit for bit. `time_semidense_phrase` and `time_list_phrase` time the
+entry points at synthetic 1M shapes (the semidense phrase: B 128, T 2,
+L 2,048 and 32,768, KV 1,024, and the engines' B 8 and 32 groups,
+SDP_ENGINE; the list chain: the engines' B 8 and 128 groups at T 2-4, L
+128-1,024, LIST_ENGINE, and B 1,024, LIST_TIME) in turns with the plain
+versions (semidense_bench.time_pair: CUDA events, calls queued behind a
+sleep, an L2-flushed reading, torch.profiler per launch, host µs, peak
+memory above the inputs, the bytes bound). `--tune-list` forces the list
+chain's segments a query at LIST_ENGINE (tune_list).
 
 `--split` runs route_bench's phrase sets of a saved index (pairs from
 `<index>/phrase_pairs.json`), raw and tc: one untraced pass records the
@@ -37,14 +42,16 @@ device ms splits by route; each phrase group's peak device memory above
 its inputs is kept by route; `--select-path` forces the full-scan
 selection's path for the run. `--trees` measures each listed tree in its
 own process (tools/unpack_bench.run_trees): the semidense phrase route
-at the timed shapes, then, with `--index`, the split. `--probe` reads the
-semidense phrase route's phase cycles from a measuring build (clock64()
-marks, csrc/clocks.cuh; tools/dense_bench.clocks_build, phase_split).
+and the list chain at the timed shapes, then, with `--index`, the split.
+`--probe` reads the semidense phrase route's and the list chain's phase
+cycles from a measuring build (clock64() marks, csrc/clocks.cuh;
+tools/dense_bench.clocks_build, phase_split; LIST_GROUPS).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -456,6 +463,11 @@ LIST_CASES = (
      False, False, False),
     ("short_l", 16, 2048, (60, 1500, 1200, 900), 8, 3, 128, 4, 64, True,
      False, False),
+    # B 2 over a cluster's 8 segments, quantized scores tied across their
+    # edges, hundreds of verified lanes (the top M cut by the radix
+    # select past 256 keys)
+    ("many_verified", 17, 4096, (1000, 4000, 3900, 3800), 2, 2, 1024, 8, 16,
+     True, True, True),
 )
 
 
@@ -514,8 +526,9 @@ def semidense_phrase_cases(dev, modes=("raw", "tc")) -> dict:
 
 def list_phrase_cases(dev, modes=("raw", "tc")) -> dict:
     """Every LIST_CASES case, raw and tc: the kernel's packed output equal
-    to the plain version's bit for bit; the gate-off kernel against the
-    plain version with every probe inactive."""
+    to the plain version's bit for bit; on a card each also by the
+    gate-off kernel against the plain version with every probe
+    inactive."""
     from wiser_tpu_torch.engine import kernels as K
     from wiser_tpu_torch.ops import phrase_route as R
 
@@ -528,10 +541,10 @@ def list_phrase_cases(dev, modes=("raw", "tc")) -> dict:
                                 K.list_phrase_torch(*args, **kw),
                                 f"list phrase {row}"))
             rows.append(row)
-            if case[0] == "t3" and dev.type == "cuda":
+            if dev.type == "cuda":
                 off = list(args)
                 off[14] = args[14] & False  # no active probe
-                r2 = {"case": "t3_gate_off", "mode": mode}
+                r2 = {"case": f"{case[0]}_gate_off", "mode": mode}
                 r2.update(_summary(R.list_phrase(*args, gate=False, **kw),
                                    K.list_phrase_torch(*off, **kw),
                                    f"list phrase {r2}"))
@@ -623,6 +636,21 @@ SDP_TIME = ((128, 2, 2048), (128, 2, 32768))
 # serve phase: B 8 at every L bucket, then B 32; PERF.md §6)
 SDP_ENGINE = ((8, 2, 2048), (8, 2, 8192), (8, 2, 32768), (32, 2, 32768))
 LIST_TIME = ((1024, 2, 128), (1024, 2, 1024), (1024, 3, 1024))
+# the list groups the engines call: the serve phase's B 8 and the dense
+# and harness phases' B 128, T 2-4, L 128-1,024 (PERF.md §6)
+LIST_ENGINE = ((8, 2, 128), (8, 2, 512), (8, 2, 1024), (8, 3, 512),
+               (128, 2, 128), (128, 2, 512), (128, 2, 1024), (128, 3, 512),
+               (128, 4, 1024))
+# the list kernel's marks (list_kernel, counters 14-21): a CTA's rounds
+# (the match and gate, the bags, the verification and the push, then the
+# wait at the cluster's last barrier) over its CTAs in 20; the first
+# CTA's top M and output over those CTAs in 21
+LIST_GROUPS = (("rounds", ("match", "bags", "verify", "push", "wait"), 14,
+                20, {}),
+               ("top", ("top",), 19, 21, {}))
+# the list chain's forced segments a query (--tune-list; None: the
+# plan's)
+TUNE_LIST = (None, 1, 2, 3, 4, 8)
 # the phase marks of phrase_route.cu's measuring build (WISER_CLOCKS,
 # csrc/clocks.cuh), as tools/dense_bench.phase_split reads them: the
 # selection's (csrc/segsel.cuh) candidates, dense gathers, key pushes with
@@ -735,27 +763,114 @@ def probe(dev, shapes=SDP_TIME + SDP_ENGINE[:1], modes=("raw", "tc"),
     return rows
 
 
-def time_list_phrase(dev, shapes=LIST_TIME, modes=("raw", "tc"),
-                     plain: bool = True, compare: bool = True) -> list:
-    """The list chain at `shapes` on synthetic 1M columns (256 candidate
-    terms of df L - L / 8, heads of df 50,000; PP 8, M min(L, 64)), raw
-    and tc, the bloom gate on."""
-    import torch
-
-    rows = []
+def list_inputs(shapes, modes, dev):
+    """(B, T, L, mode, args, kw) of the list chain at each (B, T, L) of
+    `shapes` on synthetic 1M columns (256 candidate terms of df L - L / 8,
+    heads of df 50,000; PP 8, M min(L, 64); one column set a (T, L)), the
+    bloom gate on."""
+    cols_of = {}
     for B, T, L in shapes:
-        cols = synth_columns(2, N_DOCS_1M, (L - L // 8,) + (50_000,) *
-                             (T - 1), n_cands=256)
+        if (T, L) not in cols_of:
+            cols_of = {(T, L): synth_columns(
+                2, N_DOCS_1M, (L - L // 8,) + (50_000,) * (T - 1),
+                n_cands=256)}
+        cols = cols_of[(T, L)]
         M = min(L, TIME_M)
         batch = phrase_batch(cols, B, T, M, 102)
         for mode in modes:
             args, kw = list_args(cols, batch, mode, dev)
             kw.update(T=T, L=L, PP=8, M=M, n_bs_iters=_iters(50_000),
                       n_pos_iters=_iters(cols["max_tf"]))
-            rows.append(_timed("list_phrase", args, kw, mode, plain, compare,
-                               "list phrase timing"))
+            yield B, T, L, mode, args, kw
+
+
+def time_list_phrase(dev, shapes=LIST_TIME, modes=("raw", "tc"),
+                     plain: bool = True, compare: bool = True) -> list:
+    """The list chain at `shapes` (list_inputs), raw and tc: compared with
+    the plain version (`compare`), timed (`_timed`)."""
+    import torch
+
+    rows = []
+    for B, T, L, mode, args, kw in list_inputs(shapes, modes, dev):
+        rows.append(_timed("list_phrase", args, kw, mode, plain, compare,
+                           "list phrase timing"))
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def forced_list_segments(nseg):
+    """ops/phrase_route.list_plan with `nseg` segments a query (as far as
+    the lanes allow; None: the plan's own rule) while the block runs."""
+    from wiser_tpu_torch.ops import phrase_route as R
+
+    plan = R.list_plan
+    if nseg is not None:
+        R.list_plan = lambda B, T, L, sms: R.segment_plan(L, nseg, T)
+    try:
+        yield
+    finally:
+        R.list_plan = plan
+
+
+def tune_list(dev, shapes=LIST_ENGINE, modes=("raw", "tc"),
+              grid=TUNE_LIST, iters: int = 10) -> list:
+    """The list chain's segments a query forced to each of `grid` at
+    `shapes` (list_inputs): each checked against the plain version, then
+    its queued device ms (search_bench.queued_ms)."""
+    import torch
+
+    from wiser_tpu_torch.engine import kernels as K
+    from wiser_tpu_torch.tools.search_bench import queued_ms
+
+    rows = []
+    for B, T, L, mode, args, kw in list_inputs(shapes, modes, dev):
+        want = K.list_phrase_torch(*args, **kw)
+        row = {"mode": mode, "B": B, "T": T, "L": L, "ms": {}}
+        for forced in grid:
+            with forced_list_segments(forced):
+                _summary(K.list_phrase(*args, **kw), want,
+                         f"list tune {forced} {row}")
+                row["ms"][str(forced)] = queued_ms(
+                    lambda: K.list_phrase(*args, **kw), iters)
+        log(f"list tune {json.dumps(row)}")
+        rows.append(row)
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def probe_list(dev, shapes=LIST_ENGINE, modes=("raw", "tc"),
+               iters: int = 10) -> list:
+    """The list kernel's phase cycles (LIST_GROUPS) by clock64() marks in
+    its measuring build at `shapes` (list_inputs), each beside its
+    event-timed ms in that build."""
+    import torch
+
+    from wiser_tpu_torch.engine import kernels as K
+    from wiser_tpu_torch.ops import phrase_route as PR
+    from wiser_tpu_torch.tools.dense_bench import clocks_build, phase_split
+    from wiser_tpu_torch.tools.search_bench import event_ms
+
+    loaded = PR._kernel_fns()
+    fns = clocks_build("phrase_route", PR._Fns)
+    rows = []
+    try:
+        PR._fns = fns
+        for B, T, L, mode, args, kw in list_inputs(shapes, modes, dev):
+            def fn(args=args, kw=kw):
+                return K.list_phrase(*args, **kw)
+
+            row = dict(kind="list_phrase", mode=mode, B=B, T=T, L=L,
+                       M=kw["M"], ms=event_ms(fn, iters),
+                       **phase_split(fn, fns, groups=LIST_GROUPS))
+            log(f"list phrase probe {json.dumps(row)}")
+            rows.append(row)
             del args
             torch.cuda.empty_cache()
+    finally:
+        PR._fns = loaded
     return rows
 
 
@@ -864,11 +979,13 @@ def measure(root: str, index=None, sets=SETS) -> dict:
 
     if not torch.cuda.is_available():
         raise RuntimeError("phrase_bench measures a card: none is available")
+    dev = torch.device("cuda", 0)
     out = {"tree": root, "card": card_line(),
            "module": os.path.abspath(K.__file__),
-           "timing": time_semidense_phrase(torch.device("cuda", 0),
-                                           SDP_TIME + SDP_ENGINE,
-                                           plain=False, compare=False)}
+           "timing": time_semidense_phrase(dev, SDP_TIME + SDP_ENGINE,
+                                           plain=False, compare=False)
+           + time_list_phrase(dev, LIST_ENGINE + LIST_TIME, plain=False,
+                              compare=False)}
     if index:
         out["split"] = {c: route_split(index, c, sets) for c in ("raw", "tc")}
     return out
@@ -890,8 +1007,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--check-only", action="store_true",
                     help="build and compare the kernels, no timing")
     ap.add_argument("--probe", action="store_true",
-                    help="the semidense phrase route's phase cycles at the "
-                    "timed shapes (a measuring build), then stop")
+                    help="the semidense phrase route's and the list "
+                    "chain's phase cycles at the timed and the engines' "
+                    "shapes (a measuring build), then stop")
+    ap.add_argument("--tune-list", action="store_true",
+                    help="the list chain's segments forced at the engines' "
+                    "shapes (tune_list), then stop")
     args = ap.parse_args(argv)
     sets = [s for s in args.sets.split(",") if s]
     if args.root:
@@ -907,8 +1028,10 @@ def main(argv=None) -> dict:
         res = {"runs": run_trees(__file__, args.trees.split(","), extra)}
         print(json.dumps({"phrase_bench": [
             {"tree": r["tree"], "card": r["card"],
-             **{f"{x['kind']}_{x['mode']}_B{x['B']}_L{x['L']}":
-                [x["device_ms"], x["flushed_ms"], x["share"]]
+             **{f"{x['kind']}_{x['mode']}_B{x['B']}"
+                + (f"_T{x['T']}" if x["kind"] == "list_phrase" else "")
+                + f"_L{x['L']}":
+                [x["device_ms"], x["queued_ms"], x["flushed_ms"], x["share"]]
                 for x in r.get("timing", [])},
              **split_summary(r.get("split", {}))} for r in res["runs"]]}),
             flush=True)
@@ -931,9 +1054,11 @@ def main(argv=None) -> dict:
         load_libraries(("phrase_route", "dense"))
         res["build_s"] = build_log["phrase_route"][0]
         log(build_log["phrase_route"][1])
-        probing = args.probe
-        if probing:
-            res["probe"] = probe(dev)
+        probing = args.probe or args.tune_list
+        if args.probe:
+            res["probe"] = probe(dev) + probe_list(dev)
+        if args.tune_list:
+            res["tune_list"] = tune_list(dev)
         checks = () if probing else (
             ("semidense_phrase_check", semidense_phrase_cases),
             ("list_phrase_check", list_phrase_cases))
@@ -944,7 +1069,7 @@ def main(argv=None) -> dict:
             log(f"{name}: {res[name]}")
         if not (args.check_only or probing):
             res["timing"] = (time_semidense_phrase(dev, SDP_TIME + SDP_ENGINE)
-                             + time_list_phrase(dev))
+                             + time_list_phrase(dev, LIST_ENGINE + LIST_TIME))
         print(json.dumps({k: v for k, v in res.items() if k != "timing"}))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
