@@ -115,8 +115,8 @@ search for phrases). Phases:
             the unpack kernel
   harness   the port's measurement harnesses, called in process on the
             same index (the dense and tc phases' engines when they ran):
-            tools/scale_bench configs 1-4 at 1,024 queries each (batch
-            1,024, 2 in flight; the phrase config from the cached pairs),
+            tools/scale_bench configs 1-4 at 2,048 queries each (batch
+            2,048, 2 in flight; the phrase config from the cached pairs),
             50 sampled per config against the host; tools/parity_audit,
             32 queries per config through the engine with strict_parity
             on, every result verified, flag counts reported;
@@ -139,13 +139,14 @@ search for phrases). Phases:
             phrase prefix; `mesh_staged` (ShardedStagedEngine at a quarter
             of its full residency bytes) over aol, aol_df 1,024 and a 256
             phrase prefix; and tools/shard_ladder.run on the mesh engine
-            (configs 1-4, 128 queries each, 50 sampled). Raises unless
+            (configs 1-4, 256 queries each, 50 sampled). Raises unless
             aol_df takes the dense and semidense routes, aol_df_pruned the
-            pruned one, the phrase prefix the compact one, mesh_tc's
+            pruned one, the phrase prefix the compact and list ones (and,
+            raw and tc, their kernels launch there), mesh_tc's
             postings take <= 0.51 of mesh's bytes, and mesh_staged answers
             some queries hot and stages some cold groups
   tools     the last modules of the port, on one card: tools/
-            wiki_pipeline at 15,000 docs (synthesized enwiki abstract XML
+            wiki_pipeline at 25,000 docs (synthesized enwiki abstract XML
             -> the analyzer of data/corpus -> WITH_BI_BLOOM linedoc -> fast
             builder -> check_posting_list, which must find 0 errors ->
             TorchEngine on the card, 4,096 df-Zipf 1-3-term queries with
@@ -222,9 +223,8 @@ or tc phase and the selection, the band or the verification from kept
 docs did not launch there, or the sweep where the mega chunk's plan
 takes the threshold-first path. The semidense step (semidense on raw
 columns, semidense_tc on tc ones; csrc/semidense.cu) and the phrase
-position verification (csrc/phrase.cu: phrase_verify_docs from kept
-docs, the mega routes; phrase_verify_pidx from posting indices, the
-compact route) are held against their plain
+position verification from kept docs (csrc/phrase.cu:
+phrase_verify_docs, the mega routes) are held against their plain
 versions in the kernel phase (semidense_bench.semidense_cases,
 segment_cases and docs_cases: raw and tc, T 2 to 8 with 0
 to 2 searched others, a mesh shard's doc_base, a deep k, the segmented
@@ -237,8 +237,7 @@ calls (semidense_bench.Recorder: each kind's largest group and most
 called shape, compared and timed after the passes, the kernels line
 reading the largest); the smoke fails if semidense never launched on
 the dense phase, semidense_tc on the tc phase, phrase_verify_docs on
-the dense or tc phase with the phrase set, or phrase_verify_pidx on a
-timed pass whose compact route answered queries. The semidense phrase
+the dense or tc phase with the phrase set. The semidense phrase
 route (semidense_phrase, semidense_phrase_tc;
 csrc/phrase_route.cu: the selection of the KV + 1 best AND keys, the
 recovery and window verification of the kept lanes, the top M) and the
@@ -246,21 +245,33 @@ list chain (list_phrase, list_phrase_tc: a query's lanes in segments of
 one cluster, a thread a lane through match and bloom gate, the round's
 active lanes compacted, a thread a (lane, base) through the
 verification by binary search, the verified keys pushed into the
-cluster's first CTA and their top M taken there, one launch) are held against their plain versions
-in the kernel phase (phrase_bench.semidense_phrase_cases and
-list_phrase_cases: raw and tc, T 2 to 4, ties straddling the (KV+1)-th
+cluster's first CTA and their top M taken there, one launch; without its
+gate, with the kept scores, list_phrase_nogate{,_tc}: the mesh's list
+route) and the compact route (compact_phrase, compact_phrase_tc: the
+semidense phrase route's selection with every slot searched and the
+bi-bloom gate tested on the way, its verification and output with the
+tc lanes' tfs and the kept scores) are held against their plain versions
+in the kernel phase (phrase_bench.semidense_phrase_cases,
+list_phrase_cases and compact_phrase_cases: raw and tc, T 2 to 4, ties
+straddling the (KV+1)-th
 lane, fewer than KV + 1 matches, absent bloom rows, no active probe, PP
 above every bag, a bag holding 65,535, B 1 over 8 segments with ties
 across their edges, a recovery past its iteration count, a list group
 over 8 segments with hundreds of verified lanes, every list case with
-and without the gate; packed outputs bit for bit) and timed there on
+and without the gate, every lane gated out, a candidate run clamped at
+the column's end, a mesh shard's L 131,072 and its B 8 groups at L
+524,288; packed outputs and kept scores bit for bit) and timed there on
 synthetic 1M inputs (the list chain at the engines' B 128 and B 8 groups
-too), then on the dense and tc phases' own calls (phrase_bench.Recorder: each kind's largest group, compared
-and timed after the passes); the smoke fails if a run's mix (the mesh's
-aside: its list route is phrase_body) answered queries on the semidense
-phrase or list route and that route's kernel did not launch on its
-timed pass, or if the raw kernels never launched on the dense phase or
-the tc ones on the tc phase with the phrase set. Every kernel's device
+too), then on the dense, tc, mesh and mesh_tc runs' own calls
+(phrase_bench.Recorder: each kind's largest group, compared bit for bit
+and timed after the passes, the mesh's outside the main path's tally);
+the smoke fails if a run's mix
+(the mesh's aside) answered queries on the semidense phrase, list or
+compact route and that route's kernel did not launch on its timed pass,
+if the raw kernels never launched on the dense phase or the tc ones on
+the tc phase with the phrase set, or if the mesh's phrase mixes answered
+queries on the compact or list route and compact_phrase{,_tc} or
+list_phrase_nogate{,_tc} did not launch there. Every kernel's device
 ms summed over the main path (tools/kernel_tally: each wrapper's calls
 on the timed runs and the harness, mesh, headline and serve phases,
 each call shape timed with its calls queued behind a sleep kernel
@@ -827,8 +838,6 @@ SEMI_KERNELS = (
     ("semidense_tc", "wiser_tpu/engine/kernels.py:989",
      "wiser_tpu_torch/csrc/semidense.cu"),
     ("phrase_verify_docs", "wiser_tpu/engine/kernels.py:1291",
-     "wiser_tpu_torch/csrc/phrase.cu"),
-    ("phrase_verify_pidx", "wiser_tpu/engine/kernels.py:1291",
      "wiser_tpu_torch/csrc/phrase.cu"))
 # the kernel phase's timed shapes on synthetic 1M inputs: the semidense
 # group (T, n_bs, L) at the engine's B, the verification's mega chunk
@@ -912,7 +921,7 @@ def semi_engine_timing(report: dict, name: str, rec) -> dict:
     out = SDB.time_calls(rec)
     torch.cuda.empty_cache()
     report[f"{name}_semi_timing"] = dict(out, wall_s=time.perf_counter() - t0)
-    rows = out["semidense"] + out["verify_docs"] + out["verify_pidx"]
+    rows = out["semidense"] + out["verify_docs"]
     err = max([r["check"]["max_abs_err"] for r in out["semidense"]] + [0.0])
     return semi_rows(rows, err, f"the {name} engine's own calls")
 
@@ -921,27 +930,38 @@ ROUTE_KERNELS = (
     ("semidense_phrase", "wiser_tpu/engine/kernels.py:840"),
     ("semidense_phrase_tc", "wiser_tpu/engine/kernels.py:840"),
     ("list_phrase", "wiser_tpu/engine/kernels.py:465"),
-    ("list_phrase_tc", "wiser_tpu/engine/kernels.py:363"))
+    ("list_phrase_tc", "wiser_tpu/engine/kernels.py:363"),
+    ("compact_phrase", "wiser_tpu/engine/kernels.py:686"),
+    ("compact_phrase_tc", "wiser_tpu/engine/kernels.py:686"),
+    ("list_phrase_nogate", "wiser_tpu/engine/shard.py:227"),
+    ("list_phrase_nogate_tc", "wiser_tpu/engine/shard.py:618"))
 # the kernel phase's timed groups on synthetic 1M inputs: the semidense
 # phrase at the mega chunk's B; the list chain at the engines' B 128 (the
 # kernels line's row) and the serve phase's B 8 (phrase_bench.
-# LIST_ENGINE), and a full list group
+# LIST_ENGINE), and a full list group; the compact route at the resident
+# engine's L 32,768 group (B 128) and a mesh shard's L 131,072 (B 32); the
+# mesh's list route at a shard's B 128
 ROUTE_SDP_SHAPES = ((128, 2, 2048),)
 ROUTE_LIST_SHAPES = ((128, 2, 512), (8, 2, 512), (1024, 2, 1024))
+ROUTE_COMPACT_SHAPES = ((128, 2, 32768), (32, 2, 131072))
+ROUTE_NOGATE_SHAPES = ((128, 2, 512),)
 
 
 def route_kernel_phase(report: dict) -> dict:
-    """The semidense phrase route's and the list chain's kernels against
-    their plain versions on the card (phrase_bench.semidense_phrase_cases
-    and list_phrase_cases), then timed on synthetic 1M inputs in turns
-    with the plain versions. Returns the kernels line's entries."""
+    """The semidense phrase route's, the list chain's (with and without
+    its gate) and the compact route's kernels against their plain
+    versions on the card (phrase_bench.semidense_phrase_cases,
+    list_phrase_cases and compact_phrase_cases), then timed on synthetic
+    1M inputs in turns with the plain versions. Returns the kernels
+    line's entries."""
     import torch
 
     from wiser_tpu_torch.tools import phrase_bench as PB
 
     dev = torch.device("cuda", 0)
     for key, fn in (("semidense_phrase_check", PB.semidense_phrase_cases),
-                    ("list_phrase_check", PB.list_phrase_cases)):
+                    ("list_phrase_check", PB.list_phrase_cases),
+                    ("compact_phrase_check", PB.compact_phrase_cases)):
         t0 = time.perf_counter()
         chk = fn(dev)
         torch.cuda.synchronize()
@@ -950,7 +970,9 @@ def route_kernel_phase(report: dict) -> dict:
             f"bit in {chk['cases']} cases: {report[key]}")
     t0 = time.perf_counter()
     rows = (PB.time_semidense_phrase(dev, shapes=ROUTE_SDP_SHAPES)
-            + PB.time_list_phrase(dev, shapes=ROUTE_LIST_SHAPES))
+            + PB.time_list_phrase(dev, shapes=ROUTE_LIST_SHAPES)
+            + PB.time_compact_phrase(dev, shapes=ROUTE_COMPACT_SHAPES)
+            + PB.time_list_nogate(dev, shapes=ROUTE_NOGATE_SHAPES))
     torch.cuda.empty_cache()
     report["route_kernel_timing"] = {"rows": rows,
                                      "wall_s": time.perf_counter() - t0}
@@ -959,7 +981,8 @@ def route_kernel_phase(report: dict) -> dict:
 
 def route_engine_timing(report: dict, name: str, rec) -> dict:
     """The largest recorded group of each kind (the semidense phrase
-    route, the list chain) of a run's passes, compared and timed after
+    route, the list chain, the compact route) of a run's passes, compared
+    and timed after
     them (phrase_bench.time_calls); these launches come after the passes,
     so the main path's counts do not hold them. Returns the kernels
     line's entries."""
@@ -972,16 +995,16 @@ def route_engine_timing(report: dict, name: str, rec) -> dict:
     torch.cuda.empty_cache()
     report[f"{name}_route_timing"] = dict(out,
                                           wall_s=time.perf_counter() - t0)
-    return PB.kernel_rows(out["semidense_phrase"] + out["list_phrase"],
+    return PB.kernel_rows([r for k in PB.Recorder.KINDS for r in out[k]],
                           f"the {name} engine's own calls")
 
 
 def route_launches(report: dict):
-    """Whether every run mix's timed pass (the mesh's aside) that answered
-    queries on the semidense phrase, the list or the compact route
-    launched that route's kernel (either column mode; the compact
-    route's verification from posting indices) there. Returns ({entry and
-    kernel: [queries, launches]}, [the entries where it did not])."""
+    """Whether every run mix's timed pass (the mesh's aside: mesh_phase
+    checks its own) that answered queries on the semidense phrase, the
+    list or the compact route launched that route's kernel (either column
+    mode) there. Returns ({entry and kernel: [queries, launches]}, [the
+    entries where it did not])."""
     seen, idle = {}, []
     for key, r in report.items():
         if not (isinstance(r, dict) and isinstance(r.get("launches"), dict)
@@ -991,7 +1014,7 @@ def route_launches(report: dict):
         st, ln = r["stats"], r["launches"]
         for route, kernel in (("phrase_semidense", "semidense_phrase"),
                               ("phrase_list", "list_phrase"),
-                              ("phrase_compact", "phrase_verify_pidx")):
+                              ("phrase_compact", "compact_phrase")):
             took = (st.get(f"route_{route}", 0)
                     + st.get(f"hot_route_{route}", 0))
             n = ln.get(kernel, 0) + ln.get(kernel + "_tc", 0)
@@ -1528,10 +1551,11 @@ def serve_phase(report: dict, corpus) -> None:
 # -- harness ------------------------------------------------------------------
 
 # the audit and the memory grid cut from 64 and 2,048 queries when the
-# mesh phase came in, the grid again from 1,024 when the phrase routes'
-# kernels came in, and the scale configs from 2,048 with the list
-# chain's and the band's redesign, to keep the smoke inside its time
-HARNESS_Q, HARNESS_AUDIT, HARNESS_ROUTE_Q, HARNESS_GRID_Q = 1024, 32, 256, 512
+# mesh phase came in and the grid again from 1,024 when the phrase routes'
+# kernels came in, to keep the smoke inside its time (the scale configs'
+# 2,048, cut to 1,024 for a while, restored once the index built beside
+# the kernel phase)
+HARNESS_Q, HARNESS_AUDIT, HARNESS_ROUTE_Q, HARNESS_GRID_Q = 2048, 32, 256, 512
 HARNESS_FRACS = (0.05, 0.25)
 GRID_KEYS = ("budget_bytes", "hot_fraction", "phrase_hot_fraction",
              "dense_fraction", "hot_bytes_used", "device_mem_bytes", "qps",
@@ -1684,11 +1708,11 @@ def harness_summary(h: dict) -> dict:
 
 # the phrase prefix and the shard ladder's queries a config cut from 512
 # and 2,048 when the full-scan phrase's checks came in, and the ladder's
-# to 512 when the semidense and verification checks came in, to 256
-# when the phrase routes' kernels came in and to 128 with the list
-# chain's and the band's redesign, to keep the smoke well inside its time
-# on a slow host
-MESH_SHARDS, MESH_PRUNED_Q, MESH_LADDER_Q = 4, 1024, 128
+# to 512 when the semidense and verification checks came in and to 256
+# when the phrase routes' kernels came in, to keep the smoke well inside
+# its time on a slow host (128 for a while, restored once the index built
+# beside the kernel phase)
+MESH_SHARDS, MESH_PRUNED_Q, MESH_LADDER_Q = 4, 1024, 256
 MESH_PHRASE_Q, MESH_STAGED_PHRASE_Q = 256, 256
 # the aol_df_pruned mix's PRUNED_DENSE_MIN_NB: under the 1,954 blocks a
 # shard holds at 1M docs and 4 shards
@@ -1696,11 +1720,13 @@ MESH_PRUNED_MIN_NB = 1024
 
 
 def mesh_phase(report: dict, packed, pairs, pools: dict, expected: dict,
-               Q: int) -> dict:
+               Q: int, recs: dict) -> dict:
     """The mesh at MESH_SHARDS shards on the card: the dry run, the sharded
     index, the raw / tc / staged mesh engines over the query sets (the
-    smoke's serve and check_parity), the shard ladder. Returns the summary
-    line's object."""
+    smoke's serve and check_parity), the shard ladder. The raw and tc
+    engines' phrase route calls over their mixes (not the ladder's) are
+    recorded into recs[name] (phrase_bench.Recorder), for the caller to
+    hold and time after the phase. Returns the summary line's object."""
     import torch
 
     from wiser_tpu_torch.engine.shard import ShardedEngine, ShardedIndex
@@ -1708,6 +1734,7 @@ def mesh_phase(report: dict, packed, pairs, pools: dict, expected: dict,
                                                      full_residency_bytes)
     from wiser_tpu_torch.tools import scale_bench, shard_ladder
     from wiser_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+    from wiser_tpu_torch.tools.phrase_bench import Recorder
 
     D = MESH_SHARDS
     out = report["mesh"] = {"shards": D}
@@ -1750,6 +1777,8 @@ def mesh_phase(report: dict, packed, pairs, pools: dict, expected: dict,
                         total_full=eng.total_full)
         report[f"{name}_engine"] = info
         log(f"{name} engine: {info}")
+        if name in ("mesh", "mesh_tc"):
+            recs[name] = Recorder().__enter__()
         for mix, (pool, nq, attrs, warm) in mixes.items():
             queries = pools[pool][:nq]
             key = f"{name}_{mix}"
@@ -1770,6 +1799,8 @@ def mesh_phase(report: dict, packed, pairs, pools: dict, expected: dict,
                                or k in ("cold_chunks", "host_fallback_q",
                                         "forced_host_tie_cut"))
                            and v}}
+        if name in recs:
+            recs[name].__exit__(None, None, None)
         if name == "mesh":
             # the shard ladder on the raw mesh engine
             t0 = time.perf_counter()
@@ -1790,6 +1821,13 @@ def mesh_phase(report: dict, packed, pairs, pools: dict, expected: dict,
     def st(key):
         return report[key]["stats"]
 
+    def launched(key, route, kernel):
+        """A mix that answered queries on a phrase route launched its
+        kernel (either column mode) on its timed pass."""
+        ln = report[key]["launches"]
+        return not st(key).get(f"route_{route}", 0) or (
+            ln.get(kernel, 0) + ln.get(kernel + "_tc", 0) > 0)
+
     checks = {
         "mesh_aol_df dense + semidense": st("mesh_aol_df").get("route_dense", 0)
         > 0 and st("mesh_aol_df").get("route_semidense", 0) > 0,
@@ -1797,6 +1835,12 @@ def mesh_phase(report: dict, packed, pairs, pools: dict, expected: dict,
             st("mesh_aol_df_pruned").get("route_pruned", 0) > 0,
         "mesh_phrase compact":
             st("mesh_phrase").get("route_phrase_compact", 0) > 0,
+        "mesh_phrase list":
+            st("mesh_phrase").get("route_phrase_list", 0) > 0,
+        **{f"{key} {route} kernel": launched(key, route, kernel)
+           for key in ("mesh_phrase", "mesh_tc_phrase")
+           for route, kernel in (("phrase_compact", "compact_phrase"),
+                                 ("phrase_list", "list_phrase_nogate"))},
         "mesh_tc postings <= 0.51 of mesh":
             report["mesh_tc_engine"]["device_bytes"]["postings"]
             <= 0.51 * report["mesh_engine"]["device_bytes"]["postings"],
@@ -1824,11 +1868,11 @@ def mesh_phase(report: dict, packed, pairs, pools: dict, expected: dict,
 
 # -- tools ------------------------------------------------------------------
 
-# the pipeline's corpus: 15,000 docs (50,000 before the semidense and
-# verification checks came in, 25,000 before the list chain's and the
-# band's redesign added theirs), so that the smoke's wall stays under its
+# the pipeline's corpus: 25,000 docs (50,000 before the semidense and
+# verification checks came in; 15,000 for a while, restored once it ran
+# beside the index build), so that the smoke's wall stays under its
 # 1,200 s limit on a slow host (the 1M index is the main path's)
-TOOLS_PIPE_DOCS, TOOLS_PIPE_Q, TOOLS_PIPE_PARITY = 15_000, 4096, 200
+TOOLS_PIPE_DOCS, TOOLS_PIPE_Q, TOOLS_PIPE_PARITY = 25_000, 4096, 200
 TOOLS_PRUNE_N, TOOLS_PRUNE_C = 32, (32, 64, 128)
 # gather_probe's defaults: n_pad, B, L, reps
 TOOLS_GATHER = (1_000_448, 128, 8192, 8)
@@ -2392,9 +2436,24 @@ def main() -> int:
         print(json.dumps({"harness": harness_summary(report["harness"])}),
               flush=True)
     if "mesh" in phases:
+        recs = {}
         with tally:
-            mesh = mesh_phase(report, packed, pairs, pools, expected, Q)
+            mesh = mesh_phase(report, packed, pairs, pools, expected, Q,
+                              recs)
         tally.flush("mesh")
+        # the mesh's own compact and gate-off list calls (a shard's L up
+        # to 524,288), held bit for bit against their plain versions and
+        # timed after the phase, outside its tally and launch counts
+        for name, rec in recs.items():
+            for k, entry in route_engine_timing(report, name, rec).items():
+                kerns[k]["mesh_calls"] = {
+                    f: entry[f] for f in ("ms", "timing", "host_us",
+                                          "plain_ms", "bound_ms", "share",
+                                          "shape")}
+            mesh[f"{name}_route_timing_s"] = \
+                report[f"{name}_route_timing"]["wall_s"]
+        del recs
+        torch.cuda.empty_cache()
         print(json.dumps({"mesh": mesh}), flush=True)
         bs_by_phase["mesh"] = sum(
             r["launches"]["bs_search"] for k, r in report.items()

@@ -260,7 +260,7 @@ def test_docs_plain_matches_jax(B, T, NL, PP, PW, opt, it):
     got = SDB.docs_call(TK._verify_docs, t, T, NL, PP, PW, n_iters).numpy()
     np.testing.assert_array_equal(got, _jax_docs(v, T, NL, PP, PW, n_iters))
     assert (got > 0).any() and (got == 0).any()
-    got = SDB.pidx_call(TK._verify_pidx, t, T, NL, PP, PW).numpy()
+    got = SDB.pidx_call(TK._verify_pidx_torch, t, T, NL, PP, PW).numpy()
     np.testing.assert_array_equal(got, _jax_pidx(v, T, NL, PP, PW))
 
 
@@ -307,13 +307,7 @@ def test_checks_refuse_on_either_entry():
         SDB.docs_call(TK._verify_docs, bad, 2, 8, 8, 8, it)
     with pytest.raises(ValueError, match="CUDA"):
         SDB.docs_call(PH.phrase_verify_docs, t, 2, 8, 8, 8, it)
-    bad = dict(t, slot_of=t["slot_of"][:, :1].contiguous())
-    with pytest.raises(ValueError):
-        SDB.pidx_call(TK._verify_pidx, bad, 2, 8, 8, 8)
-    with pytest.raises(ValueError, match="CUDA"):
-        SDB.pidx_call(PH.phrase_verify_pidx, t, 2, 8, 8, 8)
     assert PH.launch_counts["phrase_verify_docs"] == 0
-    assert PH.launch_counts["phrase_verify_pidx"] == 0
 
 
 # -- the group's lower bound and its replay ------------------------------------
@@ -393,7 +387,7 @@ def test_group_search_with_replay_equals_the_fixed_count_search(G):
 def test_mega_routes_run_the_new_plain_versions(monkeypatch):
     """_full_phrase_body and the block-pruned body verify through
     _verify_docs (its plain version on CPU tensors), the compact tail
-    through _verify_pidx."""
+    through _verify_pidx_torch."""
     seen = []
     for name in ("_verify_docs_torch", "_verify_pidx_torch"):
         orig = getattr(TK, name)

@@ -1,6 +1,6 @@
 """The phrase position verification on the CPU (the reference
-engine/kernels._verify_pos_windows_torch, and the kernel's entries in
-ops/phrase.py with their dispatchers _verify_docs and _verify_pidx).
+engine/kernels._verify_pos_windows_torch, and the kernel's entry in
+ops/phrase.py with its dispatcher _verify_docs).
 
 The plain window verification against the JAX package's
 _verify_pos_windows on tools/semidense_bench's position bags (planted
@@ -156,8 +156,7 @@ def test_args_ok_refuses_what_check_inputs_refuses():
             TK._verify_docs(*a, **k)
         with pytest.raises(ValueError):
             PH.phrase_verify_docs(*a, **k)
-    assert PH.launch_counts == {"phrase_verify_docs": 0,
-                                "phrase_verify_pidx": 0}
+    assert PH.launch_counts == {"phrase_verify_docs": 0}
 
 
 def test_cpu_tensors_take_the_plain_version(monkeypatch):
@@ -165,18 +164,11 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
         raise AssertionError("the kernel's entry ran on CPU tensors")
 
     monkeypatch.setattr(PH, "phrase_verify_docs", no_kernel)
-    monkeypatch.setattr(PH, "phrase_verify_pidx", no_kernel)
     args, kw = _good()
     np.testing.assert_array_equal(
         TK._verify_docs(*args, **kw).numpy(),
         TK._verify_docs_torch(*args, **kw).numpy())
-    v = SDB.docs_inputs(2, 3, 10, 8, 32, 3)
-    t = SDB.verify_tensors(v, torch.device("cpu"))
-    np.testing.assert_array_equal(
-        SDB.pidx_call(TK._verify_pidx, t, 3, 10, 8, 32).numpy(),
-        SDB.pidx_call(TK._verify_pidx_torch, t, 3, 10, 8, 32).numpy())
-    assert PH.launch_counts == {"phrase_verify_docs": 0,
-                                "phrase_verify_pidx": 0}
+    assert PH.launch_counts == {"phrase_verify_docs": 0}
 
 
 @pytest.mark.parametrize("T", [1, 2, 3, 4, 8])
@@ -200,18 +192,22 @@ def test_launch_plans_at_engine_shapes(T):
 
 
 def test_bound_bytes_hand_count():
-    """One query, T 2, NL 2 from posting indices over an int16 column:
-    term 0's indices 0 and 3 give the windows [0, 3) and [20, 22), term
-    1's 1 and 5 give [3, 5) and [40, 40) (empty); they touch sectors {0},
-    {1}, {0} and none (2 B a position, 16 a sector): 2 distinct sectors;
-    the pos_starts pairs lie in one sector; then the (1, 2, 2) indices,
-    the (1, 2) slot_of and the 2 counts (4 B each)."""
-    t = {"positions": torch.zeros(64, dtype=torch.int16),
+    """One query, T 2, NL 2 from kept docs over an int16 column, with no
+    search halving (n_iters 0: each term's index is its run's start, 0
+    and 3, so no posting-id sector is read): term 0's window [0, 3) lies
+    in sector 0 and term 1's [20, 22) in sector 1 (2 B a position, 16 a
+    sector); the pos_starts pairs (indices 0, 1, 3, 4) lie in one sector;
+    then the 2 kept docs, the (1, 2) runs' starts and ends, the anchor
+    and the 2 counts (4 B each)."""
+    t = {"postings_doc": torch.arange(8, dtype=torch.int32),
+         "positions": torch.zeros(64, dtype=torch.int16),
          "pos_starts": torch.tensor([0, 3, 5, 20, 22, 40, 40, 40],
                                     dtype=torch.int32),
-         "pidx": torch.tensor([[[0, 3], [1, 5]]], dtype=torch.int32)}
-    want = (2 + 1) * 32 + 4 * 4 + 2 * 4 + 2 * 4
-    assert SDB.pidx_bound_bytes(t, 2, 2, 8) == want
+         "docs": torch.tensor([[1, 2]], dtype=torch.int32),
+         "starts": torch.tensor([[0, 3]], dtype=torch.int32),
+         "ends": torch.tensor([[3, 6]], dtype=torch.int32)}
+    want = (0 + 1 + 2) * 32 + 2 * 4 + 2 * 8 + 4 + 2 * 4
+    assert SDB.docs_bound_bytes(t, 2, 2, 8, 0) == want
 
 
 @pytest.mark.cuda

@@ -1,11 +1,12 @@
 // The phrase steps for Hopper (sm_90a). This file holds the position
-// verification that the mega and compact phrase routes end in.
+// verification that the mega phrase routes end in.
 //
 // Replaces wiser_tpu/engine/kernels.py:1291 _verify_pos_windows
-// (XLA-compiled jnp, not Pallas), which the compact route (:757), the
-// semidense phrase route (:938), the pruned mega phrase (:1540) and the
-// full mega phrase (:1737) call. Its eager torch form
-// (engine/kernels.py _verify_pos_windows_torch, the plain version) builds a
+// (XLA-compiled jnp, not Pallas), which the pruned mega phrase (:1540)
+// and the full mega phrase (:1737) call (the compact route, :757, and
+// the semidense phrase route, :938, verify in phrase_route.cu). Its
+// eager torch form (engine/kernels.py _verify_pos_windows_torch, the
+// plain version) builds a
 // (B, T, NL, PW) window gather and, per term, a (B, NL, PP, PW) compare
 // plane that it reduces with .any(): most of a mega phrase group's device
 // time and all of its peak memory.
@@ -17,8 +18,7 @@
 //     a real window is never clamped), each read clamped into the column;
 //     entry j is valid while j < pe - ps;
 //   - the bases are the anchor term's first PP valid positions minus the
-//     anchor (anchor[b]: 0 on the compact and semidense routes, a query
-//     term on the mega routes);
+//     anchor (anchor[b], a query term);
 //   - a base y counts when every term t holds y + t among its valid
 //     entries (the anchor's own test holds by construction);
 //   - out[b, lane] = the number of bases that count (int32).
@@ -26,30 +26,26 @@
 // pad stays 65535) or int32 (a column past 2^16; its pad is -1).
 //
 // Bound: bytes. The least the step must move is what it is given (the
-// kept docs and the runs, or the posting indices), each (lane, term)'s
-// pos_starts pair, the posting-id sectors a recovery must touch, the
-// distinct 32-byte sectors of each window's valid entries, and the (B,
-// NL) counts (tools/semidense_bench.docs_bound_bytes, pidx_bound_bytes).
+// kept docs and the runs), each (lane, term)'s pos_starts pair, the
+// posting-id sectors a recovery must touch, the distinct 32-byte sectors
+// of each window's valid entries, and the (B, NL) counts
+// (tools/semidense_bench.docs_bound_bytes).
 // The compares are integer work on data in shared memory.
 //
 // Design (group_kernel): the routes pass what they hold, not bag bounds:
-//   - from kept docs (the full-scan and block-pruned mega routes): for
-//     each kept doc, each query term t's posting index in its run
-//     [starts[b, t], ends[b, t]) is recovered inside the kernel, as the
-//     plain version's fixed-count search (engine/kernels._binary_search,
-//     n_iters halvings) finds it: by bound.cuh's G-ary lower bound (G - 1
-//     pivots a round, one ballot, ~log_G of the run's ids dependent reads
-//     where the search takes log2) wherever that search has converged and
-//     the doc lies in the run (bound.cuh recover), and elsewhere by that
-//     search itself, replayed by the term's thread (search_fixed); the
-//     bag bounds are then read from pos_starts (clamped into the column)
-//     and the window verification runs against the query's own anchor
-//     term. This replaces a torch search of n_iters launches of ~6
-//     elementwise and gather ops, and the two gathers of pos_starts,
-//     before the launch;
-//   - from posting indices (the compact route): term t's index read from
-//     its slot's row of the (B, T, NL) indices (slot_of), then the same
-//     bag bounds and verification, anchored on term 0.
+// the kept docs (the full-scan and block-pruned mega routes). For each
+// kept doc, each query term t's posting index in its run [starts[b, t],
+// ends[b, t]) is recovered inside the kernel, as the plain version's
+// fixed-count search (engine/kernels._binary_search, n_iters halvings)
+// finds it: by bound.cuh's G-ary lower bound (G - 1 pivots a round, one
+// ballot, ~log_G of the run's ids dependent reads where the search takes
+// log2) wherever that search has converged and the doc lies in the run
+// (bound.cuh recover), and elsewhere by that search itself, replayed by
+// the term's thread (search_fixed); the bag bounds are then read from
+// pos_starts (clamped into the column) and the window verification runs
+// against the query's own anchor term. This replaces a torch search of
+// n_iters launches of ~6 elementwise and gather ops, and the two gathers
+// of pos_starts, before the launch.
 // An item takes G threads, the work its windows need: G = 8 where T <= 8
 // and PW <= 32 (the engine's phrase groups), four items a warp, so four
 // times the items are in flight that a warp an item allows; G = 32
@@ -75,35 +71,32 @@ namespace wiser_phrase {
 constexpr int kMaxT = 32;  // terms: one thread a term reads its bounds
 constexpr int kGroupMaxT = 8;    // an 8-thread group's terms at most
 constexpr int kGroupMaxPW = 32;  // and its window
-constexpr int kFromPidx = 0, kFromDocs = 1;  // group_kernel's forms
 
 __device__ __forceinline__ long long clampll(long long x, long long lo,
                                              long long hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// The routes' forms' arguments.
+// The mega routes' arguments.
 struct GroupArgs {
   const void* positions;  // (n,) int16 bits of uint16, or int32
   long long n;
   const int32_t* pos_starts;  // (n_ps,) bag starts by posting index
   long long n_ps;
-  const int32_t* pidx;     // kFromPidx: (B, T, NL) in slot order
-  const int32_t* slot_of;  // kFromPidx: (B, T) query term -> slot
-  const int32_t* doc;      // kFromDocs: (n_doc,) posting doc ids
+  const int32_t* doc;     // (n_doc,) posting doc ids
   long long n_doc;
-  const int32_t* docs;     // kFromDocs: (B, NL) kept docs
-  const int32_t* starts;   // kFromDocs: (B, T) runs, query-term order
+  const int32_t* docs;    // (B, NL) kept docs
+  const int32_t* starts;  // (B, T) runs, query-term order
   const int32_t* ends;
-  const int32_t* anchor;   // kFromDocs: (B,); kFromPidx anchors on 0
-  int32_t* out;            // (B, NL)
+  const int32_t* anchor;  // (B,)
+  int32_t* out;           // (B, NL)
   int B, T, NL, PP, PW, n_iters;
 };
 
 // A group of G threads a (query, lane) item, 32 / G items a warp, W warps
-// a CTA: each term's posting index (kFromPidx: read; kFromDocs:
-// recovered), its bag bounds from pos_starts, the verification.
-template <bool kU16, int G, int kForm>
+// a CTA: each term's posting index recovered, its bag bounds from
+// pos_starts, the verification.
+template <bool kU16, int G>
 __global__ void __launch_bounds__(256) group_kernel(GroupArgs a) {
   extern __shared__ __align__(16) int gsmem[];
   const int W = blockDim.x >> 5;
@@ -117,33 +110,24 @@ __global__ void __launch_bounds__(256) group_kernel(GroupArgs a) {
   if (item >= (long long)a.B * a.NL) return;  // the group alone
   const int T = a.T;
   const int b = (int)(item / a.NL);
-  const int m = (int)(item % a.NL);
   // thread t < T: query term t's posting index
   int p = 0;
-  int anchor = 0;
-  if (kForm == kFromPidx) {
-    if (gl < T) {
-      const long long sl = clampll(a.slot_of[(long long)b * T + gl], 0, T - 1);
-      p = a.pidx[((long long)b * T + sl) * a.NL + m];
+  const int anchor = a.anchor[b];
+  const int target = a.docs[item];
+  const int32_t* st = a.starts + (long long)b * T;
+  const int32_t* en = a.ends + (long long)b * T;
+  bool replay = false;
+  for (int t = 0; t < T; ++t) {
+    const int r = wiser_bound::recover<G>(a.doc, a.n_doc, target, st[t],
+                                          en[t], a.n_iters, gl, gmask);
+    if (gl == t) {
+      p = r;
+      replay = r < 0;
     }
-  } else {
-    anchor = a.anchor[b];
-    const int target = a.docs[item];
-    const int32_t* st = a.starts + (long long)b * T;
-    const int32_t* en = a.ends + (long long)b * T;
-    bool replay = false;
-    for (int t = 0; t < T; ++t) {
-      const int r = wiser_bound::recover<G>(a.doc, a.n_doc, target, st[t],
-                                            en[t], a.n_iters, gl, gmask);
-      if (gl == t) {
-        p = r;
-        replay = r < 0;
-      }
-    }
-    if (replay)
-      p = wiser_bound::search_fixed<0>(a.doc, a.n_doc, target, st[gl],
-                                       en[gl], a.n_iters);
   }
+  if (replay)
+    p = wiser_bound::search_fixed<0>(a.doc, a.n_doc, target, st[gl], en[gl],
+                                     a.n_iters);
   long long s = 0, e = 0;
   if (gl < T) {
     // pos_starts[p], pos_starts[p + 1], each index clamped into the
@@ -159,27 +143,20 @@ __global__ void __launch_bounds__(256) group_kernel(GroupArgs a) {
   if (gl == 0) a.out[item] = count;
 }
 
-template <bool kU16, int G, int kForm>
+template <bool kU16, int G>
 cudaError_t launch_group(const GroupArgs& a, int W, size_t smem,
                          cudaStream_t s) {
   if (smem > (48u << 10)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        group_kernel<kU16, G, kForm>,
+        group_kernel<kU16, G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const long long items = (long long)a.B * a.NL;
   const long long per_cta = (long long)W * (32 / G);
   const unsigned grid = (unsigned)((items + per_cta - 1) / per_cta);
-  group_kernel<kU16, G, kForm><<<grid, W * 32, smem, s>>>(a);
+  group_kernel<kU16, G><<<grid, W * 32, smem, s>>>(a);
   return cudaGetLastError();
-}
-
-template <bool kU16, int G>
-cudaError_t launch_form(const GroupArgs& a, int form, int W, size_t smem,
-                        cudaStream_t s) {
-  return form == kFromDocs ? launch_group<kU16, G, kFromDocs>(a, W, smem, s)
-                           : launch_group<kU16, G, kFromPidx>(a, W, smem, s);
 }
 
 }  // namespace wiser_phrase
@@ -188,13 +165,13 @@ extern "C" {
 
 // ops/phrase._GroupParams: every field 8 bytes.
 struct WiserVerifyGroupParams {
-  long long positions, n, u16, pos_starts, n_ps, pidx, slot_of, doc, n_doc;
+  long long positions, n, u16, pos_starts, n_ps, doc, n_doc;
   long long docs, starts, ends, anchor, out;
-  long long B, T, NL, PP, PW, n_iters, form, G, W, smem;
+  long long B, T, NL, PP, PW, n_iters, G, W, smem;
 };
 
-// The verification from posting indices (form 0) or from kept docs
-// (form 1) on `stream` (no synchronize), a group of G threads an item.
+// The verification from kept docs on `stream` (no synchronize), a group
+// of G threads an item.
 // Returns the launch error (0 on success); a plan whose shared bytes
 // disagree with this file's layout, a group size other than 8 or 32, or
 // a group of 8 past its T or PW, is refused as cudaErrorInvalidValue.
@@ -205,8 +182,6 @@ int wiser_phrase_verify_group(const WiserVerifyGroupParams* p, void* stream) {
   a.n = p->n;
   a.pos_starts = (const int32_t*)p->pos_starts;
   a.n_ps = p->n_ps;
-  a.pidx = (const int32_t*)p->pidx;
-  a.slot_of = (const int32_t*)p->slot_of;
   a.doc = (const int32_t*)p->doc;
   a.n_doc = p->n_doc;
   a.docs = (const int32_t*)p->docs;
@@ -220,28 +195,26 @@ int wiser_phrase_verify_group(const WiserVerifyGroupParams* p, void* stream) {
   a.PP = (int)p->PP;
   a.PW = (int)p->PW;
   a.n_iters = (int)p->n_iters;
-  const int form = (int)p->form, G = (int)p->G, W = (int)p->W;
+  const int G = (int)p->G, W = (int)p->W;
   const long long smem = (long long)W * (32 / (G > 0 ? G : 32)) *
                          wiser_verify::warp_ints(a.T, a.PW) * 4;
   if (a.T < 1 || a.T > kMaxT || a.T > G || a.PW < 1 || a.PP < 1 ||
       a.n < 1 || a.n_ps < 1 || W < 1 || W > 8 || smem != p->smem ||
       (G != 8 && G != 32) ||
       (G == 8 && (a.T > kGroupMaxT || a.PW > kGroupMaxPW)) ||
-      (form != kFromPidx && form != kFromDocs) ||
-      (form == kFromPidx && (!a.pidx || !a.slot_of)) ||
-      (form == kFromDocs && (!a.doc || a.n_doc < 1 || !a.docs || !a.starts ||
-                             !a.ends || !a.anchor)))
+      !a.doc || a.n_doc < 1 || !a.docs || !a.starts || !a.ends ||
+      !a.anchor)
     return (int)cudaErrorInvalidValue;
   if ((long long)a.B * a.NL == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const bool u16 = p->u16 != 0;
   cudaError_t err;
   if (G == 8) {
-    err = u16 ? launch_form<true, 8>(a, form, W, smem, s)
-              : launch_form<false, 8>(a, form, W, smem, s);
+    err = u16 ? launch_group<true, 8>(a, W, smem, s)
+              : launch_group<false, 8>(a, W, smem, s);
   } else {
-    err = u16 ? launch_form<true, 32>(a, form, W, smem, s)
-              : launch_form<false, 32>(a, form, W, smem, s);
+    err = u16 ? launch_group<true, 32>(a, W, smem, s)
+              : launch_group<false, 32>(a, W, smem, s);
   }
   return (int)err;
 }

@@ -1,9 +1,9 @@
-// Two resident phrase routes for Hopper (sm_90a): the semidense phrase
-// route and the list chain, each from the candidate slice to the packed
-// (B, T+2, M) output with no torch stage between.
+// Three phrase routes for Hopper (sm_90a): the semidense phrase route, the
+// list chain and the compact route, each from the candidate slice to the
+// packed (B, T+2, M) output with no torch stage between.
 //
 // Replaces, in wiser_tpu/engine/kernels.py (XLA-compiled jnp, not Pallas;
-// dispatched at wiser_tpu/engine/device.py:2099 and :2148-2186):
+// dispatched at wiser_tpu/engine/device.py:2099, :2126 and :2148-2186):
 //   - make_semidense_phrase_kernel (:840), raw and tc. Its eager torch
 //     form (engine/kernels.semidense_phrase_torch, the plain version)
 //     writes some ten (B, L) planes a group, a full stable sort of (B, L)
@@ -13,7 +13,16 @@
 //     make_phrase_verify_kernel (:508), make_select_topk_kernel (:662) and
 //     make_select_topk_kernel_tc (:442). Its plain version
 //     (engine/kernels.list_phrase_torch) runs them as three calls with
-//     torch steps between, over (B, L), (B, T, L) and (B, PP, L) planes.
+//     torch steps between, over (B, L), (B, T, L) and (B, PP, L) planes;
+//     without its gate (a compile-time switch) it is phrase_body (:554),
+//     the mesh's list route (wiser_tpu/engine/shard.py:227, :618), with
+//     the kept scores the mesh merges on;
+//   - compact_phrase_body (:686; make_compact_phrase_kernel :785, the mesh's
+//     make_sharded_compact_phrase_kernel, shard.py:487), raw and tc, L
+//     2,048 to 32,768 on the resident engine and past 131,072 on a mesh
+//     shard. Its plain version (engine/kernels.compact_phrase_body_torch)
+//     writes (B, T-1, L) search planes, the gate's (B, C, L) gathers and a
+//     stable sort of the whole (B, L) plane before its verification.
 //
 // The semidense phrase route, per query b (engine/kernels.py
 // semidense_phrase_torch says the same in torch):
@@ -50,6 +59,22 @@
 //     postings_tf at the recovered indices; tc: the candidate's tf byte
 //     and the dense tf bytes, FLAG_TF_SAT where one is 255), packed.
 //
+// The compact route, per query b: the semidense phrase route's three
+// launches with another selection (cp_select_kernel): every slot 1.. is
+// searched (segsel.cuh's searched slots, a lane's lower bound in the
+// slot's run after the plain version's halvings), each found slot's
+// probes of the chained bi-bloom gate tested at its posting index
+// (kGate: the probes' rows in shared memory), the score s0 + (b1 + ...)
+// in slot order, the KV + 1 best surviving keys kept by the segmented
+// selection (a gated or unmatched lane leaves no key). The verification
+// recovers the kept lanes' posting indices as the semidense route's does
+// (a kept lane was found in every slot, so its fixed-count index is its
+// lower bound); the output takes the tfs from the tc lanes at those
+// indices (FLAG_TF_SAT from the candidate's slice byte and the searched
+// slots' bytes, the plain version's sat_lane) and writes the (B, M) kept
+// scores the mesh merges on. Nothing (B, L) or (B, T, L) reaches device
+// memory.
+//
 // The list chain, per query b (list_kernel): the L <= 1,024 candidate
 // lanes of slot 0, each searched in slots 1.. for its posting index as
 // the plain version's fixed-count lower bound finds it (the score s0 +
@@ -62,9 +87,9 @@
 // for base + t in n_pos_iters halvings, positions read as uint16 bits);
 // then the top M of the verified lanes by key with FLAG_TRUNC and the
 // tfs at the winners' posting indices (raw postings_tf; tc the tc lanes'
-// bytes, with FLAG_TF_SAT from the lane's saturation). Without kGate (a
-// compile-time switch) it is the bloomless chain of phrase_body, which
-// the staged cold tier runs. The design:
+// bytes, with FLAG_TF_SAT from the lane's saturation), and the kept
+// scores where asked. Without kGate (a compile-time switch) it is the
+// bloomless chain of phrase_body, the mesh's list route. The design:
 //   - a query's lanes lie in nseg segments of whole warps of lanes, a CTA
 //     a segment, the CTAs of a query one cluster (at most 8), each about
 //     one round of kThreads lanes where the card holds them
@@ -99,7 +124,9 @@
 // kept lanes the recovery's and the verification's reads; the list
 // chain's: the candidate slice, each searched run once or one sector a
 // probe where that is fewer, the probed bloom words and rows, the bags'
-// sectors and the output (tools/phrase_bench.*_bound_bytes). The
+// sectors and the output; the compact route's: the list chain's match and
+// gate, the K keys and the semidense route's kept-lane reads
+// (tools/phrase_bench.*_bound_bytes). The
 // searches are chains of dependent loads: latency, not bytes, is what
 // the kernels wait on; the design keeps every (B, L) intermediate in
 // registers or shared memory and runs many queries' chains at once.
@@ -168,6 +195,7 @@ struct SdpArgs {
   int32_t* counts;           // (B, KV)
   int32_t* pidx;             // (B, T, KV), slot order
   int32_t* out;              // (B, T + 2, M)
+  float* top_score;          // (B, M), or null
 };
 
 // The selection (segsel.cuh): a CTA a (query, segment), the CTAs of a
@@ -181,6 +209,29 @@ __global__ void __launch_bounds__(kThreads) sdp_select_kernel(
   const int b = blockIdx.x / a.nseg, seg = blockIdx.x % a.nseg;
   const int tid = threadIdx.x;
   select_segment<TC, false>(a, b, seg, X, smem, tid);
+  const unsigned long long* R = merge_segments(a, X, seg, tid);
+  if (!R) return;
+  WCLK_START
+  for (int i = tid; i < a.K; i += kThreads) keys[(long long)b * a.K + i] = R[i];
+  WCLK(4);
+  WCLK_COUNT(6);
+}
+
+// The compact route's selection: as sdp_select_kernel, every slot 1..
+// searched (nb = T) and the query's bi-bloom probes tested on the way
+// (select_segment's kGate), the probes' rows in shared memory ahead of
+// the buffer.
+template <bool TC>
+__global__ void __launch_bounds__(kThreads) cp_select_kernel(
+    SelArgs a, unsigned long long* keys) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  GateSmem& g = *reinterpret_cast<GateSmem*>(smem + kHead);
+  unsigned long long* X =
+      reinterpret_cast<unsigned long long*>(smem + kHead + kGateBytes);
+  const int b = blockIdx.x / a.nseg, seg = blockIdx.x % a.nseg;
+  const int tid = threadIdx.x;
+  load_gate(a.gate, b, a.T, g, tid);  // select_segment's first barrier
+  select_segment<TC, true, true>(a, b, seg, X, smem, tid);
   const unsigned long long* R = merge_segments(a, X, seg, tid);
   if (!R) return;
   WCLK_START
@@ -245,10 +296,19 @@ __global__ void __launch_bounds__(256) sdp_verify_kernel(SdpArgs a) {
   WCLK_COUNT(10);
 }
 
+// The winners' tf source of the output kernel: raw postings_tf at the
+// recovered posting indices; the semidense route's tc candidate byte and
+// dense tf bytes; the compact route's tc lanes at the posting indices
+// (saturation from the candidate's slice byte and the searched slots'
+// lanes, as the plain version's sat_lane).
+constexpr int kTfRaw = 0, kTfDense = 1, kTfLanes = 2;
+
 // A warp a query: the top M of the verified kept lanes, the flags and the
-// winners' tfs, packed. Each warp keeps up to M + 1 chosen lanes.
-template <bool TC>
+// winners' tfs, packed, and their scores where top_score is given. Each
+// warp keeps up to M + 1 chosen lanes.
+template <int kTf>
 __global__ void __launch_bounds__(kWarps * 32) sdp_output_kernel(SdpArgs a) {
+  constexpr bool TC = kTf != kTfRaw;
   extern __shared__ __align__(16) int osmem[];
   WCLK_START
   const int wid = threadIdx.x >> 5, l32 = threadIdx.x & 31;
@@ -286,7 +346,12 @@ __global__ void __launch_bounds__(kWarps * 32) sdp_output_kernel(SdpArgs a) {
     for (int t = 0; t < T; ++t) {
       int tf = 0;
       if (i < nf) {
-        if (TC) {
+        if (kTf == kTfLanes) {
+          const long long p = a.pidx[((long long)b * T + t) * KV + m];
+          tf = a.tc[clampll(p, 0, a.n_tc - 1)] & 0xFF;
+          const int sb = t == 0 ? (a.tc[s_col + lane] & 0xFF) : tf;
+          sat = sat || sb >= kTfSat;
+        } else if (TC) {
           tf = t == 0 ? (a.tc[s_col + lane] & 0xFF)
                       : (int)a.dense_tf8[(long long)a.slots[(long long)b * T +
                                                              t] *
@@ -316,6 +381,9 @@ __global__ void __launch_bounds__(kWarps * 32) sdp_output_kernel(SdpArgs a) {
   if (unseen > 0.f && unseen >= __fmul_rn(kth, a.keep)) f |= kFlagPruneMiss;
   if (__any_sync(0xffffffffu, sat)) f |= kFlagTfSat;
   for (int i = l32; i < M; i += 32) out[(long long)(T + 1) * M + i] = f;
+  if (a.top_score)
+    for (int i = l32; i < M; i += 32)
+      a.top_score[(long long)b * M + i] = score(i);
   WCLK(12);
   WCLK_COUNT(13);
 }
@@ -357,6 +425,7 @@ struct ListArgs {
   int B, T, L, PP, M, n_iters, n_pos_iters;
   int nseg, seg_lanes;  // CTAs a query (one cluster), lanes a CTA
   int32_t* out;         // (B, T + 2, M)
+  float* top_score;     // (B, M), or null
 };
 
 // The query's (B, T) rows, copied into shared memory once a CTA.
@@ -606,10 +675,13 @@ __global__ void __launch_bounds__(kThreads, 1) list_kernel(ListArgs a) {
   sort_keys<kThreads>(X, c, tid);
   int32_t* out = a.out + (long long)b * (T + 2) * M;
   bool sat = false;
+  float* top_score = a.top_score ? a.top_score + (long long)b * M : nullptr;
   for (int m = tid; m < M; m += kThreads) {
     const bool kept = m < c;
     const int lane = kept ? tile_key_lane(X[m]) : 0;
     out[m] = kept ? a.doc[s_doc + lane] : -1;
+    if (top_score)
+      top_score[m] = kept ? tile_key_score(X[m]) : -__int_as_float(0x7f800000);
     for (int t = 0; t < T; ++t) {
       int tf = 0;
       if (kept) {
@@ -654,9 +726,10 @@ cudaError_t launch_list(const ListArgs& a, bool u16, long long smem,
 
 }  // namespace wiser_phrase_route
 
-extern "C" {
-
 // ops/phrase_route._SdpParams: every field 8 bytes (keep: the f32 bits).
+// The semidense phrase route and the compact route share it: the dense
+// fields are the semidense route's, the bloom and probe fields the
+// compact route's (0 where unread).
 struct WiserSdpParams {
   long long doc, n_doc, score, n_score, tf, n_tf, tc, n_tc;
   long long dense_sc, dense_tf8, n_pad, norm_g;
@@ -665,13 +738,15 @@ struct WiserSdpParams {
   long long B, T, L, KV, K, KP, PP, PW, M, n_iters, keep_bits;
   long long keys, counts, pidx, out;
   long long W, smem_select, smem_verify, smem_output, nseg, seg_lanes;
+  long long top_score, bloom_rows, n_rows, bloom_bitmap, n_bitmap;
+  long long bloom_rank, probe_slot, probe_begins, probe_mask, probe_active;
+  long long C;
 };
 
-// The semidense phrase route on `stream` (no synchronize): three
-// launches. Returns the first launch error (0 on success); a plan that
-// disagrees with this file's layout is refused as cudaErrorInvalidValue.
-int wiser_semidense_phrase(const WiserSdpParams* p, void* stream) {
-  using namespace wiser_phrase_route;
+namespace wiser_phrase_route {
+
+// The verification's and the output's view of the params.
+inline SdpArgs sdp_args(const WiserSdpParams* p) {
   SdpArgs a;
   a.doc = (const int32_t*)p->doc;
   a.n_doc = p->n_doc;
@@ -711,9 +786,13 @@ int wiser_semidense_phrase(const WiserSdpParams* p, void* stream) {
   a.counts = (int32_t*)p->counts;
   a.pidx = (int32_t*)p->pidx;
   a.out = (int32_t*)p->out;
-  const bool tc = a.tc != nullptr;
-  const int W = (int)p->W;
-  // the selection's view: the candidate, every other slot a dense head
+  a.top_score = (float*)p->top_score;
+  return a;
+}
+
+// The selection's view of the params: nb slots searched (1: none), the
+// rest dense heads.
+inline SelArgs sel_args(const WiserSdpParams* p, const SdpArgs& a, int nb) {
   SelArgs sel;
   sel.doc = a.doc;
   sel.n_doc = a.n_doc;
@@ -733,20 +812,70 @@ int wiser_semidense_phrase(const WiserSdpParams* p, void* stream) {
   sel.B = a.B;
   sel.T = a.T;
   sel.L = a.L;
-  sel.nb = 1;
-  sel.n_iters = 0;
+  sel.nb = nb;
+  sel.n_iters = nb > 1 ? a.n_iters : 0;
   sel.K = a.K;
   sel.KP = a.KP;
   sel.XC = buffer_keys(a.KP);
   sel.nseg = (int)p->nseg;
   sel.seg_lanes = (int)p->seg_lanes;
   sel.xg = nullptr;
-  if (a.T < 2 || a.T > kMaxT || a.K != a.KV + 1 || !plan_ok(sel) ||
-      a.M < 1 || a.M > a.KV || a.PP < 1 || a.PW < 1 || W < 1 || W > 8 ||
+  GateArgs& g = sel.gate;
+  g.bloom_rows = (const int32_t*)p->bloom_rows;
+  g.n_rows = p->n_rows;
+  g.bloom_bitmap = (const int32_t*)p->bloom_bitmap;
+  g.n_bitmap = p->n_bitmap;
+  g.bloom_rank = (const int32_t*)p->bloom_rank;
+  g.probe_slot = (const int32_t*)p->probe_slot;
+  g.probe_begins = (const uint8_t*)p->probe_begins;
+  g.probe_mask = (const int32_t*)p->probe_mask;
+  g.probe_active = (const uint8_t*)p->probe_active;
+  g.C = (int)p->C;
+  return sel;
+}
+
+// The kept lanes' verification and the output: two launches.
+template <int kTf>
+cudaError_t launch_verify_output(const WiserSdpParams* p, const SdpArgs& a,
+                                 cudaStream_t s) {
+  const int W = (int)p->W;
+  const long long items = (long long)a.B * a.KV;
+  const unsigned vgrid = (unsigned)((items + W - 1) / W);
+  cudaError_t err = p->u16 ? launch(sdp_verify_kernel<true>, vgrid, W * 32,
+                                    p->smem_verify, a, s)
+                           : launch(sdp_verify_kernel<false>, vgrid, W * 32,
+                                    p->smem_verify, a, s);
+  if (err != cudaSuccess) return err;
+  const unsigned ogrid = (unsigned)((a.B + kWarps - 1) / kWarps);
+  return launch(sdp_output_kernel<kTf>, ogrid, kWarps * 32, p->smem_output,
+                a, s);
+}
+
+// The checks both routes' verification and output share.
+inline bool tail_ok(const WiserSdpParams* p, const SdpArgs& a) {
+  const int W = (int)p->W;
+  return a.T >= 2 && a.T <= kMaxT && a.K == a.KV + 1 && a.M >= 1 &&
+         a.M <= a.KV && a.PP >= 1 && a.PW >= 1 && W >= 1 && W <= 8 &&
+         p->smem_verify == 4LL * W * wiser_verify::warp_ints(a.T, a.PW) &&
+         p->smem_output == 4LL * kWarps * (a.M + 1);
+}
+
+}  // namespace wiser_phrase_route
+
+extern "C" {
+
+// The semidense phrase route on `stream` (no synchronize): three
+// launches. Returns the first launch error (0 on success); a plan that
+// disagrees with this file's layout is refused as cudaErrorInvalidValue.
+int wiser_semidense_phrase(const WiserSdpParams* p, void* stream) {
+  using namespace wiser_phrase_route;
+  const SdpArgs a = sdp_args(p);
+  const bool tc = a.tc != nullptr;
+  // the selection's view: the candidate, every other slot a dense head
+  const SelArgs sel = sel_args(p, a, 1);
+  if (!tail_ok(p, a) || !plan_ok(sel) ||
       (tc ? !a.dense_tf8 || !a.norm_g : !a.dense_sc || !a.score || !a.tf) ||
-      p->smem_select != sel_smem(sel.XC, false) ||
-      p->smem_verify != 4LL * W * wiser_verify::warp_ints(a.T, a.PW) ||
-      p->smem_output != 4LL * kWarps * (a.M + 1))
+      p->smem_select != sel_smem(sel.XC, false))
     return (int)cudaErrorInvalidValue;
   if (a.B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -756,19 +885,38 @@ int wiser_semidense_phrase(const WiserSdpParams* p, void* stream) {
          : launch_segments(sdp_select_kernel<false>, a.B, sel.nseg,
                            p->smem_select, s, sel, a.keys);
   if (err != cudaSuccess) return (int)err;
-  const long long items = (long long)a.B * a.KV;
-  const unsigned vgrid = (unsigned)((items + W - 1) / W);
-  err = p->u16 ? launch(sdp_verify_kernel<true>, vgrid, W * 32,
-                        p->smem_verify, a, s)
-               : launch(sdp_verify_kernel<false>, vgrid, W * 32,
-                        p->smem_verify, a, s);
+  return (int)(tc ? launch_verify_output<kTfDense>(p, a, s)
+                  : launch_verify_output<kTfRaw>(p, a, s));
+}
+
+// The compact phrase route on `stream` (no synchronize): three launches,
+// the selection every slot searched and gated (cp_select_kernel), then
+// the semidense route's verification and output (tc: tfs from the tc
+// lanes). Returns the first launch error (0 on success); a plan that
+// disagrees with this file's layout is refused as cudaErrorInvalidValue.
+int wiser_compact_phrase(const WiserSdpParams* p, void* stream) {
+  using namespace wiser_phrase_route;
+  const SdpArgs a = sdp_args(p);
+  const bool tc = a.tc != nullptr;
+  const SelArgs sel = sel_args(p, a, a.T);
+  const GateArgs& g = sel.gate;
+  if (!tail_ok(p, a) || !plan_ok(sel) || a.L <= a.KV ||
+      (tc ? !a.norm_g : !a.score || !a.tf) || g.C < 0 || g.C > kSegMaxT ||
+      (g.C > 0 && (!g.bloom_rows || g.n_rows < 1 || !g.bloom_bitmap ||
+                   g.n_bitmap < 2 || !g.bloom_rank || !g.probe_slot ||
+                   !g.probe_begins || !g.probe_mask || !g.probe_active)) ||
+      p->smem_select != sel_smem(sel.XC, false) + kGateBytes)
+    return (int)cudaErrorInvalidValue;
+  if (a.B == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err =
+      tc ? launch_segments(cp_select_kernel<true>, a.B, sel.nseg,
+                           p->smem_select, s, sel, a.keys)
+         : launch_segments(cp_select_kernel<false>, a.B, sel.nseg,
+                           p->smem_select, s, sel, a.keys);
   if (err != cudaSuccess) return (int)err;
-  const unsigned ogrid = (unsigned)((a.B + kWarps - 1) / kWarps);
-  err = tc ? launch(sdp_output_kernel<true>, ogrid, kWarps * 32,
-                    p->smem_output, a, s)
-           : launch(sdp_output_kernel<false>, ogrid, kWarps * 32,
-                    p->smem_output, a, s);
-  return (int)err;
+  return (int)(tc ? launch_verify_output<kTfLanes>(p, a, s)
+                  : launch_verify_output<kTfRaw>(p, a, s));
 }
 
 // ops/phrase_route._ListParams: every field 8 bytes.
@@ -779,7 +927,7 @@ struct WiserListParams {
   long long probe_slot, probe_begins, probe_mask, probe_active, C, gate;
   long long starts, ends, weights, slot_of;
   long long B, T, L, PP, M, n_iters, n_pos_iters, out, smem, nseg;
-  long long seg_lanes;
+  long long seg_lanes, top_score;
 };
 
 // The list chain on `stream` (no synchronize): one launch, a query's nseg
@@ -826,6 +974,7 @@ int wiser_list_phrase(const WiserListParams* p, void* stream) {
   a.out = (int32_t*)p->out;
   a.nseg = (int)p->nseg;
   a.seg_lanes = (int)p->seg_lanes;
+  a.top_score = (float*)p->top_score;
   const bool tc = a.tc != nullptr, gate = p->gate != 0;
   if (a.T < 2 || a.T > kMaxT || a.L < 1 || a.L > kListMaxL || a.M < 1 ||
       a.M > a.L || a.PP < 1 || !a.norm_g == tc || a.nseg < 1 ||

@@ -58,6 +58,22 @@ constexpr int kUnit = kThreads;  // segments hold whole units of lanes
 constexpr int kMaxCluster = 8;   // the portable cluster size
 constexpr int kSegMaxT = 16;     // slots a query at most
 
+// The chained bi-bloom gate of the compact phrase route (select_segment's
+// kGate): the sparse folded bloom columns (uint32 words as int32 bits)
+// and the (B, C) probes (engine/kernels._bloom_gate).
+struct GateArgs {
+  const int32_t* bloom_rows;
+  long long n_rows;
+  const int32_t* bloom_bitmap;  // following side, then preceding side
+  long long n_bitmap;
+  const int32_t* bloom_rank;
+  const int32_t* probe_slot;
+  const uint8_t* probe_begins;
+  const int32_t* probe_mask;
+  const uint8_t* probe_active;
+  int C;
+};
+
 struct SelArgs {
   const int32_t* doc;
   long long n_doc;
@@ -72,13 +88,15 @@ struct SelArgs {
   const int32_t* starts;  // (B, T)
   const int32_t* ends;    // (B, T)
   const float* weights;   // (B, T): use_score (raw) or idf32 (tc)
-  const int32_t* slots;   // (B, T) dense rows of slots nb..T-1
+  const int32_t* slots;   // (B, T) dense rows of slots nb..T-1 (or null
+                          // where nb = T)
   int B, T, L, nb, n_iters;
   // K keys kept a query, KP the power of 2 >= K, XC keys a CTA's buffer;
   // nseg CTAs a query of seg_lanes lanes each
   int K, KP, XC, nseg, seg_lanes;
   unsigned long long* xg;  // (B * nseg, XC) buffers where shared memory
                            // cannot hold them (nseg 1), else null
+  GateArgs gate;           // read only by select_segment<..., true>
 };
 
 // The query's (B, T) rows, copied into shared memory once a CTA, so the
@@ -98,6 +116,40 @@ constexpr long long kHead = kQueryAt + sizeof(QuerySmem);
 
 __host__ __device__ constexpr long long sel_smem(int XC, bool global_x) {
   return kHead + (global_x ? 0 : 8LL * XC);
+}
+
+// A query's active probes, copied into shared memory once a CTA by the
+// gated kernel (at kHead, ahead of its buffer: kGateBytes): probe c tests
+// slot slot[c] (-1: inactive, it passes) at posting index + off[c] (the
+// preceding side's Pw * 32, or 0) against mask[c].
+struct GateSmem {
+  long long off[kSegMaxT];
+  int slot[kSegMaxT];
+  unsigned mask[kSegMaxT];
+};
+constexpr long long kGateBytes = ((sizeof(GateSmem) + 15) / 16) * 16;
+
+// Probe c's row of query b into g (threads tid < kSegMaxT; the caller's
+// barrier publishes it): the probed slot clamped into [0, T), as the
+// plain version's gather clamps it.
+__device__ __forceinline__ void load_gate(const GateArgs& a, int b, int T,
+                                          GateSmem& g, int tid) {
+  if (tid >= kSegMaxT) return;
+  int slot = -1;
+  unsigned mask = 0;
+  long long off = 0;
+  if (tid < a.C) {
+    const long long pc = (long long)b * a.C + tid;
+    if (a.probe_active[pc]) {
+      const int s = a.probe_slot[pc];
+      slot = s < 0 ? 0 : (s > T - 1 ? T - 1 : s);
+      mask = (unsigned)a.probe_mask[pc];
+      off = a.probe_begins[pc] ? (a.n_bitmap / 2) * 32 : 0;
+    }
+  }
+  g.off[tid] = off;
+  g.slot[tid] = slot;
+  g.mask[tid] = mask;
 }
 
 __device__ __forceinline__ long long clampll(long long x, long long lo,
@@ -139,6 +191,28 @@ __device__ __forceinline__ long long search_lower(const int32_t* doc,
   return lo;
 }
 
+// Every active probe of slot t passes at posting index pq (kernels.
+// _bloom_gate: the presence bit, the row's rank from bloom_rank plus the
+// popcount below it, pass where (row & mask) == mask; an absent row
+// prunes).
+__device__ __forceinline__ bool gate_pass(const GateArgs& a,
+                                          const GateSmem& g, int t,
+                                          long long pq) {
+  for (int c = 0; c < a.C; ++c) {
+    if (g.slot[c] != t) continue;
+    const long long sp = pq + g.off[c];
+    const long long wi = clampll(sp >> 5, 0, a.n_bitmap - 1);
+    const unsigned word = (unsigned)__ldg(a.bloom_bitmap + wi);
+    const int bit = (int)(sp & 31);
+    const unsigned below = word & ((1u << bit) - 1u);
+    const long long rank = (long long)__ldg(a.bloom_rank + wi) + __popc(below);
+    const unsigned row =
+        (unsigned)__ldg(a.bloom_rows + clampll(rank, 0, a.n_rows - 1));
+    if (!((word >> bit) & 1u) || (row & g.mask[c]) != g.mask[c]) return false;
+  }
+  return true;
+}
+
 __device__ __forceinline__ bool found_at(const int32_t* doc, long long n_doc,
                                          long long lo, long long end,
                                          int target) {
@@ -148,22 +222,29 @@ __device__ __forceinline__ bool found_at(const int32_t* doc, long long n_doc,
 // This CTA's segment of query b: its top K keys, sorted descending and
 // 0-padded to KP, in X[0, KP). kSearch: slots 1..nb-1 are searched (nb >
 // 1); without it the searched slots' code is not compiled, and its
-// registers not held. Every thread calls it; it ends with a barrier. smem:
-// the CTA's kHead bytes (flush scratch, counters, the query's rows).
-template <bool TC, bool kSearch>
+// registers not held. kGate (with kSearch): a lane must also pass the
+// query's bi-bloom probes (load_gate's rows at smem + kHead), each at its
+// slot's posting index (slot 0's cs + lane, as the plain version's int32
+// sum), tested as soon as the slot is found. Every thread calls it; it
+// ends with a barrier. smem: the CTA's kHead bytes (flush scratch,
+// counters, the query's rows), then with kGate the probes' rows.
+template <bool TC, bool kSearch, bool kGate = false>
 __device__ __forceinline__ void select_segment(const SelArgs& a, int b,
                                                int seg, unsigned long long* X,
-                                               unsigned char* smem, int tid) {
+                                               unsigned char* smem,
+                                               int tid) {
+  static_assert(kSearch || !kGate, "the gate reads the searched slots");
   FlushSmem& fs = *reinterpret_cast<FlushSmem*>(smem + kFlushAt);
   int* cnt = reinterpret_cast<int*>(smem + kCntAt);
   QuerySmem& q = *reinterpret_cast<QuerySmem*>(smem + kQueryAt);
+  const GateSmem& gs = *reinterpret_cast<const GateSmem*>(smem + kHead);
   volatile unsigned long long* const tau = &fs.tau;
   const int T = a.T, K = a.K, nb = a.nb;
   if (tid < T) {
     const long long o = (long long)b * T + tid;
     q.st[tid] = a.starts[o];
     q.en[tid] = a.ends[o];
-    q.sl[tid] = a.slots[o];
+    q.sl[tid] = a.slots ? a.slots[o] : 0;  // null: every slot searched
     q.w[tid] = a.weights[o];
   }
   if (tid < 4) cnt[tid] = 0;
@@ -200,6 +281,11 @@ __device__ __forceinline__ void select_segment(const SelArgs& a, int b,
         } else {
           acc[j] = __fmul_rn(__ldg(a.score + s_col + l), w0);
         }
+        if constexpr (kGate) {
+          if (!gate_pass(a.gate, gs, 0,
+                         (int)((unsigned)q.st[0] + (unsigned)l)))
+            live &= ~(1u << j);
+        }
       }
     }
     WCLK(0);
@@ -216,6 +302,8 @@ __device__ __forceinline__ void select_segment(const SelArgs& a, int b,
             const long long lo =
                 search_lower(a.doc, a.n_doc, a.n_iters, d[j], s_t, e_t);
             if (!found_at(a.doc, a.n_doc, lo, e_t, d[j])) {
+              live &= ~(1u << j);
+            } else if (kGate && !gate_pass(a.gate, gs, t, lo)) {
               live &= ~(1u << j);
             } else {
               const float p =

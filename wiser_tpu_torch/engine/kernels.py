@@ -28,13 +28,15 @@ selection at K = KV + 1, threshold first, and its band pass), or raise;
 CPU tensors take the plain versions (the *_torch functions) after the
 same argument checks. So do the semidense step (_semidense_step:
 ops/semidense.py, csrc/semidense.cu), the position verification the
-mega and compact phrase routes end in (_verify_docs from kept docs,
-_verify_pidx from posting indices: ops/phrase.py, csrc/phrase.cu; the
-reference _verify_pos_windows_torch verifies from bag bounds), and the
-semidense
-phrase route and the list chain from their candidate slices to their
-packed outputs (semidense_phrase_body, list_phrase: ops/phrase_route.py,
-csrc/phrase_route.cu).
+mega phrase routes end in (_verify_docs from kept docs: ops/phrase.py,
+csrc/phrase.cu; the reference _verify_pos_windows_torch verifies from
+bag bounds, _verify_pidx_torch, the compact and semidense phrase
+routes' plain versions, from posting indices), and the semidense phrase
+route, the list
+chain (with its gate, and without it: phrase_body, the mesh's list
+route) and the compact route from their candidate slices to their
+packed outputs (semidense_phrase_body, list_phrase, compact_phrase_body:
+ops/phrase_route.py, csrc/phrase_route.cu).
 
 Phrases (raw columns): the list chain (make_match_kernel with the
 bi-bloom gate, make_phrase_verify_kernel, make_select_topk_kernel); the
@@ -1258,26 +1260,37 @@ def list_phrase(postings_doc, col, positions, pos_starts, starts, ends,
                 weights, slot_of, bloom_rows, bloom_bitmap, bloom_rank,
                 probe_slot, probe_begins, probe_mask, probe_active, *, T: int,
                 L: int, PP: int, M: int, n_bs_iters: int, n_pos_iters: int,
-                postings_tf=None, avg32=None):
+                postings_tf=None, avg32=None, gate: bool = True):
     """The list-chain phrase (L <= PRUNED_PHRASE_KV) as one call: match
     with the bi-bloom gate, the adjusted-position verify of the active
     lanes in query-term order (slot_of), the exact top-M with tfs. raw:
     col the f32 scores and postings_tf; tc: col the tc lanes and avg32
     (tfs from the tc lanes, FLAG_TF_SAT from the kept lanes'
-    saturation). Returns the packed (B, T+2, M) int32 output.
+    saturation). Returns the packed (B, T+2, M) int32 output. gate=False
+    is the bloomless chain (phrase_body, the mesh's list route): the
+    bloom and probe arguments are not read and may be None, and it
+    returns (packed, top_score (B, M) f32), as phrase_body does.
 
     On CUDA tensors the hand-written kernel (ops/phrase_route.
     list_phrase) runs it, or raises; on CPU tensors the plain version,
-    list_phrase_torch. Both check their arguments first (ValueError)."""
+    list_phrase_torch with the gate, phrase_body without it. Both check
+    their arguments first (ValueError)."""
     kw = dict(T=T, L=L, PP=PP, M=M, n_bs_iters=n_bs_iters,
               n_pos_iters=n_pos_iters, postings_tf=postings_tf, avg32=avg32)
     args = (postings_doc, col, positions, pos_starts, starts, ends, weights,
             slot_of, bloom_rows, bloom_bitmap, bloom_rank, probe_slot,
             probe_begins, probe_mask, probe_active)
     if isinstance(postings_doc, torch.Tensor) and postings_doc.is_cuda:
-        return _route_op.list_phrase(*args, **kw)
-    _route_op.check_list_inputs(*args, **kw)
-    return list_phrase_torch(*args, **kw)
+        return _route_op.list_phrase(*args, gate=gate, **kw)
+    _route_op.check_list_inputs(*args, gate=gate, **kw)
+    if gate:
+        return list_phrase_torch(*args, **kw)
+    tc = avg32 is not None
+    return phrase_body(
+        postings_doc, None if tc else col, postings_tf, positions, pos_starts,
+        starts, ends, None if tc else weights, slot_of, T=T, L=L, PP=PP, M=M,
+        n_bs_iters=n_bs_iters, n_pos_iters=n_pos_iters,
+        tc=col if tc else None, idf32=weights if tc else None, avg32=avg32)
 
 
 def list_phrase_torch(postings_doc, col, positions, pos_starts, starts, ends,
@@ -1382,8 +1395,8 @@ def _verify_pos_windows_torch(positions, ps, pe, anchor, *, T: int, NL: int,
     dynamic_slice clamps it: the engine pads the positions column with
     POS_PAD >= PW entries that never equal a target, so a real window is
     never clamped. Returns (B, NL) int32 phrase occurrence counts. The
-    kernel's forms (_verify_docs, _verify_pidx) find the bag bounds
-    themselves; their plain versions end here."""
+    kernel (_verify_docs) finds the bag bounds itself; its plain version
+    and _verify_pidx_torch end here."""
     B = ps.shape[0]
     n = positions.shape[0]
     j = torch.arange(PW, dtype=torch.int64, device=ps.device)
@@ -1443,29 +1456,15 @@ def _verify_docs_torch(postings_doc, positions, pos_starts, docs, starts,
         anchor, T=T, NL=NL, PP=PP, PW=PW)
 
 
-def _verify_pidx(positions, pos_starts, pidx, slot_of, *, T: int, NL: int,
-                 PP: int, PW: int):
-    """The compact route's verification from posting indices: pidx (B, T,
-    NL) int32 in slot order, slot_of (B, T) (query term -> slot), each
-    term's bag bounds from pos_starts, then the window verification
-    anchored on query term 0. Returns (B, NL) int32 counts.
-
-    On CUDA tensors the hand-written kernel (ops/phrase.phrase_verify_pidx),
-    or it raises; on CPU tensors the plain version, _verify_pidx_torch.
-    Both check their arguments first (ValueError)."""
-    kw = dict(T=T, NL=NL, PP=PP, PW=PW)
-    if isinstance(positions, torch.Tensor) and positions.is_cuda:
-        return _phrase_op.phrase_verify_pidx(positions, pos_starts, pidx,
-                                             slot_of, **kw)
-    _phrase_op.check_pidx_inputs(positions, pos_starts, pidx, slot_of, **kw)
-    return _verify_pidx_torch(positions, pos_starts, pidx, slot_of, **kw)
-
-
 def _verify_pidx_torch(positions, pos_starts, pidx, slot_of, *, T: int,
                        NL: int, PP: int, PW: int):
-    """_verify_pidx's plain torch version: the slot gather
-    (_slot_gather_q), the two pos_starts gathers and
-    _verify_pos_windows_torch with anchor 0 (on any device)."""
+    """The verification from posting indices that the compact and
+    semidense phrase routes' plain versions end in (_verify_and_select;
+    their kernels verify in csrc/phrase_route.cu), in plain torch on any
+    device: pidx (B, T, NL) int32 in slot order, slot_of (B, T) (query
+    term -> slot), the slot gather (_slot_gather_q), the two pos_starts
+    gathers and _verify_pos_windows_torch anchored on query term 0.
+    Returns (B, NL) int32 counts."""
     pidx_q = _slot_gather_q(pidx, slot_of)
     return _verify_pos_windows_torch(
         positions, _gather1d(pos_starts, pidx_q),
@@ -1492,8 +1491,8 @@ def _verify_and_select(positions, pos_starts, sel_score, sel_docs,
     over the KV lanes; FLAG_PRUNE_MISS where the (KV+1)-th surviving
     score `unseen` could reach the k-th kept). Returns (top_docs (B, M),
     top_l (B, M) indices into the KV lanes, flags (B,), top_score (B, M))."""
-    n_matches = _verify_pidx(positions, pos_starts, sel_pidx.contiguous(),
-                             slot_of, T=T, NL=KV, PP=PP, PW=PW)
+    n_matches = _verify_pidx_torch(positions, pos_starts, sel_pidx,
+                                   slot_of, T=T, NL=KV, PP=PP, PW=PW)
     final_score = torch.where((sel_score > NEG_INF) & (n_matches > 0),
                               sel_score, NEG_INF)
     top_score, top_l = _top_stable(final_score, M)
@@ -1511,7 +1510,41 @@ def compact_phrase_body(postings_doc, postings_score, postings_tf, positions,
                         L: int, KV: int, PP: int, PW: int, M: int,
                         n_bs_iters: int, eps3: float, tc_mode: bool = False,
                         avg32=None):
-    """The compact phrase pipeline: bs match + bloom gate over L lanes,
+    """The compact phrase route's (packed (B, T+2, M), top_score (B, M)
+    f32); the arguments as compact_phrase_body_torch takes them.
+
+    On CUDA tensors the hand-written kernels (ops/phrase_route.
+    compact_phrase) run it, or raise; on CPU tensors the plain version,
+    compact_phrase_body_torch. Both check their arguments first
+    (ValueError)."""
+    args = (postings_doc, postings_score, positions, pos_starts, starts,
+            ends, use_score, slot_of, ks, bloom_rows, bloom_bitmap,
+            bloom_rank, probe_slot, probe_begins, probe_mask, probe_active)
+    kw = dict(T=T, L=L, KV=KV, PP=PP, PW=PW, M=M, n_bs_iters=n_bs_iters,
+              eps3=eps3, postings_tf=None if tc_mode else postings_tf,
+              avg32=avg32 if tc_mode else None)
+    if isinstance(postings_doc, torch.Tensor) and postings_doc.is_cuda:
+        return _route_op.compact_phrase(*args, **kw)
+    _route_op.check_compact_inputs(*args, **kw)
+    return compact_phrase_body_torch(
+        postings_doc, postings_score, postings_tf, positions, pos_starts,
+        starts, ends, use_score, slot_of, ks, bloom_rows, bloom_bitmap,
+        bloom_rank, probe_slot, probe_begins, probe_mask, probe_active, T=T,
+        L=L, KV=KV, PP=PP, PW=PW, M=M, n_bs_iters=n_bs_iters, eps3=eps3,
+        tc_mode=tc_mode, avg32=avg32)
+
+
+def compact_phrase_body_torch(postings_doc, postings_score, postings_tf,
+                              positions, pos_starts, starts, ends, use_score,
+                              slot_of, ks, bloom_rows, bloom_bitmap,
+                              bloom_rank, probe_slot, probe_begins,
+                              probe_mask, probe_active, *, T: int, L: int,
+                              KV: int, PP: int, PW: int, M: int,
+                              n_bs_iters: int, eps3: float,
+                              tc_mode: bool = False, avg32=None):
+    """compact_phrase_body's plain torch version (on any device; the
+    tests and the chip smoke hold the kernels against it). The compact
+    phrase pipeline: bs match + bloom gate over L lanes,
     compaction to the KV best-scored surviving lanes (stable: score desc,
     index asc, so the canonical set), window verify of those only, top-M.
     Bloom-failing lanes are proven non-matches; the (KV+1)-th surviving

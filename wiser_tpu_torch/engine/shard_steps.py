@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from wiser_tpu_torch.engine import kernels as K
+from wiser_tpu_torch.ops.phrase_route import LIST_MAX_L
 
 
 @dataclass
@@ -101,13 +102,23 @@ def bs_step(sh: ShardColumns, rows, weights, *, T: int, L: int, M: int,
 
 def phrase_step(sh: ShardColumns, rows, weights, slot_of, *, T: int, L: int,
                 PP: int, M: int, n_bs_iters: int, n_pos_iters: int):
-    """kernels.phrase_body (the bloomless phrase pipeline) on one shard:
-    positional verification is doc-local, so the shards are
-    independent."""
+    """The bloomless phrase pipeline (kernels.phrase_body) on one shard:
+    positional verification is doc-local, so the shards are independent.
+    Where L fits the list chain (ops/phrase_route.LIST_MAX_L) it runs as
+    kernels.list_phrase without its gate, which returns the kept scores
+    too (the hand-written kernel on a card, phrase_body on the CPU); wider
+    lanes (shards without bloom columns) take phrase_body."""
     starts, ends = _bounds(sh, rows)
     kw = dict(T=T, L=L, PP=PP, M=M, n_bs_iters=n_bs_iters,
               n_pos_iters=n_pos_iters)
-    if sh.tc is not None:
+    tc = sh.tc is not None
+    if L <= LIST_MAX_L:
+        packed, score = K.list_phrase(
+            sh.doc, sh.tc if tc else sh.score, sh.positions, sh.pos_starts,
+            starts, ends, weights, slot_of, *(None,) * 7,
+            postings_tf=None if tc else sh.tf, avg32=sh.avg32 if tc else None,
+            gate=False, **kw)
+    elif tc:
         packed, score = K.phrase_body(
             sh.doc, None, None, sh.positions, sh.pos_starts, starts, ends,
             None, slot_of, tc=sh.tc, idf32=weights, avg32=sh.avg32, **kw)
@@ -122,10 +133,11 @@ def phrase_step(sh: ShardColumns, rows, weights, slot_of, *, T: int, L: int,
 def compact_phrase_step(sh: ShardColumns, rows, weights, slot_of, ks,
                         *probes, T: int, L: int, KV: int, PP: int, PW: int,
                         M: int, n_bs_iters: int, eps3: float):
-    """kernels.compact_phrase_body on one shard: the bi-bloom gate over the
-    shard's sparse folded bloom columns, the compaction to the KV best
-    AND scores and the window verify. FLAG_PRUNE_MISS compares the shard's
-    (KV+1)-th surviving score with its own k-th kept one."""
+    """kernels.compact_phrase_body on one shard (the hand-written kernels
+    on a card, their packed output and kept scores): the bi-bloom gate
+    over the shard's sparse folded bloom columns, the compaction to the KV
+    best AND scores and the window verify. FLAG_PRUNE_MISS compares the
+    shard's (KV+1)-th surviving score with its own k-th kept one."""
     starts, ends = _bounds(sh, rows)
     tc_mode = sh.tc is not None
     packed, score = K.compact_phrase_body(

@@ -9,17 +9,14 @@ hold instead of the bag bounds. `group_plan` says how it runs: a group of
 G threads an item (8 where T <= 8 and PW <= 32, else 32), W warps a CTA,
 each item's T windows (the valid entries only) in shared memory, so no
 (B, NL, PP, PW) compare plane reaches device memory; the output is the
-(B, NL) int32 counts. Two forms:
-`phrase_verify_docs` (engine/kernels._verify_docs, the mega routes): the
-kept docs (B, NL) and the query terms' runs (B, T); each term's posting
-index recovered inside the kernel exactly as the plain version's
-fixed-count search finds it, the bag bounds read from pos_starts, the
-verification anchored on each query's anchor term;
-`phrase_verify_pidx` (engine/kernels._verify_pidx, the compact route):
-the (B, T, NL) posting indices in slot order with slot_of, anchored on
-query term 0. Their plain versions are engine/kernels._verify_docs_torch
-and _verify_pidx_torch; `check_docs_inputs` and `check_pidx_inputs`
-check their arguments, so a bad argument raises ValueError the same way
+(B, NL) int32 counts.
+`phrase_verify_docs` (engine/kernels._verify_docs, the mega routes) takes
+the kept docs (B, NL) and the query terms' runs (B, T); each term's
+posting index is recovered inside the kernel exactly as the plain
+version's fixed-count search finds it, the bag bounds read from
+pos_starts, the verification anchored on each query's anchor term. Its
+plain version is engine/kernels._verify_docs_torch; `check_docs_inputs`
+checks the arguments, so a bad argument raises ValueError the same way
 on either device. The counts are integer work: the kernel equals the
 plain version on every row.
 """
@@ -33,7 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 # kernel launches by wrapper name, one a call
-launch_counts = {"phrase_verify_docs": 0, "phrase_verify_pidx": 0}
+launch_counts = {"phrase_verify_docs": 0}
 MAX_T = 32  # terms at most (phrase.cu kMaxT: a thread a term's bounds)
 MAX_WARPS = 8  # warps a CTA
 # a CTA's windows together at most, as far as one warp allows: 8 warps
@@ -44,7 +41,6 @@ MAX_SMEM = 232_448  # the shared bytes an H100 block can opt into
 # (phrase.cu kGroupMaxT, kGroupMaxPW), else a warp
 GROUP_SMALL = 8
 GROUP_MAX_T, GROUP_MAX_PW = 8, 32
-FORMS = ("pidx", "docs")  # phrase.cu kFromPidx, kFromDocs
 
 
 def warp_bytes(T: int, PW: int) -> int:
@@ -53,7 +49,7 @@ def warp_bytes(T: int, PW: int) -> int:
 
 
 class GroupPlan(NamedTuple):
-    """How phrase_verify_docs / _pidx run one (B, T, NL, PW) group."""
+    """How phrase_verify_docs runs one (B, T, NL, PW) group."""
     G: int  # threads an item
     W: int  # warps a CTA, 32 / G items each
     smem: int  # dynamic shared bytes a CTA
@@ -112,7 +108,7 @@ def _kernel_fns() -> _Fns:
 
 
 def _check_common(positions, T: int, NL: int, PP: int, PW: int):
-    """Both forms' conditions on the positions column and the shape
+    """The conditions on the positions column and the shape
     arguments: a non-empty contiguous 1-D positions column (int16 bits of
     uint16, or int32) on the CPU or a card, 1 <= T <= MAX_T, NL >= 0,
     PP >= 1, PW >= 1 and a warp's windows within the card's shared
@@ -170,27 +166,11 @@ def check_docs_inputs(postings_doc, positions, pos_starts, docs, starts,
         raise ValueError(f"need n_iters >= 0, got {n_iters}")
 
 
-def check_pidx_inputs(positions, pos_starts, pidx, slot_of, *, T: int,
-                      NL: int, PP: int, PW: int) -> None:
-    """Raise ValueError unless the arguments are what _verify_pidx takes:
-    the positions column and shapes as _check_common says, a non-empty
-    contiguous 1-D int32 pos_starts, contiguous (B, T, NL) int32 pidx
-    (slot order) and (B, T) int32 slot_of, every tensor on one device."""
-    dev = _check_common(positions, T, NL, PP, PW)
-    _column("pos_starts", pos_starts, dev)
-    if not isinstance(pidx, _T) or pidx.dim() != 3:
-        raise ValueError("pidx must be a (B, T, NL) tensor")
-    B = pidx.shape[0]
-    _need_i32("pidx", pidx, (B, T, NL), dev)
-    _need_i32("slot_of", slot_of, (B, T), dev)
-
-
 class _GroupParams(ctypes.Structure):
     """phrase.cu's WiserVerifyGroupParams: every field 8 bytes."""
     _fields_ = [(n, ctypes.c_longlong) for n in (
-        "positions n u16 pos_starts n_ps pidx slot_of doc n_doc docs "
-        "starts ends anchor out B T NL PP PW n_iters form G W "
-        "smem").split()]
+        "positions n u16 pos_starts n_ps doc n_doc docs starts ends "
+        "anchor out B T NL PP PW n_iters G W smem").split()]
 
 
 def _launch_group(params, dev, what: str) -> None:
@@ -204,18 +184,15 @@ def _launch_group(params, dev, what: str) -> None:
     launch_counts[what] += 1
 
 
-def _group_params(form: str, positions, pos_starts, out, B, T, NL, PP, PW,
-                  n_iters=0, pidx=None, slot_of=None, doc=None, docs=None,
-                  starts=None, ends=None, anchor=None) -> _GroupParams:
+def _group_params(positions, pos_starts, out, B, T, NL, PP, PW, n_iters,
+                  doc, docs, starts, ends, anchor) -> _GroupParams:
     g = group_plan(B, T, NL, PW)
-    ptr = lambda t: 0 if t is None else t.data_ptr()
     return _GroupParams(
         positions.data_ptr(), positions.shape[0],
         int(positions.dtype is torch.int16), pos_starts.data_ptr(),
-        pos_starts.shape[0], ptr(pidx), ptr(slot_of), ptr(doc),
-        0 if doc is None else doc.shape[0], ptr(docs), ptr(starts),
-        ptr(ends), ptr(anchor), out.data_ptr(), B, T, NL, PP, PW, n_iters,
-        FORMS.index(form), g.G, g.W, g.smem)
+        pos_starts.shape[0], doc.data_ptr(), doc.shape[0], docs.data_ptr(),
+        starts.data_ptr(), ends.data_ptr(), anchor.data_ptr(),
+        out.data_ptr(), B, T, NL, PP, PW, n_iters, g.G, g.W, g.smem)
 
 
 def phrase_verify_docs(postings_doc, positions, pos_starts, docs, starts,
@@ -239,32 +216,8 @@ def phrase_verify_docs(postings_doc, positions, pos_starts, docs, starts,
     out = torch.empty((B, NL), dtype=torch.int32, device=dev)
     if B * NL == 0:
         return out
-    _launch_group(_group_params("docs", positions, pos_starts, out, B, T,
-                                NL, PP, PW, n_iters, doc=postings_doc,
-                                docs=docs, starts=starts, ends=ends,
-                                anchor=anchor), dev, "phrase_verify_docs")
+    _launch_group(_group_params(positions, pos_starts, out, B, T, NL, PP, PW,
+                                n_iters, postings_doc, docs, starts, ends,
+                                anchor), dev, "phrase_verify_docs")
     return out
 
-
-def phrase_verify_pidx(positions, pos_starts, pidx, slot_of, *, T: int,
-                       NL: int, PP: int, PW: int):
-    """_verify_pidx's (B, NL) int32 counts from the kernel, on CUDA
-    tensors: term t's posting index from pidx's slot_of[b, t] row, its
-    bag bounds from pos_starts, the verification anchored on term 0.
-    Checks the arguments as check_pidx_inputs does (ValueError before any
-    launch), allocates the output, launches on the current stream and
-    does not synchronize."""
-    check_pidx_inputs(positions, pos_starts, pidx, slot_of, T=T, NL=NL,
-                      PP=PP, PW=PW)
-    dev = positions.device
-    if dev.type != "cuda":
-        raise ValueError(f"phrase_verify_pidx runs on CUDA tensors, got "
-                         f"{dev}")
-    B = pidx.shape[0]
-    out = torch.empty((B, NL), dtype=torch.int32, device=dev)
-    if B * NL == 0:
-        return out
-    _launch_group(_group_params("pidx", positions, pos_starts, out, B, T,
-                                NL, PP, PW, pidx=pidx, slot_of=slot_of),
-                  dev, "phrase_verify_pidx")
-    return out

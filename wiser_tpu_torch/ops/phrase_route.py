@@ -1,6 +1,6 @@
-"""Two resident phrase routes as hand-written CUDA kernels
-(csrc/phrase_route.cu): the semidense phrase route and the list chain,
-each from the candidate slice to the packed (B, T+2, M) output.
+"""Three phrase routes as hand-written CUDA kernels (csrc/phrase_route.cu):
+the semidense phrase route, the list chain and the compact route, each
+from the candidate slice to the packed (B, T+2, M) output.
 
 `semidense_phrase` computes engine/kernels.semidense_phrase_torch (the
 body of make_semidense_phrase_kernel) in three launches: the selection
@@ -19,17 +19,25 @@ and the gate, a thread a (lane, term) and a (lane, base) through the
 bags and the verification of the round's active lanes, the verified
 lanes pushed through distributed shared memory into the cluster's first
 CTA, which takes their top M; `gate=False` leaves the bloom gate out (a
-compile-time switch of the kernel). tc columns
+compile-time switch of the kernel: engine/kernels.phrase_body, the mesh's
+list route) and also returns the kept scores.
+`compact_phrase` computes engine/kernels.compact_phrase_body_torch in
+three launches: the semidense phrase route's with a selection that
+searches every slot and tests the bi-bloom probes of each found slot
+(segsel.cuh's gate; the probes' rows in shared memory, GATE_BYTES), then
+that route's recovery, verification and output (tc tfs from the tc
+lanes), with the (B, M) kept scores the mesh merges on. tc columns
 score from dense.cu's device table (ops/dense.tc_table, launched first
 and counted as dense_tc_table), so no lane divides.
 
-engine/kernels dispatches both for CUDA tensors and runs the plain
+engine/kernels dispatches them for CUDA tensors and runs the plain
 versions for CPU tensors after the same argument checks
-(`check_semidense_inputs`, `check_list_inputs`), which the wrappers run
+(`check_semidense_inputs`, `check_list_inputs`,
+`check_compact_inputs`), which the wrappers run
 before every launch, so a bad argument raises ValueError the same way on
-either device. The packed output equals the plain version's bit for
-bit: the keys order lanes by (score desc, lane asc), lax.top_k's order,
-which the plain versions keep with stable sorts.
+either device. The packed output (and the kept scores) equal the plain
+version's bit for bit: the keys order lanes by (score desc, lane asc),
+lax.top_k's order, which the plain versions keep with stable sorts.
 """
 
 from __future__ import annotations
@@ -45,12 +53,20 @@ from wiser_tpu_torch.ops import dense as _D
 from wiser_tpu_torch.ops import phrase as _P
 from wiser_tpu_torch.ops import semidense as _SD
 
-# kernel launches by wrapper name, one a call (raw and tc columns)
+# kernel launches by wrapper name, one a call (raw and tc columns; the
+# list chain without its gate, the mesh's list route, counts apart)
 launch_counts = {"semidense_phrase": 0, "semidense_phrase_tc": 0,
-                 "list_phrase": 0, "list_phrase_tc": 0}
+                 "list_phrase": 0, "list_phrase_tc": 0,
+                 "list_phrase_nogate": 0, "list_phrase_nogate_tc": 0,
+                 "compact_phrase": 0, "compact_phrase_tc": 0}
 MAX_T = 8  # terms at most (phrase_route.cu kMaxT)
 LIST_MAX_L = 1024  # the list chain's lanes at most (kListMaxL)
 OUT_WARPS = 8  # the semidense phrase output kernel's queries a CTA
+# the compact selection's probes' rows in shared memory ahead of its
+# buffer (segsel.cuh GateSmem: an 8-byte offset, a slot and a mask a
+# probe, kSegMaxT probes at most)
+MAX_PROBES = _SD.MAX_T
+GATE_BYTES = 16 * MAX_PROBES
 MAX_SMEM = 232_448  # the shared bytes an H100 block can opt into
 # the list chain (phrase_route.cu list_kernel): a CTA of LIST_THREADS, a
 # round of that many lanes a thread each; a segment holds whole warps of
@@ -95,6 +111,15 @@ def plan_semidense(B: int, T: int, KV: int, PW: int, M: int) -> SdpPlan:
     return SdpPlan(K, KP, _SD.HEAD_BYTES + 8 * _SD.layout(K)[1], W, W * per,
                    4 * OUT_WARPS * (M + 1), B * (8 * K + 4 * KV
                                                     + 4 * T * KV))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_compact(B: int, T: int, KV: int, PW: int, M: int) -> SdpPlan:
+    """How compact_phrase runs one (B, T, KV, PW, M) group: the semidense
+    phrase route's plan, the selection's shared bytes grown by the
+    probes' rows (GATE_BYTES)."""
+    p = plan_semidense(B, T, KV, PW, M)
+    return p._replace(smem_select=p.smem_select + GATE_BYTES)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -228,6 +253,57 @@ def check_semidense_inputs(postings_doc, col, dense, positions, pos_starts,
     _mat("ks", ks, torch.int32, (B,), dev)
 
 
+def _check_blooms(dev, B: int, bloom_rows, bloom_bitmap, bloom_rank,
+                  probe_slot, probe_begins, probe_mask, probe_active,
+                  max_probes: Optional[int] = None) -> None:
+    """The bi-bloom columns and the (B, C) probes, as the gated routes
+    take them."""
+    _vec("bloom_rows", bloom_rows, (torch.int32,), dev)
+    _vec("bloom_bitmap", bloom_bitmap, (torch.int32,), dev, 2)
+    _need(bloom_bitmap.shape[0] % 2 == 0,
+          "bloom_bitmap holds two sides of equal length")
+    _vec("bloom_rank", bloom_rank, (torch.int32,), dev,
+         bloom_bitmap.shape[0])
+    _need(isinstance(probe_slot, _T) and probe_slot.dim() == 2,
+          "probe_slot must be a (B, C) tensor")
+    shape = (B, probe_slot.shape[1])
+    _need(max_probes is None or shape[1] <= max_probes,
+          f"at most {max_probes} probes a query, got {shape[1]}")
+    _mat("probe_slot", probe_slot, torch.int32, shape, dev)
+    _mat("probe_begins", probe_begins, torch.bool, shape, dev)
+    _mat("probe_mask", probe_mask, torch.int32, shape, dev)
+    _mat("probe_active", probe_active, torch.bool, shape, dev)
+
+
+def check_compact_inputs(postings_doc, col, positions, pos_starts, starts,
+                         ends, weights, slot_of, ks, bloom_rows, bloom_bitmap,
+                         bloom_rank, probe_slot, probe_begins, probe_mask,
+                         probe_active, *, T: int, L: int, KV: int, PP: int,
+                         PW: int, M: int, n_bs_iters: int, eps3: float,
+                         postings_tf=None, avg32=None) -> None:
+    """Raise ValueError unless the arguments are what the compact phrase
+    route takes: the columns and (B, T) planes as check_semidense_inputs
+    says (no dense plane or slots), (B,) int32 ks, the bloom columns and
+    (B, C) probes as check_list_inputs says with the gate (C <=
+    MAX_PROBES); 2 <= T <= MAX_T, 1 <= KV < L, 1 <= M <= KV, PP and PW
+    >= 1, the kernels' shared bytes (plan_compact) within the card's,
+    n_bs_iters >= 0 and 0 <= eps3 < 1."""
+    dev, B = _common(postings_doc, col, positions, pos_starts, starts, ends,
+                     weights, slot_of, T, L, postings_tf, avg32)
+    ok = 1 <= KV < L and 1 <= M <= KV and PP >= 1 and PW >= 1
+    if ok:
+        p = plan_compact(B, T, KV, PW, M)
+        ok = max(p.smem_select, p.smem_verify, p.smem_output) <= MAX_SMEM
+    _need(ok and n_bs_iters >= 0 and 0.0 <= eps3 < 1.0,
+          f"need 1 <= KV < L, 1 <= M <= KV, PP, PW >= 1 (shared bytes "
+          f"within {MAX_SMEM}), n_bs_iters >= 0 and 0 <= eps3 < 1, got "
+          f"L={L} KV={KV} M={M} PP={PP} PW={PW} n_bs_iters={n_bs_iters} "
+          f"eps3={eps3}")
+    _mat("ks", ks, torch.int32, (B,), dev)
+    _check_blooms(dev, B, bloom_rows, bloom_bitmap, bloom_rank, probe_slot,
+                  probe_begins, probe_mask, probe_active, MAX_PROBES)
+
+
 def check_list_inputs(postings_doc, col, positions, pos_starts, starts, ends,
                       weights, slot_of, bloom_rows, bloom_bitmap, bloom_rank,
                       probe_slot, probe_begins, probe_mask, probe_active, *,
@@ -248,21 +324,9 @@ def check_list_inputs(postings_doc, col, positions, pos_starts, starts, ends,
           f"need L <= {LIST_MAX_L}, 1 <= M <= L, PP >= 1 and iteration "
           f"counts >= 0, got L={L} M={M} PP={PP} n_bs_iters={n_bs_iters} "
           f"n_pos_iters={n_pos_iters}")
-    if not gate:
-        return
-    _vec("bloom_rows", bloom_rows, (torch.int32,), dev)
-    _vec("bloom_bitmap", bloom_bitmap, (torch.int32,), dev, 2)
-    _need(bloom_bitmap.shape[0] % 2 == 0,
-          "bloom_bitmap holds two sides of equal length")
-    _vec("bloom_rank", bloom_rank, (torch.int32,), dev,
-         bloom_bitmap.shape[0])
-    _need(isinstance(probe_slot, _T) and probe_slot.dim() == 2,
-          "probe_slot must be a (B, C) tensor")
-    shape = (B, probe_slot.shape[1])
-    _mat("probe_slot", probe_slot, torch.int32, shape, dev)
-    _mat("probe_begins", probe_begins, torch.bool, shape, dev)
-    _mat("probe_mask", probe_mask, torch.int32, shape, dev)
-    _mat("probe_active", probe_active, torch.bool, shape, dev)
+    if gate:
+        _check_blooms(dev, B, bloom_rows, bloom_bitmap, bloom_rank,
+                      probe_slot, probe_begins, probe_mask, probe_active)
 
 
 class _SdpParams(ctypes.Structure):
@@ -272,7 +336,9 @@ class _SdpParams(ctypes.Structure):
         "norm_g positions n_pos u16 pos_starts n_ps starts ends weights "
         "slots slot_of ks B T L KV K KP PP PW M n_iters keep_bits keys "
         "counts pidx out W smem_select smem_verify smem_output nseg "
-        "seg_lanes").split()]
+        "seg_lanes top_score bloom_rows n_rows bloom_bitmap n_bitmap "
+        "bloom_rank probe_slot probe_begins probe_mask probe_active "
+        "C").split()]
 
 
 class _ListParams(ctypes.Structure):
@@ -282,7 +348,7 @@ class _ListParams(ctypes.Structure):
         "pos_starts n_ps bloom_rows n_rows bloom_bitmap n_bitmap bloom_rank "
         "probe_slot probe_begins probe_mask probe_active C gate starts ends "
         "weights slot_of B T L PP M n_iters n_pos_iters out smem nseg "
-        "seg_lanes").split()]
+        "seg_lanes top_score").split()]
 
 
 class _Fns:
@@ -292,6 +358,9 @@ class _Fns:
         self.sdp = lib.wiser_semidense_phrase
         self.sdp.argtypes = [ctypes.POINTER(_SdpParams), ctypes.c_void_p]
         self.sdp.restype = ctypes.c_int
+        self.compact = lib.wiser_compact_phrase
+        self.compact.argtypes = [ctypes.POINTER(_SdpParams), ctypes.c_void_p]
+        self.compact.restype = ctypes.c_int
         self.list = lib.wiser_list_phrase
         self.list.argtypes = [ctypes.POINTER(_ListParams), ctypes.c_void_p]
         self.list.restype = ctypes.c_int
@@ -372,10 +441,69 @@ def semidense_phrase(postings_doc, col, dense, positions, pos_starts, starts,
         ks.data_ptr(), B, T, L, KV, p.K, p.KP, PP, PW, M, n_rec_iters, keep,
         keys.data_ptr(), counts.data_ptr(), pidx.data_ptr(), out.data_ptr(),
         p.W, p.smem_select, p.smem_verify, p.smem_output, seg.nseg,
-        seg.seg_lanes)
+        seg.seg_lanes, *(0,) * 11)
     _run(fns.sdp, params, dev, "semidense_phrase")
     launch_counts["semidense_phrase_tc" if tc else "semidense_phrase"] += 1
     return out
+
+
+def compact_phrase(postings_doc, col, positions, pos_starts, starts, ends,
+                   weights, slot_of, ks, bloom_rows, bloom_bitmap, bloom_rank,
+                   probe_slot, probe_begins, probe_mask, probe_active, *,
+                   T: int, L: int, KV: int, PP: int, PW: int, M: int,
+                   n_bs_iters: int, eps3: float, postings_tf=None,
+                   avg32=None):
+    """The compact phrase route's (packed (B, T+2, M) int32, top_score
+    (B, M) f32) from the kernels, on CUDA tensors (raw: col the f32
+    scores and postings_tf; tc: col the tc lanes and avg32). Checks the
+    arguments (ValueError before any launch), allocates the outputs and
+    the (B, KV + 1) keys, (B, KV) counts and (B, T, KV) posting indices,
+    launches on the current stream (tc: the table kernel first; the
+    selection's segments by ops/semidense.segments) and does not
+    synchronize."""
+    kw = dict(T=T, L=L, KV=KV, PP=PP, PW=PW, M=M, n_bs_iters=n_bs_iters,
+              eps3=eps3, postings_tf=postings_tf, avg32=avg32)
+    args = (postings_doc, col, positions, pos_starts, starts, ends, weights,
+            slot_of, ks, bloom_rows, bloom_bitmap, bloom_rank, probe_slot,
+            probe_begins, probe_mask, probe_active)
+    check_compact_inputs(*args, **kw)
+    dev = postings_doc.device
+    _need(dev.type == "cuda", f"compact_phrase runs on CUDA tensors, got "
+          f"{dev}")
+    tc = avg32 is not None
+    B = starts.shape[0]
+    out = torch.empty((B, T + 2, M), dtype=torch.int32, device=dev)
+    top_score = torch.empty((B, M), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out, top_score
+    p = plan_compact(B, T, KV, PW, M)
+    fns = _kernel_fns()
+    seg = _SD.segments(B, L, p.K, _SD.sms_of(dev))
+    keys = torch.empty((B, p.K), dtype=torch.int64, device=dev)
+    counts = torch.empty((B, KV), dtype=torch.int32, device=dev)
+    pidx = torch.empty((B, T, KV), dtype=torch.int32, device=dev)
+    norm = _D.tc_table(avg32) if tc else None
+    keep = int(np.float32(1.0 - eps3).view(np.uint32))
+    params = _SdpParams(
+        postings_doc.data_ptr(), postings_doc.shape[0],
+        0 if tc else col.data_ptr(), col.shape[0],
+        0 if tc else postings_tf.data_ptr(),
+        0 if tc else postings_tf.shape[0],
+        col.data_ptr() if tc else 0, col.shape[0], 0, 0, 1, _ptr(norm),
+        positions.data_ptr(), positions.shape[0],
+        int(positions.dtype is torch.int16), pos_starts.data_ptr(),
+        pos_starts.shape[0], starts.data_ptr(), ends.data_ptr(),
+        weights.data_ptr(), 0, slot_of.data_ptr(), ks.data_ptr(), B, T, L,
+        KV, p.K, p.KP, PP, PW, M, n_bs_iters, keep, keys.data_ptr(),
+        counts.data_ptr(), pidx.data_ptr(), out.data_ptr(), p.W,
+        p.smem_select, p.smem_verify, p.smem_output, seg.nseg, seg.seg_lanes,
+        top_score.data_ptr(), bloom_rows.data_ptr(), bloom_rows.shape[0],
+        bloom_bitmap.data_ptr(), bloom_bitmap.shape[0], bloom_rank.data_ptr(),
+        probe_slot.data_ptr(), probe_begins.data_ptr(), probe_mask.data_ptr(),
+        probe_active.data_ptr(), probe_slot.shape[1])
+    _run(fns.compact, params, dev, "compact_phrase")
+    launch_counts["compact_phrase_tc" if tc else "compact_phrase"] += 1
+    return out, top_score
 
 
 def list_phrase(postings_doc, col, positions, pos_starts, starts, ends,
@@ -386,10 +514,11 @@ def list_phrase(postings_doc, col, positions, pos_starts, starts, ends,
     """The list chain's packed (B, T+2, M) int32 output from the kernel,
     on CUDA tensors (raw: col the f32 scores and postings_tf; tc: col the
     tc lanes and avg32). Checks the arguments (ValueError before any
-    launch), allocates the output, launches on the current stream (tc:
+    launch), allocates the outputs, launches on the current stream (tc:
     the table kernel first; the group's segments by list_plan) and does
     not synchronize. gate=False leaves the bloom gate out (the bloom and
-    probe arguments are not read)."""
+    probe arguments are not read) and returns (packed, top_score (B, M)
+    f32: the kept lanes' scores, -inf past them)."""
     kw = dict(T=T, L=L, PP=PP, M=M, n_bs_iters=n_bs_iters,
               n_pos_iters=n_pos_iters, postings_tf=postings_tf, avg32=avg32,
               gate=gate)
@@ -402,8 +531,10 @@ def list_phrase(postings_doc, col, positions, pos_starts, starts, ends,
     tc = avg32 is not None
     B = starts.shape[0]
     out = torch.empty((B, T + 2, M), dtype=torch.int32, device=dev)
+    top_score = (None if gate else
+                 torch.empty((B, M), dtype=torch.float32, device=dev))
     if B == 0:
-        return out
+        return out if gate else (out, top_score)
     norm = _D.tc_table(avg32) if tc else None
     p = list_plan(B, T, L, _SD.sms_of(dev))
     g = (bloom_rows, bloom_bitmap, bloom_rank, probe_slot, probe_begins,
@@ -422,7 +553,8 @@ def list_phrase(postings_doc, col, positions, pos_starts, starts, ends,
         g[3].shape[1] if gate else 0, int(gate), starts.data_ptr(),
         ends.data_ptr(), weights.data_ptr(), slot_of.data_ptr(), B, T, L, PP,
         M, n_bs_iters, n_pos_iters, out.data_ptr(), p.smem, p.nseg,
-        p.seg_lanes)
+        p.seg_lanes, _ptr(top_score))
     _run(_kernel_fns().list, params, dev, "list_phrase")
-    launch_counts["list_phrase_tc" if tc else "list_phrase"] += 1
-    return out
+    launch_counts["list_phrase" + ("" if gate else "_nogate")
+                  + ("_tc" if tc else "")] += 1
+    return out if gate else (out, top_score)

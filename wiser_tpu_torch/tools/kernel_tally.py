@@ -3,10 +3,11 @@
 While a `KernelTally` is installed (`with KernelTally() as tally:`), every
 call of a kernel wrapper (ops/search.bs_search, ops/dense.dense_scan,
 dense_pick, phrase_select and phrase_band, ops/semidense.semidense,
-ops/phrase.phrase_verify_docs and phrase_verify_pidx,
-ops/phrase_route.semidense_phrase and list_phrase; in an older tree the
-bag-bound ops/phrase.phrase_verify too) is counted by its
-kernel's name (`_tc` on tc columns) and
+ops/phrase.phrase_verify_docs, ops/phrase_route.semidense_phrase,
+list_phrase and compact_phrase; in an older tree the bag-bound
+ops/phrase.phrase_verify too) is counted by its
+kernel's name (`_tc` on tc columns; the list chain without its gate, the
+mesh's list route, as `list_phrase_nogate`) and
 its call shape (every tensor argument's shape and dtype, every other
 argument's value), and the newest call of each shape is kept. `flush`
 (called before the engine whose tensors those calls hold goes away)
@@ -46,11 +47,11 @@ WRAPPERS = (
     ("wiser_tpu_torch.ops.phrase", "phrase_verify", "phrase_verify", 1),  # older
     ("wiser_tpu_torch.ops.phrase", "phrase_verify_docs",
      "phrase_verify_docs", 3),
-    ("wiser_tpu_torch.ops.phrase", "phrase_verify_pidx",
-     "phrase_verify_pidx", 2),
     ("wiser_tpu_torch.ops.phrase_route", "semidense_phrase",
      "semidense_phrase", 5),
     ("wiser_tpu_torch.ops.phrase_route", "list_phrase", "list_phrase", 4),
+    ("wiser_tpu_torch.ops.phrase_route", "compact_phrase", "compact_phrase",
+     4),
 )
 _TC_KW = ("avg32", "len_code", "tc")
 # (module, torch step, name, callers, torch launches a call: a function
@@ -112,8 +113,9 @@ class KernelTally:
 
     def _wrap(self, fn, base, b_arg):
         def run(*args, **kw):
-            name = base + ("_tc" if any(kw.get(k) is not None
-                                        for k in _TC_KW) else "")
+            name = (base + ("_nogate" if kw.get("gate") is False else "")
+                    + ("_tc" if any(kw.get(k) is not None
+                                    for k in _TC_KW) else ""))
             key = (name, _sig(args), _sig(tuple(sorted(kw.items()))))
             entry = self.calls.get(key)
             if entry is None:

@@ -1,16 +1,17 @@
-"""The semidense phrase route's kernels and the list chain's
-(ops/phrase_route.py, csrc/phrase_route.cu) held against their plain
-torch versions (engine/kernels.semidense_phrase_torch,
-list_phrase_torch) and timed beside them; and the phrase route sets split
-by the route each query takes.
+"""The semidense phrase route's kernels, the list chain's and the compact
+route's (ops/phrase_route.py, csrc/phrase_route.cu) held against their
+plain torch versions (engine/kernels.semidense_phrase_torch,
+list_phrase_torch, compact_phrase_body_torch) and timed beside them; and
+the phrase route sets split by the route each query takes, on the
+resident engine and on the mesh.
 
-    python -m wiser_tpu_torch.tools.phrase_bench [--check-only] [--out r.json]
+    python -m wiser_tpu_torch.tools.phrase_bench [--check-only] [--kinds K,..] [--out r.json]
     python -m wiser_tpu_torch.tools.phrase_bench --probe [--out r.json]
     python -m wiser_tpu_torch.tools.phrase_bench --tune-list [--out r.json]
     python -m wiser_tpu_torch.tools.phrase_bench --split --index IDX \
         [--sets phrase_mixed,phrase_mega] [--select-path one|two] --out r.json
     python -m wiser_tpu_torch.tools.phrase_bench --trees OLD,.,.,OLD \
-        --index IDX --out r.json
+        --index IDX [--sets S,..] [--mesh-sets S,..] [--kinds K,..] --out r.json
 
 (on a card: the kernels build at first use). `semidense_phrase_cases`
 and `list_phrase_cases` run raw and tc columns at T 2-4 over synthetic
@@ -23,7 +24,18 @@ their edges and hundreds of verified lanes, and (SDP_EDGE_CASES) the
 segmented selection's edges: B 1 over a cluster's 8 segments with ties
 across their edges, B 8 at L 2,049, a recovery past its iteration
 count; each packed (B, T+2, M) output must equal the plain version's
-bit for bit. `time_semidense_phrase` and `time_list_phrase` time the
+bit for bit. `compact_phrase_cases` runs COMPACT_CASES raw and tc, T
+2-4 (ties straddling the (KV+1)-th place, fewer than KV + 1 survivors,
+every lane gated out, a candidate run clamped at the column's end, no
+active probe, searches stopped short of their count, B 1 over a
+cluster's 8 segments) and COMPACT_LONG_CASES (a mesh shard's L
+131,072 and 524,288): packed output and kept scores bit for bit; on a
+card every list case also runs without its gate, its packed output held
+against the plain chain with no probe and its kept scores against
+phrase_body's.
+`time_semidense_phrase`, `time_list_phrase`, `time_compact_phrase`
+(COMPACT_TIME, COMPACT_ENGINE) and `time_list_nogate` (LIST_NOGATE_TIME)
+time the
 entry points at synthetic 1M shapes (the semidense phrase: B 128, T 2,
 L 2,048 and 32,768, KV 1,024, and the engines' B 8 and 32 groups,
 SDP_ENGINE; the list chain: the engines' B 8 and 128 groups at T 2-4, L
@@ -40,9 +52,11 @@ and list branches, the mega routes, the host), then each route's
 queries run alone as a set (route_bench.run_set, traced), so a set's
 device ms splits by route; each phrase group's peak device memory above
 its inputs is kept by route; `--select-path` forces the full-scan
-selection's path for the run. `--trees` measures each listed tree in its
-own process (tools/unpack_bench.run_trees): the semidense phrase route
-and the list chain at the timed shapes, then, with `--index`, the split.
+selection's path for the run. The mesh's sets (`--mesh-sets`) split the
+same way on a ShardedEngine of MESH_SHARDS shards on the card
+(`mesh_split`, MeshRouteSpy: compact, list or host). `--trees` measures
+each listed tree in its own process (tools/unpack_bench.run_trees): the
+`--kinds` at the timed shapes, then, with `--index`, the splits.
 `--probe` reads the semidense phrase route's and the list chain's phase
 cycles from a measuring build (clock64() marks, csrc/clocks.cuh;
 tools/dense_bench.clocks_build, phase_split; LIST_GROUPS).
@@ -142,8 +156,42 @@ class RouteSpy:
         return False
 
 
-def split_set(eng, queries, batch: int = 2048) -> dict:
-    """One set's device ms split by route: a pass under RouteSpy (routes
+class MeshRouteSpy(RouteSpy):
+    """RouteSpy on a ShardedEngine: its phrase groups take the compact or
+    the list route (`_dispatch_phrase`), or the exact host search
+    (`_run_host` of phrases)."""
+
+    def __enter__(self):
+        eng = self.eng
+        dispatch, host = eng._dispatch_phrase, eng._run_host
+
+        def dispatch_rec(group, T, L, PP, PW, compact):
+            kind = "phrase_compact" if compact else "phrase_list"
+            for pq in group:
+                self.route[self.key(pq.query)] = kind
+            self.groups[kind] += 1
+            return self._measured(kind, dispatch)(group, T, L, PP, PW,
+                                                  compact)
+
+        def host_rec(group, is_phrase):
+            if is_phrase:
+                for pq in group:
+                    self.route[self.key(pq.query)] = "host"
+                self.groups["host"] += 1
+            return host(group, is_phrase)
+
+        eng._dispatch_phrase = dispatch_rec
+        eng._run_host = host_rec
+        return self
+
+    def __exit__(self, *exc):
+        for name in ("_dispatch_phrase", "_run_host"):
+            del self.eng.__dict__[name]
+        return False
+
+
+def split_set(eng, queries, batch: int = 2048, spy_cls=RouteSpy) -> dict:
+    """One set's device ms split by route: a pass under `spy_cls` (routes
     and group peaks), the whole set by route_bench.run_set (traced), then
     each route's queries alone, traced."""
     import torch
@@ -151,7 +199,7 @@ def split_set(eng, queries, batch: int = 2048) -> dict:
     from wiser_tpu_torch.tools import route_bench as RB
 
     eng.clear_result_memos()
-    with RouteSpy(eng) as spy:
+    with spy_cls(eng) as spy:
         eng.search_batch(queries)
     eng.stats_take()
     out = {"queries": len(queries), "group_peak_bytes": spy.peaks,
@@ -169,7 +217,8 @@ def split_set(eng, queries, batch: int = 2048) -> dict:
         out["routes"][kind] = row
         log(f"  {kind}: {len(qs)} queries, device ms "
             f"{(row.get('traced') or {}).get('device_busy_ms')}")
-    torch.cuda.empty_cache()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
     return out
 
 
@@ -196,6 +245,42 @@ def route_split(index: str, columns: str, sets=SETS, n: int = SPLIT_N):
         out[name] = split_set(eng, all_sets[name])
     del eng
     torch.cuda.empty_cache()
+    return out
+
+
+MESH_SHARDS = 4  # the chip smoke's mesh: four shards on one card
+MESH_SETS = ("phrase_list", "phrase_mixed", "phrase_mega")
+
+
+def mesh_split(index: str, columns: str, sets=MESH_SETS, n: int = SPLIT_N,
+               shards: int = MESH_SHARDS, devices=None):
+    """route_bench's phrase sets of a saved index on a ShardedEngine of
+    these columns (`shards` shards, by default all on the card, as the
+    chip smoke's mesh phase runs them; `devices` a device a shard), each
+    split by the route each query takes on the mesh (MeshRouteSpy:
+    compact, list or host)."""
+    import torch
+
+    from wiser_tpu_torch.engine.shard import ShardedEngine, ShardedIndex
+    from wiser_tpu_torch.index.format import PackedIndex
+    from wiser_tpu_torch.tools import route_bench as RB
+
+    packed = PackedIndex.load(index, skip_offsets=True)
+    eng = ShardedEngine(ShardedIndex.from_packed(packed, shards),
+                        devices=devices, columns=columns)
+    with open(os.path.join(index, "phrase_pairs.json")) as f:
+        pairs = [tuple(x) for x in json.load(f)]
+    all_sets = RB.build_phrase_route_sets(packed, eng, None, n, 10,
+                                          pairs=pairs)
+    out = {}
+    for name in sets:
+        if not all_sets.get(name):
+            continue
+        log(f"== mesh {columns} {name}")
+        out[name] = split_set(eng, all_sets[name], spy_cls=MeshRouteSpy)
+    del eng
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
     return out
 
 
@@ -396,6 +481,25 @@ def semidense_args(cols: dict, batch: dict, mode: str, dev):
     return args, kw
 
 
+def compact_args(cols: dict, batch: dict, mode: str, dev):
+    """(args, kw) of kernels.compact_phrase_body on dev (kw lacks the
+    shapes)."""
+    t = lambda k, src=cols: to_torch(src[k], dev)
+    if mode == "tc":
+        head, kw = (t("doc"), t("tc"), None), {"tc_mode": True,
+                                               "avg32": t("avg32")}
+    else:
+        head, kw = (t("doc"), t("score"), t("tf")), {}
+    args = head + (t("positions"), t("pos_starts"), t("starts", batch),
+                   t("ends", batch), t("idf" if mode == "tc" else "use",
+                                       batch),
+                   t("slot_of", batch), t("ks", batch), t("bloom_rows"),
+                   t("bloom_bitmap"), t("bloom_rank"), t("probe_slot", batch),
+                   t("probe_begins", batch), t("probe_mask", batch),
+                   t("probe_active", batch))
+    return args, kw
+
+
 def list_args(cols: dict, batch: dict, mode: str, dev):
     """(args, kw) of kernels.list_phrase on dev (kw lacks the shapes)."""
     t = lambda k, src=cols: to_torch(src[k], dev)
@@ -471,6 +575,80 @@ LIST_CASES = (
 )
 
 
+# the compact route's: (name, seed, n_docs, dfs, B, T, L, KV, PP, PW, M,
+# tie, sorted bags, edge). KV 4-64 over thousands of candidates with
+# quantized scores straddles ties at the (KV+1)-th lane; KV 1,024 leaves
+# fewer than KV + 1 survivors; the edges: "gate_all" (every bloom row
+# empty and every probe active but query 0's: every such lane gated out),
+# "clamp" (query 1's candidate run is the column's last, so its L-lane
+# slice clamps at the column's end), "probes_off" (no active probe),
+# "iters" (the searches stop COMPACT_SHORT_ITERS halvings short of the
+# longest run's count, so the recovery replays the fixed-count search);
+# B 1 over a cluster's 8 segments with ties across their edges; T 2-4;
+# tc tf bytes of 255 in every case (synth_columns)
+COMPACT_CASES = (
+    ("ties_kv4", 41, 4096, (1900, 3000, 2600, 2200), 8, 2, 2048, 4, 8, 8, 4,
+     True, False, None),
+    ("ties_kv16_t3", 42, 4096, (1900, 3000, 2600, 2200), 8, 3, 2048, 16, 8,
+     8, 8, True, False, None),
+    ("ties_kv64_t4", 43, 4096, (1900, 3000, 2600, 2200), 8, 4, 2048, 64, 8,
+     16, 16, True, True, None),
+    ("short_kv1024", 44, 4096, (1500, 2000, 1800, 1700), 8, 2, 2048, 1024,
+     4, 8, 24, False, False, None),
+    ("short_kv1024_t3", 45, 4096, (1500, 2600, 2000, 1700), 8, 3, 2048,
+     1024, 8, 8, 24, False, False, None),
+    ("gated_out", 46, 4096, (1900, 3000, 2600, 2200), 8, 2, 2048, 64, 8, 8,
+     8, False, False, "gate_all"),
+    ("clamped_t3", 47, 4096, (1900, 3000, 2600, 2200), 8, 3, 4096, 256, 8,
+     8, 16, False, False, "clamp"),
+    ("probes_off", 48, 4096, (1900, 3000, 2600, 2200), 8, 2, 2048, 128, 8,
+     8, 8, True, False, "probes_off"),
+    ("past_iters", 49, 4096, (1900, 3000, 2600, 2200), 8, 2, 2048, 256, 8,
+     8, 12, False, False, "iters"),
+    ("b1_segments_ties", 50, 16384, (8000, 12000, 10000, 9000), 1, 2, 8192,
+     64, 8, 8, 16, True, False, None),
+)
+# a mesh shard's long lanes (many steps a segment), on a card only: L
+# 131,072, and the mesh's most common compact group, B 8 T 2 at L 524,288
+COMPACT_LONG_CASES = (
+    ("mesh_l131072", 51, 300_000, (140_000, 200_000, 180_000), 8, 2, 131072,
+     1024, 8, 8, 64, False, False, None),
+    ("mesh_l524288", 52, 1_200_000, (560_000, 800_000), 8, 2, 524288, 1024,
+     8, 8, 64, False, False, None),
+)
+COMPACT_SHORT_ITERS = 3  # "iters": halvings short of ceil(log2(df + 1))
+
+
+def compact_inputs(case):
+    """(cols, batch, shapes kw) of one COMPACT_CASES case, its edge
+    applied."""
+    (name, seed, n_docs, dfs, B, T, L, KV, PP, PW, M, tie, sb, edge) = case
+    cols = synth_columns(seed, n_docs, dfs, tie=tie, sorted_bags=sb)
+    batch = phrase_batch(cols, B, T, M, seed + 100,
+                         probes_off=edge == "probes_off")
+    if edge == "gate_all":
+        cols["bloom_rows"] = np.zeros_like(cols["bloom_rows"])
+        batch["probe_mask"] |= np.uint32(1)
+        batch["probe_active"][1:] = True
+    if edge == "clamp":
+        last = len(cols["dfs"]) - 1
+        batch["starts"][1, 0] = cols["term_starts"][last]
+        batch["ends"][1, 0] = cols["term_starts"][last] + cols["dfs"][last]
+    kw = dict(T=T, L=L, KV=KV, PP=PP, PW=PW, M=M,
+              n_bs_iters=_iters(max(dfs)) - (COMPACT_SHORT_ITERS
+                                             if edge == "iters" else 0),
+              eps3=3e-6)
+    return cols, batch, kw
+
+
+def compact_case(case, mode: str, dev):
+    """(args, kw) of one COMPACT_CASES case, shapes included."""
+    cols, batch, shapes = compact_inputs(case)
+    args, kw = compact_args(cols, batch, mode, dev)
+    kw.update(shapes, eps3=3e-6 if mode == "raw" else 3e-5)
+    return args, kw
+
+
 def semidense_case(case, mode: str, dev):
     """(args, kw) of one SDP_CASES case, shapes included."""
     (_, seed, n_docs, dfs, B, T, L, KV, PP, PW, M, tie, sb) = case
@@ -495,7 +673,17 @@ def list_case(case, mode: str, dev):
 
 
 def _summary(got, want, what: str) -> dict:
-    """Bit-equality of two packed outputs (raises where they differ)."""
+    """Bit-equality of two packed outputs, or of two (packed, top_score)
+    pairs, the scores' bits too (raises where they differ)."""
+    if isinstance(got, tuple):
+        import torch
+
+        gs = got[1].cpu().contiguous().view(torch.int32).numpy()
+        ws = want[1].cpu().contiguous().view(torch.int32).numpy()
+        if gs.shape != ws.shape or not np.array_equal(gs, ws):
+            raise AssertionError(f"{what}: the kernel's top scores differ "
+                                 f"from the plain version's")
+        got, want = got[0], want[0]
     g, w = got.cpu().numpy(), want.cpu().numpy()
     if g.shape != w.shape or not np.array_equal(g, w):
         bad = np.nonzero((g != w).reshape(g.shape[0], -1).any(axis=1))[0] \
@@ -542,13 +730,69 @@ def list_phrase_cases(dev, modes=("raw", "tc")) -> dict:
                                 f"list phrase {row}"))
             rows.append(row)
             if dev.type == "cuda":
-                off = list(args)
-                off[14] = args[14] & False  # no active probe
                 r2 = {"case": f"{case[0]}_gate_off", "mode": mode}
                 r2.update(_summary(R.list_phrase(*args, gate=False, **kw),
-                                   K.list_phrase_torch(*off, **kw),
+                                   gate_off_plain(args, kw),
                                    f"list phrase {r2}"))
                 rows.append(r2)
+    return {"cases": len(rows), "rows": rows}
+
+
+def no_probes(args, B: int):
+    """The list chain's bloom and probe arguments with no probe (C 0):
+    the plain version's gate passes every lane."""
+    import torch
+
+    dev = args[0].device
+    z = torch.zeros(2, dtype=torch.int32, device=dev)
+    e = torch.zeros((B, 0), dtype=torch.int32, device=dev)
+    b = torch.zeros((B, 0), dtype=torch.bool, device=dev)
+    return (z[:1], z, z, e, b, e, b)
+
+
+def gate_off_plain(args, kw):
+    """The gate-off list chain's plain version, (packed, top_score): the
+    packed output of list_phrase_torch with no probe (lanes tied by
+    ascending lane, as the kernel keeps them) and phrase_body's top
+    scores (the bloomless pipeline the mesh's merge reads)."""
+    from wiser_tpu_torch.engine import kernels as K
+
+    kw = {k: v for k, v in kw.items() if k != "gate"}
+    return (K.list_phrase_torch(*args[:8], *no_probes(args, args[4].shape[0]),
+                                **kw), phrase_body_scores(args, kw))
+
+
+def phrase_body_scores(args, kw):
+    """kernels.phrase_body's top_score on the list chain's arguments (the
+    bloomless pipeline the mesh's list route ran in torch)."""
+    from wiser_tpu_torch.engine import kernels as K
+
+    tc = kw.get("avg32") is not None
+    _, score = K.phrase_body(
+        args[0], None if tc else args[1], kw.get("postings_tf"), args[2],
+        args[3], args[4], args[5], None if tc else args[6], args[7],
+        tc=args[1] if tc else None, idf32=args[6] if tc else None,
+        avg32=kw.get("avg32"),
+        **{k: kw[k] for k in ("T", "L", "PP", "M", "n_bs_iters",
+                              "n_pos_iters")})
+    return score
+
+
+def compact_phrase_cases(dev, modes=("raw", "tc"), long: bool = True) -> dict:
+    """Every COMPACT_CASES case (and, with `long`, COMPACT_LONG_CASES),
+    raw and tc: the kernels' packed output and top scores equal to the
+    plain version's (compact_phrase_body_torch) bit for bit."""
+    from wiser_tpu_torch.engine import kernels as K
+
+    rows = []
+    for case in COMPACT_CASES + (COMPACT_LONG_CASES if long else ()):
+        for mode in modes:
+            args, kw = compact_case(case, mode, dev)
+            row = {"case": case[0], "mode": mode}
+            row.update(_summary(K.compact_phrase_body(*args, **kw),
+                                K.compact_phrase_body_torch(*args, **kw),
+                                f"compact phrase {row}"))
+            rows.append(row)
     return {"cases": len(rows), "rows": rows}
 
 
@@ -596,8 +840,8 @@ def list_bound_bytes(args, kw) -> int:
     run or a sector a lane still searching it where that is fewer, 12 B
     (bloom word, rank and row) a (matched lane, active probe), a sector
     of pos_starts and of each bag of every lane the gate passes, and the
-    packed output. The lanes and their survival are the plain
-    version's."""
+    packed output (without the gate, the kept scores too). The lanes and
+    their survival are the plain version's."""
     import torch
 
     from wiser_tpu_torch.engine import kernels as K
@@ -613,16 +857,61 @@ def list_bound_bytes(args, kw) -> int:
     _, match, pidx, _, _ = K._match_step(doc, col, starts, ends, w, T=T,
                                          L=L, n_bs_iters=kw["n_bs_iters"],
                                          avg32=avg32)
-    active = match & K._bloom_gate(pidx, *args[8:15])
+    gate = args[8] is not None and kw.get("gate", True)
+    active = match & K._bloom_gate(pidx, *args[8:15]) if gate else match
     alive = cvalid.clone()
     total = int(cvalid.sum()) * (6 if avg32 is not None else 8)
     for t in range(1, T):
         run = (ends[:, t] - starts[:, t]).long().clamp(min=0) * 4
         total += int(torch.minimum(run, alive.sum(dim=1) * SECTOR).sum())
         alive &= found[:, t - 1]
-    total += int((match.sum(dim=1) * args[14].sum(dim=1)).sum()) * 12
+    if gate:
+        total += int((match.sum(dim=1) * args[14].sum(dim=1)).sum()) * 12
     total += int(active.sum()) * T * 2 * SECTOR
-    return total + starts.shape[0] * (T + 2) * M * 4
+    kept_scores = 0 if kw.get("gate", True) else 4 * M
+    return total + starts.shape[0] * ((T + 2) * M * 4 + kept_scores)
+
+
+def compact_bound_bytes(args, kw) -> int:
+    """The least bytes the compact route must move on these inputs: the
+    candidate slices (8 B a valid lane raw, 6 tc), each searched slot's
+    run or a sector a lane still searching it where that is fewer, 12 B
+    (bloom word, rank and row) a (matched lane, active probe), the K = KV
+    + 1 keys, and for each kept lane (at most KV a query) a sector of
+    each searched run (the recovery), of pos_starts and of each bag; the
+    packed output and the top scores. The lanes and their survival are
+    the plain version's."""
+    import torch
+
+    from wiser_tpu_torch.engine import kernels as K
+
+    doc, col = args[0], args[1]
+    starts, ends, w = args[5], args[6], args[7]
+    T, L, KV, M = kw["T"], kw["L"], kw["KV"], kw["M"]
+    avg32 = kw.get("avg32") if kw.get("tc_mode") else None
+    B = starts.shape[0]
+    cdocs, _, cvalid, _ = K._candidates(doc, col, starts, ends, L)
+    _, found, _, _ = K._others(doc, col, cdocs, starts[:, 1:], ends[:, 1:],
+                               kw["n_bs_iters"], weights=w[:, 1:],
+                               avg32=avg32)
+    match = found.all(dim=1) & cvalid
+    cs = starts[:, 0]
+    lane = torch.arange(L, dtype=torch.int32, device=doc.device)
+    pidx = torch.cat([(cs[:, None] + lane[None, :])[:, None, :],
+                      K._binary_search(doc, cdocs[:, None, :].expand(
+                          B, T - 1, L), starts[:, 1:, None],
+                          ends[:, 1:, None], kw["n_bs_iters"])], dim=1)
+    active = match & K._bloom_gate(pidx, *args[10:17])
+    alive = cvalid.clone()
+    total = int(cvalid.sum()) * (6 if avg32 is not None else 8)
+    for t in range(1, T):
+        run = (ends[:, t] - starts[:, t]).long().clamp(min=0) * 4
+        total += int(torch.minimum(run, alive.sum(dim=1) * SECTOR).sum())
+        alive &= found[:, t - 1]
+    total += int((match.sum(dim=1) * args[16].sum(dim=1)).sum()) * 12
+    kept = int(active.sum(dim=1).clamp(max=KV).sum())
+    return (total + B * (KV + 1) * 8 + kept * (3 * T - 1) * SECTOR
+            + B * (T + 2) * M * 4 + B * M * 4)
 
 
 ROUTE_TAGS = ("wiser_phrase_route::", "tc_norm_kernel")
@@ -665,23 +954,30 @@ SDP_GROUPS = (("select", ("candidates", "windows", "gathers", "flush",
               ("output", ("output",), 12, 13, {}))
 
 
+def _route_fns(kind):
+    """(entry point, plain version, bytes bound, B argument) of a kind."""
+    from wiser_tpu_torch.engine import kernels as K
+
+    if kind == "semidense_phrase":
+        return (K.semidense_phrase_body, K.semidense_phrase_torch,
+                semidense_bound_bytes, 5)
+    if kind == "compact_phrase":
+        return (K.compact_phrase_body, K.compact_phrase_body_torch,
+                compact_bound_bytes, 5)
+    if kind == "list_phrase_nogate":
+        return (K.list_phrase, lambda *a, **k: gate_off_plain(a, k),
+                list_bound_bytes, 4)
+    return K.list_phrase, K.list_phrase_torch, list_bound_bytes, 4
+
+
 def _timed(kind, args, kw, mode, plain: bool, compare: bool, what) -> dict:
     """One group: the kernel against the plain version (`compare`), then
     timed in turns with it (semidense_bench.time_pair), with the bytes
     bound of these inputs."""
-    from wiser_tpu_torch.engine import kernels as K
     from wiser_tpu_torch.tools import semidense_bench as SDB
 
-    if kind == "semidense_phrase":
-        fn, plain_fn, bound = (K.semidense_phrase_body,
-                               K.semidense_phrase_torch,
-                               semidense_bound_bytes)
-    else:
-        fn, plain_fn, bound = K.list_phrase, K.list_phrase_torch, \
-            list_bound_bytes
-    row = {"kind": kind, "mode": mode, "B": int(args[5 if kind ==
-                                                   "semidense_phrase" else 4]
-                                                .shape[0]),
+    fn, plain_fn, bound, b_arg = _route_fns(kind)
+    row = {"kind": kind, "mode": mode, "B": int(args[b_arg].shape[0]),
            **{k: kw[k] for k in ("T", "L", "M", "PP") if k in kw}}
     if "KV" in kw:
         row["KV"] = kw["KV"]
@@ -760,6 +1056,73 @@ def probe(dev, shapes=SDP_TIME + SDP_ENGINE[:1], modes=("raw", "tc"),
                 torch.cuda.empty_cache()
     finally:
         PR._fns = loaded
+    return rows
+
+
+# (B, T, L) of the compact route's timed groups on synthetic 1M columns:
+# the resident engine's groups at each L bucket (B by its lane budget:
+# 4,096 at L 2,048, 1,024 at 8,192, 128 at 32,768) and the serve phase's
+# B 8; a mesh shard's L 131,072 at its B 32, and the mesh's most common
+# group, B 8 at L 524,288
+COMPACT_TIME = ((128, 2, 32768), (1024, 2, 8192))
+COMPACT_ENGINE = ((8, 2, 2048), (8, 2, 32768), (32, 2, 131072),
+                  (4096, 2, 2048), (8, 2, 524288))
+# the mesh's list route (the list chain without its gate) at a shard's
+# B 128 groups
+LIST_NOGATE_TIME = ((128, 2, 512), (128, 2, 1024), (32, 3, 512))
+
+
+def compact_inputs_1m(shapes, modes, dev):
+    """(B, T, L, mode, args, kw) of the compact route at each (B, T, L) of
+    `shapes` on synthetic 1M columns (candidate terms of df L - L / 16,
+    as many as keep their postings near 4M, heads of df 300,000; KV
+    1,024, M 64, PP = PW = 8); one column set a (T, L)."""
+    cols_of = {}
+    for B, T, L in shapes:
+        if (T, L) not in cols_of:
+            cols_of = {(T, L): synth_columns(
+                3, N_DOCS_1M, (L - L // 16,) + (300_000,) * (T - 1),
+                n_cands=max(1, min(64, (4 << 20) // L)))}
+        cols = cols_of[(T, L)]
+        batch = phrase_batch(cols, B, T, TIME_M, 103)
+        for mode in modes:
+            args, kw = compact_args(cols, batch, mode, dev)
+            kw.update(T=T, L=L, KV=TIME_KV, PP=8, PW=8, M=TIME_M,
+                      n_bs_iters=_iters(300_000),
+                      eps3=3e-6 if mode == "raw" else 3e-5)
+            yield B, T, L, mode, args, kw
+
+
+def time_compact_phrase(dev, shapes=COMPACT_TIME, modes=("raw", "tc"),
+                        plain: bool = True, compare: bool = True) -> list:
+    """The compact route at `shapes` (compact_inputs_1m), raw and tc:
+    compared with the plain version (`compare`), timed (`_timed`)."""
+    import torch
+
+    rows = []
+    for B, T, L, mode, args, kw in compact_inputs_1m(shapes, modes, dev):
+        rows.append(_timed("compact_phrase", args, kw, mode, plain, compare,
+                           "compact phrase timing"))
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_list_nogate(dev, shapes=LIST_NOGATE_TIME, modes=("raw", "tc"),
+                     plain: bool = True, compare: bool = True) -> list:
+    """The list chain without its gate (the mesh's list route) at
+    `shapes` (list_inputs, no bloom arguments), raw and tc, its top
+    scores with it: compared with the plain version, timed."""
+    import torch
+
+    rows = []
+    for B, T, L, mode, args, kw in list_inputs(shapes, modes, dev):
+        args = args[:8] + (None,) * 7
+        kw.update(gate=False)
+        rows.append(_timed("list_phrase_nogate", args, kw, mode, plain,
+                           compare, "list phrase (no gate) timing"))
+        del args
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -875,12 +1238,15 @@ def probe_list(dev, shapes=LIST_ENGINE, modes=("raw", "tc"),
 
 
 class Recorder:
-    """Records the calls an engine makes of kernels.semidense_phrase_body
-    and kernels.list_phrase (each distinct shape's largest group, at most
-    `per_kind` shapes a kind) while installed (`with Recorder() as
-    rec:`), so that `time_calls` can hold and time them afterwards."""
+    """Records the calls an engine makes of kernels.semidense_phrase_body,
+    kernels.list_phrase (with its gate, and without: the mesh's list
+    route) and kernels.compact_phrase_body (each distinct shape's largest
+    group, at most `per_kind` shapes a kind) while installed (`with
+    Recorder() as rec:`), so that `time_calls` can hold and time them
+    afterwards."""
 
-    KINDS = ("semidense_phrase", "list_phrase")
+    KINDS = ("semidense_phrase", "list_phrase", "list_phrase_nogate",
+             "compact_phrase")
 
     def __init__(self, per_kind: int = 16):
         self.per_kind = per_kind
@@ -890,11 +1256,13 @@ class Recorder:
     def __enter__(self):
         from wiser_tpu_torch.engine import kernels as K
 
-        self._orig = (K.semidense_phrase_body, K.list_phrase)
-        sdp, lst = self._orig
+        self._orig = (K.semidense_phrase_body, K.list_phrase,
+                      K.compact_phrase_body)
+        sdp, lst, cpt = self._orig
 
-        def rec(kind, fn, b_arg):
+        def rec(kind_of, fn, b_arg):
             def run(*args, **kw):
+                kind = kind_of(kw)
                 mode = "tc" if kw.get("avg32") is not None else "raw"
                 key = (mode, kw["T"], kw["L"], kw["M"])
                 B = args[b_arg].shape[0]
@@ -907,14 +1275,17 @@ class Recorder:
                 return fn(*args, **kw)
             return run
 
-        K.semidense_phrase_body = rec("semidense_phrase", sdp, 5)
-        K.list_phrase = rec("list_phrase", lst, 4)
+        K.semidense_phrase_body = rec(lambda kw: "semidense_phrase", sdp, 5)
+        K.list_phrase = rec(lambda kw: "list_phrase" + (
+            "" if kw.get("gate", True) else "_nogate"), lst, 4)
+        K.compact_phrase_body = rec(lambda kw: "compact_phrase", cpt, 5)
         return self
 
     def __exit__(self, *exc):
         from wiser_tpu_torch.engine import kernels as K
 
-        K.semidense_phrase_body, K.list_phrase = self._orig
+        (K.semidense_phrase_body, K.list_phrase,
+         K.compact_phrase_body) = self._orig
         return False
 
     def chosen(self, kind: str, busiest: bool = True):
@@ -968,9 +1339,34 @@ def kernel_rows(rows: list, source: str) -> dict:
 # -- one tree -----------------------------------------------------------------
 
 
-def measure(root: str, index=None, sets=SETS) -> dict:
-    """One tree's readings, in this process: with `index`, the route
-    split, raw and tc."""
+KINDS = ("semidense_phrase", "list_phrase", "compact_phrase",
+         "list_phrase_nogate")
+
+
+def timing(dev, kinds=KINDS, plain: bool = True,
+           compare: bool = True) -> list:
+    """Each kind's entry point at its timed shapes on synthetic 1M
+    columns: the semidense phrase route (SDP_TIME, SDP_ENGINE), the list
+    chain (LIST_ENGINE, LIST_TIME), the compact route (COMPACT_TIME,
+    COMPACT_ENGINE), the list chain without its gate (LIST_NOGATE_TIME)."""
+    runs = {"semidense_phrase": lambda: time_semidense_phrase(
+                dev, SDP_TIME + SDP_ENGINE, plain=plain, compare=compare),
+            "list_phrase": lambda: time_list_phrase(
+                dev, LIST_ENGINE + LIST_TIME, plain=plain, compare=compare),
+            "compact_phrase": lambda: time_compact_phrase(
+                dev, COMPACT_TIME + COMPACT_ENGINE, plain=plain,
+                compare=compare),
+            "list_phrase_nogate": lambda: time_list_nogate(
+                dev, plain=plain, compare=compare)}
+    return [r for k in kinds for r in runs[k]()]
+
+
+def measure(root: str, index=None, sets=SETS, mesh_sets=MESH_SETS,
+            kinds=KINDS) -> dict:
+    """One tree's readings, in this process: the routes' entry points at
+    the timed shapes; with `index`,
+    the route split, raw and tc, on the resident engine (`sets`) and the
+    mesh (`mesh_sets`)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -982,12 +1378,12 @@ def measure(root: str, index=None, sets=SETS) -> dict:
     dev = torch.device("cuda", 0)
     out = {"tree": root, "card": card_line(),
            "module": os.path.abspath(K.__file__),
-           "timing": time_semidense_phrase(dev, SDP_TIME + SDP_ENGINE,
-                                           plain=False, compare=False)
-           + time_list_phrase(dev, LIST_ENGINE + LIST_TIME, plain=False,
-                              compare=False)}
+           "timing": timing(dev, kinds, plain=False, compare=False)}
     if index:
-        out["split"] = {c: route_split(index, c, sets) for c in ("raw", "tc")}
+        out["split"] = {c: route_split(index, c, sets) for c in ("raw", "tc")
+                        if sets}
+        out["split"].update({f"mesh_{c}": mesh_split(index, c, mesh_sets)
+                             for c in ("raw", "tc") if mesh_sets})
     return out
 
 
@@ -998,7 +1394,12 @@ def main(argv=None) -> dict:
                     help="comma-separated trees, measured in turns")
     ap.add_argument("--root", help="measure this tree in this process")
     ap.add_argument("--index", help="a saved 1M index (with phrase_pairs.json)")
-    ap.add_argument("--sets", default=",".join(SETS))
+    ap.add_argument("--sets", default=",".join(SETS),
+                    help="the resident engine's route sets of --index")
+    ap.add_argument("--mesh-sets", default=",".join(MESH_SETS),
+                    help="the mesh's route sets of --index ('' for none)")
+    ap.add_argument("--kinds", default=",".join(KINDS),
+                    help="the kinds timed at synthetic shapes")
     ap.add_argument("--split", action="store_true",
                     help="the route split of --index in this tree only")
     ap.add_argument("--select-path", choices=("one", "two"), default=None,
@@ -1015,21 +1416,24 @@ def main(argv=None) -> dict:
                     "shapes (tune_list), then stop")
     args = ap.parse_args(argv)
     sets = [s for s in args.sets.split(",") if s]
+    mesh_sets = [s for s in args.mesh_sets.split(",") if s]
+    kinds = [s for s in args.kinds.split(",") if s]
     if args.root:
-        res = measure(args.root, args.index, sets)
+        res = measure(args.root, args.index, sets, mesh_sets, kinds)
         print(json.dumps(res), flush=True)
         return res
     if args.trees:
         from wiser_tpu_torch.tools.unpack_bench import run_trees
 
-        extra = ["--sets", ",".join(sets)]
+        extra = ["--sets", ",".join(sets), "--mesh-sets",
+                 ",".join(mesh_sets), "--kinds", ",".join(kinds)]
         if args.index:
             extra += ["--index", os.path.abspath(args.index)]
         res = {"runs": run_trees(__file__, args.trees.split(","), extra)}
         print(json.dumps({"phrase_bench": [
             {"tree": r["tree"], "card": r["card"],
              **{f"{x['kind']}_{x['mode']}_B{x['B']}"
-                + (f"_T{x['T']}" if x["kind"] == "list_phrase" else "")
+                + (f"_T{x['T']}" if x["kind"].startswith("list") else "")
                 + f"_L{x['L']}":
                 [x["device_ms"], x["queued_ms"], x["flushed_ms"], x["share"]]
                 for x in r.get("timing", [])},
@@ -1039,7 +1443,7 @@ def main(argv=None) -> dict:
         from wiser_tpu_torch.tools.dense_bench import forced_path
 
         with forced_path(args.select_path):
-            res = measure(".", args.index, sets)
+            res = measure(".", args.index, sets, mesh_sets, kinds)
         res["select_path"] = args.select_path
         print(json.dumps(split_summary(res["split"])), flush=True)
     else:
@@ -1061,15 +1465,15 @@ def main(argv=None) -> dict:
             res["tune_list"] = tune_list(dev)
         checks = () if probing else (
             ("semidense_phrase_check", semidense_phrase_cases),
-            ("list_phrase_check", list_phrase_cases))
+            ("list_phrase_check", list_phrase_cases),
+            ("compact_phrase_check", compact_phrase_cases))
         for name, fn in checks:
             t0 = time.perf_counter()
             res[name] = fn(dev)
             res[name]["wall_s"] = time.perf_counter() - t0
             log(f"{name}: {res[name]}")
         if not (args.check_only or probing):
-            res["timing"] = (time_semidense_phrase(dev, SDP_TIME + SDP_ENGINE)
-                             + time_list_phrase(dev, LIST_ENGINE + LIST_TIME))
+            res["timing"] = timing(dev, kinds)
         print(json.dumps({k: v for k, v in res.items() if k != "timing"}))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

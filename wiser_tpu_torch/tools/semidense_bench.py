@@ -1,8 +1,8 @@
 """The semidense step's kernel (ops/semidense.semidense, csrc/semidense.cu)
-and the phrase position verification's (ops/phrase.phrase_verify_docs and
-phrase_verify_pidx, csrc/phrase.cu) held against their plain torch
-versions (engine/kernels._semidense_step_torch, _verify_docs_torch,
-_verify_pidx_torch) and timed beside them.
+and the phrase position verification's (ops/phrase.phrase_verify_docs,
+csrc/phrase.cu) held against their plain torch versions
+(engine/kernels._semidense_step_torch, _verify_docs_torch) and timed
+beside them.
 
     python -m wiser_tpu_torch.tools.semidense_bench [--out report.json]
     python -m wiser_tpu_torch.tools.semidense_bench --probe [--out r.json]
@@ -25,8 +25,8 @@ memory). `check_semidense` is the comparison
 every row; the kept (doc, f32 score bits, tfs) in (score desc, doc asc)
 order, equal to the plain version's on unflagged rows and above the
 boundary score on flagged ones; the top-M score multisets equal.
-`docs_cases` runs the verification's two forms (from kept docs, from
-posting indices) over postings with planted phrases and noise (DOCS_GRID:
+`docs_cases` runs the verification from kept docs over postings with
+planted phrases and noise (DOCS_GRID:
 anchors on term 0 and later terms, a group of 8 and a warp an item, an
 int32 column, runs past the iteration count, docs in no run, -1 lanes);
 the counts must be equal on every row. `verify_inputs` makes position
@@ -44,12 +44,11 @@ kernel; CUDA events), the kernel once more after an L2 flush, its
 launches by torch.profiler (else CUDA events around calls queued behind
 a sleep, search_bench.queued_ms), the wrapper's host cost per call, the peak
 device memory above the inputs and the bytes bound
-(`semidense_bound_bytes`, `docs_bound_bytes`, `pidx_bound_bytes`).
+(`semidense_bound_bytes`, `docs_bound_bytes`).
 
 `--trees` measures each listed tree once, in turns, each in its own
 process importing wiser_tpu_torch from that tree (tools/unpack_bench.
-run_trees): the entry points (_semidense_step, the verification as the
-tree's routes run it: route_forms) at the
+run_trees): the entry points (_semidense_step, _verify_docs) at the
 synthetic shapes, then with `--index` (a saved 1M index) route_bench's
 `--routes` sets, raw and tc, each traced, with the peak device memory
 of a semidense group and of a mega phrase group above their inputs;
@@ -600,7 +599,7 @@ def docs_call(fn, t: dict, T: int, NL: int, PP: int, PW: int,
 
 
 def pidx_call(fn, t: dict, T: int, NL: int, PP: int, PW: int):
-    """fn (kernels._verify_pidx or its plain version) on t."""
+    """fn (kernels._verify_pidx_torch) on t."""
     return fn(t["positions"], t["pos_starts"], t["pidx"], t["slot_of"], T=T,
               NL=NL, PP=PP, PW=PW)
 
@@ -621,8 +620,8 @@ DOCS_GRID = (
 
 
 def docs_cases(dev, seed: int = 0) -> dict:
-    """The routes' verification forms (from kept docs, from posting
-    indices) against their plain versions, both on dev, over DOCS_GRID:
+    """The mega routes' verification from kept docs against its plain
+    version, both on dev, over DOCS_GRID:
     anchors on term 0 and later terms, an item a group of 8 and a warp,
     T past a group's 8, an int32 column, runs past the iteration count
     (the recovery replays the fixed-count search there), runs of a few
@@ -641,11 +640,6 @@ def docs_cases(dev, seed: int = 0) -> dict:
                          docs_call(K._verify_docs_torch, t, T, NL, PP, PW,
                                    n_iters), what)
         r.update(form="docs", B=B, T=T, NL=NL, PP=PP, PW=PW, what=what)
-        rows.append(r)
-        r = check_verify(pidx_call(K._verify_pidx, t, T, NL, PP, PW),
-                         pidx_call(K._verify_pidx_torch, t, T, NL, PP, PW),
-                         what.replace("docs", "pidx"))
-        r.update(form="pidx", B=B, T=T, NL=NL, PP=PP, PW=PW, what=what)
         rows.append(r)
     return {"cases": len(rows), "rows": rows, "max_abs_err": 0.0}
 
@@ -707,20 +701,6 @@ def docs_bound_bytes(t: dict, T: int, NL: int, PW: int, n_iters: int) -> int:
     wins = _window_sectors(t["positions"], ps, pe, PW)
     return int((search + pairs + wins) * SECTOR + B * NL * 4 + B * T * 8
                + B * 4 + B * NL * 4)
-
-
-def pidx_bound_bytes(t: dict, T: int, NL: int, PW: int) -> int:
-    """The bytes the verification from posting indices must move, each
-    once: the (B, T, NL) indices and (B, T) slot_of, the sectors of each
-    (lane, term)'s pos_starts pair and of its window's valid entries, and
-    the (B, NL) counts."""
-    pidx = t["pidx"].cpu().numpy().astype(np.int64)
-    B = pidx.shape[0]
-    ps, pe, pairs = _pos_pairs(t["pos_starts"].cpu().numpy()
-                               .astype(np.int64), pidx.ravel())
-    wins = _window_sectors(t["positions"], ps, pe, PW)
-    return int((pairs + wins) * SECTOR + B * T * NL * 4 + B * T * 4
-               + B * NL * 4)
 
 
 # -- timing ------------------------------------------------------------------
@@ -853,85 +833,42 @@ DOCS_SHAPES = ((128, 2, 1024, 16, 16, 30_000), (128, 2, 1024, 32, 32, 30_000),
 DOCS_TAGS = ("wiser_phrase::",)
 
 
-def route_forms(K):
-    """(from docs, from posting indices): the verification as this
-    tree's mega and compact routes run it, _verify_docs and _verify_pidx
-    where the tree has them, else the steps the routes ran before them
-    (the search, the slot gather and the pos_starts gathers in torch, then
-    _verify_pos_windows: its kernel on a card), so two trees time the
-    same work."""
-    import torch
-
-    if hasattr(K, "_verify_docs"):
-        return K._verify_docs, K._verify_pidx
-
-    def docs(postings_doc, positions, pos_starts, docs, starts, ends, anchor,
-             *, T, NL, PP, PW, n_iters):
-        B = docs.shape[0]
-        lo = K._binary_search(postings_doc, docs[:, None, :].expand(B, T, NL),
-                              starts[:, :, None], ends[:, :, None], n_iters)
-        return K._verify_pos_windows(
-            positions, K._gather1d(pos_starts, lo),
-            K._gather1d(pos_starts, lo + 1), anchor, T=T, NL=NL, PP=PP,
-            PW=PW)
-
-    def pidx(positions, pos_starts, pidx, slot_of, *, T, NL, PP, PW):
-        q = K._slot_gather_q(pidx, slot_of)
-        return K._verify_pos_windows(
-            positions, K._gather1d(pos_starts, q),
-            K._gather1d(pos_starts, q + 1),
-            torch.zeros(pidx.shape[0], dtype=torch.int32,
-                        device=pidx.device), T=T, NL=NL, PP=PP, PW=PW)
-
-    return docs, pidx
-
-
 def time_docs(dev, shapes=DOCS_SHAPES, plain: bool = True,
               compare: bool = True) -> list:
-    """The verification from kept docs and from posting indices as this
-    tree's routes run it (route_forms: the kernels where the tree has
-    them) and, with `plain`, their plain versions at `shapes` on
+    """The verification from kept docs (kernels._verify_docs: its kernel
+    on a card) and, with `plain`, its plain version at `shapes` on
     docs_inputs, compared and timed (time_pair; device_ms the calls
-    queued behind a sleep, every launch of the form included), each
-    beside its bytes bound (docs_bound_bytes, pidx_bound_bytes)."""
+    queued behind a sleep, every launch included), each beside its bytes
+    bound (docs_bound_bytes)."""
     import torch
 
     from wiser_tpu_torch.engine import kernels as K
 
-    docs_form, pidx_form = route_forms(K)
     rows = []
     for B, T, NL, PP, PW, run in shapes:
         v = docs_inputs(B, T, NL, PP, PW, 17 + B + T, run=run)
         it = v.pop("n_iters")
         t = verify_tensors(v, dev)
-        for form in ("docs", "pidx"):
-            if form == "docs":
-                def kern(t=t):
-                    return docs_call(docs_form, t, T, NL, PP, PW, it)
 
-                def plain_fn(t=t):
-                    return docs_call(K._verify_docs_torch, t, T, NL, PP, PW,
-                                     it)
-                nbytes = docs_bound_bytes(t, T, NL, PW, it)
-            else:
-                def kern(t=t):
-                    return pidx_call(pidx_form, t, T, NL, PP, PW)
+        def kern(t=t):
+            return docs_call(K._verify_docs, t, T, NL, PP, PW, it)
 
-                def plain_fn(t=t):
-                    return pidx_call(K._verify_pidx_torch, t, T, NL, PP, PW)
-                nbytes = pidx_bound_bytes(t, T, NL, PW)
-            row = {"kind": f"verify_{form}", "B": B, "T": T, "NL": NL,
-                   "PP": PP, "PW": PW, "run": run, "n_iters": it}
-            if compare:
-                row["check"] = check_verify(kern(), plain_fn(),
-                                            f"verify_{form} timed {row}")
-            row.update(time_pair(kern, plain_fn, nbytes, DOCS_TAGS,
-                                 with_plain=plain))
-            row["device_ms"] = row["queued_ms"]
-            row["timing"] = "CUDA events, queued (every launch of the form)"
-            row["share"] = row["bound_ms"] / row["device_ms"]
-            log(f"verify_{form} timing {json.dumps(row)}")
-            rows.append(row)
+        def plain_fn(t=t):
+            return docs_call(K._verify_docs_torch, t, T, NL, PP, PW, it)
+
+        row = {"kind": "verify_docs", "B": B, "T": T, "NL": NL, "PP": PP,
+               "PW": PW, "run": run, "n_iters": it}
+        if compare:
+            row["check"] = check_verify(kern(), plain_fn(),
+                                        f"verify_docs timed {row}")
+        row.update(time_pair(kern, plain_fn,
+                             docs_bound_bytes(t, T, NL, PW, it), DOCS_TAGS,
+                             with_plain=plain))
+        row["device_ms"] = row["queued_ms"]
+        row["timing"] = "CUDA events, queued (every launch)"
+        row["share"] = row["bound_ms"] / row["device_ms"]
+        log(f"verify_docs timing {json.dumps(row)}")
+        rows.append(row)
         del t
         torch.cuda.empty_cache()
     return rows
@@ -942,12 +879,12 @@ def time_docs(dev, shapes=DOCS_SHAPES, plain: bool = True,
 
 class Recorder:
     """Records the calls an engine makes of kernels._semidense_step and
-    the verification's forms (_verify_docs, _verify_pidx; each distinct
-    shape's largest group, at most `per_kind`
-    shapes a kind) while installed (`with Recorder() as rec:`), so that
-    `time_calls` can hold and time them afterwards."""
+    the verification from kept docs (_verify_docs; each distinct shape's
+    largest group, at most `per_kind` shapes a kind) while installed
+    (`with Recorder() as rec:`), so that `time_calls` can hold and time
+    them afterwards."""
 
-    KINDS = ("semidense", "verify_docs", "verify_pidx")
+    KINDS = ("semidense", "verify_docs")
 
     def __init__(self, per_kind: int = 16):
         self.per_kind = per_kind
@@ -957,8 +894,8 @@ class Recorder:
     def __enter__(self):
         from wiser_tpu_torch.engine import kernels as K
 
-        self._orig = (K._semidense_step, K._verify_docs, K._verify_pidx)
-        semi, docs, pidx = self._orig
+        self._orig = (K._semidense_step, K._verify_docs)
+        semi, docs = self._orig
 
         def semi_rec(*args, **kw):
             mode = "tc" if kw.get("avg32") is not None else "raw"
@@ -971,14 +908,8 @@ class Recorder:
             self._keep("verify_docs", key, args[3].shape[0], args, kw)
             return docs(*args, **kw)
 
-        def pidx_rec(*args, **kw):
-            key = (kw["T"], kw["NL"], kw["PP"], kw["PW"])
-            self._keep("verify_pidx", key, args[2].shape[0], args, kw)
-            return pidx(*args, **kw)
-
         K._semidense_step = semi_rec
         K._verify_docs = docs_rec
-        K._verify_pidx = pidx_rec
         return self
 
     def _keep(self, kind, key, B, args, kw):
@@ -994,7 +925,7 @@ class Recorder:
     def __exit__(self, *exc):
         from wiser_tpu_torch.engine import kernels as K
 
-        K._semidense_step, K._verify_docs, K._verify_pidx = self._orig
+        K._semidense_step, K._verify_docs = self._orig
         return False
 
     def chosen(self, kind: str):
@@ -1041,33 +972,26 @@ def time_calls(rec: Recorder, plain: bool = True) -> dict:
             with_plain=plain))
         log(f"semidense engine timing {json.dumps(row)}")
         out["semidense"].append(row)
-    for form, call, plain_call in (
-            ("docs", K._verify_docs, K._verify_docs_torch),
-            ("pidx", K._verify_pidx, K._verify_pidx_torch)):
-        for key, calls, (B, args, kw) in rec.chosen("verify_" + form):
-            T, NL, PP, PW = key[:4]
+    for key, calls, (B, args, kw) in rec.chosen("verify_docs"):
+        T, NL, PP, PW = key[:4]
 
-            def kern(args=args, kw=kw, call=call):
-                return call(*args, **kw)
+        def kern(args=args, kw=kw):
+            return K._verify_docs(*args, **kw)
 
-            def plain_fn(args=args, kw=kw, call=plain_call):
-                return call(*args, **kw)
+        def plain_fn(args=args, kw=kw):
+            return K._verify_docs_torch(*args, **kw)
 
-            row = {"kind": "verify_" + form, "B": B, "T": T, "NL": NL,
-                   "PP": PP, "PW": PW, "calls": calls}
-            row["check"] = check_verify(kern(), plain_fn(),
-                                        f"verify_{form} engine call {row}")
-            if form == "docs":
-                t = dict(zip(("postings_doc", "positions", "pos_starts",
-                              "docs", "starts", "ends"), args))
-                nbytes = docs_bound_bytes(t, T, NL, PW, kw["n_iters"])
-            else:
-                t = dict(zip(("positions", "pos_starts", "pidx"), args))
-                nbytes = pidx_bound_bytes(t, T, NL, PW)
-            row.update(time_pair(kern, plain_fn, nbytes, DOCS_TAGS,
-                                 with_plain=plain))
-            log(f"verify_{form} engine timing {json.dumps(row)}")
-            out["verify_" + form].append(row)
+        row = {"kind": "verify_docs", "B": B, "T": T, "NL": NL, "PP": PP,
+               "PW": PW, "calls": calls}
+        row["check"] = check_verify(kern(), plain_fn(),
+                                    f"verify_docs engine call {row}")
+        t = dict(zip(("postings_doc", "positions", "pos_starts", "docs",
+                      "starts", "ends"), args))
+        row.update(time_pair(kern, plain_fn,
+                             docs_bound_bytes(t, T, NL, PW, kw["n_iters"]),
+                             DOCS_TAGS, with_plain=plain))
+        log(f"verify_docs engine timing {json.dumps(row)}")
+        out["verify_docs"].append(row)
     return out
 
 
